@@ -4,36 +4,52 @@
 // (the pallas_call at line 391).  Same arithmetic as that kernel:
 // - h_{t-1} is rebuilt from the y stream (zero at t = 0); under bf16, y is
 //   stored bf16, which is exactly the operand the forward multiplied;
-// - the gates are recomputed from x, h_{t-1} and c_{t-1} (the forward's own
-//   summation order, lstm_common.cuh::gate_column), never stored;
+// - the gates are recomputed from x, h_{t-1} and c_{t-1} (in fp32 in the
+//   forward's own summation order, lstm_common.cuh), never stored in device
+//   memory;
 // - (dh, dc) are carried in reverse time;
 // - da = [da_i, da_f, da_g, da_o] is rounded to the operand type for
 //   dh_{t-1} = da . W_hh, dx = da . W_ih, dW_ih = sum x^T da and
 //   dW_hh = sum h_{t-1}^T da; db sums the fp32 da;
 // - weight gradients come out fp32, dx in x's type.
 //
-// Design (b) of the port's plan: the reverse-time recurrence and the
-// reductions are separate kernels, four launches per call, on one stream.
-//   1. lstm_bwd_rec: one block per ROWS batch rows runs all T steps in
-//      reverse (the sequential TPU grid becomes a loop inside the block).
-//      Per step: recompute the gates (thread = gate column), the cell
-//      gradient (thread = (row, unit)), then dh_{t-1} = da . W_hh (thread =
-//      (row, unit) again, so dh stays in its register).  Both weight layouts
-//      sit in shared memory for the whole launch.  It writes da, rounded to
-//      the operand type, to a (B, T, 256) scratch in device memory (2.1 GB
-//      fp32 / 1.05 GB bf16 at B=128, T=16000) and a per-block partial db.
-//   2. lstm_bwd_dx: dx = da . W_ih, row tiles of the flattened (B*T) axis,
-//      W_ih in shared memory, a grid-stride loop over tiles.
-//   3. lstm_bwd_dw: dW = da^T . [x | h_{t-1}] over chunks of the (B*T)
-//      axis; each block writes its chunk's (64 x 128) partial sums.
+// The reverse-time recurrence and the reductions are separate kernels, four
+// launches per call, on one stream.
+//   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
+//      caller, ops/lstm_kernel.py::launch_plan) runs all T steps in reverse.
+//      It writes da, rounded to the operand type, to a (B, T, 256) scratch
+//      in device memory (2.1 GB fp32 / 1.05 GB bf16 at B=128, T=16000) and
+//      a per-block partial db.
+//   2. dx = da . W_ih over row tiles of the flattened (B*T) axis.
+//   3. dW = da^T . [x | h_{t-1}] over chunks of the (B*T) axis; each block
+//      writes partial sums of its chunk.
 //   4. lstm_bwd_sum: sums the chunk partials and the db partials in a fixed
 //      order.  No atomics: two runs give the same bits.
 // What bounds it on this card: kernel 1 is sequential in T, so it costs the
-// per-step latency of one block times T (as the forward does); kernels 2-4
-// are fp32 CUDA-core products over 2M rows that read the da scratch once or
-// four times.  The bound of the whole call is set by bytes (fp32) or by the
-// matrix products (bf16) and is far below the recurrence's latency.  Tensor
-// cores (wgmma) for kernels 2-3 and a faster step are work for a later change.
+// latency of one step times T; kernels 2-3 are real matrix products over 2M
+// rows that read the da scratch once or twice.  The bound of the whole call
+// (the products in fp32, bytes in bf16) is far below the recurrence's
+// latency.  What the design does about it:
+// - only the (dh, dc) carry is sequential, so only it is on the sequential
+//   path.  The gate recompute of a step needs x_t, y_{t-1} and c_{t-1}, all
+//   saved by the forward: the producer warps (lstm_common.cuh) compute it
+//   for a chunk of 8 steps at a time, ahead of the consumers, and leave in
+//   a two-buffer ring in shared memory the step's local derivatives: for
+//   each gate column the factor that turns the carried gradient into da,
+//   and for each unit o (1 - tanh^2 c_t), f and dy.  In bf16 the recompute
+//   runs on the tensor cores (mma.sync, the chunk's 8 steps are a tile's N)
+//   with [W_ih | W_hh] in registers as fragments; in fp32 on the CUDA
+//   cores, the weights read from shared memory, one 16-byte load per 4 terms
+//   reused over the chunk's 8 steps.  No device-memory scratch beyond da;
+// - a consumer step is: dc and da from the ring (5 flops), da to shared
+//   memory, one barrier among the consumer warps, dh_{t-1} = da . W_hh from
+//   register-held weights (bf16 widened once), split over the lanes of a
+//   warp so that a thread reads 16 of the 256 da values, summed by shuffles
+//   in a fixed order.  da is double-buffered;
+// - dx and dW: in bf16 on the tensor cores (da, x and y are bf16 already,
+//   products exact, fp32 sums), staged through shared memory with 16-byte
+//   loads; in fp32 on the CUDA cores in full fp32, dW with 8 x 8 outputs a
+//   thread so that four 16-byte reads feed 64 products.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -43,121 +59,277 @@ namespace {
 
 using namespace awm;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+constexpr int SB = 8;               // steps per chunk of the ring
+constexpr int RING = G + 3 * H;     // floats of one (step, row): factor[G] | dtanh[H] | f[H] | dy[H]
+constexpr int DA_GATE = H + 8;      // stride of one gate's da in shared memory: the four
+                                    // gates' 16-byte reads fall in distinct banks
+constexpr int DA_ROW = 4 * DA_GATE;
+
+// The fp32 producers read [W_ih | W_hh] from shared memory; the bf16 ones
+// hold them in registers as mma fragments.
+template <typename T> constexpr int W_SMEM_BYTES = is_bf16<T> ? 0 : (int)sizeof(T) * G * K;
+// Row stride of the staged x_t | h_{t-1}: the bf16 rows are read as mma B
+// fragments, 8 rows at a time, and the pad puts them in distinct banks.
+template <typename T> constexpr int KP = is_bf16<T> ? K + 8 : K;
+
+template <typename T, int R>
+constexpr int rec_smem_bytes() {
+  return (int)(W_SMEM_BYTES<T> +
+               sizeof(float) * (NBUF * SB * R * RING + R * SB * H + 2 * R * DA_ROW) +
+               sizeof(T) * R * SB * KP<T>);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS, 1)
 lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
                     const float* __restrict__ cprev, const float* __restrict__ dy,
                     const T* __restrict__ w_ih, const T* __restrict__ w_hh,
                     const float* __restrict__ bias, T* __restrict__ da_out,
                     float* __restrict__ db_part, int batch, int steps) {
-  using Q = typename Quad<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Q* s_w = reinterpret_cast<const Q*>(smem);                      // gate-column layout
-  T* s_whh = reinterpret_cast<T*>(smem + sizeof(T) * G * K);            // [G][H], torch layout
-  float* s_xh = reinterpret_cast<float*>(smem + sizeof(T) * G * (K + H));  // [ROWS][K]
-  float* s_gates = s_xh + ROWS * K;                                     // [ROWS][G]
-  float* s_da = s_gates + ROWS * G;                                     // [ROWS][G], operands
+  // fp32 only: s_w[((sec * 4 + m) * 4 + q) * COLS + p] = the four terms 4 (4 q + kp) .. + 3 of
+  // gate m's row for thread p's unit, of W_ih (sec 0) or W_hh (sec 1): lstm_common.cuh's split.
+  const float4* s_w = reinterpret_cast<const float4*>(smem);
+  float* s_ring = reinterpret_cast<float*>(smem + W_SMEM_BYTES<T>);  // [NBUF][SB][R][RING]
+  float* s_c = s_ring + NBUF * SB * R * RING;                        // [R][SB][H]: c_{t-1}
+  float* s_da = s_c + R * SB * H;                                    // [2][R][DA_ROW], operands
+  T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DA_ROW);             // [R][SB][KP]: x_t | h_{t-1}
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  stage_gate_weights(reinterpret_cast<T*>(smem), w_ih, w_hh);
-  for (int idx = tid; idx < G * H; idx += THREADS) s_whh[idx] = w_hh[idx];
+  const int p = threadIdx.x & (COLS - 1);
+  const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
+  const int row0 = blockIdx.x * R;
+  const int n_chunks = (steps + SB - 1) / SB;
+  // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
 
-  // Cell / dh role of this thread: one (row r2, unit u).
-  const int r2 = tid / H, u = tid % H;
-  const bool valid = row0 + r2 < batch;
-  const size_t xrow = (size_t)(row0 + r2) * steps * D;
-  const size_t hrow = (size_t)(row0 + r2) * steps * H;
-  const size_t arow = (size_t)(row0 + r2) * steps * G;
-  auto ld_x = [&](int t) { return valid && t >= 0 ? load_f(x + xrow + (size_t)t * D + u) : 0.0f; };
-  auto ld_y = [&](int t) { return valid && t >= 0 ? load_f(y + hrow + (size_t)t * H + u) : 0.0f; };
-  auto ld_c = [&](int t) { return valid && t >= 0 ? cprev[hrow + (size_t)t * H + u] : 0.0f; };
-  auto ld_dy = [&](int t) { return valid && t >= 0 ? dy[hrow + (size_t)t * H + u] : 0.0f; };
-
-  const int last = steps - 1;
-  s_xh[r2 * K + u] = ld_x(last);          // x_t
-  s_xh[r2 * K + D + u] = ld_y(last - 1);  // h_{t-1} = y_{t-1}
-  float x_next = ld_x(last - 1), y_next = ld_y(last - 2);
-  float dy_t = ld_dy(last), c_prev = ld_c(last);
-  float dh = 0.0f, dc = 0.0f;
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float b_j = bias[tid];
-  __syncthreads();
-
-  for (int t = last; t >= 0; --t) {
-    // Phase 1: thread tid = gate column j: recompute the gates of step t.
-    float gates[ROWS];
-    gate_column<T>(s_w, s_xh, tid, b_j, gates);
+  if (threadIdx.x >= COLS) {
+    // ---- producers: the gate recompute and each step's local derivatives ----
+    const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+    const int unit_t = (unit & ~7) + g8;  // the unit whose gates this lane holds after an mma
+    uint32_t a_ih[2][4][4], a_hh[2][4][4];
+    float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (is_bf16<T>) {
+      load_a_fragments(w_ih, unit & ~7, lane, a_ih);
+      load_a_fragments(w_hh, unit & ~7, lane, a_hh);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s_gates[r * G + tid] = gates[r];
-    __syncthreads();
-
-    // Phase 2: thread (r2, u): gate gradients, dc_{t-1}, stage step t-1.
-    const float* g = s_gates + r2 * G;
-    const float ig = sigmoid(g[u]);
-    const float fg = sigmoid(g[H + u]);
-    const float gg = tanhf(g[2 * H + u]);
-    const float og = sigmoid(g[3 * H + u]);
-    const float c_t = fg * c_prev + ig * gg;
-    const float tc = tanhf(c_t);
-    const float dh_total = dy_t + dh;
-    const float da_o = dh_total * tc * og * (1.0f - og);
-    const float dc_total = dc + dh_total * og * (1.0f - tc * tc);
-    const float da[4] = {dc_total * gg * ig * (1.0f - ig),      // i
-                         dc_total * c_prev * fg * (1.0f - fg),  // f
-                         dc_total * ig * (1.0f - gg * gg),      // g
-                         da_o};                                 // o
-    dc = dc_total * fg;
+      for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
+    } else {
+      T* s_w_t = reinterpret_cast<T*>(smem);
+      for (int idx = p; idx < G * K; idx += COLS) {
+        const int j = idx / K, k = idx % K;  // row j of the weights (gate m, unit u), term k
+        const T wv = k < D ? w_ih[j * D + k] : w_hh[j * H + (k - D)];
+        const int sec = k / D, quad = (k % D) / 4, m = j / H, u = j % H;
+        const int slot = ((sec * 4 + m) * 4 + quad / 4) * COLS + u * 4 + quad % 4;
+        s_w_t[slot * 4 + k % 4] = wv;
+      }
+      b = bias[col];
+    }
+    constexpr int PER = R * SB * H / COLS;  // staged values per thread, chunk and stream
+    float xr[PER], yr[PER], cr[PER], dyr[PER];
+    auto fetch = [&](int c) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      db_acc[m] += da[m];
-      s_da[r2 * G + m * H + u] = operand(da[m], x);
-      if (valid) store_f(da_out + arow + (size_t)t * G + m * H + u, da[m]);
+      for (int i = 0; i < PER; ++i) {
+        const int e = i * COLS + p;  // [r][s][u]
+        const int r = e / (SB * H), s = (e / H) % SB, u = e % H;
+        const int row = row0 + r, t = steps - 1 - c * SB - s;
+        const bool ok = row < batch && t >= 0;
+        const size_t at = ((size_t)row * steps + t) * H + u;
+        xr[i] = ok ? load_f(x + at) : 0.0f;
+        yr[i] = ok && t > 0 ? load_f(y + at - H) : 0.0f;  // h_{t-1} = y_{t-1}, zero at t = 0
+        cr[i] = ok ? cprev[at] : 0.0f;
+        dyr[i] = ok ? dy[at] : 0.0f;
+      }
+    };
+    fetch(0);
+    const int quad_lane = (threadIdx.x & 31) & ~3;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      float* ring = s_ring + buf * SB * R * RING;
+      bar_sync(BAR_PROD, COLS);  // the last chunk's reads of s_xh and s_c are done (and s_w is staged)
+      if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = i * COLS + p;
+        const int r = e / (SB * H), s = (e / H) % SB, u = e % H;
+        store_f(s_xh + (r * SB + s) * KP<T> + u, xr[i]);
+        store_f(s_xh + (r * SB + s) * KP<T> + D + u, yr[i]);
+        s_c[(r * SB + s) * H + u] = cr[i];
+        ring[(s * R + r) * RING + G + 2 * H + u] = dyr[i];
+      }
+      if (c + 1 < n_chunks) fetch(c + 1);
+      bar_sync(BAR_PROD, COLS);
+      if constexpr (is_bf16<T>) {
+        // Tensor cores: a row's 8 steps are one mma tile (lstm_common.cuh); the lane
+        // then holds the four gates of unit_t for steps 2 t4 and 2 t4 + 1.
+#pragma unroll 1
+        for (int r = 0; r < R; ++r) {
+          float c[2][4] = {{b4[0], b4[0], b4[1], b4[1]}, {b4[2], b4[2], b4[3], b4[3]}};
+          const T* v = s_xh + (r * SB + g8) * KP<T>;
+          mma_64(c, a_ih, v, t4);
+          mma_64(c, a_hh, v + D, t4);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int s = 2 * t4 + e;
+            const float ig = sigmoid(c[0][e]), fg = sigmoid(c[0][2 + e]);
+            const float gg = tanh_sig(c[1][e]), og = sigmoid(c[1][2 + e]);
+            const float c_prev = s_c[(r * SB + s) * H + unit_t];
+            const float tc = tanh_sig(fg * c_prev + ig * gg);
+            float* en = ring + (s * R + r) * RING;
+            *reinterpret_cast<float4*>(en + unit_t * 4) =
+                make_float4(gg * ig * (1.0f - ig), c_prev * fg * (1.0f - fg),
+                            ig * (1.0f - gg * gg), tc * og * (1.0f - og));
+            en[G + unit_t] = og * (1.0f - tc * tc);
+            en[G + H + unit_t] = fg;
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int r = 0; r < R; ++r) {
+          // acc[sec][s][m]: this lane's part of gate m's x (sec 0) and h (sec 1) products.
+          float acc[2][SB][4];
+#pragma unroll
+          for (int sec = 0; sec < 2; ++sec)
+#pragma unroll
+            for (int s = 0; s < SB; ++s)
+#pragma unroll
+              for (int m = 0; m < 4; ++m) acc[sec][s][m] = 0.0f;
+          const float* xh = s_xh + r * SB * K;  // T = float here, KP = K
+#pragma unroll
+          for (int sec = 0; sec < 2; ++sec)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float4 w[4];
+#pragma unroll
+              for (int m = 0; m < 4; ++m) w[m] = s_w[((sec * 4 + m) * 4 + q) * COLS + p];
+#pragma unroll
+              for (int s = 0; s < SB; ++s) {
+                const float4 v =
+                    *reinterpret_cast<const float4*>(xh + s * K + sec * D + 4 * (4 * q + gate));
+#pragma unroll
+                for (int m = 0; m < 4; ++m) dot_quad(acc[sec][s][m], w[m].x, w[m].y, w[m].z, w[m].w, v);
+              }
+            }
+          // Phase by phase over the steps, so that their latencies overlap.
+          float px[SB], ph[SB], act[SB], ig[SB], fg[SB], gg[SB], og[SB];
+          transpose_reduce4<2, 1, SB>(acc[0], gate & 2, gate & 1, px);
+          transpose_reduce4<2, 1, SB>(acc[1], gate & 2, gate & 1, ph);
+#pragma unroll
+          for (int s = 0; s < SB; ++s) act[s] = activate(gate, (px[s] + b) + ph[s]);
+          gather_gates<SB>(act, quad_lane, ig, fg, gg, og);
+#pragma unroll
+          for (int s = 0; s < SB; ++s) {
+            const float c_prev = s_c[(r * SB + s) * H + unit];
+            const float tc = tanh_sig(fg[s] * c_prev + ig[s] * gg[s]);
+            // da of this column = factor * (dh_total for gate o, dc_total for i, f, g).
+            const float factor = gate == 0 ? gg[s] * ig[s] * (1.0f - ig[s])
+                               : gate == 1 ? c_prev * fg[s] * (1.0f - fg[s])
+                               : gate == 2 ? ig[s] * (1.0f - gg[s] * gg[s])
+                                           : tc * og[s] * (1.0f - og[s]);
+            float* e = ring + (s * R + r) * RING;
+            e[p] = factor;
+            if (gate == 0) {
+              e[G + unit] = og[s] * (1.0f - tc * tc);  // dc_total = dc + dh_total * this
+              e[G + H + unit] = fg[s];                 // dc_{t-1} = dc_total * f
+            }
+          }
+        }
+      }
+      __threadfence_block();
+      bar_arrive(BAR_FULL + buf, THREADS);
     }
-    s_xh[r2 * K + u] = x_next;
-    s_xh[r2 * K + D + u] = y_next;
-    x_next = ld_x(t - 2);
-    y_next = ld_y(t - 3);
-    dy_t = ld_dy(t - 1);
-    c_prev = ld_c(t - 1);
-    __syncthreads();
-
-    // Phase 3: thread (r2, k = u): dh_{t-1}[k] = sum_j da[j] W_hh[j][k].
-    const float* da_r = s_da + r2 * G;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < G; j += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(da_r + j);
-      acc = fmaf(a.x, load_f(s_whh + (j + 0) * H + u), acc);
-      acc = fmaf(a.y, load_f(s_whh + (j + 1) * H + u), acc);
-      acc = fmaf(a.z, load_f(s_whh + (j + 2) * H + u), acc);
-      acc = fmaf(a.w, load_f(s_whh + (j + 3) * H + u), acc);
-    }
-    dh = acc;
+    return;
   }
 
-  // This block's db: sum the ROWS rows in a fixed order.
-  __syncthreads();
+  // ---- consumers: the (dh, dc) carry ----
+  // dh_{t-1} = da . W_hh in a warp: its 8 units x all 256 columns j of da.  Lane
+  // (half og = lane / 16, part jp = lane % 16) takes the four units 4 og .. 4 og + 3 of
+  // the warp and the 16 columns j = 64 q + 4 jp + e (q, e = 0..3):
+  // w[(q * 4 + e) * 4 + o] = W_hh[64 q + 4 jp + e][unit o of its four].  Four reads
+  // of 16 bytes a step and row, not sixteen; the parts meet by shuffles.
+  const int lane = threadIdx.x & 31, og = lane >> 4, jp = lane & 15;
+  const int unit0 = (unit & ~7) + 4 * og;
+  float w[64];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) s_gates[r2 * G + m * H + u] = db_acc[m];
-  __syncthreads();
-  float s = 0.0f;
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) s += s_gates[r * G + tid];
-  db_part[(size_t)blockIdx.x * G + tid] = s;
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        w[(q * 4 + e) * 4 + o] = load_f(w_hh + (size_t)(q * H + 4 * jp + e) * H + unit0 + o);
+  float dh[R], dc[R], db_acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
+
+  int cur = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c % NBUF;
+    bar_sync(BAR_FULL + buf, THREADS);
+    const float* ring = s_ring + buf * SB * R * RING;
+    const int t_hi = steps - 1 - c * SB;
+    const int n = t_hi + 1 < SB ? t_hi + 1 : SB;
+    for (int s = 0; s < n; ++s) {
+      const int t = t_hi - s;
+      float* da_s = s_da + cur * R * DA_ROW;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float* e = ring + (s * R + r) * RING;
+        const float dh_total = e[G + 2 * H + unit] + dh[r];
+        const float dc_total = dc[r] + dh_total * e[G + unit];
+        const float da = (gate == 3 ? dh_total : dc_total) * e[p];
+        dc[r] = dc_total * e[G + H + unit];
+        db_acc[r] += da;
+        da_s[r * DA_ROW + gate * DA_GATE + unit] = operand(da, x);
+        if (row0 + r < batch) store_f(da_out + ((size_t)(row0 + r) * steps + t) * G + col, da);
+      }
+      bar_sync(BAR_CONS, COLS);
+      // Each output's 16 terms in order (q, e), one running sum; then the 16 parts:
+      // a transposing exchange over lanes 8 and 4 apart leaves each lane one output,
+      // and two butterfly sums finish it in all four lanes of its unit.
+      float part[R][4], sum[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float* a = da_s + r * DA_ROW + 4 * jp;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) part[r][o] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(a + q * DA_GATE);
+          const float ve[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int o = 0; o < 4; ++o) part[r][o] = fmaf(ve[e], w[(q * 4 + e) * 4 + o], part[r][o]);
+        }
+      }
+      transpose_reduce4<8, 4, R>(part, jp & 8, jp & 4, sum);
+#pragma unroll
+      for (int r = 0; r < R; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+#pragma unroll
+      for (int r = 0; r < R; ++r) dh[r] = sum[r] + __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      // dh[r] is of unit (lane / 4) of the warp: this thread's unit.
+      cur ^= 1;
+    }
+    if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
+  }
+
+  // This block's db: the rows in a fixed order.
+  float total = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) total += db_acc[r];
+  db_part[(size_t)blockIdx.x * G + col] = total;
 }
+
+// ---- fp32: dx and dW on the CUDA cores, in full fp32 ----
 
 constexpr int DX_ROWS = 32;  // rows of the (B*T) axis per dx tile
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-lstm_bwd_dx_kernel(const T* __restrict__ da, const T* __restrict__ w_ih,
-                   T* __restrict__ dx, long long n_rows) {
+lstm_bwd_dx_kernel(const float* __restrict__ da, const float* __restrict__ w_ih,
+                   float* __restrict__ dx, long long n_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_w = reinterpret_cast<float*>(smem);  // [G][D], torch layout
   float* s_a = s_w + G * D;                     // [DX_ROWS][G]
   const int tid = threadIdx.x;
-  for (int idx = tid; idx < G * D; idx += 256) s_w[idx] = load_f(w_ih + idx);
+  for (int idx = tid; idx < G * D; idx += 256) s_w[idx] = w_ih[idx];
   const int d = tid % D, rg = tid / D;  // 4 row groups of 8 rows
   constexpr int PER = DX_ROWS / 4;
 
@@ -166,7 +338,7 @@ lstm_bwd_dx_kernel(const T* __restrict__ da, const T* __restrict__ w_ih,
     __syncthreads();
     for (int idx = tid; idx < DX_ROWS * G; idx += 256) {
       const long long n = base + idx / G;
-      s_a[idx] = n < n_rows ? load_f(da + n * G + idx % G) : 0.0f;
+      s_a[idx] = n < n_rows ? da[n * G + idx % G] : 0.0f;
     }
     __syncthreads();
     float acc[PER];
@@ -187,68 +359,213 @@ lstm_bwd_dx_kernel(const T* __restrict__ da, const T* __restrict__ w_ih,
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const long long n = base + rg * PER + i;
-      if (n < n_rows) store_f(dx + n * D + d, acc[i]);
+      if (n < n_rows) dx[n * D + d] = acc[i];
     }
   }
 }
 
-constexpr int DW_ROWS = 32;  // rows of the (B*T) axis staged per dW step
-constexpr int DW_COLS = 64;  // gate columns per dW block (blockIdx.y picks which)
+constexpr int DW_ROWS = 32;   // rows of the (B*T) axis staged per dW step
+constexpr int DW_COLS = 128;  // gate columns per dW block (blockIdx.y picks which half)
 
 // part[chunk][j][m] = sum over the chunk's rows n of da[n][j] * v[n][m],
-// v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0).
-template <typename T>
+// v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0).  A
+// block owns 128 gate columns x all 128 terms, a thread 8 x 8 of them (two
+// groups of 4 columns and two of 4 terms, so that a warp's 16-byte reads are
+// contiguous): four 16-byte reads from shared memory feed 64 products.
 __global__ void __launch_bounds__(256)
-lstm_bwd_dw_kernel(const T* __restrict__ da, const T* __restrict__ x, const T* __restrict__ y,
+lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, const float* __restrict__ y,
                    float* __restrict__ part, long long n_rows, int steps, long long chunk_rows) {
   __shared__ __align__(16) float s_a[DW_ROWS * DW_COLS];
   __shared__ __align__(16) float s_v[DW_ROWS * K];
   const int tid = threadIdx.x;
   const int j0 = blockIdx.y * DW_COLS;
-  const int tj = tid / 16, tm = tid % 16;  // 4 gate columns x 8 terms per thread
+  const int tj = tid / 16, tm = tid % 16;
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  float acc[4][8];
+  float acc[8][8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
 
   for (long long base = begin; base < end; base += DW_ROWS) {
     __syncthreads();
-    for (int idx = tid; idx < DW_ROWS * DW_COLS; idx += 256) {
-      const long long n = base + idx / DW_COLS;
-      s_a[idx] = n < end ? load_f(da + n * G + j0 + idx % DW_COLS) : 0.0f;
+    // 16-byte loads; one row of 128 values is 32 of them.
+    for (int idx = tid; idx < DW_ROWS * (DW_COLS / 4); idx += 256) {
+      const int r = idx / (DW_COLS / 4), c4 = idx % (DW_COLS / 4);
+      const long long n = base + r;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (n < end) v = reinterpret_cast<const float4*>(da + n * G + j0)[c4];
+      reinterpret_cast<float4*>(s_a)[idx] = v;
     }
-    for (int idx = tid; idx < DW_ROWS * K; idx += 256) {
-      const long long n = base + idx / K;
-      const int m = idx % K;
-      float v = 0.0f;
+    for (int idx = tid; idx < DW_ROWS * (K / 4); idx += 256) {
+      const int r = idx / (K / 4), c4 = idx % (K / 4);
+      const long long n = base + r;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (n < end) {
-        if (m < D) v = load_f(x + n * D + m);
-        else if (n % steps != 0) v = load_f(y + (n - 1) * H + (m - D));
+        if (c4 < D / 4) v = reinterpret_cast<const float4*>(x + n * D)[c4];
+        else if (n % steps != 0) v = reinterpret_cast<const float4*>(y + (n - 1) * H)[c4 - D / 4];
       }
-      s_v[idx] = v;
+      reinterpret_cast<float4*>(s_v)[idx] = v;
     }
     __syncthreads();
-#pragma unroll 4
+#pragma unroll 2
     for (int nn = 0; nn < DW_ROWS; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + tj * 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(s_v + nn * K + tm * 8);
-      const float4 v1 = *reinterpret_cast<const float4*>(s_v + nn * K + tm * 8 + 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float4 a0 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + tj * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + 64 + tj * 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(s_v + nn * K + tm * 4);
+      const float4 v1 = *reinterpret_cast<const float4*>(s_v + nn * K + 64 + tm * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int p = 0; p < 8; ++p)
 #pragma unroll
         for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
     }
   }
   float* out = part + (size_t)blockIdx.x * G * K;
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int p = 0; p < 8; ++p)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) out[(size_t)(j0 + tj * 4 + p) * K + tm * 8 + q] = acc[p][q];
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + (p / 4) * 64 + tj * 4 + p % 4;
+      const int m = (q / 4) * 64 + tm * 4 + q % 4;
+      out[(size_t)j * K + m] = acc[p][q];
+    }
+}
+
+// ---- bf16: dx and dW on the tensor cores (bf16 in, exact products, fp32 sums) ----
+
+constexpr int DA_P = G + 8;      // row stride of a staged da tile: rows fall in distinct banks
+constexpr int DXM_ROWS = 128;    // rows of the (B*T) axis per dx tile: 16 per warp
+constexpr int DXM_SMEM = (int)sizeof(__nv_bfloat16) * (D + DXM_ROWS) * DA_P;
+
+// dx = da . W_ih as mma tiles: M = 16 rows of (B*T) per warp, N = the 64
+// inputs, K = the 256 gate columns.  da rows are A fragments as they lie;
+// W_ih is staged transposed, [d][j], so that a B fragment's two k are adjacent.
+__global__ void __launch_bounds__(256)
+lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ w_ih,
+                       __nv_bfloat16* __restrict__ dx, long long n_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_wt = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][DA_P]
+  __nv_bfloat16* s_a = s_wt + D * DA_P;                          // [DXM_ROWS][DA_P]
+  const int tid = threadIdx.x, warp = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
+  for (int idx = tid; idx < G * D; idx += 256) s_wt[(idx % D) * DA_P + idx / D] = w_ih[idx];
+
+  for (long long tile = blockIdx.x; tile * DXM_ROWS < n_rows; tile += gridDim.x) {
+    const long long base = tile * DXM_ROWS;
+    __syncthreads();
+    for (int idx = tid; idx < DXM_ROWS * (G / 8); idx += 256) {
+      const int r = idx / (G / 8), c8 = idx % (G / 8);
+      const long long n = base + r;
+      const uint4 v = n < n_rows ? reinterpret_cast<const uint4*>(da + n * G)[c8] : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(s_a + r * DA_P + c8 * 8) = v;
+    }
+    __syncthreads();
+    float c[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = 0.0f;
+    const __nv_bfloat16* a_lo = s_a + (warp * 16 + g8) * DA_P + 2 * t4;
+#pragma unroll 4
+    for (int kt = 0; kt < G / 16; ++kt) {
+      const uint32_t a[4] = {ld32(a_lo + kt * 16), ld32(a_lo + 8 * DA_P + kt * 16),
+                             ld32(a_lo + kt * 16 + 8), ld32(a_lo + 8 * DA_P + kt * 16 + 8)};
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const __nv_bfloat16* b = s_wt + (nt * 8 + g8) * DA_P + kt * 16 + 2 * t4;
+        mma_bf16(c[nt], a, ld32(b), ld32(b + 8));
+      }
+    }
+    const long long n_lo = base + warp * 16 + g8;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int d = nt * 8 + 2 * t4;
+      if (n_lo < n_rows)
+        *reinterpret_cast<__nv_bfloat162*>(dx + n_lo * D + d) = __floats2bfloat162_rn(c[nt][0], c[nt][1]);
+      if (n_lo + 8 < n_rows)
+        *reinterpret_cast<__nv_bfloat162*>(dx + (n_lo + 8) * D + d) = __floats2bfloat162_rn(c[nt][2], c[nt][3]);
+    }
+  }
+}
+
+constexpr int DWM_ROWS = 64;  // rows of the (B*T) axis per staged dW tile: four k steps of 16
+constexpr int V_P = D + 8;    // row stride of the staged x or h_{t-1} tile
+
+// part[chunk][j][m] as mma tiles: M = the 256 gate columns j (32 per warp),
+// N = 64 terms m (blockIdx.y = 0: x, 1: h_{t-1}), K = the chunk's rows.  Both
+// operands lie row-major in the rows, so both fragments come transposed
+// through ldmatrix.  The chunk's sum runs in the tensor cores' order, fixed
+// for a given shape: two runs still give the same bits.
+__global__ void __launch_bounds__(256)
+lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                       long long n_rows, int steps, long long chunk_rows) {
+  __shared__ __align__(16) __nv_bfloat16 s_a[DWM_ROWS * DA_P];
+  __shared__ __align__(16) __nv_bfloat16 s_v[DWM_ROWS * V_P];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const bool h_half = blockIdx.y == 1;
+  const long long begin = blockIdx.x * chunk_rows;
+  const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
+  float c[2][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[mt][nt][i] = 0.0f;
+  const int blk = lane >> 3, blk_row = lane & 7;  // ldmatrix: this lane's block and row in it
+
+  for (long long base = begin; base < end; base += DWM_ROWS) {
+    __syncthreads();
+    for (int idx = tid; idx < DWM_ROWS * (G / 8); idx += 256) {
+      const int r = idx / (G / 8), c8 = idx % (G / 8);
+      const long long n = base + r;
+      const uint4 v = n < end ? reinterpret_cast<const uint4*>(da + n * G)[c8] : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(s_a + r * DA_P + c8 * 8) = v;
+    }
+    for (int idx = tid; idx < DWM_ROWS * (D / 8); idx += 256) {
+      const int r = idx / (D / 8), c8 = idx % (D / 8);
+      const long long n = base + r;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (n < end) {
+        if (!h_half) v = reinterpret_cast<const uint4*>(x + n * D)[c8];
+        else if (n % steps != 0) v = reinterpret_cast<const uint4*>(y + (n - 1) * H)[c8];
+      }
+      *reinterpret_cast<uint4*>(s_v + r * V_P + c8 * 8) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < DWM_ROWS / 16; ++ks) {
+      // A[j][n] = da[n][j]: blocks (n 0-7, j 0-7), (n 0-7, j 8-15), (n 8-15, j 0-7), (n 8-15, j 8-15).
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4_trans(a[mt], s_a + (ks * 16 + (blk >> 1) * 8 + blk_row) * DA_P +
+                                     warp * 32 + mt * 16 + (blk & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        // B[n][m] = v[n][m]: blocks (n 0-7, m 0-7), (n 8-15, m 0-7), (n 0-7, m 8-15), (n 8-15, m 8-15).
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, s_v + (ks * 16 + (blk & 1) * 8 + blk_row) * V_P + np * 16 + (blk >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(c[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(c[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.x * G * K + (h_half ? D : 0);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int j = warp * 32 + mt * 16 + g8, m = nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(out + (size_t)j * K + m) = make_float2(c[mt][nt][0], c[mt][nt][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(j + 8) * K + m) = make_float2(c[mt][nt][2], c[mt][nt][3]);
+    }
 }
 
 // dW_ih / dW_hh = the sum of the chunk partials; db = the sum of the
@@ -272,39 +589,60 @@ lstm_bwd_sum_kernel(const float* __restrict__ part, int n_chunks,
   }
 }
 
+template <typename T, int R>
+cudaError_t launch_rec(const T* x, const T* y, const float* cprev, const float* dy, const T* w_ih,
+                       const T* w_hh, const float* bias, T* da, float* db_part,
+                       int batch, int steps, cudaStream_t stream) {
+  constexpr int smem = rec_smem_bytes<T, R>();
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_rec_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  lstm_bwd_rec_kernel<T, R><<<(batch + R - 1) / R, THREADS, smem, stream>>>(
+      x, y, cprev, dy, w_ih, w_hh, bias, da, db_part, batch, steps);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* y, const float* cprev, const float* dy,
            const void* w_ih, const void* w_hh, const float* bias,
            void* dx, float* dw_ih, float* dw_hh, float* db,
            void* da, float* part, float* db_part,
-           int batch, int steps, int n_chunks, void* stream_ptr) {
+           int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long long n_rows = (long long)batch * steps;
-  const int rec_blocks = (batch + ROWS - 1) / ROWS;
+  if ((rows != 1 && rows != 2) || n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
+  const int rec_blocks = (batch + rows - 1) / rows;
 
-  const int rec_smem = (int)(sizeof(T) * G * (K + H) + sizeof(float) * ROWS * (K + 2 * G));
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_rec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, rec_smem);
+  cudaError_t err =
+      rows == 1 ? launch_rec<T, 1>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
+                                   (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream)
+                : launch_rec<T, 2>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
+                                   (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream);
   if (err != cudaSuccess) return (int)err;
-  lstm_bwd_rec_kernel<T><<<rec_blocks, THREADS, rec_smem, stream>>>(
-      (const T*)x, (const T*)y, cprev, dy, (const T*)w_ih, (const T*)w_hh, bias,
-      (T*)da, db_part, batch, steps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int dx_smem = (int)(sizeof(float) * (G * D + DX_ROWS * G));
-  err = cudaFuncSetAttribute(
-      lstm_bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n_rows + DX_ROWS - 1) / DX_ROWS;
-  const int dx_blocks = (int)(tiles < 264 ? tiles : 264);  // 2 per SM of 132
-  lstm_bwd_dx_kernel<T><<<dx_blocks, 256, dx_smem, stream>>>(
-      (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
-  lstm_bwd_dw_kernel<T><<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
-      (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (is_bf16<T>) {
+    err = cudaFuncSetAttribute(
+        lstm_bwd_dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DXM_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    lstm_bwd_dx_mma_kernel<<<dx_blocks, 256, DXM_SMEM, stream>>>(
+        (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    lstm_bwd_dw_mma_kernel<<<dim3(n_chunks, 2), 256, 0, stream>>>(
+        (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else {
+    const int dx_smem = (int)(sizeof(float) * (G * D + DX_ROWS * G));
+    err = cudaFuncSetAttribute(
+        lstm_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem);
+    if (err != cudaSuccess) return (int)err;
+    lstm_bwd_dx_kernel<<<dx_blocks, 256, dx_smem, stream>>>(
+        (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    lstm_bwd_dw_kernel<<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
+        (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
   lstm_bwd_sum_kernel<<<(G * K + 255) / 256, 256, 0, stream>>>(
       part, n_chunks, db_part, rec_blocks, dw_ih, dw_hh, db);
@@ -320,24 +658,26 @@ extern "C" {
 // bias: (256,) fp32.  Outputs: dx (B, T, 64) in the instantiation's type,
 // dw_ih / dw_hh (256, 64) and db (256,) fp32.  Scratch: da (B, T, 256) in
 // the instantiation's type, part (n_chunks, 256, 128) fp32, db_part
-// (ceil(B / 4), 256) fp32.  All contiguous on the current device; B, T >= 1.
-// Returns the first cudaError_t of the four launches (0 = all launched).
+// (ceil(B / rows), 256) fp32.  rows: batch rows per block of the recurrent
+// kernel, 1 or 2; dx_blocks: the dx kernel's grid.  All contiguous on the
+// current device; B, T >= 1.  Returns the first cudaError_t of the four
+// launches (0 = all launched).
 int awm_lstm_bwd_f32(const void* x, const void* y, const float* cprev, const float* dy,
                      const void* w_ih, const void* w_hh, const float* bias,
                      void* dx, float* dw_ih, float* dw_hh, float* db,
                      void* da, float* part, float* db_part,
-                     int batch, int steps, int n_chunks, void* stream) {
+                     int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream) {
   return launch<float>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da, part,
-                       db_part, batch, steps, n_chunks, stream);
+                       db_part, batch, steps, rows, n_chunks, dx_blocks, stream);
 }
 
 int awm_lstm_bwd_bf16(const void* x, const void* y, const float* cprev, const float* dy,
                       const void* w_ih, const void* w_hh, const float* bias,
                       void* dx, float* dw_ih, float* dw_hh, float* db,
                       void* da, float* part, float* db_part,
-                      int batch, int steps, int n_chunks, void* stream) {
+                      int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream) {
   return launch<__nv_bfloat16>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da,
-                               part, db_part, batch, steps, n_chunks, stream);
+                               part, db_part, batch, steps, rows, n_chunks, dx_blocks, stream);
 }
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -4,6 +4,17 @@
 // channel count), torch gate order (i, f, g, o).  T is the operand type:
 // float for the fp32 contract, __nv_bfloat16 for the bf16 one (bf16
 // operands, every product exact in fp32, fp32 sums and state).
+//
+// Both recurrent kernels are warp-specialised.  A block has 512 threads:
+// warps 0-7 are the consumers, which run the sequential recurrence, and
+// warps 8-15 the producers, which run ahead of them and fill a ring in
+// shared memory with everything of a step that does not depend on the
+// carried state.  Within each role, thread p belongs to hidden unit p / 4
+// and is lane kp = p % 4 of it; it ends each product holding gate kp of its
+// unit, column col(p) = (p % 4) * 64 + p / 4.  The four gates of a unit sit
+// in four neighbouring lanes of one warp and are exchanged by shuffles.
+// (That is the CUDA-core mapping; the bf16 tensor-core paths map lanes as
+// the mma fragments do, see below.)
 
 #pragma once
 
@@ -11,32 +22,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace awm {
 
 constexpr int D = 64;        // input width
 constexpr int H = 64;        // hidden width
 constexpr int G = 4 * H;     // gate columns
 constexpr int K = D + H;     // terms of one gate's dot product
-constexpr int ROWS = 4;      // batch rows per block of the recurrent kernels
-constexpr int THREADS = G;   // one thread per gate column
-static_assert(ROWS * H == THREADS, "the cell update maps one thread to one (row, unit)");
-static_assert(ROWS * D == THREADS, "x staging maps one thread to one (row, input)");
-static_assert(D % 4 == 0 && H % 4 == 0, "weights are read 4 terms at a time");
+constexpr int COLS = G;      // threads of one role: one per gate column
+constexpr int THREADS = 2 * COLS;  // consumers, then producers
+constexpr int NBUF = 2;      // buffers of the producers' ring
+static_assert(D == 64 && H == 64, "the register-held weight rows are 64 terms long");
 
-// Four consecutive terms of one gate column's weights.
-template <typename T> struct Quad;
-template <> struct Quad<float> { using type = float4; };
-template <> struct Quad<__nv_bfloat16> { using type = uint2; };
+// Named barriers (0 is __syncthreads).
+constexpr int BAR_CONS = 1;   // among the consumers, once per step
+constexpr int BAR_PROD = 2;   // among the producers, twice per chunk
+constexpr int BAR_FULL = 3;   // + buffer: producers arrive, consumers wait
+constexpr int BAR_EMPTY = 5;  // + buffer: consumers arrive, producers wait
 
-__device__ __forceinline__ void unpack(float4 v, float w[4]) {
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
-// bf16 -> fp32 is exact: the bf16 bits are the high half of the float.
-__device__ __forceinline__ void unpack(uint2 v, float w[4]) {
-  w[0] = __uint_as_float(v.x << 16);
-  w[1] = __uint_as_float(v.x & 0xffff0000u);
-  w[2] = __uint_as_float(v.y << 16);
-  w[3] = __uint_as_float(v.y & 0xffff0000u);
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -49,58 +58,178 @@ __device__ __forceinline__ float operand(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+// 1 / d for 1 <= d < 2^120: the hardware's approximate reciprocal and one
+// Newton step.  Within 1 ulp, and no branch for special cases: a step's
+// activations are on the sequential path, and a divergent warp walks every
+// branch of expf's, tanhf's and the division's slow paths in turn.
+__device__ __forceinline__ float rcp_newton(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+}
+// The clamp keeps 1 + e^-v finite; below v = -80 the sigmoid stays at 2e-35.
+__device__ __forceinline__ float sigmoid(float v) {
+  return rcp_newton(1.0f + expf(fminf(-v, 80.0f)));
+}
+// tanh v = 2 sigmoid(2 v) - 1: absolute error 2^-23, from the same
+// full-precision expf as the sigmoid.
+__device__ __forceinline__ float tanh_sig(float v) { return fmaf(2.0f, sigmoid(2.0f * v), -1.0f); }
 
-// Copy [W_ih | W_hh] (both (G, 64), row-major) into shared memory so that
-// s_w[q * G + j] holds terms 4q..4q+3 of gate column j: neighbouring threads
-// (columns) read neighbouring 8- or 16-byte words.
-template <typename T>
-__device__ __forceinline__ void stage_gate_weights(T* s_w, const T* w_ih, const T* w_hh) {
-  for (int idx = threadIdx.x; idx < G * K; idx += blockDim.x) {
-    const int j = idx / K, k = idx % K;
-    const T w = k < D ? w_ih[j * D + k] : w_hh[j * H + (k - D)];
-    s_w[((k / 4) * G + j) * 4 + (k % 4)] = w;
+// The activation of gate m (i, f, g, o) = (0, 1, 2, 3), with no branch:
+// the four gates of a unit sit in four lanes of one warp.
+__device__ __forceinline__ float activate(int gate, float v) {
+  const bool is_g = gate == 2;
+  const float s = sigmoid(is_g ? 2.0f * v : v);
+  return is_g ? fmaf(2.0f, s, -1.0f) : s;
+}
+
+// One gate column's 64-term dot product is split over the four lanes of
+// its unit: lane kp takes quads 4q + kp, q = 0..3, of the 16 quads (a quad
+// is four consecutive terms), for all four gates, so a lane reads 16 of the
+// 64 operand values from shared memory and not all of them.  The summation
+// order of a gate's pre-activation, shared by the forward and the
+// backward's recompute so that the backward sees the gates the forward used:
+//   a lane's part = its 16 terms in order (q, then the term in the quad),
+//       one running sum from 0 (dot_quad);
+//   a product = the four parts, brought to lane kp = gate by
+//       transpose_reduce4 as (part[g] + part[g^2]) + (part[g^1] + part[g^3]);
+//   gate = (px + b) + ph, px the x product and ph the h product.
+__device__ __forceinline__ void dot_quad(float& acc, float w0, float w1, float w2, float w3,
+                                         const float4 v) {
+  acc = fmaf(w0, v.x, acc);
+  acc = fmaf(w1, v.y, acc);
+  acc = fmaf(w2, v.z, acc);
+  acc = fmaf(w3, v.w, acc);
+}
+
+// Four lanes (XH and XL apart in lane number) each hold a[n][0..3], their
+// parts of four sums, for N independent sets n.  Leaves in out[n], on the
+// lane with bits (hi, lo), the whole sum number 2 hi + lo of set n: two
+// exchanges, three shuffles a set, a fixed order.  A warp runs its
+// instructions in order and shuffles keep their program order, so each
+// exchange is written for all N sets before the next one: the sets'
+// latencies overlap.
+template <int XH, int XL, int N>
+__device__ __forceinline__ void transpose_reduce4(const float (*a)[4], bool hi, bool lo,
+                                                  float out[N]) {
+  float b0[N], b1[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    b0[n] = (hi ? a[n][2] : a[n][0]) + __shfl_xor_sync(0xffffffffu, hi ? a[n][0] : a[n][2], XH);
+    b1[n] = (hi ? a[n][3] : a[n][1]) + __shfl_xor_sync(0xffffffffu, hi ? a[n][1] : a[n][3], XH);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    out[n] = (lo ? b1[n] : b0[n]) + __shfl_xor_sync(0xffffffffu, lo ? b0[n] : b1[n], XL);
+}
+
+// The four activated gates (i, f, g, o) of this thread's unit, from the four
+// lanes that hold one each, for N independent sets.
+template <int N>
+__device__ __forceinline__ void gather_gates(const float act[N], int quad_lane, float ig[N],
+                                             float fg[N], float gg[N], float og[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ig[n] = __shfl_sync(0xffffffffu, act[n], quad_lane);
+    fg[n] = __shfl_sync(0xffffffffu, act[n], quad_lane + 1);
+    gg[n] = __shfl_sync(0xffffffffu, act[n], quad_lane + 2);
+    og[n] = __shfl_sync(0xffffffffu, act[n], quad_lane + 3);
   }
 }
 
-// Gate pre-activations of column j for ROWS rows:
-// out[r] = (x_t[r] . W_ih[j] + b_j) + h_{t-1}[r] . W_hh[j], with s_xh[r * K + :]
-// holding x_t | h_{t-1} as operands.  The summation order is the forward
-// kernel's, so the backward recomputes the gates the forward used.
+// This lane's 64 weights of the split above, widened into registers for the
+// whole launch (a bf16 widens exactly): w[(m * 4 + q) * 4 + e] = term
+// 4 (4 q + kp) + e of gate m's row for this unit.  Every index is a
+// compile-time constant after unrolling, so w stays in registers.
 template <typename T>
-__device__ __forceinline__ void gate_column(const typename Quad<T>::type* s_w, const float* s_xh,
-                                            int j, float b_j, float out[ROWS]) {
-  float px[ROWS], ph[ROWS];
+__device__ __forceinline__ void load_gate_weights(const T* __restrict__ wmat, int unit, int kp,
+                                                  float w[64]) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) { px[r] = 0.0f; ph[r] = 0.0f; }
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-  for (int q = 0; q < D / 4; ++q) {
-    float w[4];
-    unpack(s_w[q * G + j], w);
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(s_xh + r * K + 4 * q);
-      px[r] = fmaf(w[0], v.x, px[r]);
-      px[r] = fmaf(w[1], v.y, px[r]);
-      px[r] = fmaf(w[2], v.z, px[r]);
-      px[r] = fmaf(w[3], v.w, px[r]);
-    }
+      for (int e = 0; e < 4; ++e)
+        w[(m * 4 + q) * 4 + e] = load_f(wmat + (m * H + unit) * 64 + 4 * (4 * q + kp) + e);
+}
+
+// acc[m] += this lane's 16 terms of gate m, m = 0..3; v points at the 64
+// operand values in shared memory.
+__device__ __forceinline__ void dot_parts(float acc[4], const float w[64], const float* v, int kp) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 vq = *reinterpret_cast<const float4*>(v + 4 * (4 * q + kp));
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      dot_quad(acc[m], w[(m * 4 + q) * 4], w[(m * 4 + q) * 4 + 1], w[(m * 4 + q) * 4 + 2],
+               w[(m * 4 + q) * 4 + 3], vq);
   }
+}
+
+// ---- bf16 only: the products on the tensor cores ----
+//
+// D[j][n] = sum_k W[j][k] v[n][k] is one mma.sync.m16n8k16 (bf16 in, products
+// exact, fp32 sums) per 16 rows j and 16 terms k.  A producer's product has
+// no carried state in it, so its N dimension is time, 8 steps n at once; the
+// forward's recurrent product takes the block's rows as n.  A warp takes the
+// 32 rows of its 8 units: tile 0 holds gate i in
+// rows 0-7 and gate f in rows 8-15, tile 1 gates g and o, row % 8 = the unit.
+// The weights sit in registers as A fragments for the whole launch.  Lane
+// (g8 = lane / 4, t4 = lane % 4) then holds all four gates of unit g8 for
+// columns n = 2 t4 and 2 t4 + 1: c[tile][e] and c[tile][2 + e], e = 0, 1.
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 blocks of a row-major tile in shared memory, each
+// transposed on the way into an mma fragment: lane l gives the address of
+// row l % 8 of block l / 8 (16-byte aligned).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The A fragments of one (G, 64) weight matrix for this warp's 8 units
+// (unit0 = the first): a[tile][kt][0..3], kt = 0..3 over the 64 terms.
+__device__ __forceinline__ void load_a_fragments(const __nv_bfloat16* __restrict__ wmat, int unit0,
+                                                 int lane, uint32_t a[2][4][4]) {
+  const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int q = D / 4; q < K / 4; ++q) {
-    float w[4];
-    unpack(s_w[q * G + j], w);
+  for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(s_xh + r * K + 4 * q);
-      ph[r] = fmaf(w[0], v.x, ph[r]);
-      ph[r] = fmaf(w[1], v.y, ph[r]);
-      ph[r] = fmaf(w[2], v.z, ph[r]);
-      ph[r] = fmaf(w[3], v.w, ph[r]);
+    for (int kt = 0; kt < 4; ++kt) {
+      const __nv_bfloat16* lo = wmat + ((2 * tile) * H + unit0 + g8) * 64 + kt * 16 + 2 * t4;
+      const __nv_bfloat16* hi = lo + H * 64;  // the tile's second gate, same unit
+      a[tile][kt][0] = ld32(lo);
+      a[tile][kt][1] = ld32(hi);
+      a[tile][kt][2] = ld32(lo + 8);
+      a[tile][kt][3] = ld32(hi + 8);
     }
-  }
+}
+
+// c[tile] += A[tile] . v^T over 64 terms: v points at this lane's B row in
+// shared memory (column n = g8's 64 operand values, bf16).
+__device__ __forceinline__ void mma_64(float c[2][4], const uint32_t a[2][4][4],
+                                       const __nv_bfloat16* v, int t4) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) out[r] = (px[r] + b_j) + ph[r];
+  for (int kt = 0; kt < 4; ++kt) {
+    const uint32_t b0 = ld32(v + kt * 16 + 2 * t4), b1 = ld32(v + kt * 16 + 8 + 2 * t4);
+    mma_bf16(c[0], a[0][kt], b0, b1);
+    mma_bf16(c[1], a[1][kt], b0, b1);
+  }
 }
 
 }  // namespace awm

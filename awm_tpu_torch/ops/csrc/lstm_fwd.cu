@@ -3,35 +3,57 @@
 //
 // Replaces two kernels of awm_tpu/ops/pallas/lstm_kernel.py:
 // - lstm_pallas_forward + _lstm_kernel (the pallas_call at line 157): the
-//   <T, false> instantiations;
+//   <T, false, R> instantiations;
 // - _forward_train + _lstm_train_kernel (the pallas_call at line 342): the
-//   <T, true> instantiations, which store c_{t-1} (fp32, zero at t=0) before
-//   each cell update.  h_{t-1} needs no stream of its own: it is y shifted
-//   by one step, and the backward (lstm_bwd.cu) rebuilds it from y.
+//   <T, true, R> instantiations, which store c_{t-1} (fp32, zero at t=0)
+//   before each cell update.  h_{t-1} needs no stream of its own: it is y
+//   shifted by one step, and the backward (lstm_bwd.cu) rebuilds it from y.
 // Like those kernels it computes the input projection x_t @ W_ih^T + b
 // inside its own body, then the cell step gates = xp_t + h_{t-1} @ W_hh^T,
 // gate order (i, f, g, o).  y and c_{t-1} are batch-major (B, T, 64), the
 // port's layout; the TPU kernels' time-major layout is not carried over.
 //
 // What bounds it on this card: the recurrence is sequential in T (16000
-// steps per 1-s chunk), so the time is the per-step latency of one block
-// times T, not bytes or FLOPs.  At B=512 the whole call moves ~2 GB (bf16)
-// and does ~0.54 TFLOP, a bound of well under a millisecond, while each of
-// the 16000 steps needs a dot product, two block barriers and a cell update.
-// What the design does about it: the batch rows are independent, so each
-// block owns ROWS rows and runs all T steps in one launch (no grid over
-// time, no state in device memory between steps).  Both weight matrices
-// stay in shared memory for the whole launch, h is in shared memory, c in
-// registers, and x for step t+2 is loaded into a register during step t so
-// no step waits on device memory.  The training variant adds one fp32 store
-// per (row, unit, step).  wgmma / TMA and a faster step are work for a
-// later change.
+// steps per 1-s chunk), so the time is the latency of one step times T, not
+// bytes or FLOPs (the whole call's bound is a few ms at most).  A step's
+// latency is its dependent chain: read h, the products, two shuffle
+// exchanges, the gate activations, the cell update and tanh c, write h, one
+// barrier; and a warp runs its instructions in order, so whatever else the
+// SM runs meanwhile lengthens it.  What the design does about it:
+// - a block owns R batch rows and runs all T steps in one launch; R (1, 2
+//   or 4) is chosen by the caller from the batch, the card's SM count and
+//   the measured cost of a step of R rows (ops/lstm_kernel.py::launch_plan);
+// - every weight lives in a register for the whole launch (bf16 weights
+//   are widened, or packed into mma fragments, once).  A 64-term product is
+//   split over the four lanes of its unit (lstm_common.cuh), so a step reads
+//   16 of the 64 h values per thread from shared memory, four 16-byte loads;
+// - the input projection is off the sequential path: the producer warps
+//   compute xp = x . W_ih + b for a chunk of 16 steps into a two-buffer ring
+//   in shared memory, one chunk or more ahead of the consumers, prefetching
+//   the next chunk's x from device memory meanwhile.  No device-memory
+//   scratch.  In bf16 the producers use the tensor cores (mma.sync, 8 steps
+//   a tile: time is the N dimension), which all but frees the instruction
+//   slots they took from the consumers; in fp32 they stay on the CUDA cores;
+// - fp32: the four gates of a unit sit in four neighbouring lanes, so the
+//   cell update takes them by shuffle, with no trip through shared memory;
+//   the rows of a block go through each phase of a step together, so that
+//   their latencies overlap;
+// - bf16: the recurrent product runs on the tensor cores too, W_hh as A
+//   fragments in registers, h^T (the block's rows, zero-padded to 8) as B
+//   from shared memory, the accumulator starting from xp: 8 mma a warp and
+//   step, and each lane ends with the four gates of one (unit, row), so no
+//   exchange between lanes at all;
+// - h is double-buffered, so one barrier among the consumer warps
+//   separates two steps;
+// - the activations have no branch (lstm_common.cuh): a divergent warp
+//   would walk both the sigmoid's and tanhf's paths in turn.
 //
 // Precision, as the TPU kernels' contract: the <float> instantiations are
-// fp32 throughout; the <__nv_bfloat16> ones round x, the weights and the h
-// fed to the recurrent product to bf16, multiply exactly in fp32 and keep
-// the sums, bias, gates and (h, c) state in fp32; y is stored bf16, c_{t-1}
-// fp32.
+// fp32 throughout (CUDA cores, no TF32, full-precision expf); the
+// <__nv_bfloat16> ones round x, the weights and the h fed to the recurrent
+// product to bf16, multiply exactly in fp32 and keep the sums, bias, gates
+// and (h, c) state in fp32; y is stored bf16, c_{t-1} fp32.  The summation
+// order is lstm_common.cuh's in fp32, the tensor cores' in bf16.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -41,69 +63,238 @@ namespace {
 
 using namespace awm;
 
-template <typename T, bool TRAIN>
-__global__ void __launch_bounds__(THREADS)
+constexpr int S = 16;  // steps per chunk of the ring
+
+// Row stride of the staged x: the bf16 rows are read as mma B fragments, 8
+// rows at a time, and the pad puts them in distinct banks.
+template <typename T> constexpr int XP = is_bf16<T> ? D + 8 : D;
+
+// h_{t-1} in shared memory, double-buffered, in the operand type.  fp32: R
+// rows of 64.  bf16: the B operand of the recurrent mma, 8 rows (those from
+// R on stay zero) with the same pad.
+template <typename T, int R> constexpr int H_ROWS = is_bf16<T> ? 8 : R;
+
+template <typename T, int R>
+constexpr int fwd_smem_bytes() {
+  return (int)(sizeof(float) * NBUF * S * R * COLS +
+               sizeof(T) * (2 * H_ROWS<T, R> * XP<T> + R * S * XP<T>));
+}
+
+template <typename T, bool TRAIN, int R>
+__global__ void __launch_bounds__(THREADS, 1)
 lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
                 const T* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
-  using Q = typename Quad<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Q* s_w = reinterpret_cast<const Q*>(smem);
-  float* s_xh = reinterpret_cast<float*>(smem + sizeof(T) * G * K);  // [ROWS][K]: x_t | h_{t-1}
-  float* s_gates = s_xh + ROWS * K;                                  // [ROWS][G]
+  float* s_ring = reinterpret_cast<float*>(smem);  // [NBUF][S][R][COLS]: xp of thread p's column
+  T* s_h = reinterpret_cast<T*>(s_ring + NBUF * S * R * COLS);  // [2][H_ROWS][XP]: h_{t-1}
+  T* s_x = s_h + 2 * H_ROWS<T, R> * XP<T>;                      // [R][S][XP]: the chunk's x
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  stage_gate_weights(reinterpret_cast<T*>(smem), w_ih, w_hh);
+  const int p = threadIdx.x & (COLS - 1);
+  const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
+  const int row0 = blockIdx.x * R;
+  const int n_chunks = (steps + S - 1) / S;
+  float w[64];
 
-  // Cell-update / staging role of this thread: one (row, unit) and one (row, input).
-  const int r2 = tid / H, u = tid % H;
-  const bool valid = row0 + r2 < batch;
-  const size_t xrow = (size_t)(row0 + r2) * steps * D;
-  const size_t yrow = (size_t)(row0 + r2) * steps * H;
-  s_xh[r2 * K + u] = valid && steps > 0 ? load_f(x + xrow + u) : 0.0f;  // x_0
-  s_xh[r2 * K + D + u] = 0.0f;                                  // h_{-1}
-  float x_next = valid && steps > 1 ? load_f(x + xrow + D + u) : 0.0f;  // x_1
-  float c = 0.0f;
-  const float b_j = bias[tid];
-  __syncthreads();
-
-  for (int t = 0; t < steps; ++t) {
-    // Phase 1: thread tid = gate column j, for all ROWS rows.
-    float gates[ROWS];
-    gate_column<T>(s_w, s_xh, tid, b_j, gates);
+  if (threadIdx.x >= COLS) {
+    // ---- producers: xp = x . W_ih + b, a chunk at a time ----
+    const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+    const int unit_t = (unit & ~7) + g8;  // the unit whose gates this lane holds after an mma
+    uint32_t a_ih[2][4][4];
+    float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (is_bf16<T>) {
+      load_a_fragments(w_ih, unit & ~7, lane, a_ih);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s_gates[r * G + tid] = gates[r];
-    __syncthreads();
-
-    // Phase 2: thread tid = (row r2, unit u): cell update, y_t, stage t+1.
-    const float* g = s_gates + r2 * G;
-    const float ig = sigmoid(g[u]);
-    const float fg = sigmoid(g[H + u]);
-    const float gg = tanhf(g[2 * H + u]);
-    const float og = sigmoid(g[3 * H + u]);
-    if (TRAIN && valid) cprev[yrow + (size_t)t * H + u] = c;
-    c = fg * c + ig * gg;
-    const float h = og * tanhf(c);
-    if (valid) store_f(y + yrow + (size_t)t * H + u, h);
-    s_xh[r2 * K + D + u] = operand(h, x);
-    s_xh[r2 * K + u] = x_next;
-    x_next = valid && t + 2 < steps ? load_f(x + xrow + (size_t)(t + 2) * D + u) : 0.0f;
-    __syncthreads();
+      for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
+    } else {
+      load_gate_weights(w_ih, unit, gate, w);
+      b = bias[col];
+    }
+    constexpr int PER = R * S * D / COLS;  // staged x values per thread and chunk
+    float xr[PER];
+    auto fetch = [&](int c) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = i * COLS + p;  // [r][s][u], the layout of s_x
+        const int r = e / (S * D), s = (e / D) % S, u = e % D;
+        const int row = row0 + r, t = c * S + s;
+        xr[i] = row < batch && t < steps ? load_f(x + ((size_t)row * steps + t) * D + u) : 0.0f;
+      }
+    };
+    fetch(0);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      bar_sync(BAR_PROD, COLS);  // every producer has finished reading the last chunk's s_x
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = i * COLS + p;
+        store_f(s_x + (e / D) * XP<T> + e % D, xr[i]);
+      }
+      if (c + 1 < n_chunks) fetch(c + 1);
+      bar_sync(BAR_PROD, COLS);
+      if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
+      float* ring = s_ring + buf * S * R * COLS;
+      if constexpr (is_bf16<T>) {
+        // Tensor cores: 8 steps of a row per mma tile (lstm_common.cuh).
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int nt = 0; nt < S / 8; ++nt) {
+            float c[2][4] = {{b4[0], b4[0], b4[1], b4[1]}, {b4[2], b4[2], b4[3], b4[3]}};
+            mma_64(c, a_ih, s_x + (r * S + nt * 8 + g8) * XP<T>, t4);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<float4*>(ring + ((nt * 8 + 2 * t4 + e) * R + r) * COLS + unit_t * 4) =
+                  make_float4(c[0][e], c[0][2 + e], c[1][e], c[1][2 + e]);
+          }
+      } else {
+        constexpr int SU = 4 / R;  // steps at a time: 4 gates x rows x steps = 16 running sums
+#pragma unroll 1
+        for (int s0 = 0; s0 < S; s0 += SU) {
+          float acc[SU * R][4], px[SU * R];
+#pragma unroll
+          for (int ss = 0; ss < SU; ++ss)
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+#pragma unroll
+              for (int m = 0; m < 4; ++m) acc[ss * R + r][m] = 0.0f;
+              dot_parts(acc[ss * R + r], w, s_x + (r * S + s0 + ss) * D, gate);
+            }
+          transpose_reduce4<2, 1, SU * R>(acc, gate & 2, gate & 1, px);
+#pragma unroll
+          for (int n = 0; n < SU * R; ++n) ring[(s0 * R + n) * COLS + p] = px[n] + b;
+        }
+      }
+      __threadfence_block();
+      bar_arrive(BAR_FULL + buf, THREADS);
+    }
+    return;
   }
+
+  // ---- consumers: the recurrence ----
+  for (int idx = p; idx < 2 * H_ROWS<T, R> * XP<T>; idx += COLS) store_f(s_h + idx, 0.0f);  // h_{-1} = 0
+  bar_sync(BAR_CONS, COLS);
+  int cur = 0;
+
+  if constexpr (is_bf16<T>) {
+    // Tensor cores: D[gate column][n] = W_hh . h^T, the block's rows as a tile's N
+    // (lstm_common.cuh).  Row r is column n = 2 r of the tile (R <= 4; the odd
+    // columns stay zero), so lane (g8, t4) ends with the four gates of unit_t for row
+    // t4 alone: every row's activations run in lanes of their own, and no exchange
+    // between lanes is needed.  The tile starts from xp.
+    static_assert(R <= 4, "row r is column 2 r of an 8-column tile");
+    const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+    const int unit_t = (unit & ~7) + g8;
+    uint32_t a_hh[2][4][4];
+    load_a_fragments(w_hh, unit & ~7, lane, a_hh);
+    float c_state = 0.0f;
+    const bool live = t4 < R, store = live && row0 + t4 < batch;
+    size_t at = (size_t)(row0 + t4) * steps * H + unit_t;  // (row, t, unit_t) of y and cprev
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const float* ring = s_ring + buf * S * R * COLS;
+      const int n = steps - c * S < S ? steps - c * S : S;
+      for (int s = 0; s < n; ++s) {
+        const T* h_prev = s_h + cur * 8 * XP<T>;
+        T* h_next = s_h + (cur ^ 1) * 8 * XP<T>;
+        float g[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+        if (live) {
+          const float4 xp = *reinterpret_cast<const float4*>(ring + (s * R + t4) * COLS + unit_t * 4);
+          g[0][0] = xp.x; g[0][2] = xp.y; g[1][0] = xp.z; g[1][2] = xp.w;
+        }
+        mma_64(g, a_hh, h_prev + g8 * XP<T>, t4);
+        if (live) {
+          const float ig = sigmoid(g[0][0]), fg = sigmoid(g[0][2]);
+          const float gg = tanh_sig(g[1][0]), og = sigmoid(g[1][2]);
+          if (TRAIN && store) cprev[at] = c_state;
+          c_state = fg * c_state + ig * gg;
+          const float h = og * tanh_sig(c_state);
+          store_f(h_next + 2 * t4 * XP<T> + unit_t, h);
+          if (store) store_f(y + at, h);
+          at += H;
+        }
+        cur ^= 1;
+        bar_sync(BAR_CONS, COLS);
+      }
+      if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+  } else {
+    load_gate_weights(w_hh, unit, gate, w);
+    float c_state[R];
+    const int quad_lane = (threadIdx.x & 31) & ~3;  // lane of this unit's gate i
+    // Each of the unit's four lanes carries c; lane i stores y, c_{t-1} and h.
+    bool store[R];
+    size_t at[R];  // (row, t, unit) of y and cprev
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c_state[r] = 0.0f;
+      store[r] = gate == 0 && row0 + r < batch;
+      at[r] = (size_t)(row0 + r) * steps * H + unit;
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const float* ring = s_ring + buf * S * R * COLS;
+      const int n = steps - c * S < S ? steps - c * S : S;
+      for (int s = 0; s < n; ++s) {
+        const float* h_prev = s_h + cur * R * H;
+        float* h_next = s_h + (cur ^ 1) * R * H;
+        float ph[R][4];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) ph[r][m] = 0.0f;
+          dot_parts(ph[r], w, h_prev + r * H, gate);
+        }
+        // Phase by phase over the rows, so that the rows' latencies overlap.
+        float pre[R], act[R], ig[R], fg[R], gg[R], og[R], h[R];
+        transpose_reduce4<2, 1, R>(ph, gate & 2, gate & 1, pre);
+#pragma unroll
+        for (int r = 0; r < R; ++r) act[r] = activate(gate, ring[(s * R + r) * COLS + p] + pre[r]);
+        gather_gates<R>(act, quad_lane, ig, fg, gg, og);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (TRAIN && store[r]) cprev[at[r]] = c_state[r];
+          c_state[r] = fg[r] * c_state[r] + ig[r] * gg[r];
+          h[r] = og[r] * tanh_sig(c_state[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (gate == 0) h_next[r * H + unit] = h[r];
+          if (store[r]) y[at[r]] = h[r];
+          at[r] += H;
+        }
+        cur ^= 1;
+        bar_sync(BAR_CONS, COLS);
+      }
+      if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+  }
+}
+
+template <typename T, bool TRAIN, int R>
+int launch_rows(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+                void* y, float* cprev, int batch, int steps, void* stream) {
+  constexpr int smem = fwd_smem_bytes<T, R>();
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_fwd_kernel<T, TRAIN, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (batch + R - 1) / R;
+  lstm_fwd_kernel<T, TRAIN, R><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w_ih, (const T*)w_hh, bias, (T*)y, cprev, batch, steps);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool TRAIN>
 int launch(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-           void* y, float* cprev, int batch, int steps, void* stream) {
-  const int smem = (int)(sizeof(T) * G * K + sizeof(float) * ROWS * (K + G));
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<T, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + ROWS - 1) / ROWS;
-  lstm_fwd_kernel<T, TRAIN><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w_ih, (const T*)w_hh, bias, (T*)y, cprev, batch, steps);
-  return (int)cudaGetLastError();
+           void* y, float* cprev, int batch, int steps, int rows, void* stream) {
+  switch (rows) {
+    case 1: return launch_rows<T, TRAIN, 1>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 2: return launch_rows<T, TRAIN, 2>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 4: return launch_rows<T, TRAIN, 4>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -112,27 +303,28 @@ extern "C" {
 
 // x: (B, T, 64), w_ih: (256, 64), w_hh: (256, 64), bias: (256,) fp32,
 // y: (B, T, 64), all in the instantiation's type except bias; all
-// contiguous on the current device.  Returns the cudaError_t of the launch
+// contiguous on the current device.  rows: batch rows per block, 1, 2 or 4
+// (ceil(B / rows) blocks).  Returns the cudaError_t of the launch
 // (0 = launched).
-int awm_lstm_fwd_f32(const void* x, const void* w_ih, const void* w_hh,
-                     const float* bias, void* y, int batch, int steps, void* stream) {
-  return launch<float, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, stream);
+int awm_lstm_fwd_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+                     void* y, int batch, int steps, int rows, void* stream) {
+  return launch<float, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
 }
 
-int awm_lstm_fwd_bf16(const void* x, const void* w_ih, const void* w_hh,
-                      const float* bias, void* y, int batch, int steps, void* stream) {
-  return launch<__nv_bfloat16, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, stream);
+int awm_lstm_fwd_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+                      void* y, int batch, int steps, int rows, void* stream) {
+  return launch<__nv_bfloat16, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
 }
 
 // As above, plus cprev: (B, T, 64) fp32, c_{t-1} of every step.
 int awm_lstm_fwd_train_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                           void* y, float* cprev, int batch, int steps, void* stream) {
-  return launch<float, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+                           void* y, float* cprev, int batch, int steps, int rows, void* stream) {
+  return launch<float, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
 }
 
 int awm_lstm_fwd_train_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                            void* y, float* cprev, int batch, int steps, void* stream) {
-  return launch<__nv_bfloat16, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+                            void* y, float* cprev, int batch, int steps, int rows, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
 }
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -14,8 +14,11 @@ C under LSTMFunction, A in validation).  Phases:
    parallel, and print ptxas's report;
 3. hold every kernel instantiation against its plain PyTorch version: A at
    the serving shape (B=512) and an odd B, B and C at the training shape
-   (B=128) and an odd B, T=16000; LSTMFunction's gradients against autograd
-   of the plain forward;
+   (B=128) and an odd B, T=16000, with the rows per block the launch plan
+   picks, and C twice for equal bits; then every rows-per-block variant the
+   plan can pick, at B=1, a ragged B=7, B=128 (and B=512 for A) and at T
+   shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
+   LSTMFunction's gradients against autograd of the plain forward;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -28,8 +31,9 @@ C under LSTMFunction, A in validation).  Phases:
    kernel instantiation must have launched on one of the two paths;
 6. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
    yardstick only), embed+detect clips/s at B=512 and train-step clips/s at
-   B=128 per compute dtype, with the step's peak memory and a profile of one
-   bf16 step's device time by kernel;
+   B=128 per compute dtype, with the step's peak memory, a profile of one
+   bf16 step's device time by kernel, and kernel C's time by launch
+   (recurrence, dx, dW, sum);
 7. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
@@ -48,6 +52,10 @@ import time
 import numpy as np
 
 B_SERVE, B_TRAIN, T, ODD_B = 512, 128, 16000, 3
+# (B, T) of the rows-per-block variant checks: one row, a ragged last block
+# for 2 and 4 rows, the training batch; T below, at and beyond the depth of
+# the kernels' rings (32 steps forward, 16 backward).
+VARIANT_SHAPES = ((1, 1), (1, 2), (7, 3), (7, 37), (B_TRAIN, 50))
 # kernel vs plain on the card.  fp32: the same arithmetic in another
 # summation order.  bf16: both round x, the weights and the recurrent h at
 # the same points, so an h that lands on the other side of a bf16 rounding
@@ -193,11 +201,11 @@ def yardstick(timed, what: str):
         return None
 
 
-def profile_step(step) -> None:
-    """Device time of one synchronised call by kernel (torch.profiler),
-    the top 12 and the device's busy share of the call's wall time.  Only
-    device kernels are summed: an operator's row repeats the device time of
-    the kernels launched under it, and a kernel has no CPU time of its own."""
+def device_kernels(step) -> tuple[list[tuple[str, float, int]], float]:
+    """([(kernel name, device ms, launches)] by time, wall ms) of one
+    synchronised call (torch.profiler).  Only device kernels are listed: an
+    operator's row repeats the device time of the kernels launched under it,
+    and a kernel has no CPU time of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,16 +213,36 @@ def profile_step(step) -> None:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
     events = sorted((e for e in prof.key_averages() if dev_us(e) > 0 and e.self_cpu_time_total == 0),
                     key=dev_us, reverse=True)
-    total = sum(dev_us(e) for e in events)
-    print(f"profile of one bf16 train step: device kernels {total / 1e3:.1f} ms of "
-          f"{wall_us / 1e3:.1f} ms wall (busy {100 * total / wall_us:.1f}%)")
-    for e in events[:12]:
-        print(f"  {dev_us(e) / 1e3:9.2f} ms {100 * dev_us(e) / max(total, 1):5.1f}%  "
-              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return [(e.key, dev_us(e) / 1e3, e.count) for e in events], wall_ms
+
+
+def profile_step(step) -> None:
+    """Device time of one synchronised call by kernel: the top 12, the LSTM
+    kernels, and the device's busy share of the call's wall time."""
+    events, wall_ms = device_kernels(step)
+    total = sum(ms for _, ms, _ in events)
+    print(f"profile of one bf16 train step: device kernels {total:.1f} ms of "
+          f"{wall_ms:.1f} ms wall (busy {100 * total / wall_ms:.1f}%)")
+    for i, (key, ms, count) in enumerate(events):
+        if i < 12 or "lstm_" in key:  # the hand-written kernels wherever they rank
+            print(f"  {ms:9.2f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {key[:90]}", flush=True)
+
+
+def backward_split(call) -> dict[str, float]:
+    """Device ms of kernel C's four launches (recurrence, dx, dW, sum) in one
+    call.  The profiler now and then drops a kernel of a short window, so a
+    trace that misses one is taken again, three times at most."""
+    for _ in range(3):
+        events, _ = device_kernels(call)
+        split = {part: sum(ms for key, ms, _ in events if f"lstm_bwd_{part}_" in key)
+                 for part in ("rec", "dx", "dw", "sum")}
+        if all(ms > 0 for ms in split.values()):
+            break
+    return split
 
 
 def train_cfg(compute_dtype: str):
@@ -309,6 +337,10 @@ def main() -> int:
                   and err <= KERNEL_TOL[fname],
                   f"{fname} vs plain, B={b} T={T}: y and cprev max abs err {err:.3e} "
                   f"(tol {KERNEL_TOL[fname]:.0e})")
+            again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            check(all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
+                  f"{bname}, B={b} T={T}: two runs give the same bits")
+            del again
             rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
             babs.append(max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
             brel.append(max(rels))
@@ -319,6 +351,35 @@ def main() -> int:
             del x, y, cprev, dy, grads, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
         max_err[fname], max_err[bname], max_rel[bname] = max(ferrs), max(babs), max(brel)
+
+        # every rows-per-block variant the plan can pick, short T and ragged B
+        for rows in K.FWD_ROWS:
+            worst, worst_train = 0.0, 0.0
+            for b, t in (*VARIANT_SHAPES, (B_SERVE, 50)):
+                x, w_ih, w_hh, bias, _ = lstm_inputs(b, dtype, dev, seed=1000 + 10 * b + t, t=t)
+                with no_tf32():
+                    ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+                worst = max(worst, float((y0.float() - ref_y.float()).abs().max()))
+                worst_train = max(worst_train, float((y.float() - ref_y.float()).abs().max()),
+                                  float((cprev - ref_c).abs().max()))
+            check(worst <= KERNEL_TOL[name] and worst_train <= KERNEL_TOL[fname],
+                  f"{name} / {fname} vs plain, {rows} rows per block, (B, T) in "
+                  f"{(*VARIANT_SHAPES, (B_SERVE, 50))}: max abs err {worst:.3e} / {worst_train:.3e} "
+                  f"(tol {KERNEL_TOL[name]:.0e})")
+        for rows in K.BWD_ROWS:
+            worst = 0.0
+            for b, t in VARIANT_SHAPES:
+                x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=2000 + 10 * b + t, t=t)
+                with no_tf32():
+                    y, cprev = lstm_forward_train(x, w_ih, w_hh, bias)
+                    ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+                    grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
+                worst = max(worst, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
+            check(worst <= KERNEL_TOL[bname],
+                  f"{bname} vs plain, {rows} rows per block, (B, T) in {VARIANT_SHAPES}: "
+                  f"max rel err {worst:.3e} (tol {KERNEL_TOL[bname]:.0e})")
 
         # the Function vs autograd of the plain forward (independent of plain C)
         x, w_ih, w_hh, bias, _ = lstm_inputs(ODD_B, dtype, dev, seed=7, t=2000)
@@ -486,6 +547,7 @@ def main() -> int:
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=3)
             b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=3)
+            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
             f_plain = cuda_ms(lambda: lstm_forward_train(x, w_ih, w_hh, bias), reps=1, warmup=0)
             b_plain = cuda_ms(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias), reps=1, warmup=0)
             m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
@@ -502,6 +564,10 @@ def main() -> int:
             print(f"{name} B={B_TRAIN} T={T}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
                   f"cuDNN nn.LSTM {'forward' if 'fwd' in name else 'backward'} {lib} ms, "
                   f"bound {bms:.3f} ms ({by})", flush=True)
+        times[bname]["split_ms"] = split
+        print(f"{bname} by launch: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + ("" if all(v > 0 for v in split.values()) else " (0: the profiler dropped that kernel)"),
+              flush=True)
         both = None if f_lib is None or b_lib is None else f_lib + b_lib
         print(f"nn.LSTM {sfx} forward + backward B={B_TRAIN}: {both} ms; "
               f"kernels B + C {f_ms + b_ms:.3f} ms", flush=True)
@@ -544,9 +610,13 @@ def main() -> int:
 
     # 7. result lines
     kernels = []
-    for name, (source, replaces, _) in KERNELS.items():
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (source, replaces, sfx) in KERNELS.items():
+        plan = K.launch_plan(B_TRAIN if "train" in name or "bwd" in name else B_SERVE, T,
+                             dtypes[sfx], sm_count)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": max_err[name], **times[name]}
+                 "launches": launches[name], "max_abs_err": max_err[name],
+                 "rows_per_block": plan.bwd_rows if "bwd" in name else plan.fwd_rows, **times[name]}
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)

@@ -148,3 +148,58 @@ def test_function_on_card_matches_autograd_of_plain(cuda):
     for pa, pb in zip(a, b):
         rel = float((pa.grad - pb.grad).abs().max() / pb.grad.abs().max())
         assert rel <= 1e-4, rel
+
+
+SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
+@pytest.mark.parametrize("b,t", SHORT_AND_RAGGED)
+def test_forward_kernels_every_rows_variant(cuda, b, t, rows, dtype, tol):
+    """Kernels A and B at each rows-per-block instantiation the launch plan
+    can pick, vs lstm_forward_train: the forward's tolerances."""
+    from awm_tpu_torch.ops.lstm import lstm_forward_train
+
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=6)
+    x = x.to(dtype)
+    y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+    torch.cuda.synchronize()
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+    assert torch.equal(y0, y)
+    assert float((y.float() - ref_y.float()).abs().max()) <= tol
+    assert float((cprev - ref_c).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", lstm_kernel.BWD_ROWS)
+@pytest.mark.parametrize("b,t", SHORT_AND_RAGGED)
+def test_backward_kernel_every_rows_variant(cuda, b, t, rows, dtype, tol):
+    """Kernel C at each rows-per-block instantiation of its recurrent kernel
+    vs lstm_backward on the plain forward's (y, cprev): the backward's
+    tolerances, and the same bits in two runs."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=7)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    with no_tf32():
+        y, cprev = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
+    again = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
+    torch.cuda.synchronize()
+    for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref, again):
+        rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+        assert rel <= tol, (name, rel)
+        assert torch.equal(a, a2), name
+
+
+def test_kernel_refuses_rows_it_is_not_built_for(cuda):
+    x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
+    with pytest.raises(RuntimeError, match="invalid"):
+        lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=3)

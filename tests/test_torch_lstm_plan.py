@@ -1,0 +1,135 @@
+"""The launch plan of the port's CUDA LSTM kernels, and their plain versions
+at sequences shorter than the kernels' rings.
+
+The plan (rows per block, block counts, the backward's scratch shapes) is a
+pure function of (batch, steps, dtype, SM count), so it is tested here on the
+CPU.  The short-T cases hold the plain training forward and backward against
+the JAX package's Pallas kernels in interpret mode: on the card the kernels
+are held against these plain versions at T = 1, 2, 3."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from awm_tpu.ops.pallas.lstm_kernel import _backward, _forward_train
+
+from awm_tpu_torch.ops import lstm_kernel
+from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+from awm_tpu_torch.ops.lstm_kernel import launch_plan
+
+BATCHES = [1, 2, 3, 4, 5, 127, 128, 129, 512, 513]
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_plan_covers_every_row_once(batch, sm_count):
+    """Block i owns rows [i * rows, (i + 1) * rows): together the blocks
+    cover 0..B-1 exactly once, the last block may be ragged, and no block
+    is empty.  Both dtypes, forward and backward."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = launch_plan(batch, 16000, dtype, sm_count)
+        for rows, blocks, choices in (
+            (plan.fwd_rows, plan.fwd_blocks, lstm_kernel.FWD_ROWS),
+            (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_ROWS),
+        ):
+            assert rows in choices
+            assert blocks * rows >= batch > (blocks - 1) * rows
+            owned = [r for i in range(blocks) for r in range(i * rows, min((i + 1) * rows, batch))]
+            assert owned == list(range(batch))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_plan_scratch_shapes(batch, dtype):
+    """The scratch the backward wrapper allocates: da for every (row, step)
+    in the operand type, one db partial per recurrent block, one dW partial
+    per chunk, and chunks that cover the (B*T) axis."""
+    steps = 300
+    plan = launch_plan(batch, steps, dtype, 132)
+    assert plan.da_shape == (batch, steps, 256) and plan.da_dtype == dtype
+    assert plan.db_part_shape == (plan.bwd_blocks, 256)
+    assert plan.part_shape == (plan.n_chunks, 256, 128)
+    assert 1 <= plan.n_chunks <= lstm_kernel.DW_MAX_CHUNKS
+    chunk_rows = -(-batch * steps // plan.n_chunks)  # as lstm_bwd.cu cuts the axis
+    assert plan.n_chunks * chunk_rows >= batch * steps
+    assert 1 <= plan.dx_blocks <= 2 * 132
+
+
+def test_plan_fills_the_card():
+    """At the training batch every SM that has a row gets one block of one
+    row; at the serving batch no choice of rows would finish sooner by the
+    plan's own cost."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = launch_plan(128, 16000, dtype, 132)
+        assert (plan.fwd_rows, plan.fwd_blocks, plan.bwd_rows, plan.bwd_blocks) == (1, 128, 1, 128)
+        cost = lstm_kernel.FWD_STEP_COST[dtype]
+        plan = launch_plan(512, 16000, dtype, 132)
+        waves = lambda rows: -(-(-(-512 // rows)) // 132)
+        assert all(waves(plan.fwd_rows) * cost[plan.fwd_rows] <= waves(r) * cost[r] for r in cost)
+        assert (plan.fwd_rows, plan.fwd_blocks) == (4, 128)
+
+
+def test_plan_refuses_empty_calls():
+    for args in ((0, 10, 132), (4, 0, 132), (4, 10, 0)):
+        with pytest.raises(ValueError):
+            launch_plan(args[0], args[1], torch.float32, args[2])
+
+
+def _case(rng, b, t):
+    x = (rng.standard_normal((b, t, 64)) * 0.3).astype(np.float32)
+    w_ih = (rng.standard_normal((256, 64)) * 0.1).astype(np.float32)
+    w_hh = (rng.standard_normal((256, 64)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((256,)) * 0.1).astype(np.float32)
+    dy = (rng.standard_normal((b, t, 64)) * 0.5).astype(np.float32)
+    return x, (w_ih, w_hh, bias), dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_plain_forward_train_matches_pallas_short(rng, t, dtype):
+    """Plain kernel B vs the TPU's _forward_train in interpret mode at B=3
+    and T = 1, 2, 3.  The tolerances of test_plain_forward_train_matches_pallas:
+    fp32 2e-5 (summation order); bf16 y 1e-2 (one bf16 ulp), cprev 1e-3."""
+    x, weights, _ = _case(rng, 3, t)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        ref_y, ref_c = _forward_train(jnp.asarray(x).astype(jdtype), *map(jnp.asarray, weights))
+    y, cprev = lstm_forward_train(torch.from_numpy(x).to(dtype), *map(torch.from_numpy, weights))
+    assert y.shape == (3, t, 64) and y.dtype == dtype and cprev.dtype == torch.float32
+    assert float(cprev[:, 0].abs().max()) == 0.0  # c_{-1} = 0
+    tol_y, tol_c = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    np.testing.assert_allclose(
+        y.float().numpy(), np.swapaxes(np.asarray(ref_y.astype(jnp.float32)), 0, 1), atol=tol_y)
+    np.testing.assert_allclose(cprev.numpy(), np.swapaxes(np.asarray(ref_c), 0, 1), atol=tol_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_plain_backward_matches_pallas_short(rng, t, dtype):
+    """Plain kernel C vs the TPU's _backward in interpret mode on the same
+    (x, y, cprev, dy) at B=3 and T = 1, 2, 3, relative to each tensor's max:
+    fp32 1e-5, bf16 1e-3 (test_plain_backward_matches_pallas's).  At T = 1
+    h_{-1} = 0, so dW_hh is exactly zero on both sides."""
+    x, weights, dy = _case(rng, 3, t)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx, jw = jnp.asarray(x).astype(jdtype), list(map(jnp.asarray, weights))
+    with pltpu.force_tpu_interpret_mode():
+        y_t, c_t = _forward_train(jx, *jw)
+        ref = _backward(jnp.swapaxes(jx, 0, 1), y_t, c_t, jnp.swapaxes(jnp.asarray(dy), 0, 1),
+                        *jw, dx_dtype=jx.dtype)
+    y = torch.from_numpy(np.swapaxes(np.asarray(y_t.astype(jnp.float32)), 0, 1).copy()).to(dtype)
+    cprev = torch.from_numpy(np.swapaxes(np.asarray(c_t), 0, 1).copy())
+    got = lstm_backward(torch.from_numpy(x).to(dtype), y, cprev, torch.from_numpy(dy),
+                        *map(torch.from_numpy, weights))
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    refs = (np.swapaxes(np.asarray(ref[0].astype(jnp.float32)), 0, 1),
+            *(np.asarray(v) for v in ref[1:]))
+    for name, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got, refs):
+        a = a.float().numpy()
+        assert a.shape == r.shape, name
+        assert float(np.abs(a - r).max()) <= tol * float(np.abs(r).max()) + 1e-12, name
+    if t == 1:
+        assert float(got[2].abs().max()) == 0.0
