@@ -1,8 +1,10 @@
-"""Command line of the port: python -m awm_tpu_torch embed|detect|verify|train.
+"""Command line of the port: python -m awm_tpu_torch
+embed|detect|verify|train|evaluate|embed-folder|detect-folder.
 
 The commands and their arguments are those of ``python -m awm_tpu``'s
-serving commands and the subset of its ``train`` that the port supports
-(no attack curriculum, checkpoint saving or data parallelism yet).  Serving
+serving and evaluation commands and the subset of its ``train`` that the
+port supports (the attack curriculum included; no checkpoint saving, music
+mix or data parallelism yet).  Serving
 weights come from a flattened ``.npz`` (--params) and the architecture from
 its ``awm_arch.json`` (--arch); both default to the packaged shapecap
 checkpoint.  Runs on cuda unless --device cpu is given.
@@ -46,7 +48,8 @@ def cmd_embed(args):
 def cmd_detect(args):
     from awm_tpu_torch.api import detect_watermark
 
-    r = detect_watermark(args.input, _load_session(args), args.threshold, ecc=args.ecc)
+    r = detect_watermark(args.input, _load_session(args), args.threshold,
+                         visualize=args.visualize, ecc=args.ecc)
     out = {k: r[k] for k in ("mean_probability", "is_watermarked", "decision")}
     out["predicted_message"] = r.get("predicted_message")
     if "ecc" in r:
@@ -106,6 +109,25 @@ def _train_config(args):
     cfg = rep(cfg, loss=rep(cfg.loss, **loss))
     if args.shape_max_rms is not None:
         cfg = rep(cfg, shaping=rep(cfg.shaping, enabled=True, max_rms=args.shape_max_rms))
+    if args.augment:
+        # the robustness curriculum of the JAX CLI (awm_tpu/__main__.py:246-267):
+        # every channel attack independently per example with p < 1, on both
+        # detector halves (train._forward)
+        from awm_tpu_torch.augment import AugmentConfig
+
+        lo, hi = (float(x) for x in args.noise_snr.split(","))
+        cuts = tuple(float(x) for x in args.lowpass_hz.split(","))
+        rates = tuple(int(x) for x in args.resample_hz.split(","))
+        cfg = rep(cfg, augment=AugmentConfig(
+            noise_snr_db=(lo, hi), volume_range=(0.3, 1.2),
+            lowpass_hz=cuts if len(cuts) > 1 else cuts[0],
+            lowpass_filter="fir" if args.lowpass_fir else "biquad",
+            quantize=True,
+            resample_hz=rates if len(rates) > 1 else rates[0],
+            attack_prob=args.attack_prob,
+            mulaw=args.mulaw,
+            val_attacks=not args.clean_val,
+        ))
     return cfg
 
 
@@ -132,6 +154,35 @@ def cmd_train(args):
               device=args.device)
     print(json.dumps({"best_val": out["best_val"], "epochs": len(out["history"]),
                       "stopped_early": out["stopped_early"]}, indent=2))
+    return out
+
+
+def cmd_evaluate(args):
+    from awm_tpu_torch.eval import evaluate_corpus, interpret_results
+
+    out = evaluate_corpus(args.data, _load_session(args), max_files=args.max_files)
+    report = out.pop("report", "")
+    print(json.dumps(out, indent=2))
+    print(report)
+    if "accuracy" in out:
+        print(interpret_results(out["accuracy"]))
+    return out
+
+
+def cmd_embed_folder(args):
+    from awm_tpu_torch.eval import embed_watermark_folder
+
+    out = embed_watermark_folder(args.input, args.output, _load_session(args))
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def cmd_detect_folder(args):
+    from awm_tpu_torch.eval import detect_watermark_folder
+
+    out = detect_watermark_folder(args.input, _load_session(args), threshold=args.threshold)
+    out.pop("per_file")
+    print(json.dumps(out, indent=2))
     return out
 
 
@@ -164,6 +215,7 @@ def main(argv=None):
     _add_session_args(p)
     p.add_argument("input")
     p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--visualize", action="store_true", help="save temporal-probability plot")
     p.add_argument("--ecc", action="store_true",
                    help="decode the 16 bits as a SECDED codeword")
     p.set_defaults(fn=cmd_detect)
@@ -181,7 +233,7 @@ def main(argv=None):
     p.set_defaults(fn=cmd_verify)
 
     p = sub.add_parser("train", help="train generator+detector")
-    p.add_argument("--preset", default="base", help="base, light, onecycle20 or quality")
+    p.add_argument("--preset", default="base", help="base, light, onecycle20, quality or ft_robust")
     p.add_argument("--audio-len", type=int)
     p.add_argument("--batch-size", type=int)
     p.add_argument("--data", help="directory of 1-s wav clips")
@@ -196,6 +248,43 @@ def main(argv=None):
                         "BN statistics")
     p.add_argument("--select-metric",
                    help="comma-separated val loss terms whose sum drives early stopping")
+    p.add_argument("--augment", action="store_true",
+                   help="on-device channel-attack curriculum (noise/volume/"
+                        "lowpass/quantize/resample, per-example probability)")
+    p.add_argument("--attack-prob", type=float, default=0.35,
+                   help="per-example per-attack application probability")
+    p.add_argument("--noise-snr", default="15,40",
+                   help="noise-attack SNR range 'min,max' dB for --augment "
+                        "(train past the eval edge: a curriculum whose MINIMUM "
+                        "equals the eval SNR leaves that SNR undetected)")
+    p.add_argument("--lowpass-fir", action="store_true",
+                   help="use the steep 101-tap FIR for the --augment lowpass "
+                        "attack instead of the biquad (the biquad's soft "
+                        "rolloff leaks out-of-band carrier energy; the FIR "
+                        "forces the watermark fully below the cutoff, which "
+                        "resample-channel survival requires)")
+    p.add_argument("--lowpass-hz", default="7000",
+                   help="lowpass-attack cutoff(s) in Hz for --augment; a "
+                        "comma list becomes a per-example curriculum (e.g. "
+                        "'3500,5000,7000' keeps the watermark carrier below "
+                        "the harshest cutoff so out-of-band lowpass attacks "
+                        "cannot strip it)")
+    p.add_argument("--resample-hz", default="8000",
+                   help="resample-attack target rate(s) in Hz for --augment; "
+                        "a comma list becomes a per-example curriculum.  Any "
+                        "rational ratio works (polyphase, dsp.resample), e.g. "
+                        "'8000,11025,22050'")
+    p.add_argument("--mulaw", action="store_true",
+                   help="add an 8-bit G.711 mu-law round trip to the "
+                        "--augment attack chain (telephony codec, "
+                        "dsp/codec.py, audioop-exact)")
+    p.add_argument("--clean-val", action="store_true",
+                   help="validate on CLEAN batches even with --augment.  By "
+                        "default validation applies the same attack curriculum "
+                        "with deterministic epoch-independent draws, so "
+                        "--select-metric loc,dec tracks detection UNDER attack "
+                        "(clean loc/dec are already converged at fine-tune "
+                        "start and would freeze selection at epoch 0)")
     p.add_argument("--message-encoding", choices=("table", "bits"))
     p.add_argument("--decode-head", choices=("shared", "dilated"))
     p.add_argument("--delta-band-hz", type=float)
@@ -212,6 +301,24 @@ def main(argv=None):
                    help="conv/BN compute dtype of the step (default: the preset's, bfloat16)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("evaluate", help="corpus sweep: accuracy/AUC/K-fold")
+    _add_session_args(p)
+    p.add_argument("data")
+    p.add_argument("--max-files", type=int)
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("embed-folder", help="watermark a directory tree")
+    _add_session_args(p)
+    p.add_argument("input")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_embed_folder)
+
+    p = sub.add_parser("detect-folder", help="detect over a directory tree")
+    _add_session_args(p)
+    p.add_argument("input")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.set_defaults(fn=cmd_detect_folder)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 from math import comb
 from typing import Dict, Optional
 
@@ -24,6 +25,7 @@ import torch
 
 from awm_tpu_torch.checkpoint import SHAPECAP_ARCH, SHAPECAP_NPZ, load_models
 from awm_tpu_torch.config import AUDIO_LEN, SAMPLE_RATE
+from awm_tpu_torch.dsp import lowpass_biquad
 from awm_tpu_torch.ecc import PAYLOAD_BITS, ecc_decode, ecc_encode
 from awm_tpu_torch.models import set_compute_dtype
 from awm_tpu_torch.shaping import shape_delta
@@ -118,6 +120,9 @@ class InferenceSession:
             delta = shape_delta(delta, self.shaping, self.sample_rate)
         return delta
 
+    def _detect(self, chunks):
+        return self.det(chunks.to(self.compute_dtype)).float()
+
     def _detect_reduced(self, chunks, lengths):
         """Detector + on-device reductions: per-sample probs, per-chunk
         time-mean bit logits and vote fractions over the valid samples, and
@@ -157,9 +162,16 @@ class InferenceSession:
         session has a shaping chain)."""
         return self._run_bucketed(self._embed, [chunks, messages.astype(np.int64)])
 
-    def detect_summary(self, chunks: np.ndarray, lengths: Optional[np.ndarray] = None):
+    def detect_chunks(self, chunks: np.ndarray) -> np.ndarray:
+        """(N, L) -> (N, L, 1 + bits) raw logits.  Prefer detect_summary for
+        sweeps: raw logits are a 17 times larger host transfer."""
+        return self._run_bucketed(self._detect, [chunks])
+
+    def detect_summary(self, chunks, lengths: Optional[np.ndarray] = None):
         """(N, L) [+ per-chunk valid lengths] -> (probs (N, L),
-        msg_logit_mean (N, bits), msg_vote_frac (N, bits), mean_prob (N,))."""
+        msg_logit_mean (N, bits), msg_vote_frac (N, bits), mean_prob (N,)).
+        chunks may be a tensor already on the session's device (eval's
+        attacked audio), which then makes no round trip through the host."""
         if lengths is None:
             lengths = np.full(chunks.shape[0], chunks.shape[1], np.int64)
         return self._run_bucketed(
@@ -179,8 +191,9 @@ class InferenceSession:
         )
 
     def _run_bucketed(self, fn, arrays, pad_values=None):
-        """Run fn over row-aligned arrays in power-of-two buckets, slicing
-        the padding back off.  Handles tensor / tuple / dict outputs."""
+        """Run fn over row-aligned arrays (numpy, or torch tensors on any
+        device) in power-of-two buckets, slicing the padding back off.
+        Handles tensor / tuple / dict outputs."""
         n = arrays[0].shape[0]
         if pad_values is None:
             pad_values = [0] * len(arrays)
@@ -194,10 +207,12 @@ class InferenceSession:
                 ins = []
                 for arr, pv in zip(arrays, pad_values):
                     a = arr[i : i + take]
+                    if not torch.is_tensor(a):
+                        a = torch.from_numpy(np.ascontiguousarray(a))
                     if take < b:
-                        pad = np.full((b - take,) + a.shape[1:], pv, a.dtype)
-                        a = np.concatenate([a, pad])
-                    ins.append(torch.from_numpy(np.ascontiguousarray(a)).to(self.device))
+                        pad = torch.full((b - take,) + a.shape[1:], pv, dtype=a.dtype, device=a.device)
+                        a = torch.cat([a, pad])
+                    ins.append(a.to(self.device))
                 outs.append(_to_host(fn(*ins), take))
                 i += take
         return outs[0] if len(outs) == 1 else _concat(outs)
@@ -405,10 +420,66 @@ def detect_watermark(
     input_file: str,
     session: InferenceSession,
     detection_threshold: float = 0.5,
+    visualize: bool = False,
     *,
     ecc: bool = False,
 ) -> Dict:
-    """File-level detect (ref: py/main14.py:856-949).  The JAX package's
-    visualize=True plot is not ported yet."""
+    """File-level detect (ref: py/main14.py:856-949).  visualize=True writes
+    the reference's temporal-probability plot next to the input."""
     waveform = load_mono_16k(input_file, session.sample_rate)
-    return detect_array(waveform, session, detection_threshold, ecc=ecc)
+    result = detect_array(waveform, session, detection_threshold, ecc=ecc)
+    if visualize:
+        _plot_detection(input_file, result, detection_threshold, session.sample_rate)
+    return result
+
+
+def _plot_detection(input_file, result, threshold, sample_rate):
+    """Temporal-probability figure in the reference's output format (labels,
+    colours and layout kept, so consumers of the PNG see the same artifact;
+    ref: py/main14.py:931-947)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    probs = result["temporal_probs"]
+    time_axis = np.linspace(0, len(probs) / sample_rate, len(probs))
+    plt.figure(figsize=(12, 6))
+    plt.plot(time_axis, probs, label="Detection Probability", color="blue", alpha=0.7)
+    plt.axhline(y=threshold, color="red", linestyle="--", label=f"Threshold ({threshold})")
+    plt.axhline(
+        y=result["mean_probability"],
+        color="green",
+        linestyle="-.",
+        label=f"Mean Probability ({result['mean_probability']:.4f})",
+    )
+    plt.xlabel("Time (seconds)")
+    plt.ylabel("Watermark Detection Probability")
+    plt.title(
+        f"Watermark Detection Results for {os.path.basename(input_file)}\n"
+        f"Decision: {result['decision']}"
+    )
+    plt.ylim(-0.05, 1.05)
+    plt.legend()
+    plt.grid(True, alpha=0.3)
+    plt.tight_layout()
+    plt.savefig(os.path.splitext(input_file)[0] + "_detection.png")
+    plt.close()
+
+
+def run_inference_on_file(input_file: str, session: InferenceSession):
+    """Embed + detect + metrics on one file; returns (watermarked,
+    detection_prob, watermark_rms, si_snr_db) (ref: py/main14.py:662-686)."""
+    res = generate_watermarked_audio(input_file, session)
+    wm = res["watermarked_waveform"]
+    det = detect_array(wm, session)
+    return wm, det["mean_probability"], res["metrics"]["watermark_rms"], res["metrics"]["si_snr_db"]
+
+
+def save_audio_quality(waveform: np.ndarray, output_path: str, sample_rate: int = SAMPLE_RATE,
+                       *, device="cuda") -> None:
+    """main15's quality save path: 7 kHz lowpass -> clamp -> int16 PCM WAV
+    (ref: py/main15.py:850-867).  The biquad runs on `device` (its short-FIR
+    form), the file write on the host."""
+    x = torch.from_numpy(np.asarray(waveform, np.float32)).to(device)
+    save_wav(output_path, lowpass_biquad(x, sample_rate, 7000.0).cpu().numpy(), sample_rate)

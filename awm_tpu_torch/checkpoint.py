@@ -4,7 +4,9 @@ The port reads no orbax tree.  A JAX checkpoint crosses over once as an
 ``.npz`` of its ``{'params', 'batch_stats'}`` tree flattened to ``/``-joined
 keys (``params/gen/enc_conv/w``); ``assets/shapecap.npz`` is the committed
 shapecap checkpoint (evidence/r5/shapecap/ckpt_best), and
-``assets/awm_arch.json`` its architecture sidecar.  ``variables_from_flax``
+``assets/awm_arch.json`` its architecture sidecar; ``assets/t_flagship.npz``
+and ``assets/t_flagship_arch.json`` are evidence/r5/T_flagship/ckpt_best, the
+same architecture trained without the shaping chain.  ``variables_from_flax``
 maps one network's tree onto the port's ``state_dict``: the inverse of the
 JAX importer's ``_conv`` / ``_conv_t`` / ``_bn`` / LSTM layouts
 (awm_tpu/checkpoint.py:289-373).
@@ -26,6 +28,8 @@ ARCH_FILE = "awm_arch.json"
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 SHAPECAP_NPZ = os.path.join(ASSETS, "shapecap.npz")
 SHAPECAP_ARCH = os.path.join(ASSETS, ARCH_FILE)
+T_FLAGSHIP_NPZ = os.path.join(ASSETS, "t_flagship.npz")
+T_FLAGSHIP_ARCH = os.path.join(ASSETS, "t_flagship_arch.json")
 
 # flax modules that are ConvTranspose1d (their (k, in, out) weight becomes
 # torch's (in, out, k), without a flip); every other 'w' is a Conv1d.

@@ -3,15 +3,17 @@ awm_tpu/config.py).
 
 Own copies of the constants, of the ModelConfig fields the base family
 reads, and of ShapingConfig, LossConfig, ScheduleConfig, TrainConfig and
-Config.  The presets are those that need no attack curriculum: base, light,
-onecycle20 and quality.  ft_robust (the main15c channel postprocess) and
-strided (the strided family) are not ported yet and raise.
+Config.  The presets are base, light, onecycle20, quality and ft_robust;
+strided (the strided family) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
+
+if TYPE_CHECKING:  # augment imports torch; this module stays import-light
+    from awm_tpu_torch.augment import AugmentConfig
 
 SAMPLE_RATE = 16000
 AUDIO_LEN = 16000
@@ -39,8 +41,8 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapingConfig:
     """main16 delta-shaping chain (fir_lowpass -> clamp_peak -> limit_rms)
-    and the main15c channel postprocess of s_w (7 kHz biquad + int16
-    quantisation; not ported yet, shaping.apply_channel raises)."""
+    and the main15c channel postprocess of s_w inside the training graph
+    (7 kHz biquad + int16 quantisation, shaping.perceptual_postprocess)."""
 
     enabled: bool = False
     fir_cutoff_hz: float = 4000.0
@@ -111,7 +113,9 @@ class Config:
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     shaping: ShapingConfig = dataclasses.field(default_factory=ShapingConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
-    augment: Optional[object] = None  # the attack curriculum: not ported yet
+    # channel-attack curriculum on both halves of the detector batch during
+    # training (awm_tpu_torch.augment.AugmentConfig); None = off
+    augment: Optional["AugmentConfig"] = None
     sample_rate: int = SAMPLE_RATE
     audio_len: int = AUDIO_LEN
     message_bits: int = 16
@@ -147,11 +151,20 @@ def _quality() -> Config:
     )
 
 
-PRESETS = {"base": _base, "light": _light, "onecycle20": _onecycle20, "quality": _quality}
-NOT_PORTED = {
-    "ft_robust": "needs the channel postprocess (biquad + int16), the attacks slice",
-    "strided": "needs the strided model family",
-}
+def _ft_robust() -> Config:
+    """main15c: robustness fine-tune with the 7 kHz lowpass + int16
+    quantisation of s_w inside the training graph, lr 1e-5, 3 epochs
+    (ref: main15c.ipynb cells 0, 4, 6, 14-15)."""
+    return Config(
+        name="ft_robust",
+        shaping=ShapingConfig(postprocess=True),
+        train=TrainConfig(epochs=3, schedule=ScheduleConfig(kind="constant", lr=1e-5)),
+    )
+
+
+PRESETS = {"base": _base, "light": _light, "onecycle20": _onecycle20, "quality": _quality,
+           "ft_robust": _ft_robust}
+NOT_PORTED = {"strided": "needs the strided model family"}
 
 
 def get_config(name: str = "base") -> Config:

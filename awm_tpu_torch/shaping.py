@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from awm_tpu_torch.config import ShapingConfig
-from awm_tpu_torch.dsp import fir_lowpass
+from awm_tpu_torch.dsp import fir_lowpass, lowpass_biquad, quantize_int16
 
 
 def clamp_peak(delta: torch.Tensor, thr: float = 0.02) -> torch.Tensor:
@@ -31,12 +31,17 @@ def shape_delta(delta: torch.Tensor, cfg: ShapingConfig, sample_rate: int = 1600
     return limit_rms(d, cfg.max_rms)
 
 
+def perceptual_postprocess(s_w: torch.Tensor, cutoff_hz: float = 7000.0,
+                           sample_rate: int = 16000) -> torch.Tensor:
+    """Channel simulation of main15c: 7 kHz biquad lowpass, then the int16
+    round trip, on the watermarked signal inside the training graph
+    (ref: main15c.ipynb cell 4)."""
+    return quantize_int16(lowpass_biquad(s_w, sample_rate, cutoff_hz))
+
+
 def apply_channel(s_w: torch.Tensor, cfg: ShapingConfig, sample_rate: int = 16000) -> torch.Tensor:
     """The channel between embedding and detection in training: identity
-    unless cfg.postprocess, whose main15c biquad + int16 round trip is not
-    ported yet."""
+    unless cfg.postprocess."""
     if not cfg.postprocess:
         return s_w
-    raise NotImplementedError(
-        "ShapingConfig.postprocess needs the attacks slice (lowpass_biquad, quantize_int16)"
-    )
+    return perceptual_postprocess(s_w, cfg.postprocess_cutoff_hz, sample_rate)

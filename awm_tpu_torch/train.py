@@ -1,8 +1,9 @@
 """Jointly trained generator + detector: the train step (counterpart of
 awm_tpu/train.py).
 
-One step runs the generator, the delta shaping, the channel, the detector
-on the concatenated [watermarked; clean] 2B batch, every loss term, the
+One step runs the generator, the delta shaping, the channel, the attack
+curriculum (cfg.augment) on the concatenated [watermarked; clean] 2B batch,
+the detector on that batch, every loss term, the
 backward (through the hand-written LSTM backward kernel on the card) and one
 Adam step over both networks' parameters.  PyTorch's idiom replaces JAX's
 pure functions: the step updates the TrainState's modules, optimizer and
@@ -10,10 +11,11 @@ BatchNorm statistics in place, and returns the loss terms as device tensors
 that the caller fetches when it wants (trainer.fit fetches them one step
 late, so the card is never waiting on the host).
 
-Messages are drawn from an explicit torch.Generator (the state's, or the
-caller's); train_step and eval_step also take a message tensor, which the
-parity tests use to hand in the JAX-drawn one.  The two frameworks' random
-streams are never compared.
+Messages are drawn from an explicit torch.Generator on the CPU (the
+state's, or the caller's), the attacks from one on the step's device, so the
+noise is made where it is used.  train_step and eval_step also take a message
+tensor and the attack draws, which the parity tests use to hand in what the
+JAX step drew.  The two frameworks' random streams are never compared.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from awm_tpu_torch.augment import apply_augment, draw_augment
 from awm_tpu_torch.config import Config
 from awm_tpu_torch.losses import total_loss
 from awm_tpu_torch.models import (
@@ -41,13 +44,15 @@ from awm_tpu_torch.utils.precision import no_tf32
 class TrainState:
     """Both networks (parameters fp32, BN statistics as buffers), the Adam
     optimizer over the trained parameters, the learning-rate schedule, the
-    step count and the message generator."""
+    step count, the message generator (CPU) and the attack generator (on the
+    networks' device)."""
 
     gen: torch.nn.Module
     det: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     generator: torch.Generator
+    attack_generator: torch.Generator
     step: int = 0
 
 
@@ -120,7 +125,8 @@ def init_state(
     gen, det = gen.to(device), det.to(device)
     schedule = make_schedule(cfg, steps_per_epoch)
     return TrainState(gen=gen, det=det, optimizer=make_optimizer(cfg, gen, det, schedule),
-                      schedule=schedule, generator=torch.Generator().manual_seed(seed))
+                      schedule=schedule, generator=torch.Generator().manual_seed(seed),
+                      attack_generator=torch.Generator(device=device).manual_seed(seed))
 
 
 def draw_messages(cfg: Config, n: int, generator: torch.Generator, device) -> torch.Tensor:
@@ -133,10 +139,12 @@ def _precision(cfg: Config):
     return no_tf32() if compute_dtype_of(cfg) is None else contextlib.nullcontext()
 
 
-def _forward(cfg: Config, gen, det, s, message, *, train: bool):
-    """generator -> shaping -> channel -> detector (awm_tpu/train.py:130-168).
-    Returns (delta, s_w, logits), all fp32; in train mode the BatchNorm
-    layers update their running statistics as a side effect."""
+def _forward(cfg: Config, gen, det, s, message, *, train: bool, attack_draws=None):
+    """generator -> shaping -> channel -> attacks -> detector
+    (awm_tpu/train.py:130-168).  Returns (delta, s_w, logits), all fp32; in
+    train mode the BatchNorm layers update their running statistics as a
+    side effect.  attack_draws (augment.draw_augment for the 2B detector
+    batch) turns cfg.augment on; None leaves the batch clean."""
     gen.train(train)
     det.train(train)
     delta = shape_delta(gen(s, message).to(torch.float32), cfg.shaping, cfg.sample_rate)
@@ -144,9 +152,13 @@ def _forward(cfg: Config, gen, det, s, message, *, train: bool):
     if cfg.shaping.clamp_watermarked:
         s_w = s_w.clamp(-1.0, 1.0)
     s_w = apply_channel(s_w, cfg.shaping, cfg.sample_rate)
-    if cfg.augment is not None:
-        raise NotImplementedError("the attack curriculum (cfg.augment) is not ported yet")
-    logits = det(torch.cat([s_w, s], dim=0))
+    combined = torch.cat([s_w, s], dim=0)
+    if cfg.augment is not None and attack_draws is not None:
+        # Both halves of the detector batch are attacked: attacking only the
+        # watermarked half lets the detector use the attack's artifacts as
+        # the label cue (awm_tpu/train.py:152-156).
+        combined = apply_augment(combined, attack_draws, cfg.augment)
+    logits = det(combined)
     return delta, s_w, logits.to(torch.float32)
 
 
@@ -155,19 +167,32 @@ def _terms(cfg, s, delta, s_w, logits, message):
                       message_bits=cfg.message_bits)
 
 
+def _draw_attacks(cfg: Config, s: torch.Tensor, generator: Optional[torch.Generator]):
+    """The attack draws of one step for the (2B, T) detector batch, or None
+    without a curriculum or a generator."""
+    if cfg.augment is None or generator is None:
+        return None
+    return draw_augment(cfg.augment, 2 * s.shape[0], s.shape[1], generator)
+
+
 def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
-               message: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               message: Optional[torch.Tensor] = None,
+               attack_draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step on a (B, T) batch of clean clips, on s's device.
-    Draws the messages from state.generator unless `message` is given.
-    Updates state in place; returns the loss terms (detached device
-    scalars).  A frozen network still normalises with its batch statistics
-    but keeps its running statistics, as the JAX step does."""
+    Draws the messages from state.generator unless `message` is given, and
+    with cfg.augment this step's attacks from state.attack_generator unless
+    `attack_draws` is given.  Updates state in place; returns the loss terms
+    (detached device scalars).  A frozen network still normalises with its
+    batch statistics but keeps its running statistics, as the JAX step does."""
     if message is None:
         message = draw_messages(cfg, s.shape[0], state.generator, s.device)
+    if attack_draws is None:
+        attack_draws = _draw_attacks(cfg, s, state.attack_generator)
     frozen = {"gen": state.gen, "det": state.det}.get(cfg.train.freeze)
     kept = [b.clone() for b in frozen.buffers()] if frozen is not None else []
     with _precision(cfg):
-        delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=True)
+        delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=True,
+                                      attack_draws=attack_draws)
         terms = _terms(cfg, s, delta, s_w, logits, message)
         state.optimizer.zero_grad(set_to_none=True)
         terms["total"].backward()
@@ -185,13 +210,20 @@ def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
 @torch.no_grad()
 def eval_step(cfg: Config, state: TrainState, s: torch.Tensor,
               message: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+              generator: Optional[torch.Generator] = None,
+              attack_generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """Validation: the same loss terms without grad, BatchNorm in eval mode.
-    Messages from `generator` (or `message`)."""
+    Messages from `generator` (or `message`).  With cfg.augment and an
+    attack_generator (on s's device) the detector batch goes through the
+    curriculum's attacks, so the terms measure detection under attack; None
+    validates clean.  Clean loc/dec have converged when a robustness
+    fine-tune starts, and selecting on them would freeze the run at epoch 0
+    (awm_tpu/train.py:235-240)."""
     if message is None:
         message = draw_messages(cfg, s.shape[0], generator, s.device)
     with _precision(cfg):
-        delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=False)
+        delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=False,
+                                      attack_draws=_draw_attacks(cfg, s, attack_generator))
         return _terms(cfg, s, delta, s_w, logits, message)
 
 

@@ -4,9 +4,10 @@ fit() runs the epochs with per-term loss means, the mid-epoch quick
 validation, select_metric (validated before training starts), early
 stopping and the CSV metrics log.  init_from starts from a flattened .npz
 checkpoint (the fine-tune flow).  Metrics are fetched one step late, as the
-JAX loop does, so the card never waits on the host between steps.  Not
-ported yet: checkpoint saving and resume (ckpt_dir) and the data-parallel
-mesh; each raises if given.
+JAX loop does, so the card never waits on the host between steps.  With an
+attack curriculum (cfg.augment.val_attacks) validation and quick-val run
+under the curriculum's attacks.  Not ported yet: checkpoint saving and resume
+(ckpt_dir) and the data-parallel mesh; each raises if given.
 """
 
 from __future__ import annotations
@@ -118,9 +119,18 @@ def fit(
                 val_iter[0] = None
         return None
 
+    def val_attacks(i: int) -> Optional[torch.Generator]:
+        # Seeded from the run seed and the batch index only, never the epoch:
+        # every epoch's validation sees the same attack realisations, so the
+        # select metric compares across epochs.
+        if cfg.augment is not None and cfg.augment.val_attacks:
+            return torch.Generator(device=device).manual_seed(seed + 70_000 + i)
+        return None
+
     def run_validation() -> Dict[str, float]:
         # messages seeded by the batch index only: every epoch sees the same
-        terms = [_fetch(tr.eval_step(cfg, state, put(b), generator=_seeded(seed + 7_000 + i)))
+        terms = [_fetch(tr.eval_step(cfg, state, put(b), generator=_seeded(seed + 7_000 + i),
+                                     attack_generator=val_attacks(i)))
                  for i, b in enumerate(val_iterable)]
         return _mean_terms(terms) if terms else {}
 
@@ -137,7 +147,8 @@ def fit(
             if quick_every and (i + 1) % quick_every == 0 and val_batches is not None:
                 qb = next_val_batch()
                 if qb is not None:
-                    qv = _fetch(tr.eval_step(cfg, state, put(qb), generator=_seeded(seed + 9_000 + i)))
+                    qv = _fetch(tr.eval_step(cfg, state, put(qb), generator=_seeded(seed + 9_000 + i),
+                                             attack_generator=val_attacks(i)))
                     if verbose:
                         print(f"  [quick-val @ step {i + 1}] total={qv['total']:.4f} "
                               f"mel={qv.get('mel', 0):.4f}")

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the shapecap model's full width (64
-channels, 16000-sample chunks) through the entry points a user calls, with
-the hand-written CUDA LSTM kernels: the serving path (embed -> detect,
-512-chunk bucket; kernel A) and the joint train step (B=128; kernels B and
-C under LSTMFunction, A in validation).  Phases:
+Drives the port's paths at the shapecap model's full width (64 channels,
+16000-sample chunks) through the entry points a user calls, with the
+hand-written CUDA LSTM kernels: the serving path (embed -> detect, 512-chunk
+bucket; kernel A), the joint train step (B=128; kernels B and C under
+LSTMFunction, A in validation), and the robust path (the train step under the
+channel-attack curriculum, and the 12-attack robustness sweep of
+eval.evaluate_robustness).  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build ops/csrc/lstm_fwd.cu and lstm_bwd.cu with nvcc for sm_90a, in
@@ -29,12 +31,28 @@ C under LSTMFunction, A in validation).  Phases:
    B=128, from the packaged weights, synthetic speech, 3 steps and one
    validation), an InferenceSession over the trained networks, and every
    kernel instantiation must have launched on one of the two paths;
-6. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
-   yardstick only), embed+detect clips/s at B=512 and train-step clips/s at
-   B=128 per compute dtype, with the step's peak memory, a profile of one
-   bf16 step's device time by kernel, and kernel C's time by launch
+6. the robust path, counters zeroed just before: the attack ops on the card
+   against the same call on the CPU (biquad lowpass at 7 and 4 kHz and a
+   high-Q set that takes the scan fallback, resample round trips at 8000 /
+   11025 / 22050 Hz, G.711 mu-law and A-law and the int16 round trip
+   exactly, and a gradient through a resample round trip and a biquad); one
+   fp32 train step under the C_robust curriculum with the
+   draws of assets/robust_train_golden.npz vs that JAX golden; ``python -m
+   awm_tpu_torch train --augment ...`` in process with the C_robust leg's
+   flags (bf16, B=128, 3 steps and one attacked validation);
+   eval.evaluate_robustness of the fp32 session on the golden's 8 chunks vs
+   the JAX table of assets/robust_golden.npz, and of the bf16 session over
+   the default 12 attacks on 128 clips of the synthetic test split beside
+   the reference's record evidence/r5/shapecap/demo_eval.json; evaluate_model
+   on the same clips; kernels B and C must have launched in the robust steps
+   and A in the sweeps;
+7. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
+   yardstick only), embed+detect clips/s at B=512, train-step clips/s at
+   B=128 clean and under the curriculum, and the 12-attack sweep's wall time
+   at n=128, per compute dtype, with the step's peak memory, a profile of
+   one bf16 step's device time by kernel, and kernel C's time by launch
    (recurrence, dx, dW, sum);
-7. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
+8. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.
@@ -44,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -85,6 +104,39 @@ GOLDEN_TOL = {"embed_delta": 2e-4, "wm_prob": 1e-4, "clean_prob": 1e-4,
 # analytically) are left out.
 TRAIN_TOL = {"terms": 1e-4, "stats_abs": 1e-4, "stats_rel": 1e-3, "grad_norm": 5e-2}
 BN_FED = re.compile(r"res\w*\.conv[12]\.bias$")
+# The attack ops on the card vs the same call on the CPU, (16, 16000): fp32
+# convolutions with TF32 off differ from the CPU's by summation order only
+# (TF32 would show as ~1e-3); the scan fallback relative to its output's max
+# (matrix powers with entries of order 30); the integer codecs and the int16
+# round trip exactly.
+OPS_TOL = {"fir": 1e-5, "scan_rel": 2e-4}
+# The C_robust leg's curriculum (awm_tpu/__main__.py:352-354 through
+# :258-267), the configuration of assets/robust_train_golden.npz.
+ROBUST_AUGMENT = dict(noise_snr_db=(10.0, 40.0), volume_range=(0.3, 1.2),
+                      lowpass_hz=(3500.0, 5000.0, 7000.0), quantize=True,
+                      resample_hz=(8000, 11025, 22050), attack_prob=0.45)
+ROBUST_FLAGS = ["--augment", "--attack-prob", "0.45", "--noise-snr", "10,40",
+                "--lowpass-hz", "3500,5000,7000", "--resample-hz", "8000,11025,22050"]
+STOCHASTIC_ATTACKS = ("noise_30db", "noise_20db")
+QUANTISER_ATTACKS = ("quantize_int16", "mulaw_8bit", "alaw_8bit")
+# fp32 sweep on the golden's 8 chunks vs the JAX package's (CPU): per clip the
+# probabilities and time-mean bit logits (GOLDEN_TOL's reasons, through one
+# more channel op).  Behind a quantiser a delta that differs by 1e-7 of its
+# peak already lands a sample on the other side of a codec step (6% of the
+# sample for the 8-bit laws), which moves a time-mean logit by 2e-3 (measured
+# on the CPU; 6e-3 at 1e-5), so those three rows' logits are held at
+# "mlm_quantised".  Per column of the table, a rate moves by 1/8 (2/8 on a
+# half) if one probability sits within that of its threshold, AUC by 1/64 per
+# swapped pair, bit accuracy by 1/128 per logit mean within rounding of zero.
+ROBUST_TOL = {"p_wm": 1e-3, "p_clean": 1e-3, "mlm": 2e-3, "mlm_quantised": 2e-2,
+              "wm_prob": 1e-3, "clean_prob": 1e-3, "calibrated_threshold": 1e-3,
+              "detect_rate": 1 / 8, "false_positive_rate": 1 / 8, "auc": 1 / 64,
+              "detect_rate_calibrated": 2 / 8, "fpr_calibrated": 2 / 8, "bit_accuracy": 2 / 128}
+# bf16 sweep on 128 test-split clips beside the reference's record of the same
+# clips (its bf16 session on a TPU): the columns that say whether the
+# watermark survives each deterministic channel.
+RECORD_TOL = {"detect_rate": 0.02, "false_positive_rate": 0.02, "auc": 0.02}
+N_SWEEP = 128
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; bf16 tensor-core
 # and fp32 (non-tensor) FLOP/s.
 HBM_BPS = 3.35e12
@@ -220,12 +272,12 @@ def device_kernels(step) -> tuple[list[tuple[str, float, int]], float]:
     return [(e.key, dev_us(e) / 1e3, e.count) for e in events], wall_ms
 
 
-def profile_step(step) -> None:
+def profile_step(step, label: str) -> None:
     """Device time of one synchronised call by kernel: the top 12, the LSTM
     kernels, and the device's busy share of the call's wall time."""
     events, wall_ms = device_kernels(step)
     total = sum(ms for _, ms, _ in events)
-    print(f"profile of one bf16 train step: device kernels {total:.1f} ms of "
+    print(f"profile of one {label} train step: device kernels {total:.1f} ms of "
           f"{wall_ms:.1f} ms wall (busy {100 * total / wall_ms:.1f}%)")
     for i, (key, ms, count) in enumerate(events):
         if i < 12 or "lstm_" in key:  # the hand-written kernels wherever they rank
@@ -260,6 +312,61 @@ def train_cfg(compute_dtype: str):
     )
 
 
+def test_split_clips(n: int) -> np.ndarray:
+    """The first n clips of the synthetic corpus's held-out test split, as
+    tools/demo_eval.py takes them (24576 clips, 80/10/10, split seed 42)."""
+    from awm_tpu_torch.data import SyntheticClips, split_indices
+
+    ds = SyntheticClips(n=24576, audio_len=T)
+    te_idx = split_indices(len(ds), (0.8, 0.1, 0.1), seed=42)[2][:n]
+    return np.stack([ds[int(i)] for i in te_idx])
+
+
+class RecordingSession:
+    """A session that also keeps what detect_summary returned, call by call
+    (evaluate_robustness returns the table only)."""
+
+    def __init__(self, session):
+        self._session = session
+        self.summaries = []
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    def detect_summary(self, chunks, lengths=None):
+        out = self._session.detect_summary(chunks, lengths)
+        self.summaries.append(out)
+        return out
+
+
+def check_train_golden(state, terms, tgold, dev, what: str) -> None:
+    """One fp32 train step's terms, gradient norms and BatchNorm statistics
+    against a JAX train golden, to TRAIN_TOL."""
+    import torch
+
+    worst = max(abs(float(v) - float(tgold[f"term/{k}"])) / abs(float(tgold[f"term/{k}"]))
+                for k, v in terms.items())
+    check(worst <= TRAIN_TOL["terms"], f"{what}: loss terms rel err {worst:.2e} "
+                                       f"(tol {TRAIN_TOL['terms']:.0e})")
+    grad_errs, stat_errs = {}, []
+    for net in ("gen", "det"):
+        module = getattr(state, net)
+        for k, p in module.named_parameters():
+            if not BN_FED.search(k):
+                ref = float(tgold[f"grad_norm/{net}.{k}"])
+                grad_errs[f"{net}.{k}"] = abs(float(p.grad.norm()) - ref) / ref
+        for k, b in module.named_buffers():
+            ref = torch.from_numpy(tgold[f"batch_stats/{net}.{k}"]).to(dev)
+            stat_errs.append(float(((b - ref).abs() - TRAIN_TOL["stats_rel"] * ref.abs()).max()))
+    gk = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[gk] <= TRAIN_TOL["grad_norm"],
+          f"{what}: gradient norms rel err <= {grad_errs[gk]:.2e} "
+          f"(worst {gk}; lstm.w_hh {grad_errs['gen.lstm.w_hh']:.2e}; tol {TRAIN_TOL['grad_norm']:.0e})")
+    check(max(stat_errs) <= TRAIN_TOL["stats_abs"],
+          f"{what}: BatchNorm statistics within {TRAIN_TOL['stats_abs']:.0e} + "
+          f"{TRAIN_TOL['stats_rel']:.0e} relative (excess {max(stat_errs):.2e})")
+
+
 def shapecap_state(cfg, dev):
     from awm_tpu_torch import train as tr
     from awm_tpu_torch.checkpoint import SHAPECAP_NPZ, load_into
@@ -276,7 +383,11 @@ def main() -> int:
         print("chip_smoke: no CUDA card visible to torch; nothing to run", file=sys.stderr)
         return 1
     from awm_tpu_torch import api
+    from awm_tpu_torch import eval as ev
     from awm_tpu_torch import train as tr
+    from awm_tpu_torch.augment import AugmentConfig, apply_augment, draw_augment, resample_roundtrip
+    from awm_tpu_torch.dsp import (alaw_roundtrip, filters, lowpass_biquad, lowpass_biquad_coeffs,
+                                   mulaw_roundtrip, quantize_int16)
     from awm_tpu_torch.__main__ import main as cli
     from awm_tpu_torch.checkpoint import ASSETS, SHAPECAP_NPZ, load_npz, variables_from_flax
     from awm_tpu_torch.ops import lstm_kernel as K
@@ -465,28 +576,7 @@ def main() -> int:
     state = shapecap_state(cfg32, dev)
     terms = tr.train_step(cfg32, state, torch.from_numpy(tgold["chunks"]).to(dev),
                           message=torch.from_numpy(tgold["messages"]).long().to(dev))
-    worst = max(abs(float(v) - float(tgold[f"term/{k}"])) / abs(float(tgold[f"term/{k}"]))
-                for k, v in terms.items())
-    check(worst <= TRAIN_TOL["terms"], f"fp32 train step vs JAX train golden: loss terms rel err "
-                                       f"{worst:.2e} (tol {TRAIN_TOL['terms']:.0e})")
-    grad_errs, stat_errs = {}, []
-    for net in ("gen", "det"):
-        module = getattr(state, net)
-        for k, p in module.named_parameters():
-            if not BN_FED.search(k):
-                ref = float(tgold[f"grad_norm/{net}.{k}"])
-                grad_errs[f"{net}.{k}"] = abs(float(p.grad.norm()) - ref) / ref
-        for k, b in module.named_buffers():
-            ref = torch.from_numpy(tgold[f"batch_stats/{net}.{k}"]).to(dev)
-            stat_errs.append(float(((b - ref).abs() - TRAIN_TOL["stats_rel"] * ref.abs()).max()))
-    gk = max(grad_errs, key=grad_errs.get)
-    check(grad_errs[gk] <= TRAIN_TOL["grad_norm"],
-          f"fp32 train step vs JAX train golden: gradient norms rel err <= {grad_errs[gk]:.2e} "
-          f"(worst {gk}; lstm.w_hh {grad_errs['gen.lstm.w_hh']:.2e}; tol {TRAIN_TOL['grad_norm']:.0e})")
-    check(max(stat_errs) <= TRAIN_TOL["stats_abs"],
-          f"fp32 train step vs JAX train golden: BatchNorm statistics within "
-          f"{TRAIN_TOL['stats_abs']:.0e} + {TRAIN_TOL['stats_rel']:.0e} relative "
-          f"(excess {max(stat_errs):.2e})")
+    check_train_golden(state, terms, tgold, dev, "fp32 train step vs JAX train golden")
     del state
     torch.cuda.empty_cache()
 
@@ -520,9 +610,129 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
     for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} times on the main paths")
+        check(n > 0, f"{name} launched {n} times on the serving and train paths")
 
-    # 6. timing (card name and power limit printed above)
+    # 6. the robust path, counters zeroed just before
+    for name in K.launches:
+        K.launches[name] = 0
+    x_cpu = torch.from_numpy(speechlike(16, seed=11))
+    x_dev = x_cpu.to(dev)
+    torch.backends.cudnn.allow_tf32 = True  # torch's default: each op must turn it off itself
+    for cutoff, q in ((7000.0, 0.707), (4000.0, 0.707), (1000.0, 200.0)):
+        got, want = lowpass_biquad(x_dev, 16000, cutoff, q).cpu(), lowpass_biquad(x_cpu, 16000, cutoff, q)
+        err = float((got - want).abs().max())
+        scan = filters._biquad_fir_kernel(lowpass_biquad_coeffs(cutoff, 16000, q), dev) is None
+        tol = OPS_TOL["scan_rel"] * float(want.abs().max()) if scan else OPS_TOL["fir"]
+        check(scan == (q > 1) and err <= tol,
+              f"lowpass_biquad {cutoff:.0f} Hz q={q} ({'scan fallback' if scan else 'FIR form'}) "
+              f"card vs CPU: max abs err {err:.2e} (tol {tol:.1e})")
+    for rate in (8000, 11025, 22050):
+        got, want = resample_roundtrip(x_dev, rate).cpu(), resample_roundtrip(x_cpu, rate)
+        err = float((got - want).abs().max())
+        check(got.shape == x_cpu.shape and err <= OPS_TOL["fir"],
+              f"resample_roundtrip {rate} Hz card vs CPU: max abs err {err:.2e} (tol {OPS_TOL['fir']:.0e})")
+    for fn in (mulaw_roundtrip, alaw_roundtrip, quantize_int16):
+        check(torch.equal(fn(x_dev).cpu(), fn(x_cpu)), f"{fn.__name__} card vs CPU: equal bits")
+    # the backward of the attacks' convolutions runs outside any context of the caller's
+    chain = lambda v: lowpass_biquad(resample_roundtrip(v, 22050), 16000, 4000.0)
+    grads = []
+    for v in (x_dev, x_cpu):
+        v = v.clone().requires_grad_()
+        torch.sin(3.0 * chain(v)).sum().backward()
+        grads.append(v.grad.cpu())
+    err = float((grads[0] - grads[1]).abs().max())
+    check(err <= OPS_TOL["fir"] * float(grads[1].abs().max()),
+          f"gradient through resample_roundtrip 22050 Hz and lowpass_biquad 4000 Hz card vs CPU: "
+          f"max abs err {err:.2e} of max {float(grads[1].abs().max()):.2f} (tol {OPS_TOL['fir']:.0e} relative)")
+    del x_dev
+
+    with np.load(f"{ASSETS}/robust_train_golden.npz") as g:
+        rgold = {k: g[k] for k in g.files}
+    cfg32r = dataclasses.replace(cfg32, augment=AugmentConfig(**ROBUST_AUGMENT))
+    state = shapecap_state(cfg32r, dev)
+    draws = {k[5:]: torch.from_numpy(v).to(dev) for k, v in rgold.items() if k.startswith("draw/")}
+    terms = tr.train_step(cfg32r, state, torch.from_numpy(rgold["chunks"]).to(dev),
+                          message=torch.from_numpy(rgold["messages"]).long().to(dev), attack_draws=draws)
+    check_train_golden(state, terms, rgold, dev, "fp32 robust train step vs JAX robust train golden")
+    check(abs(float(terms["loc"]) - float(tgold["term/loc"])) > 1e-3,
+          f"robust step's loc {float(terms['loc']):.4f} differs from the clean step's "
+          f"{float(tgold['term/loc']):.4f}")
+    del state, draws
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    out = cli(["train", "--device", "cuda", "--compute-dtype", "bfloat16", "--batch-size",
+               str(B_TRAIN), "--synthetic-n", str(4 * B_TRAIN - B_TRAIN // 4), "--epochs", "1",
+               "--workers", "4", "--init-from", SHAPECAP_NPZ, "--message-encoding", "bits",
+               "--decode-head", "dilated", "--delta-band-hz", "3000", "--shape-max-rms", "0.01",
+               "--dec-loss", "mean", "--lr", "1e-4", "--loss-weights", "dec=10,loud=3,mel=1",
+               "--select-metric", "loc,dec", *ROBUST_FLAGS])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    row, trained = out["history"][0], out["state"]
+    print(f"train --augment CLI bf16 B={B_TRAIN}: {trained.step} steps + attacked validation in "
+          f"{cli_s:.1f} s; train {row['train_total']:.4f} val loc+dec {out['best_val']:.4f}", flush=True)
+    check(trained.step == 3 and all(np.isfinite(v) for k, v in row.items() if k != "epoch")
+          and np.isfinite(out["best_val"]),
+          f"train --augment CLI: {trained.step} steps, every train and attacked-validation term finite")
+    check(trained.attack_generator.device.type == "cuda", "train --augment CLI: attacks drawn on the card")
+    del out, trained
+    torch.cuda.empty_cache()
+    step_launches = dict(K.launches)
+    for name in ("lstm_fwd_train_f32", "lstm_bwd_f32", "lstm_fwd_train_bf16", "lstm_bwd_bf16"):
+        check(step_launches[name] > 0, f"{name} launched {step_launches[name]} times in the robust steps")
+
+    with np.load(f"{ASSETS}/robust_golden.npz") as g:
+        qgold = {k: g[k] for k in g.files}
+    rec = RecordingSession(sess32)
+    deterministic = {k: v for k, v in ev.default_attacks(16000, seed=0).items()
+                     if k not in STOCHASTIC_ATTACKS}
+    table32 = ev.evaluate_robustness(rec, golden["chunks"], seed=0, attacks=deterministic)
+    worst = dict.fromkeys(ROBUST_TOL, (0.0, "none"))
+    for i, (name, row) in enumerate(table32.items()):
+        (_, mlm_wm, _, p_wm), (_, _, _, p_clean) = rec.summaries[2 * i], rec.summaries[2 * i + 1]
+        errs = {col: abs(v - float(qgold[f"table/{name}/{col}"])) for col, v in row.items()}
+        for key, got in (("p_wm", p_wm), ("p_clean", p_clean), ("mlm", mlm_wm)):
+            held_as = "mlm_quantised" if key == "mlm" and name in QUANTISER_ATTACKS else key
+            errs[held_as] = float(np.abs(got - qgold[f"{key}/{name}"]).max())
+        for key, err in errs.items():
+            worst[key] = max(worst[key], (err, name))
+    for key, (err, name) in worst.items():
+        check(err <= ROBUST_TOL[key], f"fp32 sweep on the golden chunks vs the JAX robust golden, "
+                                      f"{len(table32)} attacks, {key}: max abs err {err:.2e} at {name} "
+                                      f"(tol {ROBUST_TOL[key]:.1e})")
+
+    clips128 = test_split_clips(N_SWEEP)
+    t0 = time.time()
+    table16 = ev.evaluate_robustness(sess16, clips128, seed=0)
+    sweep_s = time.time() - t0
+    print(f"evaluate_robustness bf16 n={N_SWEEP}, 12 attacks, first call: {sweep_s:.2f} s")
+    print(json.dumps({"robust_table_bf16": {k: {m: round(float(v), 4) for m, v in r.items()}
+                                            for k, r in table16.items()}}), flush=True)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "evidence", "r5", "shapecap",
+                           "demo_eval.json")) as f:
+        record = json.load(f)["robust"]
+    check(list(table16) == list(record) and all(np.isfinite(v) for r in table16.values() for v in r.values()),
+          "bf16 sweep: the reference's 12 rows in its order, every column finite")
+    for col, tol in RECORD_TOL.items():
+        diffs = {k: abs(table16[k][col] - record[k][col]) for k in table16 if k not in STOCHASTIC_ATTACKS}
+        k = max(diffs, key=diffs.get)
+        check(diffs[k] <= tol, f"bf16 sweep n={N_SWEEP} vs the reference's record, {col} on the ten "
+                               f"deterministic rows: max diff {diffs[k]:.4f} at {k} "
+                               f"({table16[k][col]:.4f} vs {record[k][col]:.4f}; tol {tol})")
+    quality = ev.evaluate_model(sess16, [clips128], seed=0)
+    print(json.dumps({"evaluate_model_bf16": {k: round(v, 5) for k, v in quality.items()}}), flush=True)
+    check(quality["watermarked_prob"] > 0.5 > quality["clean_prob"] and quality["bit_accuracy_mean_logit"] > 0.6
+          and all(np.isfinite(v) for v in quality.values()),
+          "evaluate_model n=128: watermarked above 0.5 above clean, bits above chance")
+    print(f"robust path launches: {K.launches}", flush=True)
+    for name in ("lstm_fwd_f32", "lstm_fwd_bf16"):
+        n = K.launches[name] - step_launches[name]
+        check(n > 0, f"{name} launched {n} times in the attack sweeps")
+    for name, n in K.launches.items():
+        launches[name] += n
+
+    # 7. timing (card name and power limit printed above)
     times = {}
     for sfx, dtype in dtypes.items():
         name = f"lstm_fwd_{sfx}"
@@ -583,19 +793,34 @@ def main() -> int:
             sess.embed_detect(chunks512, msgs512)  # returns host arrays: synchronised
         clips[label] = B_SERVE * reps / (time.perf_counter() - t0)
         print(f"embed+detect {label} session, B={B_SERVE}: {clips[label]:.1f} clips/s", flush=True)
+    sweep_wall = {}
+    for label, sess in (("bf16", sess16), ("fp32", sess32)):
+        t0 = time.perf_counter()
+        ev.evaluate_robustness(sess, clips128, seed=0)  # returns host numbers: synchronised
+        sweep_wall[label] = time.perf_counter() - t0
+        print(f"evaluate_robustness {label} session, n={N_SWEEP}, 12 attacks (warm): "
+              f"{sweep_wall[label]:.2f} s", flush=True)
     del sess16, sess32
     torch.cuda.empty_cache()
 
     train_clips = {}
     batch = torch.from_numpy(speechlike(B_TRAIN, seed=9)).to(dev)
-    for label, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
-        cfg = train_cfg(dt)
+    curriculum = AugmentConfig(**ROBUST_AUGMENT)
+    both = torch.cat([batch, batch])
+    attack_gen = torch.Generator(device=dev).manual_seed(0)
+    attacks_ms = cuda_ms(lambda: apply_augment(both, draw_augment(curriculum, 2 * B_TRAIN, T, attack_gen),
+                                               curriculum), reps=3)
+    print(f"attack chain alone (draw + apply, forward, 2B={2 * B_TRAIN} clips): {attacks_ms:.2f} ms", flush=True)
+    del both
+    for label, dt, augment in (("bf16", "bfloat16", None), ("fp32", "float32", None),
+                               ("bf16_robust", "bfloat16", curriculum), ("fp32_robust", "float32", curriculum)):
+        cfg = dataclasses.replace(train_cfg(dt), augment=augment)
         state = shapecap_state(cfg, dev)
         torch.cuda.reset_peak_memory_stats()
         tr.train_step(cfg, state, batch)  # warm-up
         torch.cuda.synchronize()
-        if label == "bf16":
-            profile_step(lambda: tr.train_step(cfg, state, batch))
+        if label in ("bf16", "bf16_robust"):
+            profile_step(lambda: tr.train_step(cfg, state, batch), label)
         reps = 3
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -608,7 +833,7 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # 7. result lines
+    # 8. result lines
     kernels = []
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (source, replaces, sfx) in KERNELS.items():
@@ -621,7 +846,8 @@ def main() -> int:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)
     print(f"wall {time.time() - t_start:.1f} s; embed+detect clips/s {json.dumps(clips)}; "
-          f"train-step clips/s {json.dumps(train_clips)}")
+          f"train-step clips/s {json.dumps(train_clips)}; 12-attack sweep n={N_SWEEP} s "
+          f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}")
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels A, B and C (marker ``gpu``).
+"""Card-only tests of the port's CUDA kernels A, B and C and of the attack
+ops on the card (marker ``gpu``).
 
 They skip where torch sees no CUDA card.  On a machine with one:
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.  chip_smoke.py holds
@@ -203,3 +204,86 @@ def test_kernel_refuses_rows_it_is_not_built_for(cuda):
     x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
     with pytest.raises(RuntimeError, match="invalid"):
         lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=3)
+
+
+# -- the attack ops on the card vs the CPU ---------------------------------------
+
+
+def _audio(shape, seed=0):
+    return torch.from_numpy((np.random.default_rng(seed).standard_normal(shape) * 0.3).astype(np.float32))
+
+
+@pytest.mark.parametrize("cutoff,q", [(7000.0, 0.707), (4000.0, 0.707), (1000.0, 200.0)],
+                         ids=["7k", "4k", "high_q_scan"])
+def test_lowpass_biquad_on_card_matches_cpu(cuda, cutoff, q):
+    """FIR form (and the scan fallback for the high-Q set) with TF32 allowed
+    around the call: the op turns it off itself.  1e-5 (the scan 2e-4 of the
+    output's max)."""
+    from awm_tpu_torch.dsp import lowpass_biquad
+
+    x = _audio((4, 16000), seed=1)
+    torch.backends.cudnn.allow_tf32 = True
+    got = lowpass_biquad(x.to(cuda), 16000, cutoff, q).cpu()
+    want = lowpass_biquad(x, 16000, cutoff, q)
+    tol = 1e-5 if q < 1 else 2e-4 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("rate", [8000, 11025, 22050])
+def test_resample_roundtrip_on_card_matches_cpu(cuda, rate):
+    """One strided conv each way in true fp32 on the card: 1e-5 vs the CPU."""
+    from awm_tpu_torch.augment import resample_roundtrip
+
+    x = _audio((4, 16000), seed=2)
+    torch.backends.cudnn.allow_tf32 = True
+    got = resample_roundtrip(x.to(cuda), rate).cpu()
+    assert got.shape == x.shape
+    assert float((got - resample_roundtrip(x, rate)).abs().max()) <= 1e-5
+
+
+def test_attack_conv_gradients_on_card_are_true_fp32(cuda):
+    """The backward of the resampling and biquad convolutions runs when
+    autograd gets to it, outside any no_tf32 context of the caller's:
+    conv1d_fp32 turns TF32 off there too.  1e-5 of the gradient's max vs the
+    CPU (TF32 shows as ~1e-3)."""
+    from awm_tpu_torch.augment import resample_roundtrip
+    from awm_tpu_torch.dsp import fir_lowpass, lowpass_biquad
+
+    torch.backends.cudnn.allow_tf32 = True
+    chain = lambda v: fir_lowpass(lowpass_biquad(resample_roundtrip(v, 22050), 16000, 4000.0), 3000.0)
+    grads = []
+    for dev in (cuda, "cpu"):
+        v = _audio((4, 16000), seed=5).to(dev).requires_grad_()
+        torch.sin(3.0 * chain(v)).sum().backward()
+        grads.append(v.grad.cpu())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * float(grads[1].abs().max())
+
+
+def test_codecs_and_quantize_on_card_are_exact(cuda):
+    from awm_tpu_torch.dsp import alaw_roundtrip, mulaw_roundtrip, quantize_int16
+
+    x = _audio((4, 16000), seed=3)
+    for fn in (mulaw_roundtrip, alaw_roundtrip, quantize_int16):
+        assert torch.equal(fn(x.to(cuda)).cpu(), fn(x)), fn.__name__
+
+
+def test_robust_step_launches_the_kernels(cuda):
+    """One bf16 train step under the attack curriculum on the card: finite
+    terms, kernels B and C launched once each, attacks drawn on the card."""
+    import dataclasses
+
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.augment import AugmentConfig
+    from awm_tpu_torch.config import get_config
+
+    cfg = dataclasses.replace(
+        get_config("base"), audio_len=2000,
+        augment=AugmentConfig(noise_snr_db=(10.0, 40.0), volume_range=(0.3, 1.2), lowpass_hz=(3500.0, 7000.0),
+                              quantize=True, resample_hz=(8000, 22050), attack_prob=0.45))
+    state = tr.init_state(cfg, device=cuda)
+    assert state.attack_generator.device.type == "cuda"
+    before = dict(lstm_kernel.launches)
+    terms = tr.train_step(cfg, state, _audio((4, 2000), seed=4).to(cuda))
+    assert all(bool(torch.isfinite(v)) for v in terms.values())
+    for name in ("lstm_fwd_train_bf16", "lstm_bwd_bf16"):
+        assert lstm_kernel.launches[name] == before[name] + 1

@@ -1,10 +1,11 @@
 """The port's train slice vs the JAX package: BatchNorm in train mode, the
-schedules, one fp32 train step from the shapecap weights, freezing, the bf16
-step, fit() and the train CLI.
+schedules, one fp32 train step from the shapecap weights (clean, under the
+attack curriculum and with the ft_robust channel), freezing, the bf16 step,
+validation under attacks, fit() and the train CLI.
 
 Inputs are seeded numpy arrays handed to both packages; the message the JAX
-step draws is handed to the port's step (random streams are never
-compared).  Tolerances are stated per test."""
+step draws, and its attack draws, are handed to the port's step (random
+streams are never compared).  Tolerances are stated per test."""
 
 import dataclasses
 import re
@@ -129,7 +130,10 @@ def test_schedule_rejects_and_constant():
     with pytest.raises(ValueError, match="schedule"):
         tr.make_schedule(Config(train=TrainConfig(schedule=ScheduleConfig(kind="step"))))
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("ft_robust")
+        get_config("strided")
+    robust = get_config("ft_robust")
+    assert robust.shaping.postprocess and robust.train.epochs == 3
+    assert tr.make_schedule(robust)(0) == 1e-5
 
 
 # -- one train step --------------------------------------------------------------
@@ -383,3 +387,175 @@ def test_eval_and_evaluate_steps_match_jax():
                    ("bit_accuracy", 1 / 16), ("bit_accuracy_mean_logit", 1 / 16)):
         np.testing.assert_allclose(q[k].numpy(), np.asarray(ref_q[k]), atol=tol, err_msg=k)
     assert not state.gen.training and not state.det.training
+
+
+# -- the attack curriculum in the step --------------------------------------------
+
+# the C_robust leg's curriculum (awm_tpu/__main__.py:352-354 through :258-267)
+ROBUST = dict(noise_snr_db=(10.0, 40.0), volume_range=(0.3, 1.2), lowpass_hz=(3500.0, 5000.0, 7000.0),
+              quantize=True, resample_hz=(8000, 11025, 22050), attack_prob=0.45)
+_UPSTREAM = re.compile(r"^gen\.(enc_|lstm\.)")
+
+
+def _augment_configs(**fields):
+    from awm_tpu.augment import AugmentConfig as JAug
+    from awm_tpu_torch.augment import AugmentConfig
+
+    return JAug(**fields), AugmentConfig(**fields)
+
+
+def _draw_tensors(draws):
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
+def test_fp32_robust_train_step_matches_jax():
+    """One fp32 step under the C_robust curriculum (every attack with
+    probability 0.45 on both halves of the 2B detector batch), B=4, T=800:
+    the JAX package's train_step under its key vs the port's step with the
+    message and the attack draws read off that key.  Loss terms 1e-4
+    relative (measured 7e-7; an int16 step that falls the other way would
+    move a detector input by 3e-5); BatchNorm statistics 1e-4 absolute and
+    relative (measured 1e-5); gradients of every layer downstream of the
+    LSTM 1e-2 of each parameter's max (measured 1.6e-3), those fed to a
+    train-mode BatchNorm bounded absolutely."""
+    from awm_tpu import train as jtr
+
+    jaug, aug = _augment_configs(**ROBUST)
+    jcfg = dataclasses.replace(ta.train_config(audio_len=T_TEST), augment=jaug)
+    jstate, gen, det, tx = ta.jax_state_from_npz(jcfg)
+    s = chunks(4)
+    message = ta.jax_message(jcfg, jstate, 4, seed=1)
+    aug_key = ta.jax_step_aug_key(jstate, seed=1)
+    new_state, ref_terms = jtr.train_step(jcfg, gen, det, tx, jstate, jnp.asarray(s), jax.random.key(1))
+    _, ref_grads, _ = ta.jax_loss_and_grads(jcfg, gen, det, jstate, jnp.asarray(s), message, aug_key)
+    ref_grads = ta.torch_named({"params": ref_grads})
+    ref_stats = ta.torch_named({"batch_stats": new_state.batch_stats})
+
+    cfg = dataclasses.replace(port_config(), augment=aug)
+    state = shapecap_state(cfg)
+    draws = _draw_tensors(ta.jax_augment_draws(aug_key, jaug, 8, T_TEST))
+    terms = tr.train_step(cfg, state, torch.from_numpy(s),
+                          message=torch.from_numpy(np.asarray(message)).long(), attack_draws=draws)
+    for k, v in ref_terms.items():
+        np.testing.assert_allclose(float(terms[k]), float(v), rtol=1e-4, err_msg=k)
+    clean = tr.train_step(port_config(), shapecap_state(port_config()), torch.from_numpy(s),
+                          message=torch.from_numpy(np.asarray(message)).long())
+    assert abs(float(clean["loc"]) - float(terms["loc"])) > 1e-3 * float(terms["loc"])
+    gmax = max(np.abs(g).max() for g in ref_grads.values())
+    for k, p in named(state, "parameters").items():
+        g, ref_g = p.grad.numpy(), ref_grads[k]
+        if _BN_FED.search(k):
+            assert np.abs(g).max() < 1e-3 * gmax, k
+        elif not _UPSTREAM.search(k):
+            assert np.abs(g - ref_g).max() < 1e-2 * np.abs(ref_g).max(), (k, np.abs(g - ref_g).max() / np.abs(ref_g).max())
+        assert np.isfinite(g).all(), k
+    for k, b in named(state, "buffers").items():
+        np.testing.assert_allclose(b.numpy(), ref_stats[k], rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def test_ft_robust_step_matches_jax():
+    """The ft_robust preset's channel (7 kHz biquad + int16 round trip of s_w
+    inside the graph) in one fp32 step from the shapecap weights, T=800: loss
+    terms vs the JAX package's step 1e-4 relative, the learning rate 1e-5."""
+    from awm_tpu import train as jtr
+    from awm_tpu.config import get_config as jget
+
+    jbase, base = ta.train_config(audio_len=T_TEST), port_config()
+    jcfg = dataclasses.replace(jbase, shaping=dataclasses.replace(jbase.shaping, postprocess=True),
+                               train=dataclasses.replace(jget("ft_robust").train, compute_dtype="float32"))
+    cfg = dataclasses.replace(base, shaping=dataclasses.replace(base.shaping, postprocess=True),
+                              train=dataclasses.replace(get_config("ft_robust").train, compute_dtype="float32"))
+    jstate, gen, det, _ = ta.jax_state_from_npz(jcfg)
+    tx = jtr.make_optimizer(jcfg)
+    s = chunks()
+    message = ta.jax_message(jcfg, jstate, 2, seed=2)
+    _, ref_terms = jtr.train_step(jcfg, gen, det, tx, jstate, jnp.asarray(s), jax.random.key(2))
+    state = shapecap_state(cfg)
+    terms = tr.train_step(cfg, state, torch.from_numpy(s),
+                          message=torch.from_numpy(np.asarray(message)).long())
+    for k, v in ref_terms.items():
+        np.testing.assert_allclose(float(terms[k]), float(v), rtol=1e-4, err_msg=k)
+    assert state.optimizer.param_groups[0]["lr"] == 1e-5
+    plain = tr.eval_step(base, shapecap_state(base), torch.from_numpy(s),
+                         message=torch.from_numpy(np.asarray(message)).long())
+    assert float(plain["loc"]) != float(tr.eval_step(cfg, state, torch.from_numpy(s),
+                                        message=torch.from_numpy(np.asarray(message)).long())["loc"])
+
+
+def test_eval_step_under_attacks():
+    """With a curriculum eval_step measures detection under the attacks when
+    given an attack generator: the same seed gives the same bits, another
+    seed and the clean validation differ (the counterpart of
+    tests/test_train.py::test_eval_step_attacked_val)."""
+    _, aug = _augment_configs(noise_snr_db=(5.0, 6.0), attack_prob=1.0)
+    cfg = dataclasses.replace(port_config(audio_len=256), augment=aug)
+    state = shapecap_state(cfg)
+    s, message = torch.from_numpy(chunks(2, 256)), torch.tensor([7, 70000 % 2**16])
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    clean = tr.eval_step(cfg, state, s, message=message)
+    att1 = tr.eval_step(cfg, state, s, message=message, attack_generator=gen(9))
+    att2 = tr.eval_step(cfg, state, s, message=message, attack_generator=gen(9))
+    att3 = tr.eval_step(cfg, state, s, message=message, attack_generator=gen(10))
+    assert float(att1["loc"]) == float(att2["loc"])
+    assert float(att1["loc"]) != float(clean["loc"])
+    assert float(att1["loc"]) != float(att3["loc"])
+    assert float(tr.evaluate_step(cfg, state, s, message=message)["watermarked_prob"][0]) == \
+        float(tr.evaluate_step(port_config(audio_len=256), state, s, message=message)["watermarked_prob"][0])
+
+
+def test_fit_attacked_validation_deterministic():
+    """fit() with a curriculum validates under the attacks, identically in
+    two runs (draws seeded by the run seed and the batch index, never the
+    epoch), and val_attacks=False restores clean validation (the counterpart
+    of tests/test_data_trainer.py::test_fit_attacked_validation_deterministic)."""
+    from awm_tpu_torch.trainer import fit
+
+    rng = np.random.default_rng(0)
+    clips = (rng.standard_normal((12, 256)) * 0.1).astype(np.float32)
+    tr_b, val_b = [clips[:8]], [clips[8:10], clips[10:]]
+
+    def run(val_attacks):
+        _, aug = _augment_configs(noise_snr_db=(5.0, 8.0), attack_prob=1.0, val_attacks=val_attacks)
+        cfg = dataclasses.replace(port_config(audio_len=256, epochs=2, quick_val_every=1), augment=aug)
+        return fit(cfg, tr_b, val_b, seed=7, verbose=False, select_metric="loc,dec", device="cpu")["history"]
+
+    att, att2, clean = run(True), run(True), run(False)
+    assert [r["val_loc"] for r in att] == [r["val_loc"] for r in att2]
+    assert [r["train_total"] for r in att] == [r["train_total"] for r in att2]
+    assert att[0]["val_loc"] != clean[0]["val_loc"]
+    assert att[0]["train_total"] == clean[0]["train_total"]  # the same train draws either way
+
+
+def test_train_cli_augment_on_cpu(capsys):
+    """python -m awm_tpu_torch train --augment with the C_robust leg's flags
+    (and --mulaw, --lowpass-fir) on --device cpu --audio-len 800: one epoch
+    from the shapecap weights, attacked validation, finite; the flags reach
+    the AugmentConfig as the JAX CLI maps them; --clean-val and
+    --preset ft_robust parse."""
+    from awm_tpu_torch.__main__ import _train_config, main
+    from awm_tpu_torch.augment import AugmentConfig
+
+    argv = ["train", "--device", "cpu", "--audio-len", "800", "--batch-size", "2",
+            "--synthetic-n", "10", "--epochs", "1", "--workers", "2", "--compute-dtype", "float32",
+            "--init-from", SHAPECAP_NPZ, "--message-encoding", "bits", "--decode-head", "dilated",
+            "--delta-band-hz", "3000", "--dec-loss", "mean", "--select-metric", "loc,dec",
+            "--augment", "--attack-prob", "0.45", "--noise-snr", "10,40",
+            "--lowpass-hz", "3500,5000,7000", "--resample-hz", "8000,11025,22050"]
+    out = main(argv + ["--mulaw", "--lowpass-fir"])
+    assert '"epochs": 1' in capsys.readouterr().out and np.isfinite(out["best_val"])
+    row = out["history"][0]
+    assert all(np.isfinite(v) for k, v in row.items() if k.startswith(("train_", "val_")))
+
+    import argparse
+    from unittest import mock
+
+    with mock.patch("awm_tpu_torch.__main__.cmd_train", lambda a: a):
+        parsed = main(argv)
+        assert _train_config(parsed).augment == AugmentConfig(**ROBUST)
+        defaults = _train_config(main(["train", "--augment", "--clean-val"])).augment
+        assert defaults == AugmentConfig(noise_snr_db=(15.0, 40.0), volume_range=(0.3, 1.2),
+                                         lowpass_hz=7000.0, quantize=True, resample_hz=8000,
+                                         attack_prob=0.35, val_attacks=False)
+        assert _train_config(main(["train"])).augment is None
+        assert _train_config(main(["train", "--preset", "ft_robust"])).shaping.postprocess
+    assert isinstance(parsed, argparse.Namespace)
