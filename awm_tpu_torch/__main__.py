@@ -1,13 +1,15 @@
 """Command line of the port: python -m awm_tpu_torch
-embed|detect|verify|train|evaluate|embed-folder|detect-folder.
+embed|detect|verify|train|curriculum|evaluate|embed-folder|detect-folder|serve.
 
-The commands and their arguments are those of ``python -m awm_tpu``'s
-serving and evaluation commands and the subset of its ``train`` that the
-port supports (the attack curriculum included; no checkpoint saving, music
-mix or data parallelism yet).  Serving
-weights come from a flattened ``.npz`` (--params) and the architecture from
-its ``awm_arch.json`` (--arch); both default to the packaged shapecap
-checkpoint.  Runs on cuda unless --device cpu is given.
+The commands and their arguments are those of ``python -m awm_tpu`` but for
+its ``bench`` and ``prep`` (and ``train --data-parallel``).  Sessions load a
+checkpoint directory of the port (--ckpt: its recorded architecture and
+shaping chain), the reference's torch .pth weights (--torch-generator /
+--torch-detector, fp32 unless --compute-dtype says otherwise), or a
+flattened .npz with its awm_arch.json (--params / --arch, the packaged
+shapecap checkpoint by default).  Architecture flags only validate against
+a recorded architecture.  Every command runs on cuda unless --device cpu is
+given.
 """
 
 from __future__ import annotations
@@ -15,21 +17,67 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 from awm_tpu_torch.checkpoint import SHAPECAP_ARCH, SHAPECAP_NPZ
+
+_ARCH_FLAGS = ("message_encoding", "decode_head", "delta_band_hz")
+
+
+def _session_config(args, recorded, source):
+    """The preset with --audio-len, and the architecture recorded at
+    `source` (a dict from read_arch, or None): an architecture flag that
+    conflicts with it exits (awm_tpu/__main__.py:62-90)."""
+    from awm_tpu_torch.checkpoint import configs_from_arch
+    from awm_tpu_torch.config import get_config
+
+    cfg = get_config(args.preset)
+    if args.audio_len:
+        cfg = dataclasses.replace(cfg, audio_len=args.audio_len)
+    given = {k: getattr(args, k) for k in _ARCH_FLAGS if getattr(args, k) is not None}
+    if recorded is None:
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **given))
+    model, shaping = configs_from_arch(recorded)
+    for flag, value in given.items():
+        if value != getattr(model, flag):
+            sys.exit(f"--{flag.replace('_', '-')}={value} conflicts with the checkpoint's recorded "
+                     f"architecture ({flag}={getattr(model, flag)!r} in {source})")
+    return dataclasses.replace(cfg, model=model, shaping=shaping or cfg.shaping)
 
 
 def _load_session(args):
     import torch
 
     from awm_tpu_torch.api import InferenceSession
+    from awm_tpu_torch.checkpoint import (ARCH_FILE, import_torch_detector, import_torch_generator,
+                                          read_arch, restore_params)
+    from awm_tpu_torch.models import build_models
 
-    dtype = torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
-    kw = {"chunk_len": args.audio_len} if args.audio_len else {}
-    return InferenceSession.from_npz(
-        args.params, args.arch, compute_dtype=dtype, device=args.device, **kw
-    )
+    from_torch = args.torch_generator or args.torch_detector
+    if args.compute_dtype:
+        dtype = torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
+    else:  # imported reference weights: strict fp32 parity unless asked otherwise
+        dtype = torch.float32 if from_torch else torch.bfloat16
+    if args.ckpt:
+        path, source = args.ckpt, os.path.join(args.ckpt, ARCH_FILE)
+    elif from_torch:
+        path, source = None, None
+    else:
+        path, source = args.params, args.arch
+    cfg = _session_config(args, read_arch(source) if source else None, source)
+    with torch.random.fork_rng(devices=[]):  # the networks not imported start from seed 0
+        torch.manual_seed(0)
+        gen, det = build_models(cfg.model)
+    if path:
+        restore_params(path, gen, det)
+    if args.torch_generator:
+        gen.load_state_dict(import_torch_generator(args.torch_generator))
+    if args.torch_detector:
+        det.load_state_dict(import_torch_detector(args.torch_detector))
+    return InferenceSession(gen, det, message_bits=cfg.message_bits, sample_rate=cfg.sample_rate,
+                            chunk_len=cfg.audio_len, compute_dtype=dtype, shaping=cfg.shaping,
+                            device=args.device)
 
 
 def cmd_embed(args):
@@ -132,7 +180,8 @@ def _train_config(args):
 
 
 def cmd_train(args):
-    from awm_tpu_torch.data import BatchLoader, OneSecClips, SyntheticClips, split_indices
+    from awm_tpu_torch.data import (BatchLoader, ConcatClips, OneSecClips, SyntheticClips,
+                                    SyntheticMusicClips, split_indices)
     from awm_tpu_torch.trainer import fit
 
     cfg = _train_config(args)
@@ -140,20 +189,139 @@ def cmd_train(args):
         ds = OneSecClips(args.data, cfg.sample_rate, cfg.audio_len)
         if not len(ds):
             sys.exit(f"no .wav files under {args.data}")
+        n_total = len(ds)
     else:
         print("no --data given; training on synthetic clips (smoke mode)")
-        ds = SyntheticClips(n=args.synthetic_n, audio_len=cfg.audio_len)
+        n_total = args.synthetic_n
+        ds = SyntheticClips(n=n_total - int(round(args.music_frac * n_total)), audio_len=cfg.audio_len)
+    if args.music_frac > 0.0:
+        # the music share of the final corpus: synthetic keeps the total at
+        # --synthetic-n, --data gets music on top.  Music seed 1; demo_eval's
+        # music section draws seed 7, so its clips stay unseen.
+        ds = ConcatClips(ds, SyntheticMusicClips(n=int(round(args.music_frac * n_total)),
+                                                 audio_len=cfg.audio_len, seed=1))
     tr_idx, va_idx, _ = split_indices(len(ds), (0.8, 0.1, 0.1), seed=cfg.train.seed)
     # val keeps its partial batch, so a small split still validates
     mk = lambda idx, shuffle: BatchLoader(
         ds, cfg.train.batch_size, indices=idx, shuffle=shuffle, drop_last=shuffle,
         seed=cfg.train.seed, num_workers=args.workers,
     )
-    out = fit(cfg, mk(tr_idx, True), mk(va_idx, False), init_from=args.init_from,
-              log_path=args.log_csv, seed=cfg.train.seed, select_metric=args.select_metric,
-              device=args.device)
+    out = fit(cfg, mk(tr_idx, True), mk(va_idx, False), ckpt_dir=args.ckpt_dir,
+              init_from=args.init_from, log_path=args.log_csv, plot_path=args.loss_plot,
+              seed=cfg.train.seed, select_metric=args.select_metric, device=args.device)
     print(json.dumps({"best_val": out["best_val"], "epochs": len(out["history"]),
                       "stopped_early": out["stopped_early"]}, indent=2))
+    return out
+
+
+# Staged training recipes as data: leg name -> (extra train argv, robust?,
+# environment argv appended last, so it wins argparse's last-occurrence
+# rule).  A copy of awm_tpu/__main__.py's table (312-402), whose comments
+# give the measurements behind each leg's flags and order.
+_BL_ENV = ["--music-frac", "0.0", "--resample-hz", "8000"]
+
+_CURRICULA = {
+    "robust_decode": {
+        "common": ["--message-encoding", "bits", "--dec-loss", "mean",
+                   "--delta-band-hz", "3000"],
+        "robust": ["--augment", "--attack-prob", "0.45", "--noise-snr", "10,40",
+                   "--lowpass-hz", "3500,5000,7000",
+                   "--resample-hz", "8000,11025,22050"],
+        "legs": [
+            # clean scratch, shared decode head, relaxed perceptual budget
+            ("A_shared", ["--epochs", "22", "--patience", "6",
+                          "--loss-weights", "dec=10,loud=3,mel=1",
+                          "--select-metric", "dec"], False, []),
+            # dilated head added fresh (restore_params keeps init for new leaves)
+            ("B_dilated", ["--decode-head", "dilated", "--epochs", "18",
+                           "--patience", "6",
+                           "--loss-weights", "dec=10,loud=3,mel=1",
+                           "--select-metric", "dec"], False, []),
+            # channel-attack curriculum, budget held, no balance
+            ("C_robust", ["--decode-head", "dilated", "--epochs", "26",
+                          "--patience", "99",
+                          "--loss-weights", "dec=10,loud=3,mel=1",
+                          "--select-metric", "loc,dec"], True, []),
+            # first post-robust budget step, no balance
+            ("D2_budget", ["--decode-head", "dilated", "--epochs", "28",
+                           "--patience", "99",
+                           "--loss-weights", "dec=10,loud=6,mel=1.5",
+                           "--select-metric", "loc,dec"], True, []),
+            # balance turned on at the held budget
+            ("E2_balance", ["--decode-head", "dilated", "--epochs", "30",
+                            "--patience", "99", "--dec-bit-balance", "1.0",
+                            "--loss-weights", "dec=10,loud=6,mel=1.5",
+                            "--select-metric", "loc,dec"], True, _BL_ENV),
+            # gradual re-tighten with balance held
+            ("F2_tighten", ["--decode-head", "dilated", "--epochs", "40",
+                            "--patience", "99", "--dec-bit-balance", "1.0",
+                            "--loss-weights", "dec=10,loud=8,mel=1.75",
+                            "--select-metric", "loc,dec"], True, _BL_ENV),
+            ("G2_tighten", ["--decode-head", "dilated", "--epochs", "30",
+                            "--patience", "99", "--dec-bit-balance", "1.0",
+                            "--loss-weights", "dec=10,loud=10,mel=2.0",
+                            "--select-metric", "loc,dec"], True, _BL_ENV),
+            ("H2_tighten", ["--decode-head", "dilated", "--epochs", "30",
+                            "--patience", "99", "--dec-bit-balance", "1.0",
+                            "--loss-weights", "dec=10,loud=13,mel=2.5,loc=14",
+                            "--select-metric", "loc,dec"], True, _BL_ENV),
+        ],
+    },
+}
+
+
+def cmd_curriculum(args):
+    """Run a staged recipe; each leg fine-tunes the previous leg's
+    ckpt_best.  A finished leg leaves a .done marker and is skipped on a
+    re-run.  Each leg's TrainState is dropped before the next one starts."""
+    import gc
+
+    rec = _CURRICULA[args.recipe]
+    leg_names = [n for n, *_ in rec["legs"]]
+    if args.stop_after and args.stop_after not in leg_names:
+        raise SystemExit(f"--stop-after {args.stop_after!r} is not a leg of {args.recipe!r}; "
+                         f"legs: {', '.join(leg_names)}")
+    shared = ["--batch-size", str(args.batch_size), "--music-frac", str(args.music_frac),
+              "--workers", str(args.workers)]
+    shared += ["--data", args.data] if args.data else ["--synthetic-n", str(args.synthetic_n)]
+    if args.seed is not None:
+        shared += ["--seed", str(args.seed)]
+    if args.audio_len:
+        shared += ["--audio-len", str(args.audio_len)]
+
+    prev = args.init_from
+    legs_out = {}
+    for name, leg, robust, env_override in rec["legs"]:
+        d = os.path.join(args.out, name)
+        marker = os.path.join(d, ".done")
+        if os.path.isfile(marker):
+            print(f"curriculum: leg {name} already done, skipping", flush=True)
+        else:
+            leg = list(leg)
+            k = leg.index("--epochs") + 1
+            if args.smoke:
+                leg[k] = "1"
+            elif args.epochs_scale != 1.0:
+                leg[k] = str(max(1, round(int(leg[k]) * args.epochs_scale)))
+            argv = ["train"] + rec["common"] + shared + leg
+            argv += rec["robust"] if robust else []
+            argv += env_override  # last occurrence wins in argparse
+            if prev:
+                argv += ["--init-from", prev]
+            argv += ["--ckpt-dir", d, "--log-csv", os.path.join(d, "metrics.csv"),
+                     "--device", args.device]
+            print(f"== curriculum leg {name}: awm_tpu_torch " + " ".join(argv), flush=True)
+            main(argv)  # its TrainState is dropped here
+            gc.collect()
+            with open(marker, "w") as f:
+                f.write("")
+        prev = os.path.join(d, "ckpt_best")
+        legs_out[name] = prev
+        if args.stop_after and name == args.stop_after:
+            print(f"curriculum: stopping after leg {name} (--stop-after)", flush=True)
+            break
+    out = {"recipe": args.recipe, "legs": legs_out, "final_ckpt": prev}
+    print(json.dumps(out, indent=2))
     return out
 
 
@@ -186,18 +354,42 @@ def cmd_detect_folder(args):
     return out
 
 
+def cmd_serve(args):
+    from awm_tpu_torch.serve import serve
+
+    serve(_load_session(args), host=args.host, port=args.port, max_batch=args.max_batch,
+          max_wait_ms=args.max_wait_ms)
+
+
 def _add_session_args(p):
+    p.add_argument("--preset", default="base",
+                   help="config preset (base, light, onecycle20, quality, ft_robust)")
+    p.add_argument("--ckpt", help="checkpoint directory of the port (train --ckpt-dir's "
+                                  "ckpt_best / ckpt_latest); its awm_arch.json is adopted")
+    p.add_argument("--torch-generator", help="reference generator_best.pth to import")
+    p.add_argument("--torch-detector", help="reference detector_best.pth to import")
     p.add_argument("--params", default=SHAPECAP_NPZ,
-                   help="flattened {'params','batch_stats'} .npz (default: packaged shapecap)")
+                   help="flattened {'params','batch_stats'} .npz when neither --ckpt nor "
+                        "--torch-* is given (default: packaged shapecap)")
     p.add_argument("--arch", default=SHAPECAP_ARCH,
                    help="awm_arch.json of those weights (default: packaged shapecap)")
     p.add_argument("--audio-len", type=int, help="override chunk length in samples (default 16000)")
-    p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16",
-                   help="inference compute dtype (float32 = strict, TF32 off)")
+    p.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
+                   help="inference compute dtype (default: bfloat16, or float32 when "
+                        "importing --torch-* weights; float32 = strict, TF32 off)")
+    # must match how the checkpoint was trained; with a recorded
+    # architecture they only validate against it
+    p.add_argument("--message-encoding", choices=("table", "bits"),
+                   help="generator message pathway the checkpoint was trained with")
+    p.add_argument("--decode-head", choices=("shared", "dilated"),
+                   help="detector bit head the checkpoint was trained with")
+    p.add_argument("--delta-band-hz", type=float,
+                   help="carrier band-limit the checkpoint was trained with")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The parsed command line; its .fn runs the command."""
     ap = argparse.ArgumentParser(prog="awm_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -238,8 +430,16 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int)
     p.add_argument("--data", help="directory of 1-s wav clips")
     p.add_argument("--synthetic-n", type=int, default=256)
+    p.add_argument("--music-frac", type=float, default=0.0,
+                   help="fraction of the training corpus drawn from synthetic music clips "
+                        "(tonal-content curriculum axis)")
     p.add_argument("--epochs", type=int)
-    p.add_argument("--init-from", help="flattened .npz to fine-tune from (e.g. the packaged "
+    p.add_argument("--ckpt-dir", default=None,
+                   help="write ckpt_best (on improvement of the select metric) and "
+                        "ckpt_latest (every epoch) here, and resume from ckpt_latest; "
+                        "default: no checkpoints")
+    p.add_argument("--init-from", help="checkpoint directory of the port or flattened .npz to "
+                                       "fine-tune from (weights only; e.g. the packaged "
                                        "shapecap weights)")
     p.add_argument("--lr", type=float, help="override the schedule's (peak) learning rate")
     p.add_argument("--patience", type=int, help="early-stopping patience override")
@@ -297,10 +497,31 @@ def main(argv=None):
     p.add_argument("--seed", type=int, help="training seed (init, split, shuffle, messages)")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--log-csv", default=None)
+    p.add_argument("--loss-plot", default=None, help="loss-curve PNG (needs matplotlib)")
     p.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
                    help="conv/BN compute dtype of the step (default: the preset's, bfloat16)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("curriculum", help="staged multi-leg training recipe in one command")
+    p.add_argument("recipe", choices=sorted(_CURRICULA))
+    p.add_argument("--out", required=True, help="root dir; one subdir per leg")
+    p.add_argument("--data", help="directory of 1-s wav clips")
+    p.add_argument("--synthetic-n", type=int, default=24576)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--music-frac", type=float, default=0.15)
+    p.add_argument("--audio-len", type=int)
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--seed", type=int, help="training seed for every leg")
+    p.add_argument("--init-from", help="start the first leg from a checkpoint")
+    p.add_argument("--smoke", action="store_true", help="1 epoch per leg (pipeline smoke test)")
+    p.add_argument("--epochs-scale", type=float, default=1.0,
+                   help="scale every leg's epoch budget (e.g. 0.5)")
+    p.add_argument("--stop-after", default=None,
+                   help="stop after the named leg finishes; a re-run continues (finished "
+                        "legs are skipped)")
+    p.add_argument("--device", default="cuda", help="torch device of every leg (default cuda)")
+    p.set_defaults(fn=cmd_curriculum)
 
     p = sub.add_parser("evaluate", help="corpus sweep: accuracy/AUC/K-fold")
     _add_session_args(p)
@@ -320,7 +541,20 @@ def main(argv=None):
     p.add_argument("--threshold", type=float, default=0.5)
     p.set_defaults(fn=cmd_detect_folder)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser("serve", help="HTTP embed/detect server")
+    _add_session_args(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--max-batch", type=int, default=256,
+                   help="micro-batch chunk budget per device call")
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="max time a request waits for batch co-riders")
+    p.set_defaults(fn=cmd_serve)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     return args.fn(args)
 
 

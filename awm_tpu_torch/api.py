@@ -112,6 +112,38 @@ class InferenceSession:
         return cls(gen, det, message_bits=model_cfg.message_bits, chunk_len=chunk_len,
                    compute_dtype=compute_dtype, shaping=shaping, device=device)
 
+    @classmethod
+    def from_state(cls, cfg, state, *, compute_dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> "InferenceSession":
+        """Session over a TrainState's networks (copies), adopting the
+        config's shaping chain when it is enabled (main16 eval parity).
+        Runs on the networks' device unless another is given."""
+        device = device or next(state.gen.parameters()).device
+        return cls(state.gen, state.det, message_bits=cfg.message_bits,
+                   sample_rate=cfg.sample_rate, chunk_len=cfg.audio_len,
+                   compute_dtype=compute_dtype, shaping=cfg.shaping, device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        *,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        chunk_len: int = AUDIO_LEN,
+    ) -> "InferenceSession":
+        """Session over a checkpoint directory of the port (trainer.fit's
+        ckpt_best / ckpt_latest): the architecture and shaping chain its
+        awm_arch.json records, its weights restored strictly."""
+        from awm_tpu_torch.checkpoint import configs_from_arch, read_arch, restore_params
+        from awm_tpu_torch.models import build_models
+
+        model_cfg, shaping = configs_from_arch(read_arch(path))
+        gen, det = build_models(model_cfg)
+        restore_params(path, gen, det)
+        return cls(gen, det, message_bits=model_cfg.message_bits, chunk_len=chunk_len,
+                   compute_dtype=compute_dtype, shaping=shaping, device=device)
+
     # -- device functions ----------------------------------------------------
 
     def _embed(self, chunks, msgs):

@@ -1,4 +1,14 @@
-"""Weights and architecture for the port (counterpart of awm_tpu/checkpoint.py).
+"""Checkpoints, weights and architecture for the port (counterpart of
+awm_tpu/checkpoint.py).
+
+A checkpoint of the port is a directory holding ``torch_state.pt`` (both
+networks' fp32 parameters and BatchNorm statistics, the Adam state, step,
+epoch and best_val; ``torch.load(..., weights_only=True)`` reads it) and
+``awm_arch.json``, written with the keys of the JAX package's sidecar so
+that each package's ``read_arch`` parses the other's.  ``fit`` writes
+``ckpt_latest`` every epoch and ``ckpt_best`` on improvement, and resumes
+from ``ckpt_latest`` (``maybe_resume``).  The step's random draws derive from
+(seed, step) (train.py), so a checkpoint holds no random state.
 
 The port reads no orbax tree.  A JAX checkpoint crosses over once as an
 ``.npz`` of its ``{'params', 'batch_stats'}`` tree flattened to ``/``-joined
@@ -9,7 +19,10 @@ and ``assets/t_flagship_arch.json`` are evidence/r5/T_flagship/ckpt_best, the
 same architecture trained without the shaping chain.  ``variables_from_flax``
 maps one network's tree onto the port's ``state_dict``: the inverse of the
 JAX importer's ``_conv`` / ``_conv_t`` / ``_bn`` / LSTM layouts
-(awm_tpu/checkpoint.py:289-373).
+(awm_tpu/checkpoint.py:289-373).  ``restore_params`` reads either source.
+
+The reference's torch ``.pth`` state dicts (base family) map onto the port's
+modules through ``import_torch_generator`` / ``import_torch_detector``.
 """
 
 from __future__ import annotations
@@ -17,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +38,7 @@ import torch
 from awm_tpu_torch.config import ModelConfig, ShapingConfig
 
 ARCH_FILE = "awm_arch.json"
+STATE_FILE = "torch_state.pt"
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 SHAPECAP_NPZ = os.path.join(ASSETS, "shapecap.npz")
 SHAPECAP_ARCH = os.path.join(ASSETS, ARCH_FILE)
@@ -34,6 +48,39 @@ T_FLAGSHIP_ARCH = os.path.join(ASSETS, "t_flagship_arch.json")
 # flax modules that are ConvTranspose1d (their (k, in, out) weight becomes
 # torch's (in, out, k), without a flip); every other 'w' is a Conv1d.
 _TRANSPOSED = frozenset({"dec_deconv"})
+# The JAX ModelConfig's fields in its order.  The strided family's, which the
+# port does not model yet, are written at the JAX defaults.
+_ARCH_KEYS = ("family", "message_bits", "lstm_impl", "channels", "message_encoding",
+              "decode_head", "delta_band_hz", "base_channels", "hidden_dim",
+              "output_channels", "strides", "lstm_layers")
+_JAX_ONLY_DEFAULTS = {"lstm_impl": "auto", "base_channels": 32, "hidden_dim": 32,
+                      "output_channels": 128, "strides": [2, 4, 5, 8], "lstm_layers": 2}
+_ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+
+
+# -- architecture sidecar ---------------------------------------------------
+
+
+def _write_atomic(path: str, write) -> None:
+    """write(tmp) then rename over path: a reader never sees half a file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def write_arch(path: str, model_cfg, shaping_cfg=None) -> None:
+    """Record the architecture in a checkpoint directory, with the keys of
+    the JAX package's write_arch, and the shaping chain when it is enabled."""
+    doc = {k: getattr(model_cfg, k) if hasattr(model_cfg, k) else _JAX_ONLY_DEFAULTS[k]
+           for k in _ARCH_KEYS}
+    if shaping_cfg is not None and shaping_cfg.enabled:
+        doc["shaping"] = dataclasses.asdict(shaping_cfg)
+
+    def write(tmp):
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1)
+
+    _write_atomic(os.path.join(path, ARCH_FILE), write)
 
 
 def read_arch(path: str) -> Optional[dict]:
@@ -59,6 +106,9 @@ def configs_from_arch(arch: Optional[dict]) -> Tuple[ModelConfig, Optional[Shapi
         return model, None
     sknown = {f.name for f in dataclasses.fields(ShapingConfig)}
     return model, ShapingConfig(**{k: v for k, v in shaping.items() if k in sknown})
+
+
+# -- the flax -> torch bridge -------------------------------------------------
 
 
 def load_npz(path: str) -> Dict[str, Any]:
@@ -123,26 +173,194 @@ def load_models(params_npz: str = SHAPECAP_NPZ, arch_json: str = SHAPECAP_ARCH):
 
     model_cfg, shaping = configs_from_arch(read_arch(arch_json))
     gen, det = build_models(model_cfg)
-    nets = load_npz(params_npz)
-    for net, name in ((gen, "gen"), (det, "det")):
-        sub = {part: nets.get(part, {}).get(name, {}) for part in ("params", "batch_stats")}
-        net.load_state_dict(variables_from_flax(sub), strict=True)
-        net.eval()
+    restore_params(params_npz, gen, det)
+    gen.eval()
+    det.eval()
     return gen, det, model_cfg, shaping
 
 
-def load_into(gen, det, params_npz: str) -> list:
-    """Copy a flattened .npz's weights and BN statistics into existing
-    networks (a fine-tune's start, the JAX package's restore_params with
-    allow_missing).  Returns the names left at their initial values (a
-    parameter the checkpoint lacks, e.g. a new message encoder); a name the
-    networks lack, or a shape that differs, raises."""
-    nets = load_npz(params_npz)
-    missing = []
-    for net, name in ((gen, "gen"), (det, "det")):
-        sub = {part: nets.get(part, {}).get(name, {}) for part in ("params", "batch_stats")}
-        result = net.load_state_dict(variables_from_flax(sub), strict=False)
-        if result.unexpected_keys:
-            raise ValueError(f"{params_npz}: {name} has no {sorted(result.unexpected_keys)}")
-        missing += [f"{name}.{k}" for k in result.missing_keys]
-    return missing
+# -- checkpoints ----------------------------------------------------------------
+
+
+def latest_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "ckpt_latest")
+
+
+def best_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "ckpt_best")
+
+
+def is_checkpoint(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, STATE_FILE))
+
+
+def save_checkpoint(path: str, state, *, epoch: int = 0, best_val: float = float("inf"),
+                    model_cfg=None, shaping_cfg=None) -> None:
+    """Write a TrainState (train.py) with epoch and best_val to the directory
+    path, overwriting it.  The arch sidecar goes first and the state file is
+    renamed into place last, so an interrupted save leaves the previous
+    checkpoint (or none) and never half of one."""
+    os.makedirs(path, exist_ok=True)
+    if model_cfg is not None:
+        write_arch(path, model_cfg, shaping_cfg)
+    payload = {
+        "gen": state.gen.state_dict(),
+        "det": state.det.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "epoch": int(epoch),
+        "best_val": float(best_val),
+    }
+    _write_atomic(os.path.join(path, STATE_FILE), lambda tmp: torch.save(payload, tmp))
+
+
+def _payload(path: str, map_location="cpu") -> Dict[str, Any]:
+    if not is_checkpoint(path):
+        if any(os.path.exists(os.path.join(path, f)) for f in _ORBAX_FILES):
+            raise ValueError(
+                f"{path} is an orbax checkpoint of the JAX package; the port reads no orbax "
+                "tree.  Flatten its {'params', 'batch_stats'} once to an .npz with the JAX "
+                "package, as tests/torch_assets.py does for assets/shapecap.npz "
+                "(restore_shapecap + weights_arrays + np.savez), and pass that .npz with its "
+                "awm_arch.json")
+        raise FileNotFoundError(f"no checkpoint of the port at {path!r} ({STATE_FILE} missing)")
+    return torch.load(os.path.join(path, STATE_FILE), map_location=map_location, weights_only=True)
+
+
+def restore_checkpoint(path: str, state) -> Tuple[Any, int, float]:
+    """Restore a TrainState in place from a checkpoint directory, onto the
+    state's own device (a checkpoint written on the card restores on the
+    CPU).  Returns (state, epoch, best_val)."""
+    payload = _payload(path, map_location=next(state.gen.parameters()).device)
+    state.gen.load_state_dict(payload["gen"])
+    state.det.load_state_dict(payload["det"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = payload["step"]
+    return state, payload["epoch"], payload["best_val"]
+
+
+def maybe_resume(ckpt_dir: str, state):
+    """Resume from ckpt_latest when it exists.  Returns (state, epoch,
+    best_val, resumed)."""
+    p = latest_path(ckpt_dir)
+    if is_checkpoint(p):
+        state, epoch, best_val = restore_checkpoint(p, state)
+        return state, epoch, best_val, True
+    return state, 0, float("inf"), False
+
+
+def _source_weights(path: str) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int, float]:
+    """({'gen': state_dict, 'det': state_dict}, epoch, best_val) of a
+    flattened .npz (epoch 0, best_val 0.0) or a checkpoint directory."""
+    if os.path.isdir(path):
+        payload = _payload(path)
+        return {n: payload[n] for n in ("gen", "det")}, payload["epoch"], payload["best_val"]
+    nets = load_npz(path)
+    return ({n: variables_from_flax({p: nets.get(p, {}).get(n, {}) for p in ("params", "batch_stats")})
+             for n in ("gen", "det")}, 0, 0.0)
+
+
+def restore_params(path: str, gen, det, allow_missing: bool = False) -> Tuple[List[str], int, float]:
+    """Copy only the weights and BatchNorm statistics of a checkpoint
+    directory or a flattened .npz into existing networks (ignoring any
+    optimizer state), with the JAX package's rules (awm_tpu/checkpoint.py:
+    126-248): a leaf of the source that the networks lack is ignored, and a
+    leaf whose shape differs counts as absent.  allow_missing=True lets
+    absent leaves keep their initial values (a cross-architecture
+    warm-start, e.g. a new message encoder or decode head) and prints them;
+    without it any absent leaf raises.  A source that shares no parameter
+    with the networks raises either way (a wrong path or another family).
+    Returns (the names left at their initial values, epoch, best_val)."""
+    sources, epoch, best_val = _source_weights(path)
+    kept, notes, shared, takes = [], [], 0, []
+    for name, net in (("gen", gen), ("det", det)):
+        src, params, take = sources[name], dict(net.named_parameters()), {}
+        for k, v in net.state_dict().items():
+            have = src.get(k)
+            if have is None:
+                notes.append(f"{name}.{k}")
+            elif tuple(have.shape) != tuple(v.shape):
+                notes.append(f"{name}.{k} (shape {tuple(v.shape)} != on-disk {tuple(have.shape)})")
+            else:
+                take[k] = have
+                shared += k in params
+                continue
+            kept.append(f"{name}.{k}")
+        takes.append((net, take))
+    if shared == 0:
+        raise ValueError(
+            f"checkpoint {path} shares no parameter leaves with the networks (wrong path, or "
+            f"a different model family?); {len(kept)} leaves absent, e.g. {', '.join(notes[:5])}")
+    if kept and not allow_missing:
+        raise ValueError(
+            f"{len(kept)} leaves absent from checkpoint {path}: {', '.join(notes[:8])}"
+            f"{'...' if len(notes) > 8 else ''} (pass allow_missing=True to warm-start them from init)")
+    for net, take in takes:
+        net.load_state_dict(take, strict=False)
+    if kept:
+        print(f"restore_params: kept init for {len(kept)} leaves absent from {path}: "
+              f"{', '.join(notes[:8])}")
+    return kept, epoch, best_val
+
+
+def load_into(gen, det, path: str) -> List[str]:
+    """restore_params with allow_missing (a fine-tune's start): the names
+    left at their initial values."""
+    return restore_params(path, gen, det, allow_missing=True)[0]
+
+
+# -- the reference's torch .pth (base family) ------------------------------------
+
+
+def strip_prefix(state_dict: Dict[str, Any], prefix: str = "_orig_mod.") -> Dict[str, Any]:
+    """Remove the torch.compile wrapper prefix (ref: py/main14.py:593-598)."""
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in state_dict.items()}
+
+
+def _load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    return strip_prefix(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _renamed(sd: Dict[str, torch.Tensor], modules: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """{port module: reference module} -> the port's state_dict, fp32 (BN's
+    num_batches_tracked dropped; the port does not keep it)."""
+    out = {}
+    for dst, src in modules.items():
+        for k, v in sd.items():
+            leaf = k[len(src) + 1:]
+            if k.startswith(src + ".") and "." not in leaf and leaf != "num_batches_tracked":
+                out[f"{dst}.{leaf}"] = v.detach().to(torch.float32).clone()
+    return out
+
+
+def _resblock(dst: str, src: str) -> Dict[str, str]:
+    """Reference ResBlock: block.0 conv, block.1 bn, block.3 conv, block.4 bn
+    (ref: py/main14.py:74-87)."""
+    return {f"{dst}.conv1": f"{src}.block.0", f"{dst}.bn1": f"{src}.block.1",
+            f"{dst}.conv2": f"{src}.block.3", f"{dst}.bn2": f"{src}.block.4"}
+
+
+def import_torch_detector(path: str) -> Dict[str, torch.Tensor]:
+    """models/detector_best.pth -> the state_dict of a shared-head
+    models.Detector (torch layout: model.0 conv-in, model.1/2 ResBlocks,
+    model.3 conv-out; ref: py/main14.py:132-148)."""
+    sd = _load_torch_state_dict(path)
+    return _renamed(sd, {"conv_in": "model.0", **_resblock("res1", "model.1"),
+                         **_resblock("res2", "model.2"), "conv_out": "model.3"})
+
+
+def import_torch_generator(path: str) -> Dict[str, torch.Tensor]:
+    """generator_best.pth -> the state_dict of a table-encoder
+    models.Generator (torch layout: encoder.0 conv, encoder.1/2 ResBlocks,
+    lstm, embedding, decoder.0 ConvTranspose, decoder.1 ResBlock, decoder.2
+    conv; ref: py/main14.py:90-124).  The LSTM's two biases are summed: they
+    only ever appear added."""
+    sd = _load_torch_state_dict(path)
+    out = _renamed(sd, {"enc_conv": "encoder.0", **_resblock("enc_res1", "encoder.1"),
+                        **_resblock("enc_res2", "encoder.2"), "embedding": "embedding",
+                        "dec_deconv": "decoder.0", **_resblock("dec_res", "decoder.1"),
+                        "dec_out": "decoder.2"})
+    out["lstm.w_ih"] = sd["lstm.weight_ih_l0"].detach().float().clone()
+    out["lstm.w_hh"] = sd["lstm.weight_hh_l0"].detach().float().clone()
+    out["lstm.b"] = (sd["lstm.bias_ih_l0"] + sd["lstm.bias_hh_l0"]).detach().float()
+    return out

@@ -1,3 +1,11 @@
-from awm_tpu_torch.data.dataset import BatchLoader, OneSecClips, SyntheticClips, split_indices
+from awm_tpu_torch.data.dataset import (
+    BatchLoader,
+    ConcatClips,
+    OneSecClips,
+    SyntheticClips,
+    SyntheticMusicClips,
+    split_indices,
+)
 
-__all__ = ["BatchLoader", "OneSecClips", "SyntheticClips", "split_indices"]
+__all__ = ["BatchLoader", "ConcatClips", "OneSecClips", "SyntheticClips", "SyntheticMusicClips",
+           "split_indices"]

@@ -2,9 +2,12 @@
 (the port's own copy of awm_tpu/data/dataset.py).
 
 Clips are decoded on host threads while the card computes, and the loop
-gets ready (B, T) float32 numpy batches.  The JAX package's native C++ WAV
-decoder is not ported yet: OneSecClips decodes through the port's
-utils/audio_io.
+gets ready (B, T) float32 numpy batches.  A filepath-backed dataset
+(OneSecClips) is decoded a batch per C call by the native WAV decoder
+(data/native.py) where g++ could build it, else through utils/audio_io.
+The two agree bit for bit on files at the target rate; on other rates the
+native decoder interpolates linearly and utils/audio_io resamples
+polyphase, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ class BatchLoader:
         drop_last: bool = True,
         num_workers: int = 8,
         prefetch: int = 4,
+        native: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -115,6 +119,12 @@ class BatchLoader:
         self.prefetch = prefetch
         self._epoch = 0
         self.n_errors = 0
+        self.native_batches = 0  # batches the native decoder produced
+        self._native = None
+        if native and hasattr(dataset, "filepaths"):
+            from awm_tpu_torch.data import native as native_mod
+
+            self._native = native_mod if native_mod.available() else None
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -140,7 +150,16 @@ class BatchLoader:
         batches = [order[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
 
         def load_batch(batch_idx: np.ndarray) -> np.ndarray:
-            return np.stack([self._item(i) for i in batch_idx])
+            if self._native is None:
+                return np.stack([self._item(i) for i in batch_idx])
+            out, ok = self._native.load_clips(
+                [self.dataset.filepaths[int(i)] for i in batch_idx],
+                clip_len=self.dataset.audio_len, target_sr=self.dataset.sample_rate,
+                n_threads=self.num_workers)
+            for j in np.nonzero(~ok)[0]:  # what the native decoder rejects, in Python
+                out[j] = self._item(batch_idx[j])
+            self.native_batches += 1
+            return out
 
         def gen():
             with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
@@ -158,3 +177,56 @@ class BatchLoader:
                     yield fut.result()
 
         return gen()
+
+
+class ConcatClips:
+    """Clip datasets laid end to end: the speech + music training mix
+    (--music-frac).  split_indices' shuffled split then spreads both sources
+    over train, val and test."""
+
+    def __init__(self, *datasets):
+        if not datasets:
+            raise ValueError("ConcatClips needs at least one dataset")
+        self.datasets = datasets
+        self.audio_len = datasets[0].audio_len
+        self._offsets = np.cumsum([0] + [len(d) for d in datasets])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        k = int(np.searchsorted(self._offsets, idx, "right")) - 1
+        return self.datasets[k][int(idx - self._offsets[k])]
+
+
+class SyntheticMusicClips:
+    """Deterministic synthetic music-like clips: a major triad with decaying
+    harmonics on an equal-tempered root, percussive noise bursts on a beat
+    grid, peak-normalised to 0.315; out of domain for the speech-like clips.
+    Clip idx is the same array as the JAX package's."""
+
+    def __init__(self, n: int = 256, audio_len: int = AUDIO_LEN, seed: int = 0):
+        self.n = n
+        self.audio_len = audio_len
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 2_000_003 + idx)
+        t = np.arange(self.audio_len) / SAMPLE_RATE
+        root = 110.0 * 2.0 ** (rng.integers(0, 25) / 12.0)  # A2..A4 chromatic
+        x = np.zeros_like(t)
+        for ratio in (1.0, 2 ** (4 / 12), 2 ** (7 / 12)):  # major triad
+            f = root * ratio
+            decay = np.exp(-t / (0.4 + 0.8 * rng.random()))
+            for harm, amp in ((1, 0.2), (2, 0.08), (3, 0.04)):
+                x += amp * decay * np.sin(2 * np.pi * f * harm * t + rng.random())
+        beat = int(SAMPLE_RATE / (1.8 + 1.4 * rng.random()))
+        for start in range(0, self.audio_len, beat):
+            dur = min(800, self.audio_len - start)
+            burst = rng.standard_normal(dur) * np.exp(-np.arange(dur) / 150.0)
+            x[start : start + dur] += 0.15 * burst
+        x = x + 0.005 * rng.standard_normal(self.audio_len)
+        return (0.9 * x / max(np.abs(x).max(), 1e-6) * 0.35).astype(np.float32)

@@ -1,0 +1,3 @@
+"""Command-line drivers of the port (counterparts of the JAX package's
+tools/): demo_eval, bit_diagnostic and serve_load, each run as
+``python -m awm_tpu_torch.tools.<name>``."""

@@ -13,9 +13,13 @@ late, so the card is never waiting on the host).
 
 Messages are drawn from an explicit torch.Generator on the CPU (the
 state's, or the caller's), the attacks from one on the step's device, so the
-noise is made where it is used.  train_step and eval_step also take a message
-tensor and the attack draws, which the parity tests use to hand in what the
-JAX step drew.  The two frameworks' random streams are never compared.
+noise is made where it is used.  train_step reseeds the state's two from
+(seed, step) before it draws, as the JAX step folds the step into its key
+(awm_tpu/train.py:183): a run resumed from a checkpoint draws what an
+uninterrupted one would, and a checkpoint holds no random state.
+train_step and eval_step also take a message tensor and the attack draws,
+which the parity tests use to hand in what the JAX step drew.  The two
+frameworks' random streams are never compared.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ from awm_tpu_torch.utils.precision import no_tf32
 class TrainState:
     """Both networks (parameters fp32, BN statistics as buffers), the Adam
     optimizer over the trained parameters, the learning-rate schedule, the
-    step count, the message generator (CPU) and the attack generator (on the
-    networks' device)."""
+    step count, the run seed, the message generator (CPU) and the attack
+    generator (on the networks' device); train_step seeds both from (seed,
+    step)."""
 
     gen: torch.nn.Module
     det: torch.nn.Module
@@ -53,6 +58,7 @@ class TrainState:
     schedule: Callable[[int], float]
     generator: torch.Generator
     attack_generator: torch.Generator
+    seed: int = 42
     step: int = 0
 
 
@@ -118,7 +124,7 @@ def init_state(
 ) -> TrainState:
     """Fresh networks (torch's initialisers, drawn under `seed`), on device,
     with the optimizer and schedule of cfg.  Load trained weights into
-    state.gen / state.det (checkpoint.load_into) before the first step."""
+    state.gen / state.det (checkpoint.restore_params) before the first step."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         gen, det = build_models(cfg.model, compute_dtype=compute_dtype_of(cfg))
@@ -126,7 +132,15 @@ def init_state(
     schedule = make_schedule(cfg, steps_per_epoch)
     return TrainState(gen=gen, det=det, optimizer=make_optimizer(cfg, gen, det, schedule),
                       schedule=schedule, generator=torch.Generator().manual_seed(seed),
-                      attack_generator=torch.Generator(device=device).manual_seed(seed))
+                      attack_generator=torch.Generator(device=device).manual_seed(seed), seed=seed)
+
+
+def seed_step(state: TrainState) -> None:
+    """Seed the state's message and attack generators from (seed, step), two
+    streams apart."""
+    base = (state.seed * 1_000_003 + state.step) % 2**62
+    state.generator.manual_seed(2 * base)
+    state.attack_generator.manual_seed(2 * base + 1)
 
 
 def draw_messages(cfg: Config, n: int, generator: torch.Generator, device) -> torch.Tensor:
@@ -181,9 +195,10 @@ def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
     """One optimizer step on a (B, T) batch of clean clips, on s's device.
     Draws the messages from state.generator unless `message` is given, and
     with cfg.augment this step's attacks from state.attack_generator unless
-    `attack_draws` is given.  Updates state in place; returns the loss terms
+    `attack_draws` is given, both seeded from (state.seed, state.step).  Updates state in place; returns the loss terms
     (detached device scalars).  A frozen network still normalises with its
     batch statistics but keeps its running statistics, as the JAX step does."""
+    seed_step(state)
     if message is None:
         message = draw_messages(cfg, s.shape[0], state.generator, s.device)
     if attack_draws is None:

@@ -1,13 +1,16 @@
-"""Epoch-level training loop (counterpart of awm_tpu/trainer.py:33-276).
+"""Epoch-level training loop (counterpart of awm_tpu/trainer.py).
 
 fit() runs the epochs with per-term loss means, the mid-epoch quick
 validation, select_metric (validated before training starts), early
-stopping and the CSV metrics log.  init_from starts from a flattened .npz
-checkpoint (the fine-tune flow).  Metrics are fetched one step late, as the
-JAX loop does, so the card never waits on the host between steps.  With an
-attack curriculum (cfg.augment.val_attacks) validation and quick-val run
-under the curriculum's attacks.  Not ported yet: checkpoint saving and resume
-(ckpt_dir) and the data-parallel mesh; each raises if given.
+stopping, the CSV metrics log and the loss-curve PNG.  With ckpt_dir it
+writes ckpt_best on improvement of the select metric and ckpt_latest every
+epoch, and resumes from ckpt_latest.  init_from starts from a checkpoint
+directory or a flattened .npz (the fine-tune flow: weights only, missing
+leaves kept at init, fresh optimizer and step).  Metrics are fetched one
+step late, as the JAX loop does, so the card never waits on the host between
+steps.  With an attack curriculum (cfg.augment.val_attacks) validation and
+quick-val run under the curriculum's attacks.  Not ported yet: the
+data-parallel mesh, which raises if given.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from awm_tpu_torch import checkpoint as ck
 from awm_tpu_torch import train as tr
-from awm_tpu_torch.checkpoint import load_into
 from awm_tpu_torch.config import Config
 from awm_tpu_torch.losses import term_keys
 
@@ -70,6 +73,7 @@ def fit(
     seed: int = 42,
     init_from: Optional[str] = None,
     log_path: Optional[str] = None,
+    plot_path: Optional[str] = None,
     select_metric: Optional[str] = None,
     device="cuda",
     verbose: bool = True,
@@ -80,13 +84,12 @@ def fit(
     float32 arrays (data.BatchLoader); val_batches: the same or None.
 
     select_metric: comma-separated validation loss keys (e.g. "loc,dec")
-    whose sum drives early stopping instead of the weighted total.
+    whose sum drives best-checkpoint selection and early stopping instead
+    of the weighted total.
 
     Returns {state, history, best_val, stopped_early}."""
-    for name, value, where in (("ckpt_dir", ckpt_dir, "checkpoint save/resume"),
-                               ("mesh", mesh, "the multi-device slice")):
-        if value is not None:
-            raise NotImplementedError(f"fit({name}=...) is not ported yet ({where})")
+    if mesh is not None:
+        raise NotImplementedError("fit(mesh=...) is not ported yet (the multi-device slice)")
     epochs = epochs if epochs is not None else cfg.train.epochs
     select_keys = [k.strip() for k in select_metric.split(",")] if select_metric else ["total"]
     unknown = [k for k in select_keys if k not in term_keys(cfg.loss)]
@@ -96,10 +99,15 @@ def fit(
         )
     spe = steps_per_epoch or (len(train_batches) if hasattr(train_batches, "__len__") else 1000)
     state = tr.init_state(cfg, seed=seed, steps_per_epoch=spe, device=device)
-    if init_from:
-        missing = load_into(state.gen, state.det, init_from)
-        if missing and verbose:
-            print(f"init_from {init_from}: kept initial values of {missing}")
+    if plot_path:  # fail before training, not after it, where matplotlib is absent
+        import matplotlib  # noqa: F401
+    if init_from:  # weights only: the optimizer and step stay fresh
+        ck.restore_params(init_from, state.gen, state.det, allow_missing=True)
+    start_epoch, best_val = 0, float("inf")
+    if ckpt_dir:
+        state, start_epoch, best_val, resumed = ck.maybe_resume(ckpt_dir, state)
+        if resumed and verbose:
+            print(f"resumed from {ck.latest_path(ckpt_dir)} (next epoch = {start_epoch})")
     put = lambda b: torch.from_numpy(np.asarray(b, np.float32)).to(device)
 
     early = tr.EarlyStopping(cfg.train.early_stop_patience, cfg.train.early_stop_min_delta)
@@ -134,8 +142,8 @@ def fit(
                  for i, b in enumerate(val_iterable)]
         return _mean_terms(terms) if terms else {}
 
-    best_val, stopped = float("inf"), False
-    for epoch in range(epochs):
+    stopped = False
+    for epoch in range(start_epoch, epochs):
         t0 = time.time()
         train_terms: List[Dict[str, float]] = []
         pending = None  # fetch metrics one step late: keeps the card busy
@@ -171,7 +179,14 @@ def fit(
             sel = "" if select_keys == ["total"] else f" select[{'+'.join(select_keys)}] {val_total:.4f}"
             print(f"epoch {epoch}: train {train_mean.get('total', float('nan')):.4f} "
                   f"val {src.get('total', float('nan')):.4f}{sel} ({row['seconds']}s)")
-        best_val = min(best_val, val_total)
+        if ckpt_dir:
+            saved = dict(epoch=epoch + 1, model_cfg=cfg.model, shaping_cfg=cfg.shaping)
+            if val_total < best_val:
+                best_val = val_total
+                ck.save_checkpoint(ck.best_path(ckpt_dir), state, best_val=best_val, **saved)
+            ck.save_checkpoint(ck.latest_path(ckpt_dir), state, best_val=best_val, **saved)
+        else:
+            best_val = min(best_val, val_total)
         early.step(val_total)
         if early.early_stop:
             stopped = True
@@ -179,4 +194,29 @@ def fit(
                 print(f"early stopping at epoch {epoch}")
             break
 
+    if plot_path and history:
+        plot_curves(history, plot_path)
     return {"state": state, "history": history, "best_val": best_val, "stopped_early": stopped}
+
+
+def plot_curves(history: List[Dict], path: str) -> None:
+    """Loss-curve PNG of train_total and val_total by epoch (ref:
+    py/main14d.py:629-641); matplotlib is imported here only."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    epochs = [h["epoch"] for h in history]
+    plt.figure(figsize=(10, 6))
+    for key in ("train_total", "val_total"):
+        if key in history[0]:
+            plt.plot(epochs, [h[key] for h in history], label=key)
+    plt.xlabel("epoch")
+    plt.ylabel("total loss")
+    plt.legend()
+    plt.grid(alpha=0.3)
+    plt.tight_layout()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    plt.savefig(path)
+    plt.close()

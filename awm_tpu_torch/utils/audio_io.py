@@ -50,6 +50,14 @@ def _read_wav(path: str) -> Tuple[np.ndarray, int]:
         return _parse_wav(f, path)
 
 
+def decode_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """Parse WAV bytes in memory -> ((channels, T) float32, sr): the serving
+    path's decode (request bodies never touch the filesystem)."""
+    import io
+
+    return _parse_wav(io.BytesIO(data), "<bytes>")
+
+
 def encode_wav_bytes(waveform: np.ndarray, sample_rate: int) -> bytes:
     """Encode (channels, T) or (T,) float waveform as 16-bit PCM WAV bytes
     in memory (same encoding as save_wav)."""

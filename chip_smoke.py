@@ -46,13 +46,38 @@ eval.evaluate_robustness).  Phases:
    the reference's record evidence/r5/shapecap/demo_eval.json; evaluate_model
    on the same clips; kernels B and C must have launched in the robust steps
    and A in the sweeps;
-7. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
+7. checkpoints, counters zeroed just before each of phases 7-11: the
+   packaged shapecap weights written as a checkpoint of the port; a session
+   over that directory gives from_npz's embed_detect bit for bit on 512
+   chunks; a TrainState with Adam moments saved on the card restores on the
+   card and on the CPU, equal tensor for tensor;
+8. the trainer: ``train --ckpt-dir D --epochs 1`` (bf16, synthetic speech
+   with --music-frac 0.15, from that checkpoint directory), ckpt_latest
+   restored equals the trained state, then ``--epochs 2`` resumes at epoch
+   1 with step and learning rate continuing; the native WAV decoder is built
+   and BatchLoader over a folder of WAVs gives the Python decode's batch bit
+   for bit;
+9. ``curriculum robust_decode --smoke``, all 8 legs at full width, one leg a
+   call (peak memory printed per leg): ckpt_best and its sidecar in each,
+   B_dilated keeps its dilated head at init, a re-run skips every leg, the
+   final sidecar records bits / dilated / 3000;
+10. the HTTP server in process on 127.0.0.1 over the shapecap checkpoint,
+   fp32: concurrent clients' /embed, /detect and /verify of 8-s waveforms
+   equal the unbatched session (one int16 LSB; 1e-5), fewer device batches
+   than requests, a bad body gets a 400 and the server goes on;
+11. the tools on the shapecap checkpoint, bf16: demo_eval (quality, ecc,
+   music; n=1024) beside evidence/r5/shapecap/demo_eval.json, bit_diagnostic
+   (n=256) beside evidence/r5/shapecap/per_bit.txt;
+12. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
    yardstick only), embed+detect clips/s at B=512, train-step clips/s at
    B=128 clean and under the curriculum, and the 12-attack sweep's wall time
    at n=128, per compute dtype, with the step's peak memory, a profile of
    one bf16 step's device time by kernel, and kernel C's time by launch
-   (recurrence, dx, dW, sum);
-8. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
+   (recurrence, dx, dW, sum); the bf16 server under tools/serve_load.py's
+   load (32 clients, 8-s requests): requests/s, audio s/s, clips/s beside
+   the session's embed+detect clips/s, p50/p99 latency, chunks per device
+   batch, with the host/device split of a request;
+13. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.
@@ -66,10 +91,13 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, B_TRAIN, T, ODD_B = 512, 128, 16000, 3
 # (B, T) of the rows-per-block variant checks: one row, a ragged last block
 # for 2 and 4 rows, the training batch; T below, at and beyond the depth of
@@ -374,6 +402,373 @@ def shapecap_state(cfg, dev):
     state = tr.init_state(cfg, device=dev)
     load_into(state.gen, state.det, SHAPECAP_NPZ)
     return state
+
+
+class Tee:
+    """Writes to the real stdout and keeps a copy (what a CLI call printed)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def cli_printed(cli, argv):
+    """(return value, printed text) of one in-process CLI call."""
+    import contextlib
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = cli(argv)
+    return out, tee.text()
+
+
+def zero_counts(K) -> None:
+    for name in K.launches:
+        K.launches[name] = 0
+
+
+def add_counts(K, launches, label: str) -> None:
+    print(f"{label} launches: {K.launches}", flush=True)
+    for name, n in K.launches.items():
+        launches[name] += n
+
+
+def states_equal(a, b) -> bool:
+    """Two TrainStates' parameters, BN statistics and Adam state equal
+    tensor for tensor (b may live on another device)."""
+    import torch
+
+    for net in ("gen", "det"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa):
+            return False
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return oa["param_groups"] == ob["param_groups"] and all(
+        torch.equal(v.cpu(), ob["state"][i][k].cpu()) for i in oa["state"] for k, v in oa["state"][i].items())
+
+
+def write_wav_folder(d: str) -> None:
+    """16 kHz WAVs of the kinds a corpus holds: 16-bit mono of the clip's
+    length, longer and shorter, 16-bit stereo, 24-bit and float32 mono."""
+    import struct
+
+    rng = np.random.default_rng(21)
+    kinds = {"a16": (16000, 1, 16, 1), "b16_long": (21000, 1, 16, 1), "c16_short": (9000, 1, 16, 1),
+             "d16_stereo": (17000, 2, 16, 1), "e24": (16000, 1, 24, 1), "f32": (12000, 1, 32, 3)}
+    for name, (n, ch, bits, fmt) in kinds.items():
+        x = np.clip(speechlike(1, seed=len(name), chunk=n)[0][:, None] * np.ones(ch)
+                    + 0.01 * rng.standard_normal((n, ch)), -1, 1)
+        if fmt == 3:
+            data = x.astype("<f4").tobytes()
+        elif bits == 16:
+            data = np.round(x * 32767).astype("<i2").tobytes()
+        else:
+            v = np.round(x * 8388607).astype(np.int32).reshape(-1)
+            data = np.stack([v & 255, (v >> 8) & 255, (v >> 16) & 255], 1).astype(np.uint8).tobytes()
+        block = ch * bits // 8
+        with open(os.path.join(d, f"{name}.wav"), "wb") as f:
+            f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt "
+                    + struct.pack("<IHHIIHH", 16, fmt, ch, 16000, 16000 * block, block, bits)
+                    + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def post(addr, path: str, body: bytes):
+    import http.client
+
+    c = http.client.HTTPConnection(*addr, timeout=600)
+    c.request("POST", path, body=body, headers={"Content-Length": str(len(body))})
+    r = c.getresponse()
+    return r.status, dict(r.getheaders()), r.read()
+
+
+def pcm16(body: bytes) -> np.ndarray:
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+
+
+def concurrently(fns) -> list:
+    import threading
+
+    out = [None] * len(fns)
+    barrier = threading.Barrier(len(fns))
+
+    def run(i):
+        barrier.wait()
+        out[i] = fns[i]()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def checkpoint_phase(K, launches, dev, work: str, served, audio_len=None) -> str:
+    """Phase 7: the shapecap weights as a checkpoint of the port (returns its
+    directory); a session over it vs from_npz on `served` (chunks, messages,
+    from_npz's bf16 embed_detect); a TrainState with Adam moments saved on
+    the card restored on the card and on the CPU."""
+    import torch
+
+    from awm_tpu_torch import api, checkpoint as ck, train as tr
+
+    zero_counts(K)
+    cfg16 = train_cfg("bfloat16")
+    if audio_len:
+        cfg16 = dataclasses.replace(cfg16, audio_len=audio_len)
+    ckpt = os.path.join(work, "shapecap", "ckpt_best")
+    t0 = time.time()
+    state = shapecap_state(cfg16, dev)
+    ck.save_checkpoint(ckpt, state, epoch=1, best_val=0.5, model_cfg=cfg16.model, shaping_cfg=cfg16.shaping)
+    print(f"shapecap written as a checkpoint of the port: {time.time() - t0:.2f} s, "
+          f"{sorted(os.listdir(ckpt))}", flush=True)
+    check(ck.read_arch(ckpt) == ck.read_arch(ck.SHAPECAP_ARCH), "checkpoint sidecar equals the packaged awm_arch.json")
+    chunks, msgs, want = served
+    kw = {"chunk_len": audio_len} if audio_len else {}
+    got = api.InferenceSession.from_checkpoint(ckpt, device=dev, **kw).embed_detect(chunks, msgs)
+    check(all(np.array_equal(got[k], want[k]) for k in want),
+          f"session from the checkpoint directory vs from_npz, bf16 embed_detect x{len(chunks)}: equal bits")
+    batch8 = torch.from_numpy(speechlike(8, seed=13, chunk=cfg16.audio_len)).to(dev)
+    for _ in range(2):  # Adam moments and a step count to carry
+        tr.train_step(cfg16, state, batch8)
+    saved = os.path.join(work, "state")
+    ck.save_checkpoint(saved, state, epoch=4, best_val=0.25, model_cfg=cfg16.model)
+    for where in (dev.type, "cpu"):
+        other = tr.init_state(cfg16, seed=9, device=where)
+        _, epoch, best_val = ck.restore_checkpoint(saved, other)
+        on = {p.device.type for p in other.gen.parameters()} | {
+            v.device.type for st in other.optimizer.state.values() for v in st.values() if v.dim()}
+        check(states_equal(state, other) and (epoch, best_val, other.step) == (4, 0.25, 2) and on == {where},
+              f"TrainState saved on the {dev.type} restores on the {where}: parameters, BN statistics and "
+              f"Adam moments equal tensor for tensor, step {other.step}, epoch {epoch}")
+    add_counts(K, launches, "checkpoint path")
+    return ckpt
+
+
+def trainer_phase(K, launches, cli, dev, work: str, ckpt: str, audio_len=None) -> None:
+    """Phase 8: the train command with --ckpt-dir, its resume, and the native
+    WAV decoder behind BatchLoader."""
+    import torch
+
+    from awm_tpu_torch import checkpoint as ck, train as tr
+    from awm_tpu_torch.data import BatchLoader, OneSecClips
+    from awm_tpu_torch.data import native as wav_native
+
+    zero_counts(K)
+    run_dir = os.path.join(work, "train")
+    argv = ["train", "--device", dev.type, "--compute-dtype", "bfloat16", "--batch-size", "16",
+            "--synthetic-n", "80", "--music-frac", "0.15", "--workers", "4", "--init-from", ckpt,
+            "--message-encoding", "bits", "--decode-head", "dilated", "--delta-band-hz", "3000",
+            "--shape-max-rms", "0.01", "--dec-loss", "mean", "--lr", "1e-4", "--ckpt-dir", run_dir]
+    argv += ["--audio-len", str(audio_len)] if audio_len else []
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        plot = None
+        print("matplotlib is absent here: --loss-plot is not run", flush=True)
+    else:
+        plot = os.path.join(run_dir, "loss.png")
+        argv += ["--loss-plot", plot]
+    t0 = time.time()
+    first, _ = cli_printed(cli, argv + ["--epochs", "1"])
+    first_s = time.time() - t0
+    spe = first["state"].step
+    cfg16 = dataclasses.replace(train_cfg("bfloat16"), audio_len=audio_len or T)
+    restored = tr.init_state(cfg16, seed=3, device=dev)
+    _, epoch, _ = ck.restore_checkpoint(ck.latest_path(run_dir), restored)
+    check(epoch == 1 and restored.step == spe and states_equal(first["state"], restored),
+          f"train --ckpt-dir: ckpt_latest (epoch {epoch}, step {restored.step}) restores equal to the "
+          f"trained state tensor for tensor")
+    lr = first["state"].optimizer.param_groups[0]["lr"]
+    del first, restored
+    t0 = time.time()
+    second, printed = cli_printed(cli, argv + ["--epochs", "2"])
+    adam_steps = {int(st["step"]) for st in second["state"].optimizer.state.values()}
+    check("next epoch = 1" in printed and [r["epoch"] for r in second["history"]] == [1]
+          and second["state"].step == 2 * spe and adam_steps == {2 * spe}
+          and second["state"].optimizer.param_groups[0]["lr"] == lr,
+          f"train --epochs 2 resumes at epoch 1: step {spe} -> {second['state'].step}, Adam steps "
+          f"{adam_steps}, lr {lr}; {first_s:.1f} s and {time.time() - t0:.1f} s")
+    check(all(ck.is_checkpoint(os.path.join(run_dir, d)) for d in ("ckpt_best", "ckpt_latest")),
+          "train --ckpt-dir: ckpt_best and ckpt_latest written")
+    if plot:
+        check(os.path.getsize(plot) > 0, "matplotlib imports here: --loss-plot wrote its PNG")
+    del second
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wav_dir = os.path.join(work, "wavs")
+    os.makedirs(wav_dir)
+    write_wav_folder(wav_dir)
+    ds = OneSecClips(wav_dir)
+    fast = BatchLoader(ds, len(ds), shuffle=False, drop_last=False, num_workers=4)
+    slow = BatchLoader(ds, len(ds), shuffle=False, drop_last=False, num_workers=4, native=False)
+    (a,), (b,) = list(fast), list(slow)
+    check(wav_native.available() and fast.native_batches == 1 and np.array_equal(a, b),
+          f"native WAV decoder built ({os.path.basename(wav_native.library_path())}) and used: "
+          f"BatchLoader over {len(ds)} WAVs (16/24-bit, float, stereo) equals the Python decode bit for bit")
+    add_counts(K, launches, "trainer path")
+
+
+def curriculum_phase(K, launches, cli, work: str, device: str, audio_len=None) -> None:
+    """Phase 9: curriculum robust_decode --smoke, one leg a call with its peak
+    memory, then a re-run that skips every leg."""
+    import torch
+
+    from awm_tpu_torch import checkpoint as ck
+    from awm_tpu_torch.__main__ import _CURRICULA
+
+    zero_counts(K)
+    cur_dir = os.path.join(work, "curriculum")
+    cur = ["curriculum", "robust_decode", "--out", cur_dir, "--smoke", "--synthetic-n", "40",
+           "--batch-size", "8", "--workers", "4", "--device", device]
+    cur += ["--audio-len", str(audio_len)] if audio_len else []
+    legs = [name for name, *_ in _CURRICULA["robust_decode"]["legs"]]
+    leg_text = {}
+    for leg in legs:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        _, leg_text[leg] = cli_printed(cli, cur + ["--stop-after", leg])
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        print(f"curriculum leg {leg}: {time.time() - t0:.1f} s, peak memory {peak:.2f} GiB", flush=True)
+        best = os.path.join(cur_dir, leg, "ckpt_best")
+        check(ck.is_checkpoint(best) and ck.read_arch(best) is not None,
+              f"curriculum leg {leg}: ckpt_best with its sidecar")
+    kept = re.search(r"kept init for (\d+) leaves[^\n]*", leg_text["B_dilated"])
+    check(kept is not None and kept.group(1) == "8" and "det.dec_dil1.weight" in kept.group(0)
+          and "det.dec_out.bias" in kept.group(0),
+          f"B_dilated keeps the dilated head's 8 leaves at init ({kept.group(0)[:100] if kept else None} ...)")
+    out, printed = cli_printed(cli, cur)
+    final = ck.read_arch(out["final_ckpt"])
+    check(printed.count("already done, skipping") == len(legs)
+          and out["final_ckpt"] == os.path.join(cur_dir, "H2_tighten", "ckpt_best"),
+          f"curriculum re-run skips all {len(legs)} finished legs")
+    check((final["message_encoding"], final["decode_head"], final["delta_band_hz"]) == ("bits", "dilated", 3000.0),
+          f"final sidecar records {final['message_encoding']} / {final['decode_head']} / {final['delta_band_hz']}")
+    add_counts(K, launches, "curriculum path")
+
+
+def http_phase(K, launches, dev, ckpt: str, audio_len=None) -> None:
+    """Phase 10: the fp32 server in process; concurrent clients against the
+    unbatched session; a bad body."""
+    import torch
+
+    from awm_tpu_torch import api
+    from awm_tpu_torch.serve import make_server
+    from awm_tpu_torch.tools.serve_load import healthz
+    from awm_tpu_torch.utils.audio_io import encode_wav_bytes
+
+    zero_counts(K)
+    kw = {"chunk_len": audio_len} if audio_len else {}
+    sess = api.InferenceSession.from_checkpoint(ckpt, compute_dtype=torch.float32, device=dev, **kw)
+    httpd, batched = make_server(sess, "127.0.0.1", 0, max_wait_ms=20.0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    addr = httpd.server_address
+    try:
+        waves = [speechlike(1, seed=40 + i, chunk=8 * sess.chunk_len)[0] for i in range(12)]
+        bodies = [encode_wav_bytes(w, 16000) for w in waves]
+        decoded = [pcm16(b).astype(np.float32) / 32768.0 for b in bodies]
+        paths = [(f"/embed?message={500 + i}&seed={i}", "/detect", f"/verify?message={500 + i}")[i % 3]
+                 for i in range(len(bodies))]
+        before = healthz(*addr)
+        t0 = time.time()
+        results = concurrently([lambda p=p, b=b: post(addr, p, b) for p, b in zip(paths, bodies)])
+        http_s = time.time() - t0
+        after = healthz(*addr)
+        worst = {"embed_lsb": 0, "detect": 0.0, "verify": 0.0}
+        same = True
+        for i, (status, headers, body) in enumerate(results):
+            same &= status == 200
+            if status != 200:
+                print(f"request {paths[i]}: {status} {body[:200]}", flush=True)
+                continue
+            if i % 3 == 0:
+                want = api.watermark_array(decoded[i], sess, message=500 + i, seed=i)
+                same &= headers["X-Awm-Messages"] == ",".join(map(str, want["messages"]))
+                worst["embed_lsb"] = max(worst["embed_lsb"], int(np.abs(
+                    pcm16(body) - pcm16(encode_wav_bytes(want["watermarked_waveform"], 16000))).max()))
+                continue
+            got = json.loads(body)
+            want = (api.detect_array(decoded[i], sess) if i % 3 == 1 else
+                    api.verify_array(decoded[i], sess, 500 + i))
+            key = "detect" if i % 3 == 1 else "verify"
+            for k, v in want.items():
+                if isinstance(v, float):
+                    worst[key] = max(worst[key], abs(got[k] - v))
+                elif isinstance(v, list) and v and isinstance(v[0], float):
+                    worst[key] = max(worst[key], float(np.abs(np.asarray(got[k]) - v).max()))
+                elif not isinstance(v, np.ndarray):
+                    same &= got[k] == v
+        reqs = after["batching"]["requests"] - before["batching"]["requests"]
+        batches = after["batching"]["device_batches"] - before["batching"]["device_batches"]
+        check(same and worst["embed_lsb"] <= 1 and worst["detect"] <= 1e-5 and worst["verify"] <= 1e-5,
+              f"fp32 server, {len(bodies)} concurrent clients, 8-s WAVs to /embed, /detect, /verify in "
+              f"{http_s:.2f} s: all 200, equal to the unbatched session (embed {worst['embed_lsb']} LSB, "
+              f"detect {worst['detect']:.1e}, verify {worst['verify']:.1e}; tol 1 LSB, 1e-5)")
+        check(batches < reqs, f"fp32 server: {batches} device batches for {reqs} requests")
+        status, _, body = post(addr, "/detect", b"RIFF....WAVEjunk")
+        check(status == 400 and healthz(*addr)["status"] == "ok",
+              f"bad body: {status} {body[:60]!r}; the server goes on")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batched.close()
+    add_counts(K, launches, "HTTP serving path")
+
+
+def tools_phase(K, launches, ckpt: str, device: str, audio_len=None) -> None:
+    """Phase 11: demo_eval and bit_diagnostic (bf16) beside the reference's
+    records of the shapecap checkpoint."""
+    from awm_tpu_torch.tools import bit_diagnostic, demo_eval
+
+    zero_counts(K)
+    common = ["--ckpt", ckpt, "--device", device] + (["--audio-len", str(audio_len)] if audio_len else [])
+    with open(os.path.join(REPO, "evidence", "r5", "shapecap", "demo_eval.json")) as f:
+        record = json.load(f)["quality"]
+    t0 = time.time()
+    report = demo_eval.main(common + ["--n-eval", "1024", "--sections", "quality,ecc,music"])
+    demo_s = time.time() - t0
+    q = report["quality"]
+    cols = ("detect_rate", "false_positive_rate", "roc_auc", "watermarked_prob", "clean_prob", "bit_accuracy",
+            "delta_rms")
+    print(json.dumps({"demo_eval_quality_vs_record": {k: [q[k], record[k]] for k in cols}
+                      | {"stoi": [q["file_roundtrip"]["stoi"], record["file_roundtrip"]["stoi"]]}}), flush=True)
+    check(all(q[k] == record[k] for k in cols[:3]),
+          f"demo_eval n=1024 ({demo_s:.1f} s): detect_rate {q['detect_rate']}, false_positive_rate "
+          f"{q['false_positive_rate']}, roc_auc {q['roc_auc']} equal to the record")
+    diffs = {k: abs(q[k] - record[k]) for k in ("watermarked_prob", "clean_prob", "bit_accuracy")}
+    check(max(diffs.values()) <= 0.02, f"demo_eval: watermarked_prob, clean_prob, bit_accuracy within 0.02 "
+                                       f"of the record ({', '.join(f'{k} {v:.4f}' for k, v in diffs.items())})")
+    rel = abs(q["delta_rms"] - 0.010833) / 0.010833
+    check(rel <= 0.02, f"demo_eval: unshaped delta_rms {q['delta_rms']:.6f} within 2% of 0.010833 ({rel:.2%})")
+    stoi = q["file_roundtrip"]["stoi"]
+    check(abs(stoi - 0.9145) <= 0.01, f"demo_eval: STOI {stoi:.4f} within 0.01 of 0.9145")
+    print(json.dumps({"demo_eval_ecc": report["ecc"], "demo_eval_music": report["music"]}), flush=True)
+    with open(os.path.join(REPO, "evidence", "r5", "shapecap", "per_bit.txt")) as f:
+        per_bit = json.loads(f.read().strip().splitlines()[-1])
+    bd = bit_diagnostic.main(common + ["--n-eval", "256"])
+    agg = float(np.mean(bd["ml_acc"]))
+    bit_d = float(np.abs(np.subtract(bd["ml_acc"], per_bit["ml_acc"])).max())
+    strength = float(np.mean(bd["mean_abs_logit"])) / float(np.mean(per_bit["mean_abs_logit"])) - 1
+    check(abs(agg - 0.7559) <= 0.02 and bit_d <= 0.04 and abs(strength) <= 0.10,
+          f"bit_diagnostic n=256 beside per_bit.txt: mean-logit accuracy {agg:.4f} (0.7559, tol 0.02), "
+          f"worst bit {bit_d:.4f} (tol 0.04), mean |logit| {strength:+.1%} (tol 10%)")
+    bd8 = bit_diagnostic.main(common + ["--n-eval", "256", "--attack", "resample_8k"])
+    print(f"bit_diagnostic under resample_8k: mean-logit accuracy {np.mean(bd8['ml_acc']):.4f}", flush=True)
+    add_counts(K, launches, "tools path")
 
 
 def main() -> int:
@@ -709,8 +1104,7 @@ def main() -> int:
     print(f"evaluate_robustness bf16 n={N_SWEEP}, 12 attacks, first call: {sweep_s:.2f} s")
     print(json.dumps({"robust_table_bf16": {k: {m: round(float(v), 4) for m, v in r.items()}
                                             for k, r in table16.items()}}), flush=True)
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "evidence", "r5", "shapecap",
-                           "demo_eval.json")) as f:
+    with open(os.path.join(REPO, "evidence", "r5", "shapecap", "demo_eval.json")) as f:
         record = json.load(f)["robust"]
     check(list(table16) == list(record) and all(np.isfinite(v) for r in table16.values() for v in r.values()),
           "bf16 sweep: the reference's 12 rows in its order, every column finite")
@@ -732,7 +1126,18 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
 
-    # 7. timing (card name and power limit printed above)
+    # 7-11. checkpoints, trainer, curriculum, HTTP serving, tools, each with
+    # the counters zeroed just before
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    ckpt = checkpoint_phase(K, launches, dev, work, (chunks512, msgs512, big))
+    trainer_phase(K, launches, cli, dev, work, ckpt)
+    curriculum_phase(K, launches, cli, work, "cuda")
+    http_phase(K, launches, dev, ckpt)
+    tools_phase(K, launches, ckpt, "cuda")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched {n} times on the main paths")
+
+    # 12. timing (card name and power limit printed above)
     times = {}
     for sfx, dtype in dtypes.items():
         name = f"lstm_fwd_{sfx}"
@@ -793,6 +1198,28 @@ def main() -> int:
             sess.embed_detect(chunks512, msgs512)  # returns host arrays: synchronised
         clips[label] = B_SERVE * reps / (time.perf_counter() - t0)
         print(f"embed+detect {label} session, B={B_SERVE}: {clips[label]:.1f} clips/s", flush=True)
+    # the bf16 server under tools/serve_load.py's load, 32 clients, 8-s requests
+    from awm_tpu_torch.serve import _decode_wav_bytes
+    from awm_tpu_torch.tools import serve_load
+    from awm_tpu_torch.utils.audio_io import encode_wav_bytes
+
+    load, _ = cli_printed(serve_load.main, ["--self-serve", "--ckpt", ckpt, "--device", "cuda",
+                                            "--clients", "32", "--requests", "256", "--seconds", "8"])
+    body = encode_wav_bytes(speechlike(1, seed=60, chunk=8 * T)[0], 16000)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        encode_wav_bytes(_decode_wav_bytes(body, 16000), 16000)
+    wav_ms = (time.perf_counter() - t0) * 100
+    print(f"bf16 server, 32 clients, {load['requests_ok']} requests of 8 s (embed, detect): "
+          f"{load['req_per_s']:.2f} requests/s, {load['audio_s_per_s']:.1f} audio s/s, "
+          f"{load['clips_per_s']:.1f} clips/s through the model beside the session's embed+detect "
+          f"{clips['bf16']:.1f} clips/s; latency p50 {load['latency_p50_ms']:.1f} ms, p99 "
+          f"{load['latency_p99_ms']:.1f} ms; {load['device_batches']} device batches, "
+          f"{load['chunks_per_device_batch']:.1f} chunks each; device calls {load['device_s']:.2f} s of "
+          f"{load['wall_s']:.2f} s ({100 * load['device_busy_share']:.1f}%), "
+          f"{1e3 * load['device_s'] / max(load['device_batches'], 1):.1f} ms a batch; host WAV decode + "
+          f"encode of one 8-s request {wav_ms:.2f} ms", flush=True)
+    check(load["errors"] == 0 and load["requests_ok"] == 256, f"serve_load: {load['errors']} errors")
     sweep_wall = {}
     for label, sess in (("bf16", sess16), ("fp32", sess32)):
         t0 = time.perf_counter()
@@ -833,7 +1260,7 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # 8. result lines
+    # 13. result lines
     kernels = []
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (source, replaces, sfx) in KERNELS.items():
@@ -845,7 +1272,8 @@ def main() -> int:
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)
-    print(f"wall {time.time() - t_start:.1f} s; embed+detect clips/s {json.dumps(clips)}; "
+    print(f"wall {time.time() - t_start:.1f} s; server bf16 {json.dumps(load)}; "
+          f"embed+detect clips/s {json.dumps(clips)}; "
           f"train-step clips/s {json.dumps(train_clips)}; 12-attack sweep n={N_SWEEP} s "
           f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}")
     print(json.dumps({"kernels": kernels}))

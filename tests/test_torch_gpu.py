@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels A, B and C and of the attack
-ops on the card (marker ``gpu``).
+"""Card-only tests of the port's CUDA kernels A, B and C, of the attack ops,
+of checkpoints written on the card and of the fp32 server on the card
+(marker ``gpu``).
 
 They skip where torch sees no CUDA card.  On a machine with one:
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.  chip_smoke.py holds
@@ -287,3 +288,89 @@ def test_robust_step_launches_the_kernels(cuda):
     assert all(bool(torch.isfinite(v)) for v in terms.values())
     for name in ("lstm_fwd_train_bf16", "lstm_bwd_bf16"):
         assert lstm_kernel.launches[name] == before[name] + 1
+
+
+# -- checkpoints and serving on the card -------------------------------------------
+
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A TrainState trained two steps on the card, saved, and restored into
+    a CPU state: parameters, BN statistics and Adam moments equal tensor for
+    tensor; step, epoch and best_val back."""
+    import dataclasses
+
+    from awm_tpu_torch import checkpoint as ck
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config("base"), audio_len=400)
+    state = tr.init_state(cfg, seed=1, device=cuda)
+    for _ in range(2):
+        tr.train_step(cfg, state, _audio((2, 400), seed=9).to(cuda))
+    ck.save_checkpoint(str(tmp_path / "c"), state, epoch=2, best_val=0.5, model_cfg=cfg.model)
+    cpu = tr.init_state(cfg, seed=2, device="cpu")
+    _, epoch, best_val = ck.restore_checkpoint(str(tmp_path / "c"), cpu)
+    assert (epoch, best_val, cpu.step) == (2, 0.5, 2)
+    for net in ("gen", "det"):
+        a, b = getattr(state, net).state_dict(), getattr(cpu, net).state_dict()
+        assert all(b[k].device.type == "cpu" and torch.equal(a[k].cpu(), b[k]) for k in a), net
+    oa, ob = state.optimizer.state_dict()["state"], cpu.optimizer.state_dict()["state"]
+    assert all(torch.equal(v.cpu(), ob[i][k].cpu()) for i in oa for k, v in oa[i].items())
+
+
+def test_server_batched_fp32_equals_alone_on_card(cuda):
+    """The fp32 server on the card, six concurrent clients (embed and
+    detect, ragged lengths of 512-sample chunks): each response equals the
+    same call on the unbatched session (embed within one int16 LSB, detect
+    within 1e-5), with fewer device batches than requests."""
+    import http.client
+    import io
+    import json
+    import threading
+    import wave
+
+    from awm_tpu_torch.api import InferenceSession, detect_array, watermark_array
+    from awm_tpu_torch.serve import make_server
+    from awm_tpu_torch.utils.audio_io import encode_wav_bytes
+
+    sess = InferenceSession.from_npz(compute_dtype=torch.float32, device="cuda", chunk_len=512)
+    httpd, batched = make_server(sess, "127.0.0.1", 0, max_wait_ms=50.0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    rng = np.random.default_rng(0)
+    waves = [(0.2 * rng.standard_normal(int(n))).astype(np.float32) for n in rng.integers(700, 2000, 6)]
+    bodies = [encode_wav_bytes(w, 16000) for w in waves]
+    pcm = lambda b: np.frombuffer(wave.open(io.BytesIO(b)).readframes(10**7), "<i2").astype(np.int32)
+    results = [None] * 6
+    barrier = threading.Barrier(6)
+
+    def hit(i):
+        barrier.wait()
+        c = http.client.HTTPConnection(*httpd.server_address, timeout=120)
+        path = f"/embed?message={i}&seed={i}" if i % 2 == 0 else "/detect"
+        c.request("POST", path, body=bodies[i], headers={"Content-Length": str(len(bodies[i]))})
+        r = c.getresponse()
+        results[i] = (r.status, r.read())
+
+    try:
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        stats = dict(batched.batcher.stats)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batched.close()
+    for i, (status, body) in enumerate(results):
+        assert status == 200, body
+        x = pcm(bodies[i]).astype(np.float32) / 32768.0
+        if i % 2 == 0:
+            want = watermark_array(x, sess, message=i, seed=i)["watermarked_waveform"]
+            assert np.abs(pcm(body) - pcm(encode_wav_bytes(want, 16000))).max() <= 1
+        else:
+            got, want = json.loads(body), detect_array(x, sess)
+            assert abs(got["mean_probability"] - want["mean_probability"]) <= 1e-5
+            assert got["predicted_message"] == want["predicted_message"]
+            np.testing.assert_allclose(got["message_confidence"], want["message_confidence"], atol=1e-5)
+    assert stats["device_batches"] < stats["requests"] == 6

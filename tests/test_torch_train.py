@@ -1,13 +1,15 @@
 """The port's train slice vs the JAX package: BatchNorm in train mode, the
 schedules, one fp32 train step from the shapecap weights (clean, under the
 attack curriculum and with the ft_robust channel), freezing, the bf16 step,
-validation under attacks, fit() and the train CLI.
+validation under attacks, fit() with its checkpoints and resume, the train
+CLI and the curriculum.
 
 Inputs are seeded numpy arrays handed to both packages; the message the JAX
 step draws, and its attack draws, are handed to the port's step (random
 streams are never compared).  Tolerances are stated per test."""
 
 import dataclasses
+import os
 import re
 
 import numpy as np
@@ -308,7 +310,7 @@ def test_generator_gradients_reach_the_encoder_through_the_kernel_route(monkeypa
 def test_fit_two_tiny_epochs(tmp_path):
     """fit() on synthetic clips: two epochs, finite per-term means, the CSV
     log, the early-stopping bookkeeping, select_metric validated up front,
-    and the modules not yet ported refused."""
+    and the data-parallel mesh (not ported yet) refused."""
     from awm_tpu_torch.data import BatchLoader, SyntheticClips, split_indices
     from awm_tpu_torch.trainer import fit
 
@@ -319,8 +321,8 @@ def test_fit_two_tiny_epochs(tmp_path):
     log = tmp_path / "m.csv"
     with pytest.raises(ValueError, match="select_metric"):
         fit(cfg, mk(tr_idx, True), mk(va_idx, False), select_metric="loc,typo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        fit(cfg, mk(tr_idx, True), None, ckpt_dir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        fit(cfg, mk(tr_idx, True), None, mesh=object(), device="cpu")
     out = fit(cfg, mk(tr_idx, True), mk(va_idx, False), epochs=2, init_from=SHAPECAP_NPZ,
               log_path=str(log), select_metric="loc,dec", device="cpu", verbose=False)
     assert len(out["history"]) == 2 and not out["stopped_early"]
@@ -559,3 +561,144 @@ def test_train_cli_augment_on_cpu(capsys):
         assert _train_config(main(["train"])).augment is None
         assert _train_config(main(["train", "--preset", "ft_robust"])).shaping.postprocess
     assert isinstance(parsed, argparse.Namespace)
+
+
+# -- checkpoints in fit, resume, the curriculum ----------------------------------
+
+
+def _resume_run(tmp_path, name, epochs_per_call, **kw):
+    """fit() from the shapecap weights at T=256 on an unshuffled list of
+    batches (a new BatchLoader restarts its epoch count, so a resumed run's
+    shuffle order would be epoch 0's, as in the JAX package), called once
+    per entry of epochs_per_call on one ckpt_dir."""
+    from awm_tpu_torch.trainer import fit
+
+    cfg = port_config(audio_len=256, epochs=max(epochs_per_call), quick_val_every=2)
+    clips = ta.golden_inputs(ta.TRAIN_SEED, 8)[0][:, :256]
+    train_b, val_b = [clips[:2], clips[2:4], clips[4:6]], [clips[6:]]
+    out = None
+    for epochs in epochs_per_call:
+        out = fit(cfg, train_b, val_b, epochs=epochs, ckpt_dir=str(tmp_path / name), device="cpu",
+                  init_from=SHAPECAP_NPZ, seed=5, verbose=True, **kw)
+    return out
+
+
+def test_resume_equals_uninterrupted_run(tmp_path, capsys):
+    """fit for 2 epochs equals fit for 1 epoch then a resume to 2 from
+    ckpt_latest, bit for bit on the CPU: the parameters, BatchNorm
+    statistics, Adam state, step and the second epoch's metrics (the
+    messages drawn from (seed, step)).  The resume prints the next epoch."""
+    straight = _resume_run(tmp_path, "a", [2])
+    resumed = _resume_run(tmp_path, "b", [1, 2])
+    assert "resumed from" in capsys.readouterr().out
+    assert resumed["history"][0]["epoch"] == 1 and len(resumed["history"]) == 1
+    for k in ("train_total", "val_total", "val_loc"):
+        assert resumed["history"][0][k] == straight["history"][1][k], k
+    a, b = straight["state"], resumed["state"]
+    assert a.step == b.step == 6
+    for net in ("gen", "det"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        assert all(torch.equal(sa[k], sb[k]) for k in sa), net
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    assert all(torch.equal(v, ob[i][k]) for i in oa for k, v in oa[i].items())
+    assert resumed["best_val"] == straight["best_val"]
+
+
+def test_ckpt_best_only_on_improvement(tmp_path, monkeypatch):
+    """ckpt_latest is written every epoch with epoch + 1, ckpt_best only when
+    the select metric improves (here: a validation that gets worse after
+    epoch 0), both with their arch sidecar; init_from takes a checkpoint
+    directory as it takes an .npz (weights only: step 0, fresh Adam)."""
+    from awm_tpu_torch import checkpoint as ck
+    from awm_tpu_torch import trainer
+    from awm_tpu_torch.trainer import fit
+
+    saves = []
+    real_save = ck.save_checkpoint
+    monkeypatch.setattr(ck, "save_checkpoint",
+                        lambda path, state, **kw: saves.append((os.path.basename(path), kw["epoch"]))
+                        or real_save(path, state, **kw))
+    vals = iter([1.0, 2.0, 0.5])
+    monkeypatch.setattr(trainer, "_mean_terms", lambda terms: {k: next(vals) if k == "total" else 0.0
+                                                               for k in terms[0]})
+    cfg = port_config(audio_len=128, epochs=3)
+    clips = ta.golden_inputs(ta.TRAIN_SEED, 4)[0][:, :128]
+    out = fit(cfg, [clips[:2]], None, ckpt_dir=str(tmp_path), device="cpu", init_from=SHAPECAP_NPZ,
+              verbose=False)
+    assert saves == [("ckpt_best", 1), ("ckpt_latest", 1), ("ckpt_latest", 2),
+                     ("ckpt_best", 3), ("ckpt_latest", 3)]
+    assert out["best_val"] == 0.5
+    for name in ("ckpt_best", "ckpt_latest"):
+        assert read_arch(str(tmp_path / name)) == read_arch(SHAPECAP_ARCH)
+    monkeypatch.undo()
+    state = tr.init_state(cfg, device="cpu")
+    kept, epoch, best_val = ck.restore_params(str(tmp_path / "ckpt_best"), state.gen, state.det)
+    assert (kept, epoch, best_val) == ([], 3, 0.5)
+    warm = fit(cfg, [clips[:2]], None, epochs=1, init_from=str(tmp_path / "ckpt_best"),
+               device="cpu", verbose=False)["state"]
+    assert warm.step == 1 and all(int(s["step"]) == 1 for s in warm.optimizer.state_dict()["state"].values())
+
+
+def test_train_cli_checkpoints_music_and_plot(tmp_path, capsys):
+    """train --ckpt-dir --music-frac --loss-plot on the CPU: the corpus is
+    the JAX CLI's mix (synthetic speech, then music of seed 1), ckpt_best and
+    ckpt_latest with sidecars, a loss PNG where matplotlib imports; a second
+    call with --epochs 2 resumes at epoch 1."""
+    from unittest import mock
+
+    from awm_tpu_torch.__main__ import main
+
+    argv = ["train", "--device", "cpu", "--audio-len", "128", "--batch-size", "2",
+            "--synthetic-n", "10", "--music-frac", "0.3", "--workers", "2", "--compute-dtype", "float32",
+            "--init-from", SHAPECAP_NPZ, "--message-encoding", "bits", "--decode-head", "dilated",
+            "--delta-band-hz", "3000", "--dec-loss", "mean", "--ckpt-dir", str(tmp_path / "ck"),
+            "--loss-plot", str(tmp_path / "loss.png")]
+    seen = {}
+    real_fit = __import__("awm_tpu_torch.trainer", fromlist=["fit"]).fit
+
+    def spy(cfg, train_b, val_b, **kw):
+        seen["ds"] = train_b.dataset
+        return real_fit(cfg, train_b, val_b, **kw)
+
+    with mock.patch("awm_tpu_torch.trainer.fit", spy):
+        main(argv + ["--epochs", "1"])
+    ds = seen["ds"]
+    assert len(ds) == 10 and [len(d) for d in ds.datasets] == [7, 3] and ds.datasets[1].seed == 1
+    assert {"ckpt_best", "ckpt_latest"} <= set(os.listdir(tmp_path / "ck"))
+    try:
+        import matplotlib  # noqa: F401
+        assert (tmp_path / "loss.png").stat().st_size > 0
+    except ImportError:
+        assert not (tmp_path / "loss.png").exists()
+    out = main(argv + ["--epochs", "2"])
+    assert "next epoch = 1" in capsys.readouterr().out
+    assert [r["epoch"] for r in out["history"]] == [1]
+
+
+def test_curriculum_matches_jax_table_and_resumes(tmp_path, capsys):
+    """The port's _CURRICULA is the JAX package's table; curriculum --smoke
+    --stop-after B_dilated runs 2 legs on the CPU (T=128), each writing
+    ckpt_best with its sidecar and a .done marker, B_dilated warm-starting
+    its dilated head at init from A_shared; a re-run skips both legs."""
+    from awm_tpu.__main__ import _CURRICULA as JAX_CURRICULA
+
+    from awm_tpu_torch.__main__ import _CURRICULA, main
+
+    assert _CURRICULA == JAX_CURRICULA
+    argv = ["curriculum", "robust_decode", "--out", str(tmp_path), "--smoke", "--synthetic-n", "10",
+            "--batch-size", "2", "--workers", "2", "--audio-len", "128", "--device", "cpu",
+            "--stop-after", "B_dilated"]
+    out = main(argv)
+    text = capsys.readouterr().out
+    assert list(out["legs"]) == ["A_shared", "B_dilated"]
+    assert re.search(r"kept init for 8 leaves .*det\.dec_dil1\.weight", text)
+    for leg in ("A_shared", "B_dilated"):
+        assert os.path.isfile(tmp_path / leg / ".done")
+        arch = read_arch(str(tmp_path / leg / "ckpt_best"))
+        assert arch["decode_head"] == ("shared" if leg == "A_shared" else "dilated")
+        assert arch["message_encoding"] == "bits" and arch["delta_band_hz"] == 3000.0
+    again = main(argv)
+    assert capsys.readouterr().out.count("already done, skipping") == 2
+    assert again == out
+    with pytest.raises(SystemExit, match="not a leg"):
+        main(argv[:-1] + ["Z_leg"])

@@ -281,6 +281,22 @@ def torch_named(tree):
     return out
 
 
+def port_names(tree, part, path):
+    """The port's names of the leaves under `path` (a list of keys, a module
+    or one of its leaves) in part ('params' or 'batch_stats') of one
+    network's JAX tree of numpy arrays: what restore_params lists as kept at
+    init, in the port's dotted form."""
+    from awm_tpu_torch.checkpoint import variables_from_flax
+
+    node = tree
+    for k in path:
+        node = node[k]
+    sub = node
+    for k in reversed(path):
+        sub = {k: sub}
+    return sorted(variables_from_flax({part: sub}))
+
+
 def jax_to_np(tree):
     return {k: jax_to_np(v) if isinstance(v, dict) else np.asarray(v) for k, v in tree.items()}
 
