@@ -5,9 +5,11 @@ The commands and their arguments are those of ``python -m awm_tpu`` but for
 its ``bench`` and ``prep`` (and ``train --data-parallel``).  Sessions load a
 checkpoint directory of the port (--ckpt: its recorded architecture and
 shaping chain), the reference's torch .pth weights (--torch-generator /
---torch-detector, fp32 unless --compute-dtype says otherwise), or a
-flattened .npz with its awm_arch.json (--params / --arch, the packaged
-shapecap checkpoint by default).  Architecture flags only validate against
+--torch-detector of the preset's family, fp32 unless --compute-dtype says
+otherwise), or a flattened .npz with its awm_arch.json (--params / --arch,
+the packaged shapecap checkpoint by default for the base family's presets;
+a strided session given no weights starts from the seed-0 init, as the JAX
+package's does).  Architecture flags only validate against
 a recorded architecture.  Every command runs on cuda unless --device cpu is
 given.
 """
@@ -49,9 +51,9 @@ def _session_config(args, recorded, source):
 def _load_session(args):
     import torch
 
+    from awm_tpu_torch import checkpoint as ck
     from awm_tpu_torch.api import InferenceSession
-    from awm_tpu_torch.checkpoint import (ARCH_FILE, import_torch_detector, import_torch_generator,
-                                          read_arch, restore_params)
+    from awm_tpu_torch.config import get_config
     from awm_tpu_torch.models import build_models
 
     from_torch = args.torch_generator or args.torch_detector
@@ -60,21 +62,24 @@ def _load_session(args):
     else:  # imported reference weights: strict fp32 parity unless asked otherwise
         dtype = torch.float32 if from_torch else torch.bfloat16
     if args.ckpt:
-        path, source = args.ckpt, os.path.join(args.ckpt, ARCH_FILE)
-    elif from_torch:
+        path, source = args.ckpt, os.path.join(args.ckpt, ck.ARCH_FILE)
+    elif from_torch or (args.params is None and get_config(args.preset).model.family != "base"):
         path, source = None, None
     else:
-        path, source = args.params, args.arch
-    cfg = _session_config(args, read_arch(source) if source else None, source)
+        path, source = args.params or SHAPECAP_NPZ, args.arch
+    cfg = _session_config(args, ck.read_arch(source) if source else None, source)
     with torch.random.fork_rng(devices=[]):  # the networks not imported start from seed 0
         torch.manual_seed(0)
         gen, det = build_models(cfg.model)
     if path:
-        restore_params(path, gen, det)
+        ck.restore_params(path, gen, det)
+    strided, n_strides = cfg.model.family == "strided", len(cfg.model.strides)
     if args.torch_generator:
-        gen.load_state_dict(import_torch_generator(args.torch_generator))
+        gen.load_state_dict(ck.import_torch_strided_generator(args.torch_generator, n_strides)
+                            if strided else ck.import_torch_generator(args.torch_generator))
     if args.torch_detector:
-        det.load_state_dict(import_torch_detector(args.torch_detector))
+        det.load_state_dict(ck.import_torch_strided_detector(args.torch_detector, n_strides)
+                            if strided else ck.import_torch_detector(args.torch_detector))
     return InferenceSession(gen, det, message_bits=cfg.message_bits, sample_rate=cfg.sample_rate,
                             chunk_len=cfg.audio_len, compute_dtype=dtype, shaping=cfg.shaping,
                             device=args.device)
@@ -363,14 +368,15 @@ def cmd_serve(args):
 
 def _add_session_args(p):
     p.add_argument("--preset", default="base",
-                   help="config preset (base, light, onecycle20, quality, ft_robust)")
+                   help="config preset (base, light, onecycle20, quality, ft_robust, strided)")
     p.add_argument("--ckpt", help="checkpoint directory of the port (train --ckpt-dir's "
                                   "ckpt_best / ckpt_latest); its awm_arch.json is adopted")
     p.add_argument("--torch-generator", help="reference generator_best.pth to import")
     p.add_argument("--torch-detector", help="reference detector_best.pth to import")
-    p.add_argument("--params", default=SHAPECAP_NPZ,
+    p.add_argument("--params", default=None,
                    help="flattened {'params','batch_stats'} .npz when neither --ckpt nor "
-                        "--torch-* is given (default: packaged shapecap)")
+                        "--torch-* is given (default: packaged shapecap for the base "
+                        "family; none for strided: its seed-0 init)")
     p.add_argument("--arch", default=SHAPECAP_ARCH,
                    help="awm_arch.json of those weights (default: packaged shapecap)")
     p.add_argument("--audio-len", type=int, help="override chunk length in samples (default 16000)")
@@ -425,7 +431,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.set_defaults(fn=cmd_verify)
 
     p = sub.add_parser("train", help="train generator+detector")
-    p.add_argument("--preset", default="base", help="base, light, onecycle20, quality or ft_robust")
+    p.add_argument("--preset", default="base",
+                   help="base, light, onecycle20, quality, ft_robust or strided")
     p.add_argument("--audio-len", type=int)
     p.add_argument("--batch-size", type=int)
     p.add_argument("--data", help="directory of 1-s wav clips")

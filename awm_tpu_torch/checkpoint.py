@@ -17,19 +17,26 @@ shapecap checkpoint (evidence/r5/shapecap/ckpt_best), and
 ``assets/awm_arch.json`` its architecture sidecar; ``assets/t_flagship.npz``
 and ``assets/t_flagship_arch.json`` are evidence/r5/T_flagship/ckpt_best, the
 same architecture trained without the shaping chain.  ``variables_from_flax``
-maps one network's tree onto the port's ``state_dict``: the inverse of the
-JAX importer's ``_conv`` / ``_conv_t`` / ``_bn`` / LSTM layouts
-(awm_tpu/checkpoint.py:289-373).  ``restore_params`` reads either source.
+maps one network's tree of either family onto the port's ``state_dict``: the
+inverse of the JAX importer's ``_conv`` / ``_conv_t`` / ``_bn`` / LSTM /
+``proj`` layouts (awm_tpu/checkpoint.py:289-416).  ``restore_params`` reads
+either source.  ``seeded_flax_tree`` draws such a tree for any ModelConfig
+from a seed: the strided family's parity assets hold a seed, not 33 MB of
+weights.
 
-The reference's torch ``.pth`` state dicts (base family) map onto the port's
-modules through ``import_torch_generator`` / ``import_torch_detector``.
+The reference's torch ``.pth`` state dicts map onto the port's modules
+through ``import_torch_generator`` / ``import_torch_detector`` (base family)
+and ``import_torch_strided_generator`` / ``import_torch_strided_detector``
+(main14b_2).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,15 +53,16 @@ T_FLAGSHIP_NPZ = os.path.join(ASSETS, "t_flagship.npz")
 T_FLAGSHIP_ARCH = os.path.join(ASSETS, "t_flagship_arch.json")
 
 # flax modules that are ConvTranspose1d (their (k, in, out) weight becomes
-# torch's (in, out, k), without a flip); every other 'w' is a Conv1d.
-_TRANSPOSED = frozenset({"dec_deconv"})
-# The JAX ModelConfig's fields in its order.  The strided family's, which the
-# port does not model yet, are written at the JAX defaults.
+# torch's (in, out, k), without a flip): the base generator's dec_deconv and
+# the strided upsamplers dec_up{i} / up{i}.  Every other 3-axis 'w' is a
+# Conv1d, and a 2-axis 'w' the strided proj Linear's (in, out).
+_TRANSPOSED = re.compile(r"dec_deconv|(dec_)?up\d+")
+# The JAX ModelConfig's fields in its order.  lstm_impl is not modelled (the
+# port routes the LSTM by device) and is written at the JAX default.
 _ARCH_KEYS = ("family", "message_bits", "lstm_impl", "channels", "message_encoding",
               "decode_head", "delta_band_hz", "base_channels", "hidden_dim",
               "output_channels", "strides", "lstm_layers")
-_JAX_ONLY_DEFAULTS = {"lstm_impl": "auto", "base_channels": 32, "hidden_dim": 32,
-                      "output_channels": 128, "strides": [2, 4, 5, 8], "lstm_layers": 2}
+_JAX_ONLY_DEFAULTS = {"lstm_impl": "auto"}
 _ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
@@ -97,9 +105,11 @@ def read_arch(path: str) -> Optional[dict]:
 
 def configs_from_arch(arch: Optional[dict]) -> Tuple[ModelConfig, Optional[ShapingConfig]]:
     """(ModelConfig, ShapingConfig or None) from an arch dict; fields the
-    port does not read (the strided family's) are dropped."""
+    port does not read (lstm_impl) are dropped, strides become a tuple."""
     arch = dict(arch or {})
     shaping = arch.pop("shaping", None)
+    if "strides" in arch:
+        arch["strides"] = tuple(arch["strides"])
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     model = ModelConfig(**{k: v for k, v in arch.items() if k in known})
     if shaping is None:
@@ -127,8 +137,11 @@ def load_npz(path: str) -> Dict[str, Any]:
 def _module_leaves(name: str, node: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """One flax module's leaves -> {torch name: array in torch layout}."""
     keys = set(node)
-    if "w" in keys and keys <= {"w", "b"}:  # Conv1d / ConvTranspose1d
-        perm = (1, 2, 0) if name in _TRANSPOSED else (2, 1, 0)
+    if "w" in keys and keys <= {"w", "b"}:  # Conv1d / ConvTranspose1d / Linear
+        if node["w"].ndim == 2:
+            perm = (1, 0)
+        else:
+            perm = (1, 2, 0) if _TRANSPOSED.fullmatch(name) else (2, 1, 0)
         out = {"weight": np.transpose(node["w"], perm)}
         if "b" in node:
             out["bias"] = node["b"]
@@ -164,6 +177,63 @@ def variables_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if tree.get(part):
             _walk(tree[part], (), out)
     return out
+
+
+def seeded_flax_tree(model_cfg, seed: int) -> Dict[str, Any]:
+    """{'params': {'gen', 'det'}, 'batch_stats': {'gen', 'det'}} of fp32
+    numpy arrays in the JAX package's layout for the networks of a
+    ModelConfig, drawn with numpy's generator at `seed` in the initialisers'
+    distributions (awm_tpu/models/layers.py): U(+-1/sqrt(fan_in)) for conv,
+    ConvTranspose and Linear weights and biases, U(+-1/sqrt(H)) for the LSTM
+    weights and the sum of two such draws for its one bias, N(0, 1) for the
+    message table, N(0, 0.25) for the bits encoder, BatchNorm at (1, 0) with
+    statistics (0, 1).  The same seed gives the same tree on any machine, with
+    or without JAX; variables_from_flax takes it to the port's networks."""
+    from awm_tpu_torch.models import build_models
+    from awm_tpu_torch.models.layers import BatchNorm, Conv1d, ConvTranspose1d, Embedding, LSTM
+    from awm_tpu_torch.models.strided import Linear
+
+    rng = np.random.default_rng(seed)
+
+    def u(fan_in, *shape):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for net_name, net in zip(("gen", "det"), build_models(model_cfg)):
+        for name, m in net.named_modules():
+            params, stats = {}, {}
+            if isinstance(m, Conv1d):
+                out, cin, k = m.weight.shape
+                params["w"] = u(cin * k, k, cin, out)
+                if m.bias is not None:
+                    params["b"] = u(cin * k, out)
+            elif isinstance(m, ConvTranspose1d):
+                cin, out, k = m.weight.shape
+                params = {"w": u(out * k, k, cin, out), "b": u(out * k, out)}
+            elif isinstance(m, Linear):
+                out, cin = m.weight.shape
+                params = {"w": u(cin, cin, out), "b": u(cin, out)}
+            elif isinstance(m, LSTM):
+                g, d = m.w_ih.shape
+                h = g // 4
+                params = {"w_ih": u(h, g, d), "w_hh": u(h, g, h), "b": u(h, g) + u(h, g)}
+            elif isinstance(m, Embedding):
+                params = {"table": rng.standard_normal(tuple(m.weight.shape)).astype(np.float32)}
+            elif isinstance(m, BatchNorm):
+                ch = m.weight.shape[0]
+                params = {"scale": np.ones(ch, np.float32), "bias": np.zeros(ch, np.float32)}
+                stats = {"mean": np.zeros(ch, np.float32), "var": np.ones(ch, np.float32)}
+            elif isinstance(m, torch.nn.Linear):  # the bits encoder, flax Dense without bias
+                out, cin = m.weight.shape
+                params = {"kernel": (0.25 * rng.standard_normal((cin, out))).astype(np.float32)}
+            for part, leaves in (("params", params), ("batch_stats", stats)):
+                if leaves:
+                    node = tree[part].setdefault(net_name, {})
+                    for key in name.split("."):
+                        node = node.setdefault(key, {})
+                    node.update(leaves)
+    return tree
 
 
 def load_models(params_npz: str = SHAPECAP_NPZ, arch_json: str = SHAPECAP_ARCH):
@@ -309,7 +379,7 @@ def load_into(gen, det, path: str) -> List[str]:
     return restore_params(path, gen, det, allow_missing=True)[0]
 
 
-# -- the reference's torch .pth (base family) ------------------------------------
+# -- the reference's torch .pth ------------------------------------------------
 
 
 def strip_prefix(state_dict: Dict[str, Any], prefix: str = "_orig_mod.") -> Dict[str, Any]:
@@ -364,3 +434,56 @@ def import_torch_generator(path: str) -> Dict[str, torch.Tensor]:
     out["lstm.w_hh"] = sd["lstm.weight_hh_l0"].detach().float().clone()
     out["lstm.b"] = (sd["lstm.bias_ih_l0"] + sd["lstm.bias_hh_l0"]).detach().float()
     return out
+
+
+def _strided_resblock(dst: str, src: str, sd: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """main14b_2 ResidualBlock: conv1, conv2 and, where the block changes
+    the shape, skip_conv (ref: py/main14b_2.py:86-103)."""
+    out = {f"{dst}.conv1": f"{src}.conv1", f"{dst}.conv2": f"{src}.conv2"}
+    if f"{src}.skip_conv.weight" in sd:
+        out[f"{dst}.skip"] = f"{src}.skip_conv"
+    return out
+
+
+def _lstm_layers(sd: Dict[str, torch.Tensor], key: str) -> Dict[str, torch.Tensor]:
+    """torch nn.LSTM(num_layers=N) -> lstm0..lstm{N-1} of the port, each
+    layer's two biases summed (they only ever appear added)."""
+    out, layer = {}, 0
+    while f"{key}.weight_ih_l{layer}" in sd:
+        out[f"lstm{layer}.w_ih"] = sd[f"{key}.weight_ih_l{layer}"].detach().float().clone()
+        out[f"lstm{layer}.w_hh"] = sd[f"{key}.weight_hh_l{layer}"].detach().float().clone()
+        out[f"lstm{layer}.b"] = (sd[f"{key}.bias_ih_l{layer}"]
+                                 + sd[f"{key}.bias_hh_l{layer}"]).detach().float()
+        layer += 1
+    return out
+
+
+def import_torch_strided_generator(path: str, n_strides: int = 4) -> Dict[str, torch.Tensor]:
+    """main14b_2 generator .pth -> the state_dict of models.StridedGenerator
+    (torch layout: E embedding, init_conv, encoder_blocks.{i} ResidualBlocks,
+    proj Linear, lstm (2 layers), final_conv_enc, decoder_blocks alternating
+    ConvTranspose1d / ResidualBlock, final_conv_dec; ref:
+    py/main14b_2.py:105-178).  Torch's Linear and ConvTranspose layouts are
+    the port's already."""
+    sd = _load_torch_state_dict(path)
+    modules = {"init_conv": "init_conv", "proj": "proj", "embedding": "E",
+               "final_conv_enc": "final_conv_enc", "final_conv_dec": "final_conv_dec"}
+    for i in range(n_strides):
+        modules.update(_strided_resblock(f"enc{i}", f"encoder_blocks.{i}", sd))
+        modules[f"dec_up{i}"] = f"decoder_blocks.{2 * i}"
+        modules.update(_strided_resblock(f"dec_res{i}", f"decoder_blocks.{2 * i + 1}", sd))
+    return {**_renamed(sd, modules), **_lstm_layers(sd, "lstm")}
+
+
+def import_torch_strided_detector(path: str, n_strides: int = 4) -> Dict[str, torch.Tensor]:
+    """main14b_2 detector .pth -> the state_dict of models.StridedDetector
+    (torch layout: init_conv, encoder_blocks.{i}, upsample_blocks alternating
+    ConvTranspose1d / ResidualBlock, final_conv; ref:
+    py/main14b_2.py:180-224)."""
+    sd = _load_torch_state_dict(path)
+    modules = {"init_conv": "init_conv", "final_conv": "final_conv"}
+    for i in range(n_strides):
+        modules.update(_strided_resblock(f"enc{i}", f"encoder_blocks.{i}", sd))
+        modules[f"up{i}"] = f"upsample_blocks.{2 * i}"
+        modules.update(_strided_resblock(f"up_res{i}", f"upsample_blocks.{2 * i + 1}", sd))
+    return _renamed(sd, modules)

@@ -1,10 +1,12 @@
 """Configuration dataclasses and named presets (counterpart of
 awm_tpu/config.py).
 
-Own copies of the constants, of the ModelConfig fields the base family
-reads, and of ShapingConfig, LossConfig, ScheduleConfig, TrainConfig and
-Config.  The presets are base, light, onecycle20, quality and ft_robust;
-strided (the strided family) is not ported yet and raises.
+Own copies of the constants, of the ModelConfig fields both families
+read, and of ShapingConfig, LossConfig, ScheduleConfig, TrainConfig and
+Config.  The presets are base, light, onecycle20, quality, ft_robust and
+strided (the main14b_2 family).  The JAX ModelConfig's lstm_impl is not a
+field here: the port routes the LSTM by device, and checkpoint.py writes the
+key as "auto" for the JAX package's sidecar reader.
 """
 
 from __future__ import annotations
@@ -21,13 +23,17 @@ AUDIO_LEN = 16000
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture of the base family (main14 generator + residual detector).
+    """Architecture: family "base" (main14 generator + residual detector,
+    width ``channels``) or "strided" (main14b_2, ref: py/main14b_2.py:43-48:
+    ``base_channels`` doubled by each of ``strides``, ``lstm_layers``
+    LSTMs of ``hidden_dim`` over the strided time axis, ``output_channels``
+    into the upsampler).
 
     message_encoding: "table" = Embedding(2^16, C) lookup, "bits" = 16
     learned directions sign-flipped per bit.  decode_head: "shared" = one
     1x1 conv for all 17 channels, "dilated" = dilated-conv bit head.
     delta_band_hz: fixed 101-tap sinc FIR on the delta as the generator's
-    last op (None = off).
+    last op (None = off).  The three are base-family variants only.
     """
 
     family: str = "base"
@@ -36,6 +42,11 @@ class ModelConfig:
     message_encoding: str = "table"
     decode_head: str = "shared"
     delta_band_hz: Optional[float] = None
+    base_channels: int = 32
+    hidden_dim: int = 32
+    output_channels: int = 128
+    strides: Tuple[int, ...] = (2, 4, 5, 8)
+    lstm_layers: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,14 +173,19 @@ def _ft_robust() -> Config:
     )
 
 
+def _strided() -> Config:
+    """main14b_2: the strided residual encoder/decoder family with s_w
+    clipped to [-1, 1] (ref: py/main14b_2.py:43-48).  It collapses in the
+    reference's run (BASELINE.md), a result the port reproduces."""
+    return Config(name="strided", model=ModelConfig(family="strided"),
+                  shaping=ShapingConfig(clamp_watermarked=True))
+
+
 PRESETS = {"base": _base, "light": _light, "onecycle20": _onecycle20, "quality": _quality,
-           "ft_robust": _ft_robust}
-NOT_PORTED = {"strided": "needs the strided model family"}
+           "ft_robust": _ft_robust, "strided": _strided}
 
 
 def get_config(name: str = "base") -> Config:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"preset {name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; choose from {sorted(PRESETS)}")
     return PRESETS[name]()

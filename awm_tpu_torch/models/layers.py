@@ -1,4 +1,4 @@
-"""Building blocks of the base family (counterpart of awm_tpu/models/layers.py).
+"""Building blocks of both families (counterpart of awm_tpu/models/layers.py).
 
 Modules work in PyTorch's (B, C, T) layout, except the LSTM, which takes
 (B, T, D) like the kernel it launches.  Parameter names follow torch
@@ -133,6 +133,24 @@ class ResBlock(nn.Module):
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         return F.relu(x.to(y.dtype) + y)
+
+
+class StridedResBlock(nn.Module):
+    """main14b_2 residual block: strided conv + ELU + conv, a 1x1 strided
+    skip conv when the shape changes, ELU of the sum; no BatchNorm
+    (ref: py/main14b_2.py:86-103)."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv1d(in_ch, features, 3, stride=stride, padding=1)
+        self.conv2 = Conv1d(features, features, 3, padding=1)
+        downsample = stride != 1 or in_ch != features
+        self.skip = Conv1d(in_ch, features, 1, stride=stride) if downsample else None
+
+    def forward(self, x):
+        y = self.conv2(F.elu(self.conv1(x)))
+        res = x if self.skip is None else self.skip(x)
+        return F.elu(y + res.to(y.dtype))
 
 
 class LSTM(nn.Module):

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Time the CUDA LSTM kernels of one checkout on the card, at the main
-paths' shapes: A at B=512, B and C at B=128, T=16000, fp32 and bf16.
+paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
+(--width 64, the base family, T=16000; --width 32, the strided family's two
+stacked LSTMs, T=50; --steps overrides T; --batch times all three at one
+other batch, e.g. the curriculum's B=8).
 
-    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--variants] [--check] [--only NAME]
+    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T] [--batch B]
+                                            [--variants] [--check] [--only NAME]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
 (DIR/awm_tpu_torch), so that two commits can be timed in turns in one call
 on one card: run this script once per tree, parent, change, change, parent.
 Only the wrappers every checkout has are called (forward_kernel,
-forward_train_kernel, backward_kernel).  --variants also times each rows-
-per-block variant the checkout's launch plan can choose (a checkout without
-a plan has none).  --check first holds every kernel against its plain
-version at T=2000 and prints ptxas's report.  The backward's four launches
-are also timed apart, from a torch.profiler trace of one call.  Prints one JSON object per
-line: {"tree", "card", "kernel", "batch", "rows", "ms"}; times are CUDA events
-over --reps launches after a warm-up.  Without a card it exits 1.
+forward_train_kernel, backward_kernel); a checkout without width-32 kernels
+takes --width 64 only.  --variants also times each rows-per-block variant
+the checkout's launch plan can choose (a checkout without a plan has none).
+--check first holds every kernel against its plain version at B in (1, 7,
+128) and T in (1, 2, 3, 37, 50, 800) with every rows variant, prints each
+error beside its tolerance and ptxas's report, and exits 1 if any error is
+above it.  The backward's four launches are also timed apart, from a
+torch.profiler trace of one call.  Prints one JSON object per line: {"tree",
+"card", "kernel", "width", "steps", "batch", "rows", "ms"}; times are CUDA
+events over --reps launches after a warm-up, and with --variants also
+"device_ms": the kernels' own device time per call from torch.profiler
+(over min(--reps, 50) calls).  Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ import os
 import subprocess
 import sys
 
-T = 16000
+STEPS = {64: 16000, 32: 50}  # the main paths' T at each width
+CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 37, 50, 800)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -40,26 +50,36 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_split(torch, fn) -> dict[str, float]:
-    """Device ms by kernel name of one call of fn (torch.profiler)."""
+def kernel_split(torch, fn, reps: int = 1) -> dict[str, float]:
+    """Device ms by kernel name of one call of fn, the mean over reps calls
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-    return {e.key: dev_us(e) / 1e3 for e in prof.key_averages()
+    return {e.key: dev_us(e) / 1e3 / reps for e in prof.key_averages()
             if dev_us(e) > 0 and e.self_cpu_time_total == 0}
 
 
-def inputs(torch, b: int, t: int, dtype, seed: int):
+def device_ms(torch, fn, reps: int) -> float:
+    """Device ms of one call of fn in the LSTM kernels alone: at T=50 a
+    call's CUDA-event time is the host's (allocations, casts, the launch),
+    and only this tells the rows variants apart."""
+    return sum(ms for key, ms in kernel_split(torch, fn, reps).items() if "lstm_" in key)
+
+
+def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64):
+    """Seeded x, weights at torch's LSTM init scale U(+-1/sqrt(H)) and dy."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(b, t, 64, device="cuda", generator=g) * 0.5).to(dtype)
-    w = [(torch.rand(*s, device="cuda", generator=g) * 2 - 1) / 8.0
-         for s in ((256, 64), (256, 64), (256,))]
-    dy = torch.randn(b, t, 64, device="cuda", generator=g) * 0.1
+    x = (torch.randn(b, t, width, device="cuda", generator=g) * 0.5).to(dtype)
+    w = [(torch.rand(*s, device="cuda", generator=g) * 2 - 1) / width**0.5
+         for s in ((4 * width, width), (4 * width, width), (4 * width,))]
+    dy = torch.randn(b, t, width, device="cuda", generator=g) * 0.1
     return x, w[0], w[1], 2 * w[2], dy
 
 
@@ -67,12 +87,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tree", default=here)
+    ap.add_argument("--width", type=int, default=64, choices=sorted(STEPS))
+    ap.add_argument("--steps", type=int, default=None, help="T (default: the width's main path)")
+    ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
+    width, steps = args.width, args.steps or STEPS[args.width]
+    b_serve, b_train = (args.batch, args.batch) if args.batch else (512, 128)
     sys.path[0] = tree  # in place of this script's own directory
 
     import torch
@@ -95,58 +120,72 @@ def main() -> int:
     kw = lambda rows: {} if rows is None else {"rows": rows}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+    # A checkout from before the width-32 kernels names its width-64 ones so.
+    sfx_of = {dtype: sfx for sfx, dtype in dtypes.items()}
+    name = getattr(K, "instantiation", lambda kernel, dtype, w: f"{kernel}_{sfx_of[dtype]}")
+    failed = 0
     if args.check:
         print(K.build_log, flush=True)
+        err = lambda a, r: float((a.float() - r.float()).abs().max())
         for sfx, dtype in dtypes.items():
-            for b in (5, 128):
-                x, w_ih, w_hh, bias, dy = inputs(torch, b, 2000, dtype, seed=b)
-                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
-                for rows in fwd_rows:
-                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
-                    y, c = K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
+            tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+            for b in CHECK_B:
+                for t in CHECK_T:
+                    x, w_ih, w_hh, bias, dy = inputs(torch, b, t, dtype, seed=b * 1000 + t, width=width)
+                    ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                    err_a = err_b = 0.0
+                    for rows in fwd_rows:
+                        y0 = K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
+                        y, c = K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
+                        err_a, err_b = max(err_a, err(y0, ref_y)), max(err_b, err(y, ref_y), err(c, ref_c))
+                    ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                    rel = 0.0
+                    for rows in bwd_rows:
+                        got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, **kw(rows))
+                        rel = max(rel, *(err(g, r) / (float(r.float().abs().max()) + 1e-12)
+                                         for g, r in zip(got, ref_g)))
                     torch.cuda.synchronize()
-                    print(f"check {sfx} B={b} rows={rows}: A vs plain "
-                          f"{float((y0.float() - ref_y.float()).abs().max()):.3e}, B y "
-                          f"{float((y.float() - ref_y.float()).abs().max()):.3e} cprev "
-                          f"{float((c - ref_c).abs().max()):.3e}", flush=True)
-                ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
-                for rows in bwd_rows:
-                    got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, **kw(rows))
-                    torch.cuda.synchronize()
-                    rels = [float((g.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
-                            for g, r in zip(got, ref_g)]
-                    print(f"check {sfx} B={b} rows={rows}: C dx, dW_ih, dW_hh, db rel "
-                          f"{', '.join(f'{r:.2e}' for r in rels)}", flush=True)
+                    bad = err_a > tol_a or err_b > tol_b or rel > tol_c
+                    failed += bad
+                    print(f"check{' FAIL' if bad else ''} {sfx} W={width} B={b} T={t} rows {fwd_rows} / "
+                          f"{bwd_rows}: A max abs {err_a:.3e} (tol {tol_a:.0e}), B {err_b:.3e} (tol "
+                          f"{tol_b:.0e}); C max rel {rel:.3e} (tol {tol_c:.0e})", flush=True)
 
-    def report(kernel, batch, rows, ms):
-        print(json.dumps({"tree": tree, "card": card, "kernel": kernel, "batch": batch,
-                          "rows": rows, "ms": ms}), flush=True)
+    def report(kernel, batch, rows, ms, fn=None):
+        line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
+                "batch": batch, "rows": rows, "ms": ms}
+        if fn is not None and args.variants:
+            line["device_ms"] = device_ms(torch, fn, min(args.reps, 50))
+        print(json.dumps(line), flush=True)
 
     want = lambda name: args.only in name
     for sfx, dtype in dtypes.items():
-        x, w_ih, w_hh, bias, _ = inputs(torch, 512, T, dtype, seed=7)
-        for rows in fwd_rows if want(f"lstm_fwd_{sfx}") else ():
-            report(f"lstm_fwd_{sfx}", 512, rows,
-                   cuda_ms(torch, lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows)), args.reps))
+        fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
+        x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
+        for rows in fwd_rows if want(fwd) else ():
+            fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
+            report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn)
         del x
-        x, w_ih, w_hh, bias, dy = inputs(torch, 128, T, dtype, seed=8)
+        x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
         y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
-        for rows in fwd_rows if want(f"lstm_fwd_train_{sfx}") else ():
-            report(f"lstm_fwd_train_{sfx}", 128, rows, cuda_ms(
-                torch, lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows)), args.reps))
-        if not want(f"lstm_bwd_{sfx}"):
+        for rows in fwd_rows if want(fwd_train) else ():
+            fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
+            report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
+        if not want(bwd):
             continue
         for rows in bwd_rows:
-            report(f"lstm_bwd_{sfx}", 128, rows, cuda_ms(
-                torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows)), args.reps))
+            fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
+            report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
         split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
         for key, ms in split.items():
             if "lstm_bwd" in key:
                 short = key[key.index("lstm_bwd"):].split("I")[0].split("E")[0]
-                report(f"lstm_bwd_{sfx}:{short}", 128, None, ms)
+                report(f"{bwd}:{short}", b_train, None, ms)
         del x, y, cprev, dy
         torch.cuda.empty_cache()
-    return 0
+    if failed:
+        print(f"bench_lstm: {failed} check(s) above tolerance", file=sys.stderr)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -13,21 +13,26 @@
 //   dW_hh = sum h_{t-1}^T da; db sums the fp32 da;
 // - weight gradients come out fp32, dx in x's type.
 //
+// Every kernel is a template over the width W = D = H, instantiated for 64
+// and 32 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.
+//
 // The reverse-time recurrence and the reductions are separate kernels, four
 // launches per call, on one stream.
 //   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
 //      caller, ops/lstm_kernel.py::launch_plan) runs all T steps in reverse.
-//      It writes da, rounded to the operand type, to a (B, T, 256) scratch
-//      in device memory (2.1 GB fp32 / 1.05 GB bf16 at B=128, T=16000) and
-//      a per-block partial db.
+//      It writes da, rounded to the operand type, to a (B, T, G) scratch
+//      in device memory (2.1 GB fp32 / 1.05 GB bf16 at W=64, B=128,
+//      T=16000) and a per-block partial db.
 //   2. dx = da . W_ih over row tiles of the flattened (B*T) axis.
 //   3. dW = da^T . [x | h_{t-1}] over chunks of the (B*T) axis; each block
 //      writes partial sums of its chunk.
 //   4. lstm_bwd_sum: sums the chunk partials and the db partials in a fixed
 //      order.  No atomics: two runs give the same bits.
 // What bounds it on this card: kernel 1 is sequential in T, so it costs the
-// latency of one step times T; kernels 2-3 are real matrix products over 2M
-// rows that read the da scratch once or twice.  The bound of the whole call
+// latency of one step times T; kernels 2-3 are real matrix products over the
+// B T rows (2M at W = 64, T = 16000; 6400 at W = 32, T = 50, where the four
+// launches' fixed cost is most of the call) that read the da scratch once
+// or twice.  The bound of the whole call
 // (the products in fp32, bytes in bf16) is far below the recurrence's
 // latency.  What the design does about it:
 // - only the (dh, dc) carry is sequential, so only it is on the sequential
@@ -44,12 +49,12 @@
 // - a consumer step is: dc and da from the ring (5 flops), da to shared
 //   memory, one barrier among the consumer warps, dh_{t-1} = da . W_hh from
 //   register-held weights (bf16 widened once), split over the lanes of a
-//   warp so that a thread reads 16 of the 256 da values, summed by shuffles
-//   in a fixed order.  da is double-buffered;
+//   warp so that a thread reads 16 of the 256 da values (8 of 128 at
+//   W = 32), summed by shuffles in a fixed order.  da is double-buffered;
 // - dx and dW: in bf16 on the tensor cores (da, x and y are bf16 already,
 //   products exact, fp32 sums), staged through shared memory with 16-byte
 //   loads; in fp32 on the CUDA cores in full fp32, dW with 8 x 8 outputs a
-//   thread so that four 16-byte reads feed 64 products.
+//   thread (8 x 4 at W = 32) so that four 16-byte reads feed 64 products.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -59,41 +64,48 @@ namespace {
 
 using namespace awm;
 
-constexpr int SB = 8;               // steps per chunk of the ring
-constexpr int RING = G + 3 * H;     // floats of one (step, row): factor[G] | dtanh[H] | f[H] | dy[H]
-constexpr int DA_GATE = H + 8;      // stride of one gate's da in shared memory: the four
-                                    // gates' 16-byte reads fall in distinct banks
-constexpr int DA_ROW = 4 * DA_GATE;
+constexpr int SB = 8;  // steps per chunk of the ring
+
+// Floats of one (step, row) of the ring: factor[G] | dtanh[H] | f[H] | dy[H].
+template <int W> constexpr int RING = 4 * W + 3 * W;
+// Stride of one gate's da in shared memory: the four gates' reads fall in
+// distinct banks.
+template <int W> constexpr int DA_GATE = W + 8;
+template <int W> constexpr int DA_ROW = 4 * DA_GATE<W>;
 
 // The fp32 producers read [W_ih | W_hh] from shared memory; the bf16 ones
 // hold them in registers as mma fragments.
-template <typename T> constexpr int W_SMEM_BYTES = is_bf16<T> ? 0 : (int)sizeof(T) * G * K;
+template <typename T, int W>
+constexpr int W_SMEM_BYTES = is_bf16<T> ? 0 : (int)sizeof(T) * (4 * W) * (2 * W);
 // Row stride of the staged x_t | h_{t-1}: the bf16 rows are read as mma B
 // fragments, 8 rows at a time, and the pad puts them in distinct banks.
-template <typename T> constexpr int KP = is_bf16<T> ? K + 8 : K;
+template <typename T, int W> constexpr int KP = is_bf16<T> ? 2 * W + 8 : 2 * W;
 
-template <typename T, int R>
+template <typename T, int R, int W>
 constexpr int rec_smem_bytes() {
-  return (int)(W_SMEM_BYTES<T> +
-               sizeof(float) * (NBUF * SB * R * RING + R * SB * H + 2 * R * DA_ROW) +
-               sizeof(T) * R * SB * KP<T>);
+  return (int)(W_SMEM_BYTES<T, W> +
+               sizeof(float) * (NBUF * SB * R * RING<W> + R * SB * W + 2 * R * DA_ROW<W>) +
+               sizeof(T) * R * SB * KP<T, W>);
 }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS, 1)
+template <typename T, int R, int W>
+__global__ void __launch_bounds__(8 * W, 1)
 lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
                     const float* __restrict__ cprev, const float* __restrict__ dy,
                     const T* __restrict__ w_ih, const T* __restrict__ w_hh,
                     const float* __restrict__ bias, T* __restrict__ da_out,
                     float* __restrict__ db_part, int batch, int steps) {
+  static_assert(valid_width<W>, "instantiated for W = 32 and 64");
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, COLS = G, THREADS = 2 * COLS;
+  constexpr int NQ = W / 16, RW = RING<W>, DG = DA_GATE<W>, DR = DA_ROW<W>, KPW = KP<T, W>;
   extern __shared__ __align__(16) unsigned char smem[];
-  // fp32 only: s_w[((sec * 4 + m) * 4 + q) * COLS + p] = the four terms 4 (4 q + kp) .. + 3 of
+  // fp32 only: s_w[((sec * 4 + m) * NQ + q) * COLS + p] = the four terms 4 (4 q + kp) .. + 3 of
   // gate m's row for thread p's unit, of W_ih (sec 0) or W_hh (sec 1): lstm_common.cuh's split.
   const float4* s_w = reinterpret_cast<const float4*>(smem);
-  float* s_ring = reinterpret_cast<float*>(smem + W_SMEM_BYTES<T>);  // [NBUF][SB][R][RING]
-  float* s_c = s_ring + NBUF * SB * R * RING;                        // [R][SB][H]: c_{t-1}
-  float* s_da = s_c + R * SB * H;                                    // [2][R][DA_ROW], operands
-  T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DA_ROW);             // [R][SB][KP]: x_t | h_{t-1}
+  float* s_ring = reinterpret_cast<float*>(smem + W_SMEM_BYTES<T, W>);  // [NBUF][SB][R][RING]
+  float* s_c = s_ring + NBUF * SB * R * RW;                             // [R][SB][H]: c_{t-1}
+  float* s_da = s_c + R * SB * H;                                       // [2][R][DA_ROW], operands
+  T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DR);                    // [R][SB][KP]: x_t | h_{t-1}
 
   const int p = threadIdx.x & (COLS - 1);
   const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
@@ -105,11 +117,11 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
     // ---- producers: the gate recompute and each step's local derivatives ----
     const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
     const int unit_t = (unit & ~7) + g8;  // the unit whose gates this lane holds after an mma
-    uint32_t a_ih[2][4][4], a_hh[2][4][4];
+    uint32_t a_ih[2][W / 16][4], a_hh[2][W / 16][4];
     float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if constexpr (is_bf16<T>) {
-      load_a_fragments(w_ih, unit & ~7, lane, a_ih);
-      load_a_fragments(w_hh, unit & ~7, lane, a_hh);
+      load_a_fragments<W>(w_ih, unit & ~7, lane, a_ih);
+      load_a_fragments<W>(w_hh, unit & ~7, lane, a_hh);
 #pragma unroll
       for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
     } else {
@@ -118,7 +130,7 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
         const int j = idx / K, k = idx % K;  // row j of the weights (gate m, unit u), term k
         const T wv = k < D ? w_ih[j * D + k] : w_hh[j * H + (k - D)];
         const int sec = k / D, quad = (k % D) / 4, m = j / H, u = j % H;
-        const int slot = ((sec * 4 + m) * 4 + quad / 4) * COLS + u * 4 + quad % 4;
+        const int slot = ((sec * 4 + m) * NQ + quad / 4) * COLS + u * 4 + quad % 4;
         s_w_t[slot * 4 + k % 4] = wv;
       }
       b = bias[col];
@@ -143,17 +155,17 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
     const int quad_lane = (threadIdx.x & 31) & ~3;
     for (int c = 0; c < n_chunks; ++c) {
       const int buf = c % NBUF;
-      float* ring = s_ring + buf * SB * R * RING;
+      float* ring = s_ring + buf * SB * R * RW;
       bar_sync(BAR_PROD, COLS);  // the last chunk's reads of s_xh and s_c are done (and s_w is staged)
       if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int e = i * COLS + p;
         const int r = e / (SB * H), s = (e / H) % SB, u = e % H;
-        store_f(s_xh + (r * SB + s) * KP<T> + u, xr[i]);
-        store_f(s_xh + (r * SB + s) * KP<T> + D + u, yr[i]);
+        store_f(s_xh + (r * SB + s) * KPW + u, xr[i]);
+        store_f(s_xh + (r * SB + s) * KPW + D + u, yr[i]);
         s_c[(r * SB + s) * H + u] = cr[i];
-        ring[(s * R + r) * RING + G + 2 * H + u] = dyr[i];
+        ring[(s * R + r) * RW + G + 2 * H + u] = dyr[i];
       }
       if (c + 1 < n_chunks) fetch(c + 1);
       bar_sync(BAR_PROD, COLS);
@@ -163,9 +175,9 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
 #pragma unroll 1
         for (int r = 0; r < R; ++r) {
           float c[2][4] = {{b4[0], b4[0], b4[1], b4[1]}, {b4[2], b4[2], b4[3], b4[3]}};
-          const T* v = s_xh + (r * SB + g8) * KP<T>;
-          mma_64(c, a_ih, v, t4);
-          mma_64(c, a_hh, v + D, t4);
+          const T* v = s_xh + (r * SB + g8) * KPW;
+          mma_w<W>(c, a_ih, v, t4);
+          mma_w<W>(c, a_hh, v + D, t4);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int s = 2 * t4 + e;
@@ -173,7 +185,7 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
             const float gg = tanh_sig(c[1][e]), og = sigmoid(c[1][2 + e]);
             const float c_prev = s_c[(r * SB + s) * H + unit_t];
             const float tc = tanh_sig(fg * c_prev + ig * gg);
-            float* en = ring + (s * R + r) * RING;
+            float* en = ring + (s * R + r) * RW;
             *reinterpret_cast<float4*>(en + unit_t * 4) =
                 make_float4(gg * ig * (1.0f - ig), c_prev * fg * (1.0f - fg),
                             ig * (1.0f - gg * gg), tc * og * (1.0f - og));
@@ -196,10 +208,10 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
 #pragma unroll
           for (int sec = 0; sec < 2; ++sec)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
+            for (int q = 0; q < NQ; ++q) {
               float4 w[4];
 #pragma unroll
-              for (int m = 0; m < 4; ++m) w[m] = s_w[((sec * 4 + m) * 4 + q) * COLS + p];
+              for (int m = 0; m < 4; ++m) w[m] = s_w[((sec * 4 + m) * NQ + q) * COLS + p];
 #pragma unroll
               for (int s = 0; s < SB; ++s) {
                 const float4 v =
@@ -224,7 +236,7 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                : gate == 1 ? c_prev * fg[s] * (1.0f - fg[s])
                                : gate == 2 ? ig[s] * (1.0f - gg[s] * gg[s])
                                            : tc * og[s] * (1.0f - og[s]);
-            float* e = ring + (s * R + r) * RING;
+            float* e = ring + (s * R + r) * RW;
             e[p] = factor;
             if (gate == 0) {
               e[G + unit] = og[s] * (1.0f - tc * tc);  // dc_total = dc + dh_total * this
@@ -240,21 +252,22 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 
   // ---- consumers: the (dh, dc) carry ----
-  // dh_{t-1} = da . W_hh in a warp: its 8 units x all 256 columns j of da.  Lane
+  // dh_{t-1} = da . W_hh in a warp: its 8 units x all G columns j of da.  Lane
   // (half og = lane / 16, part jp = lane % 16) takes the four units 4 og .. 4 og + 3 of
-  // the warp and the 16 columns j = 64 q + 4 jp + e (q, e = 0..3):
-  // w[(q * 4 + e) * 4 + o] = W_hh[64 q + 4 jp + e][unit o of its four].  Four reads
-  // of 16 bytes a step and row, not sixteen; the parts meet by shuffles.
+  // the warp and the 4 EP columns j = H q + EP jp + e (q = 0..3, e = 0..EP-1, EP = H / 16):
+  // w[(q * EP + e) * 4 + o] = W_hh[H q + EP jp + e][unit o of its four].  Four reads
+  // of 4 EP floats a step and row, not 4 EP one-float reads; the parts meet by shuffles.
+  constexpr int EP = H / 16;
   const int lane = threadIdx.x & 31, og = lane >> 4, jp = lane & 15;
   const int unit0 = (unit & ~7) + 4 * og;
-  float w[64];
+  float w[16 * EP];
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < EP; ++e)
 #pragma unroll
       for (int o = 0; o < 4; ++o)
-        w[(q * 4 + e) * 4 + o] = load_f(w_hh + (size_t)(q * H + 4 * jp + e) * H + unit0 + o);
+        w[(q * EP + e) * 4 + o] = load_f(w_hh + (size_t)(q * H + EP * jp + e) * H + unit0 + o);
   float dh[R], dc[R], db_acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
@@ -263,41 +276,47 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c % NBUF;
     bar_sync(BAR_FULL + buf, THREADS);
-    const float* ring = s_ring + buf * SB * R * RING;
+    const float* ring = s_ring + buf * SB * R * RW;
     const int t_hi = steps - 1 - c * SB;
     const int n = t_hi + 1 < SB ? t_hi + 1 : SB;
     for (int s = 0; s < n; ++s) {
       const int t = t_hi - s;
-      float* da_s = s_da + cur * R * DA_ROW;
+      float* da_s = s_da + cur * R * DR;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float* e = ring + (s * R + r) * RING;
+        const float* e = ring + (s * R + r) * RW;
         const float dh_total = e[G + 2 * H + unit] + dh[r];
         const float dc_total = dc[r] + dh_total * e[G + unit];
         const float da = (gate == 3 ? dh_total : dc_total) * e[p];
         dc[r] = dc_total * e[G + H + unit];
         db_acc[r] += da;
-        da_s[r * DA_ROW + gate * DA_GATE + unit] = operand(da, x);
+        da_s[r * DR + gate * DG + unit] = operand(da, x);
         if (row0 + r < batch) store_f(da_out + ((size_t)(row0 + r) * steps + t) * G + col, da);
       }
       bar_sync(BAR_CONS, COLS);
-      // Each output's 16 terms in order (q, e), one running sum; then the 16 parts:
+      // Each output's 4 EP terms in order (q, e), one running sum; then the 16 parts:
       // a transposing exchange over lanes 8 and 4 apart leaves each lane one output,
       // and two butterfly sums finish it in all four lanes of its unit.
       float part[R][4], sum[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float* a = da_s + r * DA_ROW + 4 * jp;
+        const float* a = da_s + r * DR + EP * jp;
 #pragma unroll
         for (int o = 0; o < 4; ++o) part[r][o] = 0.0f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(a + q * DA_GATE);
-          const float ve[4] = {v.x, v.y, v.z, v.w};
+          float ve[EP];
+          if constexpr (EP == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(a + q * DG);
+            ve[0] = v.x; ve[1] = v.y; ve[2] = v.z; ve[3] = v.w;
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(a + q * DG);
+            ve[0] = v.x; ve[1] = v.y;
+          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+          for (int e = 0; e < EP; ++e)
 #pragma unroll
-            for (int o = 0; o < 4; ++o) part[r][o] = fmaf(ve[e], w[(q * 4 + e) * 4 + o], part[r][o]);
+            for (int o = 0; o < 4; ++o) part[r][o] = fmaf(ve[e], w[(q * EP + e) * 4 + o], part[r][o]);
         }
       }
       transpose_reduce4<8, 4, R>(part, jp & 8, jp & 4, sum);
@@ -322,16 +341,22 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
 constexpr int DX_ROWS = 32;  // rows of the (B*T) axis per dx tile
 
+template <int W>
+constexpr int dx_smem_bytes() { return (int)sizeof(float) * (4 * W * W + DX_ROWS * 4 * W); }
+
+template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_dx_kernel(const float* __restrict__ da, const float* __restrict__ w_ih,
                    float* __restrict__ dx, long long n_rows) {
+  constexpr int D = W, G = 4 * W;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_w = reinterpret_cast<float*>(smem);  // [G][D], torch layout
   float* s_a = s_w + G * D;                     // [DX_ROWS][G]
   const int tid = threadIdx.x;
   for (int idx = tid; idx < G * D; idx += 256) s_w[idx] = w_ih[idx];
-  const int d = tid % D, rg = tid / D;  // 4 row groups of 8 rows
-  constexpr int PER = DX_ROWS / 4;
+  constexpr int RG = 256 / D;  // row groups of PER rows: 4 of 8 at W = 64, 8 of 4 at W = 32
+  constexpr int PER = DX_ROWS / RG;
+  const int d = tid % D, rg = tid / D;
 
   for (long long tile = blockIdx.x; tile * DX_ROWS < n_rows; tile += gridDim.x) {
     const long long base = tile * DX_ROWS;
@@ -365,16 +390,19 @@ lstm_bwd_dx_kernel(const float* __restrict__ da, const float* __restrict__ w_ih,
 }
 
 constexpr int DW_ROWS = 32;   // rows of the (B*T) axis staged per dW step
-constexpr int DW_COLS = 128;  // gate columns per dW block (blockIdx.y picks which half)
+constexpr int DW_COLS = 128;  // gate columns per dW block (blockIdx.y picks which of G / 128)
 
 // part[chunk][j][m] = sum over the chunk's rows n of da[n][j] * v[n][m],
 // v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0).  A
-// block owns 128 gate columns x all 128 terms, a thread 8 x 8 of them (two
-// groups of 4 columns and two of 4 terms, so that a warp's 16-byte reads are
-// contiguous): four 16-byte reads from shared memory feed 64 products.
+// block owns 128 gate columns x all K terms, a thread 8 x (K / 16) of them
+// (two groups of 4 columns and K / 64 groups of 4 terms, so that a warp's
+// 16-byte reads are contiguous): 2 + K / 64 16-byte reads from shared memory
+// feed 8 K / 16 products.
+template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, const float* __restrict__ y,
                    float* __restrict__ part, long long n_rows, int steps, long long chunk_rows) {
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, VG = K / 64;
   __shared__ __align__(16) float s_a[DW_ROWS * DW_COLS];
   __shared__ __align__(16) float s_v[DW_ROWS * K];
   const int tid = threadIdx.x;
@@ -382,11 +410,11 @@ lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, co
   const int tj = tid / 16, tm = tid % 16;
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  float acc[8][8];
+  float acc[8][4 * VG];
 #pragma unroll
   for (int a = 0; a < 8; ++a)
 #pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+    for (int b = 0; b < 4 * VG; ++b) acc[a][b] = 0.0f;
 
   for (long long base = begin; base < end; base += DW_ROWS) {
     __syncthreads();
@@ -413,21 +441,24 @@ lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, co
     for (int nn = 0; nn < DW_ROWS; ++nn) {
       const float4 a0 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + tj * 4);
       const float4 a1 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + 64 + tj * 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(s_v + nn * K + tm * 4);
-      const float4 v1 = *reinterpret_cast<const float4*>(s_v + nn * K + 64 + tm * 4);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      float vv[4 * VG];
+#pragma unroll
+      for (int g = 0; g < VG; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(s_v + nn * K + 64 * g + tm * 4);
+        vv[4 * g] = v.x; vv[4 * g + 1] = v.y; vv[4 * g + 2] = v.z; vv[4 * g + 3] = v.w;
+      }
 #pragma unroll
       for (int p = 0; p < 8; ++p)
 #pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
+        for (int q = 0; q < 4 * VG; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
     }
   }
   float* out = part + (size_t)blockIdx.x * G * K;
 #pragma unroll
   for (int p = 0; p < 8; ++p)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < 4 * VG; ++q) {
       const int j = j0 + (p / 4) * 64 + tj * 4 + p % 4;
       const int m = (q / 4) * 64 + tm * 4 + q % 4;
       out[(size_t)j * K + m] = acc[p][q];
@@ -436,16 +467,20 @@ lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, co
 
 // ---- bf16: dx and dW on the tensor cores (bf16 in, exact products, fp32 sums) ----
 
-constexpr int DA_P = G + 8;      // row stride of a staged da tile: rows fall in distinct banks
+// Row stride of a staged da tile: rows fall in distinct banks.
+template <int W> constexpr int da_pitch = 4 * W + 8;
 constexpr int DXM_ROWS = 128;    // rows of the (B*T) axis per dx tile: 16 per warp
-constexpr int DXM_SMEM = (int)sizeof(__nv_bfloat16) * (D + DXM_ROWS) * DA_P;
+template <int W>
+constexpr int dxm_smem_bytes() { return (int)sizeof(__nv_bfloat16) * (W + DXM_ROWS) * da_pitch<W>; }
 
-// dx = da . W_ih as mma tiles: M = 16 rows of (B*T) per warp, N = the 64
-// inputs, K = the 256 gate columns.  da rows are A fragments as they lie;
+// dx = da . W_ih as mma tiles: M = 16 rows of (B*T) per warp, N = the W
+// inputs, K = the G gate columns.  da rows are A fragments as they lie;
 // W_ih is staged transposed, [d][j], so that a B fragment's two k are adjacent.
+template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ w_ih,
                        __nv_bfloat16* __restrict__ dx, long long n_rows) {
+  constexpr int D = W, G = 4 * W, DA_P = da_pitch<W>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* s_wt = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][DA_P]
   __nv_bfloat16* s_a = s_wt + D * DA_P;                          // [DXM_ROWS][DA_P]
@@ -491,26 +526,29 @@ lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
 }
 
 constexpr int DWM_ROWS = 64;  // rows of the (B*T) axis per staged dW tile: four k steps of 16
-constexpr int V_P = D + 8;    // row stride of the staged x or h_{t-1} tile
 
-// part[chunk][j][m] as mma tiles: M = the 256 gate columns j (32 per warp),
-// N = 64 terms m (blockIdx.y = 0: x, 1: h_{t-1}), K = the chunk's rows.  Both
-// operands lie row-major in the rows, so both fragments come transposed
-// through ldmatrix.  The chunk's sum runs in the tensor cores' order, fixed
-// for a given shape: two runs still give the same bits.
+// part[chunk][j][m] as mma tiles: M = the G gate columns j (G / 8 per warp:
+// MT = G / 128 tiles of 16), N = W terms m (blockIdx.y = 0: x, 1: h_{t-1}),
+// K = the chunk's rows.  Both operands lie row-major in the rows, so both
+// fragments come transposed through ldmatrix.  The chunk's sum runs in the
+// tensor cores' order, fixed for a given shape: two runs still give the
+// same bits.
+template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ y, float* __restrict__ part,
                        long long n_rows, int steps, long long chunk_rows) {
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, MT = G / 128, DA_P = da_pitch<W>;
+  constexpr int V_P = D + 8;  // row stride of the staged x or h_{t-1} tile
   __shared__ __align__(16) __nv_bfloat16 s_a[DWM_ROWS * DA_P];
   __shared__ __align__(16) __nv_bfloat16 s_v[DWM_ROWS * V_P];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const bool h_half = blockIdx.y == 1;
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  float c[2][D / 8][4];
+  float c[MT][D / 8][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
@@ -539,18 +577,18 @@ lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
 #pragma unroll
     for (int ks = 0; ks < DWM_ROWS / 16; ++ks) {
       // A[j][n] = da[n][j]: blocks (n 0-7, j 0-7), (n 0-7, j 8-15), (n 8-15, j 0-7), (n 8-15, j 8-15).
-      uint32_t a[2][4];
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
         ldmatrix_x4_trans(a[mt], s_a + (ks * 16 + (blk >> 1) * 8 + blk_row) * DA_P +
-                                     warp * 32 + mt * 16 + (blk & 1) * 8);
+                                     warp * 16 * MT + mt * 16 + (blk & 1) * 8);
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         // B[n][m] = v[n][m]: blocks (n 0-7, m 0-7), (n 8-15, m 0-7), (n 0-7, m 8-15), (n 8-15, m 8-15).
         uint32_t b[4];
         ldmatrix_x4_trans(b, s_v + (ks * 16 + (blk & 1) * 8 + blk_row) * V_P + np * 16 + (blk >> 1) * 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(c[mt][2 * np], a[mt], b[0], b[1]);
           mma_bf16(c[mt][2 * np + 1], a[mt], b[2], b[3]);
         }
@@ -559,10 +597,10 @@ lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
   }
   float* out = part + (size_t)blockIdx.x * G * K + (h_half ? D : 0);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) {
-      const int j = warp * 32 + mt * 16 + g8, m = nt * 8 + 2 * t4;
+      const int j = warp * 16 * MT + mt * 16 + g8, m = nt * 8 + 2 * t4;
       *reinterpret_cast<float2*>(out + (size_t)j * K + m) = make_float2(c[mt][nt][0], c[mt][nt][1]);
       *reinterpret_cast<float2*>(out + (size_t)(j + 8) * K + m) = make_float2(c[mt][nt][2], c[mt][nt][3]);
     }
@@ -570,10 +608,12 @@ lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
 
 // dW_ih / dW_hh = the sum of the chunk partials; db = the sum of the
 // recurrent blocks' partials.  Fixed order, one thread per output.
+template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_sum_kernel(const float* __restrict__ part, int n_chunks,
                     const float* __restrict__ db_part, int n_blocks,
                     float* __restrict__ dw_ih, float* __restrict__ dw_hh, float* __restrict__ db) {
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W;
   const int idx = blockIdx.x * 256 + threadIdx.x;
   if (idx < G * K) {
     float s = 0.0f;
@@ -589,20 +629,20 @@ lstm_bwd_sum_kernel(const float* __restrict__ part, int n_chunks,
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int W>
 cudaError_t launch_rec(const T* x, const T* y, const float* cprev, const float* dy, const T* w_ih,
                        const T* w_hh, const float* bias, T* da, float* db_part,
                        int batch, int steps, cudaStream_t stream) {
-  constexpr int smem = rec_smem_bytes<T, R>();
+  constexpr int smem = rec_smem_bytes<T, R, W>();
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_rec_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      lstm_bwd_rec_kernel<T, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  lstm_bwd_rec_kernel<T, R><<<(batch + R - 1) / R, THREADS, smem, stream>>>(
+  lstm_bwd_rec_kernel<T, R, W><<<(batch + R - 1) / R, 8 * W, smem, stream>>>(
       x, y, cprev, dy, w_ih, w_hh, bias, da, db_part, batch, steps);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const void* x, const void* y, const float* cprev, const float* dy,
            const void* w_ih, const void* w_hh, const float* bias,
            void* dx, float* dw_ih, float* dw_hh, float* db,
@@ -614,37 +654,39 @@ int launch(const void* x, const void* y, const float* cprev, const float* dy,
   const int rec_blocks = (batch + rows - 1) / rows;
 
   cudaError_t err =
-      rows == 1 ? launch_rec<T, 1>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
-                                   (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream)
-                : launch_rec<T, 2>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
-                                   (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream);
+      rows == 1 ? launch_rec<T, 1, W>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
+                                      (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream)
+                : launch_rec<T, 2, W>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
+                                      (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream);
   if (err != cudaSuccess) return (int)err;
 
+  constexpr int G = 4 * W, K = 2 * W;
   const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
   if constexpr (is_bf16<T>) {
+    constexpr int smem = dxm_smem_bytes<W>();
     err = cudaFuncSetAttribute(
-        lstm_bwd_dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DXM_SMEM);
+        lstm_bwd_dx_mma_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    lstm_bwd_dx_mma_kernel<<<dx_blocks, 256, DXM_SMEM, stream>>>(
+    lstm_bwd_dx_mma_kernel<W><<<dx_blocks, 256, smem, stream>>>(
         (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_bwd_dw_mma_kernel<<<dim3(n_chunks, 2), 256, 0, stream>>>(
+    lstm_bwd_dw_mma_kernel<W><<<dim3(n_chunks, 2), 256, 0, stream>>>(
         (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   } else {
-    const int dx_smem = (int)(sizeof(float) * (G * D + DX_ROWS * G));
+    constexpr int smem = dx_smem_bytes<W>();
     err = cudaFuncSetAttribute(
-        lstm_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem);
+        lstm_bwd_dx_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    lstm_bwd_dx_kernel<<<dx_blocks, 256, dx_smem, stream>>>(
+    lstm_bwd_dx_kernel<W><<<dx_blocks, 256, smem, stream>>>(
         (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_bwd_dw_kernel<<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
+    lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
         (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
-  lstm_bwd_sum_kernel<<<(G * K + 255) / 256, 256, 0, stream>>>(
+  lstm_bwd_sum_kernel<W><<<(G * K + 255) / 256, 256, 0, stream>>>(
       part, n_chunks, db_part, rec_blocks, dw_ih, dw_hh, db);
   return (int)cudaGetLastError();
 }
@@ -653,32 +695,28 @@ int launch(const void* x, const void* y, const float* cprev, const float* dy,
 
 extern "C" {
 
-// x: (B, T, 64), y: (B, T, 64) (the forward's output), w_ih / w_hh:
-// (256, 64), all in the instantiation's type; cprev, dy: (B, T, 64) fp32;
-// bias: (256,) fp32.  Outputs: dx (B, T, 64) in the instantiation's type,
-// dw_ih / dw_hh (256, 64) and db (256,) fp32.  Scratch: da (B, T, 256) in
-// the instantiation's type, part (n_chunks, 256, 128) fp32, db_part
-// (ceil(B / rows), 256) fp32.  rows: batch rows per block of the recurrent
-// kernel, 1 or 2; dx_blocks: the dx kernel's grid.  All contiguous on the
-// current device; B, T >= 1.  Returns the first cudaError_t of the four
-// launches (0 = all launched).
-int awm_lstm_bwd_f32(const void* x, const void* y, const float* cprev, const float* dy,
-                     const void* w_ih, const void* w_hh, const float* bias,
-                     void* dx, float* dw_ih, float* dw_hh, float* db,
-                     void* da, float* part, float* db_part,
-                     int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream) {
-  return launch<float>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da, part,
-                       db_part, batch, steps, rows, n_chunks, dx_blocks, stream);
-}
-
-int awm_lstm_bwd_bf16(const void* x, const void* y, const float* cprev, const float* dy,
-                      const void* w_ih, const void* w_hh, const float* bias,
-                      void* dx, float* dw_ih, float* dw_hh, float* db,
-                      void* da, float* part, float* db_part,
-                      int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream) {
-  return launch<__nv_bfloat16>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da,
-                               part, db_part, batch, steps, rows, n_chunks, dx_blocks, stream);
-}
+// Width 64 (no suffix) and width 32 (_w32), G = 4 W.  x: (B, T, W), y:
+// (B, T, W) (the forward's output), w_ih / w_hh: (G, W), all in the
+// instantiation's type; cprev, dy: (B, T, W) fp32; bias: (G,) fp32.
+// Outputs: dx (B, T, W) in the instantiation's type, dw_ih / dw_hh (G, W)
+// and db (G,) fp32.  Scratch: da (B, T, G) in the instantiation's type,
+// part (n_chunks, G, 2 W) fp32, db_part (ceil(B / rows), G) fp32.  rows:
+// batch rows per block of the recurrent kernel, 1 or 2; dx_blocks: the dx
+// kernel's grid.  All contiguous on the current device; B, T >= 1.  Returns
+// the first cudaError_t of the four launches (0 = all launched).
+#define AWM_LSTM_BWD_ENTRY(NAME, TYPE, W)                                                         \
+  int NAME(const void* x, const void* y, const float* cprev, const float* dy, const void* w_ih,  \
+           const void* w_hh, const float* bias, void* dx, float* dw_ih, float* dw_hh, float* db, \
+           void* da, float* part, float* db_part, int batch, int steps, int rows, int n_chunks,  \
+           int dx_blocks, void* stream) {                                                         \
+    return launch<TYPE, W>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da, part,    \
+                           db_part, batch, steps, rows, n_chunks, dx_blocks, stream);            \
+  }
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32, float, 64)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16, __nv_bfloat16, 64)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w32, float, 32)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w32, __nv_bfloat16, 32)
+#undef AWM_LSTM_BWD_ENTRY
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -1,20 +1,22 @@
 // Shapes and helpers shared by the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 //
-// The kernels are compiled for one width: D = H = 64 (the base family's
-// channel count), torch gate order (i, f, g, o).  T is the operand type:
+// The kernels are templates over the width W = D = H, instantiated for
+// W = 64 (the base family's channel count) and W = 32 (the strided family's
+// hidden width), torch gate order (i, f, g, o).  T is the operand type:
 // float for the fp32 contract, __nv_bfloat16 for the bf16 one (bf16
 // operands, every product exact in fp32, fp32 sums and state).
 //
-// Both recurrent kernels are warp-specialised.  A block has 512 threads:
-// warps 0-7 are the consumers, which run the sequential recurrence, and
-// warps 8-15 the producers, which run ahead of them and fill a ring in
-// shared memory with everything of a step that does not depend on the
-// carried state.  Within each role, thread p belongs to hidden unit p / 4
-// and is lane kp = p % 4 of it; it ends each product holding gate kp of its
-// unit, column col(p) = (p % 4) * 64 + p / 4.  The four gates of a unit sit
-// in four neighbouring lanes of one warp and are exchanged by shuffles.
-// (That is the CUDA-core mapping; the bf16 tensor-core paths map lanes as
-// the mma fragments do, see below.)
+// Both recurrent kernels are warp-specialised.  A block has 8 W threads
+// (512 at W = 64, 256 at W = 32): the first half of the warps are the
+// consumers, which run the sequential recurrence, and the second half the
+// producers, which run ahead of them and fill a ring in shared memory with
+// everything of a step that does not depend on the carried state.  Within
+// each role (COLS = 4 W threads, one per gate column), thread p belongs to
+// hidden unit p / 4 and is lane kp = p % 4 of it; it ends each product
+// holding gate kp of its unit, column col(p) = (p % 4) * W + p / 4.  The
+// four gates of a unit sit in four neighbouring lanes of one warp and are
+// exchanged by shuffles.  (That is the CUDA-core mapping; the bf16
+// tensor-core paths map lanes as the mma fragments do, see below.)
 
 #pragma once
 
@@ -26,14 +28,14 @@
 
 namespace awm {
 
-constexpr int D = 64;        // input width
-constexpr int H = 64;        // hidden width
-constexpr int G = 4 * H;     // gate columns
-constexpr int K = D + H;     // terms of one gate's dot product
-constexpr int COLS = G;      // threads of one role: one per gate column
-constexpr int THREADS = 2 * COLS;  // consumers, then producers
+// The shapes of width W.  Every kernel declares them from its W as
+//   D = W (input width), H = W (hidden width), G = 4 W (gate columns),
+//   K = D + H (terms of one gate's dot product), COLS = G (threads of one
+//   role: one per gate column), THREADS = 2 COLS (consumers, then producers).
+template <int W>
+constexpr bool valid_width = W == 32 || W == 64;  // the register-held weight rows: 2 or 4 quads a lane
+
 constexpr int NBUF = 2;      // buffers of the producers' ring
-static_assert(D == 64 && H == 64, "the register-held weight rows are 64 terms long");
 
 // Named barriers (0 is __syncthreads).
 constexpr int BAR_CONS = 1;   // among the consumers, once per step
@@ -83,13 +85,14 @@ __device__ __forceinline__ float activate(int gate, float v) {
   return is_g ? fmaf(2.0f, s, -1.0f) : s;
 }
 
-// One gate column's 64-term dot product is split over the four lanes of
-// its unit: lane kp takes quads 4q + kp, q = 0..3, of the 16 quads (a quad
-// is four consecutive terms), for all four gates, so a lane reads 16 of the
-// 64 operand values from shared memory and not all of them.  The summation
-// order of a gate's pre-activation, shared by the forward and the
-// backward's recompute so that the backward sees the gates the forward used:
-//   a lane's part = its 16 terms in order (q, then the term in the quad),
+// One gate column's W-term dot product is split over the four lanes of
+// its unit: lane kp takes quads 4q + kp, q = 0..NQ-1 (NQ = W / 16), of the
+// W / 4 quads (a quad is four consecutive terms), for all four gates, so a
+// lane reads W / 4 of the W operand values from shared memory and not all
+// of them.  The summation order of a gate's pre-activation, shared by the
+// forward and the backward's recompute so that the backward sees the gates
+// the forward used:
+//   a lane's part = its W / 4 terms in order (q, then the term in the quad),
 //       one running sum from 0 (dot_quad);
 //   a product = the four parts, brought to lane kp = gate by
 //       transpose_reduce4 as (part[g] + part[g^2]) + (part[g^1] + part[g^3]);
@@ -137,38 +140,42 @@ __device__ __forceinline__ void gather_gates(const float act[N], int quad_lane, 
   }
 }
 
-// This lane's 64 weights of the split above, widened into registers for the
-// whole launch (a bf16 widens exactly): w[(m * 4 + q) * 4 + e] = term
-// 4 (4 q + kp) + e of gate m's row for this unit.  Every index is a
-// compile-time constant after unrolling, so w stays in registers.
-template <typename T>
+// This lane's W weights of the split above (4 gates x NQ quads x 4 terms),
+// widened into registers for the whole launch (a bf16 widens exactly):
+// w[(m * NQ + q) * 4 + e] = term 4 (4 q + kp) + e of gate m's row (W terms
+// long) for this unit.  Every index is a compile-time constant after
+// unrolling, so w stays in registers.
+template <int W, typename T>
 __device__ __forceinline__ void load_gate_weights(const T* __restrict__ wmat, int unit, int kp,
-                                                  float w[64]) {
+                                                  float w[W]) {
+  constexpr int NQ = W / 16;
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        w[(m * 4 + q) * 4 + e] = load_f(wmat + (m * H + unit) * 64 + 4 * (4 * q + kp) + e);
+        w[(m * NQ + q) * 4 + e] = load_f(wmat + (m * W + unit) * W + 4 * (4 * q + kp) + e);
 }
 
-// acc[m] += this lane's 16 terms of gate m, m = 0..3; v points at the 64
+// acc[m] += this lane's W / 4 terms of gate m, m = 0..3; v points at the W
 // operand values in shared memory.
-__device__ __forceinline__ void dot_parts(float acc[4], const float w[64], const float* v, int kp) {
+template <int W>
+__device__ __forceinline__ void dot_parts(float acc[4], const float w[W], const float* v, int kp) {
+  constexpr int NQ = W / 16;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     const float4 vq = *reinterpret_cast<const float4*>(v + 4 * (4 * q + kp));
 #pragma unroll
     for (int m = 0; m < 4; ++m)
-      dot_quad(acc[m], w[(m * 4 + q) * 4], w[(m * 4 + q) * 4 + 1], w[(m * 4 + q) * 4 + 2],
-               w[(m * 4 + q) * 4 + 3], vq);
+      dot_quad(acc[m], w[(m * NQ + q) * 4], w[(m * NQ + q) * 4 + 1], w[(m * NQ + q) * 4 + 2],
+               w[(m * NQ + q) * 4 + 3], vq);
   }
 }
 
 // ---- bf16 only: the products on the tensor cores ----
 //
-// D[j][n] = sum_k W[j][k] v[n][k] is one mma.sync.m16n8k16 (bf16 in, products
+// D[j][n] = sum_k Wt[j][k] v[n][k] is one mma.sync.m16n8k16 (bf16 in, products
 // exact, fp32 sums) per 16 rows j and 16 terms k.  A producer's product has
 // no carried state in it, so its N dimension is time, 8 steps n at once; the
 // forward's recurrent product takes the block's rows as n.  A warp takes the
@@ -202,17 +209,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
                : "r"(addr));
 }
 
-// The A fragments of one (G, 64) weight matrix for this warp's 8 units
-// (unit0 = the first): a[tile][kt][0..3], kt = 0..3 over the 64 terms.
+// The A fragments of one (4 W, W) weight matrix for this warp's 8 units
+// (unit0 = the first): a[tile][kt][0..3], kt = 0..W/16-1 over the W terms.
+template <int W>
 __device__ __forceinline__ void load_a_fragments(const __nv_bfloat16* __restrict__ wmat, int unit0,
-                                                 int lane, uint32_t a[2][4][4]) {
+                                                 int lane, uint32_t a[2][W / 16][4]) {
   const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      const __nv_bfloat16* lo = wmat + ((2 * tile) * H + unit0 + g8) * 64 + kt * 16 + 2 * t4;
-      const __nv_bfloat16* hi = lo + H * 64;  // the tile's second gate, same unit
+    for (int kt = 0; kt < W / 16; ++kt) {
+      const __nv_bfloat16* lo = wmat + ((2 * tile) * W + unit0 + g8) * W + kt * 16 + 2 * t4;
+      const __nv_bfloat16* hi = lo + W * W;  // the tile's second gate, same unit
       a[tile][kt][0] = ld32(lo);
       a[tile][kt][1] = ld32(hi);
       a[tile][kt][2] = ld32(lo + 8);
@@ -220,12 +228,13 @@ __device__ __forceinline__ void load_a_fragments(const __nv_bfloat16* __restrict
     }
 }
 
-// c[tile] += A[tile] . v^T over 64 terms: v points at this lane's B row in
-// shared memory (column n = g8's 64 operand values, bf16).
-__device__ __forceinline__ void mma_64(float c[2][4], const uint32_t a[2][4][4],
-                                       const __nv_bfloat16* v, int t4) {
+// c[tile] += A[tile] . v^T over W terms: v points at this lane's B row in
+// shared memory (column n = g8's W operand values, bf16).
+template <int W>
+__device__ __forceinline__ void mma_w(float c[2][4], const uint32_t a[2][W / 16][4],
+                                      const __nv_bfloat16* v, int t4) {
 #pragma unroll
-  for (int kt = 0; kt < 4; ++kt) {
+  for (int kt = 0; kt < W / 16; ++kt) {
     const uint32_t b0 = ld32(v + kt * 16 + 2 * t4), b1 = ld32(v + kt * 16 + 8 + 2 * t4);
     mma_bf16(c[0], a[0][kt], b0, b1);
     mma_bf16(c[1], a[1][kt], b0, b1);

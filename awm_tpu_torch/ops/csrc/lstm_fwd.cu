@@ -10,12 +10,17 @@
 //   shifted by one step, and the backward (lstm_bwd.cu) rebuilds it from y.
 // Like those kernels it computes the input projection x_t @ W_ih^T + b
 // inside its own body, then the cell step gates = xp_t + h_{t-1} @ W_hh^T,
-// gate order (i, f, g, o).  y and c_{t-1} are batch-major (B, T, 64), the
+// gate order (i, f, g, o).  y and c_{t-1} are batch-major (B, T, W), the
 // port's layout; the TPU kernels' time-major layout is not carried over.
+// W = D = H is a template parameter, instantiated for 64 (the base family,
+// T = 16000 steps a 1-s chunk) and 32 (the strided family's two stacked
+// LSTMs, T = 50 steps a chunk); lstm_common.cuh has the thread mapping.
 //
-// What bounds it on this card: the recurrence is sequential in T (16000
-// steps per 1-s chunk), so the time is the latency of one step times T, not
-// bytes or FLOPs (the whole call's bound is a few ms at most).  A step's
+// What bounds it on this card: the recurrence is sequential in T, so the
+// time is the latency of one step times T, not bytes or FLOPs (the whole
+// call's bound is a few ms at most at T = 16000).  At T = 50 a launch's
+// fixed cost (the weights into registers, the producers' first chunk) is a
+// large part of the time as well.  A step's
 // latency is its dependent chain: read h, the products, two shuffle
 // exchanges, the gate activations, the cell update and tanh c, write h, one
 // barrier; and a warp runs its instructions in order, so whatever else the
@@ -24,9 +29,10 @@
 //   or 4) is chosen by the caller from the batch, the card's SM count and
 //   the measured cost of a step of R rows (ops/lstm_kernel.py::launch_plan);
 // - every weight lives in a register for the whole launch (bf16 weights
-//   are widened, or packed into mma fragments, once).  A 64-term product is
+//   are widened, or packed into mma fragments, once).  A W-term product is
 //   split over the four lanes of its unit (lstm_common.cuh), so a step reads
-//   16 of the 64 h values per thread from shared memory, four 16-byte loads;
+//   W / 4 of the W h values per thread from shared memory, W / 16 16-byte
+//   loads;
 // - the input projection is off the sequential path: the producer warps
 //   compute xp = x . W_ih + b for a chunk of 16 steps into a two-buffer ring
 //   in shared memory, one chunk or more ahead of the consumers, prefetching
@@ -67,47 +73,50 @@ constexpr int S = 16;  // steps per chunk of the ring
 
 // Row stride of the staged x: the bf16 rows are read as mma B fragments, 8
 // rows at a time, and the pad puts them in distinct banks.
-template <typename T> constexpr int XP = is_bf16<T> ? D + 8 : D;
+template <typename T, int W> constexpr int XP = is_bf16<T> ? W + 8 : W;
 
 // h_{t-1} in shared memory, double-buffered, in the operand type.  fp32: R
-// rows of 64.  bf16: the B operand of the recurrent mma, 8 rows (those from
+// rows of W.  bf16: the B operand of the recurrent mma, 8 rows (those from
 // R on stay zero) with the same pad.
 template <typename T, int R> constexpr int H_ROWS = is_bf16<T> ? 8 : R;
 
-template <typename T, int R>
+template <typename T, int R, int W>
 constexpr int fwd_smem_bytes() {
-  return (int)(sizeof(float) * NBUF * S * R * COLS +
-               sizeof(T) * (2 * H_ROWS<T, R> * XP<T> + R * S * XP<T>));
+  return (int)(sizeof(float) * NBUF * S * R * 4 * W +
+               sizeof(T) * (2 * H_ROWS<T, R> * XP<T, W> + R * S * XP<T, W>));
 }
 
-template <typename T, bool TRAIN, int R>
-__global__ void __launch_bounds__(THREADS, 1)
+template <typename T, bool TRAIN, int R, int W>
+__global__ void __launch_bounds__(8 * W, 1)
 lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
                 const T* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
+  static_assert(valid_width<W>, "instantiated for W = 32 and 64");
+  constexpr int D = W, H = W, COLS = 4 * W, THREADS = 2 * COLS;
+  constexpr int XPW = XP<T, W>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_ring = reinterpret_cast<float*>(smem);  // [NBUF][S][R][COLS]: xp of thread p's column
   T* s_h = reinterpret_cast<T*>(s_ring + NBUF * S * R * COLS);  // [2][H_ROWS][XP]: h_{t-1}
-  T* s_x = s_h + 2 * H_ROWS<T, R> * XP<T>;                      // [R][S][XP]: the chunk's x
+  T* s_x = s_h + 2 * H_ROWS<T, R> * XPW;                        // [R][S][XP]: the chunk's x
 
   const int p = threadIdx.x & (COLS - 1);
   const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
   const int row0 = blockIdx.x * R;
   const int n_chunks = (steps + S - 1) / S;
-  float w[64];
+  float w[W];
 
   if (threadIdx.x >= COLS) {
     // ---- producers: xp = x . W_ih + b, a chunk at a time ----
     const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
     const int unit_t = (unit & ~7) + g8;  // the unit whose gates this lane holds after an mma
-    uint32_t a_ih[2][4][4];
+    uint32_t a_ih[2][W / 16][4];
     float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if constexpr (is_bf16<T>) {
-      load_a_fragments(w_ih, unit & ~7, lane, a_ih);
+      load_a_fragments<W>(w_ih, unit & ~7, lane, a_ih);
 #pragma unroll
       for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
     } else {
-      load_gate_weights(w_ih, unit, gate, w);
+      load_gate_weights<W>(w_ih, unit, gate, w);
       b = bias[col];
     }
     constexpr int PER = R * S * D / COLS;  // staged x values per thread and chunk
@@ -128,7 +137,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int e = i * COLS + p;
-        store_f(s_x + (e / D) * XP<T> + e % D, xr[i]);
+        store_f(s_x + (e / D) * XPW + e % D, xr[i]);
       }
       if (c + 1 < n_chunks) fetch(c + 1);
       bar_sync(BAR_PROD, COLS);
@@ -141,7 +150,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
 #pragma unroll
           for (int nt = 0; nt < S / 8; ++nt) {
             float c[2][4] = {{b4[0], b4[0], b4[1], b4[1]}, {b4[2], b4[2], b4[3], b4[3]}};
-            mma_64(c, a_ih, s_x + (r * S + nt * 8 + g8) * XP<T>, t4);
+            mma_w<W>(c, a_ih, s_x + (r * S + nt * 8 + g8) * XPW, t4);
 #pragma unroll
             for (int e = 0; e < 2; ++e)
               *reinterpret_cast<float4*>(ring + ((nt * 8 + 2 * t4 + e) * R + r) * COLS + unit_t * 4) =
@@ -158,7 +167,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
             for (int r = 0; r < R; ++r) {
 #pragma unroll
               for (int m = 0; m < 4; ++m) acc[ss * R + r][m] = 0.0f;
-              dot_parts(acc[ss * R + r], w, s_x + (r * S + s0 + ss) * D, gate);
+              dot_parts<W>(acc[ss * R + r], w, s_x + (r * S + s0 + ss) * D, gate);
             }
           transpose_reduce4<2, 1, SU * R>(acc, gate & 2, gate & 1, px);
 #pragma unroll
@@ -172,7 +181,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
   }
 
   // ---- consumers: the recurrence ----
-  for (int idx = p; idx < 2 * H_ROWS<T, R> * XP<T>; idx += COLS) store_f(s_h + idx, 0.0f);  // h_{-1} = 0
+  for (int idx = p; idx < 2 * H_ROWS<T, R> * XPW; idx += COLS) store_f(s_h + idx, 0.0f);  // h_{-1} = 0
   bar_sync(BAR_CONS, COLS);
   int cur = 0;
 
@@ -185,8 +194,8 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
     static_assert(R <= 4, "row r is column 2 r of an 8-column tile");
     const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
     const int unit_t = (unit & ~7) + g8;
-    uint32_t a_hh[2][4][4];
-    load_a_fragments(w_hh, unit & ~7, lane, a_hh);
+    uint32_t a_hh[2][W / 16][4];
+    load_a_fragments<W>(w_hh, unit & ~7, lane, a_hh);
     float c_state = 0.0f;
     const bool live = t4 < R, store = live && row0 + t4 < batch;
     size_t at = (size_t)(row0 + t4) * steps * H + unit_t;  // (row, t, unit_t) of y and cprev
@@ -196,21 +205,21 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
       const float* ring = s_ring + buf * S * R * COLS;
       const int n = steps - c * S < S ? steps - c * S : S;
       for (int s = 0; s < n; ++s) {
-        const T* h_prev = s_h + cur * 8 * XP<T>;
-        T* h_next = s_h + (cur ^ 1) * 8 * XP<T>;
+        const T* h_prev = s_h + cur * 8 * XPW;
+        T* h_next = s_h + (cur ^ 1) * 8 * XPW;
         float g[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
         if (live) {
           const float4 xp = *reinterpret_cast<const float4*>(ring + (s * R + t4) * COLS + unit_t * 4);
           g[0][0] = xp.x; g[0][2] = xp.y; g[1][0] = xp.z; g[1][2] = xp.w;
         }
-        mma_64(g, a_hh, h_prev + g8 * XP<T>, t4);
+        mma_w<W>(g, a_hh, h_prev + g8 * XPW, t4);
         if (live) {
           const float ig = sigmoid(g[0][0]), fg = sigmoid(g[0][2]);
           const float gg = tanh_sig(g[1][0]), og = sigmoid(g[1][2]);
           if (TRAIN && store) cprev[at] = c_state;
           c_state = fg * c_state + ig * gg;
           const float h = og * tanh_sig(c_state);
-          store_f(h_next + 2 * t4 * XP<T> + unit_t, h);
+          store_f(h_next + 2 * t4 * XPW + unit_t, h);
           if (store) store_f(y + at, h);
           at += H;
         }
@@ -220,7 +229,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
       if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
     }
   } else {
-    load_gate_weights(w_hh, unit, gate, w);
+    load_gate_weights<W>(w_hh, unit, gate, w);
     float c_state[R];
     const int quad_lane = (threadIdx.x & 31) & ~3;  // lane of this unit's gate i
     // Each of the unit's four lanes carries c; lane i stores y, c_{t-1} and h.
@@ -245,7 +254,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
         for (int r = 0; r < R; ++r) {
 #pragma unroll
           for (int m = 0; m < 4; ++m) ph[r][m] = 0.0f;
-          dot_parts(ph[r], w, h_prev + r * H, gate);
+          dot_parts<W>(ph[r], w, h_prev + r * H, gate);
         }
         // Phase by phase over the rows, so that the rows' latencies overlap.
         float pre[R], act[R], ig[R], fg[R], gg[R], og[R], h[R];
@@ -273,26 +282,26 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
   }
 }
 
-template <typename T, bool TRAIN, int R>
+template <typename T, bool TRAIN, int R, int W>
 int launch_rows(const void* x, const void* w_ih, const void* w_hh, const float* bias,
                 void* y, float* cprev, int batch, int steps, void* stream) {
-  constexpr int smem = fwd_smem_bytes<T, R>();
+  constexpr int smem = fwd_smem_bytes<T, R, W>();
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<T, TRAIN, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      lstm_fwd_kernel<T, TRAIN, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (batch + R - 1) / R;
-  lstm_fwd_kernel<T, TRAIN, R><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  lstm_fwd_kernel<T, TRAIN, R, W><<<blocks, 8 * W, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w_ih, (const T*)w_hh, bias, (T*)y, cprev, batch, steps);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool TRAIN>
+template <typename T, bool TRAIN, int W>
 int launch(const void* x, const void* w_ih, const void* w_hh, const float* bias,
            void* y, float* cprev, int batch, int steps, int rows, void* stream) {
   switch (rows) {
-    case 1: return launch_rows<T, TRAIN, 1>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
-    case 2: return launch_rows<T, TRAIN, 2>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
-    case 4: return launch_rows<T, TRAIN, 4>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 1: return launch_rows<T, TRAIN, 1, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 2: return launch_rows<T, TRAIN, 2, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 4: return launch_rows<T, TRAIN, 4, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -301,30 +310,54 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const float* bias,
 
 extern "C" {
 
-// x: (B, T, 64), w_ih: (256, 64), w_hh: (256, 64), bias: (256,) fp32,
-// y: (B, T, 64), all in the instantiation's type except bias; all
-// contiguous on the current device.  rows: batch rows per block, 1, 2 or 4
-// (ceil(B / rows) blocks).  Returns the cudaError_t of the launch
-// (0 = launched).
+// Width 64 (no suffix) and width 32 (_w32).  x: (B, T, W), w_ih: (4W, W),
+// w_hh: (4W, W), bias: (4W,) fp32, y: (B, T, W), all in the
+// instantiation's type except bias; all contiguous on the current device.
+// rows: batch rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  Returns
+// the cudaError_t of the launch (0 = launched).
 int awm_lstm_fwd_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
                      void* y, int batch, int steps, int rows, void* stream) {
-  return launch<float, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
+  return launch<float, false, 64>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
 }
 
 int awm_lstm_fwd_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
                       void* y, int batch, int steps, int rows, void* stream) {
-  return launch<__nv_bfloat16, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
+  return launch<__nv_bfloat16, false, 64>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows,
+                                          stream);
 }
 
-// As above, plus cprev: (B, T, 64) fp32, c_{t-1} of every step.
+int awm_lstm_fwd_f32_w32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+                         void* y, int batch, int steps, int rows, void* stream) {
+  return launch<float, false, 32>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
+}
+
+int awm_lstm_fwd_bf16_w32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+                          void* y, int batch, int steps, int rows, void* stream) {
+  return launch<__nv_bfloat16, false, 32>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows,
+                                          stream);
+}
+
+// As above, plus cprev: (B, T, W) fp32, c_{t-1} of every step.
 int awm_lstm_fwd_train_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
                            void* y, float* cprev, int batch, int steps, int rows, void* stream) {
-  return launch<float, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
+  return launch<float, true, 64>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
 }
 
 int awm_lstm_fwd_train_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
                             void* y, float* cprev, int batch, int steps, int rows, void* stream) {
-  return launch<__nv_bfloat16, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
+  return launch<__nv_bfloat16, true, 64>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
+}
+
+int awm_lstm_fwd_train_f32_w32(const void* x, const void* w_ih, const void* w_hh,
+                               const float* bias, void* y, float* cprev, int batch, int steps,
+                               int rows, void* stream) {
+  return launch<float, true, 32>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
+}
+
+int awm_lstm_fwd_train_bf16_w32(const void* x, const void* w_ih, const void* w_hh,
+                                const float* bias, void* y, float* cprev, int batch, int steps,
+                                int rows, void* stream) {
+  return launch<__nv_bfloat16, true, 32>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
 }
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -2,14 +2,18 @@
 
 Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - A, lstm_pallas_forward (pallas_call at line 157): forward_kernel,
-  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16};
+  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32];
 - B, _forward_train (line 342): forward_train_kernel, the same source with
-  its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16};
+  its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu,
-  instantiations lstm_bwd_{f32,bf16}.
-On that card each is bound by the latency of one step of the 16000-step
-recurrence, not by bytes or FLOPs.  What the designs do about it (the
-sources' headers have the detail): a block owns a few batch rows and runs
+  instantiations lstm_bwd_{f32,bf16}[_w32].
+Each is compiled for two widths D = H = W: 64 (the base family, no suffix)
+and 32 (the strided family, suffix _w32); the width comes from w_hh's
+second axis, and any other width raises.  On that card each is bound by the
+latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
+at W = 64; at W = 32 the strided family's 50 steps take less device time
+than the wrapper's host work around the launch.  What the designs do about
+it (the sources' headers have the detail): a block owns a few batch rows and runs
 all T steps; every weight of the recurrence sits in a register for the whole
 launch; the work of a step that does not depend on the carried state (the
 input projection in A and B, the whole gate recompute in C) is done by
@@ -19,12 +23,13 @@ product on the tensor cores (mma.sync: bf16 in, exact products, fp32 sums),
 the recurrent one with the block's rows as the tile's N; the fp32 ones stay
 on the CUDA cores in full fp32, no TF32.
 
-The launch plan (launch_plan) is computed here, in Python, from the batch and
-the card's SM count, and handed to the C entry points: rows per block (1, 2
-or 4 forward, 1 or 2 backward: the rows that finish the batch soonest, by
-the waves of blocks the card needs and the measured cost of a step of that
-many rows, so B=128 takes 128 blocks of one row and B=512 128 blocks of
-four), the backward's scratch shapes and its dx and dW grids.
+The launch plan (launch_plan) is computed here, in Python, from the batch,
+the width and the card's SM count, and handed to the C entry points: rows
+per block (1, 2 or 4 forward, 1 or 2 backward: the rows that finish the
+batch soonest, by the waves of blocks the card needs and the measured cost
+of a step of that many rows at that width, so B=128 takes 128 blocks of one
+row and B=512 128 blocks of four), the backward's scratch shapes and its dx
+and dW grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -53,47 +58,73 @@ from awm_tpu_torch.ops.lstm import (
     matmul_dtype,
 )
 
-INPUT = 64  # D the kernels are compiled for
-HIDDEN = 64  # H the kernels are compiled for
-GATES = 4 * HIDDEN
+WIDTHS = (64, 32)  # D = H the kernels are compiled for
 SOURCES = ("lstm_fwd", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
+KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+
+
+def instantiation(kernel: str, dtype: torch.dtype, width: int) -> str:
+    """The name of one compiled instantiation: lstm_fwd_f32 (width 64),
+    lstm_fwd_bf16_w32 (width 32), ...  Its C entry point is awm_<name>."""
+    sfx = "bf16" if matmul_dtype(dtype) == torch.bfloat16 else "f32"
+    return f"{kernel}_{sfx}" + ("" if width == 64 else f"_w{width}")
+
+
+# Each kernel against its plain version on the card, by (kernel, operand
+# type) at every width (chip_smoke.py and ops/bench_lstm.py --check).  fp32:
+# the same arithmetic in another summation order.  bf16: both round x, the
+# weights and the recurrent h at the same points, so an h that lands on the
+# other side of a bf16 rounding boundary is the largest difference (the TPU
+# kernel's bf16 bound, tests/test_pallas.py:106).  A and B: max abs error of
+# y (and cprev).  C: max abs error of each of dx, dW_ih, dW_hh, db over that
+# tensor's max abs value; bf16 rounds da, and dx is stored bf16 (one ulp is
+# 2^-8).
+KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
+              ("lstm_fwd_train", "f32"): 1e-4, ("lstm_fwd_train", "bf16"): 5e-2,
+              ("lstm_bwd", "f32"): 1e-4, ("lstm_bwd", "bf16"): 1e-2}
+
 
 # Launches of each instantiation since import (or since a caller zeroed
 # them); chip_smoke.py reads them to show that the main paths went through
 # the kernels.  A call counts once: a forward call is one launch, a backward
 # call four (the recurrence, dx, dW, the ordered sum).
-launches = {
-    "lstm_fwd_f32": 0, "lstm_fwd_bf16": 0,
-    "lstm_fwd_train_f32": 0, "lstm_fwd_train_bf16": 0,
-    "lstm_bwd_f32": 0, "lstm_bwd_bf16": 0,
-}
+launches = {instantiation(k, dt, w): 0
+            for w in WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log = ""
 
 # Rows per block each recurrent kernel is instantiated for, with the time of
-# one step of a block of that many rows relative to a block of one row
-# (measured with ops/bench_lstm.py --variants on an H100, T=16000; PERF.md
-# has the times).  A step is bound by latency, so a second row costs less
-# than the first, but not nothing.
+# one call of blocks of that many rows relative to blocks of one row, by
+# (width, operand dtype), measured with ops/bench_lstm.py --variants on an
+# H100 (PERF.md has the times): width 64 at T=16000; width 32 at T=50 from
+# the kernels' device time at B=128, where every variant is one wave (a
+# call's CUDA-event time there is the host's).  A step is bound by latency,
+# so a second row costs less than the first, but not nothing.
 FWD_STEP_COST = {
-    torch.float32: {1: 1.0, 2: 1.32, 4: 2.4},
-    torch.bfloat16: {1: 1.0, 2: 1.08, 4: 1.3},
+    (64, torch.float32): {1: 1.0, 2: 1.32, 4: 2.4},
+    (64, torch.bfloat16): {1: 1.0, 2: 1.08, 4: 1.3},
+    (32, torch.float32): {1: 1.0, 2: 1.08, 4: 2.31},
+    (32, torch.bfloat16): {1: 1.0, 2: 1.04, 4: 1.19},
 }
 BWD_STEP_COST = {
-    torch.float32: {1: 1.0, 2: 2.1},
-    torch.bfloat16: {1: 1.0, 2: 1.58},
+    (64, torch.float32): {1: 1.0, 2: 2.1},
+    (64, torch.bfloat16): {1: 1.0, 2: 1.58},
+    (32, torch.float32): {1: 1.0, 2: 1.32},
+    (32, torch.bfloat16): {1: 1.0, 2: 1.14},
 }
-FWD_ROWS = tuple(FWD_STEP_COST[torch.float32])
-BWD_ROWS = tuple(BWD_STEP_COST[torch.float32])
-DW_CHUNK_ROWS = 2048  # least rows of the (B*T) axis per dW chunk
+FWD_ROWS = (1, 2, 4)
+BWD_ROWS = (1, 2)
+DW_CHUNK_ROWS = 2048  # rows of the (B*T) axis per dW chunk where rows are many
+DW_MIN_CHUNK_ROWS = 64  # least rows per chunk where they are few (T = 50)
 DW_MAX_CHUNKS = 256
 DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How one (batch, steps, dtype) call is cut over a card of sm_count SMs."""
+    """How one (batch, steps, dtype, width) call is cut over a card of
+    sm_count SMs."""
 
     fwd_rows: int  # batch rows per block, kernels A and B
     fwd_blocks: int
@@ -119,28 +150,39 @@ def _rows_per_block(batch: int, sm_count: int, step_cost: dict[int, float]) -> i
     return min(step_cost, key=lambda rows: (cost(rows), rows))
 
 
-def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int) -> LaunchPlan:
+def _check_width(width: int) -> None:
+    if width not in WIDTHS:
+        raise ValueError(f"lstm kernels are compiled for widths {WIDTHS} (D = H), got {width}")
+
+
+def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
+                width: int) -> LaunchPlan:
     """The plan of one call: pure, so the CPU tests reach it."""
     if batch < 1 or steps < 1 or sm_count < 1:
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
+    _check_width(width)
     mm = matmul_dtype(dtype)
-    fwd_rows = _rows_per_block(batch, sm_count, FWD_STEP_COST[mm])
-    bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[mm])
+    fwd_rows = _rows_per_block(batch, sm_count, FWD_STEP_COST[width, mm])
+    bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[width, mm])
     bwd_blocks = -(-batch // bwd_rows)
     n_rows = batch * steps
-    n_chunks = max(1, min(DW_MAX_CHUNKS, -(-n_rows // DW_CHUNK_ROWS)))
+    # Chunks of DW_CHUNK_ROWS, but enough for one dW block an SM while each
+    # keeps DW_MIN_CHUNK_ROWS (B=128 at T=50 has 6400 rows: 4 chunks would
+    # leave 128 SMs idle), and no more than DW_MAX_CHUNKS partials to sum.
+    n_chunks = max(1, min(DW_MAX_CHUNKS, max(-(-n_rows // DW_CHUNK_ROWS),
+                                             min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows),
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
         n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
-        da_shape=(batch, steps, GATES), da_dtype=mm,
-        part_shape=(n_chunks, GATES, INPUT + HIDDEN), db_part_shape=(bwd_blocks, GATES),
+        da_shape=(batch, steps, 4 * width), da_dtype=mm,
+        part_shape=(n_chunks, 4 * width, 2 * width), db_part_shape=(bwd_blocks, 4 * width),
     )
 
 
 def _plan_for(x: torch.Tensor) -> LaunchPlan:
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return launch_plan(x.shape[0], x.shape[1], x.dtype, sm_count)
+    return launch_plan(x.shape[0], x.shape[1], x.dtype, sm_count, width=x.shape[2])
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
@@ -151,15 +193,15 @@ def libraries() -> dict[str, ctypes.CDLL]:
         built = cuda_build.load_all(SOURCES)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fwd, bwd = built["lstm_fwd"][0], built["lstm_bwd"][0]
-        for fn in (fwd.awm_lstm_fwd_f32, fwd.awm_lstm_fwd_bf16):
-            fn.argtypes = [ptr] * 5 + [i, i, i, ptr]
-        for fn in (fwd.awm_lstm_fwd_train_f32, fwd.awm_lstm_fwd_train_bf16):
-            fn.argtypes = [ptr] * 6 + [i, i, i, ptr]
-        for fn in (bwd.awm_lstm_bwd_f32, bwd.awm_lstm_bwd_bf16):
-            fn.argtypes = [ptr] * 14 + [i, i, i, i, i, ptr]
-        for fn in (fwd.awm_lstm_fwd_f32, fwd.awm_lstm_fwd_bf16, fwd.awm_lstm_fwd_train_f32,
-                   fwd.awm_lstm_fwd_train_bf16, bwd.awm_lstm_bwd_f32, bwd.awm_lstm_bwd_bf16):
-            fn.restype = ctypes.c_int
+        argtypes = {"lstm_fwd": [ptr] * 5 + [i, i, i, ptr],
+                    "lstm_fwd_train": [ptr] * 6 + [i, i, i, ptr],
+                    "lstm_bwd": [ptr] * 14 + [i, i, i, i, i, ptr]}
+        for w in WIDTHS:
+            for kernel in KERNELS:
+                for dt in (torch.float32, torch.bfloat16):
+                    lib = bwd if kernel == "lstm_bwd" else fwd
+                    fn = getattr(lib, f"awm_{instantiation(kernel, dt, w)}")
+                    fn.argtypes, fn.restype = argtypes[kernel], ctypes.c_int
         for lib in (fwd, bwd):
             lib.awm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.awm_cuda_error_string.restype = ctypes.c_char_p
@@ -168,13 +210,19 @@ def libraries() -> dict[str, ctypes.CDLL]:
     return _libs
 
 
-def _check_x_weights(x, w_ih, w_hh, b):
+def _check_x_weights(x, w_ih, w_hh, b) -> int:
+    """Checks the operands of one call; returns the width W = D = H."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"lstm kernel takes float32 or bfloat16 x, got {x.dtype}")
-    if x.dim() != 3 or x.shape[2] != INPUT:
-        raise ValueError(f"lstm kernel takes x of shape (B, T, {INPUT}), got {tuple(x.shape)}")
+    if w_hh.dim() != 2:
+        raise ValueError(f"lstm kernel takes a 2-D w_hh, got {tuple(w_hh.shape)}")
+    width = w_hh.shape[1]
+    _check_width(width)
+    if x.dim() != 3 or x.shape[2] != width:
+        raise ValueError(f"lstm kernel takes x of shape (B, T, {width}), got {tuple(x.shape)}")
     for name, t, shape in (
-        ("w_ih", w_ih, (GATES, INPUT)), ("w_hh", w_hh, (GATES, HIDDEN)), ("b", b, (GATES,)),
+        ("w_ih", w_ih, (4 * width, width)), ("w_hh", w_hh, (4 * width, width)),
+        ("b", b, (4 * width,)),
     ):
         if tuple(t.shape) != shape:
             raise ValueError(f"lstm kernel takes {name} of shape {shape}, got {tuple(t.shape)}")
@@ -184,6 +232,7 @@ def _check_x_weights(x, w_ih, w_hh, b):
         raise ValueError("lstm kernel takes a contiguous x")
     if max(x.shape[0], x.shape[1]) >= 2**31:
         raise ValueError("lstm kernel takes B and T below 2**31 (C int arguments)")
+    return width
 
 
 def _check_stream(name, t, shape, dtype, device):
@@ -210,20 +259,16 @@ def _launch(lib_name: str, name: str, x: torch.Tensor, *args) -> None:
     launches[name] += 1
 
 
-def _suffix(mm: torch.dtype) -> str:
-    return "bf16" if mm == torch.bfloat16 else "f32"
-
-
 def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None) -> torch.Tensor:
-    """Kernel A: (B, T, 64) -> y (B, T, 64) in x's dtype, on the card.
-    rows overrides the plan's rows per block (for tests and timing)."""
-    _check_x_weights(x, w_ih, w_hh, b)
+    """Kernel A: (B, T, W) -> y (B, T, W) in x's dtype, on the card, W = 64
+    or 32.  rows overrides the plan's rows per block (for tests and timing)."""
+    width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    y = torch.empty(bsz, t, HIDDEN, dtype=x.dtype, device=x.device)
+    y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
     if bsz == 0 or t == 0:
         return y
     mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
-    _launch("lstm_fwd", f"lstm_fwd_{_suffix(mm)}", x, x.data_ptr(), w_ih.data_ptr(),
+    _launch("lstm_fwd", instantiation("lstm_fwd", mm, width), x, x.data_ptr(), w_ih.data_ptr(),
             w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, rows or _plan_for(x).fwd_rows)
     return y
 
@@ -231,48 +276,48 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None) -> torch.Tensor:
 def forward_train_kernel(
     x, w_ih, w_hh, b, rows: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B: (B, T, 64) -> (y in x's dtype, cprev fp32), both
-    (B, T, 64), on the card.  rows as in forward_kernel."""
-    _check_x_weights(x, w_ih, w_hh, b)
+    """Kernel B: (B, T, W) -> (y in x's dtype, cprev fp32), both
+    (B, T, W), on the card.  rows as in forward_kernel."""
+    width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    y = torch.empty(bsz, t, HIDDEN, dtype=x.dtype, device=x.device)
-    cprev = torch.empty(bsz, t, HIDDEN, dtype=torch.float32, device=x.device)
+    y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
+    cprev = torch.empty(bsz, t, width, dtype=torch.float32, device=x.device)
     if bsz == 0 or t == 0:
         return y, cprev
     mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
-    _launch("lstm_fwd", f"lstm_fwd_train_{_suffix(mm)}", x, x.data_ptr(), w_ih.data_ptr(),
-            w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(), bsz, t,
+    _launch("lstm_fwd", instantiation("lstm_fwd_train", mm, width), x, x.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(), bsz, t,
             rows or _plan_for(x).fwd_rows)
     return y, cprev
 
 
 def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
-    y and cprev are forward_train_kernel's outputs, dy is fp32 (B, T, 64).
-    Scratch, shaped by the plan: da (B, T, 256) in the operand type, chunk
+    y and cprev are forward_train_kernel's outputs, dy is fp32 (B, T, W).
+    Scratch, shaped by the plan: da (B, T, 4W) in the operand type, chunk
     partials of dW, db per recurrent block.  rows overrides the plan's rows
     per block of the recurrent kernel (for tests and timing)."""
-    _check_x_weights(x, w_ih, w_hh, b)
+    width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    shape = (bsz, t, HIDDEN)
+    shape = (bsz, t, width)
     _check_stream("y", y, shape, x.dtype, x.device)
     _check_stream("cprev", cprev, shape, torch.float32, x.device)
     _check_stream("dy", dy, shape, torch.float32, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.zeros_like(x)
-    dw_ih, dw_hh = torch.zeros(GATES, INPUT, **f32), torch.zeros(GATES, HIDDEN, **f32)
-    db = torch.zeros(GATES, **f32)
+    dw_ih, dw_hh = torch.zeros(4 * width, width, **f32), torch.zeros(4 * width, width, **f32)
+    db = torch.zeros(4 * width, **f32)
     if bsz == 0 or t == 0:
         return dx, dw_ih, dw_hh, db
     mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
     plan = _plan_for(x)
     if rows is not None:
         plan = dataclasses.replace(plan, bwd_rows=rows, bwd_blocks=-(-bsz // rows),
-                                   db_part_shape=(-(-bsz // rows), GATES))
+                                   db_part_shape=(-(-bsz // rows), 4 * width))
     da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
     part = torch.empty(plan.part_shape, **f32)
     db_part = torch.empty(plan.db_part_shape, **f32)
-    _launch("lstm_bwd", f"lstm_bwd_{_suffix(mm)}", x,
+    _launch("lstm_bwd", instantiation("lstm_bwd", mm, width), x,
             x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(), w_ih.data_ptr(),
             w_hh.data_ptr(), b.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(),
             db.data_ptr(), da.data_ptr(), part.data_ptr(), db_part.data_ptr(), bsz, t,

@@ -210,16 +210,22 @@ def section_cross(sess, clips: np.ndarray, torch_detector: str, batch: int):
 
 def load_checkpoint(args, *, shaping: bool = True):
     """(session, best_val) over --ckpt: its recorded architecture (the arch
-    flags only validate against it), its shaping chain unless shaping=False,
-    on --device in --compute-dtype."""
+    flags only validate against it; a checkpoint without a sidecar takes
+    --preset's), its shaping chain unless shaping=False, on --device in
+    --compute-dtype."""
     import torch
 
     from awm_tpu_torch.api import InferenceSession
     from awm_tpu_torch.checkpoint import configs_from_arch, read_arch, restore_params
-    from awm_tpu_torch.config import AUDIO_LEN
+    from awm_tpu_torch.config import AUDIO_LEN, get_config
     from awm_tpu_torch.models import build_models
 
-    model, shaping_cfg = configs_from_arch(read_arch(args.ckpt))
+    recorded = read_arch(args.ckpt)
+    if recorded is None:
+        preset = get_config(args.preset)
+        model, shaping_cfg = preset.model, preset.shaping
+    else:
+        model, shaping_cfg = configs_from_arch(recorded)
     for flag in ("message_encoding", "decode_head"):
         given = getattr(args, flag, None)
         if given and given != getattr(model, flag):
@@ -236,6 +242,9 @@ def load_checkpoint(args, *, shaping: bool = True):
 
 def add_checkpoint_args(ap) -> None:
     ap.add_argument("--ckpt", required=True, help="checkpoint directory of the port")
+    ap.add_argument("--preset", default="base",
+                    help="architecture of a checkpoint without an awm_arch.json (base, light, "
+                         "onecycle20, quality, ft_robust, strided); a recorded one wins")
     ap.add_argument("--synthetic-n", type=int, default=24576)
     ap.add_argument("--audio-len", type=int, default=None,
                     help="chunk length in samples (default 16000; tests use short chunks)")

@@ -9,7 +9,9 @@ hand-written CUDA LSTM kernels: the serving path (embed -> detect, 512-chunk
 bucket; kernel A), the joint train step (B=128; kernels B and C under
 LSTMFunction, A in validation), and the robust path (the train step under the
 channel-attack curriculum, and the 12-attack robustness sweep of
-eval.evaluate_robustness).  Phases:
+eval.evaluate_robustness); then the strided family (main14b_2) at its
+published width, whose two stacked LSTM(32) run the kernels' width-32
+instantiations over 50 steps a chunk.  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build ops/csrc/lstm_fwd.cu and lstm_bwd.cu with nvcc for sm_90a, in
@@ -20,7 +22,10 @@ eval.evaluate_robustness).  Phases:
    picks, and C twice for equal bits; then every rows-per-block variant the
    plan can pick, at B=1, a ragged B=7, B=128 (and B=512 for A) and at T
    shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
-   LSTMFunction's gradients against autograd of the plain forward;
+   LSTMFunction's gradients against autograd of the plain forward; then
+   every width-32 instantiation at every rows variant, B in (1, 7, 128) by
+   T in (1, 2, 3, 37, 50, 800) and A at (512, 50), and two stacked
+   LSTMFunction layers' gradients at width 32;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -68,7 +73,15 @@ eval.evaluate_robustness).  Phases:
 11. the tools on the shapecap checkpoint, bf16: demo_eval (quality, ecc,
    music; n=1024) beside evidence/r5/shapecap/demo_eval.json, bit_diagnostic
    (n=256) beside evidence/r5/shapecap/per_bit.txt;
-12. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
+12. the strided family, counters zeroed just before (strided_phase): the
+   fp32 session on seeded weights vs assets/strided_golden.npz, one fp32
+   train step vs its JAX train golden, ``train --preset strided`` (bf16,
+   B=128, 3 steps and one validation, --ckpt-dir), a session over that
+   checkpoint round-trips an 8-s waveform, ``demo_eval --preset strided``
+   (quality), and a main14b_2 .pth pair through ``detect --preset strided
+   --torch-generator/--torch-detector`` on the card equal to the CPU; all six
+   width-32 instantiations must have launched there;
+13. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
    yardstick only), embed+detect clips/s at B=512, train-step clips/s at
    B=128 clean and under the curriculum, and the 12-attack sweep's wall time
    at n=128, per compute dtype, with the step's peak memory, a profile of
@@ -76,8 +89,13 @@ eval.evaluate_robustness).  Phases:
    (recurrence, dx, dW, sum); the bf16 server under tools/serve_load.py's
    load (32 clients, 8-s requests): requests/s, audio s/s, clips/s beside
    the session's embed+detect clips/s, p50/p99 latency, chunks per device
-   batch, with the host/device split of a request;
-13. print the {"kernels": [...]} line, and last the {"ok": true, ...} line.
+   batch, with the host/device split of a request; the width-32 kernels at
+   T=50 (A at B=512, B and C at B=128) beside their plain versions,
+   nn.LSTM(32) and the least time of 50 dependent steps; the strided
+   embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
+   dtype, with peak memory and a profile of one bf16 step;
+14. print the {"kernels": [...]} line (12 instantiations), and last the
+   {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.
@@ -94,25 +112,21 @@ import sys
 import tempfile
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, B_TRAIN, T, ODD_B = 512, 128, 16000, 3
+# The strided family's two stacked LSTM(32) see T / (2 * 4 * 5 * 8) = 50 steps
+# a 1-s chunk.  Its kernel checks: B in (1, 7, 128) by T in (1, 2, 3, 37, 50,
+# 800), and A at the serving batch, every rows variant.
+W32, T32 = 32, 50
+W32_SHAPES = tuple((b, t) for b in (1, 7, B_TRAIN) for t in (1, 2, 3, 37, 50, 800)) + ((B_SERVE, T32),)
 # (B, T) of the rows-per-block variant checks: one row, a ragged last block
 # for 2 and 4 rows, the training batch; T below, at and beyond the depth of
 # the kernels' rings (32 steps forward, 16 backward).
 VARIANT_SHAPES = ((1, 1), (1, 2), (7, 3), (7, 37), (B_TRAIN, 50))
-# kernel vs plain on the card.  fp32: the same arithmetic in another
-# summation order.  bf16: both round x, the weights and the recurrent h at
-# the same points, so an h that lands on the other side of a bf16 rounding
-# boundary is the largest difference (the TPU kernel's bf16 bound,
-# tests/test_pallas.py:106).  A and B: max abs error of y (and cprev).
-# C: max abs error of each of dx, dW_ih, dW_hh, db over that tensor's max
-# abs value; bf16 rounds da, and dx is stored bf16 (one ulp is 2^-8).
-KERNEL_TOL = {"lstm_fwd_f32": 1e-4, "lstm_fwd_bf16": 5e-2,
-              "lstm_fwd_train_f32": 1e-4, "lstm_fwd_train_bf16": 5e-2,
-              "lstm_bwd_f32": 1e-4, "lstm_bwd_bf16": 1e-2}
 # LSTMFunction's gradients vs autograd of the plain forward, B=3 T=2000,
 # relative to each gradient's max.  fp32: summation order.  bf16: autograd
 # of the plain forward also rounds the recurrent gradient to bf16 at each
@@ -124,6 +138,19 @@ FUNCTION_TOL = {"f32": 1e-4, "bf16": 5e-2}
 # shaped delta sees ~3e-5 of that.
 GOLDEN_TOL = {"embed_delta": 2e-4, "wm_prob": 1e-4, "clean_prob": 1e-4,
               "msg_logit_mean": 1e-3, "msg_vote_frac": 1e-3, "delta_rms": 1e-6}
+# fp32 strided session (seeded weights, kernels A at width 32, convs with TF32
+# off) vs the JAX package's fp32 golden on the CPU: the port's CPU session
+# gives 7e-8 on every output (tests/test_torch_strided.py); the card's cuDNN
+# convolutions sum in another order, so 1e-5 (1e-6 for the RMS).  A vote
+# fraction counts signs of 16000 per-sample logits: one that sits at zero
+# moves it by 1/16000.
+STRIDED_GOLDEN_TOL = {"embed_delta": 1e-5, "wm_prob": 1e-5, "clean_prob": 1e-5,
+                      "msg_logit_mean": 1e-5, "msg_vote_frac": 1e-3, "delta_rms": 1e-6}
+# fp32 strided train step vs the JAX golden: terms relative (CPU 2e-7);
+# gradient norms relative, the CPU test's 2e-3 (CPU 1.8e-4 at worst, a
+# detector bias whose gradient sums cancelling terms; the card 3.2e-6 at
+# worst, H100 80GB HBM3 at 700 W).
+STRIDED_TRAIN_TOL = {"terms": 1e-4, "grad_norm": 2e-3}
 # fp32 train step vs the JAX train golden (tests/test_torch_checkpoint.py
 # states the CPU measurements): terms relative; BN statistics absolute +
 # relative; gradient norms relative, because a 1e-7 relative change of the
@@ -170,14 +197,30 @@ N_SWEEP = 128
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PALLAS = "awm_tpu/ops/pallas/lstm_kernel.py"
-KERNELS = {  # name: (source, replaces, dtype suffix)
-    "lstm_fwd_f32": ("awm_tpu_torch/ops/csrc/lstm_fwd.cu", f"{PALLAS}:157", "f32"),
-    "lstm_fwd_bf16": ("awm_tpu_torch/ops/csrc/lstm_fwd.cu", f"{PALLAS}:157", "bf16"),
-    "lstm_fwd_train_f32": ("awm_tpu_torch/ops/csrc/lstm_fwd.cu", f"{PALLAS}:342", "f32"),
-    "lstm_fwd_train_bf16": ("awm_tpu_torch/ops/csrc/lstm_fwd.cu", f"{PALLAS}:342", "bf16"),
-    "lstm_bwd_f32": ("awm_tpu_torch/ops/csrc/lstm_bwd.cu", f"{PALLAS}:391", "f32"),
-    "lstm_bwd_bf16": ("awm_tpu_torch/ops/csrc/lstm_bwd.cu", f"{PALLAS}:391", "bf16"),
-}
+PALLAS_CALL = {"lstm_fwd": 157, "lstm_fwd_train": 342, "lstm_bwd": 391}  # line of each pl.pallas_call
+
+
+class Kernel(NamedTuple):
+    kernel: str  # lstm_kernel.KERNELS
+    source: str
+    replaces: str
+    sfx: str  # operand type, "f32" or "bf16"
+    width: int
+    tol: float  # vs its plain version (lstm_kernel.KERNEL_TOL)
+
+
+KERNELS: dict[str, Kernel] = {}  # by instantiation name, filled by kernel_table once torch is imported
+
+
+def kernel_table(K) -> dict[str, Kernel]:
+    """Every compiled instantiation, named by lstm_kernel.instantiation."""
+    import torch
+
+    return {K.instantiation(kernel, dtype, w): Kernel(
+                kernel, f"awm_tpu_torch/ops/csrc/{'lstm_bwd' if kernel == 'lstm_bwd' else 'lstm_fwd'}.cu",
+                f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx])
+            for w in K.WIDTHS for kernel in K.KERNELS
+            for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
 
 failures: list[str] = []
 
@@ -215,40 +258,50 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lstm_inputs(b: int, dtype, device, seed: int, t: int = T):
-    """Seeded x (b, t, 64), torch-layout weights at the scale of torch's
+def lstm_inputs(b: int, dtype, device, seed: int, t: int = T, w: int = 64):
+    """Seeded x (b, t, w), torch-layout weights at the scale of torch's
     LSTM init, and an fp32 upstream gradient dy, made on the card."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    x = (torch.randn(b, t, 64, device=device, generator=g) * 0.5).to(dtype)
-    bound = 1.0 / 8.0  # 1/sqrt(H)
-    w = [(torch.rand(*s, device=device, generator=g) * 2 - 1) * bound
-         for s in ((256, 64), (256, 64), (256,))]
-    dy = torch.randn(b, t, 64, device=device, generator=g) * 0.1
-    return x, w[0], w[1], 2 * w[2], dy
+    x = (torch.randn(b, t, w, device=device, generator=g) * 0.5).to(dtype)
+    bound = 1.0 / w**0.5  # 1/sqrt(H)
+    ws = [(torch.rand(*s, device=device, generator=g) * 2 - 1) * bound
+          for s in ((4 * w, w), (4 * w, w), (4 * w,))]
+    dy = torch.randn(b, t, w, device=device, generator=g) * 0.1
+    return x, ws[0], ws[1], 2 * ws[2], dy
 
 
-def bound_ms(name: str, b: int) -> tuple[float, str]:
-    """Least time for the call: the larger of bytes / HBM rate and the
-    matrix-product FLOPs / the peak rate of their type.  Each input read
-    once, each output written once.  Forward: x, y (+ the fp32 c_{t-1}
-    stream for B) and the weights; FLOPs 2 * B * T * 4H * (D + H).
-    Backward: x, y, c_{t-1}, dy in, dx and the fp32 weight gradients out;
-    FLOPs 2 * B * T * 4H * (2 (D + H) + D + H): the gate recompute, dh, dx
-    and both dW products, three times the forward's."""
-    elt = 2 if name.endswith("bf16") else 4
-    act = b * T * 64
-    weights = 2 * 256 * 64 * elt + 256 * 4
-    fwd_flops = 2.0 * b * T * 256 * 128
+def bound_ms(name: str, b: int, t: int = T) -> tuple[float, str]:
+    """Least time for the call at the instantiation's width W = D = H: the
+    larger of bytes / HBM rate and the matrix-product FLOPs / the peak rate
+    of their type.  Each input read once, each output written once.
+    Forward: x, y (+ the fp32 c_{t-1} stream for B) and the weights; FLOPs
+    2 * B * T * 4H * (D + H).  Backward: x, y, c_{t-1}, dy in, dx and the
+    fp32 weight gradients out; FLOPs 2 * B * T * 4H * (2 (D + H) + D + H):
+    the gate recompute, dh, dx and both dW products, three times the
+    forward's."""
+    sfx, w = KERNELS[name].sfx, KERNELS[name].width
+    elt = 2 if sfx == "bf16" else 4
+    act, g = b * t * w, 4 * w
+    weights = 2 * g * w * elt + g * 4
+    fwd_flops = 2.0 * b * t * g * 2 * w
     if name.startswith("lstm_bwd"):
-        nbytes = act * (3 * elt + 2 * 4) + weights + (2 * 256 * 64 + 256) * 4
+        nbytes = act * (3 * elt + 2 * 4) + weights + (2 * g * w + g) * 4
         flops = 3 * fwd_flops
     else:
         nbytes = act * 2 * elt + weights + (act * 4 if "train" in name else 0)
         flops = fwd_flops
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[KERNELS[name][2]] * 1e3
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[sfx] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def latency_bound_ms(t: int, w: int, sm_clock_mhz: float) -> float:
+    """Least time of t dependent recurrent steps: each step's gate sums wait
+    on the last step's h, and a lane's part of one is W / 4 dependent FMAs
+    (lstm_common.cuh's split) of 4 cycles each, at the card's SM clock.  A
+    floor that leaves out the shuffles, activations and barrier of a step."""
+    return t * (w / 4) * 4 / (sm_clock_mhz * 1e3)
 
 
 def rel_err(a, ref) -> float:
@@ -260,7 +313,8 @@ def cudnn_lstm(w_ih, w_hh, bias, dtype, device):
     library yardstick only; the port never calls it."""
     import torch
 
-    m = torch.nn.LSTM(64, 64, batch_first=True).to(device)
+    w = w_hh.shape[1]
+    m = torch.nn.LSTM(w, w, batch_first=True).to(device)
     with torch.no_grad():
         m.weight_ih_l0.copy_(w_ih)
         m.weight_hh_l0.copy_(w_hh)
@@ -310,6 +364,14 @@ def profile_step(step, label: str) -> None:
     for i, (key, ms, count) in enumerate(events):
         if i < 12 or "lstm_" in key:  # the hand-written kernels wherever they rank
             print(f"  {ms:9.2f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {key[:90]}", flush=True)
+
+
+def lstm_device_ms(call, reps: int = 50) -> float:
+    """Device ms of one call in the LSTM kernels alone, the mean over reps
+    calls: at T=50 a call's CUDA-event time is the host's (the wrapper's
+    allocations, casts and launch), the kernels' own time far less."""
+    events, _ = device_kernels(lambda: [call() for _ in range(reps)])
+    return sum(ms for key, ms, _ in events if "lstm_" in key) / reps
 
 
 def backward_split(call) -> dict[str, float]:
@@ -771,6 +833,231 @@ def tools_phase(K, launches, ckpt: str, device: str, audio_len=None) -> None:
     add_counts(K, launches, "tools path")
 
 
+def width32_checks(K, dev, max_err, max_rel) -> None:
+    """Phase 3, width 32: every _w32 instantiation of A, B and C at every
+    rows variant against its plain version on W32_SHAPES (C twice for equal
+    bits); two stacked LSTMFunction layers' gradients against autograd of
+    the plain forward.  Fills max_err / max_rel with the worst over the
+    shapes."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        name, fname, bname = (K.instantiation(k, dtype, W32) for k in K.KERNELS)
+        worst = {name: 0.0, fname: 0.0, bname: 0.0}
+        rel, same = 0.0, True
+        for b, t in W32_SHAPES:
+            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=3000 + 10 * b + t, t=t, w=W32)
+            with no_tf32():
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                for rows in (None, *K.FWD_ROWS):
+                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+                    worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
+                    worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
+                                       float((cprev - ref_c).abs().max()))
+                    same &= bool(torch.isfinite(y).all()) and y.shape == (b, t, W32)
+                if b == B_SERVE:  # C's shapes are the training batch's
+                    continue
+                ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                for rows in (None, *K.BWD_ROWS):
+                    grads = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                    again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                    same &= all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+                    rel = max(rel, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
+                    worst[bname] = max(worst[bname], *(float((g.float() - r.float()).abs().max())
+                                                       for g, r in zip(grads, ref_g)))
+        torch.cuda.synchronize()
+        for n in (name, fname):
+            check(worst[n] <= KERNELS[n].tol and same,
+                  f"{n} vs plain, every rows variant, (B, T) in B (1, 7, {B_TRAIN}) x T (1, 2, 3, 37, 50, "
+                  f"800) and ({B_SERVE}, {T32}): max abs err {worst[n]:.3e} (tol {KERNELS[n].tol:.0e})")
+            max_err[n] = worst[n]
+        tol = KERNELS[bname].tol
+        check(rel <= tol and same, f"{bname} vs plain, every rows variant, the same (B, T) but B={B_SERVE}: "
+                                   f"max rel err {rel:.3e} (tol {tol:.0e}), two runs the same bits: {same}")
+        max_err[bname], max_rel[bname] = worst[bname], rel
+
+        # two stacked layers, as the strided generator runs them
+        x, *w0, _ = lstm_inputs(ODD_B, dtype, dev, seed=41, t=T32, w=W32)
+        _, *w1, _ = lstm_inputs(1, dtype, dev, seed=42, t=1, w=W32)
+        leaves = [x, *w0, *w1]
+        a = [p.clone().requires_grad_() for p in leaves]
+        c = [p.clone().requires_grad_() for p in leaves]
+        with no_tf32():
+            torch.sin(K.LSTMFunction.apply(K.LSTMFunction.apply(*a[:4]), *a[4:]).float()).sum().backward()
+            torch.sin(lstm_forward(lstm_forward(*c[:4]), *c[4:]).float()).sum().backward()
+        rels = [rel_err(p.grad, q.grad) for p, q in zip(a, c)]
+        check(max(rels) <= FUNCTION_TOL[sfx] and all(p.grad.dtype == p.dtype for p in a),
+              f"LSTMFunction {sfx} width 32, two stacked layers' grads vs autograd of the plain forward, "
+              f"B={ODD_B} T={T32}: max rel err {max(rels):.2e} (x {rels[0]:.2e}; tol {FUNCTION_TOL[sfx]:.0e})")
+
+
+def seeded_strided(cfg, seed: int, dev=None):
+    """The strided (generator, detector) of cfg with seeded_flax_tree's
+    weights for `seed`."""
+    from awm_tpu_torch.checkpoint import seeded_flax_tree, variables_from_flax
+    from awm_tpu_torch.models import build_models
+
+    tree = seeded_flax_tree(cfg.model, seed)
+    nets = build_models(cfg.model)
+    for name, net in zip(("gen", "det"), nets):
+        net.load_state_dict(variables_from_flax({"params": tree["params"][name]}), strict=True)
+    return tuple(net.to(dev) if dev is not None else net for net in nets)
+
+
+def reference_pth(net, n_strides: int, path: str, seed: int) -> None:
+    """Write a port strided network as the reference's main14b_2 .pth
+    (ref: py/main14b_2.py:105-224 names: E, encoder_blocks.{i} with
+    skip_conv, decoder_blocks / upsample_blocks alternating ConvTranspose and
+    block, lstm.weight_ih_l{k}, ...), each LSTM bias split into a seeded
+    bias_ih + bias_hh: the inverse of checkpoint.import_torch_strided_*."""
+    import torch
+
+    names = {"init_conv": "init_conv", "proj": "proj", "embedding": "E", "final_conv_enc": "final_conv_enc",
+             "final_conv_dec": "final_conv_dec", "final_conv": "final_conv"}
+    for i in range(n_strides):
+        names.update({f"enc{i}": f"encoder_blocks.{i}", f"dec_up{i}": f"decoder_blocks.{2 * i}",
+                      f"dec_res{i}": f"decoder_blocks.{2 * i + 1}", f"up{i}": f"upsample_blocks.{2 * i}",
+                      f"up_res{i}": f"upsample_blocks.{2 * i + 1}"})
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, v in net.state_dict().items():
+        v = v.detach().cpu().clone()
+        head, *rest = key.split(".")
+        if head.startswith("lstm"):
+            k = head[4:]
+            if rest == ["b"]:
+                split = 0.1 * torch.randn(v.shape, generator=g)
+                out[f"lstm.bias_ih_l{k}"], out[f"lstm.bias_hh_l{k}"] = v - split, split
+            else:
+                out[f"lstm.weight_{rest[0][2:]}_l{k}"] = v
+            continue
+        out[".".join([names[head], *("skip_conv" if r == "skip" else r for r in rest)])] = v
+    torch.save(out, path)
+
+
+def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
+    """Phase 12: the strided family at full width, counters zeroed just
+    before: the fp32 session on seeded weights vs assets/strided_golden.npz;
+    one fp32 train step vs its JAX train golden; ``train --preset strided``
+    in process (bf16, B=128, 3 steps and one validation, --ckpt-dir); a
+    session over that checkpoint round-trips an 8-s waveform; demo_eval
+    --preset strided (quality); a main14b_2 .pth pair imported through
+    ``detect --preset strided --torch-generator/--torch-detector`` on the
+    card equals the same call on the CPU.  Returns ckpt_best's path."""
+    import torch
+
+    from awm_tpu_torch import api, checkpoint as ck, train as tr
+    from awm_tpu_torch.config import get_config
+    from awm_tpu_torch.tools import demo_eval
+    from awm_tpu_torch.utils.audio_io import save_wav
+
+    zero_counts(K)
+    chunk = audio_len or T
+    length = ["--audio-len", str(audio_len)] if audio_len else []
+    cfg = get_config("strided")
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    with np.load(os.path.join(ck.ASSETS, "strided_golden.npz")) as g:
+        sgold = {k: g[k] for k in g.files}
+    seed = int(sgold["seed"])
+    if audio_len is None:  # the goldens are 16000-sample chunks
+        gen, det = seeded_strided(cfg, seed)
+        sess32 = api.InferenceSession(gen, det, compute_dtype=torch.float32, shaping=cfg.shaping, device=dev)
+        delta = sess32.embed_chunks(sgold["chunks"], sgold["messages"])
+        summary = sess32.embed_detect(sgold["chunks"], sgold["messages"])
+        errs = {"embed_delta": float(np.abs(delta - sgold["embed_delta"]).max())}
+        errs.update({k: float(np.abs(summary[k] - sgold[k]).max()) for k in summary})
+        for key, err in errs.items():
+            check(err <= STRIDED_GOLDEN_TOL[key], f"fp32 strided session vs JAX strided golden, {key}: max abs "
+                                                  f"err {err:.3e} (tol {STRIDED_GOLDEN_TOL[key]:.0e})")
+        del sess32, gen, det
+        state = tr.init_state(cfg32, device=dev)
+        for name, net in zip(("gen", "det"), seeded_strided(cfg, seed, dev)):
+            getattr(state, name).load_state_dict(net.state_dict())
+        terms = tr.train_step(cfg32, state, torch.from_numpy(sgold["train/chunks"]).to(dev),
+                              message=torch.from_numpy(sgold["train/messages"]).long().to(dev))
+        worst = max(abs(float(v) - float(sgold[f"term/{k}"])) / abs(float(sgold[f"term/{k}"]))
+                    for k, v in terms.items())
+        grad_errs = {f"{n}.{k}": abs(float(p.grad.norm()) - float(sgold[f"grad_norm/{n}.{k}"]))
+                     / float(sgold[f"grad_norm/{n}.{k}"])
+                     for n in ("gen", "det") for k, p in getattr(state, n).named_parameters()}
+        gk = max(grad_errs, key=grad_errs.get)
+        check(worst <= STRIDED_TRAIN_TOL["terms"] and grad_errs[gk] <= STRIDED_TRAIN_TOL["grad_norm"]
+              and len(grad_errs) == sum(k.startswith("grad_norm/") for k in sgold),
+              f"fp32 strided train step vs JAX strided train golden: terms rel err {worst:.2e} (tol "
+              f"{STRIDED_TRAIN_TOL['terms']:.0e}), {len(grad_errs)} gradient norms rel err <= "
+              f"{grad_errs[gk]:.2e} (worst {gk}; lstm0.w_hh {grad_errs['gen.lstm0.w_hh']:.2e}; "
+              f"tol {STRIDED_TRAIN_TOL['grad_norm']:.0e})")
+        del state
+        torch.cuda.empty_cache()
+
+    run_dir = os.path.join(work, "strided")
+    t0 = time.time()
+    out = cli(["train", "--preset", "strided", "--device", dev.type, "--compute-dtype", "bfloat16",
+               "--batch-size", str(B_TRAIN), "--synthetic-n", str(4 * B_TRAIN - B_TRAIN // 4), "--epochs", "1",
+               "--workers", "4", "--ckpt-dir", run_dir] + length)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    row, best = out["history"][0], ck.best_path(run_dir)
+    arch = ck.read_arch(best)
+    print(f"train --preset strided bf16 B={B_TRAIN}: {out['state'].step} steps + validation in "
+          f"{time.time() - t0:.1f} s; train {row['train_total']:.4f} val {row['val_total']:.4f}", flush=True)
+    check(out["state"].step == 3 and all(np.isfinite(v) for k, v in row.items() if k != "epoch")
+          and ck.is_checkpoint(best) and arch["family"] == "strided" and arch["strides"] == [2, 4, 5, 8],
+          f"train --preset strided: {out['state'].step} steps, every term finite, ckpt_best with a strided "
+          f"sidecar ({arch['family']}, strides {arch['strides']})")
+    del out
+
+    sess = api.InferenceSession.from_checkpoint(best, device=dev, chunk_len=chunk)
+    wav = speechlike(8, seed=31, chunk=chunk).reshape(-1)
+    wm = api.watermark_array(wav, sess, message=0x5A5A)
+    det_wm = api.detect_array(wm["watermarked_waveform"], sess)
+    ver = api.verify_array(wm["watermarked_waveform"], sess, 0x5A5A)
+    print(f"strided session over ckpt_best, 8-s waveform: delta rms "
+          f"{float(np.sqrt((wm['delta_waveform'] ** 2).mean())):.5f}, wm_prob {det_wm['mean_probability']:.4f}, "
+          f"bit agreement {ver['bit_agreement']}/16, {ver['decision']}", flush=True)
+    check(wm["watermarked_waveform"].shape == wav.shape and np.isfinite(wm["watermarked_waveform"]).all()
+          and 0.0 <= det_wm["mean_probability"] <= 1.0 and 0 <= ver["bit_agreement"] <= 16,
+          "strided session over ckpt_best: watermark_array -> detect_array -> verify_array on an 8-s "
+          "waveform, finite, input shape")
+
+    t0 = time.time()
+    report = demo_eval.main(["--ckpt", best, "--preset", "strided", "--device", dev.type, "--n-eval", "256",
+                             "--sections", "quality"] + length)
+    q = report["quality"]
+    print(json.dumps({"demo_eval_strided_quality": q}), flush=True)
+    check(all(np.isfinite(v) for v in q.values() if isinstance(v, float))
+          and 0.0 <= q["roc_auc"] <= 1.0 and 0.0 <= q["bit_accuracy"] <= 1.0,
+          f"demo_eval --preset strided n=256 ({time.time() - t0:.1f} s): detect_rate {q['detect_rate']}, "
+          f"roc_auc {q['roc_auc']:.4f}, bit_accuracy {q['bit_accuracy']:.4f}, all finite")
+
+    gp, dp = os.path.join(work, "strided_gen.pth"), os.path.join(work, "strided_det.pth")
+    gen, det = seeded_strided(cfg, seed + 1)
+    reference_pth(gen, len(cfg.model.strides), gp, seed=5)
+    reference_pth(det, len(cfg.model.strides), dp, seed=6)
+    wav_path = os.path.join(work, "strided.wav")
+    save_wav(wav_path, speechlike(2, seed=32, chunk=chunk).reshape(-1), 16000)
+    got = {}
+    for where in (dev.type, "cpu"):
+        _, printed = cli_printed(cli, ["detect", wav_path, "--preset", "strided", "--torch-generator", gp,
+                                       "--torch-detector", dp, "--device", where] + length)
+        got[where] = json.loads(printed[printed.index("{"):])
+    diff = abs(got[dev.type]["mean_probability"] - got["cpu"]["mean_probability"])
+    check(diff <= 1e-5 and got[dev.type]["predicted_message"] == got["cpu"]["predicted_message"]
+          and got[dev.type]["is_watermarked"] == got["cpu"]["is_watermarked"],
+          f"detect --preset strided with a main14b_2 .pth pair, card vs CPU (fp32): probability "
+          f"{got[dev.type]['mean_probability']:.6f} vs {got['cpu']['mean_probability']:.6f} (tol 1e-5), "
+          f"messages {got[dev.type]['predicted_message']} / {got['cpu']['predicted_message']}")
+    add_counts(K, launches, "strided path")
+    for name in K.launches:
+        if KERNELS[name].width == W32:
+            check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times on the strided path")
+    return best
+
+
 def main() -> int:
     import torch
 
@@ -791,6 +1078,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.time()
+    KERNELS.update(kernel_table(K))
 
     # 1. the card
     smi = subprocess.run(
@@ -810,7 +1098,7 @@ def main() -> int:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     max_err, max_rel = {}, {}
     for sfx, dtype in dtypes.items():
-        name = f"lstm_fwd_{sfx}"
+        name, fname, bname = (K.instantiation(k, dtype, 64) for k in K.KERNELS)
         errs = []
         for b in (B_SERVE, ODD_B):
             x, w_ih, w_hh, bias, _ = lstm_inputs(b, dtype, dev, seed=b)
@@ -821,13 +1109,12 @@ def main() -> int:
             err = float((y.float() - ref.float()).abs().max())
             errs.append(err)
             check(y.dtype == dtype and y.shape == (b, T, 64) and bool(torch.isfinite(y).all())
-                  and err <= KERNEL_TOL[name],
-                  f"{name} vs plain, B={b} T={T}: max abs err {err:.3e} (tol {KERNEL_TOL[name]:.0e})")
+                  and err <= KERNELS[name].tol,
+                  f"{name} vs plain, B={b} T={T}: max abs err {err:.3e} (tol {KERNELS[name].tol:.0e})")
             del x, y, ref
         max_err[name] = max(errs)
         torch.cuda.empty_cache()
 
-        fname, bname = f"lstm_fwd_train_{sfx}", f"lstm_bwd_{sfx}"
         ferrs, babs, brel = [], [], []
         for b in (B_TRAIN, ODD_B):
             x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=100 + b)
@@ -840,9 +1127,9 @@ def main() -> int:
             err = max(float((y.float() - ref_y.float()).abs().max()), float((cprev - ref_c).abs().max()))
             ferrs.append(err)
             check(y.dtype == dtype and cprev.dtype == torch.float32 and bool(torch.isfinite(y).all())
-                  and err <= KERNEL_TOL[fname],
+                  and err <= KERNELS[fname].tol,
                   f"{fname} vs plain, B={b} T={T}: y and cprev max abs err {err:.3e} "
-                  f"(tol {KERNEL_TOL[fname]:.0e})")
+                  f"(tol {KERNELS[fname].tol:.0e})")
             again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
             check(all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
                   f"{bname}, B={b} T={T}: two runs give the same bits")
@@ -851,9 +1138,9 @@ def main() -> int:
             babs.append(max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
             brel.append(max(rels))
             check(grads[0].dtype == dtype and all(bool(torch.isfinite(g).all()) for g in grads)
-                  and max(rels) <= KERNEL_TOL[bname],
+                  and max(rels) <= KERNELS[bname].tol,
                   f"{bname} vs plain, B={b} T={T}: dx, dW_ih, dW_hh, db rel err "
-                  f"{', '.join(f'{r:.2e}' for r in rels)} (tol {KERNEL_TOL[bname]:.0e})")
+                  f"{', '.join(f'{r:.2e}' for r in rels)} (tol {KERNELS[bname].tol:.0e})")
             del x, y, cprev, dy, grads, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
         max_err[fname], max_err[bname], max_rel[bname] = max(ferrs), max(babs), max(brel)
@@ -870,10 +1157,10 @@ def main() -> int:
                 worst = max(worst, float((y0.float() - ref_y.float()).abs().max()))
                 worst_train = max(worst_train, float((y.float() - ref_y.float()).abs().max()),
                                   float((cprev - ref_c).abs().max()))
-            check(worst <= KERNEL_TOL[name] and worst_train <= KERNEL_TOL[fname],
+            check(worst <= KERNELS[name].tol and worst_train <= KERNELS[fname].tol,
                   f"{name} / {fname} vs plain, {rows} rows per block, (B, T) in "
                   f"{(*VARIANT_SHAPES, (B_SERVE, 50))}: max abs err {worst:.3e} / {worst_train:.3e} "
-                  f"(tol {KERNEL_TOL[name]:.0e})")
+                  f"(tol {KERNELS[name].tol:.0e})")
         for rows in K.BWD_ROWS:
             worst = 0.0
             for b, t in VARIANT_SHAPES:
@@ -883,9 +1170,9 @@ def main() -> int:
                     ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
                     grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
                 worst = max(worst, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
-            check(worst <= KERNEL_TOL[bname],
+            check(worst <= KERNELS[bname].tol,
                   f"{bname} vs plain, {rows} rows per block, (B, T) in {VARIANT_SHAPES}: "
-                  f"max rel err {worst:.3e} (tol {KERNEL_TOL[bname]:.0e})")
+                  f"max rel err {worst:.3e} (tol {KERNELS[bname].tol:.0e})")
 
         # the Function vs autograd of the plain forward (independent of plain C)
         x, w_ih, w_hh, bias, _ = lstm_inputs(ODD_B, dtype, dev, seed=7, t=2000)
@@ -898,6 +1185,8 @@ def main() -> int:
         check(max(rels) <= FUNCTION_TOL[sfx] and all(p.grad.dtype == p.dtype for p in a),
               f"LSTMFunction {sfx} grads vs autograd of the plain forward, B={ODD_B} T=2000: rel err "
               f"{', '.join(f'{r:.2e}' for r in rels)} (tol {FUNCTION_TOL[sfx]:.0e})")
+
+    width32_checks(K, dev, max_err, max_rel)
 
     # 4. the serving path, counters zeroed just before
     with np.load(f"{ASSETS}/shapecap_golden.npz") as g:
@@ -1005,7 +1294,8 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
     for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} times on the serving and train paths")
+        if KERNELS[name].width == 64:  # the base family's paths; width 32 is phase 12's
+            check(n > 0, f"{name} launched {n} times on the serving and train paths")
 
     # 6. the robust path, counters zeroed just before
     for name in K.launches:
@@ -1126,21 +1416,22 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
 
-    # 7-11. checkpoints, trainer, curriculum, HTTP serving, tools, each with
-    # the counters zeroed just before
+    # 7-12. checkpoints, trainer, curriculum, HTTP serving, tools, the strided
+    # family, each with the counters zeroed just before
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ckpt = checkpoint_phase(K, launches, dev, work, (chunks512, msgs512, big))
     trainer_phase(K, launches, cli, dev, work, ckpt)
     curriculum_phase(K, launches, cli, work, "cuda")
     http_phase(K, launches, dev, ckpt)
     tools_phase(K, launches, ckpt, "cuda")
+    strided_ckpt = strided_phase(K, launches, cli, dev, work)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times on the main paths")
 
-    # 12. timing (card name and power limit printed above)
+    # 13. timing (card name and power limit printed above)
     times = {}
     for sfx, dtype in dtypes.items():
-        name = f"lstm_fwd_{sfx}"
+        name, fname, bname = (K.instantiation(k, dtype, 64) for k in K.KERNELS)
         x, w_ih, w_hh, bias, _ = lstm_inputs(B_SERVE, dtype, dev, seed=7)
         with no_tf32():
             ms = cuda_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias), reps=5)
@@ -1156,7 +1447,6 @@ def main() -> int:
         del x, m
         torch.cuda.empty_cache()
 
-        fname, bname = f"lstm_fwd_train_{sfx}", f"lstm_bwd_{sfx}"
         x, w_ih, w_hh, bias, dy = lstm_inputs(B_TRAIN, dtype, dev, seed=8)
         with no_tf32():
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
@@ -1186,6 +1476,50 @@ def main() -> int:
         both = None if f_lib is None or b_lib is None else f_lib + b_lib
         print(f"nn.LSTM {sfx} forward + backward B={B_TRAIN}: {both} ms; "
               f"kernels B + C {f_ms + b_ms:.3f} ms", flush=True)
+        del x, y, cprev, dy, m, xg, ylib
+        torch.cuda.empty_cache()
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    for sfx, dtype in dtypes.items():
+        name, fname, bname = (K.instantiation(k, dtype, W32) for k in K.KERNELS)
+        x, w_ih, w_hh, bias, _ = lstm_inputs(B_SERVE, dtype, dev, seed=17, t=T32, w=W32)
+        with no_tf32():
+            ms = cuda_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias), reps=200, warmup=20)
+            dev_ms = {name: lstm_device_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias))}
+            plain_ms = cuda_ms(lambda: lstm_forward(x, w_ih, w_hh, bias), reps=5)
+            m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+            with torch.inference_mode():
+                library_ms = yardstick(lambda: cuda_ms(lambda: m(x), reps=200, warmup=20), f"nn.LSTM {sfx} w32")
+        x, w_ih, w_hh, bias, dy = lstm_inputs(B_TRAIN, dtype, dev, seed=18, t=T32, w=W32)
+        with no_tf32():
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=200, warmup=20)
+            b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=200, warmup=20)
+            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+            f_plain = cuda_ms(lambda: lstm_forward_train(x, w_ih, w_hh, bias), reps=5)
+            b_plain = cuda_ms(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias), reps=5)
+            m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+            xg = x.clone().requires_grad_()
+            f_lib = yardstick(lambda: cuda_ms(lambda: m(xg), reps=200, warmup=20), f"nn.LSTM {sfx} w32 forward")
+            ylib = m(xg)[0]
+            b_lib = yardstick(lambda: cuda_ms(lambda: torch.autograd.grad(
+                ylib, [xg, *m.parameters()], dy.to(dtype), retain_graph=True), reps=200, warmup=20),
+                f"nn.LSTM {sfx} w32 backward")
+            dev_ms[fname] = lstm_device_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias))
+            dev_ms[bname] = lstm_device_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+        for n, b, k_ms, p_ms, lib in ((name, B_SERVE, ms, plain_ms, library_ms), (fname, B_TRAIN, f_ms, f_plain, f_lib),
+                                      (bname, B_TRAIN, b_ms, b_plain, b_lib)):
+            bms, by = bound_ms(n, b, T32)
+            lat = latency_bound_ms(T32, W32, clock_mhz)
+            times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                        "device_ms": dev_ms[n]}
+            print(f"{n} B={b} T={T32}: kernel {k_ms:.4f} ms a call ({dev_ms[n]:.4f} ms of it on the device), plain "
+                  f"{p_ms:.2f} ms, cuDNN nn.LSTM(32) {lib} ms, bound {bms:.5f} ms ({by}), {T32} dependent "
+                  f"steps >= {lat:.5f} ms at {clock_mhz:.0f} MHz", flush=True)
+        times[bname]["split_ms"] = split
+        print(f"{bname} by launch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
         del x, y, cprev, dy, m, xg, ylib
         torch.cuda.empty_cache()
 
@@ -1260,22 +1594,63 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # 13. result lines
+    # the strided family: embed+detect at the serving batch, the train step at
+    # the training batch, from seeded weights and from the trained checkpoint
+    from awm_tpu_torch.config import get_config
+
+    scfg = get_config("strided")
+    strided_clips, strided_train = {}, {}
+    for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        sess = api.InferenceSession.from_checkpoint(strided_ckpt, compute_dtype=dt, device=dev)
+        sess.embed_detect(chunks512, msgs512)  # warm-up
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sess.embed_detect(chunks512, msgs512)
+        strided_clips[label] = B_SERVE * reps / (time.perf_counter() - t0)
+        print(f"strided embed+detect {label} session, B={B_SERVE}: {strided_clips[label]:.1f} clips/s", flush=True)
+        del sess
+    for label, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
+        cfg = dataclasses.replace(scfg, train=dataclasses.replace(scfg.train, compute_dtype=dt))
+        state = tr.init_state(cfg, device=dev)
+        for name, net in zip(("gen", "det"), seeded_strided(cfg, 7, dev)):
+            getattr(state, name).load_state_dict(net.state_dict())
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(cfg, state, batch)  # warm-up
+        torch.cuda.synchronize()
+        if label == "bf16":
+            profile_step(lambda: tr.train_step(cfg, state, batch), "strided bf16")
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(cfg, state, batch)
+        torch.cuda.synchronize()
+        strided_train[label] = B_TRAIN * reps / (time.perf_counter() - t0)
+        print(f"strided train step {label}, B={B_TRAIN}: {strided_train[label]:.1f} clips/s "
+              f"({1e3 * B_TRAIN / strided_train[label]:.1f} ms per step), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+    # 14. result lines
     kernels = []
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, (source, replaces, sfx) in KERNELS.items():
-        plan = K.launch_plan(B_TRAIN if "train" in name or "bwd" in name else B_SERVE, T,
-                             dtypes[sfx], sm_count)
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": max_err[name],
-                 "rows_per_block": plan.bwd_rows if "bwd" in name else plan.fwd_rows, **times[name]}
+    for name, k in KERNELS.items():
+        steps = T if k.width == 64 else T32
+        batch = B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
+        plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, width=k.width)
+        print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"
+              f" rows per block", flush=True)
+        entry = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                 "launches": launches[name], "max_abs_err": max_err[name], **times[name]}
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)
     print(f"wall {time.time() - t_start:.1f} s; server bf16 {json.dumps(load)}; "
           f"embed+detect clips/s {json.dumps(clips)}; "
           f"train-step clips/s {json.dumps(train_clips)}; 12-attack sweep n={N_SWEEP} s "
-          f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}")
+          f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}; strided embed+detect clips/s "
+          f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}")
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

@@ -4,8 +4,9 @@
   evidence/r5/shapecap/ckpt_best, and assets/awm_arch.json its sidecar;
 - assets/t_flagship.npz and assets/t_flagship_arch.json equal
   evidence/r5/T_flagship/ckpt_best the same way;
-- assets/shapecap_golden.npz, train_golden.npz, robust_golden.npz and
-  robust_train_golden.npz are what the JAX package computes now;
+- assets/shapecap_golden.npz, train_golden.npz, robust_golden.npz,
+  robust_train_golden.npz and strided_golden.npz are what the JAX package
+  computes now;
 - the port loads the .npz and reproduces the goldens on the CPU (the robust
   table's check is in tests/test_torch_eval.py).
 """
@@ -108,6 +109,21 @@ def test_train_golden_reproduces_from_jax():
         np.testing.assert_array_equal(have["chunks"], want["chunks"])
         np.testing.assert_array_equal(have["messages"], want["messages"])
         for key in set(want) - {"chunks", "messages"}:
+            np.testing.assert_allclose(have[key], want[key], rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+def test_strided_golden_reproduces_from_jax():
+    """The strided preset's weights drawn again from the stored seed, the
+    JAX package's fp32 session and train-step loss function -> the committed
+    strided golden (inputs exactly; outputs, terms and gradient norms to
+    1e-6 relative, allowing for threaded CPU reductions).  The port's side
+    is in tests/test_torch_strided.py."""
+    want = ta.strided_golden_arrays()
+    with np.load(ta.STRIDED_GOLDEN_NPZ) as have:
+        assert sorted(have.files) == sorted(want)
+        for key in ("seed", "chunks", "messages", "train/chunks", "train/messages"):
+            np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+        for key in set(want) - {"seed", "chunks", "messages", "train/chunks", "train/messages"}:
             np.testing.assert_allclose(have[key], want[key], rtol=1e-6, atol=1e-7, err_msg=key)
 
 

@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernels A, B and C, of the attack ops,
+"""Card-only tests of the port's CUDA kernels A, B and C (widths 64 and 32), of the attack ops,
 of checkpoints written on the card and of the fp32 server on the card
 (marker ``gpu``).
 
@@ -25,13 +25,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(b, t, device, seed=0):
+def _inputs(b, t, device, seed=0, w=64):
     rng = np.random.default_rng(seed)
     arrays = (
-        rng.standard_normal((b, t, 64)) * 0.3,
-        rng.standard_normal((256, 64)) * 0.1,
-        rng.standard_normal((256, 64)) * 0.1,
-        rng.standard_normal(256) * 0.1,
+        rng.standard_normal((b, t, w)) * 0.3,
+        rng.standard_normal((4 * w, w)) * 0.1,
+        rng.standard_normal((4 * w, w)) * 0.1,
+        rng.standard_normal(4 * w) * 0.1,
     )
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
@@ -150,6 +150,78 @@ def test_function_on_card_matches_autograd_of_plain(cuda):
     for pa, pb in zip(a, b):
         rel = float((pa.grad - pb.grad).abs().max() / pb.grad.abs().max())
         assert rel <= 1e-4, rel
+
+
+# -- width 32: the strided family's two LSTM(32) over T = 50 ------------------
+
+
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t", [(1, 50), (7, 37), (128, 50), (3, 800)])
+def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
+    """The _w32 instantiations of A, B and C at every rows variant vs the
+    plain versions, the width-64 tolerances and reasons: A and B max abs
+    error of y and cprev, C relative to each gradient's max and the same
+    bits in two runs.  Each call counts on its own instantiation."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=9, w=32)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(10))
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+    names = {k: lstm_kernel.instantiation(k, dtype, 32) for k in lstm_kernel.KERNELS}
+    before = {n: lstm_kernel.launches[n] for n in names.values()}
+    for rows in lstm_kernel.FWD_ROWS:
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert y0.shape == (b, t, 32) and torch.equal(y0, y)
+        assert float((y.float() - ref_y.float()).abs().max()) <= tol_fwd
+        assert float((cprev - ref_c).abs().max()) <= tol_fwd
+    for rows in lstm_kernel.BWD_ROWS:
+        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert tuple(got[1].shape) == (128, 32) and got[0].dtype == dtype
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol_bwd, (name, rel)
+            assert torch.equal(a, a2), name
+    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS), 2 * len(lstm_kernel.BWD_ROWS)
+    assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)], ids=["f32", "bf16"])
+def test_width32_stack_function_matches_autograd(cuda, dtype, tol):
+    """Two stacked LSTM(32) through LSTMFunction on the card (B then C for
+    each; layer 1's dx is layer 0's dy, in x's dtype) vs autograd of the
+    plain forward, B=3 T=50: every gradient relative to its max (fp32
+    summation order; bf16: autograd of the plain forward also rounds the
+    recurrent gradient at each step, which the kernels do not)."""
+    from awm_tpu_torch.ops.lstm_kernel import LSTMFunction
+
+    x, *w0 = _inputs(3, 50, cuda, seed=11, w=32)
+    _, *w1 = _inputs(1, 1, cuda, seed=12, w=32)
+    leaves = [x.to(dtype), *w0, *w1]
+    a = [p.clone().requires_grad_() for p in leaves]
+    c = [p.clone().requires_grad_() for p in leaves]
+    with no_tf32():
+        torch.sin(LSTMFunction.apply(LSTMFunction.apply(*a[:4]), *a[4:]).float()).sum().backward()
+        torch.sin(lstm_forward(lstm_forward(*c[:4]), *c[4:]).float()).sum().backward()
+    for i, (pa, pc) in enumerate(zip(a, c)):
+        assert pa.grad.dtype == pa.dtype
+        rel = float((pa.grad.float() - pc.grad.float()).abs().max() / pc.grad.float().abs().max())
+        assert rel <= tol, (i, rel)
+
+
+def test_kernel_refuses_unbuilt_width(cuda):
+    """A width with no instantiation raises on the card (the CPU takes the
+    plain version of any width)."""
+    x, w_ih, w_hh, bias = _inputs(2, 8, cuda, w=48)
+    with pytest.raises(ValueError, match="widths"):
+        lstm_fused_forward(x, w_ih, w_hh, bias)
 
 
 SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block

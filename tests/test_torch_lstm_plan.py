@@ -2,8 +2,8 @@
 at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
-pure function of (batch, steps, dtype, SM count), so it is tested here on the
-CPU.  The short-T cases hold the plain training forward and backward against
+pure function of (batch, steps, dtype, SM count, width), so it is tested here
+on the CPU, at width 64 and 32.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
 
@@ -30,7 +30,7 @@ def test_plan_covers_every_row_once(batch, sm_count):
     cover 0..B-1 exactly once, the last block may be ragged, and no block
     is empty.  Both dtypes, forward and backward."""
     for dtype in (torch.float32, torch.bfloat16):
-        plan = launch_plan(batch, 16000, dtype, sm_count)
+        plan = launch_plan(batch, 16000, dtype, sm_count, width=64)
         for rows, blocks, choices in (
             (plan.fwd_rows, plan.fwd_blocks, lstm_kernel.FWD_ROWS),
             (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_ROWS),
@@ -48,7 +48,7 @@ def test_plan_scratch_shapes(batch, dtype):
     in the operand type, one db partial per recurrent block, one dW partial
     per chunk, and chunks that cover the (B*T) axis."""
     steps = 300
-    plan = launch_plan(batch, steps, dtype, 132)
+    plan = launch_plan(batch, steps, dtype, 132, width=64)
     assert plan.da_shape == (batch, steps, 256) and plan.da_dtype == dtype
     assert plan.db_part_shape == (plan.bwd_blocks, 256)
     assert plan.part_shape == (plan.n_chunks, 256, 128)
@@ -63,10 +63,10 @@ def test_plan_fills_the_card():
     row; at the serving batch no choice of rows would finish sooner by the
     plan's own cost."""
     for dtype in (torch.float32, torch.bfloat16):
-        plan = launch_plan(128, 16000, dtype, 132)
+        plan = launch_plan(128, 16000, dtype, 132, width=64)
         assert (plan.fwd_rows, plan.fwd_blocks, plan.bwd_rows, plan.bwd_blocks) == (1, 128, 1, 128)
-        cost = lstm_kernel.FWD_STEP_COST[dtype]
-        plan = launch_plan(512, 16000, dtype, 132)
+        cost = lstm_kernel.FWD_STEP_COST[64, dtype]
+        plan = launch_plan(512, 16000, dtype, 132, width=64)
         waves = lambda rows: -(-(-(-512 // rows)) // 132)
         assert all(waves(plan.fwd_rows) * cost[plan.fwd_rows] <= waves(r) * cost[r] for r in cost)
         assert (plan.fwd_rows, plan.fwd_blocks) == (4, 128)
@@ -75,30 +75,72 @@ def test_plan_fills_the_card():
 def test_plan_refuses_empty_calls():
     for args in ((0, 10, 132), (4, 0, 132), (4, 10, 0)):
         with pytest.raises(ValueError):
-            launch_plan(args[0], args[1], torch.float32, args[2])
-
-
-def _case(rng, b, t):
-    x = (rng.standard_normal((b, t, 64)) * 0.3).astype(np.float32)
-    w_ih = (rng.standard_normal((256, 64)) * 0.1).astype(np.float32)
-    w_hh = (rng.standard_normal((256, 64)) * 0.1).astype(np.float32)
-    bias = (rng.standard_normal((256,)) * 0.1).astype(np.float32)
-    dy = (rng.standard_normal((b, t, 64)) * 0.5).astype(np.float32)
-    return x, (w_ih, w_hh, bias), dy
+            launch_plan(args[0], args[1], torch.float32, args[2], width=64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("t", [1, 2, 3])
-def test_plain_forward_train_matches_pallas_short(rng, t, dtype):
+@pytest.mark.parametrize("batch", BATCHES)
+def test_plan_width32(batch, dtype):
+    """Width 32 (the strided family, T=50): scratch sized by the width (da
+    (B, T, 128), dW partials (n, 128, 64), db (blocks, 128)), rows from the
+    width's own measured costs, blocks that cover the batch once, and chunks
+    of the (B*T) axis that give every SM a dW block where the 6400 rows of
+    B=128 would otherwise make 4."""
+    plan = launch_plan(batch, 50, dtype, 132, width=32)
+    assert plan.da_shape == (batch, 50, 128) and plan.da_dtype == dtype
+    assert plan.part_shape == (plan.n_chunks, 128, 64)
+    assert plan.db_part_shape == (plan.bwd_blocks, 128)
+    assert plan.fwd_rows in lstm_kernel.FWD_ROWS and plan.bwd_rows in lstm_kernel.BWD_ROWS
+    assert plan.fwd_blocks * plan.fwd_rows >= batch > (plan.fwd_blocks - 1) * plan.fwd_rows
+    n_rows = batch * 50
+    assert plan.n_chunks == min(132, -(-n_rows // lstm_kernel.DW_MIN_CHUNK_ROWS))
+    cost = lstm_kernel.FWD_STEP_COST[32, dtype]
+    waves = lambda rows: -(-(-(-batch // rows)) // 132)
+    assert all(waves(plan.fwd_rows) * cost[plan.fwd_rows] <= waves(r) * cost[r] for r in cost)
+
+
+def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
+    """The chunking for short calls leaves the width-64 main paths' plans as
+    they were (B=128 and 512 at T=16000: 256 chunks of 2048 rows or more);
+    a width-64 call of fewer than 132 x 2048 rows (the curriculum's B=8,
+    the trainer's B=16) now gets one dW chunk an SM, not one per 2048 rows;
+    and a width the kernels are not compiled for raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert launch_plan(128, 16000, dtype, 132, width=64).n_chunks == lstm_kernel.DW_MAX_CHUNKS
+        assert launch_plan(512, 16000, dtype, 132, width=64).part_shape == (256, 256, 128)
+        assert launch_plan(8, 16000, dtype, 132, width=64).n_chunks == 132  # 63 at 2048 rows a chunk
+        assert launch_plan(16, 16000, dtype, 132, width=64).n_chunks == 132  # 125
+    for width in (16, 48, 128):
+        with pytest.raises(ValueError, match="widths"):
+            launch_plan(4, 10, torch.float32, 132, width=width)
+
+
+def _case(rng, b, t, w=64):
+    x = (rng.standard_normal((b, t, w)) * 0.3).astype(np.float32)
+    w_ih = (rng.standard_normal((4 * w, w)) * 0.1).astype(np.float32)
+    w_hh = (rng.standard_normal((4 * w, w)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((4 * w,)) * 0.1).astype(np.float32)
+    dy = (rng.standard_normal((b, t, w)) * 0.5).astype(np.float32)
+    return x, (w_ih, w_hh, bias), dy
+
+
+# T, width: the width-64 cases keep their ids; width 32 adds "-w32".
+SHORT = pytest.mark.parametrize("t,w", [(1, 64), (2, 64), (3, 64), (1, 32), (2, 32), (3, 32)],
+                                ids=["1", "2", "3", "1-w32", "2-w32", "3-w32"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@SHORT
+def test_plain_forward_train_matches_pallas_short(rng, t, w, dtype):
     """Plain kernel B vs the TPU's _forward_train in interpret mode at B=3
     and T = 1, 2, 3.  The tolerances of test_plain_forward_train_matches_pallas:
     fp32 2e-5 (summation order); bf16 y 1e-2 (one bf16 ulp), cprev 1e-3."""
-    x, weights, _ = _case(rng, 3, t)
+    x, weights, _ = _case(rng, 3, t, w)
     jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     with pltpu.force_tpu_interpret_mode():
         ref_y, ref_c = _forward_train(jnp.asarray(x).astype(jdtype), *map(jnp.asarray, weights))
     y, cprev = lstm_forward_train(torch.from_numpy(x).to(dtype), *map(torch.from_numpy, weights))
-    assert y.shape == (3, t, 64) and y.dtype == dtype and cprev.dtype == torch.float32
+    assert y.shape == (3, t, w) and y.dtype == dtype and cprev.dtype == torch.float32
     assert float(cprev[:, 0].abs().max()) == 0.0  # c_{-1} = 0
     tol_y, tol_c = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
     np.testing.assert_allclose(
@@ -107,13 +149,13 @@ def test_plain_forward_train_matches_pallas_short(rng, t, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("t", [1, 2, 3])
-def test_plain_backward_matches_pallas_short(rng, t, dtype):
+@SHORT
+def test_plain_backward_matches_pallas_short(rng, t, w, dtype):
     """Plain kernel C vs the TPU's _backward in interpret mode on the same
     (x, y, cprev, dy) at B=3 and T = 1, 2, 3, relative to each tensor's max:
     fp32 1e-5, bf16 1e-3 (test_plain_backward_matches_pallas's).  At T = 1
     h_{-1} = 0, so dW_hh is exactly zero on both sides."""
-    x, weights, dy = _case(rng, 3, t)
+    x, weights, dy = _case(rng, 3, t, w)
     jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jx, jw = jnp.asarray(x).astype(jdtype), list(map(jnp.asarray, weights))
     with pltpu.force_tpu_interpret_mode():

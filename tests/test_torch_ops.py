@@ -46,11 +46,17 @@ def test_plain_lstm_matches_jax_scan(rng, b, t, d, h):
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
 
 
-@pytest.mark.parametrize("b", [2, 3])
-def test_plain_lstm_matches_pallas_kernel_fp32(rng, b):
+# (width, T): the base family's LSTM(64) and the strided family's LSTM(32)
+# over its 50 strided steps.  Cases of width 64 keep their original ids.
+W32 = (32, 50)
+
+
+@pytest.mark.parametrize("b,w,t", [(2, 64, 128), (3, 64, 128), (2, *W32), (3, *W32)],
+                         ids=["2", "3", "2-w32", "3-w32"])
+def test_plain_lstm_matches_pallas_kernel_fp32(rng, b, w, t):
     """The TPU kernel (interpret mode) and the port's plain version of the
-    CUDA kernel agree in fp32 at 2e-5."""
-    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, 128)
+    CUDA kernel agree in fp32 at 2e-5, at both widths."""
+    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, w, w)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(lstm_pallas_forward(*map(jnp.asarray, (x, w_ih, w_hh, bias))))
     out = lstm_forward(*_t(x, w_ih, w_hh, bias))
@@ -59,21 +65,23 @@ def test_plain_lstm_matches_pallas_kernel_fp32(rng, b):
 
 def test_plain_lstm_matches_pallas_kernel_bf16(rng):
     """bf16 contract (x, weights and the recurrent h rounded to bf16, fp32
-    accumulation and state, y stored bf16) matches the TPU kernel's.  Both
-    round at the same points, so they differ by the fp32 summation order
-    plus at most one bf16 ulp of y (2^-8 relative at |y| < 1): 1e-2."""
-    x, w_ih, w_hh, bias = _lstm_inputs(rng, 2, 128)
-    with pltpu.force_tpu_interpret_mode():
-        ref = lstm_pallas_forward(
-            jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, (w_ih, w_hh, bias))
-        )
-    out = lstm_forward(torch.from_numpy(x).to(torch.bfloat16), *_t(w_ih, w_hh, bias))
-    assert out.dtype == torch.bfloat16
-    err = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32))).max()
-    assert err < 1e-2, err
-    # and stays within the bf16 bound of tests/test_pallas.py of the fp32 result
-    ref32 = np.asarray(jlstm(*map(jnp.asarray, (x, w_ih, w_hh, bias))))
-    assert np.abs(out.float().numpy() - ref32).max() < 5e-2
+    accumulation and state, y stored bf16) matches the TPU kernel's, at
+    width 64 (T=128) and 32 (T=50).  Both round at the same points, so they
+    differ by the fp32 summation order plus at most one bf16 ulp of y
+    (2^-8 relative at |y| < 1): 1e-2."""
+    for w, t in ((64, 128), W32):
+        x, w_ih, w_hh, bias = _lstm_inputs(rng, 2, t, w, w)
+        with pltpu.force_tpu_interpret_mode():
+            ref = lstm_pallas_forward(
+                jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, (w_ih, w_hh, bias))
+            )
+        out = lstm_forward(torch.from_numpy(x).to(torch.bfloat16), *_t(w_ih, w_hh, bias))
+        assert out.dtype == torch.bfloat16 and out.shape == (2, t, w)
+        err = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32))).max()
+        assert err < 1e-2, (w, err)
+        # and stays within the bf16 bound of tests/test_pallas.py of the fp32 result
+        ref32 = np.asarray(jlstm(*map(jnp.asarray, (x, w_ih, w_hh, bias))))
+        assert np.abs(out.float().numpy() - ref32).max() < 5e-2, w
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version(rng):
@@ -153,9 +161,9 @@ def test_fir_and_shaping_match_jax(rng):
 # -- kernels B and C: plain versions, the autograd Function, the routing ------
 
 
-def _train_case(rng, b, t, dtype):
-    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t)
-    dy = (rng.standard_normal((b, t, 64)) * 0.5).astype(np.float32)
+def _train_case(rng, b, t, dtype, w=64):
+    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, w, w)
+    dy = (rng.standard_normal((b, t, w)) * 0.5).astype(np.float32)
     jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
     tx = torch.from_numpy(x).to(dtype)
     return x, (w_ih, w_hh, bias), dy, jx, tx
@@ -166,17 +174,25 @@ def _rel(a, ref):
     return float(np.abs(a - ref).max() / (np.abs(ref).max() + 1e-12))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_plain_forward_train_matches_pallas(rng, dtype):
-    """Plain kernel B vs the TPU's _forward_train in interpret mode, B=3
-    T=128 (the Pallas grid tiles time, the plain version does not).  fp32:
+# dtype, width, T: width 64 at T=128 (ids as before), width 32 at T=50.
+TRAIN_CASES = [pytest.param(torch.float32, 64, 128, id="f32"),
+               pytest.param(torch.bfloat16, 64, 128, id="bf16"),
+               pytest.param(torch.float32, *W32, id="f32-w32"),
+               pytest.param(torch.bfloat16, *W32, id="bf16-w32")]
+
+
+@pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
+def test_plain_forward_train_matches_pallas(rng, dtype, w, t):
+    """Plain kernel B vs the TPU's _forward_train in interpret mode, B=3,
+    width 64 at T=128 and 32 at T=50 (the Pallas grid tiles time, the plain
+    version does not).  fp32:
     y and cprev 2e-5 (summation order only; measured 1.2e-7).  bf16: y 1e-2
     (one bf16 ulp of |y| < 1 plus order; measured 4.9e-4); cprev 1e-3, since
     an h that rounds to the other bf16 neighbour moves the next steps' fp32 c
     (measured 9.2e-5)."""
     from awm_tpu.ops.pallas.lstm_kernel import _forward_train
 
-    _, (w_ih, w_hh, bias), _, jx, tx = _train_case(rng, 3, 128, dtype)
+    _, (w_ih, w_hh, bias), _, jx, tx = _train_case(rng, 3, t, dtype, w)
     with pltpu.force_tpu_interpret_mode():
         ref_y, ref_c = _forward_train(jx, *map(jnp.asarray, (w_ih, w_hh, bias)))
     y, cprev = lstm_forward_train(tx, *_t(w_ih, w_hh, bias))
@@ -190,16 +206,17 @@ def test_plain_forward_train_matches_pallas(rng, dtype):
     assert torch.equal(y, lstm_forward(tx, *_t(w_ih, w_hh, bias)))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_plain_backward_matches_pallas(rng, dtype):
+@pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
+def test_plain_backward_matches_pallas(rng, dtype, w, t):
     """Plain kernel C vs the TPU's _backward in interpret mode on the same
-    (x, y, cprev, dy), B=3 T=128, relative to each tensor's max.  fp32: 1e-5
+    (x, y, cprev, dy), B=3, width 64 at T=128 and 32 at T=50, relative to
+    each tensor's max.  fp32: 1e-5
     (summation order; measured 6.6e-7).  bf16: 1e-3 (da is rounded to bf16
     before every product, and a da that lands on the other side of a
     rounding boundary moves its products by one bf16 ulp; measured 3.4e-6)."""
     from awm_tpu.ops.pallas.lstm_kernel import _backward, _forward_train
 
-    _, (w_ih, w_hh, bias), dy, jx, tx = _train_case(rng, 3, 128, dtype)
+    _, (w_ih, w_hh, bias), dy, jx, tx = _train_case(rng, 3, t, dtype, w)
     jw = list(map(jnp.asarray, (w_ih, w_hh, bias)))
     with pltpu.force_tpu_interpret_mode():
         y_t, c_t = _forward_train(jx, *jw)
@@ -216,10 +233,11 @@ def test_plain_backward_matches_pallas(rng, dtype):
         assert _rel(a.float().numpy(), r) < tol, (name, _rel(a.float().numpy(), r))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_lstm_function_grads_match_jax_grad(rng, dtype):
+@pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
+def test_lstm_function_grads_match_jax_grad(rng, dtype, w, t):
     """LSTMFunction (plain B and C on the CPU) vs jax.grad of the TPU's
-    lstm_fused custom_vjp in interpret mode, loss sum(sin(y)), B=2 T=128.
+    lstm_fused custom_vjp in interpret mode, loss sum(sin(y)), B=2, width 64
+    at T=128 and 32 at T=50.
     Cotangents come back in the primals' dtypes.  Relative to each
     gradient's max: fp32 1e-5 (the 5e-3 of tests/test_pallas.py, tightened
     to what is measured, 4.7e-7); bf16 1e-3 (the two sides round y and da to
@@ -229,7 +247,7 @@ def test_lstm_function_grads_match_jax_grad(rng, dtype):
 
     from awm_tpu_torch.ops.lstm_kernel import LSTMFunction
 
-    _, (w_ih, w_hh, bias), _, jx, tx = _train_case(rng, 2, 128, dtype)
+    _, (w_ih, w_hh, bias), _, jx, tx = _train_case(rng, 2, t, dtype, w)
 
     def loss(*a):
         return jnp.sum(jnp.sin(lstm_fused(*a).astype(jnp.float32)))

@@ -131,8 +131,9 @@ def test_schedule_rejects_and_constant():
             tr.make_schedule(cfg)
     with pytest.raises(ValueError, match="schedule"):
         tr.make_schedule(Config(train=TrainConfig(schedule=ScheduleConfig(kind="step"))))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("strided")
+    strided = get_config("strided")  # ported: the main14b_2 family, s_w clamped
+    assert strided.model.family == "strided" and strided.shaping.clamp_watermarked
+    assert tr.make_schedule(strided)(0) == 1e-3
     robust = get_config("ft_robust")
     assert robust.shaping.postprocess and robust.train.epochs == 3
     assert tr.make_schedule(robust)(0) == 1e-5

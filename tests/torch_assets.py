@@ -22,6 +22,14 @@ The files under ``awm_tpu_torch/assets/`` come from here:
 - ``robust_train_golden.npz``: one fp32 JAX train step under the C_robust
   attack curriculum, with every attack draw stored (read off the key splits),
   the terms, gradient norms and BatchNorm statistics.
+- ``strided_golden.npz``: the strided preset (main14b_2) at full width with
+  weights drawn by ``awm_tpu_torch.checkpoint.seeded_flax_tree`` from the
+  stored ``seed`` (the weights themselves, 8.9 M floats, are not stored):
+  the JAX package's fp32 ``embed_chunks`` deltas and ``embed_detect``
+  summaries on the 8 golden chunks, and one fp32 train step's loss terms and
+  gradient norms on the 4 train-golden chunks (``train/chunks``,
+  ``train/messages``, ``term/*``, ``grad_norm/*``; the family has no
+  BatchNorm).
 
 ``tests/test_torch_checkpoint.py`` regenerates them and asserts that they
 equal the committed files.  To rewrite them:
@@ -50,12 +58,14 @@ FLAGSHIP_NPZ = os.path.join(ASSETS, "t_flagship.npz")
 FLAGSHIP_ARCH = os.path.join(ASSETS, "t_flagship_arch.json")
 ROBUST_GOLDEN_NPZ = os.path.join(ASSETS, "robust_golden.npz")
 ROBUST_TRAIN_GOLDEN_NPZ = os.path.join(ASSETS, "robust_train_golden.npz")
+STRIDED_GOLDEN_NPZ = os.path.join(ASSETS, "strided_golden.npz")
 
 GOLDEN_SEED = 20261016
 GOLDEN_CHUNKS = 8
 TRAIN_SEED = 20261017
 TRAIN_CHUNKS = 4
 ROBUST_TRAIN_SEED = 3  # rng seed of the robust golden step
+STRIDED_SEED = 20261018  # seeded_flax_tree seed of the strided golden's weights
 # the C_robust leg's curriculum (awm_tpu/__main__.py:352-354 through :258-267)
 ROBUST_AUGMENT = dict(noise_snr_db=(10.0, 40.0), volume_range=(0.3, 1.2),
                       lowpass_hz=(3500.0, 5000.0, 7000.0), quantize=True,
@@ -395,6 +405,51 @@ def robust_train_golden_arrays():
     return out
 
 
+def strided_state(cfg, seed=STRIDED_SEED):
+    """(state, gen, det) of the JAX package for a strided Config, with the
+    weights seeded_flax_tree draws for it from `seed`."""
+    import jax
+    import jax.numpy as jnp
+
+    from awm_tpu import train as tr
+    from awm_tpu_torch.checkpoint import seeded_flax_tree
+    from awm_tpu_torch.config import ModelConfig as PortModelConfig
+
+    fields = {f.name for f in dataclasses.fields(PortModelConfig)}
+    port_model = PortModelConfig(**{k: v for k, v in dataclasses.asdict(cfg.model).items()
+                                    if k in fields})
+    tree = seeded_flax_tree(port_model, seed)
+    state, gen, det = tr.init_state(cfg, jax.random.key(0))
+    params = jax.tree.map(jnp.asarray, tree["params"])
+    return state.replace(params=params, opt_state=tr.make_optimizer(cfg).init(params)), gen, det
+
+
+def strided_golden_arrays():
+    """The JAX package's fp32 strided session on golden_inputs() and one fp32
+    strided train step on the train golden's chunks, weights from
+    STRIDED_SEED."""
+    import jax.numpy as jnp
+
+    from awm_tpu.api import InferenceSession
+    from awm_tpu.config import get_config
+
+    cfg = get_config("strided")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    state, gen, det = strided_state(cfg)
+    sess = InferenceSession.from_state(cfg, gen, det, state, compute_dtype=jnp.float32)
+    chunks, messages = golden_inputs()
+    out = {"seed": np.int64(STRIDED_SEED), "chunks": chunks, "messages": messages,
+           "embed_delta": np.asarray(sess.embed_chunks(chunks, messages), np.float32)}
+    out.update({k: np.asarray(v, np.float32) for k, v in sess.embed_detect(chunks, messages).items()})
+    chunks, messages = golden_inputs(TRAIN_SEED, TRAIN_CHUNKS)
+    terms, grads, _ = jax_loss_and_grads(cfg, gen, det, state, jnp.asarray(chunks), jnp.asarray(messages))
+    out.update({"train/chunks": chunks, "train/messages": messages})
+    out.update({f"term/{k}": np.asarray(v, np.float32) for k, v in terms.items()})
+    out.update({f"grad_norm/{k}": np.asarray(np.linalg.norm(v), np.float32)
+                for k, v in torch_named({"params": grads}).items()})
+    return out
+
+
 def main():
     import jax
 
@@ -409,8 +464,9 @@ def main():
     np.savez(ROBUST_TRAIN_GOLDEN_NPZ, **robust_train_golden_arrays())
     np.savez(FLAGSHIP_NPZ, **weights_arrays(restore_shapecap(FLAGSHIP_CKPT)[1]))
     shutil.copyfile(os.path.join(FLAGSHIP_CKPT, "awm_arch.json"), FLAGSHIP_ARCH)
+    np.savez(STRIDED_GOLDEN_NPZ, **strided_golden_arrays())
     print("wrote", WEIGHTS_NPZ, GOLDEN_NPZ, ARCH_JSON, TRAIN_GOLDEN_NPZ, ROBUST_GOLDEN_NPZ,
-          ROBUST_TRAIN_GOLDEN_NPZ, FLAGSHIP_NPZ, FLAGSHIP_ARCH)
+          ROBUST_TRAIN_GOLDEN_NPZ, FLAGSHIP_NPZ, FLAGSHIP_ARCH, STRIDED_GOLDEN_NPZ)
 
 
 if __name__ == "__main__":
