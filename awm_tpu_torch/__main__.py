@@ -1,8 +1,11 @@
 """Command line of the port: python -m awm_tpu_torch
-embed|detect|verify|train|curriculum|evaluate|embed-folder|detect-folder|serve.
+embed|detect|verify|train|curriculum|evaluate|embed-folder|detect-folder|serve|prep.
 
 The commands and their arguments are those of ``python -m awm_tpu`` but for
-its ``bench`` and ``prep`` (and ``train --data-parallel``).  Sessions load a
+its ``bench``.  ``train --data-parallel [--model-parallel K]`` trains on
+every rank of a torchrun launch (``torchrun --nproc-per-node N -m
+awm_tpu_torch train --data-parallel``; one card a rank, NCCL, or gloo with
+--device cpu); without torchrun it is a world of one.  Sessions load a
 checkpoint directory of the port (--ckpt: its recorded architecture and
 shaping chain), the reference's torch .pth weights (--torch-generator /
 --torch-detector of the preset's family, fp32 unless --compute-dtype says
@@ -184,19 +187,41 @@ def _train_config(args):
     return cfg
 
 
+def _train_mesh(args):
+    """(mesh, device) of a train command: with --data-parallel the group of
+    torchrun's ranks (or of this process alone), each rank on the card of
+    its LOCAL_RANK unless --device cpu; else (None, --device)."""
+    if not args.data_parallel:
+        return None, args.device
+    import torch
+
+    from awm_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_distributed(device=device)
+    return make_mesh(model_parallel=args.model_parallel), device
+
+
 def cmd_train(args):
     from awm_tpu_torch.data import (BatchLoader, ConcatClips, OneSecClips, SyntheticClips,
                                     SyntheticMusicClips, split_indices)
+    from awm_tpu_torch.parallel.mesh import is_lead
     from awm_tpu_torch.trainer import fit
 
     cfg = _train_config(args)
+    mesh, device = _train_mesh(args)
     if args.data:
         ds = OneSecClips(args.data, cfg.sample_rate, cfg.audio_len)
         if not len(ds):
             sys.exit(f"no .wav files under {args.data}")
         n_total = len(ds)
     else:
-        print("no --data given; training on synthetic clips (smoke mode)")
+        if is_lead(mesh):
+            print("no --data given; training on synthetic clips (smoke mode)")
         n_total = args.synthetic_n
         ds = SyntheticClips(n=n_total - int(round(args.music_frac * n_total)), audio_len=cfg.audio_len)
     if args.music_frac > 0.0:
@@ -213,9 +238,10 @@ def cmd_train(args):
     )
     out = fit(cfg, mk(tr_idx, True), mk(va_idx, False), ckpt_dir=args.ckpt_dir,
               init_from=args.init_from, log_path=args.log_csv, plot_path=args.loss_plot,
-              seed=cfg.train.seed, select_metric=args.select_metric, device=args.device)
-    print(json.dumps({"best_val": out["best_val"], "epochs": len(out["history"]),
-                      "stopped_early": out["stopped_early"]}, indent=2))
+              seed=cfg.train.seed, select_metric=args.select_metric, device=device, mesh=mesh)
+    if is_lead(mesh):
+        print(json.dumps({"best_val": out["best_val"], "epochs": len(out["history"]),
+                          "stopped_early": out["stopped_early"]}, indent=2))
     return out
 
 
@@ -293,6 +319,8 @@ def cmd_curriculum(args):
         shared += ["--seed", str(args.seed)]
     if args.audio_len:
         shared += ["--audio-len", str(args.audio_len)]
+    if args.data_parallel:
+        shared += ["--data-parallel", "--model-parallel", str(args.model_parallel)]
 
     prev = args.init_from
     legs_out = {}
@@ -328,6 +356,44 @@ def cmd_curriculum(args):
     out = {"recipe": args.recipe, "legs": legs_out, "final_ckpt": prev}
     print(json.dumps(out, indent=2))
     return out
+
+
+def cmd_prep(args):
+    """The dataset tools of data/prep.py (awm_tpu/__main__.py:510-549)."""
+    from awm_tpu_torch.data import prep
+
+    if args.prep_cmd == "metadata":
+        n = prep.build_metadata(args.dir, args.output)
+        print(f"wrote {n} rows to {args.output}")
+    elif args.prep_cmd == "select":
+        n, total = prep.select_audios(args.metadata, args.output, hours=args.hours,
+                                      seconds=args.seconds, seed=args.seed)
+        print(f"selected {n} files / {total / 3600:.2f} h -> {args.output}")
+    elif args.prep_cmd == "segment":
+        if args.metadata:
+            files = [p for p, _ in prep.read_metadata(args.metadata)]
+        else:
+            import glob
+
+            files = sorted(glob.glob(os.path.join(args.dir, "**", "*.wav"), recursive=True))
+        n = prep.segment_to_clips(files, args.output, seg_seconds=args.seconds or 1.0,
+                                  per_file_subdirs=args.subdirs, workers=args.workers)
+        print(f"wrote {n} clips to {args.output}")
+    elif args.prep_cmd == "classify":
+        if args.sample:
+            print(json.dumps(prep.sample_feature_stats(args.dir, args.sample, full=args.full),
+                             indent=2))
+            return
+        print(json.dumps(prep.classify_folder(args.dir, args.output, workers=args.workers,
+                                              max_files=args.max_files, full=args.full), indent=2))
+    elif args.prep_cmd == "speech-only":
+        n = prep.copy_speech_only(args.list, args.output)
+        print(f"copied {n} speech files to {args.output}")
+    elif args.prep_cmd == "silent":
+        for p in prep.find_silent(args.dir, args.threshold):
+            print(p)
+    elif args.prep_cmd == "compare":
+        print(json.dumps(prep.compare_metadata(args.a, args.b), indent=2))
 
 
 def cmd_evaluate(args):
@@ -507,7 +573,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--loss-plot", default=None, help="loss-curve PNG (needs matplotlib)")
     p.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
                    help="conv/BN compute dtype of the step (default: the preset's, bfloat16)")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train on every rank of a torchrun launch, the batch sharded over the "
+                        "mesh's data axis (one process: a world of one)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks a model group: the message table's rows are sharded over them")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; under torchrun cuda:$LOCAL_RANK)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("curriculum", help="staged multi-leg training recipe in one command")
@@ -527,6 +599,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--stop-after", default=None,
                    help="stop after the named leg finishes; a re-run continues (finished "
                         "legs are skipped)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="every leg trains with train --data-parallel")
+    p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--device", default="cuda", help="torch device of every leg (default cuda)")
     p.set_defaults(fn=cmd_curriculum)
 
@@ -557,6 +632,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="max time a request waits for batch co-riders")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("prep", help="dataset creation tools (host only)")
+    psub = p.add_subparsers(dest="prep_cmd", required=True)
+    q = psub.add_parser("metadata")
+    q.add_argument("dir")
+    q.add_argument("output")
+    q = psub.add_parser("select")
+    q.add_argument("metadata")
+    q.add_argument("output")
+    q.add_argument("--hours", type=float)
+    q.add_argument("--seconds", type=float)
+    q.add_argument("--seed", type=int)
+    q = psub.add_parser("segment")
+    q.add_argument("output")
+    q.add_argument("--metadata")
+    q.add_argument("--dir")
+    q.add_argument("--seconds", type=float, default=1.0)
+    q.add_argument("--subdirs", action="store_true")
+    q.add_argument("--workers", type=int, default=8)
+    q = psub.add_parser("classify")
+    q.add_argument("dir")
+    q.add_argument("output")
+    q.add_argument("--workers", type=int, default=8)
+    q.add_argument("--max-files", type=int)
+    q.add_argument("--full", action="store_true",
+                   help="record the full noise.py feature set (MFCC stats, spectral "
+                        "bandwidth/rolloff, order-5 band filter)")
+    q.add_argument("--sample", type=int,
+                   help="tuning mode: analyze N random files and print per-feature "
+                        "statistics instead of classifying the folder")
+    q = psub.add_parser("speech-only")
+    q.add_argument("list")
+    q.add_argument("output")
+    q = psub.add_parser("silent")
+    q.add_argument("dir")
+    q.add_argument("--threshold", type=float, default=1e-4)
+    q = psub.add_parser("compare")
+    q.add_argument("a")
+    q.add_argument("b")
+    p.set_defaults(fn=cmd_prep)
     return ap.parse_args(argv)
 
 
@@ -566,4 +681,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        from awm_tpu_torch.parallel import shutdown
+
+        shutdown()

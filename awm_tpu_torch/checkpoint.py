@@ -269,14 +269,19 @@ def save_checkpoint(path: str, state, *, epoch: int = 0, best_val: float = float
     """Write a TrainState (train.py) with epoch and best_val to the directory
     path, overwriting it.  The arch sidecar goes first and the state file is
     renamed into place last, so an interrupted save leaves the previous
-    checkpoint (or none) and never half of one."""
+    checkpoint (or none) and never half of one.  A state on a mesh is saved
+    whole (its message table gathered over the model group, so every rank
+    calls this) by rank 0 alone, and restores on any layout."""
+    from awm_tpu_torch.parallel.mesh import full_state_dicts, is_lead
+
+    state_dicts = full_state_dicts(state)
+    if not is_lead(state.mesh):
+        return
     os.makedirs(path, exist_ok=True)
     if model_cfg is not None:
         write_arch(path, model_cfg, shaping_cfg)
     payload = {
-        "gen": state.gen.state_dict(),
-        "det": state.det.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        **state_dicts,
         "step": int(state.step),
         "epoch": int(epoch),
         "best_val": float(best_val),
@@ -300,7 +305,10 @@ def _payload(path: str, map_location="cpu") -> Dict[str, Any]:
 def restore_checkpoint(path: str, state) -> Tuple[Any, int, float]:
     """Restore a TrainState in place from a checkpoint directory, onto the
     state's own device (a checkpoint written on the card restores on the
-    CPU).  Returns (state, epoch, best_val)."""
+    CPU).  A sharded state cannot take a whole checkpoint: restore first,
+    then parallel.shard_state.  Returns (state, epoch, best_val)."""
+    if state.mesh is not None:
+        raise ValueError("restore a checkpoint before parallel.shard_state, not into a sharded state")
     payload = _payload(path, map_location=next(state.gen.parameters()).device)
     state.gen.load_state_dict(payload["gen"])
     state.det.load_state_dict(payload["det"])

@@ -24,6 +24,7 @@ import torch
 from awm_tpu_torch.config import LossConfig
 from awm_tpu_torch.dsp.stft import log_mel, spectrogram, stft
 from awm_tpu_torch.models.messages import message_to_bits
+from awm_tpu_torch.parallel.collectives import mean_over_ranks
 
 
 def bce_with_logits_per(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -51,18 +52,22 @@ def dec_loss(
     bits: int = 16,
     mode: str = "per_sample",
     bit_balance: float = 0.0,
+    group=None,
 ) -> torch.Tensor:
     """Bit-decode BCE on the watermarked half, decode_logits (B, T, bits).
 
     "mean" takes the BCE of the time-mean logit (the statistic detection
     thresholds); bit_balance > 0 weights each bit position by (its batch BCE
     / the mean over positions) ** bit_balance, the weights detached and
-    normalised to mean 1.  "per_sample" expands the target over all T."""
+    normalised to mean 1.  "per_sample" expands the target over all T.
+    group: the data group of a mesh, whose ranks hold equal shares of the
+    batch; the per-bit BCE that sets the weights is then the group's mean,
+    the global batch's."""
     target = message_to_bits(message, bits)  # (B, bits)
     if mode == "mean":
         per = bce_with_logits_per(decode_logits.to(torch.float32).mean(dim=1), target)
         if bit_balance > 0.0:
-            per_bit = per.mean(dim=0)
+            per_bit = mean_over_ranks(per.mean(dim=0), group)
             w = (per_bit / (per_bit.mean() + 1e-8)) ** bit_balance
             w = (w / (w.mean() + 1e-8)).detach()
             return (per * w).mean()
@@ -112,14 +117,17 @@ def total_loss(
     logits: torch.Tensor,
     message: torch.Tensor,
     message_bits: int = 16,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Weighted sum and per-term dict.  logits: (2B, T, 1+bits) of the
-    detector over cat([s_w, s])."""
+    detector over cat([s_w, s]).  Under a mesh each term is this rank's
+    mean over its rows, and group (the data group) only reaches dec_loss's
+    bit weights; the caller averages the terms over the group."""
     b = s.shape[0]
     terms = {
         "loc": loc_loss(logits[:, :, 0]),
         "dec": dec_loss(logits[:b, :, 1:], message, message_bits,
-                        mode=cfg.dec_loss_mode, bit_balance=cfg.dec_bit_balance),
+                        mode=cfg.dec_loss_mode, bit_balance=cfg.dec_bit_balance, group=group),
         "l1": l1_delta_loss(delta),
         "mel": mel_l1_loss(s, s_w, scales=cfg.mel_scales),
         "loud": tf_loudness_loss(s, s_w),

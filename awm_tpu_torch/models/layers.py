@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from awm_tpu_torch.ops import conv1d, conv_transpose1d, lstm_fused_forward
+from awm_tpu_torch.parallel.collectives import replicated_sum, sum_over_ranks
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
@@ -89,9 +90,16 @@ class BatchNorm(nn.Module):
     max(0, E[x^2] - E[x]^2), and updates the running statistics as
     ra = 0.9 * ra + 0.1 * batch, with that biased variance (torch's own
     BatchNorm uses the unbiased one there).  Eval mode normalises with the
-    running statistics."""
+    running statistics.
+
+    Under a mesh (parallel.shard_state sets ``group`` to the data group) the
+    train-mode statistics are those of the group's union of rows: each rank's
+    (sum x, sum x^2, count) summed over the group, differentiably, as a
+    BatchNorm in a jitted step on sharded inputs normalises by the global
+    batch.  torch.nn.SyncBatchNorm would keep the unbiased variance."""
 
     compute_dtype = None
+    group = None
 
     def __init__(self, ch: int, eps: float = 1e-5):
         super().__init__()
@@ -107,8 +115,14 @@ class BatchNorm(nn.Module):
                                 self.bias, training=False, eps=self.eps)
         xf = x.to(torch.float32)
         if self.training:
-            mean = xf.mean(dim=(0, 2))
-            var = torch.clamp(xf.square().mean(dim=(0, 2)) - mean.square(), min=0.0)
+            if self.group is None:
+                mean, sq = xf.mean(dim=(0, 2)), xf.square().mean(dim=(0, 2))
+            else:
+                c = xf.shape[1]
+                sums = sum_over_ranks(torch.cat([xf.sum(dim=(0, 2)), xf.square().sum(dim=(0, 2)),
+                                                 xf.new_full((1,), xf.numel() / c)]), self.group)
+                mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            var = torch.clamp(sq - mean.square(), min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
                 self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
@@ -182,11 +196,25 @@ class LSTM(nn.Module):
 
 class Embedding(nn.Module):
     """torch.nn.Embedding(num, dim) with N(0, 1) init, indexed by the
-    integer message (ref: py/main14.py:103,118-121)."""
+    integer message (ref: py/main14.py:103,118-121).
+
+    Vocab-parallel under a mesh whose model axis cuts the table
+    (parallel.shard_state): ``weight`` holds the rows from ``vocab_start``
+    on, a message outside them looks up zeros, and the lookup is summed over
+    ``group`` (the model group), whose ranks all compute the same loss from
+    it, so the backward leaves the gradient as it is."""
+
+    group = None
+    vocab_start = 0
 
     def __init__(self, num: int, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.randn(num, dim))
 
     def forward(self, idx):
-        return F.embedding(idx, self.weight)
+        if self.group is None:
+            return F.embedding(idx, self.weight)
+        local = idx - self.vocab_start
+        mine = (local >= 0) & (local < self.weight.shape[0])
+        part = F.embedding(torch.where(mine, local, torch.zeros_like(local)), self.weight)
+        return replicated_sum(part * mine[..., None].to(part.dtype), self.group)

@@ -1,0 +1,30 @@
+"""Multi-process training: the ("data", "model") mesh and the sharded state
+(counterpart of awm_tpu/parallel)."""
+
+from awm_tpu_torch.parallel.mesh import (
+    full_grads,
+    full_state_dicts,
+    initialize_distributed,
+    make_global_mesh,
+    make_mesh,
+    param_spec,
+    shard_batch,
+    shard_batch_from_process_local,
+    shard_state,
+    shutdown,
+    state_shardings,
+)
+
+__all__ = [
+    "full_grads",
+    "full_state_dicts",
+    "initialize_distributed",
+    "make_global_mesh",
+    "make_mesh",
+    "param_spec",
+    "shard_batch",
+    "shard_batch_from_process_local",
+    "shard_state",
+    "shutdown",
+    "state_shardings",
+]

@@ -20,6 +20,16 @@ uninterrupted one would, and a checkpoint holds no random state.
 train_step and eval_step also take a message tensor and the attack draws,
 which the parity tests use to hand in what the JAX step drew.  The two
 frameworks' random streams are never compared.
+
+Under a mesh (parallel.shard_state puts it in state.mesh) s holds this
+rank's rows of the global batch, and the step is the step on the global
+batch: every rank draws the global batch's messages and attacks from the
+same (seed, step) generators and keeps its rows, BatchNorm and dec_loss's
+bit weights take statistics over the data group, the gradients are averaged
+before Adam (a table shard's over the data group, every other one over all
+ranks, which keeps the replicated parameters bit-equal), and the returned
+terms are the global means.  A message or attack draws handed in are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -34,12 +44,15 @@ import torch
 from awm_tpu_torch.augment import apply_augment, draw_augment
 from awm_tpu_torch.config import Config
 from awm_tpu_torch.losses import total_loss
+from awm_tpu_torch.parallel.collectives import all_reduce_, group_size, mean_over_ranks
+from awm_tpu_torch.parallel.mesh import axis_group, axis_size, shard_batch, world_group
 from awm_tpu_torch.models import (
     build_models,
     decode_bits_majority,
     decode_bits_mean_logit,
     message_to_bits,
 )
+from awm_tpu_torch.models.layers import Embedding
 from awm_tpu_torch.shaping import apply_channel, shape_delta
 from awm_tpu_torch.utils.precision import no_tf32
 
@@ -50,7 +63,8 @@ class TrainState:
     optimizer over the trained parameters, the learning-rate schedule, the
     step count, the run seed, the message generator (CPU) and the attack
     generator (on the networks' device); train_step seeds both from (seed,
-    step)."""
+    step).  mesh: the DeviceMesh of a state placed by parallel.shard_state,
+    None on one process."""
 
     gen: torch.nn.Module
     det: torch.nn.Module
@@ -60,6 +74,7 @@ class TrainState:
     attack_generator: torch.Generator
     seed: int = 42
     step: int = 0
+    mesh: Optional[object] = None
 
 
 def compute_dtype_of(cfg: Config) -> Optional[torch.dtype]:
@@ -176,17 +191,63 @@ def _forward(cfg: Config, gen, det, s, message, *, train: bool, attack_draws=Non
     return delta, s_w, logits.to(torch.float32)
 
 
-def _terms(cfg, s, delta, s_w, logits, message):
+def _terms(cfg, s, delta, s_w, logits, message, group=None):
     return total_loss(cfg.loss, s=s, s_w=s_w, delta=delta, logits=logits, message=message,
-                      message_bits=cfg.message_bits)
+                      message_bits=cfg.message_bits, group=group)
 
 
-def _draw_attacks(cfg: Config, s: torch.Tensor, generator: Optional[torch.Generator]):
-    """The attack draws of one step for the (2B, T) detector batch, or None
-    without a curriculum or a generator."""
+def _draw_attacks(cfg: Config, batch: int, length: int, generator: Optional[torch.Generator]):
+    """The attack draws of one step for the (2 * batch, length) detector
+    batch, or None without a curriculum or a generator."""
     if cfg.augment is None or generator is None:
         return None
-    return draw_augment(cfg.augment, 2 * s.shape[0], s.shape[1], generator)
+    return draw_augment(cfg.augment, 2 * batch, length, generator)
+
+
+def _own_rows(mesh, message, attack_draws):
+    """This rank's rows of the global batch's draws: its shard of the B
+    messages, and of each half of the 2B detector rows cat([s_w, s])."""
+    if axis_size(mesh, "data") == 1:
+        return message, attack_draws
+    if attack_draws is not None:
+        big = message.shape[0]
+        attack_draws = {k: torch.cat([shard_batch(v[:big], mesh), shard_batch(v[big:], mesh)])
+                        for k, v in attack_draws.items()}
+    return shard_batch(message, mesh), attack_draws
+
+
+def _mean_grads(grads, group) -> None:
+    """Each gradient replaced by its mean over the group: one all-reduce of
+    a flat copy."""
+    if group is None or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, group).div_(group_size(group))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def _average_grads(state: TrainState) -> None:
+    """The gradients of the global batch's loss.  A sharded table's rows
+    differ over the model group, so its gradient is averaged over the data
+    group.  Every other leaf is replicated: its mean over all ranks is the
+    data group's mean where the ranks of a model group agree, and it leaves
+    the copies bit-equal where a nondeterministic reduction on the card
+    makes them differ, so they cannot drift apart step after step."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"] if p.grad is not None]
+    sharded = {id(mod.weight) for net in (state.gen, state.det) for mod in net.modules()
+               if isinstance(mod, Embedding) and mod.group is not None}
+    _mean_grads([p.grad for p in params if id(p) not in sharded], world_group(state.mesh))
+    _mean_grads([p.grad for p in params if id(p) in sharded], axis_group(state.mesh, "data"))
+
+
+def _global_terms(terms: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Detached loss terms, each the mean over the group of the ranks' means
+    (the global batch's mean: the ranks hold equal shares)."""
+    if group is None:
+        return {k: v.detach() for k, v in terms.items()}
+    means = mean_over_ranks(torch.stack([v.detach().float() for v in terms.values()]), group)
+    return dict(zip(terms, means.unbind()))
 
 
 def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
@@ -199,18 +260,22 @@ def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
     (detached device scalars).  A frozen network still normalises with its
     batch statistics but keeps its running statistics, as the JAX step does."""
     seed_step(state)
+    big = s.shape[0] * axis_size(state.mesh, "data")
     if message is None:
-        message = draw_messages(cfg, s.shape[0], state.generator, s.device)
+        message = draw_messages(cfg, big, state.generator, s.device)
     if attack_draws is None:
-        attack_draws = _draw_attacks(cfg, s, state.attack_generator)
+        attack_draws = _draw_attacks(cfg, big, s.shape[1], state.attack_generator)
+    message, attack_draws = _own_rows(state.mesh, message, attack_draws)
+    data = axis_group(state.mesh, "data")
     frozen = {"gen": state.gen, "det": state.det}.get(cfg.train.freeze)
     kept = [b.clone() for b in frozen.buffers()] if frozen is not None else []
     with _precision(cfg):
         delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=True,
                                       attack_draws=attack_draws)
-        terms = _terms(cfg, s, delta, s_w, logits, message)
+        terms = _terms(cfg, s, delta, s_w, logits, message, data)
         state.optimizer.zero_grad(set_to_none=True)
         terms["total"].backward()
+        _average_grads(state)
         for group in state.optimizer.param_groups:
             group["lr"] = state.schedule(state.step)
         state.optimizer.step()
@@ -219,7 +284,7 @@ def train_step(cfg: Config, state: TrainState, s: torch.Tensor,
             for buf, old in zip(frozen.buffers(), kept):
                 buf.copy_(old)
     state.step += 1
-    return {k: v.detach() for k, v in terms.items()}
+    return _global_terms(terms, data)
 
 
 @torch.no_grad()
@@ -234,12 +299,16 @@ def eval_step(cfg: Config, state: TrainState, s: torch.Tensor,
     validates clean.  Clean loc/dec have converged when a robustness
     fine-tune starts, and selecting on them would freeze the run at epoch 0
     (awm_tpu/train.py:235-240)."""
+    big = s.shape[0] * axis_size(state.mesh, "data")
     if message is None:
-        message = draw_messages(cfg, s.shape[0], generator, s.device)
+        message = draw_messages(cfg, big, generator, s.device)
+    message, draws = _own_rows(state.mesh, message,
+                               _draw_attacks(cfg, big, s.shape[1], attack_generator))
+    data = axis_group(state.mesh, "data")
     with _precision(cfg):
         delta, s_w, logits = _forward(cfg, state.gen, state.det, s, message, train=False,
-                                      attack_draws=_draw_attacks(cfg, s, attack_generator))
-        return _terms(cfg, s, delta, s_w, logits, message)
+                                      attack_draws=draws)
+        return _global_terms(_terms(cfg, s, delta, s_w, logits, message, data), data)
 
 
 @torch.no_grad()
@@ -251,7 +320,8 @@ def evaluate_step(cfg: Config, state: TrainState, s: torch.Tensor,
     the delta RMS."""
     b = s.shape[0]
     if message is None:
-        message = draw_messages(cfg, b, generator, s.device)
+        message = draw_messages(cfg, b * axis_size(state.mesh, "data"), generator, s.device)
+    message, _ = _own_rows(state.mesh, message, None)
     with _precision(cfg):
         delta, _, logits = _forward(cfg, state.gen, state.det, s, message, train=False)
     probs = torch.sigmoid(logits[:, :, 0]).mean(dim=1)

@@ -9,8 +9,19 @@ directory or a flattened .npz (the fine-tune flow: weights only, missing
 leaves kept at init, fresh optimizer and step).  Metrics are fetched one
 step late, as the JAX loop does, so the card never waits on the host between
 steps.  With an attack curriculum (cfg.augment.val_attacks) validation and
-quick-val run under the curriculum's attacks.  Not ported yet: the
-data-parallel mesh, which raises if given.
+quick-val run under the curriculum's attacks.
+
+With a mesh (parallel.make_mesh) every rank runs fit: the state is placed
+on the mesh after any resume (parallel.shard_state), and every rank takes
+rank 0's resume (its epoch, best value, step and Adam state), so a rank
+that found no checkpoint of its own still runs the same epochs.  Each rank
+walks the same global batch order and keeps its rows, and the step and
+validation terms are global means, so early stopping and best-checkpoint
+choices agree on every rank.  A validation batch keeps only the rows that
+divide over the data axis (the last, partial batch loses its remainder;
+the JAX package refuses it).  Rank 0 alone prints, logs, plots and writes
+the checkpoints, which hold the whole message table and so restore on any
+layout, one process included.
 """
 
 from __future__ import annotations
@@ -87,9 +98,18 @@ def fit(
     whose sum drives best-checkpoint selection and early stopping instead
     of the weighted total.
 
+    mesh: train on a ("data", "model") DeviceMesh, fed the global batches.
+
     Returns {state, history, best_val, stopped_early}."""
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...) is not ported yet (the multi-device slice)")
+    import torch.distributed as dist
+
+    from awm_tpu_torch.parallel import mesh as pm
+
+    if mesh is not None and not dist.is_initialized():
+        raise RuntimeError("fit(mesh=...) needs the mesh's process group: call "
+                           "parallel.initialize_distributed, then parallel.make_mesh")
+    lead = pm.is_lead(mesh)
+    verbose = verbose and lead
     epochs = epochs if epochs is not None else cfg.train.epochs
     select_keys = [k.strip() for k in select_metric.split(",")] if select_metric else ["total"]
     unknown = [k for k in select_keys if k not in term_keys(cfg.loss)]
@@ -108,10 +128,16 @@ def fit(
         state, start_epoch, best_val, resumed = ck.maybe_resume(ckpt_dir, state)
         if resumed and verbose:
             print(f"resumed from {ck.latest_path(ckpt_dir)} (next epoch = {start_epoch})")
-    put = lambda b: torch.from_numpy(np.asarray(b, np.float32)).to(device)
+    if mesh is not None:
+        pm.shard_state(state, mesh)
+        start_epoch, best_val = pm.lead_values([start_epoch, best_val], device)
+        start_epoch = int(start_epoch)
+    put = lambda b: torch.from_numpy(pm.shard_batch(np.asarray(b, np.float32), mesh)).to(device)
+    data_n = pm.axis_size(mesh, "data")
+    val_rows = lambda b: b[:len(b) - len(b) % data_n]  # the rows that divide over "data"
 
     early = tr.EarlyStopping(cfg.train.early_stop_patience, cfg.train.early_stop_min_delta)
-    logger = MetricsLogger(log_path)
+    logger = MetricsLogger(log_path if lead else None)
     history: List[Dict] = []
     quick_every = cfg.train.quick_val_every
     val_iterable = val_batches if val_batches is not None else []
@@ -139,7 +165,7 @@ def fit(
         # messages seeded by the batch index only: every epoch sees the same
         terms = [_fetch(tr.eval_step(cfg, state, put(b), generator=_seeded(seed + 7_000 + i),
                                      attack_generator=val_attacks(i)))
-                 for i, b in enumerate(val_iterable)]
+                 for i, b in enumerate(map(val_rows, val_iterable)) if len(b)]
         return _mean_terms(terms) if terms else {}
 
     stopped = False
@@ -154,7 +180,8 @@ def fit(
             pending = terms
             if quick_every and (i + 1) % quick_every == 0 and val_batches is not None:
                 qb = next_val_batch()
-                if qb is not None:
+                qb = None if qb is None else val_rows(qb)
+                if qb is not None and len(qb):
                     qv = _fetch(tr.eval_step(cfg, state, put(qb), generator=_seeded(seed + 9_000 + i),
                                              attack_generator=val_attacks(i)))
                     if verbose:
@@ -194,7 +221,7 @@ def fit(
                 print(f"early stopping at epoch {epoch}")
             break
 
-    if plot_path and history:
+    if plot_path and history and lead:
         plot_curves(history, plot_path)
     return {"state": state, "history": history, "best_val": best_val, "stopped_early": stopped}
 

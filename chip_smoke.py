@@ -81,7 +81,22 @@ instantiations over 50 steps a chunk.  Phases:
    (quality), and a main14b_2 .pth pair through ``detect --preset strided
    --torch-generator/--torch-detector`` on the card equal to the CPU; all six
    width-32 instantiations must have launched there;
-13. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
+13. multi-process training, counters zeroed just before (parallel_phase; the
+   ranks report their own launch counts): ``torchrun --nproc-per-node 1 -m
+   awm_tpu_torch train --data-parallel`` (NCCL; bf16, B=128, 3 steps and one
+   validation, --ckpt-dir), whose ckpt_latest restores here equal to the
+   trained state, and the bf16 step through a mesh of one beside the plain
+   step; two ranks on the one card over gloo (NCCL refuses two ranks on one
+   device): the shapecap fp32 step at B=128 on a data=2 mesh with its
+   validation, and the base preset's fp32 step on a model=2 mesh with the
+   message table sharded and gathered, each against one process on the same
+   card, gradients included; three model=2 steps leave the ranks' replicated
+   parameters bit-equal; kernels B and C launched on each rank and A in its
+   validation; the bf16 step's clips/s with the collectives a step issues
+   and their share of its time (the two launches start together; the 2-rank
+   run times its steps once the 1-rank run has exited); ``prep metadata``,
+   ``segment`` and ``classify`` on a folder of WAVs;
+14. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
    yardstick only), embed+detect clips/s at B=512, train-step clips/s at
    B=128 clean and under the curriculum, and the 12-attack sweep's wall time
    at n=128, per compute dtype, with the step's peak memory, a profile of
@@ -94,11 +109,13 @@ instantiations over 50 steps a chunk.  Phases:
    nn.LSTM(32) and the least time of 50 dependent steps; the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
    dtype, with peak memory and a profile of one bf16 step;
-14. print the {"kernels": [...]} line (12 instantiations), and last the
+15. print the {"kernels": [...]} line (12 instantiations), and last the
    {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
-fallback: without a card the script exits 1 at once.
+fallback: without a card the script exits 1 at once.  Phase 13 starts this
+script under torchrun with arguments (``cli-rank``, ``parallel-rank``: see
+rank_main); run with none, it needs one card.
 """
 
 from __future__ import annotations
@@ -1058,6 +1075,490 @@ def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
     return best
 
 
+# The multi-process phase.  NCCL refuses two ranks on one card, so the
+# one-card run of two ranks goes over gloo (all_reduce and broadcast of CUDA
+# tensors, all this path issues); train --data-parallel itself runs one rank
+# over NCCL.  The 2-rank fp32 steps are held against one process on the same
+# card with test_fp32_train_step_matches_jax's tolerances: terms 1e-5
+# relative, BatchNorm statistics 1e-5, and step_errors' rules for the
+# gradients and the updated parameters.  Except: the gradients of the trained
+# generator LSTM and of the encoder before it (UPSTREAM_OF_LSTM) follow a
+# recurrence over T steps that amplifies rounding: at B=128, T=800 on the CPU
+# the sharded step's order of summation moves them by up to 10% of their
+# largest entry, and so does a 1e-6 relative change of the one process's
+# input (by up to 21%).  Those are held, as a group, to move no more than the
+# one process's own gradients move under that input change (step_drift),
+# measured in the same run.
+PARALLEL_B, PARALLEL_TABLE_B = B_TRAIN, 32  # data=2: 64 rows a rank; model=2: the base preset
+PARALLEL_TOL = {"terms": 1e-5, "stats": 1e-5, "input_change": 1e-6}
+TABLE_STEPS = 3  # model=2 steps after which the replicated parameters must still be bit-equal
+UPSTREAM_OF_LSTM = re.compile(r"^gen\.(enc_|lstm\.)")
+
+
+def step_drift(got: dict, want: dict, params) -> float:
+    """||g - g_ref|| / ||g_ref|| over the named parameters' gradients taken
+    together ("grad.<name>" of got and want)."""
+    diff = sum(float((got[f"grad.{k}"].double() - want[f"grad.{k}"].double()).square().sum()) for k in params)
+    return (diff / sum(float(want[f"grad.{k}"].double().square().sum()) for k in params)) ** 0.5
+
+
+def step_errors(got: dict, want: dict, params, lr: float, drifting=()) -> dict:
+    """One train step against a reference step from the same weights, batch
+    and draws, by tests/test_torch_train.py::test_fp32_train_step_matches_jax's
+    rules; got and want map a parameter's name to its value after the step
+    and "grad.<name>" to its gradient; the parameters in `drifting` are
+    held by the "step" rule alone (step_drift reads their gradients).  Each
+    rule's worst reading over the parameters, as a share of its limit (the
+    check passes below 1):
+    "grad": |g - g_ref| over 5e-3 of the parameter's largest |g_ref|;
+    "bn_fed_grad": a BatchNorm-fed conv bias's |g| (zero analytically) over
+    1e-3 of the largest |g_ref| of all; "sure_step": the updated parameter's
+    error over 1e-2 lr where |g_ref| is 100x the gradients' difference (inf
+    where no entry is); "step": its error anywhere over 2 lr + 1e-7 (Adam's
+    first step amplifies a gradient within rounding of zero to +-lr)."""
+    gmax = max(float(want[f"grad.{k}"].abs().max()) for k in params)
+    worst = dict.fromkeys(("grad", "bn_fed_grad", "sure_step", "step"), 0.0)
+    for k in params:
+        g, ref_g = got[f"grad.{k}"].double(), want[f"grad.{k}"].double()
+        err = (got[k].double() - want[k].double()).abs()
+        worst["step"] = max(worst["step"], float(err.max()) / (2 * lr + 1e-7))
+        if k in drifting:
+            continue
+        if BN_FED.search(k):
+            worst["bn_fed_grad"] = max(worst["bn_fed_grad"], float(g.abs().max()) / (1e-3 * gmax))
+            continue
+        diff = float((g - ref_g).abs().max())
+        worst["grad"] = max(worst["grad"], diff / (5e-3 * float(ref_g.abs().max())))
+        sure = ref_g.abs() > 100 * diff
+        worst["sure_step"] = max(worst["sure_step"], float(err[sure].max()) / (1e-2 * lr)
+                                 if bool(sure.any()) else float("inf"))
+    return worst
+
+
+def timed_all_reduce(seconds: list):
+    """A stand-in for torch.distributed.all_reduce that adds each call's
+    time, between two synchronisations of the card (so not the compute
+    queued before it), to seconds[0]; the measurement swaps it in around the
+    timed steps only."""
+    import torch
+    import torch.distributed as dist
+
+    plain = dist.all_reduce
+
+    def timed(t, *args, **kwargs):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = plain(t, *args, **kwargs)
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        seconds[0] += time.perf_counter() - t0
+        return out
+
+    return timed
+
+
+class Launch(NamedTuple):
+    proc: subprocess.Popen
+    t0: float
+    what: str
+
+
+def torchrun(nproc: int, argv: list) -> Launch:
+    """Start this script under torchrun on this host (a free port), in its
+    own session so that a timeout can take every rank with it."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__)] + argv
+    t0 = time.time()
+    p = subprocess.Popen(cmd, cwd=REPO, start_new_session=True,
+                         env=dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=REPO, SMOKE_LAUNCH=str(t0)))
+    return Launch(p, t0, f"torchrun --nproc-per-node {nproc} {argv[0]}")
+
+
+def joined(launch: Launch, timeout: int = 300) -> bool:
+    """Wait for a launch (killing every rank at the timeout); checks that
+    every rank exited 0."""
+    import signal
+
+    try:
+        rc = launch.proc.wait(timeout=max(1.0, launch.t0 + timeout - time.time()))
+    except subprocess.TimeoutExpired:
+        os.killpg(launch.proc.pid, signal.SIGKILL)
+        rc = launch.proc.wait()
+    check(rc == 0, f"{launch.what}: exit {rc} in {time.time() - launch.t0:.1f} s")
+    return rc == 0
+
+
+def parallel_inputs(n: int, chunk: int, seed: int):
+    return (speechlike(n, seed=seed, chunk=chunk),
+            np.random.default_rng(seed).integers(0, 2**16, n).astype(np.int64))
+
+
+def table_cfg(chunk: int):
+    """The base preset (its 2^16 x 64 message table), fp32."""
+    from awm_tpu_torch.config import get_config
+
+    cfg = get_config("base")
+    return dataclasses.replace(cfg, audio_len=chunk,
+                               train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+
+
+def since_launch(marks: dict, what: str) -> None:
+    """Seconds from the torchrun launch to this point of a rank."""
+    marks[what] = round(time.time() - float(os.environ["SMOKE_LAUNCH"]), 2)
+
+
+def cpu_state(state) -> dict:
+    """{'gen.<name>': CPU tensor} of both networks' parameters and buffers."""
+    return {f"{net}.{k}": v.detach().cpu() for net in ("gen", "det")
+            for k, v in getattr(state, net).state_dict().items()}
+
+
+def cpu_grads(grads: dict) -> dict:
+    """{'grad.gen.<name>': CPU tensor} of parallel.full_grads' gradients (a
+    copy: the next step rewrites them)."""
+    return {f"grad.{k}": v.cpu().clone() for k, v in grads.items()}
+
+
+def cli_rank(out: str, argv: list) -> None:
+    """One rank of ``python -m awm_tpu_torch <argv>`` under torchrun: the
+    command's own main(), then this rank's launch counts and the trained
+    state (rank 0, the table gathered) written to out."""
+    import torch
+
+    from awm_tpu_torch.__main__ import main as cli
+    from awm_tpu_torch.ops import lstm_kernel as K
+    from awm_tpu_torch.parallel import full_state_dicts, shutdown
+
+    marks = {}
+    since_launch(marks, "torch imported")
+    rank = int(os.environ["RANK"])
+    res = cli(argv)
+    since_launch(marks, "train command done")
+    sds = full_state_dicts(res["state"])
+    if rank == 0:
+        torch.save({"state": {f"{net}.{k}": v.cpu() for net in ("gen", "det") for k, v in sds[net].items()},
+                    "step": res["state"].step}, os.path.join(out, "trained.pt"))
+    with open(os.path.join(out, f"cli.{rank}.json"), "w") as f:
+        json.dump({"launches": K.launches, "history": res["history"], "marks": marks}, f)
+    shutdown()
+
+
+def parallel_rank(out: str, device: str, chunk: str, card_free: str) -> None:
+    """One of two ranks over gloo on one device: the shapecap fp32 step at
+    PARALLEL_B global rows on a data=2 mesh with its validation, the base
+    preset's fp32 steps on a model=2 mesh (table sharded; the first step's
+    state and gradients kept, then the replicated parameters after
+    TABLE_STEPS), then, once the file card_free exists (no other process is
+    using the card), the bf16 step timed, with the collectives it issues
+    counted and timed."""
+    import torch
+    import torch.distributed as dist
+
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.ops import lstm_kernel as K
+    from awm_tpu_torch.parallel import (collectives, full_grads, full_state_dicts, initialize_distributed,
+                                        make_mesh, shard_batch, shard_state, shutdown)
+
+    marks = {}
+    since_launch(marks, "torch imported")
+    dev, chunk = torch.device(device), int(chunk)
+    if dev.type == "cuda":  # both ranks on the one card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    initialize_distributed(device=dev, backend="gloo")
+    rank = dist.get_rank()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    zero_counts(K)
+    mesh = make_mesh()
+    since_launch(marks, "group and mesh")
+    cfg32 = dataclasses.replace(train_cfg("float32"), audio_len=chunk)
+    s, msgs = parallel_inputs(PARALLEL_B, chunk, seed=11)
+    rows = torch.from_numpy(shard_batch(s, mesh)).to(dev)
+    state = shard_state(shapecap_state(cfg32, dev), mesh)
+    # validation first: after Adam's first step the two runs' networks differ by
+    # up to 2 lr wherever a gradient is rounding noise
+    val = tr.eval_step(cfg32, state, rows, generator=torch.Generator().manual_seed(7))
+    terms = tr.train_step(cfg32, state, rows, message=torch.from_numpy(msgs).to(dev))
+    torch.save({"terms": {k: float(v) for k, v in terms.items()}, "val": {k: float(v) for k, v in val.items()},
+                "state": {**cpu_state(state), **cpu_grads(full_grads(state))}},
+               os.path.join(out, f"data2.{rank}.pt"))
+    del state
+    cfgb = table_cfg(chunk)
+    sb, mb = parallel_inputs(PARALLEL_TABLE_B, chunk, seed=13)
+    mesh2 = make_mesh(model_parallel=2)
+    stb = shard_state(tr.init_state(cfgb, seed=5, device=dev), mesh2)
+    local_rows = stb.gen.embedding.weight.shape[0]
+    sb, mb = torch.from_numpy(sb).to(dev), torch.from_numpy(mb).to(dev)
+    tb = tr.train_step(cfgb, stb, sb, message=mb)
+    sds = full_state_dicts(stb)
+    first = {"terms": {k: float(v) for k, v in tb.items()}, "local_rows": local_rows,
+             "state": {**{f"{net}.{k}": v.cpu().clone() for net in ("gen", "det") for k, v in sds[net].items()},
+                       **cpu_grads(full_grads(stb))}}
+    del sds
+    later = [{k: float(v) for k, v in tr.train_step(cfgb, stb, sb).items()} for _ in range(TABLE_STEPS - 1)]
+    replicated = {f"{net}.{k}": v.detach().cpu() for net in ("gen", "det")
+                  for k, v in getattr(stb, net).named_parameters() if k != "embedding.weight"}
+    torch.save({**first, "later_terms": later, "replicated": replicated}, os.path.join(out, f"model2.{rank}.pt"))
+    counted = dict(K.launches)
+    since_launch(marks, "checked steps")
+    del stb, first, replicated
+    cfg16 = dataclasses.replace(train_cfg("bfloat16"), audio_len=chunk)
+    st16 = shard_state(shapecap_state(cfg16, dev), mesh)
+    deadline = time.time() + 300
+    while not os.path.exists(card_free):
+        if time.time() > deadline:
+            raise TimeoutError(f"{card_free} did not appear")
+        time.sleep(0.1)
+    since_launch(marks, "card free")
+    tr.train_step(cfg16, st16, rows)  # warm-up
+    sync()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.train_step(cfg16, st16, rows)
+    sync()
+    wall = (time.perf_counter() - t0) / reps
+    collectives.stats["count"], seconds, plain = 0, [0.0], dist.all_reduce
+    dist.all_reduce = timed_all_reduce(seconds)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.train_step(cfg16, st16, rows)
+    sync()
+    timed_wall = (time.perf_counter() - t0) / reps
+    dist.all_reduce = plain
+    since_launch(marks, "timed steps")
+    with open(os.path.join(out, f"rank.{rank}.json"), "w") as f:
+        json.dump({"launches": counted, "marks": marks, "bf16_step_s": wall, "timed_step_s": timed_wall,
+                   "collectives_per_step": collectives.stats["count"] / reps,
+                   "collective_s_per_step": seconds[0] / reps}, f)
+    shutdown()
+
+
+def parallel_references(dev, chunk: int) -> dict:
+    """The one-process steps that phase 13's ranks are held against, on
+    the card: the shapecap fp32 validation and step at PARALLEL_B rows, the
+    same step on its input changed by PARALLEL_TOL["input_change"] (the
+    yardstick of the generator LSTM's drift), and the base preset's fp32
+    step at PARALLEL_TABLE_B rows; states and gradients as CPU copies."""
+    import torch
+
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.parallel import full_grads
+
+    cfg32 = dataclasses.replace(train_cfg("float32"), audio_len=chunk)
+    s, msgs = parallel_inputs(PARALLEL_B, chunk, seed=11)
+    ref = shapecap_state(cfg32, dev)
+    s_dev = torch.from_numpy(s).to(dev)
+    rval = tr.eval_step(cfg32, ref, s_dev, generator=torch.Generator().manual_seed(7))
+    rterms = tr.train_step(cfg32, ref, s_dev, message=torch.from_numpy(msgs).to(dev))
+    want = {"terms": {k: float(v) for k, v in rterms.items()}, "val": {k: float(v) for k, v in rval.items()},
+            "state": {**cpu_state(ref), **cpu_grads(full_grads(ref))}}
+    params = {f"{net}.{k}" for net in ("gen", "det") for k, _ in getattr(ref, net).named_parameters()}
+    del ref, rterms, rval
+    # the yardstick of the generator LSTM's drift: one process, its input changed by 1e-6
+    ref = shapecap_state(cfg32, dev)
+    tr.train_step(cfg32, ref, s_dev * (1 + PARALLEL_TOL["input_change"]),
+                  message=torch.from_numpy(msgs).to(dev))
+    moved = step_drift(cpu_grads(full_grads(ref)), want["state"],
+                       {k for k in params if UPSTREAM_OF_LSTM.search(k)})
+    del ref
+    cfgb = table_cfg(chunk)
+    sb, mb = parallel_inputs(PARALLEL_TABLE_B, chunk, seed=13)
+    refb = tr.init_state(cfgb, seed=5, device=dev)
+    tb = tr.train_step(cfgb, refb, torch.from_numpy(sb).to(dev), message=torch.from_numpy(mb).to(dev))
+    want_b = {"terms": {k: float(v) for k, v in tb.items()},
+              "state": {**cpu_state(refb), **cpu_grads(full_grads(refb))}}
+    params_b = {f"{net}.{k}" for net in ("gen", "det") for k, _ in getattr(refb, net).named_parameters()}
+    del refb, tb
+    return {"data2": (want, params, moved), "model2": (want_b, params_b)}
+
+
+def parallel_phase(K, launches, cli, dev, work: str, audio_len=None) -> dict:
+    """Phase 13: multi-process training, counters zeroed just before (the
+    ranks' own counts, read from their files, are the phase's).  (a)
+    ``torchrun --nproc-per-node 1 -m awm_tpu_torch train --data-parallel``
+    (NCCL on the card; bf16, B=128, 3 steps and one validation, --ckpt-dir):
+    ckpt_latest restores in this process equal to the trained state; the
+    bf16 step through a mesh of one beside the plain step.  (b) two ranks on
+    the one device over gloo: the shapecap fp32 step at B=128 on a data=2
+    mesh and its validation, and the base preset's fp32 step on a model=2
+    mesh (table gathered), each against one process on the same device;
+    kernels B and C launched on each rank, A in its validation; the bf16
+    step's clips/s, collectives a step and their share of its time.  (a)
+    and (b) start together, their start-ups overlapping, and (b) times its
+    steps once (a) has exited.  (c) ``prep metadata``, ``segment`` and
+    ``classify`` on a folder of WAVs.  Returns the numbers to print."""
+    import torch
+
+    from awm_tpu_torch import checkpoint as ck, train as tr
+    from awm_tpu_torch.checkpoint import SHAPECAP_NPZ
+    from awm_tpu_torch.data import prep
+    from awm_tpu_torch.parallel import full_grads, initialize_distributed, make_mesh, shard_state, shutdown
+
+    zero_counts(K)
+    t_phase = time.time()
+    chunk = audio_len or T
+    length = ["--audio-len", str(audio_len)] if audio_len else []
+    out = os.path.join(work, "parallel")
+    os.makedirs(out)
+    lr = train_cfg("float32").train.schedule.lr
+    numbers = {}
+    phase = {name: 0 for name in launches}
+
+    # (a) one rank through the train command, NCCL on the card, and (b) two
+    # ranks on the one device over gloo, started together so that their
+    # start-ups overlap; (b) times its steps once (a) has exited
+    run_dir = os.path.join(out, "train")
+    argv = ["train", "--data-parallel", "--device", dev.type, "--compute-dtype", "bfloat16",
+            "--batch-size", str(B_TRAIN), "--synthetic-n", str(4 * B_TRAIN - B_TRAIN // 4),
+            "--epochs", "1", "--workers", "4", "--init-from", SHAPECAP_NPZ, "--message-encoding",
+            "bits", "--decode-head", "dilated", "--delta-band-hz", "3000", "--shape-max-rms", "0.01",
+            "--dec-loss", "mean", "--lr", "1e-4", "--ckpt-dir", run_dir] + length
+    card_free = os.path.join(out, "card_free")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    one = torchrun(1, ["cli-rank", out] + argv)
+    two = torchrun(2, ["parallel-rank", out, str(dev), str(chunk), card_free])
+    one_ok = joined(one)
+    open(card_free, "w").close()
+    two_ok = joined(two)
+
+    if one_ok:
+        with open(os.path.join(out, "cli.0.json")) as f:
+            rank0 = json.load(f)
+        print(f"train --data-parallel, s from the launch: {rank0['marks']}", flush=True)
+        trained = torch.load(os.path.join(out, "trained.pt"), weights_only=True)
+        restored = tr.init_state(dataclasses.replace(train_cfg("bfloat16"), audio_len=chunk), seed=3,
+                                 device=dev)
+        _, epoch, _ = ck.restore_checkpoint(ck.latest_path(run_dir), restored)
+        got = cpu_state(restored)
+        check(epoch == 1 and restored.step == trained["step"] == 3 and got.keys() == trained["state"].keys()
+              and all(torch.equal(v, trained["state"][k]) for k, v in got.items()),
+              f"train --data-parallel (1 rank, NCCL): ckpt_latest (epoch {epoch}, step {restored.step}) "
+              f"restores here equal to the trained state")
+        row = rank0["history"][0]
+        check(all(np.isfinite(v) for k, v in row.items() if k != "epoch"),
+              f"train --data-parallel: train {row['train_total']:.4f} val {row['val_total']:.4f}, finite")
+        for name, n in rank0["launches"].items():
+            phase[name] += n
+        del restored, trained
+    # the bf16 step through a mesh of one beside the plain step, the card to
+    # this process alone
+    cfg16 = dataclasses.replace(train_cfg("bfloat16"), audio_len=chunk)
+    batch = torch.from_numpy(speechlike(B_TRAIN, seed=9, chunk=chunk)).to(dev)
+    initialize_distributed(device=dev)  # a group of this process alone
+    mesh1 = make_mesh()
+    for label in ("plain", "data_parallel_1", "data_parallel_1", "plain"):
+        state = shapecap_state(cfg16, dev)
+        if label != "plain":
+            shard_state(state, mesh1)
+        tr.train_step(cfg16, state, batch)  # warm-up
+        ms = cuda_ms(lambda: tr.train_step(cfg16, state, batch), reps=3, warmup=0) if dev.type == "cuda" \
+            else 1.0
+        numbers.setdefault(f"bf16_clips_s_{label}", []).append(B_TRAIN / ms * 1e3)
+        del state
+    shutdown()
+    print(f"bf16 train step B={B_TRAIN}, clips/s: plain {numbers['bf16_clips_s_plain']}, through a mesh "
+          f"of one {numbers['bf16_clips_s_data_parallel_1']}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    if two_ok:
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank.{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"2 ranks, s from the launch: {[rk['marks'] for rk in ranks]}", flush=True)
+        data2 = [torch.load(os.path.join(out, f"data2.{r}.pt"), weights_only=True) for r in range(2)]
+        model2 = [torch.load(os.path.join(out, f"model2.{r}.pt"), weights_only=True) for r in range(2)]
+        refs = parallel_references(dev, chunk)
+        (want, params, moved), (want_b, params_b) = refs["data2"], refs["model2"]
+        for what, got, ref, names, drifting in (
+                ("data=2 shapecap fp32", data2, want, params, {k for k in params if UPSTREAM_OF_LSTM.search(k)}),
+                ("model=2 base fp32 (table sharded)", model2, want_b, params_b, set())):
+            term_err = max(abs(g["terms"][k] - v) / abs(v) for g in got for k, v in ref["terms"].items())
+            if "val" in ref:
+                term_err = max(term_err, max(abs(g["val"][k] - v) / abs(v) for g in got
+                                             for k, v in ref["val"].items()))
+            worst = {k: max(step_errors(g["state"], ref["state"], names, lr, drifting)[k] for g in got)
+                     for k in ("grad", "bn_fed_grad", "sure_step", "step")}
+            drift = max(step_drift(g["state"], ref["state"], drifting) for g in got) if drifting else 0.0
+            stats = [k for k in ref["state"] if k not in names and not k.startswith("grad.")]
+            s_err = max(float(((g["state"][k] - ref["state"][k]).abs() - PARALLEL_TOL["stats"]
+                               * ref["state"][k].abs()).max()) for g in got for k in stats)
+            check(term_err <= PARALLEL_TOL["terms"] and s_err <= PARALLEL_TOL["stats"] and worst["step"] <= 1
+                  and all(worst[k] < 1 for k in ("grad", "bn_fed_grad", "sure_step"))
+                  and (not drifting or drift <= moved),
+                  f"2 ranks over gloo, {what} vs one process: terms rel err {term_err:.2e}, BN statistics "
+                  f"excess {s_err:.2e}; gradients and updated parameters, worst share of each limit "
+                  f"(step_errors): " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+                  + (f"; generator LSTM and encoder gradients drift {drift:.2e} (one process under a "
+                     f"{PARALLEL_TOL['input_change']:.0e} input change: {moved:.2e})" if drifting else ""))
+        check(all(m["local_rows"] == 2**15 for m in model2)
+              and all(m["state"]["gen.embedding.weight"].shape == (2**16, 64) for m in model2),
+              "model=2: each rank holds 2^15 rows of the table; the gathered table has 2^16")
+        rep0, rep1 = (m["replicated"] for m in model2)
+        differ = [k for k in rep0 if not torch.equal(rep0[k], rep1[k])]
+        later = [m["later_terms"] for m in model2]
+        apart = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(*later) for k in b)
+        check(not differ and apart <= PARALLEL_TOL["terms"]
+              and all(np.isfinite(v) for t in later[0] for v in t.values()),
+              f"model=2, {TABLE_STEPS} steps: the two ranks' {len(rep0)} replicated parameters bit-equal "
+              f"(differ: {differ}); finite terms {apart:.2e} apart (relative, tol "
+              f"{PARALLEL_TOL['terms']:.0e}), totals {[t['total'] for t in later[0]]}")
+        for r, rk in enumerate(ranks):
+            for name, n in rk["launches"].items():
+                phase[name] += n
+            f32 = {k: rk["launches"][K.instantiation(k, torch.float32, 64)] for k in K.KERNELS}
+            check(all(n > 0 for n in f32.values()), f"rank {r}: fp32 kernels launched {f32}")
+        step_s = float(np.mean([rk["bf16_step_s"] for rk in ranks]))
+        numbers.update(
+            two_rank_bf16_clips_s=PARALLEL_B / step_s,
+            collectives_per_step=ranks[0]["collectives_per_step"],
+            collective_share=float(np.mean([rk["collective_s_per_step"] / rk["timed_step_s"] for rk in ranks])))
+        print(f"2 ranks over gloo on one device, bf16 step at B={PARALLEL_B} global: "
+              f"{numbers['two_rank_bf16_clips_s']:.1f} clips/s ({1e3 * step_s:.1f} ms a step); "
+              f"{numbers['collectives_per_step']:.0f} collectives a step, "
+              f"{100 * numbers['collective_share']:.1f}% of the step's time "
+              f"(timed step {1e3 * ranks[0]['timed_step_s']:.1f} ms)", flush=True)
+
+    # (c) the dataset tools on a folder of WAVs
+    wavs, meta = os.path.join(out, "wavs"), os.path.join(out, "meta.csv")
+    os.makedirs(wavs)
+    write_wav_folder(wavs)
+    cli_printed(cli, ["prep", "metadata", wavs, meta])
+    _, seg = cli_printed(cli, ["prep", "segment", os.path.join(out, "clips"), "--metadata", meta,
+                               "--workers", "4"])
+    _, cls = cli_printed(cli, ["prep", "classify", wavs, os.path.join(out, "cls"), "--workers", "4"])
+    counts = json.loads(cls)
+    rows, n_clips = prep.read_metadata(meta), int(seg.split()[1])
+    whole = sum(int(d * 16000 + 0.5) // 16000 for _, d in rows)  # 1-s clips the files hold
+    check(len(rows) == len(os.listdir(wavs)) and n_clips == whole
+          and sum(counts.values()) == len(rows) and counts["error"] == 0,
+          f"prep: metadata {len(rows)} rows, segment {n_clips} clips ({whole} whole seconds), "
+          f"classify {counts}")
+
+    numbers["phase_s"] = time.time() - t_phase
+    print(f"multi-process phase launches: {phase}; {numbers['phase_s']:.1f} s", flush=True)
+    for name, n in phase.items():
+        launches[name] += n
+    return numbers
+
+
+def rank_main(argv: list) -> int:
+    """The processes the multi-process phase starts under torchrun:
+    ``cli-rank OUT ARGV...`` and ``parallel-rank OUT DEVICE CHUNK CARD_FREE``."""
+    if argv[0] == "cli-rank":
+        cli_rank(argv[1], argv[2:])
+    elif argv[0] == "parallel-rank":
+        parallel_rank(*argv[1:])
+    else:
+        print(f"chip_smoke: unknown mode {argv[0]!r}; run it with no arguments", file=sys.stderr)
+        return 2
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1425,10 +1926,12 @@ def main() -> int:
     http_phase(K, launches, dev, ckpt)
     tools_phase(K, launches, ckpt, "cuda")
     strided_ckpt = strided_phase(K, launches, cli, dev, work)
+    # 13. multi-process training, counters zeroed just before
+    parallel = parallel_phase(K, launches, cli, dev, work)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times on the main paths")
 
-    # 13. timing (card name and power limit printed above)
+    # 14. timing (card name and power limit printed above)
     times = {}
     for sfx, dtype in dtypes.items():
         name, fname, bname = (K.instantiation(k, dtype, 64) for k in K.KERNELS)
@@ -1632,7 +2135,7 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # 14. result lines
+    # 15. result lines
     kernels = []
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, k in KERNELS.items():
@@ -1650,7 +2153,8 @@ def main() -> int:
           f"embed+detect clips/s {json.dumps(clips)}; "
           f"train-step clips/s {json.dumps(train_clips)}; 12-attack sweep n={N_SWEEP} s "
           f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}; strided embed+detect clips/s "
-          f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}")
+          f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}; "
+          f"multi-process {json.dumps(parallel)}")
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
@@ -1661,4 +2165,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -446,3 +446,84 @@ def test_server_batched_fp32_equals_alone_on_card(cuda):
             assert got["predicted_message"] == want["predicted_message"]
             np.testing.assert_allclose(got["message_confidence"], want["message_confidence"], atol=1e-5)
     assert stats["device_batches"] < stats["requests"] == 6
+
+
+def _shapecap_step_inputs(b, t):
+    rng = np.random.default_rng(4)
+    return ((rng.standard_normal((b, t)) * 0.2).astype(np.float32),
+            rng.integers(0, 2**16, b).astype(np.int64))
+
+
+def test_mesh_of_one_step_equals_plain_on_card(cuda, tmp_path):
+    """A mesh of one process over NCCL: the fp32 step issues no collective
+    and gives the plain step's terms (1e-6 relative; cuDNN may pick its
+    algorithms anew), through kernels B and C."""
+    import torch.distributed as dist
+
+    import torch_parallel_worker as pw
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.parallel import collectives, initialize_distributed, make_mesh, shard_state
+
+    cfg = pw.job_config({"audio_len": 800})
+    s, m = (torch.from_numpy(a).to(cuda) for a in _shapecap_step_inputs(4, 800))
+    plain = tr.train_step(cfg, pw.job_state(cfg, cuda), s, message=m)
+    initialize_distributed(f"file://{tmp_path}/rdzv", 1, 0, device=cuda)
+    try:
+        state = shard_state(pw.job_state(cfg, cuda), make_mesh())
+        before = dict(lstm_kernel.launches)
+        count = collectives.stats["count"]
+        terms = tr.train_step(cfg, state, s, message=m)
+        assert collectives.stats["count"] == count
+        for k in ("lstm_fwd_train_f32", "lstm_bwd_f32"):
+            assert lstm_kernel.launches[k] > before[k], k
+    finally:
+        dist.destroy_process_group()
+    for k, v in plain.items():
+        assert abs(float(terms[k]) - float(v)) <= 1e-6 * abs(float(v)), k
+
+
+def test_two_ranks_over_gloo_on_card(cuda, tmp_path):
+    """Two ranks on the one card over gloo (data=2, one row each, T=800):
+    the fp32 step against one process on the card, at the CPU test's
+    tolerances: terms 1e-5 relative, BatchNorm statistics 1e-5, and the
+    gradients and updated parameters by torch_parallel_worker.check_step
+    (5e-3 of each parameter's largest gradient; 1e-2 lr where the gradient
+    is clearly nonzero, 2 lr elsewhere)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import torch_parallel_worker as pw
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.parallel import full_grads
+
+    s, m = _shapecap_step_inputs(2, 800)
+    np.savez(tmp_path / "in.npz", s=s, messages=m[None])
+    job = {"name": "clean", "inputs": str(tmp_path / "in.npz"), "audio_len": 800}
+    (tmp_path / "spec.json").write_text(json.dumps(
+        {"url": f"file://{tmp_path}/rdzv", "device": "cuda:0", "out": str(tmp_path), "jobs": [job]}))
+    env = dict(os.environ, PYTHONPATH=pw.REPO)
+    procs = [subprocess.Popen([sys.executable, os.path.join(pw.REPO, "tests", "torch_parallel_worker.py"),
+                               str(tmp_path / "spec.json"), str(r), "2"], env=env)
+             for r in range(2)]
+    try:
+        assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            p.kill()
+    cfg = pw.job_config(job)
+    one = pw.job_state(cfg, cuda)
+    terms = tr.train_step(cfg, one, torch.from_numpy(s).to(cuda), message=torch.from_numpy(m).to(cuda))
+    lr = cfg.train.schedule.lr
+    params = [f"{n}.{k}" for n in ("gen", "det") for k, _ in getattr(one, n).named_parameters()]
+    want = {f"{n}.{k}": v.cpu().numpy() for n in ("gen", "det") for k, v in getattr(one, n).state_dict().items()}
+    want.update({f"grad.{k}": v.cpu().numpy() for k, v in full_grads(one).items()})
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"clean.{r}.npz"))
+        for k, v in terms.items():
+            assert abs(float(got[f"term0/{k}"]) - float(v)) <= 1e-5 * abs(float(v)), (r, k)
+        pw.check_step(got, want, lr, params)
+        for k, v in want.items():
+            if k not in params and not k.startswith("grad."):
+                np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5, err_msg=f"{r} {k}")

@@ -311,7 +311,8 @@ def test_generator_gradients_reach_the_encoder_through_the_kernel_route(monkeypa
 def test_fit_two_tiny_epochs(tmp_path):
     """fit() on synthetic clips: two epochs, finite per-term means, the CSV
     log, the early-stopping bookkeeping, select_metric validated up front,
-    and the data-parallel mesh (not ported yet) refused."""
+    and a data-parallel mesh refused before training where this process
+    joined no process group (tests/test_torch_parallel.py trains on one)."""
     from awm_tpu_torch.data import BatchLoader, SyntheticClips, split_indices
     from awm_tpu_torch.trainer import fit
 
@@ -322,7 +323,7 @@ def test_fit_two_tiny_epochs(tmp_path):
     log = tmp_path / "m.csv"
     with pytest.raises(ValueError, match="select_metric"):
         fit(cfg, mk(tr_idx, True), mk(va_idx, False), select_metric="loc,typo", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         fit(cfg, mk(tr_idx, True), None, mesh=object(), device="cpu")
     out = fit(cfg, mk(tr_idx, True), mk(va_idx, False), epochs=2, init_from=SHAPECAP_NPZ,
               log_path=str(log), select_metric="loc,dec", device="cpu", verbose=False)
