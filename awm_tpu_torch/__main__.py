@@ -1,8 +1,9 @@
 """Command line of the port: python -m awm_tpu_torch
-embed|detect|verify|train|curriculum|evaluate|embed-folder|detect-folder|serve|prep.
+embed|detect|verify|train|curriculum|evaluate|embed-folder|detect-folder|serve|prep|bench.
 
-The commands and their arguments are those of ``python -m awm_tpu`` but for
-its ``bench``.  ``train --data-parallel [--model-parallel K]`` trains on
+The commands and their arguments are those of ``python -m awm_tpu``;
+``bench`` prints the JSON line of the repo-level bench.py, measured on the
+card (awm_tpu_torch/bench.py).  ``train --data-parallel [--model-parallel K]`` trains on
 every rank of a torchrun launch (``torchrun --nproc-per-node N -m
 awm_tpu_torch train --data-parallel``; one card a rank, NCCL, or gloo with
 --device cpu); without torchrun it is a world of one.  Sessions load a
@@ -24,8 +25,6 @@ import dataclasses
 import json
 import os
 import sys
-
-from awm_tpu_torch.checkpoint import SHAPECAP_ARCH, SHAPECAP_NPZ
 
 _ARCH_FLAGS = ("message_encoding", "decode_head", "delta_band_hz")
 
@@ -69,7 +68,7 @@ def _load_session(args):
     elif from_torch or (args.params is None and get_config(args.preset).model.family != "base"):
         path, source = None, None
     else:
-        path, source = args.params or SHAPECAP_NPZ, args.arch
+        path, source = args.params or ck.SHAPECAP_NPZ, args.arch or ck.SHAPECAP_ARCH
     cfg = _session_config(args, ck.read_arch(source) if source else None, source)
     with torch.random.fork_rng(devices=[]):  # the networks not imported start from seed 0
         torch.manual_seed(0)
@@ -432,6 +431,12 @@ def cmd_serve(args):
           max_wait_ms=args.max_wait_ms)
 
 
+def cmd_bench(args):
+    from awm_tpu_torch.bench import main as bench_main
+
+    return bench_main(args.device)
+
+
 def _add_session_args(p):
     p.add_argument("--preset", default="base",
                    help="config preset (base, light, onecycle20, quality, ft_robust, strided)")
@@ -443,7 +448,7 @@ def _add_session_args(p):
                    help="flattened {'params','batch_stats'} .npz when neither --ckpt nor "
                         "--torch-* is given (default: packaged shapecap for the base "
                         "family; none for strided: its seed-0 init)")
-    p.add_argument("--arch", default=SHAPECAP_ARCH,
+    p.add_argument("--arch", default=None,
                    help="awm_arch.json of those weights (default: packaged shapecap)")
     p.add_argument("--audio-len", type=int, help="override chunk length in samples (default 16000)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
@@ -672,6 +677,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     q.add_argument("a")
     q.add_argument("b")
     p.set_defaults(fn=cmd_prep)
+
+    p = sub.add_parser("bench", help="embed+detect, detect-only and train-step clips/s of the "
+                                     "base preset on one card (one JSON line)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(fn=cmd_bench)
     return ap.parse_args(argv)
 
 
@@ -683,7 +693,6 @@ def main(argv=None):
 if __name__ == "__main__":
     try:
         main()
-    finally:
-        from awm_tpu_torch.parallel import shutdown
-
-        shutdown()
+    finally:  # a process group exists only where the parallel package was imported
+        if "awm_tpu_torch.parallel" in sys.modules:
+            sys.modules["awm_tpu_torch.parallel"].shutdown()

@@ -255,7 +255,7 @@ def add_checkpoint_args(ap) -> None:
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="demo_eval", description=__doc__.splitlines()[0])
     add_checkpoint_args(ap)
     ap.add_argument("--n-eval", type=int, default=1024)
@@ -265,7 +265,11 @@ def main(argv=None):
                     help="seeds of the opt-in 'variance' section")
     ap.add_argument("--torch-detector", default=None,
                     help="the reference's detector_best.pth for the 'cross' section")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     wanted = {s.strip() for s in args.sections.split(",") if s.strip()}
     unknown = wanted - set(SECTIONS)

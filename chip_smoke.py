@@ -96,7 +96,26 @@ instantiations over 50 steps a chunk.  Phases:
    and their share of its time (the two launches start together; the 2-rank
    run times its steps once the 1-rank run has exited); ``prep metadata``,
    ``segment`` and ``classify`` on a folder of WAVs;
-14. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
+14. the bench, counters zeroed just before (bench_phase): ``python -m
+   awm_tpu_torch bench`` in process (no other process of the port alive
+   first), its one line with the seven keys of the repo-level bench.py, every
+   number finite and positive, kernels A, B and C in bf16 at width 64
+   launched; tools/bench_sweep.py in a subprocess (run through ``counted``,
+   which reports its launches) with the JAX tool's defaults (infer 128-1024,
+   train 64-512) and --trace-dir: a rate at each point before the first
+   FAILED, which may only be (OutOfMemoryError), exit code 0, a trace
+   written, A, B and C launched; the sweep of the strided preset at 512 /
+   128 in process, its width-32 instantiations launched; demo_table on phase
+   11's demo_eval report and bit_diagnostic line beside the reference's
+   record;
+15. the corpus drill (drill_phase): awm_tpu_torch/tools/corpus_drill.sh on
+   the card in a subprocess (raw WAVs -> prep -> train --data, 2 epochs at
+   B=32 -> demo_eval), each ``python -m`` command through ``counted``:
+   DRILL_DONE, B and C launched by train and A by demo_eval, metadata.csv
+   and selected.csv equal to evidence/drill/'s, the classification's first
+   rows equal to its classification_head.csv; its demo_eval.json printed
+   beside the record's;
+16. time each kernel, its plain version and torch.nn.LSTM (cuDNN, the
    yardstick only), embed+detect clips/s at B=512, train-step clips/s at
    B=128 clean and under the curriculum, and the 12-attack sweep's wall time
    at n=128, per compute dtype, with the step's peak memory, a profile of
@@ -109,13 +128,13 @@ instantiations over 50 steps a chunk.  Phases:
    nn.LSTM(32) and the least time of 50 dependent steps; the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
    dtype, with peak memory and a profile of one bf16 step;
-15. print the {"kernels": [...]} line (12 instantiations), and last the
+17. print the {"kernels": [...]} line (12 instantiations), and last the
    {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
-fallback: without a card the script exits 1 at once.  Phase 13 starts this
-script under torchrun with arguments (``cli-rank``, ``parallel-rank``: see
-rank_main); run with none, it needs one card.
+fallback: without a card the script exits 1 at once.  Phases 13-15 start
+this script with arguments (``cli-rank`` and ``parallel-rank`` under
+torchrun, ``counted``: see rank_main); run with none, it needs one card.
 """
 
 from __future__ import annotations
@@ -124,6 +143,7 @@ import dataclasses
 import json
 import os
 import re
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -808,9 +828,10 @@ def http_phase(K, launches, dev, ckpt: str, audio_len=None) -> None:
     add_counts(K, launches, "HTTP serving path")
 
 
-def tools_phase(K, launches, ckpt: str, device: str, audio_len=None) -> None:
+def tools_phase(K, launches, ckpt: str, device: str, work: str, audio_len=None) -> dict:
     """Phase 11: demo_eval and bit_diagnostic (bf16) beside the reference's
-    records of the shapecap checkpoint."""
+    records of the shapecap checkpoint.  Returns the paths of the two
+    reports, written into work as demo_eval.json and per_bit.txt."""
     from awm_tpu_torch.tools import bit_diagnostic, demo_eval
 
     zero_counts(K)
@@ -839,6 +860,11 @@ def tools_phase(K, launches, ckpt: str, device: str, audio_len=None) -> None:
     with open(os.path.join(REPO, "evidence", "r5", "shapecap", "per_bit.txt")) as f:
         per_bit = json.loads(f.read().strip().splitlines()[-1])
     bd = bit_diagnostic.main(common + ["--n-eval", "256"])
+    saved = {"json": os.path.join(work, "demo_eval.json"), "per_bit": os.path.join(work, "per_bit.txt")}
+    with open(saved["json"], "w") as f:
+        json.dump(report, f, indent=2)
+    with open(saved["per_bit"], "w") as f:
+        f.write(json.dumps(bd) + "\n")
     agg = float(np.mean(bd["ml_acc"]))
     bit_d = float(np.abs(np.subtract(bd["ml_acc"], per_bit["ml_acc"])).max())
     strength = float(np.mean(bd["mean_abs_logit"])) / float(np.mean(per_bit["mean_abs_logit"])) - 1
@@ -848,6 +874,234 @@ def tools_phase(K, launches, ckpt: str, device: str, audio_len=None) -> None:
     bd8 = bit_diagnostic.main(common + ["--n-eval", "256", "--attack", "resample_8k"])
     print(f"bit_diagnostic under resample_8k: mean-logit accuracy {np.mean(bd8['ml_acc']):.4f}", flush=True)
     add_counts(K, launches, "tools path")
+    return saved
+
+
+# The seven keys of the line the repo-level bench.py prints (bench.py:146-152),
+# in its order; "metric" and "unit" are strings, the other five numbers.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "train_clips_per_sec_per_chip",
+              "train_vs_baseline", "detect_only_clips_per_sec_per_chip")
+SWEEP_TIMEOUT_S, DRILL_TIMEOUT_S = 420, 420
+SWEEP_OOM = "FAILED (OutOfMemoryError)"
+
+
+def sweep_rows(label: str, text: str, kind: str, batches: list) -> dict:
+    """The rows a bench_sweep run printed for one kind ("infer" or "train"),
+    {B: clips/s, or the FAILED text}, checked: the batch sizes in the order
+    asked, a finite positive rate at each point before the first FAILED, a
+    FAILED only for running out of memory and only as the sweep's last row,
+    and every size swept when none failed."""
+    rows = re.findall(rf"^{kind} B=\s*(\d+): (.+)$", text, re.M)
+    out = {int(b): (r if r.startswith("FAILED") else float(r.split()[0])) for b, r in rows}
+    failed = [b for b, r in out.items() if isinstance(r, str)]
+    rates = [r for r in out.values() if not isinstance(r, str)]
+    ok = (bool(rows) and [int(b) for b, _ in rows] == batches[:len(rows)]
+          and all(np.isfinite(r) and r > 0 for r in rates)
+          and all(out[b] == SWEEP_OOM for b in failed)
+          and (failed == [int(rows[-1][0])] if failed else len(rows) == len(batches)))
+    check(ok, f"bench_sweep {label} {kind}: {out}")
+    return out
+
+
+def counted(log: str, argv: list) -> None:
+    """``counted LOG -m MODULE ARGS...``: run MODULE as ``python -m MODULE
+    ARGS...`` runs it, then append one JSON line to LOG: its argv and the
+    kernel launches this process made (none where it never loaded the
+    kernels)."""
+    import runpy
+
+    if argv[:1] != ["-m"] or len(argv) < 2:
+        raise SystemExit(f"chip_smoke counted: want -m MODULE ARGS..., got {argv}")
+    sys.argv = argv[1:]
+    try:
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    finally:
+        kernels = sys.modules.get("awm_tpu_torch.ops.lstm_kernel")
+        with open(log, "a") as f:
+            f.write(json.dumps({"argv": argv[1:], "launches": dict(kernels.launches) if kernels else {}}) + "\n")
+
+
+def counting_python(work: str, log: str) -> str:
+    """A directory that holds a ``python`` which runs every ``python -m
+    MODULE ...`` through ``counted`` into log, and any other call as this
+    interpreter does: put first on a script's PATH, it counts the kernels
+    that the script's commands launch."""
+    d = os.path.join(work, "counting_bin")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "python")
+    me, py = shlex.quote(os.path.abspath(__file__)), shlex.quote(sys.executable)
+    with open(path, "w") as f:
+        f.write(f'#!/bin/sh\nif [ "$1" = -m ]; then exec {py} {me} counted {shlex.quote(log)} "$@"; fi\n'
+                f'exec {py} "$@"\n')
+    os.chmod(path, 0o755)
+    return d
+
+
+def counted_launches(launches, log: str, expected: dict) -> list:
+    """The records that the processes run through ``counted`` wrote to log,
+    their launches added to launches.  expected maps the start of a
+    command's argv ("awm_tpu_torch train") to the instantiations that its
+    processes must have launched."""
+    records = []
+    if os.path.isfile(log):
+        with open(log) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+    for r in records:
+        print(f"{' '.join(r['argv'][:2])} launches: {r['launches']}", flush=True)
+        for name, n in r["launches"].items():
+            launches[name] += n
+    for what, names in expected.items():
+        got = [r["launches"] for r in records if " ".join(r["argv"]).startswith(what)]
+        for name in names:
+            n = sum(c.get(name, 0) for c in got)
+            check(n > 0, f"{name} launched {n} times by {what} ({len(got)} process(es))")
+    return records
+
+
+def sweep_argv(sizes: dict) -> list:
+    return [f"--{kind}={','.join(map(str, sizes[kind]))}" for kind in ("infer", "train")]
+
+
+def bench_phase(K, launches, cli, work: str, demo: dict) -> dict:
+    """Phase 14: ``python -m awm_tpu_torch bench`` in process, counters
+    zeroed just before: its one line with bench.py's seven keys, kernels A,
+    B and C (bf16, width 64) launched.  tools/bench_sweep.py with the JAX
+    tool's defaults and --trace-dir in a subprocess, so that running out of
+    card memory leaves this process as it was, its launches read back
+    through ``counted``: A, B and C (bf16, width 64) launched.  The strided
+    preset's sweep at 512 / 128 in process, counters zeroed just before: its
+    width-32 instantiations launched.  demo_table on phase 11's demo_eval
+    report with its bit_diagnostic line, beside the reference's record."""
+    import torch
+
+    from awm_tpu_torch import bench
+    from awm_tpu_torch.tools import bench_sweep, demo_table
+
+    t_phase = time.time()
+    busy = bench._busy_pids()
+    check(not busy, f"bench: no other process of the port alive before the call, so the wait cannot "
+                    f"fire (found {busy})")
+    zero_counts(K)
+    t0 = time.time()
+    _, printed = cli_printed(cli, ["bench"])
+    bench_s = time.time() - t0
+    line = json.loads(printed.strip().splitlines()[-1])
+    numbers = [line.get(k) for k in BENCH_KEYS if k not in ("metric", "unit")]
+    check(tuple(line) == BENCH_KEYS and all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+                                            for v in numbers),
+          f"bench ({bench_s:.1f} s): one JSON line with bench.py's seven keys, every number finite "
+          f"and positive")
+    w64 = [K.instantiation(kernel, torch.bfloat16, 64) for kernel in K.KERNELS]
+    w32 = [K.instantiation(kernel, torch.bfloat16, W32) for kernel in K.KERNELS]
+    for name in w64:
+        check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times by bench")
+    add_counts(K, launches, "bench")
+    torch.cuda.empty_cache()  # the sweep's process gets the memory this one cached
+
+    sweeps = {}
+    base = {"infer": [128, 256, 512, 1024], "train": [64, 128, 256, 512]}
+    trace_dir, log = os.path.join(work, "sweep_trace"), os.path.join(work, "sweep_launches.jsonl")
+    argv = ["-m", "awm_tpu_torch.tools.bench_sweep", "--trace-dir", trace_dir, *sweep_argv(base)]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "counted", log, *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=SWEEP_TIMEOUT_S)
+    seconds = time.time() - t0
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"bench_sweep {' '.join(argv[2:])}: exit code {proc.returncode} "
+                                f"({seconds:.1f} s)" + ("" if proc.returncode == 0 else ": " + proc.stderr[-3000:]))
+    sweeps["base"] = {kind: sweep_rows("base", proc.stdout, kind, base[kind]) for kind in base}
+    sweeps["base"]["seconds"] = seconds
+    counted_launches(launches, log, {"awm_tpu_torch.tools.bench_sweep": w64})
+    trace = os.path.join(trace_dir, "trace.json")
+    size = os.path.getsize(trace) if os.path.isfile(trace) else 0
+    check(size > 0, f"bench_sweep --trace-dir wrote {trace} ({size} bytes)")
+
+    strided = {"infer": [512], "train": [128]}
+    zero_counts(K)
+    t0 = time.time()
+    _, text = cli_printed(bench_sweep.main, ["--preset", "strided", *sweep_argv(strided)])
+    sweeps["strided"] = {kind: sweep_rows("strided", text, kind, strided[kind]) for kind in strided}
+    sweeps["strided"]["seconds"] = time.time() - t0
+    for name in w32:
+        check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times by the strided sweep")
+    add_counts(K, launches, "strided sweep")
+    torch.cuda.empty_cache()
+
+    record = os.path.join(REPO, "evidence", "r5", "shapecap", "demo_eval.json")
+    _, table = cli_printed(demo_table.main, [demo["json"], "--per-bit", demo["per_bit"], "--vs", record])
+    head = table.split("### Headline\n\n", 1)[-1].splitlines()[0]
+    check(head.startswith("| Axis |") and head.count("|") == 4 and "Per-bit (n=256)" in table,
+          "demo_table on phase 11's demo_eval report: the headline with two columns and the per-bit line")
+    phase_s = time.time() - t_phase
+    print(f"bench phase: {phase_s:.1f} s (bench {bench_s:.1f} s, sweeps "
+          f"{', '.join(f'{k} {v['seconds']:.1f} s' for k, v in sweeps.items())})", flush=True)
+    return {"bench": line, "bench_s": bench_s, "sweeps": sweeps, "phase_s": phase_s}
+
+
+def drill_phase(K, launches, work: str) -> dict:
+    """Phase 15: awm_tpu_torch/tools/corpus_drill.sh on the card in a
+    subprocess, each of its ``python -m`` commands run through ``counted``:
+    it prints DRILL_DONE; its train launched B and C and its demo_eval A
+    (bf16, width 64); its metadata.csv and selected.csv equal
+    evidence/drill/'s and its classification's first two rows equal
+    classification_head.csv (features within 1e-6), with the record's
+    directory /tmp/awm_corpus_drill in place of this run's; its
+    demo_eval.json printed beside the record's, not held (the networks
+    start from another RNG, and the JAX run trained on the CPU)."""
+    import csv
+
+    import torch
+
+    d = os.path.join(work, "awm_corpus_drill")
+    ref = os.path.join(REPO, "evidence", "drill")
+    log = os.path.join(work, "drill_launches.jsonl")
+    env = {**os.environ, "PATH": counting_python(work, log) + os.pathsep + os.environ.get("PATH", "")}
+    t0 = time.time()
+    proc = subprocess.run(["bash", os.path.join(REPO, "awm_tpu_torch", "tools", "corpus_drill.sh"), d, "cuda"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=DRILL_TIMEOUT_S)
+    seconds = time.time() - t0
+    print("\n".join(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith(("epoch", "selected", "wrote", "copied"))), flush=True)
+    check(proc.returncode == 0 and "DRILL_DONE" in proc.stdout.splitlines(),
+          f"corpus_drill.sh cuda: exit code {proc.returncode}, DRILL_DONE printed ({seconds:.1f} s)"
+          + ("" if proc.returncode == 0 else ": " + proc.stderr[-3000:]))
+    fwd, fwd_train, bwd = (K.instantiation(kernel, torch.bfloat16, 64) for kernel in K.KERNELS)
+    counted_launches(launches, log, {"awm_tpu_torch train": [fwd_train, bwd],
+                                     "awm_tpu_torch.tools.demo_eval": [fwd]})
+    if proc.returncode:
+        return {"seconds": seconds}
+
+    def read(path):
+        with open(path) as f:
+            return f.read().replace(d, "/tmp/awm_corpus_drill")
+
+    for name in ("metadata.csv", "selected.csv"):
+        check(read(os.path.join(d, name)) == read(os.path.join(ref, name)),
+              f"corpus drill: {name} equal to evidence/drill/{name}")
+    got = list(csv.reader(read(os.path.join(d, "classified", "audio_classification_results.csv")).splitlines()))
+    want = list(csv.reader(read(os.path.join(ref, "classification_head.csv")).splitlines()))
+
+    def same(g, w):
+        try:
+            return abs(float(g) - float(w)) <= 1e-6 * max(1.0, abs(float(w)))
+        except ValueError:
+            return g == w
+
+    check(got[0] == want[0]
+          and all(len(g) == len(w) and all(map(same, g, w)) for g, w in zip(got[1:3], want[1:3])),
+          "corpus drill: the classification's header and first two rows equal classification_head.csv "
+          "(features within 1e-6)")
+    with open(os.path.join(d, "demo_eval.json")) as f:
+        ours = json.load(f)
+    with open(os.path.join(ref, "demo_eval.json")) as f:
+        theirs = json.load(f)
+    q, rq = ours["quality"], theirs["quality"]
+    print(json.dumps({"drill_demo_eval_vs_record": {
+        k: [q[k], rq[k]] for k in rq if not isinstance(rq[k], dict)} | {
+        "n_eval": [ours["n_eval"], theirs["n_eval"]], "best_val": [ours["best_val"], theirs["best_val"]]}}),
+        flush=True)
+    print(f"drill phase: {seconds:.1f} s", flush=True)
+    return {"seconds": seconds, "best_val": ours["best_val"]}
 
 
 def width32_checks(K, dev, max_err, max_rel) -> None:
@@ -1547,12 +1801,15 @@ def parallel_phase(K, launches, cli, dev, work: str, audio_len=None) -> dict:
 
 
 def rank_main(argv: list) -> int:
-    """The processes the multi-process phase starts under torchrun:
-    ``cli-rank OUT ARGV...`` and ``parallel-rank OUT DEVICE CHUNK CARD_FREE``."""
+    """The processes that phases 13-15 start: under torchrun ``cli-rank OUT
+    ARGV...`` and ``parallel-rank OUT DEVICE CHUNK CARD_FREE``; ``counted LOG
+    -m MODULE ARGS...``."""
     if argv[0] == "cli-rank":
         cli_rank(argv[1], argv[2:])
     elif argv[0] == "parallel-rank":
         parallel_rank(*argv[1:])
+    elif argv[0] == "counted":
+        counted(argv[1], argv[2:])
     else:
         print(f"chip_smoke: unknown mode {argv[0]!r}; run it with no arguments", file=sys.stderr)
         return 2
@@ -1579,6 +1836,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.time()
+    laps, last = {}, t_start
+
+    def lap(label: str) -> None:
+        """Print and keep the seconds since the previous lap."""
+        nonlocal last
+        now = time.time()
+        laps[label], last = round(now - last, 1), now
+        print(f"== phase {label}: {laps[label]:.1f} s", flush=True)
     KERNELS.update(kernel_table(K))
 
     # 1. the card
@@ -1594,6 +1859,8 @@ def main() -> int:
     K.libraries()
     print(f"== build {', '.join(K.SOURCES)} (parallel): {time.time() - t0:.1f} s\n{K.build_log}",
           flush=True)
+
+    lap("1-2 card, build")
 
     # 3. kernels vs their plain versions
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -1689,6 +1956,8 @@ def main() -> int:
 
     width32_checks(K, dev, max_err, max_rel)
 
+    lap("3 kernels vs plain")
+
     # 4. the serving path, counters zeroed just before
     with np.load(f"{ASSETS}/shapecap_golden.npz") as g:
         golden = {k: g[k] for k in g.files}
@@ -1752,6 +2021,8 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
 
+    lap("4 serving")
+
     # 5. the train path, counters zeroed just before
     with np.load(f"{ASSETS}/train_golden.npz") as g:
         tgold = {k: g[k] for k in g.files}
@@ -1797,6 +2068,8 @@ def main() -> int:
     for name, n in launches.items():
         if KERNELS[name].width == 64:  # the base family's paths; width 32 is phase 12's
             check(n > 0, f"{name} launched {n} times on the serving and train paths")
+
+    lap("5 train")
 
     # 6. the robust path, counters zeroed just before
     for name in K.launches:
@@ -1917,21 +2190,36 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
 
+    lap("6 robust")
+
     # 7-12. checkpoints, trainer, curriculum, HTTP serving, tools, the strided
     # family, each with the counters zeroed just before
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ckpt = checkpoint_phase(K, launches, dev, work, (chunks512, msgs512, big))
+    lap("7 checkpoints")
     trainer_phase(K, launches, cli, dev, work, ckpt)
+    lap("8 trainer")
     curriculum_phase(K, launches, cli, work, "cuda")
+    lap("9 curriculum")
     http_phase(K, launches, dev, ckpt)
-    tools_phase(K, launches, ckpt, "cuda")
+    lap("10 HTTP")
+    demo = tools_phase(K, launches, ckpt, "cuda", work)
+    lap("11 tools")
     strided_ckpt = strided_phase(K, launches, cli, dev, work)
+    lap("12 strided")
     # 13. multi-process training, counters zeroed just before
     parallel = parallel_phase(K, launches, cli, dev, work)
+    lap("13 multi-process")
+    # 14. the bench, counters zeroed just before; the sweeps and demo_table
+    benched = bench_phase(K, launches, cli, work, demo)
+    lap("14 bench")
+    # 15. the corpus drill
+    drill = drill_phase(K, launches, work)
+    lap("15 drill")
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times on the main paths")
 
-    # 14. timing (card name and power limit printed above)
+    # 16. timing (card name and power limit printed above)
     times = {}
     for sfx, dtype in dtypes.items():
         name, fname, bname = (K.instantiation(k, dtype, 64) for k in K.KERNELS)
@@ -2135,7 +2423,9 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # 15. result lines
+    lap("16 timing")
+
+    # 17. result lines
     kernels = []
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, k in KERNELS.items():
@@ -2154,7 +2444,8 @@ def main() -> int:
           f"train-step clips/s {json.dumps(train_clips)}; 12-attack sweep n={N_SWEEP} s "
           f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}; strided embed+detect clips/s "
           f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}; "
-          f"multi-process {json.dumps(parallel)}")
+          f"multi-process {json.dumps(parallel)}; bench {json.dumps(benched)}; drill {json.dumps(drill)}; "
+          f"phase s {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

@@ -39,7 +39,9 @@ def _forbidden(module):
 def test_scan_covers_the_port():
     files = _port_files()
     assert os.path.join(REPO, "chip_smoke.py") in files
-    assert any(f.endswith(os.path.join("awm_tpu_torch", "api.py")) for f in files)
+    for name in ("api.py", "bench.py", os.path.join("tools", "bench_sweep.py"),
+                 os.path.join("tools", "demo_table.py")):
+        assert os.path.join(REPO, "awm_tpu_torch", name) in files, name
     assert all(os.path.exists(f) for f in files)
 
 
