@@ -18,8 +18,9 @@ the checkout's launch plan can choose (a checkout without a plan has none).
 --check first holds every kernel against its plain version at B in (1, 7,
 128) and T in (1, 2, 3, 37, 50, 800) with every rows variant, prints each
 error beside its tolerance and ptxas's report, and exits 1 if any error is
-above it.  The backward's four launches are also timed apart, from a
-torch.profiler trace of one call.  Prints one JSON object per line: {"tree",
+above it.  The backward's launches are also timed apart, from a
+torch.profiler trace of one call (one on the fused path at width 32, four
+otherwise).  Prints one JSON object per line: {"tree",
 "card", "kernel", "width", "steps", "batch", "rows", "ms"}; times are CUDA
 events over --reps launches after a warm-up, and with --variants also
 "device_ms": the kernels' own device time per call from torch.profiler
@@ -50,9 +51,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_split(torch, fn, reps: int = 1) -> dict[str, float]:
-    """Device ms by kernel name of one call of fn, the mean over reps calls
-    (torch.profiler)."""
+def kernel_split(torch, fn, reps: int = 5) -> dict[str, float]:
+    """Device ms by kernel name of one call of fn (torch.profiler over reps
+    calls): each kernel's mean over the launches the trace holds, times its
+    launches a call.  The profiler drops a kernel of a window now and then,
+    most often its first, so a window's sum over reps would read low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -62,25 +65,42 @@ def kernel_split(torch, fn, reps: int = 1) -> dict[str, float]:
             fn()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-    return {e.key: dev_us(e) / 1e3 / reps for e in prof.key_averages()
+    return {e.key: dev_us(e) / 1e3 / e.count * max(1, round(e.count / reps)) for e in prof.key_averages()
             if dev_us(e) > 0 and e.self_cpu_time_total == 0}
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int) -> float | None:
     """Device ms of one call of fn in the LSTM kernels alone: at T=50 a
     call's CUDA-event time is the host's (allocations, casts, the launch),
-    and only this tells the rows variants apart."""
-    return sum(ms for key, ms in kernel_split(torch, fn, reps).items() if "lstm_" in key)
+    and only this tells the rows variants apart.  A trace without them is
+    taken again, three times at most, then None (not measured), never 0."""
+    for _ in range(3):
+        ms = sum(ms for key, ms in kernel_split(torch, fn, reps).items() if "lstm_" in key)
+        if ms > 0:
+            return ms
+    return None
 
 
 def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64):
-    """Seeded x, weights at torch's LSTM init scale U(+-1/sqrt(H)) and dy."""
+    """Seeded x, weights at torch's LSTM init scale U(+-1/sqrt(H)) and an
+    fp32 dy (kernel_dy gives it the checkout's kernel C's type)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(b, t, width, device="cuda", generator=g) * 0.5).to(dtype)
     w = [(torch.rand(*s, device="cuda", generator=g) * 2 - 1) / width**0.5
          for s in ((4 * width, width), (4 * width, width), (4 * width,))]
     dy = torch.randn(b, t, width, device="cuda", generator=g) * 0.1
     return x, w[0], w[1], 2 * w[2], dy
+
+
+def kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias):
+    """dy as the checkout's kernel C takes it: in x's dtype, as autograd
+    hands it over, or fp32 in a checkout from before that (its kernel C
+    refuses any other)."""
+    try:
+        K.backward_kernel(x, y, cprev, dy.to(x.dtype), w_ih, w_hh, bias)
+        return dy.to(x.dtype)
+    except ValueError:
+        return dy
 
 
 def main() -> int:
@@ -133,6 +153,7 @@ def main() -> int:
                 for t in CHECK_T:
                     x, w_ih, w_hh, bias, dy = inputs(torch, b, t, dtype, seed=b * 1000 + t, width=width)
                     ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                    dy = kernel_dy(K, x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     err_a = err_b = 0.0
                     for rows in fwd_rows:
                         y0 = K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
@@ -168,6 +189,7 @@ def main() -> int:
         del x
         x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
         y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+        dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
         for rows in fwd_rows if want(fwd_train) else ():
             fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
             report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
@@ -179,7 +201,7 @@ def main() -> int:
         split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
         for key, ms in split.items():
             if "lstm_bwd" in key:
-                short = key[key.index("lstm_bwd"):].split("I")[0].split("E")[0]
+                short = key[key.index("lstm_bwd"):].split("(")[0]
                 report(f"{bwd}:{short}", b_train, None, ms)
         del x, y, cprev, dy
         torch.cuda.empty_cache()

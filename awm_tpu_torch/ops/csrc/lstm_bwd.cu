@@ -12,14 +12,20 @@
 //   dh_{t-1} = da . W_hh, dx = da . W_ih, dW_ih = sum x^T da and
 //   dW_hh = sum h_{t-1}^T da; db sums the fp32 da;
 // - weight gradients come out fp32, dx in x's type.
+// dy comes in the instantiation's type (autograd hands it in y's), the
+// weights fp32 (a bf16 instantiation rounds them to nearest even as they
+// load), so no cast kernel runs beside a call.
 //
 // Every kernel is a template over the width W = D = H, instantiated for 64
-// and 32 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.
+// and 32 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.  A call
+// takes one of two paths, chosen by the caller from the shape
+// (ops/lstm_kernel.py::launch_plan):
 //
-// The reverse-time recurrence and the reductions are separate kernels, four
-// launches per call, on one stream.
+// Four launches on one stream (every call at W = 64; at W = 32 where the
+// fused kernel's grid would not be resident in one wave, or T > 64, the
+// plan's limit for the rows' da in shared memory):
 //   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
-//      caller, ops/lstm_kernel.py::launch_plan) runs all T steps in reverse.
+//      caller) runs all T steps in reverse.
 //      It writes da, rounded to the operand type, to a (B, T, G) scratch
 //      in device memory (2.1 GB fp32 / 1.05 GB bf16 at W=64, B=128,
 //      T=16000) and a per-block partial db.
@@ -28,13 +34,25 @@
 //      writes partial sums of its chunk.
 //   4. lstm_bwd_sum: sums the chunk partials and the db partials in a fixed
 //      order.  No atomics: two runs give the same bits.
-// What bounds it on this card: kernel 1 is sequential in T, so it costs the
-// latency of one step times T; kernels 2-3 are real matrix products over the
-// B T rows (2M at W = 64, T = 16000; 6400 at W = 32, T = 50, where the four
-// launches' fixed cost is most of the call) that read the da scratch once
-// or twice.  The bound of the whole call
-// (the products in fp32, bytes in bf16) is far below the recurrence's
-// latency.  What the design does about it:
+// One launch, lstm_bwd_fused (W = 32, T <= 64, every block of the grid
+// resident at once): a block owns R batch rows and runs the same
+// recurrence, keeping its rows' da (R T x G in the operand type, 12.8 KB a
+// row at T = 50 in bf16) in shared memory; then dx of its rows and its
+// (G x K) dW and db partials from that da and the x_t | h_{t-1} rows its
+// producer warps staged on the way; then, after one grid-wide barrier
+// (a cooperative launch), each block sums a fixed slice of the G K + G
+// outputs over every block's partial in block order.  No atomics on the
+// values: two runs give the same bits.
+//
+// What bounds it on this card: the recurrence is sequential in T, so it
+// costs the latency of one step times T; dx and dW are real matrix
+// products over the B T rows (2M at W = 64, T = 16000; 6400 at W = 32,
+// T = 50).  The bound of the whole call (the products in fp32, bytes in
+// bf16) is far below the recurrence's latency.  At T = 50 the four
+// launches' fixed cost (each ramps up a grid and drains it, and the sum
+// waits on all of dW) was a third of the call's device time and the host's
+// work for them most of its wall time: the fused kernel keeps only the
+// grid barrier of that.  What the design does about it:
 // - only the (dh, dc) carry is sequential, so only it is on the sequential
 //   path.  The gate recompute of a step needs x_t, y_{t-1} and c_{t-1}, all
 //   saved by the forward: the producer warps (lstm_common.cuh) compute it
@@ -45,7 +63,7 @@
 //   runs on the tensor cores (mma.sync, the chunk's 8 steps are a tile's N)
 //   with [W_ih | W_hh] in registers as fragments; in fp32 on the CUDA
 //   cores, the weights read from shared memory, one 16-byte load per 4 terms
-//   reused over the chunk's 8 steps.  No device-memory scratch beyond da;
+//   reused over the chunk's 8 steps;
 // - a consumer step is: dc and da from the ring (5 flops), da to shared
 //   memory, one barrier among the consumer warps, dh_{t-1} = da . W_hh from
 //   register-held weights (bf16 widened once), split over the lanes of a
@@ -58,11 +76,14 @@
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
+#include <cooperative_groups.h>
+
 #include "lstm_common.cuh"
 
 namespace {
 
 using namespace awm;
+namespace cg = cooperative_groups;
 
 constexpr int SB = 8;  // steps per chunk of the ring
 
@@ -82,23 +103,41 @@ constexpr int W_SMEM_BYTES = is_bf16<T> ? 0 : (int)sizeof(T) * (4 * W) * (2 * W)
 template <typename T, int W> constexpr int KP = is_bf16<T> ? 2 * W + 8 : 2 * W;
 
 template <typename T, int R, int W>
-constexpr int rec_smem_bytes() {
+__host__ __device__ constexpr int rec_smem_bytes() {
   return (int)(W_SMEM_BYTES<T, W> +
                sizeof(float) * (NBUF * SB * R * RING<W> + R * SB * W + 2 * R * DA_ROW<W>) +
                sizeof(T) * R * SB * KP<T, W>);
 }
 
-template <typename T, int R, int W>
-__global__ void __launch_bounds__(8 * W, 1)
-lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                    const float* __restrict__ cprev, const float* __restrict__ dy,
-                    const T* __restrict__ w_ih, const T* __restrict__ w_hh,
-                    const float* __restrict__ bias, T* __restrict__ da_out,
-                    float* __restrict__ db_part, int batch, int steps) {
+// The operands of one call, shared by both paths.
+template <typename T>
+struct BwdArgs {
+  const T* x;          // (B, T, W)
+  const T* y;          // (B, T, W), the forward's output: h_{t-1} = y_{t-1}
+  const float* cprev;  // (B, T, W) fp32
+  const T* dy;         // (B, T, W)
+  const float* w_ih;   // (G, W) fp32
+  const float* w_hh;   // (G, W) fp32
+  const float* bias;   // (G,) fp32
+  int batch, steps;
+};
+
+// The reverse-time recurrence of the R batch rows from row0, the body of
+// both paths' recurrent block.  It stores da, rounded to the operand type,
+// at da_dst + (r * steps + t) * da_stride + column (the device-memory
+// scratch, rows past the batch skipped; or the fused kernel's shared
+// memory, where those rows get zeros), and the block's db (its rows' fp32
+// da in a fixed order) at db_out[column].  FUSED: the producers also leave
+// x_t | h_{t-1} of every (r, t) at s_v + (r * steps + t) * v_stride, and
+// call producers_done() once they have handed over their last chunk.
+template <typename T, int R, int W, bool FUSED, typename Tail>
+__device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char* smem, int row0,
+                                               T* da_dst, int da_stride, float* db_out, T* s_v,
+                                               int v_stride, Tail producers_done) {
   static_assert(valid_width<W>, "instantiated for W = 32 and 64");
   constexpr int D = W, H = W, G = 4 * W, K = 2 * W, COLS = G, THREADS = 2 * COLS;
   constexpr int NQ = W / 16, RW = RING<W>, DG = DA_GATE<W>, DR = DA_ROW<W>, KPW = KP<T, W>;
-  extern __shared__ __align__(16) unsigned char smem[];
+  const int batch = a.batch, steps = a.steps;
   // fp32 only: s_w[((sec * 4 + m) * NQ + q) * COLS + p] = the four terms 4 (4 q + kp) .. + 3 of
   // gate m's row for thread p's unit, of W_ih (sec 0) or W_hh (sec 1): lstm_common.cuh's split.
   const float4* s_w = reinterpret_cast<const float4*>(smem);
@@ -109,7 +148,6 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
   const int p = threadIdx.x & (COLS - 1);
   const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
-  const int row0 = blockIdx.x * R;
   const int n_chunks = (steps + SB - 1) / SB;
   // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
 
@@ -120,20 +158,20 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
     uint32_t a_ih[2][W / 16][4], a_hh[2][W / 16][4];
     float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if constexpr (is_bf16<T>) {
-      load_a_fragments<W>(w_ih, unit & ~7, lane, a_ih);
-      load_a_fragments<W>(w_hh, unit & ~7, lane, a_hh);
+      load_a_fragments<W>(a.w_ih, unit & ~7, lane, a_ih);
+      load_a_fragments<W>(a.w_hh, unit & ~7, lane, a_hh);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
+      for (int m = 0; m < 4; ++m) b4[m] = a.bias[m * H + unit_t];
     } else {
       T* s_w_t = reinterpret_cast<T*>(smem);
       for (int idx = p; idx < G * K; idx += COLS) {
         const int j = idx / K, k = idx % K;  // row j of the weights (gate m, unit u), term k
-        const T wv = k < D ? w_ih[j * D + k] : w_hh[j * H + (k - D)];
+        const float wv = k < D ? a.w_ih[j * D + k] : a.w_hh[j * H + (k - D)];
         const int sec = k / D, quad = (k % D) / 4, m = j / H, u = j % H;
         const int slot = ((sec * 4 + m) * NQ + quad / 4) * COLS + u * 4 + quad % 4;
         s_w_t[slot * 4 + k % 4] = wv;
       }
-      b = bias[col];
+      b = a.bias[col];
     }
     constexpr int PER = R * SB * H / COLS;  // staged values per thread, chunk and stream
     float xr[PER], yr[PER], cr[PER], dyr[PER];
@@ -145,10 +183,10 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
         const int row = row0 + r, t = steps - 1 - c * SB - s;
         const bool ok = row < batch && t >= 0;
         const size_t at = ((size_t)row * steps + t) * H + u;
-        xr[i] = ok ? load_f(x + at) : 0.0f;
-        yr[i] = ok && t > 0 ? load_f(y + at - H) : 0.0f;  // h_{t-1} = y_{t-1}, zero at t = 0
-        cr[i] = ok ? cprev[at] : 0.0f;
-        dyr[i] = ok ? dy[at] : 0.0f;
+        xr[i] = ok ? load_f(a.x + at) : 0.0f;
+        yr[i] = ok && t > 0 ? load_f(a.y + at - H) : 0.0f;  // h_{t-1} = y_{t-1}, zero at t = 0
+        cr[i] = ok ? a.cprev[at] : 0.0f;
+        dyr[i] = ok ? load_f(a.dy + at) : 0.0f;
       }
     };
     fetch(0);
@@ -166,6 +204,13 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
         store_f(s_xh + (r * SB + s) * KPW + D + u, yr[i]);
         s_c[(r * SB + s) * H + u] = cr[i];
         ring[(s * R + r) * RW + G + 2 * H + u] = dyr[i];
+        if constexpr (FUSED) {
+          const int t = steps - 1 - c * SB - s;
+          if (t >= 0) {
+            store_f(s_v + (r * steps + t) * v_stride + u, xr[i]);
+            store_f(s_v + (r * steps + t) * v_stride + D + u, yr[i]);
+          }
+        }
       }
       if (c + 1 < n_chunks) fetch(c + 1);
       bar_sync(BAR_PROD, COLS);
@@ -248,6 +293,7 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
       __threadfence_block();
       bar_arrive(BAR_FULL + buf, THREADS);
     }
+    producers_done();
     return;
   }
 
@@ -267,7 +313,7 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
     for (int e = 0; e < EP; ++e)
 #pragma unroll
       for (int o = 0; o < 4; ++o)
-        w[(q * EP + e) * 4 + o] = load_f(w_hh + (size_t)(q * H + EP * jp + e) * H + unit0 + o);
+        w[(q * EP + e) * 4 + o] = load_w<T>(a.w_hh, (size_t)(q * H + EP * jp + e) * H + unit0 + o);
   float dh[R], dc[R], db_acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
@@ -290,8 +336,8 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
         const float da = (gate == 3 ? dh_total : dc_total) * e[p];
         dc[r] = dc_total * e[G + H + unit];
         db_acc[r] += da;
-        da_s[r * DR + gate * DG + unit] = operand(da, x);
-        if (row0 + r < batch) store_f(da_out + ((size_t)(row0 + r) * steps + t) * G + col, da);
+        da_s[r * DR + gate * DG + unit] = operand(da, a.x);
+        if (FUSED || row0 + r < batch) store_f(da_dst + (size_t)(r * steps + t) * da_stride + col, da);
       }
       bar_sync(BAR_CONS, COLS);
       // Each output's 4 EP terms in order (q, e), one running sum; then the 16 parts:
@@ -300,17 +346,17 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
       float part[R][4], sum[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float* a = da_s + r * DR + EP * jp;
+        const float* av = da_s + r * DR + EP * jp;
 #pragma unroll
         for (int o = 0; o < 4; ++o) part[r][o] = 0.0f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           float ve[EP];
           if constexpr (EP == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(a + q * DG);
+            const float4 v = *reinterpret_cast<const float4*>(av + q * DG);
             ve[0] = v.x; ve[1] = v.y; ve[2] = v.z; ve[3] = v.w;
           } else {
-            const float2 v = *reinterpret_cast<const float2*>(a + q * DG);
+            const float2 v = *reinterpret_cast<const float2*>(av + q * DG);
             ve[0] = v.x; ve[1] = v.y;
           }
 #pragma unroll
@@ -334,7 +380,16 @@ lstm_bwd_rec_kernel(const T* __restrict__ x, const T* __restrict__ y,
   float total = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) total += db_acc[r];
-  db_part[(size_t)blockIdx.x * G + col] = total;
+  db_out[col] = total;
+}
+
+template <typename T, int R, int W>
+__global__ void __launch_bounds__(8 * W, 1)
+lstm_bwd_rec_kernel(const BwdArgs<T> a, T* __restrict__ da_out, float* __restrict__ db_part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row0 = blockIdx.x * R;
+  bwd_recurrence<T, R, W, false>(a, smem, row0, da_out + (size_t)row0 * a.steps * (4 * W), 4 * W,
+                                 db_part + (size_t)blockIdx.x * (4 * W), nullptr, 0, [] {});
 }
 
 // ---- fp32: dx and dW on the CUDA cores, in full fp32 ----
@@ -478,14 +533,15 @@ constexpr int dxm_smem_bytes() { return (int)sizeof(__nv_bfloat16) * (W + DXM_RO
 // W_ih is staged transposed, [d][j], so that a B fragment's two k are adjacent.
 template <int W>
 __global__ void __launch_bounds__(256)
-lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ w_ih,
+lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const float* __restrict__ w_ih,
                        __nv_bfloat16* __restrict__ dx, long long n_rows) {
   constexpr int D = W, G = 4 * W, DA_P = da_pitch<W>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* s_wt = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][DA_P]
   __nv_bfloat16* s_a = s_wt + D * DA_P;                          // [DXM_ROWS][DA_P]
   const int tid = threadIdx.x, warp = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
-  for (int idx = tid; idx < G * D; idx += 256) s_wt[(idx % D) * DA_P + idx / D] = w_ih[idx];
+  for (int idx = tid; idx < G * D; idx += 256)
+    s_wt[(idx % D) * DA_P + idx / D] = __float2bfloat16(w_ih[idx]);
 
   for (long long tile = blockIdx.x; tile * DXM_ROWS < n_rows; tile += gridDim.x) {
     const long long base = tile * DXM_ROWS;
@@ -629,60 +685,252 @@ lstm_bwd_sum_kernel(const float* __restrict__ part, int n_chunks,
   }
 }
 
+// ---- W = 32: the fused path, one cooperative launch ----
+
+// Row pitch of the block's da and of its x_t | h_{t-1} rows in shared
+// memory: bf16 rows are read by ldmatrix and as mma fragments, and the pad
+// puts 8 consecutive rows in distinct banks; fp32 rows are read as float4.
+template <typename T, int W> constexpr int FDA_P = is_bf16<T> ? 4 * W + 8 : 4 * W + 4;
+template <typename T, int W> constexpr int FV_P = is_bf16<T> ? 2 * W + 8 : 2 * W + 4;
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+// The block's (row, step) pairs, padded to whole 16-row mma tiles.
+__host__ __device__ constexpr int fused_rows(int rows, int steps) { return (rows * steps + 15) / 16 * 16; }
+
 template <typename T, int R, int W>
-cudaError_t launch_rec(const T* x, const T* y, const float* cprev, const float* dy, const T* w_ih,
-                       const T* w_hh, const float* bias, T* da, float* db_part,
-                       int batch, int steps, cudaStream_t stream) {
-  constexpr int smem = rec_smem_bytes<T, R, W>();
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_rec_kernel<T, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+constexpr int fused_smem_bytes(int steps) {
+  return align16(rec_smem_bytes<T, R, W>()) +
+         (int)sizeof(T) * (fused_rows(R, steps) * (FDA_P<T, W> + FV_P<T, W>) +
+                           (is_bf16<T> ? W * FDA_P<T, W> : 0));
+}
+
+// part: (gridDim.x, G K + G) fp32, block b's dW partial [j][m] (m < W: x,
+// else h_{t-1}) then its db.  The grid must be resident at once
+// (cudaLaunchCooperativeKernel refuses it otherwise).
+template <typename T, int R, int W>
+__global__ void __launch_bounds__(8 * W, 1)
+lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict__ part,
+                      float* __restrict__ dw_ih, float* __restrict__ dw_hh, float* __restrict__ db) {
+  static_assert(W == 32, "the fused backward is instantiated for W = 32");
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, THREADS = 8 * W, NOUT = G * K + G;
+  constexpr int DAP = FDA_P<T, W>, VP = FV_P<T, W>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, row0 = blockIdx.x * R, steps = a.steps;
+  const int nr = R * steps, nrp = fused_rows(R, steps);
+  T* s_da = reinterpret_cast<T*>(smem + align16(rec_smem_bytes<T, R, W>()));  // [nrp][DAP]
+  T* s_v = s_da + nrp * DAP;                                                   // [nrp][VP]
+  T* s_wt = s_v + nrp * VP;  // bf16: [D][DAP], W_ih transposed, for dx's B fragments
+  float* my_part = part + (size_t)blockIdx.x * NOUT;
+
+  // 1. The recurrence.  Its producers, done with their last chunk while the
+  // consumers still run, zero the padding rows and stage W_ih^T.
+  bwd_recurrence<T, R, W, true>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
+    for (int i = tid - G; i < (nrp - nr) * DAP; i += G) store_f(s_da + nr * DAP + i, 0.0f);
+    for (int i = tid - G; i < (nrp - nr) * VP; i += G) store_f(s_v + nr * VP + i, 0.0f);
+    if constexpr (is_bf16<T>)
+      for (int idx = tid - G; idx < G * D; idx += G)
+        s_wt[(idx % D) * DAP + idx / D] = __float2bfloat16(a.w_ih[idx]);
+  });
+  __syncthreads();
+
+  const long long n_base = (long long)row0 * steps, n_end = (long long)a.batch * steps;
+  const int warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  if constexpr (is_bf16<T>) {
+    // 2. dx = da . W_ih of the block's rows: tiles of 16 rows x 8 inputs, K =
+    // the G gate columns (lstm_bwd_dx_mma_kernel's products).
+    for (int job = warp; job < (nrp / 16) * (D / 8); job += THREADS / 32) {
+      const int mt = job / (D / 8), nt = job % (D / 8);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const T* a_lo = s_da + (mt * 16 + g8) * DAP + 2 * t4;
+      const T* b_lo = s_wt + (nt * 8 + g8) * DAP + 2 * t4;
+#pragma unroll
+      for (int kt = 0; kt < G / 16; ++kt) {
+        const uint32_t af[4] = {ld32(a_lo + kt * 16), ld32(a_lo + 8 * DAP + kt * 16),
+                                ld32(a_lo + kt * 16 + 8), ld32(a_lo + 8 * DAP + kt * 16 + 8)};
+        mma_bf16(c, af, ld32(b_lo + kt * 16), ld32(b_lo + kt * 16 + 8));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = mt * 16 + g8 + 8 * h;
+        if (n < nr && n_base + n < n_end)
+          *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
+              __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+      }
+    }
+    // 3. The block's dW partial: M = the G gate columns (16 a warp), N = the K
+    // terms of x_t | h_{t-1}, K = the block's rows; both operands transposed
+    // through ldmatrix (lstm_bwd_dw_mma_kernel's products).
+    static_assert(G == 16 * (THREADS / 32), "a warp owns 16 gate columns");
+    float c[K / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < K / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = 0.0f;
+    const int blk = lane >> 3, blk_row = lane & 7;  // ldmatrix: this lane's block and row in it
+    for (int ks = 0; ks < nrp / 16; ++ks) {
+      uint32_t af[4];
+      ldmatrix_x4_trans(af, s_da + (ks * 16 + (blk >> 1) * 8 + blk_row) * DAP + warp * 16 + (blk & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < K / 16; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, s_v + (ks * 16 + (blk & 1) * 8 + blk_row) * VP + np * 16 + (blk >> 1) * 8);
+        mma_bf16(c[2 * np], af, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], af, b[2], b[3]);
+      }
+    }
+    const int j = warp * 16 + g8;
+#pragma unroll
+    for (int nt = 0; nt < K / 8; ++nt) {
+      const int m = nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(my_part + (size_t)j * K + m) = make_float2(c[nt][0], c[nt][1]);
+      *reinterpret_cast<float2*>(my_part + (size_t)(j + 8) * K + m) = make_float2(c[nt][2], c[nt][3]);
+    }
+  } else {
+    // 2. dx, fp32: thread (input d, row group rg) over rows rg, rg + RG, ...,
+    // the G terms in order (lstm_bwd_dx_kernel's order), W_ih from L1.
+    constexpr int RG = THREADS / D;
+    const int d = tid % D, rg = tid / D;
+    for (int n0 = rg; n0 < nr; n0 += 8 * RG) {
+      float acc[8];
+      const T* rows[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i] = 0.0f;
+        rows[i] = s_da + min(n0 + RG * i, nr - 1) * DAP;  // a row past nr is read, never stored
+      }
+#pragma unroll 4
+      for (int j = 0; j < G; ++j) {
+        const float wv = a.w_ih[(size_t)j * D + d];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = fmaf(rows[i][j], wv, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int n = n0 + RG * i;
+        if (n < nr && n_base + n < n_end) dx[(n_base + n) * D + d] = acc[i];
+      }
+    }
+    // 3. The block's dW partial, fp32: 8 gate columns x 4 terms a thread,
+    // the rows in order.
+    static_assert((G / 8) * (K / 4) == THREADS, "one thread per 8 x 4 outputs");
+    const int j0 = (tid / (K / 4)) * 8, m0 = (tid % (K / 4)) * 4;
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+    for (int n = 0; n < nr; ++n) {
+      const float4 a0 = *reinterpret_cast<const float4*>(s_da + n * DAP + j0);
+      const float4 a1 = *reinterpret_cast<const float4*>(s_da + n * DAP + j0 + 4);
+      const float4 v = *reinterpret_cast<const float4*>(s_v + n * VP + m0);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], vv[q], acc[i][q]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(my_part + (size_t)(j0 + i) * K + m0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+
+  // 4. Every block's partial is written: each block sums a fixed slice of
+  // the outputs over the partials, four groups of 64 threads taking every
+  // fourth block in order, then the four sums in a fixed order.
+  cg::this_grid().sync();
+  static_assert(THREADS == 256, "four groups of 64 threads");
+  float* s_red = reinterpret_cast<float*>(smem);  // the recurrence's region, free now
+  const int nblk = gridDim.x, per = (NOUT + nblk - 1) / nblk;
+  const int o0 = blockIdx.x * per, o1 = min(o0 + per, NOUT);
+  const int grp = tid / 64, ol = tid % 64;
+  for (int base = o0; base < o1; base += 64) {
+    const int o = base + ol;
+    float sum = 0.0f;
+    if (o < o1) {
+#pragma unroll 8
+      for (int b = grp; b < nblk; b += 4) sum += __ldcg(part + (size_t)b * NOUT + o);
+    }
+    s_red[tid] = sum;
+    __syncthreads();
+    if (grp == 0 && o < o1) {
+      const float total = (s_red[ol] + s_red[64 + ol]) + (s_red[128 + ol] + s_red[192 + ol]);
+      if (o < G * K) {
+        const int j = o / K, m = o % K;
+        if (m < D) dw_ih[j * D + m] = total;
+        else dw_hh[j * H + (m - D)] = total;
+      } else {
+        db[o - G * K] = total;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int R, int W>
+cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* dw_hh, float* db,
+                         cudaStream_t stream) {
+  static SmemOnce once;  // its need grows with T: the card's limit, checked at the launch
+  cudaError_t err = once.set(lstm_bwd_fused_kernel<T, R, W>, 0);
   if (err != cudaSuccess) return err;
-  lstm_bwd_rec_kernel<T, R, W><<<(batch + R - 1) / R, 8 * W, smem, stream>>>(
-      x, y, cprev, dy, w_ih, w_hh, bias, da, db_part, batch, steps);
+  void* params[] = {&a, &dx, &part, &dw_ih, &dw_hh, &db};
+  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_fused_kernel<T, R, W>,
+                                    dim3((a.batch + R - 1) / R), dim3(8 * W), params,
+                                    fused_smem_bytes<T, R, W>(a.steps), stream);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T, int R, int W>
+cudaError_t launch_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream) {
+  constexpr int smem = rec_smem_bytes<T, R, W>();
+  static SmemOnce once;
+  cudaError_t err = once.set(lstm_bwd_rec_kernel<T, R, W>, smem);
+  if (err != cudaSuccess) return err;
+  lstm_bwd_rec_kernel<T, R, W><<<(a.batch + R - 1) / R, 8 * W, smem, stream>>>(a, da, db_part);
   return cudaGetLastError();
 }
 
 template <typename T, int W>
-int launch(const void* x, const void* y, const float* cprev, const float* dy,
-           const void* w_ih, const void* w_hh, const float* bias,
-           void* dx, float* dw_ih, float* dw_hh, float* db,
-           void* da, float* part, float* db_part,
-           int batch, int steps, int rows, int n_chunks, int dx_blocks, void* stream_ptr) {
+int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* part,
+           float* db_part, int rows, int n_chunks, int dx_blocks, int fused, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int batch = a.batch, steps = a.steps;
   const long long n_rows = (long long)batch * steps;
-  if ((rows != 1 && rows != 2) || n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
+  if (fused) {
+    if constexpr (W == 32)
+      return (int)(rows == 1 ? launch_fused<T, 1, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
+                             : launch_fused<T, 2, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
   const int rec_blocks = (batch + rows - 1) / rows;
 
-  cudaError_t err =
-      rows == 1 ? launch_rec<T, 1, W>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
-                                      (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream)
-                : launch_rec<T, 2, W>((const T*)x, (const T*)y, cprev, dy, (const T*)w_ih,
-                                      (const T*)w_hh, bias, (T*)da, db_part, batch, steps, stream);
+  cudaError_t err = rows == 1 ? launch_rec<T, 1, W>(a, (T*)da, db_part, stream)
+                              : launch_rec<T, 2, W>(a, (T*)da, db_part, stream);
   if (err != cudaSuccess) return (int)err;
 
   constexpr int G = 4 * W, K = 2 * W;
   const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+  static SmemOnce dx_once;
   if constexpr (is_bf16<T>) {
     constexpr int smem = dxm_smem_bytes<W>();
-    err = cudaFuncSetAttribute(
-        lstm_bwd_dx_mma_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = dx_once.set(lstm_bwd_dx_mma_kernel<W>, smem)) != cudaSuccess) return (int)err;
     lstm_bwd_dx_mma_kernel<W><<<dx_blocks, 256, smem, stream>>>(
-        (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
+        (const T*)da, a.w_ih, (T*)dx, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     lstm_bwd_dw_mma_kernel<W><<<dim3(n_chunks, 2), 256, 0, stream>>>(
-        (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
+        (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   } else {
     constexpr int smem = dx_smem_bytes<W>();
-    err = cudaFuncSetAttribute(
-        lstm_bwd_dx_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = dx_once.set(lstm_bwd_dx_kernel<W>, smem)) != cudaSuccess) return (int)err;
     lstm_bwd_dx_kernel<W><<<dx_blocks, 256, smem, stream>>>(
-        (const T*)da, (const T*)w_ih, (T*)dx, n_rows);
+        (const T*)da, a.w_ih, (T*)dx, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
-        (const T*)da, (const T*)x, (const T*)y, part, n_rows, steps, chunk_rows);
+        (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
@@ -696,21 +944,29 @@ int launch(const void* x, const void* y, const float* cprev, const float* dy,
 extern "C" {
 
 // Width 64 (no suffix) and width 32 (_w32), G = 4 W.  x: (B, T, W), y:
-// (B, T, W) (the forward's output), w_ih / w_hh: (G, W), all in the
-// instantiation's type; cprev, dy: (B, T, W) fp32; bias: (G,) fp32.
-// Outputs: dx (B, T, W) in the instantiation's type, dw_ih / dw_hh (G, W)
-// and db (G,) fp32.  Scratch: da (B, T, G) in the instantiation's type,
-// part (n_chunks, G, 2 W) fp32, db_part (ceil(B / rows), G) fp32.  rows:
-// batch rows per block of the recurrent kernel, 1 or 2; dx_blocks: the dx
-// kernel's grid.  All contiguous on the current device; B, T >= 1.  Returns
-// the first cudaError_t of the four launches (0 = all launched).
+// (B, T, W) (the forward's output), both in the instantiation's type; dy:
+// (B, T, W), all three in the instantiation's type; w_ih / w_hh: (G, W)
+// fp32, 8-byte aligned; cprev: (B, T, W) fp32; bias: (G,) fp32.
+// Outputs, every element written: dx (B, T, W) in the instantiation's
+// type, dw_ih / dw_hh (G, W) and db (G,) fp32.  rows: batch rows per
+// recurrent block, 1 or 2.  fused = 0, the four launches: scratch da
+// (B, T, G) in the instantiation's type, part (n_chunks, G, 2 W) fp32,
+// db_part (ceil(B / rows), G) fp32; dx_blocks: the dx kernel's grid.
+// fused = 1 (W = 32 only; its rows' da must fit a block's shared memory,
+// which the plan's T <= 64 keeps): one cooperative launch of ceil(B /
+// rows) blocks, which must all be resident at once; scratch part
+// (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and dx_blocks
+// unused.  All contiguous on the current device; B, T >= 1.  Returns the
+// first cudaError_t of the launches (0 = all launched).
 #define AWM_LSTM_BWD_ENTRY(NAME, TYPE, W)                                                         \
-  int NAME(const void* x, const void* y, const float* cprev, const float* dy, const void* w_ih,  \
-           const void* w_hh, const float* bias, void* dx, float* dw_ih, float* dw_hh, float* db, \
-           void* da, float* part, float* db_part, int batch, int steps, int rows, int n_chunks,  \
-           int dx_blocks, void* stream) {                                                         \
-    return launch<TYPE, W>(x, y, cprev, dy, w_ih, w_hh, bias, dx, dw_ih, dw_hh, db, da, part,    \
-                           db_part, batch, steps, rows, n_chunks, dx_blocks, stream);            \
+  int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
+           const float* w_hh, const float* bias, void* dx,                                        \
+           float* dw_ih, float* dw_hh, float* db, void* da, float* part, float* db_part,         \
+           int batch, int steps, int rows, int n_chunks, int dx_blocks, int fused, void* stream) { \
+    const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
+                          bias, batch, steps};                                                    \
+    return launch<TYPE, W>(a, dx, dw_ih, dw_hh, db, da, part, db_part, rows, n_chunks,           \
+                           dx_blocks, fused, stream);                                             \
   }
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32, float, 64)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16, __nv_bfloat16, 64)

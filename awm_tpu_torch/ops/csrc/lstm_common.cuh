@@ -24,6 +24,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace awm {
@@ -58,6 +59,17 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __floa
 __device__ __forceinline__ float operand(float v, const float*) { return v; }
 __device__ __forceinline__ float operand(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// Weight i as the operand type T sees it.  The weights come fp32 to every
+// instantiation; a bf16 one rounds them to nearest even as it loads them,
+// as Tensor.to(torch.bfloat16) does, so no cast kernel runs beside a launch.
+template <typename T>
+__device__ __forceinline__ float load_w(const float* w, size_t i) {
+  return operand(w[i], static_cast<const T*>(nullptr));
 }
 
 // 1 / d for 1 <= d < 2^120: the hardware's approximate reciprocal and one
@@ -141,12 +153,12 @@ __device__ __forceinline__ void gather_gates(const float act[N], int quad_lane, 
 }
 
 // This lane's W weights of the split above (4 gates x NQ quads x 4 terms),
-// widened into registers for the whole launch (a bf16 widens exactly):
+// in the operand type and widened into registers for the whole launch:
 // w[(m * NQ + q) * 4 + e] = term 4 (4 q + kp) + e of gate m's row (W terms
 // long) for this unit.  Every index is a compile-time constant after
 // unrolling, so w stays in registers.
 template <int W, typename T>
-__device__ __forceinline__ void load_gate_weights(const T* __restrict__ wmat, int unit, int kp,
+__device__ __forceinline__ void load_gate_weights(const float* __restrict__ wmat, int unit, int kp,
                                                   float w[W]) {
   constexpr int NQ = W / 16;
 #pragma unroll
@@ -155,7 +167,7 @@ __device__ __forceinline__ void load_gate_weights(const T* __restrict__ wmat, in
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        w[(m * NQ + q) * 4 + e] = load_f(wmat + (m * W + unit) * W + 4 * (4 * q + kp) + e);
+        w[(m * NQ + q) * 4 + e] = load_w<T>(wmat, (m * W + unit) * W + 4 * (4 * q + kp) + e);
 }
 
 // acc[m] += this lane's W / 4 terms of gate m, m = 0..3; v points at the W
@@ -184,11 +196,15 @@ __device__ __forceinline__ void dot_parts(float acc[4], const float w[W], const 
 // The weights sit in registers as A fragments for the whole launch.  Lane
 // (g8 = lane / 4, t4 = lane % 4) then holds all four gates of unit g8 for
 // columns n = 2 t4 and 2 t4 + 1: c[tile][e] and c[tile][2 + e], e = 0, 1.
-template <typename T>
-constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+// fp32 weights i and i + 1 (i even, 8-byte aligned) as one bf16 pair,
+// rounded to nearest even, the lower element in the low half.
+__device__ __forceinline__ uint32_t load_w2(const float* w, size_t i) {
+  const float2 v = *reinterpret_cast<const float2*>(w + i);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
@@ -209,22 +225,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
                : "r"(addr));
 }
 
-// The A fragments of one (4 W, W) weight matrix for this warp's 8 units
-// (unit0 = the first): a[tile][kt][0..3], kt = 0..W/16-1 over the W terms.
+// The A fragments of one fp32 (4 W, W) weight matrix, rounded to bf16, for
+// this warp's 8 units (unit0 = the first): a[tile][kt][0..3], kt =
+// 0..W/16-1 over the W terms.
 template <int W>
-__device__ __forceinline__ void load_a_fragments(const __nv_bfloat16* __restrict__ wmat, int unit0,
+__device__ __forceinline__ void load_a_fragments(const float* __restrict__ wmat, int unit0,
                                                  int lane, uint32_t a[2][W / 16][4]) {
   const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
     for (int kt = 0; kt < W / 16; ++kt) {
-      const __nv_bfloat16* lo = wmat + ((2 * tile) * W + unit0 + g8) * W + kt * 16 + 2 * t4;
-      const __nv_bfloat16* hi = lo + W * W;  // the tile's second gate, same unit
-      a[tile][kt][0] = ld32(lo);
-      a[tile][kt][1] = ld32(hi);
-      a[tile][kt][2] = ld32(lo + 8);
-      a[tile][kt][3] = ld32(hi + 8);
+      const size_t lo = (size_t)((2 * tile) * W + unit0 + g8) * W + kt * 16 + 2 * t4;
+      const size_t hi = lo + W * W;  // the tile's second gate, same unit
+      a[tile][kt][0] = load_w2(wmat, lo);
+      a[tile][kt][1] = load_w2(wmat, hi);
+      a[tile][kt][2] = load_w2(wmat, lo + 8);
+      a[tile][kt][3] = load_w2(wmat, hi + 8);
     }
 }
 
@@ -240,5 +257,29 @@ __device__ __forceinline__ void mma_w(float c[2][4], const uint32_t a[2][W / 16]
     mma_bf16(c[1], a[1][kt], b0, b1);
   }
 }
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// device for the instantiation that holds this object (a static of its
+// launcher): a short call's cost is its host work, and the attribute is
+// the same at every call.  bytes = 0: the most a block may opt in to on
+// the device, for a kernel whose need grows with the call's shape (a shape
+// past it fails at its launch).
+struct SmemOnce {
+  std::atomic<unsigned long long> done{0};  // bit d: set on device d
+  template <typename Kernel>
+  cudaError_t set(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    if (bytes == 0 &&
+        (err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess)
+      return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+};
 
 }  // namespace awm

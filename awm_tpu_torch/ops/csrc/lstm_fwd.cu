@@ -28,8 +28,10 @@
 // - a block owns R batch rows and runs all T steps in one launch; R (1, 2
 //   or 4) is chosen by the caller from the batch, the card's SM count and
 //   the measured cost of a step of R rows (ops/lstm_kernel.py::launch_plan);
-// - every weight lives in a register for the whole launch (bf16 weights
-//   are widened, or packed into mma fragments, once).  A W-term product is
+// - every weight lives in a register for the whole launch (the weights
+//   come fp32; a bf16 instantiation rounds them itself as it loads them,
+//   so no cast kernel runs beside the launch, and widens them or packs
+//   them into mma fragments).  A W-term product is
 //   split over the four lanes of its unit (lstm_common.cuh), so a step reads
 //   W / 4 of the W h values per thread from shared memory, W / 16 16-byte
 //   loads;
@@ -88,8 +90,8 @@ constexpr int fwd_smem_bytes() {
 
 template <typename T, bool TRAIN, int R, int W>
 __global__ void __launch_bounds__(8 * W, 1)
-lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
-                const T* __restrict__ w_hh, const float* __restrict__ bias,
+lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
+                const float* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
   static_assert(valid_width<W>, "instantiated for W = 32 and 64");
   constexpr int D = W, H = W, COLS = 4 * W, THREADS = 2 * COLS;
@@ -116,7 +118,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
 #pragma unroll
       for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
     } else {
-      load_gate_weights<W>(w_ih, unit, gate, w);
+      load_gate_weights<W, T>(w_ih, unit, gate, w);
       b = bias[col];
     }
     constexpr int PER = R * S * D / COLS;  // staged x values per thread and chunk
@@ -229,7 +231,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
       if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
     }
   } else {
-    load_gate_weights<W>(w_hh, unit, gate, w);
+    load_gate_weights<W, T>(w_hh, unit, gate, w);
     float c_state[R];
     const int quad_lane = (threadIdx.x & 31) & ~3;  // lane of this unit's gate i
     // Each of the unit's four lanes carries c; lane i stores y, c_{t-1} and h.
@@ -283,20 +285,20 @@ lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
 }
 
 template <typename T, bool TRAIN, int R, int W>
-int launch_rows(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+int launch_rows(const void* x, const float* w_ih, const float* w_hh, const float* bias,
                 void* y, float* cprev, int batch, int steps, void* stream) {
   constexpr int smem = fwd_smem_bytes<T, R, W>();
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<T, TRAIN, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemOnce once;
+  cudaError_t err = once.set(lstm_fwd_kernel<T, TRAIN, R, W>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (batch + R - 1) / R;
   lstm_fwd_kernel<T, TRAIN, R, W><<<blocks, 8 * W, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w_ih, (const T*)w_hh, bias, (T*)y, cprev, batch, steps);
+      (const T*)x, w_ih, w_hh, bias, (T*)y, cprev, batch, steps);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool TRAIN, int W>
-int launch(const void* x, const void* w_ih, const void* w_hh, const float* bias,
+int launch(const void* x, const float* w_ih, const float* w_hh, const float* bias,
            void* y, float* cprev, int batch, int steps, int rows, void* stream) {
   switch (rows) {
     case 1: return launch_rows<T, TRAIN, 1, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
@@ -310,55 +312,33 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const float* bias,
 
 extern "C" {
 
-// Width 64 (no suffix) and width 32 (_w32).  x: (B, T, W), w_ih: (4W, W),
-// w_hh: (4W, W), bias: (4W,) fp32, y: (B, T, W), all in the
-// instantiation's type except bias; all contiguous on the current device.
-// rows: batch rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  Returns
-// the cudaError_t of the launch (0 = launched).
-int awm_lstm_fwd_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                     void* y, int batch, int steps, int rows, void* stream) {
-  return launch<float, false, 64>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
-}
-
-int awm_lstm_fwd_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                      void* y, int batch, int steps, int rows, void* stream) {
-  return launch<__nv_bfloat16, false, 64>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows,
-                                          stream);
-}
-
-int awm_lstm_fwd_f32_w32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                         void* y, int batch, int steps, int rows, void* stream) {
-  return launch<float, false, 32>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream);
-}
-
-int awm_lstm_fwd_bf16_w32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                          void* y, int batch, int steps, int rows, void* stream) {
-  return launch<__nv_bfloat16, false, 32>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows,
-                                          stream);
-}
+// Width 64 (no suffix) and width 32 (_w32).  x: (B, T, W) and y: (B, T, W)
+// in the instantiation's type; w_ih, w_hh: (4W, W) fp32, 8-byte aligned;
+// bias: (4W,) fp32; all contiguous on the current device.  rows: batch
+// rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  Returns the
+// cudaError_t of the launch (0 = launched).
+#define AWM_LSTM_FWD_ENTRY(NAME, TYPE, W)                                                        \
+  int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \
+           int batch, int steps, int rows, void* stream) {                                      \
+    return launch<TYPE, false, W>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream); \
+  }
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32, float, 64)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16, __nv_bfloat16, 64)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w32, float, 32)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w32, __nv_bfloat16, 32)
+#undef AWM_LSTM_FWD_ENTRY
 
 // As above, plus cprev: (B, T, W) fp32, c_{t-1} of every step.
-int awm_lstm_fwd_train_f32(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                           void* y, float* cprev, int batch, int steps, int rows, void* stream) {
-  return launch<float, true, 64>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
-}
-
-int awm_lstm_fwd_train_bf16(const void* x, const void* w_ih, const void* w_hh, const float* bias,
-                            void* y, float* cprev, int batch, int steps, int rows, void* stream) {
-  return launch<__nv_bfloat16, true, 64>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
-}
-
-int awm_lstm_fwd_train_f32_w32(const void* x, const void* w_ih, const void* w_hh,
-                               const float* bias, void* y, float* cprev, int batch, int steps,
-                               int rows, void* stream) {
-  return launch<float, true, 32>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
-}
-
-int awm_lstm_fwd_train_bf16_w32(const void* x, const void* w_ih, const void* w_hh,
-                                const float* bias, void* y, float* cprev, int batch, int steps,
-                                int rows, void* stream) {
-  return launch<__nv_bfloat16, true, 32>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);
-}
+#define AWM_LSTM_FWD_TRAIN_ENTRY(NAME, TYPE, W)                                                  \
+  int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \
+           float* cprev, int batch, int steps, int rows, void* stream) {                        \
+    return launch<TYPE, true, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);    \
+  }
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32, float, 64)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16, __nv_bfloat16, 64)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w32, float, 32)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w32, __nv_bfloat16, 32)
+#undef AWM_LSTM_FWD_TRAIN_ENTRY
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -56,6 +56,19 @@ def _recurrence(x, w_ih, w_hh, b, keep_c: bool):
     return y, cprev
 
 
+def lstm_cell(
+    xp_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w_hh: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step (awm_tpu/ops/lstm.py::lstm_cell).  xp_t: (B, 4H) pre-projected
+    input (+bias already added), w_hh: (4H, H) torch layout.  Returns
+    (h', c').  The recurrent product accumulates in fp32 whatever the
+    operands' type (the JAX cell's preferred_element_type=float32)."""
+    gates = xp_t + torch.matmul(h.float(), w_hh.float().t())
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
 def lstm_forward(
     x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -64,6 +77,15 @@ def lstm_forward(
     w_ih: (4H, D), w_hh: (4H, H), b: (4H,).  Output dtype is x's.
     """
     return _recurrence(x, w_ih, w_hh, b, keep_c=False)[0]
+
+
+def lstm_stack(x: torch.Tensor, layers) -> torch.Tensor:
+    """Multi-layer LSTM (awm_tpu/ops/lstm.py::lstm_stack; main14b_2 stacks
+    2): lstm_forward layer by layer, each layer a mapping with 'w_ih',
+    'w_hh' and 'b'."""
+    for p in layers:
+        x = lstm_forward(x, p["w_ih"], p["w_hh"], p["b"])
+    return x
 
 
 def lstm_forward_train(

@@ -11,9 +11,15 @@ Each is compiled for two widths D = H = W: 64 (the base family, no suffix)
 and 32 (the strided family, suffix _w32); the width comes from w_hh's
 second axis, and any other width raises.  On that card each is bound by the
 latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
-at W = 64; at W = 32 the strided family's 50 steps take less device time
-than the wrapper's host work around the launch.  What the designs do about
-it (the sources' headers have the detail): a block owns a few batch rows and runs
+at W = 64; at W = 32 the strided family's 50 steps take about as long as
+the host's work for one call, so a call launches one kernel and nothing
+beside it: every kernel reads fp32 weights and the bf16 ones round them
+themselves (no cast kernel), dy comes in x's type as autograd hands it,
+no output is zero-filled (the kernels write every element), the plan is
+cached, and at W = 32 the backward is one cooperative launch where its
+grid is resident in one wave.  What the
+designs do about the latency (the sources' headers have the detail): a
+block owns a few batch rows and runs
 all T steps; every weight of the recurrence sits in a register for the whole
 launch; the work of a step that does not depend on the carried state (the
 input projection in A and B, the whole gate recompute in C) is done by
@@ -24,12 +30,14 @@ the recurrent one with the block's rows as the tile's N; the fp32 ones stay
 on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
-the width and the card's SM count, and handed to the C entry points: rows
-per block (1, 2 or 4 forward, 1 or 2 backward: the rows that finish the
-batch soonest, by the waves of blocks the card needs and the measured cost
-of a step of that many rows at that width, so B=128 takes 128 blocks of one
-row and B=512 128 blocks of four), the backward's scratch shapes and its dx
-and dW grids.
+the steps, the width and the card's SM count, cached per shape, and handed
+to the C entry points: rows per block (1, 2 or 4 forward, 1 or 2 backward:
+the rows that finish the batch soonest, by the waves of blocks the card
+needs and the measured cost of a step of that many rows at that width, so
+B=128 takes 128 blocks of one row and B=512 128 blocks of four), the
+backward's path (bwd_fused: one launch where the width is 32, T <= 64 and
+its blocks fit one wave; else four), its scratch shapes and its dx and dW
+grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -86,8 +95,9 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 
 # Launches of each instantiation since import (or since a caller zeroed
 # them); chip_smoke.py reads them to show that the main paths went through
-# the kernels.  A call counts once: a forward call is one launch, a backward
-# call four (the recurrence, dx, dW, the ordered sum).
+# the kernels.  A call counts once: a forward call is one launch; a
+# backward call is one launch on the fused path (W = 32 where the plan
+# takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
 launches = {instantiation(k, dt, w): 0
             for w in WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
 
@@ -119,6 +129,17 @@ DW_CHUNK_ROWS = 2048  # rows of the (B*T) axis per dW chunk where rows are many
 DW_MIN_CHUNK_ROWS = 64  # least rows per chunk where they are few (T = 50)
 DW_MAX_CHUNKS = 256
 DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
+# The fused backward (lstm_bwd.cu, lstm_bwd_fused_kernel): the widths it is
+# instantiated for, the most T the plan sends to it (its rows' da and
+# x_t | h_{t-1} stay in shared memory: 172.5 KB of the H100's 227 KB a block
+# at T = 64, fp32, two rows; the kernel asks the card's limit, and a longer
+# T fails at its launch), and the blocks an SM the plan counts on for its
+# one wave: the plan's step costs are measured at one block an SM (two
+# would share its instruction slots between two latency-bound recurrences),
+# and a cooperative launch refuses a grid that is not resident at once.
+FUSED_WIDTHS = (32,)
+FUSED_MAX_STEPS = 64
+FUSED_BLOCKS_PER_SM = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +151,7 @@ class LaunchPlan:
     fwd_blocks: int
     bwd_rows: int  # batch rows per block, kernel C's recurrent kernel
     bwd_blocks: int
+    bwd_fused: bool  # kernel C in one launch (its scratch: bwd_blocks partials of 4W*2W + 4W)
     n_chunks: int  # chunks of the (B*T) axis, kernel C's dW partials
     dx_blocks: int  # grid of kernel C's dx kernel (it strides over row tiles)
     da_shape: tuple[int, int, int]  # scratch: da in the operand type
@@ -155,15 +177,25 @@ def _check_width(width: int) -> None:
         raise ValueError(f"lstm kernels are compiled for widths {WIDTHS} (D = H), got {width}")
 
 
+@functools.lru_cache(maxsize=4096)
 def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
-                width: int) -> LaunchPlan:
-    """The plan of one call: pure, so the CPU tests reach it."""
+                width: int, bwd_rows: int | None = None) -> LaunchPlan:
+    """The plan of one call: pure, so the CPU tests reach it, and cached, so
+    a call looks its shape up.  bwd_rows overrides the backward's rows per
+    block (for tests and timing; the path follows from the blocks).  The
+    fused path counts on the whole card: sm_count SMs, each free to hold
+    one of its blocks.  Where the process has less (an MPS client with a
+    share of the SMs, another kernel resident), the cooperative launch
+    refuses the grid and the call raises."""
     if batch < 1 or steps < 1 or sm_count < 1:
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
     _check_width(width)
     mm = matmul_dtype(dtype)
     fwd_rows = _rows_per_block(batch, sm_count, FWD_STEP_COST[width, mm])
-    bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[width, mm])
+    if bwd_rows is None:
+        bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[width, mm])
+    elif bwd_rows not in BWD_ROWS:
+        raise ValueError(f"backward rows per block are {BWD_ROWS}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
     n_rows = batch * steps
     # Chunks of DW_CHUNK_ROWS, but enough for one dW block an SM while each
@@ -174,15 +206,22 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     return LaunchPlan(
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows),
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
+        bwd_fused=(width in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
+                   and bwd_blocks <= sm_count * FUSED_BLOCKS_PER_SM),
         n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
         da_shape=(batch, steps, 4 * width), da_dtype=mm,
         part_shape=(n_chunks, 4 * width, 2 * width), db_part_shape=(bwd_blocks, 4 * width),
     )
 
 
-def _plan_for(x: torch.Tensor) -> LaunchPlan:
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return launch_plan(x.shape[0], x.shape[1], x.dtype, sm_count, width=x.shape[2])
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _plan_for(x: torch.Tensor, bwd_rows: int | None = None) -> LaunchPlan:
+    bsz, t, width = x.shape
+    return launch_plan(bsz, t, x.dtype, _sm_count(x.device.index), width, bwd_rows)
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
@@ -195,7 +234,7 @@ def libraries() -> dict[str, ctypes.CDLL]:
         fwd, bwd = built["lstm_fwd"][0], built["lstm_bwd"][0]
         argtypes = {"lstm_fwd": [ptr] * 5 + [i, i, i, ptr],
                     "lstm_fwd_train": [ptr] * 6 + [i, i, i, ptr],
-                    "lstm_bwd": [ptr] * 14 + [i, i, i, i, i, ptr]}
+                    "lstm_bwd": [ptr] * 14 + [i] * 6 + [ptr]}
         for w in WIDTHS:
             for kernel in KERNELS:
                 for dt in (torch.float32, torch.bfloat16):
@@ -235,25 +274,38 @@ def _check_x_weights(x, w_ih, w_hh, b) -> int:
     return width
 
 
-def _check_stream(name, t, shape, dtype, device):
-    if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+def _check_stream(name, t, shape, dtypes, device):
+    if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != device:
         raise ValueError(
-            f"lstm kernel takes {name} {shape} {dtype} on {device}, "
+            f"lstm kernel takes {name} {shape} {' or '.join(map(str, dtypes))} on {device}, "
             f"got {tuple(t.shape)} {t.dtype} on {t.device}"
         )
     if not t.is_contiguous():
         raise ValueError(f"lstm kernel takes a contiguous {name}")
 
 
-def _operands(x, w_ih, w_hh, b):
-    mm = matmul_dtype(x.dtype)
-    return mm, w_ih.to(mm).contiguous(), w_hh.to(mm).contiguous(), b.to(torch.float32).contiguous()
+def _weight(w: torch.Tensor) -> torch.Tensor:
+    """w as every kernel reads it: fp32, contiguous and 8-byte aligned (the
+    bf16 kernels load two weights at once and round them to bf16
+    themselves).  The models' fp32 parameters pass as they are; a bf16
+    weight is widened (exactly), and a view at a 4-byte offset copied."""
+    w = w.to(torch.float32).contiguous()
+    return w if w.data_ptr() % 8 == 0 else w.clone()
+
+
+def _operands(w_ih, w_hh, b):
+    """(w_ih, w_hh, b) as the kernels read them: all fp32, the weights by
+    _weight."""
+    return _weight(w_ih), _weight(w_hh), b.to(torch.float32).contiguous()
 
 
 def _launch(lib_name: str, name: str, x: torch.Tensor, *args) -> None:
+    """One call of the C entry point awm_<name> on x's device and its
+    current stream (the raw handle, as Triton's launcher takes it: no
+    Stream object is built for a call)."""
     lib = libraries()[lib_name]
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"awm_{name}")(*args, torch.cuda.current_stream(x.device).cuda_stream)
+        err = getattr(lib, f"awm_{name}")(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.awm_cuda_error_string(err).decode()}")
     launches[name] += 1
@@ -267,8 +319,8 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None) -> torch.Tensor:
     y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
     if bsz == 0 or t == 0:
         return y
-    mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
-    _launch("lstm_fwd", instantiation("lstm_fwd", mm, width), x, x.data_ptr(), w_ih.data_ptr(),
+    w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    _launch("lstm_fwd", instantiation("lstm_fwd", x.dtype, width), x, x.data_ptr(), w_ih.data_ptr(),
             w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, rows or _plan_for(x).fwd_rows)
     return y
 
@@ -284,44 +336,50 @@ def forward_train_kernel(
     cprev = torch.empty(bsz, t, width, dtype=torch.float32, device=x.device)
     if bsz == 0 or t == 0:
         return y, cprev
-    mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
-    _launch("lstm_fwd", instantiation("lstm_fwd_train", mm, width), x, x.data_ptr(),
-            w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(), bsz, t,
-            rows or _plan_for(x).fwd_rows)
+    w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    _launch("lstm_fwd", instantiation("lstm_fwd_train", x.dtype, width), x, x.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(),
+            bsz, t, rows or _plan_for(x).fwd_rows)
     return y, cprev
 
 
 def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
-    y and cprev are forward_train_kernel's outputs, dy is fp32 (B, T, W).
-    Scratch, shaped by the plan: da (B, T, 4W) in the operand type, chunk
-    partials of dW, db per recurrent block.  rows overrides the plan's rows
-    per block of the recurrent kernel (for tests and timing)."""
+    y and cprev are forward_train_kernel's outputs, dy is (B, T, W) in x's
+    dtype (as autograd hands it to LSTMFunction.backward).  The outputs are not zero-filled: the kernels
+    write every element.  The plan picks the path: fused, one launch with
+    scratch for one dW and db partial per block; else four launches with
+    da (B, T, 4W) in the operand type, chunk partials of dW and db per
+    recurrent block.  rows overrides the plan's rows per block of the
+    recurrence (for tests and timing)."""
     width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     shape = (bsz, t, width)
-    _check_stream("y", y, shape, x.dtype, x.device)
-    _check_stream("cprev", cprev, shape, torch.float32, x.device)
-    _check_stream("dy", dy, shape, torch.float32, x.device)
+    _check_stream("y", y, shape, (x.dtype,), x.device)
+    _check_stream("cprev", cprev, shape, (torch.float32,), x.device)
+    _check_stream("dy", dy, shape, (x.dtype,), x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.zeros_like(x)
-    dw_ih, dw_hh = torch.zeros(4 * width, width, **f32), torch.zeros(4 * width, width, **f32)
-    db = torch.zeros(4 * width, **f32)
+    dx = torch.empty_like(x)
+    dw_ih, dw_hh = torch.empty(4 * width, width, **f32), torch.empty(4 * width, width, **f32)
+    db = torch.empty(4 * width, **f32)
     if bsz == 0 or t == 0:
-        return dx, dw_ih, dw_hh, db
-    mm, w_ih, w_hh, b = _operands(x, w_ih, w_hh, b)
-    plan = _plan_for(x)
-    if rows is not None:
-        plan = dataclasses.replace(plan, bwd_rows=rows, bwd_blocks=-(-bsz // rows),
-                                   db_part_shape=(-(-bsz // rows), 4 * width))
-    da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
-    part = torch.empty(plan.part_shape, **f32)
-    db_part = torch.empty(plan.db_part_shape, **f32)
-    _launch("lstm_bwd", instantiation("lstm_bwd", mm, width), x,
-            x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(), w_ih.data_ptr(),
-            w_hh.data_ptr(), b.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(),
-            db.data_ptr(), da.data_ptr(), part.data_ptr(), db_part.data_ptr(), bsz, t,
-            plan.bwd_rows, plan.n_chunks, plan.dx_blocks)
+        return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
+    w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    plan = _plan_for(x, rows)
+    if plan.bwd_fused:
+        da = db_part = None
+        part = torch.empty(plan.bwd_blocks, 4 * width * 2 * width + 4 * width, **f32)
+    else:
+        da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
+        part = torch.empty(plan.part_shape, **f32)
+        db_part = torch.empty(plan.db_part_shape, **f32)
+    _launch("lstm_bwd", instantiation("lstm_bwd", x.dtype, width), x,
+            x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+            dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(),
+            da.data_ptr() if da is not None else None, part.data_ptr(),
+            db_part.data_ptr() if db_part is not None else None, bsz, t,
+            plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(plan.bwd_fused))
     return dx, dw_ih, dw_hh, db
 
 
@@ -354,8 +412,9 @@ class LSTMFunction(torch.autograd.Function):
     _fused_fwd / _fused_bwd, awm_tpu/ops/pallas/lstm_kernel.py:438-461).
 
     Saved for the backward: x in its own dtype, y (which doubles as the
-    h_{t-1} history) and the fp32 c_{t-1} history.  The backward casts dy to
-    fp32 and returns each gradient in its primal's dtype: dx in x's (bf16
+    h_{t-1} history) and the fp32 c_{t-1} history.  The backward hands dy
+    on in x's dtype, as autograd gives it (y's; the plain version widens
+    it), and returns each gradient in its primal's dtype: dx in x's (bf16
     under mixed precision), the weight gradients in the weights' (fp32)."""
 
     @staticmethod
@@ -367,9 +426,7 @@ class LSTMFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, y, cprev, w_ih, w_hh, b = ctx.saved_tensors
-        dx, dw_ih, dw_hh, db = backward(
-            x, y, cprev, dy.to(torch.float32).contiguous(), w_ih, w_hh, b
-        )
+        dx, dw_ih, dw_hh, db = backward(x, y, cprev, dy.to(x.dtype).contiguous(), w_ih, w_hh, b)
         return dx.to(x.dtype), dw_ih.to(w_ih.dtype), dw_hh.to(w_hh.dtype), db.to(b.dtype)
 
 

@@ -265,6 +265,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="seeds of the opt-in 'variance' section")
     ap.add_argument("--torch-detector", default=None,
                     help="the reference's detector_best.pth for the 'cross' section")
+    ap.add_argument("--dec-loss", choices=("per_sample", "mean"), default=None,
+                    help="accepted as `train` takes it; ignored: eval computes no losses and "
+                         "reports bit accuracy under both decode rules")
     return ap.parse_args(argv)
 
 

@@ -24,8 +24,12 @@ instantiations over 50 steps a chunk.  Phases:
    shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
    LSTMFunction's gradients against autograd of the plain forward; then
    every width-32 instantiation at every rows variant, B in (1, 7, 128) by
-   T in (1, 2, 3, 37, 50, 800) and A at (512, 50), and two stacked
-   LSTMFunction layers' gradients at width 32;
+   T in (1, 2, 3, 37, 50, 800), A at (512, 50) and B=300 at T=50, C on both
+   of its paths (fused, one launch, where its blocks fit one wave; four
+   launches at T=800 and B=300), twice for equal bits; one call each of A,
+   B, fused C and four-launch C at T=50 from fp32 weights, by the
+   profiler's kernel list: its kernels and no cast, fill or memset; and
+   two stacked LSTMFunction layers' gradients at width 32;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -120,12 +124,13 @@ instantiations over 50 steps a chunk.  Phases:
    B=128 clean and under the curriculum, and the 12-attack sweep's wall time
    at n=128, per compute dtype, with the step's peak memory, a profile of
    one bf16 step's device time by kernel, and kernel C's time by launch
-   (recurrence, dx, dW, sum); the bf16 server under tools/serve_load.py's
+   (recurrence, dx, dW, sum; the fused kernel's one at width 32); the bf16 server under tools/serve_load.py's
    load (32 clients, 8-s requests): requests/s, audio s/s, clips/s beside
    the session's embed+detect clips/s, p50/p99 latency, chunks per device
    batch, with the host/device split of a request; the width-32 kernels at
    T=50 (A at B=512, B and C at B=128) beside their plain versions,
-   nn.LSTM(32) and the least time of 50 dependent steps; the strided
+   nn.LSTM(32) and the least time of 50 dependent steps, and C's four
+   launches at B=300; the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
    dtype, with peak memory and a profile of one bf16 step;
 17. print the {"kernels": [...]} line (12 instantiations), and last the
@@ -157,9 +162,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, B_TRAIN, T, ODD_B = 512, 128, 16000, 3
 # The strided family's two stacked LSTM(32) see T / (2 * 4 * 5 * 8) = 50 steps
 # a 1-s chunk.  Its kernel checks: B in (1, 7, 128) by T in (1, 2, 3, 37, 50,
-# 800), and A at the serving batch, every rows variant.
-W32, T32 = 32, 50
-W32_SHAPES = tuple((b, t) for b in (1, 7, B_TRAIN) for t in (1, 2, 3, 37, 50, 800)) + ((B_SERVE, T32),)
+# 800), A at the serving batch, and B=300 at T=50, a training batch whose
+# backward blocks do not fit one wave (150 blocks of two rows on 132 SMs),
+# every rows variant.  Kernel C takes its fused path (one launch) where T <=
+# 64 and its blocks fit one wave (launch_plan): here B in (1, 7, 128) at T
+# <= 50, at either rows variant; its four launches at T=800 and at B=300.
+W32, T32, B_WAVES = 32, 50, 300
+W32_SHAPES = (tuple((b, t) for b in (1, 7, B_TRAIN) for t in (1, 2, 3, 37, 50, 800))
+              + ((B_SERVE, T32), (B_WAVES, T32)))
 # (B, T) of the rows-per-block variant checks: one row, a ragged last block
 # for 2 and 4 rows, the training batch; T below, at and beyond the depth of
 # the kernels' rings (32 steps forward, 16 backward).
@@ -297,7 +307,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def lstm_inputs(b: int, dtype, device, seed: int, t: int = T, w: int = 64):
     """Seeded x (b, t, w), torch-layout weights at the scale of torch's
-    LSTM init, and an fp32 upstream gradient dy, made on the card."""
+    LSTM init, and an upstream gradient dy in x's dtype (as autograd hands
+    it to the backward), made on the card."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -305,7 +316,7 @@ def lstm_inputs(b: int, dtype, device, seed: int, t: int = T, w: int = 64):
     bound = 1.0 / w**0.5  # 1/sqrt(H)
     ws = [(torch.rand(*s, device=device, generator=g) * 2 - 1) * bound
           for s in ((4 * w, w), (4 * w, w), (4 * w,))]
-    dy = torch.randn(b, t, w, device=device, generator=g) * 0.1
+    dy = (torch.randn(b, t, w, device=device, generator=g) * 0.1).to(dtype)
     return x, ws[0], ws[1], 2 * ws[2], dy
 
 
@@ -313,18 +324,18 @@ def bound_ms(name: str, b: int, t: int = T) -> tuple[float, str]:
     """Least time for the call at the instantiation's width W = D = H: the
     larger of bytes / HBM rate and the matrix-product FLOPs / the peak rate
     of their type.  Each input read once, each output written once.
-    Forward: x, y (+ the fp32 c_{t-1} stream for B) and the weights; FLOPs
-    2 * B * T * 4H * (D + H).  Backward: x, y, c_{t-1}, dy in, dx and the
-    fp32 weight gradients out; FLOPs 2 * B * T * 4H * (2 (D + H) + D + H):
+    Forward: x, y (+ the fp32 c_{t-1} stream for B) and the fp32 weights;
+    FLOPs 2 * B * T * 4H * (D + H).  Backward: x, y, dy, the fp32 c_{t-1}
+    and weights in, dx and the fp32 weight gradients out; FLOPs 2 * B * T * 4H * (2 (D + H) + D + H):
     the gate recompute, dh, dx and both dW products, three times the
     forward's."""
     sfx, w = KERNELS[name].sfx, KERNELS[name].width
     elt = 2 if sfx == "bf16" else 4
     act, g = b * t * w, 4 * w
-    weights = 2 * g * w * elt + g * 4
+    weights = (2 * g * w + g) * 4
     fwd_flops = 2.0 * b * t * g * 2 * w
     if name.startswith("lstm_bwd"):
-        nbytes = act * (3 * elt + 2 * 4) + weights + (2 * g * w + g) * 4
+        nbytes = act * (4 * elt + 4) + weights + (2 * g * w + g) * 4
         flops = 3 * fwd_flops
     else:
         nbytes = act * 2 * elt + weights + (act * 4 if "train" in name else 0)
@@ -403,25 +414,69 @@ def profile_step(step, label: str) -> None:
             print(f"  {ms:9.2f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {key[:90]}", flush=True)
 
 
-def lstm_device_ms(call, reps: int = 50) -> float:
-    """Device ms of one call in the LSTM kernels alone, the mean over reps
-    calls: at T=50 a call's CUDA-event time is the host's (the wrapper's
-    allocations, casts and launch), the kernels' own time far less."""
+def kernel_means(call, reps: int) -> dict[str, float]:
+    """Device ms of each kernel of one call (each launched once a call), the
+    mean over the launches that a trace of reps calls holds: the profiler
+    drops a kernel of a window now and then, most often its first, so a
+    window's sum over reps would read low."""
     events, _ = device_kernels(lambda: [call() for _ in range(reps)])
-    return sum(ms for key, ms, _ in events if "lstm_" in key) / reps
+    return {key: ms / count for key, ms, count in events}
 
 
-def backward_split(call) -> dict[str, float]:
-    """Device ms of kernel C's four launches (recurrence, dx, dW, sum) in one
-    call.  The profiler now and then drops a kernel of a short window, so a
-    trace that misses one is taken again, three times at most."""
+def device_split(call, parts: dict[str, str], reps: int) -> dict[str, float | None]:
+    """Device ms of one call by part (a kernel-name fragment each), from
+    kernel_means over a trace of reps calls.  A trace that misses a part
+    altogether is taken again, three times at most; a part still missing is
+    None, "not measured", never 0."""
     for _ in range(3):
-        events, _ = device_kernels(call)
-        split = {part: sum(ms for key, ms, _ in events if f"lstm_bwd_{part}_" in key)
-                 for part in ("rec", "dx", "dw", "sum")}
-        if all(ms > 0 for ms in split.values()):
+        means = kernel_means(call, reps)
+        split = {part: sum(ms for key, ms in means.items() if frag in key) or None
+                 for part, frag in parts.items()}
+        if None not in split.values():
             break
     return split
+
+
+def lstm_device_ms(call, reps: int = 50) -> float | None:
+    """Device ms of one forward call in its LSTM kernel alone (at T=50 a
+    call's CUDA-event time is mostly the host's: the wrapper's checks,
+    allocations and launch), or None where three traces missed it."""
+    return device_split(call, {"fwd": "lstm_fwd_kernel"}, reps)["fwd"]
+
+
+BWD_PARTS = {True: ("fused",), False: ("rec", "dx", "dw", "sum")}  # kernel C's launches by path
+
+
+def backward_split(call, fused: bool, reps: int = 5) -> dict[str, float | None]:
+    """Device ms of kernel C in one call by launch: the fused path's one
+    kernel, or the four launches' (recurrence, dx, dW, sum), by
+    device_split (at T=50 a trace of a few calls can lose them all: take
+    50)."""
+    return device_split(call, {part: f"lstm_bwd_{part}_" for part in BWD_PARTS[fused]}, reps)
+
+
+def split_total(split: dict[str, float | None]) -> float | None:
+    """A call's device ms from its split: None unless every part was seen."""
+    return None if None in split.values() else sum(split.values())
+
+
+def fmt_ms(ms: float | None, digits: int = 4) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def launched_alone(call, want: tuple[str, ...]) -> tuple[bool, list[str]]:
+    """Whether one call runs exactly the kernels named by want (a name
+    fragment each, in any order) and no other device work: no cast, no
+    fill, no memset.  A trace the profiler has dropped a kernel from is
+    taken again, three times at most.  Returns (held, the kernels seen)."""
+    for _ in range(3):
+        events, _ = device_kernels(call)
+        seen = [key for key, _, count in events for _ in range(count)]
+        if len(seen) >= len(want):
+            break
+    held = len(seen) == len(want) and sorted(
+        next((i for i, w in enumerate(want) if w in key), -1) for key in seen) == list(range(len(want)))
+    return held, seen
 
 
 def train_cfg(compute_dtype: str):
@@ -1115,10 +1170,12 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
     from awm_tpu_torch.utils.precision import no_tf32
 
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         name, fname, bname = (K.instantiation(k, dtype, W32) for k in K.KERNELS)
         worst = {name: 0.0, fname: 0.0, bname: 0.0}
         rel, same = 0.0, True
+        paths = {True: set(), False: set()}  # (B, T) of the checks of C by path: fused, four launches
         for b, t in W32_SHAPES:
             x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=3000 + 10 * b + t, t=t, w=W32)
             with no_tf32():
@@ -1134,6 +1191,7 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
                     continue
                 ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                 for rows in (None, *K.BWD_ROWS):
+                    paths[K.launch_plan(b, t, dtype, sm_count, W32, rows).bwd_fused].add((b, t))
                     grads = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
                     again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
                     same &= all(torch.equal(g, g2) for g, g2 in zip(grads, again))
@@ -1149,7 +1207,26 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
         tol = KERNELS[bname].tol
         check(rel <= tol and same, f"{bname} vs plain, every rows variant, the same (B, T) but B={B_SERVE}: "
                                    f"max rel err {rel:.3e} (tol {tol:.0e}), two runs the same bits: {same}")
+        check((B_TRAIN, T32) in paths[True] and (B_WAVES, T32) in paths[False],
+              f"{bname} checked on both paths: fused (one launch) at (B, T) {sorted(paths[True])}; four "
+              f"launches at {sorted(paths[False])}")
         max_err[bname], max_rel[bname] = worst[bname], rel
+
+        # one call, one kernel: no cast, fill or memset beside it (fp32 weights,
+        # dy in x's type, as the bf16 train step hands them over)
+        for b, kernel, want in ((B_SERVE, "lstm_fwd", ("lstm_fwd_kernel",)),
+                                (B_TRAIN, "lstm_fwd_train", ("lstm_fwd_kernel",)),
+                                (B_TRAIN, "lstm_bwd", ("lstm_bwd_fused_kernel",)),
+                                (B_WAVES, "lstm_bwd", ("lstm_bwd_rec_", "lstm_bwd_dx_", "lstm_bwd_dw_",
+                                                       "lstm_bwd_sum_"))):
+            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=4000 + b, t=T32, w=W32)
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            call = {"lstm_fwd": lambda: K.forward_kernel(x, w_ih, w_hh, bias),
+                    "lstm_fwd_train": lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
+                    "lstm_bwd": lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)}[kernel]
+            held, seen = launched_alone(call, want)
+            check(held, f"{K.instantiation(kernel, dtype, W32)} B={b} T={T32}, fp32 weights: one call "
+                        f"launches {len(want)} kernel(s) and nothing else: {seen}")
 
         # two stacked layers, as the strided generator runs them
         x, *w0, _ = lstm_inputs(ODD_B, dtype, dev, seed=41, t=T32, w=W32)
@@ -2243,7 +2320,7 @@ def main() -> int:
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=3)
             b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=3)
-            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), fused=False)
             f_plain = cuda_ms(lambda: lstm_forward_train(x, w_ih, w_hh, bias), reps=1, warmup=0)
             b_plain = cuda_ms(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias), reps=1, warmup=0)
             m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
@@ -2251,7 +2328,7 @@ def main() -> int:
             f_lib = yardstick(lambda: cuda_ms(lambda: m(xg), reps=3), f"nn.LSTM {sfx} forward")
             ylib = m(xg)[0]
             b_lib = yardstick(lambda: cuda_ms(lambda: torch.autograd.grad(
-                ylib, [xg, *m.parameters()], dy.to(dtype), retain_graph=True), reps=3),
+                ylib, [xg, *m.parameters()], dy, retain_graph=True), reps=3),
                 f"nn.LSTM {sfx} backward")
         for name, k_ms, p_ms, lib in ((fname, f_ms, f_plain, f_lib), (bname, b_ms, b_plain, b_lib)):
             bms, by = bound_ms(name, B_TRAIN)
@@ -2261,8 +2338,8 @@ def main() -> int:
                   f"cuDNN nn.LSTM {'forward' if 'fwd' in name else 'backward'} {lib} ms, "
                   f"bound {bms:.3f} ms ({by})", flush=True)
         times[bname]["split_ms"] = split
-        print(f"{bname} by launch: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
-              + ("" if all(v > 0 for v in split.values()) else " (0: the profiler dropped that kernel)"),
+        print(f"{bname} by launch: " + ", ".join(f"{k} {fmt_ms(v, 3)}" for k, v in split.items())
+              + ("" if None not in split.values() else " (not measured: the profiler dropped that kernel)"),
               flush=True)
         both = None if f_lib is None or b_lib is None else f_lib + b_lib
         print(f"nn.LSTM {sfx} forward + backward B={B_TRAIN}: {both} ms; "
@@ -2288,7 +2365,9 @@ def main() -> int:
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=200, warmup=20)
             b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=200, warmup=20)
-            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+            fused = K.launch_plan(B_TRAIN, T32, dtype, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  W32).bwd_fused
+            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), fused, reps=50)
             f_plain = cuda_ms(lambda: lstm_forward_train(x, w_ih, w_hh, bias), reps=5)
             b_plain = cuda_ms(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias), reps=5)
             m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
@@ -2296,22 +2375,32 @@ def main() -> int:
             f_lib = yardstick(lambda: cuda_ms(lambda: m(xg), reps=200, warmup=20), f"nn.LSTM {sfx} w32 forward")
             ylib = m(xg)[0]
             b_lib = yardstick(lambda: cuda_ms(lambda: torch.autograd.grad(
-                ylib, [xg, *m.parameters()], dy.to(dtype), retain_graph=True), reps=200, warmup=20),
+                ylib, [xg, *m.parameters()], dy, retain_graph=True), reps=200, warmup=20),
                 f"nn.LSTM {sfx} w32 backward")
             dev_ms[fname] = lstm_device_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias))
-            dev_ms[bname] = lstm_device_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+            dev_ms[bname] = split_total(split)
         for n, b, k_ms, p_ms, lib in ((name, B_SERVE, ms, plain_ms, library_ms), (fname, B_TRAIN, f_ms, f_plain, f_lib),
                                       (bname, B_TRAIN, b_ms, b_plain, b_lib)):
             bms, by = bound_ms(n, b, T32)
             lat = latency_bound_ms(T32, W32, clock_mhz)
             times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib,
                         "device_ms": dev_ms[n]}
-            print(f"{n} B={b} T={T32}: kernel {k_ms:.4f} ms a call ({dev_ms[n]:.4f} ms of it on the device), plain "
+            print(f"{n} B={b} T={T32}: kernel {k_ms:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the device), plain "
                   f"{p_ms:.2f} ms, cuDNN nn.LSTM(32) {lib} ms, bound {bms:.5f} ms ({by}), {T32} dependent "
                   f"steps >= {lat:.5f} ms at {clock_mhz:.0f} MHz", flush=True)
         times[bname]["split_ms"] = split
-        print(f"{bname} by launch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
+        print(f"{bname} by launch: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in split.items()), flush=True)
         del x, y, cprev, dy, m, xg, ylib
+        # the four-launch path, where the blocks do not fit one wave
+        x, w_ih, w_hh, bias, dy = lstm_inputs(B_WAVES, dtype, dev, seed=19, t=T32, w=W32)
+        with no_tf32():
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=200, warmup=20)
+            split = backward_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), False, reps=50)
+        times[bname]["four_launches_B300"] = {"ms": b_ms, "split_ms": split}
+        print(f"{bname} B={B_WAVES} T={T32} (four launches): kernel {b_ms:.4f} ms a call, by launch "
+              + ", ".join(f"{k} {fmt_ms(v)}" for k, v in split.items()), flush=True)
+        del x, y, cprev, dy
         torch.cuda.empty_cache()
 
     clips = {}

@@ -329,6 +329,25 @@ def test_drill_command_parses(argv):
         assert (args.ckpt, args.sections, args.n_eval, args.device) == ("/d/run/ckpt_best", "quality", 64, "cuda")
 
 
+def test_demo_eval_takes_dec_loss_and_ignores_it():
+    """The JAX tool accepts --dec-loss and ignores it (tools/demo_eval.py:246-249):
+    the r5 record's flagship demo_eval line (tools/r5_run.sh) with the
+    record's own --dec-loss (its COMMON training flags) parses in the port's
+    tool, and the flag changes nothing else."""
+    with open(os.path.join(REPO, "tools", "r5_run.sh")) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if "tools/demo_eval.py" in ln and "variance" in ln)
+    argv = shlex.split(line.split("tools/demo_eval.py", 1)[1].split(">")[0])
+    dec_loss = shlex.split(text.split("COMMON=", 1)[1].splitlines()[0].strip('"'))
+    dec_loss = dec_loss[dec_loss.index("--dec-loss"):][:2]
+    assert dec_loss == ["--dec-loss", "mean"]
+    plain, given = demo_eval.parse_args(argv), demo_eval.parse_args(argv + dec_loss)
+    assert given.sections == "quality,robust,ecc,music,cross,variance" and given.dec_loss == "mean"
+    assert vars(plain) == {**vars(given), "dec_loss": None}
+    with pytest.raises(SystemExit):
+        demo_eval.parse_args(argv + ["--dec-loss", "sum"])
+
+
 def test_drill_is_the_ports():
     """Seven stages through the port; nothing of the JAX package."""
     with open(DRILL) as f:

@@ -4,8 +4,14 @@ copy, built by its own data/native.py) against the JAX package's native
 decoder and the Python decode, file type by file type; BatchLoader's native
 path.  Exact (bit for bit) unless a test says otherwise."""
 
+import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -19,8 +25,48 @@ from awm_tpu_torch.data import (BatchLoader, ConcatClips, OneSecClips, Synthetic
 from awm_tpu_torch.data import native
 from awm_tpu_torch.utils.audio_io import load_audio, resample, save_wav, to_mono
 
-needs_native = pytest.mark.skipif(not (native.available() and jax_native.available()),
-                                  reason="native WAV decoder not built (no g++?)")
+def _jax_loader_error() -> str:
+    """Why the JAX package's loader returned no library: its dlopen error,
+    or g++'s where the file is missing (the loader swallows both)."""
+    if os.path.exists(jax_native._LIB):
+        try:
+            ctypes.CDLL(jax_native._LIB)
+        except OSError as e:
+            return f"dlopen {jax_native._LIB}: {e}"
+        return f"{jax_native._LIB} loads here, yet the loader returned none"
+    run = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", jax_native._SRC,
+                          "-o", os.devnull], capture_output=True, text=True)
+    return f"{jax_native._LIB} missing; g++ exit {run.returncode}: {run.stderr[-2000:]}"
+
+
+@pytest.fixture
+def needs_native():
+    """Both native decoders loaded, decided when the test runs, never at
+    import.  Under several test workers every worker imports this file and
+    tests/test_native.py while collecting, and the JAX package's loader
+    (awm_tpu/data/native.py) has g++ write straight to its one library path
+    with no lock between processes, then caches a failed load for the life
+    of the process: a worker that opened a half-written library would skip
+    these tests.  So the check holds a file lock shared by the workers,
+    and where the JAX loader has no library it forgets that and loads once
+    more (every worker has finished collecting by now, so any build begun
+    then is complete).  It skips only where there is no g++; with g++ and
+    still no library it fails with the loader's error."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native WAV decoders cannot be built")
+    tag = hashlib.sha256(jax_native._LIB.encode()).hexdigest()[:12]
+    with open(os.path.join(tempfile.gettempdir(), f"awm_native_decoder_{tag}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not jax_native.available():
+                with jax_native._lock:
+                    jax_native._lib, jax_native._tried = None, False
+                if not jax_native.available():
+                    pytest.fail(f"the JAX package's native WAV decoder did not load: {_jax_loader_error()}")
+            if not native.available():
+                pytest.fail(f"the port's native WAV decoder did not load ({native.library_path()})")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 @pytest.mark.parametrize("seed,audio_len", [(1, 800), (7, 16000)])
@@ -87,9 +133,8 @@ def wav_dir(tmp_path_factory):
     return d
 
 
-@needs_native
 @pytest.mark.parametrize("name", [*WAV_KINDS, "truncated_data", "truncated_header"])
-def test_native_decoder_equals_jax_native_and_python(wav_dir, name):
+def test_native_decoder_equals_jax_native_and_python(needs_native, wav_dir, name):
     """One file per call, clip length 16000 at 16 kHz: the port's decoder
     equals the JAX package's native decoder bit for bit (ok flag included);
     at the target rate it also equals the Python decode (mono mix, cut or
@@ -118,8 +163,7 @@ def test_native_decoder_equals_jax_native_and_python(wav_dir, name):
         assert not got[0][n + 20:].any()
 
 
-@needs_native
-def test_batch_loader_native_path(wav_dir):
+def test_batch_loader_native_path(needs_native, wav_dir):
     """BatchLoader over the folder decodes through the native decoder (one
     C call a batch) and gives the Python decode's batch bit for bit on the
     16 kHz files; the unreadable file falls back to Python, which counts it

@@ -123,7 +123,7 @@ def test_backward_kernel_matches_plain(cuda, dtype, tol, b, t):
     x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=3)
     x = x.to(dtype)
     y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
-    dy = torch.randn(b, t, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    dy = torch.randn(b, t, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
     got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
     again = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
     torch.cuda.synchronize()
@@ -167,7 +167,7 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
 
     x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=9, w=32)
     x = x.to(dtype)
-    dy = torch.randn(b, t, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(10))
+    dy = torch.randn(b, t, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(10)).to(dtype)
     with no_tf32():
         ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
@@ -191,6 +191,34 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
             assert torch.equal(a, a2), name
     n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS), 2 * len(lstm_kernel.BWD_ROWS)
     assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,fused", [(128, True), (300, False)], ids=["fused", "four"])
+def test_width32_call_launches_its_kernels_alone(cuda, b, fused, dtype):
+    """A width-32 call at T=50 from fp32 weights and a dy in x's type runs
+    its kernels and nothing beside them (no cast, no fill): A and B one
+    kernel each, C one where the plan fuses it (B=128, one wave) and four
+    where it does not (B=300), by torch.profiler's kernel list."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=11, w=32)
+    x = x.to(dtype)
+    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    dy = torch.randn(b, 50, 32, device=cuda).to(dtype)
+    assert lstm_kernel.launch_plan(b, 50, dtype, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                                   32).bwd_fused == fused
+    for call, n_kernels in ((lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), 1),
+                            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias), 1),
+                            (lambda: lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
+                             1 if fused else 4)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == n_kernels and all("lstm_" in e.name for e in kernels), [e.name for e in kernels]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)], ids=["f32", "bf16"])
@@ -260,7 +288,7 @@ def test_backward_kernel_every_rows_variant(cuda, b, t, rows, dtype, tol):
 
     x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=7)
     x = x.to(dtype)
-    dy = torch.randn(b, t, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    dy = torch.randn(b, t, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(8)).to(dtype)
     with no_tf32():
         y, cprev = lstm_forward_train(x, w_ih, w_hh, bias)
         ref = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)

@@ -115,6 +115,99 @@ def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
             launch_plan(4, 10, torch.float32, 132, width=width)
 
 
+# The width-64 main shapes' plans as they stood before the fused backward
+# (the base family at T=16000: B=3 the odd batch of chip_smoke.py, B=8 the
+# curriculum's, B=16 the trainer's, B=128 training, B=512 serving):
+# (fwd_rows, fwd_blocks, bwd_rows, bwd_blocks, n_chunks, dx_blocks, part_shape, db_part_shape).
+W64_PLANS = {
+    (torch.float32, 3): (1, 3, 1, 3, 132, 264, (132, 256, 128), (3, 256)),
+    (torch.float32, 8): (1, 8, 1, 8, 132, 264, (132, 256, 128), (8, 256)),
+    (torch.float32, 16): (1, 16, 1, 16, 132, 264, (132, 256, 128), (16, 256)),
+    (torch.float32, 128): (1, 128, 1, 128, 256, 264, (256, 256, 128), (128, 256)),
+    (torch.float32, 512): (4, 128, 1, 512, 256, 264, (256, 256, 128), (512, 256)),
+    (torch.bfloat16, 3): (1, 3, 1, 3, 132, 264, (132, 256, 128), (3, 256)),
+    (torch.bfloat16, 8): (1, 8, 1, 8, 132, 264, (132, 256, 128), (8, 256)),
+    (torch.bfloat16, 16): (1, 16, 1, 16, 132, 264, (132, 256, 128), (16, 256)),
+    (torch.bfloat16, 128): (1, 128, 1, 128, 256, 264, (256, 256, 128), (128, 256)),
+    (torch.bfloat16, 512): (4, 128, 2, 256, 256, 264, (256, 256, 128), (256, 256)),
+}
+
+
+@pytest.mark.parametrize("dtype,batch", list(W64_PLANS), ids=lambda v: str(v).replace("torch.", ""))
+def test_plan_width64_main_shapes_unchanged(dtype, batch):
+    """At width 64 the plan is what it was: four launches, the same rows,
+    chunks, grids and scratch."""
+    plan = launch_plan(batch, 16000, dtype, 132, width=64)
+    assert not plan.bwd_fused
+    assert (plan.fwd_rows, plan.fwd_blocks, plan.bwd_rows, plan.bwd_blocks, plan.n_chunks,
+            plan.dx_blocks, plan.part_shape, plan.db_part_shape) == W64_PLANS[dtype, batch]
+    assert plan.da_shape == (batch, 16000, 256) and plan.da_dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plan_fuses_the_strided_backward_in_one_wave(dtype):
+    """Width 32 at T=50 on 132 SMs: the training batch B=128 (128 blocks of
+    one row) and B=256 (128 blocks of two) fit one wave and take the fused
+    backward; B=300 (150 blocks of two) and B=1024 (512 of two) do not and
+    take the four launches, as does T beyond the fused kernel's 64 steps."""
+    fused = lambda b, t=50, sm=132: launch_plan(b, t, dtype, sm, width=32).bwd_fused
+    assert fused(128) and fused(256) and fused(1) and fused(7)
+    assert launch_plan(256, 50, dtype, 132, width=32).bwd_rows == 2
+    assert not fused(300) and not fused(1024)
+    assert fused(128, t=lstm_kernel.FUSED_MAX_STEPS) and not fused(128, t=lstm_kernel.FUSED_MAX_STEPS + 1)
+    assert not fused(7, t=800)
+    assert fused(1, sm=1) and not fused(3, sm=1)
+
+
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("sm_count", [1, 8, 132])
+def test_plan_fuses_exactly_where_blocks_fit_one_wave(width, sm_count):
+    """The fused backward where, and only where, the width has it, T is at
+    most FUSED_MAX_STEPS and the blocks fit one wave at the occupancy the
+    plan counts on; a rows override moves the blocks and so the path."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in BATCHES + [256, 264, 265, 300, 1024]:
+            for steps in (1, 50, 64, 65, 800):
+                for rows in (None, *lstm_kernel.BWD_ROWS):
+                    plan = launch_plan(batch, steps, dtype, sm_count, width, rows)
+                    assert plan.bwd_rows == (rows or plan.bwd_rows)
+                    assert plan.bwd_blocks == -(-batch // plan.bwd_rows)
+                    want = (width in lstm_kernel.FUSED_WIDTHS and steps <= lstm_kernel.FUSED_MAX_STEPS
+                            and plan.bwd_blocks <= sm_count * lstm_kernel.FUSED_BLOCKS_PER_SM)
+                    assert plan.bwd_fused == want, (dtype, batch, steps, rows)
+    with pytest.raises(ValueError, match="rows"):
+        launch_plan(4, 50, torch.float32, 132, width, 4)
+
+
+def test_cached_plan_equals_a_fresh_one():
+    """launch_plan is cached per shape: the cached plan equals one computed
+    afresh, and a second call returns the same object without computing."""
+    for args in ((128, 50, torch.bfloat16, 132, 32), (300, 50, torch.float32, 132, 32),
+                 (512, 16000, torch.bfloat16, 132, 64), (7, 3, torch.float32, 132, 32, 2)):
+        fresh = launch_plan.__wrapped__(*args)
+        assert launch_plan(*args) == fresh
+        hits = launch_plan.cache_info().hits
+        assert launch_plan(*args) is launch_plan(*args)
+        assert launch_plan.cache_info().hits == hits + 2
+
+
+@pytest.mark.parametrize("case", ["fp32", "offset_view", "bf16", "transposed"])
+def test_weights_reach_the_kernels_fp32_and_aligned(case):
+    """Every kernel reads fp32, contiguous, 8-byte aligned weights (the bf16
+    ones load two at once and round them themselves): a model's fp32
+    parameter passes as it is, a view at a 4-byte offset is copied, a bf16
+    weight is widened exactly, a transposed one made contiguous."""
+    base = torch.randn(128 * 32 + 1, generator=torch.Generator().manual_seed(0))
+    w = {"fp32": base[:4096].view(128, 32), "offset_view": base[1:].view(128, 32),
+         "bf16": base[:4096].view(128, 32).to(torch.bfloat16),
+         "transposed": base[:4096].view(32, 128).t()}[case]
+    got = lstm_kernel._weight(w)
+    assert got.dtype == torch.float32 and got.is_contiguous() and got.data_ptr() % 8 == 0
+    assert torch.equal(got, w.float())
+    assert (got.data_ptr() == w.data_ptr()) == (case == "fp32")
+    assert case != "offset_view" or w.data_ptr() % 8 == 4
+
+
 def _case(rng, b, t, w=64):
     x = (rng.standard_normal((b, t, w)) * 0.3).astype(np.float32)
     w_ih = (rng.standard_normal((4 * w, w)) * 0.1).astype(np.float32)

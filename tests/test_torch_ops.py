@@ -14,10 +14,12 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from awm_tpu.ops.conv import conv1d as jconv1d, conv_transpose1d as jconv_t
+from awm_tpu.ops import lstm_cell as jlstm_cell, lstm_stack as jlstm_stack
 from awm_tpu.ops.lstm import lstm_forward as jlstm
 from awm_tpu.ops.pallas.lstm_kernel import lstm_pallas_forward
 
-from awm_tpu_torch.ops import conv1d, conv_transpose1d, lstm_forward, lstm_fused_forward
+from awm_tpu_torch.ops import (conv1d, conv_transpose1d, lstm_cell, lstm_forward, lstm_fused_forward,
+                               lstm_stack)
 from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
 from awm_tpu_torch.ops import lstm_kernel
 
@@ -44,6 +46,34 @@ def test_plain_lstm_matches_jax_scan(rng, b, t, d, h):
     out = lstm_forward(*_t(x, w_ih, w_hh, bias))
     assert out.dtype == torch.float32 and out.shape == (b, t, h)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("w", [64, 32])
+def test_lstm_cell_matches_jax(rng, w):
+    """One step over pre-projected gates, B=3, at both widths: fp32 at 1e-5
+    (the h product's summation order)."""
+    xp = (rng.standard_normal((3, 4 * w)) * 0.5).astype(np.float32)
+    h = (rng.standard_normal((3, w)) * 0.5).astype(np.float32)
+    c = (rng.standard_normal((3, w)) * 0.5).astype(np.float32)
+    w_hh = (rng.standard_normal((4 * w, w)) * 0.1).astype(np.float32)
+    ref_h, ref_c = jlstm_cell(*map(jnp.asarray, (xp, h, c, w_hh)))
+    got_h, got_c = lstm_cell(*_t(xp, h, c, w_hh))
+    assert got_h.dtype == torch.float32 and got_h.shape == got_c.shape == (3, w)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(ref_h), atol=1e-5)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), atol=1e-5)
+
+
+@pytest.mark.parametrize("w,t", [(64, 64), (32, 50)], ids=["64", "32"])
+def test_lstm_stack_matches_jax(rng, w, t):
+    """Two stacked layers (main14b_2's depth) as a tuple of {w_ih, w_hh, b},
+    B=2: fp32 at 1e-5 (summation order over T <= 64 steps)."""
+    x = _lstm_inputs(rng, 2, t, w, w)[0]
+    layers = [dict(zip(("w_ih", "w_hh", "b"), _lstm_inputs(rng, 1, 1, w, w)[1:])) for _ in range(2)]
+    ref = jlstm_stack(jnp.asarray(x), tuple({k: jnp.asarray(v) for k, v in p.items()} for p in layers))
+    got = lstm_stack(torch.from_numpy(x), tuple({k: torch.from_numpy(v) for k, v in p.items()}
+                                                for p in layers))
+    assert got.dtype == torch.float32 and got.shape == (2, t, w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
 # (width, T): the base family's LSTM(64) and the strided family's LSTM(32)
