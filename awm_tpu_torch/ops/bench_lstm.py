@@ -5,7 +5,7 @@ paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 stacked LSTMs, T=50; --steps overrides T; --batch times all three at one
 other batch, e.g. the curriculum's B=8).
 
-    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T] [--batch B]
+    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
                                             [--variants] [--check] [--only NAME]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
@@ -16,15 +16,23 @@ forward_train_kernel, backward_kernel); a checkout without width-32 kernels
 takes --width 64 only.  --variants also times each rows-per-block variant
 the checkout's launch plan can choose (a checkout without a plan has none).
 --check first holds every kernel against its plain version at B in (1, 7,
-128) and T in (1, 2, 3, 37, 50, 800) with every rows variant, prints each
-error beside its tolerance and ptxas's report, and exits 1 if any error is
-above it.  The backward's launches are also timed apart, from a
+128) and T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800) with every rows
+variant (A and B on both paths where the checkout has the forward's short
+path and T is within its bound, with the same bits on both), prints each
+error beside its tolerance and ptxas's report, and exits 1 if
+any error is above it.  The backward's launches are also timed apart, from a
 torch.profiler trace of one call (one on the fused path at width 32, four
 otherwise).  Prints one JSON object per line: {"tree",
 "card", "kernel", "width", "steps", "batch", "rows", "ms"}; times are CUDA
 events over --reps launches after a warm-up, and with --variants also
 "device_ms": the kernels' own device time per call from torch.profiler
-(over min(--reps, 50) calls).  Without a card it exits 1.
+(over min(--reps, 50) calls).  --steps with more than one T (e.g.
+--width 32 --steps 1,2,8,16,32,50,64) adds "device_ms" to every line and
+then prints, for each kernel and rows variant, one line {"tree", "card",
+"kernel", "width", "batch", "rows", "steps", "device_ms", "fixed_ms",
+"step_ms"}: the least-squares fit of device ms = fixed + T x step over the
+T whose device ms was measured, what a short call costs before its steps
+and what each step adds.  Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ import subprocess
 import sys
 
 STEPS = {64: 16000, 32: 50}  # the main paths' T at each width
-CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 37, 50, 800)
+# --check's shapes: T around the ring's 16-step chunks and the short path's
+# bound (64 at width 32).
+CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -92,6 +102,19 @@ def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64):
     return x, w[0], w[1], 2 * w[2], dy
 
 
+def fit_line(ts, ms) -> tuple[float, float] | tuple[None, None]:
+    """(fixed, step) of the least-squares line ms = fixed + t x step over
+    the pairs whose ms was measured (not None); (None, None) where fewer
+    than two distinct t remain."""
+    pts = [(t, m) for t, m in zip(ts, ms) if m is not None]
+    n = len(pts)
+    if len({t for t, _ in pts}) < 2:
+        return None, None
+    mt, mm = sum(t for t, _ in pts) / n, sum(m for _, m in pts) / n
+    step = sum((t - mt) * (m - mm) for t, m in pts) / sum((t - mt) ** 2 for t, _ in pts)
+    return mm - step * mt, step
+
+
 def kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias):
     """dy as the checkout's kernel C takes it: in x's dtype, as autograd
     hands it over, or fp32 in a checkout from before that (its kernel C
@@ -108,7 +131,8 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tree", default=here)
     ap.add_argument("--width", type=int, default=64, choices=sorted(STEPS))
-    ap.add_argument("--steps", type=int, default=None, help="T (default: the width's main path)")
+    ap.add_argument("--steps", type=lambda v: [int(t) for t in v.split(",")], default=None,
+                    help="T, or a comma-separated list of T to fit (default: the width's main path)")
     ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--check", action="store_true")
@@ -116,7 +140,7 @@ def main() -> int:
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
-    width, steps = args.width, args.steps or STEPS[args.width]
+    width, sweep = args.width, args.steps or [STEPS[args.width]]
     b_serve, b_train = (args.batch, args.batch) if args.batch else (512, 128)
     sys.path[0] = tree  # in place of this script's own directory
 
@@ -137,6 +161,7 @@ def main() -> int:
     bwd_rows = getattr(K, "BWD_ROWS", (None,)) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)
+    has_short = hasattr(K, "FWD_SHORT_MAX_STEPS")
     kw = lambda rows: {} if rows is None else {"rows": rows}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -155,10 +180,18 @@ def main() -> int:
                     ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                     dy = kernel_dy(K, x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     err_a = err_b = 0.0
+                    same = True  # the short path gives the ring path's bits
+                    paths = (False, True) if has_short and width == 32 and t <= K.FWD_SHORT_MAX_STEPS else (None,)
                     for rows in fwd_rows:
-                        y0 = K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
-                        y, c = K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
-                        err_a, err_b = max(err_a, err(y0, ref_y)), max(err_b, err(y, ref_y), err(c, ref_c))
+                        got = {}
+                        for short in paths:
+                            pk = {} if short is None else {"short": short}
+                            y0 = K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows), **pk)
+                            y, c = K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows), **pk)
+                            err_a, err_b = max(err_a, err(y0, ref_y)), max(err_b, err(y, ref_y), err(c, ref_c))
+                            got[short] = (y0, y, c)
+                        if len(got) == 2:
+                            same &= all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
                     ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     rel = 0.0
                     for rows in bwd_rows:
@@ -166,45 +199,57 @@ def main() -> int:
                         rel = max(rel, *(err(g, r) / (float(r.float().abs().max()) + 1e-12)
                                          for g, r in zip(got, ref_g)))
                     torch.cuda.synchronize()
-                    bad = err_a > tol_a or err_b > tol_b or rel > tol_c
+                    bad = err_a > tol_a or err_b > tol_b or rel > tol_c or not same
                     failed += bad
                     print(f"check{' FAIL' if bad else ''} {sfx} W={width} B={b} T={t} rows {fwd_rows} / "
                           f"{bwd_rows}: A max abs {err_a:.3e} (tol {tol_a:.0e}), B {err_b:.3e} (tol "
-                          f"{tol_b:.0e}); C max rel {rel:.3e} (tol {tol_c:.0e})", flush=True)
+                          f"{tol_b:.0e}); C max rel {rel:.3e} (tol {tol_c:.0e})"
+                          + (f"; the short path gives the ring's bits: {same}"
+                             if len(paths) == 2 else ""),
+                          flush=True)
+
+    swept = {}  # (kernel, batch, rows) -> {T: device ms}, for the fit
 
     def report(kernel, batch, rows, ms, fn=None):
         line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
                 "batch": batch, "rows": rows, "ms": ms}
-        if fn is not None and args.variants:
+        if fn is not None and (args.variants or len(sweep) > 1):
             line["device_ms"] = device_ms(torch, fn, min(args.reps, 50))
+            swept.setdefault((kernel, batch, rows), {})[steps] = line["device_ms"]
         print(json.dumps(line), flush=True)
 
     want = lambda name: args.only in name
-    for sfx, dtype in dtypes.items():
-        fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
-        x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
-        for rows in fwd_rows if want(fwd) else ():
-            fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
-            report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn)
-        del x
-        x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
-        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
-        dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
-        for rows in fwd_rows if want(fwd_train) else ():
-            fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
-            report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
-        if not want(bwd):
-            continue
-        for rows in bwd_rows:
-            fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
-            report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
-        split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
-        for key, ms in split.items():
-            if "lstm_bwd" in key:
-                short = key[key.index("lstm_bwd"):].split("(")[0]
-                report(f"{bwd}:{short}", b_train, None, ms)
-        del x, y, cprev, dy
-        torch.cuda.empty_cache()
+    for steps in sweep:
+        for sfx, dtype in dtypes.items():
+            fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
+            x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
+            for rows in fwd_rows if want(fwd) else ():
+                fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
+                report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn)
+            del x
+            x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
+            for rows in fwd_rows if want(fwd_train) else ():
+                fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
+                report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
+            if want(bwd):
+                for rows in bwd_rows:
+                    fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
+                    report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
+                split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
+                for key, ms in split.items():
+                    if "lstm_bwd" in key:
+                        short = key[key.index("lstm_bwd"):].split("(")[0]
+                        report(f"{bwd}:{short}", b_train, None, ms)
+            del x, y, cprev, dy
+            torch.cuda.empty_cache()
+    if len(sweep) > 1:
+        for (kernel, batch, rows), by_t in swept.items():
+            fixed, step = fit_line(list(by_t), list(by_t.values()))
+            print(json.dumps({"tree": tree, "card": card, "kernel": kernel, "width": width, "batch": batch,
+                              "rows": rows, "steps": list(by_t), "device_ms": list(by_t.values()),
+                              "fixed_ms": fixed, "step_ms": step}), flush=True)
     if failed:
         print(f"bench_lstm: {failed} check(s) above tolerance", file=sys.stderr)
     return 1 if failed else 0

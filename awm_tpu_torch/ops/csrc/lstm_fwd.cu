@@ -20,7 +20,7 @@
 // time is the latency of one step times T, not bytes or FLOPs (the whole
 // call's bound is a few ms at most at T = 16000).  At T = 50 a launch's
 // fixed cost (the weights into registers, the producers' first chunk) is a
-// large part of the time as well.  A step's
+// part of the time as well: there width 32 takes the short path below.  A step's
 // latency is its dependent chain: read h, the products, two shuffle
 // exchanges, the gate activations, the cell update and tanh c, write h, one
 // barrier; and a warp runs its instructions in order, so whatever else the
@@ -284,14 +284,314 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   }
 }
 
+// ---- The short path: W = 32, T <= SHORT_MAX_STEPS (the plan's FWD_SHORT_MAX_STEPS) ----
+//
+// At the strided family's T = 50 the ring path's launch takes about 4 us
+// before its first step and 0.26 us a step (bf16, B=512, H100; the T-sweep
+// of ops/bench_lstm.py --steps): the steps are three quarters of it.  This
+// kernel has no ring:
+// - one thread copies the block's whole x (its R rows are one contiguous
+//   span of R T W elements) into shared memory with one TMA bulk copy
+//   (cp.async.bulk, completion on an mbarrier), issued before any weight
+//   load, so the latencies overlap; a ragged last block copies its rows and
+//   zero-fills the rest;
+// - all 8 warps project every step, xp = x . W_ih + b, into shared memory
+//   before the first step (bf16 on the tensor cores as the ring's producers
+//   do, the R rows' tiles of 8 steps in flight together; fp32 on the CUDA
+//   cores in dot_parts' order), then the upper 4 warps exit.  Nothing runs
+//   beside the steps: a version whose producer warps projected 8 steps
+//   ahead of the recurrence, each 8 announced on an mbarrier, took longer
+//   (bf16, B=512 and 128), its steps slowed by the producers;
+// - the lower 4 run the recurrence as the ring's consumers do, one barrier
+//   a step, reading each step's xp a step ahead (after the step's mma, so
+//   the load does not queue before h's), h's buffers swapped before the
+//   barrier (no address arithmetic after it), and y (and c_{t-1}) stored to
+//   global memory inside the step as the ring does (staging it in shared
+//   memory made the step slower: the barrier waits on shared stores);
+// - the arithmetic of every product, sum and activation is the ring path's
+//   (lstm_common.cuh), so both paths give the same bits;
+// - 2 barriers (0 and BAR_CONS, as immediates: with a register operand
+//   ptxas reserves all 16 of the SM's) and at most 128 registers a thread,
+//   so two blocks share an SM where shared memory allows it.
+// Shared memory for R rows and T steps (fwd_short_smem_bytes; its Python
+// copy is tests/test_torch_lstm_plan.py's, which holds it under the card's
+// limit at SHORT_MAX_STEPS):
+//   x's mbarrier, SHORT_HEADER bytes;
+//   xp [R][T][4W + XPAD] fp32, a row's T steps padded to xp_row_floats: the
+//     projection's 16-byte stores (lanes 2 steps apart) and the steps'
+//     16-byte reads (lanes a row apart) both land in distinct banks;
+//   x [R T + 8][XP] of T: the block's x, then 8 zero rows that the last
+//     8-step tile of the projection reads past the end.  In bf16 its rows
+//     are padded as the ring's are, so that the mma's B fragments read
+//     distinct banks: the TMA copy lands in xp's space first, contiguous,
+//     and all warps move it row by row;
+//   h [2][H_ROWS][XP] of T, as the ring path's.
+constexpr int SHORT_MAX_STEPS = 64, XPAD = 4;
+constexpr int SHORT_HEADER = 16;  // x's mbarrier; xp 16-byte aligned after it
+
+// Floats from one row's xp to the next row's: T steps of xps floats, then
+// a pad to 8 past a multiple of 32 (4 rows' 16-byte reads at one step take
+// 4 distinct 32-byte bank groups).
+__host__ __device__ constexpr int xp_row_floats(int steps, int xps) {
+  return steps * xps + ((8 - steps * xps) % 32 + 32) % 32;
+}
+
+template <typename T, int R, int W>
+constexpr size_t fwd_short_smem_bytes(int steps) {
+  return SHORT_HEADER + sizeof(float) * (size_t)R * xp_row_floats(steps, 4 * W + XPAD) +
+         sizeof(T) * ((size_t)(R * steps + 8) * XP<T, W>) + sizeof(T) * 2 * H_ROWS<T, R> * XP<T, W>;
+}
+
+template <int ID, int COUNT>
+__device__ __forceinline__ void bar_sync_n() {
+  asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// An mbarrier used for one phase: init to an arrival count; wait for the
+// phase to complete (acquire).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; selp.u32 %0, 1, 0, p; }"
+                 : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+}
+// The copy of `bytes` bytes (16-byte aligned, a multiple of 16) from global
+// into shared memory, completing on bar (initialised to one arrival: this
+// thread's).
+__device__ __forceinline__ void bulk_copy_in(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+
+template <typename T, bool TRAIN, int R, int W>
+__global__ void __launch_bounds__(8 * W, 2)
+lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
+                      const float* __restrict__ w_hh, const float* __restrict__ bias,
+                      T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
+  static_assert(W == 32, "the short path is instantiated for W = 32");
+  constexpr int D = W, H = W, COLS = 4 * W, XPS = COLS + XPAD;
+  constexpr int XPW = XP<T, W>;
+  constexpr bool PADDED = XPW != D;  // bf16: x lands contiguous, then moves to padded rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xrf = xp_row_floats(steps, XPS);
+  uint64_t* x_bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_xp = reinterpret_cast<float*>(smem + SHORT_HEADER);  // [R][xrf]: step t of row r at r xrf + t XPS
+  T* s_x = reinterpret_cast<T*>(s_xp + (size_t)R * xrf);       // [R T + 8][XPW]
+  T* s_h = s_x + (size_t)(R * steps + 8) * XPW;                // [2][H_ROWS][XPW]
+  T* x_in = PADDED ? reinterpret_cast<T*>(s_xp) : s_x;          // where the TMA copy lands
+
+  const int p = threadIdx.x & (COLS - 1), half = threadIdx.x / COLS;
+  const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int unit_t = (unit & ~7) + g8;  // bf16: the unit whose gates this lane holds after an mma
+  const int row0 = blockIdx.x * R;
+  const int nrows = batch - row0 < R ? batch - row0 : R;
+
+  if (threadIdx.x == 0) {
+    mbar_init(x_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bulk_copy_in(x_in, x + (size_t)row0 * steps * D, (uint32_t)(nrows * steps * D * sizeof(T)), x_bar);
+  }
+  for (int i = nrows * steps * XPW + threadIdx.x; i < (R * steps + 8) * XPW; i += 2 * COLS) store_f(s_x + i, 0.0f);
+  for (int i = threadIdx.x; i < 2 * H_ROWS<T, R> * XPW; i += 2 * COLS) store_f(s_h + i, 0.0f);  // h_{-1} = 0
+
+  // The weights into registers while x is in flight: W_ih for the
+  // projection, and the lower warps' W_hh for the recurrence.
+  uint32_t a_ih[2][W / 16][4], a_hh[2][W / 16][4];
+  float b4[4], w[W], wh[W], b = 0.0f;
+  if constexpr (is_bf16<T>) {
+    load_a_fragments<W>(w_ih, unit & ~7, lane, a_ih);
+    if (half == 0) load_a_fragments<W>(w_hh, unit & ~7, lane, a_hh);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
+  } else {
+    load_gate_weights<W, T>(w_ih, unit, gate, w);
+    if (half == 0) load_gate_weights<W, T>(w_hh, unit, gate, wh);
+    b = bias[col];
+  }
+  __syncthreads();  // the mbarrier's init, the zeros
+  mbar_wait(x_bar);
+  if constexpr (PADDED) {
+    // 16 bytes a thread: row i's chunk j from the contiguous copy to its padded row
+    constexpr int CH = 16 / sizeof(T), ROW_CH = D / CH;
+    for (int i = threadIdx.x; i < nrows * steps * ROW_CH; i += 2 * COLS)
+      *reinterpret_cast<int4*>(s_x + (i / ROW_CH) * XPW + (i % ROW_CH) * CH) =
+          *reinterpret_cast<const int4*>(x_in + i * CH);
+    __syncthreads();  // x in place; xp's space free again
+  }
+
+  // ---- xp = x . W_ih + b for every step, by all 8 warps, the halves
+  //      taking turns over 8-step tiles ----
+  if constexpr (is_bf16<T>) {
+    // Tensor cores: a tile is 8 steps of a row (lstm_common.cuh); the R
+    // rows' tiles of the same steps are independent, so their mma chains
+    // are in flight together.
+    const int n_tiles = (steps + 7) / 8;
+#pragma unroll 1
+    for (int nt = half; nt < n_tiles; nt += 2) {
+      float c[R][2][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[r][0][e] = b4[e / 2], c[r][1][e] = b4[2 + e / 2];
+        mma_w<W>(c[r], a_ih, s_x + (r * steps + nt * 8 + g8) * XPW, t4);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = nt * 8 + 2 * t4 + e;
+          if (t < steps)
+            *reinterpret_cast<float4*>(s_xp + r * xrf + t * XPS + unit_t * 4) =
+                make_float4(c[r][0][e], c[r][0][2 + e], c[r][1][e], c[r][1][2 + e]);
+        }
+    }
+  } else {
+    // 8 (step, row) sums of 4 gates in flight: 32 running sums a thread
+    constexpr int SU = 8 / R, N = SU * R;
+#pragma unroll 1
+    for (int s0 = half * SU; s0 < steps; s0 += 2 * SU) {
+      float acc[N][4], px[N];
+#pragma unroll
+      for (int ss = 0; ss < SU; ++ss)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) acc[ss * R + r][m] = 0.0f;
+          dot_parts<W>(acc[ss * R + r], w, s_x + (r * steps + s0 + ss) * XPW, gate);
+        }
+      transpose_reduce4<2, 1, N>(acc, gate & 2, gate & 1, px);
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        if (s0 + n / R < steps) s_xp[(n % R) * xrf + (s0 + n / R) * XPS + p] = px[n] + b;
+    }
+  }
+  __syncthreads();  // every xp is in place
+  if (half) return;
+
+  // ---- the recurrence: the ring path's consumers, reading xp in place ----
+  if constexpr (is_bf16<T>) {
+    static_assert(R <= 4, "row r is column 2 r of an 8-column tile");
+    float c_state = 0.0f;
+    const bool live = t4 < R, store = live && row0 + t4 < batch;
+    size_t at = (size_t)(row0 + t4) * steps * H + unit_t;  // (row, t, unit_t) of y and cprev
+    const float* xp_at = s_xp + t4 * xrf + unit_t * 4;     // step s at xp_at + s XPS
+    float4 xp = live ? *reinterpret_cast<const float4*>(xp_at) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // This lane's B row of h_{t-1} and the place of its h, swapped between
+    // the two buffers before each barrier: no address arithmetic after it.
+    const T *rd = s_h + g8 * XPW, *rd2 = rd + 8 * XPW;
+    T *wr = s_h + 8 * XPW + 2 * t4 * XPW + unit_t, *wr2 = wr - 8 * XPW;
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      float g[2][4] = {{xp.x, 0.0f, xp.y, 0.0f}, {xp.z, 0.0f, xp.w, 0.0f}};
+      mma_w<W>(g, a_hh, rd, t4);
+      // The next step's xp, read while the mma runs: it does not wait on h.
+      if (live && s + 1 < steps) xp = *reinterpret_cast<const float4*>(xp_at + (s + 1) * XPS);
+      if (live) {
+        const float ig = sigmoid(g[0][0]), fg = sigmoid(g[0][2]);
+        const float gg = tanh_sig(g[1][0]), og = sigmoid(g[1][2]);
+        if (TRAIN && store) cprev[at] = c_state;
+        c_state = fg * c_state + ig * gg;
+        const float h = og * tanh_sig(c_state);
+        store_f(wr, h);
+        if (store) store_f(y + at, h);
+        at += H;
+      }
+      const T* r0 = rd;
+      rd = rd2, rd2 = r0;
+      T* w0 = wr;
+      wr = wr2, wr2 = w0;
+      bar_sync_n<BAR_CONS, COLS>();
+    }
+  } else {
+    float c_state[R], xp[R];  // xp: this step's, read a step ahead
+    const int quad_lane = lane & ~3;  // lane of this unit's gate i
+    // Each of the unit's four lanes carries c; lane i stores y, c_{t-1} and h.
+    bool store[R];
+    size_t at[R];  // (row, t, unit) of y and cprev
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c_state[r] = 0.0f;
+      xp[r] = s_xp[r * xrf + p];
+      store[r] = gate == 0 && row0 + r < batch;
+      at[r] = (size_t)(row0 + r) * steps * H + unit;
+    }
+    const float *h_prev = s_h, *h_prev2 = s_h + R * H;  // swapped before each barrier, as in bf16
+    float *h_next = s_h + R * H, *h_next2 = s_h;
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      float ph[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) ph[r][m] = 0.0f;
+        dot_parts<W>(ph[r], wh, h_prev + r * H, gate);
+      }
+      float pre[R], act[R], ig[R], fg[R], gg[R], og[R], h[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) act[r] = xp[r];
+      if (s + 1 < steps)
+#pragma unroll
+        for (int r = 0; r < R; ++r) xp[r] = s_xp[r * xrf + (s + 1) * XPS + p];
+      // Phase by phase over the rows, so that the rows' latencies overlap.
+      transpose_reduce4<2, 1, R>(ph, gate & 2, gate & 1, pre);
+#pragma unroll
+      for (int r = 0; r < R; ++r) act[r] = activate(gate, act[r] + pre[r]);
+      gather_gates<R>(act, quad_lane, ig, fg, gg, og);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (TRAIN && store[r]) cprev[at[r]] = c_state[r];
+        c_state[r] = fg[r] * c_state[r] + ig[r] * gg[r];
+        h[r] = og[r] * tanh_sig(c_state[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (gate == 0) h_next[r * H + unit] = h[r];
+        if (store[r]) y[at[r]] = h[r];
+        at[r] += H;
+      }
+      const float* p0 = h_prev;
+      h_prev = h_prev2, h_prev2 = p0;
+      float* n0 = h_next;
+      h_next = h_next2, h_next2 = n0;
+      bar_sync_n<BAR_CONS, COLS>();
+    }
+  }
+}
+
 template <typename T, bool TRAIN, int R, int W>
 int launch_rows(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-                void* y, float* cprev, int batch, int steps, void* stream) {
+                void* y, float* cprev, int batch, int steps, bool short_path, void* stream) {
+  const int blocks = (batch + R - 1) / R;
+  if constexpr (W == 32) {
+    if (short_path) {
+      if (steps > SHORT_MAX_STEPS) return (int)cudaErrorInvalidValue;
+      // The attribute is the card's opt-in limit, which the buffers at
+      // SHORT_MAX_STEPS and four fp32 rows stay under.
+      static SmemOnce once;
+      cudaError_t err = once.set(lstm_fwd_short_kernel<T, TRAIN, R, W>, 0);
+      if (err != cudaSuccess) return (int)err;
+      lstm_fwd_short_kernel<T, TRAIN, R, W>
+          <<<blocks, 8 * W, fwd_short_smem_bytes<T, R, W>(steps), (cudaStream_t)stream>>>(
+              (const T*)x, w_ih, w_hh, bias, (T*)y, cprev, batch, steps);
+      return (int)cudaGetLastError();
+    }
+  } else if (short_path) {
+    return (int)cudaErrorInvalidValue;
+  }
   constexpr int smem = fwd_smem_bytes<T, R, W>();
   static SmemOnce once;
   cudaError_t err = once.set(lstm_fwd_kernel<T, TRAIN, R, W>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + R - 1) / R;
   lstm_fwd_kernel<T, TRAIN, R, W><<<blocks, 8 * W, smem, (cudaStream_t)stream>>>(
       (const T*)x, w_ih, w_hh, bias, (T*)y, cprev, batch, steps);
   return (int)cudaGetLastError();
@@ -299,11 +599,12 @@ int launch_rows(const void* x, const float* w_ih, const float* w_hh, const float
 
 template <typename T, bool TRAIN, int W>
 int launch(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-           void* y, float* cprev, int batch, int steps, int rows, void* stream) {
+           void* y, float* cprev, int batch, int steps, int rows, int short_path, void* stream) {
+  const bool s = short_path != 0;
   switch (rows) {
-    case 1: return launch_rows<T, TRAIN, 1, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
-    case 2: return launch_rows<T, TRAIN, 2, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
-    case 4: return launch_rows<T, TRAIN, 4, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, stream);
+    case 1: return launch_rows<T, TRAIN, 1, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, s, stream);
+    case 2: return launch_rows<T, TRAIN, 2, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, s, stream);
+    case 4: return launch_rows<T, TRAIN, 4, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -315,12 +616,15 @@ extern "C" {
 // Width 64 (no suffix) and width 32 (_w32).  x: (B, T, W) and y: (B, T, W)
 // in the instantiation's type; w_ih, w_hh: (4W, W) fp32, 8-byte aligned;
 // bias: (4W,) fp32; all contiguous on the current device.  rows: batch
-// rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  Returns the
+// rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  short_path: 1 for
+// the short path (width 32 only, x 16-byte aligned, T small enough for its
+// buffers; the plan's), 0 for the ring.  Returns the
 // cudaError_t of the launch (0 = launched).
 #define AWM_LSTM_FWD_ENTRY(NAME, TYPE, W)                                                        \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \
-           int batch, int steps, int rows, void* stream) {                                      \
-    return launch<TYPE, false, W>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows, stream); \
+           int batch, int steps, int rows, int short_path, void* stream) {                      \
+    return launch<TYPE, false, W>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, rows,          \
+                                  short_path, stream);                                          \
   }
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32, float, 64)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16, __nv_bfloat16, 64)
@@ -331,8 +635,9 @@ AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w32, __nv_bfloat16, 32)
 // As above, plus cprev: (B, T, W) fp32, c_{t-1} of every step.
 #define AWM_LSTM_FWD_TRAIN_ENTRY(NAME, TYPE, W)                                                  \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \
-           float* cprev, int batch, int steps, int rows, void* stream) {                        \
-    return launch<TYPE, true, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows, stream);    \
+           float* cprev, int batch, int steps, int rows, int short_path, void* stream) {        \
+    return launch<TYPE, true, W>(x, w_ih, w_hh, bias, y, cprev, batch, steps, rows,             \
+                                 short_path, stream);                                           \
   }
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32, float, 64)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16, __nv_bfloat16, 64)

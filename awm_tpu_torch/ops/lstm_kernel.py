@@ -24,20 +24,25 @@ all T steps; every weight of the recurrence sits in a register for the whole
 launch; the work of a step that does not depend on the carried state (the
 input projection in A and B, the whole gate recompute in C) is done by
 producer warps that run ahead and hand it over through a ring in shared
-memory; one barrier separates two steps.  The bf16 instantiations put every
-product on the tensor cores (mma.sync: bf16 in, exact products, fp32 sums),
-the recurrent one with the block's rows as the tile's N; the fp32 ones stay
-on the CUDA cores in full fp32, no TF32.
+memory; one barrier separates two steps.  At W = 32 and T up to
+FWD_SHORT_MAX_STEPS, A and B take the short path instead
+(lstm_fwd_short_kernel): the block's x in one TMA copy, every step's
+projection up front by all warps, then the steps with nothing beside them,
+in the ring path's arithmetic and so with its bits.  The bf16
+instantiations put every product on the tensor cores (mma.sync: bf16 in,
+exact products, fp32 sums), the recurrent one with the block's rows as the
+tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
 the steps, the width and the card's SM count, cached per shape, and handed
 to the C entry points: rows per block (1, 2 or 4 forward, 1 or 2 backward:
 the rows that finish the batch soonest, by the waves of blocks the card
-needs and the measured cost of a step of that many rows at that width, so
-B=128 takes 128 blocks of one row and B=512 128 blocks of four), the
-backward's path (bwd_fused: one launch where the width is 32, T <= 64 and
-its blocks fit one wave; else four), its scratch shapes and its dx and dW
-grids.
+needs and the measured cost of a step of that many rows at that width and
+path, so B=128 takes 128 blocks of one row and B=512 128 blocks of four),
+the forward's path (fwd_short: the short path where the width is 32 and T
+<= 64; else the ring), the backward's path (bwd_fused: one launch where
+the width is 32, T <= 64 and its blocks fit one wave; else four), its
+scratch shapes and its dx and dW grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -123,6 +128,15 @@ BWD_STEP_COST = {
     (32, torch.float32): {1: 1.0, 2: 1.32},
     (32, torch.bfloat16): {1: 1.0, 2: 1.14},
 }
+# The short path's (W = 32, T <= FWD_SHORT_MAX_STEPS), kernel A's device
+# time at T=50, B=128, where every variant is one wave of one block an SM.
+# In bf16 the rows are columns of the mma tile: A and B took 0.93-1.03x one
+# row's time at two and four over two calls, so they are counted the same
+# and ties go to fewer rows.
+SHORT_STEP_COST = {
+    (32, torch.float32): {1: 1.0, 2: 1.26, 4: 1.77},
+    (32, torch.bfloat16): {1: 1.0, 2: 1.0, 4: 1.0},
+}
 FWD_ROWS = (1, 2, 4)
 BWD_ROWS = (1, 2)
 DW_CHUNK_ROWS = 2048  # rows of the (B*T) axis per dW chunk where rows are many
@@ -140,6 +154,17 @@ DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
 FUSED_WIDTHS = (32,)
 FUSED_MAX_STEPS = 64
 FUSED_BLOCKS_PER_SM = 1
+# The forward's short path, kernels A and B (lstm_fwd.cu,
+# lstm_fwd_short_kernel: x in one TMA copy, every step's projection up
+# front, no ring): the widths it is instantiated for and the most T the
+# plan sends to it (the source's SHORT_MAX_STEPS; a longer T is refused at
+# the launch).  Its buffers grow with T: 166 KB at T = 64 and four fp32
+# rows, of the 227 KB one block may ask for on an H100.  Two of its blocks
+# may share an SM where their shared memory fits, but the plan counts one
+# an SM (SHORT_STEP_COST's): two blocks of two rows were slower than one of
+# four (bf16, B=512) or as fast (fp32).
+SHORT_WIDTHS = (32,)
+FWD_SHORT_MAX_STEPS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +174,7 @@ class LaunchPlan:
 
     fwd_rows: int  # batch rows per block, kernels A and B
     fwd_blocks: int
+    fwd_short: bool  # kernels A and B on the short path (lstm_fwd_short_kernel)
     bwd_rows: int  # batch rows per block, kernel C's recurrent kernel
     bwd_blocks: int
     bwd_fused: bool  # kernel C in one launch (its scratch: bwd_blocks partials of 4W*2W + 4W)
@@ -183,15 +209,17 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     """The plan of one call: pure, so the CPU tests reach it, and cached, so
     a call looks its shape up.  bwd_rows overrides the backward's rows per
     block (for tests and timing; the path follows from the blocks).  The
-    fused path counts on the whole card: sm_count SMs, each free to hold
-    one of its blocks.  Where the process has less (an MPS client with a
+    forward's path follows from the width and T alone.  The fused path
+    counts on the whole card: sm_count SMs, each free to hold one of its
+    blocks.  Where the process has less (an MPS client with a
     share of the SMs, another kernel resident), the cooperative launch
     refuses the grid and the call raises."""
     if batch < 1 or steps < 1 or sm_count < 1:
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
     _check_width(width)
     mm = matmul_dtype(dtype)
-    fwd_rows = _rows_per_block(batch, sm_count, FWD_STEP_COST[width, mm])
+    fwd_short = width in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+    fwd_rows = _rows_per_block(batch, sm_count, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[width, mm])
     if bwd_rows is None:
         bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[width, mm])
     elif bwd_rows not in BWD_ROWS:
@@ -204,7 +232,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     n_chunks = max(1, min(DW_MAX_CHUNKS, max(-(-n_rows // DW_CHUNK_ROWS),
                                              min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
-        fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows),
+        fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
         bwd_fused=(width in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
                    and bwd_blocks <= sm_count * FUSED_BLOCKS_PER_SM),
@@ -232,8 +260,8 @@ def libraries() -> dict[str, ctypes.CDLL]:
         built = cuda_build.load_all(SOURCES)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fwd, bwd = built["lstm_fwd"][0], built["lstm_bwd"][0]
-        argtypes = {"lstm_fwd": [ptr] * 5 + [i, i, i, ptr],
-                    "lstm_fwd_train": [ptr] * 6 + [i, i, i, ptr],
+        argtypes = {"lstm_fwd": [ptr] * 5 + [i, i, i, i, ptr],
+                    "lstm_fwd_train": [ptr] * 6 + [i, i, i, i, ptr],
                     "lstm_bwd": [ptr] * 14 + [i] * 6 + [ptr]}
         for w in WIDTHS:
             for kernel in KERNELS:
@@ -311,25 +339,41 @@ def _launch(lib_name: str, name: str, x: torch.Tensor, *args) -> None:
     launches[name] += 1
 
 
-def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None) -> torch.Tensor:
+def _forward_path(x: torch.Tensor, width: int, rows: int | None, short: bool | None) -> tuple:
+    """(x, rows, short) of one forward launch: the plan's rows and path
+    unless overridden (for tests and timing).  The short path's TMA copy
+    reads x from a 16-byte aligned address: a view at another offset is
+    copied (the outputs are fresh allocations, aligned)."""
+    plan = _plan_for(x)
+    short = plan.fwd_short if short is None else short
+    if short and width not in SHORT_WIDTHS:
+        raise ValueError(f"the forward's short path is compiled for widths {SHORT_WIDTHS}, got {width}")
+    if short and x.data_ptr() % 16:
+        x = x.clone()
+    return x, rows or plan.fwd_rows, short
+
+
+def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None) -> torch.Tensor:
     """Kernel A: (B, T, W) -> y (B, T, W) in x's dtype, on the card, W = 64
-    or 32.  rows overrides the plan's rows per block (for tests and timing)."""
+    or 32.  rows overrides the plan's rows per block and short its path
+    (the short path at W = 32 or the ring) (for tests and timing)."""
     width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
     if bsz == 0 or t == 0:
         return y
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    x, rows, short = _forward_path(x, width, rows, short)
     _launch("lstm_fwd", instantiation("lstm_fwd", x.dtype, width), x, x.data_ptr(), w_ih.data_ptr(),
-            w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, rows or _plan_for(x).fwd_rows)
+            w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, rows, int(short))
     return y
 
 
 def forward_train_kernel(
-    x, w_ih, w_hh, b, rows: int | None = None
+    x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: (B, T, W) -> (y in x's dtype, cprev fp32), both
-    (B, T, W), on the card.  rows as in forward_kernel."""
+    (B, T, W), on the card.  rows and short as in forward_kernel."""
     width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
@@ -337,9 +381,10 @@ def forward_train_kernel(
     if bsz == 0 or t == 0:
         return y, cprev
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    x, rows, short = _forward_path(x, width, rows, short)
     _launch("lstm_fwd", instantiation("lstm_fwd_train", x.dtype, width), x, x.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(),
-            bsz, t, rows or _plan_for(x).fwd_rows)
+            bsz, t, rows, int(short))
     return y, cprev
 
 

@@ -24,12 +24,14 @@ instantiations over 50 steps a chunk.  Phases:
    shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
    LSTMFunction's gradients against autograd of the plain forward; then
    every width-32 instantiation at every rows variant, B in (1, 7, 128) by
-   T in (1, 2, 3, 37, 50, 800), A at (512, 50) and B=300 at T=50, C on both
-   of its paths (fused, one launch, where its blocks fit one wave; four
-   launches at T=800 and B=300), twice for equal bits; one call each of A,
-   B, fused C and four-launch C at T=50 from fp32 weights, by the
-   profiler's kernel list: its kernels and no cast, fill or memset; and
-   two stacked LSTMFunction layers' gradients at width 32;
+   T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800), A at (512, 50) and
+   B=300 at T=50; A and B on both of their paths (the short path,
+   lstm_fwd_short_kernel, where T <= 64, with the ring path's bits; the
+   ring at every T); C on both of its paths (fused, one launch, where its blocks
+   fit one wave; four launches at T=800 and B=300), twice for equal bits;
+   one call each of A, B, fused C and four-launch C at T=50 from fp32
+   weights, by the profiler's kernel list: its kernels and no cast, fill or
+   memset; and two stacked LSTMFunction layers' gradients at width 32;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -130,11 +132,14 @@ instantiations over 50 steps a chunk.  Phases:
    batch, with the host/device split of a request; the width-32 kernels at
    T=50 (A at B=512, B and C at B=128) beside their plain versions,
    nn.LSTM(32) and the least time of 50 dependent steps, and C's four
-   launches at B=300; the strided
+   launches at B=300; their device ms at T = 1, 2, 8, 16, 32, 50, 64 and
+   the least-squares fit fixed + T x step (what a short call costs before
+   its steps, and a step); the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
    dtype, with peak memory and a profile of one bf16 step;
-17. print the {"kernels": [...]} line (12 instantiations), and last the
-   {"ok": true, ...} line.
+17. print the {"kernels": [...]} line (12 instantiations; the width-32
+   forward ones with their path and every width-32 one with its fit), and
+   last the {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.  Phases 13-15 start
@@ -161,15 +166,19 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, B_TRAIN, T, ODD_B = 512, 128, 16000, 3
 # The strided family's two stacked LSTM(32) see T / (2 * 4 * 5 * 8) = 50 steps
-# a 1-s chunk.  Its kernel checks: B in (1, 7, 128) by T in (1, 2, 3, 37, 50,
-# 800), A at the serving batch, and B=300 at T=50, a training batch whose
-# backward blocks do not fit one wave (150 blocks of two rows on 132 SMs),
-# every rows variant.  Kernel C takes its fused path (one launch) where T <=
-# 64 and its blocks fit one wave (launch_plan): here B in (1, 7, 128) at T
-# <= 50, at either rows variant; its four launches at T=800 and at B=300.
+# a 1-s chunk.  Its kernel checks: B in (1, 7, 128) by T in W32_T (the ring's
+# 16-step chunk edges, the forward's short path up to its bound of 64 and
+# one step past it), A at the serving batch, and B=300 at T=50, a training
+# batch whose backward blocks do not fit one wave (150 blocks of two rows on
+# 132 SMs), every rows variant.  Kernels A and B take the short path where T
+# <= 64, and are checked there on the ring path too; kernel C takes its
+# fused path (one launch) where T <= 64 and its blocks fit one wave
+# (launch_plan): here B in (1, 7, 128) at T <= 64, at either rows variant;
+# its four launches at T in (65, 800) and at B=300.
 W32, T32, B_WAVES = 32, 50, 300
-W32_SHAPES = (tuple((b, t) for b in (1, 7, B_TRAIN) for t in (1, 2, 3, 37, 50, 800))
-              + ((B_SERVE, T32), (B_WAVES, T32)))
+W32_T = (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
+W32_SHAPES = tuple((b, t) for b in (1, 7, B_TRAIN) for t in W32_T) + ((B_SERVE, T32), (B_WAVES, T32))
+W32_FIT_T = (1, 2, 8, 16, 32, 50, 64)  # the T-sweep of the width-32 kernels' device ms
 # (B, T) of the rows-per-block variant checks: one row, a ragged last block
 # for 2 and 4 rows, the training batch; T below, at and beyond the depth of
 # the kernels' rings (32 steps forward, 16 backward).
@@ -438,10 +447,21 @@ def device_split(call, parts: dict[str, str], reps: int) -> dict[str, float | No
 
 
 def lstm_device_ms(call, reps: int = 50) -> float | None:
-    """Device ms of one forward call in its LSTM kernel alone (at T=50 a
-    call's CUDA-event time is mostly the host's: the wrapper's checks,
-    allocations and launch), or None where three traces missed it."""
-    return device_split(call, {"fwd": "lstm_fwd_kernel"}, reps)["fwd"]
+    """Device ms of one forward call in its LSTM kernel alone, on either
+    path (at T=50 a call's CUDA-event time is mostly the host's: the
+    wrapper's checks, allocations and launch), or None where three traces
+    missed it."""
+    return device_split(call, {"fwd": "lstm_fwd_"}, reps)["fwd"]
+
+
+def fwd_kernel_name(plan) -> str:
+    """The forward kernel a call of this plan launches."""
+    return "lstm_fwd_short_kernel" if plan.fwd_short else "lstm_fwd_kernel"
+
+
+def path_of(plan) -> str:
+    """The forward's path in a plan, as the result lines name it."""
+    return "short" if plan.fwd_short else "ring"
 
 
 BWD_PARTS = {True: ("fused",), False: ("rec", "dx", "dw", "sum")}  # kernel C's launches by path
@@ -1174,19 +1194,28 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
     for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         name, fname, bname = (K.instantiation(k, dtype, W32) for k in K.KERNELS)
         worst = {name: 0.0, fname: 0.0, bname: 0.0}
-        rel, same = 0.0, True
+        rel, same, bits = 0.0, True, True
         paths = {True: set(), False: set()}  # (B, T) of the checks of C by path: fused, four launches
+        fwd_paths = {True: set(), False: set()}  # (B, T) of the checks of A and B by path: short, ring
         for b, t in W32_SHAPES:
             x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=3000 + 10 * b + t, t=t, w=W32)
             with no_tf32():
                 ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                 for rows in (None, *K.FWD_ROWS):
-                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
-                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
-                    worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
-                    worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
-                                       float((cprev - ref_c).abs().max()))
-                    same &= bool(torch.isfinite(y).all()) and y.shape == (b, t, W32)
+                    ring = None
+                    for short in (False, True) if t <= K.FWD_SHORT_MAX_STEPS else (False,):
+                        fwd_paths[short].add((b, t))
+                        y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+                        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+                        worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
+                        worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
+                                           float((cprev - ref_c).abs().max()))
+                        same &= bool(torch.isfinite(y0).all()) and y0.shape == (b, t, W32)
+                        same &= torch.equal(y0, y)
+                        if ring is None:
+                            ring = (y0, y, cprev)
+                        else:  # the short path gives the ring path's bits
+                            bits &= all(torch.equal(a, r) for a, r in zip((y0, y, cprev), ring))
                 if b == B_SERVE:  # C's shapes are the training batch's
                     continue
                 ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
@@ -1201,9 +1230,16 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
         torch.cuda.synchronize()
         for n in (name, fname):
             check(worst[n] <= KERNELS[n].tol and same,
-                  f"{n} vs plain, every rows variant, (B, T) in B (1, 7, {B_TRAIN}) x T (1, 2, 3, 37, 50, "
-                  f"800) and ({B_SERVE}, {T32}): max abs err {worst[n]:.3e} (tol {KERNELS[n].tol:.0e})")
+                  f"{n} vs plain, every rows variant, both paths, (B, T) in B (1, 7, {B_TRAIN}) x T {W32_T} "
+                  f"and ({B_SERVE}, {T32}), ({B_WAVES}, {T32}): max abs err {worst[n]:.3e} "
+                  f"(tol {KERNELS[n].tol:.0e})")
             max_err[n] = worst[n]
+        check(bits and (B_SERVE, T32) in fwd_paths[True] and (B_TRAIN, T32) in fwd_paths[True]
+              and (B_TRAIN, K.FWD_SHORT_MAX_STEPS + 1) in fwd_paths[False]
+              and not any(t > K.FWD_SHORT_MAX_STEPS for _, t in fwd_paths[True]),
+              f"{name} and {fname} checked on both paths: short (lstm_fwd_short_kernel) at "
+              f"{len(fwd_paths[True])} (B, T) with T <= {K.FWD_SHORT_MAX_STEPS}, ring at {len(fwd_paths[False])}; "
+              f"the short path gives the ring path's bits at every one: {bits}")
         tol = KERNELS[bname].tol
         check(rel <= tol and same, f"{bname} vs plain, every rows variant, the same (B, T) but B={B_SERVE}: "
                                    f"max rel err {rel:.3e} (tol {tol:.0e}), two runs the same bits: {same}")
@@ -1214,8 +1250,9 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
 
         # one call, one kernel: no cast, fill or memset beside it (fp32 weights,
         # dy in x's type, as the bf16 train step hands them over)
-        for b, kernel, want in ((B_SERVE, "lstm_fwd", ("lstm_fwd_kernel",)),
-                                (B_TRAIN, "lstm_fwd_train", ("lstm_fwd_kernel",)),
+        fwd_at = lambda b: (fwd_kernel_name(K.launch_plan(b, T32, dtype, sm_count, W32)),)
+        for b, kernel, want in ((B_SERVE, "lstm_fwd", fwd_at(B_SERVE)),
+                                (B_TRAIN, "lstm_fwd_train", fwd_at(B_TRAIN)),
                                 (B_TRAIN, "lstm_bwd", ("lstm_bwd_fused_kernel",)),
                                 (B_WAVES, "lstm_bwd", ("lstm_bwd_rec_", "lstm_bwd_dx_", "lstm_bwd_dw_",
                                                        "lstm_bwd_sum_"))):
@@ -1908,6 +1945,7 @@ def main() -> int:
     from awm_tpu_torch.__main__ import main as cli
     from awm_tpu_torch.checkpoint import ASSETS, SHAPECAP_NPZ, load_npz, variables_from_flax
     from awm_tpu_torch.ops import lstm_kernel as K
+    from awm_tpu_torch.ops.bench_lstm import fit_line
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
     from awm_tpu_torch.utils.precision import no_tf32
 
@@ -2347,6 +2385,7 @@ def main() -> int:
         del x, y, cprev, dy, m, xg, ylib
         torch.cuda.empty_cache()
 
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
@@ -2400,6 +2439,28 @@ def main() -> int:
         times[bname]["four_launches_B300"] = {"ms": b_ms, "split_ms": split}
         print(f"{bname} B={B_WAVES} T={T32} (four launches): kernel {b_ms:.4f} ms a call, by launch "
               + ", ".join(f"{k} {fmt_ms(v)}" for k, v in split.items()), flush=True)
+        del x, y, cprev, dy
+        torch.cuda.empty_cache()
+        # what a short call costs before its steps, and a step: device ms at
+        # each T of W32_FIT_T and its least-squares line fixed + T x step
+        for n, b in ((name, B_SERVE), (fname, B_TRAIN), (bname, B_TRAIN)):
+            sweep = []
+            for t in W32_FIT_T:
+                x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=20 + t, t=t, w=W32)
+                with no_tf32():
+                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                    call = {name: lambda: K.forward_kernel(x, w_ih, w_hh, bias),
+                            fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
+                            bname: lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)}[n]
+                    frag = "lstm_bwd_" if n == bname else "lstm_fwd_"
+                    sweep.append(device_split(call, {"all": frag}, reps=50)["all"])
+            fixed, step = fit_line(W32_FIT_T, sweep)
+            plan = K.launch_plan(b, T32, dtype, sm_count, W32)
+            times[n]["fit"] = {"steps": list(W32_FIT_T), "device_ms": sweep, "fixed_ms": fixed, "step_ms": step}
+            print(f"{n} B={b} fit of device ms = fixed + T x step over T {W32_FIT_T} "
+                  f"({'backward ' + ('fused' if plan.bwd_fused else 'four launches') if n == bname else path_of(plan)}"
+                  f" path at T={T32}): fixed {fmt_ms(fixed, 5)}, step {fmt_ms(step, 6)}; device ms "
+                  + ", ".join(fmt_ms(v, 5) for v in sweep), flush=True)
         del x, y, cprev, dy
         torch.cuda.empty_cache()
 
@@ -2516,15 +2577,15 @@ def main() -> int:
 
     # 17. result lines
     kernels = []
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, k in KERNELS.items():
         steps = T if k.width == 64 else T32
         batch = B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
         plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, width=k.width)
+        path = (("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd" else path_of(plan))
         print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"
-              f" rows per block", flush=True)
+              f" rows per block, {path} path", flush=True)
         entry = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-                 "launches": launches[name], "max_abs_err": max_err[name], **times[name]}
+                 "launches": launches[name], "max_abs_err": max_err[name], "path": path, **times[name]}
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)

@@ -157,11 +157,14 @@ def test_function_on_card_matches_autograd_of_plain(cuda):
 
 @pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
                                                    (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,t", [(1, 50), (7, 37), (128, 50), (3, 800)])
+@pytest.mark.parametrize("b,t", [(1, 50), (7, 37), (128, 50), (3, 800), (7, 15), (7, 16), (7, 17),
+                                 (128, 64), (3, 65), (512, 50)])
 def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
     """The _w32 instantiations of A, B and C at every rows variant vs the
     plain versions, the width-64 tolerances and reasons: A and B max abs
-    error of y and cprev, C relative to each gradient's max and the same
+    error of y and cprev, on both forward paths where T is within the short
+    path's bound (the ring's 16-step chunk edges, the bound and one past
+    it, A's serving batch) with the same bits on both, C relative to each gradient's max and the same
     bits in two runs.  Each call counts on its own instantiation."""
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
 
@@ -173,13 +176,21 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
     names = {k: lstm_kernel.instantiation(k, dtype, 32) for k in lstm_kernel.KERNELS}
     before = {n: lstm_kernel.launches[n] for n in names.values()}
+    paths = (False, True) if t <= lstm_kernel.FWD_SHORT_MAX_STEPS else (False,)
     for rows in lstm_kernel.FWD_ROWS:
-        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
-        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
-        torch.cuda.synchronize()
-        assert y0.shape == (b, t, 32) and torch.equal(y0, y)
-        assert float((y.float() - ref_y.float()).abs().max()) <= tol_fwd
-        assert float((cprev - ref_c).abs().max()) <= tol_fwd
+        got = []
+        for short in paths:
+            y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            torch.cuda.synchronize()
+            assert y0.shape == (b, t, 32), short
+            assert torch.equal(y0, y), short
+            assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, short
+            assert float((y.float() - ref_y.float()).abs().max()) <= tol_fwd, short
+            assert float((cprev - ref_c).abs().max()) <= tol_fwd, short
+            got.append((y0, cprev))
+        # the short path gives the ring path's bits
+        assert all(torch.equal(a, r) for a, r in zip(got[-1], got[0])), rows
     for rows in lstm_kernel.BWD_ROWS:
         got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
         again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
@@ -189,7 +200,7 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
             rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
             assert rel <= tol_bwd, (name, rel)
             assert torch.equal(a, a2), name
-    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS), 2 * len(lstm_kernel.BWD_ROWS)
+    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS) * len(paths), 2 * len(lstm_kernel.BWD_ROWS)
     assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
 
 
@@ -198,8 +209,13 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
 def test_width32_call_launches_its_kernels_alone(cuda, b, fused, dtype):
     """A width-32 call at T=50 from fp32 weights and a dy in x's type runs
     its kernels and nothing beside them (no cast, no fill): A and B one
-    kernel each, C one where the plan fuses it (B=128, one wave) and four
-    where it does not (B=300), by torch.profiler's kernel list."""
+    kernel each, on the short path the plan takes at T=50
+    (lstm_fwd_short_kernel) and forced onto the ring (lstm_fwd_kernel), C
+    one where the plan fuses it (B=128, one wave) and four where it does
+    not (B=300), by torch.profiler's kernel list.  The profiler drops a
+    short window's kernels now and then: a trace that holds fewer than the
+    call launches is taken again, three times at most, as chip_smoke.py's
+    launched_alone does."""
     from torch.profiler import ProfilerActivity, profile
 
     x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=11, w=32)
@@ -208,17 +224,39 @@ def test_width32_call_launches_its_kernels_alone(cuda, b, fused, dtype):
     dy = torch.randn(b, 50, 32, device=cuda).to(dtype)
     assert lstm_kernel.launch_plan(b, 50, dtype, torch.cuda.get_device_properties(cuda).multi_processor_count,
                                    32).bwd_fused == fused
-    for call, n_kernels in ((lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), 1),
-                            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias), 1),
-                            (lambda: lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
-                             1 if fused else 4)):
+    assert lstm_kernel.launch_plan(b, 50, dtype, 132, 32).fwd_short
+    for call, n_kernels, fragment in (
+            (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), 1, "lstm_fwd_short_kernel"),
+            (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=False), 1, "lstm_fwd_kernel"),
+            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias), 1, "lstm_fwd_short_kernel"),
+            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, short=False), 1, "lstm_fwd_kernel"),
+            (lambda: lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), 1 if fused else 4, "lstm_bwd")):
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == n_kernels and all("lstm_" in e.name for e in kernels), [e.name for e in kernels]
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if len(kernels) >= n_kernels:
+                break
+        assert len(kernels) == n_kernels and all(fragment in e.name for e in kernels), [e.name for e in kernels]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t", [(512, 50), (7, 64), (3, 1)])
+def test_width32_short_path_same_bits_twice(cuda, b, t, dtype):
+    """Kernel A on the short path, run twice on the same inputs (a ragged
+    last block at B=7 and 3), gives the same bits: every sum has a fixed
+    order, and the rows past the batch are zero in shared memory."""
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=13, w=32)
+    x = x.to(dtype)
+    assert lstm_kernel.launch_plan(b, t, dtype, 132, 32).fwd_short
+    for rows in lstm_kernel.FWD_ROWS:
+        first = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+        again = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again) and bool(torch.isfinite(first).all()), rows
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)], ids=["f32", "bf16"])
@@ -253,27 +291,36 @@ def test_kernel_refuses_unbuilt_width(cuda):
 
 
 SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block
+# the forward's: also the ring's chunk edges, the short path's bound (width
+# 32) and one past it, and A's serving batch
+FWD_SHAPES = SHORT_AND_RAGGED + [(7, 15), (7, 16), (7, 17), (3, 64), (3, 65), (512, 50)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
-@pytest.mark.parametrize("b,t", SHORT_AND_RAGGED)
+@pytest.mark.parametrize("b,t", FWD_SHAPES)
 def test_forward_kernels_every_rows_variant(cuda, b, t, rows, dtype, tol):
     """Kernels A and B at each rows-per-block instantiation the launch plan
-    can pick, vs lstm_forward_train: the forward's tolerances."""
+    can pick, vs lstm_forward_train: the forward's tolerances, at width 64
+    and at width 32 on both of its paths where T is within the short path's
+    bound (the plan's path, and the other one forced)."""
     from awm_tpu_torch.ops.lstm import lstm_forward_train
 
-    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=6)
-    x = x.to(dtype)
-    y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
-    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
-    torch.cuda.synchronize()
-    with no_tf32():
-        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
-    assert torch.equal(y0, y)
-    assert float((y.float() - ref_y.float()).abs().max()) <= tol
-    assert float((cprev - ref_c).abs().max()) <= tol
+    for w in (64, 32):
+        x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=6, w=w)
+        x = x.to(dtype)
+        with no_tf32():
+            ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        paths = (None, False, True) if w == 32 and t <= lstm_kernel.FWD_SHORT_MAX_STEPS else (None,)
+        for short in paths:
+            y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            torch.cuda.synchronize()
+            assert torch.equal(y0, y), (w, short)
+            assert float((y0.float() - ref_y.float()).abs().max()) <= tol, (w, short)
+            assert float((y.float() - ref_y.float()).abs().max()) <= tol, (w, short)
+            assert float((cprev - ref_c).abs().max()) <= tol, (w, short)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)],
@@ -305,6 +352,14 @@ def test_kernel_refuses_rows_it_is_not_built_for(cuda):
     x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
     with pytest.raises(RuntimeError, match="invalid"):
         lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=3)
+
+
+def test_kernel_refuses_the_short_path_at_width64(cuda):
+    """The forward's short path is built for width 32 only: forcing it at
+    width 64 raises before any launch."""
+    x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
+    with pytest.raises(ValueError, match="short path"):
+        lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=True)
 
 
 # -- the attack ops on the card vs the CPU ---------------------------------------

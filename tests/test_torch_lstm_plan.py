@@ -94,9 +94,14 @@ def test_plan_width32(batch, dtype):
     assert plan.fwd_blocks * plan.fwd_rows >= batch > (plan.fwd_blocks - 1) * plan.fwd_rows
     n_rows = batch * 50
     assert plan.n_chunks == min(132, -(-n_rows // lstm_kernel.DW_MIN_CHUNK_ROWS))
-    cost = lstm_kernel.FWD_STEP_COST[32, dtype]
+    # T=50 takes the forward's short path, with its own measured costs: the
+    # training batch 128 blocks of one row, the serving batch 128 of four
+    assert plan.fwd_short
+    cost = lstm_kernel.SHORT_STEP_COST[32, dtype]
     waves = lambda rows: -(-(-(-batch // rows)) // 132)
     assert all(waves(plan.fwd_rows) * cost[plan.fwd_rows] <= waves(r) * cost[r] for r in cost)
+    want = {128: (1, 128), 512: (4, 128)}.get(batch)
+    assert want is None or (plan.fwd_rows, plan.fwd_blocks) == want
 
 
 def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
@@ -138,7 +143,7 @@ def test_plan_width64_main_shapes_unchanged(dtype, batch):
     """At width 64 the plan is what it was: four launches, the same rows,
     chunks, grids and scratch."""
     plan = launch_plan(batch, 16000, dtype, 132, width=64)
-    assert not plan.bwd_fused
+    assert not plan.bwd_fused and not plan.fwd_short
     assert (plan.fwd_rows, plan.fwd_blocks, plan.bwd_rows, plan.bwd_blocks, plan.n_chunks,
             plan.dx_blocks, plan.part_shape, plan.db_part_shape) == W64_PLANS[dtype, batch]
     assert plan.da_shape == (batch, 16000, 256) and plan.da_dtype == dtype
@@ -183,12 +188,98 @@ def test_cached_plan_equals_a_fresh_one():
     """launch_plan is cached per shape: the cached plan equals one computed
     afresh, and a second call returns the same object without computing."""
     for args in ((128, 50, torch.bfloat16, 132, 32), (300, 50, torch.float32, 132, 32),
-                 (512, 16000, torch.bfloat16, 132, 64), (7, 3, torch.float32, 132, 32, 2)):
+                 (512, 16000, torch.bfloat16, 132, 64), (7, 3, torch.float32, 132, 32, 2),
+                 (512, 50, torch.float32, 132, 32), (512, 64, torch.bfloat16, 132, 32),
+                 (512, 65, torch.bfloat16, 132, 32)):
         fresh = launch_plan.__wrapped__(*args)
         assert launch_plan(*args) == fresh
         hits = launch_plan.cache_info().hits
         assert launch_plan(*args) is launch_plan(*args)
         assert launch_plan.cache_info().hits == hits + 2
+
+
+SHORT_BATCHES = [1, 7, 128, 300, 512]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", SHORT_BATCHES)
+def test_plan_takes_the_short_forward_exactly_within_its_bound(batch, dtype):
+    """Kernels A and B take the short path at width 32 exactly where T is
+    at most FWD_SHORT_MAX_STEPS (the strided family's 50 steps, up to 64),
+    the ring beyond it and at width 64 always, whatever the batch, and a
+    rows override leaves the path as it is."""
+    bound = lstm_kernel.FWD_SHORT_MAX_STEPS
+    for steps in (1, 2, 15, 16, 17, 50, bound, bound + 1, 800, 16000):
+        assert launch_plan(batch, steps, dtype, 132, width=32).fwd_short == (steps <= bound), steps
+        assert not launch_plan(batch, steps, dtype, 132, width=64).fwd_short
+        for rows in lstm_kernel.BWD_ROWS:
+            assert (launch_plan(batch, steps, dtype, 132, 32, rows).fwd_short
+                    == launch_plan(batch, steps, dtype, 132, 32).fwd_short)
+
+
+def _source_constants() -> dict[str, int]:
+    """The short path's constants as lstm_fwd.cu declares them."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", "lstm_fwd.cu")
+    with open(src) as f:
+        text = f.read()
+    steps, xpad = re.search(r"constexpr int SHORT_MAX_STEPS = (\d+), XPAD = (\d+);", text).groups()
+    header = re.search(r"constexpr int SHORT_HEADER = (\d+);", text).group(1)
+    return {"SHORT_MAX_STEPS": int(steps), "XPAD": int(xpad), "SHORT_HEADER": int(header)}
+
+
+BLOCK_SMEM_OPTIN = 232448  # the most shared memory one block may ask for on an H100: 227 KB
+
+
+@pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_short_path_shared_memory_fits_at_its_bound(dtype, rows):
+    """The short path's buffers, by the layout and constants of
+    lstm_fwd.cu (its fwd_short_smem_bytes): x's mbarrier in SHORT_HEADER
+    bytes, a multiple of 16 that holds its 8; xp, each row's T steps of 4W +
+    XPAD floats padded to 8 past a multiple of 32, so that 4 rows' 16-byte
+    reads at one step and 4 lanes' stores 2 steps apart take distinct banks;
+    x, rows of W + 8 in bf16 and W in fp32, and the 8 rows the last
+    projection tile reads past it; h.  At the plan's bound, which is the
+    source's SHORT_MAX_STEPS, they stay under the 227 KB a block may opt in
+    to on an H100, at every rows variant; they grow with T and rows, so the
+    bound at four rows is the worst case the plan sends."""
+    src = _source_constants()
+    width, bound = 32, lstm_kernel.FWD_SHORT_MAX_STEPS
+    assert bound == src["SHORT_MAX_STEPS"]
+    header, step_floats = src["SHORT_HEADER"], 4 * width + src["XPAD"]
+    assert header % 16 == 0 and header >= 8
+    assert (2 * step_floats * 4) % 128 in (32, 96) and step_floats % 4 == 0  # 2 steps apart: 32 bytes
+    elt = 2 if dtype == torch.bfloat16 else 4
+    xpw = width + 8 if elt == 2 else width
+
+    def smem(r: int, steps: int) -> int:
+        row = steps * step_floats + (8 - steps * step_floats) % 32
+        assert row % 32 == 8
+        h = 2 * (8 if elt == 2 else r) * xpw * elt
+        return header + r * row * 4 + (r * steps + 8) * xpw * elt + h
+
+    got = smem(rows, bound)
+    assert got <= BLOCK_SMEM_OPTIN
+    assert all(smem(rows, steps) < got for steps in (1, 17, 50))
+    assert rows == 4 or got < smem(4, bound)
+
+
+@pytest.mark.parametrize("missing", [(), (1, 4)], ids=["all", "some_missing"])
+def test_fit_line_recovers_fixed_and_step(missing):
+    """bench_lstm.py's fit of a short call, device ms = fixed + T x step:
+    exact on points on a line, the T whose time the profiler missed (None)
+    left out; fewer than two distinct T give (None, None)."""
+    from awm_tpu_torch.ops.bench_lstm import fit_line
+
+    ts = [1, 2, 8, 16, 32, 50, 64]
+    ms = [None if i in missing else 0.0035 + t * 0.00021 for i, t in enumerate(ts)]
+    fixed, step = fit_line(ts, ms)
+    assert fixed == pytest.approx(0.0035, rel=1e-9) and step == pytest.approx(0.00021, rel=1e-9)
+    assert fit_line([50, 50], [0.014, 0.015]) == (None, None)
+    assert fit_line(ts, [None] * len(ts)) == (None, None)
 
 
 @pytest.mark.parametrize("case", ["fp32", "offset_view", "bf16", "transposed"])
