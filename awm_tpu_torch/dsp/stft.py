@@ -40,11 +40,17 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return x[..., torch.where(q >= t, period - q, q)]
 
 
+def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Slice (..., T) into overlapping frames -> (..., n_frames, frame_length),
+    n_frames = 1 + (T - frame_length) // hop: a strided view of x (no copy)."""
+    return x.unfold(-1, frame_length, hop)
+
+
 def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True) -> torch.Tensor:
     """Complex STFT of (..., T) -> (..., n_frames, n_fft // 2 + 1)."""
     if center:
         x = reflect_pad(x, n_fft // 2)
-    frames = x.unfold(-1, n_fft, hop) * hann_window(n_fft, x.dtype, x.device)
+    frames = frame(x, n_fft, hop) * hann_window(n_fft, x.dtype, x.device)
     return torch.fft.rfft(frames, dim=-1)
 
 

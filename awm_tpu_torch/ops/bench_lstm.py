@@ -2,8 +2,9 @@
 """Time the CUDA LSTM kernels of one checkout on the card, at the main
 paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 (--width 64, the base family, T=16000; --width 32, the strided family's two
-stacked LSTMs, T=50; --steps overrides T; --batch times all three at one
-other batch, e.g. the curriculum's B=8).
+stacked LSTMs, T=50; --width 16, the gradient check of
+entry.dryrun_multichip, T=32; --steps overrides T; --batch times all three
+at one other batch, e.g. the curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
                                             [--variants] [--check] [--only NAME]
@@ -43,7 +44,7 @@ import os
 import subprocess
 import sys
 
-STEPS = {64: 16000, 32: 50}  # the main paths' T at each width
+STEPS = {64: 16000, 32: 50, 16: 32}  # the main paths' T at each width
 # --check's shapes: T around the ring's 16-step chunks and the short path's
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)

@@ -16,14 +16,14 @@
 // weights fp32 (a bf16 instantiation rounds them to nearest even as they
 // load), so no cast kernel runs beside a call.
 //
-// Every kernel is a template over the width W = D = H, instantiated for 64
-// and 32 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.  A call
-// takes one of two paths, chosen by the caller from the shape
+// Every kernel is a template over the width W = D = H, instantiated for
+// 64, 32 and 16 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.
+// A call takes one of two paths, chosen by the caller from the shape
 // (ops/lstm_kernel.py::launch_plan):
 //
-// Four launches on one stream (every call at W = 64; at W = 32 where the
-// fused kernel's grid would not be resident in one wave, or T > 64, the
-// plan's limit for the rows' da in shared memory):
+// Four launches on one stream (every call at W = 64 and 16; at W = 32
+// where the fused kernel's grid would not be resident in one wave, or
+// T > 64, the plan's limit for the rows' da in shared memory):
 //   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
 //      caller) runs all T steps in reverse.
 //      It writes da, rounded to the operand type, to a (B, T, G) scratch
@@ -68,7 +68,8 @@
 //   memory, one barrier among the consumer warps, dh_{t-1} = da . W_hh from
 //   register-held weights (bf16 widened once), split over the lanes of a
 //   warp so that a thread reads 16 of the 256 da values (8 of 128 at
-//   W = 32), summed by shuffles in a fixed order.  da is double-buffered;
+//   W = 32, 4 of 64 at W = 16), summed by shuffles in a fixed order.  da
+//   is double-buffered;
 // - dx and dW: in bf16 on the tensor cores (da, x and y are bf16 already,
 //   products exact, fp32 sums), staged through shared memory with 16-byte
 //   loads; in fp32 on the CUDA cores in full fp32, dW with 8 x 8 outputs a
@@ -134,7 +135,7 @@ template <typename T, int R, int W, bool FUSED, typename Tail>
 __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char* smem, int row0,
                                                T* da_dst, int da_stride, float* db_out, T* s_v,
                                                int v_stride, Tail producers_done) {
-  static_assert(valid_width<W>, "instantiated for W = 32 and 64");
+  static_assert(valid_width<W>, "instantiated for W = 16, 32 and 64");
   constexpr int D = W, H = W, G = 4 * W, K = 2 * W, COLS = G, THREADS = 2 * COLS;
   constexpr int NQ = W / 16, RW = RING<W>, DG = DA_GATE<W>, DR = DA_ROW<W>, KPW = KP<T, W>;
   const int batch = a.batch, steps = a.steps;
@@ -355,9 +356,11 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
           if constexpr (EP == 4) {
             const float4 v = *reinterpret_cast<const float4*>(av + q * DG);
             ve[0] = v.x; ve[1] = v.y; ve[2] = v.z; ve[3] = v.w;
-          } else {
+          } else if constexpr (EP == 2) {
             const float2 v = *reinterpret_cast<const float2*>(av + q * DG);
             ve[0] = v.x; ve[1] = v.y;
+          } else {
+            ve[0] = av[q * DG];
           }
 #pragma unroll
           for (int e = 0; e < EP; ++e)
@@ -446,36 +449,43 @@ lstm_bwd_dx_kernel(const float* __restrict__ da, const float* __restrict__ w_ih,
 
 constexpr int DW_ROWS = 32;   // rows of the (B*T) axis staged per dW step
 constexpr int DW_COLS = 128;  // gate columns per dW block (blockIdx.y picks which of G / 128)
+// The gate columns of one dW block: DW_COLS, or all G = 64 at W = 16.
+template <int W> constexpr int dw_block_cols = 4 * W < DW_COLS ? 4 * W : DW_COLS;
 
 // part[chunk][j][m] = sum over the chunk's rows n of da[n][j] * v[n][m],
 // v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0).  A
-// block owns 128 gate columns x all K terms, a thread 8 x (K / 16) of them
-// (two groups of 4 columns and K / 64 groups of 4 terms, so that a warp's
-// 16-byte reads are contiguous): 2 + K / 64 16-byte reads from shared memory
-// feed 8 K / 16 products.
+// block owns BC = 128 gate columns x all K terms, a thread 8 x (K / 16) of
+// them (two groups of 4 columns and K / 64 groups of 4 terms, so that a
+// warp's 16-byte reads are contiguous): 2 + K / 64 16-byte reads from
+// shared memory feed 8 K / 16 products.  At W = 16 a block owns all BC = 64
+// columns, a thread one group of 4 columns and one of 2 terms (CG = 1,
+// V = 2).
 template <int W>
 __global__ void __launch_bounds__(256)
 lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, const float* __restrict__ y,
                    float* __restrict__ part, long long n_rows, int steps, long long chunk_rows) {
-  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, VG = K / 64;
-  __shared__ __align__(16) float s_a[DW_ROWS * DW_COLS];
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, BC = dw_block_cols<W>;
+  constexpr int CG = BC / 64;                     // groups of 4 gate columns a thread, 64 apart
+  constexpr int V = K >= 64 ? 4 : K / 16;         // consecutive terms a thread takes per group
+  constexpr int VG = K >= 64 ? K / 64 : 1;        // groups of V terms a thread, 64 apart
+  __shared__ __align__(16) float s_a[DW_ROWS * BC];
   __shared__ __align__(16) float s_v[DW_ROWS * K];
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.y * DW_COLS;
+  const int j0 = blockIdx.y * BC;
   const int tj = tid / 16, tm = tid % 16;
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  float acc[8][4 * VG];
+  float acc[4 * CG][V * VG];
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int a = 0; a < 4 * CG; ++a)
 #pragma unroll
-    for (int b = 0; b < 4 * VG; ++b) acc[a][b] = 0.0f;
+    for (int b = 0; b < V * VG; ++b) acc[a][b] = 0.0f;
 
   for (long long base = begin; base < end; base += DW_ROWS) {
     __syncthreads();
     // 16-byte loads; one row of 128 values is 32 of them.
-    for (int idx = tid; idx < DW_ROWS * (DW_COLS / 4); idx += 256) {
-      const int r = idx / (DW_COLS / 4), c4 = idx % (DW_COLS / 4);
+    for (int idx = tid; idx < DW_ROWS * (BC / 4); idx += 256) {
+      const int r = idx / (BC / 4), c4 = idx % (BC / 4);
       const long long n = base + r;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (n < end) v = reinterpret_cast<const float4*>(da + n * G + j0)[c4];
@@ -494,28 +504,36 @@ lstm_bwd_dw_kernel(const float* __restrict__ da, const float* __restrict__ x, co
     __syncthreads();
 #pragma unroll 2
     for (int nn = 0; nn < DW_ROWS; ++nn) {
-      const float4 a0 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + tj * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(s_a + nn * DW_COLS + 64 + tj * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float vv[4 * VG];
+      float av[4 * CG];
+#pragma unroll
+      for (int c = 0; c < CG; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(s_a + nn * BC + 64 * c + tj * 4);
+        av[4 * c] = a.x; av[4 * c + 1] = a.y; av[4 * c + 2] = a.z; av[4 * c + 3] = a.w;
+      }
+      float vv[V * VG];
 #pragma unroll
       for (int g = 0; g < VG; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(s_v + nn * K + 64 * g + tm * 4);
-        vv[4 * g] = v.x; vv[4 * g + 1] = v.y; vv[4 * g + 2] = v.z; vv[4 * g + 3] = v.w;
+        if constexpr (V == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(s_v + nn * K + 64 * g + tm * 4);
+          vv[4 * g] = v.x; vv[4 * g + 1] = v.y; vv[4 * g + 2] = v.z; vv[4 * g + 3] = v.w;
+        } else {
+          const float2 v = *reinterpret_cast<const float2*>(s_v + nn * K + 64 * g + tm * 2);
+          vv[2 * g] = v.x; vv[2 * g + 1] = v.y;
+        }
       }
 #pragma unroll
-      for (int p = 0; p < 8; ++p)
+      for (int p = 0; p < 4 * CG; ++p)
 #pragma unroll
-        for (int q = 0; q < 4 * VG; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
+        for (int q = 0; q < V * VG; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
     }
   }
   float* out = part + (size_t)blockIdx.x * G * K;
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
+  for (int p = 0; p < 4 * CG; ++p)
 #pragma unroll
-    for (int q = 0; q < 4 * VG; ++q) {
+    for (int q = 0; q < V * VG; ++q) {
       const int j = j0 + (p / 4) * 64 + tj * 4 + p % 4;
-      const int m = (q / 4) * 64 + tm * 4 + q % 4;
+      const int m = (q / V) * 64 + tm * V + q % V;
       out[(size_t)j * K + m] = acc[p][q];
     }
 }
@@ -584,9 +602,10 @@ lstm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ da, const float* __rest
 constexpr int DWM_ROWS = 64;  // rows of the (B*T) axis per staged dW tile: four k steps of 16
 
 // part[chunk][j][m] as mma tiles: M = the G gate columns j (G / 8 per warp:
-// MT = G / 128 tiles of 16), N = W terms m (blockIdx.y = 0: x, 1: h_{t-1}),
-// K = the chunk's rows.  Both operands lie row-major in the rows, so both
-// fragments come transposed through ldmatrix.  The chunk's sum runs in the
+// MT = G / 128 tiles of 16; at W = 16 one tile of 16 for each of the first
+// four warps, and the other four only stage), N = W terms m (blockIdx.y =
+// 0: x, 1: h_{t-1}), K = the chunk's rows.  Both operands lie row-major in
+// the rows, so both fragments come transposed through ldmatrix.  The chunk's sum runs in the
 // tensor cores' order, fixed for a given shape: two runs still give the
 // same bits.
 template <int W>
@@ -594,12 +613,14 @@ __global__ void __launch_bounds__(256)
 lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ y, float* __restrict__ part,
                        long long n_rows, int steps, long long chunk_rows) {
-  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, MT = G / 128, DA_P = da_pitch<W>;
+  constexpr int D = W, H = W, G = 4 * W, K = 2 * W, MT = G >= 128 ? G / 128 : 1, DA_P = da_pitch<W>;
+  constexpr int MMA_WARPS = G / (16 * MT);  // warps that own gate columns: 8, or 4 at W = 16
   constexpr int V_P = D + 8;  // row stride of the staged x or h_{t-1} tile
   __shared__ __align__(16) __nv_bfloat16 s_a[DWM_ROWS * DA_P];
   __shared__ __align__(16) __nv_bfloat16 s_v[DWM_ROWS * V_P];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const bool h_half = blockIdx.y == 1;
+  const bool owns = MMA_WARPS == 8 || warp < MMA_WARPS;  // a whole warp either way
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
   float c[MT][D / 8][4];
@@ -630,6 +651,7 @@ lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
       *reinterpret_cast<uint4*>(s_v + r * V_P + c8 * 8) = v;
     }
     __syncthreads();
+    if (!owns) continue;
 #pragma unroll
     for (int ks = 0; ks < DWM_ROWS / 16; ++ks) {
       // A[j][n] = da[n][j]: blocks (n 0-7, j 0-7), (n 0-7, j 8-15), (n 8-15, j 0-7), (n 8-15, j 8-15).
@@ -651,6 +673,7 @@ lstm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16
       }
     }
   }
+  if (!owns) return;
   float* out = part + (size_t)blockIdx.x * G * K + (h_half ? D : 0);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -929,7 +952,7 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
     lstm_bwd_dx_kernel<W><<<dx_blocks, 256, smem, stream>>>(
         (const T*)da, a.w_ih, (T*)dx, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / DW_COLS), 256, 0, stream>>>(
+    lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / dw_block_cols<W>), 256, 0, stream>>>(
         (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
@@ -943,7 +966,7 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
 
 extern "C" {
 
-// Width 64 (no suffix) and width 32 (_w32), G = 4 W.  x: (B, T, W), y:
+// Width 64 (no suffix), width 32 (_w32) and width 16 (_w16), G = 4 W.  x: (B, T, W), y:
 // (B, T, W) (the forward's output), both in the instantiation's type; dy:
 // (B, T, W), all three in the instantiation's type; w_ih / w_hh: (G, W)
 // fp32, 8-byte aligned; cprev: (B, T, W) fp32; bias: (G,) fp32.
@@ -972,6 +995,8 @@ AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32, float, 64)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16, __nv_bfloat16, 64)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w32, float, 32)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w32, __nv_bfloat16, 32)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w16, float, 16)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_BWD_ENTRY
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

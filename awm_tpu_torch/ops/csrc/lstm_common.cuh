@@ -1,22 +1,26 @@
 // Shapes and helpers shared by the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 //
 // The kernels are templates over the width W = D = H, instantiated for
-// W = 64 (the base family's channel count) and W = 32 (the strided family's
-// hidden width), torch gate order (i, f, g, o).  T is the operand type:
-// float for the fp32 contract, __nv_bfloat16 for the bf16 one (bf16
+// W = 64 (the base family's channel count), W = 32 (the strided family's
+// hidden width) and W = 16 (the multi-process dry run of
+// awm_tpu_torch/entry.py), torch gate order (i, f, g, o).  T is the operand
+// type: float for the fp32 contract, __nv_bfloat16 for the bf16 one (bf16
 // operands, every product exact in fp32, fp32 sums and state).
 //
 // Both recurrent kernels are warp-specialised.  A block has 8 W threads
-// (512 at W = 64, 256 at W = 32): the first half of the warps are the
-// consumers, which run the sequential recurrence, and the second half the
-// producers, which run ahead of them and fill a ring in shared memory with
-// everything of a step that does not depend on the carried state.  Within
-// each role (COLS = 4 W threads, one per gate column), thread p belongs to
-// hidden unit p / 4 and is lane kp = p % 4 of it; it ends each product
-// holding gate kp of its unit, column col(p) = (p % 4) * W + p / 4.  The
-// four gates of a unit sit in four neighbouring lanes of one warp and are
-// exchanged by shuffles.  (That is the CUDA-core mapping; the bf16
-// tensor-core paths map lanes as the mma fragments do, see below.)
+// (512 at W = 64, 256 at W = 32, 128 at W = 16): the first half of the
+// warps are the consumers, which run the sequential recurrence, and the
+// second half the producers, which run ahead of them and fill a ring in
+// shared memory with everything of a step that does not depend on the
+// carried state.  Within each role (COLS = 4 W threads, one per gate
+// column), thread p belongs to hidden unit p / 4 and is lane kp = p % 4 of
+// it; it ends each product holding gate kp of its unit, column col(p) =
+// (p % 4) * W + p / 4.  The four gates of a unit sit in four neighbouring
+// lanes of one warp and are exchanged by shuffles.  (That is the CUDA-core
+// mapping; the bf16 tensor-core paths map lanes as the mma fragments do,
+// see below.)  At W = 16 a role is two warps, a lane's part of a product
+// one quad (NQ = 1) and the mma's k one tile: the same code at its
+// smallest.
 
 #pragma once
 
@@ -34,7 +38,7 @@ namespace awm {
 //   K = D + H (terms of one gate's dot product), COLS = G (threads of one
 //   role: one per gate column), THREADS = 2 COLS (consumers, then producers).
 template <int W>
-constexpr bool valid_width = W == 32 || W == 64;  // the register-held weight rows: 2 or 4 quads a lane
+constexpr bool valid_width = W == 16 || W == 32 || W == 64;  // the register-held weight rows: 1, 2 or 4 quads a lane
 
 constexpr int NBUF = 2;      // buffers of the producers' ring
 
@@ -227,7 +231,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
 
 // The A fragments of one fp32 (4 W, W) weight matrix, rounded to bf16, for
 // this warp's 8 units (unit0 = the first): a[tile][kt][0..3], kt =
-// 0..W/16-1 over the W terms.
+// 0..W/16-1 over the W terms (a single k-tile at W = 16).
 template <int W>
 __device__ __forceinline__ void load_a_fragments(const float* __restrict__ wmat, int unit0,
                                                  int lane, uint32_t a[2][W / 16][4]) {

@@ -13,8 +13,9 @@
 // gate order (i, f, g, o).  y and c_{t-1} are batch-major (B, T, W), the
 // port's layout; the TPU kernels' time-major layout is not carried over.
 // W = D = H is a template parameter, instantiated for 64 (the base family,
-// T = 16000 steps a 1-s chunk) and 32 (the strided family's two stacked
-// LSTMs, T = 50 steps a chunk); lstm_common.cuh has the thread mapping.
+// T = 16000 steps a 1-s chunk), 32 (the strided family's two stacked
+// LSTMs, T = 50 steps a chunk) and 16 (the dry run's gradient check, T =
+// 32; the ring path, untuned); lstm_common.cuh has the thread mapping.
 //
 // What bounds it on this card: the recurrence is sequential in T, so the
 // time is the latency of one step times T, not bytes or FLOPs (the whole
@@ -93,7 +94,7 @@ __global__ void __launch_bounds__(8 * W, 1)
 lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                 const float* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
-  static_assert(valid_width<W>, "instantiated for W = 32 and 64");
+  static_assert(valid_width<W>, "instantiated for W = 16, 32 and 64");
   constexpr int D = W, H = W, COLS = 4 * W, THREADS = 2 * COLS;
   constexpr int XPW = XP<T, W>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -613,8 +614,9 @@ int launch(const void* x, const float* w_ih, const float* w_hh, const float* bia
 
 extern "C" {
 
-// Width 64 (no suffix) and width 32 (_w32).  x: (B, T, W) and y: (B, T, W)
-// in the instantiation's type; w_ih, w_hh: (4W, W) fp32, 8-byte aligned;
+// Width 64 (no suffix), width 32 (_w32) and width 16 (_w16).  x: (B, T,
+// W) and y: (B, T, W) in the instantiation's type; w_ih, w_hh: (4W, W)
+// fp32, 8-byte aligned;
 // bias: (4W,) fp32; all contiguous on the current device.  rows: batch
 // rows per block, 1, 2 or 4 (ceil(B / rows) blocks).  short_path: 1 for
 // the short path (width 32 only, x 16-byte aligned, T small enough for its
@@ -630,6 +632,8 @@ AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32, float, 64)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16, __nv_bfloat16, 64)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w32, float, 32)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w32, __nv_bfloat16, 32)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w16, float, 16)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_FWD_ENTRY
 
 // As above, plus cprev: (B, T, W) fp32, c_{t-1} of every step.
@@ -643,6 +647,8 @@ AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32, float, 64)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16, __nv_bfloat16, 64)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w32, float, 32)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w32, __nv_bfloat16, 32)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w16, float, 16)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_FWD_TRAIN_ENTRY
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -2,14 +2,17 @@
 
 Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - A, lstm_pallas_forward (pallas_call at line 157): forward_kernel,
-  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32];
+  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32|_w16];
 - B, _forward_train (line 342): forward_train_kernel, the same source with
-  its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32];
+  its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu,
-  instantiations lstm_bwd_{f32,bf16}[_w32].
-Each is compiled for two widths D = H = W: 64 (the base family, no suffix)
-and 32 (the strided family, suffix _w32); the width comes from w_hh's
-second axis, and any other width raises.  On that card each is bound by the
+  instantiations lstm_bwd_{f32,bf16}[_w32|_w16].
+Each is compiled for three widths D = H = W: 64 (the base family, no
+suffix), 32 (the strided family, suffix _w32) and 16 (the gradient check
+of entry.dryrun_multichip, suffix _w16, the ring path and four-launch
+backward, untuned); the width comes from w_hh's second axis, and any other
+width raises: every weight of the recurrence sits in a register, so each
+width is its own instantiation.  On that card each is bound by the
 latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
 at W = 64; at W = 32 the strided family's 50 steps take about as long as
 the host's work for one call, so a call launches one kernel and nothing
@@ -72,7 +75,7 @@ from awm_tpu_torch.ops.lstm import (
     matmul_dtype,
 )
 
-WIDTHS = (64, 32)  # D = H the kernels are compiled for
+WIDTHS = (64, 32, 16)  # D = H the kernels are compiled for
 SOURCES = ("lstm_fwd", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
@@ -115,18 +118,26 @@ build_log = ""
 # H100 (PERF.md has the times): width 64 at T=16000; width 32 at T=50 from
 # the kernels' device time at B=128, where every variant is one wave (a
 # call's CUDA-event time there is the host's).  A step is bound by latency,
-# so a second row costs less than the first, but not nothing.
+# so a second row costs less than the first, but not nothing.  Width 16 at
+# T=50, B=128, the same way (in bf16 the rows are columns of the mma tile,
+# as at width 32, so a row more costs nothing measurable).  At width 16 a
+# 128-thread block leaves room on its SM, so a batch past one wave of one
+# row (B=512, fp32) runs faster than these costs count: untuned.
 FWD_STEP_COST = {
     (64, torch.float32): {1: 1.0, 2: 1.32, 4: 2.4},
     (64, torch.bfloat16): {1: 1.0, 2: 1.08, 4: 1.3},
     (32, torch.float32): {1: 1.0, 2: 1.08, 4: 2.31},
     (32, torch.bfloat16): {1: 1.0, 2: 1.04, 4: 1.19},
+    (16, torch.float32): {1: 1.0, 2: 1.19, 4: 1.60},
+    (16, torch.bfloat16): {1: 1.0, 2: 1.01, 4: 0.98},
 }
 BWD_STEP_COST = {
     (64, torch.float32): {1: 1.0, 2: 2.1},
     (64, torch.bfloat16): {1: 1.0, 2: 1.58},
     (32, torch.float32): {1: 1.0, 2: 1.32},
     (32, torch.bfloat16): {1: 1.0, 2: 1.14},
+    (16, torch.float32): {1: 1.0, 2: 1.38},
+    (16, torch.bfloat16): {1: 1.0, 2: 1.38},
 }
 # The short path's (W = 32, T <= FWD_SHORT_MAX_STEPS), kernel A's device
 # time at T=50, B=128, where every variant is one wave of one block an SM.
@@ -354,8 +365,8 @@ def _forward_path(x: torch.Tensor, width: int, rows: int | None, short: bool | N
 
 
 def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None) -> torch.Tensor:
-    """Kernel A: (B, T, W) -> y (B, T, W) in x's dtype, on the card, W = 64
-    or 32.  rows overrides the plan's rows per block and short its path
+    """Kernel A: (B, T, W) -> y (B, T, W) in x's dtype, on the card, W = 64,
+    32 or 16.  rows overrides the plan's rows per block and short its path
     (the short path at W = 32 or the ring) (for tests and timing)."""
     width = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape

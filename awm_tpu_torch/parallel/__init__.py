@@ -14,6 +14,7 @@ from awm_tpu_torch.parallel.mesh import (
     shutdown,
     state_shardings,
 )
+from awm_tpu_torch.parallel.spawn import spawn_ranks
 
 __all__ = [
     "full_grads",
@@ -26,5 +27,6 @@ __all__ = [
     "shard_batch_from_process_local",
     "shard_state",
     "shutdown",
+    "spawn_ranks",
     "state_shardings",
 ]

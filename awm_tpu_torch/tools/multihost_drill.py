@@ -35,7 +35,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -47,7 +46,6 @@ MODEL_PARALLEL = 2
 AUDIO_LEN = 512  # a short chunk: the CPU's plain LSTM, not the model's width, sets the cost
 GLOBAL_BATCH = 8
 STEPS = 2
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _cfg():
@@ -147,32 +145,22 @@ def _read_json(path: str):
 
 
 def run_parent(init=None, messages=None, out_dir=None) -> int:
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    from awm_tpu_torch.parallel.spawn import spawn_ranks
+
     with tempfile.TemporaryDirectory() as d:
         keep = out_dir or d
         os.makedirs(keep, exist_ok=True)
         extra = (["--init", init] if init else []) + (["--messages", messages] if messages else [])
         url = "file://" + os.path.join(d, "rendezvous")
-        me = [sys.executable, "-m", "awm_tpu_torch.tools.multihost_drill"]
+        me = ["-m", "awm_tpu_torch.tools.multihost_drill"]
+        argvs = {f"worker{i}": me + ["worker", str(i), str(N_PROC), url, os.path.join(keep, "drill")] + extra
+                 for i in range(N_PROC)}
+        argvs["ref"] = me + ["ref", os.path.join(keep, "single")] + extra
         t0 = time.time()
-        procs = [subprocess.Popen(me + ["worker", str(i), str(N_PROC), url,
-                                        os.path.join(keep, "drill")] + extra, env=env, cwd=REPO)
-                 for i in range(N_PROC)]
-        ref = subprocess.Popen(me + ["ref", os.path.join(keep, "single")] + extra, env=env, cwd=REPO)
-        fails = []
-        deadline = time.time() + 240
-        for name, p in [(f"worker{i}", p) for i, p in enumerate(procs)] + [("ref", ref)]:
-            try:
-                rc = p.wait(timeout=max(1.0, deadline - time.time()))
-            except subprocess.TimeoutExpired:
-                rc = "timeout"
-            if rc != 0:
-                fails.append(f"{name} exited {rc}")
-                for q in procs + [ref]:  # a lost peer would hold the others in a collective
-                    q.kill()
-        if fails:
-            print(json.dumps({"ok": False, "fails": fails}))
+        try:
+            spawn_ranks(argvs, d, timeout=240, env={"OMP_NUM_THREADS": "1"})
+        except RuntimeError as e:
+            print(json.dumps({"ok": False, "fails": [str(e)]}))
             return 1
         ws = [_read_json(os.path.join(keep, f"drill.{i}.json")) for i in range(N_PROC)]
         single = _read_json(os.path.join(keep, "single.json"))

@@ -11,15 +11,18 @@ LSTMFunction, A in validation), and the robust path (the train step under the
 channel-attack curriculum, and the 12-attack robustness sweep of
 eval.evaluate_robustness); then the strided family (main14b_2) at its
 published width, whose two stacked LSTM(32) run the kernels' width-32
-instantiations over 50 steps a chunk.  Phases:
+instantiations over 50 steps a chunk; and the entry points
+(awm_tpu_torch/entry.py), whose dry run checks a sharded LSTM gradient at
+width 16.  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build ops/csrc/lstm_fwd.cu and lstm_bwd.cu with nvcc for sm_90a, in
    parallel, and print ptxas's report;
 3. hold every kernel instantiation against its plain PyTorch version: A at
    the serving shape (B=512) and an odd B, B and C at the training shape
-   (B=128) and an odd B, T=16000, with the rows per block the launch plan
-   picks, and C twice for equal bits; then every rows-per-block variant the
+   (B=128) and an odd B, T=16000, and at the dry run's step's (B=4,
+   T=512), with the rows per block the launch plan picks, and C twice for
+   equal bits; then every rows-per-block variant the
    plan can pick, at B=1, a ragged B=7, B=128 (and B=512 for A) and at T
    shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
    LSTMFunction's gradients against autograd of the plain forward; then
@@ -32,10 +35,17 @@ instantiations over 50 steps a chunk.  Phases:
    one call each of A, B, fused C and four-launch C at T=50 from fp32
    weights, by the profiler's kernel list: its kernels and no cast, fill or
    memset; and two stacked LSTMFunction layers' gradients at width 32;
+   then every width-16 instantiation at every rows variant on the ring path
+   and C's four launches (B, T in W16_SHAPES; C twice for equal bits), and
+   LSTMFunction's gradients of the dry run's loss at width 16;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
    512 chunks;
+4a. entry.entry() on the card, counters zeroed just before
+   (entry_phase): its example arguments' shapes, four speech-like clips at
+   the preset's bf16 and at fp32 compute against entry(device="cpu") on the
+   same inputs, kernel A at width 64 launched;
 5. the train path, counters zeroed just before: one fp32 train_step vs the
    JAX package's train golden (terms, gradient norms, BatchNorm
    statistics), then ``python -m awm_tpu_torch train`` in process (bf16,
@@ -102,6 +112,12 @@ instantiations over 50 steps a chunk.  Phases:
    and their share of its time (the two launches start together; the 2-rank
    run times its steps once the 1-rank run has exited); ``prep metadata``,
    ``segment`` and ``classify`` on a folder of WAVs;
+13a. the multi-device dry run, counters zeroed just before (dryrun_phase):
+   entry.dryrun_multichip(4), four ranks over gloo on the one card, mesh
+   (2, 2), the preset's bf16 step with the message table sharded and the
+   sharded LSTM gradient at width 16 within 1e-4; every rank launched B and
+   C at width 64 and at width 16; then the same dry run at fp32 on the card
+   and on the CPU, rank 0's loss terms and gradients held together;
 14. the bench, counters zeroed just before (bench_phase): ``python -m
    awm_tpu_torch bench`` in process (no other process of the port alive
    first), its one line with the seven keys of the repo-level bench.py, every
@@ -136,10 +152,22 @@ instantiations over 50 steps a chunk.  Phases:
    the least-squares fit fixed + T x step (what a short call costs before
    its steps, and a step); the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
-   dtype, with peak memory and a profile of one bf16 step;
-17. print the {"kernels": [...]} line (12 instantiations; the width-32
-   forward ones with their path and every width-32 one with its fit), and
-   last the {"ok": true, ...} line.
+   dtype, with peak memory and a profile of one bf16 step; the width-16
+   kernels at the dry run's (B, T) = (4, 32) and at (128, 50) beside their
+   plain versions, nn.LSTM(16) and the bounds;
+16a. where the train step's peak memory goes (memory_phase): one bf16 step
+   of the bench's base preset at B=256 under torch.cuda.memory's history
+   with C++ stacks, the blocks live at its peak by the port's innermost
+   frame (the forward's) or by autograd node and ATen frame (the
+   backward's) and by part (before the step, saved by the forward, kernel
+   B's c_{t-1}, kernel C's scratch, the backward's by kind: cuDNN's
+   workspace, layout copies for cuDNN, convolution gradients, each node's
+   gradients), the most of cuDNN's workspace and copies live at once in the
+   backward, and the bytes autograd saves;
+17. print the {"kernels": [...]} line (18 instantiations; the width-32
+   forward ones with their path and every width-32 one with its fit; the
+   width-16 ones at the dry run's shape, with their times at (128, 50)),
+   and last the {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.  Phases 13-15 start
@@ -179,6 +207,22 @@ W32, T32, B_WAVES = 32, 50, 300
 W32_T = (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
 W32_SHAPES = tuple((b, t) for b in (1, 7, B_TRAIN) for t in W32_T) + ((B_SERVE, T32), (B_WAVES, T32))
 W32_FIT_T = (1, 2, 8, 16, 32, 50, 64)  # the T-sweep of the width-32 kernels' device ms
+# Width 16, the gradient check of entry.dryrun_multichip (B=4 over the data
+# axis, T=32) on the ring path and the four-launch backward: B in (1, 2, 4,
+# 7, 128) by T in (1, 17, 32, 50), every rows variant.  Its timed shapes:
+# the dry run's and the strided family's training shape.
+W16 = 16
+W16_SHAPES = ((1, 1), (7, 1), (2, 32), (4, 32), (7, 17), (7, 50), (B_TRAIN, 50))
+DRY_B, DRY_T = 4, 32
+# The width-16 instantiations that no path of the port runs (the dry run's
+# gradient check is fp32, through LSTMFunction: kernels B and C): phase 3
+# holds them against their plain versions and phase 16 times them; the
+# check that every kernel launched on a main path leaves them out.
+OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", "lstm_bwd_bf16_w16")
+# Kernels B and C at width 64 in the dry run's train step (entry.dryrun_multichip):
+# each rank's 4 of the 2n = 8 clips (n = 4 ranks, data axis 2) at
+# entry.AUDIO_LEN = 512 samples, held with the training shapes in phase 3.
+DRY_STEP_SHAPE = (4, 512)
 # (B, T) of the rows-per-block variant checks: one row, a ragged last block
 # for 2 and 4 rows, the training batch; T below, at and beyond the depth of
 # the kernels' rings (32 steps forward, 16 backward).
@@ -1280,6 +1324,112 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
               f"B={ODD_B} T={T32}: max rel err {max(rels):.2e} (x {rels[0]:.2e}; tol {FUNCTION_TOL[sfx]:.0e})")
 
 
+def lstm_times(K, dtype, b: int, t: int, w: int, dev, clock_mhz: float) -> dict:
+    """Phase 16 at one (B, T) and width: kernels A, B and C a call (CUDA
+    events over 200 calls) and on the device (torch.profiler), their plain
+    versions, torch.nn.LSTM (cuDNN, the yardstick only), the bound and the
+    least time of t dependent steps; each printed.  {name: row}."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
+    x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=60 + b + t, t=t, w=w)
+    timed = lambda fn: cuda_ms(fn, reps=200, warmup=20)
+    with no_tf32():
+        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+        calls = {name: lambda: K.forward_kernel(x, w_ih, w_hh, bias),
+                 fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
+                 bname: lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)}
+        plains = {name: lambda: lstm_forward(x, w_ih, w_hh, bias),
+                  fname: lambda: lstm_forward_train(x, w_ih, w_hh, bias),
+                  bname: lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)}
+        fused = K.launch_plan(b, t, dtype, torch.cuda.get_device_properties(dev).multi_processor_count, w).bwd_fused
+        dev_ms = {name: lstm_device_ms(calls[name]), fname: lstm_device_ms(calls[fname]),
+                  bname: split_total(backward_split(calls[bname], fused, reps=50))}
+        m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+        xg = x.clone().requires_grad_()
+        with torch.inference_mode():
+            lib = {name: yardstick(lambda: timed(lambda: m(x)), f"nn.LSTM({w}) {dtype}")}
+        lib[fname] = yardstick(lambda: timed(lambda: m(xg)), f"nn.LSTM({w}) {dtype} forward")
+        ylib = m(xg)[0]
+        lib[bname] = yardstick(lambda: timed(lambda: torch.autograd.grad(
+            ylib, [xg, *m.parameters()], dy, retain_graph=True)), f"nn.LSTM({w}) {dtype} backward")
+        rows = {}
+        for n in (name, fname, bname):
+            bms, by = bound_ms(n, b, t)
+            rows[n] = {"ms": timed(calls[n]), "plain_ms": cuda_ms(plains[n], reps=5), "bound_ms": bms,
+                       "bound_by": by, "library_ms": lib[n], "device_ms": dev_ms[n],
+                       "latency_bound_ms": latency_bound_ms(t, w, clock_mhz)}
+            print(f"{n} B={b} T={t}: kernel {rows[n]['ms']:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the "
+                  f"device), plain {rows[n]['plain_ms']:.2f} ms, cuDNN nn.LSTM({w}) {lib[n]} ms, bound {bms:.5f} "
+                  f"ms ({by}), {t} dependent steps >= {rows[n]['latency_bound_ms']:.5f} ms at {clock_mhz:.0f} MHz",
+                  flush=True)
+    return rows
+
+
+def width16_checks(K, dev, max_err, max_rel) -> None:
+    """Phase 3, width 16: every _w16 instantiation of A, B and C at every
+    rows variant against its plain version on W16_SHAPES (the ring path and
+    the four-launch backward; C twice for equal bits); LSTMFunction's
+    gradients of the dry run's loss sum(sin(lstm(x))) at (DRY_B, DRY_T)
+    against autograd of the plain forward.  Fills max_err / max_rel."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        name, fname, bname = (K.instantiation(k, dtype, W16) for k in K.KERNELS)
+        worst = {name: 0.0, fname: 0.0, bname: 0.0}
+        rel, same = 0.0, True
+        for b, t in W16_SHAPES:
+            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=5000 + 10 * b + t, t=t, w=W16)
+            with no_tf32():
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                for rows in (None, *K.FWD_ROWS):
+                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+                    worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
+                    worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
+                                       float((cprev - ref_c).abs().max()))
+                    same &= bool(torch.isfinite(y0).all()) and y0.shape == (b, t, W16) and torch.equal(y0, y)
+                ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                for rows in (None, *K.BWD_ROWS):
+                    grads = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                    again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                    same &= all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+                    rel = max(rel, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
+                    worst[bname] = max(worst[bname], *(float((g.float() - r.float()).abs().max())
+                                                       for g, r in zip(grads, ref_g)))
+        torch.cuda.synchronize()
+        for n in (name, fname):
+            check(worst[n] <= KERNELS[n].tol and same,
+                  f"{n} vs plain, every rows variant, (B, T) in {W16_SHAPES}: max abs err {worst[n]:.3e} "
+                  f"(tol {KERNELS[n].tol:.0e})")
+            max_err[n] = worst[n]
+        tol = KERNELS[bname].tol
+        check(rel <= tol and same, f"{bname} vs plain (four launches), every rows variant, (B, T) in "
+                                   f"{W16_SHAPES}: max rel err {rel:.3e} (tol {tol:.0e}), two runs the same "
+                                   f"bits: {same}")
+        max_err[bname], max_rel[bname] = worst[bname], rel
+
+        x, *w, _ = lstm_inputs(DRY_B, dtype, dev, seed=51, t=DRY_T, w=W16)
+        a = [p.clone().requires_grad_() for p in (x, *w)]
+        c = [p.clone().requires_grad_() for p in (x, *w)]
+        with no_tf32():
+            torch.sin(K.LSTMFunction.apply(*a).float()).sum().backward()
+            torch.sin(lstm_forward(*c).float()).sum().backward()
+        rels = [rel_err(p.grad, q.grad) for p, q in zip(a, c)]
+        dx_err = float((a[0].grad.float() - c[0].grad.float()).abs().max())
+        check(max(rels) <= FUNCTION_TOL[sfx] and all(p.grad.dtype == p.dtype for p in a)
+              and (sfx == "bf16" or dx_err < 1e-4),
+              f"LSTMFunction {sfx} width 16, the dry run's loss at B={DRY_B} T={DRY_T}, grads vs autograd of "
+              f"the plain forward: max rel err {max(rels):.2e} (tol {FUNCTION_TOL[sfx]:.0e}), dx max abs "
+              f"{dx_err:.2e}")
+
+
 def seeded_strided(cfg, seed: int, dev=None):
     """The strided (generator, detector) of cfg with seeded_flax_tree's
     weights for `seed`."""
@@ -1914,6 +2064,344 @@ def parallel_phase(K, launches, cli, dev, work: str, audio_len=None) -> dict:
     return numbers
 
 
+# entry() on the card vs the same weights and inputs on the CPU (the plain
+# LSTM there): fp32 compute, two correct fp32 forwards in other summation
+# orders, kernel A's recurrence over 16000 steps from the seed-0 init;
+# bf16 (the preset's), each conv's output rounded to bf16 after cuDNN's or
+# the CPU's own summation order, so a value near a rounding boundary lands
+# one ulp (2e-3-4e-3 at the outputs' scale) over: tests/test_torch_entry.py's
+# bf16 bounds against the JAX package.  (s_w max abs, logits max abs, logits
+# mean abs).
+ENTRY_CARD_TOL = {"float32": (1e-4, 1e-3, 1e-5), None: (2e-2, 2e-2, 2e-3)}
+
+
+def entry_phase(K, launches, dev) -> dict:
+    """Phase 4a: entry() (awm_tpu_torch/entry.py) on the card,
+    counters zeroed just before: its example arguments' contract shapes,
+    then four speech-like clips through its forward at the preset's bf16
+    and at fp32 compute, each against entry(device="cpu") on the same
+    inputs (the same seed-0 weights), and kernel A at width 64 launched in
+    both types.  Returns the errors."""
+    import torch
+
+    from awm_tpu_torch.entry import entry
+
+    zero_counts(K)
+    s = torch.from_numpy(speechlike(4, seed=70))
+    msg = torch.from_numpy(np.random.default_rng(71).integers(0, 2**16, 4))
+    errs = {}
+    for compute_dtype in (None, "float32"):
+        label = compute_dtype or "bf16 (preset)"
+        fn, (s0, m0) = entry(device=dev, compute_dtype=compute_dtype)
+        sw0, lg0 = fn(s0, m0)
+        torch.cuda.synchronize()
+        check(s0.device.type == "cuda" and tuple(sw0.shape) == (4, T) and tuple(lg0.shape) == (8, T, 17)
+              and bool(torch.isfinite(lg0).all()),
+              f"entry() {label} on the card: example args {tuple(s0.shape)} {tuple(m0.shape)} -> s_w "
+              f"{tuple(sw0.shape)}, logits {tuple(lg0.shape)}, finite")
+        sw, lg = (a.cpu() for a in fn(s.to(dev), msg.to(dev)))
+        fn_cpu, _ = entry(device="cpu", compute_dtype=compute_dtype)
+        sw_c, lg_c = fn_cpu(s, msg)
+        e_lg = (lg - lg_c).abs()
+        errs[label] = {"s_w": float((sw - sw_c).abs().max()), "logits": float(e_lg.max()),
+                       "logits_mean": float(e_lg.mean())}
+        tol = ENTRY_CARD_TOL[compute_dtype]
+        check(all(e <= t for e, t in zip(errs[label].values(), tol)),
+              f"entry() {label}, 4 speech-like clips, card vs CPU: s_w max abs {errs[label]['s_w']:.2e}, "
+              f"logits max abs {errs[label]['logits']:.2e}, mean {errs[label]['logits_mean']:.2e} "
+              f"(tol {tol})")
+        del fn, fn_cpu
+    for dtype in (torch.bfloat16, torch.float32):
+        name = K.instantiation("lstm_fwd", dtype, 64)
+        check(K.launches[name] > 0, f"entry(): {name} (kernel A, width 64) launched {K.launches[name]} times")
+    add_counts(K, launches, "entry phase")
+    torch.cuda.empty_cache()
+    return errs
+
+
+# The dry run's fp32 step on the card against the same step on the CPU (its
+# ranks on the card and on the host, the same seed-0 init, batch and drawn
+# messages): loss terms relative (summation order only: the CPU's 4-rank
+# step is within 1e-5 of the JAX package's, tests/test_torch_entry.py);
+# gradients as groups, ||g - g_cpu|| / ||g_cpu||, within the bound that the
+# CPU test holds the encoder's to (a 1e-6 change of the input moves it by
+# 1.1e-3 there): the generator's encoder, its LSTM (kernels B and C at width
+# 64), the rest of the generator, the detector.
+DRY_CARD_TOL = {"terms": 1e-4, "drift": 5e-3}
+DRY_GROUPS = {"gen.enc": r"^grad\.gen\.enc_", "gen.lstm": r"^grad\.gen\.lstm\.",
+              "gen, the rest": r"^grad\.gen\.(?!enc_|lstm\.)", "det": r"^grad\.det\."}
+
+
+def dryrun_phase(K, launches) -> dict:
+    """Phase 13a: entry.dryrun_multichip(4), four ranks over gloo on the one
+    card, mesh (2, 2), counters zeroed just before (the ranks report their
+    own counts): the preset's bf16 step with the table sharded, then the
+    sharded LSTM gradient at width 16 within 1e-4.  Every rank must have
+    launched kernels B and C at width 64 (bf16, the step) and at width 16
+    (fp32, the gradient check).  Then the same dry run at fp32 on the card
+    and on the CPU (entry.run_dry, rank 0's gradients kept), held together
+    by DRY_CARD_TOL; its launches are a comparison's and are not counted.
+    Returns the dry run's numbers."""
+    import torch
+
+    from awm_tpu_torch.entry import dry_spec, dryrun_multichip, run_dry
+
+    zero_counts(K)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = dryrun_multichip(4, "cuda")
+    wall = time.time() - t0
+    want = [K.instantiation(k, dt, w) for k in ("lstm_fwd_train", "lstm_bwd")
+            for dt, w in ((torch.bfloat16, 64), (torch.float32, W16))]
+    for r, counts in enumerate(res["launches"]):
+        check(all(counts[n] > 0 for n in want), f"dry run rank {r}: {', '.join(f'{n} {counts[n]}' for n in want)}")
+        for name, n in counts.items():
+            launches[name] += n
+    check(res["mesh"] == {"data": 2, "model": 2} and np.isfinite(res["loss"]) and res["lstm_grad_err"] < 1e-4,
+          f"dryrun_multichip(4) on the card in {wall:.1f} s: mesh {res['mesh']}, loss {res['loss']:.4f}, table "
+          f"rows {res['table_rows']}, sharded LSTM grad err {res['lstm_grad_err']:.2e} (tol 1e-4)")
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(d, device)
+            runs[device] = run_dry(dry_spec(4, device, out, compute_dtype="float32", keep=True), timeout=600)
+            with np.load(os.path.join(out, "state.npz")) as f:
+                runs[device]["grads"] = {k: f[k].astype(np.float64) for k in f.files if k.startswith("grad.")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    f32 = [K.instantiation(k, torch.float32, 64) for k in ("lstm_fwd_train", "lstm_bwd")]
+    check(all(counts[n] > 0 for counts in card["launches"] for n in f32),
+          f"fp32 dry run on the card: every rank launched {', '.join(f32)}")
+    terms = {k: abs(card["terms"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["terms"].items()}
+    drift = {}
+    for group, pattern in DRY_GROUPS.items():
+        names = [k for k in cpu["grads"] if re.search(pattern, k)]
+        diff = sum(float(np.square(card["grads"][k] - cpu["grads"][k]).sum()) for k in names)
+        drift[group] = (diff / sum(float(np.square(cpu["grads"][k]).sum()) for k in names)) ** 0.5
+    check(sorted(card["grads"]) == sorted(cpu["grads"]) and max(terms.values()) <= DRY_CARD_TOL["terms"]
+          and max(drift.values()) <= DRY_CARD_TOL["drift"],
+          f"fp32 dry run, card vs CPU ({time.time() - t0:.1f} s): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, "
+          f"terms max rel err {max(terms.values()):.2e} (tol {DRY_CARD_TOL['terms']:.0e}); gradient drift "
+          f"{', '.join(f'{g} {v:.2e}' for g, v in drift.items())} (tol {DRY_CARD_TOL['drift']:.0e})")
+    return {**{k: res[k] for k in ("mesh", "loss", "table_rows", "lstm_grad_err")}, "wall_s": wall,
+            "fp32_card_vs_cpu": {"terms_rel": max(terms.values()), "drift": drift}}
+
+
+MEM_B = 256  # the bench's base preset, the largest train batch that fit (PERF.md section 5)
+
+
+def peak_live(trace: list) -> tuple[int, list]:
+    """(index of the peak, [(index, size, frames) of each block live there])
+    from a device trace of torch.cuda.memory._snapshot(): allocations
+    replayed in order, each freed at its free_completed; blocks allocated
+    before the recording began are not in it."""
+    live, total, peak, at = {}, 0, -1, 0
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev["size"]
+            total += ev["size"]
+            if total > peak:
+                peak, at = total, i
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])
+    live = {}
+    for i, ev in enumerate(trace[:at + 1]):
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (i, ev["size"], ev.get("frames", []))
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+    return at, list(live.values())
+
+
+def port_frame(frames: list, port: str = "awm_tpu_torch") -> str:
+    """The innermost frame of the port's own files, as file:line function."""
+    for f in frames:
+        name = f.get("filename", "")
+        if port in name:
+            return f"{name[name.index(port):]}:{f.get('line')} {f.get('name')}"
+    return "(no frame of the port)"
+
+
+# C++ frames of an allocation that belong to the recorder and the caching
+# allocator, not to the op that asked for the block; and those of ATen's
+# factories and dispatch, between the op and the allocator.
+RECORDER = re.compile(r"torch::unwind|CapturedTraceback|gather_with_cpp|CUDACachingAllocator")
+FACTORY = re.compile(r"empty|create_out|set_output|TensorIterator|::meta::|wrap_kernel_functor|at::_ops::"
+                     r"|c10::impl::|VariableType")
+
+
+def aten_frame(frames: list, past_factories: bool = True) -> str:
+    """The innermost C++ frame beyond the recorder and the allocator, and
+    past ATen's factories and dispatch unless past_factories is False (then
+    an ATen factory such as at::detail::empty_generic, or the cuDNN caller
+    that allocates its own workspace): its function's name only."""
+    for f in frames:
+        name = f.get("name", "")
+        if (name and name != "??" and not RECORDER.search(name) and not f.get("filename", "").endswith(".py")
+                and not (past_factories and FACTORY.search(name))):
+            return re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", ""))
+    return "(no C++ frame)"
+
+
+def backward_kind(frames: list) -> str:
+    """What a block the backward allocates is: cuDNN's workspace (allocated
+    by the cuDNN convolution code itself), a layout copy made for a cuDNN
+    call (a clone / contiguous / copy under a convolution), a convolution's
+    gradient, or the gradient that an autograd node computes (its name)."""
+    names = " ".join(f.get("name", "") for f in frames)
+    if "convolution" in names or "cudnn" in names:
+        if re.search("cudnn|conv", aten_frame(frames, past_factories=False), re.I):
+            return "cuDNN workspace"
+        if re.search(r"native::(clone|contiguous|_to_copy|copy_)", names):
+            return "layout copies for cuDNN"
+        return "convolution gradients"
+    node = re.search(r"torch::autograd::generated::(\w+)::apply", names)
+    return f"gradient of {node.group(1)}" if node else "other"
+
+
+def memory_phase(dev) -> dict:
+    """Phase 16a: where the train step's peak memory goes.  One bf16 step of
+    the bench's base preset (its seed-0 init) at B=MEM_B, recorded with
+    torch.cuda.memory._record_memory_history (Python and C++ stacks) after
+    a warm-up step; the blocks live at the trace's peak split into what was
+    there before the step (weights, Adam moments), what the forward
+    allocated and is still live (what autograd saved, kernel B's c_{t-1}),
+    the LSTM backward's scratch (kernel C's da and partials) and the rest of
+    the backward by backward_kind: cuDNN's workspace, layout copies for
+    cuDNN, convolution gradients, each autograd node's gradients; the ten
+    largest groups by the innermost frame of the port's files (the
+    forward's) or by autograd node and innermost ATen frame (the
+    backward's, whose engine thread has no Python frame), GiB; the most of
+    cuDNN's workspace and of its layout copies live at once anywhere in the
+    backward; beside it the bytes autograd saves for the backward, read off
+    its saved-tensor hooks in a forward of the same batch and counted once
+    per storage, grouped by shape.  The backward's start is a marker block
+    that a wrapped Tensor.backward allocates for the recorded step."""
+    import torch
+
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.config import get_config
+
+    os.environ.setdefault("TORCH_SYMBOLIZE_MODE", "fast")  # torch's own ELF reader: seconds, not minutes
+    cfg = get_config("base")
+    state = tr.init_state(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(1)
+    s = torch.from_numpy((0.3 * rng.standard_normal((MEM_B, cfg.audio_len))).astype(np.float32)).to(dev)
+    tr.train_step(cfg, state, s)  # warm-up: Adam's moments exist from here on
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    backward = torch.Tensor.backward
+
+    def marked_backward(self, *args, **kw):
+        marker = torch.empty(1, device=dev)  # its alloc event names this function
+        backward(self, *args, **kw)
+        del marker
+
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="all")
+    torch.Tensor.backward = marked_backward
+    try:
+        tr.train_step(cfg, state, s)
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.backward = backward
+    t0 = time.time()
+    snap = torch.cuda.memory._snapshot()
+    snap_s = time.time() - t0
+    torch.cuda.memory._record_memory_history(enabled=None)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    trace = snap["device_traces"][dev.index or 0]
+    at, blocks = peak_live(trace)
+    start_bwd = next((i for i, ev in enumerate(trace) if ev["action"] == "alloc"
+                      and any(f.get("name") == "marked_backward" for f in ev.get("frames", []))), len(trace))
+    gib = 2.0**-30
+    groups: dict[str, int] = {}
+    split = {"before the step (weights, Adam moments, BN statistics)": base, "forward, still live (saved)": 0,
+             "LSTM c_{t-1} (kernel B)": 0, "LSTM backward scratch (kernel C: da, partials)": 0,
+             "backward, the rest": 0}
+    kinds: dict[str, int] = {}
+    for i, size, frames in blocks:
+        names = {f.get("name", "") for f in frames}
+        if i > start_bwd and not names & {"backward_kernel", "lstm_backward"}:
+            kind = backward_kind(frames)
+            kinds[kind] = kinds.get(kind, 0) + size
+            key = f"(backward) {kind}: {aten_frame(frames)}"
+        else:
+            key = port_frame(frames)
+        groups[key] = groups.get(key, 0) + size
+        if names & {"forward_train_kernel", "lstm_forward_train"}:
+            split["LSTM c_{t-1} (kernel B)"] += size
+        elif names & {"backward_kernel", "lstm_backward"}:
+            split["LSTM backward scratch (kernel C: da, partials)"] += size
+        elif i > start_bwd:
+            split["backward, the rest"] += size
+        else:
+            split["forward, still live (saved)"] += size
+    # cuDNN's workspace and layout copies live at once, anywhere in the backward
+    live, now, most = {}, {}, {}
+    for ev in trace[start_bwd:]:
+        if ev["action"] == "alloc":
+            kind = backward_kind(ev.get("frames", []))
+            live[ev["addr"]] = (kind, ev["size"])
+            now[kind] = now.get(kind, 0) + ev["size"]
+            most[kind] = max(most.get(kind, 0), now[kind])
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            kind, size = live.pop(ev["addr"])
+            now[kind] -= size
+    print(f"memory of one bf16 train step, base preset at its seed-0 init, B={MEM_B}: peak "
+          f"{peak_bytes * gib:.2f} GiB (max_memory_allocated); at the trace's peak (event {at} of {len(trace)}) "
+          f"{(base + sum(sz for _, sz, _ in blocks)) * gib:.2f} GiB live, {base * gib:.2f} of it before the step; "
+          f"the backward from event {start_bwd}; C++ stacks symbolized in {snap_s:.1f} s",
+          flush=True)
+    for part, size in split.items():
+        print(f"  {size * gib:8.3f} GiB  {part}", flush=True)
+    for kind in ("cuDNN workspace", "layout copies for cuDNN", "convolution gradients"):
+        kinds.setdefault(kind, 0)
+    print("  the backward's blocks at the peak, by kind (backward_kind):", flush=True)
+    for kind, size in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"  {size * gib:8.3f} GiB  {kind}", flush=True)
+    print("  the most live at once anywhere in the backward: " + ", ".join(
+        f"{kind} {most.get(kind, 0) * gib:.3f} GiB" for kind in ("cuDNN workspace", "layout copies for cuDNN",
+                                                                 "convolution gradients")), flush=True)
+    top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
+    print("  the ten largest groups of blocks live at the peak, by the innermost frame of the port (forward) "
+          "or autograd node and ATen frame (backward):", flush=True)
+    for key, size in top:
+        print(f"  {size * gib:8.3f} GiB  {key}", flush=True)
+
+    # what autograd saves: one forward and the loss of the same batch under
+    # saved-tensor hooks, each storage counted once
+    seen, by_shape = set(), {}
+
+    def pack(t):
+        key = (t.untyped_storage().data_ptr(), t.device.type)
+        if t.device.type == "cuda" and key not in seen:
+            seen.add(key)
+            nbytes = t.untyped_storage().nbytes()
+            sk = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            by_shape[sk] = by_shape.get(sk, 0) + nbytes
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), tr._precision(cfg):
+        message = tr.draw_messages(cfg, MEM_B, torch.Generator().manual_seed(0), dev)
+        delta, s_w, logits = tr._forward(cfg, state.gen, state.det, s, message, train=True)
+        terms = tr._terms(cfg, s, delta, s_w, logits, message)
+    saved = sum(by_shape.values())
+    act = MEM_B * cfg.audio_len
+    print(f"  autograd saves {saved * gib:.3f} GiB in this forward ({len(seen)} storages; B x T = {act} samples, "
+          f"{saved / act:.0f} bytes a sample); the largest by (shape, dtype):", flush=True)
+    for (shape, dt), size in sorted(by_shape.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {size * gib:8.3f} GiB  {shape} {dt}", flush=True)
+    del terms, delta, s_w, logits, state
+    torch.cuda.empty_cache()
+    return {"peak_gib": peak_bytes * gib, "split_gib": {k: v * gib for k, v in split.items()},
+            "backward_gib": {k: v * gib for k, v in kinds.items()},
+            "backward_most_live_gib": {k: v * gib for k, v in most.items()},
+            "top_groups_gib": {k: v * gib for k, v in top}, "saved_by_autograd_gib": saved * gib}
+
+
 def rank_main(argv: list) -> int:
     """The processes that phases 13-15 start: under torchrun ``cli-rank OUT
     ARGV...`` and ``parallel-rank OUT DEVICE CHUNK CARD_FREE``; ``counted LOG
@@ -1999,8 +2487,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         ferrs, babs, brel = [], [], []
-        for b in (B_TRAIN, ODD_B):
-            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=100 + b)
+        for b, t in ((B_TRAIN, T), (ODD_B, T), DRY_STEP_SHAPE):
+            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=100 + b, t=t)
             with no_tf32():
                 y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
                 grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
@@ -2011,18 +2499,18 @@ def main() -> int:
             ferrs.append(err)
             check(y.dtype == dtype and cprev.dtype == torch.float32 and bool(torch.isfinite(y).all())
                   and err <= KERNELS[fname].tol,
-                  f"{fname} vs plain, B={b} T={T}: y and cprev max abs err {err:.3e} "
+                  f"{fname} vs plain, B={b} T={t}: y and cprev max abs err {err:.3e} "
                   f"(tol {KERNELS[fname].tol:.0e})")
             again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
             check(all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
-                  f"{bname}, B={b} T={T}: two runs give the same bits")
+                  f"{bname}, B={b} T={t}: two runs give the same bits")
             del again
             rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
             babs.append(max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
             brel.append(max(rels))
             check(grads[0].dtype == dtype and all(bool(torch.isfinite(g).all()) for g in grads)
                   and max(rels) <= KERNELS[bname].tol,
-                  f"{bname} vs plain, B={b} T={T}: dx, dW_ih, dW_hh, db rel err "
+                  f"{bname} vs plain, B={b} T={t}: dx, dW_ih, dW_hh, db rel err "
                   f"{', '.join(f'{r:.2e}' for r in rels)} (tol {KERNELS[bname].tol:.0e})")
             del x, y, cprev, dy, grads, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
@@ -2070,6 +2558,7 @@ def main() -> int:
               f"{', '.join(f'{r:.2e}' for r in rels)} (tol {FUNCTION_TOL[sfx]:.0e})")
 
     width32_checks(K, dev, max_err, max_rel)
+    width16_checks(K, dev, max_err, max_rel)
 
     lap("3 kernels vs plain")
 
@@ -2137,6 +2626,10 @@ def main() -> int:
         launches[name] += n
 
     lap("4 serving")
+
+    # 4a. entry(), counters zeroed just before
+    entry_errs = entry_phase(K, launches, dev)
+    lap("4a entry")
 
     # 5. the train path, counters zeroed just before
     with np.load(f"{ASSETS}/train_golden.npz") as g:
@@ -2325,6 +2818,9 @@ def main() -> int:
     # 13. multi-process training, counters zeroed just before
     parallel = parallel_phase(K, launches, cli, dev, work)
     lap("13 multi-process")
+    # 13a. the multi-device dry run, counters zeroed just before
+    dry = dryrun_phase(K, launches)
+    lap("13a dry run")
     # 14. the bench, counters zeroed just before; the sweeps and demo_table
     benched = bench_phase(K, launches, cli, work, demo)
     lap("14 bench")
@@ -2332,7 +2828,8 @@ def main() -> int:
     drill = drill_phase(K, launches, work)
     lap("15 drill")
     for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} times on the main paths")
+        if name not in OFF_PATH:
+            check(n > 0, f"{name} launched {n} times on the main paths")
 
     # 16. timing (card name and power limit printed above)
     times = {}
@@ -2573,13 +3070,26 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
+    # width 16 at the dry run's shape and at the strided training shape
+    for sfx, dtype in dtypes.items():
+        for b, t in ((DRY_B, DRY_T), (B_TRAIN, T32)):
+            got = lstm_times(K, dtype, b, t, W16, dev, clock_mhz)
+            for n, row in got.items():
+                if (b, t) == (DRY_B, DRY_T):
+                    times[n] = row
+                else:
+                    times[n][f"B{b}_T{t}"] = row
     lap("16 timing")
+
+    # 16a. where the train step's peak memory goes
+    memory = memory_phase(dev)
+    lap("16a memory")
 
     # 17. result lines
     kernels = []
     for name, k in KERNELS.items():
-        steps = T if k.width == 64 else T32
-        batch = B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
+        steps = {64: T, W32: T32, W16: DRY_T}[k.width]
+        batch = DRY_B if k.width == W16 else B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
         plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, width=k.width)
         path = (("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd" else path_of(plan))
         print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"
@@ -2595,6 +3105,7 @@ def main() -> int:
           f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}; strided embed+detect clips/s "
           f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}; "
           f"multi-process {json.dumps(parallel)}; bench {json.dumps(benched)}; drill {json.dumps(drill)}; "
+          f"entry card vs CPU {json.dumps(entry_errs)}; dry run {json.dumps(dry)}; memory {json.dumps(memory)}; "
           f"phase s {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
     if failures:

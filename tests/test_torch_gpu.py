@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernels A, B and C (widths 64 and 32), of the attack ops,
+"""Card-only tests of the port's CUDA kernels A, B and C (widths 64, 32 and 16), of the attack ops,
 of checkpoints written on the card and of the fp32 server on the card
 (marker ``gpu``).
 
@@ -280,6 +280,73 @@ def test_width32_stack_function_matches_autograd(cuda, dtype, tol):
         assert pa.grad.dtype == pa.dtype
         rel = float((pa.grad.float() - pc.grad.float()).abs().max() / pc.grad.float().abs().max())
         assert rel <= tol, (i, rel)
+
+
+# -- width 16: the gradient check of entry.dryrun_multichip (B=4, T=32) ----------
+
+
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t", [(1, 1), (7, 1), (4, 32), (2, 32), (7, 50), (128, 50), (3, 17)])
+def test_width16_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
+    """The _w16 instantiations of A, B and C at every rows variant vs the
+    plain versions, the other widths' tolerances and reasons: A and B max
+    abs error of y and cprev (the ring path: the short one is built for
+    width 32 only), C relative to each gradient's max on its four launches,
+    the same bits in two runs.  Each call counts on its own instantiation."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=21, w=16)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(22)).to(dtype)
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+    names = {k: lstm_kernel.instantiation(k, dtype, 16) for k in lstm_kernel.KERNELS}
+    assert names["lstm_bwd"].endswith("_w16")
+    before = {n: lstm_kernel.launches[n] for n in names.values()}
+    plan = lstm_kernel.launch_plan(b, t, dtype, 132, 16)
+    assert not plan.fwd_short and not plan.bwd_fused
+    for rows in lstm_kernel.FWD_ROWS:
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert y0.shape == (b, t, 16) and y0.dtype == dtype and torch.equal(y0, y), rows
+        assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, rows
+        assert float((cprev - ref_c).abs().max()) <= tol_fwd, rows
+    for rows in lstm_kernel.BWD_ROWS:
+        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert tuple(got[1].shape) == (64, 16) and got[0].dtype == dtype
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol_bwd, (name, rows, rel)
+            assert torch.equal(a, a2), name
+    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS), 2 * len(lstm_kernel.BWD_ROWS)
+    assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)], ids=["f32", "bf16"])
+def test_width16_function_matches_autograd(cuda, dtype, tol):
+    """LSTMFunction at width 16 on the card (B then C), the dry run's loss
+    sum(sin(lstm(x))) at B=4, T=32, vs autograd of the plain forward: every
+    gradient relative to its max, as at width 32; fp32 dx also within the
+    dry run's 1e-4 absolute."""
+    from awm_tpu_torch.ops.lstm_kernel import LSTMFunction
+
+    leaves = [a.to(dtype) if i == 0 else a for i, a in enumerate(_inputs(4, 32, cuda, seed=23, w=16))]
+    a = [p.clone().requires_grad_() for p in leaves]
+    c = [p.clone().requires_grad_() for p in leaves]
+    with no_tf32():
+        torch.sin(LSTMFunction.apply(*a).float()).sum().backward()
+        torch.sin(lstm_forward(*c).float()).sum().backward()
+    for i, (pa, pc) in enumerate(zip(a, c)):
+        assert pa.grad.dtype == pa.dtype
+        rel = float((pa.grad.float() - pc.grad.float()).abs().max() / pc.grad.float().abs().max())
+        assert rel <= tol, (i, rel)
+    if dtype == torch.float32:
+        assert float((a[0].grad - c[0].grad).abs().max()) < 1e-4
 
 
 def test_kernel_refuses_unbuilt_width(cuda):

@@ -18,9 +18,9 @@ from awm_tpu.config import LossConfig as JLossConfig
 
 from awm_tpu_torch import losses as tl
 from awm_tpu_torch.config import LossConfig
-from awm_tpu_torch.dsp import stft as ts
 
 js = importlib.import_module("awm_tpu.dsp.stft")  # the package exports a function of that name
+ts = importlib.import_module("awm_tpu_torch.dsp.stft")  # so does the port's
 
 
 def _audio(rng, b=2, t=800, scale=0.3):

@@ -3,7 +3,7 @@ at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
 pure function of (batch, steps, dtype, SM count, width), so it is tested here
-on the CPU, at width 64 and 32.  The short-T cases hold the plain training forward and backward against
+on the CPU, at width 64, 32 and 16.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
 
@@ -104,18 +104,42 @@ def test_plan_width32(batch, dtype):
     assert want is None or (plan.fwd_rows, plan.fwd_blocks) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_plan_width16(batch, dtype):
+    """Width 16 (entry.dryrun_multichip's gradient check, T=32): the ring
+    forward and the four-launch backward at every T (neither the short path
+    nor the fused backward is built for it), scratch sized by the width (da
+    (B, T, 64), dW partials (n, 64, 32), db (blocks, 64)), blocks that cover
+    the batch once, and rows from the width's own measured step costs: a
+    dry-run rank's two fp32 rows take a block each."""
+    for steps in (1, 32, 50, 64, 800):
+        plan = launch_plan(batch, steps, dtype, 132, width=16)
+        assert not plan.fwd_short and not plan.bwd_fused
+        assert plan.da_shape == (batch, steps, 64) and plan.da_dtype == dtype
+        assert plan.part_shape == (plan.n_chunks, 64, 32)
+        assert plan.db_part_shape == (plan.bwd_blocks, 64)
+        for rows, blocks, cost in ((plan.fwd_rows, plan.fwd_blocks, lstm_kernel.FWD_STEP_COST[16, dtype]),
+                                   (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_STEP_COST[16, dtype])):
+            assert rows in cost and blocks * rows >= batch > (blocks - 1) * rows
+            waves = lambda r: -(-(-(-batch // r)) // 132)
+            assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
+    if dtype == torch.float32:
+        assert launch_plan(2, 32, dtype, 132, width=16).fwd_blocks == 2
+
+
 def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
     """The chunking for short calls leaves the width-64 main paths' plans as
     they were (B=128 and 512 at T=16000: 256 chunks of 2048 rows or more);
     a width-64 call of fewer than 132 x 2048 rows (the curriculum's B=8,
     the trainer's B=16) now gets one dW chunk an SM, not one per 2048 rows;
-    and a width the kernels are not compiled for raises."""
+    and a width the kernels are not compiled for (48, 128) raises."""
     for dtype in (torch.float32, torch.bfloat16):
         assert launch_plan(128, 16000, dtype, 132, width=64).n_chunks == lstm_kernel.DW_MAX_CHUNKS
         assert launch_plan(512, 16000, dtype, 132, width=64).part_shape == (256, 256, 128)
         assert launch_plan(8, 16000, dtype, 132, width=64).n_chunks == 132  # 63 at 2048 rows a chunk
         assert launch_plan(16, 16000, dtype, 132, width=64).n_chunks == 132  # 125
-    for width in (16, 48, 128):
+    for width in (48, 128):
         with pytest.raises(ValueError, match="widths"):
             launch_plan(4, 10, torch.float32, 132, width=width)
 
@@ -164,7 +188,7 @@ def test_plan_fuses_the_strided_backward_in_one_wave(dtype):
     assert fused(1, sm=1) and not fused(3, sm=1)
 
 
-@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("width", [32, 64, 16])
 @pytest.mark.parametrize("sm_count", [1, 8, 132])
 def test_plan_fuses_exactly_where_blocks_fit_one_wave(width, sm_count):
     """The fused backward where, and only where, the width has it, T is at

@@ -37,7 +37,7 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("b,t,d,h", [(2, 256, 64, 64), (3, 128, 16, 32), (1, 64, 64, 64)])
+@pytest.mark.parametrize("b,t,d,h", [(2, 256, 64, 64), (3, 128, 16, 32), (1, 64, 64, 64), (4, 32, 16, 16)])
 def test_plain_lstm_matches_jax_scan(rng, b, t, d, h):
     """fp32: same recurrence, only the summation order differs -> 2e-5
     (the fp32 tolerance of tests/test_pallas.py)."""
@@ -204,11 +204,14 @@ def _rel(a, ref):
     return float(np.abs(a - ref).max() / (np.abs(ref).max() + 1e-12))
 
 
-# dtype, width, T: width 64 at T=128 (ids as before), width 32 at T=50.
+# dtype, width, T: width 64 at T=128 (ids as before), width 32 at T=50,
+# width 16 at T=32 (the shape of entry.dryrun_multichip's gradient check).
 TRAIN_CASES = [pytest.param(torch.float32, 64, 128, id="f32"),
                pytest.param(torch.bfloat16, 64, 128, id="bf16"),
                pytest.param(torch.float32, *W32, id="f32-w32"),
-               pytest.param(torch.bfloat16, *W32, id="bf16-w32")]
+               pytest.param(torch.bfloat16, *W32, id="bf16-w32"),
+               pytest.param(torch.float32, 16, 32, id="f32-w16"),
+               pytest.param(torch.bfloat16, 16, 32, id="bf16-w16")]
 
 
 @pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
