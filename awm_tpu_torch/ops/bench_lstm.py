@@ -3,8 +3,10 @@
 paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 (--width 64, the base family, T=16000; --width 32, the strided family's two
 stacked LSTMs, T=50; --width 16, the gradient check of
-entry.dryrun_multichip, T=32; --steps overrides T; --batch times all three
-at one other batch, e.g. the curriculum's B=8 or the dry run's B=4).
+entry.dryrun_multichip, T=32; any other width up to 256, T=16000: 48 takes
+the capacity-64 kernels at runtime widths, 128 the cluster path; --steps
+overrides T; --batch times all three at one other batch, e.g. the
+curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
                                             [--variants] [--check] [--only NAME]
@@ -44,7 +46,7 @@ import os
 import subprocess
 import sys
 
-STEPS = {64: 16000, 32: 50, 16: 32}  # the main paths' T at each width
+STEPS = {64: 16000, 32: 50, 16: 32}  # the main paths' T at each width (16000 at any other)
 # --check's shapes: T around the ring's 16-step chunks and the short path's
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
@@ -131,7 +133,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tree", default=here)
-    ap.add_argument("--width", type=int, default=64, choices=sorted(STEPS))
+    ap.add_argument("--width", type=int, default=64, help="D = H, 1..256")
     ap.add_argument("--steps", type=lambda v: [int(t) for t in v.split(",")], default=None,
                     help="T, or a comma-separated list of T to fit (default: the width's main path)")
     ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
@@ -141,7 +143,7 @@ def main() -> int:
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
-    width, sweep = args.width, args.steps or [STEPS[args.width]]
+    width, sweep = args.width, args.steps or [STEPS.get(args.width, 16000)]
     b_serve, b_train = (args.batch, args.batch) if args.batch else (512, 128)
     sys.path[0] = tree  # in place of this script's own directory
 
@@ -158,7 +160,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     K.libraries()
-    fwd_rows = getattr(K, "FWD_ROWS", (None,)) if args.variants else (None,)
+    cluster = hasattr(K, "capacity") and K.capacity(width) is None
+    fwd_rows = (K.CLUSTER_ROWS if cluster else getattr(K, "FWD_ROWS", (None,))) if args.variants else (None,)
     bwd_rows = getattr(K, "BWD_ROWS", (None,)) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)

@@ -16,10 +16,14 @@
 // weights fp32 (a bf16 instantiation rounds them to nearest even as they
 // load), so no cast kernel runs beside a call.
 //
-// Every kernel is a template over the width W = D = H, instantiated for
-// 64, 32 and 16 (lstm_common.cuh); G = 4 W gate columns, K = 2 W terms.
-// A call takes one of two paths, chosen by the caller from the shape
-// (ops/lstm_kernel.py::launch_plan):
+// Every register-held kernel is a template over the capacity W,
+// instantiated for 64, 32 and 16 (lstm_common.cuh); G = 4 W gate columns,
+// K = 2 W terms.  A call passes its D, H <= W at run time; at D = H = W the
+// products below run at the capacity, else dx, dW and the sum run at the
+// runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel).  Widths above 64 run
+// the recurrence on a thread-block cluster (lstm_bwd_cluster_kernel, below)
+// and then those three.  A call at the capacities takes one of two paths,
+// chosen by the caller from the shape (ops/lstm_kernel.py::launch_plan):
 //
 // Four launches on one stream (every call at W = 64 and 16; at W = 32
 // where the fused kernel's grid would not be resident in one wave, or
@@ -110,17 +114,18 @@ __host__ __device__ constexpr int rec_smem_bytes() {
                sizeof(T) * R * SB * KP<T, W>);
 }
 
-// The operands of one call, shared by both paths.
+// The operands of one call, shared by every path.
 template <typename T>
 struct BwdArgs {
-  const T* x;          // (B, T, W)
-  const T* y;          // (B, T, W), the forward's output: h_{t-1} = y_{t-1}
-  const float* cprev;  // (B, T, W) fp32
-  const T* dy;         // (B, T, W)
-  const float* w_ih;   // (G, W) fp32
-  const float* w_hh;   // (G, W) fp32
+  const T* x;          // (B, T, d)
+  const T* y;          // (B, T, h), the forward's output: h_{t-1} = y_{t-1}
+  const float* cprev;  // (B, T, h) fp32
+  const T* dy;         // (B, T, h)
+  const float* w_ih;   // (4h, d) fp32
+  const float* w_hh;   // (4h, h) fp32
   const float* bias;   // (G,) fp32
   int batch, steps;
+  int d, h;            // the real widths: x (B, T, d), y (B, T, h), W_ih (4h, d), W_hh (4h, h)
 };
 
 // The reverse-time recurrence of the R batch rows from row0, the body of
@@ -128,17 +133,20 @@ struct BwdArgs {
 // at da_dst + (r * steps + t) * da_stride + column (the device-memory
 // scratch, rows past the batch skipped; or the fused kernel's shared
 // memory, where those rows get zeros), and the block's db (its rows' fp32
-// da in a fixed order) at db_out[column].  FUSED: the producers also leave
+// da in a fixed order) at db_out[column]; column = gate h + unit of the
+// call's real width h, written for units < h only.  FUSED: the producers also leave
 // x_t | h_{t-1} of every (r, t) at s_v + (r * steps + t) * v_stride, and
 // call producers_done() once they have handed over their last chunk.
-template <typename T, int R, int W, bool FUSED, typename Tail>
+// MASKED = false: D = H = W, the widths folded in at compile time (the code
+// the square widths had before the runtime widths); true: a.d, a.h.
+template <typename T, int R, int W, bool FUSED, bool MASKED, typename Tail>
 __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char* smem, int row0,
                                                T* da_dst, int da_stride, float* db_out, T* s_v,
                                                int v_stride, Tail producers_done) {
   static_assert(valid_width<W>, "instantiated for W = 16, 32 and 64");
   constexpr int D = W, H = W, G = 4 * W, K = 2 * W, COLS = G, THREADS = 2 * COLS;
   constexpr int NQ = W / 16, RW = RING<W>, DG = DA_GATE<W>, DR = DA_ROW<W>, KPW = KP<T, W>;
-  const int batch = a.batch, steps = a.steps;
+  const int batch = a.batch, steps = a.steps, d = MASKED ? a.d : W, h = MASKED ? a.h : W;
   // fp32 only: s_w[((sec * 4 + m) * NQ + q) * COLS + p] = the four terms 4 (4 q + kp) .. + 3 of
   // gate m's row for thread p's unit, of W_ih (sec 0) or W_hh (sec 1): lstm_common.cuh's split.
   const float4* s_w = reinterpret_cast<const float4*>(smem);
@@ -148,7 +156,7 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
   T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DR);                    // [R][SB][KP]: x_t | h_{t-1}
 
   const int p = threadIdx.x & (COLS - 1);
-  const int unit = p >> 2, gate = p & 3, col = gate * H + unit;
+  const int unit = p >> 2, gate = p & 3, col = gate * h + unit;  // col: da's column at the real width
   const int n_chunks = (steps + SB - 1) / SB;
   // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
 
@@ -159,20 +167,21 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
     uint32_t a_ih[2][W / 16][4], a_hh[2][W / 16][4];
     float b = 0.0f, b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if constexpr (is_bf16<T>) {
-      load_a_fragments<W>(a.w_ih, unit & ~7, lane, a_ih);
-      load_a_fragments<W>(a.w_hh, unit & ~7, lane, a_hh);
+      load_a_fragments<W, MASKED>(a.w_ih, unit & ~7, lane, a_ih, h, d);
+      load_a_fragments<W, MASKED>(a.w_hh, unit & ~7, lane, a_hh, h, h);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) b4[m] = a.bias[m * H + unit_t];
+      for (int m = 0; m < 4; ++m) b4[m] = unit_t < h ? a.bias[m * h + unit_t] : 0.0f;
     } else {
       T* s_w_t = reinterpret_cast<T*>(smem);
       for (int idx = p; idx < G * K; idx += COLS) {
         const int j = idx / K, k = idx % K;  // row j of the weights (gate m, unit u), term k
-        const float wv = k < D ? a.w_ih[j * D + k] : a.w_hh[j * H + (k - D)];
         const int sec = k / D, quad = (k % D) / 4, m = j / H, u = j % H;
+        const size_t row = (size_t)(m * h + u);
+        const float wv = sec == 0 ? load_wm(a.w_ih, u < h, row, k, d) : load_wm(a.w_hh, u < h, row, k - D, h);
         const int slot = ((sec * 4 + m) * NQ + quad / 4) * COLS + u * 4 + quad % 4;
         s_w_t[slot * 4 + k % 4] = wv;
       }
-      b = a.bias[col];
+      b = unit < h ? a.bias[col] : 0.0f;
     }
     constexpr int PER = R * SB * H / COLS;  // staged values per thread, chunk and stream
     float xr[PER], yr[PER], cr[PER], dyr[PER];
@@ -182,12 +191,12 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
         const int e = i * COLS + p;  // [r][s][u]
         const int r = e / (SB * H), s = (e / H) % SB, u = e % H;
         const int row = row0 + r, t = steps - 1 - c * SB - s;
-        const bool ok = row < batch && t >= 0;
-        const size_t at = ((size_t)row * steps + t) * H + u;
-        xr[i] = ok ? load_f(a.x + at) : 0.0f;
-        yr[i] = ok && t > 0 ? load_f(a.y + at - H) : 0.0f;  // h_{t-1} = y_{t-1}, zero at t = 0
-        cr[i] = ok ? a.cprev[at] : 0.0f;
-        dyr[i] = ok ? load_f(a.dy + at) : 0.0f;
+        const bool ok = row < batch && t >= 0, uh = ok && u < h;
+        const size_t at = (size_t)row * steps + t;  // (row, t) of the streams
+        xr[i] = ok && u < d ? load_f(a.x + at * d + u) : 0.0f;
+        yr[i] = uh && t > 0 ? load_f(a.y + (at - 1) * h + u) : 0.0f;  // h_{t-1} = y_{t-1}, zero at t = 0
+        cr[i] = uh ? a.cprev[at * h + u] : 0.0f;
+        dyr[i] = uh ? load_f(a.dy + at * h + u) : 0.0f;
       }
     };
     fetch(0);
@@ -314,7 +323,8 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
     for (int e = 0; e < EP; ++e)
 #pragma unroll
       for (int o = 0; o < 4; ++o)
-        w[(q * EP + e) * 4 + o] = load_w<T>(a.w_hh, (size_t)(q * H + EP * jp + e) * H + unit0 + o);
+        w[(q * EP + e) * 4 + o] = operand(load_wm(a.w_hh, EP * jp + e < h, (size_t)(q * h + EP * jp + e),
+                                                   unit0 + o, h), a.x);
   float dh[R], dc[R], db_acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
@@ -338,7 +348,7 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
         dc[r] = dc_total * e[G + H + unit];
         db_acc[r] += da;
         da_s[r * DR + gate * DG + unit] = operand(da, a.x);
-        if (FUSED || row0 + r < batch) store_f(da_dst + (size_t)(r * steps + t) * da_stride + col, da);
+        if ((FUSED || row0 + r < batch) && unit < h) store_f(da_dst + (size_t)(r * steps + t) * da_stride + col, da);
       }
       bar_sync(BAR_CONS, COLS);
       // Each output's 4 EP terms in order (q, e), one running sum; then the 16 parts:
@@ -383,16 +393,16 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
   float total = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) total += db_acc[r];
-  db_out[col] = total;
+  if (unit < h) db_out[col] = total;
 }
 
-template <typename T, int R, int W>
+template <typename T, int R, int W, bool MASKED>
 __global__ void __launch_bounds__(8 * W, 1)
 lstm_bwd_rec_kernel(const BwdArgs<T> a, T* __restrict__ da_out, float* __restrict__ db_part) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int row0 = blockIdx.x * R;
-  bwd_recurrence<T, R, W, false>(a, smem, row0, da_out + (size_t)row0 * a.steps * (4 * W), 4 * W,
-                                 db_part + (size_t)blockIdx.x * (4 * W), nullptr, 0, [] {});
+  const int row0 = blockIdx.x * R, g = MASKED ? 4 * a.h : 4 * W;
+  bwd_recurrence<T, R, W, false, MASKED>(a, smem, row0, da_out + (size_t)row0 * a.steps * g, g,
+                                         db_part + (size_t)blockIdx.x * g, nullptr, 0, [] {});
 }
 
 // ---- fp32: dx and dW on the CUDA cores, in full fp32 ----
@@ -746,7 +756,7 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
 
   // 1. The recurrence.  Its producers, done with their last chunk while the
   // consumers still run, zero the padding rows and stage W_ih^T.
-  bwd_recurrence<T, R, W, true>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
+  bwd_recurrence<T, R, W, true, false>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
     for (int i = tid - G; i < (nrp - nr) * DAP; i += G) store_f(s_da + nr * DAP + i, 0.0f);
     for (int i = tid - G; i < (nrp - nr) * VP; i += G) store_f(s_v + nr * VP + i, 0.0f);
     if constexpr (is_bf16<T>)
@@ -907,11 +917,486 @@ cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* 
 template <typename T, int R, int W>
 cudaError_t launch_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream) {
   constexpr int smem = rec_smem_bytes<T, R, W>();
-  static SmemOnce once;
-  cudaError_t err = once.set(lstm_bwd_rec_kernel<T, R, W>, smem);
+  static SmemOnce once, once_masked;
+  const bool square = a.d == W && a.h == W;
+  auto kernel = square ? lstm_bwd_rec_kernel<T, R, W, false> : lstm_bwd_rec_kernel<T, R, W, true>;
+  cudaError_t err = (square ? once : once_masked).set(kernel, smem);
   if (err != cudaSuccess) return err;
-  lstm_bwd_rec_kernel<T, R, W><<<(a.batch + R - 1) / R, 8 * W, smem, stream>>>(a, da, db_part);
+  kernel<<<(a.batch + R - 1) / R, 8 * W, smem, stream>>>(a, da, db_part);
   return cudaGetLastError();
+}
+
+// ---- Any width: dx, dW and the ordered sum at runtime D and H ----
+//
+// The four-launch path's products for a call whose widths are not a
+// capacity's square (D != H, or a width other than 16, 32, 64; and every
+// call above 64): G = 4 H gate columns, K = D + H terms, tails masked.  Tiles
+// of 64 x 64 outputs, 4 x 4 a thread, the reduction's terms in order (two
+// runs give the same bits).  bf16: da is bf16 already and W_ih is rounded as
+// it is staged, so every product is exact in fp32 and sums in fp32; fp32
+// stays fp32 (CUDA cores, no TF32).
+constexpr int AT = 64;   // outputs of a tile's side
+constexpr int AK = 16;   // dx: gate columns staged per step
+constexpr int AN = 32;   // dW: rows of the (B*T) axis staged per step
+
+// dx[n][k] = sum_j da[n][j] W_ih[j][k], j < 4h, k < d.  Grid (ceil(rows / 64), ceil(d / 64)).
+template <typename T>
+__global__ void __launch_bounds__(256)
+lstm_bwd_dx_any_kernel(const T* __restrict__ da, const float* __restrict__ w_ih, T* __restrict__ dx,
+                       long long n_rows, int d, int h) {
+  __shared__ __align__(16) float s_a[AK][AT + 4];  // [j][n]
+  __shared__ __align__(16) float s_w[AK][AT + 4];  // [j][k]
+  const int g = 4 * h, tid = threadIdx.x, tn = tid / 16, tk = tid % 16;
+  const long long n0 = (long long)blockIdx.x * AT;
+  const int k0 = blockIdx.y * AT;
+  float acc[4][4] = {};
+  for (int j0 = 0; j0 < g; j0 += AK) {
+    __syncthreads();
+    for (int i = tid; i < AK * AT; i += 256) {
+      const int jj = i % AK, nn = i / AK;  // da is row-major in n: consecutive threads take consecutive j
+      const long long n = n0 + nn;
+      s_a[jj][nn] = n < n_rows && j0 + jj < g ? load_f(da + n * g + j0 + jj) : 0.0f;
+      const int kk = i % AT, jw = i / AT;
+      s_w[jw][kk] = operand(load_wm(w_ih, j0 + jw < g, (size_t)(j0 + jw), k0 + kk, d), da);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < AK; ++jj) {
+      const float4 a = *reinterpret_cast<const float4*>(&s_a[jj][tn * 4]);
+      const float4 w = *reinterpret_cast<const float4*>(&s_w[jj][tk * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long n = n0 + tn * 4 + i;
+      const int k = k0 + tk * 4 + q;
+      if (n < n_rows && k < d) store_f(dx + n * d + k, acc[i][q]);
+    }
+}
+
+// part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m], v = [x
+// | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0), j < 4h, m < d +
+// h.  Grid (n_chunks, ceil(4h / 64), ceil((d + h) / 64)).
+template <typename T>
+__global__ void __launch_bounds__(256)
+lstm_bwd_dw_any_kernel(const T* __restrict__ da, const T* __restrict__ x, const T* __restrict__ y,
+                       float* __restrict__ part, long long n_rows, int steps, long long chunk_rows, int d, int h) {
+  __shared__ __align__(16) float s_a[AN][AT + 4];  // [n][j]
+  __shared__ __align__(16) float s_v[AN][AT + 4];  // [n][m]
+  const int g = 4 * h, kk = d + h, tid = threadIdx.x, tj = tid / 16, tm = tid % 16;
+  const int j0 = blockIdx.y * AT, m0 = blockIdx.z * AT;
+  const long long begin = blockIdx.x * chunk_rows;
+  const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
+  float acc[4][4] = {};
+  for (long long base = begin; base < end; base += AN) {
+    __syncthreads();
+    for (int i = tid; i < AN * AT; i += 256) {
+      const int nn = i / AT, c = i % AT;
+      const long long n = base + nn;
+      const int j = j0 + c, m = m0 + c;
+      s_a[nn][c] = n < end && j < g ? load_f(da + n * g + j) : 0.0f;
+      float v = 0.0f;
+      if (n < end && m < kk) {
+        if (m < d) v = load_f(x + n * d + m);
+        else if (n % steps != 0) v = load_f(y + (n - 1) * h + (m - d));
+      }
+      s_v[nn][c] = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int nn = 0; nn < AN; ++nn) {
+      const float4 a = *reinterpret_cast<const float4*>(&s_a[nn][tj * 4]);
+      const float4 v = *reinterpret_cast<const float4*>(&s_v[nn][tm * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], vv[q], acc[i][q]);
+    }
+  }
+  float* out = part + (size_t)blockIdx.x * g * kk;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + tj * 4 + i, m = m0 + tm * 4 + q;
+      if (j < g && m < kk) out[(size_t)j * kk + m] = acc[i][q];
+    }
+}
+
+// dW_ih / dW_hh = the sum of the chunk partials; db = the sum of the
+// recurrent blocks' partials.  Fixed order, one thread per output.
+__global__ void __launch_bounds__(256)
+lstm_bwd_sum_any_kernel(const float* __restrict__ part, int n_chunks, const float* __restrict__ db_part,
+                        int n_blocks, float* __restrict__ dw_ih, float* __restrict__ dw_hh,
+                        float* __restrict__ db, int d, int h) {
+  const int g = 4 * h, kk = d + h;
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx < (long long)g * kk) {
+    float s = 0.0f;
+    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * g * kk + idx];
+    const int j = (int)(idx / kk), m = (int)(idx % kk);
+    if (m < d) dw_ih[(size_t)j * d + m] = s;
+    else dw_hh[(size_t)j * h + (m - d)] = s;
+  }
+  if (idx < g) {
+    float s = 0.0f;
+    for (int b = 0; b < n_blocks; ++b) s += db_part[(size_t)b * g + idx];
+    db[idx] = s;
+  }
+}
+
+// ---- Widths above 64: the recurrence on a thread-block cluster ----
+//
+// The forward's cluster (lstm_fwd.cu, "widths above 64") transposed: K =
+// ceil(H / 32) CTAs own R batch rows, CTA r hidden units [32 r, 32 r + 32).
+// - 128 producer threads recompute the gates of the CTA's 128 gate rows
+//   from x_t, h_{t-1} = y_{t-1} and c_{t-1} ahead of the carry, 8 steps a
+//   chunk, and leave each step's local derivatives in a two-buffer ring, as
+//   lstm_bwd_rec's producers do: W_ih's and W_hh's rows read from L2, CKB
+//   terms a batch in flight together (fp32 on the CUDA cores; bf16 on the
+//   tensor cores, the chunk's 8 steps a tile).
+// - 256 consumer threads, 8 lanes a unit, carry (dh, dc) of the CTA's units:
+//   each step they form da of the CTA's 128 gate columns locally, write it
+//   (rounded to the operand type) into every CTA's shared memory with
+//   st.async, counted on that CTA's mbarrier for the step (lstm_fwd.cu's
+//   exchange), wait on their own for all K slices,
+//   and form dh_{t-1} of their own units from W_hh's columns for those units
+//   (4 HW rows x 32 columns in registers, HW = 128 or 256: the forward's
+//   byte count), each unit's 4 HW terms split over its 8 lanes and summed by
+//   three butterfly exchanges, the same sum in all 8 lanes.  da is
+//   double-buffered, one wait a step.
+// - da goes to the (B, T, 4H) scratch and each cluster's db to its row of
+//   the partials; the dx / dW / sum kernels above finish the call.  No
+//   atomics: two calls give the same bits.
+// (CU, CPROD, CKB, ...: lstm_common.cuh)
+constexpr int CCONS = CU * CLANES;     // consumer threads
+constexpr int CRING = CROWS + 3 * CU;  // a (step, row) of the ring: factor[4 unit + gate] | dtanh | f | dy
+// x_t | h_{t-1} rows: x in round_up(d, CKB), h in round_up(h, CKB), zeros
+// past them, bf16 rows + 8 so that 8 rows fall in distinct banks.
+template <typename T> __host__ __device__ constexpr int cxh_pitch(int d, int h) {
+  return round_up(d, CKB) + round_up(h, CKB) + (is_bf16<T> ? 8 : 0);
+}
+
+template <typename T, int R, int HW>
+size_t bwd_cluster_smem_bytes(int d, int h) {
+  return 16 + sizeof(float) * ((size_t)NBUF * SB * R * CRING + R * SB * CU + 2 * R * 4 * HW) +
+         sizeof(T) * (size_t)R * SB * cxh_pitch<T>(d, h);
+}
+
+template <typename T, int R, int HW>
+__global__ void __launch_bounds__(CCONS + CPROD, 1)
+lstm_bwd_cluster_kernel(const BwdArgs<T> a, T* __restrict__ da_out, float* __restrict__ db_part) {
+  constexpr int THREADS = CCONS + CPROD, DAR = 4 * HW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);      // [2]: step i's da of every CTA is in s_da[i & 1]
+  float* s_ring = reinterpret_cast<float*>(smem + 16);     // [NBUF][SB][R][CRING]
+  float* s_c = s_ring + NBUF * SB * R * CRING;             // [R][SB][CU]: c_{t-1} of the CTA's units
+  float* s_da = s_c + R * SB * CU;                         // [2][R][4 HW]: da, gate m of unit u at m HW + u
+  T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DAR);      // [R][SB][xhp]: x_t | h_{t-1}
+  const int batch = a.batch, steps = a.steps, d = a.d, h = a.h;
+  const int xl = round_up(d, CKB), hl = round_up(h, CKB), xhp = cxh_pitch<T>(d, h);
+  const uint32_t rank = cluster_rank(), n_cta = (h + CU - 1) / CU;
+  const int u0 = rank * CU, cluster = blockIdx.x / n_cta, row0 = cluster * R;
+  const int n_chunks = (steps + SB - 1) / SB;
+  // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
+
+  if (threadIdx.x == 0) {
+    mbar_init(mbar, 1);  // this CTA's arrival (mbar_expect) and the st.async bytes of every CTA's da
+    mbar_init(mbar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < 2 * R * DAR; i += THREADS) s_da[i] = 0.0f;  // units no CTA owns stay 0
+  __syncthreads();
+  cluster_sync_all();
+
+  if (threadIdx.x >= CCONS) {
+    // ---- producers: the gate recompute and each step's local derivatives ----
+    const int tp = threadIdx.x - CCONS, lane = tp & 31, g8 = lane >> 2, t4 = lane & 3;
+    const int quad_lane = lane & ~3;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      float* ring = s_ring + buf * SB * R * CRING;
+      bar_sync(BAR_PROD, CPROD);  // the last chunk's reads of s_xh and s_c are done
+      if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
+      stage<8>(R * SB * xhp, tp, CPROD, [&](int i) {
+        const int r = i / (SB * xhp), s = (i / xhp) % SB, k = i % xhp;
+        const int row = row0 + r, t = steps - 1 - c * SB - s;
+        const bool ok = row < batch && t >= 0;
+        const size_t at = (size_t)row * steps + t;
+        if (k < xl) return ok && k < d ? load_f(a.x + at * d + k) : 0.0f;
+        return ok && t > 0 && k - xl < h ? load_f(a.y + (at - 1) * h + (k - xl)) : 0.0f;
+      }, [&](int i, float v) { store_f(s_xh + i, v); });
+      // (r, s, u) of this CTA's c_{t-1} and dy, and where they go: s_c[i], the ring's dy slot
+      auto at_c = [&](int i) -> long long {
+        const int r = i / (SB * CU), s = (i / CU) % SB, u = i % CU;
+        const int row = row0 + r, t = steps - 1 - c * SB - s, gu = u0 + u;
+        return row < batch && t >= 0 && gu < h ? ((long long)row * steps + t) * h + gu : -1;
+      };
+      auto dy_slot = [&](int i) {
+        return ring + ((i / CU) % SB * R + i / (SB * CU)) * CRING + CROWS + 2 * CU + i % CU;
+      };
+      stage<2>(R * SB * CU, tp, CPROD, [&](int i) { const long long at = at_c(i); return at < 0 ? 0.0f : a.cprev[at]; },
+               [&](int i, float v) { s_c[i] = v; });
+      stage<2>(R * SB * CU, tp, CPROD, [&](int i) { const long long at = at_c(i); return at < 0 ? 0.0f : load_f(a.dy + at); },
+               [&](int i, float v) { *dy_slot(i) = v; });
+      bar_sync(BAR_PROD, CPROD);
+      if constexpr (is_bf16<T>) {
+        // Tensor cores: warp tp / 32 owns units 8 (tp / 32) .. + 7; a row's 8 steps are one
+        // mma tile, and the lane ends with the four gates of unit_t for steps 2 t4, 2 t4 + 1.
+        const int unit_t = (tp >> 5) * 8 + g8, gu = u0 + unit_t;
+        const bool ok = gu < h;
+#pragma unroll 1
+        for (int r = 0; r < R; ++r) {
+          float acc[2][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[0][e] = ok ? a.bias[(e / 2) * h + gu] : 0.0f;
+            acc[1][e] = ok ? a.bias[(2 + e / 2) * h + gu] : 0.0f;
+          }
+          const T* v = s_xh + (r * SB + g8) * xhp + 2 * t4;
+          for (int sec = 0; sec < 2; ++sec) {
+            const float* wm = sec == 0 ? a.w_ih : a.w_hh;
+            const int ncols = sec == 0 ? d : h, len = sec == 0 ? xl : hl, off = sec == 0 ? 0 : xl;
+            for (int k0 = 0; k0 < len; k0 += CKB) {
+              uint32_t af[CKB / 16][2][4];  // the batch's k-tiles' fragments, loaded together
+#pragma unroll
+              for (int j = 0; j < CKB / 16; ++j)
+#pragma unroll
+                for (int tile = 0; tile < 2; ++tile) {
+                  const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
+                  const int k = k0 + j * 16 + 2 * t4;
+                  af[j][tile][0] = load_w2m(wm, ok, lo, k, ncols);
+                  af[j][tile][1] = load_w2m(wm, ok, hi, k, ncols);
+                  af[j][tile][2] = load_w2m(wm, ok, lo, k + 8, ncols);
+                  af[j][tile][3] = load_w2m(wm, ok, hi, k + 8, ncols);
+                }
+#pragma unroll
+              for (int j = 0; j < CKB / 16; ++j) {
+                const uint32_t b0 = ld32(v + off + k0 + j * 16), b1 = ld32(v + off + k0 + j * 16 + 8);
+                mma_bf16(acc[0], af[j][0], b0, b1);
+                mma_bf16(acc[1], af[j][1], b0, b1);
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int s = 2 * t4 + e;
+            const float ig = sigmoid(acc[0][e]), fg = sigmoid(acc[0][2 + e]);
+            const float gg = tanh_sig(acc[1][e]), og = sigmoid(acc[1][2 + e]);
+            const float c_prev = s_c[(r * SB + s) * CU + unit_t];
+            const float tc = tanh_sig(fg * c_prev + ig * gg);
+            float* en = ring + (s * R + r) * CRING;
+            *reinterpret_cast<float4*>(en + unit_t * 4) =
+                make_float4(gg * ig * (1.0f - ig), c_prev * fg * (1.0f - fg), ig * (1.0f - gg * gg),
+                            tc * og * (1.0f - og));
+            en[CROWS + unit_t] = og * (1.0f - tc * tc);
+            en[CROWS + CU + unit_t] = fg;
+          }
+        }
+      } else {
+        // CUDA cores: thread tp owns gate row (unit tp / 4, gate tp % 4), the chunk's
+        // 8 steps in flight; gate = (x . W_ih + b) + h . W_hh, each product's terms in order.
+        const int unit = tp >> 2, gate = tp & 3, gu = u0 + unit;
+        const bool ok = gu < h;
+        const size_t wrow = (size_t)(gate * h + gu);
+        const float b = ok ? a.bias[gate * h + gu] : 0.0f;
+#pragma unroll 1
+        for (int r = 0; r < R; ++r) {
+          float px[SB], ph[SB];
+#pragma unroll
+          for (int s = 0; s < SB; ++s) px[s] = ph[s] = 0.0f;
+          const float* xh = reinterpret_cast<const float*>(s_xh) + r * SB * xhp;
+          // one product's terms in order, CKB weights of the row in flight at once
+          auto product = [&](float (&acc)[SB], const float* wm, int ncols, int len, int off) {
+            for (int k0 = 0; k0 < len; k0 += CKB) {
+              float wv[CKB];
+              load_wrow<CKB>(wv, wm, ok, wrow, k0, ncols);
+#pragma unroll
+              for (int q = 0; q < CKB / 4; ++q)
+#pragma unroll
+                for (int s = 0; s < SB; ++s)
+                  dot_quad(acc[s], wv[4 * q], wv[4 * q + 1], wv[4 * q + 2], wv[4 * q + 3],
+                           *reinterpret_cast<const float4*>(xh + s * xhp + off + k0 + 4 * q));
+            }
+          };
+          product(px, a.w_ih, d, xl, 0);
+          product(ph, a.w_hh, h, hl, xl);
+          float act[SB], ig[SB], fg[SB], gg[SB], og[SB];
+#pragma unroll
+          for (int s = 0; s < SB; ++s) act[s] = activate(gate, (px[s] + b) + ph[s]);
+          gather_gates<SB>(act, quad_lane, ig, fg, gg, og);
+#pragma unroll
+          for (int s = 0; s < SB; ++s) {
+            const float c_prev = s_c[(r * SB + s) * CU + unit];
+            const float tc = tanh_sig(fg[s] * c_prev + ig[s] * gg[s]);
+            const float factor = gate == 0 ? gg[s] * ig[s] * (1.0f - ig[s])
+                               : gate == 1 ? c_prev * fg[s] * (1.0f - fg[s])
+                               : gate == 2 ? ig[s] * (1.0f - gg[s] * gg[s])
+                                           : tc * og[s] * (1.0f - og[s]);
+            float* en = ring + (s * R + r) * CRING;
+            en[tp] = factor;
+            if (gate == 0) {
+              en[CROWS + unit] = og[s] * (1.0f - tc * tc);
+              en[CROWS + CU + unit] = fg[s];
+            }
+          }
+        }
+      }
+      __threadfence_block();
+      bar_arrive(BAR_FULL + buf, THREADS);
+    }
+  } else {
+    // ---- consumers: the (dh, dc) carry, da exchanged through the cluster ----
+    // Thread tc is lane l of unit tc / 8: it takes quads 8 q + l (q < HW / 8) of
+    // the 4 HW da values, w[q][e] = W_hh[row of da value 4 (8 q + l) + e][its unit].
+    constexpr int NQ = HW / 8;
+    const int tc = threadIdx.x, unit = tc / CLANES, l = tc % CLANES, gate = l & 3, gu = u0 + unit;
+    float w[NQ][4];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * (8 * q + l) + e, m = j / HW, ug = j % HW;
+        w[q][e] = operand(load_wm(a.w_hh, ug < h, (size_t)(m * h + ug), gu, h), a.x);
+      }
+    float dh[R], dc[R], db_acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
+    const uint32_t da_off = (uint32_t)((gate * HW + gu) * sizeof(float));  // this lane's da in a row
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c % NBUF;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const float* ring = s_ring + buf * SB * R * CRING;
+      const int t_hi = steps - 1 - c * SB;
+      const int n = t_hi + 1 < SB ? t_hi + 1 : SB;
+      for (int s = 0; s < n; ++s) {
+        const int i = c * SB + s, t = t_hi - s;
+        if (tc == 0) mbar_expect(mbar + (i & 1), n_cta * CROWS * R * sizeof(float));
+        float da[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float* e = ring + (s * R + r) * CRING;
+          const float dh_total = e[CROWS + 2 * CU + unit] + dh[r];
+          const float dc_total = dc[r] + dh_total * e[CROWS + unit];
+          da[r] = (gate == 3 ? dh_total : dc_total) * e[unit * 4 + gate];
+          dc[r] = dc_total * e[CROWS + CU + unit];
+          if (l < 4) db_acc[r] += da[r];
+          const uint32_t dq = __float_as_uint(operand(da[r], a.x));
+          const uint32_t off = (uint32_t)(((i & 1) * R + r) * DAR * sizeof(float)) + da_off;
+          for (uint32_t k = l >> 2; k < n_cta; k += 2)
+            st_async_peer(peer_addr(s_da, k) + off, dq, peer_addr(mbar + (i & 1), k));
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (l < 4 && row0 + r < batch && gu < h)
+            store_f(da_out + ((size_t)(row0 + r) * steps + t) * (4 * h) + gate * h + gu, da[r]);
+        mbar_wait_parity(mbar + (i & 1), (i >> 1) & 1);
+        // dh_{t-1} of this unit = da . W_hh[:, unit]: the lane's terms in order (q, e),
+        // then lanes 4, 2 and 1 apart.
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float* av = s_da + ((i & 1) * R + r) * DAR;
+          float part = 0.0f;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) dot_quad(part, w[q][0], w[q][1], w[q][2], w[q][3],
+                                               *reinterpret_cast<const float4*>(av + 4 * (8 * q + l)));
+          part += __shfl_xor_sync(0xffffffffu, part, 4);
+          part += __shfl_xor_sync(0xffffffffu, part, 2);
+          dh[r] = part + __shfl_xor_sync(0xffffffffu, part, 1);
+        }
+      }
+      if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+    if (l < 4 && gu < h) {
+      float total = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) total += db_acc[r];
+      db_part[(size_t)cluster * 4 * h + gate * h + gu] = total;
+    }
+  }
+  cluster_sync_all();  // no CTA leaves while a peer may still write its da or arrive on its mbarriers
+}
+
+template <typename T, int R, int HW>
+cudaError_t launch_cluster_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream) {
+  static SmemOnce once;  // the card's opt-in limit: the need grows with D and H
+  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, 0);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, (a.batch + R - 1) / R, a.h, CCONS + CPROD,
+                                                bwd_cluster_smem_bytes<T, R, HW>(a.d, a.h), stream);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<T, R, HW>, a, da, db_part);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// Clusters of R rows the device holds at once for widths (d, h), by
+// cudaOccupancyMaxActiveClusters, or -cudaError (lstm_fwd.cu's).
+template <typename T, int R, int HW>
+int cluster_slots_rows(int d, int h) {
+  static SmemOnce once;
+  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, 0);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, h, CCONS + CPROD, bwd_cluster_smem_bytes<T, R, HW>(d, h), 0);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, lstm_bwd_cluster_kernel<T, R, HW>, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T>
+int cluster_slots(int rows, int d, int h) {
+  if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return -(int)cudaErrorInvalidValue;
+  if (rows == 1) return h <= 128 ? cluster_slots_rows<T, 1, 128>(d, h) : cluster_slots_rows<T, 1, 256>(d, h);
+  if (rows == 2) return h <= 128 ? cluster_slots_rows<T, 2, 128>(d, h) : cluster_slots_rows<T, 2, 256>(d, h);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// dx, dW and the sum at runtime widths (the four-launch path's last three).
+template <typename T>
+cudaError_t launch_any_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh, float* db, const T* da,
+                                float* part, const float* db_part, int n_chunks, int n_blocks,
+                                cudaStream_t stream) {
+  const long long n_rows = (long long)a.batch * a.steps;
+  const int g = 4 * a.h, kk = a.d + a.h;
+  const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+  lstm_bwd_dx_any_kernel<T><<<dim3((unsigned)((n_rows + AT - 1) / AT), (a.d + AT - 1) / AT), 256, 0, stream>>>(
+      da, a.w_ih, dx, n_rows, a.d, a.h);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lstm_bwd_dw_any_kernel<T><<<dim3(n_chunks, (g + AT - 1) / AT, (kk + AT - 1) / AT), 256, 0, stream>>>(
+      da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d, a.h);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kk + 255) / 256), 256, 0, stream>>>(
+      part, n_chunks, db_part, n_blocks, dw_ih, dw_hh, db, a.d, a.h);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* part,
+                   float* db_part, int rows, int n_chunks, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (a.d < 1 || a.h < 1 || a.d > MAX_WIDTH || a.h > MAX_WIDTH || n_chunks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (rows == 1)
+    err = a.h <= 128 ? launch_cluster_rec<T, 1, 128>(a, (T*)da, db_part, stream)
+                     : launch_cluster_rec<T, 1, 256>(a, (T*)da, db_part, stream);
+  else if (rows == 2)
+    err = a.h <= 128 ? launch_cluster_rec<T, 2, 128>(a, (T*)da, db_part, stream)
+                     : launch_cluster_rec<T, 2, 256>(a, (T*)da, db_part, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
+                                     (a.batch + rows - 1) / rows, stream);
 }
 
 template <typename T, int W>
@@ -920,11 +1405,14 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int batch = a.batch, steps = a.steps;
   const long long n_rows = (long long)batch * steps;
+  const bool square = a.d == W && a.h == W;  // else masked: D, H <= W at runtime
   if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
+  if (a.d < 1 || a.h < 1 || a.d > W || a.h > W) return (int)cudaErrorInvalidValue;
   if (fused) {
     if constexpr (W == 32)
-      return (int)(rows == 1 ? launch_fused<T, 1, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
-                             : launch_fused<T, 2, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
+      if (square)
+        return (int)(rows == 1 ? launch_fused<T, 1, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
+                               : launch_fused<T, 2, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
     return (int)cudaErrorInvalidValue;
   }
   if (n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
@@ -933,6 +1421,9 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
   cudaError_t err = rows == 1 ? launch_rec<T, 1, W>(a, (T*)da, db_part, stream)
                               : launch_rec<T, 2, W>(a, (T*)da, db_part, stream);
   if (err != cudaSuccess) return (int)err;
+  if (!square)
+    return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
+                                       rec_blocks, stream);
 
   constexpr int G = 4 * W, K = 2 * W;
   const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
@@ -966,18 +1457,19 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
 
 extern "C" {
 
-// Width 64 (no suffix), width 32 (_w32) and width 16 (_w16), G = 4 W.  x: (B, T, W), y:
-// (B, T, W) (the forward's output), both in the instantiation's type; dy:
-// (B, T, W), all three in the instantiation's type; w_ih / w_hh: (G, W)
-// fp32, 8-byte aligned; cprev: (B, T, W) fp32; bias: (G,) fp32.
-// Outputs, every element written: dx (B, T, W) in the instantiation's
-// type, dw_ih / dw_hh (G, W) and db (G,) fp32.  rows: batch rows per
-// recurrent block, 1 or 2.  fused = 0, the four launches: scratch da
-// (B, T, G) in the instantiation's type, part (n_chunks, G, 2 W) fp32,
-// db_part (ceil(B / rows), G) fp32; dx_blocks: the dx kernel's grid.
-// fused = 1 (W = 32 only; its rows' da must fit a block's shared memory,
-// which the plan's T <= 64 keeps): one cooperative launch of ceil(B /
-// rows) blocks, which must all be resident at once; scratch part
+// Capacity 64 (no suffix), 32 (_w32) and 16 (_w16), for any 1 <= D, H <= the
+// capacity; and the cluster path (_cluster), for any 1 <= D, H <= 256.  G =
+// 4 H.  x: (B, T, D), y: (B, T, H) (the forward's output) and dy: (B, T, H),
+// all three in the instantiation's type; w_ih: (G, D), w_hh: (G, H) fp32,
+// 8-byte aligned; cprev: (B, T, H) fp32; bias: (G,) fp32.  Outputs, every
+// element written: dx (B, T, D) in the instantiation's type, dw_ih (G, D),
+// dw_hh (G, H) and db (G,) fp32.  rows: batch rows per recurrent block (per
+// cluster), 1 or 2.  fused = 0, the four launches: scratch da (B, T, G) in
+// the instantiation's type, part (n_chunks, G, D + H) fp32, db_part
+// (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid.  fused
+// = 1 (capacity 32 at D = H = 32 only; its rows' da must fit a block's
+// shared memory, which the plan's T <= 64 keeps): one cooperative launch of
+// ceil(B / rows) blocks, which must all be resident at once; scratch part
 // (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and dx_blocks
 // unused.  All contiguous on the current device; B, T >= 1.  Returns the
 // first cudaError_t of the launches (0 = all launched).
@@ -985,9 +1477,10 @@ extern "C" {
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
            const float* w_hh, const float* bias, void* dx,                                        \
            float* dw_ih, float* dw_hh, float* db, void* da, float* part, float* db_part,         \
-           int batch, int steps, int rows, int n_chunks, int dx_blocks, int fused, void* stream) { \
+           int batch, int steps, int d, int h, int rows, int n_chunks, int dx_blocks, int fused,  \
+           void* stream) {                                                                        \
     const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
-                          bias, batch, steps};                                                    \
+                          bias, batch, steps, d, h};                                              \
     return launch<TYPE, W>(a, dx, dw_ih, dw_hh, db, da, part, db_part, rows, n_chunks,           \
                            dx_blocks, fused, stream);                                             \
   }
@@ -998,6 +1491,28 @@ AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w32, __nv_bfloat16, 32)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w16, float, 16)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_BWD_ENTRY
+
+#define AWM_LSTM_BWD_CLUSTER_ENTRY(NAME, TYPE)                                                    \
+  int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
+           const float* w_hh, const float* bias, void* dx,                                        \
+           float* dw_ih, float* dw_hh, float* db, void* da, float* part, float* db_part,         \
+           int batch, int steps, int d, int h, int rows, int n_chunks, int dx_blocks, int fused,  \
+           void* stream) {                                                                        \
+    const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
+                          bias, batch, steps, d, h};                                              \
+    (void)dx_blocks;                                                                              \
+    if (fused) return (int)cudaErrorInvalidValue;                                                 \
+    return launch_cluster<TYPE>(a, dx, dw_ih, dw_hh, db, da, part, db_part, rows, n_chunks, stream); \
+  }
+AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_f32_cluster, float)
+AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_bf16_cluster, __nv_bfloat16)
+#undef AWM_LSTM_BWD_CLUSTER_ENTRY
+
+// Clusters of `rows` rows (1 or 2) of kernel C's recurrence (bf16: 1) that
+// the current device holds at once for widths (d, h); negative: -cudaError.
+int awm_lstm_bwd_cluster_slots(int bf16, int rows, int d, int h) {
+  return bf16 ? cluster_slots<__nv_bfloat16>(rows, d, h) : cluster_slots<float>(rows, d, h);
+}
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

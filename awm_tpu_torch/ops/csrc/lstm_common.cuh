@@ -1,11 +1,20 @@
 // Shapes and helpers shared by the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 //
-// The kernels are templates over the width W = D = H, instantiated for
-// W = 64 (the base family's channel count), W = 32 (the strided family's
+// The register-held kernels are templates over a capacity W, instantiated
+// for W = 64 (the base family's channel count), W = 32 (the strided family's
 // hidden width) and W = 16 (the multi-process dry run of
-// awm_tpu_torch/entry.py), torch gate order (i, f, g, o).  T is the operand
-// type: float for the fp32 contract, __nv_bfloat16 for the bf16 one (bf16
-// operands, every product exact in fp32, fp32 sums and state).
+// awm_tpu_torch/entry.py), torch gate order (i, f, g, o).  A call passes its
+// real input width D and hidden width H (runtime arguments, max(D, H) <= W):
+// the weights load row g H + j, column k < D (or k < H), zero elsewhere, x
+// is read with row stride D, and y, c_{t-1}, da and the gradients are
+// written only where j < H and k < D.  A padded hidden unit stays exactly
+// zero: its gate pre-activations are 0, so g = tanh 0 = 0, c = 0 and h =
+// sigmoid(0) tanh(0) = 0, and its zero h adds +0 to every sum.  At D = H = W
+// the arithmetic is the one the kernels had before the runtime widths.
+// Widths above 64 take a thread-block cluster (lstm_fwd.cu and lstm_bwd.cu,
+// "widths above 64").  T is the operand type: float for the fp32 contract,
+// __nv_bfloat16 for the bf16 one (bf16 operands, every product exact in
+// fp32, fp32 sums and state).
 //
 // Both recurrent kernels are warp-specialised.  A block has 8 W threads
 // (512 at W = 64, 256 at W = 32, 128 at W = 16): the first half of the
@@ -33,10 +42,12 @@
 
 namespace awm {
 
-// The shapes of width W.  Every kernel declares them from its W as
+// The shapes of capacity W.  Every kernel declares them from its W as
 //   D = W (input width), H = W (hidden width), G = 4 W (gate columns),
 //   K = D + H (terms of one gate's dot product), COLS = G (threads of one
-//   role: one per gate column), THREADS = 2 COLS (consumers, then producers).
+//   role: one per gate column), THREADS = 2 COLS (consumers, then producers);
+// its shared-memory layouts are the capacity's, the call's real widths are
+// runtime arguments d and h.
 template <int W>
 constexpr bool valid_width = W == 16 || W == 32 || W == 64;  // the register-held weight rows: 1, 2 or 4 quads a lane
 
@@ -67,14 +78,6 @@ __device__ __forceinline__ float operand(float v, const __nv_bfloat16*) {
 
 template <typename T>
 constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// Weight i as the operand type T sees it.  The weights come fp32 to every
-// instantiation; a bf16 one rounds them to nearest even as it loads them,
-// as Tensor.to(torch.bfloat16) does, so no cast kernel runs beside a launch.
-template <typename T>
-__device__ __forceinline__ float load_w(const float* w, size_t i) {
-  return operand(w[i], static_cast<const T*>(nullptr));
-}
 
 // 1 / d for 1 <= d < 2^120: the hardware's approximate reciprocal and one
 // Newton step.  Within 1 ulp, and no branch for special cases: a step's
@@ -156,14 +159,24 @@ __device__ __forceinline__ void gather_gates(const float act[N], int quad_lane, 
   }
 }
 
+// Weight (row, k) of a (4 h, ncols) fp32 matrix, or 0 where the row's unit
+// (row_ok) or the column lies past the call's real widths.  The weights come
+// fp32 to every instantiation; a bf16 one rounds them to nearest even as it
+// loads them (operand, load_w2m), as Tensor.to(torch.bfloat16) does, so no
+// cast kernel runs beside a launch.
+__device__ __forceinline__ float load_wm(const float* w, bool row_ok, size_t row, int k, int ncols) {
+  return row_ok && k < ncols ? w[row * ncols + k] : 0.0f;
+}
+
 // This lane's W weights of the split above (4 gates x NQ quads x 4 terms),
 // in the operand type and widened into registers for the whole launch:
-// w[(m * NQ + q) * 4 + e] = term 4 (4 q + kp) + e of gate m's row (W terms
-// long) for this unit.  Every index is a compile-time constant after
-// unrolling, so w stays in registers.
+// w[(m * NQ + q) * 4 + e] = term 4 (4 q + kp) + e of gate m's row (row m h +
+// unit of the (4 h, ncols) matrix; zero past the real widths) for this
+// unit.  Every index is a compile-time constant after unrolling, so w stays
+// in registers.
 template <int W, typename T>
 __device__ __forceinline__ void load_gate_weights(const float* __restrict__ wmat, int unit, int kp,
-                                                  float w[W]) {
+                                                  float w[W], int h, int ncols) {
   constexpr int NQ = W / 16;
 #pragma unroll
   for (int m = 0; m < 4; ++m)
@@ -171,7 +184,8 @@ __device__ __forceinline__ void load_gate_weights(const float* __restrict__ wmat
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        w[(m * NQ + q) * 4 + e] = load_w<T>(wmat, (m * W + unit) * W + 4 * (4 * q + kp) + e);
+        w[(m * NQ + q) * 4 + e] = operand(load_wm(wmat, unit < h, (size_t)(m * h + unit), 4 * (4 * q + kp) + e, ncols),
+                                          static_cast<const T*>(nullptr));
 }
 
 // acc[m] += this lane's W / 4 terms of gate m, m = 0..3; v points at the W
@@ -203,12 +217,48 @@ __device__ __forceinline__ void dot_parts(float acc[4], const float w[W], const 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-// fp32 weights i and i + 1 (i even, 8-byte aligned) as one bf16 pair,
-// rounded to nearest even, the lower element in the low half.
+// KB consecutive weights (row, k .. k + KB - 1) of a (4 h, ncols) fp32 matrix
+// (load_wm's zeros past the real widths): KB independent loads in flight
+// at once, so that a loop over a row read from L2 waits on its latency once
+// a KB terms and not once a quad.
+template <int KB>
+__device__ __forceinline__ void load_wrow(float (&w)[KB], const float* wm, bool row_ok, size_t row, int k,
+                                          int ncols) {
+#pragma unroll
+  for (int i = 0; i < KB; ++i) w[i] = load_wm(wm, row_ok, row, k + i, ncols);
+}
+
+// put(i, get(i)) for i = t, t + threads, ... < n: a role's threads staging a
+// chunk from device memory into shared memory, SG loads in flight a thread
+// before their stores, so that the chunk waits on the loads' latency once a
+// SG elements and not once an element.
+template <int SG, typename Get, typename Put>
+__device__ __forceinline__ void stage(int n, int t, int threads, Get get, Put put) {
+  for (int i0 = t; i0 < n; i0 += SG * threads) {
+    float v[SG];
+#pragma unroll
+    for (int u = 0; u < SG; ++u) v[u] = i0 + u * threads < n ? get(i0 + u * threads) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < SG; ++u)
+      if (i0 + u * threads < n) put(i0 + u * threads, v[u]);
+  }
+}
+
+// Two fp32 values as one bf16 pair, rounded to nearest even, the first in
+// the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+// fp32 weights i and i + 1 (i even, 8-byte aligned) as one bf16 pair.
 __device__ __forceinline__ uint32_t load_w2(const float* w, size_t i) {
   const float2 v = *reinterpret_cast<const float2*>(w + i);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
-  return *reinterpret_cast<const uint32_t*>(&b);
+  return pack_bf16(v.x, v.y);
+}
+// Weights (row, k) and (row, k + 1) of a (4 h, ncols) fp32 matrix as one
+// bf16 pair (load_wm's zeros past the real widths).
+__device__ __forceinline__ uint32_t load_w2m(const float* w, bool row_ok, size_t row, int k, int ncols) {
+  return pack_bf16(load_wm(w, row_ok, row, k, ncols), load_wm(w, row_ok, row, k + 1, ncols));
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
@@ -229,23 +279,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
                : "r"(addr));
 }
 
-// The A fragments of one fp32 (4 W, W) weight matrix, rounded to bf16, for
-// this warp's 8 units (unit0 = the first): a[tile][kt][0..3], kt =
-// 0..W/16-1 over the W terms (a single k-tile at W = 16).
-template <int W>
+// The A fragments of one fp32 (4 h, ncols) weight matrix, rounded to bf16,
+// for this warp's 8 units (unit0 = the first), zero past the real widths:
+// a[tile][kt][0..3], kt = 0..W/16-1 over W terms (a single k-tile at W = 16).
+// MASKED = false: a square (4 W, W) matrix (h = ncols = W), two weights a
+// load.
+template <int W, bool MASKED = true>
 __device__ __forceinline__ void load_a_fragments(const float* __restrict__ wmat, int unit0,
-                                                 int lane, uint32_t a[2][W / 16][4]) {
-  const int g8 = lane >> 2, t4 = lane & 3;
+                                                 int lane, uint32_t a[2][W / 16][4], int h, int ncols) {
+  const int g8 = lane >> 2, t4 = lane & 3, u = unit0 + g8;
 #pragma unroll
   for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
     for (int kt = 0; kt < W / 16; ++kt) {
-      const size_t lo = (size_t)((2 * tile) * W + unit0 + g8) * W + kt * 16 + 2 * t4;
-      const size_t hi = lo + W * W;  // the tile's second gate, same unit
-      a[tile][kt][0] = load_w2(wmat, lo);
-      a[tile][kt][1] = load_w2(wmat, hi);
-      a[tile][kt][2] = load_w2(wmat, lo + 8);
-      a[tile][kt][3] = load_w2(wmat, hi + 8);
+      const int k = kt * 16 + 2 * t4;
+      if constexpr (MASKED) {
+        const size_t lo = (size_t)(2 * tile * h + u), hi = lo + h;  // the tile's two gates, same unit
+        a[tile][kt][0] = load_w2m(wmat, u < h, lo, k, ncols);
+        a[tile][kt][1] = load_w2m(wmat, u < h, hi, k, ncols);
+        a[tile][kt][2] = load_w2m(wmat, u < h, lo, k + 8, ncols);
+        a[tile][kt][3] = load_w2m(wmat, u < h, hi, k + 8, ncols);
+      } else {
+        const size_t lo = (size_t)((2 * tile) * W + u) * W + k, hi = lo + W * W;
+        a[tile][kt][0] = load_w2(wmat, lo);
+        a[tile][kt][1] = load_w2(wmat, hi);
+        a[tile][kt][2] = load_w2(wmat, lo + 8);
+        a[tile][kt][3] = load_w2(wmat, hi + 8);
+      }
     }
 }
 
@@ -260,6 +320,92 @@ __device__ __forceinline__ void mma_w(float c[2][4], const uint32_t a[2][W / 16]
     mma_bf16(c[0], a[0][kt], b0, b1);
     mma_bf16(c[1], a[1][kt], b0, b1);
   }
+}
+
+// ---- the cluster path (max(D, H) > 64; lstm_fwd.cu and lstm_bwd.cu) ----
+constexpr int CU = 32;          // hidden units a CTA of a cluster owns
+constexpr int CROWS = 4 * CU;   // their gate rows
+constexpr int CPROD = 128;      // producer threads of a CTA
+constexpr int CLANES = 8;       // CUDA-core consumers: lanes a unit
+constexpr int MAX_WIDTH = 256;  // the ceiling on D and H: 8 CTAs (the portable cluster size) of CU units
+constexpr int CKB = 32;         // weight terms a producer loads at once (two mma k-tiles in bf16)
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The launch of `clusters` clusters of ceil(h / CU) CTAs, each of `threads`
+// threads and `smem` bytes of dynamic shared memory (attr: the storage of the
+// cluster-dimension attribute, which cfg points at).
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int clusters, int h, int threads, size_t smem,
+                                         cudaStream_t stream) {
+  const unsigned n_cta = (unsigned)((h + CU - 1) / CU);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * n_cta);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_cta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// ---- mbarriers and thread-block clusters ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// An mbarrier: init to an arrival count.  A cluster's peers may arrive on it
+// only after fence.mbarrier_init and a cluster-wide barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// This CTA's rank in its cluster, and the cluster's size.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster (exited ones aside) arrives, with release,
+// and waits, with acquire: the peers' shared memory and mbarriers are set
+// up before it, and no CTA leaves while a peer may still write to it.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+// The shared::cluster address of this CTA's shared-memory object p in the
+// CTA of the given rank (distributed shared memory).
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+// A 4-byte store into a peer CTA's shared memory (st.async) that counts its
+// bytes on the peer's mbarrier (complete_tx), both addresses shared::cluster.
+// No fence and no arrival a step: the receiver's phase completes when its
+// own arrival (mbar_expect) and every byte it expects are in.  On the H100
+// this exchange takes less a step than stores and a barrier.cluster
+// (ops/bench_cluster_sync.cu times both; PERF.md section 6).
+__device__ __forceinline__ void st_async_peer(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(addr), "r"(v),
+               "r"(bar)
+               : "memory");
+}
+// This CTA's one arrival on its mbarrier for a phase, expecting `bytes` of
+// st.async traffic in it.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Wait for the phase of the given parity of this CTA's mbarrier to
+// complete: the st.async bytes it counted are visible after it.
+__device__ __forceinline__ void mbar_wait_parity(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
 }
 
 // cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per

@@ -40,7 +40,8 @@ def _recurrence(x, w_ih, w_hh, b, keep_c: bool):
     hdim = w_hh.shape[1]
     mm = matmul_dtype(x.dtype)
     w_hh_t = _operand(w_hh, mm).t()
-    xp = torch.matmul(_operand(x, mm), _operand(w_ih, mm).t()) + b.float()  # (B, T, 4H)
+    xp = torch.matmul(_operand(x, mm), _operand(w_ih, mm).t())  # (B, T, 4H)
+    xp += b.float()  # in place: one (B, T, 4H) buffer at the card's largest widths
     h = torch.zeros(bsz, hdim, dtype=torch.float32, device=x.device)
     c = torch.zeros_like(h)
     y = torch.empty(bsz, t, hdim, dtype=x.dtype, device=x.device)
@@ -117,7 +118,9 @@ def lstm_backward(
     w_ih_o, w_hh_o = _operand(w_ih, mm), _operand(w_hh, mm)
     hprev = torch.zeros(bsz, t, hdim, dtype=torch.float32, device=x.device)
     hprev[:, 1:] = _operand(y[:, :-1], mm)
-    gates = (torch.matmul(xo, w_ih_o.t()) + b.float()) + torch.matmul(hprev, w_hh_o.t())
+    gates = torch.matmul(xo, w_ih_o.t())
+    gates += b.float()
+    gates += torch.matmul(hprev, w_hh_o.t())  # (x W_ih^T + b) + h W_hh^T, in place
     gi, gf, gg, go = gates.chunk(4, dim=-1)
     i, f, g, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
     tanh_c = torch.tanh(f * cprev + i * g)

@@ -7,12 +7,21 @@ Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
   its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu,
   instantiations lstm_bwd_{f32,bf16}[_w32|_w16].
-Each is compiled for three widths D = H = W: 64 (the base family, no
-suffix), 32 (the strided family, suffix _w32) and 16 (the gradient check
-of entry.dryrun_multichip, suffix _w16, the ring path and four-launch
-backward, untuned); the width comes from w_hh's second axis, and any other
-width raises: every weight of the recurrence sits in a register, so each
-width is its own instantiation.  On that card each is bound by the
+Each takes any input width D and hidden width H from 1 to MAX_WIDTH = 256
+(x's last axis and w_hh's second); a wider call raises.  Every weight of the
+recurrence sits on chip, so the kernels are compiled for three capacities W:
+64 (the base family, no suffix), 32 (the strided family, suffix _w32) and 16
+(the gradient check of entry.dryrun_multichip, suffix _w16, the ring path
+and four-launch backward, untuned).  A call takes the smallest capacity
+with max(D, H) <= W: at D = H = W it is the square instantiation, else the
+same one with D and H passed at run time (its weights load zeros past the
+real widths, a padded unit stays exactly zero; counted as *_masked, e.g.
+lstm_fwd_f32_masked at width 48), and the backward's dx, dW and sum run at
+the runtime widths.  Above 64 a call runs on a thread-block cluster of
+ceil(H / 32) CTAs of 32 hidden units each, h (and in the backward da)
+exchanged between them through distributed shared memory every step
+(instantiations *_cluster, lstm_fwd.cu and lstm_bwd.cu, "widths above
+64").  On that card each is bound by the
 latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
 at W = 64; at W = 32 the strided family's 50 steps take about as long as
 the host's work for one call, so a call launches one kernel and nothing
@@ -37,15 +46,16 @@ exact products, fp32 sums), the recurrent one with the block's rows as the
 tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
-the steps, the width and the card's SM count, cached per shape, and handed
-to the C entry points: rows per block (1, 2 or 4 forward, 1 or 2 backward:
-the rows that finish the batch soonest, by the waves of blocks the card
-needs and the measured cost of a step of that many rows at that width and
-path, so B=128 takes 128 blocks of one row and B=512 128 blocks of four),
-the forward's path (fwd_short: the short path where the width is 32 and T
-<= 64; else the ring), the backward's path (bwd_fused: one launch where
-the width is 32, T <= 64 and its blocks fit one wave; else four), its
-scratch shapes and its dx and dW grids.
+the steps, the widths and the card's SM count, cached per shape, and handed
+to the C entry points: the capacity or the cluster's size; rows per block
+(1, 2 or 4 forward, 1 or 2 backward: the rows that finish the batch
+soonest, by the waves of blocks the card needs, at the blocks an SM runs
+at once, and the measured cost of a step of that many rows at that width
+and path, so B=128 takes 128 blocks of one row and B=512 128 blocks of
+four), the forward's path (fwd_short: the short path where D = H = 32 and
+T <= 64; else the ring or the cluster), the backward's path (bwd_fused: one
+launch where D = H = 32, T <= 64 and its blocks fit one wave; else four),
+its scratch shapes at the real G = 4H and its dx and dW grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -75,16 +85,41 @@ from awm_tpu_torch.ops.lstm import (
     matmul_dtype,
 )
 
-WIDTHS = (64, 32, 16)  # D = H the kernels are compiled for
+WIDTHS = (64, 32, 16)  # the capacities W of the register-held instantiations
+MAX_WIDTH = 256  # the ceiling on D and H: the cluster path's 8 CTAs of CLUSTER_UNITS
+CLUSTER_UNITS = 32  # hidden units a CTA of the cluster path owns
 SOURCES = ("lstm_fwd", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
 
-def instantiation(kernel: str, dtype: torch.dtype, width: int) -> str:
-    """The name of one compiled instantiation: lstm_fwd_f32 (width 64),
-    lstm_fwd_bf16_w32 (width 32), ...  Its C entry point is awm_<name>."""
+def capacity(width: int, hidden: int | None = None) -> int | None:
+    """The smallest W of WIDTHS with max(D, H) <= W, or None where the call
+    takes the cluster path (max(D, H) > 64)."""
+    need = max(width, hidden or width)
+    fits = [w for w in WIDTHS if need <= w]
+    return min(fits) if fits else None
+
+
+def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | None = None) -> str:
+    """The name of the instantiation a call of input width D = width and
+    hidden width H = hidden (default: width) runs, and of its launch
+    counter: lstm_fwd_f32 (D = H = 64), lstm_fwd_bf16_w32 (D = H = 32),
+    lstm_fwd_f32_masked (D, H <= 64, not both 64: capacity 64 at runtime
+    widths), lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64).
+    Its C entry point is entry_point(name)."""
     sfx = "bf16" if matmul_dtype(dtype) == torch.bfloat16 else "f32"
-    return f"{kernel}_{sfx}" + ("" if width == 64 else f"_w{width}")
+    hidden = hidden or width
+    cap = capacity(width, hidden)
+    if cap is None:
+        return f"{kernel}_{sfx}_cluster"
+    name = f"{kernel}_{sfx}" + ("" if cap == 64 else f"_w{cap}")
+    return name if width == hidden == cap else f"{name}_masked"
+
+
+def entry_point(name: str) -> str:
+    """The C function of an instantiation: a masked call runs its capacity's
+    entry point with the real widths."""
+    return "awm_" + name.removesuffix("_masked")
 
 
 # Each kernel against its plain version on the card, by (kernel, operand
@@ -106,8 +141,11 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # the kernels.  A call counts once: a forward call is one launch; a
 # backward call is one launch on the fused path (W = 32 where the plan
 # takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
-launches = {instantiation(k, dt, w): 0
-            for w in WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
+# One counter per path: square, masked (a capacity at runtime widths) and
+# cluster.
+PATH_WIDTHS = tuple((w, w) for w in WIDTHS) + tuple((w - 1, w) for w in WIDTHS) + ((MAX_WIDTH, MAX_WIDTH),)
+launches = {instantiation(k, dt, d, h): 0
+            for d, h in PATH_WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log = ""
@@ -176,6 +214,42 @@ FUSED_BLOCKS_PER_SM = 1
 # four (bf16, B=512) or as fast (fp32).
 SHORT_WIDTHS = (32,)
 FWD_SHORT_MAX_STEPS = 64
+# Blocks of one instantiation an SM runs at once without slowing each other,
+# by (capacity, operand dtype); the plan's waves count sm_count x this.  One
+# where it is not measured: a W = 64 block holds the register file alone, and
+# two W = 32 blocks were slower than one of twice the rows (the short path's
+# note above).  W = 16: a 128-thread block holds a fraction of an SM's
+# registers, and 512 one-row fp32 blocks (3.9 an SM) took 0.0158 ms where
+# 128 blocks of four took 0.0195 (H100, T=50, PERF.md section 6): the plan
+# had counted one block an SM and picked four rows.
+BLOCKS_PER_SM = {(16, torch.float32): 4, (16, torch.bfloat16): 4}
+# The cluster path (max(D, H) > 64): one CTA of a cluster an SM (each holds
+# up to half an SM's registers in W_hh, and its launch bounds ask for all of
+# them).  A wave holds the clusters the card runs at once, which
+# cudaOccupancyMaxActiveClusters gives (read once per instantiation and
+# widths, _cluster_slots): a GPC holds whole clusters only, so on an H100
+# 30 clusters of 4 and not 132 // 4 = 33 (39 of 3, 15 of 8); the pure plan
+# takes sm_count // K where it is not given them.  The time of one wave of
+# clusters of two rows relative to one row, by (K, operand dtype), measured
+# with ops/bench_lstm.py --width W --variants on an H100 (T=16000; PERF.md
+# section 6): the forward's from kernel A at B=512, the backward's from its
+# recurrence at B=128, each call's time over its waves (at 96, K = 3 and 39
+# clusters a wave: 14 waves of one row and 7 of two for A, 4 and 2 for C;
+# at 128, K = 4 and 30: 18 and 9, 5 and 3; at 256, K = 8 and 15: 35 and
+# 18, 9 and 5).  Where none is measured (K = 1, 2, 5, 6, 7), the plan takes
+# one row a cluster.
+CLUSTER_FWD_STEP_COST = {
+    (3, torch.float32): {1: 1.0, 2: 1.37}, (3, torch.bfloat16): {1: 1.0, 2: 1.63},
+    (4, torch.float32): {1: 1.0, 2: 1.44}, (4, torch.bfloat16): {1: 1.0, 2: 1.78},
+    (8, torch.float32): {1: 1.0, 2: 1.43}, (8, torch.bfloat16): {1: 1.0, 2: 1.72},
+}
+CLUSTER_BWD_STEP_COST = {
+    (3, torch.float32): {1: 1.0, 2: 2.04}, (3, torch.bfloat16): {1: 1.0, 2: 1.95},
+    (4, torch.float32): {1: 1.0, 2: 2.02}, (4, torch.bfloat16): {1: 1.0, 2: 1.92},
+    (8, torch.float32): {1: 1.0, 2: 1.97}, (8, torch.bfloat16): {1: 1.0, 2: 1.95},
+}
+ONE_ROW = {1: 1.0}
+CLUSTER_ROWS = (1, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,7 +257,9 @@ class LaunchPlan:
     """How one (batch, steps, dtype, width) call is cut over a card of
     sm_count SMs."""
 
-    fwd_rows: int  # batch rows per block, kernels A and B
+    capacity: int  # W of the register-held instantiation, 0 on the cluster path
+    cluster: int  # CTAs of a cluster (ceil(H / 32)) on the cluster path, else 0
+    fwd_rows: int  # batch rows per block (per cluster), kernels A and B
     fwd_blocks: int
     fwd_short: bool  # kernels A and B on the short path (lstm_fwd_short_kernel)
     bwd_rows: int  # batch rows per block, kernel C's recurrent kernel
@@ -193,47 +269,69 @@ class LaunchPlan:
     dx_blocks: int  # grid of kernel C's dx kernel (it strides over row tiles)
     da_shape: tuple[int, int, int]  # scratch: da in the operand type
     da_dtype: torch.dtype
-    part_shape: tuple[int, int, int]  # scratch: dW chunk partials, fp32
+    part_shape: tuple[int, int, int]  # scratch: dW chunk partials (n_chunks, 4H, D + H), fp32
     db_part_shape: tuple[int, int]  # scratch: db per recurrent block, fp32
 
 
-def _rows_per_block(batch: int, sm_count: int, step_cost: dict[int, float]) -> int:
+def _rows_per_block(batch: int, slots, step_cost: dict[int, float]) -> int:
     """Rows per block that finish the batch soonest.  A recurrent kernel
-    keeps one block on an SM for all T steps, so the blocks run in
-    ceil(blocks / sm_count) waves and a call costs waves x the step cost of
+    keeps a block on its SM for all T steps, and slots blocks (or clusters;
+    a number, or one by rows per block) run at once, so the blocks run in
+    ceil(blocks / slots) waves and a call costs waves x the step cost of
     that many rows.  Ties go to fewer rows.  B=128 on 132 SMs takes 128
-    blocks of one row; B=512 one wave of 128 blocks of four rows."""
+    blocks of one row; B=512 one wave of 128 blocks of four."""
     def cost(rows: int) -> float:
-        return -(-(-(-batch // rows)) // sm_count) * step_cost[rows]
+        return -(-(-(-batch // rows)) // (slots[rows] if isinstance(slots, dict) else slots)) * step_cost[rows]
 
     return min(step_cost, key=lambda rows: (cost(rows), rows))
 
 
-def _check_width(width: int) -> None:
-    if width not in WIDTHS:
-        raise ValueError(f"lstm kernels are compiled for widths {WIDTHS} (D = H), got {width}")
+def _check_width(width: int, hidden: int | None = None) -> None:
+    for name, w in (("D", width), ("H", hidden or width)):
+        if not 1 <= w <= MAX_WIDTH:
+            raise ValueError(f"lstm kernels take widths 1 <= D, H <= {MAX_WIDTH} (MAX_WIDTH), "
+                             f"got {name} = {w}")
 
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
-                width: int, bwd_rows: int | None = None) -> LaunchPlan:
-    """The plan of one call: pure, so the CPU tests reach it, and cached, so
+                width: int, bwd_rows: int | None = None, hidden: int | None = None,
+                cluster_slots: tuple | None = None) -> LaunchPlan:
+    """The plan of one call of input width D = width and hidden width H =
+    hidden (default: width): pure, so the CPU tests reach it, and cached, so
     a call looks its shape up.  bwd_rows overrides the backward's rows per
-    block (for tests and timing; the path follows from the blocks).  The
-    forward's path follows from the width and T alone.  The fused path
+    block (for tests and timing; the path follows from the blocks).
+    cluster_slots: ((forward, backward) clusters of one and two rows the
+    card runs at once) on the cluster path, _cluster_slots' reading; None
+    counts sm_count // K for each.  The
+    forward's path follows from the widths and T alone.  The fused path
     counts on the whole card: sm_count SMs, each free to hold one of its
-    blocks.  Where the process has less (an MPS client with a
-    share of the SMs, another kernel resident), the cooperative launch
-    refuses the grid and the call raises."""
+    blocks.  Where the process has less (an MPS client with a share of the
+    SMs, another kernel resident), the cooperative launch refuses the grid
+    and the call raises."""
     if batch < 1 or steps < 1 or sm_count < 1:
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
-    _check_width(width)
+    hidden = hidden or width
+    _check_width(width, hidden)
     mm = matmul_dtype(dtype)
-    fwd_short = width in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
-    fwd_rows = _rows_per_block(batch, sm_count, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[width, mm])
-    if bwd_rows is None:
-        bwd_rows = _rows_per_block(batch, sm_count, BWD_STEP_COST[width, mm])
-    elif bwd_rows not in BWD_ROWS:
+    cap = capacity(width, hidden)
+    square = width == hidden == cap
+    if cap is None:
+        k = -(-hidden // CLUSTER_UNITS)
+        fwd_slots, bwd_slots = cluster_slots or ((max(1, sm_count // k),) * 2,) * 2
+        fwd_short = False
+        fwd_rows = _rows_per_block(batch, dict(zip(CLUSTER_ROWS, fwd_slots)),
+                                   CLUSTER_FWD_STEP_COST.get((k, mm), ONE_ROW))
+        if bwd_rows is None:
+            bwd_rows = _rows_per_block(batch, dict(zip(CLUSTER_ROWS, bwd_slots)),
+                                       CLUSTER_BWD_STEP_COST.get((k, mm), ONE_ROW))
+    else:
+        k, slots = 0, sm_count * BLOCKS_PER_SM.get((cap, mm), 1)
+        fwd_short = square and cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+        fwd_rows = _rows_per_block(batch, slots, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[cap, mm])
+        if bwd_rows is None:
+            bwd_rows = _rows_per_block(batch, slots, BWD_STEP_COST[cap, mm])
+    if bwd_rows not in BWD_ROWS:
         raise ValueError(f"backward rows per block are {BWD_ROWS}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
     n_rows = batch * steps
@@ -243,13 +341,14 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     n_chunks = max(1, min(DW_MAX_CHUNKS, max(-(-n_rows // DW_CHUNK_ROWS),
                                              min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
+        capacity=cap or 0, cluster=k,
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
-        bwd_fused=(width in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
+        bwd_fused=(square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
                    and bwd_blocks <= sm_count * FUSED_BLOCKS_PER_SM),
         n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
-        da_shape=(batch, steps, 4 * width), da_dtype=mm,
-        part_shape=(n_chunks, 4 * width, 2 * width), db_part_shape=(bwd_blocks, 4 * width),
+        da_shape=(batch, steps, 4 * hidden), da_dtype=mm,
+        part_shape=(n_chunks, 4 * hidden, width + hidden), db_part_shape=(bwd_blocks, 4 * hidden),
     )
 
 
@@ -258,9 +357,27 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _plan_for(x: torch.Tensor, bwd_rows: int | None = None) -> LaunchPlan:
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(device_index: int, dtype: torch.dtype, width: int, hidden: int) -> tuple:
+    """((kernel A, kernel C's recurrence) clusters of one and two rows) the
+    card holds at once for a call of these widths on the cluster path:
+    cudaOccupancyMaxActiveClusters, read once per instantiation and widths."""
+    libs, bf16 = libraries(), int(matmul_dtype(dtype) == torch.bfloat16)
+    out = []
+    for lib, fn in ((libs["lstm_fwd"], "awm_lstm_fwd_cluster_slots"), (libs["lstm_bwd"], "awm_lstm_bwd_cluster_slots")):
+        with torch.cuda.device(device_index):
+            got = tuple(getattr(lib, fn)(bf16, rows, width, hidden) for rows in CLUSTER_ROWS)
+        if min(got) < 1:
+            err = -min(got)
+            raise RuntimeError(f"{fn}: {lib.awm_cuda_error_string(err).decode() if err else 'no cluster fits'}")
+        out.append(got)
+    return tuple(out)
+
+
+def _plan_for(x: torch.Tensor, hidden: int, bwd_rows: int | None = None) -> LaunchPlan:
     bsz, t, width = x.shape
-    return launch_plan(bsz, t, x.dtype, _sm_count(x.device.index), width, bwd_rows)
+    slots = _cluster_slots(x.device.index, x.dtype, width, hidden) if capacity(width, hidden) is None else None
+    return launch_plan(bsz, t, x.dtype, _sm_count(x.device.index), width, bwd_rows, hidden, slots)
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
@@ -271,15 +388,15 @@ def libraries() -> dict[str, ctypes.CDLL]:
         built = cuda_build.load_all(SOURCES)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fwd, bwd = built["lstm_fwd"][0], built["lstm_bwd"][0]
-        argtypes = {"lstm_fwd": [ptr] * 5 + [i, i, i, i, ptr],
-                    "lstm_fwd_train": [ptr] * 6 + [i, i, i, i, ptr],
-                    "lstm_bwd": [ptr] * 14 + [i] * 6 + [ptr]}
-        for w in WIDTHS:
-            for kernel in KERNELS:
-                for dt in (torch.float32, torch.bfloat16):
-                    lib = bwd if kernel == "lstm_bwd" else fwd
-                    fn = getattr(lib, f"awm_{instantiation(kernel, dt, w)}")
-                    fn.argtypes, fn.restype = argtypes[kernel], ctypes.c_int
+        argtypes = {"lstm_fwd": [ptr] * 5 + [i] * 6 + [ptr],
+                    "lstm_fwd_train": [ptr] * 6 + [i] * 6 + [ptr],
+                    "lstm_bwd": [ptr] * 14 + [i] * 8 + [ptr]}
+        for name in launches:
+            kernel = max((k for k in KERNELS if name.startswith(k + "_")), key=len)
+            fn = getattr(bwd if kernel == "lstm_bwd" else fwd, entry_point(name))
+            fn.argtypes, fn.restype = argtypes[kernel], ctypes.c_int
+        for lib, fn in ((fwd, "awm_lstm_fwd_cluster_slots"), (bwd, "awm_lstm_bwd_cluster_slots")):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * 4, ctypes.c_int
         for lib in (fwd, bwd):
             lib.awm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.awm_cuda_error_string.restype = ctypes.c_char_p
@@ -288,19 +405,18 @@ def libraries() -> dict[str, ctypes.CDLL]:
     return _libs
 
 
-def _check_x_weights(x, w_ih, w_hh, b) -> int:
-    """Checks the operands of one call; returns the width W = D = H."""
+def _check_x_weights(x, w_ih, w_hh, b) -> tuple[int, int]:
+    """Checks the operands of one call; returns its widths (D, H): x's last
+    axis and w_hh's second."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"lstm kernel takes float32 or bfloat16 x, got {x.dtype}")
-    if w_hh.dim() != 2:
-        raise ValueError(f"lstm kernel takes a 2-D w_hh, got {tuple(w_hh.shape)}")
-    width = w_hh.shape[1]
-    _check_width(width)
-    if x.dim() != 3 or x.shape[2] != width:
-        raise ValueError(f"lstm kernel takes x of shape (B, T, {width}), got {tuple(x.shape)}")
+    if w_hh.dim() != 2 or x.dim() != 3:
+        raise ValueError(f"lstm kernel takes a 3-D x and a 2-D w_hh, got {tuple(x.shape)}, {tuple(w_hh.shape)}")
+    width, hidden = x.shape[2], w_hh.shape[1]
+    _check_width(width, hidden)
     for name, t, shape in (
-        ("w_ih", w_ih, (4 * width, width)), ("w_hh", w_hh, (4 * width, width)),
-        ("b", b, (4 * width,)),
+        ("w_ih", w_ih, (4 * hidden, width)), ("w_hh", w_hh, (4 * hidden, hidden)),
+        ("b", b, (4 * hidden,)),
     ):
         if tuple(t.shape) != shape:
             raise ValueError(f"lstm kernel takes {name} of shape {shape}, got {tuple(t.shape)}")
@@ -310,7 +426,7 @@ def _check_x_weights(x, w_ih, w_hh, b) -> int:
         raise ValueError("lstm kernel takes a contiguous x")
     if max(x.shape[0], x.shape[1]) >= 2**31:
         raise ValueError("lstm kernel takes B and T below 2**31 (C int arguments)")
-    return width
+    return width, hidden
 
 
 def _check_stream(name, t, shape, dtypes, device):
@@ -344,84 +460,90 @@ def _launch(lib_name: str, name: str, x: torch.Tensor, *args) -> None:
     Stream object is built for a call)."""
     lib = libraries()[lib_name]
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"awm_{name}")(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
+        err = getattr(lib, entry_point(name))(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.awm_cuda_error_string(err).decode()}")
     launches[name] += 1
 
 
-def _forward_path(x: torch.Tensor, width: int, rows: int | None, short: bool | None) -> tuple:
+def _forward_path(x: torch.Tensor, width: int, hidden: int, rows: int | None, short: bool | None) -> tuple:
     """(x, rows, short) of one forward launch: the plan's rows and path
     unless overridden (for tests and timing).  The short path's TMA copy
     reads x from a 16-byte aligned address: a view at another offset is
     copied (the outputs are fresh allocations, aligned)."""
-    plan = _plan_for(x)
+    plan = _plan_for(x, hidden)
     short = plan.fwd_short if short is None else short
-    if short and width not in SHORT_WIDTHS:
-        raise ValueError(f"the forward's short path is compiled for widths {SHORT_WIDTHS}, got {width}")
+    if short and not (width == hidden and width in SHORT_WIDTHS):
+        raise ValueError(f"the forward's short path is compiled for widths D = H in {SHORT_WIDTHS}, "
+                         f"got D = {width}, H = {hidden}")
+    rows = rows or plan.fwd_rows
+    if plan.cluster and rows not in CLUSTER_ROWS:
+        raise ValueError(f"the cluster path takes rows per cluster in {CLUSTER_ROWS}, got {rows}")
     if short and x.data_ptr() % 16:
         x = x.clone()
-    return x, rows or plan.fwd_rows, short
+    return x, rows, short
 
 
 def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None) -> torch.Tensor:
-    """Kernel A: (B, T, W) -> y (B, T, W) in x's dtype, on the card, W = 64,
-    32 or 16.  rows overrides the plan's rows per block and short its path
-    (the short path at W = 32 or the ring) (for tests and timing)."""
-    width = _check_x_weights(x, w_ih, w_hh, b)
+    """Kernel A: (B, T, D) -> y (B, T, H) in x's dtype, on the card, 1 <= D,
+    H <= MAX_WIDTH.  rows overrides the plan's rows per block and short its
+    path (the short path at D = H = 32 or the ring) (for tests and
+    timing)."""
+    width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
+    y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
     if bsz == 0 or t == 0:
         return y
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
-    x, rows, short = _forward_path(x, width, rows, short)
-    _launch("lstm_fwd", instantiation("lstm_fwd", x.dtype, width), x, x.data_ptr(), w_ih.data_ptr(),
-            w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, rows, int(short))
+    x, rows, short = _forward_path(x, width, hidden, rows, short)
+    _launch("lstm_fwd", instantiation("lstm_fwd", x.dtype, width, hidden), x, x.data_ptr(), w_ih.data_ptr(),
+            w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, width, hidden, rows, int(short))
     return y
 
 
 def forward_train_kernel(
     x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B: (B, T, W) -> (y in x's dtype, cprev fp32), both
-    (B, T, W), on the card.  rows and short as in forward_kernel."""
-    width = _check_x_weights(x, w_ih, w_hh, b)
+    """Kernel B: (B, T, D) -> (y in x's dtype, cprev fp32), both
+    (B, T, H), on the card.  rows and short as in forward_kernel."""
+    width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    y = torch.empty(bsz, t, width, dtype=x.dtype, device=x.device)
-    cprev = torch.empty(bsz, t, width, dtype=torch.float32, device=x.device)
+    y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
+    cprev = torch.empty(bsz, t, hidden, dtype=torch.float32, device=x.device)
     if bsz == 0 or t == 0:
         return y, cprev
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
-    x, rows, short = _forward_path(x, width, rows, short)
-    _launch("lstm_fwd", instantiation("lstm_fwd_train", x.dtype, width), x, x.data_ptr(),
+    x, rows, short = _forward_path(x, width, hidden, rows, short)
+    _launch("lstm_fwd", instantiation("lstm_fwd_train", x.dtype, width, hidden), x, x.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(),
-            bsz, t, rows, int(short))
+            bsz, t, width, hidden, rows, int(short))
     return y, cprev
 
 
 def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
-    y and cprev are forward_train_kernel's outputs, dy is (B, T, W) in x's
-    dtype (as autograd hands it to LSTMFunction.backward).  The outputs are not zero-filled: the kernels
-    write every element.  The plan picks the path: fused, one launch with
-    scratch for one dW and db partial per block; else four launches with
-    da (B, T, 4W) in the operand type, chunk partials of dW and db per
-    recurrent block.  rows overrides the plan's rows per block of the
-    recurrence (for tests and timing)."""
-    width = _check_x_weights(x, w_ih, w_hh, b)
+    y and cprev are forward_train_kernel's outputs, dy is (B, T, H) in x's
+    dtype (as autograd hands it to LSTMFunction.backward).  The outputs are
+    not zero-filled: the kernels write every element.  The plan picks the
+    path: fused (D = H = 32), one launch with scratch for one dW and db
+    partial per block; else four launches with da (B, T, 4H) in the operand
+    type, chunk partials of dW and db per recurrent block (per cluster).
+    rows overrides the plan's rows per block of the recurrence (for tests
+    and timing)."""
+    width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
-    shape = (bsz, t, width)
+    shape = (bsz, t, hidden)
     _check_stream("y", y, shape, (x.dtype,), x.device)
     _check_stream("cprev", cprev, shape, (torch.float32,), x.device)
     _check_stream("dy", dy, shape, (x.dtype,), x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dw_ih, dw_hh = torch.empty(4 * width, width, **f32), torch.empty(4 * width, width, **f32)
-    db = torch.empty(4 * width, **f32)
+    dw_ih, dw_hh = torch.empty(4 * hidden, width, **f32), torch.empty(4 * hidden, hidden, **f32)
+    db = torch.empty(4 * hidden, **f32)
     if bsz == 0 or t == 0:
         return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
-    plan = _plan_for(x, rows)
+    plan = _plan_for(x, hidden, rows)
     if plan.bwd_fused:
         da = db_part = None
         part = torch.empty(plan.bwd_blocks, 4 * width * 2 * width + 4 * width, **f32)
@@ -429,12 +551,12 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
         da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
         part = torch.empty(plan.part_shape, **f32)
         db_part = torch.empty(plan.db_part_shape, **f32)
-    _launch("lstm_bwd", instantiation("lstm_bwd", x.dtype, width), x,
+    _launch("lstm_bwd", instantiation("lstm_bwd", x.dtype, width, hidden), x,
             x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
             dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(),
             da.data_ptr() if da is not None else None, part.data_ptr(),
-            db_part.data_ptr() if db_part is not None else None, bsz, t,
+            db_part.data_ptr() if db_part is not None else None, bsz, t, width, hidden,
             plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(plan.bwd_fused))
     return dx, dw_ih, dw_hh, db
 

@@ -46,6 +46,11 @@ width 16.  Phases:
    (entry_phase): its example arguments' shapes, four speech-like clips at
    the preset's bf16 and at fp32 compute against entry(device="cpu") on the
    same inputs, kernel A at width 64 launched;
+4b. the widths (widths_phase, see NEW_WIDTHS): kernels A, B and C masked
+   and on the cluster path against their plain versions, at the base
+   family's main-path shapes too, and timed; the base family at channels
+   48 and 128 (sessions, train steps) against the CPU, counters zeroed
+   just before;
 5. the train path, counters zeroed just before: one fp32 train_step vs the
    JAX package's train golden (terms, gradient norms, BatchNorm
    statistics), then ``python -m awm_tpu_torch train`` in process (bf16,
@@ -219,6 +224,43 @@ DRY_B, DRY_T = 4, 32
 # holds them against their plain versions and phase 16 times them; the
 # check that every kernel launched on a main path leaves them out.
 OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", "lstm_bwd_bf16_w16")
+# The widths phase (4b, widths_phase): kernels A, B and C at the widths the
+# kernels take masked (capacity 64 at runtime widths: 48 x 48, the base
+# family at channels 48, and 40 x 24) and on the cluster path (96 x 96,
+# 128 x 128, the base family at channels 128, and the ceiling 256 x 256)
+# against their plain versions at B=3, T=512; at the shapes the base
+# family's main path hands them (T=16000; A at the session's B=64, B and C
+# at the train step's B=32); timed, and held against their plain versions,
+# at T=16000 (A B=512, B and C B=128) at the base family's two new widths
+# and the ceiling; then the base family at channels 48 and 128 through the
+# session (64 chunks) and the train step (B=32), from
+# checkpoint.seeded_flax_tree weights.  The masked
+# instantiations of capacities 32 and 16 run on no main path: OFF_PATH.
+NEW_WIDTHS = ((48, 48), (40, 24), (96, 96), (128, 128), (256, 256))
+NEW_B, NEW_T = 3, 512
+BASE_CHANNELS = (48, 128)  # the base family's new widths: masked, cluster
+WIDE_CHUNKS, WIDE_B = 64, 32  # the session's chunks, the train step's batch
+WIDE_HOLD_T, WIDE_HOLD_CHUNKS = 1600, 2  # the card-vs-CPU holds' clip length, session chunks
+OFF_PATH += tuple(f"{k}_{sfx}_w{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+                  for sfx in ("f32", "bf16") for w in (32, 16))
+# The base family at channels 48 and 128 on the card against the port's own
+# CPU run of the same seeded weights.  Session (64 chunks on the card; its
+# first WIDE_HOLD_CHUNKS chunks through the CPU session): per-chunk summaries,
+# max abs, delta_rms relative.  fp32 (TF32 off): summation order only, and
+# the random init keeps the LSTM contractive (test_generator_matches_flax
+# holds the CPU at 1e-5); a vote fraction moves by 1/16000 a sign flip.
+# bf16: both sides round at the same points, entry()'s bf16 card-vs-CPU
+# bound (ENTRY_CARD_TOL: logits 2e-2) on means of 16000 samples.  Train step
+# (B=32 at WIDE_HOLD_T samples on both devices, messages given): loss terms
+# relative, and ||g - g_cpu|| / ||g_cpu|| of each gradient group, fp32 at
+# the dry run's DRY_CARD_TOL; bf16 rounds activations, da and the recurrent
+# h at every step, so aggregates only, at ten times the bf16 session's.
+WIDE_SESSION_TOL = {"float32": {"wm_prob": 1e-4, "clean_prob": 1e-4, "msg_logit_mean": 1e-4,
+                                "msg_vote_frac": 1e-3, "delta_rms": 1e-4},
+                    "bfloat16": {"wm_prob": 2e-2, "clean_prob": 2e-2, "msg_logit_mean": 5e-2,
+                                 "msg_vote_frac": 5e-2, "delta_rms": 2e-2}}
+WIDE_TRAIN_TOL = {"float32": {"terms": 1e-4, "drift": 5e-3}, "bfloat16": {"terms": 5e-2, "drift": 2e-1}}
+WIDE_GROUPS = {"gen.lstm": r"^gen\.lstm\.", "gen, the rest": r"^gen\.(?!lstm\.)", "det": r"^det\."}
 # Kernels B and C at width 64 in the dry run's train step (entry.dryrun_multichip):
 # each rank's 4 of the 2n = 8 clips (n = 4 ranks, data axis 2) at
 # entry.AUDIO_LEN = 512 samples, held with the training shapes in phase 3.
@@ -305,8 +347,9 @@ class Kernel(NamedTuple):
     source: str
     replaces: str
     sfx: str  # operand type, "f32" or "bf16"
-    width: int
+    width: int  # D; the masked and cluster rows: the base family's width they run at
     tol: float  # vs its plain version (lstm_kernel.KERNEL_TOL)
+    hidden: int = 0  # H where it is not D
 
 
 KERNELS: dict[str, Kernel] = {}  # by instantiation name, filled by kernel_table once torch is imported
@@ -319,7 +362,7 @@ def kernel_table(K) -> dict[str, Kernel]:
     return {K.instantiation(kernel, dtype, w): Kernel(
                 kernel, f"awm_tpu_torch/ops/csrc/{'lstm_bwd' if kernel == 'lstm_bwd' else 'lstm_fwd'}.cu",
                 f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx])
-            for w in K.WIDTHS for kernel in K.KERNELS
+            for w in (*K.WIDTHS, *BASE_CHANNELS) for kernel in K.KERNELS
             for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
 
 failures: list[str] = []
@@ -358,23 +401,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lstm_inputs(b: int, dtype, device, seed: int, t: int = T, w: int = 64):
-    """Seeded x (b, t, w), torch-layout weights at the scale of torch's
-    LSTM init, and an upstream gradient dy in x's dtype (as autograd hands
-    it to the backward), made on the card."""
+def lstm_inputs(b: int, dtype, device, seed: int, t: int = T, w: int = 64, h: int | None = None):
+    """Seeded x (b, t, w), torch-layout weights of LSTM(w, h) (h defaults
+    to w) at the scale of torch's LSTM init, and an upstream gradient dy in
+    x's dtype (as autograd hands it to the backward), made on the card."""
     import torch
 
+    h = h or w
     g = torch.Generator(device=device).manual_seed(seed)
     x = (torch.randn(b, t, w, device=device, generator=g) * 0.5).to(dtype)
-    bound = 1.0 / w**0.5  # 1/sqrt(H)
+    bound = 1.0 / h**0.5  # 1/sqrt(H)
     ws = [(torch.rand(*s, device=device, generator=g) * 2 - 1) * bound
-          for s in ((4 * w, w), (4 * w, w), (4 * w,))]
-    dy = (torch.randn(b, t, w, device=device, generator=g) * 0.1).to(dtype)
+          for s in ((4 * h, w), (4 * h, h), (4 * h,))]
+    dy = (torch.randn(b, t, h, device=device, generator=g) * 0.1).to(dtype)
     return x, ws[0], ws[1], 2 * ws[2], dy
 
 
-def bound_ms(name: str, b: int, t: int = T) -> tuple[float, str]:
-    """Least time for the call at the instantiation's width W = D = H: the
+def bound_ms(name: str, b: int, t: int = T, width: int | None = None) -> tuple[float, str]:
+    """Least time for the call at the instantiation's widths D and H (or D
+    = H = width where given: the cluster path's names cover 65-256): the
     larger of bytes / HBM rate and the matrix-product FLOPs / the peak rate
     of their type.  Each input read once, each output written once.
     Forward: x, y (+ the fp32 c_{t-1} stream for B) and the fp32 weights;
@@ -382,16 +427,17 @@ def bound_ms(name: str, b: int, t: int = T) -> tuple[float, str]:
     and weights in, dx and the fp32 weight gradients out; FLOPs 2 * B * T * 4H * (2 (D + H) + D + H):
     the gate recompute, dh, dx and both dW products, three times the
     forward's."""
-    sfx, w = KERNELS[name].sfx, KERNELS[name].width
+    sfx, d = KERNELS[name].sfx, width or KERNELS[name].width
+    h = width or KERNELS[name].hidden or d
     elt = 2 if sfx == "bf16" else 4
-    act, g = b * t * w, 4 * w
-    weights = (2 * g * w + g) * 4
-    fwd_flops = 2.0 * b * t * g * 2 * w
+    g = 4 * h
+    weights = (g * (d + h) + g) * 4
+    fwd_flops = 2.0 * b * t * g * (d + h)
     if name.startswith("lstm_bwd"):
-        nbytes = act * (4 * elt + 4) + weights + (2 * g * w + g) * 4
+        nbytes = b * t * (d * 2 * elt + h * (2 * elt + 4)) + 2 * weights
         flops = 3 * fwd_flops
     else:
-        nbytes = act * 2 * elt + weights + (act * 4 if "train" in name else 0)
+        nbytes = b * t * (d + h) * elt + weights + (b * t * h * 4 if "train" in name else 0)
         flops = fwd_flops
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[sfx] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -426,14 +472,48 @@ def cudnn_lstm(w_ih, w_hh, bias, dtype, device):
     return m
 
 
-def yardstick(timed, what: str):
+def yardstick(timed, what: str, batch: int | None = None):
     """A library call's time, or None where it does not run (it is the
-    yardstick only; the port never calls it)."""
-    try:
-        return timed()
-    except RuntimeError as e:
-        print(f"{what} did not run: {e}", flush=True)
-        return None
+    yardstick only; the port never calls it).  Given a batch, timed takes
+    the rows of one call: where the card's memory refuses the whole batch,
+    the time is n calls of ceil(batch / n) rows, n = 2, 4, ... (printed)."""
+    import torch
+
+    n = 1
+    while True:
+        rows = -(-batch // n) if batch else None
+        try:
+            ms = timed() if batch is None else n * timed(rows)
+        except torch.OutOfMemoryError as e:
+            print(f"{what} at {rows} rows did not run: {str(e).splitlines()[0]}", flush=True)
+            torch.cuda.empty_cache()
+            if not batch or rows == 1:
+                return None
+            n *= 2
+            continue
+        except RuntimeError as e:
+            print(f"{what} did not run: {e}", flush=True)
+            return None
+        if n > 1:
+            print(f"{what}: {n} calls of {rows} rows, {ms:.3f} ms in all", flush=True)
+        return ms
+
+
+def timed_call(fn):
+    """fn's output and the time of that one call by CUDA events (ms)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_abs(a, ref) -> float:
+    return float((a.float() - ref.float()).abs_().max())
 
 
 def device_kernels(step) -> tuple[list[tuple[str, float, int]], float]:
@@ -505,7 +585,7 @@ def fwd_kernel_name(plan) -> str:
 
 def path_of(plan) -> str:
     """The forward's path in a plan, as the result lines name it."""
-    return "short" if plan.fwd_short else "ring"
+    return "short" if plan.fwd_short else "cluster" if plan.cluster else "ring"
 
 
 BWD_PARTS = {True: ("fused",), False: ("rec", "dx", "dw", "sum")}  # kernel C's launches by path
@@ -1430,16 +1510,17 @@ def width16_checks(K, dev, max_err, max_rel) -> None:
               f"{dx_err:.2e}")
 
 
-def seeded_strided(cfg, seed: int, dev=None):
-    """The strided (generator, detector) of cfg with seeded_flax_tree's
-    weights for `seed`."""
+def seeded_nets(cfg, seed: int, dev=None):
+    """The (generator, detector) of cfg with seeded_flax_tree's weights for
+    `seed`, BatchNorm statistics included where the family has them."""
     from awm_tpu_torch.checkpoint import seeded_flax_tree, variables_from_flax
     from awm_tpu_torch.models import build_models
 
     tree = seeded_flax_tree(cfg.model, seed)
     nets = build_models(cfg.model)
     for name, net in zip(("gen", "det"), nets):
-        net.load_state_dict(variables_from_flax({"params": tree["params"][name]}), strict=True)
+        net.load_state_dict(variables_from_flax({part: tree[part][name] for part in tree if name in tree[part]}),
+                            strict=True)
     return tuple(net.to(dev) if dev is not None else net for net in nets)
 
 
@@ -1499,7 +1580,7 @@ def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
         sgold = {k: g[k] for k in g.files}
     seed = int(sgold["seed"])
     if audio_len is None:  # the goldens are 16000-sample chunks
-        gen, det = seeded_strided(cfg, seed)
+        gen, det = seeded_nets(cfg, seed)
         sess32 = api.InferenceSession(gen, det, compute_dtype=torch.float32, shaping=cfg.shaping, device=dev)
         delta = sess32.embed_chunks(sgold["chunks"], sgold["messages"])
         summary = sess32.embed_detect(sgold["chunks"], sgold["messages"])
@@ -1510,7 +1591,7 @@ def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
                                                   f"err {err:.3e} (tol {STRIDED_GOLDEN_TOL[key]:.0e})")
         del sess32, gen, det
         state = tr.init_state(cfg32, device=dev)
-        for name, net in zip(("gen", "det"), seeded_strided(cfg, seed, dev)):
+        for name, net in zip(("gen", "det"), seeded_nets(cfg, seed, dev)):
             getattr(state, name).load_state_dict(net.state_dict())
         terms = tr.train_step(cfg32, state, torch.from_numpy(sgold["train/chunks"]).to(dev),
                               message=torch.from_numpy(sgold["train/messages"]).long().to(dev))
@@ -1570,7 +1651,7 @@ def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
           f"roc_auc {q['roc_auc']:.4f}, bit_accuracy {q['bit_accuracy']:.4f}, all finite")
 
     gp, dp = os.path.join(work, "strided_gen.pth"), os.path.join(work, "strided_det.pth")
-    gen, det = seeded_strided(cfg, seed + 1)
+    gen, det = seeded_nets(cfg, seed + 1)
     reference_pth(gen, len(cfg.model.strides), gp, seed=5)
     reference_pth(det, len(cfg.model.strides), dp, seed=6)
     wav_path = os.path.join(work, "strided.wav")
@@ -1588,7 +1669,7 @@ def strided_phase(K, launches, cli, dev, work: str, audio_len=None) -> str:
           f"messages {got[dev.type]['predicted_message']} / {got['cpu']['predicted_message']}")
     add_counts(K, launches, "strided path")
     for name in K.launches:
-        if KERNELS[name].width == W32:
+        if name in KERNELS and KERNELS[name].width == W32:
             check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times on the strided path")
     return best
 
@@ -2062,6 +2143,349 @@ def parallel_phase(K, launches, cli, dev, work: str, audio_len=None) -> dict:
     for name, n in phase.items():
         launches[name] += n
     return numbers
+
+
+def padded_to_64(x, w_ih, w_hh, bias, h: int):
+    """x, W_ih, W_hh and b of LSTM(d, h) zero-padded to LSTM(64, 64): each
+    gate's h rows (and the columns) to 64."""
+    import torch.nn.functional as F
+
+    d = x.shape[2]
+    pad = lambda w, cols: F.pad(w.view(4, h, cols), (0, 64 - cols, 0, 64 - h)).reshape(256, 64)
+    return (F.pad(x, (0, 64 - d)), pad(w_ih, d), pad(w_hh, h), F.pad(bias.view(4, h), (0, 64 - h)).reshape(256))
+
+
+def wide_checks(K, dev, max_err, max_rel) -> None:
+    """The widths phase's kernel checks: A, B and C at NEW_WIDTHS against
+    their plain versions at B=3, T=512, fp32 and bf16 (KERNEL_TOL); two
+    backward calls (and on the cluster path two forward calls) give the
+    same bits; width 48 gives the bits of the width-64 instantiation on the
+    zero-padded operands; past the ceiling a call raises and launches
+    nothing.  The worst errors go to max_err / max_rel under the masked and
+    cluster names."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+        for d, h in NEW_WIDTHS:
+            name, fname, bname = (K.instantiation(k, dtype, d, h) for k in K.KERNELS)
+            x, w_ih, w_hh, bias, dy = lstm_inputs(NEW_B, dtype, dev, seed=d * 1000 + h, t=NEW_T, w=d, h=h)
+            with no_tf32():
+                y0 = K.forward_kernel(x, w_ih, w_hh, bias)
+                y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+                again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+                torch.cuda.synchronize()
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+            err_a = float((y0.float() - ref_y.float()).abs().max())
+            err_b = max(float((y.float() - ref_y.float()).abs().max()), float((cprev - ref_c).abs().max()))
+            rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
+            same = all(torch.equal(g, g2) for g, g2 in zip(grads, again)) and torch.equal(y0, y)
+            if name.endswith("_cluster"):
+                same &= torch.equal(y0, K.forward_kernel(x, w_ih, w_hh, bias))
+            shapes = (y.shape == (NEW_B, NEW_T, h) and grads[0].shape == x.shape
+                      and grads[1].shape == (4 * h, d) and grads[2].shape == (4 * h, h))
+            check(shapes and err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c and same
+                  and all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"{name} / {fname} / {bname} (D={d} H={h}) vs plain, B={NEW_B} T={NEW_T}: A {err_a:.3e}, "
+                  f"B {err_b:.3e} max abs (tol {tol_a:.0e}); C rel {', '.join(f'{r:.2e}' for r in rels)} "
+                  f"(tol {tol_c:.0e}); two calls the same bits: {same}")
+            for n, e in ((name, err_a), (fname, err_b)):
+                max_err[n] = max(max_err.get(n, 0.0), e)
+            max_err[bname] = max(max_err.get(bname, 0.0),
+                                 max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
+            max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+            if (d, h) == (48, 48):
+                padded = padded_to_64(x, w_ih, w_hh, bias, h)
+                y64 = K.forward_kernel(*padded)
+                yt64, c64 = K.forward_train_kernel(*padded)
+                held = (torch.equal(y0, y64[..., :h]) and torch.equal(y, yt64[..., :h])
+                        and torch.equal(cprev, c64[..., :h]) and float(y64[..., h:].float().abs().max()) == 0.0)
+                check(held, f"{name} / {fname} at 48 x 48: the same bits as {K.instantiation('lstm_fwd', dtype, 64)} "
+                            f"on the zero-padded operands, padded units exactly 0")
+            del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
+            torch.cuda.empty_cache()
+    before = dict(K.launches)
+    ceiling = K.MAX_WIDTH
+    for d, h in ((ceiling + 1, ceiling + 1), (8, ceiling + 1)):
+        x, w_ih, w_hh, bias, _ = lstm_inputs(2, torch.float32, dev, seed=1, t=8, w=d, h=h)
+        try:
+            K.lstm_fused_forward(x, w_ih, w_hh, bias)
+            refused = False
+        except ValueError as e:
+            refused = str(ceiling) in str(e)
+            print(f"D={d} H={h} on the card: {e}", flush=True)
+        check(refused and K.launches == before, f"D={d} H={h} (past the ceiling {ceiling}) raises a ValueError "
+                                                f"naming it, and launches nothing")
+
+
+def wide_main_checks(K, dev, max_err, max_rel) -> None:
+    """A, B and C at the shapes the base family's main path hands them at
+    channels 48 and 128, T=16000, fp32 and bf16, against their plain
+    versions (KERNEL_TOL): A at the session's batch (WIDE_CHUNKS chunks,
+    one bucket), B and C at the train step's (WIDE_B), so that each call
+    takes the main path's plan (rows, waves, dW chunks).  The worst errors
+    go to max_err / max_rel."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for w in BASE_CHANNELS:
+        for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+            name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
+            slots = K._cluster_slots(dev.index or 0, dtype, w, w) if K.capacity(w) is None else None
+            plans = [K.launch_plan(b, T, dtype, sm_count, w, None, None, slots) for b in (WIDE_CHUNKS, WIDE_B)]
+            x, w_ih, w_hh, bias, dy = lstm_inputs(WIDE_CHUNKS, dtype, dev, seed=w + 9, w=w)
+            xb, dyb = x[:WIDE_B].contiguous(), dy[:WIDE_B].contiguous()
+            with no_tf32():
+                y0 = K.forward_kernel(x, w_ih, w_hh, bias)
+                y, cprev = K.forward_train_kernel(xb, w_ih, w_hh, bias)
+                grads = K.backward_kernel(xb, y, cprev, dyb, w_ih, w_hh, bias)
+                torch.cuda.synchronize()
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                ref_g = lstm_backward(xb, y, cprev, dyb, w_ih, w_hh, bias)
+            err_a = max_abs(y0, ref_y)
+            err_b = max(max_abs(y, ref_y[:WIDE_B]), max_abs(cprev, ref_c[:WIDE_B]))
+            rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
+            check(err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c
+                  and all(bool(torch.isfinite(g).all()) for g in (y0, y, *grads)),
+                  f"{name} (B={WIDE_CHUNKS}: {plans[0].fwd_rows} rows a block, {plans[0].fwd_blocks} blocks) / "
+                  f"{fname} / {bname} (B={WIDE_B}: {plans[1].fwd_rows} / {plans[1].bwd_rows} rows, "
+                  f"{plans[1].n_chunks} dW chunks) at the main path's shapes, W={w} T={T}, vs plain: A "
+                  f"{err_a:.3e}, B {err_b:.3e} max abs (tol {tol_a:.0e}); C rel "
+                  f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol_c:.0e})")
+            max_err[name] = max(max_err.get(name, 0.0), err_a)
+            max_err[fname] = max(max_err.get(fname, 0.0), err_b)
+            max_err[bname] = max(max_err.get(bname, 0.0), *(max_abs(g, r) for g, r in zip(grads, ref_g)))
+            max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+            del x, xb, dy, dyb, y0, y, cprev, grads, ref_y, ref_c, ref_g
+            torch.cuda.empty_cache()
+
+
+def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
+    """The widths phase's timing at the base family's new widths (48:
+    masked, 128: cluster) and at the ceiling (MAX_WIDTH: the cluster's 8
+    CTAs), T=16000: A at B=512, B and C at B=128, fp32 and bf16, by CUDA
+    events (2 calls after one); the plain versions (one call), whose
+    outputs are held against the kernels' (KERNEL_TOL; the worst errors go
+    to max_err / max_rel); torch.nn.LSTM (cuDNN, the yardstick only; a
+    batch the card's memory refuses in slices, see yardstick); the bound.
+    Printed and kept in times under the instantiation's name, the
+    ceiling's under that name's "W256" key."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for w in (96, 128, 256):
+        k = -(-w // K.CLUSTER_UNITS)
+        for dtype in (torch.float32, torch.bfloat16):
+            slots = K._cluster_slots(dev.index or 0, dtype, w, w)
+            check(all(1 <= n <= sm_count // k for pair in slots for n in pair),
+                  f"cluster path at {w} x {w} ({k} CTAs a cluster), {dtype}: clusters the card holds at once "
+                  f"(A, C at 1 and 2 rows) {slots}, at most {sm_count // k}")
+    for w in (*BASE_CHANNELS, K.MAX_WIDTH):
+        for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
+            tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+            x, w_ih, w_hh, bias, _ = lstm_inputs(B_SERVE, dtype, dev, seed=w + 7, w=w)
+            with no_tf32():
+                ms = cuda_ms(lambda: K.forward_kernel(x, w_ih, w_hh, bias), reps=2)
+                y0 = K.forward_kernel(x, w_ih, w_hh, bias)
+                ref, plain = timed_call(lambda: lstm_forward(x, w_ih, w_hh, bias))
+                err_a = max_abs(y0, ref)
+                finite = bool(torch.isfinite(y0).all())
+                del y0, ref
+                torch.cuda.empty_cache()
+                m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+                with torch.inference_mode():
+                    lib = yardstick(lambda r: cuda_ms(lambda: m(x[:r]), reps=2), f"nn.LSTM({w}) {sfx}", B_SERVE)
+            rows = {name: (ms, plain, lib, B_SERVE)}
+            del x, m
+            torch.cuda.empty_cache()
+            x, w_ih, w_hh, bias, dy = lstm_inputs(B_TRAIN, dtype, dev, seed=w + 8, w=w)
+            with no_tf32():
+                y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=2)
+                grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+                b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=2)
+                (ref_y, ref_c), f_plain = timed_call(lambda: lstm_forward_train(x, w_ih, w_hh, bias))
+                ref_g, b_plain = timed_call(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias))
+            err_b = max(max_abs(y, ref_y), max_abs(cprev, ref_c))
+            rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
+            err_c = max(max_abs(g, r) for g, r in zip(grads, ref_g))
+            finite &= all(bool(torch.isfinite(g).all()) for g in (y, *grads))
+            check(finite and err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c,
+                  f"{name} (B={B_SERVE}) / {fname} / {bname} (B={B_TRAIN}) at W={w} T={T} vs plain: A "
+                  f"{err_a:.3e}, B {err_b:.3e} max abs (tol {tol_a:.0e}); C rel "
+                  f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol_c:.0e})")
+            for n, e in ((name, err_a), (fname, err_b), (bname, err_c)):
+                max_err[n] = max(max_err.get(n, 0.0), e)
+            max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+            del grads, ref_y, ref_c, ref_g
+            torch.cuda.empty_cache()
+            with no_tf32():
+                m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+                xg = x.clone().requires_grad_()
+                f_lib = yardstick(lambda r: cuda_ms(lambda: m(xg[:r]), reps=2), f"nn.LSTM({w}) {sfx} forward",
+                                  B_TRAIN)
+
+                def lib_backward(r):
+                    ylib = m(xg[:r])[0]
+                    return cuda_ms(lambda: torch.autograd.grad(ylib, [xg, *m.parameters()], dy[:r],
+                                                               retain_graph=True), reps=2)
+                b_lib = yardstick(lib_backward, f"nn.LSTM({w}) {sfx} backward", B_TRAIN)
+            rows.update({fname: (f_ms, f_plain, f_lib, B_TRAIN), bname: (b_ms, b_plain, b_lib, B_TRAIN)})
+            for n, (k_ms, p_ms, l_ms, b) in rows.items():
+                bms, by = bound_ms(n, b, width=w)
+                row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": l_ms,
+                       "width": w, "batch": b, "steps": T}
+                if w in BASE_CHANNELS:
+                    times[n] = row
+                else:
+                    times[n][f"W{w}"] = row
+                print(f"{n} W={w} B={b} T={T}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, cuDNN nn.LSTM({w}) "
+                      f"{l_ms} ms, bound {bms:.4f} ms ({by})", flush=True)
+            del x, y, cprev, dy, m, xg
+            torch.cuda.empty_cache()
+
+
+def wide_config(channels: int, compute_dtype: str):
+    """The base preset at another channel count (LSTM(C, C)), compute dtype
+    as given."""
+    from awm_tpu_torch.config import get_config
+
+    cfg = get_config("base")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, channels=channels),
+                               train=dataclasses.replace(cfg.train, compute_dtype=compute_dtype))
+
+
+def grad_groups(state) -> dict:
+    """{group: the norm of its gradients, as one vector} and the vectors."""
+    import torch
+
+    out = {}
+    for group, pat in WIDE_GROUPS.items():
+        gs = [p.grad.detach().float().cpu().reshape(-1) for net in ("gen", "det")
+              for k, p in getattr(state, net).named_parameters()
+              if re.search(pat, f"{net}.{k}") and p.grad is not None]
+        out[group] = torch.cat(gs)
+    return out
+
+
+def wide_family(K, launches, dev) -> dict:
+    """The base family at channels 48 (LSTM(48, 48): the masked kernels) and
+    128 (LSTM(128, 128): the cluster path), seeded_flax_tree weights, with
+    the counters zeroed just before: an embed+detect session of WIDE_CHUNKS
+    chunks at bf16 and fp32, its first chunks held against the CPU session;
+    one train step at B=WIDE_B, T=16000, bf16 and fp32 (finite terms), and
+    one at B=WIDE_B, T=WIDE_HOLD_T held against the same step on the CPU.
+    The plain versions are counted on CUDA tensors: none may run.  Returns
+    the errors."""
+    import torch
+
+    from awm_tpu_torch import api
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    plain_on_card = []
+    wrapped = {}
+    for fn_name in ("lstm_forward", "lstm_forward_train", "lstm_backward"):
+        fn = getattr(K, fn_name)
+        wrapped[fn_name] = fn
+
+        def counted(*args, _fn=fn, _name=fn_name):
+            if args[0].is_cuda:
+                plain_on_card.append(_name)
+            return _fn(*args)
+        setattr(K, fn_name, counted)
+    zero_counts(K)
+    errs = {}
+    chunks = speechlike(WIDE_CHUNKS, seed=80)
+    msgs = np.random.default_rng(81).integers(0, 2**16, size=WIDE_CHUNKS)
+    clips = torch.from_numpy(speechlike(WIDE_B, seed=82))
+    hold = torch.from_numpy(speechlike(WIDE_B, seed=83, chunk=WIDE_HOLD_T))
+    tmsg = torch.from_numpy(np.random.default_rng(84).integers(0, 2**16, size=WIDE_B))
+    try:
+        for c in BASE_CHANNELS:
+            nets = seeded_nets(wide_config(c, "float32"), seed=c)
+            for dt, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+                with no_tf32():
+                    card = api.InferenceSession(*nets, compute_dtype=dt, device=dev).embed_detect(chunks, msgs)
+                    cpu = api.InferenceSession(*nets, compute_dtype=dt, device="cpu").embed_detect(
+                        chunks[:WIDE_HOLD_CHUNKS], msgs[:WIDE_HOLD_CHUNKS])
+                e = {k: float(np.abs(card[k][:WIDE_HOLD_CHUNKS] - cpu[k]).max()) for k in cpu}
+                e["delta_rms"] /= float(np.abs(cpu["delta_rms"]).max()) + 1e-12
+                errs[f"session c{c} {label}"] = e
+                tol = WIDE_SESSION_TOL[label]
+                check(all(np.isfinite(v).all() for v in card.values()) and card["msg_logit_mean"].shape == (WIDE_CHUNKS, 16)
+                      and all(e[k] <= tol[k] for k in tol),
+                      f"base family C={c} {label} session, {WIDE_CHUNKS} chunks on the card, the first "
+                      f"{WIDE_HOLD_CHUNKS} vs the CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+                      + f" (tol {tol}; delta_rms relative)")
+            for label in ("bfloat16", "float32"):
+                cfg = wide_config(c, label)
+                states = {}
+                for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                    states[where] = tr.init_state(cfg, device=device)
+                    for name, net in zip(("gen", "det"), nets):
+                        getattr(states[where], name).load_state_dict(net.state_dict())
+                with no_tf32():
+                    main = tr.init_state(cfg, device=dev)
+                    for name, net in zip(("gen", "det"), nets):
+                        getattr(main, name).load_state_dict(net.state_dict())
+                    t0 = time.perf_counter()
+                    terms = tr.train_step(cfg, main, clips.to(dev), message=tmsg.to(dev))
+                    torch.cuda.synchronize()
+                    step_s = time.perf_counter() - t0
+                    check(all(bool(torch.isfinite(v)) for v in terms.values()),
+                          f"base family C={c} {label} train step, B={WIDE_B} T={T} on the card: finite loss terms "
+                          f"({step_s:.2f} s with the kernels' first calls)")
+                    got = {where: tr.train_step(cfg, states[where], hold.to(device), message=tmsg.to(device))
+                           for where, device in (("card", dev), ("cpu", torch.device("cpu")))}
+                terms_err = max(abs(float(got["card"][k]) - float(v)) / (abs(float(v)) + 1e-12)
+                                for k, v in got["cpu"].items())
+                ga, gb = grad_groups(states["card"]), grad_groups(states["cpu"])
+                drift = {g: float((ga[g] - gb[g]).norm() / (gb[g].norm() + 1e-12)) for g in ga}
+                errs[f"train c{c} {label}"] = {"terms": terms_err, **drift}
+                tol = WIDE_TRAIN_TOL[label]
+                check(terms_err <= tol["terms"] and max(drift.values()) <= tol["drift"],
+                      f"base family C={c} {label} train step, B={WIDE_B} T={WIDE_HOLD_T}, card vs CPU: loss terms "
+                      f"rel {terms_err:.2e} (tol {tol['terms']:.0e}); gradient drift "
+                      + ", ".join(f"{g} {v:.2e}" for g, v in drift.items()) + f" (tol {tol['drift']:.0e})")
+                del states, main
+                torch.cuda.empty_cache()
+    finally:
+        for fn_name, fn in wrapped.items():
+            setattr(K, fn_name, fn)
+    new = [K.instantiation(k, dt, c) for c in BASE_CHANNELS for k in K.KERNELS
+           for dt in (torch.float32, torch.bfloat16)]
+    for name in new:
+        check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times by the base family at channels "
+                                    f"{'/'.join(map(str, BASE_CHANNELS))}")
+    check(not plain_on_card, f"no plain LSTM version ran on a CUDA tensor in the base family's runs "
+                             f"({len(plain_on_card)} calls: {sorted(set(plain_on_card))})")
+    add_counts(K, launches, "widths phase")
+    return errs
+
+
+def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
+    """Phase 4b: wide_checks, wide_main_checks, wide_times, then
+    wide_family with the counters zeroed just before (the functions take
+    only K, launches and dev beside what they fill, so a card-side
+    rehearsal can call them alone)."""
+    wide_checks(K, dev, max_err, max_rel)
+    wide_main_checks(K, dev, max_err, max_rel)
+    wide_times(K, dev, times, max_err, max_rel)
+    return wide_family(K, launches, dev)
 
 
 # entry() on the card vs the same weights and inputs on the CPU (the plain
@@ -2630,6 +3054,11 @@ def main() -> int:
     # 4a. entry(), counters zeroed just before
     entry_errs = entry_phase(K, launches, dev)
     lap("4a entry")
+    # 4b. the widths the kernels take masked and on the cluster path, and the
+    # base family at channels 48 and 128, counters zeroed just before it
+    wide_rows = {}
+    wide_errs = widths_phase(K, launches, dev, max_err, max_rel, wide_rows)
+    lap("4b widths")
 
     # 5. the train path, counters zeroed just before
     with np.load(f"{ASSETS}/train_golden.npz") as g:
@@ -2674,7 +3103,7 @@ def main() -> int:
     for name, n in K.launches.items():
         launches[name] += n
     for name, n in launches.items():
-        if KERNELS[name].width == 64:  # the base family's paths; width 32 is phase 12's
+        if name in KERNELS and KERNELS[name].width == 64:  # the base family's paths; width 32 is phase 12's
             check(n > 0, f"{name} launched {n} times on the serving and train paths")
 
     lap("5 train")
@@ -3051,7 +3480,7 @@ def main() -> int:
     for label, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
         cfg = dataclasses.replace(scfg, train=dataclasses.replace(scfg.train, compute_dtype=dt))
         state = tr.init_state(cfg, device=dev)
-        for name, net in zip(("gen", "det"), seeded_strided(cfg, 7, dev)):
+        for name, net in zip(("gen", "det"), seeded_nets(cfg, 7, dev)):
             getattr(state, name).load_state_dict(net.state_dict())
         torch.cuda.reset_peak_memory_stats()
         tr.train_step(cfg, state, batch)  # warm-up
@@ -3087,10 +3516,12 @@ def main() -> int:
 
     # 17. result lines
     kernels = []
+    times.update(wide_rows)
     for name, k in KERNELS.items():
-        steps = {64: T, W32: T32, W16: DRY_T}[k.width]
+        steps = {W32: T32, W16: DRY_T}.get(k.width, T)
         batch = DRY_B if k.width == W16 else B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
-        plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, width=k.width)
+        slots = K._cluster_slots(dev.index or 0, dtypes[k.sfx], k.width, k.width) if K.capacity(k.width) is None else None
+        plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width, None, None, slots)
         path = (("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd" else path_of(plan))
         print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"
               f" rows per block, {path} path", flush=True)
@@ -3105,7 +3536,8 @@ def main() -> int:
           f"{json.dumps(sweep_wall)}; attack chain ms {attacks_ms:.2f}; strided embed+detect clips/s "
           f"{json.dumps(strided_clips)}; strided train-step clips/s {json.dumps(strided_train)}; "
           f"multi-process {json.dumps(parallel)}; bench {json.dumps(benched)}; drill {json.dumps(drill)}; "
-          f"entry card vs CPU {json.dumps(entry_errs)}; dry run {json.dumps(dry)}; memory {json.dumps(memory)}; "
+          f"entry card vs CPU {json.dumps(entry_errs)}; widths {json.dumps(wide_errs)}; dry run {json.dumps(dry)}; "
+          f"memory {json.dumps(memory)}; "
           f"phase s {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -413,16 +413,22 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
     assert ck.maybe_resume(str(tmp_path / "none"), other)[1:] == (0, float("inf"), False)
 
 
-@pytest.mark.parametrize("shaped", [True, False], ids=["shapecap", "default"])
+@pytest.mark.parametrize("shaped", [True, False, "channels48"], ids=["shapecap", "default", "channels48"])
 def test_arch_sidecars_cross_read(tmp_path, shaped):
     """The JAX package's write_arch and the port's give the same dict for the
     same configuration, and each package's read_arch parses the other's
-    sidecar back to that configuration."""
+    sidecar back to that configuration.  At channels=48 (a width the LSTM
+    kernels take masked) the sidecar carries the width, and the bridge
+    (seeded_flax_tree, variables_from_flax) loads the networks built from
+    it strictly, LSTM(48, 48) included."""
     from awm_tpu import checkpoint as jck
     from awm_tpu.config import ModelConfig as JModel, ShapingConfig as JShaping
     from awm_tpu_torch import checkpoint as ck
+    from awm_tpu_torch.models import build_models
 
-    model = dict(message_encoding="bits", decode_head="dilated", delta_band_hz=3000.0) if shaped else {}
+    model = (dict(channels=48) if shaped == "channels48"
+             else dict(message_encoding="bits", decode_head="dilated", delta_band_hz=3000.0) if shaped else {})
+    shaped = shaped is True
     shaping = dict(enabled=True, max_rms=0.01) if shaped else {}
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
@@ -434,6 +440,14 @@ def test_arch_sidecars_cross_read(tmp_path, shaped):
     assert configs_from_arch(pdoc) == (ModelConfig(**model), ShapingConfig(**shaping) if shaped else None)
     if shaped:
         assert pdoc == read_arch(SHAPECAP_ARCH)
+    if model.get("channels"):
+        cfg = configs_from_arch(pdoc)[0]
+        assert pdoc["channels"] == cfg.channels == 48
+        variables = ck.variables_from_flax(ck.seeded_flax_tree(cfg, 0))
+        for net, name in zip(build_models(cfg), ("gen", "det")):
+            net.load_state_dict({k[len(name) + 1:]: v for k, v in variables.items() if k.startswith(name + ".")},
+                                strict=True)
+        assert tuple(build_models(cfg)[0].lstm.w_ih.shape) == (192, 48)
 
 
 def test_orbax_checkpoint_is_refused_with_the_npz_crossing():

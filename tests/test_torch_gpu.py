@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels A, B and C (widths 64, 32 and 16), of the attack ops,
+"""Card-only tests of the port's CUDA kernels A, B and C (widths 64, 32 and 16, the masked widths
+below 64 and the cluster path above it, up to MAX_WIDTH = 256), of the attack ops,
 of checkpoints written on the card and of the fp32 server on the card
 (marker ``gpu``).
 
@@ -25,13 +26,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(b, t, device, seed=0, w=64):
+def _inputs(b, t, device, seed=0, w=64, h=None):
+    """x (b, t, w) and the weights of LSTM(w, h) (h defaults to w)."""
     rng = np.random.default_rng(seed)
+    h = h or w
     arrays = (
         rng.standard_normal((b, t, w)) * 0.3,
-        rng.standard_normal((4 * w, w)) * 0.1,
-        rng.standard_normal((4 * w, w)) * 0.1,
-        rng.standard_normal(4 * w) * 0.1,
+        rng.standard_normal((4 * h, w)) * 0.1,
+        rng.standard_normal((4 * h, h)) * 0.1,
+        rng.standard_normal(4 * h) * 0.1,
     )
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
@@ -65,8 +68,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_fused_forward(x.transpose(0, 1), w_ih, w_hh, bias)
-    with pytest.raises(ValueError, match="shape"):
-        lstm_fused_forward(x[..., :32].contiguous(), w_ih[:, :32], w_hh, bias)
+    with pytest.raises(ValueError, match="shape"):  # w_ih (4H, 16) for an x of D = 32
+        lstm_fused_forward(x[..., :32].contiguous(), w_ih[:, :16], w_hh, bias)
     with pytest.raises(TypeError):
         lstm_fused_forward(x.half(), w_ih, w_hh, bias)
     with pytest.raises(ValueError, match="cpu"):
@@ -350,11 +353,106 @@ def test_width16_function_matches_autograd(cuda, dtype, tol):
 
 
 def test_kernel_refuses_unbuilt_width(cuda):
-    """A width with no instantiation raises on the card (the CPU takes the
-    plain version of any width)."""
-    x, w_ih, w_hh, bias = _inputs(2, 8, cuda, w=48)
-    with pytest.raises(ValueError, match="widths"):
-        lstm_fused_forward(x, w_ih, w_hh, bias)
+    """A width past the kernels' ceiling (MAX_WIDTH + 1 = 257, as D or as
+    H) raises on the card with the ceiling in its message (the CPU takes the
+    plain version of any width); nothing falls back to the plain version."""
+    ceiling = lstm_kernel.MAX_WIDTH
+    before = dict(lstm_kernel.launches)
+    for w, h in ((ceiling + 1, None), (8, ceiling + 1)):
+        x, w_ih, w_hh, bias = _inputs(2, 8, cuda, w=w, h=h)
+        with pytest.raises(ValueError, match=f"widths.*{ceiling}"):
+            lstm_fused_forward(x, w_ih, w_hh, bias)
+    assert lstm_kernel.launches == before
+
+
+# (D, H) of the new widths: masked within capacity 64 (48 x 48, the base
+# family at channels 48; 40 x 24) and 32 and 16, the cluster path (96 x 96,
+# 128 x 128, the base family at channels 128; the ceiling; a wide input with
+# a narrow hidden width and the reverse).
+NEW_WIDTHS = [(48, 48), (40, 24), (17, 17), (9, 3), (96, 96), (128, 128), (256, 256), (200, 8), (8, 200)]
+
+
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", NEW_WIDTHS, ids=[f"{d}x{h}" for d, h in NEW_WIDTHS])
+def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
+    """A, B and C at the masked and cluster widths vs the plain versions at
+    KERNEL_TOL (the other widths' tolerances and reasons), at every rows
+    variant the path takes, T = 37 (past a ring chunk) and B = 5 (a ragged
+    last block at two rows): shapes (B, T, H) and (4H, D), the launches
+    counted on the path's own counter, two backward calls bit-equal."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    b, t = 5, 37
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=d * 300 + h, w=d, h=h)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(h)).to(dtype)
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+    names = {k: lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS}
+    assert all(n.endswith("_cluster" if max(d, h) > 64 else "_masked") for n in names.values())
+    before = {n: lstm_kernel.launches[n] for n in names.values()}
+    fwd_rows = lstm_kernel.CLUSTER_ROWS if max(d, h) > 64 else lstm_kernel.FWD_ROWS
+    for rows in fwd_rows:
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert y0.shape == (b, t, h) and y0.dtype == dtype and torch.equal(y0, y), rows
+        assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, rows
+        assert float((cprev - ref_c).abs().max()) <= tol_fwd, rows
+    for rows in lstm_kernel.BWD_ROWS:
+        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        assert tuple(got[0].shape) == (b, t, d) and got[0].dtype == dtype
+        assert tuple(got[1].shape) == (4 * h, d) and tuple(got[2].shape) == (4 * h, h)
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol_bwd, (name, rows, rel)
+            assert torch.equal(a, a2), name
+    n_fwd, n_bwd = len(fwd_rows), 2 * len(lstm_kernel.BWD_ROWS)  # a call counts once
+    assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_masked_width_equals_padded_capacity(cuda, dtype):
+    """Width 48 on the capacity-64 instantiation at runtime widths gives the
+    same bits as the square width-64 instantiation on the operands
+    zero-padded to 64 (kernels A and B, the first 48 columns), and the padded
+    units stay exactly 0."""
+    x, w_ih, w_hh, bias = _inputs(4, 300, cuda, seed=48, w=48)
+    x = x.to(dtype)
+    xp = torch.nn.functional.pad(x, (0, 16))
+    # each gate's 48 rows (and columns) padded to 64
+    pad_w = lambda a: torch.nn.functional.pad(a.view(4, 48, 48), (0, 16, 0, 16)).reshape(256, 64)
+    wi, wh, bp = pad_w(w_ih), pad_w(w_hh), torch.nn.functional.pad(bias.view(4, 48), (0, 16)).reshape(256)
+    assert tuple(wi.shape) == (256, 64) and tuple(bp.shape) == (256,)
+    y48 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias)
+    y64 = lstm_kernel.forward_kernel(xp, wi, wh, bp)
+    yt48, c48 = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    yt64, c64 = lstm_kernel.forward_train_kernel(xp, wi, wh, bp)
+    torch.cuda.synchronize()
+    assert torch.equal(y48, y64[..., :48]) and torch.equal(yt48, yt64[..., :48])
+    assert torch.equal(c48, c64[..., :48])
+    assert float(y64[..., 48:].float().abs().max()) == 0.0 and float(c64[..., 48:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cluster_path_same_bits_twice(cuda, dtype):
+    """Two calls of each kernel on the cluster path (128 x 128, four CTAs a
+    cluster) give the same bits: the h and da exchanges and every sum run in
+    a fixed order."""
+    x, w_ih, w_hh, bias = _inputs(3, 200, cuda, seed=128, w=128)
+    x = x.to(dtype)
+    dy = torch.randn(3, 200, 128, device=cuda, generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    y, c = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    y2, c2 = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    g = lstm_kernel.backward_kernel(x, y, c, dy, w_ih, w_hh, bias)
+    g2 = lstm_kernel.backward_kernel(x, y, c, dy, w_ih, w_hh, bias)
+    assert torch.equal(lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), lstm_kernel.forward_kernel(x, w_ih, w_hh, bias))
+    assert torch.equal(y, y2) and torch.equal(c, c2)
+    assert all(torch.equal(a, b) for a, b in zip(g, g2))
 
 
 SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block
@@ -677,3 +775,18 @@ def test_two_ranks_over_gloo_on_card(cuda, tmp_path):
         for k, v in want.items():
             if k not in params and not k.startswith("grad."):
                 np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5, err_msg=f"{r} {k}")
+
+
+def test_cluster_plan_reads_the_clusters_the_card_holds(cuda):
+    """The cluster path's waves come from cudaOccupancyMaxActiveClusters:
+    at least one and at most sm_count // K clusters of one and two rows, for
+    kernel A and C's recurrence, and a call's plan is the pure plan given
+    that reading."""
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for w in (96, 128, 256):
+        k = -(-w // lstm_kernel.CLUSTER_UNITS)
+        for dtype in (torch.float32, torch.bfloat16):
+            slots = lstm_kernel._cluster_slots(cuda.index or 0, dtype, w, w)
+            assert all(1 <= n <= sm_count // k for pair in slots for n in pair), (w, dtype, slots)
+            x = torch.zeros(64, 8, w, device=cuda, dtype=dtype)
+            assert lstm_kernel._plan_for(x, w) == lstm_kernel.launch_plan(64, 8, dtype, sm_count, w, None, w, slots)

@@ -2,8 +2,9 @@
 at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
-pure function of (batch, steps, dtype, SM count, width), so it is tested here
-on the CPU, at width 64, 32 and 16.  The short-T cases hold the plain training forward and backward against
+pure function of (batch, steps, dtype, SM count, D, H), so it is tested here
+on the CPU, at width 64, 32 and 16, at the masked widths below 64 and on the
+cluster path above it.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
 
@@ -112,7 +113,11 @@ def test_plan_width16(batch, dtype):
     nor the fused backward is built for it), scratch sized by the width (da
     (B, T, 64), dW partials (n, 64, 32), db (blocks, 64)), blocks that cover
     the batch once, and rows from the width's own measured step costs: a
-    dry-run rank's two fp32 rows take a block each."""
+    dry-run rank's two fp32 rows take a block each.  The waves count the
+    blocks an SM runs at once (BLOCKS_PER_SM): at B=512 fp32 one row a
+    block (one wave of 512 blocks), which the card measured faster than
+    four rows (0.0158 against 0.0195 ms)."""
+    slots = 132 * lstm_kernel.BLOCKS_PER_SM[16, dtype]
     for steps in (1, 32, 50, 64, 800):
         plan = launch_plan(batch, steps, dtype, 132, width=16)
         assert not plan.fwd_short and not plan.bwd_fused
@@ -122,10 +127,11 @@ def test_plan_width16(batch, dtype):
         for rows, blocks, cost in ((plan.fwd_rows, plan.fwd_blocks, lstm_kernel.FWD_STEP_COST[16, dtype]),
                                    (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_STEP_COST[16, dtype])):
             assert rows in cost and blocks * rows >= batch > (blocks - 1) * rows
-            waves = lambda r: -(-(-(-batch // r)) // 132)
+            waves = lambda r: -(-(-(-batch // r)) // slots)
             assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
     if dtype == torch.float32:
         assert launch_plan(2, 32, dtype, 132, width=16).fwd_blocks == 2
+        assert launch_plan(512, 50, dtype, 132, width=16).fwd_rows == 1
 
 
 def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
@@ -133,15 +139,17 @@ def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
     they were (B=128 and 512 at T=16000: 256 chunks of 2048 rows or more);
     a width-64 call of fewer than 132 x 2048 rows (the curriculum's B=8,
     the trainer's B=16) now gets one dW chunk an SM, not one per 2048 rows;
-    and a width the kernels are not compiled for (48, 128) raises."""
+    and a width past the kernels' ceiling (MAX_WIDTH + 1 = 257, or 0), as D
+    or as H, raises a ValueError that names the ceiling."""
     for dtype in (torch.float32, torch.bfloat16):
         assert launch_plan(128, 16000, dtype, 132, width=64).n_chunks == lstm_kernel.DW_MAX_CHUNKS
         assert launch_plan(512, 16000, dtype, 132, width=64).part_shape == (256, 256, 128)
         assert launch_plan(8, 16000, dtype, 132, width=64).n_chunks == 132  # 63 at 2048 rows a chunk
         assert launch_plan(16, 16000, dtype, 132, width=64).n_chunks == 132  # 125
-    for width in (48, 128):
-        with pytest.raises(ValueError, match="widths"):
-            launch_plan(4, 10, torch.float32, 132, width=width)
+    ceiling = lstm_kernel.MAX_WIDTH
+    for width, hidden in ((ceiling + 1, None), (0, None), (64, ceiling + 1), (ceiling + 1, 64)):
+        with pytest.raises(ValueError, match=f"widths.*{ceiling}"):
+            launch_plan(4, 10, torch.float32, 132, width, None, hidden)
 
 
 # The width-64 main shapes' plans as they stood before the fused backward
@@ -383,3 +391,148 @@ def test_plain_backward_matches_pallas_short(rng, t, w, dtype):
         assert float(np.abs(a - r).max()) <= tol * float(np.abs(r).max()) + 1e-12, name
     if t == 1:
         assert float(got[2].abs().max()) == 0.0
+
+
+# (D, H) of the new widths: masked within capacity 64 (the base family at
+# channels 48, a D != H pair), within 32 and 16, and the cluster path (the
+# base family at channels 128, 96, the ceiling, a wide input with a narrow
+# hidden width and the reverse).
+MASKED = [(48, 48), (40, 24), (17, 17), (20, 32), (9, 3)]
+CLUSTER = [(96, 96), (128, 128), (256, 256), (200, 8), (8, 200), (130, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", MASKED + CLUSTER)
+def test_plan_at_every_new_width(d, h, dtype):
+    """A width that is not a capacity's square takes the smallest capacity
+    with max(D, H) <= W, the ring forward and the four-launch backward (the
+    short path and the fused backward are built for D = H = 32 only), its
+    capacity's measured costs at the blocks an SM runs; above 64 the cluster
+    path, ceil(H / 32) CTAs a cluster, sm_count // K clusters a wave, rows
+    by the cluster path's measured costs at that K (one row where none is
+    measured).  Scratch at the real widths: da (B, T, 4H), dW partials
+    (n, 4H, D + H), db (blocks, 4H); the blocks cover the batch once; the
+    launch counters name the path."""
+    for batch in (1, 7, 64, 128, 512):
+        for steps in (1, 50, 16000):
+            plan = launch_plan(batch, steps, dtype, 132, d, None, h)
+            assert plan.da_shape == (batch, steps, 4 * h) and plan.da_dtype == dtype
+            assert plan.part_shape == (plan.n_chunks, 4 * h, d + h)
+            assert plan.db_part_shape == (plan.bwd_blocks, 4 * h)
+            assert not plan.fwd_short and not plan.bwd_fused
+            for rows, blocks in ((plan.fwd_rows, plan.fwd_blocks), (plan.bwd_rows, plan.bwd_blocks)):
+                assert blocks * rows >= batch > (blocks - 1) * rows
+            name = lstm_kernel.instantiation("lstm_fwd", dtype, d, h)
+            if max(d, h) > 64:
+                assert (plan.capacity, plan.cluster) == (0, -(-h // 32)) and plan.cluster <= 8
+                assert name.endswith("_cluster")
+                slots = 132 // plan.cluster
+                costs = tuple(c.get((plan.cluster, dtype), lstm_kernel.ONE_ROW)
+                              for c in (lstm_kernel.CLUSTER_FWD_STEP_COST, lstm_kernel.CLUSTER_BWD_STEP_COST))
+            else:
+                cap = min(w for w in lstm_kernel.WIDTHS if max(d, h) <= w)
+                assert (plan.capacity, plan.cluster) == (cap, 0) and name.endswith("_masked")
+                slots = 132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1)
+                costs = (lstm_kernel.FWD_STEP_COST[cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
+            waves = lambda r: -(-(-(-batch // r)) // slots)
+            for rows, cost in zip((plan.fwd_rows, plan.bwd_rows), costs):
+                assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
+            assert name in lstm_kernel.launches
+            assert lstm_kernel.entry_point(name) == "awm_" + name.removesuffix("_masked")
+
+
+def test_square_widths_keep_their_instantiations():
+    """D = H = 64, 32, 16 keep the names, entry points and plans they had;
+    the masked names run the same entry point as their capacity's square."""
+    for w, sfx in ((64, ""), (32, "_w32"), (16, "_w16")):
+        for kernel in lstm_kernel.KERNELS:
+            assert lstm_kernel.instantiation(kernel, torch.float32, w) == f"{kernel}_f32{sfx}"
+            masked = lstm_kernel.instantiation(kernel, torch.bfloat16, w - 1, w)
+            assert masked == f"{kernel}_bf16{sfx}_masked"
+            assert lstm_kernel.entry_point(masked) == f"awm_{kernel}_bf16{sfx}"
+        assert launch_plan(128, 16000, torch.float32, 132, w) == launch_plan(128, 16000, torch.float32, 132, w, None, w)
+
+
+@pytest.mark.parametrize("sm_count", [8, 132])
+def test_cluster_plan_counts_clusters_a_wave(sm_count):
+    """On the cluster path a wave holds sm_count // K clusters (one CTA an
+    SM): at 128 x 128 (K = 4) on 132 SMs the serving batch B=512 takes two
+    rows a cluster in both dtypes (8 waves at the measured cost of two rows
+    against 16 of one, as the card measured), the training batch B=32 one
+    (one wave either way); a rows override of the backward takes 1 or 2."""
+    for h in (65, 96, 128, 200, 256):
+        k = -(-h // 32)
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = launch_plan(300, 16000, dtype, sm_count, h)
+            assert plan.cluster == k and plan.fwd_blocks * plan.fwd_rows >= 300
+            assert plan.bwd_rows in lstm_kernel.CLUSTER_ROWS
+        assert launch_plan(300, 16000, torch.bfloat16, sm_count, h, 2).bwd_blocks == 150
+        with pytest.raises(ValueError, match="rows"):
+            launch_plan(300, 16000, torch.bfloat16, sm_count, h, 4)
+    if sm_count == 132:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert launch_plan(512, 16000, dtype, 132, 128).fwd_rows == 2
+            assert launch_plan(32, 16000, dtype, 132, 128).fwd_rows == 1
+            # K = 7 (H = 200): no cost measured there, so one row a cluster
+            assert (launch_plan(512, 16000, dtype, 132, 200).fwd_rows,
+                    launch_plan(512, 16000, dtype, 132, 200).bwd_rows) == (1, 1)
+
+
+def test_cluster_plan_takes_the_clusters_the_card_holds():
+    """Given the card's reading (cudaOccupancyMaxActiveClusters: 30 clusters
+    of 4 CTAs on an H100, not 132 // 4 = 33), the waves count 30: at B=64
+    bf16 one row a cluster (3 waves against 2 of two rows at 1.78 each), as
+    the card measured (38.4 against 44.3 ms), where 33 would have taken two;
+    at B=128 fp32 two rows (3 waves at 1.44 against 5), bf16 one; the
+    backward one row.  A reading of fewer clusters for two rows moves the
+    choice by it."""
+    on_card = ((30, 30), (30, 30))
+    plan = lambda b, dt, slots=on_card: launch_plan(b, 16000, dt, 132, 128, None, 128, slots)
+    assert plan(64, torch.bfloat16).fwd_rows == 1
+    assert launch_plan(64, 16000, torch.bfloat16, 132, 128).fwd_rows == 2
+    assert plan(128, torch.float32).fwd_rows == 2 and plan(128, torch.bfloat16).fwd_rows == 1
+    assert plan(128, torch.float32).bwd_rows == plan(128, torch.bfloat16).bwd_rows == 1
+    assert plan(512, torch.float32, ((30, 10), (30, 30))).fwd_rows == 1
+
+
+@pytest.mark.parametrize("d,h", [(48, 48), (40, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_zero_padded_weights_leave_padded_units_zero(rng, d, h, dtype):
+    """The plain version on weights zero-padded to capacity 64 (what the
+    masked kernels compute): the padded units' outputs are exactly 0 in y,
+    c_{t-1} and the backward's dx columns, dW and db rows and columns past
+    the real widths; the real units within 1e-6 of the unpadded call
+    (relative to each tensor's max where it exceeds 1).  bf16 rounds at the
+    same points on both sides, but the padded products sum their zeros in
+    another order, so a bf16 output (y, dx) may land one bf16 ulp (2^-8
+    relative) away."""
+    t, w = 24, 64
+    x, (w_ih, w_hh, bias), dy = _case(rng, 2, t, w)
+    x, dy = x[..., :d], dy[..., :h]
+    gate = lambda a: a.reshape(4, w, *a.shape[1:])
+    wi, wh, bb = gate(w_ih)[:, :h, :d].reshape(4 * h, d), gate(w_hh)[:, :h, :h].reshape(4 * h, h), gate(bias)[:, :h].reshape(-1)
+    pad_w = lambda m, cols: np.pad(m.reshape(4, h, cols), ((0, 0), (0, w - h), (0, w - cols))).reshape(4 * w, w)
+    tx, tdy = torch.from_numpy(np.ascontiguousarray(x)).to(dtype), torch.from_numpy(np.ascontiguousarray(dy))
+    txp = torch.from_numpy(np.pad(x, ((0, 0), (0, 0), (0, w - d)))).to(dtype)
+    tdyp = torch.from_numpy(np.pad(dy, ((0, 0), (0, 0), (0, w - h))))
+    wp = [torch.from_numpy(a) for a in (pad_w(wi, d), pad_w(wh, h), np.pad(bb.reshape(4, h), ((0, 0), (0, w - h))).reshape(-1))]
+    wr = [torch.from_numpy(np.ascontiguousarray(a)) for a in (wi, wh, bb)]
+    y, c = lstm_forward_train(tx, *wr)
+    yp, cp = lstm_forward_train(txp, *wp)
+    assert float(yp[..., h:].float().abs().max()) == 0.0 and float(cp[..., h:].abs().max()) == 0.0
+    ulp = 0.0 if dtype == torch.float32 else 2.0**-8
+    assert float((yp[..., :h].float() - y.float()).abs().max()) <= 1e-6 + ulp * float(y.float().abs().max())
+    assert float((cp[..., :h] - c).abs().max()) <= 1e-6 + 4 * ulp
+    g = lstm_backward(tx, y, c, tdy, *wr)
+    # the backward of both on the same forward (the unpadded one's, zero-padded):
+    # a bf16 y one ulp apart would move the gradients by far more than the order
+    pad_h = lambda a: torch.nn.functional.pad(a, (0, w - h))
+    gp = lstm_backward(txp, pad_h(y), pad_h(c), tdyp, *wp)
+    dxp, dwip, dwhp, dbp = (gp[0].float(), gate(gp[1]), gate(gp[2]), gate(gp[3]))
+    assert float(dxp[..., d:].abs().max()) == 0.0
+    assert float(dwip[:, h:].abs().max()) == 0.0 and float(dwip[:, :, d:].abs().max()) == 0.0
+    assert float(dwhp[:, h:].abs().max()) == 0.0 and float(dwhp[:, :, h:].abs().max()) == 0.0
+    assert float(dbp[:, h:].abs().max()) == 0.0
+    for a, r, rounds in ((dxp[..., :d], g[0].float(), ulp), (dwip[:, :h, :d].reshape(4 * h, d), g[1], 0.0),
+                         (dwhp[:, :h, :h].reshape(4 * h, h), g[2], 0.0), (dbp[:, :h].reshape(-1), g[3], 0.0)):
+        assert float((a - r).abs().max()) <= (1e-6 + rounds) * max(1.0, float(r.abs().max()))

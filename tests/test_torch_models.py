@@ -44,21 +44,29 @@ def _inputs(rng, b=2):
     return s, msg
 
 
-@pytest.mark.parametrize("encoding", ["table", "bits"])
-@pytest.mark.parametrize("band", [None, 3000.0])
-def test_generator_matches_flax(rng, encoding, band):
+# (encoding, band, channels): the base family's 64 channels (ids as before),
+# and the widths the LSTM kernels take masked (48) and on the cluster path
+# (128) with the table encoding.
+GEN_CASES = [pytest.param(e, b, 64, id=f"{b}-{e}") for b in (None, 3000.0) for e in ("table", "bits")] + [
+    pytest.param("table", None, c, id=f"None-table-c{c}") for c in (48, 128)]
+
+
+@pytest.mark.parametrize("encoding,band,channels", GEN_CASES)
+def test_generator_matches_flax(rng, encoding, band, channels):
     """Whole generator, random flax init: convs, BN, LSTM, message path and
-    band FIR in fp32.  Tolerance 1e-5 (summation order only; the random
-    init keeps the LSTM contractive)."""
+    band FIR in fp32, at 64, 48 and 128 channels (LSTM(C, C)).  Tolerance
+    1e-5 (summation order only; the random init keeps the LSTM
+    contractive)."""
     s, msg = _inputs(rng)
-    jgen = JGenerator(message_encoding=encoding, delta_band_hz=band)
+    jgen = JGenerator(message_encoding=encoding, delta_band_hz=band, channels=channels)
     variables = _perturb_stats(
         _numpy_tree(jgen.init(jax.random.key(0), jnp.asarray(s), jnp.asarray(msg))), rng
     )
     ref = np.asarray(jgen.apply(variables, jnp.asarray(s), jnp.asarray(msg)))
 
-    gen = Generator(message_encoding=encoding, delta_band_hz=band)
+    gen = Generator(message_encoding=encoding, delta_band_hz=band, channels=channels)
     gen.load_state_dict(variables_from_flax(variables), strict=True)
+    assert tuple(gen.lstm.w_hh.shape) == (4 * channels, channels)
     gen.eval()
     with torch.no_grad():
         out = gen(torch.from_numpy(s), torch.from_numpy(msg.astype(np.int64)))
@@ -66,17 +74,20 @@ def test_generator_matches_flax(rng, encoding, band):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("head", ["shared", "dilated"])
-def test_detector_matches_flax(rng, head):
-    """Detector logits (B, T, 1+bits) at 1e-5; the dilated head's receptive
-    field (dilations 16/128/1024) exceeds T, so its zero padding is
-    exercised too."""
+@pytest.mark.parametrize("head,channels", [pytest.param("shared", 64, id="shared"),
+                                            pytest.param("dilated", 64, id="dilated"),
+                                            pytest.param("shared", 48, id="shared-c48"),
+                                            pytest.param("shared", 128, id="shared-c128")])
+def test_detector_matches_flax(rng, head, channels):
+    """Detector logits (B, T, 1+bits) at 1e-5, at 64, 48 and 128 channels;
+    the dilated head's receptive field (dilations 16/128/1024) exceeds T, so
+    its zero padding is exercised too."""
     s, _ = _inputs(rng, b=3)
-    jdet = JDetector(decode_head=head)
+    jdet = JDetector(decode_head=head, channels=channels)
     variables = _perturb_stats(_numpy_tree(jdet.init(jax.random.key(1), jnp.asarray(s))), rng)
     ref = np.asarray(jdet.apply(variables, jnp.asarray(s)))
 
-    det = Detector(decode_head=head)
+    det = Detector(decode_head=head, channels=channels)
     det.load_state_dict(variables_from_flax(variables), strict=True)
     det.eval()
     with torch.no_grad():

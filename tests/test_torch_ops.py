@@ -81,12 +81,15 @@ def test_lstm_stack_matches_jax(rng, w, t):
 W32 = (32, 50)
 
 
-@pytest.mark.parametrize("b,w,t", [(2, 64, 128), (3, 64, 128), (2, *W32), (3, *W32)],
-                         ids=["2", "3", "2-w32", "3-w32"])
+@pytest.mark.parametrize("b,w,t", [(2, 64, 128), (3, 64, 128), (2, *W32), (3, *W32)]
+                         + [(2, dh, 32) for dh in [(48, 48), (40, 24), (96, 96), (128, 128)]],
+                         ids=["2", "3", "2-w32", "3-w32", "2-48x48", "2-40x24", "2-96x96", "2-128x128"])
 def test_plain_lstm_matches_pallas_kernel_fp32(rng, b, w, t):
     """The TPU kernel (interpret mode) and the port's plain version of the
-    CUDA kernel agree in fp32 at 2e-5, at both widths."""
-    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, w, w)
+    CUDA kernel agree in fp32 at 2e-5, at widths 64 and 32 and at the widths
+    the kernels take masked or on the cluster path ((D, H) pairs)."""
+    d, h = w if isinstance(w, tuple) else (w, w)
+    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, d, h)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(lstm_pallas_forward(*map(jnp.asarray, (x, w_ih, w_hh, bias))))
     out = lstm_forward(*_t(x, w_ih, w_hh, bias))
@@ -192,8 +195,10 @@ def test_fir_and_shaping_match_jax(rng):
 
 
 def _train_case(rng, b, t, dtype, w=64):
-    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, w, w)
-    dy = (rng.standard_normal((b, t, w)) * 0.5).astype(np.float32)
+    """w: the width D = H, or a pair (D, H)."""
+    d, h = w if isinstance(w, tuple) else (w, w)
+    x, w_ih, w_hh, bias = _lstm_inputs(rng, b, t, d, h)
+    dy = (rng.standard_normal((b, t, h)) * 0.5).astype(np.float32)
     jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
     tx = torch.from_numpy(x).to(dtype)
     return x, (w_ih, w_hh, bias), dy, jx, tx
@@ -204,14 +209,29 @@ def _rel(a, ref):
     return float(np.abs(a - ref).max() / (np.abs(ref).max() + 1e-12))
 
 
+# bf16 dx at the new widths ((D, H) pairs), relative to its max: dx is
+# stored bf16, so a sum that differs by order alone may round to the other
+# neighbour (2^-8 = 3.9e-3 of an element), and each da that lands on the
+# other side of a rounding boundary moves dx by one bf16 ulp of that da times
+# a weight; at 4H = 512 terms (H = 128) more of them do (measured 3.6e-3 at
+# 128 x 128, against 1e-3 held at W <= 64).
+BF16_DX_NEW_WIDTHS_TOL = 5e-3
+
+
 # dtype, width, T: width 64 at T=128 (ids as before), width 32 at T=50,
-# width 16 at T=32 (the shape of entry.dryrun_multichip's gradient check).
+# width 16 at T=32 (the shape of entry.dryrun_multichip's gradient check);
+# the widths the kernels take masked (48 x 48, the base family at channels
+# 48; 40 x 24, D != H) and on the cluster path (96 x 96, 128 x 128, the base
+# family at channels 128), as (D, H) at T=32.
+NEW_WIDTHS = [(48, 48), (40, 24), (96, 96), (128, 128)]
 TRAIN_CASES = [pytest.param(torch.float32, 64, 128, id="f32"),
                pytest.param(torch.bfloat16, 64, 128, id="bf16"),
                pytest.param(torch.float32, *W32, id="f32-w32"),
                pytest.param(torch.bfloat16, *W32, id="bf16-w32"),
                pytest.param(torch.float32, 16, 32, id="f32-w16"),
-               pytest.param(torch.bfloat16, 16, 32, id="bf16-w16")]
+               pytest.param(torch.bfloat16, 16, 32, id="bf16-w16")] + [
+    pytest.param(dt, dh, 32, id=f"{sfx}-{dh[0]}x{dh[1]}")
+    for dh in NEW_WIDTHS for dt, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
 
 
 @pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
@@ -263,7 +283,8 @@ def test_plain_backward_matches_pallas(rng, dtype, w, t):
     ref_dx = np.swapaxes(np.asarray(ref[0].astype(jnp.float32)), 0, 1)
     for name, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got,
                           (ref_dx, *(np.asarray(v) for v in ref[1:]))):
-        assert _rel(a.float().numpy(), r) < tol, (name, _rel(a.float().numpy(), r))
+        t_ = BF16_DX_NEW_WIDTHS_TOL if name == "dx" and dtype == torch.bfloat16 and isinstance(w, tuple) else tol
+        assert _rel(a.float().numpy(), r) < t_, (name, _rel(a.float().numpy(), r))
 
 
 @pytest.mark.parametrize("dtype,w,t", TRAIN_CASES)
@@ -293,8 +314,9 @@ def test_lstm_function_grads_match_jax_grad(rng, dtype, w, t):
     tol = 1e-5 if dtype == torch.float32 else 1e-3
     for name, leaf, r in zip(("dx", "dw_ih", "dw_hh", "db"), leaves, ref):
         assert leaf.grad.dtype == leaf.dtype, name
+        t_ = BF16_DX_NEW_WIDTHS_TOL if name == "dx" and dtype == torch.bfloat16 and isinstance(w, tuple) else tol
         err = _rel(leaf.grad.float().numpy(), np.asarray(r.astype(jnp.float32)))
-        assert err < tol, (name, err)
+        assert err < t_, (name, err)
 
 
 def test_lstm_function_matches_autograd_of_plain_forward(rng):
