@@ -9,7 +9,7 @@ overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
-                                            [--variants] [--check] [--only NAME]
+                                            [--variants] [--check] [--only NAME] [--library]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
 (DIR/awm_tpu_torch), so that two commits can be timed in turns in one call
@@ -17,7 +17,8 @@ on one card: run this script once per tree, parent, change, change, parent.
 Only the wrappers every checkout has are called (forward_kernel,
 forward_train_kernel, backward_kernel); a checkout without width-32 kernels
 takes --width 64 only.  --variants also times each rows-per-block variant
-the checkout's launch plan can choose (a checkout without a plan has none).
+the checkout's launch plan can choose (a checkout without a plan has none;
+on the cluster path every rows a cluster the checkout builds, for C too).
 --check first holds every kernel against its plain version at B in (1, 7,
 128) and T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800) with every rows
 variant (A and B on both paths where the checkout has the forward's short
@@ -25,7 +26,10 @@ path and T is within its bound, with the same bits on both), prints each
 error beside its tolerance and ptxas's report, and exits 1 if
 any error is above it.  The backward's launches are also timed apart, from a
 torch.profiler trace of one call (one on the fused path at width 32, four
-otherwise).  Prints one JSON object per line: {"tree",
+otherwise, five on the cluster path: the gate pass first; there at every
+rows variant with --variants), and on the cluster path each line also
+holds "waves": the waves of clusters the call takes at the card's reading
+of the clusters it holds.  Prints one JSON object per line: {"tree",
 "card", "kernel", "width", "steps", "batch", "rows", "ms"}; times are CUDA
 events over --reps launches after a warm-up, and with --variants also
 "device_ms": the kernels' own device time per call from torch.profiler
@@ -35,7 +39,10 @@ then prints, for each kernel and rows variant, one line {"tree", "card",
 "kernel", "width", "batch", "rows", "steps", "device_ms", "fixed_ms",
 "step_ms"}: the least-squares fit of device ms = fixed + T x step over the
 T whose device ms was measured, what a short call costs before its steps
-and what each step adds.  Without a card it exits 1.
+and what each step adds.  --library also times one torch.nn.LSTM (cuDNN)
+call of each kernel's function on the same inputs, TF32 off (the yardstick
+only; the port never calls it): kernel "<kernel>:nn.LSTM", rows null, ms
+null where the card's memory refuses it.  Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -105,6 +112,40 @@ def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64):
     return x, w[0], w[1], 2 * w[2], dy
 
 
+def library_ms(torch, kernel: str, x, w_ih, w_hh, bias, dy, reps: int) -> float | None:
+    """One torch.nn.LSTM call of kernel's function (b_ih = bias, b_hh = 0)
+    by CUDA events, TF32 off: A inference, B the forward under grad, C the
+    gradient of y (dy) with respect to x and the weights; None where the
+    card's memory refuses it."""
+    width = w_hh.shape[1]
+    m = torch.nn.LSTM(x.shape[2], width, batch_first=True).cuda()
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(w_ih)
+        m.weight_hh_l0.copy_(w_hh)
+        m.bias_ih_l0.copy_(bias)
+        m.bias_hh_l0.zero_()
+    m = m.to(x.dtype)
+    m.flatten_parameters()
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if kernel == "lstm_fwd":
+            with torch.inference_mode():
+                return cuda_ms(torch, lambda: m(x), reps)
+        xg = x.detach().clone().requires_grad_()
+        if kernel == "lstm_fwd_train":
+            return cuda_ms(torch, lambda: m(xg), reps)
+        y = m(xg)[0]
+        return cuda_ms(torch, lambda: torch.autograd.grad(y, [xg, *m.parameters()], dy.to(x.dtype),
+                                                          retain_graph=True), reps)
+    except torch.OutOfMemoryError:
+        return None
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+        del m
+        torch.cuda.empty_cache()
+
+
 def fit_line(ts, ms) -> tuple[float, float] | tuple[None, None]:
     """(fixed, step) of the least-squares line ms = fixed + t x step over
     the pairs whose ms was measured (not None); (None, None) where fewer
@@ -141,6 +182,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
+    ap.add_argument("--library", action="store_true", help="also time torch.nn.LSTM (cuDNN) on the same inputs")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     width, sweep = args.width, args.steps or [STEPS.get(args.width, 16000)]
@@ -162,7 +204,7 @@ def main() -> int:
     K.libraries()
     cluster = hasattr(K, "capacity") and K.capacity(width) is None
     fwd_rows = (K.CLUSTER_ROWS if cluster else getattr(K, "FWD_ROWS", (None,))) if args.variants else (None,)
-    bwd_rows = getattr(K, "BWD_ROWS", (None,)) if args.variants else (None,)
+    bwd_rows = (K.CLUSTER_ROWS if cluster else getattr(K, "BWD_ROWS", (None,))) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)
     has_short = hasattr(K, "FWD_SHORT_MAX_STEPS")
@@ -214,9 +256,23 @@ def main() -> int:
 
     swept = {}  # (kernel, batch, rows) -> {T: device ms}, for the fit
 
-    def report(kernel, batch, rows, ms, fn=None):
+    def cluster_waves(kernel, batch, rows, dtype):
+        """Waves of clusters of a call on the cluster path at the card's
+        reading of the clusters it holds (rows None: the plan's), else None."""
+        if not cluster or not hasattr(K, "_cluster_slots"):
+            return None
+        slots = K._cluster_slots(torch.cuda.current_device(), dtype, width, width)
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = K.launch_plan(batch, steps, dtype, sm_count, width, None, None, slots)
+        bwd = kernel.startswith("lstm_bwd")
+        r = rows or (plan.bwd_rows if bwd else plan.fwd_rows)
+        return -(-(-(-batch // r)) // dict(zip(K.CLUSTER_ROWS, slots[bwd]))[r])
+
+    def report(kernel, batch, rows, ms, fn=None, dtype=None):
         line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
                 "batch": batch, "rows": rows, "ms": ms}
+        if dtype is not None and cluster:
+            line["waves"] = cluster_waves(kernel, batch, rows, dtype)
         if fn is not None and (args.variants or len(sweep) > 1):
             line["device_ms"] = device_ms(torch, fn, min(args.reps, 50))
             swept.setdefault((kernel, batch, rows), {})[steps] = line["device_ms"]
@@ -229,23 +285,33 @@ def main() -> int:
             x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
             for rows in fwd_rows if want(fwd) else ():
                 fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
-                report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn)
+                report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+            if args.library and want(fwd):
+                report(f"{fwd}:nn.LSTM", b_serve, None, library_ms(torch, "lstm_fwd", x, w_ih, w_hh, bias, None,
+                                                                   args.reps))
             del x
             x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
             for rows in fwd_rows if want(fwd_train) else ():
                 fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
-                report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
+                report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+            for kernel, what in (("lstm_fwd_train", fwd_train), ("lstm_bwd", bwd)) if args.library else ():
+                if want(what):
+                    report(f"{what}:nn.LSTM", b_train, None,
+                           library_ms(torch, kernel, x, w_ih, w_hh, bias, dy, args.reps))
             if want(bwd):
                 for rows in bwd_rows:
                     fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
-                    report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn)
-                split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
-                for key, ms in split.items():
-                    if "lstm_bwd" in key:
-                        short = key[key.index("lstm_bwd"):].split("(")[0]
-                        report(f"{bwd}:{short}", b_train, None, ms)
+                    report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+                # C's launches apart: at the plan's rows, and on the cluster path at every variant
+                for rows in bwd_rows if cluster else (None,):
+                    split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias,
+                                                                          **kw(rows)))
+                    for key, ms in split.items():
+                        if "lstm_bwd" in key:
+                            short = key[key.index("lstm_bwd"):].split("(")[0]
+                            report(f"{bwd}:{short}", b_train, rows, ms, None, dtype)
             del x, y, cprev, dy
             torch.cuda.empty_cache()
     if len(sweep) > 1:

@@ -20,9 +20,10 @@
 // instantiated for 64, 32 and 16 (lstm_common.cuh); G = 4 W gate columns,
 // K = 2 W terms.  A call passes its D, H <= W at run time; at D = H = W the
 // products below run at the capacity, else dx, dW and the sum run at the
-// runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel).  Widths above 64 run
-// the recurrence on a thread-block cluster (lstm_bwd_cluster_kernel, below)
-// and then those three.  A call at the capacities takes one of two paths,
+// runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel; bf16 dx / dW
+// lstm_bwd_{dx,dw}_any_mma_kernel).  Widths above 64 run a gate pass over
+// the whole card, the recurrence on a thread-block cluster
+// (lstm_bwd_cluster_kernel, below), and then those three.  A call at the capacities takes one of two paths,
 // chosen by the caller from the shape (ops/lstm_kernel.py::launch_plan):
 //
 // Four launches on one stream (every call at W = 64 and 16; at W = 32
@@ -930,19 +931,19 @@ cudaError_t launch_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream)
 //
 // The four-launch path's products for a call whose widths are not a
 // capacity's square (D != H, or a width other than 16, 32, 64; and every
-// call above 64): G = 4 H gate columns, K = D + H terms, tails masked.  Tiles
-// of 64 x 64 outputs, 4 x 4 a thread, the reduction's terms in order (two
-// runs give the same bits).  bf16: da is bf16 already and W_ih is rounded as
-// it is staged, so every product is exact in fp32 and sums in fp32; fp32
-// stays fp32 (CUDA cores, no TF32).
+// call above 64): G = 4 H gate columns, K = D + H terms, tails masked, the
+// reduction's terms in order (two runs give the same bits).  fp32 stays
+// fp32 (CUDA cores, no TF32): dx in tiles of 64 x 64 outputs, 4 x 4 a
+// thread; dW in tiles of 128 x 128, 8 x 8 a thread.  bf16 on the tensor
+// cores (below): da is bf16 already and W_ih is rounded as it is staged, so
+// every product is exact in fp32 and sums in fp32.
 constexpr int AT = 64;   // outputs of a tile's side
-constexpr int AK = 16;   // dx: gate columns staged per step
+constexpr int AK = 16;   // fp32 dx: gate columns staged per step
 constexpr int AN = 32;   // dW: rows of the (B*T) axis staged per step
 
-// dx[n][k] = sum_j da[n][j] W_ih[j][k], j < 4h, k < d.  Grid (ceil(rows / 64), ceil(d / 64)).
-template <typename T>
+// fp32: dx[n][k] = sum_j da[n][j] W_ih[j][k], j < 4h, k < d.  Grid (ceil(rows / 64), ceil(d / 64)).
 __global__ void __launch_bounds__(256)
-lstm_bwd_dx_any_kernel(const T* __restrict__ da, const float* __restrict__ w_ih, T* __restrict__ dx,
+lstm_bwd_dx_any_kernel(const float* __restrict__ da, const float* __restrict__ w_ih, float* __restrict__ dx,
                        long long n_rows, int d, int h) {
   __shared__ __align__(16) float s_a[AK][AT + 4];  // [j][n]
   __shared__ __align__(16) float s_w[AK][AT + 4];  // [j][k]
@@ -955,9 +956,9 @@ lstm_bwd_dx_any_kernel(const T* __restrict__ da, const float* __restrict__ w_ih,
     for (int i = tid; i < AK * AT; i += 256) {
       const int jj = i % AK, nn = i / AK;  // da is row-major in n: consecutive threads take consecutive j
       const long long n = n0 + nn;
-      s_a[jj][nn] = n < n_rows && j0 + jj < g ? load_f(da + n * g + j0 + jj) : 0.0f;
+      s_a[jj][nn] = n < n_rows && j0 + jj < g ? da[n * g + j0 + jj] : 0.0f;
       const int kk = i % AT, jw = i / AT;
-      s_w[jw][kk] = operand(load_wm(w_ih, j0 + jw < g, (size_t)(j0 + jw), k0 + kk, d), da);
+      s_w[jw][kk] = load_wm(w_ih, j0 + jw < g, (size_t)(j0 + jw), k0 + kk, d);
     }
     __syncthreads();
 #pragma unroll
@@ -977,57 +978,95 @@ lstm_bwd_dx_any_kernel(const T* __restrict__ da, const float* __restrict__ w_ih,
     for (int q = 0; q < 4; ++q) {
       const long long n = n0 + tn * 4 + i;
       const int k = k0 + tk * 4 + q;
-      if (n < n_rows && k < d) store_f(dx + n * d + k, acc[i][q]);
+      if (n < n_rows && k < d) dx[n * d + k] = acc[i][q];
     }
 }
 
-// part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m], v = [x
-// | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0), j < 4h, m < d +
-// h.  Grid (n_chunks, ceil(4h / 64), ceil((d + h) / 64)).
-template <typename T>
-__global__ void __launch_bounds__(256)
-lstm_bwd_dw_any_kernel(const T* __restrict__ da, const T* __restrict__ x, const T* __restrict__ y,
+// fp32: part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m],
+// v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0), j <
+// 4h, m < d + h.  A block owns 128 x 128 outputs, a thread 8 x 8 (two groups
+// of 4 gate columns 64 apart, two of 4 terms 64 apart): the chunk's rows
+// staged FK at a time (the next FK in registers meanwhile), one 16-byte
+// load of each operand feeding 16 products.  Every output sums its rows in
+// order (two runs give the same bits).  Grid (n_chunks, ceil(4h / 128),
+// ceil((d + h) / 128)).
+constexpr int FT = 128;  // outputs of a tile's side
+constexpr int FK = 8;    // rows staged a step
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_dw_any_kernel(const float* __restrict__ da, const float* __restrict__ x, const float* __restrict__ y,
                        float* __restrict__ part, long long n_rows, int steps, long long chunk_rows, int d, int h) {
-  __shared__ __align__(16) float s_a[AN][AT + 4];  // [n][j]
-  __shared__ __align__(16) float s_v[AN][AT + 4];  // [n][m]
-  const int g = 4 * h, kk = d + h, tid = threadIdx.x, tj = tid / 16, tm = tid % 16;
-  const int j0 = blockIdx.y * AT, m0 = blockIdx.z * AT;
+  __shared__ __align__(16) float s_a[2][FK][FT];  // [buf][n][j]
+  __shared__ __align__(16) float s_v[2][FK][FT];  // [buf][n][m]
+  const int g = 4 * h, kk = d + h, tid = threadIdx.x, tj = tid >> 4, tm = tid & 15;
+  const int j0 = blockIdx.y * FT, m0 = blockIdx.z * FT;
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  float acc[4][4] = {};
-  for (long long base = begin; base < end; base += AN) {
-    __syncthreads();
-    for (int i = tid; i < AN * AT; i += 256) {
-      const int nn = i / AT, c = i % AT;
-      const long long n = base + nn;
-      const int j = j0 + c, m = m0 + c;
-      s_a[nn][c] = n < end && j < g ? load_f(da + n * g + j) : 0.0f;
+  // Staging: this thread loads column c of rows r0 + 2 q (q < 4) of each step; t[q] is that
+  // row's step index t (0: h_{t-1} = 0), kept up to date from one division.
+  const int c = tid & (FT - 1), r0 = tid >> 7;
+  int t[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) t[q] = (int)((begin + r0 + 2 * q) % steps);
+  float ra[4], rv[4];
+  auto fetch = [&](long long base) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long n = base + r0 + 2 * q;
+      const int m = m0 + c;
+      ra[q] = n < end && j0 + c < g ? da[n * g + j0 + c] : 0.0f;
       float v = 0.0f;
       if (n < end && m < kk) {
-        if (m < d) v = load_f(x + n * d + m);
-        else if (n % steps != 0) v = load_f(y + (n - 1) * h + (m - d));
+        if (m < d) v = x[n * d + m];
+        else if (t[q] != 0) v = y[(n - 1) * h + (m - d)];
       }
-      s_v[nn][c] = v;
+      rv[q] = v;
+      for (t[q] += FK; t[q] >= steps;) t[q] -= steps;
     }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s_a[buf][r0 + 2 * q][c] = ra[q];
+      s_v[buf][r0 + 2 * q][c] = rv[q];
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
+  if (begin < end) {
+    fetch(begin);
+    put(0);
+  }
+  __syncthreads();
+  int cur = 0;
+  for (long long base = begin; base < end; base += FK, cur ^= 1) {
+    const bool more = base + FK < end;
+    if (more) fetch(base + FK);
+#pragma unroll
+    for (int nn = 0; nn < FK; ++nn) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&s_a[cur][nn][4 * tj]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&s_a[cur][nn][64 + 4 * tj]);
+      const float4 v0 = *reinterpret_cast<const float4*>(&s_v[cur][nn][4 * tm]);
+      const float4 v1 = *reinterpret_cast<const float4*>(&s_v[cur][nn][64 + 4 * tm]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], vv[q], acc[p][q]);
+    }
+    if (more) put(cur ^ 1);
     __syncthreads();
-#pragma unroll 4
-    for (int nn = 0; nn < AN; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_a[nn][tj * 4]);
-      const float4 v = *reinterpret_cast<const float4*>(&s_v[nn][tm * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], vv[q], acc[i][q]);
-    }
   }
   float* out = part + (size_t)blockIdx.x * g * kk;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int p = 0; p < 8; ++p)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + tj * 4 + i, m = m0 + tm * 4 + q;
-      if (j < g && m < kk) out[(size_t)j * kk + m] = acc[i][q];
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + (p / 4) * 64 + 4 * tj + p % 4, m = m0 + (q / 4) * 64 + 4 * tm + q % 4;
+      if (j < g && m < kk) out[(size_t)j * kk + m] = acc[p][q];
     }
 }
 
@@ -1053,267 +1092,587 @@ lstm_bwd_sum_any_kernel(const float* __restrict__ part, int n_chunks, const floa
   }
 }
 
-// ---- Widths above 64: the recurrence on a thread-block cluster ----
+// bf16: dx and dW at runtime widths on the tensor cores (bf16 in, exact
+// products, fp32 sums), the square kernels' mma tiles with the edge tiles
+// zero-masked.  Tiles of 64 x 64 outputs again; the reduction's tiles in
+// order, so two runs give the same bits.
+constexpr int AMP = AT + 8;  // row pitch (bf16) of a staged tile: 8 rows' fragments in distinct banks
+constexpr int AXM = 128;     // dx: rows of the (B*T) axis a block, 16 a warp
+
+// 4 bf16 of row-major (rows, g) da at (n, j), zero past the rows or g (g and
+// j are multiples of 4: one 8-byte load or none).
+__device__ __forceinline__ uint2 load_da4(const __nv_bfloat16* da, long long n, long long n_end, int j, int g) {
+  return n < n_end && j < g ? *reinterpret_cast<const uint2*>(da + n * g + j) : make_uint2(0u, 0u);
+}
+
+// dx[n][k] = sum_j da[n][j] W_ih[j][k]: M = 16 rows a warp, N = 8 inputs a
+// tile (8 tiles: 64 inputs), K = the gate columns, 64 staged a step.  Grid
+// (ceil(rows / 128), ceil(d / 64)).
+__global__ void __launch_bounds__(256)
+lstm_bwd_dx_any_mma_kernel(const __nv_bfloat16* __restrict__ da, const float* __restrict__ w_ih,
+                           __nv_bfloat16* __restrict__ dx, long long n_rows, int d, int h) {
+  __shared__ __align__(16) __nv_bfloat16 s_a[AXM * AMP];  // [n][j]
+  __shared__ __align__(16) __nv_bfloat16 s_w[AT * AMP];   // [k][j]: W_ih transposed, B fragments' k adjacent
+  const int g = 4 * h, tid = threadIdx.x, warp = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
+  const long long n0 = (long long)blockIdx.x * AXM;
+  const int k0 = blockIdx.y * AT;
+  float c[AT / 8][4] = {};
+  for (int j0 = 0; j0 < g; j0 += AT) {
+    __syncthreads();
+    for (int i = tid; i < AXM * (AT / 4); i += 256) {
+      const int r = i / (AT / 4), q = i % (AT / 4);
+      *reinterpret_cast<uint2*>(s_a + r * AMP + 4 * q) = load_da4(da, n0 + r, n_rows, j0 + 4 * q, g);
+    }
+    for (int i = tid; i < AT * AT; i += 256) {
+      const int kk = i % AT, jj = i / AT;  // consecutive threads read consecutive k of a row of W_ih
+      s_w[kk * AMP + jj] = __float2bfloat16(load_wm(w_ih, j0 + jj < g, (size_t)(j0 + jj), k0 + kk, d));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kt = 0; kt < AT / 16; ++kt) {
+      if (j0 + kt * 16 >= g) break;
+      const __nv_bfloat16* a_lo = s_a + (warp * 16 + g8) * AMP + kt * 16 + 2 * t4;
+      const uint32_t a[4] = {ld32(a_lo), ld32(a_lo + 8 * AMP), ld32(a_lo + 8), ld32(a_lo + 8 * AMP + 8)};
+#pragma unroll
+      for (int nt = 0; nt < AT / 8; ++nt) {
+        const __nv_bfloat16* b = s_w + (nt * 8 + g8) * AMP + kt * 16 + 2 * t4;
+        mma_bf16(c[nt], a, ld32(b), ld32(b + 8));
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < AT / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long n = n0 + warp * 16 + g8 + (e >> 1) * 8;
+      const int k = k0 + nt * 8 + 2 * t4 + (e & 1);
+      if (n < n_rows && k < d) dx[n * d + k] = __float2bfloat16(c[nt][e]);
+    }
+}
+
+// part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m], v = [x
+// | h_{t-1}]: M = 16 gate columns a warp (4 tiles), N = 32 terms a warp (two
+// halves), K = the rows, 32 staged a step; both operands row-major in the
+// rows, both fragments transposed through ldmatrix (lstm_bwd_dw_mma_kernel's
+// products).  Grid (n_chunks, ceil(4h / 64), ceil((d + h) / 64)).
+// vec: x and y 16-byte aligned and D, H multiples of 8 (x | h_{t-1} staged 8
+// values a load), else one value a load.
+__global__ void __launch_bounds__(256)
+lstm_bwd_dw_any_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ y, float* __restrict__ part, long long n_rows,
+                           int steps, long long chunk_rows, int d, int h, int vec) {
+  __shared__ __align__(16) __nv_bfloat16 s_a[AN * AMP];  // [n][j]
+  __shared__ __align__(16) __nv_bfloat16 s_v[AN * AMP];  // [n][m]
+  __shared__ int s_row[AN];  // a staged row: -1 past the chunk, 0 at t = 0 (h_{t-1} = 0), 1 else
+  const int g = 4 * h, kk = d + h, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int j0 = blockIdx.y * AT, m0 = blockIdx.z * AT, wj = (warp & 3) * 16, wm = (warp >> 2) * 32;
+  const long long begin = blockIdx.x * chunk_rows;
+  const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
+  const int blk = lane >> 3, blk_row = lane & 7;  // ldmatrix: this lane's block and row in it
+  float c[4][4] = {};
+  for (long long base = begin; base < end; base += AN) {
+    __syncthreads();
+    if (tid < AN) s_row[tid] = base + tid < end ? (int)((base + tid) % steps != 0) : -1;
+    __syncthreads();
+    for (int i = tid; i < AN * (AT / 4); i += 256) {
+      const int r = i / (AT / 4), q = i % (AT / 4);
+      *reinterpret_cast<uint2*>(s_a + r * AMP + 4 * q) = load_da4(da, base + r, end, j0 + 4 * q, g);
+    }
+    if (vec) {
+      for (int i = tid; i < AN * (AT / 8); i += 256) {
+        const int r = i / (AT / 8), m = m0 + 8 * (i % (AT / 8)), row = s_row[r];
+        const long long n = base + r;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (row >= 0 && m < kk) {
+          if (m < d) v = *reinterpret_cast<const uint4*>(x + n * d + m);
+          else if (row) v = *reinterpret_cast<const uint4*>(y + (n - 1) * h + (m - d));
+        }
+        *reinterpret_cast<uint4*>(s_v + r * AMP + (m - m0)) = v;
+      }
+    } else {
+      for (int i = tid; i < AN * AT; i += 256) {
+        const int r = i / AT, mm = i % AT, m = m0 + mm, row = s_row[r];
+        const long long n = base + r;
+        __nv_bfloat16 v = __float2bfloat16(0.0f);
+        if (row >= 0 && m < kk) {
+          if (m < d) v = x[n * d + m];
+          else if (row) v = y[(n - 1) * h + (m - d)];
+        }
+        s_v[r * AMP + mm] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < AN / 16; ++ks) {
+      uint32_t a[4];  // A[j][n] = da[n][j]
+      ldmatrix_x4_trans(a, s_a + (ks * 16 + (blk >> 1) * 8 + blk_row) * AMP + wj + (blk & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];  // B[n][m] = v[n][m]
+        ldmatrix_x4_trans(b, s_v + (ks * 16 + (blk & 1) * 8 + blk_row) * AMP + wm + np * 16 + (blk >> 1) * 8);
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.x * g * kk;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + wj + g8 + (e >> 1) * 8, m = m0 + wm + nt * 8 + 2 * t4 + (e & 1);
+      if (j < g && m < kk) out[(size_t)j * kk + m] = c[nt][e];
+    }
+}
+
+// ---- Widths above 64: the gate pass, then the recurrence on a thread-block cluster ----
 //
-// The forward's cluster (lstm_fwd.cu, "widths above 64") transposed: K =
-// ceil(H / 32) CTAs own R batch rows, CTA r hidden units [32 r, 32 r + 32).
-// - 128 producer threads recompute the gates of the CTA's 128 gate rows
-//   from x_t, h_{t-1} = y_{t-1} and c_{t-1} ahead of the carry, 8 steps a
-//   chunk, and leave each step's local derivatives in a two-buffer ring, as
-//   lstm_bwd_rec's producers do: W_ih's and W_hh's rows read from L2, CKB
-//   terms a batch in flight together (fp32 on the CUDA cores; bf16 on the
-//   tensor cores, the chunk's 8 steps a tile).
-// - 256 consumer threads, 8 lanes a unit, carry (dh, dc) of the CTA's units:
-//   each step they form da of the CTA's 128 gate columns locally, write it
-//   (rounded to the operand type) into every CTA's shared memory with
-//   st.async, counted on that CTA's mbarrier for the step (lstm_fwd.cu's
-//   exchange), wait on their own for all K slices,
-//   and form dh_{t-1} of their own units from W_hh's columns for those units
-//   (4 HW rows x 32 columns in registers, HW = 128 or 256: the forward's
-//   byte count), each unit's 4 HW terms split over its 8 lanes and summed by
-//   three butterfly exchanges, the same sum in all 8 lanes.  da is
-//   double-buffered, one wait a step.
+// The forward's cluster (lstm_fwd_cluster.cu) transposed, with
+// everything that does not depend on the carried (dh, dc) taken off the
+// recurrence:
+// - the gate pass (lstm_bwd_gates_{f32,bf16}_kernel), over the whole card
+//   before the recurrence: the gates of every (row, step) from x_t and
+//   h_{t-1} = y_{t-1} (a product of (B T) x (D + H) by (D + H) x 4H), their
+//   activations and, with c_{t-1} and dy, each step's local derivatives: a
+//   record of CREC floats a (row, step, unit) in a (B, T, H, CREC) fp32
+//   scratch (factor_i, factor_f, factor_g, factor_o: what turns the carried
+//   gradient into da; o (1 - tanh^2 c_t); f; dy; 0).  bf16: the forward's
+//   products on the tensor cores in the forward's order (the bias, x's
+//   k-tiles, h's), so the gates are the forward's bit for bit; fp32: the
+//   CUDA cores, the bias, then x's terms and h's in order (the forward's
+//   fp32 sums run in another order: C stays within KERNEL_TOL of plain);
+// - the recurrence (lstm_bwd_cluster_kernel): K = ceil(H / 32) CTAs own R
+//   batch rows (R = 1, 2, 4 or 8), CTA r hidden units [32 r, 32 r + 32).
+//   One producer warp brings each chunk's records (32 (step, row) pairs, a
+//   contiguous 1 KB of the CTA's units each) into a two-buffer ring by the
+//   TMA; 256 consumer threads, 8 lanes a unit, carry (dh, dc) of the R rows:
+//   each step they form da of the CTA's 128 gate columns from the records
+//   (5 flops a value), send it in row bursts to every CTA (a warp stages its
+//   4 units' 16 values of a row, then 16-byte st.async stores counted on the
+//   receiving CTA's mbarrier for the step, lstm_fwd.cu's exchange), wait on
+//   their own mbarrier for all K slices, and form dh_{t-1} of their own
+//   units from W_hh's columns for those units (4 HW rows x 32 columns in
+//   registers, HW = 128 or 256: the forward's byte count), each unit's 4 HW
+//   terms split over its 8 lanes (the same weights for every row) and summed
+//   by three butterfly exchanges, the same sum in all 8 lanes.  da is
+//   double-buffered, one wait a step;
 // - da goes to the (B, T, 4H) scratch and each cluster's db to its row of
 //   the partials; the dx / dW / sum kernels above finish the call.  No
 //   atomics: two calls give the same bits.
-// (CU, CPROD, CKB, ...: lstm_common.cuh)
-constexpr int CCONS = CU * CLANES;     // consumer threads
-constexpr int CRING = CROWS + 3 * CU;  // a (step, row) of the ring: factor[4 unit + gate] | dtanh | f | dy
-// x_t | h_{t-1} rows: x in round_up(d, CKB), h in round_up(h, CKB), zeros
-// past them, bf16 rows + 8 so that 8 rows fall in distinct banks.
-template <typename T> __host__ __device__ constexpr int cxh_pitch(int d, int h) {
-  return round_up(d, CKB) + round_up(h, CKB) + (is_bf16<T> ? 8 : 0);
+// (CU, CROWS, CLANES, ...: lstm_common.cuh)
+// A record holds dy and a pad beside the six derivatives: 32 bytes keep every
+// record and every CTA's slice 16-byte aligned for the TMA and the float4
+// reads, and dy in the ring spares the consumers a global load a step (read
+// a step ahead instead, in six floats, it cost the bf16 recurrence up to 30
+// registers, its second CTA an SM at R = 2 and 4, and up to twice its time).
+constexpr int CREC = 8;               // floats of a (row, step, unit) record
+constexpr int CPAIRS = 32;            // (step, row) pairs of a chunk of the ring: pair n = s R + r
+constexpr int CBUF = 2;               // buffers of the ring
+constexpr int CCONS = CU * CLANES;    // consumer threads
+constexpr int CTHREADS = CCONS + 32;  // and the producer warp
+template <int R> constexpr int CSTEPS = CPAIRS / R;
+
+// A (row, step, unit) record from its four gate pre-activations, c_{t-1}
+// and dy (the derivatives lstm_bwd_rec's producers leave in their ring).
+__device__ __forceinline__ void write_record(float* dst, float ai, float af, float ag, float ao, float c_prev,
+                                             float dyv) {
+  const float ig = sigmoid(ai), fg = sigmoid(af), gg = tanh_sig(ag), og = sigmoid(ao);
+  const float tc = tanh_sig(fg * c_prev + ig * gg);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(gg * ig * (1.0f - ig), c_prev * fg * (1.0f - fg),
+                                                  ig * (1.0f - gg * gg), tc * og * (1.0f - og));
+  reinterpret_cast<float4*>(dst)[1] = make_float4(og * (1.0f - tc * tc), fg, dyv, 0.0f);
+}
+
+constexpr int GP_ROWS = 128;  // fp32 gate pass: (B*T) rows a block (and its 128 gate columns: 32 units)
+constexpr int GP_K = 16;      // fp32 gate pass: terms staged a step
+
+// fp32: block b = (row tile b / ub, unit block b % ub of 32 units), ub =
+// ceil(h / 32), 128 rows x 128 gate columns (column 4 unit + gate); thread
+// (rows 8 (tid / 16) .., units 2 (tid % 16) and + 1): 8 x 8 sums, each
+// step's 16 terms of x_t | h_{t-1} and of the weights staged in shared
+// memory (the next step's in registers meanwhile), one 16-byte load of
+// each feeding 32 products.  A sum is the bias, then x's terms and h's in
+// order.  The unit blocks of one row tile are neighbours in the grid, so x
+// and y are read from L2 for all but the first.
+__global__ void __launch_bounds__(256)
+lstm_bwd_gates_f32_kernel(const BwdArgs<float> a, float* __restrict__ rec) {
+  // [buf][k][column]: W row gate h + unit, term k; [buf][k][row]: x_t | h_{t-1}; rows padded
+  // by 4 so that the transposing stores fall in distinct banks
+  __shared__ __align__(16) float s_w[2][GP_K][GP_ROWS + 4];
+  __shared__ __align__(16) float s_v[2][GP_K][GP_ROWS + 4];
+  __shared__ int s_row[GP_ROWS];                          // -1 past the rows, 0 at t = 0, 1 else
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15, h = a.h, d = a.d, ub = (h + CU - 1) / CU;
+  const int u0 = (int)(blockIdx.x % ub) * CU;
+  const long long n0 = (long long)(blockIdx.x / ub) * GP_ROWS, n_rows = (long long)a.batch * a.steps;
+  if (tid < GP_ROWS) s_row[tid] = n0 + tid < n_rows ? (int)((n0 + tid) % a.steps != 0) : -1;
+  const int kx = (d + GP_K - 1) / GP_K, n_steps = kx + (h + GP_K - 1) / GP_K;  // x's steps, then h's
+  // x | h_{t-1} 4 terms a load where every row of both is 16-byte aligned
+  const bool vec = d % 4 == 0 && h % 4 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0;
+  float acc[8][8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int u = u0 + 2 * tc + c / 4;
+    const float b = u < h ? a.bias[(c % 4) * h + u] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][c] = b;
+  }
+  float rw[8], rv[8];  // the next step's weights and x | h values of this thread
+  auto fetch = [&](int s) {
+    const bool xs = s < kx;
+    const int k0 = (xs ? s : s - kx) * GP_K, len = xs ? d : h;
+    const float* wm = xs ? a.w_ih : a.w_hh;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = tid + 256 * q, k = e % GP_K, col = e / GP_K, u = u0 + col / 4;
+      rw[q] = load_wm(wm, u < h, (size_t)((col % 4) * h + u), k0 + k, len);
+    }
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int e = tid + 256 * q, r = e / 4, k = k0 + 4 * (e % 4), row = s_row[r];
+        const long long n = n0 + r;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (row >= 0 && k < len) {
+          if (xs) v = *reinterpret_cast<const float4*>(a.x + n * d + k);
+          else if (row) v = *reinterpret_cast<const float4*>(a.y + (n - 1) * h + k);
+        }
+        rv[4 * q] = v.x, rv[4 * q + 1] = v.y, rv[4 * q + 2] = v.z, rv[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = tid + 256 * q, k = k0 + e % GP_K, r = e / GP_K, row = s_row[r];
+        const long long n = n0 + r;
+        float v = 0.0f;
+        if (row >= 0 && k < len) {
+          if (xs) v = a.x[n * d + k];
+          else if (row) v = a.y[(n - 1) * h + k];
+        }
+        rv[q] = v;
+      }
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = tid + 256 * q;
+      s_w[buf][e % GP_K][e / GP_K] = rw[q];
+    }
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int e = tid + 256 * q, r = e / 4, k = 4 * (e % 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s_v[buf][k + i][r] = rv[4 * q + i];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = tid + 256 * q;
+        s_v[buf][e % GP_K][e / GP_K] = rv[q];
+      }
+    }
+  };
+  __syncthreads();  // s_row
+  fetch(0);
+  put(0);
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    const int cur = s & 1;
+    if (s + 1 < n_steps) fetch(s + 1);
+#pragma unroll
+    for (int k = 0; k < GP_K; ++k) {
+      const float4 w0 = *reinterpret_cast<const float4*>(&s_w[cur][k][8 * tc]);
+      const float4 w1 = *reinterpret_cast<const float4*>(&s_w[cur][k][8 * tc + 4]);
+      const float4 v0 = *reinterpret_cast<const float4*>(&s_v[cur][k][8 * tr]);
+      const float4 v1 = *reinterpret_cast<const float4*>(&s_v[cur][k][8 * tr + 4]);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(wv[c], vv[i], acc[i][c]);
+    }
+    if (s + 1 < n_steps) put(cur ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long n = n0 + 8 * tr + i;
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = u0 + 2 * tc + uu;
+      if (n < n_rows && u < h)
+        write_record(rec + ((size_t)n * h + u) * CREC, acc[i][4 * uu], acc[i][4 * uu + 1], acc[i][4 * uu + 2],
+                     acc[i][4 * uu + 3], a.cprev[n * h + u], a.dy[n * h + u]);
+    }
+  }
+}
+
+constexpr int GPM_ROWS = 64;  // bf16 gate pass: (B*T) rows a block (8 mma tiles)
+constexpr int GPM_K = 64;     // bf16 gate pass: terms staged a step (4 k-tiles)
+
+// bf16: block b = (row tile b / ub, unit block b % ub of 32 units), 4 warps of
+// 8 units (tile 0 gates i and f, tile 1 g and o, lstm_common.cuh), the rows
+// the tiles' N: the forward's producer and consumer products, one
+// accumulator from the bias through x's k-tiles and h's.
+__global__ void __launch_bounds__(128)
+lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ rec) {
+  __shared__ __align__(16) __nv_bfloat16 s_v[GPM_ROWS][GPM_K + 8];  // [row][k]: x_t | h_{t-1}
+  __shared__ int s_row[GPM_ROWS];                                    // -1 past the rows, 0 at t = 0, 1 else
+  const int tid = threadIdx.x, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
+  const int ub = (h + CU - 1) / CU, gu = (int)(blockIdx.x % ub) * CU + (tid >> 5) * 8 + g8;
+  const bool ok = gu < h;
+  const long long n0 = (long long)(blockIdx.x / ub) * GPM_ROWS, n_rows = (long long)a.batch * a.steps;
+  if (tid < GPM_ROWS) s_row[tid] = n0 + tid < n_rows ? (int)((n0 + tid) % a.steps != 0) : -1;
+  // x | h_{t-1} 8 values a load where every row of both is 16-byte aligned
+  const bool vec = d % 8 == 0 && h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0;
+  float acc[GPM_ROWS / 8][2][4];
+  {
+    float b4[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b4[m] = ok ? a.bias[m * h + gu] : 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < GPM_ROWS / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][0][e] = b4[e / 2], acc[nt][1][e] = b4[2 + e / 2];
+  }
+  for (int sec = 0; sec < 2; ++sec) {
+    const int len = sec == 0 ? d : h;
+    const float* wm = sec == 0 ? a.w_ih : a.w_hh;
+    for (int k0 = 0; k0 < len; k0 += GPM_K) {
+      __syncthreads();
+      if (vec) {
+        for (int i = tid; i < GPM_ROWS * GPM_K / 8; i += 128) {
+          const int k = 8 * (i % (GPM_K / 8)), r = i / (GPM_K / 8), row = s_row[r];
+          const long long n = n0 + r;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (row >= 0 && k0 + k < len) {
+            if (sec == 0) v = *reinterpret_cast<const uint4*>(a.x + n * d + k0 + k);
+            else if (row) v = *reinterpret_cast<const uint4*>(a.y + (n - 1) * h + k0 + k);
+          }
+          *reinterpret_cast<uint4*>(&s_v[r][k]) = v;
+        }
+      } else {
+        for (int i = tid; i < GPM_ROWS * GPM_K; i += 128) {
+          const int k = i % GPM_K, r = i / GPM_K, row = s_row[r];
+          const long long n = n0 + r;
+          __nv_bfloat16 v = __float2bfloat16(0.0f);
+          if (row >= 0 && k0 + k < len) {
+            if (sec == 0) v = a.x[n * d + k0 + k];
+            else if (row) v = a.y[(n - 1) * h + k0 + k];
+          }
+          s_v[r][k] = v;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kt = 0; kt < GPM_K / 16; ++kt) {
+        const int k = k0 + kt * 16 + 2 * t4;
+        if (k0 + kt * 16 >= len) break;
+        uint32_t af[2][4];
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile) {
+          const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
+          af[tile][0] = load_w2m(wm, ok, lo, k, len);
+          af[tile][1] = load_w2m(wm, ok, hi, k, len);
+          af[tile][2] = load_w2m(wm, ok, lo, k + 8, len);
+          af[tile][3] = load_w2m(wm, ok, hi, k + 8, len);
+        }
+#pragma unroll
+        for (int nt = 0; nt < GPM_ROWS / 8; ++nt) {
+          const __nv_bfloat16* v = &s_v[nt * 8 + g8][kt * 16 + 2 * t4];
+          const uint32_t b0 = ld32(v), b1 = ld32(v + 8);
+          mma_bf16(acc[nt][0], af[0], b0, b1);
+          mma_bf16(acc[nt][1], af[1], b0, b1);
+        }
+      }
+    }
+  }
+  if (!ok) return;
+#pragma unroll
+  for (int nt = 0; nt < GPM_ROWS / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long n = n0 + nt * 8 + 2 * t4 + e;
+      if (n < n_rows)
+        write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
+                     acc[nt][1][2 + e], a.cprev[n * h + gu], __bfloat162float(a.dy[n * h + gu]));
+    }
+}
+
+// da in shared memory, [2][rows][pitch] of T: fp32 the R rows of 4 HW
+// (read as quads); bf16 the B operand of the dh product, 8 rows (rows from R
+// on stay zero) of 4 HW + 8 (8 rows' fragments in distinct banks).
+template <typename T, int R> constexpr int cda_rows = is_bf16<T> ? 8 : R;
+template <typename T, int HW> constexpr int cda_pitch = is_bf16<T> ? 4 * HW + 8 : 4 * HW;
+
+template <typename T, int R, int HW>
+constexpr size_t bwd_cluster_smem_bytes() {
+  return 64 + sizeof(float) * (size_t)CBUF * CPAIRS * CU * CREC + sizeof(T) * (size_t)2 * cda_rows<T, R> * cda_pitch<T, HW> +
+         sizeof(T) * (size_t)(CCONS / 32) * R * 16 + (is_bf16<T> ? sizeof(float) * 2 * 8 * CU * 4 : 0);
 }
 
 template <typename T, int R, int HW>
-size_t bwd_cluster_smem_bytes(int d, int h) {
-  return 16 + sizeof(float) * ((size_t)NBUF * SB * R * CRING + R * SB * CU + 2 * R * 4 * HW) +
-         sizeof(T) * (size_t)R * SB * cxh_pitch<T>(d, h);
-}
-
-template <typename T, int R, int HW>
-__global__ void __launch_bounds__(CCONS + CPROD, 1)
-lstm_bwd_cluster_kernel(const BwdArgs<T> a, T* __restrict__ da_out, float* __restrict__ db_part) {
-  constexpr int THREADS = CCONS + CPROD, DAR = 4 * HW;
+__global__ void __launch_bounds__(CTHREADS, 1)
+lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __restrict__ da_out,
+                        float* __restrict__ db_part) {
+  static_assert(R == 1 || R == 2 || R == 4 || R == 8, "rows a cluster: 1, 2, 4 or 8");
+  constexpr int S = CSTEPS<R>, NQ = HW / 8, NBR = 16 * (int)sizeof(T) / 16;  // NBR: bursts a row
+  constexpr int DAR = cda_rows<T, R>, DAP = cda_pitch<T, HW>;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);      // [2]: step i's da of every CTA is in s_da[i & 1]
-  float* s_ring = reinterpret_cast<float*>(smem + 16);     // [NBUF][SB][R][CRING]
-  float* s_c = s_ring + NBUF * SB * R * CRING;             // [R][SB][CU]: c_{t-1} of the CTA's units
-  float* s_da = s_c + R * SB * CU;                         // [2][R][4 HW]: da, gate m of unit u at m HW + u
-  T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DAR);      // [R][SB][xhp]: x_t | h_{t-1}
-  const int batch = a.batch, steps = a.steps, d = a.d, h = a.h;
-  const int xl = round_up(d, CKB), hl = round_up(h, CKB), xhp = cxh_pitch<T>(d, h);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);  // [2]: step i's da of every CTA is in s_da[i & 1]
+  uint64_t* full = mbar + 2;                           // [CBUF]: chunk c's records are in ring buffer c % CBUF
+  float* s_ring = reinterpret_cast<float*>(smem + 64); // [CBUF][CPAIRS][CU][CREC]
+  T* s_da = reinterpret_cast<T*>(s_ring + CBUF * CPAIRS * CU * CREC);  // [2][DAR][DAP]: unit u, gate m at 4 u + m
+  T* s_stage = s_da + 2 * DAR * DAP;                   // [CCONS / 32][R][16]: a warp's 4 units x 4 gates a row
+  float* s_part = reinterpret_cast<float*>(s_stage + (CCONS / 32) * R * 16);  // bf16: [2][8][CU][4] dh partials
+  const int batch = a.batch, steps = a.steps, h = a.h;
   const uint32_t rank = cluster_rank(), n_cta = (h + CU - 1) / CU;
   const int u0 = rank * CU, cluster = blockIdx.x / n_cta, row0 = cluster * R;
-  const int n_chunks = (steps + SB - 1) / SB;
-  // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
+  const int nu = h - u0 < CU ? h - u0 : CU, nr = batch - row0 < R ? batch - row0 : R;  // real units, rows
+  const int n_chunks = (steps + S - 1) / S;
+  // Step i of the recurrence is t = steps - 1 - i; chunk c holds i = c S .. c S + S - 1.
 
   if (threadIdx.x == 0) {
-    mbar_init(mbar, 1);  // this CTA's arrival (mbar_expect) and the st.async bytes of every CTA's da
-    mbar_init(mbar + 1, 1);
+    for (int i = 0; i < 2 + CBUF; ++i) mbar_init(mbar + i, 1);  // one arrival a phase and its bytes
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = threadIdx.x; i < 2 * R * DAR; i += THREADS) s_da[i] = 0.0f;  // units no CTA owns stay 0
+  for (int i = threadIdx.x; i < 2 * DAR * DAP; i += CTHREADS) store_f(s_da + i, 0.0f);  // units no CTA owns stay 0
+  // Rows past the batch and units past H are never copied: their records stay 0, so their da is 0.
+  for (int i = threadIdx.x; i < CBUF * CPAIRS * CU * CREC; i += CTHREADS) s_ring[i] = 0.0f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the zeros before the TMA's copies
   __syncthreads();
   cluster_sync_all();
 
   if (threadIdx.x >= CCONS) {
-    // ---- producers: the gate recompute and each step's local derivatives ----
-    const int tp = threadIdx.x - CCONS, lane = tp & 31, g8 = lane >> 2, t4 = lane & 3;
-    const int quad_lane = lane & ~3;
+    // ---- the producer warp: each chunk's records by the TMA, one copy a (step, row) ----
     for (int c = 0; c < n_chunks; ++c) {
-      const int buf = c % NBUF;
-      float* ring = s_ring + buf * SB * R * CRING;
-      bar_sync(BAR_PROD, CPROD);  // the last chunk's reads of s_xh and s_c are done
-      if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
-      stage<8>(R * SB * xhp, tp, CPROD, [&](int i) {
-        const int r = i / (SB * xhp), s = (i / xhp) % SB, k = i % xhp;
-        const int row = row0 + r, t = steps - 1 - c * SB - s;
-        const bool ok = row < batch && t >= 0;
-        const size_t at = (size_t)row * steps + t;
-        if (k < xl) return ok && k < d ? load_f(a.x + at * d + k) : 0.0f;
-        return ok && t > 0 && k - xl < h ? load_f(a.y + (at - 1) * h + (k - xl)) : 0.0f;
-      }, [&](int i, float v) { store_f(s_xh + i, v); });
-      // (r, s, u) of this CTA's c_{t-1} and dy, and where they go: s_c[i], the ring's dy slot
-      auto at_c = [&](int i) -> long long {
-        const int r = i / (SB * CU), s = (i / CU) % SB, u = i % CU;
-        const int row = row0 + r, t = steps - 1 - c * SB - s, gu = u0 + u;
-        return row < batch && t >= 0 && gu < h ? ((long long)row * steps + t) * h + gu : -1;
-      };
-      auto dy_slot = [&](int i) {
-        return ring + ((i / CU) % SB * R + i / (SB * CU)) * CRING + CROWS + 2 * CU + i % CU;
-      };
-      stage<2>(R * SB * CU, tp, CPROD, [&](int i) { const long long at = at_c(i); return at < 0 ? 0.0f : a.cprev[at]; },
-               [&](int i, float v) { s_c[i] = v; });
-      stage<2>(R * SB * CU, tp, CPROD, [&](int i) { const long long at = at_c(i); return at < 0 ? 0.0f : load_f(a.dy + at); },
-               [&](int i, float v) { *dy_slot(i) = v; });
-      bar_sync(BAR_PROD, CPROD);
-      if constexpr (is_bf16<T>) {
-        // Tensor cores: warp tp / 32 owns units 8 (tp / 32) .. + 7; a row's 8 steps are one
-        // mma tile, and the lane ends with the four gates of unit_t for steps 2 t4, 2 t4 + 1.
-        const int unit_t = (tp >> 5) * 8 + g8, gu = u0 + unit_t;
-        const bool ok = gu < h;
-#pragma unroll 1
-        for (int r = 0; r < R; ++r) {
-          float acc[2][4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[0][e] = ok ? a.bias[(e / 2) * h + gu] : 0.0f;
-            acc[1][e] = ok ? a.bias[(2 + e / 2) * h + gu] : 0.0f;
+      const int buf = c % CBUF, n = steps - c * S < S ? steps - c * S : S;
+      if (c >= CBUF) bar_sync(BAR_EMPTY + buf, CTHREADS);  // the consumers are done with chunk c - CBUF
+      if ((threadIdx.x & 31) == 0) {
+        const uint32_t bytes = (uint32_t)(nu * CREC * sizeof(float));
+        mbar_expect(full + buf, bytes * n * nr);
+        for (int s = 0; s < n; ++s)
+          for (int r = 0; r < nr; ++r) {
+            const int t = steps - 1 - (c * S + s);
+            bulk_copy(s_ring + ((size_t)(buf * CPAIRS + s * R + r) * CU) * CREC,
+                      rec + (((size_t)(row0 + r) * steps + t) * h + u0) * CREC, bytes, full + buf);
           }
-          const T* v = s_xh + (r * SB + g8) * xhp + 2 * t4;
-          for (int sec = 0; sec < 2; ++sec) {
-            const float* wm = sec == 0 ? a.w_ih : a.w_hh;
-            const int ncols = sec == 0 ? d : h, len = sec == 0 ? xl : hl, off = sec == 0 ? 0 : xl;
-            for (int k0 = 0; k0 < len; k0 += CKB) {
-              uint32_t af[CKB / 16][2][4];  // the batch's k-tiles' fragments, loaded together
-#pragma unroll
-              for (int j = 0; j < CKB / 16; ++j)
-#pragma unroll
-                for (int tile = 0; tile < 2; ++tile) {
-                  const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
-                  const int k = k0 + j * 16 + 2 * t4;
-                  af[j][tile][0] = load_w2m(wm, ok, lo, k, ncols);
-                  af[j][tile][1] = load_w2m(wm, ok, hi, k, ncols);
-                  af[j][tile][2] = load_w2m(wm, ok, lo, k + 8, ncols);
-                  af[j][tile][3] = load_w2m(wm, ok, hi, k + 8, ncols);
-                }
-#pragma unroll
-              for (int j = 0; j < CKB / 16; ++j) {
-                const uint32_t b0 = ld32(v + off + k0 + j * 16), b1 = ld32(v + off + k0 + j * 16 + 8);
-                mma_bf16(acc[0], af[j][0], b0, b1);
-                mma_bf16(acc[1], af[j][1], b0, b1);
-              }
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int s = 2 * t4 + e;
-            const float ig = sigmoid(acc[0][e]), fg = sigmoid(acc[0][2 + e]);
-            const float gg = tanh_sig(acc[1][e]), og = sigmoid(acc[1][2 + e]);
-            const float c_prev = s_c[(r * SB + s) * CU + unit_t];
-            const float tc = tanh_sig(fg * c_prev + ig * gg);
-            float* en = ring + (s * R + r) * CRING;
-            *reinterpret_cast<float4*>(en + unit_t * 4) =
-                make_float4(gg * ig * (1.0f - ig), c_prev * fg * (1.0f - fg), ig * (1.0f - gg * gg),
-                            tc * og * (1.0f - og));
-            en[CROWS + unit_t] = og * (1.0f - tc * tc);
-            en[CROWS + CU + unit_t] = fg;
-          }
-        }
-      } else {
-        // CUDA cores: thread tp owns gate row (unit tp / 4, gate tp % 4), the chunk's
-        // 8 steps in flight; gate = (x . W_ih + b) + h . W_hh, each product's terms in order.
-        const int unit = tp >> 2, gate = tp & 3, gu = u0 + unit;
-        const bool ok = gu < h;
-        const size_t wrow = (size_t)(gate * h + gu);
-        const float b = ok ? a.bias[gate * h + gu] : 0.0f;
-#pragma unroll 1
-        for (int r = 0; r < R; ++r) {
-          float px[SB], ph[SB];
-#pragma unroll
-          for (int s = 0; s < SB; ++s) px[s] = ph[s] = 0.0f;
-          const float* xh = reinterpret_cast<const float*>(s_xh) + r * SB * xhp;
-          // one product's terms in order, CKB weights of the row in flight at once
-          auto product = [&](float (&acc)[SB], const float* wm, int ncols, int len, int off) {
-            for (int k0 = 0; k0 < len; k0 += CKB) {
-              float wv[CKB];
-              load_wrow<CKB>(wv, wm, ok, wrow, k0, ncols);
-#pragma unroll
-              for (int q = 0; q < CKB / 4; ++q)
-#pragma unroll
-                for (int s = 0; s < SB; ++s)
-                  dot_quad(acc[s], wv[4 * q], wv[4 * q + 1], wv[4 * q + 2], wv[4 * q + 3],
-                           *reinterpret_cast<const float4*>(xh + s * xhp + off + k0 + 4 * q));
-            }
-          };
-          product(px, a.w_ih, d, xl, 0);
-          product(ph, a.w_hh, h, hl, xl);
-          float act[SB], ig[SB], fg[SB], gg[SB], og[SB];
-#pragma unroll
-          for (int s = 0; s < SB; ++s) act[s] = activate(gate, (px[s] + b) + ph[s]);
-          gather_gates<SB>(act, quad_lane, ig, fg, gg, og);
-#pragma unroll
-          for (int s = 0; s < SB; ++s) {
-            const float c_prev = s_c[(r * SB + s) * CU + unit];
-            const float tc = tanh_sig(fg[s] * c_prev + ig[s] * gg[s]);
-            const float factor = gate == 0 ? gg[s] * ig[s] * (1.0f - ig[s])
-                               : gate == 1 ? c_prev * fg[s] * (1.0f - fg[s])
-                               : gate == 2 ? ig[s] * (1.0f - gg[s] * gg[s])
-                                           : tc * og[s] * (1.0f - og[s]);
-            float* en = ring + (s * R + r) * CRING;
-            en[tp] = factor;
-            if (gate == 0) {
-              en[CROWS + unit] = og[s] * (1.0f - tc * tc);
-              en[CROWS + CU + unit] = fg[s];
-            }
-          }
-        }
       }
-      __threadfence_block();
-      bar_arrive(BAR_FULL + buf, THREADS);
     }
   } else {
-    // ---- consumers: the (dh, dc) carry, da exchanged through the cluster ----
-    // Thread tc is lane l of unit tc / 8: it takes quads 8 q + l (q < HW / 8) of
-    // the 4 HW da values, w[q][e] = W_hh[row of da value 4 (8 q + l) + e][its unit].
-    constexpr int NQ = HW / 8;
-    const int tc = threadIdx.x, unit = tc / CLANES, l = tc % CLANES, gate = l & 3, gu = u0 + unit;
-    float w[NQ][4];
+    // ---- consumers: the (dh, dc) carry, da exchanged through the cluster in row bursts ----
+    // Thread tc is lane l of unit tc / 8 (gate l % 4 of it, lanes l and l + 4 alike).
+    // fp32: it takes quads 8 q + l (q < HW / 8) of the 4 HW da values (unit 8 q + l's four
+    // gates), w[q][e] = W_hh[gate e of unit 8 q + l][its unit], for every row.  bf16: dh of
+    // the CTA's units is one mma product, M = the 32 units (two tiles), N = the rows, K =
+    // the 4 HW da values: warp w takes tile w % 2 and quarter w / 2 of K, W_hh^T's fragments
+    // in registers; the quarters' partials meet in shared memory, one barrier a step.
+    const int tc = threadIdx.x, lane = tc & 31, warp = tc >> 5;
+    const int unit = tc / CLANES, l = tc % CLANES, gate = l & 3, gu = u0 + unit, uj = unit & 3;
+    constexpr int KQ = HW / 16;  // bf16: k-tiles of a quarter
+    float w[is_bf16<T> ? 1 : NQ][4];
+    uint32_t a_hh[is_bf16<T> ? KQ : 1][4];
+    if constexpr (is_bf16<T>) {
+      const int g8 = lane >> 2, t4 = lane & 3, mt = warp & 1, kq0 = (warp >> 1) * KQ;
+      // A[unit][j] = W_hh[gate j % 4 of unit j / 4][unit], rounded to bf16, zero past H
+      auto wv = [&](int j, int u) {
+        return load_wm(a.w_hh, j / 4 < h, (size_t)((j % 4) * h + j / 4), u0 + u, h);
+      };
 #pragma unroll
-    for (int q = 0; q < NQ; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * (8 * q + l) + e, m = j / HW, ug = j % HW;
-        w[q][e] = operand(load_wm(a.w_hh, ug < h, (size_t)(m * h + ug), gu, h), a.x);
+      for (int kk = 0; kk < KQ; ++kk) {
+        const int j = (kq0 + kk) * 16 + 2 * t4, u = mt * 16 + g8;
+        a_hh[kk][0] = pack_bf16(wv(j, u), wv(j + 1, u));
+        a_hh[kk][1] = pack_bf16(wv(j, u + 8), wv(j + 1, u + 8));
+        a_hh[kk][2] = pack_bf16(wv(j + 8, u), wv(j + 9, u));
+        a_hh[kk][3] = pack_bf16(wv(j + 8, u + 8), wv(j + 9, u + 8));
       }
+    } else {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int uu = 8 * q + l;
+          w[q][e] = operand(load_wm(a.w_hh, uu < h, (size_t)(e * h + uu), gu, h), a.x);
+        }
+    }
     float dh[R], dc[R], db_acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
-    const uint32_t da_off = (uint32_t)((gate * HW + gu) * sizeof(float));  // this lane's da in a row
+    T* st = s_stage + warp * R * 16;
+    const uint32_t step_bytes = n_cta * CROWS * R * sizeof(T);
     for (int c = 0; c < n_chunks; ++c) {
-      const int buf = c % NBUF;
-      bar_sync(BAR_FULL + buf, THREADS);
-      const float* ring = s_ring + buf * SB * R * CRING;
-      const int t_hi = steps - 1 - c * SB;
-      const int n = t_hi + 1 < SB ? t_hi + 1 : SB;
+      const int buf = c % CBUF, n = steps - c * S < S ? steps - c * S : S;
+      mbar_wait_parity(full + buf, (c / CBUF) & 1);
+      const float* ring = s_ring + (size_t)buf * CPAIRS * CU * CREC;
       for (int s = 0; s < n; ++s) {
-        const int i = c * SB + s, t = t_hi - s;
-        if (tc == 0) mbar_expect(mbar + (i & 1), n_cta * CROWS * R * sizeof(float));
+        const int i = c * S + s, t = steps - 1 - i;
+        if (tc == 0) mbar_expect(mbar + (i & 1), step_bytes);
         float da[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float* e = ring + (s * R + r) * CRING;
-          const float dh_total = e[CROWS + 2 * CU + unit] + dh[r];
-          const float dc_total = dc[r] + dh_total * e[CROWS + unit];
-          da[r] = (gate == 3 ? dh_total : dc_total) * e[unit * 4 + gate];
-          dc[r] = dc_total * e[CROWS + CU + unit];
-          if (l < 4) db_acc[r] += da[r];
-          const uint32_t dq = __float_as_uint(operand(da[r], a.x));
-          const uint32_t off = (uint32_t)(((i & 1) * R + r) * DAR * sizeof(float)) + da_off;
-          for (uint32_t k = l >> 2; k < n_cta; k += 2)
-            st_async_peer(peer_addr(s_da, k) + off, dq, peer_addr(mbar + (i & 1), k));
+          const float* e = ring + ((s * R + r) * CU + unit) * CREC;
+          const float4 f4 = *reinterpret_cast<const float4*>(e), g4 = *reinterpret_cast<const float4*>(e + 4);
+          const float factor = gate == 0 ? f4.x : gate == 1 ? f4.y : gate == 2 ? f4.z : f4.w;
+          const float dh_total = g4.z + dh[r];
+          const float dc_total = dc[r] + dh_total * g4.x;
+          da[r] = (gate == 3 ? dh_total : dc_total) * factor;
+          dc[r] = dc_total * g4.y;
+          db_acc[r] += da[r];  // rows past the batch: 0
         }
+        __syncwarp();  // the last step's bursts are read
+        if (l < 4)
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (l < 4 && row0 + r < batch && gu < h)
-            store_f(da_out + ((size_t)(row0 + r) * steps + t) * (4 * h) + gate * h + gu, da[r]);
+          for (int r = 0; r < R; ++r) store_f(st + r * 16 + uj * 4 + gate, da[r]);
+        __syncwarp();
+        for (int b = lane; b < R * NBR * (int)n_cta; b += 32) {
+          const int r = b % R, p = (b / R) % NBR, k = b / (R * NBR);
+          const uint32_t off = (uint32_t)(((((i & 1) * DAR + r) * DAP + 4 * (u0 + 4 * warp)) * sizeof(T)) + 16 * p);
+          st_async_peer_v4(peer_addr(s_da, k) + off, reinterpret_cast<const uint4*>(st + r * 16)[p],
+                           peer_addr(mbar + (i & 1), k));
+        }
+        if (l < 4 && gu < h)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) store_f(da_out + ((size_t)(row0 + r) * steps + t) * (4 * h) + gate * h + gu, da[r]);
         mbar_wait_parity(mbar + (i & 1), (i >> 1) & 1);
-        // dh_{t-1} of this unit = da . W_hh[:, unit]: the lane's terms in order (q, e),
-        // then lanes 4, 2 and 1 apart.
+        if constexpr (is_bf16<T>) {
+          // dh_{t-1} = da . W_hh[:, units] on the tensor cores: this warp's tile and quarter,
+          // then the four quarters' partials in order (s_part double-buffered: a step's
+          // barrier keeps the writes of the next from the reads of the last).
+          const int g8 = lane >> 2, t4 = lane & 3, mt = warp & 1, kq0 = (warp >> 1) * KQ;
+          const T* bv = s_da + (i & 1) * DAR * DAP + g8 * DAP + kq0 * 16 + 2 * t4;
+          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float* av = s_da + ((i & 1) * R + r) * DAR;
-          float part = 0.0f;
+          for (int kk = 0; kk < KQ; ++kk) mma_bf16(c, a_hh[kk], ld32(bv + kk * 16), ld32(bv + kk * 16 + 8));
+          float* part = s_part + (i & 1) * 8 * CU * 4;  // [row][unit][quarter]
 #pragma unroll
-          for (int q = 0; q < NQ; ++q) dot_quad(part, w[q][0], w[q][1], w[q][2], w[q][3],
-                                               *reinterpret_cast<const float4*>(av + 4 * (8 * q + l)));
-          part += __shfl_xor_sync(0xffffffffu, part, 4);
-          part += __shfl_xor_sync(0xffffffffu, part, 2);
-          dh[r] = part + __shfl_xor_sync(0xffffffffu, part, 1);
+          for (int e = 0; e < 4; ++e)
+            part[((2 * t4 + (e & 1)) * CU + mt * 16 + g8 + 8 * (e >> 1)) * 4 + (warp >> 1)] = c[e];
+          bar_sync(BAR_CONS, CCONS);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 p4 = *reinterpret_cast<const float4*>(part + (r * CU + unit) * 4);
+            dh[r] = ((p4.x + p4.y) + p4.z) + p4.w;
+          }
+        } else {
+          // dh_{t-1} of this unit = da . W_hh[:, unit]: the lane's terms in order (q, e),
+          // then lanes 4, 2 and 1 apart.
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const T* av = s_da + ((i & 1) * DAR + r) * DAP + 4 * l;
+            float part = 0.0f;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+              dot_quad(part, w[q][0], w[q][1], w[q][2], w[q][3], *reinterpret_cast<const float4*>(av + 32 * q));
+            part += __shfl_xor_sync(0xffffffffu, part, 4);
+            part += __shfl_xor_sync(0xffffffffu, part, 2);
+            dh[r] = part + __shfl_xor_sync(0xffffffffu, part, 1);
+          }
         }
       }
-      if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
+      if (c + CBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, CTHREADS);
     }
     if (l < 4 && gu < h) {
       float total = 0.0f;
@@ -1326,14 +1685,14 @@ lstm_bwd_cluster_kernel(const BwdArgs<T> a, T* __restrict__ da_out, float* __res
 }
 
 template <typename T, int R, int HW>
-cudaError_t launch_cluster_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream) {
-  static SmemOnce once;  // the card's opt-in limit: the need grows with D and H
-  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, 0);
+cudaError_t launch_cluster_rec(BwdArgs<T> a, const float* rec, T* da, float* db_part, cudaStream_t stream) {
+  static SmemOnce once;
+  constexpr size_t smem = bwd_cluster_smem_bytes<T, R, HW>();
+  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, (a.batch + R - 1) / R, a.h, CCONS + CPROD,
-                                                bwd_cluster_smem_bytes<T, R, HW>(a.d, a.h), stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<T, R, HW>, a, da, db_part);
+  const cudaLaunchConfig_t cfg = cluster_config(attr, (a.batch + R - 1) / R, a.h, CTHREADS, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<T, R, HW>, a, rec, da, db_part);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -1341,26 +1700,37 @@ cudaError_t launch_cluster_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t
 // Clusters of R rows the device holds at once for widths (d, h), by
 // cudaOccupancyMaxActiveClusters, or -cudaError (lstm_fwd.cu's).
 template <typename T, int R, int HW>
-int cluster_slots_rows(int d, int h) {
+int cluster_slots_rows(int h) {
   static SmemOnce once;
-  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, 0);
+  constexpr size_t smem = bwd_cluster_smem_bytes<T, R, HW>();
+  cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, h, CCONS + CPROD, bwd_cluster_smem_bytes<T, R, HW>(d, h), 0);
+  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, h, CTHREADS, smem, 0);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, lstm_bwd_cluster_kernel<T, R, HW>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
+template <typename T, int HW>
+int cluster_slots_hw(int rows, int h) {
+  switch (rows) {
+    case 1: return cluster_slots_rows<T, 1, HW>(h);
+    case 2: return cluster_slots_rows<T, 2, HW>(h);
+    case 4: return cluster_slots_rows<T, 4, HW>(h);
+    case 8: return cluster_slots_rows<T, 8, HW>(h);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int cluster_slots(int rows, int d, int h) {
   if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return -(int)cudaErrorInvalidValue;
-  if (rows == 1) return h <= 128 ? cluster_slots_rows<T, 1, 128>(d, h) : cluster_slots_rows<T, 1, 256>(d, h);
-  if (rows == 2) return h <= 128 ? cluster_slots_rows<T, 2, 128>(d, h) : cluster_slots_rows<T, 2, 256>(d, h);
-  return -(int)cudaErrorInvalidValue;
+  return h <= 128 ? cluster_slots_hw<T, 128>(rows, h) : cluster_slots_hw<T, 256>(rows, h);
 }
 
-// dx, dW and the sum at runtime widths (the four-launch path's last three).
+// dx, dW and the sum at runtime widths (the four-launch path's last three;
+// bf16 on the tensor cores, fp32 on the CUDA cores).
 template <typename T>
 cudaError_t launch_any_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh, float* db, const T* da,
                                 float* part, const float* db_part, int n_chunks, int n_blocks,
@@ -1368,32 +1738,61 @@ cudaError_t launch_any_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh,
   const long long n_rows = (long long)a.batch * a.steps;
   const int g = 4 * a.h, kk = a.d + a.h;
   const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
-  lstm_bwd_dx_any_kernel<T><<<dim3((unsigned)((n_rows + AT - 1) / AT), (a.d + AT - 1) / AT), 256, 0, stream>>>(
-      da, a.w_ih, dx, n_rows, a.d, a.h);
+  const dim3 dw_grid(n_chunks, (g + AT - 1) / AT, (kk + AT - 1) / AT);
+  if constexpr (is_bf16<T>) {
+    lstm_bwd_dx_any_mma_kernel<<<dim3((unsigned)((n_rows + AXM - 1) / AXM), (a.d + AT - 1) / AT), 256, 0, stream>>>(
+        da, a.w_ih, dx, n_rows, a.d, a.h);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int vec = (a.d % 8 == 0 && a.h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0);
+    lstm_bwd_dw_any_mma_kernel<<<dw_grid, 256, 0, stream>>>(da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d,
+                                                             a.h, vec);
+  } else {
+    lstm_bwd_dx_any_kernel<<<dim3((unsigned)((n_rows + AT - 1) / AT), (a.d + AT - 1) / AT), 256, 0, stream>>>(
+        da, a.w_ih, dx, n_rows, a.d, a.h);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    lstm_bwd_dw_any_kernel<<<dim3(n_chunks, (g + FT - 1) / FT, (kk + FT - 1) / FT), 256, 0, stream>>>(
+        da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d, a.h);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  lstm_bwd_dw_any_kernel<T><<<dim3(n_chunks, (g + AT - 1) / AT, (kk + AT - 1) / AT), 256, 0, stream>>>(
-      da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d, a.h);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kk + 255) / 256), 256, 0, stream>>>(
       part, n_chunks, db_part, n_blocks, dw_ih, dw_hh, db, a.d, a.h);
   return cudaGetLastError();
 }
 
+template <typename T, int HW>
+cudaError_t launch_cluster_rec_hw(BwdArgs<T> a, const float* rec, T* da, float* db_part, int rows,
+                                  cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_cluster_rec<T, 1, HW>(a, rec, da, db_part, stream);
+    case 2: return launch_cluster_rec<T, 2, HW>(a, rec, da, db_part, stream);
+    case 4: return launch_cluster_rec<T, 4, HW>(a, rec, da, db_part, stream);
+    case 8: return launch_cluster_rec<T, 8, HW>(a, rec, da, db_part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The cluster path: the gate pass into rec, the recurrence, then dx / dW / sum.
 template <typename T>
-int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* part,
-                   float* db_part, int rows, int n_chunks, void* stream_ptr) {
+int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* rec,
+                   float* part, float* db_part, int rows, int n_chunks, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (a.d < 1 || a.h < 1 || a.d > MAX_WIDTH || a.h > MAX_WIDTH || n_chunks < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (rows == 1)
-    err = a.h <= 128 ? launch_cluster_rec<T, 1, 128>(a, (T*)da, db_part, stream)
-                     : launch_cluster_rec<T, 1, 256>(a, (T*)da, db_part, stream);
-  else if (rows == 2)
-    err = a.h <= 128 ? launch_cluster_rec<T, 2, 128>(a, (T*)da, db_part, stream)
-                     : launch_cluster_rec<T, 2, 256>(a, (T*)da, db_part, stream);
-  else
+  if (a.d < 1 || a.h < 1 || a.d > MAX_WIDTH || a.h > MAX_WIDTH || n_chunks < 1 || rec == nullptr)
     return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)a.batch * a.steps;
+  const long long unit_blocks = (a.h + CU - 1) / CU;
+  if constexpr (is_bf16<T>)
+    lstm_bwd_gates_bf16_kernel<<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(
+        a, rec);
+  else
+    lstm_bwd_gates_f32_kernel<<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(
+        a, rec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = a.h <= 128 ? launch_cluster_rec_hw<T, 128>(a, rec, (T*)da, db_part, rows, stream)
+                   : launch_cluster_rec_hw<T, 256>(a, rec, (T*)da, db_part, rows, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
                                      (a.batch + rows - 1) / rows, stream);
@@ -1464,23 +1863,26 @@ extern "C" {
 // 8-byte aligned; cprev: (B, T, H) fp32; bias: (G,) fp32.  Outputs, every
 // element written: dx (B, T, D) in the instantiation's type, dw_ih (G, D),
 // dw_hh (G, H) and db (G,) fp32.  rows: batch rows per recurrent block (per
-// cluster), 1 or 2.  fused = 0, the four launches: scratch da (B, T, G) in
+// cluster), 1 or 2 (1, 2, 4 or 8 on the cluster path).  fused = 0, the
+// four launches: scratch da (B, T, G) in
 // the instantiation's type, part (n_chunks, G, D + H) fp32, db_part
 // (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid.  fused
 // = 1 (capacity 32 at D = H = 32 only; its rows' da must fit a block's
 // shared memory, which the plan's T <= 64 keeps): one cooperative launch of
 // ceil(B / rows) blocks, which must all be resident at once; scratch part
 // (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and dx_blocks
-// unused.  All contiguous on the current device; B, T >= 1.  Returns the
-// first cudaError_t of the launches (0 = all launched).
+// unused.  rec: the cluster path's gate-pass records, (B, T, H, 8) fp32
+// (unused elsewhere).  All contiguous on the current device; B, T >= 1.
+// Returns the first cudaError_t of the launches (0 = all launched).
 #define AWM_LSTM_BWD_ENTRY(NAME, TYPE, W)                                                         \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
            const float* w_hh, const float* bias, void* dx,                                        \
-           float* dw_ih, float* dw_hh, float* db, void* da, float* part, float* db_part,         \
-           int batch, int steps, int d, int h, int rows, int n_chunks, int dx_blocks, int fused,  \
-           void* stream) {                                                                        \
+           float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,             \
+           float* db_part, int batch, int steps, int d, int h, int rows, int n_chunks,            \
+           int dx_blocks, int fused, void* stream) {                                              \
     const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
                           bias, batch, steps, d, h};                                              \
+    (void)rec;                                                                                    \
     return launch<TYPE, W>(a, dx, dw_ih, dw_hh, db, da, part, db_part, rows, n_chunks,           \
                            dx_blocks, fused, stream);                                             \
   }
@@ -1495,21 +1897,21 @@ AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w16, __nv_bfloat16, 16)
 #define AWM_LSTM_BWD_CLUSTER_ENTRY(NAME, TYPE)                                                    \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
            const float* w_hh, const float* bias, void* dx,                                        \
-           float* dw_ih, float* dw_hh, float* db, void* da, float* part, float* db_part,         \
-           int batch, int steps, int d, int h, int rows, int n_chunks, int dx_blocks, int fused,  \
-           void* stream) {                                                                        \
+           float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,             \
+           float* db_part, int batch, int steps, int d, int h, int rows, int n_chunks,            \
+           int dx_blocks, int fused, void* stream) {                                              \
     const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
                           bias, batch, steps, d, h};                                              \
     (void)dx_blocks;                                                                              \
     if (fused) return (int)cudaErrorInvalidValue;                                                 \
-    return launch_cluster<TYPE>(a, dx, dw_ih, dw_hh, db, da, part, db_part, rows, n_chunks, stream); \
+    return launch_cluster<TYPE>(a, dx, dw_ih, dw_hh, db, da, rec, part, db_part, rows, n_chunks, stream); \
   }
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_f32_cluster, float)
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_bf16_cluster, __nv_bfloat16)
 #undef AWM_LSTM_BWD_CLUSTER_ENTRY
 
-// Clusters of `rows` rows (1 or 2) of kernel C's recurrence (bf16: 1) that
-// the current device holds at once for widths (d, h); negative: -cudaError.
+// Clusters of `rows` rows (1, 2, 4 or 8) of kernel C's recurrence that the
+// current device holds at once for widths (d, h); negative: -cudaError.
 int awm_lstm_bwd_cluster_slots(int bf16, int rows, int d, int h) {
   return bf16 ? cluster_slots<__nv_bfloat16>(rows, d, h) : cluster_slots<float>(rows, d, h);
 }

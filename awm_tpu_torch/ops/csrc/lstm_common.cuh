@@ -11,7 +11,7 @@
 // zero: its gate pre-activations are 0, so g = tanh 0 = 0, c = 0 and h =
 // sigmoid(0) tanh(0) = 0, and its zero h adds +0 to every sum.  At D = H = W
 // the arithmetic is the one the kernels had before the runtime widths.
-// Widths above 64 take a thread-block cluster (lstm_fwd.cu and lstm_bwd.cu,
+// Widths above 64 take a thread-block cluster (lstm_fwd_cluster.cu and lstm_bwd.cu,
 // "widths above 64").  T is the operand type: float for the fp32 contract,
 // __nv_bfloat16 for the bf16 one (bf16 operands, every product exact in
 // fp32, fp32 sums and state).
@@ -217,17 +217,6 @@ __device__ __forceinline__ void dot_parts(float acc[4], const float w[W], const 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-// KB consecutive weights (row, k .. k + KB - 1) of a (4 h, ncols) fp32 matrix
-// (load_wm's zeros past the real widths): KB independent loads in flight
-// at once, so that a loop over a row read from L2 waits on its latency once
-// a KB terms and not once a quad.
-template <int KB>
-__device__ __forceinline__ void load_wrow(float (&w)[KB], const float* wm, bool row_ok, size_t row, int k,
-                                          int ncols) {
-#pragma unroll
-  for (int i = 0; i < KB; ++i) w[i] = load_wm(wm, row_ok, row, k + i, ncols);
-}
-
 // put(i, get(i)) for i = t, t + threads, ... < n: a role's threads staging a
 // chunk from device memory into shared memory, SG loads in flight a thread
 // before their stores, so that the chunk waits on the loads' latency once a
@@ -322,13 +311,12 @@ __device__ __forceinline__ void mma_w(float c[2][4], const uint32_t a[2][W / 16]
   }
 }
 
-// ---- the cluster path (max(D, H) > 64; lstm_fwd.cu and lstm_bwd.cu) ----
+// ---- the cluster path (max(D, H) > 64; lstm_fwd_cluster.cu and lstm_bwd.cu) ----
 constexpr int CU = 32;          // hidden units a CTA of a cluster owns
 constexpr int CROWS = 4 * CU;   // their gate rows
 constexpr int CPROD = 128;      // producer threads of a CTA
 constexpr int CLANES = 8;       // CUDA-core consumers: lanes a unit
 constexpr int MAX_WIDTH = 256;  // the ceiling on D and H: 8 CTAs (the portable cluster size) of CU units
-constexpr int CKB = 32;         // weight terms a producer loads at once (two mma k-tiles in bf16)
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // The launch of `clusters` clusters of ceil(h / CU) CTAs, each of `threads`
@@ -391,6 +379,13 @@ __device__ __forceinline__ void st_async_peer(uint32_t addr, uint32_t v, uint32_
                "r"(bar)
                : "memory");
 }
+// The 16-byte form: four 32-bit words (a row burst of the exchange: 4 fp32
+// or 8 bf16 values, 16-byte aligned at both ends) counted as 16 bytes.
+__device__ __forceinline__ void st_async_peer_v4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+               : "memory");
+}
 // This CTA's one arrival on its mbarrier for a phase, expecting `bytes` of
 // st.async traffic in it.
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
@@ -406,6 +401,15 @@ __device__ __forceinline__ void mbar_wait_parity(uint64_t* bar, uint32_t parity)
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
+}
+
+// The copy of `bytes` bytes (16-byte aligned at both ends, a multiple of
+// 16) from global into this CTA's shared memory by the TMA (cp.async.bulk),
+// counted on bar, whose phase this thread's arrive.expect_tx (or another's)
+// expects them.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
 // cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per

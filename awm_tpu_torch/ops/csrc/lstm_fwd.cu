@@ -17,7 +17,8 @@
 // LSTMs, T = 50 steps a chunk) and 16 (the dry run's gradient check, T =
 // 32; the ring path, untuned); a call passes its D, H <= W at run time
 // (lstm_common.cuh has the thread mapping and the masking).  Widths above 64
-// run on a thread-block cluster (lstm_fwd_cluster_kernel, below).
+// run on a thread-block cluster (lstm_fwd_cluster.cu: its own library, so
+// that the two build in parallel).
 //
 // What bounds it on this card: the recurrence is sequential in T, so the
 // time is the latency of one step times T, not bytes or FLOPs (the whole
@@ -612,384 +613,17 @@ int launch(const void* x, const float* w_ih, const float* w_hh, const float* bia
   }
 }
 
-// ---- Widths above 64: a thread-block cluster per R batch rows ----
-//
-// At W = 128 every weight of W_hh would take the whole register file of an
-// SM, so a call with max(D, H) > 64 runs on a cluster of K = ceil(H / 32)
-// CTAs (K <= 8, the portable cluster size, for H <= 256), which together own
-// R batch rows:
-// - CTA r owns hidden units [32 r, 32 r + 32), all four gates of each: 128
-//   gate rows of W_hh held on chip for the whole launch, as the W = 64
-//   block's consumers hold theirs (fp32: 8 lanes a unit, each 4 gates x HW / 8
-//   terms in registers; bf16: 4 warps of mma A fragments, 8 units a warp), HW
-//   = 128 or 256 the terms of h the template is built for, zero past H;
-// - the input projection does not depend on h: 128 producer threads run it
-//   ahead of the recurrence into the ring of the W <= 64 kernels, 16 steps a
-//   chunk, with this CTA's rows of W_ih read from L2, CKB terms a batch in
-//   flight together (fp32 on the CUDA cores, one row a thread; bf16 on the
-//   tensor cores, 8 steps a tile);
-// - each step the consumers compute the CTA's gates, c and h, then write
-//   its 32 units of h_t into every CTA's shared memory (distributed shared
-//   memory) with st.async, each store counting its bytes on the receiving
-//   CTA's mbarrier for h_t; one thread of each CTA arrives on its own
-//   mbarrier expecting the step's bytes of all K CTAs, and a step waits on
-//   it before it reads h_{t-1}.  No barrier, fence or remote arrival a step
-//   (stores, a barrier and a release-arrive on each peer took 0.5-0.7 us a
-//   step on the H100; st.async ~0.2: PERF.md section 6).  h is
-//   double-buffered, so that one wait a step is enough: a CTA writes h_{t+1}
-//   into a peer's buffer only after every CTA's h_t arrived, and every warp
-//   of a CTA sends part of its h_t only after reading h_{t-1} there;
-// - the sums run in a fixed order (no atomics): two calls give the same
-//   bits.
-// What bounds it: as at W <= 64 the latency of a step, now with the
-// exchange of h between SMs in it; at fp32 and D = H = 256 the producers'
-// projection also takes as many FMA slots as the recurrence.
-// (CU, CPROD, CKB, ...: lstm_common.cuh)
-template <typename T> constexpr int CCONS = is_bf16<T> ? 128 : CU * CLANES;  // consumer threads
-
-// Staged x: a row of the chunk holds round_up(d, CKB) values, zero past d,
-// bf16 rows + 8 so that 8 rows' fragments fall in distinct banks.
-template <typename T> __host__ __device__ constexpr int cx_len(int d) { return round_up(d, CKB); }
-template <typename T> __host__ __device__ constexpr int cx_pitch(int d) { return cx_len<T>(d) + (is_bf16<T> ? 8 : 0); }
-// h_{t-1} as the consumers read it: fp32 R rows of HW; bf16 the mma's B
-// operand, 8 rows (row r of the batch at 2 r) of HW + 8.
-template <typename T, int HW> constexpr int ch_pitch = is_bf16<T> ? HW + 8 : HW;
-template <typename T, int R> constexpr int ch_rows = is_bf16<T> ? 8 : R;
-
-template <typename T, int R, int HW>
-size_t fwd_cluster_smem_bytes(int d) {
-  return 16 + sizeof(float) * NBUF * S * R * CROWS +
-         sizeof(T) * ((size_t)2 * ch_rows<T, R> * ch_pitch<T, HW> + (size_t)R * S * cx_pitch<T>(d));
-}
-
-template <typename T, bool TRAIN, int R, int HW>
-__global__ void __launch_bounds__(CCONS<T> + CPROD, 1)
-lstm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
-                        const float* __restrict__ w_hh, const float* __restrict__ bias,
-                        T* __restrict__ y, float* __restrict__ cprev, int batch, int steps, int d, int h) {
-  constexpr int NC = CCONS<T>, THREADS = NC + CPROD, HP = ch_pitch<T, HW>, HR = ch_rows<T, R>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);            // [2]: h_t of every CTA is in s_h[t & 1]
-  float* s_ring = reinterpret_cast<float*>(smem + 16);           // [NBUF][S][R][CROWS]: xp, column 4 unit + gate
-  T* s_h = reinterpret_cast<T*>(s_ring + NBUF * S * R * CROWS);  // [2][HR][HP]: h of all H units
-  T* s_x = s_h + 2 * HR * HP;                                    // [R][S][dp]: the chunk's x
-  const int dp = cx_pitch<T>(d);
-  const uint32_t rank = cluster_rank(), n_cta = (h + CU - 1) / CU;  // n_cta = the cluster's size
-  const int u0 = rank * CU;
-  const int row0 = (blockIdx.x / n_cta) * R;
-  const int n_chunks = (steps + S - 1) / S;
-
-  if (threadIdx.x == 0) {
-    mbar_init(mbar, 1);  // this CTA's arrival (mbar_expect) and the st.async bytes of every CTA's h_t
-    mbar_init(mbar + 1, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  for (int i = threadIdx.x; i < 2 * HR * HP; i += THREADS) store_f(s_h + i, 0.0f);  // h_{-1} = 0 and the pads
-  __syncthreads();
-  cluster_sync_all();  // every CTA's mbarriers and zeros are in place before a peer writes to them
-
-  if (threadIdx.x >= NC) {
-    // ---- producers: xp = x . W_ih + b for this CTA's gate rows, a chunk at a time ----
-    const int tp = threadIdx.x - NC;
-    const int lane = tp & 31, g8 = lane >> 2, t4 = lane & 3;
-    for (int c = 0; c < n_chunks; ++c) {
-      const int buf = c % NBUF;
-      bar_sync(BAR_PROD, CPROD);  // every producer has finished reading the last chunk's s_x
-      stage<8>(R * S * dp, tp, CPROD, [&](int i) {
-        const int r = i / (S * dp), s = (i / dp) % S, k = i % dp;
-        const int row = row0 + r, t = c * S + s;
-        return row < batch && t < steps && k < d ? load_f(x + ((size_t)row * steps + t) * d + k) : 0.0f;
-      }, [&](int i, float v) { store_f(s_x + i, v); });
-      bar_sync(BAR_PROD, CPROD);
-      if (c >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);  // the consumers are done with chunk c - NBUF
-      float* ring = s_ring + buf * S * R * CROWS;
-      if constexpr (is_bf16<T>) {
-        // Tensor cores: warp tp / 32 owns units 8 (tp / 32) .. + 7 (tile 0 gates i and f, tile 1
-        // g and o, lstm_common.cuh), 8 steps of a row a tile, W_ih's fragments read from L2.
-        const int unit_t = (tp >> 5) * 8 + g8, gu = u0 + unit_t;
-        const bool ok = gu < h;
-        float acc[R][S / 8][2][4];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int nt = 0; nt < S / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[r][nt][0][e] = ok ? bias[(e / 2) * h + gu] : 0.0f;
-              acc[r][nt][1][e] = ok ? bias[(2 + e / 2) * h + gu] : 0.0f;
-            }
-        for (int k0 = 0; k0 < cx_len<T>(d); k0 += CKB) {
-          uint32_t a[CKB / 16][2][4];  // the batch's k-tiles' fragments, loaded together
-#pragma unroll
-          for (int j = 0; j < CKB / 16; ++j)
-#pragma unroll
-            for (int tile = 0; tile < 2; ++tile) {
-              const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
-              const int k = k0 + j * 16 + 2 * t4;
-              a[j][tile][0] = load_w2m(w_ih, ok, lo, k, d);
-              a[j][tile][1] = load_w2m(w_ih, ok, hi, k, d);
-              a[j][tile][2] = load_w2m(w_ih, ok, lo, k + 8, d);
-              a[j][tile][3] = load_w2m(w_ih, ok, hi, k + 8, d);
-            }
-#pragma unroll
-          for (int j = 0; j < CKB / 16; ++j)
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-#pragma unroll
-              for (int nt = 0; nt < S / 8; ++nt) {
-                const T* v = s_x + (r * S + nt * 8 + g8) * dp + k0 + j * 16 + 2 * t4;
-                const uint32_t b0 = ld32(v), b1 = ld32(v + 8);
-                mma_bf16(acc[r][nt][0], a[j][0], b0, b1);
-                mma_bf16(acc[r][nt][1], a[j][1], b0, b1);
-              }
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int nt = 0; nt < S / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              *reinterpret_cast<float4*>(ring + ((nt * 8 + 2 * t4 + e) * R + r) * CROWS + unit_t * 4) =
-                  make_float4(acc[r][nt][0][e], acc[r][nt][0][2 + e], acc[r][nt][1][e], acc[r][nt][1][2 + e]);
-      } else {
-        // CUDA cores: thread tp owns gate row (unit tp / 4, gate tp % 4), all R S
-        // sums of the chunk in flight, the terms in order.
-        const int unit = tp >> 2, gate = tp & 3, gu = u0 + unit;
-        const bool ok = gu < h;
-        const size_t wrow = (size_t)(gate * h + gu);
-        float acc[R * S];
-#pragma unroll
-        for (int n = 0; n < R * S; ++n) acc[n] = 0.0f;
-        for (int k0 = 0; k0 < cx_len<T>(d); k0 += CKB) {
-          float wv[CKB];
-          load_wrow<CKB>(wv, w_ih, ok, wrow, k0, d);
-#pragma unroll
-          for (int q = 0; q < CKB / 4; ++q)
-#pragma unroll
-            for (int n = 0; n < R * S; ++n)
-              dot_quad(acc[n], wv[4 * q], wv[4 * q + 1], wv[4 * q + 2], wv[4 * q + 3],
-                       *reinterpret_cast<const float4*>(s_x + n * dp + k0 + 4 * q));
-        }
-        const float b = ok ? bias[gate * h + gu] : 0.0f;
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int s = 0; s < S; ++s) ring[(s * R + r) * CROWS + tp] = acc[r * S + s] + b;
-      }
-      __threadfence_block();
-      bar_arrive(BAR_FULL + buf, THREADS);
-    }
-  } else {
-    // ---- consumers: the recurrence, h exchanged through the cluster ----
-    const int tc = threadIdx.x, lane = tc & 31;
-    if constexpr (is_bf16<T>) {
-      // Tensor cores, as lstm_fwd_kernel's bf16 consumers: lane (g8, t4) ends with the
-      // four gates of unit unit_t for row t4.
-      const int g8 = lane >> 2, t4 = lane & 3, unit_t = (tc >> 5) * 8 + g8, gu = u0 + unit_t;
-      uint32_t a_hh[2][HW / 16][4];
-#pragma unroll
-      for (int tile = 0; tile < 2; ++tile)
-#pragma unroll
-        for (int kt = 0; kt < HW / 16; ++kt) {
-          const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
-          const int k = kt * 16 + 2 * t4;
-          a_hh[tile][kt][0] = load_w2m(w_hh, gu < h, lo, k, h);
-          a_hh[tile][kt][1] = load_w2m(w_hh, gu < h, hi, k, h);
-          a_hh[tile][kt][2] = load_w2m(w_hh, gu < h, lo, k + 8, h);
-          a_hh[tile][kt][3] = load_w2m(w_hh, gu < h, hi, k + 8, h);
-        }
-      float c_state = 0.0f;
-      const bool live = t4 < R, store = live && row0 + t4 < batch && gu < h;
-      size_t at = (size_t)(row0 + t4) * steps * h + gu;  // (row, t, unit) of y and cprev
-      const uint32_t h_off = (uint32_t)(((2 * t4) * HP + gu) * sizeof(T));  // this lane's h in a buffer
-      // h_t arrives as pairs of units: lane (g8, t4), g8 even, sends its unit's and
-      // the next one's (lane + 4), one 4-byte st.async to each CTA
-      const uint32_t step_bytes = n_cta * CU * R * sizeof(T);
-      for (int c = 0; c < n_chunks; ++c) {
-        const int buf = c % NBUF;
-        bar_sync(BAR_FULL + buf, THREADS);
-        const float* ring = s_ring + buf * S * R * CROWS;
-        const int n = steps - c * S < S ? steps - c * S : S;
-        for (int s = 0; s < n; ++s) {
-          const int t = c * S + s;
-          if (t > 0) mbar_wait_parity(mbar + ((t - 1) & 1), ((t - 1) >> 1) & 1);
-          if (tc == 0) mbar_expect(mbar + (t & 1), step_bytes);
-          const T* h_prev = s_h + ((t + 1) & 1) * HR * HP;
-          float g[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-          if (live) {
-            const float4 xp = *reinterpret_cast<const float4*>(ring + (s * R + t4) * CROWS + unit_t * 4);
-            g[0][0] = xp.x; g[0][2] = xp.y; g[1][0] = xp.z; g[1][2] = xp.w;
-          }
-          mma_w<HW>(g, a_hh, h_prev + g8 * HP, t4);
-          const float c_prev = c_state;
-          float hv = 0.0f;
-          if (live) {
-            const float ig = sigmoid(g[0][0]), fg = sigmoid(g[0][2]);
-            const float gg = tanh_sig(g[1][0]), og = sigmoid(g[1][2]);
-            c_state = fg * c_state + ig * gg;
-            hv = og * tanh_sig(c_state);
-          }
-          const float h_next = __shfl_down_sync(0xffffffffu, hv, 4);  // unit_t + 1's, the same row
-          if (live && (g8 & 1) == 0) {
-            const uint32_t v = pack_bf16(hv, h_next), off = (uint32_t)((t & 1) * HR * HP * sizeof(T)) + h_off;
-            for (uint32_t k = 0; k < n_cta; ++k) st_async_peer(peer_addr(s_h, k) + off, v, peer_addr(mbar + (t & 1), k));
-          }
-          if (store) {
-            if (TRAIN) cprev[at] = c_prev;
-            store_f(y + at, hv);
-          }
-          at += h;
-        }
-        if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
-      }
-    } else {
-      // CUDA cores: thread tc is lane l of unit tc / 8 (4 units a warp); it holds
-      // quads 8 q + l (q < HW / 32) of the unit's four gate rows.  A gate's sum:
-      // the lane's part in order (q, then the term), + the part of lane l ^ 4,
-      // then transpose_reduce4 over the quad: lane l (and l ^ 4) ends with gate l % 4.
-      constexpr int NQ = HW / 32;
-      const int unit = tc / CLANES, l = tc % CLANES, gate = l & 3, gu = u0 + unit;
-      const int quad_lane = lane & ~3;
-      float w[4][NQ][4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) w[m][q][e] = load_wm(w_hh, gu < h, (size_t)(m * h + gu), 4 * (8 * q + l) + e, h);
-      float c_state[R];
-      bool store[R];
-      size_t at[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        c_state[r] = 0.0f;
-        store[r] = l == 0 && row0 + r < batch && gu < h;
-        at[r] = (size_t)(row0 + r) * steps * h + gu;
-      }
-      // Lane l < K sends the unit's h to CTA l, counted on that CTA's mbarrier.
-      const uint32_t peer_h = l < (int)n_cta ? peer_addr(s_h, l) + (uint32_t)(gu * sizeof(float)) : 0u;
-      const uint32_t peer_bar = l < (int)n_cta ? peer_addr(mbar, l) : 0u;
-      const uint32_t step_bytes = n_cta * CU * R * sizeof(float);
-      for (int c = 0; c < n_chunks; ++c) {
-        const int buf = c % NBUF;
-        bar_sync(BAR_FULL + buf, THREADS);
-        const float* ring = s_ring + buf * S * R * CROWS;
-        const int n = steps - c * S < S ? steps - c * S : S;
-        for (int s = 0; s < n; ++s) {
-          const int t = c * S + s;
-          if (t > 0) mbar_wait_parity(mbar + ((t - 1) & 1), ((t - 1) >> 1) & 1);
-          if (tc == 0) mbar_expect(mbar + (t & 1), step_bytes);
-          const float* h_prev = s_h + ((t + 1) & 1) * HR * HP;
-          float part[R][4];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int m = 0; m < 4; ++m) part[r][m] = 0.0f;
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) {
-              const float4 v = *reinterpret_cast<const float4*>(h_prev + r * HP + 4 * (8 * q + l));
-#pragma unroll
-              for (int m = 0; m < 4; ++m) dot_quad(part[r][m], w[m][q][0], w[m][q][1], w[m][q][2], w[m][q][3], v);
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int m = 0; m < 4; ++m) part[r][m] += __shfl_xor_sync(0xffffffffu, part[r][m], 4);
-          float pre[R], act[R], ig[R], fg[R], gg[R], og[R];
-          transpose_reduce4<2, 1, R>(part, gate & 2, gate & 1, pre);
-#pragma unroll
-          for (int r = 0; r < R; ++r) act[r] = activate(gate, ring[(s * R + r) * CROWS + unit * 4 + gate] + pre[r]);
-          gather_gates<R>(act, quad_lane, ig, fg, gg, og);
-          float c_prev[R], hv[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            c_prev[r] = c_state[r];
-            c_state[r] = fg[r] * c_state[r] + ig[r] * gg[r];
-            hv[r] = og[r] * tanh_sig(c_state[r]);
-            if (l < (int)n_cta)
-              st_async_peer(peer_h + (uint32_t)((((t & 1) * HR + r) * HP) * sizeof(float)), __float_as_uint(hv[r]),
-                            peer_bar + (uint32_t)((t & 1) * sizeof(uint64_t)));
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            if (store[r]) {
-              if (TRAIN) cprev[at[r]] = c_prev[r];
-              y[at[r]] = hv[r];
-            }
-            at[r] += h;
-          }
-        }
-        if (c + NBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, THREADS);
-      }
-    }
-  }
-  if (threadIdx.x < NC) mbar_wait_parity(mbar + ((steps - 1) & 1), ((steps - 1) >> 1) & 1);  // the last h is in
-  cluster_sync_all();  // and no CTA leaves while a peer may still send to it
-}
-
-template <typename T, bool TRAIN, int R, int HW>
-int launch_cluster_rows(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,
-                        float* cprev, int batch, int steps, int d, int h, void* stream) {
-  static SmemOnce once;  // the card's opt-in limit: the need grows with D
-  cudaError_t err = once.set(lstm_fwd_cluster_kernel<T, TRAIN, R, HW>, 0);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, (batch + R - 1) / R, h, CCONS<T> + CPROD,
-                                                fwd_cluster_smem_bytes<T, R, HW>(d), (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<T, TRAIN, R, HW>, (const T*)x, w_ih, w_hh, bias,
-                           (T*)y, cprev, batch, steps, d, h);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
-}
-
-// Clusters of R rows the device holds at once for widths (d, h), by
-// cudaOccupancyMaxActiveClusters (a GPC holds whole clusters only, so fewer
-// than sm_count / K), or -cudaError.
-template <typename T, int R, int HW>
-int cluster_slots_rows(int d, int h) {
-  static SmemOnce once;
-  cudaError_t err = once.set(lstm_fwd_cluster_kernel<T, false, R, HW>, 0);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, h, CCONS<T> + CPROD, fwd_cluster_smem_bytes<T, R, HW>(d), 0);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, lstm_fwd_cluster_kernel<T, false, R, HW>, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
-template <typename T>
-int cluster_slots(int rows, int d, int h) {
-  if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return -(int)cudaErrorInvalidValue;
-  if (rows == 1) return h <= 128 ? cluster_slots_rows<T, 1, 128>(d, h) : cluster_slots_rows<T, 1, 256>(d, h);
-  if (rows == 2) return h <= 128 ? cluster_slots_rows<T, 2, 128>(d, h) : cluster_slots_rows<T, 2, 256>(d, h);
-  return -(int)cudaErrorInvalidValue;
-}
-
-template <typename T, bool TRAIN>
-int launch_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,
-                   float* cprev, int batch, int steps, int d, int h, int rows, void* stream) {
-  if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  if (rows == 1)
-    return h <= 128 ? launch_cluster_rows<T, TRAIN, 1, 128>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, stream)
-                    : launch_cluster_rows<T, TRAIN, 1, 256>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, stream);
-  if (rows == 2)
-    return h <= 128 ? launch_cluster_rows<T, TRAIN, 2, 128>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, stream)
-                    : launch_cluster_rows<T, TRAIN, 2, 256>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, stream);
-  return (int)cudaErrorInvalidValue;
-}
 }  // namespace
 
 extern "C" {
 
 // Capacity 64 (no suffix), 32 (_w32) and 16 (_w16), for any 1 <= D, H <= the
-// capacity; and the cluster kernels (_cluster) for any 1 <= D, H <= 256.
+// capacity (the cluster kernels, _cluster: lstm_fwd_cluster.cu).
 // x: (B, T, D) and y: (B, T, H) in the instantiation's type; w_ih: (4H, D),
 // w_hh: (4H, H) fp32, bias: (4H,) fp32; all contiguous on the current
-// device.  rows: batch rows per block (per cluster), 1, 2 or 4 (1 or 2 on
-// the cluster path).  short_path: 1 for the short path (capacity 32 at D = H
-// = 32 only, x 16-byte aligned, T small enough for its buffers; the plan's),
-// 0 for the ring (and the cluster path).  Returns the cudaError_t of the
+// device.  rows: batch rows per block, 1, 2 or 4.  short_path: 1 for the
+// short path (capacity 32 at D = H = 32 only, x 16-byte aligned, T small
+// enough for its buffers; the plan's), 0 for the ring.  Returns the cudaError_t of the
 // launch (0 = launched).
 #define AWM_LSTM_FWD_ENTRY(NAME, TYPE, W)                                                        \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \
@@ -1020,40 +654,6 @@ AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w32, __nv_bfloat16, 32)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w16, float, 16)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_FWD_TRAIN_ENTRY
-
-int awm_lstm_fwd_f32_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-                             void* y, int batch, int steps, int d, int h, int rows, int short_path,
-                             void* stream) {
-  return short_path ? (int)cudaErrorInvalidValue
-                    : launch_cluster<float, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, d, h, rows, stream);
-}
-int awm_lstm_fwd_bf16_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-                              void* y, int batch, int steps, int d, int h, int rows, int short_path,
-                              void* stream) {
-  return short_path ? (int)cudaErrorInvalidValue
-                    : launch_cluster<__nv_bfloat16, false>(x, w_ih, w_hh, bias, y, nullptr, batch, steps, d, h,
-                                                           rows, stream);
-}
-int awm_lstm_fwd_train_f32_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-                                   void* y, float* cprev, int batch, int steps, int d, int h, int rows,
-                                   int short_path, void* stream) {
-  return short_path ? (int)cudaErrorInvalidValue
-                    : launch_cluster<float, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, rows, stream);
-}
-int awm_lstm_fwd_train_bf16_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias,
-                                    void* y, float* cprev, int batch, int steps, int d, int h, int rows,
-                                    int short_path, void* stream) {
-  return short_path ? (int)cudaErrorInvalidValue
-                    : launch_cluster<__nv_bfloat16, true>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h,
-                                                          rows, stream);
-}
-
-// Clusters of `rows` rows (1 or 2) of kernel A (bf16: 1) that the current
-// device holds at once for widths (d, h) on the cluster path; a negative
-// value is -cudaError.  Kernel B's instantiations take the same resources.
-int awm_lstm_fwd_cluster_slots(int bf16, int rows, int d, int h) {
-  return bf16 ? cluster_slots<__nv_bfloat16>(rows, d, h) : cluster_slots<float>(rows, d, h);
-}
 
 const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -2,9 +2,10 @@
 
 Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - A, lstm_pallas_forward (pallas_call at line 157): forward_kernel,
-  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32|_w16];
-- B, _forward_train (line 342): forward_train_kernel, the same source with
-  its TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16];
+  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32|_w16] (above
+  width 64 ops/csrc/lstm_fwd_cluster.cu, lstm_fwd_{f32,bf16}_cluster);
+- B, _forward_train (line 342): forward_train_kernel, the same sources with
+  their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16|_cluster];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu,
   instantiations lstm_bwd_{f32,bf16}[_w32|_w16].
 Each takes any input width D and hidden width H from 1 to MAX_WIDTH = 256
@@ -17,11 +18,13 @@ with max(D, H) <= W: at D = H = W it is the square instantiation, else the
 same one with D and H passed at run time (its weights load zeros past the
 real widths, a padded unit stays exactly zero; counted as *_masked, e.g.
 lstm_fwd_f32_masked at width 48), and the backward's dx, dW and sum run at
-the runtime widths.  Above 64 a call runs on a thread-block cluster of
-ceil(H / 32) CTAs of 32 hidden units each, h (and in the backward da)
-exchanged between them through distributed shared memory every step
-(instantiations *_cluster, lstm_fwd.cu and lstm_bwd.cu, "widths above
-64").  On that card each is bound by the
+the runtime widths (bf16 on the tensor cores).  Above 64 a call runs on a
+thread-block cluster of ceil(H / 32) CTAs of 32 hidden units each, which
+carries 1, 2, 4 or 8 batch rows, h (and in the backward da) exchanged
+between them through distributed shared memory every step in row bursts
+(instantiations *_cluster, lstm_fwd_cluster.cu and lstm_bwd.cu, "widths above
+64"); the backward's gates, activations and local derivatives come from a
+whole-card gate pass before its recurrence.  On that card each is bound by the
 latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
 at W = 64; at W = 32 the strided family's 50 steps take about as long as
 the host's work for one call, so a call launches one kernel and nothing
@@ -36,7 +39,8 @@ all T steps; every weight of the recurrence sits in a register for the whole
 launch; the work of a step that does not depend on the carried state (the
 input projection in A and B, the whole gate recompute in C) is done by
 producer warps that run ahead and hand it over through a ring in shared
-memory; one barrier separates two steps.  At W = 32 and T up to
+memory (on the cluster path C's is a gate pass over the whole card before
+the recurrence); one barrier separates two steps.  At W = 32 and T up to
 FWD_SHORT_MAX_STEPS, A and B take the short path instead
 (lstm_fwd_short_kernel): the block's x in one TMA copy, every step's
 projection up front by all warps, then the steps with nothing beside them,
@@ -48,14 +52,16 @@ tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 The launch plan (launch_plan) is computed here, in Python, from the batch,
 the steps, the widths and the card's SM count, cached per shape, and handed
 to the C entry points: the capacity or the cluster's size; rows per block
-(1, 2 or 4 forward, 1 or 2 backward: the rows that finish the batch
-soonest, by the waves of blocks the card needs, at the blocks an SM runs
-at once, and the measured cost of a step of that many rows at that width
-and path, so B=128 takes 128 blocks of one row and B=512 128 blocks of
-four), the forward's path (fwd_short: the short path where D = H = 32 and
-T <= 64; else the ring or the cluster), the backward's path (bwd_fused: one
+(1, 2 or 4 forward, 1 or 2 backward; 1, 2, 4 or 8 a cluster: the rows that
+finish the batch soonest, by the waves of blocks the card needs, at the
+blocks an SM runs at once (the clusters the card holds), and the measured
+cost of a step of that many rows at that width and path, so B=128 takes
+128 blocks of one row and B=512 128 blocks of four), the forward's path
+(fwd_short: the short path where D = H = 32 and T <= 64; else the ring or
+the cluster), the backward's path (bwd_fused: one
 launch where D = H = 32, T <= 64 and its blocks fit one wave; else four),
-its scratch shapes at the real G = 4H and its dx and dW grids.
+its scratch shapes at the real G = 4H (on the cluster path also the gate
+pass's records) and its dx and dW grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -88,7 +94,7 @@ from awm_tpu_torch.ops.lstm import (
 WIDTHS = (64, 32, 16)  # the capacities W of the register-held instantiations
 MAX_WIDTH = 256  # the ceiling on D and H: the cluster path's 8 CTAs of CLUSTER_UNITS
 CLUSTER_UNITS = 32  # hidden units a CTA of the cluster path owns
-SOURCES = ("lstm_fwd", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
+SOURCES = ("lstm_fwd", "lstm_fwd_cluster", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
 
@@ -114,6 +120,14 @@ def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | Non
         return f"{kernel}_{sfx}_cluster"
     name = f"{kernel}_{sfx}" + ("" if cap == 64 else f"_w{cap}")
     return name if width == hidden == cap else f"{name}_masked"
+
+
+def source_of(name: str) -> str:
+    """The source (library) of an instantiation: lstm_bwd, lstm_fwd, or
+    lstm_fwd_cluster for A and B on the cluster path."""
+    if name.startswith("lstm_bwd"):
+        return "lstm_bwd"
+    return "lstm_fwd_cluster" if name.endswith("_cluster") else "lstm_fwd"
 
 
 def entry_point(name: str) -> str:
@@ -223,33 +237,36 @@ FWD_SHORT_MAX_STEPS = 64
 # 128 blocks of four took 0.0195 (H100, T=50, PERF.md section 6): the plan
 # had counted one block an SM and picked four rows.
 BLOCKS_PER_SM = {(16, torch.float32): 4, (16, torch.bfloat16): 4}
-# The cluster path (max(D, H) > 64): one CTA of a cluster an SM (each holds
-# up to half an SM's registers in W_hh, and its launch bounds ask for all of
-# them).  A wave holds the clusters the card runs at once, which
-# cudaOccupancyMaxActiveClusters gives (read once per instantiation and
-# widths, _cluster_slots): a GPC holds whole clusters only, so on an H100
-# 30 clusters of 4 and not 132 // 4 = 33 (39 of 3, 15 of 8); the pure plan
-# takes sm_count // K where it is not given them.  The time of one wave of
-# clusters of two rows relative to one row, by (K, operand dtype), measured
-# with ops/bench_lstm.py --width W --variants on an H100 (T=16000; PERF.md
-# section 6): the forward's from kernel A at B=512, the backward's from its
-# recurrence at B=128, each call's time over its waves (at 96, K = 3 and 39
-# clusters a wave: 14 waves of one row and 7 of two for A, 4 and 2 for C;
-# at 128, K = 4 and 30: 18 and 9, 5 and 3; at 256, K = 8 and 15: 35 and
-# 18, 9 and 5).  Where none is measured (K = 1, 2, 5, 6, 7), the plan takes
-# one row a cluster.
+# The cluster path (max(D, H) > 64): a cluster carries R = 1, 2, 4 or 8
+# batch rows (CLUSTER_ROWS, every one built at HW = 128 and 256).  A wave
+# holds the clusters the card runs at once, which
+# cudaOccupancyMaxActiveClusters gives (read once per instantiation, rows
+# and widths, _cluster_slots; shared memory grows with R): a GPC holds whole
+# clusters only, so on an H100 30 clusters of 4 and not 132 // 4 = 33 (39 of
+# 3, 15 of 8), one CTA an SM, but 62 of 4 for kernel C's bf16 recurrence up
+# to four rows (two CTAs an SM); the pure plan takes sm_count // K where it
+# is not given them.  The time of one wave of clusters of R rows relative to
+# one row, by (K, operand dtype), measured with ops/bench_lstm.py --width
+# 96|128|256 --variants --steps 2000 on an H100 (PERF.md section 6; a wave's
+# time grows with T alone, so T=2000 keeps the ratios of T=16000): the
+# forward's from kernel A at B=512, the backward's from its recurrence
+# (lstm_bwd_cluster_kernel's device time) at B=128, each call's time over
+# its waves at the card's reading.  Where none is measured (K = 1, 2, 5, 6,
+# 7) the plan takes the fewest rows that fit the batch in one wave (the
+# most rows where none does): a wave of R rows costs less than R waves of
+# one at every measured K.
 CLUSTER_FWD_STEP_COST = {
-    (3, torch.float32): {1: 1.0, 2: 1.37}, (3, torch.bfloat16): {1: 1.0, 2: 1.63},
-    (4, torch.float32): {1: 1.0, 2: 1.44}, (4, torch.bfloat16): {1: 1.0, 2: 1.78},
-    (8, torch.float32): {1: 1.0, 2: 1.43}, (8, torch.bfloat16): {1: 1.0, 2: 1.72},
+    (3, torch.float32): {1: 1.0, 2: 1.50, 4: 2.48, 8: 4.44}, (3, torch.bfloat16): {1: 1.0, 2: 1.09, 4: 1.16, 8: 1.31},
+    (4, torch.float32): {1: 1.0, 2: 1.53, 4: 2.56, 8: 4.57}, (4, torch.bfloat16): {1: 1.0, 2: 0.99, 4: 1.07, 8: 1.23},
+    (8, torch.float32): {1: 1.0, 2: 1.61, 4: 3.14, 8: 6.87}, (8, torch.bfloat16): {1: 1.0, 2: 1.27, 4: 1.33, 8: 1.42},
 }
 CLUSTER_BWD_STEP_COST = {
-    (3, torch.float32): {1: 1.0, 2: 2.04}, (3, torch.bfloat16): {1: 1.0, 2: 1.95},
-    (4, torch.float32): {1: 1.0, 2: 2.02}, (4, torch.bfloat16): {1: 1.0, 2: 1.92},
-    (8, torch.float32): {1: 1.0, 2: 1.97}, (8, torch.bfloat16): {1: 1.0, 2: 1.95},
+    (3, torch.float32): {1: 1.0, 2: 1.50, 4: 2.66, 8: 5.22}, (3, torch.bfloat16): {1: 1.0, 2: 1.31, 4: 1.27, 8: 1.97},
+    (4, torch.float32): {1: 1.0, 2: 1.47, 4: 2.71, 8: 5.50}, (4, torch.bfloat16): {1: 1.0, 2: 1.19, 4: 2.12, 8: 2.35},
+    (8, torch.float32): {1: 1.0, 2: 1.74, 4: 3.13, 8: 8.83}, (8, torch.bfloat16): {1: 1.0, 2: 1.28, 4: 1.66, 8: 2.67},
 }
-ONE_ROW = {1: 1.0}
-CLUSTER_ROWS = (1, 2)
+CLUSTER_ROWS = (1, 2, 4, 8)
+CLUSTER_REC = 8  # floats of a (row, step, unit) record of kernel C's gate pass (lstm_bwd.cu's CREC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +288,15 @@ class LaunchPlan:
     da_dtype: torch.dtype
     part_shape: tuple[int, int, int]  # scratch: dW chunk partials (n_chunks, 4H, D + H), fp32
     db_part_shape: tuple[int, int]  # scratch: db per recurrent block, fp32
+    rec_shape: tuple[int, ...] | None  # scratch on the cluster path: the gate pass's records (B, T, H, 8), fp32
+
+
+def _one_wave_rows(batch: int, slots: dict[int, int]) -> int:
+    """The fewest rows a cluster that fit the batch in one wave, or the
+    most rows the card holds where none does (the plan where no cost is
+    measured)."""
+    fits = [r for r in CLUSTER_ROWS if slots[r] > 0 and -(-batch // r) <= slots[r]]
+    return min(fits) if fits else max(r for r in CLUSTER_ROWS if slots[r] > 0)
 
 
 def _rows_per_block(batch: int, slots, step_cost: dict[int, float]) -> int:
@@ -278,12 +304,16 @@ def _rows_per_block(batch: int, slots, step_cost: dict[int, float]) -> int:
     keeps a block on its SM for all T steps, and slots blocks (or clusters;
     a number, or one by rows per block) run at once, so the blocks run in
     ceil(blocks / slots) waves and a call costs waves x the step cost of
-    that many rows.  Ties go to fewer rows.  B=128 on 132 SMs takes 128
-    blocks of one row; B=512 one wave of 128 blocks of four."""
-    def cost(rows: int) -> float:
-        return -(-(-(-batch // rows)) // (slots[rows] if isinstance(slots, dict) else slots)) * step_cost[rows]
+    that many rows.  Ties go to fewer rows, and a rows variant of which the
+    card holds no block (0 slots) is never taken.  B=128 on 132 SMs takes
+    128 blocks of one row; B=512 one wave of 128 blocks of four."""
+    def at_once(rows: int) -> int:
+        return slots[rows] if isinstance(slots, dict) else slots
 
-    return min(step_cost, key=lambda rows: (cost(rows), rows))
+    def cost(rows: int) -> float:
+        return -(-(-(-batch // rows)) // at_once(rows)) * step_cost[rows]
+
+    return min((r for r in step_cost if at_once(r) > 0), key=lambda rows: (cost(rows), rows))
 
 
 def _check_width(width: int, hidden: int | None = None) -> None:
@@ -301,9 +331,9 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     hidden (default: width): pure, so the CPU tests reach it, and cached, so
     a call looks its shape up.  bwd_rows overrides the backward's rows per
     block (for tests and timing; the path follows from the blocks).
-    cluster_slots: ((forward, backward) clusters of one and two rows the
-    card runs at once) on the cluster path, _cluster_slots' reading; None
-    counts sm_count // K for each.  The
+    cluster_slots: ((forward, backward) clusters of each of CLUSTER_ROWS
+    rows the card runs at once) on the cluster path, _cluster_slots'
+    reading; None counts sm_count // K for each.  The
     forward's path follows from the widths and T alone.  The fused path
     counts on the whole card: sm_count SMs, each free to hold one of its
     blocks.  Where the process has less (an MPS client with a share of the
@@ -318,21 +348,23 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     square = width == hidden == cap
     if cap is None:
         k = -(-hidden // CLUSTER_UNITS)
-        fwd_slots, bwd_slots = cluster_slots or ((max(1, sm_count // k),) * 2,) * 2
+        fwd_slots, bwd_slots = (dict(zip(CLUSTER_ROWS, s)) for s in
+                                cluster_slots or ((max(1, sm_count // k),) * len(CLUSTER_ROWS),) * 2)
         fwd_short = False
-        fwd_rows = _rows_per_block(batch, dict(zip(CLUSTER_ROWS, fwd_slots)),
-                                   CLUSTER_FWD_STEP_COST.get((k, mm), ONE_ROW))
+        rows_of = lambda slots, costs: (_rows_per_block(batch, slots, costs[k, mm]) if (k, mm) in costs
+                                        else _one_wave_rows(batch, slots))
+        fwd_rows = rows_of(fwd_slots, CLUSTER_FWD_STEP_COST)
         if bwd_rows is None:
-            bwd_rows = _rows_per_block(batch, dict(zip(CLUSTER_ROWS, bwd_slots)),
-                                       CLUSTER_BWD_STEP_COST.get((k, mm), ONE_ROW))
+            bwd_rows = rows_of(bwd_slots, CLUSTER_BWD_STEP_COST)
     else:
         k, slots = 0, sm_count * BLOCKS_PER_SM.get((cap, mm), 1)
         fwd_short = square and cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
         fwd_rows = _rows_per_block(batch, slots, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[cap, mm])
         if bwd_rows is None:
             bwd_rows = _rows_per_block(batch, slots, BWD_STEP_COST[cap, mm])
-    if bwd_rows not in BWD_ROWS:
-        raise ValueError(f"backward rows per block are {BWD_ROWS}, got {bwd_rows}")
+    allowed = CLUSTER_ROWS if cap is None else BWD_ROWS
+    if bwd_rows not in allowed:
+        raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
     n_rows = batch * steps
     # Chunks of DW_CHUNK_ROWS, but enough for one dW block an SM while each
@@ -349,6 +381,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
         da_shape=(batch, steps, 4 * hidden), da_dtype=mm,
         part_shape=(n_chunks, 4 * hidden, width + hidden), db_part_shape=(bwd_blocks, 4 * hidden),
+        rec_shape=(batch, steps, hidden, CLUSTER_REC) if cap is None else None,
     )
 
 
@@ -359,17 +392,19 @@ def _sm_count(device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _cluster_slots(device_index: int, dtype: torch.dtype, width: int, hidden: int) -> tuple:
-    """((kernel A, kernel C's recurrence) clusters of one and two rows) the
-    card holds at once for a call of these widths on the cluster path:
-    cudaOccupancyMaxActiveClusters, read once per instantiation and widths."""
+    """((kernel A, kernel C's recurrence) clusters of each of CLUSTER_ROWS
+    rows) the card holds at once for a call of these widths on the cluster
+    path: cudaOccupancyMaxActiveClusters, read once per instantiation and
+    widths."""
     libs, bf16 = libraries(), int(matmul_dtype(dtype) == torch.bfloat16)
     out = []
-    for lib, fn in ((libs["lstm_fwd"], "awm_lstm_fwd_cluster_slots"), (libs["lstm_bwd"], "awm_lstm_bwd_cluster_slots")):
+    for lib, fn in ((libs["lstm_fwd_cluster"], "awm_lstm_fwd_cluster_slots"),
+                    (libs["lstm_bwd"], "awm_lstm_bwd_cluster_slots")):
         with torch.cuda.device(device_index):
             got = tuple(getattr(lib, fn)(bf16, rows, width, hidden) for rows in CLUSTER_ROWS)
-        if min(got) < 1:
+        if min(got) < 0 or max(got) < 1:  # an error, or no rows variant fits the card
             err = -min(got)
-            raise RuntimeError(f"{fn}: {lib.awm_cuda_error_string(err).decode() if err else 'no cluster fits'}")
+            raise RuntimeError(f"{fn}: {lib.awm_cuda_error_string(err).decode() if err > 0 else 'no cluster fits'}")
         out.append(got)
     return tuple(out)
 
@@ -387,17 +422,17 @@ def libraries() -> dict[str, ctypes.CDLL]:
     if not _libs:
         built = cuda_build.load_all(SOURCES)
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fwd, bwd = built["lstm_fwd"][0], built["lstm_bwd"][0]
         argtypes = {"lstm_fwd": [ptr] * 5 + [i] * 6 + [ptr],
                     "lstm_fwd_train": [ptr] * 6 + [i] * 6 + [ptr],
-                    "lstm_bwd": [ptr] * 14 + [i] * 8 + [ptr]}
+                    "lstm_bwd": [ptr] * 15 + [i] * 8 + [ptr]}
         for name in launches:
             kernel = max((k for k in KERNELS if name.startswith(k + "_")), key=len)
-            fn = getattr(bwd if kernel == "lstm_bwd" else fwd, entry_point(name))
+            fn = getattr(built[source_of(name)][0], entry_point(name))
             fn.argtypes, fn.restype = argtypes[kernel], ctypes.c_int
-        for lib, fn in ((fwd, "awm_lstm_fwd_cluster_slots"), (bwd, "awm_lstm_bwd_cluster_slots")):
+        for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots")):
+            lib = built[src][0]
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * 4, ctypes.c_int
-        for lib in (fwd, bwd):
+        for lib, _ in built.values():
             lib.awm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.awm_cuda_error_string.restype = ctypes.c_char_p
         build_log = "\n".join(f"== {name}.cu\n{built[name][1]}" for name in SOURCES)
@@ -496,7 +531,8 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None
         return y
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     x, rows, short = _forward_path(x, width, hidden, rows, short)
-    _launch("lstm_fwd", instantiation("lstm_fwd", x.dtype, width, hidden), x, x.data_ptr(), w_ih.data_ptr(),
+    name = instantiation("lstm_fwd", x.dtype, width, hidden)
+    _launch(source_of(name), name, x, x.data_ptr(), w_ih.data_ptr(),
             w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, width, hidden, rows, int(short))
     return y
 
@@ -514,7 +550,8 @@ def forward_train_kernel(
         return y, cprev
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     x, rows, short = _forward_path(x, width, hidden, rows, short)
-    _launch("lstm_fwd", instantiation("lstm_fwd_train", x.dtype, width, hidden), x, x.data_ptr(),
+    name = instantiation("lstm_fwd_train", x.dtype, width, hidden)
+    _launch(source_of(name), name, x, x.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(), cprev.data_ptr(),
             bsz, t, width, hidden, rows, int(short))
     return y, cprev
@@ -527,9 +564,10 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
     not zero-filled: the kernels write every element.  The plan picks the
     path: fused (D = H = 32), one launch with scratch for one dW and db
     partial per block; else four launches with da (B, T, 4H) in the operand
-    type, chunk partials of dW and db per recurrent block (per cluster).
-    rows overrides the plan's rows per block of the recurrence (for tests
-    and timing)."""
+    type, chunk partials of dW and db per recurrent block (per cluster); on
+    the cluster path five, the gate pass first with its records (B, T, H, 8)
+    fp32.  rows overrides the plan's rows per block of the recurrence (for
+    tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     shape = (bsz, t, hidden)
@@ -551,11 +589,13 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
         da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
         part = torch.empty(plan.part_shape, **f32)
         db_part = torch.empty(plan.db_part_shape, **f32)
+    rec = torch.empty(plan.rec_shape, **f32) if plan.rec_shape else None
     _launch("lstm_bwd", instantiation("lstm_bwd", x.dtype, width, hidden), x,
             x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
             dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(),
-            da.data_ptr() if da is not None else None, part.data_ptr(),
+            da.data_ptr() if da is not None else None, rec.data_ptr() if rec is not None else None,
+            part.data_ptr(),
             db_part.data_ptr() if db_part is not None else None, bsz, t, width, hidden,
             plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(plan.bwd_fused))
     return dx, dw_ih, dw_hh, db

@@ -16,13 +16,14 @@ instantiations over 50 steps a chunk; and the entry points
 width 16.  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build ops/csrc/lstm_fwd.cu and lstm_bwd.cu with nvcc for sm_90a, in
-   parallel, and print ptxas's report;
+2. build ops/csrc/lstm_fwd.cu, lstm_fwd_cluster.cu and lstm_bwd.cu with
+   nvcc for sm_90a, in parallel, and print ptxas's report;
 3. hold every kernel instantiation against its plain PyTorch version: A at
    the serving shape (B=512) and an odd B, B and C at the training shape
-   (B=128) and an odd B, T=16000, and at the dry run's step's (B=4,
-   T=512), with the rows per block the launch plan picks, and C twice for
-   equal bits; then every rows-per-block variant the
+   (B=128) and an odd B, T=16000 (the odd B the first rows of the other's
+   inputs, its plain forward those rows of the other's), and at the dry
+   run's step's (B=4, T=512), with the rows per block the launch plan
+   picks, and C twice for equal bits; then every rows-per-block variant the
    plan can pick, at B=1, a ragged B=7, B=128 (and B=512 for A) and at T
    shorter and longer than the kernels' rings (T = 1, 2, 3, 37, 50);
    LSTMFunction's gradients against autograd of the plain forward; then
@@ -360,7 +361,7 @@ def kernel_table(K) -> dict[str, Kernel]:
     import torch
 
     return {K.instantiation(kernel, dtype, w): Kernel(
-                kernel, f"awm_tpu_torch/ops/csrc/{'lstm_bwd' if kernel == 'lstm_bwd' else 'lstm_fwd'}.cu",
+                kernel, f"awm_tpu_torch/ops/csrc/{K.source_of(K.instantiation(kernel, dtype, w))}.cu",
                 f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx])
             for w in (*K.WIDTHS, *BASE_CHANNELS) for kernel in K.KERNELS
             for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
@@ -2222,14 +2223,91 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
         check(refused and K.launches == before, f"D={d} H={h} (past the ceiling {ceiling}) raises a ValueError "
                                                 f"naming it, and launches nothing")
 
+CLUSTER_CHECK_WIDTHS = (96, 128, 256)  # K = 3, 4, 8: the cluster path's measured sizes
+CLUSTER_CHECK_B, CLUSTER_CHECK_T = (1, 7, 32), (1, 17, 512)
+# kernel C's launches on the cluster path (the gate pass, the recurrence,
+# dx, dW, the ordered sum), by a kernel-name fragment
+CLUSTER_BWD_PARTS = {"gates": "lstm_bwd_gates_", "rec": "lstm_bwd_cluster_", "dx": "lstm_bwd_dx_",
+                     "dw": "lstm_bwd_dw_", "sum": "lstm_bwd_sum_"}
+
+
+def cluster_rows_checks(K, dev, max_err, max_rel) -> None:
+    """Every rows variant the cluster path builds (lstm_kernel.CLUSTER_ROWS)
+    of A, B and C at 96, 128 and 256 (K = 3, 4, 8), B in CLUSTER_CHECK_B, T
+    in CLUSTER_CHECK_T, fp32 and bf16, against the plain versions
+    (KERNEL_TOL); two calls of A and of C give the same bits, and A and B
+    the same y.  Then the masked width 48's kernel C in bf16 (its dx and dW
+    on the tensor cores at runtime widths) against plain at B=7, T=512.  The
+    worst errors go to max_err / max_rel."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    for w in CLUSTER_CHECK_WIDTHS:
+        for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+            name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
+            worst = {"A": 0.0, "B": 0.0, "C": 0.0}
+            held = True
+            for b in CLUSTER_CHECK_B:
+                for t in CLUSTER_CHECK_T:
+                    x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=w * 100 + b * 10 + t, t=t, w=w)
+                    with no_tf32():
+                        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                        for rows in K.CLUSTER_ROWS:
+                            y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+                            again = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+                            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+                            g = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                            g2 = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+                            torch.cuda.synchronize()
+                            err_a, err_b = max_abs(y0, ref_y), max(max_abs(y, ref_y), max_abs(cprev, ref_c))
+                            rels = [rel_err(a, r) for a, r in zip(g, ref_g)]
+                            same = (torch.equal(y0, again) and torch.equal(y0, y)
+                                    and all(torch.equal(a, a2) for a, a2 in zip(g, g2)))
+                            ok = err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c and same
+                            if not ok:
+                                print(f"  {w}x{w} {sfx} B={b} T={t} rows {rows}: A {err_a:.3e}, B {err_b:.3e}, "
+                                      f"C rel {max(rels):.3e}, same bits {same}", flush=True)
+                            held &= ok
+                            worst = {"A": max(worst["A"], err_a), "B": max(worst["B"], err_b),
+                                     "C": max(worst["C"], max(rels))}
+                            max_err[bname] = max(max_err.get(bname, 0.0), *(max_abs(a, r) for a, r in zip(g, ref_g)))
+                    del x, y0, again, y, cprev, g, g2, ref_y, ref_c, ref_g
+            for n, e in ((name, worst["A"]), (fname, worst["B"])):
+                max_err[n] = max(max_err.get(n, 0.0), e)
+            max_rel[bname] = max(max_rel.get(bname, 0.0), worst["C"])
+            check(held, f"{name} / {fname} / {bname} at {w}x{w}, every rows variant {K.CLUSTER_ROWS} at B in "
+                        f"{CLUSTER_CHECK_B}, T in {CLUSTER_CHECK_T} vs plain: A {worst['A']:.3e}, B {worst['B']:.3e} "
+                        f"max abs (tol {tol_a:.0e}); C rel {worst['C']:.3e} (tol {tol_c:.0e}); A twice, C twice "
+                        f"the same bits, A and B the same y")
+            torch.cuda.empty_cache()
+    bname = K.instantiation("lstm_bwd", torch.bfloat16, 48)
+    x, w_ih, w_hh, bias, dy = lstm_inputs(7, torch.bfloat16, dev, seed=4807, t=512, w=48)
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+        got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+        mma = device_split(lambda: K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias),
+                           {"dx": "lstm_bwd_dx_any_mma_", "dw": "lstm_bwd_dw_any_mma_"}, reps=3)
+    rels = [rel_err(a, r) for a, r in zip(got, ref_g)]
+    max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+    check(max(rels) <= K.KERNEL_TOL["lstm_bwd", "bf16"] and None not in mma.values(),
+          f"{bname} (48 x 48, B=7 T=512): dx / dW on the tensor cores at runtime widths (lstm_bwd_dx_any_mma "
+          f"{fmt_ms(mma['dx'])}, lstm_bwd_dw_any_mma {fmt_ms(mma['dw'])} in the profiler's list) vs plain: rel "
+          f"{', '.join(f'{r:.2e}' for r in rels)} (tol {K.KERNEL_TOL['lstm_bwd', 'bf16']:.0e})")
+
 
 def wide_main_checks(K, dev, max_err, max_rel) -> None:
     """A, B and C at the shapes the base family's main path hands them at
     channels 48 and 128, T=16000, fp32 and bf16, against their plain
     versions (KERNEL_TOL): A at the session's batch (WIDE_CHUNKS chunks,
     one bucket), B and C at the train step's (WIDE_B), so that each call
-    takes the main path's plan (rows, waves, dW chunks).  The worst errors
-    go to max_err / max_rel."""
+    takes the main path's plan (rows, waves, dW chunks); on the cluster path
+    the plan takes one wave (their times: ops/bench_lstm.py --width 128
+    --batch 64|32 --library).  The worst errors go to max_err / max_rel."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
@@ -2242,6 +2320,13 @@ def wide_main_checks(K, dev, max_err, max_rel) -> None:
             name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
             slots = K._cluster_slots(dev.index or 0, dtype, w, w) if K.capacity(w) is None else None
             plans = [K.launch_plan(b, T, dtype, sm_count, w, None, None, slots) for b in (WIDE_CHUNKS, WIDE_B)]
+            if slots is not None:
+                waves = [-(-p.fwd_blocks // slots[0][K.CLUSTER_ROWS.index(p.fwd_rows)]) for p in plans]
+                waves.append(-(-plans[1].bwd_blocks // slots[1][K.CLUSTER_ROWS.index(plans[1].bwd_rows)]))
+                check(waves == [1, 1, 1], f"the base family at channels {w} ({dtype}) on the cluster path takes one "
+                                          f"wave: A at B={WIDE_CHUNKS} {plans[0].fwd_rows} rows a cluster, B and C at "
+                                          f"B={WIDE_B} {plans[1].fwd_rows} / {plans[1].bwd_rows}; waves {waves}, the "
+                                          f"card holding {slots} clusters (A, C) of {K.CLUSTER_ROWS} rows")
             x, w_ih, w_hh, bias, dy = lstm_inputs(WIDE_CHUNKS, dtype, dev, seed=w + 9, w=w)
             xb, dyb = x[:WIDE_B].contiguous(), dy[:WIDE_B].contiguous()
             with no_tf32():
@@ -2289,9 +2374,13 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
         k = -(-w // K.CLUSTER_UNITS)
         for dtype in (torch.float32, torch.bfloat16):
             slots = K._cluster_slots(dev.index or 0, dtype, w, w)
-            check(all(1 <= n <= sm_count // k for pair in slots for n in pair),
+            # one CTA an SM, two for C's bf16 recurrence at up to 4 rows (its registers allow it)
+            most = [[(2 if j == 1 and dtype == torch.bfloat16 and r <= 4 else 1) * sm_count // k
+                     for r in K.CLUSTER_ROWS] for j in (0, 1)]
+            check(all(1 <= n <= m for pair, bound in zip(slots, most) for n, m in zip(pair, bound)),
                   f"cluster path at {w} x {w} ({k} CTAs a cluster), {dtype}: clusters the card holds at once "
-                  f"(A, C at 1 and 2 rows) {slots}, at most {sm_count // k}")
+                  f"(A, C at rows {K.CLUSTER_ROWS}) {slots}, each at least 1 and at most {most} "
+                  f"(one CTA an SM, two for C's bf16 recurrence at up to 4 rows)")
     for w in (*BASE_CHANNELS, K.MAX_WIDTH):
         for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
@@ -2319,6 +2408,8 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                 b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=2)
                 (ref_y, ref_c), f_plain = timed_call(lambda: lstm_forward_train(x, w_ih, w_hh, bias))
                 ref_g, b_plain = timed_call(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias))
+                b_split = (device_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), CLUSTER_BWD_PARTS,
+                                        reps=1) if K.capacity(w) is None else None)
             err_b = max(max_abs(y, ref_y), max_abs(cprev, ref_c))
             rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
             err_c = max(max_abs(g, r) for g, r in zip(grads, ref_g))
@@ -2344,10 +2435,15 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                                                                retain_graph=True), reps=2)
                 b_lib = yardstick(lib_backward, f"nn.LSTM({w}) {sfx} backward", B_TRAIN)
             rows.update({fname: (f_ms, f_plain, f_lib, B_TRAIN), bname: (b_ms, b_plain, b_lib, B_TRAIN)})
+            if b_split:
+                print(f"{bname} W={w} B={B_TRAIN} T={T} by launch (device ms, torch.profiler): "
+                      + ", ".join(f"{part} {fmt_ms(ms, 3)}" for part, ms in b_split.items()), flush=True)
             for n, (k_ms, p_ms, l_ms, b) in rows.items():
                 bms, by = bound_ms(n, b, width=w)
                 row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": l_ms,
                        "width": w, "batch": b, "steps": T}
+                if n == bname and b_split:
+                    row["split_ms"] = b_split
                 if w in BASE_CHANNELS:
                     times[n] = row
                 else:
@@ -2478,14 +2574,23 @@ def wide_family(K, launches, dev) -> dict:
 
 
 def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
-    """Phase 4b: wide_checks, wide_main_checks, wide_times, then
+    """Phase 4b: wide_checks, cluster_rows_checks, wide_main_checks, wide_times, then
     wide_family with the counters zeroed just before (the functions take
     only K, launches and dev beside what they fill, so a card-side
     rehearsal can call them alone)."""
+    t0 = time.time()
     wide_checks(K, dev, max_err, max_rel)
+    t1 = time.time()
+    cluster_rows_checks(K, dev, max_err, max_rel)
+    t2 = time.time()
     wide_main_checks(K, dev, max_err, max_rel)
+    t3 = time.time()
     wide_times(K, dev, times, max_err, max_rel)
-    return wide_family(K, launches, dev)
+    t4 = time.time()
+    errs = wide_family(K, launches, dev)
+    print(f"widths phase s: checks {t1 - t0:.1f}, cluster rows {t2 - t1:.1f}, main shapes {t3 - t2:.1f}, "
+          f"timed shapes {t4 - t3:.1f}, family {time.time() - t4:.1f}", flush=True)
+    return errs
 
 
 # entry() on the card vs the same weights and inputs on the CPU (the plain
@@ -2895,30 +3000,42 @@ def main() -> int:
     for sfx, dtype in dtypes.items():
         name, fname, bname = (K.instantiation(k, dtype, 64) for k in K.KERNELS)
         errs = []
-        for b in (B_SERVE, ODD_B):
-            x, w_ih, w_hh, bias, _ = lstm_inputs(b, dtype, dev, seed=b)
+        x, w_ih, w_hh, bias, _ = lstm_inputs(B_SERVE, dtype, dev, seed=B_SERVE)
+        with no_tf32():
+            ref = lstm_forward(x, w_ih, w_hh, bias)
+        for b in (B_SERVE, ODD_B):  # the odd batch: the first rows, their plain output those rows of ref
             with no_tf32():
-                y = K.lstm_fused_forward(x, w_ih, w_hh, bias)
-                ref = lstm_forward(x, w_ih, w_hh, bias)
+                y = K.lstm_fused_forward(x[:b].contiguous(), w_ih, w_hh, bias)
             torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
+            err = float((y.float() - ref[:b].float()).abs().max())
             errs.append(err)
             check(y.dtype == dtype and y.shape == (b, T, 64) and bool(torch.isfinite(y).all())
                   and err <= KERNELS[name].tol,
                   f"{name} vs plain, B={b} T={T}: max abs err {err:.3e} (tol {KERNELS[name].tol:.0e})")
-            del x, y, ref
+            del y
+        del x, ref
         max_err[name] = max(errs)
         torch.cuda.empty_cache()
 
         ferrs, babs, brel = [], [], []
+        train = None  # B_TRAIN's inputs and plain forward: the odd batch takes their first rows
         for b, t in ((B_TRAIN, T), (ODD_B, T), DRY_STEP_SHAPE):
-            x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=100 + b, t=t)
+            if b == ODD_B:
+                (x, w_ih, w_hh, bias, dy), (ref_y, ref_c) = train
+                x, dy, ref_y, ref_c = (v[:b].contiguous() for v in (x, dy, ref_y, ref_c))
+                train = None
+            else:
+                x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=100 + b, t=t)
+                ref_y = ref_c = None
             with no_tf32():
                 y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
                 grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
                 torch.cuda.synchronize()
-                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                if ref_y is None:
+                    ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                 ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+            if b == B_TRAIN:
+                train = ((x, w_ih, w_hh, bias, dy), (ref_y, ref_c))
             err = max(float((y.float() - ref_y.float()).abs().max()), float((cprev - ref_c).abs().max()))
             ferrs.append(err)
             check(y.dtype == dtype and cprev.dtype == torch.float32 and bool(torch.isfinite(y).all())

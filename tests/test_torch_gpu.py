@@ -394,6 +394,7 @@ def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
     assert all(n.endswith("_cluster" if max(d, h) > 64 else "_masked") for n in names.values())
     before = {n: lstm_kernel.launches[n] for n in names.values()}
     fwd_rows = lstm_kernel.CLUSTER_ROWS if max(d, h) > 64 else lstm_kernel.FWD_ROWS
+    bwd_rows = lstm_kernel.CLUSTER_ROWS if max(d, h) > 64 else lstm_kernel.BWD_ROWS
     for rows in fwd_rows:
         y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
         y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
@@ -401,7 +402,7 @@ def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
         assert y0.shape == (b, t, h) and y0.dtype == dtype and torch.equal(y0, y), rows
         assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, rows
         assert float((cprev - ref_c).abs().max()) <= tol_fwd, rows
-    for rows in lstm_kernel.BWD_ROWS:
+    for rows in bwd_rows:
         got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
         again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
         torch.cuda.synchronize()
@@ -411,7 +412,7 @@ def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
             rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
             assert rel <= tol_bwd, (name, rows, rel)
             assert torch.equal(a, a2), name
-    n_fwd, n_bwd = len(fwd_rows), 2 * len(lstm_kernel.BWD_ROWS)  # a call counts once
+    n_fwd, n_bwd = len(fwd_rows), 2 * len(bwd_rows)  # a call counts once
     assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
 
 
@@ -453,6 +454,40 @@ def test_cluster_path_same_bits_twice(cuda, dtype):
     assert torch.equal(lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), lstm_kernel.forward_kernel(x, w_ih, w_hh, bias))
     assert torch.equal(y, y2) and torch.equal(c, c2)
     assert all(torch.equal(a, b) for a, b in zip(g, g2))
+
+
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", lstm_kernel.CLUSTER_ROWS)
+@pytest.mark.parametrize("w", [96, 128, 256])
+def test_cluster_rows_variants_match_plain(cuda, w, rows, dtype, tol_fwd, tol_bwd):
+    """Every rows-a-cluster variant the cluster path builds, at K = 3, 4, 8
+    and batches that leave a cluster one row, a ragged last cluster and
+    several clusters (B = 1, 7, 32), T = 1 and 17: A and B against
+    lstm_forward_train and C against lstm_backward at KERNEL_TOL; A twice
+    and C twice the same bits, A and B the same y."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    for b in (1, 7, 32):
+        for t in (1, 17):
+            x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=w + b + t, w=w)
+            x = x.to(dtype)
+            dy = torch.randn(b, t, w, device=cuda, generator=torch.Generator(cuda).manual_seed(b)).to(dtype)
+            with no_tf32():
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+            y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+            y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+            got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+            again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+            torch.cuda.synchronize()
+            assert torch.equal(y0, y) and torch.equal(y0, lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows))
+            assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, (b, t)
+            assert float((cprev - ref_c).abs().max()) <= tol_fwd, (b, t)
+            for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+                rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+                assert rel <= tol_bwd, (name, b, t, rel)
+                assert torch.equal(a, a2), name
 
 
 SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block
@@ -779,14 +814,18 @@ def test_two_ranks_over_gloo_on_card(cuda, tmp_path):
 
 def test_cluster_plan_reads_the_clusters_the_card_holds(cuda):
     """The cluster path's waves come from cudaOccupancyMaxActiveClusters:
-    at least one and at most sm_count // K clusters of one and two rows, for
-    kernel A and C's recurrence, and a call's plan is the pure plan given
-    that reading."""
+    at least one and at most sm_count // K clusters of each rows variant of
+    kernel A and C's recurrence (one CTA an SM), 2 sm_count // K for C's
+    bf16 recurrence up to four rows (two CTAs an SM, which its registers
+    allow), and a call's plan is the pure plan given that reading."""
     sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
     for w in (96, 128, 256):
         k = -(-w // lstm_kernel.CLUSTER_UNITS)
         for dtype in (torch.float32, torch.bfloat16):
             slots = lstm_kernel._cluster_slots(cuda.index or 0, dtype, w, w)
-            assert all(1 <= n <= sm_count // k for pair in slots for n in pair), (w, dtype, slots)
+            assert all(len(s) == len(lstm_kernel.CLUSTER_ROWS) for s in slots), slots
+            most = [[(2 if j == 1 and dtype == torch.bfloat16 and r <= 4 else 1) * sm_count // k
+                     for r in lstm_kernel.CLUSTER_ROWS] for j in (0, 1)]
+            assert all(1 <= n <= m for pair, bound in zip(slots, most) for n, m in zip(pair, bound)), (w, dtype, slots)
             x = torch.zeros(64, 8, w, device=cuda, dtype=dtype)
             assert lstm_kernel._plan_for(x, w) == lstm_kernel.launch_plan(64, 8, dtype, sm_count, w, None, w, slots)

@@ -409,10 +409,11 @@ def test_plan_at_every_new_width(d, h, dtype):
     short path and the fused backward are built for D = H = 32 only), its
     capacity's measured costs at the blocks an SM runs; above 64 the cluster
     path, ceil(H / 32) CTAs a cluster, sm_count // K clusters a wave, rows
-    by the cluster path's measured costs at that K (one row where none is
-    measured).  Scratch at the real widths: da (B, T, 4H), dW partials
-    (n, 4H, D + H), db (blocks, 4H); the blocks cover the batch once; the
-    launch counters name the path."""
+    by the cluster path's measured costs at that K (where none is measured,
+    the fewest rows that fit one wave).  Scratch at the real widths: da (B,
+    T, 4H), dW partials (n, 4H, D + H), db (blocks, 4H), on the cluster
+    path the gate pass's records (B, T, H, 8); the blocks cover the batch
+    once; the launch counters name the path."""
     for batch in (1, 7, 64, 128, 512):
         for steps in (1, 50, 16000):
             plan = launch_plan(batch, steps, dtype, 132, d, None, h)
@@ -426,17 +427,23 @@ def test_plan_at_every_new_width(d, h, dtype):
             if max(d, h) > 64:
                 assert (plan.capacity, plan.cluster) == (0, -(-h // 32)) and plan.cluster <= 8
                 assert name.endswith("_cluster")
+                assert plan.rec_shape == (batch, steps, h, lstm_kernel.CLUSTER_REC)
                 slots = 132 // plan.cluster
-                costs = tuple(c.get((plan.cluster, dtype), lstm_kernel.ONE_ROW)
+                costs = tuple(c.get((plan.cluster, dtype))
                               for c in (lstm_kernel.CLUSTER_FWD_STEP_COST, lstm_kernel.CLUSTER_BWD_STEP_COST))
             else:
                 cap = min(w for w in lstm_kernel.WIDTHS if max(d, h) <= w)
                 assert (plan.capacity, plan.cluster) == (cap, 0) and name.endswith("_masked")
+                assert plan.rec_shape is None
                 slots = 132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1)
                 costs = (lstm_kernel.FWD_STEP_COST[cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
             waves = lambda r: -(-(-(-batch // r)) // slots)
             for rows, cost in zip((plan.fwd_rows, plan.bwd_rows), costs):
-                assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
+                if cost is None:  # no cost measured at this K: the fewest rows that fit one wave
+                    fits = [r for r in lstm_kernel.CLUSTER_ROWS if waves(r) == 1]
+                    assert rows == (min(fits) if fits else max(lstm_kernel.CLUSTER_ROWS))
+                else:
+                    assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
             assert name in lstm_kernel.launches
             assert lstm_kernel.entry_point(name) == "awm_" + name.removesuffix("_masked")
 
@@ -453,46 +460,103 @@ def test_square_widths_keep_their_instantiations():
         assert launch_plan(128, 16000, torch.float32, 132, w) == launch_plan(128, 16000, torch.float32, 132, w, None, w)
 
 
+def _cluster_waves(batch: int, rows: int, slots: int) -> int:
+    return -(-(-(-batch // rows)) // slots)
+
+
 @pytest.mark.parametrize("sm_count", [8, 132])
 def test_cluster_plan_counts_clusters_a_wave(sm_count):
     """On the cluster path a wave holds sm_count // K clusters (one CTA an
-    SM): at 128 x 128 (K = 4) on 132 SMs the serving batch B=512 takes two
-    rows a cluster in both dtypes (8 waves at the measured cost of two rows
-    against 16 of one, as the card measured), the training batch B=32 one
-    (one wave either way); a rows override of the backward takes 1 or 2."""
+    SM) where the card's reading is not given: rows a cluster among
+    CLUSTER_ROWS (1, 2, 4, 8) in both kernels, the clusters cover the batch,
+    a rows override of the backward takes every built variant and refuses
+    any other; at K = 3, 4, 8 the rows take the fewest waves at the measured
+    cost of a wave of that many rows (ties to fewer rows), and at K = 7 (H =
+    200, no cost measured) the fewest rows that fit one wave, or 8."""
     for h in (65, 96, 128, 200, 256):
         k = -(-h // 32)
+        slots = max(1, sm_count // k)
         for dtype in (torch.float32, torch.bfloat16):
-            plan = launch_plan(300, 16000, dtype, sm_count, h)
-            assert plan.cluster == k and plan.fwd_blocks * plan.fwd_rows >= 300
-            assert plan.bwd_rows in lstm_kernel.CLUSTER_ROWS
-        assert launch_plan(300, 16000, torch.bfloat16, sm_count, h, 2).bwd_blocks == 150
+            for batch in (1, 32, 300, 512):
+                plan = launch_plan(batch, 16000, dtype, sm_count, h)
+                assert plan.cluster == k and plan.fwd_rows in lstm_kernel.CLUSTER_ROWS
+                assert plan.fwd_blocks * plan.fwd_rows >= batch > (plan.fwd_blocks - 1) * plan.fwd_rows
+                assert plan.bwd_rows in lstm_kernel.CLUSTER_ROWS
+                for rows, costs in ((plan.fwd_rows, lstm_kernel.CLUSTER_FWD_STEP_COST),
+                                    (plan.bwd_rows, lstm_kernel.CLUSTER_BWD_STEP_COST)):
+                    cost = costs.get((k, dtype))
+                    if cost is None:
+                        fits = [r for r in lstm_kernel.CLUSTER_ROWS if _cluster_waves(batch, r, slots) == 1]
+                        assert rows == (min(fits) if fits else 8), (h, batch)
+                    else:
+                        assert k in (3, 4, 8)
+                        best = min((_cluster_waves(batch, r, slots) * cost[r], r) for r in lstm_kernel.CLUSTER_ROWS)
+                        assert (_cluster_waves(batch, rows, slots) * cost[rows], rows) == best, (h, batch)
+        for rows in lstm_kernel.CLUSTER_ROWS:
+            assert launch_plan(300, 16000, torch.bfloat16, sm_count, h, rows).bwd_blocks == -(-300 // rows)
         with pytest.raises(ValueError, match="rows"):
-            launch_plan(300, 16000, torch.bfloat16, sm_count, h, 4)
+            launch_plan(300, 16000, torch.bfloat16, sm_count, h, 3)
     if sm_count == 132:
+        # K = 7 (H = 200): 18 clusters a wave; B=512 fits none, so 8 rows; B=32 two
         for dtype in (torch.float32, torch.bfloat16):
-            assert launch_plan(512, 16000, dtype, 132, 128).fwd_rows == 2
-            assert launch_plan(32, 16000, dtype, 132, 128).fwd_rows == 1
-            # K = 7 (H = 200): no cost measured there, so one row a cluster
             assert (launch_plan(512, 16000, dtype, 132, 200).fwd_rows,
-                    launch_plan(512, 16000, dtype, 132, 200).bwd_rows) == (1, 1)
+                    launch_plan(512, 16000, dtype, 132, 200).bwd_rows) == (8, 8)
+            assert launch_plan(32, 16000, dtype, 132, 200).fwd_rows == 2
 
 
 def test_cluster_plan_takes_the_clusters_the_card_holds():
     """Given the card's reading (cudaOccupancyMaxActiveClusters: 30 clusters
-    of 4 CTAs on an H100, not 132 // 4 = 33), the waves count 30: at B=64
-    bf16 one row a cluster (3 waves against 2 of two rows at 1.78 each), as
-    the card measured (38.4 against 44.3 ms), where 33 would have taken two;
-    at B=128 fp32 two rows (3 waves at 1.44 against 5), bf16 one; the
-    backward one row.  A reading of fewer clusters for two rows moves the
-    choice by it."""
-    on_card = ((30, 30), (30, 30))
+    of 4 CTAs on an H100, not 132 // 4 = 33, at every rows variant), the
+    waves count 30: the base family at channels 128 takes one wave on its
+    main path (the session's B=64: 4 rows or more; the train step's B=32: 2
+    or more) in both dtypes, where PR 12's plan took two; kernel C at the
+    timed B=128 fewer than the 5 waves of one row.  A reading of fewer
+    clusters for a rows variant moves the choice by it."""
+    on_card = ((30,) * 4, (30,) * 4)
     plan = lambda b, dt, slots=on_card: launch_plan(b, 16000, dt, 132, 128, None, 128, slots)
-    assert plan(64, torch.bfloat16).fwd_rows == 1
-    assert launch_plan(64, 16000, torch.bfloat16, 132, 128).fwd_rows == 2
-    assert plan(128, torch.float32).fwd_rows == 2 and plan(128, torch.bfloat16).fwd_rows == 1
-    assert plan(128, torch.float32).bwd_rows == plan(128, torch.bfloat16).bwd_rows == 1
-    assert plan(512, torch.float32, ((30, 10), (30, 30))).fwd_rows == 1
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _cluster_waves(64, plan(64, dtype).fwd_rows, 30) == 1 and plan(64, dtype).fwd_rows >= 4
+        assert _cluster_waves(32, plan(32, dtype).fwd_rows, 30) == 1
+        assert _cluster_waves(32, plan(32, dtype).bwd_rows, 30) == 1
+        assert _cluster_waves(128, plan(128, dtype).bwd_rows, 30) < 5
+        # with no 4- or 8-row cluster resident, B=64 cannot take one wave
+        few = ((30, 30, 0, 0), (30, 30, 0, 0))
+        assert plan(64, dtype, few).fwd_rows in (1, 2)
+
+
+# The cluster path's measured K (96, 128, 256 at the card's reading) and the
+# batches of the main paths, the timed shapes and the edges.
+CLUSTER_K = {3: (96, 39), 4: (128, 30), 8: (256, 15)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 7, 32, 64, 128, 512])
+@pytest.mark.parametrize("k", sorted(CLUSTER_K))
+def test_cluster_plan_rows_waves_and_scratch(k, batch, dtype):
+    """The plan at K = 3, 4, 8 on an H100's reading of the clusters it
+    holds: rows a cluster that take the fewest waves at the measured cost
+    (ties to fewer rows), clusters that cover the batch once, and the
+    backward's scratch at the real widths: the gate pass's records (B, T,
+    H, 8) fp32, da (B, T, 4H) in the operand type, db per cluster.  At K = 4
+    the base family's main path (session B=64, train step B=32) takes one
+    wave."""
+    h, per_wave = CLUSTER_K[k]
+    slots = ((per_wave,) * 4,) * 2
+    plan = launch_plan(batch, 16000, dtype, 132, h, None, h, slots)
+    assert plan.cluster == k
+    for rows, blocks, costs in ((plan.fwd_rows, plan.fwd_blocks, lstm_kernel.CLUSTER_FWD_STEP_COST),
+                                (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.CLUSTER_BWD_STEP_COST)):
+        assert blocks * rows >= batch > (blocks - 1) * rows
+        cost = costs[k, dtype]
+        assert set(cost) == set(lstm_kernel.CLUSTER_ROWS) and cost[1] == 1.0
+        best = min((_cluster_waves(batch, r, per_wave) * cost[r], r) for r in lstm_kernel.CLUSTER_ROWS)
+        assert (_cluster_waves(batch, rows, per_wave) * cost[rows], rows) == best
+    assert plan.rec_shape == (batch, 16000, h, 8) and plan.da_shape == (batch, 16000, 4 * h)
+    assert plan.da_dtype == dtype and plan.db_part_shape == (plan.bwd_blocks, 4 * h)
+    if k == 4 and batch in (32, 64):
+        rows = plan.fwd_rows if batch == 64 else max(plan.fwd_rows, plan.bwd_rows)
+        assert _cluster_waves(batch, rows, per_wave) == 1
+        assert _cluster_waves(batch, plan.bwd_rows, per_wave) == 1 or batch == 64
 
 
 @pytest.mark.parametrize("d,h", [(48, 48), (40, 24)])
