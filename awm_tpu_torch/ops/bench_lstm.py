@@ -3,8 +3,9 @@
 paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 (--width 64, the base family, T=16000; --width 32, the strided family's two
 stacked LSTMs, T=50; --width 16, the gradient check of
-entry.dryrun_multichip, T=32; any other width up to 256, T=16000: 48 takes
-the capacity-64 kernels at runtime widths, 128 the cluster path; --steps
+entry.dryrun_multichip, T=32; any other width, T=16000: 48 takes
+the capacity-64 kernels at runtime widths, 128 the cluster path, 512 the
+wide path past 256; --steps
 overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
@@ -18,7 +19,8 @@ Only the wrappers every checkout has are called (forward_kernel,
 forward_train_kernel, backward_kernel); a checkout without width-32 kernels
 takes --width 64 only.  --variants also times each rows-per-block variant
 the checkout's launch plan can choose (a checkout without a plan has none;
-on the cluster path every rows a cluster the checkout builds, for C too).
+on the cluster path every rows a cluster the checkout builds, for C too; on
+the wide path WIDE_ROWS, rows a row group).
 --check first holds every kernel against its plain version at B in (1, 7,
 128) and T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800) with every rows
 variant (A and B on both paths where the checkout has the forward's short
@@ -29,7 +31,9 @@ torch.profiler trace of one call (one on the fused path at width 32, four
 otherwise, five on the cluster path: the gate pass first; there at every
 rows variant with --variants), and on the cluster path each line also
 holds "waves": the waves of clusters the call takes at the card's reading
-of the clusters it holds.  Prints one JSON object per line: {"tree",
+of the clusters it holds (on the wide path "launches": the cooperative
+launches of row groups a window takes; there C's split is its every launch
+by kernel: the packing, the gate pass, the recurrence, dx, dW, the sum).  Prints one JSON object per line: {"tree",
 "card", "kernel", "width", "steps", "batch", "rows", "ms"}; times are CUDA
 events over --reps launches after a warm-up, and with --variants also
 "device_ms": the kernels' own device time per call from torch.profiler
@@ -174,7 +178,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tree", default=here)
-    ap.add_argument("--width", type=int, default=64, help="D = H, 1..256")
+    ap.add_argument("--width", type=int, default=64, help="D = H >= 1")
     ap.add_argument("--steps", type=lambda v: [int(t) for t in v.split(",")], default=None,
                     help="T, or a comma-separated list of T to fit (default: the width's main path)")
     ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
@@ -202,9 +206,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     K.libraries()
-    cluster = hasattr(K, "capacity") and K.capacity(width) is None
-    fwd_rows = (K.CLUSTER_ROWS if cluster else getattr(K, "FWD_ROWS", (None,))) if args.variants else (None,)
-    bwd_rows = (K.CLUSTER_ROWS if cluster else getattr(K, "BWD_ROWS", (None,))) if args.variants else (None,)
+    wide = hasattr(K, "is_wide") and K.is_wide(width)
+    cluster = hasattr(K, "capacity") and K.capacity(width) is None and not wide
+    variants = K.WIDE_ROWS if wide else K.CLUSTER_ROWS if cluster else None
+    fwd_rows = (variants or getattr(K, "FWD_ROWS", (None,))) if args.variants else (None,)
+    bwd_rows = (variants or getattr(K, "BWD_ROWS", (None,))) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)
     has_short = hasattr(K, "FWD_SHORT_MAX_STEPS")
@@ -268,11 +274,34 @@ def main() -> int:
         r = rows or (plan.bwd_rows if bwd else plan.fwd_rows)
         return -(-(-(-batch // r)) // dict(zip(K.CLUSTER_ROWS, slots[bwd]))[r])
 
+    def wide_launches(kernel, batch, rows, dtype):
+        """Cooperative launches of row groups a window takes on the wide path
+        at the card's reading of the CTAs it holds (rows None: the plan's)."""
+        slots = K._wide_slots(torch.cuda.current_device(), dtype, width)
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = K.launch_plan(batch, steps, dtype, sm_count, width, wide_slots=slots)
+        bwd = kernel.startswith("lstm_bwd")
+        r = rows or (plan.bwd_rows if bwd else plan.fwd_rows)
+        at_once = dict(zip(K.WIDE_ROWS, slots[bwd])).get(r, 0)
+        ctas = K.wide_ctas(-(-width // K.WIDE_UNITS), at_once)
+        return -(-(-(-batch // r)) // (at_once // ctas)) if ctas else None
+
+    def held(rows, dtype, bwd: bool) -> bool:
+        """Whether the card holds a row group of this many rows on the wide
+        path with W_hh's slice where the plan would take it (always True
+        elsewhere, and for the plan's own rows)."""
+        if not wide or rows is None:
+            return True
+        slots = dict(zip(K.WIDE_ROWS, K._wide_slots(torch.cuda.current_device(), dtype, width)[bwd]))
+        return slots[rows] >= 1
+
     def report(kernel, batch, rows, ms, fn=None, dtype=None):
         line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
                 "batch": batch, "rows": rows, "ms": ms}
         if dtype is not None and cluster:
             line["waves"] = cluster_waves(kernel, batch, rows, dtype)
+        if dtype is not None and wide:
+            line["launches"] = wide_launches(kernel, batch, rows, dtype)
         if fn is not None and (args.variants or len(sweep) > 1):
             line["device_ms"] = device_ms(torch, fn, min(args.reps, 50))
             swept.setdefault((kernel, batch, rows), {})[steps] = line["device_ms"]
@@ -284,6 +313,8 @@ def main() -> int:
             fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
             x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
             for rows in fwd_rows if want(fwd) else ():
+                if not held(rows, dtype, False):
+                    continue
                 fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
             if args.library and want(fwd):
@@ -294,6 +325,8 @@ def main() -> int:
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
             for rows in fwd_rows if want(fwd_train) else ():
+                if not held(rows, dtype, False):
+                    continue
                 fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
             for kernel, what in (("lstm_fwd_train", fwd_train), ("lstm_bwd", bwd)) if args.library else ():
@@ -302,15 +335,17 @@ def main() -> int:
                            library_ms(torch, kernel, x, w_ih, w_hh, bias, dy, args.reps))
             if want(bwd):
                 for rows in bwd_rows:
+                    if not held(rows, dtype, True):
+                        continue
                     fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
                     report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
-                # C's launches apart: at the plan's rows, and on the cluster path at every variant
-                for rows in bwd_rows if cluster else (None,):
+                # C's launches apart: at the plan's rows, and on the cluster and wide paths at every variant
+                for rows in [r for r in bwd_rows if held(r, dtype, True)] if cluster or wide else (None,):
                     split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias,
                                                                           **kw(rows)))
                     for key, ms in split.items():
-                        if "lstm_bwd" in key:
-                            short = key[key.index("lstm_bwd"):].split("(")[0]
+                        if "lstm_bwd" in key or "lstm_wide" in key:
+                            short = key[key.index("lstm_"):].split("(")[0]
                             report(f"{bwd}:{short}", b_train, rows, ms, None, dtype)
             del x, y, cprev, dy
             torch.cuda.empty_cache()

@@ -12,7 +12,7 @@
 // sigmoid(0) tanh(0) = 0, and its zero h adds +0 to every sum.  At D = H = W
 // the arithmetic is the one the kernels had before the runtime widths.
 // Widths above 64 take a thread-block cluster (lstm_fwd_cluster.cu and lstm_bwd.cu,
-// "widths above 64").  T is the operand type: float for the fp32 contract,
+// "widths above 64"), widths above 256 the wide path (lstm_wide.cu).  T is the operand type: float for the fp32 contract,
 // __nv_bfloat16 for the bf16 one (bf16 operands, every product exact in
 // fp32, fp32 sums and state).
 //
@@ -316,7 +316,7 @@ constexpr int CU = 32;          // hidden units a CTA of a cluster owns
 constexpr int CROWS = 4 * CU;   // their gate rows
 constexpr int CPROD = 128;      // producer threads of a CTA
 constexpr int CLANES = 8;       // CUDA-core consumers: lanes a unit
-constexpr int MAX_WIDTH = 256;  // the ceiling on D and H: 8 CTAs (the portable cluster size) of CU units
+constexpr int CLUSTER_MAX_WIDTH = 256;  // the cluster path's widest D and H: 8 CTAs (the portable cluster size) of CU units; wider calls take lstm_wide.cu
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // The launch of `clusters` clusters of ceil(h / CU) CTAs, each of `threads`

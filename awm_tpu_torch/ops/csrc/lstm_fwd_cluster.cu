@@ -17,7 +17,8 @@ using namespace awm;
 //
 // At W = 128 every weight of W_hh would take the whole register file of an
 // SM, so a call with max(D, H) > 64 runs on a cluster of K = ceil(H / 32)
-// CTAs (K <= 8, the portable cluster size, for H <= 256), which together own
+// CTAs (K <= 8, the portable cluster size, for H <= 256; wider calls take
+// lstm_wide.cu's time-windowed path), which together own
 // R batch rows, R = 1, 2, 4 or 8 (the plan's choice: ops/lstm_kernel.py):
 // - CTA r owns hidden units [32 r, 32 r + 32), all four gates of each: 128
 //   gate rows of W_hh held on chip for the whole launch, as the W = 64
@@ -478,7 +479,7 @@ int cluster_slots_hw(int rows, int d, int h) {
 
 template <typename T>
 int cluster_slots(int rows, int d, int h) {
-  if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return -(int)cudaErrorInvalidValue;
+  if (d < 1 || h < 1 || d > CLUSTER_MAX_WIDTH || h > CLUSTER_MAX_WIDTH) return -(int)cudaErrorInvalidValue;
   return h <= 128 ? cluster_slots_hw<T, 128>(rows, d, h) : cluster_slots_hw<T, 256>(rows, d, h);
 }
 
@@ -497,7 +498,7 @@ int launch_cluster_hw(const void* x, const float* w_ih, const float* w_hh, const
 template <typename T, bool TRAIN>
 int launch_cluster(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,
                    float* cprev, int batch, int steps, int d, int h, int rows, void* stream) {
-  if (d < 1 || h < 1 || d > MAX_WIDTH || h > MAX_WIDTH) return (int)cudaErrorInvalidValue;
+  if (d < 1 || h < 1 || d > CLUSTER_MAX_WIDTH || h > CLUSTER_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   return h <= 128 ? launch_cluster_hw<T, TRAIN, 128>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, rows, stream)
                   : launch_cluster_hw<T, TRAIN, 256>(x, w_ih, w_hh, bias, y, cprev, batch, steps, d, h, rows, stream);
 }

@@ -1,0 +1,908 @@
+// LSTM kernels A, B and C for Hopper (sm_90a) at widths past 256 (max(D, H)
+// > 256): the wide path.  Replaces, at those widths, the three TPU kernels of
+// awm_tpu/ops/pallas/lstm_kernel.py: lstm_pallas_forward + _lstm_kernel (the
+// pallas_call at line 157, A), _forward_train + _lstm_train_kernel (line 342,
+// B) and _backward + _lstm_bwd_kernel (line 391, C).  lstm_fwd.cu has the
+// precision contract; A and B keep it here (fp32: full fp32, no TF32; bf16:
+// bf16 operands with the recurrent h rounded to bf16 before its product, fp32
+// sums, fp32 (h, c) and gates, y in bf16), and C's weight gradients are fp32,
+// dx in x's type.  A library of its own, built in parallel with the others.
+//
+// Why a path of its own.  Past 256 a cluster CTA's slice of W_hh (128 gate
+// rows x H terms) fits neither its registers nor its shared memory, a cluster
+// stops at 16 CTAs, and the cluster backward's records for all of T grow
+// without bound (16.8 GB at B = 128, H = 256).  So, as the TPU kernel's own
+// grid does, the wide path works in windows of time: the plan
+// (ops/lstm_kernel.py::launch_plan) picks a window of tc steps so that a
+// call's scratch stays within a budget whatever T is, and the C entry points
+// below loop over the windows on the stream, carrying the state between
+// windows in small fp32 buffers ((h, c) forward, (dh, dc) backward).  h (and
+// in the backward da) goes from SM to SM through global memory:
+// - A / B, per window: the input projection xp = b + x W_ih^T of every (row,
+//   step) of the window, (B, tc, 4H) fp32, by the gate pass of kernel C run
+//   over x's terms only (lstm_any.cuh, XP = true: bf16 on mma.sync, fp32 on
+//   the CUDA cores); then the recurrence, lstm_wide_fwd_kernel: a CTA owns
+//   a tile of WU = 16 hidden units (all four gates: 64 rows of W_hh, in
+//   shared memory in the operand type where they fit beside the step's h,
+//   else read from a packed copy in global memory, L2-resident) for up to
+//   WMAX_R batch rows; ceil(H / 16) CTAs form a row group (fewer, of more
+//   tiles, past what the card holds: see Residency).  Each step a CTA stages h_{t-1} of its
+//   rows (y of the step before, read past L1), forms its gates from xp and
+//   its W_hh rows, updates c in registers, writes h_t to y (and c_{t-1}), and
+//   meets the other CTAs of its row group at one barrier in global memory
+//   (a counter a group: release-add after the step's stores, acquire-spin
+//   before the next step's reads).  The gate sums continue xp's in the gate
+//   pass's order (fp32: one fma chain over h's terms in order; bf16: one
+//   mma accumulator over h's k-tiles in order), so C recomputes the
+//   forward's gates bit for bit in both types;
+// - C, per window in reverse: the gate pass's records of the window (B, tc,
+//   H, 8) (lstm_any.cuh, WIN = true); the recurrence, lstm_wide_bwd_kernel,
+//   which carries (dh, dc): each step a CTA forms da of its 64 gate columns
+//   from the records, writes it (rounded to the operand type) to the
+//   window's da scratch, meets its group at the barrier, stages da_t of its
+//   rows (all 4H columns) and forms dh_{t-1} of its units from W_hh's
+//   columns for them (fp32 on the CUDA cores, K split in fixed segments;
+//   bf16 on mma.sync, K in quarters summed in a fixed order); then the
+//   window's dx and dW (lstm_any.cuh's runtime-width kernels at WIN = true,
+//   the dW partials added across windows in the order they run) and, after
+//   the last window, the ordered sum.  No atomics on values: two calls give
+//   the same bits.
+// Residency: a barrier through global memory deadlocks unless every CTA of a
+// group is resident at once, so each recurrence is a cooperative launch
+// (cudaLaunchCooperativeKernel) of as many row groups as the card holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, per call); more row
+// groups run in successive launches.  Where the card does not hold a group's
+// ceil(H / 16) CTAs at once (H > 2112 at one CTA an SM of an H100's 132), a
+// CTA owns more than one tile of 16 units (group_ctas: as few CTAs as fit,
+// the tiles spread evenly) and runs them in turn each step, W_hh's slices
+// read from the packed copy and the tiles' state (c; dc, dh, db) kept in
+// global memory between turns, each tile's sums as an untiled CTA's.  What
+// bounds the width then is one row of da (C) or of h (A, B; bf16: an mma
+// n-tile of 8 rows) in shared memory: on an H100's 227 KB, H = 14264 for
+// fp32 C, 14512 for bf16 A and B, 28532 for bf16 C, 58096 for fp32 A and B;
+// past it the call raises (lstm_kernel.py's plan, before any launch).  A refused launch (another
+// kernel or an MPS client holding SMs) returns its error and the call
+// raises; a spin that outlasts WAIT_NS traps, so that a fault cannot hang
+// the card.
+// What bounds it on this card: the step's latency at small batches (one row
+// a group: ~11 us a step fp32, ~5 us bf16 on an H100; the barrier's round
+// trip through L2, the staging of h and the product's dependent chain); at
+// large ones the products (fp32: B 4H H FMAs a step on the CUDA cores, W_hh
+// and h re-read from shared memory for each row), far above the bound of
+// the call's bytes and FLOPs (PERF.md section 6).
+//
+// Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
+
+#include "lstm_any.cuh"
+#include "lstm_common.cuh"
+
+namespace {
+
+using namespace awm;
+
+constexpr int WU = 16;          // hidden units a CTA owns
+constexpr int WROWS = 4 * WU;   // their gate rows
+constexpr int WTHREADS = 256;
+constexpr int WMAX_R = 64;      // batch rows a row group at most
+constexpr int PMAX = WMAX_R * WU / WTHREADS;  // (unit, row) pairs a thread at most
+constexpr unsigned long long WAIT_NS = 20000000000ull;  // a barrier wait past 20 s traps
+
+// Row pitches (elements of the operand type) of the staged operands, 16-byte
+// rows whose fragment or quad reads fall in distinct banks: forward (h and
+// W_hh's rows, H terms), backward (da and W_hh's columns, 4H terms).
+template <typename T> __host__ __device__ constexpr int wide_pitch(int n) { return round_up(n, 16) + (is_bf16<T> ? 8 : 4); }
+// Rows of the staged h (bf16: whole mma n-tiles of 8); da is staged for its
+// rows only (an m-tile's rows past them read as zero).
+template <typename T> __host__ __device__ constexpr int fwd_rows_pad(int r) { return is_bf16<T> ? round_up(r, 8) : r; }
+__host__ __device__ constexpr int n_cta(int h) { return (h + WU - 1) / WU; }
+// Elements of the packed W_hh (every CTA's slice, in the operand type).
+template <typename T> __host__ __device__ constexpr long long pack_elems(int bwd, int h) {
+  return (long long)n_cta(h) * (bwd ? WU * wide_pitch<T>(4 * h) : WROWS * wide_pitch<T>(h));
+}
+// Dynamic shared memory of a CTA of `rows` rows, with W_hh's slice (w_smem)
+// or without it.
+template <typename T> size_t wide_smem(int bwd, int h, int rows, int w_smem) {
+  if (!bwd) {
+    const size_t hp = wide_pitch<T>(h);
+    return sizeof(T) * hp * ((size_t)fwd_rows_pad<T>(rows) + (w_smem ? WROWS : 0));
+  }
+  const size_t jp = wide_pitch<T>(4 * h);
+  // then dh [rows][16] and the dh product's partials: bf16 [segments][m-tiles x 16 rows][16], segments x m-tiles
+  // <= 4; fp32 segments x outputs <= 256
+  return sizeof(T) * jp * ((size_t)rows + (w_smem ? WU : 0)) + sizeof(float) * (size_t)rows * WU +
+         sizeof(float) * 4 * 16 * WU;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// The row group's barrier: every CTA's thread 0 adds one with release after
+// the step's stores (the CTA's other threads' stores are ordered before it
+// by the __syncthreads that precedes the call, and a release is cumulative
+// over them) and spins with acquire until the count reaches target; a
+// __syncthreads after the wait orders the CTA's reads after it.  No fence
+// beside them (a fence.sc a step cost more than the step's work).
+__device__ __forceinline__ void group_arrive(unsigned* count) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+}
+__device__ __forceinline__ void group_wait(const unsigned* count, unsigned target) {
+  unsigned long long t0 = 0;
+  for (unsigned spin = 0;; ++spin) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+    if ((int)(v - target) >= 0) break;
+    if ((spin & 1023) == 0) {  // the clock now and then: a wait past WAIT_NS traps
+      const unsigned long long now = global_ns();
+      if (spin == 0) t0 = now;
+      else if (now - t0 > WAIT_NS) __trap();
+    }
+  }
+}
+
+// n elements of the operand type from global (read past L1: another SM wrote
+// them this launch) into shared memory; vec: 16 bytes a load (both ends
+// 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int dpitch, const T* src, size_t spitch, int rows, int n, bool vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int nv = n / V;
+    for (int i = threadIdx.x; i < rows * nv; i += WTHREADS) {
+      const int r = i / nv, q = i % nv;
+      *reinterpret_cast<uint4*>(dst + (size_t)r * dpitch + q * V) =
+          __ldcg(reinterpret_cast<const uint4*>(src + r * spitch) + q);
+    }
+  } else {
+    for (int r = 0; r < rows; ++r)
+      for (int k = threadIdx.x; k < n; k += WTHREADS) dst[(size_t)r * dpitch + k] = __ldcg(src + r * spitch + k);
+  }
+}
+
+// W_hh (4h, h) fp32 into each CTA's slice in the operand type (rounded to
+// nearest even), zero past the real widths.  Forward: [cta][row][hp], row =
+// ((u / 8) 2 + m / 2) 16 + (m % 2) 8 + u % 8 for unit u, gate m (a unit
+// group's two mma tiles: i | f, g | o); backward: [cta][u][jp], the columns
+// of the CTA's units.
+template <typename T>
+__global__ void __launch_bounds__(256) lstm_wide_pack_kernel(const float* __restrict__ w_hh, T* __restrict__ out, int h,
+                                                             int bwd) {
+  const int pitch = bwd ? wide_pitch<T>(4 * h) : wide_pitch<T>(h), per = bwd ? WU : WROWS;
+  const long long total = pack_elems<T>(bwd, h);
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total; i += (long long)gridDim.x * 256) {
+    const int k = (int)(i % pitch);
+    const long long rowi = i / pitch;
+    const int cta = (int)(rowi / per), rr = (int)(rowi % per);
+    float v = 0.0f;
+    if (bwd) {
+      const int gu = cta * WU + rr;
+      if (gu < h && k < 4 * h) v = w_hh[(size_t)k * h + gu];
+    } else {
+      const int u = (rr / 32) * 8 + rr % 8, m = ((rr / 16) % 2) * 2 + (rr % 16) / 8, gu = cta * WU + u;
+      if (gu < h && k < h) v = w_hh[((size_t)m * h + gu) * h + k];
+    }
+    store_f(out + i, v);
+  }
+}
+
+template <typename T>
+struct WideFwd {
+  const float* xp;   // (B, tc, 4h) fp32: the window's b + x W_ih^T
+  const T* wpack;    // lstm_wide_pack_kernel's forward slices
+  T* y;              // (B, T, h)
+  float* cprev;      // (B, T, h) fp32 (B) or null (A)
+  float* c_state;    // (B, h) fp32: c after the last window (tiled: after the last step)
+  unsigned* count;   // a counter a row group, zero at the call's start: ctas a step
+  int batch, steps, h, t0, tc, rows, g0, w_smem, ctas;
+};
+
+// Kernel A / B's recurrence over one window, row groups g0 .. of `rows`
+// rows, `ctas` CTAs each (blockIdx.x = (group - g0) ctas + cta).  CTA cta
+// owns the unit tiles cta, cta + ctas, ... of the group's ceil(h / 16); with
+// more than one tile a CTA (ctas < ceil(h / 16), tiled) it runs its tiles in
+// turn each step, W_hh's slices read from the packed copy and c kept in
+// c_state between turns (the same sums in the same order: the same bits).
+// TILED: compiled apart, so that the untiled recurrence keeps its registers
+// (and the CTAs an SM holds).
+template <typename T, bool TRAIN, bool TILED>
+__global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFwd<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool tiled = TILED;
+  const int h = a.h, hp = wide_pitch<T>(h), kk = n_cta(h), kp = a.ctas, tid = threadIdx.x;
+  const int grp = a.g0 + blockIdx.x / kp, cta = blockIdx.x % kp, n_tiles = tiled ? (kk - cta + kp - 1) / kp : 1;
+  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = fwd_rows_pad<T>(a.rows);
+  const size_t steps = a.steps, g4 = 4 * (size_t)h;
+  T* s_h = reinterpret_cast<T*>(smem);  // [rp][hp]: h_{t-1} of the group's rows, zero past h and nrows
+  const T* s_w = a.wpack + (size_t)cta * WROWS * hp;
+  for (int i = tid; i < rp * hp; i += WTHREADS) store_f(s_h + i, 0.0f);
+  if (a.w_smem) {  // never tiled
+    T* w = s_h + (size_t)rp * hp;
+    const int n16 = WROWS * hp * (int)sizeof(T) / 16;
+    for (int i = tid; i < n16; i += WTHREADS)
+      reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(s_w)[i];
+    s_w = w;
+  }
+  unsigned* count = a.count + grp;
+  const bool vec = (h * sizeof(T)) % 16 == 0;
+  const int lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
+  // fp32: thread pairs (unit tid % 16, row tid / 16 + 16 j); bf16: warp's unit group and n-tiles
+  float c_st[PMAX][2];
+  // c of the thread's pairs of the tile at unit u0, from c_state (else zero), and back
+  auto load_c = [&](int u0, bool from) {
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      if constexpr (is_bf16<T>) {
+        // bf16: item j of warp w is unit group w % 2 (units 8 (w % 2) + g8), n-tile w / 2 + 4 j (rows + 2 t4 + e)
+        const int u = (warp & 1) * 8 + g8;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = ((warp >> 1) + 4 * j) * 8 + 2 * t4 + e;
+          c_st[j][e] = from && j < 2 && r < nrows && u0 + u < h ? a.c_state[(size_t)(row0 + r) * h + u0 + u] : 0.0f;
+        }
+      } else {
+        const int u = tid % WU, r = tid / WU + (WTHREADS / WU) * j;
+        c_st[j][0] = from && r < nrows && u0 + u < h ? a.c_state[(size_t)(row0 + r) * h + u0 + u] : 0.0f;
+        c_st[j][1] = 0.0f;
+      }
+    }
+  };
+  auto store_c = [&](int u0) {
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      if constexpr (is_bf16<T>) {
+        const int u = (warp & 1) * 8 + g8;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = ((warp >> 1) + 4 * j) * 8 + 2 * t4 + e;
+          if (j < 2 && r < nrows && u0 + u < h) a.c_state[(size_t)(row0 + r) * h + u0 + u] = c_st[j][e];
+        }
+      } else {
+        const int u = tid % WU, r = tid / WU + (WTHREADS / WU) * j;
+        if (r < nrows && u0 + u < h) a.c_state[(size_t)(row0 + r) * h + u0 + u] = c_st[j][0];
+      }
+    }
+  };
+  if (!tiled) load_c(cta * WU, a.t0 > 0);
+  __syncthreads();
+  const int r0 = tid / WU;
+  int np = 0;  // fp32: pairs of this thread with a live row
+#pragma unroll
+  for (int j = 0; j < PMAX; ++j) np += r0 + 16 * j < nrows;
+  for (int s = 0; s < a.tc; ++s) {
+    const int t = a.t0 + s;
+    for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
+      const int tile = cta + tile_i * kp, u0 = tile * WU;
+      const T* wsl = tiled ? a.wpack + (size_t)tile * WROWS * hp : s_w;
+      if (tiled) load_c(u0, t > 0);
+      // the gate sums start from xp, read (the first tile's) before the wait so that its latency overlaps the
+      // barrier's: bf16 acc[2 j + tile][e] (item j), fp32 acc[j][gate] (pair j)
+      float acc[PMAX][4];
+      if constexpr (is_bf16<T>) {
+        const int gu = u0 + (warp & 1) * 8 + g8;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int nt = (warp >> 1) + 4 * j;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = nt * 8 + 2 * t4 + e;
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (r < nrows && gu < h) {
+              const float* x4 = a.xp + ((size_t)(row0 + r) * a.tc + s) * g4 + gu;
+              v = make_float4(x4[0], x4[h], x4[2 * h], x4[3 * h]);
+            }
+            acc[2 * j][e] = v.x, acc[2 * j][2 + e] = v.y, acc[2 * j + 1][e] = v.z, acc[2 * j + 1][2 + e] = v.w;
+          }
+        }
+      } else {
+        const int gu = u0 + tid % WU;
+#pragma unroll
+        for (int j = 0; j < PMAX; ++j)
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            acc[j][m] = j < np && gu < h ? a.xp[((size_t)(row0 + r0 + 16 * j) * a.tc + s) * g4 + (size_t)m * h + gu] : 0.0f;
+      }
+      if (t > 0 && tile_i == 0) {
+        if (tid == 0) group_wait(count, (unsigned)kp * (unsigned)t);
+        __syncthreads();
+        stage_rows<T>(s_h, hp, a.y + ((size_t)row0 * steps + t - 1) * h, steps * h, nrows, h, vec);
+        __syncthreads();
+      }
+      if constexpr (is_bf16<T>) {
+        const int ug = warp & 1, u = ug * 8 + g8, gu = u0 + u;
+        const bool live1 = ((warp >> 1) + 4) * 8 < nrows, live0 = (warp >> 1) * 8 < nrows;
+        if (live0) {
+          const T* w0 = wsl + (size_t)(ug * 32 + g8) * hp + 2 * t4;  // tile 0 (i | f); tile 1 (g | o) 16 rows on
+          for (int kt = 0; kt * 16 < h; ++kt) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const T* p = w0 + (size_t)mt * 16 * hp + kt * 16;
+              af[mt][0] = ld32(p), af[mt][1] = ld32(p + 8 * hp), af[mt][2] = ld32(p + 8), af[mt][3] = ld32(p + 8 * hp + 8);
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (j == 0 || live1) {
+                const T* v = s_h + (size_t)(((warp >> 1) + 4 * j) * 8 + g8) * hp + kt * 16 + 2 * t4;
+                const uint32_t b0 = ld32(v), b1 = ld32(v + 8);
+                mma_bf16(acc[2 * j], af[0], b0, b1);
+                mma_bf16(acc[2 * j + 1], af[1], b0, b1);
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = ((warp >> 1) + 4 * j) * 8 + 2 * t4 + e;
+            if (r < nrows && gu < h) {
+              const float ig = sigmoid(acc[2 * j][e]), fg = sigmoid(acc[2 * j][2 + e]);
+              const float gg = tanh_sig(acc[2 * j + 1][e]), og = sigmoid(acc[2 * j + 1][2 + e]);
+              const float c_prev = c_st[j][e];
+              c_st[j][e] = fg * c_prev + ig * gg;
+              const size_t at = ((size_t)(row0 + r) * steps + t) * h + gu;
+              if (TRAIN) a.cprev[at] = c_prev;
+              store_f(a.y + at, og * tanh_sig(c_st[j][e]));
+            }
+          }
+      } else {
+        const int u = tid % WU, gu = u0 + u;
+        if (np > 0) {
+          const float* wr[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            wr[m] = reinterpret_cast<const float*>(wsl) + (size_t)(((u >> 3) * 2 + (m >> 1)) * 16 + (m & 1) * 8 + (u & 7)) * hp;
+          const float* hr = reinterpret_cast<const float*>(s_h) + (size_t)r0 * hp;
+          const int nq = round_up(h, 16) / 4;
+#pragma unroll 4
+          for (int q = 0; q < nq; ++q) {
+            float4 w4[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) w4[m] = *reinterpret_cast<const float4*>(wr[m] + 4 * q);
+#pragma unroll
+            for (int j = 0; j < PMAX; ++j)
+              if (j < np) {
+                const float4 v = *reinterpret_cast<const float4*>(hr + (size_t)16 * j * hp + 4 * q);
+#pragma unroll
+                for (int m = 0; m < 4; ++m) dot_quad(acc[j][m], w4[m].x, w4[m].y, w4[m].z, w4[m].w, v);
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < PMAX; ++j)
+          if (j < np && gu < h) {
+            const float ig = sigmoid(acc[j][0]), fg = sigmoid(acc[j][1]), gg = tanh_sig(acc[j][2]), og = sigmoid(acc[j][3]);
+            const float c_prev = c_st[j][0];
+            c_st[j][0] = fg * c_prev + ig * gg;
+            const size_t at = ((size_t)(row0 + r0 + 16 * j) * steps + t) * h + gu;
+            if (TRAIN) a.cprev[at] = c_prev;
+            a.y[at] = og * tanh_sig(c_st[j][0]);
+          }
+      }
+      if (tiled) store_c(u0);
+    }
+    __syncthreads();  // every store of the step is issued before the arrival
+    if (tid == 0) group_arrive(count);
+  }
+  if (!tiled) store_c(cta * WU);  // c after the window, for the next one
+}
+
+template <typename T>
+struct WideBwd {
+  const float* rec;  // (B, tc, h, 8) fp32: the window's records (lstm_any.cuh's gate pass)
+  const T* wpack;    // lstm_wide_pack_kernel's backward slices
+  T* da;             // (B, tc, 4h): the window's da in the operand type
+  float* db_part;    // (groups, 4h) fp32: each row group's db, added over the windows
+  float* dh_state;   // (B, h) fp32: the carry into the window before (tiled: dh of the step before)
+  float* dc_state;
+  float* db_rows;    // (B, 4h) fp32, tiled only: each (row, column)'s db over the window so far
+  unsigned* count;   // a counter a row group, zero at the call's start: ctas a step
+  int batch, steps, h, t0, tc, rows, g0, w_smem, first, ctas;  // first: the call's first window (its last steps)
+};
+
+// Kernel C's recurrence over one window, steps t0 + tc - 1 down to t0.  The
+// CTAs and tiles of a group as in lstm_wide_fwd_kernel; tiled, a CTA keeps
+// dc, dh and db of its tiles in dc_state, dh_state and db_rows between
+// turns (the same sums in the same order: the same bits).  TILED as in
+// lstm_wide_fwd_kernel.
+template <typename T, bool TILED>
+__global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBwd<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool tiled = TILED;
+  const int h = a.h, jp = wide_pitch<T>(4 * h), kk = n_cta(h), kp = a.ctas, tid = threadIdx.x, g4 = 4 * h;
+  const int grp = a.g0 + blockIdx.x / kp, cta = blockIdx.x % kp, n_tiles = tiled ? (kk - cta + kp - 1) / kp : 1;
+  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = a.rows;
+  T* s_da = reinterpret_cast<T*>(smem);                          // [rp][jp]: da_t of the group's rows
+  T* s_w = s_da + (size_t)rp * jp;                               // [16][jp] where w_smem (never tiled)
+  float* s_dh = reinterpret_cast<float*>(s_w + (a.w_smem ? (size_t)WU * jp : 0));  // [rows][16]
+  float* s_part = s_dh + a.rows * WU;                            // the dh product's partials
+  const T* wsl = a.wpack + (size_t)cta * WU * jp;
+  for (int i = tid; i < rp * jp; i += WTHREADS) store_f(s_da + i, 0.0f);
+  if (a.w_smem) {
+    const int n16 = WU * jp * (int)sizeof(T) / 16;
+    for (int i = tid; i < n16; i += WTHREADS)
+      reinterpret_cast<uint4*>(s_w)[i] = reinterpret_cast<const uint4*>(wsl)[i];
+    wsl = s_w;
+  }
+  unsigned* count = a.count + grp;
+  const bool vec = (g4 * sizeof(T)) % 16 == 0;
+  const int u = tid % WU, r0 = tid / WU;
+  // phase 1's pairs: (unit u of the tile, row r0 + 16 j); untiled, their dc and db live in registers for the
+  // window and dh_t in s_dh
+  float dc[PMAX], db[PMAX][4];
+  if (!tiled) {
+    const int gu = cta * WU + u;
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      const int r = r0 + 16 * j;
+      const bool ok = !a.first && r < nrows && gu < h;
+      dc[j] = ok ? a.dc_state[(size_t)(row0 + r) * h + gu] : 0.0f;
+      if (r < a.rows) s_dh[r * WU + u] = ok ? a.dh_state[(size_t)(row0 + r) * h + gu] : 0.0f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) db[j][m] = 0.0f;
+    }
+  }
+  const unsigned done0 = (unsigned)(a.steps - (a.t0 + a.tc));  // steps the call ran before this window
+  // a step's records (factors i f g o; o (1 - tanh^2 c), f, dy, 0) of the thread's pairs at unit gu; untiled
+  // read a step ahead, before the barrier, so that their latency overlaps it
+  float4 rf[PMAX], rg[PMAX];
+  auto load_records = [&](int s, int gu) {
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      const int r = r0 + 16 * j;
+      if (r < nrows && gu < h) {
+        const float4* e = reinterpret_cast<const float4*>(a.rec + (((size_t)(row0 + r) * a.tc + s) * h + gu) * CREC);
+        rf[j] = __ldg(e), rg[j] = __ldg(e + 1);
+      }
+    }
+  };
+  if (!tiled) load_records(a.tc - 1, cta * WU + u);
+  for (int s = a.tc - 1; s >= 0; --s) {
+    __syncthreads();  // s_dh (dh_state, tiled) holds dh_t
+    // phase 1: da_t of the CTA's columns, dc_{t-1}
+    const bool carried = !(a.first && s == a.tc - 1);  // tiled: the state holds the step after's
+    for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
+      const int gu = (cta + tile_i * kp) * WU + u;
+      if (tiled) load_records(s, gu);
+#pragma unroll
+      for (int j = 0; j < PMAX; ++j) {
+        const int r = r0 + 16 * j;
+        if (r < nrows && gu < h) {
+          const size_t n = (size_t)(row0 + r) * a.tc + s, at = (size_t)(row0 + r) * h + gu;
+          float* dbr = a.db_rows + (size_t)(row0 + r) * g4 + gu;
+          if (tiled) {
+            dc[j] = carried ? a.dc_state[at] : 0.0f;
+#pragma unroll
+            for (int m = 0; m < 4; ++m) db[j][m] = s < a.tc - 1 ? dbr[(size_t)m * h] : 0.0f;
+          }
+          const float4 f = rf[j], g = rg[j];
+          const float dh_total = g.z + (tiled ? (carried ? a.dh_state[at] : 0.0f) : s_dh[r * WU + u]);
+          const float dc_total = dc[j] + dh_total * g.x;
+          const float da[4] = {dc_total * f.x, dc_total * f.y, dc_total * f.z, dh_total * f.w};
+          dc[j] = dc_total * g.y;
+          T* out = a.da + n * g4 + gu;
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            store_f(out + (size_t)m * h, da[m]);
+            db[j][m] += da[m];
+          }
+          if (tiled) {
+            a.dc_state[at] = dc[j];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) dbr[(size_t)m * h] = db[j][m];
+          }
+        }
+      }
+    }
+    if (s > 0 && !tiled) load_records(s - 1, cta * WU + u);
+    __syncthreads();
+    if (tid == 0) {
+      group_arrive(count);
+      group_wait(count, (unsigned)kp * (done0 + (unsigned)(a.tc - s)));
+    }
+    __syncthreads();
+    if (a.t0 + s == 0) break;  // no step before: dh_{-1} is not needed
+    stage_rows<T>(s_da, jp, a.da + (size_t)row0 * a.tc * g4 + (size_t)s * g4, (size_t)a.tc * g4, nrows, g4, vec);
+    __syncthreads();
+    // phase 2: dh_{t-1}[r][u] = sum_j da_t[r][j] W_hh[j][u], tile by tile
+    for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
+      const int tile = cta + tile_i * kp;
+      const T* wt = tiled ? a.wpack + (size_t)tile * WU * jp : wsl;
+      if constexpr (is_bf16<T>) {
+        const int lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
+        const int mt_n = (nrows + 15) / 16, items = 2 * mt_n, segs = 8 / items, kt_n = round_up(g4, 16) / 16;
+        const int item = warp % items, seg = warp / items, kts = (kt_n + segs - 1) / segs;
+        if (seg < segs) {
+          const int mt = item >> 1, nt = item & 1;
+          // the m-tile's rows past nrows are zero (none staged: s_da holds rows rows)
+          const int ra = mt * 16 + g8, rb = ra + 8;
+          float acc[4][4] = {};
+          const T* ar = s_da + (size_t)ra * jp + 2 * t4;
+          const T* br = wt + (size_t)(nt * 8 + g8) * jp + 2 * t4;
+          const int k_end = min(kt_n, (seg + 1) * kts);
+          for (int kt = seg * kts; kt < k_end; ++kt) {
+            const T* p = ar + kt * 16;
+            const uint32_t af[4] = {ra < nrows ? ld32(p) : 0u, rb < nrows ? ld32(p + 8 * jp) : 0u,
+                                    ra < nrows ? ld32(p + 8) : 0u, rb < nrows ? ld32(p + 8 * jp + 8) : 0u};
+            const T* q = br + kt * 16;
+            mma_bf16(acc[kt & 3], af, ld32(q), ld32(q + 8));
+          }
+          // the four accumulators in a fixed order, into [seg][row][unit]
+          float* out = s_part + ((size_t)seg * mt_n * 16) * WU;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = mt * 16 + g8 + (e >> 1) * 8, uu = nt * 8 + 2 * t4 + (e & 1);
+            out[rr * WU + uu] = (acc[0][e] + acc[1][e]) + (acc[2][e] + acc[3][e]);
+          }
+        }
+        __syncthreads();
+        for (int o = tid; o < nrows * WU; o += WTHREADS) {
+          float v = 0.0f;
+          for (int sg = 0; sg < segs; ++sg) v += s_part[((size_t)sg * mt_n * 16) * WU + o];
+          s_dh[o] = v;
+        }
+      } else {
+        const int outs = nrows * WU, segs = outs >= WTHREADS ? 1 : WTHREADS / outs;
+        const int nq = round_up(g4, 16) / 4, qs = (nq + segs - 1) / segs;
+        if (segs == 1) {
+          // thread: unit u, rows r0 + 16 j (the same W_hh column for every row)
+          float acc[PMAX] = {};
+          const float* wr = reinterpret_cast<const float*>(wt) + (size_t)u * jp;
+          const float* dr = reinterpret_cast<const float*>(s_da) + (size_t)r0 * jp;
+#pragma unroll 4
+          for (int q = 0; q < nq; ++q) {
+            const float4 w4 = *reinterpret_cast<const float4*>(wr + 4 * q);
+#pragma unroll
+            for (int j = 0; j < PMAX; ++j)
+              if (r0 + 16 * j < nrows)
+                dot_quad(acc[j], w4.x, w4.y, w4.z, w4.w, *reinterpret_cast<const float4*>(dr + (size_t)16 * j * jp + 4 * q));
+          }
+#pragma unroll
+          for (int j = 0; j < PMAX; ++j)
+            if (r0 + 16 * j < nrows) s_dh[(r0 + 16 * j) * WU + u] = acc[j];
+        } else {
+          const int o = tid % outs, sg = tid / outs;
+          if (sg < segs) {
+            const int r = o / WU, uo = o % WU;
+            float acc = 0.0f;
+            const float* wr = reinterpret_cast<const float*>(wt) + (size_t)uo * jp;
+            const float* dr = reinterpret_cast<const float*>(s_da) + (size_t)r * jp;
+            const int q_end = min(nq, (sg + 1) * qs);
+            for (int q = sg * qs; q < q_end; ++q)
+              dot_quad(acc, *(wr + 4 * q), *(wr + 4 * q + 1), *(wr + 4 * q + 2), *(wr + 4 * q + 3),
+                       *reinterpret_cast<const float4*>(dr + 4 * q));
+            s_part[sg * outs + o] = acc;
+          }
+          __syncthreads();
+          for (int o2 = tid; o2 < outs; o2 += WTHREADS) {
+            float v = 0.0f;
+            for (int s2 = 0; s2 < segs; ++s2) v += s_part[s2 * outs + o2];
+            s_dh[o2] = v;
+          }
+        }
+      }
+      if (tiled) {  // the tile's dh_{t-1} to dh_state, s_dh and s_part free for the next tile
+        __syncthreads();
+        for (int o = tid; o < nrows * WU; o += WTHREADS) {
+          const int gu = tile * WU + o % WU;
+          if (gu < h) a.dh_state[(size_t)(row0 + o / WU) * h + gu] = s_dh[o];
+        }
+        __syncthreads();
+      }
+    }
+  }
+  __syncthreads();
+  // the carry into the window before (tiled: already there), and the group's db of this window (rows in order)
+  if (!tiled) {
+    const int gu = cta * WU + u;
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      const int r = r0 + 16 * j;
+      if (r < nrows && gu < h && a.t0 > 0) {
+        a.dc_state[(size_t)(row0 + r) * h + gu] = dc[j];
+        a.dh_state[(size_t)(row0 + r) * h + gu] = s_dh[r * WU + u];
+      }
+    }
+  }
+  float* s_db = reinterpret_cast<float*>(s_da);  // [rows][64]: the pairs' db, then summed by column
+  for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
+    const int u0 = (cta + tile_i * kp) * WU, gu = u0 + u;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PMAX; ++j) {
+      const int r = r0 + 16 * j;
+      if (r < nrows)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          s_db[r * WROWS + m * WU + u] =
+              !tiled ? db[j][m] : gu < h ? a.db_rows[(size_t)(row0 + r) * g4 + (size_t)m * h + gu] : 0.0f;
+    }
+    __syncthreads();
+    if (tid < WROWS) {
+      const int m = tid / WU, uu = tid % WU;
+      if (u0 + uu < h) {
+        float v = 0.0f;
+        for (int r = 0; r < nrows; ++r) v += s_db[r * WROWS + tid];
+        float* out = a.db_part + (size_t)grp * g4 + (size_t)m * h + u0 + uu;
+        *out = a.first ? v : *out + v;
+      }
+    }
+  }
+}
+
+// The card's SMs, and the CTAs of a recurrence it holds at once (0: none fits).
+cudaError_t resident(const void* kernel, size_t smem, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WTHREADS, smem);
+  *out = per_sm * sms;
+  return err;
+}
+
+// CTAs a row group of kk tiles where the card holds `slots` CTAs at once:
+// all kk where they fit, else as few as fit, with the tiles spread evenly
+// (kk = 140 on 132 slots: 70 CTAs of two tiles).  0 where none fits.
+__host__ __device__ constexpr int group_ctas(int kk, int slots) {
+  return slots >= kk ? kk : slots < 1 ? 0 : (kk + (kk + slots - 1) / slots - 1) / ((kk + slots - 1) / slots);
+}
+
+struct RecShape {
+  int ctas;     // CTAs a row group
+  int tiled;    // 1: the TILED instantiation (and W_hh's slice in global memory)
+  int w_smem;   // 1: W_hh's slice in shared memory (never tiled)
+  size_t smem;  // dynamic shared memory of a CTA
+  int slots;    // CTAs of this shape the card holds at once (0: none fits its shared memory)
+};
+
+// The launch shape of one recurrence (kernel: its untiled and TILED
+// instantiations) at `rows` rows a group: every CTA of a group, untiled,
+// with W_hh's slice in shared memory where that fits the card's opt-in
+// limit and the card holds the group at once; else the slice in global
+// memory, untiled where the card holds the group, else the TILED
+// instantiation at `want` CTAs a group (0: group_ctas of what the card
+// holds).
+template <typename T>
+cudaError_t rec_shape(const void* const kernel[2], SmemOnce* once, int bwd, int h, int rows, int want,
+                      RecShape* out) {
+  cudaError_t err;
+  for (int i = 0; i < 2; ++i)
+    if ((err = once[i].set(kernel[i], 0)) != cudaSuccess) return err;
+  int dev = 0, optin = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return err;
+  const int kk = n_cta(h);
+  for (int w = 1; w >= 0; --w) {
+    *out = RecShape{0, 0, w, wide_smem<T>(bwd, h, rows, w), 0};
+    if (out->smem > (size_t)optin) continue;
+    if (want == 0 || want == kk) {
+      if ((err = resident(kernel[0], out->smem, &out->slots)) != cudaSuccess) return err;
+      out->ctas = kk;
+      if (out->slots >= kk) return cudaSuccess;
+    }
+    if (w == 1) continue;
+    out->tiled = 1;
+    if ((err = resident(kernel[1], out->smem, &out->slots)) != cudaSuccess) return err;
+    out->ctas = want ? want : group_ctas(kk, out->slots);
+    return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool TRAIN> SmemOnce* fwd_once() { static SmemOnce o[2]; return o; }
+template <typename T> SmemOnce* bwd_once() { static SmemOnce o[2]; return o; }
+template <typename T, bool TRAIN> const void* const* fwd_kernels() {
+  static const void* const k[2] = {(const void*)lstm_wide_fwd_kernel<T, TRAIN, false>,
+                                   (const void*)lstm_wide_fwd_kernel<T, TRAIN, true>};
+  return k;
+}
+template <typename T> const void* const* bwd_kernels() {
+  static const void* const k[2] = {(const void*)lstm_wide_bwd_kernel<T, false>, (const void*)lstm_wide_bwd_kernel<T, true>};
+  return k;
+}
+
+// The launch shape of the recurrence (bwd = 0: A / B's, 1: C's) at `rows`
+// rows a group, as a call with CTAs a group `want` (0: the card's choice)
+// would launch it.
+template <typename T>
+cudaError_t wide_shape(int bwd, int h, int rows, int want, RecShape* out) {
+  if (h < 1 || rows < 1 || rows > WMAX_R || want < 0 || want > n_cta(h)) return cudaErrorInvalidValue;
+  return bwd ? rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, want, out)
+             : rec_shape<T>(fwd_kernels<T, false>(), fwd_once<T, false>(), 0, h, rows, want, out);
+}
+
+// Row groups of `rows` rows over the batch, in cooperative launches of as
+// many groups of `ctas` CTAs as the card holds: launch(g0, n) for each.
+template <typename Launch>
+cudaError_t over_groups(int batch, int rows, int ctas, int slots, Launch launch) {
+  const int groups = (batch + rows - 1) / rows, per = slots / ctas;
+  if (per < 1) return cudaErrorCooperativeLaunchTooLarge;  // a row group's CTAs do not fit the card at once
+  for (int g0 = 0; g0 < groups; g0 += per) {
+    const cudaError_t err = launch(g0, groups - g0 < per ? groups - g0 : per);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t pack(const float* w_hh, void* out, int h, int bwd, bool bf16, cudaStream_t stream) {
+  const long long n = bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h);
+  const unsigned blocks = (unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  if (bf16)
+    lstm_wide_pack_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(w_hh, (__nv_bfloat16*)out, h, bwd);
+  else
+    lstm_wide_pack_kernel<float><<<blocks, 256, 0, stream>>>(w_hh, (float*)out, h, bwd);
+  return cudaGetLastError();
+}
+
+template <typename T>
+BwdArgs<T> bwd_args(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,
+                    const float* w_hh, const float* bias, int batch, int steps, int d, int h) {
+  return BwdArgs<T>{(const T*)x, (const T*)y, cprev, (const T*)dy, w_ih, w_hh, bias, batch, steps, d, h};
+}
+
+// The gate pass over one window (XP: the forward's projection into out).
+template <typename T, bool XP>
+cudaError_t gate_pass(const BwdArgs<T>& a, float* out, Win w, cudaStream_t stream) {
+  const long long n_rows = (long long)a.batch * w.tc, unit_blocks = (a.h + CU - 1) / CU;
+  if constexpr (is_bf16<T>)
+    lstm_bwd_gates_bf16_kernel<true, XP>
+        <<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(a, out, w);
+  else
+    lstm_bwd_gates_f32_kernel<true, XP>
+        <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, out, w);
+  return cudaGetLastError();
+}
+
+// Kernel A (TRAIN = false) / B over every window.
+template <typename T, bool TRAIN>
+int launch_fwd(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y, float* cprev,
+               float* xp, void* wpack, float* c_state, unsigned* count, int batch, int steps, int d, int h, int rows,
+               int ctas, int window, cudaStream_t stream) {
+  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || window < 1 ||
+      (long long)batch * window >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  RecShape sh;
+  cudaError_t err = rec_shape<T>(fwd_kernels<T, TRAIN>(), fwd_once<T, TRAIN>(), 0, h, rows, ctas, &sh);
+  if (err != cudaSuccess) return (int)err;
+  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one row of h fits shared memory
+  const int groups = (batch + rows - 1) / rows;
+  if ((err = cudaMemsetAsync(count, 0, sizeof(unsigned) * groups, stream)) != cudaSuccess) return (int)err;
+  if ((err = pack(w_hh, wpack, h, 0, is_bf16<T>, stream)) != cudaSuccess) return (int)err;
+  const BwdArgs<T> pa = bwd_args<T>(x, nullptr, nullptr, nullptr, w_ih, w_hh, bias, batch, steps, d, h);
+  for (int t0 = 0; t0 < steps; t0 += window) {
+    const int tc = steps - t0 < window ? steps - t0 : window;
+    if ((err = gate_pass<T, true>(pa, xp, Win{t0, tc}, stream)) != cudaSuccess) return (int)err;
+    err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
+      WideFwd<T> a{xp, (const T*)wpack, (T*)y, cprev, c_state, count, batch, steps, h, t0, tc, rows, g0, sh.w_smem,
+                   sh.ctas};
+      void* args[] = {&a};
+      return cudaLaunchCooperativeKernel(fwd_kernels<T, TRAIN>()[sh.tiled], dim3((unsigned)(n * sh.ctas)),
+                                         dim3(WTHREADS), args, sh.smem, stream);
+    });
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel C over every window, the last first, then the ordered sum.
+template <typename T>
+int launch_bwd(const BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,
+               float* db_part, void* wpack, float* dh_state, float* dc_state, float* db_rows, unsigned* count, int rows,
+               int ctas, int window, int n_chunks, cudaStream_t stream) {
+  const int batch = a.batch, steps = a.steps, d = a.d, h = a.h;
+  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || window < 1 || n_chunks < 1 ||
+      (long long)batch * window >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  RecShape sh;
+  cudaError_t err = rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, ctas, &sh);
+  if (err != cudaSuccess) return (int)err;
+  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one row of da fits shared memory
+  if (sh.tiled && db_rows == nullptr) return (int)cudaErrorInvalidValue;
+  const int groups = (batch + rows - 1) / rows, g = 4 * h, kd = d + h;
+  if ((err = cudaMemsetAsync(count, 0, sizeof(unsigned) * groups, stream)) != cudaSuccess) return (int)err;
+  if ((err = pack(a.w_hh, wpack, h, 1, is_bf16<T>, stream)) != cudaSuccess) return (int)err;
+  const int n_win = (steps + window - 1) / window;
+  for (int wi = n_win - 1; wi >= 0; --wi) {
+    const int t0 = wi * window, tc = steps - t0 < window ? steps - t0 : window, first = wi == n_win - 1;
+    const Win w{t0, tc};
+    if ((err = gate_pass<T, false>(a, rec, w, stream)) != cudaSuccess) return (int)err;
+    err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
+      WideBwd<T> b{rec, (const T*)wpack, (T*)da, db_part, dh_state, dc_state, db_rows, count,
+                   batch, steps, h, t0, tc, rows, g0, sh.w_smem, first, sh.ctas};
+      void* args[] = {&b};
+      return cudaLaunchCooperativeKernel(bwd_kernels<T>()[sh.tiled], dim3((unsigned)(n * sh.ctas)),
+                                         dim3(WTHREADS), args, sh.smem, stream);
+    });
+    if (err != cudaSuccess) return (int)err;
+    const long long n_rows = (long long)batch * tc, chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+    if constexpr (is_bf16<T>) {
+      lstm_bwd_dx_any_mma_kernel<true><<<dim3((unsigned)((n_rows + AXM - 1) / AXM), (d + AT - 1) / AT), 256, 0,
+                                         stream>>>((const T*)da, a.w_ih, (T*)dx, n_rows, d, h, steps, w);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      const int vec = (d % 8 == 0 && h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0);
+      lstm_bwd_dw_any_mma_kernel<true><<<dim3(n_chunks, (g + AT - 1) / AT, (kd + AT - 1) / AT), 256, 0, stream>>>(
+          (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, d, h, vec, w, !first);
+    } else {
+      lstm_bwd_dx_any_kernel<true><<<dim3((unsigned)((n_rows + AT - 1) / AT), (d + AT - 1) / AT), 256, 0, stream>>>(
+          (const T*)da, a.w_ih, (T*)dx, n_rows, d, h, steps, w);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      lstm_bwd_dw_any_kernel<true><<<dim3(n_chunks, (g + FT - 1) / FT, (kd + FT - 1) / FT), 256, 0, stream>>>(
+          (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, d, h, w, !first);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kd + 255) / 256), 256, 0, stream>>>(
+      part, n_chunks, db_part, groups, dw_ih, dw_hh, db, d, h);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernels A (lstm_fwd_*_wide, cprev unused) and B (lstm_fwd_train_*_wide)
+// for any D, H >= 1 (the plan sends max(D, H) > 256 here).  x: (B, T, D) and
+// y: (B, T, H) in the instantiation's type; w_ih: (4H, D), w_hh: (4H, H),
+// bias: (4H,) fp32; cprev: (B, T, H) fp32.  Scratch: xp (B, window, 4H)
+// fp32; wpack: awm_lstm_wide_pack_elems(0, bf16, H) elements of the operand
+// type; c_state (B, H) fp32; count: ceil(B / rows) 32-bit counters.  rows:
+// batch rows a row group (1 .. 64); ctas: CTAs a row group (1 ..
+// ceil(H / 16); 0: the card's choice, awm_lstm_wide_shape's); window: steps
+// a window (B window < 2^31).  All contiguous on the current device.
+// Returns the first cudaError_t of the launches (0 = all launched).
+#define AWM_LSTM_WIDE_FWD_ENTRY(NAME, TYPE, TRAIN)                                                        \
+  int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y, float* cprev,  \
+           float* xp, void* wpack, float* c_state, unsigned* count, int batch, int steps, int d, int h,    \
+           int rows, int ctas, int window, void* stream) {                                                \
+    return launch_fwd<TYPE, TRAIN>(x, w_ih, w_hh, bias, y, TRAIN ? cprev : nullptr, xp, wpack, c_state,   \
+                                   count, batch, steps, d, h, rows, ctas, window, (cudaStream_t)stream);  \
+  }
+AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_f32_wide, float, false)
+AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_bf16_wide, __nv_bfloat16, false)
+AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_train_f32_wide, float, true)
+AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_train_bf16_wide, __nv_bfloat16, true)
+#undef AWM_LSTM_WIDE_FWD_ENTRY
+
+// Kernel C (lstm_bwd_*_wide): the operands and outputs of lstm_bwd.cu's
+// entry points.  Scratch: da (B, window, 4H) in the operand type; rec (B,
+// window, H, 8) fp32; part (n_chunks, 4H, D + H) fp32; db_part (ceil(B /
+// rows), 4H) fp32; wpack: awm_lstm_wide_pack_elems(1, bf16, H) elements of
+// the operand type; dh_state, dc_state (B, H) fp32; db_rows (B, 4H) fp32
+// (used where a CTA owns more than one tile); count: ceil(B / rows) 32-bit
+// counters.  rows, ctas, window as above.
+#define AWM_LSTM_WIDE_BWD_ENTRY(NAME, TYPE)                                                               \
+  int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,          \
+           const float* w_hh, const float* bias, void* dx, float* dw_ih, float* dw_hh, float* db,        \
+           void* da, float* rec, float* part, float* db_part, void* wpack, float* dh_state,              \
+           float* dc_state, float* db_rows, unsigned* count, int batch, int steps, int d, int h, int rows, \
+           int ctas, int window, int n_chunks, void* stream) {                                            \
+    return launch_bwd<TYPE>(bwd_args<TYPE>(x, y, cprev, dy, w_ih, w_hh, bias, batch, steps, d, h), dx,  \
+                            dw_ih, dw_hh, db, da, rec, part, db_part, wpack, dh_state, dc_state, db_rows, \
+                            count, rows, ctas, window, n_chunks, (cudaStream_t)stream);                   \
+  }
+AWM_LSTM_WIDE_BWD_ENTRY(awm_lstm_bwd_f32_wide, float)
+AWM_LSTM_WIDE_BWD_ENTRY(awm_lstm_bwd_bf16_wide, __nv_bfloat16)
+#undef AWM_LSTM_WIDE_BWD_ENTRY
+
+// The launch shape of the wide recurrence (bwd = 0: A and B's, 1: C's) at
+// `rows` rows a row group on the current device, as a call with ctas = 0
+// launches it: out[0] the CTAs the card holds at once (0 where not one
+// fits its shared memory), out[1] the CTAs a row group (ceil(H / 16), or
+// fewer, each of more tiles, where the card does not hold that many), out[2]
+// 1 where W_hh's slice is in shared memory (else read from the packed copy
+// in global memory).  Returns 0 or the cudaError_t.
+int awm_lstm_wide_shape(int bwd, int bf16, int h, int rows, int* out) {
+  RecShape sh;
+  const cudaError_t err = bf16 ? wide_shape<__nv_bfloat16>(bwd, h, rows, 0, &sh) : wide_shape<float>(bwd, h, rows, 0, &sh);
+  out[0] = sh.slots, out[1] = sh.ctas, out[2] = sh.w_smem;
+  return (int)err;
+}
+
+// Elements of the packed W_hh the entry points take (bwd = 0: A and B's).
+long long awm_lstm_wide_pack_elems(int bwd, int bf16, int h) {
+  return bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h);
+}
+
+const char* awm_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

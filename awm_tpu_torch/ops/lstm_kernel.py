@@ -3,14 +3,16 @@
 Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - A, lstm_pallas_forward (pallas_call at line 157): forward_kernel,
   ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32|_w16] (above
-  width 64 ops/csrc/lstm_fwd_cluster.cu, lstm_fwd_{f32,bf16}_cluster);
+  width 64 ops/csrc/lstm_fwd_cluster.cu, lstm_fwd_{f32,bf16}_cluster; above
+  256 ops/csrc/lstm_wide.cu, lstm_fwd_{f32,bf16}_wide);
 - B, _forward_train (line 342): forward_train_kernel, the same sources with
-  their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16|_cluster];
-- C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu,
-  instantiations lstm_bwd_{f32,bf16}[_w32|_w16].
-Each takes any input width D and hidden width H from 1 to MAX_WIDTH = 256
-(x's last axis and w_hh's second); a wider call raises.  Every weight of the
-recurrence sits on chip, so the kernels are compiled for three capacities W:
+  their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16|_cluster|_wide];
+- C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu (above 256
+  lstm_wide.cu), instantiations lstm_bwd_{f32,bf16}[_w32|_w16|_cluster|_wide].
+Each takes any input width D and hidden width H >= 1 (x's last axis and
+w_hh's second), as the TPU kernels do; a width of 0 raises.  Up to
+CLUSTER_MAX_WIDTH = 256 every weight of the recurrence sits on chip, so the
+kernels are compiled for three capacities W:
 64 (the base family, no suffix), 32 (the strided family, suffix _w32) and 16
 (the gradient check of entry.dryrun_multichip, suffix _w16, the ring path
 and four-launch backward, untuned).  A call takes the smallest capacity
@@ -24,10 +26,20 @@ carries 1, 2, 4 or 8 batch rows, h (and in the backward da) exchanged
 between them through distributed shared memory every step in row bursts
 (instantiations *_cluster, lstm_fwd_cluster.cu and lstm_bwd.cu, "widths above
 64"); the backward's gates, activations and local derivatives come from a
-whole-card gate pass before its recurrence.  On that card each is bound by the
-latency of one step of the recurrence, not by bytes or FLOPs: 16000 steps
-at W = 64; at W = 32 the strided family's 50 steps take about as long as
-the host's work for one call, so a call launches one kernel and nothing
+whole-card gate pass before its recurrence.  Above 256 (max(D, H) >
+CLUSTER_MAX_WIDTH) a call takes the wide path (instantiations *_wide,
+lstm_wide.cu's header has the design): windows of WIDE_* steps chosen so
+that the call's scratch stays within WIDE_SCRATCH_BYTES whatever T is, each
+window's projection (A, B) or gate pass (C) over the whole card, then a
+recurrence of row groups of ceil(H / WIDE_UNITS) CTAs that exchange h (da)
+through global memory with one barrier a step (cooperative launches of the
+row groups the card holds at once, _wide_slots; where the card does not
+hold a group's CTAs at once, fewer CTAs of more unit tiles each, wide_ctas),
+then C's dx and dW by window and the ordered sum.  On that card each (up to
+256) is bound by the latency of one step of the recurrence, not by bytes or
+FLOPs: 16000 steps at W = 64; at W = 32 the strided family's 50 steps
+take about as long as the host's work for one call, so a call launches one
+kernel and nothing
 beside it: every kernel reads fp32 weights and the bf16 ones round them
 themselves (no cast kernel), dy comes in x's type as autograd hands it,
 no output is zero-filled (the kernels write every element), the plan is
@@ -51,7 +63,8 @@ tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
 the steps, the widths and the card's SM count, cached per shape, and handed
-to the C entry points: the capacity or the cluster's size; rows per block
+to the C entry points: the capacity, the cluster's size or the wide path
+(its windows, its rows a row group and its scratch); rows per block
 (1, 2 or 4 forward, 1 or 2 backward; 1, 2, 4 or 8 a cluster: the rows that
 finish the batch soonest, by the waves of blocks the card needs, at the
 blocks an SM runs at once (the clusters the card holds), and the measured
@@ -92,18 +105,23 @@ from awm_tpu_torch.ops.lstm import (
 )
 
 WIDTHS = (64, 32, 16)  # the capacities W of the register-held instantiations
-MAX_WIDTH = 256  # the ceiling on D and H: the cluster path's 8 CTAs of CLUSTER_UNITS
+CLUSTER_MAX_WIDTH = 256  # the cluster path's widest D and H (8 CTAs of CLUSTER_UNITS); wider: the wide path
 CLUSTER_UNITS = 32  # hidden units a CTA of the cluster path owns
-SOURCES = ("lstm_fwd", "lstm_fwd_cluster", "lstm_bwd")  # ops/csrc/<name>.cu, one library each
+SOURCES = ("lstm_fwd", "lstm_fwd_cluster", "lstm_bwd", "lstm_wide")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
 
 def capacity(width: int, hidden: int | None = None) -> int | None:
     """The smallest W of WIDTHS with max(D, H) <= W, or None where the call
-    takes the cluster path (max(D, H) > 64)."""
+    takes the cluster path (max(D, H) > 64) or the wide path (> 256)."""
     need = max(width, hidden or width)
     fits = [w for w in WIDTHS if need <= w]
     return min(fits) if fits else None
+
+
+def is_wide(width: int, hidden: int | None = None) -> bool:
+    """True where a call takes the wide path: max(D, H) > CLUSTER_MAX_WIDTH."""
+    return max(width, hidden or width) > CLUSTER_MAX_WIDTH
 
 
 def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | None = None) -> str:
@@ -111,10 +129,13 @@ def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | Non
     hidden width H = hidden (default: width) runs, and of its launch
     counter: lstm_fwd_f32 (D = H = 64), lstm_fwd_bf16_w32 (D = H = 32),
     lstm_fwd_f32_masked (D, H <= 64, not both 64: capacity 64 at runtime
-    widths), lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64).
-    Its C entry point is entry_point(name)."""
+    widths), lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64),
+    lstm_bwd_f32_wide (max(D, H) > 256).  Its C entry point is
+    entry_point(name)."""
     sfx = "bf16" if matmul_dtype(dtype) == torch.bfloat16 else "f32"
     hidden = hidden or width
+    if is_wide(width, hidden):
+        return f"{kernel}_{sfx}_wide"
     cap = capacity(width, hidden)
     if cap is None:
         return f"{kernel}_{sfx}_cluster"
@@ -123,8 +144,11 @@ def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | Non
 
 
 def source_of(name: str) -> str:
-    """The source (library) of an instantiation: lstm_bwd, lstm_fwd, or
-    lstm_fwd_cluster for A and B on the cluster path."""
+    """The source (library) of an instantiation: lstm_wide on the wide path,
+    else lstm_bwd, lstm_fwd, or lstm_fwd_cluster for A and B on the cluster
+    path."""
+    if name.endswith("_wide"):
+        return "lstm_wide"
     if name.startswith("lstm_bwd"):
         return "lstm_bwd"
     return "lstm_fwd_cluster" if name.endswith("_cluster") else "lstm_fwd"
@@ -155,9 +179,10 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # the kernels.  A call counts once: a forward call is one launch; a
 # backward call is one launch on the fused path (W = 32 where the plan
 # takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
-# One counter per path: square, masked (a capacity at runtime widths) and
-# cluster.
-PATH_WIDTHS = tuple((w, w) for w in WIDTHS) + tuple((w - 1, w) for w in WIDTHS) + ((MAX_WIDTH, MAX_WIDTH),)
+# One counter per path: square, masked (a capacity at runtime widths),
+# cluster and wide (a call counts once there too, whatever its windows).
+PATH_WIDTHS = (tuple((w, w) for w in WIDTHS) + tuple((w - 1, w) for w in WIDTHS)
+               + ((CLUSTER_MAX_WIDTH, CLUSTER_MAX_WIDTH), (CLUSTER_MAX_WIDTH + 1, CLUSTER_MAX_WIDTH + 1)))
 launches = {instantiation(k, dt, d, h): 0
             for d, h in PATH_WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
 
@@ -266,7 +291,23 @@ CLUSTER_BWD_STEP_COST = {
     (8, torch.float32): {1: 1.0, 2: 1.74, 4: 3.13, 8: 8.83}, (8, torch.bfloat16): {1: 1.0, 2: 1.28, 4: 1.66, 8: 2.67},
 }
 CLUSTER_ROWS = (1, 2, 4, 8)
-CLUSTER_REC = 8  # floats of a (row, step, unit) record of kernel C's gate pass (lstm_bwd.cu's CREC)
+CLUSTER_REC = 8  # floats of a (row, step, unit) record of kernel C's gate pass (lstm_any.cuh's CREC)
+# The wide path (max(D, H) > CLUSTER_MAX_WIDTH, ops/csrc/lstm_wide.cu): a CTA
+# owns WIDE_UNITS hidden units, a row group of ceil(H / WIDE_UNITS) CTAs
+# carries up to 64 batch rows (WIDE_ROWS, the plan's choice), and a call runs
+# in windows of time whose scratch (A, B: the window's projection (B, tc, 4H)
+# fp32; C: its records (B, tc, H, 8) fp32 and da (B, tc, 4H) in the operand
+# type, beside the dW partials, at most a quarter of the budget) stays within
+# WIDE_SCRATCH_BYTES whatever T is: the GB-scale analogue of the TPU kernel's
+# 4 MB time tile (awm_tpu/ops/pallas/lstm_kernel.py::_pick_tc).  Rows a group:
+# the fewest launches of the row groups the card holds at once (_wide_slots:
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs over ceil(H / 16)),
+# then the fewest rows (_wide_rows); where no rows variant holds a group's
+# ceil(H / 16) CTAs at once (H > 2112 at one CTA an SM of 132), fewer CTAs
+# a group, each of more tiles of WIDE_UNITS (wide_ctas).
+WIDE_UNITS = 16
+WIDE_ROWS = (1, 2, 4, 8, 16, 32, 64)
+WIDE_SCRATCH_BYTES = 2**31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,6 +330,28 @@ class LaunchPlan:
     part_shape: tuple[int, int, int]  # scratch: dW chunk partials (n_chunks, 4H, D + H), fp32
     db_part_shape: tuple[int, int]  # scratch: db per recurrent block, fp32
     rec_shape: tuple[int, ...] | None  # scratch on the cluster path: the gate pass's records (B, T, H, 8), fp32
+    # The wide path (max(D, H) > 256): fwd_rows / bwd_rows are rows a row group and fwd_blocks /
+    # bwd_blocks the row groups; da_shape and rec_shape are a window's, (B, bwd_window, ...).
+    wide: bool = False
+    fwd_window: int = 0  # steps a window of A and B
+    bwd_window: int = 0  # steps a window of C
+    xp_shape: tuple[int, int, int] | None = None  # scratch: A and B's window projection (B, fwd_window, 4H), fp32
+    fwd_pack: int = 0  # scratch: elements of the packed W_hh in the operand type, A and B
+    bwd_pack: int = 0  # and C's
+    state_shape: tuple[int, int] | None = None  # scratch: the state carried between windows, (B, H) fp32 each
+    fwd_ctas: int = 0  # CTAs a row group, A and B (ceil(H / WIDE_UNITS) unless tiled; 0: the card's choice)
+    bwd_ctas: int = 0  # and C's
+
+    def scratch_bytes(self, kernel: str) -> int:
+        """Bytes of scratch a wide call of kernel ("lstm_fwd", "lstm_fwd_train"
+        or "lstm_bwd") allocates beside its inputs and outputs."""
+        elt = 2 if self.da_dtype == torch.bfloat16 else 4
+        prod = lambda shape: functools.reduce(lambda a, b: a * b, shape, 1)
+        if kernel == "lstm_bwd":  # da_shape[::2]: db_rows (B, 4H), the db of a tiled CTA's rows
+            return (4 * (prod(self.rec_shape) + prod(self.part_shape) + prod(self.db_part_shape)
+                         + 2 * prod(self.state_shape) + prod(self.da_shape[::2]) + self.bwd_blocks)
+                    + elt * (prod(self.da_shape) + self.bwd_pack))
+        return 4 * (prod(self.xp_shape) + prod(self.state_shape) + self.fwd_blocks) + elt * self.fwd_pack
 
 
 def _one_wave_rows(batch: int, slots: dict[int, int]) -> int:
@@ -317,23 +380,113 @@ def _rows_per_block(batch: int, slots, step_cost: dict[int, float]) -> int:
 
 
 def _check_width(width: int, hidden: int | None = None) -> None:
-    for name, w in (("D", width), ("H", hidden or width)):
-        if not 1 <= w <= MAX_WIDTH:
-            raise ValueError(f"lstm kernels take widths 1 <= D, H <= {MAX_WIDTH} (MAX_WIDTH), "
-                             f"got {name} = {w}")
+    for name, w in (("D", width), ("H", width if hidden is None else hidden)):
+        if w < 1:
+            raise ValueError(f"lstm kernels take widths D, H >= 1, got {name} = {w}")
+
+
+def wide_pitch(n: int, bf16: bool) -> int:
+    """lstm_wide.cu's wide_pitch: the row pitch of a staged operand of n terms."""
+    return -(-n // 16) * 16 + (8 if bf16 else 4)
+
+
+def wide_pack_elems(bwd: bool, bf16: bool, hidden: int) -> int:
+    """Elements of the packed W_hh of the wide path (lstm_wide.cu's
+    pack_elems): each CTA's 64 gate rows (A, B) or 16 columns (C)."""
+    k = -(-hidden // WIDE_UNITS)
+    return k * (WIDE_UNITS * wide_pitch(4 * hidden, bf16) if bwd else 4 * WIDE_UNITS * wide_pitch(hidden, bf16))
+
+
+def wide_ctas(k: int, slots: int) -> int:
+    """lstm_wide.cu's group_ctas: the CTAs of a row group of k unit tiles
+    where the card holds `slots` CTAs at once: all k where they fit, else as
+    few as fit with the tiles spread evenly (k = 140 on 132: 70 CTAs of
+    two); 0 where not one fits."""
+    if slots >= k:
+        return k
+    return -(-k // -(-k // slots)) if slots >= 1 else 0
+
+
+def _wide_rows(batch: int, k: int, slots: dict[int, int]) -> tuple[int, int]:
+    """(Rows, CTAs) of a row group of k unit tiles, where slots[r] CTAs of r
+    rows are resident at once: where some rows variant holds a group's k
+    CTAs, the fewest launches of the row groups the card holds, then the
+    fewest rows (a launch runs every step of a window, so each launch more
+    costs a window's steps again; a step's cost grows with the rows more
+    slowly than the rows: PERF.md section 6); else (tiled: fewer CTAs of
+    more tiles, wide_ctas) the fewest launches times tiles, then the fewest
+    rows.  Raises where not one row fits the card's shared memory."""
+    groups = lambda r: -(-batch // r)
+    fit = [r for r in WIDE_ROWS if slots[r] >= k]
+    if fit:
+        return min(fit, key=lambda r: (-(-groups(r) // (slots[r] // k)), r)), k
+    some = [r for r in WIDE_ROWS if slots[r] >= 1]
+    if not some:
+        raise RuntimeError(
+            f"the wide path stages one row of h (kernels A, B) or of da (C) of H = {k * WIDE_UNITS} terms or fewer "
+            f"in shared memory, and the card holds not one such CTA (ops/csrc/lstm_wide.cu's header: on an H100 fp32 C "
+            f"takes H up to 14264, bf16 A and B 14512)")
+
+    def cost(r: int) -> tuple[int, int]:
+        c = wide_ctas(k, slots[r])
+        return -(-groups(r) // (slots[r] // c)) * -(-k // c), r
+    rows = min(some, key=cost)
+    return rows, wide_ctas(k, slots[rows])
+
+
+def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width: int, hidden: int,
+               bwd_rows: int | None, wide_slots: tuple | None) -> LaunchPlan:
+    """The wide path's plan (launch_plan's, max(D, H) > CLUSTER_MAX_WIDTH)."""
+    mm = matmul_dtype(dtype)
+    bf16, elt = mm == torch.bfloat16, 2 if mm == torch.bfloat16 else 4
+    k = -(-hidden // WIDE_UNITS)
+    fwd_slots, bwd_slots = (dict(zip(WIDE_ROWS, s)) for s in wide_slots or ((sm_count,) * len(WIDE_ROWS),) * 2)
+    fwd_rows, fwd_ctas = _wide_rows(batch, k, fwd_slots)
+    if bwd_rows is None:
+        bwd_rows, bwd_ctas = _wide_rows(batch, k, bwd_slots)
+    elif bwd_rows not in range(1, max(WIDE_ROWS) + 1):
+        raise ValueError(f"the wide path takes 1 to {max(WIDE_ROWS)} rows a row group, got {bwd_rows}")
+    else:
+        bwd_ctas = wide_ctas(k, bwd_slots.get(bwd_rows, 0))  # 0 (the card's choice) where the reading left it out
+    fwd_groups, bwd_groups = -(-batch // fwd_rows), -(-batch // bwd_rows)
+    g, budget = 4 * hidden, WIDE_SCRATCH_BYTES
+    fwd_pack, bwd_pack = wide_pack_elems(False, bf16, hidden), wide_pack_elems(True, bf16, hidden)
+    # windows: what the budget leaves after the fixed scratch (for C a quarter of the budget kept for
+    # the dW partials), a local row index below 2^31; the same windows at any T longer than them
+    part_budget = budget // 4
+    fwd_fixed = 4 * (batch * hidden + fwd_groups) + elt * fwd_pack
+    bwd_fixed = part_budget + 4 * (bwd_groups * g + 2 * batch * hidden + batch * g + bwd_groups) + elt * bwd_pack
+    window = lambda fixed, per_step: max(1, min(steps, (budget - fixed) // per_step, (2**31 - 1) // batch))
+    fwd_window = window(fwd_fixed, batch * g * 4)
+    bwd_window = window(bwd_fixed, batch * (hidden * CLUSTER_REC * 4 + g * elt))
+    # dW partials: the four-launch formula over a window's rows, within their quarter of the budget
+    n_rows = batch * bwd_window
+    n_chunks = max(1, min(DW_MAX_CHUNKS, part_budget // (4 * g * (width + hidden)),
+                          max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
+    return LaunchPlan(
+        capacity=0, cluster=0, fwd_rows=fwd_rows, fwd_blocks=fwd_groups, fwd_short=False,
+        bwd_rows=bwd_rows, bwd_blocks=bwd_groups, bwd_fused=False, n_chunks=n_chunks, dx_blocks=0,
+        da_shape=(batch, bwd_window, g), da_dtype=mm,
+        part_shape=(n_chunks, g, width + hidden), db_part_shape=(bwd_groups, g),
+        rec_shape=(batch, bwd_window, hidden, CLUSTER_REC),
+        wide=True, fwd_window=fwd_window, bwd_window=bwd_window, xp_shape=(batch, fwd_window, g),
+        fwd_pack=fwd_pack, bwd_pack=bwd_pack, state_shape=(batch, hidden), fwd_ctas=fwd_ctas, bwd_ctas=bwd_ctas,
+    )
 
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
                 width: int, bwd_rows: int | None = None, hidden: int | None = None,
-                cluster_slots: tuple | None = None) -> LaunchPlan:
+                cluster_slots: tuple | None = None, wide_slots: tuple | None = None) -> LaunchPlan:
     """The plan of one call of input width D = width and hidden width H =
     hidden (default: width): pure, so the CPU tests reach it, and cached, so
     a call looks its shape up.  bwd_rows overrides the backward's rows per
     block (for tests and timing; the path follows from the blocks).
     cluster_slots: ((forward, backward) clusters of each of CLUSTER_ROWS
     rows the card runs at once) on the cluster path, _cluster_slots'
-    reading; None counts sm_count // K for each.  The
+    reading; None counts sm_count // K for each.  wide_slots: ((A's, C's)
+    CTAs of each of WIDE_ROWS rows the card holds at once) on the wide path,
+    _wide_slots' reading; None counts sm_count for each.  The
     forward's path follows from the widths and T alone.  The fused path
     counts on the whole card: sm_count SMs, each free to hold one of its
     blocks.  Where the process has less (an MPS client with a share of the
@@ -343,6 +496,8 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
     hidden = hidden or width
     _check_width(width, hidden)
+    if is_wide(width, hidden):
+        return _wide_plan(batch, steps, dtype, sm_count, width, hidden, bwd_rows, wide_slots)
     mm = matmul_dtype(dtype)
     cap = capacity(width, hidden)
     square = width == hidden == cap
@@ -409,10 +564,50 @@ def _cluster_slots(device_index: int, dtype: torch.dtype, width: int, hidden: in
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_slots(device_index: int, dtype: torch.dtype, hidden: int) -> tuple:
+    """((kernel A's, kernel C's) CTAs of the wide recurrence at each of
+    WIDE_ROWS rows) the card holds at once at hidden width H:
+    awm_lstm_wide_shape, read once per instantiation and width; 0 for the
+    rows at which W_hh's slice leaves shared memory where another rows
+    variant keeps it there (read from global memory each step it cost fp32
+    B at B=128 twice the time of half the rows, C twice that of half the
+    rows in twice the launches: PERF.md section 6).  Checks that the
+    library's packed W_hh has the size wide_pack_elems gives and that it
+    would launch the CTAs a group wide_ctas gives."""
+    lib, bf16 = libraries()["lstm_wide"], int(matmul_dtype(dtype) == torch.bfloat16)
+    k = -(-hidden // WIDE_UNITS)
+    out = []
+    with torch.cuda.device(device_index):
+        for bwd in (0, 1):
+            shapes = []
+            for rows in WIDE_ROWS:
+                got = (ctypes.c_int * 3)()
+                err = lib.awm_lstm_wide_shape(bwd, bf16, hidden, rows, got)
+                if err:
+                    raise RuntimeError(f"awm_lstm_wide_shape: {lib.awm_cuda_error_string(err).decode()}")
+                if got[1] != wide_ctas(k, got[0]):
+                    raise RuntimeError(f"lstm_wide.cu's group_ctas ({got[1]}) and lstm_kernel.wide_ctas "
+                                       f"({wide_ctas(k, got[0])}) disagree at H = {hidden}, {got[0]} slots")
+                shapes.append(tuple(got))
+            slots = [n for n, _, _ in shapes]
+            if any(m for _, _, m in shapes):
+                slots = [n if m else 0 for n, _, m in shapes]
+            out.append(tuple(slots))
+        for bwd in (0, 1):
+            if lib.awm_lstm_wide_pack_elems(bwd, bf16, hidden) != wide_pack_elems(bool(bwd), bool(bf16), hidden):
+                raise RuntimeError("lstm_wide.cu's packed W_hh and lstm_kernel.wide_pack_elems disagree")
+    return tuple(out)
+
+
 def _plan_for(x: torch.Tensor, hidden: int, bwd_rows: int | None = None) -> LaunchPlan:
     bsz, t, width = x.shape
-    slots = _cluster_slots(x.device.index, x.dtype, width, hidden) if capacity(width, hidden) is None else None
-    return launch_plan(bsz, t, x.dtype, _sm_count(x.device.index), width, bwd_rows, hidden, slots)
+    dev = x.device.index
+    if is_wide(width, hidden):
+        return launch_plan(bsz, t, x.dtype, _sm_count(dev), width, bwd_rows, hidden,
+                           wide_slots=_wide_slots(dev, x.dtype, hidden))
+    slots = _cluster_slots(dev, x.dtype, width, hidden) if capacity(width, hidden) is None else None
+    return launch_plan(bsz, t, x.dtype, _sm_count(dev), width, bwd_rows, hidden, slots)
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
@@ -425,10 +620,16 @@ def libraries() -> dict[str, ctypes.CDLL]:
         argtypes = {"lstm_fwd": [ptr] * 5 + [i] * 6 + [ptr],
                     "lstm_fwd_train": [ptr] * 6 + [i] * 6 + [ptr],
                     "lstm_bwd": [ptr] * 15 + [i] * 8 + [ptr]}
+        wide_argtypes = {"lstm_fwd": [ptr] * 10 + [i] * 7 + [ptr], "lstm_fwd_train": [ptr] * 10 + [i] * 7 + [ptr],
+                         "lstm_bwd": [ptr] * 20 + [i] * 8 + [ptr]}
         for name in launches:
             kernel = max((k for k in KERNELS if name.startswith(k + "_")), key=len)
             fn = getattr(built[source_of(name)][0], entry_point(name))
-            fn.argtypes, fn.restype = argtypes[kernel], ctypes.c_int
+            fn.argtypes = (wide_argtypes if name.endswith("_wide") else argtypes)[kernel]
+            fn.restype = ctypes.c_int
+        wide = built["lstm_wide"][0]
+        wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 4 + [ptr], ctypes.c_int
+        wide.awm_lstm_wide_pack_elems.argtypes, wide.awm_lstm_wide_pack_elems.restype = [i] * 3, ctypes.c_longlong
         for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots")):
             lib = built[src][0]
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * 4, ctypes.c_int
@@ -519,17 +720,45 @@ def _forward_path(x: torch.Tensor, width: int, hidden: int, rows: int | None, sh
     return x, rows, short
 
 
-def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None) -> torch.Tensor:
-    """Kernel A: (B, T, D) -> y (B, T, H) in x's dtype, on the card, 1 <= D,
-    H <= MAX_WIDTH.  rows overrides the plan's rows per block and short its
-    path (the short path at D = H = 32 or the ring) (for tests and
-    timing)."""
+def _wide_forward(x, w_ih, w_hh, b, y, cprev, rows: int | None, ctas: int | None) -> None:
+    """Kernel A (cprev None) or B on the wide path: the plan's windows, rows
+    a row group and CTAs a group (rows and ctas override them; rows alone
+    leaves the CTAs to the card), its scratch allocated here."""
+    bsz, t, width = x.shape
+    hidden = w_hh.shape[1]
+    plan = _plan_for(x, hidden)
+    ctas = ctas or (0 if rows else plan.fwd_ctas)
+    rows = rows or plan.fwd_rows
+    if not 1 <= rows <= max(WIDE_ROWS):
+        raise ValueError(f"the wide path takes 1 to {max(WIDE_ROWS)} rows a row group, got {rows}")
+    if not 0 <= ctas <= -(-hidden // WIDE_UNITS):
+        raise ValueError(f"the wide path takes 1 to ceil(H / {WIDE_UNITS}) CTAs a row group, got {ctas}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xp, c_state = torch.empty(plan.xp_shape, **f32), torch.empty(plan.state_shape, **f32)
+    pack = torch.empty(plan.fwd_pack, dtype=plan.da_dtype, device=x.device)
+    count = torch.empty(-(-bsz // rows), dtype=torch.int32, device=x.device)
+    name = instantiation("lstm_fwd" if cprev is None else "lstm_fwd_train", x.dtype, width, hidden)
+    _launch("lstm_wide", name, x, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(),
+            None if cprev is None else cprev.data_ptr(), xp.data_ptr(), pack.data_ptr(), c_state.data_ptr(),
+            count.data_ptr(), bsz, t, width, hidden, rows, ctas, plan.fwd_window)
+
+
+def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None,
+                   ctas: int | None = None) -> torch.Tensor:
+    """Kernel A: (B, T, D) -> y (B, T, H) in x's dtype, on the card, D, H
+    >= 1.  rows overrides the plan's rows per block (a row group on the
+    wide path), short its path (the short path at D = H = 32 or the ring)
+    and ctas the wide path's CTAs a row group (fewer than ceil(H / 16):
+    tiled) (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
     if bsz == 0 or t == 0:
         return y
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    if is_wide(width, hidden) and not short:
+        _wide_forward(x, w_ih, w_hh, b, y, None, rows, ctas)
+        return y
     x, rows, short = _forward_path(x, width, hidden, rows, short)
     name = instantiation("lstm_fwd", x.dtype, width, hidden)
     _launch(source_of(name), name, x, x.data_ptr(), w_ih.data_ptr(),
@@ -538,10 +767,10 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None
 
 
 def forward_train_kernel(
-    x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None
+    x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None, ctas: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: (B, T, D) -> (y in x's dtype, cprev fp32), both
-    (B, T, H), on the card.  rows and short as in forward_kernel."""
+    (B, T, H), on the card.  rows, short and ctas as in forward_kernel."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
@@ -549,6 +778,9 @@ def forward_train_kernel(
     if bsz == 0 or t == 0:
         return y, cprev
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
+    if is_wide(width, hidden) and not short:
+        _wide_forward(x, w_ih, w_hh, b, y, cprev, rows, ctas)
+        return y, cprev
     x, rows, short = _forward_path(x, width, hidden, rows, short)
     name = instantiation("lstm_fwd_train", x.dtype, width, hidden)
     _launch(source_of(name), name, x, x.data_ptr(),
@@ -557,7 +789,7 @@ def forward_train_kernel(
     return y, cprev
 
 
-def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
+def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, ctas: int | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
     y and cprev are forward_train_kernel's outputs, dy is (B, T, H) in x's
     dtype (as autograd hands it to LSTMFunction.backward).  The outputs are
@@ -566,8 +798,11 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
     partial per block; else four launches with da (B, T, 4H) in the operand
     type, chunk partials of dW and db per recurrent block (per cluster); on
     the cluster path five, the gate pass first with its records (B, T, H, 8)
-    fp32.  rows overrides the plan's rows per block of the recurrence (for
-    tests and timing)."""
+    fp32; on the wide path window by window (lstm_wide.cu), its scratch
+    the plan's (a window's records and da, the dW and db partials, the
+    packed W_hh, the carried (dh, dc), db_rows).  rows overrides the
+    plan's rows per block of the recurrence (a row group on the wide path)
+    and ctas the wide path's CTAs a row group (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     shape = (bsz, t, hidden)
@@ -582,6 +817,25 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None):
         return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     plan = _plan_for(x, hidden, rows)
+    if plan.wide:
+        da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
+        rec, part = torch.empty(plan.rec_shape, **f32), torch.empty(plan.part_shape, **f32)
+        db_part, pack = torch.empty(plan.db_part_shape, **f32), torch.empty(plan.bwd_pack, dtype=plan.da_dtype,
+                                                                          device=x.device)
+        dh_state, dc_state = torch.empty(plan.state_shape, **f32), torch.empty(plan.state_shape, **f32)
+        count = torch.empty(plan.bwd_blocks, dtype=torch.int32, device=x.device)
+        ctas = ctas or plan.bwd_ctas
+        if not 0 <= ctas <= -(-hidden // WIDE_UNITS):
+            raise ValueError(f"the wide path takes 1 to ceil(H / {WIDE_UNITS}) CTAs a row group, got {ctas}")
+        db_rows = torch.empty(bsz, 4 * hidden, **f32)
+        _launch("lstm_wide", instantiation("lstm_bwd", x.dtype, width, hidden), x,
+                x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
+                w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+                dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), da.data_ptr(), rec.data_ptr(),
+                part.data_ptr(), db_part.data_ptr(), pack.data_ptr(), dh_state.data_ptr(), dc_state.data_ptr(),
+                db_rows.data_ptr(), count.data_ptr(), bsz, t, width, hidden,
+                plan.bwd_rows, ctas, plan.bwd_window, plan.n_chunks)
+        return dx, dw_ih, dw_hh, db
     if plan.bwd_fused:
         da = db_part = None
         part = torch.empty(plan.bwd_blocks, 4 * width * 2 * width + 4 * width, **f32)

@@ -47,11 +47,11 @@ width 16.  Phases:
    (entry_phase): its example arguments' shapes, four speech-like clips at
    the preset's bf16 and at fp32 compute against entry(device="cpu") on the
    same inputs, kernel A at width 64 launched;
-4b. the widths (widths_phase, see NEW_WIDTHS): kernels A, B and C masked
-   and on the cluster path against their plain versions, at the base
-   family's main-path shapes too, and timed; the base family at channels
-   48 and 128 (sessions, train steps) against the CPU, counters zeroed
-   just before;
+4b. the widths (widths_phase, see NEW_WIDTHS): kernels A, B and C masked,
+   on the cluster path and on the wide path past 256 against their plain
+   versions, at the base family's main-path shapes too, and timed; the
+   base family at channels 48, 128 and 512 (sessions, train steps) against
+   the CPU, counters zeroed just before;
 5. the train path, counters zeroed just before: one fp32 train_step vs the
    JAX package's train golden (terms, gradient norms, BatchNorm
    statistics), then ``python -m awm_tpu_torch train`` in process (bf16,
@@ -170,7 +170,8 @@ width 16.  Phases:
    workspace, layout copies for cuDNN, convolution gradients, each node's
    gradients), the most of cuDNN's workspace and copies live at once in the
    backward, and the bytes autograd saves;
-17. print the {"kernels": [...]} line (18 instantiations; the width-32
+17. print the {"kernels": [...]} line (36 instantiations: widths 64, 32
+   and 16, masked 48, cluster 128, wide 512; the width-32
    forward ones with their path and every width-32 one with its fit; the
    width-16 ones at the dry run's shape, with their times at (128, 50)),
    and last the {"ok": true, ...} line.
@@ -237,10 +238,31 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 # session (64 chunks) and the train step (B=32), from
 # checkpoint.seeded_flax_tree weights.  The masked
 # instantiations of capacities 32 and 16 run on no main path: OFF_PATH.
-NEW_WIDTHS = ((48, 48), (40, 24), (96, 96), (128, 128), (256, 256))
+# The wide path past 256 (lstm_wide.cu): A, B and C at WIDE_PATH_WIDTHS (one
+# unit past the cluster path, the base family at channels 320 and 512, 1024,
+# D != H both ways) against their plain versions at B=3, T=512; the unit
+# tiles (fewer CTAs a row group, of more tiles each) at 512 x 512 with
+# TILED_CTAS against the plan's bits, and at TILED_WIDTH, a row group of
+# more CTAs than the card holds at once, against plain; at 512 x 512 at
+# every B in ROWS_CHECK_B by T in ROWS_CHECK_T (the plan's rows and one row
+# a group: many row groups, in several launches); timed at T=16000 (A
+# B=512, B and C B=128, the plain version in slices where the card's memory
+# refuses the whole batch); the base family at channels 512 (WIDE_CHANNELS)
+# through the session and the train step at B=WIDE_PATH_B.
+WIDE_PATH_WIDTHS = ((257, 257), (320, 320), (512, 512), (1024, 1024), (300, 40), (40, 600))
+NEW_WIDTHS = ((48, 48), (40, 24), (96, 96), (128, 128), (256, 256)) + WIDE_PATH_WIDTHS
 NEW_B, NEW_T = 3, 512
 BASE_CHANNELS = (48, 128)  # the base family's new widths: masked, cluster
+WIDE_CHANNELS = 512  # the base family on the wide path
+TILED_CTAS = (7, 31)  # 512 x 512's 32 tiles on 7 CTAs (4 or 5 tiles each), on 31 (one CTA of two)
+# 272 tiles a row group, past the CTAs an H100 holds at once of every wide
+# recurrence (264 of bf16 A / B's, two an SM; 132 of the others)
+TILED_WIDTH = 4352
 WIDE_CHUNKS, WIDE_B = 64, 32  # the session's chunks, the train step's batch
+# The train step's batch at channels 512: the base bf16 step at 64 channels
+# peaked at 47.19 GiB at B=256 (0.18 GiB a clip, PERF.md section 5); eight
+# times the conv widths make about 1.5 GiB a clip, twice that in fp32.
+WIDE_PATH_B = 8
 WIDE_HOLD_T, WIDE_HOLD_CHUNKS = 1600, 2  # the card-vs-CPU holds' clip length, session chunks
 OFF_PATH += tuple(f"{k}_{sfx}_w{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
                   for sfx in ("f32", "bf16") for w in (32, 16))
@@ -363,7 +385,7 @@ def kernel_table(K) -> dict[str, Kernel]:
     return {K.instantiation(kernel, dtype, w): Kernel(
                 kernel, f"awm_tpu_torch/ops/csrc/{K.source_of(K.instantiation(kernel, dtype, w))}.cu",
                 f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx])
-            for w in (*K.WIDTHS, *BASE_CHANNELS) for kernel in K.KERNELS
+            for w in (*K.WIDTHS, *BASE_CHANNELS, WIDE_CHANNELS) for kernel in K.KERNELS
             for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
 
 failures: list[str] = []
@@ -2159,11 +2181,17 @@ def padded_to_64(x, w_ih, w_hh, bias, h: int):
 def wide_checks(K, dev, max_err, max_rel) -> None:
     """The widths phase's kernel checks: A, B and C at NEW_WIDTHS against
     their plain versions at B=3, T=512, fp32 and bf16 (KERNEL_TOL); two
-    backward calls (and on the cluster path two forward calls) give the
-    same bits; width 48 gives the bits of the width-64 instantiation on the
-    zero-padded operands; past the ceiling a call raises and launches
-    nothing.  The worst errors go to max_err / max_rel under the masked and
-    cluster names."""
+    backward calls (and on the cluster and wide paths two forward calls)
+    give the same bits; width 48 gives the bits of the width-64
+    instantiation on the zero-padded operands; one past the cluster path
+    (257 x 257, 8 x 257) launches the *_wide instantiations through
+    lstm_fused_forward and returns the plain result.  Then the wide path's
+    unit tiles: at 512 x 512 with fewer CTAs a row group (TILED_CTAS: CTAs
+    of more tiles each) A, B and C give the bits of the plan's (untiled)
+    call, and at TILED_WIDTH (more CTAs a group than the card holds at
+    once) the plan takes fewer CTAs of more tiles and A, B and C hold
+    against plain.  The worst errors go to max_err / max_rel under the
+    masked, cluster and wide names."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
@@ -2186,7 +2214,7 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
             err_b = max(float((y.float() - ref_y.float()).abs().max()), float((cprev - ref_c).abs().max()))
             rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
             same = all(torch.equal(g, g2) for g, g2 in zip(grads, again)) and torch.equal(y0, y)
-            if name.endswith("_cluster"):
+            if name.endswith(("_cluster", "_wide")):
                 same &= torch.equal(y0, K.forward_kernel(x, w_ih, w_hh, bias))
             shapes = (y.shape == (NEW_B, NEW_T, h) and grads[0].shape == x.shape
                       and grads[1].shape == (4 * h, d) and grads[2].shape == (4 * h, h))
@@ -2210,53 +2238,109 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
                             f"on the zero-padded operands, padded units exactly 0")
             del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
-    before = dict(K.launches)
-    ceiling = K.MAX_WIDTH
+    ceiling = K.CLUSTER_MAX_WIDTH
     for d, h in ((ceiling + 1, ceiling + 1), (8, ceiling + 1)):
         x, w_ih, w_hh, bias, _ = lstm_inputs(2, torch.float32, dev, seed=1, t=8, w=d, h=h)
-        try:
-            K.lstm_fused_forward(x, w_ih, w_hh, bias)
-            refused = False
-        except ValueError as e:
-            refused = str(ceiling) in str(e)
-            print(f"D={d} H={h} on the card: {e}", flush=True)
-        check(refused and K.launches == before, f"D={d} H={h} (past the ceiling {ceiling}) raises a ValueError "
-                                                f"naming it, and launches nothing")
+        name = K.instantiation("lstm_fwd", torch.float32, d, h)
+        before = dict(K.launches)
+        with no_tf32():
+            y = K.lstm_fused_forward(x, w_ih, w_hh, bias)
+            torch.cuda.synchronize()
+            err = max_abs(y, lstm_forward_train(x, w_ih, w_hh, bias)[0])
+        moved = {n: K.launches[n] - before[n] for n in K.launches if K.launches[n] != before[n]}
+        check(name.endswith("_wide") and moved == {name: 1} and err <= K.KERNEL_TOL["lstm_fwd", "f32"],
+              f"D={d} H={h} (one past the cluster path's {ceiling}) on the card: {name} launched ({moved}), "
+              f"max abs err vs plain {err:.3e}")
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        w = WIDE_CHANNELS
+        x, w_ih, w_hh, bias, dy = lstm_inputs(7, dtype, dev, seed=w + 5, t=300, w=w)
 
-CLUSTER_CHECK_WIDTHS = (96, 128, 256)  # K = 3, 4, 8: the cluster path's measured sizes
-CLUSTER_CHECK_B, CLUSTER_CHECK_T = (1, 7, 32), (1, 17, 512)
+        def calls(ctas):
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, ctas=ctas)
+            return (K.forward_kernel(x, w_ih, w_hh, bias, ctas=ctas), y, cprev,
+                    *K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, ctas=ctas))
+        with no_tf32():
+            base = calls(None)
+            same = {ctas: all(torch.equal(a, b) for a, b in zip(calls(ctas), base)) for ctas in TILED_CTAS}
+        plan = K._plan_for(x, w)
+        check(all(same.values()) and plan.fwd_ctas == plan.bwd_ctas == -(-w // K.WIDE_UNITS),
+              f"{K.instantiation('lstm_fwd', dtype, w)} / B / C at {w} x {w}, B=7 T=300: CTAs a row group "
+              f"{TILED_CTAS} (of more unit tiles each) give the bits of the plan's {plan.fwd_ctas}: {same}")
+        d = h = TILED_WIDTH
+        tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+        x, w_ih, w_hh, bias, dy = lstm_inputs(3, dtype, dev, seed=d, t=40, w=d)
+        plan = K._plan_for(x, h)
+        before = dict(K.launches)
+        with no_tf32():
+            y0 = K.forward_kernel(x, w_ih, w_hh, bias)
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            torch.cuda.synchronize()
+            ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+            ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+        moved = {n: K.launches[n] - before[n] for n in K.launches if K.launches[n] != before[n]}
+        err_a, err_b = max_abs(y0, ref_y), max(max_abs(y, ref_y), max_abs(cprev, ref_c))
+        rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
+        k = -(-h // K.WIDE_UNITS)
+        check(plan.fwd_ctas < k and plan.bwd_ctas < k and all(n.endswith("_wide") for n in moved)
+              and err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c
+              and all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
+              f"{K.instantiation('lstm_fwd', dtype, h)} / B / C at {d} x {h} (a row group of {k} unit tiles, more "
+              f"than the card holds at once: {plan.fwd_ctas} / {plan.bwd_ctas} CTAs a group), B=3 T=40, vs plain: "
+              f"A {err_a:.3e}, B {err_b:.3e} (tol {tol_a:.0e}); C rel {', '.join(f'{r:.2e}' for r in rels)} "
+              f"(tol {tol_c:.0e}); C twice the same bits; launched {moved}")
+        del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
+        torch.cuda.empty_cache()
+
+
+ROWS_CHECK_WIDTHS = (96, 128, 256, WIDE_CHANNELS)  # the cluster path's K = 3, 4, 8; the wide path
+ROWS_CHECK_B, ROWS_CHECK_T = (1, 7, 32), (1, 17, 512)
 # kernel C's launches on the cluster path (the gate pass, the recurrence,
 # dx, dW, the ordered sum), by a kernel-name fragment
 CLUSTER_BWD_PARTS = {"gates": "lstm_bwd_gates_", "rec": "lstm_bwd_cluster_", "dx": "lstm_bwd_dx_",
                      "dw": "lstm_bwd_dw_", "sum": "lstm_bwd_sum_"}
 
 
-def cluster_rows_checks(K, dev, max_err, max_rel) -> None:
-    """Every rows variant the cluster path builds (lstm_kernel.CLUSTER_ROWS)
-    of A, B and C at 96, 128 and 256 (K = 3, 4, 8), B in CLUSTER_CHECK_B, T
-    in CLUSTER_CHECK_T, fp32 and bf16, against the plain versions
-    (KERNEL_TOL); two calls of A and of C give the same bits, and A and B
-    the same y.  Then the masked width 48's kernel C in bf16 (its dx and dW
-    on the tensor cores at runtime widths) against plain at B=7, T=512.  The
-    worst errors go to max_err / max_rel."""
+def rows_variants(K, x, w: int) -> tuple:
+    """The rows variants rows_checks holds at width w: on the cluster path
+    every one it builds (CLUSTER_ROWS); on the wide path the plan's (A's
+    and C's) and one row a group (B row groups: at B=32 in more launches
+    than one)."""
+    if not K.is_wide(w):
+        return K.CLUSTER_ROWS
+    plan = K._plan_for(x, w)
+    return tuple(sorted({plan.fwd_rows, plan.bwd_rows, 1}))
+
+
+def rows_checks(K, dev, max_err, max_rel) -> None:
+    """A, B and C at each of ROWS_CHECK_WIDTHS (the cluster path at 96, 128
+    and 256, K = 3, 4, 8; the wide path at 512), B in ROWS_CHECK_B, T in
+    ROWS_CHECK_T, fp32 and bf16, at every rows variant of rows_variants,
+    against the plain versions (KERNEL_TOL); two calls of A and of C give
+    the same bits, and A and B the same y.  Then the masked width 48's
+    kernel C in bf16 (its dx and dW on the tensor cores at runtime widths)
+    against plain at B=7, T=512.  The worst errors go to max_err /
+    max_rel."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
     from awm_tpu_torch.utils.precision import no_tf32
 
-    for w in CLUSTER_CHECK_WIDTHS:
+    for w in ROWS_CHECK_WIDTHS:
         for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
             name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
             worst = {"A": 0.0, "B": 0.0, "C": 0.0}
-            held = True
-            for b in CLUSTER_CHECK_B:
-                for t in CLUSTER_CHECK_T:
+            held, seen = True, set()
+            for b in ROWS_CHECK_B:
+                for t in ROWS_CHECK_T:
                     x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=w * 100 + b * 10 + t, t=t, w=w)
                     with no_tf32():
                         ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
-                        for rows in K.CLUSTER_ROWS:
+                        for rows in rows_variants(K, x, w):
+                            seen.add(rows)
                             y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
                             again = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
                             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
@@ -2279,10 +2363,10 @@ def cluster_rows_checks(K, dev, max_err, max_rel) -> None:
             for n, e in ((name, worst["A"]), (fname, worst["B"])):
                 max_err[n] = max(max_err.get(n, 0.0), e)
             max_rel[bname] = max(max_rel.get(bname, 0.0), worst["C"])
-            check(held, f"{name} / {fname} / {bname} at {w}x{w}, every rows variant {K.CLUSTER_ROWS} at B in "
-                        f"{CLUSTER_CHECK_B}, T in {CLUSTER_CHECK_T} vs plain: A {worst['A']:.3e}, B {worst['B']:.3e} "
-                        f"max abs (tol {tol_a:.0e}); C rel {worst['C']:.3e} (tol {tol_c:.0e}); A twice, C twice "
-                        f"the same bits, A and B the same y")
+            check(held, f"{name} / {fname} / {bname} at {w}x{w}, rows a {'group' if K.is_wide(w) else 'cluster'} "
+                        f"{sorted(seen)} at B in {ROWS_CHECK_B}, T in {ROWS_CHECK_T} vs plain: A {worst['A']:.3e}, "
+                        f"B {worst['B']:.3e} max abs (tol {tol_a:.0e}); C rel {worst['C']:.3e} (tol {tol_c:.0e}); "
+                        f"A twice, C twice the same bits, A and B the same y")
             torch.cuda.empty_cache()
     bname = K.instantiation("lstm_bwd", torch.bfloat16, 48)
     x, w_ih, w_hh, bias, dy = lstm_inputs(7, torch.bfloat16, dev, seed=4807, t=512, w=48)
@@ -2356,14 +2440,20 @@ def wide_main_checks(K, dev, max_err, max_rel) -> None:
 
 def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
     """The widths phase's timing at the base family's new widths (48:
-    masked, 128: cluster) and at the ceiling (MAX_WIDTH: the cluster's 8
-    CTAs), T=16000: A at B=512, B and C at B=128, fp32 and bf16, by CUDA
-    events (2 calls after one); the plain versions (one call), whose
-    outputs are held against the kernels' (KERNEL_TOL; the worst errors go
-    to max_err / max_rel); torch.nn.LSTM (cuDNN, the yardstick only; a
-    batch the card's memory refuses in slices, see yardstick); the bound.
-    Printed and kept in times under the instantiation's name, the
-    ceiling's under that name's "W256" key."""
+    masked, 128: cluster, WIDE_CHANNELS = 512: wide) and at the cluster
+    path's widest (CLUSTER_MAX_WIDTH: its 8 CTAs), T=16000: A at B=512, B
+    and C at B=128, fp32 and bf16, by CUDA events (2 calls after one); the
+    plain versions at the same T (held_in_slices: in slices of rows where
+    the card's memory refuses the batch), whose outputs are held against
+    the kernels' (KERNEL_TOL; the worst errors go to max_err / max_rel);
+    torch.nn.LSTM (cuDNN, the yardstick only; a batch the card's memory
+    refuses in slices, see yardstick); the bound.  On the cluster path C's
+    device ms by launch; on the wide path every kernel's device ms by launch
+    (device_per_call, wide_parts), the plan's window, rows a group, row
+    groups and CTAs a group, and the scratch the call allocates beside its
+    inputs and outputs (the caching allocator's peak over the call) beside
+    the plan's count.  Printed and kept in times under the instantiation's
+    name, the cluster ceiling's under that name's "W256" key."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
@@ -2381,39 +2471,75 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                   f"cluster path at {w} x {w} ({k} CTAs a cluster), {dtype}: clusters the card holds at once "
                   f"(A, C at rows {K.CLUSTER_ROWS}) {slots}, each at least 1 and at most {most} "
                   f"(one CTA an SM, two for C's bf16 recurrence at up to 4 rows)")
-    for w in (*BASE_CHANNELS, K.MAX_WIDTH):
+
+    def scratch_of(call, out_bytes: int) -> int:
+        """Bytes the call allocates past its inputs and outputs (peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base - out_bytes
+
+    for w in (*BASE_CHANNELS, K.CLUSTER_MAX_WIDTH, WIDE_CHANNELS):
+        wide = K.is_wide(w)
         for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
             tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+            elt = 2 if dtype == torch.bfloat16 else 4
             x, w_ih, w_hh, bias, _ = lstm_inputs(B_SERVE, dtype, dev, seed=w + 7, w=w)
+            plan_a = K._plan_for(x, w)
+            a_split = a_scratch = None
             with no_tf32():
                 ms = cuda_ms(lambda: K.forward_kernel(x, w_ih, w_hh, bias), reps=2)
+                if wide:
+                    a_split = device_per_call(lambda: K.forward_kernel(x, w_ih, w_hh, bias),
+                                              wide_parts(K, plan_a, "lstm_fwd", dtype, w))
+                    a_scratch = scratch_of(lambda: K.forward_kernel(x, w_ih, w_hh, bias), B_SERVE * T * w * elt)
                 y0 = K.forward_kernel(x, w_ih, w_hh, bias)
-                ref, plain = timed_call(lambda: lstm_forward(x, w_ih, w_hh, bias))
-                err_a = max_abs(y0, ref)
                 finite = bool(torch.isfinite(y0).all())
-                del y0, ref
+                (err_a,), _, plain = held_in_slices(lambda i, j: (lstm_forward(x[i:j], w_ih, w_hh, bias),),
+                                                    B_SERVE, (y0,), f"plain A {w} {sfx}")
+                del y0
                 torch.cuda.empty_cache()
                 m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
                 with torch.inference_mode():
                     lib = yardstick(lambda r: cuda_ms(lambda: m(x[:r]), reps=2), f"nn.LSTM({w}) {sfx}", B_SERVE)
-            rows = {name: (ms, plain, lib, B_SERVE)}
+            rows = {name: (ms, plain, lib, B_SERVE, a_split, a_scratch, plan_a, "lstm_fwd")}
             del x, m
             torch.cuda.empty_cache()
             x, w_ih, w_hh, bias, dy = lstm_inputs(B_TRAIN, dtype, dev, seed=w + 8, w=w)
+            plan_c = K._plan_for(x, w)
+            f_split = f_scratch = b_split = b_scratch = None
             with no_tf32():
                 y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
                 f_ms = cuda_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), reps=2)
+                if wide:
+                    f_split = device_per_call(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
+                                              wide_parts(K, plan_c, "lstm_fwd_train", dtype, w))
+                    f_scratch = scratch_of(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
+                                           B_TRAIN * T * w * (elt + 4))
                 grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
                 b_ms = cuda_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), reps=2)
-                (ref_y, ref_c), f_plain = timed_call(lambda: lstm_forward_train(x, w_ih, w_hh, bias))
-                ref_g, b_plain = timed_call(lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias))
-                b_split = (device_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), CLUSTER_BWD_PARTS,
-                                        reps=1) if K.capacity(w) is None else None)
-            err_b = max(max_abs(y, ref_y), max_abs(cprev, ref_c))
-            rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
-            err_c = max(max_abs(g, r) for g, r in zip(grads, ref_g))
-            finite &= all(bool(torch.isfinite(g).all()) for g in (y, *grads))
+                if wide:
+                    b_split = device_per_call(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
+                                              wide_parts(K, plan_c, "lstm_bwd", dtype, w))
+                    b_scratch = scratch_of(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
+                                           B_TRAIN * T * w * elt + 4 * (4 * w * 2 * w + 4 * w))
+                elif K.capacity(w) is None:
+                    b_split = device_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
+                                           CLUSTER_BWD_PARTS, reps=1)
+                finite &= all(bool(torch.isfinite(g).all()) for g in (y, *grads))
+                errs, _, f_plain = held_in_slices(lambda i, j: lstm_forward_train(x[i:j], w_ih, w_hh, bias),
+                                                  B_TRAIN, (y, cprev), f"plain B {w} {sfx}")
+                err_b = max(errs)
+                torch.cuda.empty_cache()
+                errs, refs, b_plain = held_in_slices(
+                    lambda i, j: lstm_backward(x[i:j], y[i:j], cprev[i:j], dy[i:j], w_ih, w_hh, bias), B_TRAIN,
+                    grads, f"plain C {w} {sfx}")
+            rels = [e / (r + 1e-12) for e, r in zip(errs, refs)]
+            err_c = max(errs)
             check(finite and err_a <= tol_a and err_b <= tol_b and max(rels) <= tol_c,
                   f"{name} (B={B_SERVE}) / {fname} / {bname} (B={B_TRAIN}) at W={w} T={T} vs plain: A "
                   f"{err_a:.3e}, B {err_b:.3e} max abs (tol {tol_a:.0e}); C rel "
@@ -2421,7 +2547,7 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
             for n, e in ((name, err_a), (fname, err_b), (bname, err_c)):
                 max_err[n] = max(max_err.get(n, 0.0), e)
             max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
-            del grads, ref_y, ref_c, ref_g
+            del grads
             torch.cuda.empty_cache()
             with no_tf32():
                 m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
@@ -2434,24 +2560,105 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                     return cuda_ms(lambda: torch.autograd.grad(ylib, [xg, *m.parameters()], dy[:r],
                                                                retain_graph=True), reps=2)
                 b_lib = yardstick(lib_backward, f"nn.LSTM({w}) {sfx} backward", B_TRAIN)
-            rows.update({fname: (f_ms, f_plain, f_lib, B_TRAIN), bname: (b_ms, b_plain, b_lib, B_TRAIN)})
-            if b_split:
-                print(f"{bname} W={w} B={B_TRAIN} T={T} by launch (device ms, torch.profiler): "
-                      + ", ".join(f"{part} {fmt_ms(ms, 3)}" for part, ms in b_split.items()), flush=True)
-            for n, (k_ms, p_ms, l_ms, b) in rows.items():
+            rows.update({fname: (f_ms, f_plain, f_lib, B_TRAIN, f_split, f_scratch, plan_c, "lstm_fwd_train"),
+                         bname: (b_ms, b_plain, b_lib, B_TRAIN, b_split, b_scratch, plan_c, "lstm_bwd")})
+            for n, (k_ms, p_ms, l_ms, b, split, scratch, plan, kernel) in rows.items():
                 bms, by = bound_ms(n, b, width=w)
                 row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": l_ms,
                        "width": w, "batch": b, "steps": T}
-                if n == bname and b_split:
-                    row["split_ms"] = b_split
-                if w in BASE_CHANNELS:
+                if split:
+                    row["split_ms"] = split
+                bwd = kernel == "lstm_bwd"
+                if wide:
+                    row.update({"device_ms": split_total(split),
+                                "window": plan.bwd_window if bwd else plan.fwd_window,
+                                "rows_a_group": plan.bwd_rows if bwd else plan.fwd_rows,
+                                "row_groups": plan.bwd_blocks if bwd else plan.fwd_blocks,
+                                "ctas_a_group": plan.bwd_ctas if bwd else plan.fwd_ctas,
+                                "scratch_bytes": scratch, "planned_scratch_bytes": plan.scratch_bytes(kernel)})
+                if w in BASE_CHANNELS or wide:
                     times[n] = row
                 else:
                     times[n][f"W{w}"] = row
-                print(f"{n} W={w} B={b} T={T}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, cuDNN nn.LSTM({w}) "
-                      f"{l_ms} ms, bound {bms:.4f} ms ({by})", flush=True)
+                split_text = ""
+                if split:
+                    head = f"device {fmt_ms(row['device_ms'], 3)}: " if wide else "device ms by launch: "
+                    split_text = f" ({head}" + ", ".join(f"{part} {fmt_ms(v, 3)}" for part, v in split.items()) + ")"
+                print(f"{n} W={w} B={b} T={T}: kernel {k_ms:.3f} ms{split_text}, plain {p_ms:.1f} ms, cuDNN "
+                      f"nn.LSTM({w}) {l_ms} ms, bound {bms:.4f} ms ({by})"
+                      + (f"; window {row['window']} steps, {row['rows_a_group']} rows a group, {row['row_groups']} "
+                         f"groups of {row['ctas_a_group']} CTAs; scratch {scratch / 1e9:.3f} GB allocated (plan "
+                         f"{row['planned_scratch_bytes'] / 1e9:.3f} GB)" if wide else ""), flush=True)
             del x, y, cprev, dy, m, xg
             torch.cuda.empty_cache()
+
+
+def held_in_slices(fn, batch: int, got: tuple, what: str) -> tuple[list, list, float]:
+    """A plain version held against a kernel's outputs `got` at `batch`
+    rows, and its time (ms, CUDA events): fn(i, j) runs rows i..j-1 (a
+    tuple of outputs), in one call of all rows or, where the card's memory
+    refuses it, in n calls of ceil(batch / n) rows, n = 2, 4, ... (printed).
+    An output with a batch axis is compared slice by slice and dropped; the
+    others (weight gradients) are summed in row order first.  Returns each
+    output's max abs error and its plain value's max abs."""
+    import torch
+
+    n = 1
+    while True:
+        rows = -(-batch // n)
+        errs, refs, sums, ms = [0.0] * len(got), [0.0] * len(got), [None] * len(got), 0.0
+        try:
+            for i in range(0, batch, rows):
+                j = min(i + rows, batch)
+                out, t_ms = timed_call(lambda: fn(i, j))
+                ms += t_ms
+                for k, o in enumerate(out):
+                    if o.dim() == 3:
+                        errs[k] = max(errs[k], max_abs(got[k][i:j], o))
+                        refs[k] = max(refs[k], float(o.float().abs().max()))
+                    else:
+                        sums[k] = o if sums[k] is None else sums[k] + o
+                del out
+            break
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if rows == 1:
+                raise
+            n *= 2
+    for k, total in enumerate(sums):
+        if total is not None:
+            errs[k], refs[k] = max_abs(got[k], total), float(total.abs().max())
+    if n > 1:
+        print(f"{what}: {n} calls of {rows} rows, {ms:.1f} ms in all", flush=True)
+    return errs, refs, ms
+
+
+def device_per_call(call, parts: dict[str, tuple[str, int]]) -> dict[str, float | None]:
+    """Device ms of one call by part (a kernel-name fragment each, and its
+    launches a call: the wide path launches its kernels once or more a
+    window): device_split's mean over the launches a trace of two calls
+    holds, times the part's launches (the profiler drops a launch now and
+    then, most often a call's first); None where every trace missed the
+    part."""
+    split = device_split(call, {part: frag for part, (frag, _) in parts.items()}, reps=2)
+    return {part: None if ms is None else ms * parts[part][1] for part, ms in split.items()}
+
+
+def wide_parts(K, plan, kernel: str, dtype, width: int) -> dict[str, tuple[str, int]]:
+    """Kernel A / B's or C's launches on the wide path, by a kernel-name
+    fragment and its launches a call: the packing once, the projection (C:
+    the gate pass, dx, dW) once a window, the recurrence once a window and
+    row-group launch, C's sum once."""
+    bwd = kernel == "lstm_bwd"
+    window, rows, groups, ctas = ((plan.bwd_window, plan.bwd_rows, plan.bwd_blocks, plan.bwd_ctas) if bwd
+                                  else (plan.fwd_window, plan.fwd_rows, plan.fwd_blocks, plan.fwd_ctas))
+    wins = -(-T // window)
+    per = dict(zip(K.WIDE_ROWS, K._wide_slots(0, dtype, width)[bwd]))[rows] // ctas
+    recs = wins * -(-groups // per)
+    if not bwd:
+        return {"pack": ("lstm_wide_pack", 1), "xp": ("lstm_bwd_gates_", wins), "rec": ("lstm_wide_fwd_", recs)}
+    return {"pack": ("lstm_wide_pack", 1), "gates": ("lstm_bwd_gates_", wins), "rec": ("lstm_wide_bwd_", recs),
+            "dx": ("lstm_bwd_dx_", wins), "dw": ("lstm_bwd_dw_", wins), "sum": ("lstm_bwd_sum_", 1)}
 
 
 def wide_config(channels: int, compute_dtype: str):
@@ -2478,12 +2685,13 @@ def grad_groups(state) -> dict:
 
 
 def wide_family(K, launches, dev) -> dict:
-    """The base family at channels 48 (LSTM(48, 48): the masked kernels) and
-    128 (LSTM(128, 128): the cluster path), seeded_flax_tree weights, with
-    the counters zeroed just before: an embed+detect session of WIDE_CHUNKS
-    chunks at bf16 and fp32, its first chunks held against the CPU session;
-    one train step at B=WIDE_B, T=16000, bf16 and fp32 (finite terms), and
-    one at B=WIDE_B, T=WIDE_HOLD_T held against the same step on the CPU.
+    """The base family at channels 48 (LSTM(48, 48): the masked kernels),
+    128 (LSTM(128, 128): the cluster path) and 512 (LSTM(512, 512): the
+    wide path), seeded_flax_tree weights, with the counters zeroed just
+    before: an embed+detect session of WIDE_CHUNKS chunks at bf16 and fp32,
+    its first chunks held against the CPU session; one train step at
+    B=WIDE_B (WIDE_PATH_B at 512), T=16000, bf16 and fp32 (finite terms),
+    and one at that B, T=WIDE_HOLD_T held against the same step on the CPU.
     The plain versions are counted on CUDA tensors: none may run.  Returns
     the errors."""
     import torch
@@ -2507,11 +2715,13 @@ def wide_family(K, launches, dev) -> dict:
     errs = {}
     chunks = speechlike(WIDE_CHUNKS, seed=80)
     msgs = np.random.default_rng(81).integers(0, 2**16, size=WIDE_CHUNKS)
-    clips = torch.from_numpy(speechlike(WIDE_B, seed=82))
-    hold = torch.from_numpy(speechlike(WIDE_B, seed=83, chunk=WIDE_HOLD_T))
-    tmsg = torch.from_numpy(np.random.default_rng(84).integers(0, 2**16, size=WIDE_B))
+    all_clips = torch.from_numpy(speechlike(WIDE_B, seed=82))
+    all_hold = torch.from_numpy(speechlike(WIDE_B, seed=83, chunk=WIDE_HOLD_T))
+    all_tmsg = torch.from_numpy(np.random.default_rng(84).integers(0, 2**16, size=WIDE_B))
     try:
-        for c in BASE_CHANNELS:
+        for c in (*BASE_CHANNELS, WIDE_CHANNELS):
+            b = WIDE_PATH_B if c == WIDE_CHANNELS else WIDE_B
+            clips, hold, tmsg = all_clips[:b], all_hold[:b], all_tmsg[:b]
             nets = seeded_nets(wide_config(c, "float32"), seed=c)
             for dt, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
                 with no_tf32():
@@ -2543,7 +2753,7 @@ def wide_family(K, launches, dev) -> dict:
                     torch.cuda.synchronize()
                     step_s = time.perf_counter() - t0
                     check(all(bool(torch.isfinite(v)) for v in terms.values()),
-                          f"base family C={c} {label} train step, B={WIDE_B} T={T} on the card: finite loss terms "
+                          f"base family C={c} {label} train step, B={b} T={T} on the card: finite loss terms "
                           f"({step_s:.2f} s with the kernels' first calls)")
                     got = {where: tr.train_step(cfg, states[where], hold.to(device), message=tmsg.to(device))
                            for where, device in (("card", dev), ("cpu", torch.device("cpu")))}
@@ -2554,7 +2764,7 @@ def wide_family(K, launches, dev) -> dict:
                 errs[f"train c{c} {label}"] = {"terms": terms_err, **drift}
                 tol = WIDE_TRAIN_TOL[label]
                 check(terms_err <= tol["terms"] and max(drift.values()) <= tol["drift"],
-                      f"base family C={c} {label} train step, B={WIDE_B} T={WIDE_HOLD_T}, card vs CPU: loss terms "
+                      f"base family C={c} {label} train step, B={b} T={WIDE_HOLD_T}, card vs CPU: loss terms "
                       f"rel {terms_err:.2e} (tol {tol['terms']:.0e}); gradient drift "
                       + ", ".join(f"{g} {v:.2e}" for g, v in drift.items()) + f" (tol {tol['drift']:.0e})")
                 del states, main
@@ -2562,11 +2772,11 @@ def wide_family(K, launches, dev) -> dict:
     finally:
         for fn_name, fn in wrapped.items():
             setattr(K, fn_name, fn)
-    new = [K.instantiation(k, dt, c) for c in BASE_CHANNELS for k in K.KERNELS
+    new = [K.instantiation(k, dt, c) for c in (*BASE_CHANNELS, WIDE_CHANNELS) for k in K.KERNELS
            for dt in (torch.float32, torch.bfloat16)]
     for name in new:
         check(K.launches[name] > 0, f"{name} launched {K.launches[name]} times by the base family at channels "
-                                    f"{'/'.join(map(str, BASE_CHANNELS))}")
+                                    f"{'/'.join(map(str, (*BASE_CHANNELS, WIDE_CHANNELS)))}")
     check(not plain_on_card, f"no plain LSTM version ran on a CUDA tensor in the base family's runs "
                              f"({len(plain_on_card)} calls: {sorted(set(plain_on_card))})")
     add_counts(K, launches, "widths phase")
@@ -2574,22 +2784,23 @@ def wide_family(K, launches, dev) -> dict:
 
 
 def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
-    """Phase 4b: wide_checks, cluster_rows_checks, wide_main_checks, wide_times, then
-    wide_family with the counters zeroed just before (the functions take
-    only K, launches and dev beside what they fill, so a card-side
+    """Phase 4b: wide_checks, rows_checks, wide_main_checks, wide_times,
+    then wide_family with the counters zeroed just before (the functions
+    take only K, launches and dev beside what they fill, so a card-side
     rehearsal can call them alone)."""
-    t0 = time.time()
+    laps = [("checks", time.time())]
     wide_checks(K, dev, max_err, max_rel)
-    t1 = time.time()
-    cluster_rows_checks(K, dev, max_err, max_rel)
-    t2 = time.time()
+    laps.append(("rows", time.time()))
+    rows_checks(K, dev, max_err, max_rel)
+    laps.append(("main shapes", time.time()))
     wide_main_checks(K, dev, max_err, max_rel)
-    t3 = time.time()
+    laps.append(("timed shapes", time.time()))
     wide_times(K, dev, times, max_err, max_rel)
-    t4 = time.time()
+    laps.append(("family", time.time()))
     errs = wide_family(K, launches, dev)
-    print(f"widths phase s: checks {t1 - t0:.1f}, cluster rows {t2 - t1:.1f}, main shapes {t3 - t2:.1f}, "
-          f"timed shapes {t4 - t3:.1f}, family {time.time() - t4:.1f}", flush=True)
+    laps.append(("end", time.time()))
+    print("widths phase s: " + ", ".join(f"{label} {t1 - t0:.1f}" for (label, t0), (_, t1) in zip(laps, laps[1:])),
+          flush=True)
     return errs
 
 
@@ -3637,9 +3848,15 @@ def main() -> int:
     for name, k in KERNELS.items():
         steps = {W32: T32, W16: DRY_T}.get(k.width, T)
         batch = DRY_B if k.width == W16 else B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
-        slots = K._cluster_slots(dev.index or 0, dtypes[k.sfx], k.width, k.width) if K.capacity(k.width) is None else None
-        plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width, None, None, slots)
-        path = (("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd" else path_of(plan))
+        if K.is_wide(k.width):
+            plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width,
+                                 wide_slots=K._wide_slots(dev.index or 0, dtypes[k.sfx], k.width))
+        else:
+            slots = (K._cluster_slots(dev.index or 0, dtypes[k.sfx], k.width, k.width)
+                     if K.capacity(k.width) is None else None)
+            plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width, None, None, slots)
+        path = ("wide" if plan.wide else ("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd"
+                else path_of(plan))
         print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"
               f" rows per block, {path} path", flush=True)
         entry = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,

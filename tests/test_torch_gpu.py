@@ -1,5 +1,5 @@
 """Card-only tests of the port's CUDA kernels A, B and C (widths 64, 32 and 16, the masked widths
-below 64 and the cluster path above it, up to MAX_WIDTH = 256), of the attack ops,
+below 64, the cluster path above it up to 256 and the wide path past it), of the attack ops,
 of checkpoints written on the card and of the fp32 server on the card
 (marker ``gpu``).
 
@@ -352,17 +352,86 @@ def test_width16_function_matches_autograd(cuda, dtype, tol):
         assert float((a[0].grad - c[0].grad).abs().max()) < 1e-4
 
 
-def test_kernel_refuses_unbuilt_width(cuda):
-    """A width past the kernels' ceiling (MAX_WIDTH + 1 = 257, as D or as
-    H) raises on the card with the ceiling in its message (the CPU takes the
-    plain version of any width); nothing falls back to the plain version."""
-    ceiling = lstm_kernel.MAX_WIDTH
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+def test_kernel_refuses_unbuilt_width(cuda, dtype, tol_fwd, tol_bwd):
+    """No width >= 1 is refused any more: past the cluster path's widest
+    (CLUSTER_MAX_WIDTH + 1 = 257, and D = 40, H = 600) A, B and C run the
+    wide path's instantiations (counted on *_wide) and hold against their
+    plain versions at KERNEL_TOL, two calls of each giving the same bits;
+    a width of 0 is refused with a ValueError before any launch."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    b, t = 5, 37
+    for d, h in ((lstm_kernel.CLUSTER_MAX_WIDTH + 1,) * 2, (40, 600)):
+        x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=d + h, w=d, h=h)
+        x = x.to(dtype)
+        dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(h)).to(dtype)
+        names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
+        assert all(n.endswith("_wide") for n in names)
+        before = [lstm_kernel.launches[n] for n in names]
+        with no_tf32():
+            ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+            ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+            y0 = lstm_fused_forward(x, w_ih, w_hh, bias)
+            again = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias)
+            y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+            got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+            got2 = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        assert [lstm_kernel.launches[n] - n0 for n, n0 in zip(names, before)] == [2, 1, 2]
+        assert y0.shape == (b, t, h) and torch.equal(y0, again) and torch.equal(y0, y)
+        assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd
+        assert float((cprev - ref_c).abs().max()) <= tol_fwd
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, got2):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol_bwd, (d, h, name, rel)
+            assert torch.equal(a, a2), (d, h, name)
+    x, w_ih, w_hh, bias = _inputs(2, 8, cuda, w=8)
     before = dict(lstm_kernel.launches)
-    for w, h in ((ceiling + 1, None), (8, ceiling + 1)):
-        x, w_ih, w_hh, bias = _inputs(2, 8, cuda, w=w, h=h)
-        with pytest.raises(ValueError, match=f"widths.*{ceiling}"):
-            lstm_fused_forward(x, w_ih, w_hh, bias)
+    with pytest.raises(ValueError, match="widths D, H >= 1"):
+        lstm_fused_forward(x[..., :0].contiguous(), w_ih[:, :0].contiguous(), w_hh, bias)
     assert lstm_kernel.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_path_tiles_past_what_the_card_holds(cuda, dtype):
+    """The wide path's unit tiles: at 512 x 512 fewer CTAs a row group
+    (each of more tiles of 16 units) give the bits of the plan's untiled
+    call in A, B and C; at H = 4352 (272 tiles a group, more CTAs than the
+    card holds at once) the plan takes fewer CTAs and A, B and C hold
+    against their plain versions at KERNEL_TOL."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def calls(x, w_ih, w_hh, bias, dy, ctas=None):
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, ctas=ctas)
+        return (lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, ctas=ctas), y, cprev,
+                *lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, ctas=ctas))
+
+    for h, b, t in ((512, 5, 61), (4352, 2, 9)):
+        x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=h, w=h)
+        w_ih, w_hh, bias = (v * (0.3 / h**0.5) / 0.1 for v in (w_ih, w_hh, bias))  # a contractive recurrence
+        x = x.to(dtype)
+        dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(h)).to(dtype)
+        plan = lstm_kernel._plan_for(x, h)
+        k = -(-h // lstm_kernel.WIDE_UNITS)
+        with no_tf32():
+            got = calls(x, w_ih, w_hh, bias, dy)
+            if h == 512:
+                assert plan.fwd_ctas == plan.bwd_ctas == k
+                for ctas in (3, 31):
+                    assert all(torch.equal(a, r) for a, r in zip(calls(x, w_ih, w_hh, bias, dy, ctas), got)), ctas
+                continue
+            assert plan.fwd_ctas < k and plan.bwd_ctas < k
+            ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+            ref_g = lstm_backward(x, got[1], got[2], dy, w_ih, w_hh, bias)
+        for a, r in ((got[0], ref_y), (got[1], ref_y), (got[2], ref_c)):
+            assert float((a.float() - r.float()).abs().max()) <= lstm_kernel.KERNEL_TOL["lstm_fwd", sfx]
+        for a, r in zip(got[3:], ref_g):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], rel
 
 
 # (D, H) of the new widths: masked within capacity 64 (48 x 48, the base

@@ -3,10 +3,12 @@ at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
 pure function of (batch, steps, dtype, SM count, D, H), so it is tested here
-on the CPU, at width 64, 32 and 16, at the masked widths below 64 and on the
-cluster path above it.  The short-T cases hold the plain training forward and backward against
+on the CPU, at width 64, 32 and 16, at the masked widths below 64, on the
+cluster path above it and on the wide path past 256.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -139,17 +141,22 @@ def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
     they were (B=128 and 512 at T=16000: 256 chunks of 2048 rows or more);
     a width-64 call of fewer than 132 x 2048 rows (the curriculum's B=8,
     the trainer's B=16) now gets one dW chunk an SM, not one per 2048 rows;
-    and a width past the kernels' ceiling (MAX_WIDTH + 1 = 257, or 0), as D
-    or as H, raises a ValueError that names the ceiling."""
+    a width of 0 still raises a ValueError; one past the cluster path's
+    widest (CLUSTER_MAX_WIDTH + 1 = 257), as D or as H, is planned on the
+    wide path."""
     for dtype in (torch.float32, torch.bfloat16):
         assert launch_plan(128, 16000, dtype, 132, width=64).n_chunks == lstm_kernel.DW_MAX_CHUNKS
         assert launch_plan(512, 16000, dtype, 132, width=64).part_shape == (256, 256, 128)
         assert launch_plan(8, 16000, dtype, 132, width=64).n_chunks == 132  # 63 at 2048 rows a chunk
         assert launch_plan(16, 16000, dtype, 132, width=64).n_chunks == 132  # 125
-    ceiling = lstm_kernel.MAX_WIDTH
-    for width, hidden in ((ceiling + 1, None), (0, None), (64, ceiling + 1), (ceiling + 1, 64)):
-        with pytest.raises(ValueError, match=f"widths.*{ceiling}"):
-            launch_plan(4, 10, torch.float32, 132, width, None, hidden)
+    with pytest.raises(ValueError, match="widths D, H >= 1"):
+        launch_plan(4, 10, torch.float32, 132, 0)
+    ceiling = lstm_kernel.CLUSTER_MAX_WIDTH
+    for width, hidden in ((ceiling + 1, None), (64, ceiling + 1), (ceiling + 1, 64)):
+        plan = launch_plan(4, 10, torch.float32, 132, width, None, hidden)
+        assert plan.wide and (plan.capacity, plan.cluster) == (0, 0)
+        assert lstm_kernel.instantiation("lstm_bwd", torch.float32, width, hidden) == "lstm_bwd_f32_wide"
+    assert not launch_plan(4, 10, torch.float32, 132, ceiling).wide
 
 
 # The width-64 main shapes' plans as they stood before the fused backward
@@ -600,3 +607,106 @@ def test_zero_padded_weights_leave_padded_units_zero(rng, d, h, dtype):
     for a, r, rounds in ((dxp[..., :d], g[0].float(), ulp), (dwip[:, :h, :d].reshape(4 * h, d), g[1], 0.0),
                          (dwhp[:, :h, :h].reshape(4 * h, h), g[2], 0.0), (dbp[:, :h].reshape(-1), g[3], 0.0)):
         assert float((a - r).abs().max()) <= (1e-6 + rounds) * max(1.0, float(r.abs().max()))
+
+
+# (D, H) on the wide path: one unit past the cluster path, a ragged last CTA,
+# the base family at channels 320 and 512, the largest width the card holds
+# (1024), and D != H both ways.
+WIDE = [(257, 257), (300, 300), (320, 320), (512, 512), (1024, 1024), (300, 40), (40, 600)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", WIDE, ids=[f"{d}x{h}" for d, h in WIDE])
+def test_wide_plan(d, h, dtype):
+    """Past 256 the plan takes the wide path: instantiations *_wide in
+    lstm_wide.cu, row groups of ceil(H / 16) CTAs, rows a group from
+    WIDE_ROWS that cover the batch once in the fewest launches of the row
+    groups the card holds at once (a given slot count), then the fewest rows,
+    windows of time within [1, T] whose scratch (the plan's shapes: a
+    window's projection, records and da, the dW and db partials, the packed
+    W_hh, the carried state) stays within WIDE_SCRATCH_BYTES, the same
+    windows at any T past them."""
+    k = -(-h // lstm_kernel.WIDE_UNITS)
+    for kernel in lstm_kernel.KERNELS:
+        name = lstm_kernel.instantiation(kernel, dtype, d, h)
+        assert name.endswith("_wide") and lstm_kernel.source_of(name) == "lstm_wide"
+        assert name in lstm_kernel.launches and lstm_kernel.entry_point(name) == "awm_" + name
+    # a card that holds one CTA an SM up to 32 rows and one every other SM past them
+    slots = (tuple(132 if r <= 32 else 66 for r in lstm_kernel.WIDE_ROWS),) * 2
+    for batch in (1, 7, 8, 64, 128, 512):
+        for steps in (1, 17, 512, 16000):
+            for given in (None, slots):
+                plan = launch_plan(batch, steps, dtype, 132, d, None, h, wide_slots=given)
+                assert plan.wide and not plan.fwd_short and not plan.bwd_fused
+                per = dict(zip(lstm_kernel.WIDE_ROWS, given[0] if given else (132,) * len(lstm_kernel.WIDE_ROWS)))
+                launches = lambda r: -(-(-(-batch // r)) // (per[r] // k))
+                for rows, groups in ((plan.fwd_rows, plan.fwd_blocks), (plan.bwd_rows, plan.bwd_blocks)):
+                    assert rows in lstm_kernel.WIDE_ROWS and groups * rows >= batch > (groups - 1) * rows
+                    assert all((launches(rows), rows) <= (launches(r), r) for r in lstm_kernel.WIDE_ROWS)
+                for window in (plan.fwd_window, plan.bwd_window):
+                    assert 1 <= window <= steps
+                assert plan.xp_shape == (batch, plan.fwd_window, 4 * h)
+                assert plan.da_shape == (batch, plan.bwd_window, 4 * h) and plan.da_dtype == dtype
+                assert plan.rec_shape == (batch, plan.bwd_window, h, lstm_kernel.CLUSTER_REC)
+                assert plan.part_shape == (plan.n_chunks, 4 * h, d + h)
+                assert plan.db_part_shape == (plan.bwd_blocks, 4 * h) and plan.state_shape == (batch, h)
+                bf16 = dtype == torch.bfloat16
+                assert plan.fwd_pack == k * 64 * lstm_kernel.wide_pitch(h, bf16)
+                assert plan.bwd_pack == k * 16 * lstm_kernel.wide_pitch(4 * h, bf16)
+                for kernel in lstm_kernel.KERNELS:
+                    assert plan.scratch_bytes(kernel) <= lstm_kernel.WIDE_SCRATCH_BYTES
+                if steps == 16000:  # windows shorter than T: the same at any longer T
+                    longer = launch_plan(batch, 10**6, dtype, 132, d, None, h, wide_slots=given)
+                    if plan.bwd_window < steps:
+                        assert longer.bwd_window == plan.bwd_window
+                    if plan.fwd_window < steps:
+                        assert longer.fwd_window == plan.fwd_window
+
+
+# H past what the card holds of a row group at once (132 slots: H > 2112),
+# and the widest that it does: (H, the CTAs a group, unit tiles of the CTA
+# that owns the most)
+TILED = [(2112, 132, 1), (2113, 67, 2), (2304, 72, 2), (4096, 128, 2), (8192, 128, 4)]
+
+
+@pytest.mark.parametrize("h,ctas,tiles", TILED, ids=[f"H{h}" for h, _, _ in TILED])
+def test_wide_plan_tiles_past_what_the_card_holds(h, ctas, tiles):
+    """Where no rows variant holds a row group's ceil(H / 16) CTAs at once,
+    the plan takes fewer CTAs a group, each of more unit tiles, spread
+    evenly (wide_ctas, lstm_wide.cu's group_ctas), and the rows with the
+    fewest launches times tiles; C's scratch counts db_rows (B, 4H) fp32
+    and stays within the budget (up to H = 4096).  Where not one CTA fits the card's
+    shared memory the plan raises, naming it."""
+    k = -(-h // lstm_kernel.WIDE_UNITS)
+    assert lstm_kernel.wide_ctas(k, 132) == ctas and -(-k // ctas) == tiles
+    assert lstm_kernel.wide_ctas(k, k) == k and lstm_kernel.wide_ctas(k, 0) == 0
+    slots = (tuple(132 if r <= 8 else 0 for r in lstm_kernel.WIDE_ROWS),) * 2
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 7, 128):
+            plan = launch_plan(batch, 16000, dtype, 132, h, None, None, wide_slots=slots)
+            assert (plan.fwd_ctas, plan.bwd_ctas) == (ctas, ctas)
+            # one group a launch: the fewest groups of up to 8 rows, then the fewest rows
+            assert plan.fwd_rows == plan.bwd_rows == min(r for r in lstm_kernel.WIDE_ROWS if r >= min(batch, 8))
+            with_rows, without = (dataclasses.replace(plan, da_shape=(n, 0, 4 * h)).scratch_bytes("lstm_bwd")
+                                  for n in (batch, 0))
+            assert with_rows - without == 4 * batch * 4 * h  # db_rows (B, 4H) fp32
+            # past 4096 the packed W_hh and one dW partial alone pass the budget (they grow with H^2, not T)
+            for kernel in lstm_kernel.KERNELS:
+                assert h > 4096 or plan.scratch_bytes(kernel) <= lstm_kernel.WIDE_SCRATCH_BYTES
+    with pytest.raises(RuntimeError, match="shared memory"):
+        launch_plan(3, 10, torch.float32, 132, h, None, None, wide_slots=((0,) * 7, (0,) * 7))
+
+
+def test_wide_scratch_at_1024_is_within_4gb():
+    """B=128, T=16000, D = H = 1024, fp32: kernel C's scratch (the widest
+    of the three) is at most 4 GB, and stays so at any T: a window of a few
+    hundred steps, 16 dW chunks of 33.5 MB."""
+    for steps in (16000, 160000):
+        plan = launch_plan(128, steps, torch.float32, 132, 1024)
+        assert plan.wide and 100 <= plan.bwd_window < 1000 and plan.n_chunks == 16
+        for kernel in lstm_kernel.KERNELS:
+            assert plan.scratch_bytes(kernel) <= 4 * 10**9
+        assert plan.scratch_bytes("lstm_bwd") >= 2 * 10**9  # the budget is used, not left idle
+    assert launch_plan(128, 16000, torch.float32, 132, 1024) == launch_plan(128, 16000, torch.float32, 132, 1024,
+                                                                           None, 1024)
+

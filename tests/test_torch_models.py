@@ -45,16 +45,16 @@ def _inputs(rng, b=2):
 
 
 # (encoding, band, channels): the base family's 64 channels (ids as before),
-# and the widths the LSTM kernels take masked (48) and on the cluster path
-# (128) with the table encoding.
+# and the widths the LSTM kernels take masked (48), on the cluster path (128)
+# and on the wide path (320) with the table encoding.
 GEN_CASES = [pytest.param(e, b, 64, id=f"{b}-{e}") for b in (None, 3000.0) for e in ("table", "bits")] + [
-    pytest.param("table", None, c, id=f"None-table-c{c}") for c in (48, 128)]
+    pytest.param("table", None, c, id=f"None-table-c{c}") for c in (48, 128, 320)]
 
 
 @pytest.mark.parametrize("encoding,band,channels", GEN_CASES)
 def test_generator_matches_flax(rng, encoding, band, channels):
     """Whole generator, random flax init: convs, BN, LSTM, message path and
-    band FIR in fp32, at 64, 48 and 128 channels (LSTM(C, C)).  Tolerance
+    band FIR in fp32, at 64, 48, 128 and 320 channels (LSTM(C, C)).  Tolerance
     1e-5 (summation order only; the random init keeps the LSTM
     contractive)."""
     s, msg = _inputs(rng)
@@ -77,9 +77,10 @@ def test_generator_matches_flax(rng, encoding, band, channels):
 @pytest.mark.parametrize("head,channels", [pytest.param("shared", 64, id="shared"),
                                             pytest.param("dilated", 64, id="dilated"),
                                             pytest.param("shared", 48, id="shared-c48"),
-                                            pytest.param("shared", 128, id="shared-c128")])
+                                            pytest.param("shared", 128, id="shared-c128"),
+                                            pytest.param("shared", 320, id="shared-c320")])
 def test_detector_matches_flax(rng, head, channels):
-    """Detector logits (B, T, 1+bits) at 1e-5, at 64, 48 and 128 channels;
+    """Detector logits (B, T, 1+bits) at 1e-5, at 64, 48, 128 and 320 channels;
     the dilated head's receptive field (dilations 16/128/1024) exceeds T, so
     its zero padding is exercised too."""
     s, _ = _inputs(rng, b=3)

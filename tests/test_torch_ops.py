@@ -216,14 +216,34 @@ def _rel(a, ref):
 # a weight; at 4H = 512 terms (H = 128) more of them do (measured 3.6e-3 at
 # 128 x 128, against 1e-3 held at W <= 64).
 BF16_DX_NEW_WIDTHS_TOL = 5e-3
+# bf16 past 256 (the wide path's widths): the inputs' fixed weight scale of
+# 0.1 gives the recurrence a gain of about 0.1 sqrt(H) (1.6 at 257, 2.4 at
+# 600, against 1.1 at 128), so a value that lands on the other side of a
+# bf16 rounding boundary in one of the two correct computations grows along
+# T instead of dying out: measured over seeds 0-2 at T=32, c_{t-1} 5.3e-3
+# absolute (held at 1e-3 below 256) and C's tensors 6.1e-3 of their max (dx
+# 5e-3, the rest 1e-3 below 256), while fp32 stays at 1.4e-6.  Held at 1e-2,
+# the card's bf16 bound for kernel C against its plain version (KERNEL_TOL).
+BF16_WIDE_TOL = 1e-2
+
+
+def _bf16_tol(dtype, w, name, tol):
+    """The bound of one bf16 tensor at width w (an int, or a (D, H) pair)."""
+    if dtype != torch.bfloat16 or not isinstance(w, tuple):
+        return tol
+    if max(w) > 256:
+        return BF16_WIDE_TOL
+    return BF16_DX_NEW_WIDTHS_TOL if name == "dx" else tol
 
 
 # dtype, width, T: width 64 at T=128 (ids as before), width 32 at T=50,
 # width 16 at T=32 (the shape of entry.dryrun_multichip's gradient check);
 # the widths the kernels take masked (48 x 48, the base family at channels
-# 48; 40 x 24, D != H) and on the cluster path (96 x 96, 128 x 128, the base
-# family at channels 128), as (D, H) at T=32.
-NEW_WIDTHS = [(48, 48), (40, 24), (96, 96), (128, 128)]
+# 48; 40 x 24, D != H), on the cluster path (96 x 96, 128 x 128, the base
+# family at channels 128) and on the wide path past 256 (257 x 257, one unit
+# past a 16-unit CTA; 300 x 300, a ragged last CTA; 40 x 600, D != H), as
+# (D, H) at T=32.
+NEW_WIDTHS = [(48, 48), (40, 24), (96, 96), (128, 128), (257, 257), (300, 300), (40, 600)]
 TRAIN_CASES = [pytest.param(torch.float32, 64, 128, id="f32"),
                pytest.param(torch.bfloat16, 64, 128, id="bf16"),
                pytest.param(torch.float32, *W32, id="f32-w32"),
@@ -250,7 +270,7 @@ def test_plain_forward_train_matches_pallas(rng, dtype, w, t):
         ref_y, ref_c = _forward_train(jx, *map(jnp.asarray, (w_ih, w_hh, bias)))
     y, cprev = lstm_forward_train(tx, *_t(w_ih, w_hh, bias))
     assert y.dtype == dtype and cprev.dtype == torch.float32
-    tol_y, tol_c = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    tol_y, tol_c = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, _bf16_tol(dtype, w, "cprev", 1e-3))
     ref_y = np.swapaxes(np.asarray(ref_y.astype(jnp.float32)), 0, 1)
     ref_c = np.swapaxes(np.asarray(ref_c), 0, 1)
     np.testing.assert_allclose(y.float().numpy(), ref_y, atol=tol_y)
@@ -283,7 +303,7 @@ def test_plain_backward_matches_pallas(rng, dtype, w, t):
     ref_dx = np.swapaxes(np.asarray(ref[0].astype(jnp.float32)), 0, 1)
     for name, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got,
                           (ref_dx, *(np.asarray(v) for v in ref[1:]))):
-        t_ = BF16_DX_NEW_WIDTHS_TOL if name == "dx" and dtype == torch.bfloat16 and isinstance(w, tuple) else tol
+        t_ = _bf16_tol(dtype, w, name, tol)
         assert _rel(a.float().numpy(), r) < t_, (name, _rel(a.float().numpy(), r))
 
 
@@ -314,7 +334,7 @@ def test_lstm_function_grads_match_jax_grad(rng, dtype, w, t):
     tol = 1e-5 if dtype == torch.float32 else 1e-3
     for name, leaf, r in zip(("dx", "dw_ih", "dw_hh", "db"), leaves, ref):
         assert leaf.grad.dtype == leaf.dtype, name
-        t_ = BF16_DX_NEW_WIDTHS_TOL if name == "dx" and dtype == torch.bfloat16 and isinstance(w, tuple) else tol
+        t_ = _bf16_tol(dtype, w, name, tol)
         err = _rel(leaf.grad.float().numpy(), np.asarray(r.astype(jnp.float32)))
         assert err < t_, (name, err)
 
