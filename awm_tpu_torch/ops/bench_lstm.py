@@ -10,7 +10,8 @@ overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
-                                            [--variants] [--check] [--only NAME] [--library]
+                                            [--variants] [--check] [--only NAME] [--library] [--split]
+                                            [--hash [--against FILE]]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
 (DIR/awm_tpu_torch), so that two commits can be timed in turns in one call
@@ -46,7 +47,24 @@ T whose device ms was measured, what a short call costs before its steps
 and what each step adds.  --library also times one torch.nn.LSTM (cuDNN)
 call of each kernel's function on the same inputs, TF32 off (the yardstick
 only; the port never calls it): kernel "<kernel>:nn.LSTM", rows null, ms
-null where the card's memory refuses it.  Without a card it exits 1.
+null where the card's memory refuses it.  --split (the wide path, a width
+past 256) times the recurrence's step with its parts switched off: it builds
+lstm_wide.cu once more for each mask of SPLIT_MASKS with -DAWM_WIDE_SPLIT=mask
+(1 the row group's barrier, 2 the staging of h / da, 4 the recurrent product,
+8 the rest of the step; all builds in parallel, the library the port loads
+has none), puts each in the port's place in turn and prints, for A's and C's
+recurrence at one row a group (B=1) and at 32 (B=32), fp32 and bf16, one
+line {"tree", "card", "kernel", "width", "steps", "batch", "rows", "split",
+"off", "device_ms", "us_a_step"}: the recurrence launches' device ms (the
+other launches of the call left out) and over T.  --hash prints, for every
+(D, H) of HASH_SHAPES (each path: the capacities, masked, cluster, wide) at
+each (B, T) of HASH_BT, fp32 and bf16, one line per kernel {"tree", "card",
+"kernel", "d", "h", "batch", "steps", "sha256"}: the hash of the bytes of
+its outputs (A: y; B: y, c_{t-1}; C: dx, dW_ih, dW_hh, db) from seeded
+inputs, the same in every checkout; --against FILE (another tree's --hash
+lines) adds "same" to each line and a last line {"tree", "against",
+"same", "of", "differ"}, and exits 1 where any output's bits differ.
+Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -58,9 +76,18 @@ import subprocess
 import sys
 
 STEPS = {64: 16000, 32: 50, 16: 32}  # the main paths' T at each width (16000 at any other)
+# --split: the parts of a wide recurrence's step switched off (lstm_wide.cu's AWM_WIDE_SPLIT bits)
+SPLIT_PARTS = {1: "barrier", 2: "staging", 4: "product", 8: "rest"}
+SPLIT_MASKS = (0, 1, 2, 4, 8, 15)
 # --check's shapes: T around the ring's 16-step chunks and the short path's
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
+# --hash's (D, H): the capacities' squares, masked (48, 40 x 24), the cluster
+# path (96, 128, 256, 200 x 8), the wide path (257, 512, 40 x 600, 300 x 40);
+# (B, T): a ragged batch over several ring chunks, a batch of full row groups.
+HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (96, 96), (128, 128), (256, 256), (200, 8),
+               (257, 257), (512, 512), (40, 600), (300, 40))
+HASH_BT = ((7, 65), (32, 17))
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -105,14 +132,16 @@ def device_ms(torch, fn, reps: int) -> float | None:
     return None
 
 
-def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64):
-    """Seeded x, weights at torch's LSTM init scale U(+-1/sqrt(H)) and an
-    fp32 dy (kernel_dy gives it the checkout's kernel C's type)."""
+def inputs(torch, b: int, t: int, dtype, seed: int, width: int = 64, hidden: int | None = None):
+    """Seeded x (B, T, D = width), weights at torch's LSTM init scale
+    U(+-1/sqrt(H)) (H = hidden, default width) and an fp32 dy (kernel_dy
+    gives it the checkout's kernel C's type)."""
+    h = hidden or width
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(b, t, width, device="cuda", generator=g) * 0.5).to(dtype)
-    w = [(torch.rand(*s, device="cuda", generator=g) * 2 - 1) / width**0.5
-         for s in ((4 * width, width), (4 * width, width), (4 * width,))]
-    dy = torch.randn(b, t, width, device="cuda", generator=g) * 0.1
+    w = [(torch.rand(*s, device="cuda", generator=g) * 2 - 1) / h**0.5
+         for s in ((4 * h, width), (4 * h, h), (4 * h,))]
+    dy = torch.randn(b, t, h, device="cuda", generator=g) * 0.1
     return x, w[0], w[1], 2 * w[2], dy
 
 
@@ -174,6 +203,70 @@ def kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias):
         return dy
 
 
+def output_hashes(torch, K, tree: str, card: str, against: str | None) -> int:
+    """--hash: the sha256 of each kernel's outputs at HASH_SHAPES x HASH_BT
+    (printed), held to another tree's lines where `against` names them;
+    returns the count of outputs whose bits differ."""
+    import hashlib
+
+    def digest(*tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    key = lambda line: (line["kernel"], line["d"], line["h"], line["batch"], line["steps"])
+    theirs = {}
+    if against:
+        with open(against) as f:
+            theirs = {key(line): line["sha256"] for line in map(json.loads, f) if "sha256" in line}
+    same = differ = 0
+    for d, h in HASH_SHAPES:
+        for b, t in HASH_BT:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w_ih, w_hh, bias, dy = inputs(torch, b, t, dtype, seed=d * 1000 + h + b, width=d, hidden=h)
+                y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
+                outs = {"lstm_fwd": (K.forward_kernel(x, w_ih, w_hh, bias),), "lstm_fwd_train": (y, cprev),
+                        "lstm_bwd": K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)}
+                for kernel, got in outs.items():
+                    line = {"tree": tree, "card": card, "kernel": K.instantiation(kernel, dtype, d, h), "d": d, "h": h,
+                            "batch": b, "steps": t, "sha256": digest(*got)}
+                    if against:
+                        line["same"] = theirs.get(key(line)) == line["sha256"]
+                        same, differ = same + line["same"], differ + (not line["same"])
+                    print(json.dumps(line), flush=True)
+                del x, y, cprev, dy, outs
+                torch.cuda.empty_cache()
+    if against:
+        print(json.dumps({"tree": tree, "against": against, "same": same, "of": same + differ, "differ": differ}),
+              flush=True)
+    return differ
+
+
+def split_libraries(K, masks) -> dict:
+    """lstm_wide.cu built once for each mask with -DAWM_WIDE_SPLIT=mask (all
+    nvcc processes at once), loaded with the port's entry points' types."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from awm_tpu_torch.ops import cuda_build
+
+    base = K.libraries()["lstm_wide"]
+    with ThreadPoolExecutor(len(masks)) as pool:
+        paths = dict(zip(masks, pool.map(lambda m: cuda_build.build_all(["lstm_wide"], (f"-DAWM_WIDE_SPLIT={m}",)),
+                                         masks)))
+    libs = {}
+    for mask, built in paths.items():
+        lib = ctypes.CDLL(built["lstm_wide"][0])
+        for name in [n for n in K.launches if n.endswith("_wide")] + ["awm_lstm_wide_shape", "awm_lstm_wide_pack_elems",
+                                                                      "awm_cuda_error_string"]:
+            fn = K.entry_point(name) if name.endswith("_wide") else name
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = getattr(base, fn).argtypes, getattr(base, fn).restype
+        libs[mask] = lib
+    return libs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -187,6 +280,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
     ap.add_argument("--library", action="store_true", help="also time torch.nn.LSTM (cuDNN) on the same inputs")
+    ap.add_argument("--split", action="store_true", help="time the wide recurrence's step with parts switched off")
+    ap.add_argument("--hash", action="store_true", help="print the sha256 of every kernel's outputs at HASH_SHAPES")
+    ap.add_argument("--against", default=None, help="with --hash: another tree's --hash lines to hold them to")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     width, sweep = args.width, args.steps or [STEPS.get(args.width, 16000)]
@@ -308,6 +404,45 @@ def main() -> int:
         print(json.dumps(line), flush=True)
 
     want = lambda name: args.only in name
+    if args.hash:
+        return 1 if output_hashes(torch, K, tree, card, args.against) else 0
+    if args.split:
+        if not wide:
+            print("bench_lstm: --split times the wide path (a width past 256)", file=sys.stderr)
+            return 1
+        libs, base = split_libraries(K, SPLIT_MASKS), K.libraries()["lstm_wide"]
+        steps = sweep[0]
+        try:
+            for sfx, dtype in dtypes.items():
+                for batch in (1, 32):
+                    x, w_ih, w_hh, bias, dy = inputs(torch, batch, steps, dtype, seed=9, width=width)
+                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                    dy = dy.to(dtype)
+                    calls = {name("lstm_fwd", dtype, width): ("lstm_wide_fwd", lambda: K.forward_kernel(
+                                 x, w_ih, w_hh, bias, rows=batch)),
+                             name("lstm_bwd", dtype, width): ("lstm_wide_bwd", lambda: K.backward_kernel(
+                                 x, y, cprev, dy, w_ih, w_hh, bias, rows=batch))}
+                    for mask, lib in libs.items():
+                        K._libs["lstm_wide"] = lib
+                        for kernel, (frag, fn) in calls.items():
+                            if not want(kernel):
+                                continue
+                            ms = None
+                            for _ in range(3):
+                                ms = sum(v for k, v in kernel_split(torch, fn, args.reps).items() if frag in k) or None
+                                if ms:
+                                    break
+                            print(json.dumps({"tree": tree, "card": card, "kernel": kernel, "width": width,
+                                              "steps": steps, "batch": batch, "rows": batch, "split": mask,
+                                              "off": [p for bit, p in SPLIT_PARTS.items() if mask & bit],
+                                              "device_ms": ms, "us_a_step": None if ms is None else 1e3 * ms / steps}),
+                                  flush=True)
+                    K._libs["lstm_wide"] = base
+                    del x, y, cprev, dy
+                    torch.cuda.empty_cache()
+        finally:
+            K._libs["lstm_wide"] = base
+        return 0
     for steps in sweep:
         for sfx, dtype in dtypes.items():
             fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))

@@ -1,7 +1,8 @@
 // The runtime-width kernels of kernel C, shared by lstm_bwd.cu (the masked
 // and cluster paths) and lstm_wide.cu (the wide path, max(D, H) > 256):
 // the gate pass (lstm_bwd_gates_{f32,bf16}_kernel, lstm_bwd.cu's "widths
-// above 64" has its design), dx, dW and the ordered sum at runtime D and H.
+// above 64" has its design; bf16's for lstm_bwd.cu only, the wide path
+// runs its own), dx, dW and the ordered sum at runtime D and H.
 //
 // Each product runs over rows of the flattened (B*T) axis.  WIN = false: all
 // of them, row n is (row n / T, step n % T), the code lstm_bwd.cu's paths
@@ -10,12 +11,12 @@
 // its scratch does not grow with T): local row n = b tc + s is global row
 // b T + t0 + s, the scratch (records, da, xp) is indexed by the local row and
 // x, y, c_{t-1}, dy and dx by the global one; h_{t-1} = y of the global row
-// before, zero at t0 + s = 0.  The wide path's plan keeps B tc below 2^31,
-// so a local row is an int.  The gate pass with XP = true stops after x's
-// terms and writes the sums, bias then x's terms in order, to an fp32 (rows,
-// 4H) tile: the wide forward's input projection, which its recurrence
-// continues with h's terms in the gate pass's order (so kernel C recomputes
-// the forward's gates bit for bit in both types).
+// before, zero at t0 + s = 0.  A window's B tc stays below 2^31, so a local
+// row is an int.  The fp32 gate pass with XP = true stops after x's terms
+// and writes the sums, bias then x's terms in order, to an fp32 (rows, 4H)
+// tile: the wide forward's input projection, which its recurrence continues
+// with h's terms in the gate pass's order (so kernel C recomputes the
+// forward's gates bit for bit; bf16's is lstm_wide.cu's gate pass).
 
 #pragma once
 
@@ -62,60 +63,17 @@ struct BwdArgs {
 
 // ---- Any width: dx, dW and the ordered sum at runtime D and H ----
 //
-// The four-launch path's products for a call whose widths are not a
-// capacity's square (D != H, or a width other than 16, 32, 64; and every
-// call above 64): G = 4 H gate columns, K = D + H terms, tails masked, the
-// reduction's terms in order (two runs give the same bits).  fp32 stays
-// fp32 (CUDA cores, no TF32): dx in tiles of 64 x 64 outputs, 4 x 4 a
-// thread; dW in tiles of 128 x 128, 8 x 8 a thread.  bf16 on the tensor
-// cores (below): da is bf16 already and W_ih is rounded as it is staged, so
-// every product is exact in fp32 and sums in fp32.
-constexpr int AT = 64;   // outputs of a tile's side
-constexpr int AK = 16;   // fp32 dx: gate columns staged per step
-constexpr int AN = 32;   // dW: rows of the (B*T) axis staged per step
-
-// fp32: dx[n][k] = sum_j da[n][j] W_ih[j][k], j < 4h, k < d.  Grid (ceil(rows / 64), ceil(d / 64)).
-// WIN: da's rows are the window's, dx's the global rows.
-template <bool WIN>
-__global__ void __launch_bounds__(256)
-lstm_bwd_dx_any_kernel(const float* __restrict__ da, const float* __restrict__ w_ih, float* __restrict__ dx,
-                       long long n_rows, int d, int h, long long steps, Win w) {
-  __shared__ __align__(16) float s_a[AK][AT + 4];  // [j][n]
-  __shared__ __align__(16) float s_w[AK][AT + 4];  // [j][k]
-  const int g = 4 * h, tid = threadIdx.x, tn = tid / 16, tk = tid % 16;
-  const long long n0 = (long long)blockIdx.x * AT;
-  const int k0 = blockIdx.y * AT;
-  float acc[4][4] = {};
-  for (int j0 = 0; j0 < g; j0 += AK) {
-    __syncthreads();
-    for (int i = tid; i < AK * AT; i += 256) {
-      const int jj = i % AK, nn = i / AK;  // da is row-major in n: consecutive threads take consecutive j
-      const long long n = n0 + nn;
-      s_a[jj][nn] = n < n_rows && j0 + jj < g ? da[n * g + j0 + jj] : 0.0f;
-      const int kk = i % AT, jw = i / AT;
-      s_w[jw][kk] = load_wm(w_ih, j0 + jw < g, (size_t)(j0 + jw), k0 + kk, d);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < AK; ++jj) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_a[jj][tn * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&s_w[jj][tk * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long n = n0 + tn * 4 + i;
-      const int k = k0 + tk * 4 + q;
-      if (n < n_rows && k < d) dx[global_row<WIN>(n, steps, w) * d + k] = acc[i][q];
-    }
-}
+// The products of every call whose widths are not a capacity's square
+// (D != H, or a width other than 16, 32, 64; every call above 64, the wide
+// path's windows too): G = 4 H gate columns, K = D + H terms, tails masked,
+// each output's terms summed in order (two runs give the same bits).  fp32
+// stays fp32 (CUDA cores, no TF32): dx and dW in tiles of 128 x 128
+// outputs, 8 x 8 a thread.  bf16 on the tensor cores (below): da is bf16
+// already and W_ih is rounded to bf16 once a call, so every product is exact
+// in fp32 and sums in fp32.  dx and bf16 dW take a window of rows (WIN =
+// true: da local, x, y and dx global); lstm_bwd.cu's calls pass the window
+// of every step, Win{0, T}, over slabs of batch rows whose (B*T) rows index
+// in 32 bits.
 
 // fp32: part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m],
 // v = [x | h_{t-1}] (h_{t-1} = y of the previous row, zero at t = 0), j <
@@ -239,143 +197,333 @@ lstm_bwd_sum_any_kernel(const float* __restrict__ part, int n_chunks, const floa
   }
 }
 
-// bf16: dx and dW at runtime widths on the tensor cores (bf16 in, exact
-// products, fp32 sums), the square kernels' mma tiles with the edge tiles
-// zero-masked.  Tiles of 64 x 64 outputs again; the reduction's tiles in
-// order, so two runs give the same bits.
-constexpr int AMP = AT + 8;  // row pitch (bf16) of a staged tile: 8 rows' fragments in distinct banks
-constexpr int AXM = 128;     // dx: rows of the (B*T) axis a block, 16 a warp
-
-// 4 bf16 of row-major (rows, g) da at (n, j), zero past the rows or g (g and
-// j are multiples of 4: one 8-byte load or none).
-__device__ __forceinline__ uint2 load_da4(const __nv_bfloat16* da, long long n, long long n_end, int j, int g) {
-  return n < n_end && j < g ? *reinterpret_cast<const uint2*>(da + n * g + j) : make_uint2(0u, 0u);
-}
-
-// dx[n][k] = sum_j da[n][j] W_ih[j][k]: M = 16 rows a warp, N = 8 inputs a
-// tile (8 tiles: 64 inputs), K = the gate columns, 64 staged a step.  Grid
-// (ceil(rows / 128), ceil(d / 64)).  WIN: as lstm_bwd_dx_any_kernel's.
-template <bool WIN>
-__global__ void __launch_bounds__(256)
-lstm_bwd_dx_any_mma_kernel(const __nv_bfloat16* __restrict__ da, const float* __restrict__ w_ih,
-                           __nv_bfloat16* __restrict__ dx, long long n_rows, int d, int h, long long steps, Win w) {
-  __shared__ __align__(16) __nv_bfloat16 s_a[AXM * AMP];  // [n][j]
-  __shared__ __align__(16) __nv_bfloat16 s_w[AT * AMP];   // [k][j]: W_ih transposed, B fragments' k adjacent
-  const int g = 4 * h, tid = threadIdx.x, warp = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
-  const long long n0 = (long long)blockIdx.x * AXM;
-  const int k0 = blockIdx.y * AT;
-  float c[AT / 8][4] = {};
-  for (int j0 = 0; j0 < g; j0 += AT) {
-    __syncthreads();
-    for (int i = tid; i < AXM * (AT / 4); i += 256) {
-      const int r = i / (AT / 4), q = i % (AT / 4);
-      *reinterpret_cast<uint2*>(s_a + r * AMP + 4 * q) = load_da4(da, n0 + r, n_rows, j0 + 4 * q, g);
+// fp32: dx[global row of n][k] = sum_j da[n][j] W_ih[j][k] over a window's rows:
+// a block owns 128 rows x 128 inputs, a thread 8 x 8 (two groups of 4 rows
+// 64 apart, two of 4 inputs 64 apart), the gate columns staged FK at a time
+// (the next FK in registers meanwhile), so that one 16-byte load of each
+// operand feeds 16 FMAs, full fp32 on the CUDA cores.  Each output sums its
+// gate columns in order.  Grid (ceil(rows / 128), ceil(d / 128)).  vec: D a
+// multiple of 4 and W_ih, dx 16-byte aligned, else one value a load.
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_dx_any_kernel(const float* __restrict__ da, const float* __restrict__ w_ih, float* __restrict__ dx,
+                       long long n_rows, int d, int h, int vec, long long steps, Win w) {
+  __shared__ __align__(16) float s_a[2][FK][FT + 4];  // [buf][j][n]: da transposed (the pad spreads the stores)
+  __shared__ __align__(16) float s_w[2][FK][FT];      // [buf][j][k]
+  const int g = 4 * h, tid = threadIdx.x, tn = tid >> 4, tk = tid & 15;
+  const long long n0 = (long long)blockIdx.x * FT;
+  const int k0 = blockIdx.y * FT;
+  // staging: da row n0 + tid / 2, gate columns 4 (tid % 2) .. + 3 of the step; W_ih row tid / 32, inputs 4 (tid % 32) ..
+  const int an = tid >> 1, aj = (tid & 1) * 4, wj = tid >> 5, wk = (tid & 31) * 4;
+  float ra[4], rw[4];
+  auto fetch = [&](int j0) {
+    const long long n = n0 + an;
+    if (n < n_rows && j0 + aj < g) {  // 4h is a multiple of 4: a da row's 16-byte pieces lie within it
+      const float4 v = *reinterpret_cast<const float4*>(da + n * g + j0 + aj);
+      ra[0] = v.x, ra[1] = v.y, ra[2] = v.z, ra[3] = v.w;
+    } else {
+      ra[0] = ra[1] = ra[2] = ra[3] = 0.0f;
     }
-    for (int i = tid; i < AT * AT; i += 256) {
-      const int kk = i % AT, jj = i / AT;  // consecutive threads read consecutive k of a row of W_ih
-      s_w[kk * AMP + jj] = __float2bfloat16(load_wm(w_ih, j0 + jj < g, (size_t)(j0 + jj), k0 + kk, d));
+    const int j = j0 + wj, k = k0 + wk;
+    if (vec && j < g && k < d) {
+      const float4 v = *reinterpret_cast<const float4*>(w_ih + (size_t)j * d + k);
+      rw[0] = v.x, rw[1] = v.y, rw[2] = v.z, rw[3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rw[i] = load_wm(w_ih, j < g, (size_t)j, k + i, d);
     }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s_a[buf][aj + i][an] = ra[i];
+    *reinterpret_cast<float4*>(&s_w[buf][wj][wk]) = make_float4(rw[0], rw[1], rw[2], rw[3]);
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
+  fetch(0);
+  put(0);
+  __syncthreads();
+  int cur = 0;
+  for (int j0 = 0; j0 < g; j0 += FK, cur ^= 1) {
+    const bool more = j0 + FK < g;
+    if (more) fetch(j0 + FK);
+#pragma unroll
+    for (int jj = 0; jj < FK; ++jj) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&s_a[cur][jj][4 * tn]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&s_a[cur][jj][64 + 4 * tn]);
+      const float4 w0 = *reinterpret_cast<const float4*>(&s_w[cur][jj][4 * tk]);
+      const float4 w1 = *reinterpret_cast<const float4*>(&s_w[cur][jj][64 + 4 * tk]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], wv[q], acc[p][q]);
+    }
+    if (more) put(cur ^ 1);
     __syncthreads();
+  }
 #pragma unroll
-    for (int kt = 0; kt < AT / 16; ++kt) {
-      if (j0 + kt * 16 >= g) break;
-      const __nv_bfloat16* a_lo = s_a + (warp * 16 + g8) * AMP + kt * 16 + 2 * t4;
-      const uint32_t a[4] = {ld32(a_lo), ld32(a_lo + 8 * AMP), ld32(a_lo + 8), ld32(a_lo + 8 * AMP + 8)};
+  for (int p = 0; p < 8; ++p) {
+    const long long n = n0 + (p / 4) * 64 + 4 * tn + p % 4;
+    if (n >= n_rows) continue;
+    float* row = dx + global_row<true>(n, steps, w) * d;
 #pragma unroll
-      for (int nt = 0; nt < AT / 8; ++nt) {
-        const __nv_bfloat16* b = s_w + (nt * 8 + g8) * AMP + kt * 16 + 2 * t4;
-        mma_bf16(c[nt], a, ld32(b), ld32(b + 8));
+    for (int half = 0; half < 2; ++half) {
+      const int k = k0 + half * 64 + 4 * tk;
+      if (vec && k < d) {
+        *reinterpret_cast<float4*>(row + k) =
+            make_float4(acc[p][4 * half], acc[p][4 * half + 1], acc[p][4 * half + 2], acc[p][4 * half + 3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + i < d) row[k + i] = acc[p][4 * half + i];
       }
     }
   }
-#pragma unroll
-  for (int nt = 0; nt < AT / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long n = n0 + warp * 16 + g8 + (e >> 1) * 8;
-      const int k = k0 + nt * 8 + 2 * t4 + (e & 1);
-      if (n < n_rows && k < d) dx[global_row<WIN>(n, steps, w) * d + k] = __float2bfloat16(c[nt][e]);
-    }
 }
 
-// part[chunk][j][m] = sum over the chunk's rows n of da[n][j] v[n][m], v = [x
-// | h_{t-1}]: M = 16 gate columns a warp (4 tiles), N = 32 terms a warp (two
-// halves), K = the rows, 32 staged a step; both operands row-major in the
-// rows, both fragments transposed through ldmatrix (lstm_bwd_dw_mma_kernel's
-// products).  Grid (n_chunks, ceil(4h / 64), ceil((d + h) / 64)).
-// vec: x and y 16-byte aligned and D, H multiples of 8 (x | h_{t-1} staged 8
-// values a load), else one value a load.  WIN, accum: as lstm_bwd_dw_any_kernel's.
-template <bool WIN>
-__global__ void __launch_bounds__(256)
+// bf16: dW and dx of a window on the tensor cores, in block tiles of 128 x
+// 128 outputs, a warp 64 x 32 (2 x 4 warps, 16 mma.sync.m16n8k16 a k-tile),
+// the reduction axis staged 32 at a time by cp.async into a ring of 4 stages
+// (three in flight while one is multiplied, one __syncthreads a stage),
+// every fragment by ldmatrix.  Each output sums its k-tiles in order in one
+// accumulator: two calls give the same bits.
+constexpr int MT = 128;             // outputs of a block tile's side
+constexpr int MK = 32;              // terms of the reduction a stage
+constexpr int MS = 4;               // stages of the ring
+constexpr int MP = MT + 8;          // row pitch (bf16) of a staged [MK][MT] tile: ldmatrix rows in distinct banks
+constexpr int MKP = MK + 8;         // row pitch of dx's staged da tile [MT][MK]
+constexpr int DW_SMEM = (int)sizeof(__nv_bfloat16) * MS * 2 * MK * MP;
+constexpr int DX_SMEM = (int)sizeof(__nv_bfloat16) * MS * (MT * MKP + MK * MP);
+
+// Ring stages st = 0 .. ns - 1 of a product, stage(st, buf) issuing stage
+// st's copies into buffer buf, mul(buf) multiplying it.
+template <typename Stage, typename Mul>
+__device__ __forceinline__ void stage_ring(long long ns, Stage stage, Mul mul) {
+  for (int st = 0; st < MS - 1; ++st) {
+    if (st < ns) stage(st, st);
+    cp_async_commit();
+  }
+  for (long long st = 0; st < ns; ++st) {
+    cp_async_wait<MS - 2>();
+    __syncthreads();  // stage st in for every thread, every thread past stage st - 1 (whose buffer is next)
+    if (st + MS - 1 < ns) stage(st + MS - 1, (int)((st + MS - 1) % MS));
+    cp_async_commit();
+    mul((int)(st % MS));
+  }
+}
+
+// 8 bf16 into shared memory: 16 bytes by cp.async where vec and the source
+// lies within the operand (ok), zeros where it does not; one at a time from
+// get(i) (zero past the operand) where not vec.
+template <typename Get>
+__device__ __forceinline__ void put8(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok, bool vec, Get get) {
+  if (vec) {
+    if (ok) cp_async16(dst, src);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = get(i);
+  }
+}
+
+// part[chunk][j][m] (+)= sum over the chunk's rows n of the window of da[n][j]
+// v[n][m], v = [x | h_{t-1}] (h_{t-1} = y of the global row before, zero at
+// step 0), j < 4h, m < d + h.  Grid (n_chunks, ceil(4h / 128), ceil((d + h)
+// / 128)).  vec: D, H multiples of 8 and x, y, da 16-byte aligned, else
+// plain loads.  accum: add to the partial there (the wide path's windows
+// after the call's first, in the order they run), else write it.
+__global__ void __launch_bounds__(256, 2)
 lstm_bwd_dw_any_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ y, float* __restrict__ part, long long n_rows,
                            int steps, long long chunk_rows, int d, int h, int vec, Win w, int accum) {
-  __shared__ __align__(16) __nv_bfloat16 s_a[AN * AMP];  // [n][j]
-  __shared__ __align__(16) __nv_bfloat16 s_v[AN * AMP];  // [n][m]
-  __shared__ int s_row[AN];  // a staged row: -1 past the chunk, 0 at t = 0 (h_{t-1} = 0), 1 else
-  __shared__ long long s_gn[WIN ? AN : 1];  // WIN: a staged row's global row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem);  // [MS][MK][MP]: da, rows x gate columns
+  __nv_bfloat16* s_v = s_a + MS * MK * MP;                       // [MS][MK][MP]: v, rows x terms
   const int g = 4 * h, kk = d + h, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
-  const int j0 = blockIdx.y * AT, m0 = blockIdx.z * AT, wj = (warp & 3) * 16, wm = (warp >> 2) * 32;
+  const int j0 = blockIdx.y * MT, m0 = blockIdx.z * MT, wj = (warp & 1) * 64, wm = (warp >> 1) * 32;
+  const int blk = lane >> 3, blk_row = lane & 7;  // ldmatrix: this lane's block and row in it
   const long long begin = blockIdx.x * chunk_rows;
   const long long end = begin + chunk_rows < n_rows ? begin + chunk_rows : n_rows;
-  const int blk = lane >> 3, blk_row = lane & 7;  // ldmatrix: this lane's block and row in it
-  float c[4][4] = {};
-  for (long long base = begin; base < end; base += AN) {
-    __syncthreads();
-    if (tid < AN) {
-      s_row[tid] = base + tid < end ? (int)has_prev<WIN>(base + tid, steps, w) : -1;
-      if constexpr (WIN) s_gn[tid] = global_row<WIN>(base + tid, steps, w);
-    }
-    __syncthreads();
-    for (int i = tid; i < AN * (AT / 4); i += 256) {
-      const int r = i / (AT / 4), q = i % (AT / 4);
-      *reinterpret_cast<uint2*>(s_a + r * AMP + 4 * q) = load_da4(da, base + r, end, j0 + 4 * q, g);
-    }
-    if (vec) {
-      for (int i = tid; i < AN * (AT / 8); i += 256) {
-        const int r = i / (AT / 8), m = m0 + 8 * (i % (AT / 8)), row = s_row[r];
-        const long long n = WIN ? s_gn[WIN ? r : 0] : base + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row >= 0 && m < kk) {
-          if (m < d) v = *reinterpret_cast<const uint4*>(x + n * d + m);
-          else if (row) v = *reinterpret_cast<const uint4*>(y + (n - 1) * h + (m - d));
-        }
-        *reinterpret_cast<uint4*>(s_v + r * AMP + (m - m0)) = v;
-      }
-    } else {
-      for (int i = tid; i < AN * AT; i += 256) {
-        const int r = i / AT, mm = i % AT, m = m0 + mm, row = s_row[r];
-        const long long n = WIN ? s_gn[WIN ? r : 0] : base + r;
-        __nv_bfloat16 v = __float2bfloat16(0.0f);
-        if (row >= 0 && m < kk) {
-          if (m < d) v = x[n * d + m];
-          else if (row) v = y[(n - 1) * h + (m - d)];
-        }
-        s_v[r * AMP + mm] = v;
-      }
-    }
-    __syncthreads();
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  // a stage: 32 rows x 16 pieces of 8 values of each operand, pieces tid and tid + 256 of each
+  auto stage = [&](long long st, int buf) {
+    const long long base = begin + st * MK;
 #pragma unroll
-    for (int ks = 0; ks < AN / 16; ++ks) {
-      uint32_t a[4];  // A[j][n] = da[n][j]
-      ldmatrix_x4_trans(a, s_a + (ks * 16 + (blk >> 1) * 8 + blk_row) * AMP + wj + (blk & 1) * 8);
+    for (int e = 0; e < 2; ++e) {
+      const int p = tid + 256 * e, r = p >> 4, cc = (p & 15) * 8;
+      const long long n = base + r;
+      const bool live = n < end;
+      const long long gn = live ? global_row<true>(n, steps, w) : 0;
+      const bool prev = live && has_prev<true>(n, steps, w);
+      const int j = j0 + cc, m = m0 + cc;
+      put8(s_a + (buf * MK + r) * MP + cc, da + n * g + j, live && j < g, vec,
+           [&](int i) { return live && j + i < g ? da[n * g + j + i] : zero; });
+      const __nv_bfloat16* src = m < d ? x + gn * d + m : y + (gn - 1) * h + (m - d);
+      put8(s_v + (buf * MK + r) * MP + cc, src, live && m < kk && (m < d || prev), vec, [&](int i) {
+        const int mi = m + i;
+        return !live || mi >= kk ? zero : mi < d ? x[gn * d + mi] : prev ? y[(gn - 1) * h + (mi - d)] : zero;
+      });
+    }
+  };
+  float c[4][4][4] = {};
+  auto mul = [&](int buf) {
+    const __nv_bfloat16* a_buf = s_a + buf * MK * MP;
+    const __nv_bfloat16* v_buf = s_v + buf * MK * MP;
+#pragma unroll
+    for (int ks = 0; ks < MK / 16; ++ks) {
+      uint32_t a[4][4];  // A[j][n] = da[n][j]
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4_trans(a[mt], a_buf + (ks * 16 + (blk >> 1) * 8 + blk_row) * MP + wj + mt * 16 + (blk & 1) * 8);
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t b[4];  // B[n][m] = v[n][m]
-        ldmatrix_x4_trans(b, s_v + (ks * 16 + (blk & 1) * 8 + blk_row) * AMP + wm + np * 16 + (blk >> 1) * 8);
-        mma_bf16(c[2 * np], a, b[0], b[1]);
-        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+        ldmatrix_x4_trans(b, v_buf + (ks * 16 + (blk & 1) * 8 + blk_row) * MP + wm + np * 16 + (blk >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(c[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(c[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
       }
     }
-  }
+  };
+  stage_ring(begin < end ? (end - begin + MK - 1) / MK : 0, stage, mul);
   float* out = part + (size_t)blockIdx.x * g * kk;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = j0 + wj + g8 + (e >> 1) * 8, m = m0 + wm + nt * 8 + 2 * t4 + (e & 1);
-      if (j < g && m < kk) out[(size_t)j * kk + m] = WIN && accum ? out[(size_t)j * kk + m] + c[nt][e] : c[nt][e];
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + wj + mt * 16 + g8 + (e >> 1) * 8, m = m0 + wm + nt * 8 + 2 * t4 + (e & 1);
+        if (j < g && m < kk) out[(size_t)j * kk + m] = accum ? out[(size_t)j * kk + m] + c[mt][nt][e] : c[mt][nt][e];
+      }
+}
+
+// dx[global row of n][k] = sum_j da[n][j] W_ih[j][k] over the window's rows,
+// W_ih in bf16 (wih, rounded once a call, as the gate passes round it): A
+// fragments from da [row][j] by ldmatrix, B fragments from W_ih [j][k]
+// transposed by ldmatrix.  Grid (ceil(rows / 128), ceil(d / 128)).  vec:
+// D, H multiples of 8 and da, wih, dx 16-byte aligned, else one value a load.
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_dx_any_mma_kernel(const __nv_bfloat16* __restrict__ da, const __nv_bfloat16* __restrict__ wih,
+                           __nv_bfloat16* __restrict__ dx, long long n_rows, int d, int h, int vec, long long steps,
+                           Win w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem);  // [MS][MT][MKP]: da, rows x gate columns
+  __nv_bfloat16* s_w = s_a + MS * MT * MKP;                      // [MS][MK][MP]: W_ih, gate columns x inputs
+  const int g = 4 * h, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const long long n0 = (long long)blockIdx.x * MT;
+  const int k0 = blockIdx.y * MT, wn = (warp & 1) * 64, wk = (warp >> 1) * 32;
+  const int blk = lane >> 3, blk_row = lane & 7;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  auto stage = [&](long long st, int buf) {
+    const int j0 = (int)st * MK;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = tid + 256 * e;
+      {  // da: 128 rows x 4 pieces
+        const int r = p >> 2, cc = (p & 3) * 8, j = j0 + cc;
+        const long long n = n0 + r;
+        const bool live = n < n_rows;
+        put8(s_a + ((size_t)buf * MT + r) * MKP + cc, da + n * g + j, live && j < g, vec,
+             [&](int i) { return live && j + i < g ? da[n * g + j + i] : zero; });
+      }
+      {  // W_ih: 32 gate columns x 16 pieces
+        const int r = p >> 4, cc = (p & 15) * 8, j = j0 + r, k = k0 + cc;
+        put8(s_w + ((size_t)buf * MK + r) * MP + cc, wih + (size_t)j * d + k, j < g && k < d, vec,
+             [&](int i) { return j < g && k + i < d ? wih[(size_t)j * d + k + i] : zero; });
+      }
     }
+  };
+  float c[4][4][4] = {};
+  auto mul = [&](int buf) {
+    const __nv_bfloat16* a_buf = s_a + (size_t)buf * MT * MKP;
+    const __nv_bfloat16* w_buf = s_w + (size_t)buf * MK * MP;
+#pragma unroll
+    for (int ks = 0; ks < MK / 16; ++ks) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(a[mt], a_buf + (wn + mt * 16 + (lane & 15)) * MKP + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];  // B[j][k] = W_ih[j][k]
+        ldmatrix_x4_trans(b, w_buf + (ks * 16 + (blk & 1) * 8 + blk_row) * MP + wk + np * 16 + (blk >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(c[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(c[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  };
+  stage_ring((g + MK - 1) / MK, stage, mul);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long n = n0 + wn + mt * 16 + g8 + half * 8;
+      if (n >= n_rows) continue;
+      __nv_bfloat16* row = dx + global_row<true>(n, steps, w) * d;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int k = k0 + wk + nt * 8 + 2 * t4;
+        const float v0 = c[mt][nt][2 * half], v1 = c[mt][nt][2 * half + 1];
+        if (vec && k + 1 < d) *reinterpret_cast<uint32_t*>(row + k) = pack_bf16(v0, v1);
+        else {
+          if (k < d) row[k] = __float2bfloat16(v0);
+          if (k + 1 < d) row[k + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+}
+
+// W_ih (n = 4H D values) rounded to bf16 for bf16 dx, as the mma kernels round it.
+__global__ void __launch_bounds__(256)
+lstm_bwd_wih_bf16_kernel(const float* __restrict__ w_ih, __nv_bfloat16* __restrict__ out, long long n) {
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n; i += (long long)gridDim.x * 256)
+    out[i] = __float2bfloat16(w_ih[i]);
+}
+
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// dx of a window's n_rows rows: bf16 on the tensor cores from wih (W_ih in
+// bf16), fp32 on the CUDA cores from w_ih.
+template <typename T>
+cudaError_t launch_dx_any(const T* da, const float* w_ih, const __nv_bfloat16* wih, T* dx, long long n_rows, int d,
+                          int h, long long steps, Win w, cudaStream_t stream) {
+  if constexpr (is_bf16<T>) {
+    static SmemOnce once;
+    const cudaError_t err = once.set(lstm_bwd_dx_any_mma_kernel, DX_SMEM);
+    if (err != cudaSuccess) return err;
+    const int vec = d % 8 == 0 && h % 8 == 0 && aligned16(da) && aligned16(wih) && aligned16(dx);
+    lstm_bwd_dx_any_mma_kernel<<<dim3((unsigned)((n_rows + MT - 1) / MT), (d + MT - 1) / MT), 256, DX_SMEM, stream>>>(
+        da, wih, dx, n_rows, d, h, vec, steps, w);
+  } else {
+    const int vec = d % 4 == 0 && aligned16(w_ih) && aligned16(dx);
+    lstm_bwd_dx_any_kernel<<<dim3((unsigned)((n_rows + FT - 1) / FT), (d + FT - 1) / FT), 256, 0, stream>>>(
+        da, w_ih, dx, n_rows, d, h, vec, steps, w);
+  }
+  return cudaGetLastError();
+}
+
+// bf16 dW partials of a window's n_rows rows in n_chunks chunks of
+// chunk_rows: written (accum = 0) or added to the partials there (1).
+inline cudaError_t launch_dw_any_mma(const __nv_bfloat16* da, const __nv_bfloat16* x, const __nv_bfloat16* y,
+                                     float* part, long long n_rows, int steps, long long chunk_rows, int n_chunks,
+                                     int d, int h, Win w, int accum, cudaStream_t stream) {
+  static SmemOnce once;
+  const cudaError_t err = once.set(lstm_bwd_dw_any_mma_kernel, DW_SMEM);
+  if (err != cudaSuccess) return err;
+  const int g = 4 * h, kk = d + h;
+  const int vec = d % 8 == 0 && h % 8 == 0 && aligned16(da) && aligned16(x) && aligned16(y);
+  lstm_bwd_dw_any_mma_kernel<<<dim3(n_chunks, (g + MT - 1) / MT, (kk + MT - 1) / MT), 256, DW_SMEM, stream>>>(
+      da, x, y, part, n_rows, steps, chunk_rows, d, h, vec, w, accum);
+  return cudaGetLastError();
 }
 
 // A record holds dy and a pad beside the six derivatives: 32 bytes keep every
@@ -544,24 +692,19 @@ constexpr int GPM_K = 64;     // bf16 gate pass: terms staged a step (4 k-tiles)
 // bf16: block b = (row tile b / ub, unit block b % ub of 32 units), 4 warps of
 // 8 units (tile 0 gates i and f, tile 1 g and o, lstm_common.cuh), the rows
 // the tiles' N: the forward's producer and consumer products, one
-// accumulator from the bias through x's k-tiles and h's.  WIN, XP: as
-// lstm_bwd_gates_f32_kernel's.
-template <bool WIN, bool XP>
+// accumulator from the bias through x's k-tiles and h's (lstm_bwd.cu's
+// cluster path; the wide path's windows run lstm_wide.cu's gate pass, whose
+// sums are these).
 __global__ void __launch_bounds__(128)
-lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ rec, Win w) {
+lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ rec) {
   __shared__ __align__(16) __nv_bfloat16 s_v[GPM_ROWS][GPM_K + 8];  // [row][k]: x_t | h_{t-1}
   __shared__ int s_row[GPM_ROWS];                                    // -1 past the rows, 0 at t = 0, 1 else
-  __shared__ long long s_gn[WIN ? GPM_ROWS : 1];                     // WIN: a row's global row
   const int tid = threadIdx.x, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
   const int ub = (h + CU - 1) / CU, gu = (int)(blockIdx.x % ub) * CU + (tid >> 5) * 8 + g8;
   const bool ok = gu < h;
   const long long n0 = (long long)(blockIdx.x / ub) * GPM_ROWS;
-  const long long n_rows = (long long)a.batch * (WIN ? w.tc : a.steps);
-  if (tid < GPM_ROWS) {
-    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<WIN>(n0 + tid, a.steps, w) : -1;
-    if constexpr (WIN) s_gn[tid] = global_row<WIN>(n0 + tid, a.steps, w);
-  }
-  auto gn_of = [&](int r) { return WIN ? s_gn[WIN ? r : 0] : n0 + r; };  // row r's global row
+  const long long n_rows = (long long)a.batch * a.steps;
+  if (tid < GPM_ROWS) s_row[tid] = n0 + tid < n_rows ? (int)has_prev<false>(n0 + tid, a.steps, Win{}) : -1;
   // x | h_{t-1} 8 values a load where every row of both is 16-byte aligned
   const bool vec = d % 8 == 0 && h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0;
   float acc[GPM_ROWS / 8][2][4];
@@ -574,7 +717,7 @@ lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ r
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][0][e] = b4[e / 2], acc[nt][1][e] = b4[2 + e / 2];
   }
-  for (int sec = 0; sec < (XP ? 1 : 2); ++sec) {
+  for (int sec = 0; sec < 2; ++sec) {
     const int len = sec == 0 ? d : h;
     const float* wm = sec == 0 ? a.w_ih : a.w_hh;
     for (int k0 = 0; k0 < len; k0 += GPM_K) {
@@ -582,7 +725,7 @@ lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ r
       if (vec) {
         for (int i = tid; i < GPM_ROWS * GPM_K / 8; i += 128) {
           const int k = 8 * (i % (GPM_K / 8)), r = i / (GPM_K / 8), row = s_row[r];
-          const long long n = gn_of(r);
+          const long long n = n0 + r;
           uint4 v = make_uint4(0u, 0u, 0u, 0u);
           if (row >= 0 && k0 + k < len) {
             if (sec == 0) v = *reinterpret_cast<const uint4*>(a.x + n * d + k0 + k);
@@ -593,7 +736,7 @@ lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ r
       } else {
         for (int i = tid; i < GPM_ROWS * GPM_K; i += 128) {
           const int k = i % GPM_K, r = i / GPM_K, row = s_row[r];
-          const long long n = gn_of(r);
+          const long long n = n0 + r;
           __nv_bfloat16 v = __float2bfloat16(0.0f);
           if (row >= 0 && k0 + k < len) {
             if (sec == 0) v = a.x[n * d + k0 + k];
@@ -632,16 +775,9 @@ lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ r
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const long long n = n0 + nt * 8 + 2 * t4 + e;
-      if (n < n_rows) {
-        if constexpr (XP) {
-          float* o = rec + (size_t)n * 4 * h + gu;
-          o[0] = acc[nt][0][e], o[h] = acc[nt][0][2 + e], o[2 * h] = acc[nt][1][e], o[3 * h] = acc[nt][1][2 + e];
-        } else {
-          const long long gn = gn_of(nt * 8 + 2 * t4 + e);
-          write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
-                       acc[nt][1][2 + e], a.cprev[gn * h + gu], __bfloat162float(a.dy[gn * h + gu]));
-        }
-      }
+      if (n < n_rows)
+        write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
+                     acc[nt][1][2 + e], a.cprev[n * h + gu], __bfloat162float(a.dy[n * h + gu]));
     }
 }
 

@@ -21,11 +21,11 @@
 // K = 2 W terms.  A call passes its D, H <= W at run time; at D = H = W the
 // products below run at the capacity, else dx, dW and the sum run at the
 // runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel; bf16 dx / dW
-// lstm_bwd_{dx,dw}_any_mma_kernel; in lstm_any.cuh, which lstm_wide.cu
-// shares).  Widths above 64 run a gate pass over the whole card
-// (lstm_bwd_gates_*, lstm_any.cuh), the recurrence on a thread-block cluster
-// (lstm_bwd_cluster_kernel, below), and then those three; widths above 256
-// run lstm_wide.cu.  A call at the capacities takes one of two paths,
+// lstm_bwd_{dx,dw}_any_mma_kernel; in lstm_any.cuh, whose dx and dW
+// lstm_wide.cu's windows run too).  Widths above 64 run a gate pass over
+// the whole card (lstm_bwd_gates_*, lstm_any.cuh), the recurrence on a
+// thread-block cluster (lstm_bwd_cluster_kernel, below), and then those
+// three; widths above 256 run lstm_wide.cu.  A call at the capacities takes one of two paths,
 // chosen by the caller from the shape (ops/lstm_kernel.py::launch_plan):
 //
 // Four launches on one stream (every call at W = 64 and 16; at W = 32
@@ -1188,33 +1188,101 @@ int cluster_slots(int rows, int d, int h) {
   return h <= 128 ? cluster_slots_hw<T, 128>(rows, h) : cluster_slots_hw<T, 256>(rows, h);
 }
 
+// fp32 dx where D <= 64 (the masked widths): dx[n][k] = sum_j da[n][j]
+// W_ih[j][k] in tiles of 64 x 64 outputs, 4 x 4 a thread, the gate columns
+// in order (lstm_any.cuh's dx sums them in the same order: the same bits).
+// Its 128 x 128 tiles leave 80 of 128 columns idle at D = 48, where they
+// took 2.53 ms of C against this kernel's 2.32 (B=128, T=16000; PERF.md
+// section 6).  Grid (ceil(rows / 64), ceil(d / 64)).
+constexpr int DXN_T = 64;  // outputs of a tile's side
+constexpr int DXN_K = 16;  // gate columns staged a step
+__global__ void __launch_bounds__(256)
+lstm_bwd_dx_narrow_kernel(const float* __restrict__ da, const float* __restrict__ w_ih, float* __restrict__ dx,
+                          long long n_rows, int d, int h) {
+  __shared__ __align__(16) float s_a[DXN_K][DXN_T + 4];  // [j][n]
+  __shared__ __align__(16) float s_w[DXN_K][DXN_T + 4];  // [j][k]
+  const int g = 4 * h, tid = threadIdx.x, tn = tid / 16, tk = tid % 16;
+  const long long n0 = (long long)blockIdx.x * DXN_T;
+  const int k0 = blockIdx.y * DXN_T;
+  float acc[4][4] = {};
+  for (int j0 = 0; j0 < g; j0 += DXN_K) {
+    __syncthreads();
+    for (int i = tid; i < DXN_K * DXN_T; i += 256) {
+      const int jj = i % DXN_K, nn = i / DXN_K;  // da is row-major in n: consecutive threads take consecutive j
+      const long long n = n0 + nn;
+      s_a[jj][nn] = n < n_rows && j0 + jj < g ? da[n * g + j0 + jj] : 0.0f;
+      const int kk = i % DXN_T, jw = i / DXN_T;
+      s_w[jw][kk] = load_wm(w_ih, j0 + jw < g, (size_t)(j0 + jw), k0 + kk, d);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < DXN_K; ++jj) {
+      const float4 a = *reinterpret_cast<const float4*>(&s_a[jj][tn * 4]);
+      const float4 w = *reinterpret_cast<const float4*>(&s_w[jj][tk * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long n = n0 + tn * 4 + i;
+      const int k = k0 + tk * 4 + q;
+      if (n < n_rows && k < d) dx[n * d + k] = acc[i][q];
+    }
+}
+
 // dx, dW and the sum at runtime widths (the four-launch path's last three;
-// bf16 on the tensor cores, fp32 on the CUDA cores).
+// bf16 on the tensor cores, fp32 on the CUDA cores): lstm_any.cuh's window
+// products over the window of every step, Win{0, T}, in slabs of batch rows
+// whose (B*T) rows index in 32 bits (one slab below 2^31 rows); fp32 dx at
+// D <= 64 by the narrow kernel above, fp32 dW over all rows at once.  bf16
+// dx reads W_ih rounded to bf16 from the first 8 G D bytes of part, which
+// dW writes only after the last dx (one stream).
 template <typename T>
 cudaError_t launch_any_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh, float* db, const T* da,
                                 float* part, const float* db_part, int n_chunks, int n_blocks,
                                 cudaStream_t stream) {
-  const long long n_rows = (long long)a.batch * a.steps;
-  const int g = 4 * a.h, kk = a.d + a.h;
-  const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
-  const dim3 dw_grid(n_chunks, (g + AT - 1) / AT, (kk + AT - 1) / AT);
+  const long long n_rows = (long long)a.batch * a.steps, span = ((1ll << 31) - 1) / a.steps;
+  const int g = 4 * a.h, kk = a.d + a.h, slab = span < a.batch ? (int)span : a.batch;
+  const Win w{0, a.steps};
+  auto slab_rows = [&](int b0) { return (long long)(a.batch - b0 < slab ? a.batch - b0 : slab) * a.steps; };
+  __nv_bfloat16* wih = reinterpret_cast<__nv_bfloat16*>(part);
+  cudaError_t err = cudaSuccess;
   if constexpr (is_bf16<T>) {
-    lstm_bwd_dx_any_mma_kernel<false><<<dim3((unsigned)((n_rows + AXM - 1) / AXM), (a.d + AT - 1) / AT), 256, 0,
-                                        stream>>>(da, a.w_ih, dx, n_rows, a.d, a.h, a.steps, Win{});
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int vec = (a.d % 8 == 0 && a.h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0);
-    lstm_bwd_dw_any_mma_kernel<false><<<dw_grid, 256, 0, stream>>>(da, a.x, a.y, part, n_rows, a.steps, chunk_rows,
-                                                                    a.d, a.h, vec, Win{}, 0);
-  } else {
-    lstm_bwd_dx_any_kernel<false><<<dim3((unsigned)((n_rows + AT - 1) / AT), (a.d + AT - 1) / AT), 256, 0, stream>>>(
-        da, a.w_ih, dx, n_rows, a.d, a.h, a.steps, Win{});
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    lstm_bwd_dw_any_kernel<false><<<dim3(n_chunks, (g + FT - 1) / FT, (kk + FT - 1) / FT), 256, 0, stream>>>(
-        da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d, a.h, Win{}, 0);
+    const long long n = (long long)g * a.d;
+    lstm_bwd_wih_bf16_kernel<<<(unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, stream>>>(
+        a.w_ih, wih, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  cudaError_t err = cudaGetLastError();
+  bool narrow = false;
+  if constexpr (!is_bf16<T>) {
+    if ((narrow = a.d <= DXN_T)) {
+      lstm_bwd_dx_narrow_kernel<<<dim3((unsigned)((n_rows + DXN_T - 1) / DXN_T), (a.d + DXN_T - 1) / DXN_T), 256, 0,
+                                  stream>>>(da, a.w_ih, dx, n_rows, a.d, a.h);
+      err = cudaGetLastError();
+    }
+  }
+  for (int b0 = 0; b0 < a.batch && !narrow && err == cudaSuccess; b0 += slab) {
+    const long long off = (long long)b0 * a.steps, rows = slab_rows(b0);
+    err = launch_dx_any<T>(da + off * g, a.w_ih, wih, dx + off * a.d, rows, a.d, a.h, a.steps, w, stream);
+  }
+  if (err != cudaSuccess) return err;
+  if constexpr (is_bf16<T>) {
+    for (int b0 = 0; b0 < a.batch && err == cudaSuccess; b0 += slab) {
+      const long long off = (long long)b0 * a.steps, rows = slab_rows(b0);
+      err = launch_dw_any_mma(da + off * g, a.x + off * a.d, a.y + off * a.h, part, rows, a.steps,
+                              (rows + n_chunks - 1) / n_chunks, n_chunks, a.d, a.h, w, b0 > 0, stream);
+    }
+  } else {
+    lstm_bwd_dw_any_kernel<false><<<dim3(n_chunks, (g + FT - 1) / FT, (kk + FT - 1) / FT), 256, 0, stream>>>(
+        da, a.x, a.y, part, n_rows, a.steps, (n_rows + n_chunks - 1) / n_chunks, a.d, a.h, Win{}, 0);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kk + 255) / 256), 256, 0, stream>>>(
       part, n_chunks, db_part, n_blocks, dw_ih, dw_hh, db, a.d, a.h);
@@ -1243,8 +1311,8 @@ int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db
   const long long n_rows = (long long)a.batch * a.steps;
   const long long unit_blocks = (a.h + CU - 1) / CU;
   if constexpr (is_bf16<T>)
-    lstm_bwd_gates_bf16_kernel<false, false>
-        <<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(a, rec, Win{});
+    lstm_bwd_gates_bf16_kernel
+        <<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(a, rec);
   else
     lstm_bwd_gates_f32_kernel<false, false>
         <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, rec, Win{});

@@ -403,6 +403,27 @@ __device__ __forceinline__ void mbar_wait_parity(uint64_t* bar, uint32_t parity)
         : "memory");
 }
 
+// 16 bytes from global (read past L1) into this CTA's shared memory, both
+// 16-byte aligned, without a register: complete for this thread after the
+// cp_async_wait that covers its commit group, visible to the CTA after a
+// __syncthreads that follows it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// Four 8 x 8 bf16 blocks of a row-major tile in shared memory as they are
+// (an m16k16 A fragment where lane l gives row l % 16 at column 8 (l / 16)).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const __nv_bfloat16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
 // The copy of `bytes` bytes (16-byte aligned at both ends, a multiple of
 // 16) from global into this CTA's shared memory by the TMA (cp.async.bulk),
 // counted on bar, whose phase this thread's arrive.expect_tx (or another's)

@@ -20,14 +20,16 @@
 // in the backward da) goes from SM to SM through global memory:
 // - A / B, per window: the input projection xp = b + x W_ih^T of every (row,
 //   step) of the window, (B, tc, 4H) fp32, by the gate pass of kernel C run
-//   over x's terms only (lstm_any.cuh, XP = true: bf16 on mma.sync, fp32 on
-//   the CUDA cores); then the recurrence, lstm_wide_fwd_kernel: a CTA owns
+//   over x's terms only (XP = true: bf16 the tensor-core gate pass below,
+//   fp32 lstm_any.cuh's on the CUDA cores); then the recurrence, lstm_wide_fwd_kernel: a CTA owns
 //   a tile of WU = 16 hidden units (all four gates: 64 rows of W_hh, in
 //   shared memory in the operand type where they fit beside the step's h,
 //   else read from a packed copy in global memory, L2-resident) for up to
 //   WMAX_R batch rows; ceil(H / 16) CTAs form a row group (fewer, of more
 //   tiles, past what the card holds: see Residency).  Each step a CTA stages h_{t-1} of its
-//   rows (y of the step before, read past L1), forms its gates from xp and
+//   rows (y of the step before, read past L1: the whole row where it fits
+//   shared memory beside W_hh's slice in global memory, else in chunks of
+//   512 bytes a row through a ring), forms its gates from xp and
 //   its W_hh rows, updates c in registers, writes h_t to y (and c_{t-1}), and
 //   meets the other CTAs of its row group at one barrier in global memory
 //   (a counter a group: release-add after the step's stores, acquire-spin
@@ -36,17 +38,22 @@
 //   mma accumulator over h's k-tiles in order), so C recomputes the
 //   forward's gates bit for bit in both types;
 // - C, per window in reverse: the gate pass's records of the window (B, tc,
-//   H, 8) (lstm_any.cuh, WIN = true); the recurrence, lstm_wide_bwd_kernel,
+//   H, 8) (the same gate passes, XP = false); the recurrence, lstm_wide_bwd_kernel,
 //   which carries (dh, dc): each step a CTA forms da of its 64 gate columns
 //   from the records, writes it (rounded to the operand type) to the
 //   window's da scratch, meets its group at the barrier, stages da_t of its
-//   rows (all 4H columns) and forms dh_{t-1} of its units from W_hh's
-//   columns for them (fp32 on the CUDA cores, K split in fixed segments;
-//   bf16 on mma.sync, K in quarters summed in a fixed order); then the
-//   window's dx and dW (lstm_any.cuh's runtime-width kernels at WIN = true,
-//   the dW partials added across windows in the order they run) and, after
-//   the last window, the ordered sum.  No atomics on values: two calls give
-//   the same bits.
+//   rows in chunks of 512 bytes a row (cp.async into a ring of 6 bf16, 4
+//   fp32: the product starts on the first chunk while the rest are in
+//   flight) and
+//   forms dh_{t-1} of its units from W_hh's columns for them (fp32 on the
+//   CUDA cores in fixed interleaved K segments; bf16 on mma.sync with
+//   ldmatrix fragments, k-tiles interleaved over the warps, summed in a
+//   fixed order whatever the chunk); then the window's dx and dW
+//   (lstm_any.cuh's, which lstm_bwd.cu's paths run too: fp32 128 x 128
+//   tiles of 8 x 8 a thread; bf16 on the tensor cores, 128 x 128 tiles fed
+//   by a cp.async ring), the dW partials added across windows in the order
+//   they run, and, after the last window, the ordered sum.  No atomics on values:
+//   two calls give the same bits.
 // Residency: a barrier through global memory deadlocks unless every CTA of a
 // group is resident at once, so each recurrence is a cooperative launch
 // (cudaLaunchCooperativeKernel) of as many row groups as the card holds
@@ -57,19 +64,19 @@
 // the tiles spread evenly) and runs them in turn each step, W_hh's slices
 // read from the packed copy and the tiles' state (c; dc, dh, db) kept in
 // global memory between turns, each tile's sums as an untiled CTA's.  What
-// bounds the width then is one row of da (C) or of h (A, B; bf16: an mma
-// n-tile of 8 rows) in shared memory: on an H100's 227 KB, H = 14264 for
-// fp32 C, 14512 for bf16 A and B, 28532 for bf16 C, 58096 for fp32 A and B;
-// past it the call raises (lstm_kernel.py's plan, before any launch).  A refused launch (another
-// kernel or an MPS client holding SMs) returns its error and the call
-// raises; a spin that outlasts WAIT_NS traps, so that a fault cannot hang
-// the card.
-// What bounds it on this card: the step's latency at small batches (one row
-// a group: ~11 us a step fp32, ~5 us bf16 on an H100; the barrier's round
-// trip through L2, the staging of h and the product's dependent chain); at
-// large ones the products (fp32: B 4H H FMAs a step on the CUDA cores, W_hh
-// and h re-read from shared memory for each row), far above the bound of
-// the call's bytes and FLOPs (PERF.md section 6).
+// bounds the width: nothing of a CTA's shared memory grows with H but
+// W_hh's slice, which moves to global memory where it does not fit, and the
+// staged h / da come in chunks; the card's memory bounds it (W_hh and its
+// packed copy, fp32 2 x 4 (4H) H bytes: 54 GB each at H = 58096).  A
+// refused launch (another kernel or an MPS client holding SMs) returns its
+// error and the call raises; a spin that outlasts WAIT_NS traps, so that a
+// fault cannot hang the card.
+// What bounds it on this card: the step's latency (ops/bench_lstm.py
+// --split, PERF.md section 6: C's step at one row ~7.5 us bf16, ~9 us fp32,
+// mostly the staging of da through L2 and the dh product, the barrier ~1
+// us); at large batches the products (fp32: B 4H H FMAs a step on the CUDA
+// cores, their operands from shared memory), far above the bound of the
+// call's bytes and FLOPs.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -87,30 +94,57 @@ constexpr int WMAX_R = 64;      // batch rows a row group at most
 constexpr int PMAX = WMAX_R * WU / WTHREADS;  // (unit, row) pairs a thread at most
 constexpr unsigned long long WAIT_NS = 20000000000ull;  // a barrier wait past 20 s traps
 
+// Parts of a recurrence's step switched off, for ops/bench_lstm.py --split
+// alone (a build of its own, -DAWM_WIDE_SPLIT=mask; the library the port
+// loads has none): 1 the row group's barrier, 2 the staging of h / da, 4
+// the recurrent product, 8 the rest of the step (A, B: xp, the gates, y and
+// c; C: the records, da and its store).  The results are then wrong.
+#ifndef AWM_WIDE_SPLIT
+#define AWM_WIDE_SPLIT 0
+#endif
+constexpr int SPLIT = AWM_WIDE_SPLIT;
+
 // Row pitches (elements of the operand type) of the staged operands, 16-byte
-// rows whose fragment or quad reads fall in distinct banks: forward (h and
-// W_hh's rows, H terms), backward (da and W_hh's columns, 4H terms).
+// rows whose fragment or quad reads fall in distinct banks: W_hh's rows (H
+// terms, A / B) and columns (4H terms, C), and a staged chunk of kc terms.
 template <typename T> __host__ __device__ constexpr int wide_pitch(int n) { return round_up(n, 16) + (is_bf16<T> ? 8 : 4); }
-// Rows of the staged h (bf16: whole mma n-tiles of 8); da is staged for its
-// rows only (an m-tile's rows past them read as zero).
-template <typename T> __host__ __device__ constexpr int fwd_rows_pad(int r) { return is_bf16<T> ? round_up(r, 8) : r; }
+// Terms of the staged operand (A / B: h_{t-1}, H; C: da_t, 4H) in whole
+// k-tiles: a chunk of this many is the whole row.
+__host__ __device__ constexpr int whole_terms(int bwd, int h) { return round_up(bwd ? 4 * h : h, 16); }
+// Terms of a chunk where the operand is staged in chunks: 512 bytes a row.
+template <typename T> __host__ __device__ constexpr int chunk_terms() { return is_bf16<T> ? 256 : 128; }
+// Buffers of a chunked ring (all but one in flight while one is multiplied:
+// a step's chunks wait on L2's latency, not its rate), as many as leave C's
+// 32 rows W_hh's slice in shared memory at 512.
+template <typename T> __host__ __device__ constexpr int ring_depth() { return is_bf16<T> ? 6 : 4; }
+// Buffers of the ring at chunks of kc terms: one for the whole row.
+template <typename T> __host__ __device__ constexpr int ring_bufs(int bwd, int h, int kc) {
+  return kc >= whole_terms(bwd, h) ? 1 : ring_depth<T>();
+}
+// Rows of a ring buffer: bf16 in whole mma tiles (A / B: n-tiles of 8; C:
+// m-tiles of 16, read by ldmatrix), the rows past a group's zero.
+template <typename T> __host__ __device__ constexpr int ring_rows(int bwd, int r) {
+  return is_bf16<T> ? round_up(r, bwd ? 16 : 8) : r;
+}
 __host__ __device__ constexpr int n_cta(int h) { return (h + WU - 1) / WU; }
 // Elements of the packed W_hh (every CTA's slice, in the operand type).
 template <typename T> __host__ __device__ constexpr long long pack_elems(int bwd, int h) {
   return (long long)n_cta(h) * (bwd ? WU * wide_pitch<T>(4 * h) : WROWS * wide_pitch<T>(h));
 }
-// Dynamic shared memory of a CTA of `rows` rows, with W_hh's slice (w_smem)
-// or without it.
-template <typename T> size_t wide_smem(int bwd, int h, int rows, int w_smem) {
-  if (!bwd) {
-    const size_t hp = wide_pitch<T>(h);
-    return sizeof(T) * hp * ((size_t)fwd_rows_pad<T>(rows) + (w_smem ? WROWS : 0));
-  }
-  const size_t jp = wide_pitch<T>(4 * h);
-  // then dh [rows][16] and the dh product's partials: bf16 [segments][m-tiles x 16 rows][16], segments x m-tiles
-  // <= 4; fp32 segments x outputs <= 256
-  return sizeof(T) * jp * ((size_t)rows + (w_smem ? WU : 0)) + sizeof(float) * (size_t)rows * WU +
-         sizeof(float) * 4 * 16 * WU;
+// Dynamic shared memory of a CTA of `rows` rows whose staged operand comes in
+// chunks of kc terms, with W_hh's slice (w_smem) or without it.  C: the ring
+// region also holds db [rows][64] fp32 at the end; then dh [rows][16] and the
+// dh product's partials (bf16: [segments][m-tiles x 16 rows][16], segments x
+// m-tiles <= 4; fp32: [8 warps][rows][16] from 8 rows, else segments x
+// outputs <= 256).  Nothing grows with H but
+// W_hh's slice, which a row group reads from global memory where it does not
+// fit.
+template <typename T> size_t wide_smem(int bwd, int h, int rows, int w_smem, int kc) {
+  const size_t ring = sizeof(T) * (size_t)ring_bufs<T>(bwd, h, kc) * ring_rows<T>(bwd, rows) * wide_pitch<T>(kc);
+  if (!bwd) return ring + (w_smem ? sizeof(T) * (size_t)WROWS * wide_pitch<T>(h) : 0);
+  const size_t db = sizeof(float) * (size_t)rows * WROWS;
+  return (ring > db ? ring : db) + (w_smem ? sizeof(T) * (size_t)WU * wide_pitch<T>(4 * h) : 0) +
+         sizeof(float) * (size_t)rows * WU + sizeof(float) * WU * (is_bf16<T> || 8 * rows < 64 ? 64 : 8 * rows);
 }
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -141,22 +175,60 @@ __device__ __forceinline__ void group_wait(const unsigned* count, unsigned targe
   }
 }
 
-// n elements of the operand type from global (read past L1: another SM wrote
-// them this launch) into shared memory; vec: 16 bytes a load (both ends
-// 16-byte aligned).
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int dpitch, const T* src, size_t spitch, int rows, int n, bool vec) {
+// A chunk of len terms of `rows` rows (row r at src + r spitch, another SM
+// wrote them this launch) into a ring buffer of row pitch kp, past L1: vec
+// (both ends of every row 16-byte aligned) 16 bytes at a time, by cp.async
+// (in flight until the caller's cp_async_wait) where ASYNC (C), else by
+// loads and stores (A, B: cp.async's code would take bf16 A / B past two
+// CTAs an SM); not vec one element at a time.
+// The terms past len up to the next k-tile are zeroed (the product reads
+// whole k-tiles).
+template <typename T, bool ASYNC>
+__device__ __forceinline__ void stage_chunk(T* dst, int kp, const T* src, size_t spitch, int rows, int len, bool vec) {
   if (vec) {
     constexpr int V = 16 / sizeof(T);
-    const int nv = n / V;
+    const int nv = len / V;
     for (int i = threadIdx.x; i < rows * nv; i += WTHREADS) {
       const int r = i / nv, q = i % nv;
-      *reinterpret_cast<uint4*>(dst + (size_t)r * dpitch + q * V) =
-          __ldcg(reinterpret_cast<const uint4*>(src + r * spitch) + q);
+      if constexpr (ASYNC) cp_async16(dst + (size_t)r * kp + q * V, src + r * spitch + q * V);
+      else *reinterpret_cast<uint4*>(dst + (size_t)r * kp + q * V) = __ldcg(reinterpret_cast<const uint4*>(src + r * spitch) + q);
     }
   } else {
-    for (int r = 0; r < rows; ++r)
-      for (int k = threadIdx.x; k < n; k += WTHREADS) dst[(size_t)r * dpitch + k] = __ldcg(src + r * spitch + k);
+    for (int i = threadIdx.x; i < rows * len; i += WTHREADS) {
+      const int r = i / len, k = i % len;
+      dst[(size_t)r * kp + k] = __ldcg(src + r * spitch + k);
+    }
+  }
+  const int tail = round_up(len, 16) - len;
+  for (int i = threadIdx.x; i < rows * tail; i += WTHREADS) store_f(dst + (size_t)(i / tail) * kp + len + i % tail, 0.0f);
+}
+
+// The recurrent product over the staged operand's chunks c = 0 .. nc - 1,
+// chunk c in ring buffer c % nb: stage(c, buf) issues its copy, mul(c, buf)
+// multiplies it.  nb = NB: NB - 1 chunks in flight while one is multiplied,
+// one __syncthreads a chunk; nb = 1: the whole row (nc = 1).  load = false
+// multiplies what the ring holds (zeros at a call's first step, or the
+// whole row staged for an earlier unit tile of the step).  The caller keeps
+// every thread past the ring's last use before it stages into it again.
+template <int NB, typename Stage, typename Mul>
+__device__ __forceinline__ void ring_run(int nc, int nb, bool load, Stage stage, Mul mul) {
+  const int ahead = nb > 1 ? nb - 1 : 1;
+  if (load)
+    for (int c = 0; c < ahead; ++c) {
+      if (c < nc) stage(c, c);
+      cp_async_commit();
+    }
+  for (int c = 0; c < nc; ++c) {
+    if (load) {
+      if (nb > 1) cp_async_wait<NB - 2>();
+      else cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c in for every thread, and every thread past chunk c - 1 (whose buffer is next)
+    if (load) {
+      if (c + ahead < nc) stage(c + ahead, (c + ahead) % nb);
+      cp_async_commit();
+    }
+    mul(c, c % nb);
   }
 }
 
@@ -164,13 +236,19 @@ __device__ __forceinline__ void stage_rows(T* dst, int dpitch, const T* src, siz
 // nearest even), zero past the real widths.  Forward: [cta][row][hp], row =
 // ((u / 8) 2 + m / 2) 16 + (m % 2) 8 + u % 8 for unit u, gate m (a unit
 // group's two mma tiles: i | f, g | o); backward: [cta][u][jp], the columns
-// of the CTA's units.
+// of the CTA's units.  Beside it, where wih_out is given, W_ih (4h, d) fp32
+// rounded to bf16 as it is (bf16 C's dx).
 template <typename T>
 __global__ void __launch_bounds__(256) lstm_wide_pack_kernel(const float* __restrict__ w_hh, T* __restrict__ out, int h,
-                                                             int bwd) {
+                                                             int bwd, const float* __restrict__ w_ih,
+                                                             __nv_bfloat16* __restrict__ wih_out, int d) {
   const int pitch = bwd ? wide_pitch<T>(4 * h) : wide_pitch<T>(h), per = bwd ? WU : WROWS;
-  const long long total = pack_elems<T>(bwd, h);
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total; i += (long long)gridDim.x * 256) {
+  const long long total = pack_elems<T>(bwd, h), n_ih = wih_out ? 4ll * h * d : 0;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total + n_ih; i += (long long)gridDim.x * 256) {
+    if (i >= total) {
+      wih_out[i - total] = __float2bfloat16(w_ih[i - total]);
+      continue;
+    }
     const int k = (int)(i % pitch);
     const long long rowi = i / pitch;
     const int cta = (int)(rowi / per), rr = (int)(rowi % per);
@@ -194,7 +272,7 @@ struct WideFwd {
   float* cprev;      // (B, T, h) fp32 (B) or null (A)
   float* c_state;    // (B, h) fp32: c after the last window (tiled: after the last step)
   unsigned* count;   // a counter a row group, zero at the call's start: ctas a step
-  int batch, steps, h, t0, tc, rows, g0, w_smem, ctas;
+  int batch, steps, h, t0, tc, rows, g0, w_smem, ctas, kc;  // kc: terms a staged chunk of h (whole_terms: the row)
 };
 
 // Kernel A / B's recurrence over one window, row groups g0 .. of `rows`
@@ -203,21 +281,26 @@ struct WideFwd {
 // more than one tile a CTA (ctas < ceil(h / 16), tiled) it runs its tiles in
 // turn each step, W_hh's slices read from the packed copy and c kept in
 // c_state between turns (the same sums in the same order: the same bits).
-// TILED: compiled apart, so that the untiled recurrence keeps its registers
-// (and the CTAs an SM holds).
+// h_{t-1} is staged whole (kc = whole_terms) or in chunks of kc terms
+// through a ring (each tile of a tiled CTA stages them again); either way
+// each gate's sum runs over h's terms (fp32) or k-tiles (bf16) in order, so
+// the chunks leave the bits as they are.  TILED: compiled apart, so that the
+// untiled recurrence keeps its registers (and the CTAs an SM holds).
 template <typename T, bool TRAIN, bool TILED>
 __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFwd<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool tiled = TILED;
-  const int h = a.h, hp = wide_pitch<T>(h), kk = n_cta(h), kp = a.ctas, tid = threadIdx.x;
-  const int grp = a.g0 + blockIdx.x / kp, cta = blockIdx.x % kp, n_tiles = tiled ? (kk - cta + kp - 1) / kp : 1;
-  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = fwd_rows_pad<T>(a.rows);
+  const int h = a.h, hp = wide_pitch<T>(h), kc = a.kc, kp = wide_pitch<T>(kc), kk = n_cta(h), nct = a.ctas;
+  const int tid = threadIdx.x, nb = ring_bufs<T>(0, h, kc), nc = (h + kc - 1) / kc;
+  const bool whole = nb == 1;
+  const int grp = a.g0 + blockIdx.x / nct, cta = blockIdx.x % nct, n_tiles = tiled ? (kk - cta + nct - 1) / nct : 1;
+  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = ring_rows<T>(0, a.rows);
   const size_t steps = a.steps, g4 = 4 * (size_t)h;
-  T* s_h = reinterpret_cast<T*>(smem);  // [rp][hp]: h_{t-1} of the group's rows, zero past h and nrows
+  T* ring = reinterpret_cast<T*>(smem);  // [nb][rp][kp]: h_{t-1} of the group's rows by chunks, zero past nrows
   const T* s_w = a.wpack + (size_t)cta * WROWS * hp;
-  for (int i = tid; i < rp * hp; i += WTHREADS) store_f(s_h + i, 0.0f);
+  for (int i = tid; i < nb * rp * kp; i += WTHREADS) store_f(ring + i, 0.0f);
   if (a.w_smem) {  // never tiled
-    T* w = s_h + (size_t)rp * hp;
+    T* w = ring + (size_t)nb * rp * kp;
     const int n16 = WROWS * hp * (int)sizeof(T) / 16;
     for (int i = tid; i < n16; i += WTHREADS)
       reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(s_w)[i];
@@ -271,8 +354,14 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
   for (int j = 0; j < PMAX; ++j) np += r0 + 16 * j < nrows;
   for (int s = 0; s < a.tc; ++s) {
     const int t = a.t0 + s;
+    // chunk c of h_{t-1} (y of the step before) of the group's rows into ring buffer buf
+    auto stage = [&](int c, int buf) {
+      stage_chunk<T, false>(ring + (size_t)buf * rp * kp, kp,
+                            a.y + ((size_t)row0 * steps + t - 1) * h + (size_t)c * kc, steps * h, nrows,
+                            min(kc, h - c * kc), vec);
+    };
     for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
-      const int tile = cta + tile_i * kp, u0 = tile * WU;
+      const int tile = cta + tile_i * nct, u0 = tile * WU;
       const T* wsl = tiled ? a.wpack + (size_t)tile * WROWS * hp : s_w;
       if (tiled) load_c(u0, t > 0);
       // the gate sums start from xp, read (the first tile's) before the wait so that its latency overlaps the
@@ -287,7 +376,7 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
           for (int e = 0; e < 2; ++e) {
             const int r = nt * 8 + 2 * t4 + e;
             float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (r < nrows && gu < h) {
+            if (!(SPLIT & 8) && r < nrows && gu < h) {
               const float* x4 = a.xp + ((size_t)(row0 + r) * a.tc + s) * g4 + gu;
               v = make_float4(x4[0], x4[h], x4[2 * h], x4[3 * h]);
             }
@@ -300,42 +389,46 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
         for (int j = 0; j < PMAX; ++j)
 #pragma unroll
           for (int m = 0; m < 4; ++m)
-            acc[j][m] = j < np && gu < h ? a.xp[((size_t)(row0 + r0 + 16 * j) * a.tc + s) * g4 + (size_t)m * h + gu] : 0.0f;
+            acc[j][m] = !(SPLIT & 8) && j < np && gu < h
+                            ? a.xp[((size_t)(row0 + r0 + 16 * j) * a.tc + s) * g4 + (size_t)m * h + gu] : 0.0f;
       }
       if (t > 0 && tile_i == 0) {
-        if (tid == 0) group_wait(count, (unsigned)kp * (unsigned)t);
-        __syncthreads();
-        stage_rows<T>(s_h, hp, a.y + ((size_t)row0 * steps + t - 1) * h, steps * h, nrows, h, vec);
+        if (!(SPLIT & 1) && tid == 0) group_wait(count, (unsigned)nct * (unsigned)t);
         __syncthreads();
       }
+      if (!whole && tile_i > 0) __syncthreads();  // every thread past the tile before's last chunk
+      const bool load = !(SPLIT & 2) && t > 0 && (tile_i == 0 || !whole);
       if constexpr (is_bf16<T>) {
         const int ug = warp & 1, u = ug * 8 + g8, gu = u0 + u;
         const bool live1 = ((warp >> 1) + 4) * 8 < nrows, live0 = (warp >> 1) * 8 < nrows;
-        if (live0) {
-          const T* w0 = wsl + (size_t)(ug * 32 + g8) * hp + 2 * t4;  // tile 0 (i | f); tile 1 (g | o) 16 rows on
-          for (int kt = 0; kt * 16 < h; ++kt) {
+        const T* w0 = wsl + (size_t)(ug * 32 + g8) * hp + 2 * t4;  // tile 0 (i | f); tile 1 (g | o) 16 rows on
+        ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+          if ((SPLIT & 4) || !live0) return;
+          const T* hb = ring + (size_t)buf * rp * kp + 2 * t4;
+          const int kt0 = c * (kc / 16), ktn = (min(kc, h - c * kc) + 15) / 16;
+          for (int kt = 0; kt < ktn; ++kt) {
             uint32_t af[2][4];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
-              const T* p = w0 + (size_t)mt * 16 * hp + kt * 16;
+              const T* p = w0 + (size_t)mt * 16 * hp + (kt0 + kt) * 16;
               af[mt][0] = ld32(p), af[mt][1] = ld32(p + 8 * hp), af[mt][2] = ld32(p + 8), af[mt][3] = ld32(p + 8 * hp + 8);
             }
 #pragma unroll
             for (int j = 0; j < 2; ++j)
               if (j == 0 || live1) {
-                const T* v = s_h + (size_t)(((warp >> 1) + 4 * j) * 8 + g8) * hp + kt * 16 + 2 * t4;
+                const T* v = hb + (size_t)(((warp >> 1) + 4 * j) * 8 + g8) * kp + kt * 16;
                 const uint32_t b0 = ld32(v), b1 = ld32(v + 8);
                 mma_bf16(acc[2 * j], af[0], b0, b1);
                 mma_bf16(acc[2 * j + 1], af[1], b0, b1);
               }
           }
-        }
+        });
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int r = ((warp >> 1) + 4 * j) * 8 + 2 * t4 + e;
-            if (r < nrows && gu < h) {
+            if (!(SPLIT & 8) && r < nrows && gu < h) {
               const float ig = sigmoid(acc[2 * j][e]), fg = sigmoid(acc[2 * j][2 + e]);
               const float gg = tanh_sig(acc[2 * j + 1][e]), og = sigmoid(acc[2 * j + 1][2 + e]);
               const float c_prev = c_st[j][e];
@@ -347,30 +440,31 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
           }
       } else {
         const int u = tid % WU, gu = u0 + u;
-        if (np > 0) {
-          const float* wr[4];
+        const float* wr[4];
 #pragma unroll
-          for (int m = 0; m < 4; ++m)
-            wr[m] = reinterpret_cast<const float*>(wsl) + (size_t)(((u >> 3) * 2 + (m >> 1)) * 16 + (m & 1) * 8 + (u & 7)) * hp;
-          const float* hr = reinterpret_cast<const float*>(s_h) + (size_t)r0 * hp;
-          const int nq = round_up(h, 16) / 4;
+        for (int m = 0; m < 4; ++m)
+          wr[m] = reinterpret_cast<const float*>(wsl) + (size_t)(((u >> 3) * 2 + (m >> 1)) * 16 + (m & 1) * 8 + (u & 7)) * hp;
+        ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+          if ((SPLIT & 4) || np == 0) return;
+          const float* hr = reinterpret_cast<const float*>(ring + (size_t)buf * rp * kp) + (size_t)r0 * kp;
+          const int q0 = c * (kc / 4), nq = round_up(min(kc, h - c * kc), 16) / 4;
 #pragma unroll 4
           for (int q = 0; q < nq; ++q) {
             float4 w4[4];
 #pragma unroll
-            for (int m = 0; m < 4; ++m) w4[m] = *reinterpret_cast<const float4*>(wr[m] + 4 * q);
+            for (int m = 0; m < 4; ++m) w4[m] = *reinterpret_cast<const float4*>(wr[m] + 4 * (q0 + q));
 #pragma unroll
             for (int j = 0; j < PMAX; ++j)
               if (j < np) {
-                const float4 v = *reinterpret_cast<const float4*>(hr + (size_t)16 * j * hp + 4 * q);
+                const float4 v = *reinterpret_cast<const float4*>(hr + (size_t)16 * j * kp + 4 * q);
 #pragma unroll
                 for (int m = 0; m < 4; ++m) dot_quad(acc[j][m], w4[m].x, w4[m].y, w4[m].z, w4[m].w, v);
               }
           }
-        }
+        });
 #pragma unroll
         for (int j = 0; j < PMAX; ++j)
-          if (j < np && gu < h) {
+          if (!(SPLIT & 8) && j < np && gu < h) {
             const float ig = sigmoid(acc[j][0]), fg = sigmoid(acc[j][1]), gg = tanh_sig(acc[j][2]), og = sigmoid(acc[j][3]);
             const float c_prev = c_st[j][0];
             c_st[j][0] = fg * c_prev + ig * gg;
@@ -382,7 +476,7 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
       if (tiled) store_c(u0);
     }
     __syncthreads();  // every store of the step is issued before the arrival
-    if (tid == 0) group_arrive(count);
+    if (!(SPLIT & 1) && tid == 0) group_arrive(count);
   }
   if (!tiled) store_c(cta * WU);  // c after the window, for the next one
 }
@@ -397,27 +491,37 @@ struct WideBwd {
   float* dc_state;
   float* db_rows;    // (B, 4h) fp32, tiled only: each (row, column)'s db over the window so far
   unsigned* count;   // a counter a row group, zero at the call's start: ctas a step
-  int batch, steps, h, t0, tc, rows, g0, w_smem, first, ctas;  // first: the call's first window (its last steps)
+  int batch, steps, h, t0, tc, rows, g0, w_smem, first, ctas, kc;  // first: the call's first window (its last steps)
 };
 
 // Kernel C's recurrence over one window, steps t0 + tc - 1 down to t0.  The
 // CTAs and tiles of a group as in lstm_wide_fwd_kernel; tiled, a CTA keeps
 // dc, dh and db of its tiles in dc_state, dh_state and db_rows between
-// turns (the same sums in the same order: the same bits).  TILED as in
-// lstm_wide_fwd_kernel.
+// turns (the same sums in the same order: the same bits).  da_t is staged
+// in chunks of kc terms through a ring (or whole, kc = whole_terms), and the
+// dh product's sums take da's terms in a fixed order whatever kc is: fp32
+// by K quads interleaved over segments summed in order (a group of 32 rows,
+// past 16 of them: the 32 lanes of a warp, a warp 8 rows x 8 units, summed
+// by shuffles; from 8 rows the 8 warps, a thread 4 rows x 4 units; below,
+// segments of one output a thread),
+// bf16 by k-tiles (interleaved over the warps' K segments, four accumulators
+// each).  TILED as in lstm_wide_fwd_kernel.
 template <typename T, bool TILED>
 __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBwd<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool tiled = TILED;
-  const int h = a.h, jp = wide_pitch<T>(4 * h), kk = n_cta(h), kp = a.ctas, tid = threadIdx.x, g4 = 4 * h;
-  const int grp = a.g0 + blockIdx.x / kp, cta = blockIdx.x % kp, n_tiles = tiled ? (kk - cta + kp - 1) / kp : 1;
-  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = a.rows;
-  T* s_da = reinterpret_cast<T*>(smem);                          // [rp][jp]: da_t of the group's rows
-  T* s_w = s_da + (size_t)rp * jp;                               // [16][jp] where w_smem (never tiled)
-  float* s_dh = reinterpret_cast<float*>(s_w + (a.w_smem ? (size_t)WU * jp : 0));  // [rows][16]
-  float* s_part = s_dh + a.rows * WU;                            // the dh product's partials
+  const int h = a.h, jp = wide_pitch<T>(4 * h), kc = a.kc, kp = wide_pitch<T>(kc), kk = n_cta(h), nct = a.ctas;
+  const int tid = threadIdx.x, g4 = 4 * h, nb = ring_bufs<T>(1, h, kc), nc = (g4 + kc - 1) / kc;
+  const bool whole = nb == 1;
+  const int grp = a.g0 + blockIdx.x / nct, cta = blockIdx.x % nct, n_tiles = tiled ? (kk - cta + nct - 1) / nct : 1;
+  const int row0 = grp * a.rows, nrows = min(a.rows, a.batch - row0), rp = ring_rows<T>(1, a.rows);
+  const size_t ring_bytes = sizeof(T) * (size_t)nb * rp * kp, db_bytes = sizeof(float) * (size_t)a.rows * WROWS;
+  T* ring = reinterpret_cast<T*>(smem);                                      // [nb][rp][kp]: da_t by chunks
+  T* s_w = reinterpret_cast<T*>(smem + (ring_bytes > db_bytes ? ring_bytes : db_bytes));  // [16][jp] where w_smem
+  float* s_dh = reinterpret_cast<float*>(s_w + (a.w_smem ? (size_t)WU * jp : 0));           // [rows][16]
+  float* s_part = s_dh + a.rows * WU;                                        // the dh product's partials
   const T* wsl = a.wpack + (size_t)cta * WU * jp;
-  for (int i = tid; i < rp * jp; i += WTHREADS) store_f(s_da + i, 0.0f);
+  for (int i = tid; i < nb * rp * kp; i += WTHREADS) store_f(ring + i, 0.0f);
   if (a.w_smem) {
     const int n16 = WU * jp * (int)sizeof(T) / 16;
     for (int i = tid; i < n16; i += WTHREADS)
@@ -450,7 +554,7 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
 #pragma unroll
     for (int j = 0; j < PMAX; ++j) {
       const int r = r0 + 16 * j;
-      if (r < nrows && gu < h) {
+      if (!(SPLIT & 8) && r < nrows && gu < h) {
         const float4* e = reinterpret_cast<const float4*>(a.rec + (((size_t)(row0 + r) * a.tc + s) * h + gu) * CREC);
         rf[j] = __ldg(e), rg[j] = __ldg(e + 1);
       }
@@ -461,8 +565,8 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
     __syncthreads();  // s_dh (dh_state, tiled) holds dh_t
     // phase 1: da_t of the CTA's columns, dc_{t-1}
     const bool carried = !(a.first && s == a.tc - 1);  // tiled: the state holds the step after's
-    for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
-      const int gu = (cta + tile_i * kp) * WU + u;
+    for (int tile_i = 0; tile_i < n_tiles && !(SPLIT & 8); ++tile_i) {
+      const int gu = (cta + tile_i * nct) * WU + u;
       if (tiled) load_records(s, gu);
 #pragma unroll
       for (int j = 0; j < PMAX; ++j) {
@@ -496,37 +600,50 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
     }
     if (s > 0 && !tiled) load_records(s - 1, cta * WU + u);
     __syncthreads();
-    if (tid == 0) {
+    if (!(SPLIT & 1) && tid == 0) {
       group_arrive(count);
-      group_wait(count, (unsigned)kp * (done0 + (unsigned)(a.tc - s)));
+      group_wait(count, (unsigned)nct * (done0 + (unsigned)(a.tc - s)));
     }
     __syncthreads();
     if (a.t0 + s == 0) break;  // no step before: dh_{-1} is not needed
-    stage_rows<T>(s_da, jp, a.da + (size_t)row0 * a.tc * g4 + (size_t)s * g4, (size_t)a.tc * g4, nrows, g4, vec);
-    __syncthreads();
-    // phase 2: dh_{t-1}[r][u] = sum_j da_t[r][j] W_hh[j][u], tile by tile
+    // chunk c of da_t of the group's rows into ring buffer buf
+    const T* src = a.da + (size_t)row0 * a.tc * g4 + (size_t)s * g4;
+    auto stage = [&](int c, int buf) {
+      stage_chunk<T, true>(ring + (size_t)buf * rp * kp, kp, src + (size_t)c * kc, (size_t)a.tc * g4, nrows,
+                           min(kc, g4 - c * kc), vec);
+    };
+    // phase 2: dh_{t-1}[r][u] = sum_j da_t[r][j] W_hh[j][u], tile by tile (a tiled CTA stages the chunks again
+    // for each tile; the whole row once a step)
     for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
-      const int tile = cta + tile_i * kp;
+      const int tile = cta + tile_i * nct;
       const T* wt = tiled ? a.wpack + (size_t)tile * WU * jp : wsl;
+      const bool load = !(SPLIT & 2) && (tile_i == 0 || !whole);
       if constexpr (is_bf16<T>) {
         const int lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
-        const int mt_n = (nrows + 15) / 16, items = 2 * mt_n, segs = 8 / items, kt_n = round_up(g4, 16) / 16;
-        const int item = warp % items, seg = warp / items, kts = (kt_n + segs - 1) / segs;
+        const int mt_n = (nrows + 15) / 16, items = 2 * mt_n, segs = 8 / items, span = 4 * segs;
+        const int item = warp % items, seg = warp / items, mt = item >> 1, nt = item & 1;
+        float acc[4][4] = {};
+        const T* br = wt + (size_t)(nt * 8 + g8) * jp + 2 * t4;
+        ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+          if ((SPLIT & 4) || seg >= segs) return;
+          // A fragments by ldmatrix: lane l gives row mt 16 + l % 16 at column 8 (l / 16); the rows past nrows
+          // are zero (never staged)
+          const T* ab = ring + (size_t)buf * rp * kp + (size_t)(mt * 16 + (lane & 15)) * kp + (lane >> 4) * 8;
+          const int kt0 = c * (kc / 16), kt1 = kt0 + (min(kc, g4 - c * kc) + 15) / 16;
+          // k-tile kt goes to segment kt % segs, accumulator (kt / segs) % 4: spans of 4 segs k-tiles
+          for (int s0 = kt0 / span * span; s0 < kt1; s0 += span)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kt = s0 + e * segs + seg;
+              if (kt >= kt0 && kt < kt1) {
+                uint32_t af[4];
+                ldmatrix_x4(af, ab + (kt - kt0) * 16);
+                const T* q = br + (size_t)kt * 16;
+                mma_bf16(acc[e], af, ld32(q), ld32(q + 8));
+              }
+            }
+        });
         if (seg < segs) {
-          const int mt = item >> 1, nt = item & 1;
-          // the m-tile's rows past nrows are zero (none staged: s_da holds rows rows)
-          const int ra = mt * 16 + g8, rb = ra + 8;
-          float acc[4][4] = {};
-          const T* ar = s_da + (size_t)ra * jp + 2 * t4;
-          const T* br = wt + (size_t)(nt * 8 + g8) * jp + 2 * t4;
-          const int k_end = min(kt_n, (seg + 1) * kts);
-          for (int kt = seg * kts; kt < k_end; ++kt) {
-            const T* p = ar + kt * 16;
-            const uint32_t af[4] = {ra < nrows ? ld32(p) : 0u, rb < nrows ? ld32(p + 8 * jp) : 0u,
-                                    ra < nrows ? ld32(p + 8) : 0u, rb < nrows ? ld32(p + 8 * jp + 8) : 0u};
-            const T* q = br + kt * 16;
-            mma_bf16(acc[kt & 3], af, ld32(q), ld32(q + 8));
-          }
           // the four accumulators in a fixed order, into [seg][row][unit]
           float* out = s_part + ((size_t)seg * mt_n * 16) * WU;
 #pragma unroll
@@ -542,37 +659,91 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
           s_dh[o] = v;
         }
       } else {
-        const int outs = nrows * WU, segs = outs >= WTHREADS ? 1 : WTHREADS / outs;
-        const int nq = round_up(g4, 16) / 4, qs = (nq + segs - 1) / segs;
-        if (segs == 1) {
-          // thread: unit u, rows r0 + 16 j (the same W_hh column for every row)
-          float acc[PMAX] = {};
-          const float* wr = reinterpret_cast<const float*>(wt) + (size_t)u * jp;
-          const float* dr = reinterpret_cast<const float*>(s_da) + (size_t)r0 * jp;
-#pragma unroll 4
-          for (int q = 0; q < nq; ++q) {
-            const float4 w4 = *reinterpret_cast<const float4*>(wr + 4 * q);
+        const int outs = nrows * WU, segs = WTHREADS / outs;  // segs: below 8 rows
+        if (a.rows == 32 && nrows > 16) {
+          // warp w: an 8 x 8 tile, units 8 (w & 1) .., rows 8 (w >> 1) ..; lane: the quads q = lane (mod 32).
+          // 16 shared loads of 16 bytes feed 256 FMAs; the lanes' sums meet in a butterfly of shuffles (a fixed
+          // tree: every lane ends with the same sums)
+          const int warp = tid >> 5, lane = tid & 31, rt = warp >> 1;
+          float acc[8][8] = {};
+          const float* wr = reinterpret_cast<const float*>(wt) + (size_t)(warp & 1) * 8 * jp;
+          ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+            if ((SPLIT & 4) || rt * 8 >= nrows) return;
+            const float* dr = reinterpret_cast<const float*>(ring + (size_t)buf * rp * kp) + (size_t)rt * 8 * kp;
+            const int q0 = c * (kc / 4), nq = round_up(min(kc, g4 - c * kc), 16) / 4;
+            for (int q = ((lane - q0) % 32 + 32) % 32; q < nq; q += 32) {
+              float4 v[8];
 #pragma unroll
-            for (int j = 0; j < PMAX; ++j)
-              if (r0 + 16 * j < nrows)
-                dot_quad(acc[j], w4.x, w4.y, w4.z, w4.w, *reinterpret_cast<const float4*>(dr + (size_t)16 * j * jp + 4 * q));
+              for (int i = 0; i < 8; ++i) v[i] = *reinterpret_cast<const float4*>(dr + (size_t)i * kp + 4 * q);
+#pragma unroll
+              for (int uu = 0; uu < 8; ++uu) {
+                const float4 w4 = *reinterpret_cast<const float4*>(wr + (size_t)uu * jp + 4 * (q0 + q));
+#pragma unroll
+                for (int i = 0; i < 8; ++i) dot_quad(acc[i][uu], w4.x, w4.y, w4.z, w4.w, v[i]);
+              }
+            }
+          });
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int uu = 0; uu < 8; ++uu)
+#pragma unroll
+              for (int m = 16; m >= 1; m >>= 1) acc[i][uu] += __shfl_xor_sync(0xffffffffu, acc[i][uu], m);
+#pragma unroll
+          for (int o = 0; o < 64; ++o)
+            if ((o & 31) == lane && rt * 8 + (o >> 3) < nrows)
+              s_dh[(rt * 8 + (o >> 3)) * WU + (warp & 1) * 8 + (o & 7)] = acc[o >> 3][o & 7];
+        } else if (nrows >= 8) {
+          // thread: units ug + 4 m, rows rg + 8 i, the quads q = warp (mod 8); the warps' partials summed in order.
+          // A 16-byte shared-memory load feeds 16 FMAs (W_hh) or 16 (da): 4 x 4 outputs a thread.
+          const int warp = tid >> 5, ug = tid & 3, rg = (tid >> 2) & 7, ni = (nrows - rg + 7) / 8;
+          float acc[WMAX_R / 8][4] = {};
+          const float* wr = reinterpret_cast<const float*>(wt) + (size_t)ug * jp;
+          ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+            if (SPLIT & 4) return;
+            const float* dr = reinterpret_cast<const float*>(ring + (size_t)buf * rp * kp) + (size_t)rg * kp;
+            const float* wc = wr + (size_t)c * kc;
+            const int q0 = c * (kc / 4), nq = round_up(min(kc, g4 - c * kc), 16) / 4;
+            for (int q = ((warp - q0) % 8 + 8) % 8; q < nq; q += 8) {
+              float4 w4[4];
+#pragma unroll
+              for (int m = 0; m < 4; ++m) w4[m] = *reinterpret_cast<const float4*>(wc + (size_t)4 * m * jp + 4 * q);
+#pragma unroll
+              for (int i = 0; i < WMAX_R / 8; ++i)
+                if (i < ni) {
+                  const float4 v = *reinterpret_cast<const float4*>(dr + (size_t)8 * i * kp + 4 * q);
+#pragma unroll
+                  for (int m = 0; m < 4; ++m) dot_quad(acc[i][m], w4[m].x, w4[m].y, w4[m].z, w4[m].w, v);
+                }
+            }
+          });
+          float* part = s_part + (size_t)warp * outs;  // [warp][row][unit]
+#pragma unroll
+          for (int i = 0; i < WMAX_R / 8; ++i)
+            if (i < ni)
+#pragma unroll
+              for (int m = 0; m < 4; ++m) part[(rg + 8 * i) * WU + ug + 4 * m] = acc[i][m];
+          __syncthreads();
+          for (int o = tid; o < outs; o += WTHREADS) {
+            float v = 0.0f;
+            for (int w8 = 0; w8 < 8; ++w8) v += s_part[w8 * outs + o];
+            s_dh[o] = v;
           }
-#pragma unroll
-          for (int j = 0; j < PMAX; ++j)
-            if (r0 + 16 * j < nrows) s_dh[(r0 + 16 * j) * WU + u] = acc[j];
         } else {
+          // thread: output o, segment sg of the quads q = sg (mod segs), the segments summed in order
           const int o = tid % outs, sg = tid / outs;
-          if (sg < segs) {
-            const int r = o / WU, uo = o % WU;
-            float acc = 0.0f;
-            const float* wr = reinterpret_cast<const float*>(wt) + (size_t)uo * jp;
-            const float* dr = reinterpret_cast<const float*>(s_da) + (size_t)r * jp;
-            const int q_end = min(nq, (sg + 1) * qs);
-            for (int q = sg * qs; q < q_end; ++q)
-              dot_quad(acc, *(wr + 4 * q), *(wr + 4 * q + 1), *(wr + 4 * q + 2), *(wr + 4 * q + 3),
-                       *reinterpret_cast<const float4*>(dr + 4 * q));
-            s_part[sg * outs + o] = acc;
-          }
+          float acc = 0.0f;
+          const float* wr = reinterpret_cast<const float*>(wt) + (size_t)(o % WU) * jp;
+          ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
+            if ((SPLIT & 4) || sg >= segs) return;
+            const float* dr = reinterpret_cast<const float*>(ring + (size_t)buf * rp * kp) + (size_t)(o / WU) * kp;
+            const int q0 = c * (kc / 4), nq = round_up(min(kc, g4 - c * kc), 16) / 4;
+            for (int q = ((sg - q0) % segs + segs) % segs; q < nq; q += segs) {
+              const float4 w4 = *reinterpret_cast<const float4*>(wr + 4 * (q0 + q));
+              dot_quad(acc, w4.x, w4.y, w4.z, w4.w, *reinterpret_cast<const float4*>(dr + 4 * q));
+            }
+          });
+          if (sg < segs) s_part[sg * outs + o] = acc;
           __syncthreads();
           for (int o2 = tid; o2 < outs; o2 += WTHREADS) {
             float v = 0.0f;
@@ -604,9 +775,9 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
       }
     }
   }
-  float* s_db = reinterpret_cast<float*>(s_da);  // [rows][64]: the pairs' db, then summed by column
+  float* s_db = reinterpret_cast<float*>(smem);  // [rows][64]: the pairs' db, then summed by column
   for (int tile_i = 0; tile_i < n_tiles; ++tile_i) {
-    const int u0 = (cta + tile_i * kp) * WU, gu = u0 + u;
+    const int u0 = (cta + tile_i * nct) * WU, gu = u0 + u;
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < PMAX; ++j) {
@@ -628,6 +799,135 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
       }
     }
   }
+}
+
+// The bf16 gate pass of a window: C's records, and with XP = true A and B's
+// input projection (the sums after x's terms into an fp32 (rows, 4H) tile,
+// which their recurrence continues with h's).  A gate's sum is the bias, then
+// x's k-tiles, then h's, in one m16n8k16 accumulator, lstm_any.cuh's
+// lstm_bwd_gates_bf16_kernel's sums: one kernel gives the forward its
+// projection and C its gates, so C recomputes the forward's gates bit for
+// bit.  A block owns 128 rows x 32 units (8 warps: 4 groups of 8 units x 2
+// halves of 64 rows, so each weight fragment feeds 16 mma); x_t | h_{t-1}
+// of its rows and the gate rows of W staged 32 terms a stage through
+// stage_ring: W_ih's rows from its bf16 copy (wih, [j][k], A fragments by
+// ldmatrix), W_hh's from the packed backward slices (wpack, [k][j], A
+// fragments transposed by ldmatrix; unused with XP).  vec: D, H multiples of
+// 8 and x, y, wih, wpack 16-byte aligned, else one value a load.
+constexpr int GW_ROWS = 128;        // rows of the (B*T) axis a block
+constexpr int GW_P = MK + 8;        // row pitch of a staged [rows][MK] tile (x | h, W_ih)
+constexpr int GW_JP = CROWS + 8;    // row pitch of a staged [MK][128 gate rows] tile (W_hh)
+constexpr int GW_STAGE = GW_ROWS * GW_P * 2 * (int)sizeof(__nv_bfloat16);  // x | h, then W (W_hh's [MK][GW_JP] fits)
+constexpr int GW_SMEM = MS * GW_STAGE;
+
+template <bool XP>
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_gates_wide_mma_kernel(const BwdArgs<__nv_bfloat16> a, const __nv_bfloat16* __restrict__ wih,
+                               const __nv_bfloat16* __restrict__ wpack, float* __restrict__ rec, Win w, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_row[GW_ROWS];         // -1 past the rows, 0 at t = 0, 1 else
+  __shared__ long long s_gn[GW_ROWS];    // a row's global row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
+  const int ub = (h + CU - 1) / CU, u0 = (int)(blockIdx.x % ub) * CU, ug = warp & 3, rh = warp >> 2;
+  const int gu = u0 + ug * 8 + g8, jp = wide_pitch<__nv_bfloat16>(4 * h);
+  const bool ok = gu < h;
+  const long long n0 = (long long)(blockIdx.x / ub) * GW_ROWS, n_rows = (long long)a.batch * w.tc;
+  if (tid < GW_ROWS) {
+    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<true>(n0 + tid, a.steps, w) : -1;
+    s_gn[tid] = global_row<true>(n0 + tid, a.steps, w);
+  }
+  __syncthreads();
+  const int ns_x = (d + MK - 1) / MK, ns = ns_x + (XP ? 0 : (h + MK - 1) / MK);  // x's stages, then h's
+  auto buf_v = [&](int buf) { return reinterpret_cast<__nv_bfloat16*>(smem + (size_t)buf * GW_STAGE); };
+  auto buf_w = [&](int buf) { return buf_v(buf) + GW_ROWS * GW_P; };
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  auto stage = [&](long long st, int buf) {
+    const bool xs = st < ns_x;
+    const int k0 = (int)(xs ? st : st - ns_x) * MK, len = xs ? d : h;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = tid + 256 * e;
+      {  // x_t | h_{t-1}: 128 rows x 4 pieces
+        const int r = p >> 2, k = k0 + (p & 3) * 8, row = s_row[r];
+        const long long gn = s_gn[r];
+        const __nv_bfloat16* src = xs ? a.x + gn * d + k : a.y + (gn - 1) * h + k;
+        const bool live = row >= 0 && (xs || row);
+        put8(buf_v(buf) + r * GW_P + (p & 3) * 8, src, live && k < len, vec,
+             [&](int i) { return live && k + i < len ? src[i] : zero; });
+      }
+      if (xs) {  // W_ih's gate rows [m 32 + unit][k]: 128 rows x 4 pieces
+        const int jj = p >> 2, k = k0 + (p & 3) * 8, u = u0 + (jj & 31);
+        const __nv_bfloat16* src = wih + ((size_t)(jj >> 5) * h + u) * d + k;
+        put8(buf_w(buf) + jj * GW_P + (p & 3) * 8, src, u < h && k < d, vec,
+             [&](int i) { return u < h && k + i < d ? src[i] : zero; });
+      } else {  // W_hh's [k][m 32 + unit] from the packed columns: 32 terms x 16 pieces
+        const int kr = p >> 4, q = p & 15, k = k0 + kr, u = u0 + (q & 3) * 8;
+        const __nv_bfloat16* src = wpack + (size_t)k * jp + (q >> 2) * h + u;
+        put8(buf_w(buf) + kr * GW_JP + (q >> 2) * 32 + (q & 3) * 8, src, k < h && u < h, vec,
+             [&](int i) { return k < h && u + i < h ? src[i] : zero; });
+      }
+    }
+  };
+  float acc[8][2][4];
+  {
+    float b4[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b4[m] = ok ? a.bias[m * h + gu] : 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][0][e] = b4[e / 2], acc[nt][1][e] = b4[2 + e / 2];
+  }
+  const int blk = lane >> 3, blk_row = lane & 7;
+  long long st_now = 0;  // the stage mul multiplies (stage_ring calls mul once a stage, in order)
+  auto mul = [&](int buf) {
+    const bool xs = st_now < ns_x;
+    const int k0 = (int)(xs ? st_now : st_now - ns_x) * MK, len = xs ? d : h;
+    ++st_now;
+    const __nv_bfloat16* v = buf_v(buf);
+    const __nv_bfloat16* wt = buf_w(buf);
+#pragma unroll
+    for (int ks = 0; ks < MK / 16; ++ks) {
+      if (k0 + ks * 16 >= len) break;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int tile = 0; tile < 2; ++tile) {
+        if (xs)  // rows gate 2 tile (lanes 0-7, 16-23) and 2 tile + 1 (8-15, 24-31) of the group's units
+          ldmatrix_x4(af[tile], wt + ((2 * tile + (blk & 1)) * 32 + ug * 8 + blk_row) * GW_P + ks * 16 + (blk >> 1) * 8);
+        else
+          ldmatrix_x4_trans(af[tile], wt + (ks * 16 + (blk >> 1) * 8 + blk_row) * GW_JP + (2 * tile + (blk & 1)) * 32 +
+                                          ug * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];  // n-tiles 2 np and 2 np + 1: B[k][n] = v[n][k]
+        ldmatrix_x4(b, v + (rh * 64 + np * 16 + (blk >> 1) * 8 + blk_row) * GW_P + ks * 16 + (blk & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[2 * np + i][0], af[0], b[2 * i], b[2 * i + 1]);
+          mma_bf16(acc[2 * np + i][1], af[1], b[2 * i], b[2 * i + 1]);
+        }
+      }
+    }
+  };
+  stage_ring(ns, stage, mul);
+  if (!ok) return;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = rh * 64 + nt * 8 + 2 * t4 + e;
+      const long long n = n0 + r;
+      if (n >= n_rows) continue;
+      if constexpr (XP) {
+        float* o = rec + (size_t)n * 4 * h + gu;
+        o[0] = acc[nt][0][e], o[h] = acc[nt][0][2 + e], o[2 * h] = acc[nt][1][e], o[3 * h] = acc[nt][1][2 + e];
+      } else {
+        const long long gn = s_gn[r];
+        write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
+                     acc[nt][1][2 + e], a.cprev[gn * h + gu], __bfloat162float(a.dy[gn * h + gu]));
+      }
+    }
 }
 
 // The card's SMs, and the CTAs of a recurrence it holds at once (0: none fits).
@@ -653,27 +953,41 @@ struct RecShape {
   int w_smem;   // 1: W_hh's slice in shared memory (never tiled)
   size_t smem;  // dynamic shared memory of a CTA
   int slots;    // CTAs of this shape the card holds at once (0: none fits its shared memory)
+  int chunk;    // terms a staged chunk of h / da (whole_terms: the whole row)
+  int optin;    // the most shared memory a CTA may opt in to on the device
 };
 
+// The staged chunk of a recurrence at `rows` rows a group where the card
+// lets a CTA opt in to `optin` bytes: the call's (want, in whole k-tiles, at
+// most the row); else C's chunks of chunk_terms, A / B's whole row where it
+// fits beside W_hh's slice in global memory (their plan and step times stay
+// those of whole-row staging wherever it fits) and chunks past it.
+template <typename T>
+int rec_chunk(int bwd, int h, int rows, int want, int optin) {
+  const int whole = whole_terms(bwd, h), part = chunk_terms<T>() < whole ? chunk_terms<T>() : whole;
+  if (want > 0) return round_up(want, 16) < whole ? round_up(want, 16) : whole;
+  return bwd || wide_smem<T>(0, h, rows, 0, whole) > (size_t)optin ? part : whole;
+}
+
 // The launch shape of one recurrence (kernel: its untiled and TILED
-// instantiations) at `rows` rows a group: every CTA of a group, untiled,
-// with W_hh's slice in shared memory where that fits the card's opt-in
-// limit and the card holds the group at once; else the slice in global
-// memory, untiled where the card holds the group, else the TILED
-// instantiation at `want` CTAs a group (0: group_ctas of what the card
-// holds).
+// instantiations) at `rows` rows a group and the chunk rec_chunk gives:
+// every CTA of a group, untiled, with W_hh's slice in shared memory where
+// that fits the card's opt-in limit and the card holds the group at once;
+// else the slice in global memory, untiled where the card holds the group,
+// else the TILED instantiation at `want` CTAs a group (0: group_ctas of
+// what the card holds).
 template <typename T>
 cudaError_t rec_shape(const void* const kernel[2], SmemOnce* once, int bwd, int h, int rows, int want,
-                      RecShape* out) {
+                      int want_chunk, RecShape* out) {
   cudaError_t err;
   for (int i = 0; i < 2; ++i)
     if ((err = once[i].set(kernel[i], 0)) != cudaSuccess) return err;
   int dev = 0, optin = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return err;
-  const int kk = n_cta(h);
+  const int kk = n_cta(h), kc = rec_chunk<T>(bwd, h, rows, want_chunk, optin);
   for (int w = 1; w >= 0; --w) {
-    *out = RecShape{0, 0, w, wide_smem<T>(bwd, h, rows, w), 0};
+    *out = RecShape{0, 0, w, wide_smem<T>(bwd, h, rows, w, kc), 0, kc, optin};
     if (out->smem > (size_t)optin) continue;
     if (want == 0 || want == kk) {
       if ((err = resident(kernel[0], out->smem, &out->slots)) != cudaSuccess) return err;
@@ -703,12 +1017,12 @@ template <typename T> const void* const* bwd_kernels() {
 
 // The launch shape of the recurrence (bwd = 0: A / B's, 1: C's) at `rows`
 // rows a group, as a call with CTAs a group `want` (0: the card's choice)
-// would launch it.
+// and chunk `chunk` (0: the card's choice) would launch it.
 template <typename T>
-cudaError_t wide_shape(int bwd, int h, int rows, int want, RecShape* out) {
-  if (h < 1 || rows < 1 || rows > WMAX_R || want < 0 || want > n_cta(h)) return cudaErrorInvalidValue;
-  return bwd ? rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, want, out)
-             : rec_shape<T>(fwd_kernels<T, false>(), fwd_once<T, false>(), 0, h, rows, want, out);
+cudaError_t wide_shape(int bwd, int h, int rows, int want, int chunk, RecShape* out) {
+  if (h < 1 || rows < 1 || rows > WMAX_R || want < 0 || want > n_cta(h) || chunk < 0) return cudaErrorInvalidValue;
+  return bwd ? rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, want, chunk, out)
+             : rec_shape<T>(fwd_kernels<T, false>(), fwd_once<T, false>(), 0, h, rows, want, chunk, out);
 }
 
 // Row groups of `rows` rows over the batch, in cooperative launches of as
@@ -724,13 +1038,17 @@ cudaError_t over_groups(int batch, int rows, int ctas, int slots, Launch launch)
   return cudaSuccess;
 }
 
-cudaError_t pack(const float* w_hh, void* out, int h, int bwd, bool bf16, cudaStream_t stream) {
-  const long long n = bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h);
+// W_hh packed (and, where wih_out is given, W_ih rounded to bf16) in one launch.
+cudaError_t pack(const float* w_hh, void* out, int h, int bwd, bool bf16, const float* w_ih, void* wih_out, int d,
+                 cudaStream_t stream) {
+  const long long n = (bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h)) +
+                      (wih_out ? 4ll * h * d : 0);
   const unsigned blocks = (unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   if (bf16)
-    lstm_wide_pack_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(w_hh, (__nv_bfloat16*)out, h, bwd);
+    lstm_wide_pack_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(w_hh, (__nv_bfloat16*)out, h, bwd, w_ih,
+                                                                    (__nv_bfloat16*)wih_out, d);
   else
-    lstm_wide_pack_kernel<float><<<blocks, 256, 0, stream>>>(w_hh, (float*)out, h, bwd);
+    lstm_wide_pack_kernel<float><<<blocks, 256, 0, stream>>>(w_hh, (float*)out, h, bwd, w_ih, (__nv_bfloat16*)wih_out, d);
   return cudaGetLastError();
 }
 
@@ -740,41 +1058,50 @@ BwdArgs<T> bwd_args(const void* x, const void* y, const float* cprev, const void
   return BwdArgs<T>{(const T*)x, (const T*)y, cprev, (const T*)dy, w_ih, w_hh, bias, batch, steps, d, h};
 }
 
-// The gate pass over one window (XP: the forward's projection into out).
+// The gate pass over one window (XP: the forward's projection into out);
+// bf16 reads W_ih from wih and C's W_hh from wpack.
 template <typename T, bool XP>
-cudaError_t gate_pass(const BwdArgs<T>& a, float* out, Win w, cudaStream_t stream) {
+cudaError_t gate_pass(const BwdArgs<T>& a, const void* wih, const void* wpack, float* out, Win w,
+                      cudaStream_t stream) {
   const long long n_rows = (long long)a.batch * w.tc, unit_blocks = (a.h + CU - 1) / CU;
-  if constexpr (is_bf16<T>)
-    lstm_bwd_gates_bf16_kernel<true, XP>
-        <<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(a, out, w);
-  else
+  if constexpr (is_bf16<T>) {
+    static SmemOnce once;
+    const cudaError_t err = once.set(lstm_bwd_gates_wide_mma_kernel<XP>, GW_SMEM);
+    if (err != cudaSuccess) return err;
+    const int vec = a.d % 8 == 0 && a.h % 8 == 0 && aligned16(a.x) && aligned16(a.y) && aligned16(wih) &&
+                    aligned16(wpack);
+    lstm_bwd_gates_wide_mma_kernel<XP><<<(unsigned)(unit_blocks * ((n_rows + GW_ROWS - 1) / GW_ROWS)), 256, GW_SMEM,
+                                         stream>>>(a, (const T*)wih, (const T*)wpack, out, w, vec);
+  } else {
     lstm_bwd_gates_f32_kernel<true, XP>
         <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, out, w);
+  }
   return cudaGetLastError();
 }
 
 // Kernel A (TRAIN = false) / B over every window.
 template <typename T, bool TRAIN>
 int launch_fwd(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y, float* cprev,
-               float* xp, void* wpack, float* c_state, unsigned* count, int batch, int steps, int d, int h, int rows,
-               int ctas, int window, cudaStream_t stream) {
-  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || window < 1 ||
-      (long long)batch * window >= (1ll << 31))
+               float* xp, void* wpack, void* wih, float* c_state, unsigned* count, int batch, int steps, int d,
+               int h, int rows, int ctas, int chunk, int window, cudaStream_t stream) {
+  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || chunk < 0 || window < 1 ||
+      (long long)batch * window >= (1ll << 31) || (is_bf16<T> && wih == nullptr))
     return (int)cudaErrorInvalidValue;
   RecShape sh;
-  cudaError_t err = rec_shape<T>(fwd_kernels<T, TRAIN>(), fwd_once<T, TRAIN>(), 0, h, rows, ctas, &sh);
+  cudaError_t err = rec_shape<T>(fwd_kernels<T, TRAIN>(), fwd_once<T, TRAIN>(), 0, h, rows, ctas, chunk, &sh);
   if (err != cudaSuccess) return (int)err;
-  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one row of h fits shared memory
+  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one CTA of the group fits the card
   const int groups = (batch + rows - 1) / rows;
   if ((err = cudaMemsetAsync(count, 0, sizeof(unsigned) * groups, stream)) != cudaSuccess) return (int)err;
-  if ((err = pack(w_hh, wpack, h, 0, is_bf16<T>, stream)) != cudaSuccess) return (int)err;
+  if ((err = pack(w_hh, wpack, h, 0, is_bf16<T>, w_ih, is_bf16<T> ? wih : nullptr, d, stream)) != cudaSuccess)
+    return (int)err;
   const BwdArgs<T> pa = bwd_args<T>(x, nullptr, nullptr, nullptr, w_ih, w_hh, bias, batch, steps, d, h);
   for (int t0 = 0; t0 < steps; t0 += window) {
     const int tc = steps - t0 < window ? steps - t0 : window;
-    if ((err = gate_pass<T, true>(pa, xp, Win{t0, tc}, stream)) != cudaSuccess) return (int)err;
+    if ((err = gate_pass<T, true>(pa, wih, wpack, xp, Win{t0, tc}, stream)) != cudaSuccess) return (int)err;
     err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
       WideFwd<T> a{xp, (const T*)wpack, (T*)y, cprev, c_state, count, batch, steps, h, t0, tc, rows, g0, sh.w_smem,
-                   sh.ctas};
+                   sh.ctas, sh.chunk};
       void* args[] = {&a};
       return cudaLaunchCooperativeKernel(fwd_kernels<T, TRAIN>()[sh.tiled], dim3((unsigned)(n * sh.ctas)),
                                          dim3(WTHREADS), args, sh.smem, stream);
@@ -787,49 +1114,46 @@ int launch_fwd(const void* x, const float* w_ih, const float* w_hh, const float*
 // Kernel C over every window, the last first, then the ordered sum.
 template <typename T>
 int launch_bwd(const BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,
-               float* db_part, void* wpack, float* dh_state, float* dc_state, float* db_rows, unsigned* count, int rows,
-               int ctas, int window, int n_chunks, cudaStream_t stream) {
+               float* db_part, void* wpack, void* wih, float* dh_state, float* dc_state, float* db_rows,
+               unsigned* count, int rows, int ctas, int chunk, int window, int n_chunks, cudaStream_t stream) {
   const int batch = a.batch, steps = a.steps, d = a.d, h = a.h;
-  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || window < 1 || n_chunks < 1 ||
-      (long long)batch * window >= (1ll << 31))
+  if (d < 1 || h < 1 || rows < 1 || rows > WMAX_R || ctas < 0 || ctas > n_cta(h) || chunk < 0 || window < 1 ||
+      n_chunks < 1 || (long long)batch * window >= (1ll << 31) || (is_bf16<T> && wih == nullptr))
     return (int)cudaErrorInvalidValue;
   RecShape sh;
-  cudaError_t err = rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, ctas, &sh);
+  cudaError_t err = rec_shape<T>(bwd_kernels<T>(), bwd_once<T>(), 1, h, rows, ctas, chunk, &sh);
   if (err != cudaSuccess) return (int)err;
-  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one row of da fits shared memory
+  if (sh.ctas < 1) return (int)cudaErrorCooperativeLaunchTooLarge;  // not one CTA of the group fits the card
   if (sh.tiled && db_rows == nullptr) return (int)cudaErrorInvalidValue;
   const int groups = (batch + rows - 1) / rows, g = 4 * h, kd = d + h;
   if ((err = cudaMemsetAsync(count, 0, sizeof(unsigned) * groups, stream)) != cudaSuccess) return (int)err;
-  if ((err = pack(a.w_hh, wpack, h, 1, is_bf16<T>, stream)) != cudaSuccess) return (int)err;
+  if ((err = pack(a.w_hh, wpack, h, 1, is_bf16<T>, a.w_ih, is_bf16<T> ? wih : nullptr, d, stream)) != cudaSuccess)
+    return (int)err;
   const int n_win = (steps + window - 1) / window;
   for (int wi = n_win - 1; wi >= 0; --wi) {
     const int t0 = wi * window, tc = steps - t0 < window ? steps - t0 : window, first = wi == n_win - 1;
     const Win w{t0, tc};
-    if ((err = gate_pass<T, false>(a, rec, w, stream)) != cudaSuccess) return (int)err;
+    const long long n_rows = (long long)batch * tc, chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+    if ((err = gate_pass<T, false>(a, wih, wpack, rec, w, stream)) != cudaSuccess) return (int)err;
     err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
       WideBwd<T> b{rec, (const T*)wpack, (T*)da, db_part, dh_state, dc_state, db_rows, count,
-                   batch, steps, h, t0, tc, rows, g0, sh.w_smem, first, sh.ctas};
+                   batch, steps, h, t0, tc, rows, g0, sh.w_smem, first, sh.ctas, sh.chunk};
       void* args[] = {&b};
       return cudaLaunchCooperativeKernel(bwd_kernels<T>()[sh.tiled], dim3((unsigned)(n * sh.ctas)),
                                          dim3(WTHREADS), args, sh.smem, stream);
     });
     if (err != cudaSuccess) return (int)err;
-    const long long n_rows = (long long)batch * tc, chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+    err = launch_dx_any<T>((const T*)da, a.w_ih, (const __nv_bfloat16*)wih, (T*)dx, n_rows, d, h, steps, w, stream);
+    if (err != cudaSuccess) return (int)err;
     if constexpr (is_bf16<T>) {
-      lstm_bwd_dx_any_mma_kernel<true><<<dim3((unsigned)((n_rows + AXM - 1) / AXM), (d + AT - 1) / AT), 256, 0,
-                                         stream>>>((const T*)da, a.w_ih, (T*)dx, n_rows, d, h, steps, w);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      const int vec = (d % 8 == 0 && h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0);
-      lstm_bwd_dw_any_mma_kernel<true><<<dim3(n_chunks, (g + AT - 1) / AT, (kd + AT - 1) / AT), 256, 0, stream>>>(
-          (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, d, h, vec, w, !first);
+      err = launch_dw_any_mma((const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, n_chunks, d, h, w, !first,
+                              stream);
     } else {
-      lstm_bwd_dx_any_kernel<true><<<dim3((unsigned)((n_rows + AT - 1) / AT), (d + AT - 1) / AT), 256, 0, stream>>>(
-          (const T*)da, a.w_ih, (T*)dx, n_rows, d, h, steps, w);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       lstm_bwd_dw_any_kernel<true><<<dim3(n_chunks, (g + FT - 1) / FT, (kd + FT - 1) / FT), 256, 0, stream>>>(
           (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, d, h, w, !first);
+      err = cudaGetLastError();
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return (int)err;
   }
   lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kd + 255) / 256), 256, 0, stream>>>(
       part, n_chunks, db_part, groups, dw_ih, dw_hh, db, d, h);
@@ -845,17 +1169,21 @@ extern "C" {
 // y: (B, T, H) in the instantiation's type; w_ih: (4H, D), w_hh: (4H, H),
 // bias: (4H,) fp32; cprev: (B, T, H) fp32.  Scratch: xp (B, window, 4H)
 // fp32; wpack: awm_lstm_wide_pack_elems(0, bf16, H) elements of the operand
-// type; c_state (B, H) fp32; count: ceil(B / rows) 32-bit counters.  rows:
-// batch rows a row group (1 .. 64); ctas: CTAs a row group (1 ..
-// ceil(H / 16); 0: the card's choice, awm_lstm_wide_shape's); window: steps
-// a window (B window < 2^31).  All contiguous on the current device.
-// Returns the first cudaError_t of the launches (0 = all launched).
+// type; wih: (4H, D) bf16 (bf16 only; null for fp32); c_state (B, H) fp32;
+// count: ceil(B / rows) 32-bit counters.  rows: batch rows a row group (1 ..
+// 64); ctas: CTAs a row group (1 ..
+// ceil(H / 16); 0: the card's choice, awm_lstm_wide_shape's); chunk: terms
+// of h a staged chunk (0: the card's choice; else rounded up to a multiple
+// of 16, at most the row); window: steps a window (B window < 2^31).  All
+// contiguous on the current device.  Returns the first cudaError_t of the
+// launches (0 = all launched).
 #define AWM_LSTM_WIDE_FWD_ENTRY(NAME, TYPE, TRAIN)                                                        \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y, float* cprev,  \
-           float* xp, void* wpack, float* c_state, unsigned* count, int batch, int steps, int d, int h,    \
-           int rows, int ctas, int window, void* stream) {                                                \
-    return launch_fwd<TYPE, TRAIN>(x, w_ih, w_hh, bias, y, TRAIN ? cprev : nullptr, xp, wpack, c_state,   \
-                                   count, batch, steps, d, h, rows, ctas, window, (cudaStream_t)stream);  \
+           float* xp, void* wpack, void* wih, float* c_state, unsigned* count, int batch, int steps,       \
+           int d, int h, int rows, int ctas, int chunk, int window, void* stream) {                       \
+    return launch_fwd<TYPE, TRAIN>(x, w_ih, w_hh, bias, y, TRAIN ? cprev : nullptr, xp, wpack, wih,       \
+                                   c_state, count, batch, steps, d, h, rows, ctas, chunk, window,         \
+                                   (cudaStream_t)stream);                                                 \
   }
 AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_f32_wide, float, false)
 AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_bf16_wide, __nv_bfloat16, false)
@@ -867,18 +1195,20 @@ AWM_LSTM_WIDE_FWD_ENTRY(awm_lstm_fwd_train_bf16_wide, __nv_bfloat16, true)
 // entry points.  Scratch: da (B, window, 4H) in the operand type; rec (B,
 // window, H, 8) fp32; part (n_chunks, 4H, D + H) fp32; db_part (ceil(B /
 // rows), 4H) fp32; wpack: awm_lstm_wide_pack_elems(1, bf16, H) elements of
-// the operand type; dh_state, dc_state (B, H) fp32; db_rows (B, 4H) fp32
-// (used where a CTA owns more than one tile); count: ceil(B / rows) 32-bit
-// counters.  rows, ctas, window as above.
+// the operand type; wih: (4H, D) bf16 (bf16 only; null for fp32);
+// dh_state, dc_state (B, H) fp32; db_rows (B, 4H) fp32 (used where a CTA
+// owns more than one tile); count: ceil(B / rows) 32-bit counters.  rows,
+// ctas, window as above; chunk: terms of da a staged chunk (0: the card's
+// choice).
 #define AWM_LSTM_WIDE_BWD_ENTRY(NAME, TYPE)                                                               \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,          \
            const float* w_hh, const float* bias, void* dx, float* dw_ih, float* dw_hh, float* db,        \
-           void* da, float* rec, float* part, float* db_part, void* wpack, float* dh_state,              \
+           void* da, float* rec, float* part, float* db_part, void* wpack, void* wih, float* dh_state,   \
            float* dc_state, float* db_rows, unsigned* count, int batch, int steps, int d, int h, int rows, \
-           int ctas, int window, int n_chunks, void* stream) {                                            \
+           int ctas, int chunk, int window, int n_chunks, void* stream) {                                 \
     return launch_bwd<TYPE>(bwd_args<TYPE>(x, y, cprev, dy, w_ih, w_hh, bias, batch, steps, d, h), dx,  \
-                            dw_ih, dw_hh, db, da, rec, part, db_part, wpack, dh_state, dc_state, db_rows, \
-                            count, rows, ctas, window, n_chunks, (cudaStream_t)stream);                   \
+                            dw_ih, dw_hh, db, da, rec, part, db_part, wpack, wih, dh_state, dc_state,     \
+                            db_rows, count, rows, ctas, chunk, window, n_chunks, (cudaStream_t)stream);   \
   }
 AWM_LSTM_WIDE_BWD_ENTRY(awm_lstm_bwd_f32_wide, float)
 AWM_LSTM_WIDE_BWD_ENTRY(awm_lstm_bwd_bf16_wide, __nv_bfloat16)
@@ -886,15 +1216,19 @@ AWM_LSTM_WIDE_BWD_ENTRY(awm_lstm_bwd_bf16_wide, __nv_bfloat16)
 
 // The launch shape of the wide recurrence (bwd = 0: A and B's, 1: C's) at
 // `rows` rows a row group on the current device, as a call with ctas = 0
-// launches it: out[0] the CTAs the card holds at once (0 where not one
-// fits its shared memory), out[1] the CTAs a row group (ceil(H / 16), or
-// fewer, each of more tiles, where the card does not hold that many), out[2]
-// 1 where W_hh's slice is in shared memory (else read from the packed copy
-// in global memory).  Returns 0 or the cudaError_t.
-int awm_lstm_wide_shape(int bwd, int bf16, int h, int rows, int* out) {
-  RecShape sh;
-  const cudaError_t err = bf16 ? wide_shape<__nv_bfloat16>(bwd, h, rows, 0, &sh) : wide_shape<float>(bwd, h, rows, 0, &sh);
-  out[0] = sh.slots, out[1] = sh.ctas, out[2] = sh.w_smem;
+// and the given chunk (0: the card's choice) launches it: out[0] the CTAs
+// the card holds at once (0 where not one fits its shared memory), out[1]
+// the CTAs a row group (ceil(H / 16), or fewer, each of more tiles, where
+// the card does not hold that many), out[2] 1 where W_hh's slice is in
+// shared memory (else read from the packed copy in global memory), out[3]
+// the dynamic shared memory of a CTA, out[4] the terms a staged chunk,
+// out[5] the most shared memory a CTA may opt in to.  Returns 0 or the
+// cudaError_t.
+int awm_lstm_wide_shape(int bwd, int bf16, int h, int rows, int chunk, int* out) {
+  RecShape sh{};
+  const cudaError_t err = bf16 ? wide_shape<__nv_bfloat16>(bwd, h, rows, 0, chunk, &sh)
+                               : wide_shape<float>(bwd, h, rows, 0, chunk, &sh);
+  out[0] = sh.slots, out[1] = sh.ctas, out[2] = sh.w_smem, out[3] = (int)sh.smem, out[4] = sh.chunk, out[5] = sh.optin;
   return (int)err;
 }
 

@@ -36,10 +36,10 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> str:
+def _library_path(name: str, extra: tuple = ()) -> str:
     """ops/_build/<name>-<hash>.so; the hash covers the source, every shared
-    header of csrc/ and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    header of csrc/ and the flags (extra ones too)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -47,13 +47,14 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build_all(names) -> dict[str, tuple[str, str]]:
+def build_all(names, extra: tuple = ()) -> dict[str, tuple[str, str]]:
     """Compile csrc/<name>.cu for every name that needs it, one nvcc process
-    each, all started together.  Returns {name: (library path, nvcc log)};
+    each, all started together, with NVCC_FLAGS and `extra` (e.g. a -D that
+    only a timing script passes).  Returns {name: (library path, nvcc log)};
     the log holds ptxas's registers / shared memory / spills per kernel."""
     out, running = {}, {}
     for name in names:
-        lib = _library_path(name)
+        lib = _library_path(name, extra)
         log_path = lib[:-3] + ".log"
         if os.path.exists(lib) and os.path.exists(log_path):
             with open(log_path) as f:
@@ -63,7 +64,7 @@ def build_all(names) -> dict[str, tuple[str, str]]:
         tmp = f"{lib}.{os.getpid()}.tmp"
         src = os.path.join(CSRC, f"{name}.cu")
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running[name] = (proc, src, lib, log_path, tmp)
@@ -82,7 +83,8 @@ def build_all(names) -> dict[str, tuple[str, str]]:
     return out
 
 
-def load_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
+def load_all(names, extra: tuple = ()) -> dict[str, tuple[ctypes.CDLL, str]]:
     """Build (if needed, in parallel) and dlopen csrc/<name>.cu for every
-    name.  Returns {name: (library, log)}."""
-    return {name: (ctypes.CDLL(path), log) for name, (path, log) in build_all(names).items()}
+    name, with the `extra` flags of build_all.  Returns {name: (library,
+    log)}."""
+    return {name: (ctypes.CDLL(path), log) for name, (path, log) in build_all(names, extra).items()}

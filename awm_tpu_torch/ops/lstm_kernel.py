@@ -299,15 +299,24 @@ CLUSTER_REC = 8  # floats of a (row, step, unit) record of kernel C's gate pass 
 # fp32; C: its records (B, tc, H, 8) fp32 and da (B, tc, 4H) in the operand
 # type, beside the dW partials, at most a quarter of the budget) stays within
 # WIDE_SCRATCH_BYTES whatever T is: the GB-scale analogue of the TPU kernel's
-# 4 MB time tile (awm_tpu/ops/pallas/lstm_kernel.py::_pick_tc).  Rows a group:
-# the fewest launches of the row groups the card holds at once (_wide_slots:
+# 4 MB time tile (awm_tpu/ops/pallas/lstm_kernel.py::_pick_tc).  Each step a
+# CTA stages the recurrent operand (A, B: h_{t-1}, H terms; C: da_t, 4H
+# terms) of its rows: A and B the whole row where it fits shared memory
+# beside W_hh's slice in global memory, else (and C always) in chunks of
+# WIDE_CHUNK terms (512 bytes a row) through a ring of WIDE_RING buffers, so
+# that nothing of a CTA's shared memory grows with H but W_hh's slice, which
+# moves to global memory where it does not fit (wide_smem mirrors the
+# source's count; the card's memory bounds the width).  Rows a group: the
+# fewest launches of the row groups the card holds at once (_wide_slots:
 # cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs over ceil(H / 16)),
 # then the fewest rows (_wide_rows); where no rows variant holds a group's
-# ceil(H / 16) CTAs at once (H > 2112 at one CTA an SM of 132), fewer CTAs
-# a group, each of more tiles of WIDE_UNITS (wide_ctas).
+# ceil(H / 16) CTAs at once (H > 2112 at one CTA an SM of 132), fewer CTAs a
+# group, each of more tiles of WIDE_UNITS (wide_ctas).
 WIDE_UNITS = 16
 WIDE_ROWS = (1, 2, 4, 8, 16, 32, 64)
 WIDE_SCRATCH_BYTES = 2**31
+WIDE_CHUNK = {False: 128, True: 256}  # terms a staged chunk, by bf16 (lstm_wide.cu's chunk_terms)
+WIDE_RING = {False: 4, True: 6}  # buffers of a chunked ring, by bf16 (lstm_wide.cu's ring_depth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,6 +350,7 @@ class LaunchPlan:
     state_shape: tuple[int, int] | None = None  # scratch: the state carried between windows, (B, H) fp32 each
     fwd_ctas: int = 0  # CTAs a row group, A and B (ceil(H / WIDE_UNITS) unless tiled; 0: the card's choice)
     bwd_ctas: int = 0  # and C's
+    wih: int = 0  # scratch: elements of W_ih in bf16 (4H x D), the bf16 gate passes and C's dx
 
     def scratch_bytes(self, kernel: str) -> int:
         """Bytes of scratch a wide call of kernel ("lstm_fwd", "lstm_fwd_train"
@@ -350,8 +360,9 @@ class LaunchPlan:
         if kernel == "lstm_bwd":  # da_shape[::2]: db_rows (B, 4H), the db of a tiled CTA's rows
             return (4 * (prod(self.rec_shape) + prod(self.part_shape) + prod(self.db_part_shape)
                          + 2 * prod(self.state_shape) + prod(self.da_shape[::2]) + self.bwd_blocks)
-                    + elt * (prod(self.da_shape) + self.bwd_pack))
-        return 4 * (prod(self.xp_shape) + prod(self.state_shape) + self.fwd_blocks) + elt * self.fwd_pack
+                    + elt * (prod(self.da_shape) + self.bwd_pack) + 2 * self.wih)
+        return (4 * (prod(self.xp_shape) + prod(self.state_shape) + self.fwd_blocks) + elt * self.fwd_pack
+                + 2 * self.wih)
 
 
 def _one_wave_rows(batch: int, slots: dict[int, int]) -> int:
@@ -390,6 +401,35 @@ def wide_pitch(n: int, bf16: bool) -> int:
     return -(-n // 16) * 16 + (8 if bf16 else 4)
 
 
+def wide_smem(bwd: bool, bf16: bool, hidden: int, rows: int, w_smem: bool, chunk: int) -> int:
+    """lstm_wide.cu's wide_smem: the dynamic shared memory of a recurrence
+    CTA (A / B: bwd False; C: True) of `rows` rows whose staged operand comes
+    in chunks of `chunk` terms (wide_chunk's; a ring of WIDE_RING buffers, or
+    one for the whole row), with W_hh's slice (w_smem) or without it; C's
+    also holds its db, dh and the dh product's partials."""
+    elt, whole = (2 if bf16 else 4), -(-(4 * hidden if bwd else hidden) // 16) * 16
+    tile = (16 if bwd else 8) if bf16 else 1  # bf16: the ring's rows in whole mma tiles
+    ring = elt * (1 if chunk >= whole else WIDE_RING[bf16]) * -(-rows // tile) * tile * wide_pitch(chunk, bf16)
+    if not bwd:
+        return ring + (elt * 4 * WIDE_UNITS * wide_pitch(hidden, bf16) if w_smem else 0)
+    return (max(ring, 4 * rows * 4 * WIDE_UNITS) + (elt * WIDE_UNITS * wide_pitch(4 * hidden, bf16) if w_smem else 0)
+            + 4 * rows * WIDE_UNITS + 4 * WIDE_UNITS * (64 if bf16 else max(64, 8 * rows)))
+
+
+def wide_chunk(bwd: bool, bf16: bool, hidden: int, rows: int, optin: int, chunk: int = 0) -> int:
+    """lstm_wide.cu's rec_chunk: the terms a staged chunk of a recurrence at
+    `rows` rows where a CTA may opt in to `optin` bytes of shared memory: a
+    given chunk in whole k-tiles (at most the row); else C's WIDE_CHUNK, and
+    A / B's whole row where it fits beside W_hh's slice in global memory
+    (their plan and step times stay those of whole-row staging wherever it
+    fits), WIDE_CHUNK past it."""
+    whole = -(-(4 * hidden if bwd else hidden) // 16) * 16
+    if chunk > 0:
+        return min(-(-chunk // 16) * 16, whole)
+    part = min(WIDE_CHUNK[bf16], whole)
+    return part if bwd or wide_smem(False, bf16, hidden, rows, False, whole) > optin else whole
+
+
 def wide_pack_elems(bwd: bool, bf16: bool, hidden: int) -> int:
     """Elements of the packed W_hh of the wide path (lstm_wide.cu's
     pack_elems): each CTA's 64 gate rows (A, B) or 16 columns (C)."""
@@ -415,17 +455,18 @@ def _wide_rows(batch: int, k: int, slots: dict[int, int]) -> tuple[int, int]:
     costs a window's steps again; a step's cost grows with the rows more
     slowly than the rows: PERF.md section 6); else (tiled: fewer CTAs of
     more tiles, wide_ctas) the fewest launches times tiles, then the fewest
-    rows.  Raises where not one row fits the card's shared memory."""
+    rows.  A CTA's shared memory does not grow with H (the staged operand
+    comes in chunks, W_hh's slice moves to global memory), so every width
+    has a launch shape; a reading of no CTA at any rows (the card's SMs held
+    by others) raises."""
     groups = lambda r: -(-batch // r)
     fit = [r for r in WIDE_ROWS if slots[r] >= k]
     if fit:
         return min(fit, key=lambda r: (-(-groups(r) // (slots[r] // k)), r)), k
     some = [r for r in WIDE_ROWS if slots[r] >= 1]
     if not some:
-        raise RuntimeError(
-            f"the wide path stages one row of h (kernels A, B) or of da (C) of H = {k * WIDE_UNITS} terms or fewer "
-            f"in shared memory, and the card holds not one such CTA (ops/csrc/lstm_wide.cu's header: on an H100 fp32 C "
-            f"takes H up to 14264, bf16 A and B 14512)")
+        raise RuntimeError(f"the card holds no CTA of the wide recurrence at any rows a group (H = {k * WIDE_UNITS}): "
+                           f"{slots}")
 
     def cost(r: int) -> tuple[int, int]:
         c = wide_ctas(k, slots[r])
@@ -454,8 +495,10 @@ def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width:
     # windows: what the budget leaves after the fixed scratch (for C a quarter of the budget kept for
     # the dW partials), a local row index below 2^31; the same windows at any T longer than them
     part_budget = budget // 4
-    fwd_fixed = 4 * (batch * hidden + fwd_groups) + elt * fwd_pack
-    bwd_fixed = part_budget + 4 * (bwd_groups * g + 2 * batch * hidden + batch * g + bwd_groups) + elt * bwd_pack
+    wih = g * width if bf16 else 0
+    fwd_fixed = 4 * (batch * hidden + fwd_groups) + elt * fwd_pack + 2 * wih
+    bwd_fixed = (part_budget + 4 * (bwd_groups * g + 2 * batch * hidden + batch * g + bwd_groups) + elt * bwd_pack
+                 + 2 * wih)
     window = lambda fixed, per_step: max(1, min(steps, (budget - fixed) // per_step, (2**31 - 1) // batch))
     fwd_window = window(fwd_fixed, batch * g * 4)
     bwd_window = window(bwd_fixed, batch * (hidden * CLUSTER_REC * 4 + g * elt))
@@ -471,6 +514,7 @@ def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width:
         rec_shape=(batch, bwd_window, hidden, CLUSTER_REC),
         wide=True, fwd_window=fwd_window, bwd_window=bwd_window, xp_shape=(batch, fwd_window, g),
         fwd_pack=fwd_pack, bwd_pack=bwd_pack, state_shape=(batch, hidden), fwd_ctas=fwd_ctas, bwd_ctas=bwd_ctas,
+        wih=wih,
     )
 
 
@@ -573,8 +617,9 @@ def _wide_slots(device_index: int, dtype: torch.dtype, hidden: int) -> tuple:
     variant keeps it there (read from global memory each step it cost fp32
     B at B=128 twice the time of half the rows, C twice that of half the
     rows in twice the launches: PERF.md section 6).  Checks that the
-    library's packed W_hh has the size wide_pack_elems gives and that it
-    would launch the CTAs a group wide_ctas gives."""
+    library's packed W_hh has the size wide_pack_elems gives, that it would
+    launch the CTAs a group wide_ctas gives, and that its chunk and shared
+    memory are wide_chunk's and wide_smem's."""
     lib, bf16 = libraries()["lstm_wide"], int(matmul_dtype(dtype) == torch.bfloat16)
     k = -(-hidden // WIDE_UNITS)
     out = []
@@ -582,14 +627,20 @@ def _wide_slots(device_index: int, dtype: torch.dtype, hidden: int) -> tuple:
         for bwd in (0, 1):
             shapes = []
             for rows in WIDE_ROWS:
-                got = (ctypes.c_int * 3)()
-                err = lib.awm_lstm_wide_shape(bwd, bf16, hidden, rows, got)
+                got = (ctypes.c_int * 6)()
+                err = lib.awm_lstm_wide_shape(bwd, bf16, hidden, rows, 0, got)
                 if err:
                     raise RuntimeError(f"awm_lstm_wide_shape: {lib.awm_cuda_error_string(err).decode()}")
                 if got[1] != wide_ctas(k, got[0]):
                     raise RuntimeError(f"lstm_wide.cu's group_ctas ({got[1]}) and lstm_kernel.wide_ctas "
                                        f"({wide_ctas(k, got[0])}) disagree at H = {hidden}, {got[0]} slots")
-                shapes.append(tuple(got))
+                chunk = wide_chunk(bool(bwd), bool(bf16), hidden, rows, got[5])
+                smem = wide_smem(bool(bwd), bool(bf16), hidden, rows, bool(got[2]), got[4])
+                if (got[4], got[3]) != (chunk, smem):
+                    raise RuntimeError(f"lstm_wide.cu's chunk and shared memory ({got[4]}, {got[3]}) and "
+                                       f"lstm_kernel.wide_chunk / wide_smem ({chunk}, {smem}) disagree at H = "
+                                       f"{hidden}, {rows} rows, bwd {bwd}")
+                shapes.append(tuple(got[:3]))
             slots = [n for n, _, _ in shapes]
             if any(m for _, _, m in shapes):
                 slots = [n if m else 0 for n, _, m in shapes]
@@ -620,15 +671,15 @@ def libraries() -> dict[str, ctypes.CDLL]:
         argtypes = {"lstm_fwd": [ptr] * 5 + [i] * 6 + [ptr],
                     "lstm_fwd_train": [ptr] * 6 + [i] * 6 + [ptr],
                     "lstm_bwd": [ptr] * 15 + [i] * 8 + [ptr]}
-        wide_argtypes = {"lstm_fwd": [ptr] * 10 + [i] * 7 + [ptr], "lstm_fwd_train": [ptr] * 10 + [i] * 7 + [ptr],
-                         "lstm_bwd": [ptr] * 20 + [i] * 8 + [ptr]}
+        wide_argtypes = {"lstm_fwd": [ptr] * 11 + [i] * 8 + [ptr], "lstm_fwd_train": [ptr] * 11 + [i] * 8 + [ptr],
+                         "lstm_bwd": [ptr] * 21 + [i] * 9 + [ptr]}
         for name in launches:
             kernel = max((k for k in KERNELS if name.startswith(k + "_")), key=len)
             fn = getattr(built[source_of(name)][0], entry_point(name))
             fn.argtypes = (wide_argtypes if name.endswith("_wide") else argtypes)[kernel]
             fn.restype = ctypes.c_int
         wide = built["lstm_wide"][0]
-        wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 4 + [ptr], ctypes.c_int
+        wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 5 + [ptr], ctypes.c_int
         wide.awm_lstm_wide_pack_elems.argtypes, wide.awm_lstm_wide_pack_elems.restype = [i] * 3, ctypes.c_longlong
         for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots")):
             lib = built[src][0]
@@ -720,10 +771,11 @@ def _forward_path(x: torch.Tensor, width: int, hidden: int, rows: int | None, sh
     return x, rows, short
 
 
-def _wide_forward(x, w_ih, w_hh, b, y, cprev, rows: int | None, ctas: int | None) -> None:
+def _wide_forward(x, w_ih, w_hh, b, y, cprev, rows: int | None, ctas: int | None, chunk: int | None) -> None:
     """Kernel A (cprev None) or B on the wide path: the plan's windows, rows
     a row group and CTAs a group (rows and ctas override them; rows alone
-    leaves the CTAs to the card), its scratch allocated here."""
+    leaves the CTAs to the card) and the card's chunk of the staged h
+    (chunk overrides it), its scratch allocated here."""
     bsz, t, width = x.shape
     hidden = w_hh.shape[1]
     plan = _plan_for(x, hidden)
@@ -736,20 +788,31 @@ def _wide_forward(x, w_ih, w_hh, b, y, cprev, rows: int | None, ctas: int | None
     f32 = dict(dtype=torch.float32, device=x.device)
     xp, c_state = torch.empty(plan.xp_shape, **f32), torch.empty(plan.state_shape, **f32)
     pack = torch.empty(plan.fwd_pack, dtype=plan.da_dtype, device=x.device)
+    wih = torch.empty(plan.wih, dtype=torch.bfloat16, device=x.device) if plan.wih else None
     count = torch.empty(-(-bsz // rows), dtype=torch.int32, device=x.device)
     name = instantiation("lstm_fwd" if cprev is None else "lstm_fwd_train", x.dtype, width, hidden)
     _launch("lstm_wide", name, x, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(), y.data_ptr(),
-            None if cprev is None else cprev.data_ptr(), xp.data_ptr(), pack.data_ptr(), c_state.data_ptr(),
-            count.data_ptr(), bsz, t, width, hidden, rows, ctas, plan.fwd_window)
+            None if cprev is None else cprev.data_ptr(), xp.data_ptr(), pack.data_ptr(),
+            None if wih is None else wih.data_ptr(), c_state.data_ptr(), count.data_ptr(), bsz, t, width, hidden,
+            rows, ctas, _chunk(chunk), plan.fwd_window)
+
+
+def _chunk(chunk: int | None) -> int:
+    """The wide path's chunk override as the entry points take it (0: the
+    card's choice)."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"the wide path takes a chunk of >= 1 terms, got {chunk}")
+    return chunk or 0
 
 
 def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None,
-                   ctas: int | None = None) -> torch.Tensor:
+                   ctas: int | None = None, chunk: int | None = None) -> torch.Tensor:
     """Kernel A: (B, T, D) -> y (B, T, H) in x's dtype, on the card, D, H
     >= 1.  rows overrides the plan's rows per block (a row group on the
-    wide path), short its path (the short path at D = H = 32 or the ring)
-    and ctas the wide path's CTAs a row group (fewer than ceil(H / 16):
-    tiled) (for tests and timing)."""
+    wide path), short its path (the short path at D = H = 32 or the ring),
+    ctas the wide path's CTAs a row group (fewer than ceil(H / 16): tiled)
+    and chunk the terms of its staged chunks of h (whole k-tiles, at most
+    the row; the same bits at any chunk) (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
@@ -757,7 +820,7 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None
         return y
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     if is_wide(width, hidden) and not short:
-        _wide_forward(x, w_ih, w_hh, b, y, None, rows, ctas)
+        _wide_forward(x, w_ih, w_hh, b, y, None, rows, ctas, chunk)
         return y
     x, rows, short = _forward_path(x, width, hidden, rows, short)
     name = instantiation("lstm_fwd", x.dtype, width, hidden)
@@ -767,10 +830,12 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None
 
 
 def forward_train_kernel(
-    x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None, ctas: int | None = None
+    x, w_ih, w_hh, b, rows: int | None = None, short: bool | None = None, ctas: int | None = None,
+    chunk: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: (B, T, D) -> (y in x's dtype, cprev fp32), both
-    (B, T, H), on the card.  rows, short and ctas as in forward_kernel."""
+    (B, T, H), on the card.  rows, short, ctas and chunk as in
+    forward_kernel."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     y = torch.empty(bsz, t, hidden, dtype=x.dtype, device=x.device)
@@ -779,7 +844,7 @@ def forward_train_kernel(
         return y, cprev
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     if is_wide(width, hidden) and not short:
-        _wide_forward(x, w_ih, w_hh, b, y, cprev, rows, ctas)
+        _wide_forward(x, w_ih, w_hh, b, y, cprev, rows, ctas, chunk)
         return y, cprev
     x, rows, short = _forward_path(x, width, hidden, rows, short)
     name = instantiation("lstm_fwd_train", x.dtype, width, hidden)
@@ -789,7 +854,8 @@ def forward_train_kernel(
     return y, cprev
 
 
-def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, ctas: int | None = None):
+def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, ctas: int | None = None,
+                    chunk: int | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
     y and cprev are forward_train_kernel's outputs, dy is (B, T, H) in x's
     dtype (as autograd hands it to LSTMFunction.backward).  The outputs are
@@ -800,9 +866,11 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     the cluster path five, the gate pass first with its records (B, T, H, 8)
     fp32; on the wide path window by window (lstm_wide.cu), its scratch
     the plan's (a window's records and da, the dW and db partials, the
-    packed W_hh, the carried (dh, dc), db_rows).  rows overrides the
-    plan's rows per block of the recurrence (a row group on the wide path)
-    and ctas the wide path's CTAs a row group (for tests and timing)."""
+    packed W_hh, bf16 W_ih, the carried (dh, dc), db_rows).  rows
+    overrides the plan's rows per block of the recurrence (a row group on
+    the wide path), ctas the wide path's CTAs a row group and chunk the
+    terms of its staged chunks of da (whole k-tiles, at most the row; the
+    same bits at any chunk) (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     shape = (bsz, t, hidden)
@@ -828,13 +896,14 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
         if not 0 <= ctas <= -(-hidden // WIDE_UNITS):
             raise ValueError(f"the wide path takes 1 to ceil(H / {WIDE_UNITS}) CTAs a row group, got {ctas}")
         db_rows = torch.empty(bsz, 4 * hidden, **f32)
+        wih = torch.empty(plan.wih, dtype=torch.bfloat16, device=x.device) if plan.wih else None
         _launch("lstm_wide", instantiation("lstm_bwd", x.dtype, width, hidden), x,
                 x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
                 w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
                 dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), da.data_ptr(), rec.data_ptr(),
-                part.data_ptr(), db_part.data_ptr(), pack.data_ptr(), dh_state.data_ptr(), dc_state.data_ptr(),
-                db_rows.data_ptr(), count.data_ptr(), bsz, t, width, hidden,
-                plan.bwd_rows, ctas, plan.bwd_window, plan.n_chunks)
+                part.data_ptr(), db_part.data_ptr(), pack.data_ptr(), None if wih is None else wih.data_ptr(),
+                dh_state.data_ptr(), dc_state.data_ptr(), db_rows.data_ptr(), count.data_ptr(), bsz, t, width,
+                hidden, plan.bwd_rows, ctas, _chunk(chunk), plan.bwd_window, plan.n_chunks)
         return dx, dw_ih, dw_hh, db
     if plan.bwd_fused:
         da = db_part = None

@@ -243,7 +243,11 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 # D != H both ways) against their plain versions at B=3, T=512; the unit
 # tiles (fewer CTAs a row group, of more tiles each) at 512 x 512 with
 # TILED_CTAS against the plan's bits, and at TILED_WIDTH, a row group of
-# more CTAs than the card holds at once, against plain; at 512 x 512 at
+# more CTAs than the card holds at once, against plain; past the widths
+# whole-row staging capped (CEILING_CHECKS: fp32 C and bf16 A / B at 14592,
+# bf16 C at 28672, D = 16, B = 2, T = 24) against plain, C twice the same
+# bits; at 512 x 512 the chunked and whole-row staging (CHUNK_CHECKS) give
+# the plan's bits; at 512 x 512 at
 # every B in ROWS_CHECK_B by T in ROWS_CHECK_T (the plan's rows and one row
 # a group: many row groups, in several launches); timed at T=16000 (A
 # B=512, B and C B=128, the plain version in slices where the card's memory
@@ -258,6 +262,21 @@ TILED_CTAS = (7, 31)  # 512 x 512's 32 tiles on 7 CTAs (4 or 5 tiles each), on 3
 # 272 tiles a row group, past the CTAs an H100 holds at once of every wide
 # recurrence (264 of bf16 A / B's, two an SM; 132 of the others)
 TILED_WIDTH = 4352
+# Past the widths whose whole staged row of h / da filled a CTA's shared
+# memory before the chunks (an H100's 227 KB: fp32 C 14264, bf16 A / B
+# 14512, bf16 C 28532): (dtype, H) at D = 16, B = 2, T = CEILING_T, all of
+# A, B and C at each.
+CEILING_CHECKS = (("f32", 14592), ("bf16", 14592), ("bf16", 28672))
+CEILING_T = 24
+# Staged chunks at 512 x 512 held to the plan's bits: 64 terms (A / B in
+# chunks, where the plan stages h whole), 2048 (C's whole row of da, where
+# the plan stages it in chunks).
+CHUNK_CHECKS = (64, 2048)
+# C's chunks of CHUNK_ROWS_CHUNKS terms held to the plan's chunk at B =
+# CHUNK_ROWS_B by rows a group: 8 (the fp32 dh product's 4 x 4 tiles a
+# thread) and 32 (its 8 x 8 tiles a warp, then 8; a whole row of da at 32
+# rows fits no CTA in fp32).
+CHUNK_ROWS, CHUNK_ROWS_B, CHUNK_ROWS_CHUNKS = (8, 32), 40, (16, 64)
 WIDE_CHUNKS, WIDE_B = 64, 32  # the session's chunks, the train step's batch
 # The train step's batch at channels 512: the base bf16 step at 64 channels
 # peaked at 47.19 GiB at B=256 (0.18 GiB a clip, PERF.md section 5); eight
@@ -2190,8 +2209,11 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
     of more tiles each) A, B and C give the bits of the plan's (untiled)
     call, and at TILED_WIDTH (more CTAs a group than the card holds at
     once) the plan takes fewer CTAs of more tiles and A, B and C hold
-    against plain.  The worst errors go to max_err / max_rel under the
-    masked, cluster and wide names."""
+    against plain; at 512 x 512 the staged chunks of CHUNK_CHECKS give the
+    plan's bits too, and past the widths whole-row staging capped
+    (CEILING_CHECKS) A, B and C hold against plain, C twice the same bits.
+    The worst errors go to max_err / max_rel under the masked, cluster and
+    wide names."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
@@ -2255,17 +2277,32 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
         w = WIDE_CHANNELS
         x, w_ih, w_hh, bias, dy = lstm_inputs(7, dtype, dev, seed=w + 5, t=300, w=w)
 
-        def calls(ctas):
-            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, ctas=ctas)
-            return (K.forward_kernel(x, w_ih, w_hh, bias, ctas=ctas), y, cprev,
-                    *K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, ctas=ctas))
+        def calls(ctas, chunk=None):
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, ctas=ctas, chunk=chunk)
+            return (K.forward_kernel(x, w_ih, w_hh, bias, ctas=ctas, chunk=chunk), y, cprev,
+                    *K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, ctas=ctas, chunk=chunk))
         with no_tf32():
             base = calls(None)
             same = {ctas: all(torch.equal(a, b) for a, b in zip(calls(ctas), base)) for ctas in TILED_CTAS}
+            same_chunks = {chunk: all(torch.equal(a, b) for a, b in zip(calls(None, chunk), base))
+                           for chunk in CHUNK_CHECKS}
+            xr, *wr, dyr = lstm_inputs(CHUNK_ROWS_B, dtype, dev, seed=w + 6, t=64, w=w)
+            yr, cr = K.forward_train_kernel(xr, *wr)
+            for rows in CHUNK_ROWS:
+                ref = K.backward_kernel(xr, yr, cr, dyr, *wr, rows=rows)
+                same_chunks[f"C at {rows} rows"] = all(
+                    all(torch.equal(a, b) for a, b in zip(K.backward_kernel(xr, yr, cr, dyr, *wr, rows=rows,
+                                                                            chunk=chunk), ref))
+                    for chunk in CHUNK_ROWS_CHUNKS)
+            del xr, wr, dyr, yr, cr
         plan = K._plan_for(x, w)
         check(all(same.values()) and plan.fwd_ctas == plan.bwd_ctas == -(-w // K.WIDE_UNITS),
               f"{K.instantiation('lstm_fwd', dtype, w)} / B / C at {w} x {w}, B=7 T=300: CTAs a row group "
               f"{TILED_CTAS} (of more unit tiles each) give the bits of the plan's {plan.fwd_ctas}: {same}")
+        check(all(same_chunks.values()),
+              f"{K.instantiation('lstm_fwd', dtype, w)} / B / C at {w} x {w}, B=7 T=300, rows {plan.fwd_rows} / "
+              f"{plan.bwd_rows}: h / da staged in chunks of {CHUNK_CHECKS} terms give the plan's bits, and C's at "
+              f"B={CHUNK_ROWS_B}, T=64 in chunks of {CHUNK_ROWS_CHUNKS} at rows {CHUNK_ROWS}: {same_chunks}")
         d = h = TILED_WIDTH
         tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
         x, w_ih, w_hh, bias, dy = lstm_inputs(3, dtype, dev, seed=d, t=40, w=d)
@@ -2291,6 +2328,37 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
               f"A {err_a:.3e}, B {err_b:.3e} (tol {tol_a:.0e}); C rel {', '.join(f'{r:.2e}' for r in rels)} "
               f"(tol {tol_c:.0e}); C twice the same bits; launched {moved}")
         del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
+        torch.cuda.empty_cache()
+    for sfx, h in CEILING_CHECKS:
+        dtype = torch.float32 if sfx == "f32" else torch.bfloat16
+        tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
+        x, w_ih, w_hh, bias, dy = lstm_inputs(2, dtype, dev, seed=h + 1, t=CEILING_T, w=16, h=h)
+        before = dict(K.launches)
+        with no_tf32():
+            y0 = K.forward_kernel(x, w_ih, w_hh, bias)
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            grads = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            again = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            torch.cuda.synchronize()
+            plan = K._plan_for(x, h)
+            ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+            err_a, err_b = max_abs(y0, ref_y), max(max_abs(y, ref_y), max_abs(cprev, ref_c))
+            del ref_y, ref_c
+            torch.cuda.empty_cache()
+            ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+        moved = {n: K.launches[n] - before[n] for n in K.launches if K.launches[n] != before[n]}
+        rels = [rel_err(g, r) for g, r in zip(grads, ref_g)]
+        names = [K.instantiation(k, dtype, 16, h) for k in K.KERNELS]
+        check(moved == {names[0]: 1, names[1]: 1, names[2]: 2} and err_a <= tol_a and err_b <= tol_b
+              and max(rels) <= tol_c and all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
+              f"{' / '.join(names)} at D=16 H={h} (past the width whole-row staging capped), B=2 T={CEILING_T}, "
+              f"{plan.fwd_rows} / {plan.bwd_rows} rows, {plan.fwd_ctas} / {plan.bwd_ctas} CTAs a group, vs plain: "
+              f"A {err_a:.3e}, B {err_b:.3e} (tol {tol_a:.0e}); C rel {', '.join(f'{r:.2e}' for r in rels)} "
+              f"(tol {tol_c:.0e}); C twice the same bits; launched {moved}")
+        for n, e in zip(names, (err_a, err_b)):
+            max_err[n] = max(max_err.get(n, 0.0), e)
+        max_rel[names[2]] = max(max_rel.get(names[2], 0.0), max(rels))
+        del x, w_ih, w_hh, bias, dy, y0, y, cprev, grads, again, ref_g
         torch.cuda.empty_cache()
 
 

@@ -434,6 +434,91 @@ def test_wide_path_tiles_past_what_the_card_holds(cuda, dtype):
             assert rel <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], rel
 
 
+def _max_rel(a, r, rows=4096):
+    """max |a - r| / max |r| over a tensor's first axis in slices of rows (a
+    dW_hh at H = 28672 is 13 GB; its differences would not fit beside it)."""
+    err = max(float((a[i:i + rows].float() - r[i:i + rows].float()).abs().max()) for i in range(0, a.shape[0], rows))
+    return err / (max(float(r[i:i + rows].float().abs().max()) for i in range(0, r.shape[0], rows)) + 1e-12)
+
+
+# Past the widths whose whole staged row of h / da filled a CTA's shared
+# memory before the chunks (an H100's 227 KB: fp32 C 14264, bf16 A / B
+# 14512, bf16 C 28532): (dtype, H)
+CEILINGS = [(torch.float32, 14592), (torch.bfloat16, 14592), (torch.bfloat16, 28672)]
+
+
+@pytest.mark.parametrize("dtype,h", CEILINGS, ids=[f"{'bf16' if d == torch.bfloat16 else 'f32'}-{h}"
+                                                   for d, h in CEILINGS])
+def test_wide_path_past_the_old_ceiling(cuda, dtype, h):
+    """A, B and C at D = 16, B = 2, T = 24 and an H past the width whose
+    whole staged row used to fill shared memory: the plan gives a launch
+    shape (no RuntimeError), the *_wide instantiations launch, and they hold
+    against their plain versions at KERNEL_TOL; two calls of C give the same
+    bits."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    b, t, d = 2, 24, 16
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=h, w=d, h=h)
+    w_ih, w_hh, bias = (v * (0.3 / h**0.5) / 0.1 for v in (w_ih, w_hh, bias))  # a contractive recurrence
+    x = x.to(dtype)
+    dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(h)).to(dtype)
+    names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
+    before = [lstm_kernel.launches[n] for n in names]
+    with no_tf32():
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+        got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        again = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        del again
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        for a, r in ((y0, ref_y), (y, ref_y), (cprev, ref_c)):
+            assert float((a.float() - r.float()).abs().max()) <= lstm_kernel.KERNEL_TOL["lstm_fwd", sfx]
+        del ref_y, ref_c
+        torch.cuda.empty_cache()
+        ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    assert [lstm_kernel.launches[n] - n0 for n, n0 in zip(names, before)] == [1, 1, 2]
+    for name, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g):
+        assert _max_rel(a, r) <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_path_chunks_keep_the_bits(cuda, dtype):
+    """At 512 x 512 (B = 7, T = 61, rows a group where the whole row fits
+    too) h and da staged in chunks of any size give the bits of the plan's
+    staging: A and B in chunks of 16 and 64 terms against their whole row,
+    C's whole row (2048) and chunks of 64 against its chunks of 128 / 256;
+    two calls of C the same bits.  At B = 40, C in chunks of 16 and 64 terms
+    also at 8 rows a group (the fp32 dh product's 4 x 4 tiles a thread) and
+    32 (its 8 x 8 tiles a warp, then a group of 8)."""
+    b, t, h = 7, 61, 512
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=7, w=h)
+    w_ih, w_hh, bias = (v * (0.3 / h**0.5) / 0.1 for v in (w_ih, w_hh, bias))
+    x = x.to(dtype)
+    dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(3)).to(dtype)
+
+    def calls(chunk=None):
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, chunk=chunk)
+        return (lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, chunk=chunk), y, cprev,
+                *lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, chunk=chunk))
+
+    with no_tf32():
+        base = calls()
+        assert all(torch.equal(a, r) for a, r in zip(calls(), base))
+        for chunk in (16, 64, 4 * h):
+            assert all(torch.equal(a, r) for a, r in zip(calls(chunk), base)), chunk
+        x40 = _inputs(40, 33, cuda, seed=8, w=h)[0].to(dtype)
+        y40, c40 = lstm_kernel.forward_train_kernel(x40, w_ih, w_hh, bias)
+        dy40 = torch.randn(40, 33, h, device=cuda, generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+        for rows in (8, 32):
+            ref = lstm_kernel.backward_kernel(x40, y40, c40, dy40, w_ih, w_hh, bias, rows=rows)
+            for chunk in (16, 64):  # a whole row of da (2048 terms) at 32 rows fits no CTA in fp32
+                got = lstm_kernel.backward_kernel(x40, y40, c40, dy40, w_ih, w_hh, bias, rows=rows, chunk=chunk)
+                assert all(torch.equal(a, r) for a, r in zip(got, ref)), (rows, chunk)
+
+
 # (D, H) of the new widths: masked within capacity 64 (48 x 48, the base
 # family at channels 48; 40 x 24) and 32 and 16, the cluster path (96 x 96,
 # 128 x 128, the base family at channels 128; the ceiling; a wide input with

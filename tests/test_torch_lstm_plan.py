@@ -665,8 +665,21 @@ def test_wide_plan(d, h, dtype):
 
 # H past what the card holds of a row group at once (132 slots: H > 2112),
 # and the widest that it does: (H, the CTAs a group, unit tiles of the CTA
-# that owns the most)
-TILED = [(2112, 132, 1), (2113, 67, 2), (2304, 72, 2), (4096, 128, 2), (8192, 128, 4)]
+# that owns the most); past the widths one staged row of h / da used to cap
+# (fp32 C and bf16 A / B 14592, bf16 C 28672) and fp32 A / B's (60000)
+TILED = [(2112, 132, 1), (2113, 67, 2), (2304, 72, 2), (4096, 128, 2), (8192, 128, 4),
+         (14592, 131, 7), (28672, 128, 14), (60000, 130, 29)]
+OPTIN = 232448  # the shared memory a CTA may opt in to on an H100 (227 KB)
+
+
+def _mirror_slots(bwd: bool, bf16: bool, h: int, w_smem: bool, sm_count: int = 132) -> tuple:
+    """The CTAs a card of sm_count SMs (one CTA an SM) holds of the wide
+    recurrence at each of WIDE_ROWS, by lstm_wide.cu's shared memory as
+    wide_smem and wide_chunk mirror it: 0 where a CTA of that many rows does
+    not fit OPTIN with W_hh's slice where w_smem says."""
+    return tuple(sm_count if lstm_kernel.wide_smem(bwd, bf16, h, r, w_smem,
+                                                   lstm_kernel.wide_chunk(bwd, bf16, h, r, OPTIN)) <= OPTIN else 0
+                 for r in lstm_kernel.WIDE_ROWS)
 
 
 @pytest.mark.parametrize("h,ctas,tiles", TILED, ids=[f"H{h}" for h, _, _ in TILED])
@@ -675,13 +688,20 @@ def test_wide_plan_tiles_past_what_the_card_holds(h, ctas, tiles):
     the plan takes fewer CTAs a group, each of more unit tiles, spread
     evenly (wide_ctas, lstm_wide.cu's group_ctas), and the rows with the
     fewest launches times tiles; C's scratch counts db_rows (B, 4H) fp32
-    and stays within the budget (up to H = 4096).  Where not one CTA fits the card's
-    shared memory the plan raises, naming it."""
+    and stays within the budget (up to H = 4096).  A CTA's shared memory no
+    longer grows with H (the staged h / da come in chunks, W_hh's slice is
+    read from global memory), so at every rows variant a CTA fits the card
+    (the slots wide_smem gives) and every kernel and type has a launch
+    shape, past the widths whole-row staging capped too; only a reading of
+    no CTA at all raises."""
     k = -(-h // lstm_kernel.WIDE_UNITS)
     assert lstm_kernel.wide_ctas(k, 132) == ctas and -(-k // ctas) == tiles
     assert lstm_kernel.wide_ctas(k, k) == k and lstm_kernel.wide_ctas(k, 0) == 0
     slots = (tuple(132 if r <= 8 else 0 for r in lstm_kernel.WIDE_ROWS),) * 2
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        mirrored = tuple(_mirror_slots(bwd, bf16, h, False) for bwd in (False, True))
+        assert all(n == 132 for pair in mirrored for n in pair), mirrored
         for batch in (1, 7, 128):
             plan = launch_plan(batch, 16000, dtype, 132, h, None, None, wide_slots=slots)
             assert (plan.fwd_ctas, plan.bwd_ctas) == (ctas, ctas)
@@ -693,8 +713,57 @@ def test_wide_plan_tiles_past_what_the_card_holds(h, ctas, tiles):
             # past 4096 the packed W_hh and one dW partial alone pass the budget (they grow with H^2, not T)
             for kernel in lstm_kernel.KERNELS:
                 assert h > 4096 or plan.scratch_bytes(kernel) <= lstm_kernel.WIDE_SCRATCH_BYTES
-    with pytest.raises(RuntimeError, match="shared memory"):
+            shaped = launch_plan(batch, 16000, dtype, 132, h, None, None, wide_slots=mirrored)
+            assert 1 <= shaped.fwd_ctas <= k and 1 <= shaped.bwd_ctas <= k
+            assert shaped.fwd_rows in lstm_kernel.WIDE_ROWS and shaped.bwd_rows in lstm_kernel.WIDE_ROWS
+            assert 1 <= shaped.fwd_window <= 16000 and 1 <= shaped.bwd_window <= 16000
+    with pytest.raises(RuntimeError, match="no CTA"):
         launch_plan(3, 10, torch.float32, 132, h, None, None, wide_slots=((0,) * 7, (0,) * 7))
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_smem_stays_within_a_chunk_past_the_row(bwd, dtype):
+    """wide_smem (lstm_wide.cu's count) without W_hh's slice: staged in
+    chunks, a CTA of up to 64 rows fits the card at any H, and the same CTA
+    at twice the width takes the same bytes; A / B's whole row (wide_chunk's
+    choice where it fits) fits OPTIN wherever it is chosen."""
+    bf16 = dtype == torch.bfloat16
+    for h in (257, 512, 4352, 14592, 28672, 60000):
+        for rows in lstm_kernel.WIDE_ROWS:
+            chunk = lstm_kernel.wide_chunk(bwd, bf16, h, rows, OPTIN)
+            whole = -(-(4 * h if bwd else h) // 16) * 16
+            assert chunk == (whole if not bwd and lstm_kernel.wide_smem(False, bf16, h, rows, False, whole) <= OPTIN
+                             else min(lstm_kernel.WIDE_CHUNK[bf16], whole))
+            assert lstm_kernel.wide_smem(bwd, bf16, h, rows, False, chunk) <= OPTIN
+            if chunk < whole:
+                part = lstm_kernel.WIDE_CHUNK[bf16]
+                assert (lstm_kernel.wide_smem(bwd, bf16, h, rows, False, part)
+                        == lstm_kernel.wide_smem(bwd, bf16, 2 * h, rows, False, part))
+    assert lstm_kernel.wide_chunk(bwd, bf16, 512, 8, OPTIN, chunk=40) == 48  # a given chunk: whole k-tiles
+    assert lstm_kernel.wide_chunk(bwd, bf16, 512, 8, OPTIN, chunk=10**6) == (2048 if bwd else 512)  # at most the row
+
+
+def test_wide_fp32_backward_plan_at_512_takes_one_launch():
+    """fp32 C at B=128, D = H = 512 (the channels-512 train step's widths):
+    with da staged in chunks, 32 rows a group keep W_hh's 131 KB slice in
+    shared memory (the slots wide_smem gives, W_hh's slice in shared memory
+    where it fits), so the plan takes 32 rows, 4 row groups of 32 CTAs, one
+    cooperative launch a window.  The whole row of da (8.2 KB a row) would
+    leave room for 8 rows only: 16 groups in 4 launches."""
+    h, optin = 512, OPTIN
+    slots = _mirror_slots(True, False, h, True)
+    assert dict(zip(lstm_kernel.WIDE_ROWS, slots)) == {1: 132, 2: 132, 4: 132, 8: 132, 16: 132, 32: 132, 64: 0}
+    chunk = lstm_kernel.wide_chunk(True, False, h, 32, optin)
+    assert chunk == lstm_kernel.WIDE_CHUNK[False] == 128
+    assert lstm_kernel.wide_smem(True, False, h, 32, True, chunk) <= optin
+    whole = lstm_kernel.wide_smem(True, False, h, 32, True, 4 * h)
+    assert whole > optin and lstm_kernel.wide_smem(True, False, h, 8, True, 4 * h) <= optin
+    plan = launch_plan(128, 16000, torch.float32, 132, h, wide_slots=(slots, slots))
+    k = -(-h // lstm_kernel.WIDE_UNITS)
+    assert (plan.bwd_rows, plan.bwd_blocks, plan.bwd_ctas) == (32, 4, k)
+    assert -(-plan.bwd_blocks // (slots[lstm_kernel.WIDE_ROWS.index(32)] // k)) == 1  # one launch a window
+    assert plan.bwd_window == 510 and plan.scratch_bytes("lstm_bwd") <= lstm_kernel.WIDE_SCRATCH_BYTES
 
 
 def test_wide_scratch_at_1024_is_within_4gb():
