@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from awm_tpu_torch.ops import conv1d, conv_transpose1d, lstm_fused_forward
-from awm_tpu_torch.parallel.collectives import replicated_sum, sum_over_ranks
+from awm_tpu_torch.parallel.collectives import all_reduce_, replicated_sum, sum_over_ranks
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
@@ -81,6 +81,98 @@ class ConvTranspose1d(nn.Module):
                                 output_padding=self.output_padding)
 
 
+# Values of one fp32 temporary of BatchNorm's backward: it runs over slabs of
+# channels of this many values each (xhat, dy, dx), so that its memory does not
+# grow with the batch (at the base preset's bf16 B=256 a whole fp32 copy of
+# one detector activation is 1 GiB).
+BN_SLAB_ELEMS = 2**25
+
+
+def _train_stats(xf: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, E[x^2], count) of fp32 xf (B, C, T) over (B, T), the group's
+    rows where group is set (each rank's sums, summed differentiably)."""
+    if group is None:
+        return xf.mean(dim=(0, 2)), xf.square().mean(dim=(0, 2)), xf.new_full((), xf.numel() / xf.shape[1])
+    c = xf.shape[1]
+    sums = sum_over_ranks(torch.cat([xf.sum(dim=(0, 2)), xf.square().sum(dim=(0, 2)),
+                                     xf.new_full((1,), xf.numel() / c)]), group)
+    return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1], sums[-1]
+
+
+def _affine(xf: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(xf - mean) mul + bias over the channel axis of fp32 (B, C, T)."""
+    return (xf - mean[:, None]) * mul[:, None] + bias.to(torch.float32)[:, None]
+
+
+def batch_norm_train_plain(x, weight, bias, running_mean, running_var, eps, group, out_dtype):
+    """Train-mode BatchNorm as one composite of torch ops (the plain version
+    of _BatchNormTrain, which the tests compare against): autograd saves its
+    fp32 copy of x and its fp32 output beside x."""
+    xf = x.to(torch.float32)
+    mean, sq, _ = _train_stats(xf, group)
+    var = torch.clamp(sq - mean.square(), min=0.0)
+    with torch.no_grad():
+        running_mean.copy_(0.9 * running_mean + 0.1 * mean)
+        running_var.copy_(0.9 * running_var + 0.1 * var)
+    return _affine(xf, mean, torch.rsqrt(var + eps) * weight.to(torch.float32), bias).to(out_dtype)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm with its own backward.  The forward is
+    batch_norm_train_plain's arithmetic; it saves x in its own dtype and, per
+    channel, the fp32 mean, rsqrt(var + eps) and whether the variance was
+    clamped at 0.  The backward recomputes xhat = (x - mean) rsqrt(var + eps)
+    in fp32 a slab of channels at a time and takes, with N the rows the
+    statistics ran over (the group's), dbias = sum dy, dweight = sum dy xhat
+    and dx = w rsqrt(var + eps) (dy - sum(dy) / N - xhat sum(dy xhat) / N), the
+    xhat term dropped where the variance was clamped (its gradient is 0
+    there, as torch.clamp's).  Under a group the two sums in dx are the
+    group's (one all-reduce, as the composite's backward through
+    sum_over_ranks), dweight and dbias this rank's own."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, group, out_dtype):
+        xf = x.to(torch.float32)
+        mean, sq, count = _train_stats(xf, group)
+        raw = sq - mean.square()
+        var = torch.clamp(raw, min=0.0)
+        running_mean.copy_(0.9 * running_mean + 0.1 * mean)
+        running_var.copy_(0.9 * running_var + 0.1 * var)
+        inv = torch.rsqrt(var + eps)
+        ctx.group = group
+        ctx.save_for_backward(x, weight, mean, inv, count, raw >= 0)
+        return _affine(xf, mean, inv * weight.to(torch.float32), bias).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, inv, count, kept = ctx.saved_tensors
+        c = x.shape[1]
+        step = max(1, BN_SLAB_ELEMS // max(1, x.numel() // c))
+        slabs = [slice(c0, min(c, c0 + step)) for c0 in range(0, c, step)]
+        mul, f32 = inv * weight.to(torch.float32), torch.float32
+        sums = torch.empty(2, c, dtype=f32, device=x.device)  # sum dy, sum dy xhat (this rank's)
+        dx = torch.empty_like(x)
+
+        def operands(s):
+            xh = (x[:, s].to(f32) - mean[s, None]) * inv[s, None]
+            return xh, dy[:, s].to(f32)
+
+        def dx_of(s, xh, dyf, tot):
+            dx[:, s] = (mul[s, None] * (dyf - tot[0, s, None] / count
+                                        - xh * (tot[1, s, None] / count * kept[s, None]))).to(x.dtype)
+
+        for s in slabs:
+            xh, dyf = operands(s)
+            sums[0, s], sums[1, s] = dyf.sum(dim=(0, 2)), (dyf * xh).sum(dim=(0, 2))
+            if ctx.group is None:
+                dx_of(s, xh, dyf, sums)
+        if ctx.group is not None:
+            tot = all_reduce_(sums.clone(), ctx.group)
+            for s in slabs:
+                dx_of(s, *operands(s), tot)
+        return dx, sums[1].to(weight.dtype), sums[0].to(weight.dtype), None, None, None, None, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm1d over the channel axis of (B, C, T), the flax way
     (awm_tpu/models/layers.py:99-148, flax.linen.BatchNorm).
@@ -89,8 +181,10 @@ class BatchNorm(nn.Module):
     fp32 whatever the input dtype, with flax's fast biased variance
     max(0, E[x^2] - E[x]^2), and updates the running statistics as
     ra = 0.9 * ra + 0.1 * batch, with that biased variance (torch's own
-    BatchNorm uses the unbiased one there).  Eval mode normalises with the
-    running statistics.
+    BatchNorm uses the unbiased one there).  It runs as _BatchNormTrain,
+    which saves x and per-channel statistics only (no fp32 copy of x or of
+    the output, as XLA saves none for the reference's).  Eval mode
+    normalises with the running statistics.
 
     Under a mesh (parallel.shard_state sets ``group`` to the data group) the
     train-mode statistics are those of the group's union of rows: each rank's
@@ -110,27 +204,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x):
-        if not self.training and self.compute_dtype is None:
+        if self.training:
+            return _BatchNormTrain.apply(x, self.weight, self.bias, self.running_mean, self.running_var, self.eps,
+                                         self.group, self.compute_dtype or x.dtype)
+        if self.compute_dtype is None:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
-        xf = x.to(torch.float32)
-        if self.training:
-            if self.group is None:
-                mean, sq = xf.mean(dim=(0, 2)), xf.square().mean(dim=(0, 2))
-            else:
-                c = xf.shape[1]
-                sums = sum_over_ranks(torch.cat([xf.sum(dim=(0, 2)), xf.square().sum(dim=(0, 2)),
-                                                 xf.new_full((1,), xf.numel() / c)]), self.group)
-                mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-            var = torch.clamp(sq - mean.square(), min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(torch.float32)
-        y = (xf - mean[:, None]) * mul[:, None] + self.bias.to(torch.float32)[:, None]
-        return y.to(self.compute_dtype or x.dtype)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight.to(torch.float32)
+        return _affine(x.to(torch.float32), self.running_mean, mul, self.bias).to(self.compute_dtype)
 
 
 class ResBlock(nn.Module):

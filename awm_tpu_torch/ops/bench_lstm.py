@@ -11,7 +11,7 @@ curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
                                             [--variants] [--check] [--only NAME] [--library] [--split]
-                                            [--hash [--against FILE]]
+                                            [--hash [--against FILE]] [--gates]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
 (DIR/awm_tpu_torch), so that two commits can be timed in turns in one call
@@ -64,6 +64,9 @@ its outputs (A: y; B: y, c_{t-1}; C: dx, dW_ih, dW_hh, db) from seeded
 inputs, the same in every checkout; --against FILE (another tree's --hash
 lines) adds "same" to each line and a last line {"tree", "against",
 "same", "of", "differ"}, and exits 1 where any output's bits differ.
+--gates builds lstm_wide.cu with -DAWM_WIDE_GATES=1 and holds C's wide fp32
+gate pass to the gates kernel B formed, bit for bit, at GATES_CASES (one
+line each, gates_check); it exits 1 where any differ.
 Without a card it exits 1.
 """
 
@@ -244,6 +247,50 @@ def output_hashes(torch, K, tree: str, card: str, against: str | None) -> int:
     return differ
 
 
+# --gates: (D, H, B, T, rows a row group, CTAs a group (0: the card's), chunk
+# of h (0: the card's)): every rows variant at 512 (whole h), ragged groups,
+# chunked h, a tiled group, an H past a multiple of 16 (its last k-tile
+# zero-padded), H not a multiple of 4 (one value a load), a narrow H.
+GATES_CASES = tuple((512, 512, r, 33, r, 0, 0) for r in (1, 2, 4, 8, 16, 32, 64)) + (
+    (512, 512, 7, 33, 4, 0, 0), (512, 512, 40, 21, 32, 0, 64), (512, 512, 5, 19, 8, 7, 0),
+    (300, 300, 9, 17, 2, 0, 0), (257, 257, 6, 17, 8, 0, 48), (40, 600, 3, 9, 1, 0, 0), (300, 40, 5, 17, 4, 0, 0))
+
+
+def gates_check(torch, K, tree: str, card: str) -> int:
+    """--gates: lstm_wide.cu built with -DAWM_WIDE_GATES=1; at each of
+    GATES_CASES fp32 kernel B keeps the gates it forms, C's fp32 gate pass
+    forms them again from B's y, and one line {"tree", "card", "check",
+    "d", "h", "batch", "steps", "rows", "ctas", "chunk", "equal",
+    "max_abs"} says whether they are the same bits.  Returns the count of
+    cases that differ."""
+    import ctypes
+
+    from awm_tpu_torch.ops import cuda_build
+
+    lib = ctypes.CDLL(cuda_build.build_all(["lstm_wide"], ("-DAWM_WIDE_GATES=1",))["lstm_wide"][0])
+    fn = lib.awm_lstm_wide_gates_check
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int
+    differ = 0
+    for d, h, b, t, rows, ctas, chunk in GATES_CASES:
+        x, w_ih, w_hh, bias, _ = inputs(torch, b, t, torch.float32, seed=d + h + b, width=d, hidden=h)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        y, cprev = torch.empty(b, t, h, **f32), torch.empty(b, t, h, **f32)
+        xp_fwd, xp_c, pre_c = (torch.empty(b, t, 4 * h, **f32) for _ in range(3))
+        wpack, c_state = torch.empty(K.wide_pack_elems(False, False, h), **f32), torch.empty(b, h, **f32)
+        count = torch.empty(-(-b // rows), dtype=torch.int32, device=x.device)
+        err = fn(*(v.data_ptr() for v in (x, w_ih, w_hh, bias, y, cprev, xp_fwd, wpack, c_state, count, xp_c, pre_c)),
+                 b, t, d, h, rows, ctas, chunk, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"awm_lstm_wide_gates_check: {lib.awm_cuda_error_string(err).decode()}")
+        torch.cuda.synchronize()
+        equal = torch.equal(xp_fwd, pre_c)
+        differ += not equal
+        print(json.dumps({"tree": tree, "card": card, "check": "gates", "d": d, "h": h, "batch": b, "steps": t,
+                          "rows": rows, "ctas": ctas, "chunk": chunk, "equal": equal,
+                          "max_abs": float((xp_fwd - pre_c).abs().max())}), flush=True)
+    return differ
+
+
 def split_libraries(K, masks) -> dict:
     """lstm_wide.cu built once for each mask with -DAWM_WIDE_SPLIT=mask (all
     nvcc processes at once), loaded with the port's entry points' types."""
@@ -283,6 +330,8 @@ def main() -> int:
     ap.add_argument("--split", action="store_true", help="time the wide recurrence's step with parts switched off")
     ap.add_argument("--hash", action="store_true", help="print the sha256 of every kernel's outputs at HASH_SHAPES")
     ap.add_argument("--against", default=None, help="with --hash: another tree's --hash lines to hold them to")
+    ap.add_argument("--gates", action="store_true",
+                    help="check that the wide fp32 gate pass reproduces kernel B's gates bit for bit")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     width, sweep = args.width, args.steps or [STEPS.get(args.width, 16000)]
@@ -406,6 +455,8 @@ def main() -> int:
     want = lambda name: args.only in name
     if args.hash:
         return 1 if output_hashes(torch, K, tree, card, args.against) else 0
+    if args.gates:
+        return 1 if gates_check(torch, K, tree, card) else 0
     if args.split:
         if not wide:
             print("bench_lstm: --split times the wide path (a width past 256)", file=sys.stderr)

@@ -1,22 +1,23 @@
 // The runtime-width kernels of kernel C, shared by lstm_bwd.cu (the masked
 // and cluster paths) and lstm_wide.cu (the wide path, max(D, H) > 256):
-// the gate pass (lstm_bwd_gates_{f32,bf16}_kernel, lstm_bwd.cu's "widths
-// above 64" has its design; bf16's for lstm_bwd.cu only, the wide path
-// runs its own), dx, dW and the ordered sum at runtime D and H.
+// the gate passes of a window (gate_pass: fp32 lstm_bwd_gates_f32_kernel,
+// and for the wide C lstm_bwd_gates_f32_split_kernel; bf16
+// lstm_bwd_gates_wide_mma_kernel, which reads the wide path's packed W_hh,
+// also here), dx, dW and the ordered sum at runtime D and H.
 //
 // Each product runs over rows of the flattened (B*T) axis.  WIN = false: all
-// of them, row n is (row n / T, step n % T), the code lstm_bwd.cu's paths
-// had before the wide path.  WIN = true: a window of w.tc steps from step
-// w.t0 of every batch row (the wide path works in windows of time, so that
-// its scratch does not grow with T): local row n = b tc + s is global row
+// of them, row n is (row n / T, step n % T) (the masked path's dW).  WIN =
+// true: a window of w.tc steps from step w.t0 of every batch row (the
+// cluster and wide paths work in windows of time, so that their scratch
+// does not grow with T): local row n = b tc + s is global row
 // b T + t0 + s, the scratch (records, da, xp) is indexed by the local row and
 // x, y, c_{t-1}, dy and dx by the global one; h_{t-1} = y of the global row
 // before, zero at t0 + s = 0.  A window's B tc stays below 2^31, so a local
-// row is an int.  The fp32 gate pass with XP = true stops after x's terms
-// and writes the sums, bias then x's terms in order, to an fp32 (rows, 4H)
-// tile: the wide forward's input projection, which its recurrence continues
-// with h's terms in the gate pass's order (so kernel C recomputes the
-// forward's gates bit for bit; bf16's is lstm_wide.cu's gate pass).
+// row is an int.  The gate passes with XP = true stop after x's terms and
+// write the sums (the bias, then x's terms) to an fp32 (rows, 4H) tile: the
+// wide forward's input projection, which its recurrence continues with h's
+// terms (bf16 in the gate pass's order, fp32 in QSEGS segments), so kernel C
+// recomputes the forward's gates bit for bit.
 
 #pragma once
 
@@ -526,6 +527,25 @@ inline cudaError_t launch_dw_any_mma(const __nv_bfloat16* da, const __nv_bfloat1
   return cudaGetLastError();
 }
 
+// dx and dW of a window's rows (da the window's, local): dx by rows; the dW
+// partials, n_chunks chunks of the window's rows, written in the call's
+// first window and added to in the others, in the order they run.
+template <typename T>
+cudaError_t launch_window_products(const BwdArgs<T>& a, const T* da, const __nv_bfloat16* wih, T* dx, float* part,
+                                   int n_chunks, Win w, bool first, cudaStream_t stream) {
+  const long long n_rows = (long long)a.batch * w.tc, chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+  cudaError_t err = launch_dx_any<T>(da, a.w_ih, wih, dx, n_rows, a.d, a.h, a.steps, w, stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (is_bf16<T>) {
+    return launch_dw_any_mma(da, a.x, a.y, part, n_rows, a.steps, chunk_rows, n_chunks, a.d, a.h, w, !first, stream);
+  } else {
+    const int g = 4 * a.h, kk = a.d + a.h;
+    lstm_bwd_dw_any_kernel<true><<<dim3(n_chunks, (g + FT - 1) / FT, (kk + FT - 1) / FT), 256, 0, stream>>>(
+        da, a.x, a.y, part, n_rows, a.steps, chunk_rows, a.d, a.h, w, !first);
+    return cudaGetLastError();
+  }
+}
+
 // A record holds dy and a pad beside the six derivatives: 32 bytes keep every
 // record and every CTA's slice 16-byte aligned for the TMA and the float4
 // reads, and dy in the ring spares the consumers a global load a step (read
@@ -547,17 +567,18 @@ __device__ __forceinline__ void write_record(float* dst, float ai, float af, flo
 constexpr int GP_ROWS = 128;  // fp32 gate pass: (B*T) rows a block (and its 128 gate columns: 32 units)
 constexpr int GP_K = 16;      // fp32 gate pass: terms staged a step
 
-// fp32: block b = (row tile b / ub, unit block b % ub of 32 units), ub =
-// ceil(h / 32), 128 rows x 128 gate columns (column 4 unit + gate); thread
-// (rows 8 (tid / 16) .., units 2 (tid % 16) and + 1): 8 x 8 sums, each
-// step's 16 terms of x_t | h_{t-1} and of the weights staged in shared
-// memory (the next step's in registers meanwhile), one 16-byte load of
-// each feeding 32 products.  A sum is the bias, then x's terms and h's in
-// order.  The unit blocks of one row tile are neighbours in the grid, so x
-// and y are read from L2 for all but the first.  WIN: the window's rows
-// (records local); XP: the sums after x's terms into out (rows, 4h) instead
-// of records.
-template <bool WIN, bool XP>
+// fp32, over a window's rows (records local, x, y, c_{t-1}, dy global):
+// block b = (row tile b / ub, unit block b % ub of 32 units), ub = ceil(h /
+// 32), 128 rows x 128 gate columns (column 4 unit + gate); thread (rows 8
+// (tid / 16) .., units 2 (tid % 16) and + 1): 8 x 8 sums, each step's 16
+// terms of x_t | h_{t-1} and of the weights staged in shared memory (the
+// next step's in registers meanwhile), one 16-byte load of each feeding 32
+// products.  A sum is the bias, then x's terms and h's in order (the
+// cluster path's records).  The unit blocks of one row tile are neighbours
+// in the grid, so x and y are read from L2 for all but the first.  XP: the
+// sums after x's terms into out (rows, 4h) instead of records (the wide
+// forward's projection, and the first half of the wide C's gate pass).
+template <bool XP>
 __global__ void __launch_bounds__(256)
 lstm_bwd_gates_f32_kernel(const BwdArgs<float> a, float* __restrict__ rec, Win w) {
   // [buf][k][column]: W row gate h + unit, term k; [buf][k][row]: x_t | h_{t-1}; rows padded
@@ -565,16 +586,16 @@ lstm_bwd_gates_f32_kernel(const BwdArgs<float> a, float* __restrict__ rec, Win w
   __shared__ __align__(16) float s_w[2][GP_K][GP_ROWS + 4];
   __shared__ __align__(16) float s_v[2][GP_K][GP_ROWS + 4];
   __shared__ int s_row[GP_ROWS];                          // -1 past the rows, 0 at t = 0, 1 else
-  __shared__ long long s_gn[WIN ? GP_ROWS : 1];           // WIN: a row's global row
+  __shared__ long long s_gn[GP_ROWS];                     // a row's global row
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15, h = a.h, d = a.d, ub = (h + CU - 1) / CU;
   const int u0 = (int)(blockIdx.x % ub) * CU;
   const long long n0 = (long long)(blockIdx.x / ub) * GP_ROWS;
-  const long long n_rows = (long long)a.batch * (WIN ? w.tc : a.steps);
+  const long long n_rows = (long long)a.batch * w.tc;
   if (tid < GP_ROWS) {
-    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<WIN>(n0 + tid, a.steps, w) : -1;
-    if constexpr (WIN) s_gn[tid] = global_row<WIN>(n0 + tid, a.steps, w);
+    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<true>(n0 + tid, a.steps, w) : -1;
+    s_gn[tid] = global_row<true>(n0 + tid, a.steps, w);
   }
-  auto gn_of = [&](int r) { return WIN ? s_gn[WIN ? r : 0] : n0 + r; };  // row r's global row
+  auto gn_of = [&](int r) { return s_gn[r]; };  // row r's global row
   const int kx = (d + GP_K - 1) / GP_K, n_steps = kx + (XP ? 0 : (h + GP_K - 1) / GP_K);  // x's steps, then h's
   // x | h_{t-1} 4 terms a load where every row of both is 16-byte aligned
   const bool vec = d % 4 == 0 && h % 4 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0;
@@ -686,99 +707,383 @@ lstm_bwd_gates_f32_kernel(const BwdArgs<float> a, float* __restrict__ rec, Win w
   }
 }
 
-constexpr int GPM_ROWS = 64;  // bf16 gate pass: (B*T) rows a block (8 mma tiles)
-constexpr int GPM_K = 64;     // bf16 gate pass: terms staged a step (4 k-tiles)
+// ---- The wide path's packed W_hh, and the gate passes of a window ----
+//
+// The wide path (lstm_wide.cu) tiles the hidden units by WU; its packed W_hh
+// is also what the bf16 gate pass reads W_hh's columns from, on the wide path
+// and the cluster path alike.
+constexpr int WU = 16;          // hidden units a CTA of the wide path owns
+constexpr int WROWS = 4 * WU;   // their gate rows
+// Row pitches (elements of the operand type) of the staged operands, 16-byte
+// rows whose fragment or quad reads fall in distinct banks: W_hh's rows (H
+// terms, A / B) and columns (4H terms, C), and a staged chunk of kc terms.
+template <typename T> __host__ __device__ constexpr int wide_pitch(int n) { return round_up(n, 16) + (is_bf16<T> ? 8 : 4); }
+__host__ __device__ constexpr int n_cta(int h) { return (h + WU - 1) / WU; }
+// Elements of the packed W_hh (every CTA's slice, in the operand type).
+template <typename T> __host__ __device__ constexpr long long pack_elems(int bwd, int h) {
+  return (long long)n_cta(h) * (bwd ? WU * wide_pitch<T>(4 * h) : WROWS * wide_pitch<T>(h));
+}
 
-// bf16: block b = (row tile b / ub, unit block b % ub of 32 units), 4 warps of
-// 8 units (tile 0 gates i and f, tile 1 g and o, lstm_common.cuh), the rows
-// the tiles' N: the forward's producer and consumer products, one
-// accumulator from the bias through x's k-tiles and h's (lstm_bwd.cu's
-// cluster path; the wide path's windows run lstm_wide.cu's gate pass, whose
-// sums are these).
-__global__ void __launch_bounds__(128)
-lstm_bwd_gates_bf16_kernel(const BwdArgs<__nv_bfloat16> a, float* __restrict__ rec) {
-  __shared__ __align__(16) __nv_bfloat16 s_v[GPM_ROWS][GPM_K + 8];  // [row][k]: x_t | h_{t-1}
-  __shared__ int s_row[GPM_ROWS];                                    // -1 past the rows, 0 at t = 0, 1 else
-  const int tid = threadIdx.x, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
-  const int ub = (h + CU - 1) / CU, gu = (int)(blockIdx.x % ub) * CU + (tid >> 5) * 8 + g8;
+// W_hh (4h, h) fp32 into each CTA's slice in the operand type (rounded to
+// nearest even), zero past the real widths.  Forward: [cta][row][hp], row =
+// ((u / 8) 2 + m / 2) 16 + (m % 2) 8 + u % 8 for unit u, gate m (a unit
+// group's two mma tiles: i | f, g | o); backward: [cta][u][jp], the columns
+// of the CTA's units.  Beside it, where wih_out is given, W_ih (4h, d) fp32
+// rounded to bf16 as it is (bf16 C's dx).
+template <typename T>
+__global__ void __launch_bounds__(256) lstm_wide_pack_kernel(const float* __restrict__ w_hh, T* __restrict__ out, int h,
+                                                             int bwd, const float* __restrict__ w_ih,
+                                                             __nv_bfloat16* __restrict__ wih_out, int d) {
+  const int pitch = bwd ? wide_pitch<T>(4 * h) : wide_pitch<T>(h), per = bwd ? WU : WROWS;
+  const long long total = pack_elems<T>(bwd, h), n_ih = wih_out ? 4ll * h * d : 0;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total + n_ih; i += (long long)gridDim.x * 256) {
+    if (i >= total) {
+      wih_out[i - total] = __float2bfloat16(w_ih[i - total]);
+      continue;
+    }
+    const int k = (int)(i % pitch);
+    const long long rowi = i / pitch;
+    const int cta = (int)(rowi / per), rr = (int)(rowi % per);
+    float v = 0.0f;
+    if (bwd) {
+      const int gu = cta * WU + rr;
+      if (gu < h && k < 4 * h) v = w_hh[(size_t)k * h + gu];
+    } else {
+      const int u = (rr / 32) * 8 + rr % 8, m = ((rr / 16) % 2) * 2 + (rr % 16) / 8, gu = cta * WU + u;
+      if (gu < h && k < h) v = w_hh[((size_t)m * h + gu) * h + k];
+    }
+    store_f(out + i, v);
+  }
+}
+
+// W_hh packed (and, where wih_out is given, W_ih rounded to bf16) in one launch.
+cudaError_t pack(const float* w_hh, void* out, int h, int bwd, bool bf16, const float* w_ih, void* wih_out, int d,
+                 cudaStream_t stream) {
+  const long long n = (bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h)) +
+                      (wih_out ? 4ll * h * d : 0);
+  const unsigned blocks = (unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  if (bf16)
+    lstm_wide_pack_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(w_hh, (__nv_bfloat16*)out, h, bwd, w_ih,
+                                                                    (__nv_bfloat16*)wih_out, d);
+  else
+    lstm_wide_pack_kernel<float><<<blocks, 256, 0, stream>>>(w_hh, (float*)out, h, bwd, w_ih, (__nv_bfloat16*)wih_out, d);
+  return cudaGetLastError();
+}
+
+// The bf16 gate pass of a window: C's records, and with XP = true A and B's
+// input projection (the sums after x's terms into an fp32 (rows, 4H) tile,
+// which their recurrence continues with h's).  A gate's sum is the bias, then
+// x's k-tiles, then h's, in one m16n8k16 accumulator: the sums of the wide
+// recurrence and of the cluster forward (lstm_fwd_cluster.cu's producer and
+// consumer products), so C recomputes the forward's gates bit for bit on
+// both paths, and one kernel gives the wide forward its projection.  A block owns 128 rows x 32 units (8 warps: 4 groups of 8 units x 2
+// halves of 64 rows, so each weight fragment feeds 16 mma); x_t | h_{t-1}
+// of its rows and the gate rows of W staged 32 terms a stage through
+// stage_ring: W_ih's rows from its bf16 copy (wih, [j][k], A fragments by
+// ldmatrix), W_hh's from the packed backward slices (wpack, [k][j], A
+// fragments transposed by ldmatrix; unused with XP).  vec: D, H multiples of
+// 8 and x, y, wih, wpack 16-byte aligned, else one value a load.
+constexpr int GW_ROWS = 128;        // rows of the (B*T) axis a block
+constexpr int GW_P = MK + 8;        // row pitch of a staged [rows][MK] tile (x | h, W_ih)
+constexpr int GW_JP = CROWS + 8;    // row pitch of a staged [MK][128 gate rows] tile (W_hh)
+constexpr int GW_STAGE = GW_ROWS * GW_P * 2 * (int)sizeof(__nv_bfloat16);  // x | h, then W (W_hh's [MK][GW_JP] fits)
+constexpr int GW_SMEM = MS * GW_STAGE;
+
+template <bool XP>
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_gates_wide_mma_kernel(const BwdArgs<__nv_bfloat16> a, const __nv_bfloat16* __restrict__ wih,
+                               const __nv_bfloat16* __restrict__ wpack, float* __restrict__ rec, Win w, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_row[GW_ROWS];         // -1 past the rows, 0 at t = 0, 1 else
+  __shared__ long long s_gn[GW_ROWS];    // a row's global row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
+  const int ub = (h + CU - 1) / CU, u0 = (int)(blockIdx.x % ub) * CU, ug = warp & 3, rh = warp >> 2;
+  const int gu = u0 + ug * 8 + g8, jp = wide_pitch<__nv_bfloat16>(4 * h);
   const bool ok = gu < h;
-  const long long n0 = (long long)(blockIdx.x / ub) * GPM_ROWS;
-  const long long n_rows = (long long)a.batch * a.steps;
-  if (tid < GPM_ROWS) s_row[tid] = n0 + tid < n_rows ? (int)has_prev<false>(n0 + tid, a.steps, Win{}) : -1;
-  // x | h_{t-1} 8 values a load where every row of both is 16-byte aligned
-  const bool vec = d % 8 == 0 && h % 8 == 0 && (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.y % 16 == 0;
-  float acc[GPM_ROWS / 8][2][4];
+  const long long n0 = (long long)(blockIdx.x / ub) * GW_ROWS, n_rows = (long long)a.batch * w.tc;
+  if (tid < GW_ROWS) {
+    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<true>(n0 + tid, a.steps, w) : -1;
+    s_gn[tid] = global_row<true>(n0 + tid, a.steps, w);
+  }
+  __syncthreads();
+  const int ns_x = (d + MK - 1) / MK, ns = ns_x + (XP ? 0 : (h + MK - 1) / MK);  // x's stages, then h's
+  auto buf_v = [&](int buf) { return reinterpret_cast<__nv_bfloat16*>(smem + (size_t)buf * GW_STAGE); };
+  auto buf_w = [&](int buf) { return buf_v(buf) + GW_ROWS * GW_P; };
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  auto stage = [&](long long st, int buf) {
+    const bool xs = st < ns_x;
+    const int k0 = (int)(xs ? st : st - ns_x) * MK, len = xs ? d : h;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = tid + 256 * e;
+      {  // x_t | h_{t-1}: 128 rows x 4 pieces
+        const int r = p >> 2, k = k0 + (p & 3) * 8, row = s_row[r];
+        const long long gn = s_gn[r];
+        const __nv_bfloat16* src = xs ? a.x + gn * d + k : a.y + (gn - 1) * h + k;
+        const bool live = row >= 0 && (xs || row);
+        put8(buf_v(buf) + r * GW_P + (p & 3) * 8, src, live && k < len, vec,
+             [&](int i) { return live && k + i < len ? src[i] : zero; });
+      }
+      if (xs) {  // W_ih's gate rows [m 32 + unit][k]: 128 rows x 4 pieces
+        const int jj = p >> 2, k = k0 + (p & 3) * 8, u = u0 + (jj & 31);
+        const __nv_bfloat16* src = wih + ((size_t)(jj >> 5) * h + u) * d + k;
+        put8(buf_w(buf) + jj * GW_P + (p & 3) * 8, src, u < h && k < d, vec,
+             [&](int i) { return u < h && k + i < d ? src[i] : zero; });
+      } else {  // W_hh's [k][m 32 + unit] from the packed columns: 32 terms x 16 pieces
+        const int kr = p >> 4, q = p & 15, k = k0 + kr, u = u0 + (q & 3) * 8;
+        const __nv_bfloat16* src = wpack + (size_t)k * jp + (q >> 2) * h + u;
+        put8(buf_w(buf) + kr * GW_JP + (q >> 2) * 32 + (q & 3) * 8, src, k < h && u < h, vec,
+             [&](int i) { return k < h && u + i < h ? src[i] : zero; });
+      }
+    }
+  };
+  float acc[8][2][4];
   {
     float b4[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) b4[m] = ok ? a.bias[m * h + gu] : 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < GPM_ROWS / 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][0][e] = b4[e / 2], acc[nt][1][e] = b4[2 + e / 2];
   }
-  for (int sec = 0; sec < 2; ++sec) {
-    const int len = sec == 0 ? d : h;
-    const float* wm = sec == 0 ? a.w_ih : a.w_hh;
-    for (int k0 = 0; k0 < len; k0 += GPM_K) {
-      __syncthreads();
-      if (vec) {
-        for (int i = tid; i < GPM_ROWS * GPM_K / 8; i += 128) {
-          const int k = 8 * (i % (GPM_K / 8)), r = i / (GPM_K / 8), row = s_row[r];
-          const long long n = n0 + r;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (row >= 0 && k0 + k < len) {
-            if (sec == 0) v = *reinterpret_cast<const uint4*>(a.x + n * d + k0 + k);
-            else if (row) v = *reinterpret_cast<const uint4*>(a.y + (n - 1) * h + k0 + k);
-          }
-          *reinterpret_cast<uint4*>(&s_v[r][k]) = v;
-        }
-      } else {
-        for (int i = tid; i < GPM_ROWS * GPM_K; i += 128) {
-          const int k = i % GPM_K, r = i / GPM_K, row = s_row[r];
-          const long long n = n0 + r;
-          __nv_bfloat16 v = __float2bfloat16(0.0f);
-          if (row >= 0 && k0 + k < len) {
-            if (sec == 0) v = a.x[n * d + k0 + k];
-            else if (row) v = a.y[(n - 1) * h + k0 + k];
-          }
-          s_v[r][k] = v;
-        }
+  const int blk = lane >> 3, blk_row = lane & 7;
+  long long st_now = 0;  // the stage mul multiplies (stage_ring calls mul once a stage, in order)
+  auto mul = [&](int buf) {
+    const bool xs = st_now < ns_x;
+    const int k0 = (int)(xs ? st_now : st_now - ns_x) * MK, len = xs ? d : h;
+    ++st_now;
+    const __nv_bfloat16* v = buf_v(buf);
+    const __nv_bfloat16* wt = buf_w(buf);
+#pragma unroll
+    for (int ks = 0; ks < MK / 16; ++ks) {
+      if (k0 + ks * 16 >= len) break;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int tile = 0; tile < 2; ++tile) {
+        if (xs)  // rows gate 2 tile (lanes 0-7, 16-23) and 2 tile + 1 (8-15, 24-31) of the group's units
+          ldmatrix_x4(af[tile], wt + ((2 * tile + (blk & 1)) * 32 + ug * 8 + blk_row) * GW_P + ks * 16 + (blk >> 1) * 8);
+        else
+          ldmatrix_x4_trans(af[tile], wt + (ks * 16 + (blk >> 1) * 8 + blk_row) * GW_JP + (2 * tile + (blk & 1)) * 32 +
+                                          ug * 8);
       }
-      __syncthreads();
 #pragma unroll
-      for (int kt = 0; kt < GPM_K / 16; ++kt) {
-        const int k = k0 + kt * 16 + 2 * t4;
-        if (k0 + kt * 16 >= len) break;
-        uint32_t af[2][4];
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];  // n-tiles 2 np and 2 np + 1: B[k][n] = v[n][k]
+        ldmatrix_x4(b, v + (rh * 64 + np * 16 + (blk >> 1) * 8 + blk_row) * GW_P + ks * 16 + (blk & 1) * 8);
 #pragma unroll
-        for (int tile = 0; tile < 2; ++tile) {
-          const size_t lo = (size_t)(2 * tile * h + gu), hi = lo + h;
-          af[tile][0] = load_w2m(wm, ok, lo, k, len);
-          af[tile][1] = load_w2m(wm, ok, hi, k, len);
-          af[tile][2] = load_w2m(wm, ok, lo, k + 8, len);
-          af[tile][3] = load_w2m(wm, ok, hi, k + 8, len);
-        }
-#pragma unroll
-        for (int nt = 0; nt < GPM_ROWS / 8; ++nt) {
-          const __nv_bfloat16* v = &s_v[nt * 8 + g8][kt * 16 + 2 * t4];
-          const uint32_t b0 = ld32(v), b1 = ld32(v + 8);
-          mma_bf16(acc[nt][0], af[0], b0, b1);
-          mma_bf16(acc[nt][1], af[1], b0, b1);
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[2 * np + i][0], af[0], b[2 * i], b[2 * i + 1]);
+          mma_bf16(acc[2 * np + i][1], af[1], b[2 * i], b[2 * i + 1]);
         }
       }
     }
-  }
+  };
+  stage_ring(ns, stage, mul);
   if (!ok) return;
 #pragma unroll
-  for (int nt = 0; nt < GPM_ROWS / 8; ++nt)
+  for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const long long n = n0 + nt * 8 + 2 * t4 + e;
-      if (n < n_rows)
+      const int r = rh * 64 + nt * 8 + 2 * t4 + e;
+      const long long n = n0 + r;
+      if (n >= n_rows) continue;
+      if constexpr (XP) {
+        float* o = rec + (size_t)n * 4 * h + gu;
+        o[0] = acc[nt][0][e], o[h] = acc[nt][0][2 + e], o[2 * h] = acc[nt][1][e], o[3 * h] = acc[nt][1][2 + e];
+      } else {
+        const long long gn = s_gn[r];
         write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
-                     acc[nt][1][2 + e], a.cprev[n * h + gu], __bfloat162float(a.dy[n * h + gu]));
+                     acc[nt][1][2 + e], a.cprev[gn * h + gu], __bfloat162float(a.dy[gn * h + gu]));
+      }
     }
+}
+
+// The wide recurrence's fp32 order of a gate's h product (lstm_wide.cu's
+// fp32 A and B, and the wide C's gate pass below): h's round_up(H, 16) terms
+// (zeros past H) as quads, quad q to segment q % QSEGS; each segment one
+// running sum from 0 over its quads in order (dot_quad); the four sums meet
+// as (s0 + s2) + (s1 + s3) (quad_sum); the gate is xp + that, xp the sum of
+// the bias and x's terms in order (the XP gate pass).  Four lanes of a warp
+// carry the four segments of the same sums, whatever the chunk of h staged.
+constexpr int QSEGS = 4;
+
+// Lanes 4 g .. 4 g + 3 (segment lane % 4) each hold their parts of N sums in
+// v; leaves the whole sums in the fixed order (p0 + p2) + (p1 + p3): for N >=
+// 4 those of sums s N / 4 .. s N / 4 + N / 4 - 1 in v[0 ..] of lane s (a
+// reduce-scatter: a lane sends the half its partner keeps), for N = 2 sum s /
+// 2 on lane s, for N = 1 the sum on every lane.
+template <int N>
+__device__ __forceinline__ void quad_sum(float (&v)[N], int lane) {
+  if constexpr (N >= 2) {
+    const bool hi = lane & 2;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = hi ? v[i] : v[i + N / 2], keep = hi ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+  }
+  if constexpr (N >= 4) {
+    const bool lo = lane & 1;
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float send = lo ? v[i] : v[i + N / 4], keep = lo ? v[i + N / 4] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  }
+}
+
+// 4 fp32 into shared memory: 16 bytes by cp.async where vec and the source
+// lies within the operand (ok), zeros where it does not; one at a time from
+// get(i) where not vec.
+template <typename Get>
+__device__ __forceinline__ void put4(float* dst, const float* src, bool ok, bool vec, Get get) {
+  if (vec) {
+    if (ok) cp_async16(dst, src);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[i] = get(i);
+  }
+}
+
+// The wide C's fp32 gate pass, its h half: gate = xp + h's product in the
+// wide recurrence's order, xp (rows, 4h) the XP pass's sums (the window's da
+// scratch).  A block owns 64 rows x 16 units (64 gate columns, slot c = gate
+// c / 16 of unit u0 + c % 16); warp w rows 8 w .., lane group g = lane / 4
+// the slots g + 8 j, each lane its segment of an 8 x 8 tile, so one 16-byte
+// load of W_hh (a row per slot) or h_{t-1} (the warp's groups read the same
+// one) feeds 8 x 4 products.  h and W_hh staged 32 terms a stage through
+// stage_ring (GS_P: two neighbouring rows' 64-byte quad reads in distinct
+// banks); two blocks an SM (96 KB of shared memory and at most 128
+// registers each: W_hh's quads are loaded one slot at a time).  Then the sums
+// into shared memory and the records out; RAW (a check build only): the
+// gates into out (rows, 4h).  vec: H a multiple of 4 and y, W_hh 16-byte
+// aligned, else one value a load.
+constexpr int GS_T = 64;            // rows, and gate columns, of a block
+constexpr int GS_K = 32;            // terms staged a stage
+constexpr int GS_P = GS_K + 16;     // row pitch (floats) of a staged tile
+constexpr int GS_SMEM = (int)sizeof(float) * MS * 2 * GS_T * GS_P;
+
+template <bool RAW>
+__global__ void __launch_bounds__(256, 2)
+lstm_bwd_gates_f32_split_kernel(const BwdArgs<float> a, const float* __restrict__ xp, float* __restrict__ out, Win w,
+                                int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_row[GS_T];        // -1 past the rows, 0 at t = 0, 1 else
+  __shared__ long long s_gn[GS_T];   // a row's global row
+  float* s_v = reinterpret_cast<float*>(smem);  // [MS][GS_T][GS_P]: h_{t-1} of the block's rows
+  float* s_w = s_v + MS * GS_T * GS_P;          // [MS][GS_T][GS_P]: W_hh's row of each slot
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, grp = lane >> 2, seg = lane & 3, h = a.h;
+  const int ub = n_cta(h), u0 = (int)(blockIdx.x % ub) * WU;
+  const long long n0 = (long long)(blockIdx.x / ub) * GS_T, n_rows = (long long)a.batch * w.tc;
+  if (tid < GS_T) {
+    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<true>(n0 + tid, a.steps, w) : -1;
+    s_gn[tid] = global_row<true>(n0 + tid, a.steps, w);
+  }
+  __syncthreads();
+  const int kq = round_up(h, 16);  // h's terms with the zeros of its last k-tile
+  auto stage = [&](long long st, int buf) {
+    const int k0 = (int)st * GS_K;
+#pragma unroll
+    for (int e = 0; e < GS_T * GS_K / 4 / 256; ++e) {  // 16-byte pieces of each operand, GS_K / 4 a row
+      const int p = tid + 256 * e, r = p / (GS_K / 4), c = (p % (GS_K / 4)) * 4, k = k0 + c;
+      const bool live = s_row[r] > 0;  // a row with an h_{t-1}
+      const float* hs = a.y + (s_gn[r] - 1) * h + k;
+      put4(s_v + ((size_t)buf * GS_T + r) * GS_P + c, hs, live && k < h, vec,
+           [&](int i) { return live && k + i < h ? hs[i] : 0.0f; });
+      const int u = u0 + (r & 15);
+      const float* ws = a.w_hh + ((size_t)(r >> 4) * h + u) * h + k;
+      put4(s_w + ((size_t)buf * GS_T + r) * GS_P + c, ws, u < h && k < h, vec,
+           [&](int i) { return u < h && k + i < h ? ws[i] : 0.0f; });
+    }
+  };
+  float acc[GS_T] = {};  // [8 i + j]: row 8 warp + i, slot grp + 8 j, this lane's segment
+  long long st_now = 0;
+  auto mul = [&](int buf) {
+    const int k0 = (int)(st_now++) * GS_K;
+    const float* vb = s_v + ((size_t)buf * GS_T + 8 * warp) * GS_P;
+    const float* wb = s_w + ((size_t)buf * GS_T + grp) * GS_P;
+#pragma unroll
+    for (int qq = 0; qq < GS_K / 16; ++qq) {
+      if (k0 + 16 * qq >= kq) break;  // the quads past round_up(h, 16): none in the recurrence
+      const int q = seg + 4 * qq;
+      float4 v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = *reinterpret_cast<const float4*>(vb + (size_t)i * GS_P + 4 * q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 wq = *reinterpret_cast<const float4*>(wb + (size_t)8 * j * GS_P + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot_quad(acc[8 * i + j], wq.x, wq.y, wq.z, wq.w, v[i]);
+      }
+    }
+  };
+  stage_ring((kq + GS_K - 1) / GS_K, stage, mul);
+  quad_sum(acc, lane);  // lane s: rows 8 warp + 2 s, + 1, slots grp + 8 j
+  __syncthreads();      // every warp past the ring: its first buffer takes the gates
+  float* s_pre = s_v;   // [GS_T][GS_T + 1]: row, slot
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int r = 8 * warp + 2 * seg + e / 8, c = grp + 8 * (e % 8), u = u0 + (c & 15);
+    const long long n = n0 + r;
+    if (n >= n_rows || u >= h) continue;
+    const float pre = xp[(size_t)n * 4 * h + (size_t)(c >> 4) * h + u] + acc[e];
+    if constexpr (RAW) out[(size_t)n * 4 * h + (size_t)(c >> 4) * h + u] = pre;
+    else s_pre[r * (GS_T + 1) + c] = pre;
+  }
+  if constexpr (!RAW) {
+    __syncthreads();
+    for (int i = tid; i < GS_T * WU; i += 256) {
+      const int r = i / WU, uu = i % WU, u = u0 + uu;
+      const long long n = n0 + r;
+      if (n >= n_rows || u >= h) continue;
+      const float* p = s_pre + r * (GS_T + 1) + uu;
+      const long long gn = s_gn[r];
+      write_record(out + ((size_t)n * h + u) * CREC, p[0], p[16], p[32], p[48], a.cprev[gn * h + u], a.dy[gn * h + u]);
+    }
+  }
+}
+
+// The gate pass over one window: with XP the forward's projection (the sums
+// after x's terms) into out (rows, 4h), else C's records into out.  bf16 on
+// the tensor cores, W_ih from wih and W_hh from wpack (the packed backward
+// slices).  fp32 on the CUDA cores: SPLIT = false (the cluster path's C)
+// sums h's terms in order after x's; SPLIT = true (the wide path's C, whose
+// forward sums h in segments) first the x sums into xp (rows, 4h: the
+// window's da scratch, which the recurrence then overwrites), then h's in
+// the wide recurrence's order.
+template <typename T, bool XP, bool SPLIT = false>
+cudaError_t gate_pass(const BwdArgs<T>& a, const void* wih, const void* wpack, float* out, float* xp, Win w,
+                      cudaStream_t stream) {
+  const long long n_rows = (long long)a.batch * w.tc, unit_blocks = (a.h + CU - 1) / CU;
+  if constexpr (is_bf16<T>) {
+    static SmemOnce once;
+    const cudaError_t err = once.set(lstm_bwd_gates_wide_mma_kernel<XP>, GW_SMEM);
+    if (err != cudaSuccess) return err;
+    const int vec = a.d % 8 == 0 && a.h % 8 == 0 && aligned16(a.x) && aligned16(a.y) && aligned16(wih) &&
+                    aligned16(wpack);
+    lstm_bwd_gates_wide_mma_kernel<XP><<<(unsigned)(unit_blocks * ((n_rows + GW_ROWS - 1) / GW_ROWS)), 256, GW_SMEM,
+                                         stream>>>(a, (const T*)wih, (const T*)wpack, out, w, vec);
+  } else if constexpr (SPLIT && !XP) {
+    lstm_bwd_gates_f32_kernel<true>
+        <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, xp, w);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    static SmemOnce once;
+    if ((err = once.set(lstm_bwd_gates_f32_split_kernel<false>, GS_SMEM)) != cudaSuccess) return err;
+    const int vec = a.h % 4 == 0 && aligned16(a.y) && aligned16(a.w_hh);
+    lstm_bwd_gates_f32_split_kernel<false><<<(unsigned)(n_cta(a.h) * ((n_rows + GS_T - 1) / GS_T)), 256, GS_SMEM,
+                                             stream>>>(a, xp, out, w, vec);
+  } else {
+    lstm_bwd_gates_f32_kernel<XP>
+        <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, out, w);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -922,12 +922,14 @@ cudaError_t launch_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream)
 //
 // The forward's cluster (lstm_fwd_cluster.cu) transposed, with
 // everything that does not depend on the carried (dh, dc) taken off the
-// recurrence:
-// - the gate pass (lstm_bwd_gates_{f32,bf16}_kernel), over the whole card
-//   before the recurrence: the gates of every (row, step) from x_t and
-//   h_{t-1} = y_{t-1} (a product of (B T) x (D + H) by (D + H) x 4H), their
+// recurrence, in windows of time (the plan's: a window's records and da
+// stay within a scratch budget whatever B T is; lstm_wide.cu's windows),
+// the last window first, (dh, dc) and each row's db carried between them:
+// - the gate pass (lstm_any.cuh's gate_pass), over the whole card before
+//   the window's recurrence: the gates of every (row, step) from x_t and
+//   h_{t-1} = y_{t-1} (a product of (B tc) x (D + H) by (D + H) x 4H), their
 //   activations and, with c_{t-1} and dy, each step's local derivatives: a
-//   record of CREC floats a (row, step, unit) in a (B, T, H, CREC) fp32
+//   record of CREC floats a (row, step, unit) in a (B, tc, H, CREC) fp32
 //   scratch (factor_i, factor_f, factor_g, factor_o: what turns the carried
 //   gradient into da; o (1 - tanh^2 c_t); f; dy; 0).  bf16: the forward's
 //   products on the tensor cores in the forward's order (the bias, x's
@@ -949,9 +951,12 @@ cudaError_t launch_rec(BwdArgs<T> a, T* da, float* db_part, cudaStream_t stream)
 //   terms split over its 8 lanes (the same weights for every row) and summed
 //   by three butterfly exchanges, the same sum in all 8 lanes.  da is
 //   double-buffered, one wait a step;
-// - da goes to the (B, T, 4H) scratch and each cluster's db to its row of
-//   the partials; the dx / dW / sum kernels (lstm_any.cuh) finish the call.  No
-//   atomics: two calls give the same bits.
+// - da goes to the window's (B, tc, 4H) scratch; lstm_any.cuh's dx and dW
+//   take the window (the dW partials added across windows in the order they
+//   run), and after the last window each cluster's db goes to its row of
+//   the partials and the ordered sum finishes the call.  No atomics: two
+//   calls give the same bits, and a call of one window those of one pass
+//   over all T.
 // (CU, CROWS, CLANES, ...: lstm_common.cuh)
 constexpr int CPAIRS = 32;            // (step, row) pairs of a chunk of the ring: pair n = s R + r
 constexpr int CBUF = 2;               // buffers of the ring
@@ -972,10 +977,22 @@ constexpr size_t bwd_cluster_smem_bytes() {
          sizeof(T) * (size_t)(CCONS / 32) * R * 16 + (is_bf16<T> ? sizeof(float) * 2 * 8 * CU * 4 : 0);
 }
 
+// A window of the cluster recurrence: steps t0 .. t0 + tc - 1, and the state
+// carried to the window before it, (B, h) fp32 dh and dc and each (row,
+// gate column)'s db so far (B, 4h).
+struct ClusterWin {
+  int t0, tc;
+  float* dh_state;
+  float* dc_state;
+  float* db_rows;
+};
+
+// bf16 at HW = 128 and up to four rows: two CTAs an SM (the plan's slots
+// count on them), so at most 113 registers a thread.
 template <typename T, int R, int HW>
-__global__ void __launch_bounds__(CTHREADS, 1)
+__global__ void __launch_bounds__(CTHREADS, (is_bf16<T> && HW == 128 && R <= 4) ? 2 : 1)
 lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __restrict__ da_out,
-                        float* __restrict__ db_part) {
+                        float* __restrict__ db_part, const ClusterWin cw) {
   static_assert(R == 1 || R == 2 || R == 4 || R == 8, "rows a cluster: 1, 2, 4 or 8");
   constexpr int S = CSTEPS<R>, NQ = HW / 8, NBR = 16 * (int)sizeof(T) / 16;  // NBR: bursts a row
   constexpr int DAR = cda_rows<T, R>, DAP = cda_pitch<T, HW>;
@@ -986,12 +1003,13 @@ lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __
   T* s_da = reinterpret_cast<T*>(s_ring + CBUF * CPAIRS * CU * CREC);  // [2][DAR][DAP]: unit u, gate m at 4 u + m
   T* s_stage = s_da + 2 * DAR * DAP;                   // [CCONS / 32][R][16]: a warp's 4 units x 4 gates a row
   float* s_part = reinterpret_cast<float*>(s_stage + (CCONS / 32) * R * 16);  // bf16: [2][8][CU][4] dh partials
-  const int batch = a.batch, steps = a.steps, h = a.h;
+  const int batch = a.batch, steps = cw.tc, h = a.h;  // steps: the window's; rec and da_out are the window's
+  const bool first = cw.t0 + cw.tc == a.steps;        // the call's last steps: (dh, dc, db) start at zero
   const uint32_t rank = cluster_rank(), n_cta = (h + CU - 1) / CU;
   const int u0 = rank * CU, cluster = blockIdx.x / n_cta, row0 = cluster * R;
   const int nu = h - u0 < CU ? h - u0 : CU, nr = batch - row0 < R ? batch - row0 : R;  // real units, rows
   const int n_chunks = (steps + S - 1) / S;
-  // Step i of the recurrence is t = steps - 1 - i; chunk c holds i = c S .. c S + S - 1.
+  // Step i of the recurrence is local step t = steps - 1 - i; chunk c holds i = c S .. c S + S - 1.
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2 + CBUF; ++i) mbar_init(mbar + i, 1);  // one arrival a phase and its bytes
@@ -1058,7 +1076,13 @@ lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __
     }
     float dh[R], dc[R], db_acc[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) { dh[r] = 0.0f; dc[r] = 0.0f; db_acc[r] = 0.0f; }
+    for (int r = 0; r < R; ++r) {
+      const bool ok = !first && r < nr && gu < h;
+      const size_t at = (size_t)(row0 + r) * h + gu;
+      dh[r] = ok ? cw.dh_state[at] : 0.0f;
+      dc[r] = ok ? cw.dc_state[at] : 0.0f;
+      db_acc[r] = ok ? cw.db_rows[(size_t)(row0 + r) * 4 * h + gate * h + gu] : 0.0f;
+    }
     T* st = s_stage + warp * R * 16;
     const uint32_t step_bytes = n_cta * CROWS * R * sizeof(T);
     for (int c = 0; c < n_chunks; ++c) {
@@ -1133,7 +1157,19 @@ lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __
       }
       if (c + CBUF < n_chunks) bar_arrive(BAR_EMPTY + buf, CTHREADS);
     }
-    if (l < 4 && gu < h) {
+    if (cw.t0 > 0) {  // the carry into the window before
+      // the state's addresses anew (the loads' kept live over the steps would cost registers)
+      int r0 = row0, u = gu;
+      asm volatile("" : "+r"(r0), "+r"(u));
+      if (u < h)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r < nr) {
+            const size_t at = (size_t)(r0 + r) * h + u;
+            if (l == 0) cw.dh_state[at] = dh[r], cw.dc_state[at] = dc[r];
+            if (l < 4) cw.db_rows[(size_t)(r0 + r) * 4 * h + gate * h + u] = db_acc[r];
+          }
+    } else if (l < 4 && gu < h) {
       float total = 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) total += db_acc[r];
@@ -1144,14 +1180,15 @@ lstm_bwd_cluster_kernel(const BwdArgs<T> a, const float* __restrict__ rec, T* __
 }
 
 template <typename T, int R, int HW>
-cudaError_t launch_cluster_rec(BwdArgs<T> a, const float* rec, T* da, float* db_part, cudaStream_t stream) {
+cudaError_t launch_cluster_rec(BwdArgs<T> a, const float* rec, T* da, float* db_part, ClusterWin cw,
+                               cudaStream_t stream) {
   static SmemOnce once;
   constexpr size_t smem = bwd_cluster_smem_bytes<T, R, HW>();
   cudaError_t err = once.set(lstm_bwd_cluster_kernel<T, R, HW>, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(attr, (a.batch + R - 1) / R, a.h, CTHREADS, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<T, R, HW>, a, rec, da, db_part);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<T, R, HW>, a, rec, da, db_part, cw);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -1290,39 +1327,47 @@ cudaError_t launch_any_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh,
 }
 
 template <typename T, int HW>
-cudaError_t launch_cluster_rec_hw(BwdArgs<T> a, const float* rec, T* da, float* db_part, int rows,
+cudaError_t launch_cluster_rec_hw(BwdArgs<T> a, const float* rec, T* da, float* db_part, int rows, ClusterWin cw,
                                   cudaStream_t stream) {
   switch (rows) {
-    case 1: return launch_cluster_rec<T, 1, HW>(a, rec, da, db_part, stream);
-    case 2: return launch_cluster_rec<T, 2, HW>(a, rec, da, db_part, stream);
-    case 4: return launch_cluster_rec<T, 4, HW>(a, rec, da, db_part, stream);
-    case 8: return launch_cluster_rec<T, 8, HW>(a, rec, da, db_part, stream);
+    case 1: return launch_cluster_rec<T, 1, HW>(a, rec, da, db_part, cw, stream);
+    case 2: return launch_cluster_rec<T, 2, HW>(a, rec, da, db_part, cw, stream);
+    case 4: return launch_cluster_rec<T, 4, HW>(a, rec, da, db_part, cw, stream);
+    case 8: return launch_cluster_rec<T, 8, HW>(a, rec, da, db_part, cw, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The cluster path: the gate pass into rec, the recurrence, then dx / dW / sum.
+// The cluster path, window by window from the last: the gate pass into rec,
+// the recurrence, dx and dW; then the ordered sum.  bf16 packs W_hh's
+// columns (the gate pass's) and rounds W_ih (dx's) first.
 template <typename T>
-int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* rec,
-                   float* part, float* db_part, int rows, int n_chunks, void* stream_ptr) {
+int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,
+                   float* db_part, void* wpack, void* wih, float* dh_state, float* dc_state, float* db_rows, int rows,
+                   int n_chunks, int window, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (a.d < 1 || a.h < 1 || a.d > CLUSTER_MAX_WIDTH || a.h > CLUSTER_MAX_WIDTH || n_chunks < 1 || rec == nullptr)
+  if (a.d < 1 || a.h < 1 || a.d > CLUSTER_MAX_WIDTH || a.h > CLUSTER_MAX_WIDTH || n_chunks < 1 || window < 1 ||
+      (long long)a.batch * window >= (1ll << 31) || rec == nullptr || (is_bf16<T> && (wpack == nullptr || wih == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const long long n_rows = (long long)a.batch * a.steps;
-  const long long unit_blocks = (a.h + CU - 1) / CU;
+  cudaError_t err = cudaSuccess;
   if constexpr (is_bf16<T>)
-    lstm_bwd_gates_bf16_kernel
-        <<<(unsigned)(unit_blocks * ((n_rows + GPM_ROWS - 1) / GPM_ROWS)), 128, 0, stream>>>(a, rec);
-  else
-    lstm_bwd_gates_f32_kernel<false, false>
-        <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, rec, Win{});
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = a.h <= 128 ? launch_cluster_rec_hw<T, 128>(a, rec, (T*)da, db_part, rows, stream)
-                   : launch_cluster_rec_hw<T, 256>(a, rec, (T*)da, db_part, rows, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
-                                     (a.batch + rows - 1) / rows, stream);
+    if ((err = pack(a.w_hh, wpack, a.h, 1, true, a.w_ih, wih, a.d, stream)) != cudaSuccess) return (int)err;
+  const int n_win = (a.steps + window - 1) / window;
+  for (int wi = n_win - 1; wi >= 0; --wi) {
+    const int t0 = wi * window, tc = a.steps - t0 < window ? a.steps - t0 : window;
+    const Win w{t0, tc};
+    if ((err = gate_pass<T, false>(a, wih, wpack, rec, nullptr, w, stream)) != cudaSuccess) return (int)err;
+    const ClusterWin cw{t0, tc, dh_state, dc_state, db_rows};
+    err = a.h <= 128 ? launch_cluster_rec_hw<T, 128>(a, rec, (T*)da, db_part, rows, cw, stream)
+                     : launch_cluster_rec_hw<T, 256>(a, rec, (T*)da, db_part, rows, cw, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_window_products<T>(a, (const T*)da, (const __nv_bfloat16*)wih, (T*)dx, part, n_chunks, w,
+                                    wi == n_win - 1, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)4 * a.h * (a.d + a.h) + 255) / 256), 256, 0, stream>>>(
+      part, n_chunks, db_part, (a.batch + rows - 1) / rows, dw_ih, dw_hh, db, a.d, a.h);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
@@ -1384,13 +1429,13 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
 extern "C" {
 
 // Capacity 64 (no suffix), 32 (_w32) and 16 (_w16), for any 1 <= D, H <= the
-// capacity; and the cluster path (_cluster), for any 1 <= D, H <= 256.  G =
+// capacity.  G =
 // 4 H.  x: (B, T, D), y: (B, T, H) (the forward's output) and dy: (B, T, H),
 // all three in the instantiation's type; w_ih: (G, D), w_hh: (G, H) fp32,
 // 8-byte aligned; cprev: (B, T, H) fp32; bias: (G,) fp32.  Outputs, every
 // element written: dx (B, T, D) in the instantiation's type, dw_ih (G, D),
-// dw_hh (G, H) and db (G,) fp32.  rows: batch rows per recurrent block (per
-// cluster), 1 or 2 (1, 2, 4 or 8 on the cluster path).  fused = 0, the
+// dw_hh (G, H) and db (G,) fp32.  rows: batch rows per recurrent block,
+// 1 or 2.  fused = 0, the
 // four launches: scratch da (B, T, G) in
 // the instantiation's type, part (n_chunks, G, D + H) fp32, db_part
 // (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid.  fused
@@ -1398,8 +1443,7 @@ extern "C" {
 // shared memory, which the plan's T <= 64 keeps): one cooperative launch of
 // ceil(B / rows) blocks, which must all be resident at once; scratch part
 // (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and dx_blocks
-// unused.  rec: the cluster path's gate-pass records, (B, T, H, 8) fp32
-// (unused elsewhere).  All contiguous on the current device; B, T >= 1.
+// unused; rec unused.  All contiguous on the current device; B, T >= 1.
 // Returns the first cudaError_t of the launches (0 = all launched).
 #define AWM_LSTM_BWD_ENTRY(NAME, TYPE, W)                                                         \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
@@ -1421,17 +1465,24 @@ AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w16, float, 16)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w16, __nv_bfloat16, 16)
 #undef AWM_LSTM_BWD_ENTRY
 
+// The cluster path (_cluster), any 1 <= D, H <= 256: the operands and
+// outputs above; scratch per window of `window` steps (B window < 2^31): da
+// (B, window, G) in the instantiation's type, rec (B, window, H, 8) fp32;
+// part (n_chunks, G, D + H) fp32, db_part (ceil(B / rows), G) fp32; bf16
+// only (null for fp32): wpack awm_lstm_wide_pack_elems(1, 1, H) bf16 and wih
+// (G, D) bf16; the state carried between windows: dh_state, dc_state (B, H)
+// and db_rows (B, G) fp32.  rows: 1, 2, 4 or 8 a cluster.
 #define AWM_LSTM_BWD_CLUSTER_ENTRY(NAME, TYPE)                                                    \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
            const float* w_hh, const float* bias, void* dx,                                        \
            float* dw_ih, float* dw_hh, float* db, void* da, float* rec, float* part,             \
-           float* db_part, int batch, int steps, int d, int h, int rows, int n_chunks,            \
-           int dx_blocks, int fused, void* stream) {                                              \
+           float* db_part, void* wpack, void* wih, float* dh_state, float* dc_state,             \
+           float* db_rows, int batch, int steps, int d, int h, int rows, int n_chunks,            \
+           int window, void* stream) {                                                            \
     const BwdArgs<TYPE> a{(const TYPE*)x, (const TYPE*)y, cprev, (const TYPE*)dy, w_ih, w_hh,   \
                           bias, batch, steps, d, h};                                              \
-    (void)dx_blocks;                                                                              \
-    if (fused) return (int)cudaErrorInvalidValue;                                                 \
-    return launch_cluster<TYPE>(a, dx, dw_ih, dw_hh, db, da, rec, part, db_part, rows, n_chunks, stream); \
+    return launch_cluster<TYPE>(a, dx, dw_ih, dw_hh, db, da, rec, part, db_part, wpack, wih,     \
+                                dh_state, dc_state, db_rows, rows, n_chunks, window, stream);     \
   }
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_f32_cluster, float)
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_bf16_cluster, __nv_bfloat16)

@@ -20,8 +20,8 @@
 // in the backward da) goes from SM to SM through global memory:
 // - A / B, per window: the input projection xp = b + x W_ih^T of every (row,
 //   step) of the window, (B, tc, 4H) fp32, by the gate pass of kernel C run
-//   over x's terms only (XP = true: bf16 the tensor-core gate pass below,
-//   fp32 lstm_any.cuh's on the CUDA cores); then the recurrence, lstm_wide_fwd_kernel: a CTA owns
+//   over x's terms only (XP = true: bf16 the tensor-core gate pass, fp32
+//   the CUDA cores', both lstm_any.cuh's); then the recurrence, lstm_wide_fwd_kernel: a CTA owns
 //   a tile of WU = 16 hidden units (all four gates: 64 rows of W_hh, in
 //   shared memory in the operand type where they fit beside the step's h,
 //   else read from a packed copy in global memory, L2-resident) for up to
@@ -33,10 +33,13 @@
 //   its W_hh rows, updates c in registers, writes h_t to y (and c_{t-1}), and
 //   meets the other CTAs of its row group at one barrier in global memory
 //   (a counter a group: release-add after the step's stores, acquire-spin
-//   before the next step's reads).  The gate sums continue xp's in the gate
-//   pass's order (fp32: one fma chain over h's terms in order; bf16: one
-//   mma accumulator over h's k-tiles in order), so C recomputes the
-//   forward's gates bit for bit in both types;
+//   before the next step's reads).  bf16: the gate sums continue xp's in
+//   the gate pass's order (one mma accumulator over h's k-tiles in order).
+//   fp32: every warp takes a tile of (gate rows x batch rows) at any rows a
+//   group, four lanes the four interleaved segments of each sum
+//   (wide_f32_sums), and a gate is xp + their sum (lstm_any.cuh's QSEGS
+//   order); C's fp32 gate pass sums h in that order (gate_pass's SPLIT), so
+//   C recomputes the forward's gates bit for bit in both types;
 // - C, per window in reverse: the gate pass's records of the window (B, tc,
 //   H, 8) (the same gate passes, XP = false); the recurrence, lstm_wide_bwd_kernel,
 //   which carries (dh, dc): each step a CTA forms da of its 64 gate columns
@@ -75,8 +78,9 @@
 // --split, PERF.md section 6: C's step at one row ~7.5 us bf16, ~9 us fp32,
 // mostly the staging of da through L2 and the dh product, the barrier ~1
 // us); at large batches the products (fp32: B 4H H FMAs a step on the CUDA
-// cores, their operands from shared memory), far above the bound of the
-// call's bytes and FLOPs.
+// cores, their operands from shared memory: A / B's tiles spread them over
+// every warp at any rows), far above the bound of the call's bytes and
+// FLOPs.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -87,8 +91,6 @@ namespace {
 
 using namespace awm;
 
-constexpr int WU = 16;          // hidden units a CTA owns
-constexpr int WROWS = 4 * WU;   // their gate rows
 constexpr int WTHREADS = 256;
 constexpr int WMAX_R = 64;      // batch rows a row group at most
 constexpr int PMAX = WMAX_R * WU / WTHREADS;  // (unit, row) pairs a thread at most
@@ -103,11 +105,14 @@ constexpr unsigned long long WAIT_NS = 20000000000ull;  // a barrier wait past 2
 #define AWM_WIDE_SPLIT 0
 #endif
 constexpr int SPLIT = AWM_WIDE_SPLIT;
+// A build for the gates check alone (-DAWM_WIDE_GATES=1, ops/bench_lstm.py
+// --gates): fp32 A / B write each step's gates over the window's xp, and
+// awm_lstm_wide_gates_check compares them with C's gate pass.
+#ifndef AWM_WIDE_GATES
+#define AWM_WIDE_GATES 0
+#endif
+constexpr bool GATES = AWM_WIDE_GATES;
 
-// Row pitches (elements of the operand type) of the staged operands, 16-byte
-// rows whose fragment or quad reads fall in distinct banks: W_hh's rows (H
-// terms, A / B) and columns (4H terms, C), and a staged chunk of kc terms.
-template <typename T> __host__ __device__ constexpr int wide_pitch(int n) { return round_up(n, 16) + (is_bf16<T> ? 8 : 4); }
 // Terms of the staged operand (A / B: h_{t-1}, H; C: da_t, 4H) in whole
 // k-tiles: a chunk of this many is the whole row.
 __host__ __device__ constexpr int whole_terms(int bwd, int h) { return round_up(bwd ? 4 * h : h, 16); }
@@ -126,13 +131,9 @@ template <typename T> __host__ __device__ constexpr int ring_bufs(int bwd, int h
 template <typename T> __host__ __device__ constexpr int ring_rows(int bwd, int r) {
   return is_bf16<T> ? round_up(r, bwd ? 16 : 8) : r;
 }
-__host__ __device__ constexpr int n_cta(int h) { return (h + WU - 1) / WU; }
-// Elements of the packed W_hh (every CTA's slice, in the operand type).
-template <typename T> __host__ __device__ constexpr long long pack_elems(int bwd, int h) {
-  return (long long)n_cta(h) * (bwd ? WU * wide_pitch<T>(4 * h) : WROWS * wide_pitch<T>(h));
-}
 // Dynamic shared memory of a CTA of `rows` rows whose staged operand comes in
-// chunks of kc terms, with W_hh's slice (w_smem) or without it.  C: the ring
+// chunks of kc terms, with W_hh's slice (w_smem) or without it.  fp32 A / B:
+// also the step's gate sums [rows][64] beside them.  C: the ring
 // region also holds db [rows][64] fp32 at the end; then dh [rows][16] and the
 // dh product's partials (bf16: [segments][m-tiles x 16 rows][16], segments x
 // m-tiles <= 4; fp32: [8 warps][rows][16] from 8 rows, else segments x
@@ -141,7 +142,9 @@ template <typename T> __host__ __device__ constexpr long long pack_elems(int bwd
 // fit.
 template <typename T> size_t wide_smem(int bwd, int h, int rows, int w_smem, int kc) {
   const size_t ring = sizeof(T) * (size_t)ring_bufs<T>(bwd, h, kc) * ring_rows<T>(bwd, rows) * wide_pitch<T>(kc);
-  if (!bwd) return ring + (w_smem ? sizeof(T) * (size_t)WROWS * wide_pitch<T>(h) : 0);
+  if (!bwd)
+    return ring + (w_smem ? sizeof(T) * (size_t)WROWS * wide_pitch<T>(h) : 0) +
+           (is_bf16<T> ? 0 : sizeof(float) * (size_t)rows * WROWS);
   const size_t db = sizeof(float) * (size_t)rows * WROWS;
   return (ring > db ? ring : db) + (w_smem ? sizeof(T) * (size_t)WU * wide_pitch<T>(4 * h) : 0) +
          sizeof(float) * (size_t)rows * WU + sizeof(float) * WU * (is_bf16<T> || 8 * rows < 64 ? 64 : 8 * rows);
@@ -232,41 +235,56 @@ __device__ __forceinline__ void ring_run(int nc, int nb, bool load, Stage stage,
   }
 }
 
-// W_hh (4h, h) fp32 into each CTA's slice in the operand type (rounded to
-// nearest even), zero past the real widths.  Forward: [cta][row][hp], row =
-// ((u / 8) 2 + m / 2) 16 + (m % 2) 8 + u % 8 for unit u, gate m (a unit
-// group's two mma tiles: i | f, g | o); backward: [cta][u][jp], the columns
-// of the CTA's units.  Beside it, where wih_out is given, W_ih (4h, d) fp32
-// rounded to bf16 as it is (bf16 C's dx).
-template <typename T>
-__global__ void __launch_bounds__(256) lstm_wide_pack_kernel(const float* __restrict__ w_hh, T* __restrict__ out, int h,
-                                                             int bwd, const float* __restrict__ w_ih,
-                                                             __nv_bfloat16* __restrict__ wih_out, int d) {
-  const int pitch = bwd ? wide_pitch<T>(4 * h) : wide_pitch<T>(h), per = bwd ? WU : WROWS;
-  const long long total = pack_elems<T>(bwd, h), n_ih = wih_out ? 4ll * h * d : 0;
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total + n_ih; i += (long long)gridDim.x * 256) {
-    if (i >= total) {
-      wih_out[i - total] = __float2bfloat16(w_ih[i - total]);
-      continue;
+// The fp32 gate sums of a step of lstm_wide_fwd_kernel: each gate row's h
+// product over the staged chunks of h_{t-1} in the wide recurrence's order
+// (lstm_any.cuh's QSEGS segments, then quad_sum), for every row of the group,
+// into s_gate[row][gate row].  The tile of a warp follows the group's rows
+// (up to the power of two GR BR >= rows; rows past the group's read its last
+// row and are not written): gate rows wb .. (GR sets of 8, wb = 8 GR (w % (8
+// / GR))) x batch rows bb .. bb + BR - 1 (bb = BR (w / (8 / GR))), so every
+// warp works at any rows; lane group g = lane / 4 takes the gate rows rho(g)
+// + 8 i of the warp's (rho(g) = g / 2 + 4 (g % 2): the two groups of a
+// quarter-warp read W rows 4 apart, whose 64 bytes fall in distinct banks),
+// lane % 4 its segment, and every group of a warp reads the same h quads.  A
+// lane's GR + BR 16-byte loads feed 4 GR BR products.
+template <int GR, int BR, typename Stage>
+__device__ __forceinline__ void wide_f32_sums(int nc, int nb, bool load, Stage stage, const float* ring, int rp, int kp,
+                                              int kc, int h, const float* w, int hp, int nrows, float* s_gate) {
+  constexpr int N = GR * BR, WG = 8 / GR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, seg = lane & 3;
+  const int wb = 8 * GR * (warp % WG) + (g >> 1) + 4 * (g & 1), bb = BR * (warp / WG);
+  const float* wr = w + (size_t)wb * hp;
+  float acc[N] = {};
+  ring_run<ring_depth<float>()>(nc, nb, load, stage, [&](int c, int buf) {
+    if (SPLIT & 4) return;
+    const float* hb = ring + (size_t)buf * rp * kp;
+    const int q0 = c * (kc / 4), nq = round_up(min(kc, h - c * kc), 16) / 4;
+    for (int q = seg; q < nq; q += QSEGS) {
+      float4 wq[GR], v[BR];
+#pragma unroll
+      for (int i = 0; i < GR; ++i) wq[i] = *reinterpret_cast<const float4*>(wr + (size_t)8 * i * hp + 4 * (q0 + q));
+#pragma unroll
+      for (int b = 0; b < BR; ++b)
+        v[b] = *reinterpret_cast<const float4*>(hb + (size_t)min(bb + b, nrows - 1) * kp + 4 * q);
+#pragma unroll
+      for (int i = 0; i < GR; ++i)
+#pragma unroll
+        for (int b = 0; b < BR; ++b) dot_quad(acc[i * BR + b], wq[i].x, wq[i].y, wq[i].z, wq[i].w, v[b]);
     }
-    const int k = (int)(i % pitch);
-    const long long rowi = i / pitch;
-    const int cta = (int)(rowi / per), rr = (int)(rowi % per);
-    float v = 0.0f;
-    if (bwd) {
-      const int gu = cta * WU + rr;
-      if (gu < h && k < 4 * h) v = w_hh[(size_t)k * h + gu];
-    } else {
-      const int u = (rr / 32) * 8 + rr % 8, m = ((rr / 16) % 2) * 2 + (rr % 16) / 8, gu = cta * WU + u;
-      if (gu < h && k < h) v = w_hh[((size_t)m * h + gu) * h + k];
-    }
-    store_f(out + i, v);
+  });
+  quad_sum(acc, lane);
+  // the sums this lane holds (N < 4: one lane of those that hold the same)
+  if (N == 2 ? (seg & 1) : N == 1 ? seg : 0) return;
+#pragma unroll
+  for (int e = 0; e < (N >= 4 ? N / 4 : 1); ++e) {
+    const int idx = N >= 4 ? seg * (N / 4) + e : N == 2 ? seg >> 1 : 0, r = bb + idx % BR;
+    if (r < nrows) s_gate[r * WROWS + wb + 8 * (idx / BR)] = acc[e];
   }
 }
 
 template <typename T>
 struct WideFwd {
-  const float* xp;   // (B, tc, 4h) fp32: the window's b + x W_ih^T
+  float* xp;         // (B, tc, 4h) fp32: the window's b + x W_ih^T (GATES: the step's gates after)
   const T* wpack;    // lstm_wide_pack_kernel's forward slices
   T* y;              // (B, T, h)
   float* cprev;      // (B, T, h) fp32 (B) or null (A)
@@ -284,8 +302,10 @@ struct WideFwd {
 // h_{t-1} is staged whole (kc = whole_terms) or in chunks of kc terms
 // through a ring (each tile of a tiled CTA stages them again); either way
 // each gate's sum runs over h's terms (fp32) or k-tiles (bf16) in order, so
-// the chunks leave the bits as they are.  TILED: compiled apart, so that the
-// untiled recurrence keeps its registers (and the CTAs an SM holds).
+// the chunks leave the bits as they are (bf16: each gate's sum over h's
+// k-tiles in order; fp32: each segment's quads in order, wide_f32_sums).
+// TILED: compiled apart, so that the untiled recurrence keeps its registers
+// (and the CTAs an SM holds).
 template <typename T, bool TRAIN, bool TILED>
 __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFwd<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -306,6 +326,8 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
       reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(s_w)[i];
     s_w = w;
   }
+  // fp32: the step's gate sums [rows][64 gate rows] (wide_f32_sums), beside W_hh's slice
+  float* s_gate = reinterpret_cast<float*>(ring + (size_t)nb * rp * kp + (a.w_smem ? (size_t)WROWS * hp : 0));
   unsigned* count = a.count + grp;
   const bool vec = (h * sizeof(T)) % 16 == 0;
   const int lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
@@ -439,38 +461,34 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_fwd_kernel(const WideFw
             }
           }
       } else {
+        // the gate sums in the wide recurrence's order (wide_f32_sums), then each pair's gates from xp + them
+        const float* wf = reinterpret_cast<const float*>(wsl);
+        const float* hr = reinterpret_cast<const float*>(ring);
+        if (a.rows <= 1) wide_f32_sums<1, 1>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else if (a.rows <= 2) wide_f32_sums<1, 2>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else if (a.rows <= 4) wide_f32_sums<1, 4>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else if (a.rows <= 8) wide_f32_sums<1, 8>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else if (a.rows <= 16) wide_f32_sums<2, 8>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else if (a.rows <= 32) wide_f32_sums<4, 8>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        else wide_f32_sums<8, 8>(nc, nb, load, stage, hr, rp, kp, kc, h, wf, hp, nrows, s_gate);
+        __syncthreads();  // every sum in s_gate
         const int u = tid % WU, gu = u0 + u;
-        const float* wr[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          wr[m] = reinterpret_cast<const float*>(wsl) + (size_t)(((u >> 3) * 2 + (m >> 1)) * 16 + (m & 1) * 8 + (u & 7)) * hp;
-        ring_run<ring_depth<T>()>(nc, nb, load, stage, [&](int c, int buf) {
-          if ((SPLIT & 4) || np == 0) return;
-          const float* hr = reinterpret_cast<const float*>(ring + (size_t)buf * rp * kp) + (size_t)r0 * kp;
-          const int q0 = c * (kc / 4), nq = round_up(min(kc, h - c * kc), 16) / 4;
-#pragma unroll 4
-          for (int q = 0; q < nq; ++q) {
-            float4 w4[4];
-#pragma unroll
-            for (int m = 0; m < 4; ++m) w4[m] = *reinterpret_cast<const float4*>(wr[m] + 4 * (q0 + q));
-#pragma unroll
-            for (int j = 0; j < PMAX; ++j)
-              if (j < np) {
-                const float4 v = *reinterpret_cast<const float4*>(hr + (size_t)16 * j * kp + 4 * q);
-#pragma unroll
-                for (int m = 0; m < 4; ++m) dot_quad(acc[j][m], w4[m].x, w4[m].y, w4[m].z, w4[m].w, v);
-              }
-          }
-        });
 #pragma unroll
         for (int j = 0; j < PMAX; ++j)
           if (!(SPLIT & 8) && j < np && gu < h) {
-            const float ig = sigmoid(acc[j][0]), fg = sigmoid(acc[j][1]), gg = tanh_sig(acc[j][2]), og = sigmoid(acc[j][3]);
+            const float* sg = s_gate + (size_t)(r0 + 16 * j) * WROWS + ((u >> 3) * 2) * 16 + (u & 7);
+            float pre[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) pre[m] = acc[j][m] + sg[(m >> 1) * 16 + (m & 1) * 8];
+            const float ig = sigmoid(pre[0]), fg = sigmoid(pre[1]), gg = tanh_sig(pre[2]), og = sigmoid(pre[3]);
             const float c_prev = c_st[j][0];
             c_st[j][0] = fg * c_prev + ig * gg;
             const size_t at = ((size_t)(row0 + r0 + 16 * j) * steps + t) * h + gu;
             if (TRAIN) a.cprev[at] = c_prev;
             a.y[at] = og * tanh_sig(c_st[j][0]);
+            if constexpr (GATES)
+#pragma unroll
+              for (int m = 0; m < 4; ++m) a.xp[((size_t)(row0 + r0 + 16 * j) * a.tc + s) * g4 + (size_t)m * h + gu] = pre[m];
           }
       }
       if (tiled) store_c(u0);
@@ -801,135 +819,6 @@ __global__ void __launch_bounds__(WTHREADS, 1) lstm_wide_bwd_kernel(const WideBw
   }
 }
 
-// The bf16 gate pass of a window: C's records, and with XP = true A and B's
-// input projection (the sums after x's terms into an fp32 (rows, 4H) tile,
-// which their recurrence continues with h's).  A gate's sum is the bias, then
-// x's k-tiles, then h's, in one m16n8k16 accumulator, lstm_any.cuh's
-// lstm_bwd_gates_bf16_kernel's sums: one kernel gives the forward its
-// projection and C its gates, so C recomputes the forward's gates bit for
-// bit.  A block owns 128 rows x 32 units (8 warps: 4 groups of 8 units x 2
-// halves of 64 rows, so each weight fragment feeds 16 mma); x_t | h_{t-1}
-// of its rows and the gate rows of W staged 32 terms a stage through
-// stage_ring: W_ih's rows from its bf16 copy (wih, [j][k], A fragments by
-// ldmatrix), W_hh's from the packed backward slices (wpack, [k][j], A
-// fragments transposed by ldmatrix; unused with XP).  vec: D, H multiples of
-// 8 and x, y, wih, wpack 16-byte aligned, else one value a load.
-constexpr int GW_ROWS = 128;        // rows of the (B*T) axis a block
-constexpr int GW_P = MK + 8;        // row pitch of a staged [rows][MK] tile (x | h, W_ih)
-constexpr int GW_JP = CROWS + 8;    // row pitch of a staged [MK][128 gate rows] tile (W_hh)
-constexpr int GW_STAGE = GW_ROWS * GW_P * 2 * (int)sizeof(__nv_bfloat16);  // x | h, then W (W_hh's [MK][GW_JP] fits)
-constexpr int GW_SMEM = MS * GW_STAGE;
-
-template <bool XP>
-__global__ void __launch_bounds__(256, 2)
-lstm_bwd_gates_wide_mma_kernel(const BwdArgs<__nv_bfloat16> a, const __nv_bfloat16* __restrict__ wih,
-                               const __nv_bfloat16* __restrict__ wpack, float* __restrict__ rec, Win w, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_row[GW_ROWS];         // -1 past the rows, 0 at t = 0, 1 else
-  __shared__ long long s_gn[GW_ROWS];    // a row's global row
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3, h = a.h, d = a.d;
-  const int ub = (h + CU - 1) / CU, u0 = (int)(blockIdx.x % ub) * CU, ug = warp & 3, rh = warp >> 2;
-  const int gu = u0 + ug * 8 + g8, jp = wide_pitch<__nv_bfloat16>(4 * h);
-  const bool ok = gu < h;
-  const long long n0 = (long long)(blockIdx.x / ub) * GW_ROWS, n_rows = (long long)a.batch * w.tc;
-  if (tid < GW_ROWS) {
-    s_row[tid] = n0 + tid < n_rows ? (int)has_prev<true>(n0 + tid, a.steps, w) : -1;
-    s_gn[tid] = global_row<true>(n0 + tid, a.steps, w);
-  }
-  __syncthreads();
-  const int ns_x = (d + MK - 1) / MK, ns = ns_x + (XP ? 0 : (h + MK - 1) / MK);  // x's stages, then h's
-  auto buf_v = [&](int buf) { return reinterpret_cast<__nv_bfloat16*>(smem + (size_t)buf * GW_STAGE); };
-  auto buf_w = [&](int buf) { return buf_v(buf) + GW_ROWS * GW_P; };
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  auto stage = [&](long long st, int buf) {
-    const bool xs = st < ns_x;
-    const int k0 = (int)(xs ? st : st - ns_x) * MK, len = xs ? d : h;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int p = tid + 256 * e;
-      {  // x_t | h_{t-1}: 128 rows x 4 pieces
-        const int r = p >> 2, k = k0 + (p & 3) * 8, row = s_row[r];
-        const long long gn = s_gn[r];
-        const __nv_bfloat16* src = xs ? a.x + gn * d + k : a.y + (gn - 1) * h + k;
-        const bool live = row >= 0 && (xs || row);
-        put8(buf_v(buf) + r * GW_P + (p & 3) * 8, src, live && k < len, vec,
-             [&](int i) { return live && k + i < len ? src[i] : zero; });
-      }
-      if (xs) {  // W_ih's gate rows [m 32 + unit][k]: 128 rows x 4 pieces
-        const int jj = p >> 2, k = k0 + (p & 3) * 8, u = u0 + (jj & 31);
-        const __nv_bfloat16* src = wih + ((size_t)(jj >> 5) * h + u) * d + k;
-        put8(buf_w(buf) + jj * GW_P + (p & 3) * 8, src, u < h && k < d, vec,
-             [&](int i) { return u < h && k + i < d ? src[i] : zero; });
-      } else {  // W_hh's [k][m 32 + unit] from the packed columns: 32 terms x 16 pieces
-        const int kr = p >> 4, q = p & 15, k = k0 + kr, u = u0 + (q & 3) * 8;
-        const __nv_bfloat16* src = wpack + (size_t)k * jp + (q >> 2) * h + u;
-        put8(buf_w(buf) + kr * GW_JP + (q >> 2) * 32 + (q & 3) * 8, src, k < h && u < h, vec,
-             [&](int i) { return k < h && u + i < h ? src[i] : zero; });
-      }
-    }
-  };
-  float acc[8][2][4];
-  {
-    float b4[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) b4[m] = ok ? a.bias[m * h + gu] : 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][0][e] = b4[e / 2], acc[nt][1][e] = b4[2 + e / 2];
-  }
-  const int blk = lane >> 3, blk_row = lane & 7;
-  long long st_now = 0;  // the stage mul multiplies (stage_ring calls mul once a stage, in order)
-  auto mul = [&](int buf) {
-    const bool xs = st_now < ns_x;
-    const int k0 = (int)(xs ? st_now : st_now - ns_x) * MK, len = xs ? d : h;
-    ++st_now;
-    const __nv_bfloat16* v = buf_v(buf);
-    const __nv_bfloat16* wt = buf_w(buf);
-#pragma unroll
-    for (int ks = 0; ks < MK / 16; ++ks) {
-      if (k0 + ks * 16 >= len) break;
-      uint32_t af[2][4];
-#pragma unroll
-      for (int tile = 0; tile < 2; ++tile) {
-        if (xs)  // rows gate 2 tile (lanes 0-7, 16-23) and 2 tile + 1 (8-15, 24-31) of the group's units
-          ldmatrix_x4(af[tile], wt + ((2 * tile + (blk & 1)) * 32 + ug * 8 + blk_row) * GW_P + ks * 16 + (blk >> 1) * 8);
-        else
-          ldmatrix_x4_trans(af[tile], wt + (ks * 16 + (blk >> 1) * 8 + blk_row) * GW_JP + (2 * tile + (blk & 1)) * 32 +
-                                          ug * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];  // n-tiles 2 np and 2 np + 1: B[k][n] = v[n][k]
-        ldmatrix_x4(b, v + (rh * 64 + np * 16 + (blk >> 1) * 8 + blk_row) * GW_P + ks * 16 + (blk & 1) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[2 * np + i][0], af[0], b[2 * i], b[2 * i + 1]);
-          mma_bf16(acc[2 * np + i][1], af[1], b[2 * i], b[2 * i + 1]);
-        }
-      }
-    }
-  };
-  stage_ring(ns, stage, mul);
-  if (!ok) return;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = rh * 64 + nt * 8 + 2 * t4 + e;
-      const long long n = n0 + r;
-      if (n >= n_rows) continue;
-      if constexpr (XP) {
-        float* o = rec + (size_t)n * 4 * h + gu;
-        o[0] = acc[nt][0][e], o[h] = acc[nt][0][2 + e], o[2 * h] = acc[nt][1][e], o[3 * h] = acc[nt][1][2 + e];
-      } else {
-        const long long gn = s_gn[r];
-        write_record(rec + ((size_t)n * h + gu) * CREC, acc[nt][0][e], acc[nt][0][2 + e], acc[nt][1][e],
-                     acc[nt][1][2 + e], a.cprev[gn * h + gu], __bfloat162float(a.dy[gn * h + gu]));
-      }
-    }
-}
-
 // The card's SMs, and the CTAs of a recurrence it holds at once (0: none fits).
 cudaError_t resident(const void* kernel, size_t smem, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1038,45 +927,10 @@ cudaError_t over_groups(int batch, int rows, int ctas, int slots, Launch launch)
   return cudaSuccess;
 }
 
-// W_hh packed (and, where wih_out is given, W_ih rounded to bf16) in one launch.
-cudaError_t pack(const float* w_hh, void* out, int h, int bwd, bool bf16, const float* w_ih, void* wih_out, int d,
-                 cudaStream_t stream) {
-  const long long n = (bf16 ? pack_elems<__nv_bfloat16>(bwd, h) : pack_elems<float>(bwd, h)) +
-                      (wih_out ? 4ll * h * d : 0);
-  const unsigned blocks = (unsigned)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  if (bf16)
-    lstm_wide_pack_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(w_hh, (__nv_bfloat16*)out, h, bwd, w_ih,
-                                                                    (__nv_bfloat16*)wih_out, d);
-  else
-    lstm_wide_pack_kernel<float><<<blocks, 256, 0, stream>>>(w_hh, (float*)out, h, bwd, w_ih, (__nv_bfloat16*)wih_out, d);
-  return cudaGetLastError();
-}
-
 template <typename T>
 BwdArgs<T> bwd_args(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,
                     const float* w_hh, const float* bias, int batch, int steps, int d, int h) {
   return BwdArgs<T>{(const T*)x, (const T*)y, cprev, (const T*)dy, w_ih, w_hh, bias, batch, steps, d, h};
-}
-
-// The gate pass over one window (XP: the forward's projection into out);
-// bf16 reads W_ih from wih and C's W_hh from wpack.
-template <typename T, bool XP>
-cudaError_t gate_pass(const BwdArgs<T>& a, const void* wih, const void* wpack, float* out, Win w,
-                      cudaStream_t stream) {
-  const long long n_rows = (long long)a.batch * w.tc, unit_blocks = (a.h + CU - 1) / CU;
-  if constexpr (is_bf16<T>) {
-    static SmemOnce once;
-    const cudaError_t err = once.set(lstm_bwd_gates_wide_mma_kernel<XP>, GW_SMEM);
-    if (err != cudaSuccess) return err;
-    const int vec = a.d % 8 == 0 && a.h % 8 == 0 && aligned16(a.x) && aligned16(a.y) && aligned16(wih) &&
-                    aligned16(wpack);
-    lstm_bwd_gates_wide_mma_kernel<XP><<<(unsigned)(unit_blocks * ((n_rows + GW_ROWS - 1) / GW_ROWS)), 256, GW_SMEM,
-                                         stream>>>(a, (const T*)wih, (const T*)wpack, out, w, vec);
-  } else {
-    lstm_bwd_gates_f32_kernel<true, XP>
-        <<<(unsigned)(unit_blocks * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, stream>>>(a, out, w);
-  }
-  return cudaGetLastError();
 }
 
 // Kernel A (TRAIN = false) / B over every window.
@@ -1098,7 +952,7 @@ int launch_fwd(const void* x, const float* w_ih, const float* w_hh, const float*
   const BwdArgs<T> pa = bwd_args<T>(x, nullptr, nullptr, nullptr, w_ih, w_hh, bias, batch, steps, d, h);
   for (int t0 = 0; t0 < steps; t0 += window) {
     const int tc = steps - t0 < window ? steps - t0 : window;
-    if ((err = gate_pass<T, true>(pa, wih, wpack, xp, Win{t0, tc}, stream)) != cudaSuccess) return (int)err;
+    if ((err = gate_pass<T, true>(pa, wih, wpack, xp, nullptr, Win{t0, tc}, stream)) != cudaSuccess) return (int)err;
     err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
       WideFwd<T> a{xp, (const T*)wpack, (T*)y, cprev, c_state, count, batch, steps, h, t0, tc, rows, g0, sh.w_smem,
                    sh.ctas, sh.chunk};
@@ -1133,8 +987,7 @@ int launch_bwd(const BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* 
   for (int wi = n_win - 1; wi >= 0; --wi) {
     const int t0 = wi * window, tc = steps - t0 < window ? steps - t0 : window, first = wi == n_win - 1;
     const Win w{t0, tc};
-    const long long n_rows = (long long)batch * tc, chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
-    if ((err = gate_pass<T, false>(a, wih, wpack, rec, w, stream)) != cudaSuccess) return (int)err;
+    if ((err = gate_pass<T, false, true>(a, wih, wpack, rec, (float*)da, w, stream)) != cudaSuccess) return (int)err;
     err = over_groups(batch, rows, sh.ctas, sh.slots, [&](int g0, int n) {
       WideBwd<T> b{rec, (const T*)wpack, (T*)da, db_part, dh_state, dc_state, db_rows, count,
                    batch, steps, h, t0, tc, rows, g0, sh.w_smem, first, sh.ctas, sh.chunk};
@@ -1143,16 +996,8 @@ int launch_bwd(const BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* 
                                          dim3(WTHREADS), args, sh.smem, stream);
     });
     if (err != cudaSuccess) return (int)err;
-    err = launch_dx_any<T>((const T*)da, a.w_ih, (const __nv_bfloat16*)wih, (T*)dx, n_rows, d, h, steps, w, stream);
-    if (err != cudaSuccess) return (int)err;
-    if constexpr (is_bf16<T>) {
-      err = launch_dw_any_mma((const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, n_chunks, d, h, w, !first,
-                              stream);
-    } else {
-      lstm_bwd_dw_any_kernel<true><<<dim3(n_chunks, (g + FT - 1) / FT, (kd + FT - 1) / FT), 256, 0, stream>>>(
-          (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows, d, h, w, !first);
-      err = cudaGetLastError();
-    }
+    err = launch_window_products<T>(a, (const T*)da, (const __nv_bfloat16*)wih, (T*)dx, part, n_chunks, w, first,
+                                    stream);
     if (err != cudaSuccess) return (int)err;
   }
   lstm_bwd_sum_any_kernel<<<(unsigned)(((long long)g * kd + 255) / 256), 256, 0, stream>>>(
@@ -1231,6 +1076,37 @@ int awm_lstm_wide_shape(int bwd, int bf16, int h, int rows, int chunk, int* out)
   out[0] = sh.slots, out[1] = sh.ctas, out[2] = sh.w_smem, out[3] = (int)sh.smem, out[4] = sh.chunk, out[5] = sh.optin;
   return (int)err;
 }
+
+#if AWM_WIDE_GATES
+// The gates check (a build with -DAWM_WIDE_GATES=1 only): fp32 kernel B over
+// one window of every step with rows, ctas and chunk as the entry points
+// take them (its scratch xp_fwd (B, T, 4H) ends holding the gates of every
+// step; wpack, c_state, count as awm_lstm_fwd_train_f32_wide's), then C's
+// fp32 gate pass over the same steps on B's own y, its gates (not its
+// records) into pre_c (B, T, 4H), its x sums into xp_c.  The caller compares
+// xp_fwd with pre_c.
+int awm_lstm_wide_gates_check(const float* x, const float* w_ih, const float* w_hh, const float* bias, float* y,
+                              float* cprev, float* xp_fwd, float* wpack, float* c_state, unsigned* count,
+                              float* xp_c, float* pre_c, int batch, int steps, int d, int h, int rows, int ctas,
+                              int chunk, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_fwd<float, true>(x, w_ih, w_hh, bias, y, cprev, xp_fwd, wpack, nullptr, c_state, count, batch,
+                                    steps, d, h, rows, ctas, chunk, steps, st);
+  if (err) return err;
+  const BwdArgs<float> a = bwd_args<float>(x, y, cprev, nullptr, w_ih, w_hh, bias, batch, steps, d, h);
+  const Win w{0, steps};
+  const long long n_rows = (long long)batch * steps;
+  lstm_bwd_gates_f32_kernel<true><<<(unsigned)(((h + CU - 1) / CU) * ((n_rows + GP_ROWS - 1) / GP_ROWS)), 256, 0, st>>>(
+      a, xp_c, w);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(lstm_bwd_gates_f32_split_kernel<true>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  lstm_bwd_gates_f32_split_kernel<true><<<(unsigned)(n_cta(h) * ((n_rows + GS_T - 1) / GS_T)), 256, GS_SMEM, st>>>(
+      a, xp_c, pre_c, w, h % 4 == 0 && aligned16(y) && aligned16(w_hh));
+  return (int)cudaGetLastError();
+}
+#endif
 
 // Elements of the packed W_hh the entry points take (bwd = 0: A and B's).
 long long awm_lstm_wide_pack_elems(int bwd, int bf16, int h) {

@@ -26,7 +26,8 @@ carries 1, 2, 4 or 8 batch rows, h (and in the backward da) exchanged
 between them through distributed shared memory every step in row bursts
 (instantiations *_cluster, lstm_fwd_cluster.cu and lstm_bwd.cu, "widths above
 64"); the backward's gates, activations and local derivatives come from a
-whole-card gate pass before its recurrence.  Above 256 (max(D, H) >
+whole-card gate pass before its recurrence, in windows of time whose
+scratch stays within CLUSTER_SCRATCH_BYTES whatever B T is.  Above 256 (max(D, H) >
 CLUSTER_MAX_WIDTH) a call takes the wide path (instantiations *_wide,
 lstm_wide.cu's header has the design): windows of WIDE_* steps chosen so
 that the call's scratch stays within WIDE_SCRATCH_BYTES whatever T is, each
@@ -73,8 +74,8 @@ cost of a step of that many rows at that width and path, so B=128 takes
 (fwd_short: the short path where D = H = 32 and T <= 64; else the ring or
 the cluster), the backward's path (bwd_fused: one
 launch where D = H = 32, T <= 64 and its blocks fit one wave; else four),
-its scratch shapes at the real G = 4H (on the cluster path also the gate
-pass's records) and its dx and dW grids.
+its scratch shapes at the real G = 4H (on the cluster path a window's, with
+the gate pass's records) and its dx and dW grids.
 
 Routing (lstm_fused_forward), by grad first and then by device:
 - grad needed (grad mode on and any of x, w_ih, w_hh, b requires grad):
@@ -292,6 +293,19 @@ CLUSTER_BWD_STEP_COST = {
 }
 CLUSTER_ROWS = (1, 2, 4, 8)
 CLUSTER_REC = 8  # floats of a (row, step, unit) record of kernel C's gate pass (lstm_any.cuh's CREC)
+# Kernel C on the cluster path runs in windows of time (lstm_bwd.cu's
+# launch_cluster, the wide path's windows): a window's records (B, tc, H, 8)
+# fp32 and da (B, tc, 4H) in the operand type, beside the dW partials (at
+# most a quarter of the budget), the carried (dh, dc) and each row's db, stay
+# within CLUSTER_SCRATCH_BYTES whatever B T is (for all T the records alone
+# took 67 GB at H = 256, B = 512, T = 16000, bf16: more than the card has
+# beside the call's 25 GB of operands).  2 GiB, the wide path's budget: a
+# few percent of an 80 GB card, and windows of hundreds of steps or more at
+# the batches the card runs, so a window's own costs (the recurrence's
+# relaunch, one read and write of the dW partials) stay near 1% of its
+# steps' (PERF.md section 6).  A call whose whole T fits runs one window, the
+# same launches in the same order as one pass over T: the same bits.
+CLUSTER_SCRATCH_BYTES = 2**31
 # The wide path (max(D, H) > CLUSTER_MAX_WIDTH, ops/csrc/lstm_wide.cu): a CTA
 # owns WIDE_UNITS hidden units, a row group of ceil(H / WIDE_UNITS) CTAs
 # carries up to 64 batch rows (WIDE_ROWS, the plan's choice), and a call runs
@@ -338,12 +352,13 @@ class LaunchPlan:
     da_dtype: torch.dtype
     part_shape: tuple[int, int, int]  # scratch: dW chunk partials (n_chunks, 4H, D + H), fp32
     db_part_shape: tuple[int, int]  # scratch: db per recurrent block, fp32
-    rec_shape: tuple[int, ...] | None  # scratch on the cluster path: the gate pass's records (B, T, H, 8), fp32
-    # The wide path (max(D, H) > 256): fwd_rows / bwd_rows are rows a row group and fwd_blocks /
-    # bwd_blocks the row groups; da_shape and rec_shape are a window's, (B, bwd_window, ...).
+    rec_shape: tuple[int, ...] | None  # scratch on the cluster path: the gate pass's records (B, bwd_window, H, 8), fp32
+    # The cluster and wide paths: da_shape and rec_shape are a window's, (B, bwd_window, ...).  The wide
+    # path (max(D, H) > 256): fwd_rows / bwd_rows are rows a row group and fwd_blocks / bwd_blocks the
+    # row groups.
     wide: bool = False
-    fwd_window: int = 0  # steps a window of A and B
-    bwd_window: int = 0  # steps a window of C
+    fwd_window: int = 0  # steps a window of A and B (the wide path)
+    bwd_window: int = 0  # steps a window of C (the cluster and wide paths)
     xp_shape: tuple[int, int, int] | None = None  # scratch: A and B's window projection (B, fwd_window, 4H), fp32
     fwd_pack: int = 0  # scratch: elements of the packed W_hh in the operand type, A and B
     bwd_pack: int = 0  # and C's
@@ -354,10 +369,11 @@ class LaunchPlan:
 
     def scratch_bytes(self, kernel: str) -> int:
         """Bytes of scratch a wide call of kernel ("lstm_fwd", "lstm_fwd_train"
-        or "lstm_bwd") allocates beside its inputs and outputs."""
+        or "lstm_bwd"), or a cluster call of "lstm_bwd", allocates beside its
+        inputs and outputs."""
         elt = 2 if self.da_dtype == torch.bfloat16 else 4
         prod = lambda shape: functools.reduce(lambda a, b: a * b, shape, 1)
-        if kernel == "lstm_bwd":  # da_shape[::2]: db_rows (B, 4H), the db of a tiled CTA's rows
+        if kernel == "lstm_bwd":  # da_shape[::2]: db_rows (B, 4H), each row's db (carried, or a tiled CTA's)
             return (4 * (prod(self.rec_shape) + prod(self.part_shape) + prod(self.db_part_shape)
                          + 2 * prod(self.state_shape) + prod(self.da_shape[::2]) + self.bwd_blocks)
                     + elt * (prod(self.da_shape) + self.bwd_pack) + 2 * self.wih)
@@ -405,13 +421,15 @@ def wide_smem(bwd: bool, bf16: bool, hidden: int, rows: int, w_smem: bool, chunk
     """lstm_wide.cu's wide_smem: the dynamic shared memory of a recurrence
     CTA (A / B: bwd False; C: True) of `rows` rows whose staged operand comes
     in chunks of `chunk` terms (wide_chunk's; a ring of WIDE_RING buffers, or
-    one for the whole row), with W_hh's slice (w_smem) or without it; C's
-    also holds its db, dh and the dh product's partials."""
+    one for the whole row), with W_hh's slice (w_smem) or without it; fp32
+    A / B's also the step's gate sums (rows x 64 fp32), C's its db, dh and
+    the dh product's partials."""
     elt, whole = (2 if bf16 else 4), -(-(4 * hidden if bwd else hidden) // 16) * 16
     tile = (16 if bwd else 8) if bf16 else 1  # bf16: the ring's rows in whole mma tiles
     ring = elt * (1 if chunk >= whole else WIDE_RING[bf16]) * -(-rows // tile) * tile * wide_pitch(chunk, bf16)
     if not bwd:
-        return ring + (elt * 4 * WIDE_UNITS * wide_pitch(hidden, bf16) if w_smem else 0)
+        return (ring + (elt * 4 * WIDE_UNITS * wide_pitch(hidden, bf16) if w_smem else 0)
+                + (0 if bf16 else 4 * rows * 4 * WIDE_UNITS))
     return (max(ring, 4 * rows * 4 * WIDE_UNITS) + (elt * WIDE_UNITS * wide_pitch(4 * hidden, bf16) if w_smem else 0)
             + 4 * rows * WIDE_UNITS + 4 * WIDE_UNITS * (64 if bf16 else max(64, 8 * rows)))
 
@@ -565,12 +583,24 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     if bwd_rows not in allowed:
         raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
-    n_rows = batch * steps
-    # Chunks of DW_CHUNK_ROWS, but enough for one dW block an SM while each
-    # keeps DW_MIN_CHUNK_ROWS (B=128 at T=50 has 6400 rows: 4 chunks would
-    # leave 128 SMs idle), and no more than DW_MAX_CHUNKS partials to sum.
-    n_chunks = max(1, min(DW_MAX_CHUNKS, max(-(-n_rows // DW_CHUNK_ROWS),
-                                             min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
+    g = 4 * hidden
+    window, cluster = steps, {}
+    if cap is None:  # C's windows: what CLUSTER_SCRATCH_BYTES leaves after the fixed scratch, as the wide path's
+        bf16, elt = mm == torch.bfloat16, 2 if mm == torch.bfloat16 else 4
+        wih, pack = (g * width, wide_pack_elems(True, True, hidden)) if bf16 else (0, 0)
+        fixed = (CLUSTER_SCRATCH_BYTES // 4 + 4 * (bwd_blocks * g + 2 * batch * hidden + batch * g) + elt * pack
+                 + 2 * wih)
+        window = max(1, min(steps, (CLUSTER_SCRATCH_BYTES - fixed) // (batch * (hidden * CLUSTER_REC * 4 + g * elt)),
+                            (2**31 - 1) // batch))
+        cluster = dict(bwd_window=window, state_shape=(batch, hidden), wih=wih, bwd_pack=pack)
+    n_rows = batch * window
+    # Chunks of DW_CHUNK_ROWS (of a window's rows on the cluster path), but
+    # enough for one dW block an SM while each keeps DW_MIN_CHUNK_ROWS (B=128
+    # at T=50 has 6400 rows: 4 chunks would leave 128 SMs idle), and no more
+    # than DW_MAX_CHUNKS partials to sum (at most a quarter of the cluster
+    # path's budget: no bound below DW_MAX_CHUNKS up to width 256).
+    n_chunks = max(1, min(DW_MAX_CHUNKS, CLUSTER_SCRATCH_BYTES // 4 // (4 * g * (width + hidden)),
+                          max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
         capacity=cap or 0, cluster=k,
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
@@ -578,9 +608,9 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         bwd_fused=(square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
                    and bwd_blocks <= sm_count * FUSED_BLOCKS_PER_SM),
         n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
-        da_shape=(batch, steps, 4 * hidden), da_dtype=mm,
-        part_shape=(n_chunks, 4 * hidden, width + hidden), db_part_shape=(bwd_blocks, 4 * hidden),
-        rec_shape=(batch, steps, hidden, CLUSTER_REC) if cap is None else None,
+        da_shape=(batch, window, g), da_dtype=mm,
+        part_shape=(n_chunks, g, width + hidden), db_part_shape=(bwd_blocks, g),
+        rec_shape=(batch, window, hidden, CLUSTER_REC) if cap is None else None, **cluster,
     )
 
 
@@ -676,7 +706,10 @@ def libraries() -> dict[str, ctypes.CDLL]:
         for name in launches:
             kernel = max((k for k in KERNELS if name.startswith(k + "_")), key=len)
             fn = getattr(built[source_of(name)][0], entry_point(name))
-            fn.argtypes = (wide_argtypes if name.endswith("_wide") else argtypes)[kernel]
+            if name.endswith("_cluster") and kernel == "lstm_bwd":
+                fn.argtypes = [ptr] * 20 + [i] * 7 + [ptr]
+            else:
+                fn.argtypes = (wide_argtypes if name.endswith("_wide") else argtypes)[kernel]
             fn.restype = ctypes.c_int
         wide = built["lstm_wide"][0]
         wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 5 + [ptr], ctypes.c_int
@@ -862,11 +895,12 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     not zero-filled: the kernels write every element.  The plan picks the
     path: fused (D = H = 32), one launch with scratch for one dW and db
     partial per block; else four launches with da (B, T, 4H) in the operand
-    type, chunk partials of dW and db per recurrent block (per cluster); on
-    the cluster path five, the gate pass first with its records (B, T, H, 8)
-    fp32; on the wide path window by window (lstm_wide.cu), its scratch
-    the plan's (a window's records and da, the dW and db partials, the
-    packed W_hh, bf16 W_ih, the carried (dh, dc), db_rows).  rows
+    type, chunk partials of dW and db per recurrent block; on the cluster
+    and wide paths window by window from the last (lstm_bwd.cu's
+    launch_cluster, lstm_wide.cu), the gate pass first, its scratch the
+    plan's (a window's records (B, tc, H, 8) fp32 and da, the dW and db
+    partials, the packed W_hh and bf16 W_ih where the path reads them, the
+    carried (dh, dc) and each row's db, db_rows).  rows
     overrides the plan's rows per block of the recurrence (a row group on
     the wide path), ctas the wide path's CTAs a row group and chunk the
     terms of its staged chunks of da (whole k-tiles, at most the row; the
@@ -885,25 +919,26 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
         return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     plan = _plan_for(x, hidden, rows)
-    if plan.wide:
-        da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
-        rec, part = torch.empty(plan.rec_shape, **f32), torch.empty(plan.part_shape, **f32)
-        db_part, pack = torch.empty(plan.db_part_shape, **f32), torch.empty(plan.bwd_pack, dtype=plan.da_dtype,
-                                                                          device=x.device)
-        dh_state, dc_state = torch.empty(plan.state_shape, **f32), torch.empty(plan.state_shape, **f32)
+    name = instantiation("lstm_bwd", x.dtype, width, hidden)
+    if plan.wide or plan.cluster:  # windows of time: a window's scratch, the state carried between windows
+        keep = [torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device), torch.empty(plan.rec_shape, **f32),
+                torch.empty(plan.part_shape, **f32), torch.empty(plan.db_part_shape, **f32),
+                torch.empty(plan.bwd_pack, dtype=plan.da_dtype, device=x.device),
+                torch.empty(plan.wih, dtype=torch.bfloat16, device=x.device),
+                torch.empty(plan.state_shape, **f32), torch.empty(plan.state_shape, **f32),
+                torch.empty(bsz, 4 * hidden, **f32)]
+        scratch = [s.data_ptr() if s.numel() else None for s in keep]  # da, rec, part, db_part, pack, wih, dh, dc, db_rows
+        args = (x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                b.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), *scratch)
+        if plan.cluster:
+            _launch("lstm_bwd", name, x, *args, bsz, t, width, hidden, plan.bwd_rows, plan.n_chunks, plan.bwd_window)
+            return dx, dw_ih, dw_hh, db
         count = torch.empty(plan.bwd_blocks, dtype=torch.int32, device=x.device)
         ctas = ctas or plan.bwd_ctas
         if not 0 <= ctas <= -(-hidden // WIDE_UNITS):
             raise ValueError(f"the wide path takes 1 to ceil(H / {WIDE_UNITS}) CTAs a row group, got {ctas}")
-        db_rows = torch.empty(bsz, 4 * hidden, **f32)
-        wih = torch.empty(plan.wih, dtype=torch.bfloat16, device=x.device) if plan.wih else None
-        _launch("lstm_wide", instantiation("lstm_bwd", x.dtype, width, hidden), x,
-                x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
-                w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
-                dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), da.data_ptr(), rec.data_ptr(),
-                part.data_ptr(), db_part.data_ptr(), pack.data_ptr(), None if wih is None else wih.data_ptr(),
-                dh_state.data_ptr(), dc_state.data_ptr(), db_rows.data_ptr(), count.data_ptr(), bsz, t, width,
-                hidden, plan.bwd_rows, ctas, _chunk(chunk), plan.bwd_window, plan.n_chunks)
+        _launch("lstm_wide", name, x, *args, count.data_ptr(), bsz, t, width, hidden, plan.bwd_rows, ctas,
+                _chunk(chunk), plan.bwd_window, plan.n_chunks)
         return dx, dw_ih, dw_hh, db
     if plan.bwd_fused:
         da = db_part = None
@@ -912,13 +947,11 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
         da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
         part = torch.empty(plan.part_shape, **f32)
         db_part = torch.empty(plan.db_part_shape, **f32)
-    rec = torch.empty(plan.rec_shape, **f32) if plan.rec_shape else None
-    _launch("lstm_bwd", instantiation("lstm_bwd", x.dtype, width, hidden), x,
+    _launch("lstm_bwd", name, x,
             x.data_ptr(), y.data_ptr(), cprev.data_ptr(), dy.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
             dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(),
-            da.data_ptr() if da is not None else None, rec.data_ptr() if rec is not None else None,
-            part.data_ptr(),
+            da.data_ptr() if da is not None else None, None, part.data_ptr(),
             db_part.data_ptr() if db_part is not None else None, bsz, t, width, hidden,
             plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(plan.bwd_fused))
     return dx, dw_ih, dw_hh, db

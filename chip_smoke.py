@@ -49,9 +49,13 @@ width 16.  Phases:
    same inputs, kernel A at width 64 launched;
 4b. the widths (widths_phase, see NEW_WIDTHS): kernels A, B and C masked,
    on the cluster path and on the wide path past 256 against their plain
-   versions, at the base family's main-path shapes too, and timed; the
-   base family at channels 48, 128 and 512 (sessions, train steps) against
-   the CPU, counters zeroed just before;
+   versions, at the base family's main-path shapes too, and timed; every
+   rows a group of the wide fp32 A and B; C's wide fp32 gate pass against
+   kernel B's gates bit for bit (gates_checks); kernel C on the cluster path
+   at D = H = 256, B = 512, T = 16000 in windows, against plain in row
+   slices (cluster_scale_check); the base family at channels 48, 128 and
+   512 (sessions, train steps) against the CPU, counters zeroed just
+   before;
 5. the train path, counters zeroed just before: one fp32 train_step vs the
    JAX package's train golden (terms, gradient norms, BatchNorm
    statistics), then ``python -m awm_tpu_torch train`` in process (bf16,
@@ -169,12 +173,14 @@ width 16.  Phases:
    B's c_{t-1}, kernel C's scratch, the backward's by kind: cuDNN's
    workspace, layout copies for cuDNN, convolution gradients, each node's
    gradients), the most of cuDNN's workspace and copies live at once in the
-   backward, and the bytes autograd saves;
+   backward, and the bytes autograd saves, BatchNorm's share of them; then
+   the same preset's bf16 step at B=512 (its peak memory and time);
 17. print the {"kernels": [...]} line (36 instantiations: widths 64, 32
    and 16, masked 48, cluster 128, wide 512; the width-32
    forward ones with their path and every width-32 one with its fit; the
    width-16 ones at the dry run's shape, with their times at (128, 50)),
-   and last the {"ok": true, ...} line.
+   one line with the card, the wall and every phase's seconds, and last the
+   {"ok": true, ...} line.
 
 Any failed check exits non-zero without the last line.  There is no CPU
 fallback: without a card the script exits 1 at once.  Phases 13-15 start
@@ -234,7 +240,7 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 # family's main path hands them (T=16000; A at the session's B=64, B and C
 # at the train step's B=32); timed, and held against their plain versions,
 # at T=16000 (A B=512, B and C B=128) at the base family's two new widths
-# and the ceiling; then the base family at channels 48 and 128 through the
+# (C at the ceiling by cluster_scale_check); then the base family at channels 48 and 128 through the
 # session (64 chunks) and the train step (B=32), from
 # checkpoint.seeded_flax_tree weights.  The masked
 # instantiations of capacities 32 and 16 run on no main path: OFF_PATH.
@@ -2364,19 +2370,29 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
 
 ROWS_CHECK_WIDTHS = (96, 128, 256, WIDE_CHANNELS)  # the cluster path's K = 3, 4, 8; the wide path
 ROWS_CHECK_B, ROWS_CHECK_T = (1, 7, 32), (1, 17, 512)
-# kernel C's launches on the cluster path (the gate pass, the recurrence,
-# dx, dW, the ordered sum), by a kernel-name fragment
-CLUSTER_BWD_PARTS = {"gates": "lstm_bwd_gates_", "rec": "lstm_bwd_cluster_", "dx": "lstm_bwd_dx_",
-                     "dw": "lstm_bwd_dw_", "sum": "lstm_bwd_sum_"}
+
+
+def cluster_parts(plan) -> dict[str, tuple[str, int]]:
+    """Kernel C's launches on the cluster path, by a kernel-name fragment
+    and its launches a call: the gate pass, the recurrence, dx and dW once a
+    window of the plan's, the ordered sum once."""
+    wins = -(-T // plan.bwd_window)
+    return {"gates": ("lstm_bwd_gates_", wins), "rec": ("lstm_bwd_cluster_", wins), "dx": ("lstm_bwd_dx_", wins),
+            "dw": ("lstm_bwd_dw_", wins), "sum": ("lstm_bwd_sum_", 1)}
 
 
 def rows_variants(K, x, w: int) -> tuple:
     """The rows variants rows_checks holds at width w: on the cluster path
-    every one it builds (CLUSTER_ROWS); on the wide path the plan's (A's
-    and C's) and one row a group (B row groups: at B=32 in more launches
-    than one)."""
+    every one it builds (CLUSTER_ROWS); on the wide path in fp32 every rows
+    a row group (WIDE_ROWS: A and B's tiles a warp follow them); in bf16
+    the plan's (A's and C's) and one row a group (B row groups: at B=32 in
+    more launches than one)."""
+    import torch
+
     if not K.is_wide(w):
         return K.CLUSTER_ROWS
+    if x.dtype == torch.float32:
+        return K.WIDE_ROWS
     plan = K._plan_for(x, w)
     return tuple(sorted({plan.fwd_rows, plan.bwd_rows, 1}))
 
@@ -2506,13 +2522,16 @@ def wide_main_checks(K, dev, max_err, max_rel) -> None:
             torch.cuda.empty_cache()
 
 
+A_PLAIN_B = B_TRAIN  # rows of A's B_SERVE that wide_times holds (and times) its plain version on
+
+
 def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
     """The widths phase's timing at the base family's new widths (48:
-    masked, 128: cluster, WIDE_CHANNELS = 512: wide) and at the cluster
-    path's widest (CLUSTER_MAX_WIDTH: its 8 CTAs), T=16000: A at B=512, B
+    masked, 128: cluster, WIDE_CHANNELS = 512: wide), T=16000: A at B=512, B
     and C at B=128, fp32 and bf16, by CUDA events (2 calls after one); the
-    plain versions at the same T (held_in_slices: in slices of rows where
-    the card's memory refuses the batch), whose outputs are held against
+    plain versions at the same T (A's on its first A_PLAIN_B rows, its
+    plain_batch; held_in_slices: in slices of rows where the card's memory
+    refuses the batch), whose outputs are held against
     the kernels' (KERNEL_TOL; the worst errors go to max_err / max_rel);
     torch.nn.LSTM (cuDNN, the yardstick only; a batch the card's memory
     refuses in slices, see yardstick); the bound.  On the cluster path C's
@@ -2521,7 +2540,8 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
     groups and CTAs a group, and the scratch the call allocates beside its
     inputs and outputs (the caching allocator's peak over the call) beside
     the plan's count.  Printed and kept in times under the instantiation's
-    name, the cluster ceiling's under that name's "W256" key."""
+    name.  (The cluster path's widest, 256, is timed by ops/bench_lstm.py
+    --width 256; cluster_scale_check holds its C at T=16000.)"""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
@@ -2550,7 +2570,7 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
         del out
         return torch.cuda.max_memory_allocated() - base - out_bytes
 
-    for w in (*BASE_CHANNELS, K.CLUSTER_MAX_WIDTH, WIDE_CHANNELS):
+    for w in (*BASE_CHANNELS, WIDE_CHANNELS):
         wide = K.is_wide(w)
         for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
@@ -2568,7 +2588,7 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                 y0 = K.forward_kernel(x, w_ih, w_hh, bias)
                 finite = bool(torch.isfinite(y0).all())
                 (err_a,), _, plain = held_in_slices(lambda i, j: (lstm_forward(x[i:j], w_ih, w_hh, bias),),
-                                                    B_SERVE, (y0,), f"plain A {w} {sfx}")
+                                                    A_PLAIN_B, (y0[:A_PLAIN_B],), f"plain A {w} {sfx}")
                 del y0
                 torch.cuda.empty_cache()
                 m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
@@ -2596,8 +2616,8 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                     b_scratch = scratch_of(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
                                            B_TRAIN * T * w * elt + 4 * (4 * w * 2 * w + 4 * w))
                 elif K.capacity(w) is None:
-                    b_split = device_split(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
-                                           CLUSTER_BWD_PARTS, reps=1)
+                    b_split = device_per_call(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
+                                              cluster_parts(plan_c))
                 finite &= all(bool(torch.isfinite(g).all()) for g in (y, *grads))
                 errs, _, f_plain = held_in_slices(lambda i, j: lstm_forward_train(x[i:j], w_ih, w_hh, bias),
                                                   B_TRAIN, (y, cprev), f"plain B {w} {sfx}")
@@ -2634,6 +2654,8 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                 bms, by = bound_ms(n, b, width=w)
                 row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": l_ms,
                        "width": w, "batch": b, "steps": T}
+                if kernel == "lstm_fwd":
+                    row["plain_batch"] = A_PLAIN_B
                 if split:
                     row["split_ms"] = split
                 bwd = kernel == "lstm_bwd"
@@ -2644,15 +2666,13 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                                 "row_groups": plan.bwd_blocks if bwd else plan.fwd_blocks,
                                 "ctas_a_group": plan.bwd_ctas if bwd else plan.fwd_ctas,
                                 "scratch_bytes": scratch, "planned_scratch_bytes": plan.scratch_bytes(kernel)})
-                if w in BASE_CHANNELS or wide:
-                    times[n] = row
-                else:
-                    times[n][f"W{w}"] = row
+                times[n] = row
                 split_text = ""
                 if split:
                     head = f"device {fmt_ms(row['device_ms'], 3)}: " if wide else "device ms by launch: "
                     split_text = f" ({head}" + ", ".join(f"{part} {fmt_ms(v, 3)}" for part, v in split.items()) + ")"
-                print(f"{n} W={w} B={b} T={T}: kernel {k_ms:.3f} ms{split_text}, plain {p_ms:.1f} ms, cuDNN "
+                print(f"{n} W={w} B={b} T={T}: kernel {k_ms:.3f} ms{split_text}, plain {p_ms:.1f} ms"
+                      f"{f' (its first {A_PLAIN_B} rows)' if kernel == 'lstm_fwd' else ''}, cuDNN "
                       f"nn.LSTM({w}) {l_ms} ms, bound {bms:.4f} ms ({by})"
                       + (f"; window {row['window']} steps, {row['rows_a_group']} rows a group, {row['row_groups']} "
                          f"groups of {row['ctas_a_group']} CTAs; scratch {scratch / 1e9:.3f} GB allocated (plan "
@@ -2725,6 +2745,7 @@ def wide_parts(K, plan, kernel: str, dtype, width: int) -> dict[str, tuple[str, 
     recs = wins * -(-groups // per)
     if not bwd:
         return {"pack": ("lstm_wide_pack", 1), "xp": ("lstm_bwd_gates_", wins), "rec": ("lstm_wide_fwd_", recs)}
+    # fp32's gate pass is two kernels a window (x's sums, then h's): device_split adds their means
     return {"pack": ("lstm_wide_pack", 1), "gates": ("lstm_bwd_gates_", wins), "rec": ("lstm_wide_bwd_", recs),
             "dx": ("lstm_bwd_dx_", wins), "dw": ("lstm_bwd_dw_", wins), "sum": ("lstm_bwd_sum_", 1)}
 
@@ -2851,15 +2872,83 @@ def wide_family(K, launches, dev) -> dict:
     return errs
 
 
+CLUSTER_SCALE_B, CLUSTER_SCALE_SLICE = 512, 128  # A's serving batch; the plain version's rows at once
+
+
+def cluster_scale_check(K, dev, max_err, max_rel) -> None:
+    """Kernel C on the cluster path at its widest, D = H = 256, bf16, B =
+    CLUSTER_SCALE_B, T = 16000: the call's operands fit the card (~25 GB),
+    and its windows keep the scratch it allocates within
+    CLUSTER_SCRATCH_BYTES (for all T the gate pass's records alone were 67
+    GB: the call raised torch.OutOfMemoryError); held against lstm_backward
+    in slices of CLUSTER_SCALE_SLICE rows (dx by rows; dW and db the slices'
+    sums) at KERNEL_TOL."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    b, w, dtype = CLUSTER_SCALE_B, K.CLUSTER_MAX_WIDTH, torch.bfloat16
+    bname = K.instantiation("lstm_bwd", dtype, w)
+    x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=5120, w=w)
+    plan = K._plan_for(x, w)
+    t0 = time.time()
+    with no_tf32():
+        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base - sum(g.numel() * g.element_size() for g in got)
+        kernel_s = time.time() - t0
+        dx_err, dx_ref, sums = 0.0, 0.0, None
+        for r0 in range(0, b, CLUSTER_SCALE_SLICE):
+            rows = slice(r0, r0 + CLUSTER_SCALE_SLICE)
+            ref = lstm_backward(x[rows], y[rows], cprev[rows], dy[rows], w_ih, w_hh, bias)
+            dx_err = max(dx_err, max_abs(got[0][rows], ref[0]))
+            dx_ref = max(dx_ref, float(ref[0].float().abs().max()))
+            sums = list(ref[1:]) if sums is None else [a + r for a, r in zip(sums, ref[1:])]
+            del ref
+    rels = [dx_err / (dx_ref + 1e-12)] + [rel_err(a, r) for a, r in zip(got[1:], sums)]
+    max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+    tol = K.KERNEL_TOL["lstm_bwd", "bf16"]
+    check(max(rels) <= tol and scratch <= K.CLUSTER_SCRATCH_BYTES and plan.bwd_window < T,
+          f"{bname} at {w} x {w}, B={b} T={T}: {-(-T // plan.bwd_window)} windows of {plan.bwd_window} steps, "
+          f"scratch {scratch / 1e9:.3f} GB allocated (budget {K.CLUSTER_SCRATCH_BYTES / 1e9:.3f} GB; all T's records "
+          f"{b * T * w * K.CLUSTER_REC * 4 / 1e9:.1f} GB), B + C {kernel_s:.1f} s; vs plain in slices of "
+          f"{CLUSTER_SCALE_SLICE} rows: dx, dW_ih, dW_hh, db rel {', '.join(f'{r:.2e}' for r in rels)} (tol {tol:.0e})")
+    del x, y, cprev, dy, got, sums
+    torch.cuda.empty_cache()
+
+
+def gates_checks(K, dev) -> None:
+    """C's wide fp32 gate pass reproduces the gates kernel B formed, bit for
+    bit, at ops/bench_lstm.py's GATES_CASES (its --gates: lstm_wide.cu built
+    with -DAWM_WIDE_GATES=1, which main starts building beside the port's
+    libraries)."""
+    import torch
+
+    from awm_tpu_torch.ops.bench_lstm import GATES_CASES, gates_check
+
+    differ = gates_check(torch, K, ".", torch.cuda.get_device_name(dev))
+    check(differ == 0, f"C's wide fp32 gate pass vs kernel B's gates at {len(GATES_CASES)} cases (rows 1-64, whole "
+                       f"and chunked h, a tiled group, H = 512, 300, 257, 600, 40): {differ} differ in any bit")
+
+
 def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
-    """Phase 4b: wide_checks, rows_checks, wide_main_checks, wide_times,
-    then wide_family with the counters zeroed just before (the functions
-    take only K, launches and dev beside what they fill, so a card-side
-    rehearsal can call them alone)."""
+    """Phase 4b: wide_checks, rows_checks, gates_checks, cluster_scale_check,
+    wide_main_checks, wide_times, then wide_family with the counters zeroed
+    just before (the functions take only K, launches and dev beside what
+    they fill, so a card-side rehearsal can call them alone)."""
     laps = [("checks", time.time())]
     wide_checks(K, dev, max_err, max_rel)
     laps.append(("rows", time.time()))
     rows_checks(K, dev, max_err, max_rel)
+    laps.append(("gates", time.time()))
+    gates_checks(K, dev)
+    laps.append(("cluster at scale", time.time()))
+    cluster_scale_check(K, dev, max_err, max_rel)
     laps.append(("main shapes", time.time()))
     wide_main_checks(K, dev, max_err, max_rel)
     laps.append(("timed shapes", time.time()))
@@ -2996,7 +3085,8 @@ def dryrun_phase(K, launches) -> dict:
             "fp32_card_vs_cpu": {"terms_rel": max(terms.values()), "drift": drift}}
 
 
-MEM_B = 256  # the bench's base preset, the largest train batch that fit (PERF.md section 5)
+MEM_B = 256  # the bench's base preset, the largest train batch that fit before BatchNorm's Function (PERF.md 5)
+MEM_B_LARGE = 512  # the batch that ran out of memory before it
 
 
 def peak_live(trace: list) -> tuple[int, list]:
@@ -3084,12 +3174,15 @@ def memory_phase(dev) -> dict:
     cuDNN's workspace and of its layout copies live at once anywhere in the
     backward; beside it the bytes autograd saves for the backward, read off
     its saved-tensor hooks in a forward of the same batch and counted once
-    per storage, grouped by shape.  The backward's start is a marker block
-    that a wrapped Tensor.backward allocates for the recorded step."""
+    per storage, grouped by shape, and the part BatchNorm's forwards save.
+    The backward's start is a marker block that a wrapped Tensor.backward
+    allocates for the recorded step.  Then the same preset's bf16 step at
+    B=MEM_B_LARGE: its peak memory and seconds a step (after a warm-up)."""
     import torch
 
     from awm_tpu_torch import train as tr
     from awm_tpu_torch.config import get_config
+    from awm_tpu_torch.models.layers import BatchNorm
 
     os.environ.setdefault("TORCH_SYMBOLIZE_MODE", "fast")  # torch's own ELF reader: seconds, not minutes
     cfg = get_config("base")
@@ -3181,7 +3274,7 @@ def memory_phase(dev) -> dict:
 
     # what autograd saves: one forward and the loss of the same batch under
     # saved-tensor hooks, each storage counted once
-    seen, by_shape = set(), {}
+    seen, by_shape, in_bn, bn_saved = set(), {}, [False], [0]
 
     def pack(t):
         key = (t.untyped_storage().data_ptr(), t.device.type)
@@ -3190,24 +3283,56 @@ def memory_phase(dev) -> dict:
             nbytes = t.untyped_storage().nbytes()
             sk = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
             by_shape[sk] = by_shape.get(sk, 0) + nbytes
+            bn_saved[0] += nbytes if in_bn[0] else 0
         return t
 
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), tr._precision(cfg):
-        message = tr.draw_messages(cfg, MEM_B, torch.Generator().manual_seed(0), dev)
-        delta, s_w, logits = tr._forward(cfg, state.gen, state.det, s, message, train=True)
-        terms = tr._terms(cfg, s, delta, s_w, logits, message)
+    bn_forward = BatchNorm.forward
+
+    def tagged(self, x):
+        in_bn[0] = True
+        try:
+            return bn_forward(self, x)
+        finally:
+            in_bn[0] = False
+
+    BatchNorm.forward = tagged
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), tr._precision(cfg):
+            message = tr.draw_messages(cfg, MEM_B, torch.Generator().manual_seed(0), dev)
+            delta, s_w, logits = tr._forward(cfg, state.gen, state.det, s, message, train=True)
+            terms = tr._terms(cfg, s, delta, s_w, logits, message)
+    finally:
+        BatchNorm.forward = bn_forward
     saved = sum(by_shape.values())
     act = MEM_B * cfg.audio_len
     print(f"  autograd saves {saved * gib:.3f} GiB in this forward ({len(seen)} storages; B x T = {act} samples, "
           f"{saved / act:.0f} bytes a sample); the largest by (shape, dtype):", flush=True)
     for (shape, dt), size in sorted(by_shape.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {size * gib:8.3f} GiB  {shape} {dt}", flush=True)
-    del terms, delta, s_w, logits, state
+    print(f"  of it BatchNorm's forwards save {bn_saved[0] * gib:.3f} GiB (their inputs in their own dtype, "
+          f"each storage once)", flush=True)
+    del terms, delta, s_w, logits, s
+    torch.cuda.empty_cache()
+    # the step at the batch that ran out of memory before BatchNorm saved only its input
+    s = torch.from_numpy((0.3 * rng.standard_normal((MEM_B_LARGE, cfg.audio_len))).astype(np.float32)).to(dev)
+    tr.train_step(cfg, state, s)  # warm-up at this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train_step(cfg, state, s)
+    torch.cuda.synchronize()
+    large = {"batch": MEM_B_LARGE, "peak_gib": torch.cuda.max_memory_allocated() * gib,
+             "step_s": time.perf_counter() - t0}
+    large["clips_per_s"] = MEM_B_LARGE / large["step_s"]
+    print(f"bf16 train step, base preset, B={MEM_B_LARGE}: peak {large['peak_gib']:.2f} GiB, "
+          f"{large['step_s']:.3f} s ({large['clips_per_s']:.1f} clips/s)", flush=True)
+    del state, s
     torch.cuda.empty_cache()
     return {"peak_gib": peak_bytes * gib, "split_gib": {k: v * gib for k, v in split.items()},
             "backward_gib": {k: v * gib for k, v in kinds.items()},
             "backward_most_live_gib": {k: v * gib for k, v in most.items()},
-            "top_groups_gib": {k: v * gib for k, v in top}, "saved_by_autograd_gib": saved * gib}
+            "top_groups_gib": {k: v * gib for k, v in top}, "saved_by_autograd_gib": saved * gib,
+            "batchnorm_saved_gib": bn_saved[0] * gib, "large_batch": large}
 
 
 def rank_main(argv: list) -> int:
@@ -3265,9 +3390,15 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
+    # 2. build (and, beside it, lstm_wide.cu for phase 4b's gates check)
+    from awm_tpu_torch.ops import cuda_build
+
+    gates_build = threading.Thread(target=cuda_build.build_all, args=(["lstm_wide"], ("-DAWM_WIDE_GATES=1",)),
+                                   daemon=True)
+    gates_build.start()
     t0 = time.time()
     K.libraries()
+    gates_build.join()
     print(f"== build {', '.join(K.SOURCES)} (parallel): {time.time() - t0:.1f} s\n{K.build_log}",
           flush=True)
 
@@ -3942,6 +4073,7 @@ def main() -> int:
           f"memory {json.dumps(memory)}; "
           f"phase s {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
+    print(f"{smi}; wall {time.time() - t_start:.1f} s; phase s {json.dumps(laps)}", flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1

@@ -644,6 +644,132 @@ def test_cluster_rows_variants_match_plain(cuda, w, rows, dtype, tol_fwd, tol_bw
                 assert torch.equal(a, a2), name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cluster_backward_at_scale(cuda, dtype):
+    """Kernel C on the cluster path at D = H = 256, B = 512 (A's serving
+    batch), T = 16000: the call's operands fit the card (bf16 ~25 GB), and
+    its windows keep the scratch within CLUSTER_SCRATCH_BYTES (for all T
+    the gate pass's records alone were 67 GB bf16, and the call raised
+    torch.OutOfMemoryError).  Held against lstm_backward in slices of 64
+    rows (dx by rows; dW and db the slices' sums) at KERNEL_TOL."""
+    from awm_tpu_torch.ops.lstm import lstm_backward
+
+    b, t, w = 512, 16000, 256
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = (0.3 * torch.randn(b, t, w, device=cuda, generator=gen)).to(dtype)
+    w_ih, w_hh, bias = (0.1 * torch.randn(*s, device=cuda, generator=gen) for s in ((4 * w, w), (4 * w, w), (4 * w,)))
+    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    dy = torch.randn(b, t, w, device=cuda, generator=gen).to(dtype)
+    name = lstm_kernel.instantiation("lstm_bwd", dtype, w)
+    before = lstm_kernel.launches[name]
+    with no_tf32():
+        got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        assert lstm_kernel.launches[name] == before + 1 and name.endswith("_cluster")
+        dx_err, sums = 0.0, None
+        for r0 in range(0, b, 64):
+            rows = slice(r0, r0 + 64)
+            ref = lstm_backward(x[rows], y[rows], cprev[rows], dy[rows], w_ih, w_hh, bias)
+            dx_err = max(dx_err, float((got[0][rows].float() - ref[0].float()).abs().max()) /
+                         (float(ref[0].float().abs().max()) + 1e-12))
+            sums = list(ref[1:]) if sums is None else [a + r for a, r in zip(sums, ref[1:])]
+            del ref
+    assert dx_err <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], dx_err
+    for what, a, r in zip(("dw_ih", "dw_hh", "db"), got[1:], sums):
+        rel = float((a - r).abs().max() / (r.abs().max() + 1e-12))
+        assert rel <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], (what, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("w", [96, 256])
+def test_cluster_backward_windows(cuda, w, dtype, monkeypatch):
+    """C on the cluster path with the budget cut so that a call of B = 7,
+    T = 65 runs in windows (of 3 and of 16 steps) against the same call in
+    one window: dx and db the same bits ((dh, dc) and each row's db carried
+    exactly), dW_ih and dW_hh within KERNEL_TOL (the partials summed by
+    window, in another order), all against lstm_backward at KERNEL_TOL."""
+    from awm_tpu_torch.ops.lstm import lstm_backward
+
+    b, t = 7, 65
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=w + 1, w=w)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, w, device=cuda, generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    one = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+    with no_tf32():
+        ref = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    plan = lstm_kernel._plan_for(x, w)
+    assert plan.bwd_window == t
+    elt = 2 if dtype == torch.bfloat16 else 4
+    per_step = b * (w * lstm_kernel.CLUSTER_REC * 4 + 4 * w * elt)
+    # the plan's fixed scratch beside a quarter of the budget kept for the dW partials
+    fixed = 4 * (plan.bwd_blocks * 4 * w + 2 * b * w + b * 4 * w) + elt * plan.bwd_pack + 2 * plan.wih
+    for tc in (3, 16):
+        budget = lstm_kernel.CLUSTER_SCRATCH_BYTES
+        cut = 4 * -(-(fixed + tc * per_step) // 3)  # three quarters of it hold the fixed scratch and tc steps
+        monkeypatch.setattr(lstm_kernel, "CLUSTER_SCRATCH_BYTES", cut)
+        lstm_kernel.launch_plan.cache_clear()
+        try:
+            assert lstm_kernel._plan_for(x, w).bwd_window == tc
+            got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+            torch.cuda.synchronize()
+        finally:
+            monkeypatch.setattr(lstm_kernel, "CLUSTER_SCRATCH_BYTES", budget)
+            lstm_kernel.launch_plan.cache_clear()
+        assert torch.equal(got[0], one[0]) and torch.equal(got[3], one[3]), tc
+        for what, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= lstm_kernel.KERNEL_TOL["lstm_bwd", sfx], (what, tc, rel)
+
+
+# The wide path's fp32 A and B (every warp works at any rows): the rows a
+# row group the plan can take and two in between, at T around a chunk.
+WIDE_ROWS_CASES = [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (7, 5), (40, 32), (33, 17)]
+
+
+@pytest.mark.parametrize("b,rows", WIDE_ROWS_CASES, ids=[f"B{b}-r{r}" for b, r in WIDE_ROWS_CASES])
+def test_wide_fp32_forward_every_rows(cuda, b, rows):
+    """fp32 kernels A and B on the wide path at H = 512 with every rows a
+    row group (the tile a warp takes follows them): A and B against
+    lstm_forward_train at 1e-4, B's y A's bit for bit; C (its gate pass sums
+    h in A's order) against lstm_backward at 1e-4."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    h, t = 512, 37
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=b + rows, w=h)
+    w_ih, w_hh, bias = (v * (0.3 / h**0.5) / 0.1 for v in (w_ih, w_hh, bias))
+    dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(rows))
+    with no_tf32():
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
+        got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        torch.cuda.synchronize()
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    assert torch.equal(y0, y)
+    assert float((y - ref_y).abs().max()) <= 1e-4 and float((cprev - ref_c).abs().max()) <= 1e-4
+    for what, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g):
+        assert float((a - r).abs().max() / (r.abs().max() + 1e-12)) <= 1e-4, what
+
+
+def test_wide_fp32_gate_pass_reproduces_the_forward_gates(cuda):
+    """C's wide fp32 gate pass sums h in the forward's order: a build with
+    -DAWM_WIDE_GATES=1 runs B over one window keeping every step's gates,
+    then the gate pass on B's own y, and the two sets of gates are equal
+    bit for bit (ops/bench_lstm.py --gates: rows 1 .. 64, whole and chunked
+    h, H = 512, 300, 257, 40 x 600, tiled)."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "awm_tpu_torch/ops/bench_lstm.py", "--gates"], capture_output=True,
+                         text=True, timeout=900)
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    assert out.returncode == 0 and lines and all(line["equal"] for line in lines), out.stdout + out.stderr
+
+
 SHORT_AND_RAGGED = [(1, 1), (1, 2), (7, 3), (7, 37)]  # T below and beyond the rings, a ragged last block
 # the forward's: also the ring's chunk edges, the short path's bound (width
 # 32) and one past it, and A's serving batch
@@ -831,47 +957,85 @@ def test_server_batched_fp32_equals_alone_on_card(cuda):
     """The fp32 server on the card, six concurrent clients (embed and
     detect, ragged lengths of 512-sample chunks): each response equals the
     same call on the unbatched session (embed within one int16 LSB, detect
-    within 1e-5), with fewer device batches than requests."""
+    within 1e-5), with fewer device batches than requests.  The batcher's
+    first device call (a seventh, detect request) is held until the six are
+    queued, each sent once the one before is in the queue, so the batches
+    they meet in do not depend on timing: in the queue's order e d e d e d
+    the batcher's windows (same-op co-riders, another op spilled to the
+    back) give four device batches, e, e, e, then d d d.  (The wait window
+    alone let a batch close before a co-rider arrived: one run in 50 on the
+    card had six batches of one.)"""
     import http.client
     import io
     import json
     import threading
+    import time
     import wave
 
     from awm_tpu_torch.api import InferenceSession, detect_array, watermark_array
     from awm_tpu_torch.serve import make_server
     from awm_tpu_torch.utils.audio_io import encode_wav_bytes
 
+    class Held:
+        """The batcher's session: a device call waits until release is set."""
+
+        def __init__(self, inner):
+            self.inner, self.entered, self.release = inner, threading.Event(), threading.Event()
+
+        def __getattr__(self, name):
+            fn = getattr(self.inner, name)
+
+            def call(*args, **kw):
+                self.entered.set()
+                assert self.release.wait(120)
+                return fn(*args, **kw)
+            return call
+
+    def until(cond, what):
+        deadline = time.monotonic() + 60
+        while not cond():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.002)
+
     sess = InferenceSession.from_npz(compute_dtype=torch.float32, device="cuda", chunk_len=512)
     httpd, batched = make_server(sess, "127.0.0.1", 0, max_wait_ms=50.0)
+    held = Held(sess)
+    batched.batcher.session = held
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     rng = np.random.default_rng(0)
     waves = [(0.2 * rng.standard_normal(int(n))).astype(np.float32) for n in rng.integers(700, 2000, 6)]
     bodies = [encode_wav_bytes(w, 16000) for w in waves]
     pcm = lambda b: np.frombuffer(wave.open(io.BytesIO(b)).readframes(10**7), "<i2").astype(np.int32)
-    results = [None] * 6
-    barrier = threading.Barrier(6)
+    results = {}
 
     def hit(i):
-        barrier.wait()
         c = http.client.HTTPConnection(*httpd.server_address, timeout=120)
         path = f"/embed?message={i}&seed={i}" if i % 2 == 0 else "/detect"
-        c.request("POST", path, body=bodies[i], headers={"Content-Length": str(len(bodies[i]))})
+        body = bodies[i % 6]
+        c.request("POST", path, body=body, headers={"Content-Length": str(len(body))})
         r = c.getresponse()
         results[i] = (r.status, r.read())
 
     try:
-        threads = [threading.Thread(target=hit, args=(i,)) for i in range(6)]
-        for t in threads:
-            t.start()
+        threads = [threading.Thread(target=hit, args=(7,))]  # the held call: detect of bodies[1]
+        threads[0].start()
+        until(held.entered.is_set, "the first device call")
+        for i in range(6):
+            threads.append(threading.Thread(target=hit, args=(i,)))
+            threads[-1].start()
+            until(lambda: batched.batcher._q.qsize() == i + 1, f"request {i} queued")
+        held.release.set()
         for t in threads:
             t.join(timeout=120)
         stats = dict(batched.batcher.stats)
     finally:
+        held.release.set()
         httpd.shutdown()
         httpd.server_close()
         batched.close()
-    for i, (status, body) in enumerate(results):
+    assert results[7][0] == 200, results[7][1]
+    for i in range(6):
+        status, body = results[i]
         assert status == 200, body
         x = pcm(bodies[i]).astype(np.float32) / 32768.0
         if i % 2 == 0:
@@ -882,7 +1046,9 @@ def test_server_batched_fp32_equals_alone_on_card(cuda):
             assert abs(got["mean_probability"] - want["mean_probability"]) <= 1e-5
             assert got["predicted_message"] == want["predicted_message"]
             np.testing.assert_allclose(got["message_confidence"], want["message_confidence"], atol=1e-5)
-    assert stats["device_batches"] < stats["requests"] == 6
+    six = {k: stats[k] - 1 for k in ("requests", "device_batches")}  # the held call's aside
+    assert six["device_batches"] < six["requests"] == 6
+    assert six["device_batches"] == 4
 
 
 def _shapecap_step_inputs(b, t):

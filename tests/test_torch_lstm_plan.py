@@ -418,13 +418,16 @@ def test_plan_at_every_new_width(d, h, dtype):
     path, ceil(H / 32) CTAs a cluster, sm_count // K clusters a wave, rows
     by the cluster path's measured costs at that K (where none is measured,
     the fewest rows that fit one wave).  Scratch at the real widths: da (B,
-    T, 4H), dW partials (n, 4H, D + H), db (blocks, 4H), on the cluster
-    path the gate pass's records (B, T, H, 8); the blocks cover the batch
-    once; the launch counters name the path."""
+    T, 4H), dW partials (n, 4H, D + H), db (blocks, 4H); on the cluster
+    path a window's da (B, tc, 4H) and the gate pass's records (B, tc, H,
+    8); the blocks cover the batch once; the launch counters name the
+    path."""
     for batch in (1, 7, 64, 128, 512):
         for steps in (1, 50, 16000):
             plan = launch_plan(batch, steps, dtype, 132, d, None, h)
-            assert plan.da_shape == (batch, steps, 4 * h) and plan.da_dtype == dtype
+            window = plan.bwd_window if max(d, h) > 64 else steps
+            assert 1 <= window <= steps
+            assert plan.da_shape == (batch, window, 4 * h) and plan.da_dtype == dtype
             assert plan.part_shape == (plan.n_chunks, 4 * h, d + h)
             assert plan.db_part_shape == (plan.bwd_blocks, 4 * h)
             assert not plan.fwd_short and not plan.bwd_fused
@@ -434,7 +437,7 @@ def test_plan_at_every_new_width(d, h, dtype):
             if max(d, h) > 64:
                 assert (plan.capacity, plan.cluster) == (0, -(-h // 32)) and plan.cluster <= 8
                 assert name.endswith("_cluster")
-                assert plan.rec_shape == (batch, steps, h, lstm_kernel.CLUSTER_REC)
+                assert plan.rec_shape == (batch, window, h, lstm_kernel.CLUSTER_REC)
                 slots = 132 // plan.cluster
                 costs = tuple(c.get((plan.cluster, dtype))
                               for c in (lstm_kernel.CLUSTER_FWD_STEP_COST, lstm_kernel.CLUSTER_BWD_STEP_COST))
@@ -543,8 +546,9 @@ def test_cluster_plan_rows_waves_and_scratch(k, batch, dtype):
     """The plan at K = 3, 4, 8 on an H100's reading of the clusters it
     holds: rows a cluster that take the fewest waves at the measured cost
     (ties to fewer rows), clusters that cover the batch once, and the
-    backward's scratch at the real widths: the gate pass's records (B, T,
-    H, 8) fp32, da (B, T, 4H) in the operand type, db per cluster.  At K = 4
+    backward's scratch at the real widths: a window's gate-pass records (B,
+    tc, H, 8) fp32 and da (B, tc, 4H) in the operand type, within
+    CLUSTER_SCRATCH_BYTES, db per cluster.  At K = 4
     the base family's main path (session B=64, train step B=32) takes one
     wave."""
     h, per_wave = CLUSTER_K[k]
@@ -558,12 +562,60 @@ def test_cluster_plan_rows_waves_and_scratch(k, batch, dtype):
         assert set(cost) == set(lstm_kernel.CLUSTER_ROWS) and cost[1] == 1.0
         best = min((_cluster_waves(batch, r, per_wave) * cost[r], r) for r in lstm_kernel.CLUSTER_ROWS)
         assert (_cluster_waves(batch, rows, per_wave) * cost[rows], rows) == best
-    assert plan.rec_shape == (batch, 16000, h, 8) and plan.da_shape == (batch, 16000, 4 * h)
+    tc = plan.bwd_window
+    assert plan.rec_shape == (batch, tc, h, 8) and plan.da_shape == (batch, tc, 4 * h)
+    assert 1 <= tc <= 16000 and plan.scratch_bytes("lstm_bwd") <= lstm_kernel.CLUSTER_SCRATCH_BYTES
     assert plan.da_dtype == dtype and plan.db_part_shape == (plan.bwd_blocks, 4 * h)
     if k == 4 and batch in (32, 64):
         rows = plan.fwd_rows if batch == 64 else max(plan.fwd_rows, plan.bwd_rows)
         assert _cluster_waves(batch, rows, per_wave) == 1
         assert _cluster_waves(batch, plan.bwd_rows, per_wave) == 1 or batch == 64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [96, 128, 256])
+@pytest.mark.parametrize("batch", [1, 7, 128, 512, 1024, 4096])
+def test_cluster_backward_windows_stay_within_the_budget(batch, h, dtype):
+    """Kernel C on the cluster path at T=16000 (D = H): its windows keep
+    every scratch tensor the call allocates (a window's records (B, tc, H, 8)
+    fp32 and da (B, tc, 4H), the dW and db partials, the carried (dh, dc)
+    and each row's db, bf16's packed W_hh and W_ih) within
+    CLUSTER_SCRATCH_BYTES for B up to 4096; a call whose whole T fits the
+    budget runs one window (the parent's launches, so the parent's bits),
+    and one that does not (the records alone 67 GB at H = 256, B = 512,
+    bf16) runs the longest window that fits."""
+    plan = launch_plan(batch, 16000, dtype, 132, h, None, h, ((15,) * 4,) * 2)
+    tc, budget = plan.bwd_window, lstm_kernel.CLUSTER_SCRATCH_BYTES
+    assert plan.cluster and plan.rec_shape == (batch, tc, h, 8) and plan.da_shape == (batch, tc, 4 * h)
+    assert plan.state_shape == (batch, h) and 1 <= tc <= 16000
+    assert plan.scratch_bytes("lstm_bwd") <= budget
+    bf16 = dtype == torch.bfloat16
+    assert plan.wih == (4 * h * h if bf16 else 0)
+    assert plan.bwd_pack == (lstm_kernel.wide_pack_elems(True, True, h) if bf16 else 0)
+    whole = dataclasses.replace(plan, rec_shape=(batch, 16000, h, 8), da_shape=(batch, 16000, 4 * h))
+    # one step more would not fit beside the quarter of the budget kept for the dW partials
+    longer = dataclasses.replace(plan, rec_shape=(batch, tc + 1, h, 8), da_shape=(batch, tc + 1, 4 * h),
+                                 part_shape=(1, 1, budget // 16))
+    if whole.scratch_bytes("lstm_bwd") <= budget:
+        assert tc == 16000
+    else:
+        assert tc < 16000 and longer.scratch_bytes("lstm_bwd") > budget
+    if (batch, h, dtype) == (512, 256, torch.bfloat16):
+        assert whole.scratch_bytes("lstm_bwd") > 80 * 10**9 and tc < 16000
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,steps", [(7, 65), (32, 17), (128, 50), (32, 2000)])
+def test_cluster_backward_short_calls_take_one_window(batch, steps, dtype):
+    """A cluster call whose whole T fits the budget (the hash shapes, the
+    strided-length and main-path calls below) runs one window of every
+    step, with the dW chunks of one pass over all its rows."""
+    for h in (96, 128, 256):
+        plan = launch_plan(batch, steps, dtype, 132, h, None, h)
+        assert plan.bwd_window == steps and plan.rec_shape == (batch, steps, h, 8)
+        n_rows = batch * steps
+        assert plan.n_chunks == max(1, min(lstm_kernel.DW_MAX_CHUNKS, max(-(-n_rows // lstm_kernel.DW_CHUNK_ROWS),
+                                                                         min(132, -(-n_rows // 64)))))
 
 
 @pytest.mark.parametrize("d,h", [(48, 48), (40, 24)])
