@@ -4,8 +4,8 @@ paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 (--width 64, the base family, T=16000; --width 32, the strided family's two
 stacked LSTMs, T=50; --width 16, the gradient check of
 entry.dryrun_multichip, T=32; any other width, T=16000: 48 takes
-the capacity-64 kernels at runtime widths, 128 the cluster path, 512 the
-wide path past 256; --steps
+kernels A and B's capacity 48 and C's capacity 64 at runtime widths, 128
+the cluster path, 512 the wide path past 256; --steps
 overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
@@ -85,11 +85,12 @@ SPLIT_MASKS = (0, 1, 2, 4, 8, 15)
 # --check's shapes: T around the ring's 16-step chunks and the short path's
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
-# --hash's (D, H): the capacities' squares, masked (48, 40 x 24), the cluster
+# --hash's (D, H): the capacities' squares, masked (48, 40 x 24, 33 x 33:
+# capacity 48 for A and B, 64 for C; 56 x 56: capacity 64), the cluster
 # path (96, 128, 256, 200 x 8), the wide path (257, 512, 40 x 600, 300 x 40);
 # (B, T): a ragged batch over several ring chunks, a batch of full row groups.
-HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (96, 96), (128, 128), (256, 256), (200, 8),
-               (257, 257), (512, 512), (40, 600), (300, 40))
+HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (33, 33), (56, 56), (96, 96), (128, 128),
+               (256, 256), (200, 8), (257, 257), (512, 512), (40, 600), (300, 40))
 HASH_BT = ((7, 65), (32, 17))
 
 
@@ -218,7 +219,12 @@ def output_hashes(torch, K, tree: str, card: str, against: str | None) -> int:
             h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()
 
-    key = lambda line: (line["kernel"], line["d"], line["h"], line["batch"], line["steps"])
+    # by kernel and operand type, not by instantiation: a checkout that routes a
+    # width to another capacity names it otherwise (48 x 48: lstm_fwd_f32_masked
+    # before capacity 48, lstm_fwd_f32_w48 after)
+    kind = lambda name: (max((k for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd") if name.startswith(k + "_")),
+                             key=len), "_bf16" in name)
+    key = lambda line: (*kind(line["kernel"]), line["d"], line["h"], line["batch"], line["steps"])
     theirs = {}
     if against:
         with open(against) as f:

@@ -3,7 +3,9 @@
 // The register-held kernels are templates over a capacity W, instantiated
 // for W = 64 (the base family's channel count), W = 32 (the strided family's
 // hidden width) and W = 16 (the multi-process dry run of
-// awm_tpu_torch/entry.py), torch gate order (i, f, g, o).  A call passes its
+// awm_tpu_torch/entry.py), and the forward (lstm_fwd.cu) also for W = 48
+// (the base family at channels 33-48: three quads a lane, NQ = 3), torch
+// gate order (i, f, g, o).  A call passes its
 // real input width D and hidden width H (runtime arguments, max(D, H) <= W):
 // the weights load row g H + j, column k < D (or k < H), zero elsewhere, x
 // is read with row stride D, and y, c_{t-1}, da and the gradients are
@@ -17,7 +19,7 @@
 // fp32, fp32 sums and state).
 //
 // Both recurrent kernels are warp-specialised.  A block has 8 W threads
-// (512 at W = 64, 256 at W = 32, 128 at W = 16): the first half of the
+// (512 at W = 64, 384 at W = 48, 256 at W = 32, 128 at W = 16): the first half of the
 // warps are the consumers, which run the sequential recurrence, and the
 // second half the producers, which run ahead of them and fill a ring in
 // shared memory with everything of a step that does not depend on the
@@ -50,6 +52,12 @@ namespace awm {
 // runtime arguments d and h.
 template <int W>
 constexpr bool valid_width = W == 16 || W == 32 || W == 64;  // the register-held weight rows: 1, 2 or 4 quads a lane
+// The forward's capacities: also W = 48, 3 quads a lane and 3 mma k-tiles.
+// Lane kp's quads 4 q + kp, q ascending, are then capacity 64's without its
+// last (q = 3), which is all zeros at widths up to 48, and the mma loses a
+// k-tile of zeros: a call at 33-48 keeps the bits it had on capacity 64.
+template <int W>
+constexpr bool valid_fwd_width = valid_width<W> || W == 48;
 
 constexpr int NBUF = 2;      // buffers of the producers' ring
 

@@ -13,12 +13,18 @@
 // gate order (i, f, g, o).  y and c_{t-1} are batch-major (B, T, H), the
 // port's layout; the TPU kernels' time-major layout is not carried over.
 // The capacity W is a template parameter, instantiated for 64 (the base
-// family, T = 16000 steps a 1-s chunk), 32 (the strided family's two stacked
-// LSTMs, T = 50 steps a chunk) and 16 (the dry run's gradient check, T =
-// 32; the ring path, untuned); a call passes its D, H <= W at run time
-// (lstm_common.cuh has the thread mapping and the masking).  Widths above 64
-// run on a thread-block cluster (lstm_fwd_cluster.cu: its own library, so
-// that the two build in parallel).
+// family, T = 16000 steps a 1-s chunk), 48 (the base family at channels
+// 33-48: 384 threads, three quads a lane, three mma k-tiles, so that such a
+// call no longer runs the width-64 block and its step chain), 32 (the
+// strided family's two stacked LSTMs, T = 50 steps a chunk) and 16 (the dry
+// run's gradient check, T = 32; the ring path, untuned); a call passes its
+// D, H <= W at run time and takes the smallest capacity that holds them
+// (lstm_common.cuh has the thread mapping and the masking).  Kernel C
+// (lstm_bwd.cu) has the capacities 64, 32 and 16 only: it reads y and
+// c_{t-1} as (B, T, H) whatever capacity built them, and recomputes the
+// gates in the order of lstm_common.cuh, which capacity 48 keeps bit for
+// bit.  Widths above 64 run on a thread-block cluster (lstm_fwd_cluster.cu:
+// its own library, so that the two build in parallel).
 //
 // What bounds it on this card: the recurrence is sequential in T, so the
 // time is the latency of one step times T, not bytes or FLOPs (the whole
@@ -78,7 +84,8 @@ using namespace awm;
 constexpr int S = 16;  // steps per chunk of the ring
 
 // Row stride of the staged x: the bf16 rows are read as mma B fragments, 8
-// rows at a time, and the pad puts them in distinct banks.
+// rows at a time, and the pad puts them in distinct banks (W + 8 bf16 is 36
+// words at 64, 28 at 48, 20 at 32, 12 at 16: 8 rows 4 banks apart or more).
 template <typename T, int W> constexpr int XP = is_bf16<T> ? W + 8 : W;
 
 // h_{t-1} in shared memory, double-buffered, in the operand type.  fp32: R
@@ -92,14 +99,25 @@ constexpr int fwd_smem_bytes() {
                sizeof(T) * (2 * H_ROWS<T, R> * XP<T, W> + R * S * XP<T, W>));
 }
 
+// Blocks an SM each instantiation's registers are budgeted for.  One,
+// except one row at W = 48: capped at 80 registers (two 384-thread blocks),
+// a call of one row a block took 5.43 ms where the 110-124 registers of one
+// block's budget took 5.80 (fp32 B, B=128, T=16000; bf16 4.50 against 4.67;
+// H100, one block an SM in both).  At 2 and 4 rows the cap spilled and lost
+// (fp32 A at B=512: 4 rows 18.6 against 13.2 ms), and two blocks of 2 rows
+// an SM took longer than one of 4 (14.1 against 13.2; bf16 7.0 against 5.5),
+// so the plan counts one block an SM at every W <= 64 but 16
+// (lstm_kernel.BLOCKS_PER_SM).
+template <int R, int W> constexpr int FWD_MIN_BLOCKS = W == 48 && R == 1 ? 2 : 1;
+
 // MASKED = false: D = H = W, the widths folded in at compile time (the
 // kernel the square widths had before the runtime widths); true: d_in, h_in.
 template <typename T, bool TRAIN, int R, int W, bool MASKED>
-__global__ void __launch_bounds__(8 * W, 1)
+__global__ void __launch_bounds__(8 * W, (FWD_MIN_BLOCKS<R, W>))
 lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                 const float* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps, int d_in, int h_in) {
-  static_assert(valid_width<W>, "instantiated for W = 16, 32 and 64");
+  static_assert(valid_fwd_width<W>, "instantiated for W = 16, 32, 48 and 64");
   constexpr int D = W, H = W, COLS = 4 * W, THREADS = 2 * COLS;
   const int d = MASKED ? d_in : W, h = MASKED ? h_in : W;
   constexpr int XPW = XP<T, W>;
@@ -108,7 +126,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   T* s_h = reinterpret_cast<T*>(s_ring + NBUF * S * R * COLS);  // [2][H_ROWS][XP]: h_{t-1}
   T* s_x = s_h + 2 * H_ROWS<T, R> * XPW;                        // [R][S][XP]: the chunk's x
 
-  const int p = threadIdx.x & (COLS - 1);
+  const int p = threadIdx.x % COLS;  // COLS = 192 at W = 48: not a power of two
   const int unit = p >> 2, gate = p & 3;
   const int row0 = blockIdx.x * R;
   const int n_chunks = (steps + S - 1) / S;
@@ -617,8 +635,8 @@ int launch(const void* x, const float* w_ih, const float* w_hh, const float* bia
 
 extern "C" {
 
-// Capacity 64 (no suffix), 32 (_w32) and 16 (_w16), for any 1 <= D, H <= the
-// capacity (the cluster kernels, _cluster: lstm_fwd_cluster.cu).
+// Capacity 64 (no suffix), 48 (_w48), 32 (_w32) and 16 (_w16), for any 1 <=
+// D, H <= the capacity (the cluster kernels, _cluster: lstm_fwd_cluster.cu).
 // x: (B, T, D) and y: (B, T, H) in the instantiation's type; w_ih: (4H, D),
 // w_hh: (4H, H) fp32, bias: (4H,) fp32; all contiguous on the current
 // device.  rows: batch rows per block, 1, 2 or 4.  short_path: 1 for the
@@ -633,6 +651,8 @@ extern "C" {
   }
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32, float, 64)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16, __nv_bfloat16, 64)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w48, float, 48)
+AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w48, __nv_bfloat16, 48)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w32, float, 32)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w32, __nv_bfloat16, 32)
 AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_f32_w16, float, 16)
@@ -649,6 +669,8 @@ AWM_LSTM_FWD_ENTRY(awm_lstm_fwd_bf16_w16, __nv_bfloat16, 16)
   }
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32, float, 64)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16, __nv_bfloat16, 64)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w48, float, 48)
+AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w48, __nv_bfloat16, 48)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w32, float, 32)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_bf16_w32, __nv_bfloat16, 32)
 AWM_LSTM_FWD_TRAIN_ENTRY(awm_lstm_fwd_train_f32_w16, float, 16)

@@ -2,25 +2,30 @@
 
 Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - A, lstm_pallas_forward (pallas_call at line 157): forward_kernel,
-  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w32|_w16] (above
+  ops/csrc/lstm_fwd.cu, instantiations lstm_fwd_{f32,bf16}[_w48|_w32|_w16] (above
   width 64 ops/csrc/lstm_fwd_cluster.cu, lstm_fwd_{f32,bf16}_cluster; above
   256 ops/csrc/lstm_wide.cu, lstm_fwd_{f32,bf16}_wide);
 - B, _forward_train (line 342): forward_train_kernel, the same sources with
-  their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w32|_w16|_cluster|_wide];
+  their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w48|_w32|_w16|_cluster|_wide];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu (above 256
   lstm_wide.cu), instantiations lstm_bwd_{f32,bf16}[_w32|_w16|_cluster|_wide].
 Each takes any input width D and hidden width H >= 1 (x's last axis and
 w_hh's second), as the TPU kernels do; a width of 0 raises.  Up to
 CLUSTER_MAX_WIDTH = 256 every weight of the recurrence sits on chip, so the
-kernels are compiled for three capacities W:
-64 (the base family, no suffix), 32 (the strided family, suffix _w32) and 16
-(the gradient check of entry.dryrun_multichip, suffix _w16, the ring path
-and four-launch backward, untuned).  A call takes the smallest capacity
-with max(D, H) <= W: at D = H = W it is the square instantiation, else the
+kernels are compiled for capacities W: 64 (the base family, no suffix), 32
+(the strided family, suffix _w32) and 16 (the gradient check of
+entry.dryrun_multichip, suffix _w16, the ring path and four-launch
+backward, untuned), and A and B also for 48 (suffix _w48: the base family
+at channels 33-48 on a block of 384 threads, not the width-64 block's 512;
+FWD_WIDTHS).  A call takes the smallest capacity of its kernel with
+max(D, H) <= W: at D = H = W it is the square instantiation, else the
 same one with D and H passed at run time (its weights load zeros past the
 real widths, a padded unit stays exactly zero; counted as *_masked, e.g.
-lstm_fwd_f32_masked at width 48), and the backward's dx, dW and sum run at
-the runtime widths (bf16 on the tensor cores).  Above 64 a call runs on a
+lstm_fwd_f32_w48_masked at 40 x 24, lstm_bwd_f32_masked at 48 x 48), and
+the backward's dx, dW and sum run at the runtime widths (bf16 on the tensor
+cores).  C reads y and c_{t-1} as (B, T, H) whatever capacity A and B ran
+at, and capacity 48 sums in capacity 64's order less a quad of zeros, so a
+call gives the same bits at either.  Above 64 a call runs on a
 thread-block cluster of ceil(H / 32) CTAs of 32 hidden units each, which
 carries 1, 2, 4 or 8 batch rows, h (and in the backward da) exchanged
 between them through distributed shared memory every step in row bursts
@@ -64,8 +69,8 @@ tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
 the steps, the widths and the card's SM count, cached per shape, and handed
-to the C entry points: the capacity, the cluster's size or the wide path
-(its windows, its rows a row group and its scratch); rows per block
+to the C entry points: the capacities (A and B's, C's), the cluster's size
+or the wide path (its windows, its rows a row group and its scratch); rows per block
 (1, 2 or 4 forward, 1 or 2 backward; 1, 2, 4 or 8 a cluster: the rows that
 finish the batch soonest, by the waves of blocks the card needs, at the
 blocks an SM runs at once (the clusters the card holds), and the measured
@@ -105,18 +110,20 @@ from awm_tpu_torch.ops.lstm import (
     matmul_dtype,
 )
 
-WIDTHS = (64, 32, 16)  # the capacities W of the register-held instantiations
+WIDTHS = (64, 32, 16)  # the capacities W of kernel C's register-held instantiations
+FWD_WIDTHS = (64, 48, 32, 16)  # and of kernels A and B's
 CLUSTER_MAX_WIDTH = 256  # the cluster path's widest D and H (8 CTAs of CLUSTER_UNITS); wider: the wide path
 CLUSTER_UNITS = 32  # hidden units a CTA of the cluster path owns
 SOURCES = ("lstm_fwd", "lstm_fwd_cluster", "lstm_bwd", "lstm_wide")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
 
-def capacity(width: int, hidden: int | None = None) -> int | None:
-    """The smallest W of WIDTHS with max(D, H) <= W, or None where the call
-    takes the cluster path (max(D, H) > 64) or the wide path (> 256)."""
+def capacity(width: int, hidden: int | None = None, fwd: bool = False) -> int | None:
+    """The smallest W of WIDTHS (of FWD_WIDTHS for kernels A and B: fwd)
+    with max(D, H) <= W, or None where the call takes the cluster path
+    (max(D, H) > 64) or the wide path (> 256)."""
     need = max(width, hidden or width)
-    fits = [w for w in WIDTHS if need <= w]
+    fits = [w for w in (FWD_WIDTHS if fwd else WIDTHS) if need <= w]
     return min(fits) if fits else None
 
 
@@ -129,15 +136,17 @@ def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | Non
     """The name of the instantiation a call of input width D = width and
     hidden width H = hidden (default: width) runs, and of its launch
     counter: lstm_fwd_f32 (D = H = 64), lstm_fwd_bf16_w32 (D = H = 32),
-    lstm_fwd_f32_masked (D, H <= 64, not both 64: capacity 64 at runtime
-    widths), lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64),
+    lstm_fwd_f32_w48 (D = H = 48), lstm_fwd_f32_masked (A at max(D, H) in
+    49-63: capacity 64 at runtime widths), lstm_fwd_f32_w48_masked (40 x
+    24), lstm_bwd_f32_masked (C at max(D, H) in 33-63, or 48 x 48),
+    lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64),
     lstm_bwd_f32_wide (max(D, H) > 256).  Its C entry point is
     entry_point(name)."""
     sfx = "bf16" if matmul_dtype(dtype) == torch.bfloat16 else "f32"
     hidden = hidden or width
     if is_wide(width, hidden):
         return f"{kernel}_{sfx}_wide"
-    cap = capacity(width, hidden)
+    cap = capacity(width, hidden, fwd=kernel != "lstm_bwd")
     if cap is None:
         return f"{kernel}_{sfx}_cluster"
     name = f"{kernel}_{sfx}" + ("" if cap == 64 else f"_w{cap}")
@@ -181,8 +190,10 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # backward call is one launch on the fused path (W = 32 where the plan
 # takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
 # One counter per path: square, masked (a capacity at runtime widths),
-# cluster and wide (a call counts once there too, whatever its windows).
-PATH_WIDTHS = (tuple((w, w) for w in WIDTHS) + tuple((w - 1, w) for w in WIDTHS)
+# cluster and wide (a call counts once there too, whatever its windows); at
+# FWD_WIDTHS, so capacity 48's square and masked counters are A and B's
+# alone (C's widths there name its capacity-64 counter).
+PATH_WIDTHS = (tuple((w, w) for w in FWD_WIDTHS) + tuple((w - 1, w) for w in FWD_WIDTHS)
                + ((CLUSTER_MAX_WIDTH, CLUSTER_MAX_WIDTH), (CLUSTER_MAX_WIDTH + 1, CLUSTER_MAX_WIDTH + 1)))
 launches = {instantiation(k, dt, d, h): 0
             for d, h in PATH_WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
@@ -193,7 +204,10 @@ build_log = ""
 # Rows per block each recurrent kernel is instantiated for, with the time of
 # one call of blocks of that many rows relative to blocks of one row, by
 # (width, operand dtype), measured with ops/bench_lstm.py --variants on an
-# H100 (PERF.md has the times): width 64 at T=16000; width 32 at T=50 from
+# H100 (PERF.md has the times): width 64 at T=16000; width 48 at T=16000
+# from kernel B at B=128, where every variant is one wave (fp32 5.43, 8.27,
+# 13.38 ms at 1, 2, 4 rows; bf16 4.50, 5.10, 5.50; A at B=512 took its
+# least at 4 rows, fp32 13.2 and bf16 5.5 ms); width 32 at T=50 from
 # the kernels' device time at B=128, where every variant is one wave (a
 # call's CUDA-event time there is the host's).  A step is bound by latency,
 # so a second row costs less than the first, but not nothing.  Width 16 at
@@ -204,6 +218,8 @@ build_log = ""
 FWD_STEP_COST = {
     (64, torch.float32): {1: 1.0, 2: 1.32, 4: 2.4},
     (64, torch.bfloat16): {1: 1.0, 2: 1.08, 4: 1.3},
+    (48, torch.float32): {1: 1.0, 2: 1.52, 4: 2.46},
+    (48, torch.bfloat16): {1: 1.0, 2: 1.13, 4: 1.22},
     (32, torch.float32): {1: 1.0, 2: 1.08, 4: 2.31},
     (32, torch.bfloat16): {1: 1.0, 2: 1.04, 4: 1.19},
     (16, torch.float32): {1: 1.0, 2: 1.19, 4: 1.60},
@@ -258,10 +274,12 @@ FWD_SHORT_MAX_STEPS = 64
 # by (capacity, operand dtype); the plan's waves count sm_count x this.  One
 # where it is not measured: a W = 64 block holds the register file alone, and
 # two W = 32 blocks were slower than one of twice the rows (the short path's
-# note above).  W = 16: a 128-thread block holds a fraction of an SM's
-# registers, and 512 one-row fp32 blocks (3.9 an SM) took 0.0158 ms where
-# 128 blocks of four took 0.0195 (H100, T=50, PERF.md section 6): the plan
-# had counted one block an SM and picked four rows.
+# note above).  One at W = 48: two 384-thread blocks of two rows an SM took
+# 14.1 ms where one of four took 13.2 (fp32 A, B=512; bf16 7.0 against 5.5;
+# lstm_fwd.cu's FWD_MIN_BLOCKS).  W = 16: a 128-thread block holds a
+# fraction of an SM's registers, and 512 one-row fp32 blocks (3.9 an SM)
+# took 0.0158 ms where 128 blocks of four took 0.0195 (H100, T=50, PERF.md
+# section 6): the plan had counted one block an SM and picked four rows.
 BLOCKS_PER_SM = {(16, torch.float32): 4, (16, torch.bfloat16): 4}
 # The cluster path (max(D, H) > 64): a cluster carries R = 1, 2, 4 or 8
 # batch rows (CLUSTER_ROWS, every one built at HW = 128 and 256).  A wave
@@ -338,7 +356,8 @@ class LaunchPlan:
     """How one (batch, steps, dtype, width) call is cut over a card of
     sm_count SMs."""
 
-    capacity: int  # W of the register-held instantiation, 0 on the cluster path
+    capacity: int  # W of kernel C's register-held instantiation, 0 on the cluster and wide paths
+    fwd_capacity: int  # and of kernels A and B's (48 at max(D, H) in 33-48, where C's is 64)
     cluster: int  # CTAs of a cluster (ceil(H / 32)) on the cluster path, else 0
     fwd_rows: int  # batch rows per block (per cluster), kernels A and B
     fwd_blocks: int
@@ -525,7 +544,7 @@ def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width:
     n_chunks = max(1, min(DW_MAX_CHUNKS, part_budget // (4 * g * (width + hidden)),
                           max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
-        capacity=0, cluster=0, fwd_rows=fwd_rows, fwd_blocks=fwd_groups, fwd_short=False,
+        capacity=0, fwd_capacity=0, cluster=0, fwd_rows=fwd_rows, fwd_blocks=fwd_groups, fwd_short=False,
         bwd_rows=bwd_rows, bwd_blocks=bwd_groups, bwd_fused=False, n_chunks=n_chunks, dx_blocks=0,
         da_shape=(batch, bwd_window, g), da_dtype=mm,
         part_shape=(n_chunks, g, width + hidden), db_part_shape=(bwd_groups, g),
@@ -561,7 +580,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     if is_wide(width, hidden):
         return _wide_plan(batch, steps, dtype, sm_count, width, hidden, bwd_rows, wide_slots)
     mm = matmul_dtype(dtype)
-    cap = capacity(width, hidden)
+    cap, fwd_cap = capacity(width, hidden), capacity(width, hidden, fwd=True)
     square = width == hidden == cap
     if cap is None:
         k = -(-hidden // CLUSTER_UNITS)
@@ -574,11 +593,12 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         if bwd_rows is None:
             bwd_rows = rows_of(bwd_slots, CLUSTER_BWD_STEP_COST)
     else:
-        k, slots = 0, sm_count * BLOCKS_PER_SM.get((cap, mm), 1)
-        fwd_short = square and cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
-        fwd_rows = _rows_per_block(batch, slots, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[cap, mm])
+        k, slots = 0, lambda w: sm_count * BLOCKS_PER_SM.get((w, mm), 1)
+        fwd_short = width == hidden == fwd_cap and fwd_cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+        fwd_rows = _rows_per_block(batch, slots(fwd_cap),
+                                   (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[fwd_cap, mm])
         if bwd_rows is None:
-            bwd_rows = _rows_per_block(batch, slots, BWD_STEP_COST[cap, mm])
+            bwd_rows = _rows_per_block(batch, slots(cap), BWD_STEP_COST[cap, mm])
     allowed = CLUSTER_ROWS if cap is None else BWD_ROWS
     if bwd_rows not in allowed:
         raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
@@ -602,7 +622,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     n_chunks = max(1, min(DW_MAX_CHUNKS, CLUSTER_SCRATCH_BYTES // 4 // (4 * g * (width + hidden)),
                           max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
-        capacity=cap or 0, cluster=k,
+        capacity=cap or 0, fwd_capacity=fwd_cap or 0, cluster=k,
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
         bwd_fused=(square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS

@@ -175,8 +175,9 @@ width 16.  Phases:
    gradients), the most of cuDNN's workspace and copies live at once in the
    backward, and the bytes autograd saves, BatchNorm's share of them; then
    the same preset's bf16 step at B=512 (its peak memory and time);
-17. print the {"kernels": [...]} line (36 instantiations: widths 64, 32
-   and 16, masked 48, cluster 128, wide 512; the width-32
+17. print the {"kernels": [...]} line (40 instantiations: widths 64, 32
+   and 16, 48 (A and B's capacity 48, C's masked 64), A and B masked on
+   capacity 64 at 56, cluster 128, wide 512; the width-32
    forward ones with their path and every width-32 one with its fit; the
    width-16 ones at the dry run's shape, with their times at (128, 50)),
    one line with the card, the wall and every phase's seconds, and last the
@@ -233,17 +234,21 @@ DRY_B, DRY_T = 4, 32
 # check that every kernel launched on a main path leaves them out.
 OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", "lstm_bwd_bf16_w16")
 # The widths phase (4b, widths_phase): kernels A, B and C at the widths the
-# kernels take masked (capacity 64 at runtime widths: 48 x 48, the base
-# family at channels 48, and 40 x 24) and on the cluster path (96 x 96,
+# kernels take masked or on capacity 48 (48 x 48, the base family at
+# channels 48: A and B's capacity 48, C's capacity 64 at runtime widths;
+# 40 x 24: capacity 48 at runtime widths for A and B; 56 x 56: capacity 64
+# at runtime widths for all three) and on the cluster path (96 x 96,
 # 128 x 128, the base family at channels 128, and the ceiling 256 x 256)
 # against their plain versions at B=3, T=512; at the shapes the base
 # family's main path hands them (T=16000; A at the session's B=64, B and C
 # at the train step's B=32); timed, and held against their plain versions,
 # at T=16000 (A B=512, B and C B=128) at the base family's two new widths
-# (C at the ceiling by cluster_scale_check); then the base family at channels 48 and 128 through the
+# (C at the ceiling by cluster_scale_check), and A and B at MASKED64;
+# then the base family at channels 48 and 128 through the
 # session (64 chunks) and the train step (B=32), from
 # checkpoint.seeded_flax_tree weights.  The masked
-# instantiations of capacities 32 and 16 run on no main path: OFF_PATH.
+# instantiations of capacities 48, 32 and 16, and A and B's of capacity 64
+# (49..63), run on no main path: OFF_PATH.
 # The wide path past 256 (lstm_wide.cu): A, B and C at WIDE_PATH_WIDTHS (one
 # unit past the cluster path, the base family at channels 320 and 512, 1024,
 # D != H both ways) against their plain versions at B=3, T=512; the unit
@@ -260,9 +265,11 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 # refuses the whole batch); the base family at channels 512 (WIDE_CHANNELS)
 # through the session and the train step at B=WIDE_PATH_B.
 WIDE_PATH_WIDTHS = ((257, 257), (320, 320), (512, 512), (1024, 1024), (300, 40), (40, 600))
-NEW_WIDTHS = ((48, 48), (40, 24), (96, 96), (128, 128), (256, 256)) + WIDE_PATH_WIDTHS
+NEW_WIDTHS = ((48, 48), (40, 24), (56, 56), (96, 96), (128, 128), (256, 256)) + WIDE_PATH_WIDTHS
 NEW_B, NEW_T = 3, 512
-BASE_CHANNELS = (48, 128)  # the base family's new widths: masked, cluster
+BASE_CHANNELS = (48, 128)  # the base family's new widths: capacity 48 (A, B) and masked 64 (C), cluster
+MASKED64 = 56  # a width of 49..63: A and B on capacity 64 at runtime widths (the kernel table's *_masked of A, B)
+PADDED_CHECKS = ((48, 48), (40, 24))  # capacity 48 against capacity 64's square on zero-padded operands
 WIDE_CHANNELS = 512  # the base family on the wide path
 TILED_CTAS = (7, 31)  # 512 x 512's 32 tiles on 7 CTAs (4 or 5 tiles each), on 31 (one CTA of two)
 # 272 tiles a row group, past the CTAs an H100 holds at once of every wide
@@ -291,6 +298,8 @@ WIDE_PATH_B = 8
 WIDE_HOLD_T, WIDE_HOLD_CHUNKS = 1600, 2  # the card-vs-CPU holds' clip length, session chunks
 OFF_PATH += tuple(f"{k}_{sfx}_w{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
                   for sfx in ("f32", "bf16") for w in (32, 16))
+OFF_PATH += tuple(f"{k}_{sfx}{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train") for sfx in ("f32", "bf16")
+                  for w in ("_w48", ""))
 # The base family at channels 48 and 128 on the card against the port's own
 # CPU run of the same seeded weights.  Session (64 chunks on the card; its
 # first WIDE_HOLD_CHUNKS chunks through the CPU session): per-chunk summaries,
@@ -404,14 +413,19 @@ KERNELS: dict[str, Kernel] = {}  # by instantiation name, filled by kernel_table
 
 
 def kernel_table(K) -> dict[str, Kernel]:
-    """Every compiled instantiation, named by lstm_kernel.instantiation."""
+    """Every compiled instantiation, named by lstm_kernel.instantiation, at
+    the first width of the list that runs it (C's capacity 64 at runtime
+    widths: 48)."""
     import torch
 
-    return {K.instantiation(kernel, dtype, w): Kernel(
-                kernel, f"awm_tpu_torch/ops/csrc/{K.source_of(K.instantiation(kernel, dtype, w))}.cu",
-                f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx])
-            for w in (*K.WIDTHS, *BASE_CHANNELS, WIDE_CHANNELS) for kernel in K.KERNELS
-            for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    table = {}
+    for w in (*K.WIDTHS, *BASE_CHANNELS, WIDE_CHANNELS, MASKED64):
+        for kernel in K.KERNELS:
+            for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                name = K.instantiation(kernel, dtype, w)
+                table.setdefault(name, Kernel(kernel, f"awm_tpu_torch/ops/csrc/{K.source_of(name)}.cu",
+                                              f"{PALLAS}:{PALLAS_CALL[kernel]}", sfx, w, K.KERNEL_TOL[kernel, sfx]))
+    return table
 
 failures: list[str] = []
 
@@ -2207,8 +2221,9 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
     """The widths phase's kernel checks: A, B and C at NEW_WIDTHS against
     their plain versions at B=3, T=512, fp32 and bf16 (KERNEL_TOL); two
     backward calls (and on the cluster and wide paths two forward calls)
-    give the same bits; width 48 gives the bits of the width-64
-    instantiation on the zero-padded operands; one past the cluster path
+    give the same bits; 48 x 48 and 40 x 24 (capacity 48) give the bits of
+    the width-64 instantiation on the zero-padded operands
+    (PADDED_CHECKS); one past the cluster path
     (257 x 257, 8 x 257) launches the *_wide instantiations through
     lstm_fused_forward and returns the plain result.  Then the wide path's
     unit tiles: at 512 x 512 with fewer CTAs a row group (TILED_CTAS: CTAs
@@ -2256,14 +2271,15 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
             max_err[bname] = max(max_err.get(bname, 0.0),
                                  max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
             max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
-            if (d, h) == (48, 48):
+            if (d, h) in PADDED_CHECKS:
                 padded = padded_to_64(x, w_ih, w_hh, bias, h)
                 y64 = K.forward_kernel(*padded)
                 yt64, c64 = K.forward_train_kernel(*padded)
                 held = (torch.equal(y0, y64[..., :h]) and torch.equal(y, yt64[..., :h])
                         and torch.equal(cprev, c64[..., :h]) and float(y64[..., h:].float().abs().max()) == 0.0)
-                check(held, f"{name} / {fname} at 48 x 48: the same bits as {K.instantiation('lstm_fwd', dtype, 64)} "
-                            f"on the zero-padded operands, padded units exactly 0")
+                check(held, f"{name} / {fname} at {d} x {h}: the same bits as "
+                            f"{K.instantiation('lstm_fwd', dtype, 64)} on the zero-padded operands, padded units "
+                            f"exactly 0")
             del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
     ceiling = K.CLUSTER_MAX_WIDTH
@@ -2681,6 +2697,58 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
             torch.cuda.empty_cache()
 
 
+def masked64_times(K, dev, times: dict, max_err) -> None:
+    """Kernels A (B=512) and B (B=128) at MASKED64 x MASKED64, T=16000, on
+    capacity 64 at runtime widths, which no main path runs since capacity 48
+    took the widths 33..48: timed as wide_times times the base family's (the
+    kernel by CUDA events, 2 calls after one; the plain version held
+    against it, A's on its first A_PLAIN_B rows; torch.nn.LSTM, the
+    yardstick only; the bound), printed and kept in times under the
+    instantiation's name; the worst errors go to max_err."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_forward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    w = MASKED64
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for kernel, b in (("lstm_fwd", B_SERVE), ("lstm_fwd_train", B_TRAIN)):
+            name, train = K.instantiation(kernel, dtype, w), kernel == "lstm_fwd_train"
+            held_b = B_TRAIN if train else A_PLAIN_B
+            x, w_ih, w_hh, bias, _ = lstm_inputs(b, dtype, dev, seed=w + b, w=w)
+            kernel_fn = K.forward_train_kernel if train else K.forward_kernel
+            with no_tf32():
+                ms = cuda_ms(lambda: kernel_fn(x, w_ih, w_hh, bias), reps=2)
+                got = kernel_fn(x, w_ih, w_hh, bias)
+                got = got if train else (got,)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                plain = ((lambda i, j: lstm_forward_train(x[i:j], w_ih, w_hh, bias)) if train
+                         else (lambda i, j: (lstm_forward(x[i:j], w_ih, w_hh, bias),)))
+                errs, _, plain_ms = held_in_slices(plain, held_b, tuple(g[:held_b] for g in got), f"plain {name}")
+                del got
+                torch.cuda.empty_cache()
+                m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+                if train:
+                    xg = x.clone().requires_grad_()
+                    lib = yardstick(lambda r: cuda_ms(lambda: m(xg[:r]), reps=2), f"nn.LSTM({w}) {sfx} forward", b)
+                    del xg
+                else:
+                    with torch.inference_mode():
+                        lib = yardstick(lambda r: cuda_ms(lambda: m(x[:r]), reps=2), f"nn.LSTM({w}) {sfx}", b)
+            tol = K.KERNEL_TOL[kernel, sfx]
+            check(finite and max(errs) <= tol and name.endswith("_masked"),
+                  f"{name} (capacity 64 at {w} x {w}, B={b} T={T}) vs plain on {held_b} rows: max abs "
+                  f"{max(errs):.3e} (tol {tol:.0e})")
+            max_err[name] = max(max_err.get(name, 0.0), max(errs))
+            bms, by = bound_ms(name, b, width=w)
+            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                           "width": w, "batch": b, "steps": T, "plain_batch": held_b}
+            print(f"{name} W={w} B={b} T={T}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (its first {held_b} "
+                  f"rows), cuDNN nn.LSTM({w}) {lib} ms, bound {bms:.4f} ms ({by})", flush=True)
+            del x, m
+            torch.cuda.empty_cache()
+
+
 def held_in_slices(fn, batch: int, got: tuple, what: str) -> tuple[list, list, float]:
     """A plain version held against a kernel's outputs `got` at `batch`
     rows, and its time (ms, CUDA events): fn(i, j) runs rows i..j-1 (a
@@ -2938,7 +3006,7 @@ def gates_checks(K, dev) -> None:
 
 def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
     """Phase 4b: wide_checks, rows_checks, gates_checks, cluster_scale_check,
-    wide_main_checks, wide_times, then wide_family with the counters zeroed
+    wide_main_checks, wide_times, masked64_times, then wide_family with the counters zeroed
     just before (the functions take only K, launches and dev beside what
     they fill, so a card-side rehearsal can call them alone)."""
     laps = [("checks", time.time())]
@@ -2953,6 +3021,8 @@ def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
     wide_main_checks(K, dev, max_err, max_rel)
     laps.append(("timed shapes", time.time()))
     wide_times(K, dev, times, max_err, max_rel)
+    laps.append(("masked 64 timed", time.time()))
+    masked64_times(K, dev, times, max_err)
     laps.append(("family", time.time()))
     errs = wide_family(K, launches, dev)
     laps.append(("end", time.time()))
@@ -4060,6 +4130,10 @@ def main() -> int:
               f" rows per block, {path} path", flush=True)
         entry = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                  "launches": launches[name], "max_abs_err": max_err[name], "path": path, **times[name]}
+        if not (plan.wide or plan.cluster):  # the register-held capacity the call ran and its rows a block
+            bwd = k.kernel == "lstm_bwd"
+            entry.update(capacity=plan.capacity if bwd else plan.fwd_capacity,
+                         rows=plan.bwd_rows if bwd else plan.fwd_rows)
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)

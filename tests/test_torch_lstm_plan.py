@@ -3,7 +3,8 @@ at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
 pure function of (batch, steps, dtype, SM count, D, H), so it is tested here
-on the CPU, at width 64, 32 and 16, at the masked widths below 64, on the
+on the CPU, at width 64, 32 and 16, at the masked widths below 64 (kernels A
+and B on capacity 48 at 33-48, C on 64), on the
 cluster path above it and on the wide path past 256.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
@@ -421,7 +422,9 @@ def test_plan_at_every_new_width(d, h, dtype):
     T, 4H), dW partials (n, 4H, D + H), db (blocks, 4H); on the cluster
     path a window's da (B, tc, 4H) and the gate pass's records (B, tc, H,
     8); the blocks cover the batch once; the launch counters name the
-    path."""
+    path.  Kernels A and B take the smallest capacity of FWD_WIDTHS (48 x
+    48 its square, 40 x 24 its masked instantiation) with its own costs and
+    blocks an SM, C the smallest of WIDTHS (64 at both)."""
     for batch in (1, 7, 64, 128, 512):
         for steps in (1, 50, 16000):
             plan = launch_plan(batch, steps, dtype, 132, d, None, h)
@@ -433,34 +436,41 @@ def test_plan_at_every_new_width(d, h, dtype):
             assert not plan.fwd_short and not plan.bwd_fused
             for rows, blocks in ((plan.fwd_rows, plan.fwd_blocks), (plan.bwd_rows, plan.bwd_blocks)):
                 assert blocks * rows >= batch > (blocks - 1) * rows
-            name = lstm_kernel.instantiation("lstm_fwd", dtype, d, h)
+            names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
             if max(d, h) > 64:
-                assert (plan.capacity, plan.cluster) == (0, -(-h // 32)) and plan.cluster <= 8
-                assert name.endswith("_cluster")
+                assert (plan.capacity, plan.fwd_capacity, plan.cluster) == (0, 0, -(-h // 32)) and plan.cluster <= 8
+                assert all(n.endswith("_cluster") for n in names)
                 assert plan.rec_shape == (batch, window, h, lstm_kernel.CLUSTER_REC)
-                slots = 132 // plan.cluster
+                slots = (132 // plan.cluster,) * 2
                 costs = tuple(c.get((plan.cluster, dtype))
                               for c in (lstm_kernel.CLUSTER_FWD_STEP_COST, lstm_kernel.CLUSTER_BWD_STEP_COST))
             else:
                 cap = min(w for w in lstm_kernel.WIDTHS if max(d, h) <= w)
-                assert (plan.capacity, plan.cluster) == (cap, 0) and name.endswith("_masked")
+                fwd_cap = min(w for w in lstm_kernel.FWD_WIDTHS if max(d, h) <= w)
+                assert (plan.capacity, plan.fwd_capacity, plan.cluster) == (cap, fwd_cap, 0)
+                assert fwd_cap == (48 if 32 < max(d, h) <= 48 else cap)
+                assert all(n.endswith("_masked") for n in names[:2]) == (not d == h == fwd_cap)
+                assert names[2].endswith("_masked")
                 assert plan.rec_shape is None
-                slots = 132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1)
-                costs = (lstm_kernel.FWD_STEP_COST[cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
-            waves = lambda r: -(-(-(-batch // r)) // slots)
-            for rows, cost in zip((plan.fwd_rows, plan.bwd_rows), costs):
+                slots = tuple(132 * lstm_kernel.BLOCKS_PER_SM.get((w, dtype), 1) for w in (fwd_cap, cap))
+                costs = (lstm_kernel.FWD_STEP_COST[fwd_cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
+            for rows, cost, at_once in zip((plan.fwd_rows, plan.bwd_rows), costs, slots):
+                waves = lambda r: -(-(-(-batch // r)) // at_once)
                 if cost is None:  # no cost measured at this K: the fewest rows that fit one wave
                     fits = [r for r in lstm_kernel.CLUSTER_ROWS if waves(r) == 1]
                     assert rows == (min(fits) if fits else max(lstm_kernel.CLUSTER_ROWS))
                 else:
                     assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
-            assert name in lstm_kernel.launches
-            assert lstm_kernel.entry_point(name) == "awm_" + name.removesuffix("_masked")
+            for name in names:
+                assert name in lstm_kernel.launches
+                assert lstm_kernel.entry_point(name) == "awm_" + name.removesuffix("_masked")
 
 
 def test_square_widths_keep_their_instantiations():
     """D = H = 64, 32, 16 keep the names, entry points and plans they had;
-    the masked names run the same entry point as their capacity's square."""
+    the masked names run the same entry point as their capacity's square.
+    D = H = 48 is kernels A and B's square of capacity 48 (47 x 48 its
+    masked one), and kernel C's masked capacity 64."""
     for w, sfx in ((64, ""), (32, "_w32"), (16, "_w16")):
         for kernel in lstm_kernel.KERNELS:
             assert lstm_kernel.instantiation(kernel, torch.float32, w) == f"{kernel}_f32{sfx}"
@@ -468,6 +478,98 @@ def test_square_widths_keep_their_instantiations():
             assert masked == f"{kernel}_bf16{sfx}_masked"
             assert lstm_kernel.entry_point(masked) == f"awm_{kernel}_bf16{sfx}"
         assert launch_plan(128, 16000, torch.float32, 132, w) == launch_plan(128, 16000, torch.float32, 132, w, None, w)
+    for kernel in ("lstm_fwd", "lstm_fwd_train"):
+        assert lstm_kernel.instantiation(kernel, torch.float32, 48) == f"{kernel}_f32_w48"
+        masked = lstm_kernel.instantiation(kernel, torch.bfloat16, 47, 48)
+        assert masked == f"{kernel}_bf16_w48_masked"
+        assert lstm_kernel.entry_point(masked) == f"awm_{kernel}_bf16_w48"
+    assert lstm_kernel.instantiation("lstm_bwd", torch.float32, 48) == "lstm_bwd_f32_masked"
+    assert lstm_kernel.entry_point("lstm_bwd_f32_masked") == "awm_lstm_bwd_f32"
+    assert launch_plan(128, 16000, torch.float32, 132, 48) == launch_plan(128, 16000, torch.float32, 132, 48, None, 48)
+
+
+# (D, H) at the edges of the capacities: each side of 16, 32, 48 and 64, and
+# D != H pairs whose wider side picks the capacity.
+BOUNDARY = [(1, 1), (16, 16), (17, 17), (32, 32), (33, 33), (47, 47), (48, 48), (49, 49), (63, 63), (64, 64),
+            (40, 24), (24, 40), (1, 48), (48, 1)]
+
+
+def _entry_points(source: str) -> set[str]:
+    """The C entry points an ops/csrc/<source>.cu defines by its entry macros."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", f"{source}.cu")) as f:
+        return set(re.findall(r"^AWM_\w+_ENTRY\((awm_\w+),", f.read(), re.M))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", BOUNDARY, ids=[f"{d}x{h}" for d, h in BOUNDARY])
+def test_capacities_at_the_boundaries(d, h, dtype):
+    """Kernels A and B take the smallest of 16, 32, 48, 64 that holds
+    max(D, H), kernel C the smallest of 16, 32, 64: their names (square
+    where D = H is the capacity, else masked) and launch counters, entry
+    points that the source defines, and the plan's two capacities.  At
+    capacity 48 the forward's rows follow FWD_STEP_COST and BLOCKS_PER_SM
+    at 48 while C's follow capacity 64's; at every other width both
+    kernels share one capacity, as before."""
+    need, sfx = max(d, h), "bf16" if dtype == torch.bfloat16 else "f32"
+    fwd_cap = min(w for w in (16, 32, 48, 64) if need <= w)
+    cap = min(w for w in (16, 32, 64) if need <= w)
+    suffix = lambda w: "" if w == 64 else f"_w{w}"
+    for kernel, w in (("lstm_fwd", fwd_cap), ("lstm_fwd_train", fwd_cap), ("lstm_bwd", cap)):
+        name = lstm_kernel.instantiation(kernel, dtype, d, h)
+        assert name == f"{kernel}_{sfx}{suffix(w)}" + ("" if d == h == w else "_masked")
+        assert name in lstm_kernel.launches
+        assert lstm_kernel.entry_point(name) == f"awm_{kernel}_{sfx}{suffix(w)}"
+        assert lstm_kernel.entry_point(name) in _entry_points(lstm_kernel.source_of(name))
+    assert lstm_kernel.capacity(d, h) == cap and lstm_kernel.capacity(d, h, fwd=True) == fwd_cap
+    for batch in (1, 7, 128, 512):
+        plan = launch_plan(batch, 16000, dtype, 132, d, None, h)
+        assert (plan.fwd_capacity, plan.capacity) == (fwd_cap, cap)
+        for rows, cost, w in ((plan.fwd_rows, lstm_kernel.FWD_STEP_COST[fwd_cap, dtype], fwd_cap),
+                              (plan.bwd_rows, lstm_kernel.BWD_STEP_COST[cap, dtype], cap)):
+            at_once = 132 * lstm_kernel.BLOCKS_PER_SM.get((w, dtype), 1)
+            waves = lambda r: -(-(-(-batch // r)) // at_once)
+            assert rows == min(cost, key=lambda r: (waves(r) * cost[r], r))
+    assert fwd_cap == cap or (fwd_cap, cap) == (48, 64)  # capacity 48 is the forward's alone
+
+
+def _fwd_source_constants() -> dict[str, int]:
+    """The ring's constants as lstm_fwd.cu and lstm_common.cuh declare them."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read() for f in ("lstm_fwd.cu", "lstm_common.cuh"))
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1)) for k in ("S", "NBUF")}
+
+
+SM_SMEM = 233472  # an H100 SM's shared memory (228 KB), of which each resident block takes 1 KB more
+
+
+@pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_shared_memory_at_capacity_48(dtype, rows):
+    """The ring path's buffers at capacity 48, by lstm_fwd.cu's
+    fwd_smem_bytes: the ring of NBUF chunks of S steps, R rows and 4W fp32
+    columns; h double-buffered (bf16: the mma's 8 B rows) and the chunk's x,
+    rows padded by 8 bf16 (XP) so that the 8 rows an mma's B fragment reads
+    fall in distinct banks (28 words apart at 48, as 36 at 64).  Within the
+    227 KB a block may opt in to at every rows variant, and where the plan
+    counts two blocks an SM (BLOCKS_PER_SM), two fit the SM's 228 KB."""
+    src, w = _fwd_source_constants(), 48
+    bf16 = dtype == torch.bfloat16
+    elt, xp, h_rows = (2, w + 8, 8) if bf16 else (4, w, rows)
+    smem = 4 * src["NBUF"] * src["S"] * rows * 4 * w + elt * (2 * h_rows * xp + rows * src["S"] * xp)
+    assert smem <= BLOCK_SMEM_OPTIN
+    assert smem % 16 == 0 and (4 * src["NBUF"] * src["S"] * rows * 4 * w) % 16 == 0  # h and x 16-byte aligned
+    if bf16:
+        words = xp * elt // 4
+        assert sorted(g * words % 32 for g in range(8)) == list(range(0, 32, 4))
+    for cap, blocks in lstm_kernel.BLOCKS_PER_SM.items():
+        if cap == (w, dtype):
+            assert blocks * (smem + 1024) <= SM_SMEM
 
 
 def _cluster_waves(batch: int, rows: int, slots: int) -> int:
