@@ -4,8 +4,8 @@ paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 (--width 64, the base family, T=16000; --width 32, the strided family's two
 stacked LSTMs, T=50; --width 16, the gradient check of
 entry.dryrun_multichip, T=32; any other width, T=16000: 48 takes
-kernels A and B's capacity 48 and C's capacity 64 at runtime widths, 128
-the cluster path, 512 the wide path past 256; --steps
+capacity 48, 56 capacity 64 at runtime widths, 128 the cluster path, 512
+the wide path past 256; --steps
 overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
@@ -86,7 +86,7 @@ SPLIT_MASKS = (0, 1, 2, 4, 8, 15)
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
 # --hash's (D, H): the capacities' squares, masked (48, 40 x 24, 33 x 33:
-# capacity 48 for A and B, 64 for C; 56 x 56: capacity 64), the cluster
+# capacity 48; 56 x 56: capacity 64), the cluster
 # path (96, 128, 256, 200 x 8), the wide path (257, 512, 40 x 600, 300 x 40);
 # (B, T): a ragged batch over several ring chunks, a batch of full row groups.
 HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (33, 33), (56, 56), (96, 96), (128, 128),

@@ -17,18 +17,21 @@
 // load), so no cast kernel runs beside a call.
 //
 // Every register-held kernel is a template over the capacity W,
-// instantiated for 64, 32 and 16 (lstm_common.cuh); G = 4 W gate columns,
-// K = 2 W terms.  A call passes its D, H <= W at run time; at D = H = W the
-// products below run at the capacity, else dx, dW and the sum run at the
-// runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel; bf16 dx / dW
-// lstm_bwd_{dx,dw}_any_mma_kernel; in lstm_any.cuh, whose dx and dW
-// lstm_wide.cu's windows run too).  Widths above 64 run a gate pass over
-// the whole card (lstm_bwd_gates_*, lstm_any.cuh), the recurrence on a
+// instantiated for 64, 48, 32 and 16 (lstm_common.cuh); G = 4 W gate
+// columns, K = 2 W terms.  A call passes its D, H <= W at run time; at D =
+// H = W (64, 32, 16) the products below run at the capacity, else dx, dW
+// and the sum run at the runtime widths (lstm_bwd_{dx,dw,sum}_any_kernel;
+// bf16 dx / dW lstm_bwd_{dx,dw}_any_mma_kernel; in lstm_any.cuh, whose dx
+// and dW lstm_wide.cu's windows run too).  Capacity 48 has no square
+// products of its own: its 48 x 48 runs the runtime widths' set, one set
+// of kernels fewer to build and hold (their times: PERF.md section 6).
+// Widths above 64 run a gate pass over the whole card (lstm_bwd_gates_*,
+// lstm_any.cuh), the recurrence on a
 // thread-block cluster (lstm_bwd_cluster_kernel, below), and then those
 // three; widths above 256 run lstm_wide.cu.  A call at the capacities takes one of two paths,
 // chosen by the caller from the shape (ops/lstm_kernel.py::launch_plan):
 //
-// Four launches on one stream (every call at W = 64 and 16; at W = 32
+// Four launches on one stream (every call at W = 64, 48 and 16; at W = 32
 // where the fused kernel's grid would not be resident in one wave, or
 // T > 64, the plan's limit for the rows' da in shared memory):
 //   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
@@ -75,7 +78,9 @@
 //   memory, one barrier among the consumer warps, dh_{t-1} = da . W_hh from
 //   register-held weights (bf16 widened once), split over the lanes of a
 //   warp so that a thread reads 16 of the 256 da values (8 of 128 at
-//   W = 32, 4 of 64 at W = 16), summed by shuffles in a fixed order.  da
+//   W = 32, 4 of 64 at W = 16; at W = 48 capacity 64's split, 16 of the
+//   192 on 12 of 16 lanes and exact zeros on the other four, so that its
+//   sums keep capacity 64's bits), summed by shuffles in a fixed order.  da
 //   is double-buffered;
 // - dx and dW: in bf16 on the tensor cores (da, x and y are bf16 already,
 //   products exact, fp32 sums), staged through shared memory with 16-byte
@@ -134,7 +139,7 @@ template <typename T, int R, int W, bool FUSED, bool MASKED, typename Tail>
 __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char* smem, int row0,
                                                T* da_dst, int da_stride, float* db_out, T* s_v,
                                                int v_stride, Tail producers_done) {
-  static_assert(valid_width<W>, "instantiated for W = 16, 32 and 64");
+  static_assert(valid_width<W>, "instantiated for W = 16, 32, 48 and 64");
   constexpr int D = W, H = W, G = 4 * W, K = 2 * W, COLS = G, THREADS = 2 * COLS;
   constexpr int NQ = W / 16, RW = RING<W>, DG = DA_GATE<W>, DR = DA_ROW<W>, KPW = KP<T, W>;
   const int batch = a.batch, steps = a.steps, d = MASKED ? a.d : W, h = MASKED ? a.h : W;
@@ -146,7 +151,7 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
   float* s_da = s_c + R * SB * H;                                       // [2][R][DA_ROW], operands
   T* s_xh = reinterpret_cast<T*>(s_da + 2 * R * DR);                    // [R][SB][KP]: x_t | h_{t-1}
 
-  const int p = threadIdx.x & (COLS - 1);
+  const int p = threadIdx.x % COLS;  // COLS = 192 at W = 48: not a power of two
   const int unit = p >> 2, gate = p & 3, col = gate * h + unit;  // col: da's column at the real width
   const int n_chunks = (steps + SB - 1) / SB;
   // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
@@ -304,8 +309,14 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
   // the warp and the 4 EP columns j = H q + EP jp + e (q = 0..3, e = 0..EP-1, EP = H / 16):
   // w[(q * EP + e) * 4 + o] = W_hh[H q + EP jp + e][unit o of its four].  Four reads
   // of 4 EP floats a step and row, not 4 EP one-float reads; the parts meet by shuffles.
-  constexpr int EP = H / 16;
+  // W = 48 keeps capacity 64's EP = 4: lanes jp >= 12 hold zero weights, read
+  // nothing (past column 47 lie the gate's pad, never written, and the next
+  // row; 0 x NaN would be NaN) and give +0 parts, so each unit's dh is capacity
+  // 64's sum less terms that are exactly zero, in the same tree.
+  constexpr int EP = W == 48 ? 4 : H / 16;
+  constexpr bool IDLE_LANES = 16 * EP > H;
   const int lane = threadIdx.x & 31, og = lane >> 4, jp = lane & 15;
+  const bool live = !IDLE_LANES || EP * jp < H;
   const int unit0 = (unit & ~7) + 4 * og;
   float w[16 * EP];
 #pragma unroll
@@ -355,7 +366,7 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
         for (int q = 0; q < 4; ++q) {
           float ve[EP];
           if constexpr (EP == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(av + q * DG);
+            const float4 v = live ? *reinterpret_cast<const float4*>(av + q * DG) : make_float4(0.f, 0.f, 0.f, 0.f);
             ve[0] = v.x; ve[1] = v.y; ve[2] = v.z; ve[3] = v.w;
           } else if constexpr (EP == 2) {
             const float2 v = *reinterpret_cast<const float2*>(av + q * DG);
@@ -1370,12 +1381,41 @@ int launch_cluster(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db
   return (int)cudaGetLastError();
 }
 
+// dx, dW and the sum at D = H = W: the four-launch path's last three at the
+// capacity (64, 32 and 16).
+template <typename T, int W>
+cudaError_t launch_square_products(BwdArgs<T> a, T* dx, float* dw_ih, float* dw_hh, float* db, const T* da,
+                                   float* part, const float* db_part, int n_chunks, int n_blocks, int dx_blocks,
+                                   cudaStream_t stream) {
+  constexpr int G = 4 * W, K = 2 * W;
+  const long long n_rows = (long long)a.batch * a.steps;
+  const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+  static SmemOnce dx_once;
+  cudaError_t err = cudaSuccess;
+  if constexpr (is_bf16<T>) {
+    constexpr int smem = dxm_smem_bytes<W>();
+    if ((err = dx_once.set(lstm_bwd_dx_mma_kernel<W>, smem)) != cudaSuccess) return err;
+    lstm_bwd_dx_mma_kernel<W><<<dx_blocks, 256, smem, stream>>>(da, a.w_ih, dx, n_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    lstm_bwd_dw_mma_kernel<W><<<dim3(n_chunks, 2), 256, 0, stream>>>(da, a.x, a.y, part, n_rows, a.steps, chunk_rows);
+  } else {
+    constexpr int smem = dx_smem_bytes<W>();
+    if ((err = dx_once.set(lstm_bwd_dx_kernel<W>, smem)) != cudaSuccess) return err;
+    lstm_bwd_dx_kernel<W><<<dx_blocks, 256, smem, stream>>>(da, a.w_ih, dx, n_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / dw_block_cols<W>), 256, 0, stream>>>(da, a.x, a.y, part, n_rows,
+                                                                                     a.steps, chunk_rows);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  lstm_bwd_sum_kernel<W><<<(G * K + 255) / 256, 256, 0, stream>>>(part, n_chunks, db_part, n_blocks, dw_ih, dw_hh,
+                                                                   db);
+  return cudaGetLastError();
+}
+
 template <typename T, int W>
 int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* da, float* part,
            float* db_part, int rows, int n_chunks, int dx_blocks, int fused, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int batch = a.batch, steps = a.steps;
-  const long long n_rows = (long long)batch * steps;
   const bool square = a.d == W && a.h == W;  // else masked: D, H <= W at runtime
   if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
   if (a.d < 1 || a.h < 1 || a.d > W || a.h > W) return (int)cudaErrorInvalidValue;
@@ -1387,49 +1427,25 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
     return (int)cudaErrorInvalidValue;
   }
   if (n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
-  const int rec_blocks = (batch + rows - 1) / rows;
+  const int rec_blocks = (a.batch + rows - 1) / rows;
 
   cudaError_t err = rows == 1 ? launch_rec<T, 1, W>(a, (T*)da, db_part, stream)
                               : launch_rec<T, 2, W>(a, (T*)da, db_part, stream);
   if (err != cudaSuccess) return (int)err;
-  if (!square)
-    return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
-                                       rec_blocks, stream);
-
-  constexpr int G = 4 * W, K = 2 * W;
-  const long long chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
-  static SmemOnce dx_once;
-  if constexpr (is_bf16<T>) {
-    constexpr int smem = dxm_smem_bytes<W>();
-    if ((err = dx_once.set(lstm_bwd_dx_mma_kernel<W>, smem)) != cudaSuccess) return (int)err;
-    lstm_bwd_dx_mma_kernel<W><<<dx_blocks, 256, smem, stream>>>(
-        (const T*)da, a.w_ih, (T*)dx, n_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_bwd_dw_mma_kernel<W><<<dim3(n_chunks, 2), 256, 0, stream>>>(
-        (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  } else {
-    constexpr int smem = dx_smem_bytes<W>();
-    if ((err = dx_once.set(lstm_bwd_dx_kernel<W>, smem)) != cudaSuccess) return (int)err;
-    lstm_bwd_dx_kernel<W><<<dx_blocks, 256, smem, stream>>>(
-        (const T*)da, a.w_ih, (T*)dx, n_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_bwd_dw_kernel<W><<<dim3(n_chunks, G / dw_block_cols<W>), 256, 0, stream>>>(
-        (const T*)da, a.x, a.y, part, n_rows, steps, chunk_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-
-  lstm_bwd_sum_kernel<W><<<(G * K + 255) / 256, 256, 0, stream>>>(
-      part, n_chunks, db_part, rec_blocks, dw_ih, dw_hh, db);
-  return (int)cudaGetLastError();
+  if constexpr (W != 48)  // capacity 48 has no square products: the runtime widths' at 48 x 48 too
+    if (square)
+      return (int)launch_square_products<T, W>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
+                                               rec_blocks, dx_blocks, stream);
+  return (int)launch_any_products<T>(a, (T*)dx, dw_ih, dw_hh, db, (const T*)da, part, db_part, n_chunks,
+                                     rec_blocks, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Capacity 64 (no suffix), 32 (_w32) and 16 (_w16), for any 1 <= D, H <= the
-// capacity.  G =
+// Capacity 64 (no suffix), 48 (_w48), 32 (_w32) and 16 (_w16), for any 1 <=
+// D, H <= the capacity.  G =
 // 4 H.  x: (B, T, D), y: (B, T, H) (the forward's output) and dy: (B, T, H),
 // all three in the instantiation's type; w_ih: (G, D), w_hh: (G, H) fp32,
 // 8-byte aligned; cprev: (B, T, H) fp32; bias: (G,) fp32.  Outputs, every
@@ -1438,7 +1454,8 @@ extern "C" {
 // 1 or 2.  fused = 0, the
 // four launches: scratch da (B, T, G) in
 // the instantiation's type, part (n_chunks, G, D + H) fp32, db_part
-// (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid.  fused
+// (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid (>= 1,
+// unused at capacity 48 and at runtime widths).  fused
 // = 1 (capacity 32 at D = H = 32 only; its rows' da must fit a block's
 // shared memory, which the plan's T <= 64 keeps): one cooperative launch of
 // ceil(B / rows) blocks, which must all be resident at once; scratch part
@@ -1459,6 +1476,8 @@ extern "C" {
   }
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32, float, 64)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16, __nv_bfloat16, 64)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w48, float, 48)
+AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w48, __nv_bfloat16, 48)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w32, float, 32)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w32, __nv_bfloat16, 32)
 AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_f32_w16, float, 16)

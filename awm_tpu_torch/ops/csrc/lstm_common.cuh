@@ -3,9 +3,8 @@
 // The register-held kernels are templates over a capacity W, instantiated
 // for W = 64 (the base family's channel count), W = 32 (the strided family's
 // hidden width) and W = 16 (the multi-process dry run of
-// awm_tpu_torch/entry.py), and the forward (lstm_fwd.cu) also for W = 48
-// (the base family at channels 33-48: three quads a lane, NQ = 3), torch
-// gate order (i, f, g, o).  A call passes its
+// awm_tpu_torch/entry.py), and W = 48 (the base family at channels 33-48:
+// three quads a lane, NQ = 3), torch gate order (i, f, g, o).  A call passes its
 // real input width D and hidden width H (runtime arguments, max(D, H) <= W):
 // the weights load row g H + j, column k < D (or k < H), zero elsewhere, x
 // is read with row stride D, and y, c_{t-1}, da and the gradients are
@@ -50,14 +49,13 @@ namespace awm {
 //   role: one per gate column), THREADS = 2 COLS (consumers, then producers);
 // its shared-memory layouts are the capacity's, the call's real widths are
 // runtime arguments d and h.
+// The register-held weight rows: 1, 2, 3 or 4 quads a lane (NQ = W / 16)
+// and as many mma k-tiles.  At W = 48 lane kp's quads 4 q + kp, q
+// ascending, are capacity 64's without its last (q = 3), which is all zeros
+// at widths up to 48, and the mma loses a k-tile of zeros: a call at 33-48
+// keeps the bits it had on capacity 64.
 template <int W>
-constexpr bool valid_width = W == 16 || W == 32 || W == 64;  // the register-held weight rows: 1, 2 or 4 quads a lane
-// The forward's capacities: also W = 48, 3 quads a lane and 3 mma k-tiles.
-// Lane kp's quads 4 q + kp, q ascending, are then capacity 64's without its
-// last (q = 3), which is all zeros at widths up to 48, and the mma loses a
-// k-tile of zeros: a call at 33-48 keeps the bits it had on capacity 64.
-template <int W>
-constexpr bool valid_fwd_width = valid_width<W> || W == 48;
+constexpr bool valid_width = W == 16 || W == 32 || W == 48 || W == 64;
 
 constexpr int NBUF = 2;      // buffers of the producers' ring
 

@@ -20,10 +20,9 @@
 // run's gradient check, T = 32; the ring path, untuned); a call passes its
 // D, H <= W at run time and takes the smallest capacity that holds them
 // (lstm_common.cuh has the thread mapping and the masking).  Kernel C
-// (lstm_bwd.cu) has the capacities 64, 32 and 16 only: it reads y and
-// c_{t-1} as (B, T, H) whatever capacity built them, and recomputes the
-// gates in the order of lstm_common.cuh, which capacity 48 keeps bit for
-// bit.  Widths above 64 run on a thread-block cluster (lstm_fwd_cluster.cu:
+// (lstm_bwd.cu) has the same capacities and recomputes the gates in the
+// order of lstm_common.cuh, which capacity 48 keeps bit for bit.  Widths
+// above 64 run on a thread-block cluster (lstm_fwd_cluster.cu:
 // its own library, so that the two build in parallel).
 //
 // What bounds it on this card: the recurrence is sequential in T, so the
@@ -117,7 +116,7 @@ __global__ void __launch_bounds__(8 * W, (FWD_MIN_BLOCKS<R, W>))
 lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                 const float* __restrict__ w_hh, const float* __restrict__ bias,
                 T* __restrict__ y, float* __restrict__ cprev, int batch, int steps, int d_in, int h_in) {
-  static_assert(valid_fwd_width<W>, "instantiated for W = 16, 32, 48 and 64");
+  static_assert(valid_width<W>, "instantiated for W = 16, 32, 48 and 64");
   constexpr int D = W, H = W, COLS = 4 * W, THREADS = 2 * COLS;
   const int d = MASKED ? d_in : W, h = MASKED ? h_in : W;
   constexpr int XPW = XP<T, W>;

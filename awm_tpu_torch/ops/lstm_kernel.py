@@ -8,24 +8,24 @@ Three TPU kernels of awm_tpu/ops/pallas/lstm_kernel.py have a counterpart:
 - B, _forward_train (line 342): forward_train_kernel, the same sources with
   their TRAIN flag, instantiations lstm_fwd_train_{f32,bf16}[_w48|_w32|_w16|_cluster|_wide];
 - C, _backward (line 391): backward_kernel, ops/csrc/lstm_bwd.cu (above 256
-  lstm_wide.cu), instantiations lstm_bwd_{f32,bf16}[_w32|_w16|_cluster|_wide].
+  lstm_wide.cu), instantiations lstm_bwd_{f32,bf16}[_w48|_w32|_w16|_cluster|_wide].
 Each takes any input width D and hidden width H >= 1 (x's last axis and
 w_hh's second), as the TPU kernels do; a width of 0 raises.  Up to
 CLUSTER_MAX_WIDTH = 256 every weight of the recurrence sits on chip, so the
-kernels are compiled for capacities W: 64 (the base family, no suffix), 32
-(the strided family, suffix _w32) and 16 (the gradient check of
-entry.dryrun_multichip, suffix _w16, the ring path and four-launch
-backward, untuned), and A and B also for 48 (suffix _w48: the base family
-at channels 33-48 on a block of 384 threads, not the width-64 block's 512;
-FWD_WIDTHS).  A call takes the smallest capacity of its kernel with
-max(D, H) <= W: at D = H = W it is the square instantiation, else the
-same one with D and H passed at run time (its weights load zeros past the
-real widths, a padded unit stays exactly zero; counted as *_masked, e.g.
-lstm_fwd_f32_w48_masked at 40 x 24, lstm_bwd_f32_masked at 48 x 48), and
-the backward's dx, dW and sum run at the runtime widths (bf16 on the tensor
-cores).  C reads y and c_{t-1} as (B, T, H) whatever capacity A and B ran
-at, and capacity 48 sums in capacity 64's order less a quad of zeros, so a
-call gives the same bits at either.  Above 64 a call runs on a
+kernels are compiled for the capacities W of WIDTHS: 64 (the base family,
+no suffix), 48 (suffix _w48: the base family at channels 33-48 on a block
+of 384 threads, not the width-64 block's 512), 32 (the strided family,
+suffix _w32) and 16 (the gradient check of entry.dryrun_multichip, suffix
+_w16, the ring path and four-launch backward, untuned).  A call takes the
+smallest capacity with max(D, H) <= W, the same for A, B and C: at D = H =
+W it is the square instantiation, else the same one with D and H passed at
+run time (its weights load zeros past the real widths, a padded unit stays
+exactly zero; counted as *_masked, e.g. lstm_bwd_f32_w48_masked at 40 x
+24), and the backward's dx, dW and sum run at the runtime widths (bf16 on
+the tensor cores; at capacity 48 at 48 x 48 too).  Capacity 48 sums in
+capacity 64's order less terms that are exactly zero (a quad of the gate
+products, four lanes of C's dh product), so a call gives the same bits at
+either.  Above 64 a call runs on a
 thread-block cluster of ceil(H / 32) CTAs of 32 hidden units each, which
 carries 1, 2, 4 or 8 batch rows, h (and in the backward da) exchanged
 between them through distributed shared memory every step in row bursts
@@ -69,7 +69,7 @@ tile's N; the fp32 ones stay on the CUDA cores in full fp32, no TF32.
 
 The launch plan (launch_plan) is computed here, in Python, from the batch,
 the steps, the widths and the card's SM count, cached per shape, and handed
-to the C entry points: the capacities (A and B's, C's), the cluster's size
+to the C entry points: the capacity, the cluster's size
 or the wide path (its windows, its rows a row group and its scratch); rows per block
 (1, 2 or 4 forward, 1 or 2 backward; 1, 2, 4 or 8 a cluster: the rows that
 finish the batch soonest, by the waves of blocks the card needs, at the
@@ -110,20 +110,18 @@ from awm_tpu_torch.ops.lstm import (
     matmul_dtype,
 )
 
-WIDTHS = (64, 32, 16)  # the capacities W of kernel C's register-held instantiations
-FWD_WIDTHS = (64, 48, 32, 16)  # and of kernels A and B's
+WIDTHS = (64, 48, 32, 16)  # the capacities W of the register-held instantiations, kernels A, B and C
 CLUSTER_MAX_WIDTH = 256  # the cluster path's widest D and H (8 CTAs of CLUSTER_UNITS); wider: the wide path
 CLUSTER_UNITS = 32  # hidden units a CTA of the cluster path owns
 SOURCES = ("lstm_fwd", "lstm_fwd_cluster", "lstm_bwd", "lstm_wide")  # ops/csrc/<name>.cu, one library each
 KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 
 
-def capacity(width: int, hidden: int | None = None, fwd: bool = False) -> int | None:
-    """The smallest W of WIDTHS (of FWD_WIDTHS for kernels A and B: fwd)
-    with max(D, H) <= W, or None where the call takes the cluster path
-    (max(D, H) > 64) or the wide path (> 256)."""
+def capacity(width: int, hidden: int | None = None) -> int | None:
+    """The smallest W of WIDTHS with max(D, H) <= W, or None where the call
+    takes the cluster path (max(D, H) > 64) or the wide path (> 256)."""
     need = max(width, hidden or width)
-    fits = [w for w in (FWD_WIDTHS if fwd else WIDTHS) if need <= w]
+    fits = [w for w in WIDTHS if need <= w]
     return min(fits) if fits else None
 
 
@@ -136,17 +134,17 @@ def instantiation(kernel: str, dtype: torch.dtype, width: int, hidden: int | Non
     """The name of the instantiation a call of input width D = width and
     hidden width H = hidden (default: width) runs, and of its launch
     counter: lstm_fwd_f32 (D = H = 64), lstm_fwd_bf16_w32 (D = H = 32),
-    lstm_fwd_f32_w48 (D = H = 48), lstm_fwd_f32_masked (A at max(D, H) in
-    49-63: capacity 64 at runtime widths), lstm_fwd_f32_w48_masked (40 x
-    24), lstm_bwd_f32_masked (C at max(D, H) in 33-63, or 48 x 48),
-    lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster (max(D, H) > 64),
+    lstm_bwd_f32_w48 (D = H = 48), lstm_fwd_f32_masked (max(D, H) in 49-63:
+    capacity 64 at runtime widths), lstm_bwd_f32_w48_masked (max(D, H) in
+    33-48, not 48 x 48), lstm_fwd_f32_w16_masked, lstm_bwd_bf16_cluster
+    (max(D, H) > 64),
     lstm_bwd_f32_wide (max(D, H) > 256).  Its C entry point is
     entry_point(name)."""
     sfx = "bf16" if matmul_dtype(dtype) == torch.bfloat16 else "f32"
     hidden = hidden or width
     if is_wide(width, hidden):
         return f"{kernel}_{sfx}_wide"
-    cap = capacity(width, hidden, fwd=kernel != "lstm_bwd")
+    cap = capacity(width, hidden)
     if cap is None:
         return f"{kernel}_{sfx}_cluster"
     name = f"{kernel}_{sfx}" + ("" if cap == 64 else f"_w{cap}")
@@ -190,10 +188,10 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # backward call is one launch on the fused path (W = 32 where the plan
 # takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
 # One counter per path: square, masked (a capacity at runtime widths),
-# cluster and wide (a call counts once there too, whatever its windows); at
-# FWD_WIDTHS, so capacity 48's square and masked counters are A and B's
-# alone (C's widths there name its capacity-64 counter).
-PATH_WIDTHS = (tuple((w, w) for w in FWD_WIDTHS) + tuple((w - 1, w) for w in FWD_WIDTHS)
+# cluster and wide (a call counts once there too, whatever its windows): a
+# capacity's square and masked counters at each of WIDTHS, the same
+# capacity for A, B and C.
+PATH_WIDTHS = (tuple((w, w) for w in WIDTHS) + tuple((w - 1, w) for w in WIDTHS)
                + ((CLUSTER_MAX_WIDTH, CLUSTER_MAX_WIDTH), (CLUSTER_MAX_WIDTH + 1, CLUSTER_MAX_WIDTH + 1)))
 launches = {instantiation(k, dt, d, h): 0
             for d, h in PATH_WIDTHS for k in KERNELS for dt in (torch.float32, torch.bfloat16)}
@@ -207,7 +205,11 @@ build_log = ""
 # H100 (PERF.md has the times): width 64 at T=16000; width 48 at T=16000
 # from kernel B at B=128, where every variant is one wave (fp32 5.43, 8.27,
 # 13.38 ms at 1, 2, 4 rows; bf16 4.50, 5.10, 5.50; A at B=512 took its
-# least at 4 rows, fp32 13.2 and bf16 5.5 ms); width 32 at T=50 from
+# least at 4 rows, fp32 13.2 and bf16 5.5 ms); C at width 48 from its
+# recurrence at B=128, T=16000 (the call's device ms less dx, dW and the
+# sum, which do not change with the rows: fp32 7.11 and 13.55 ms at 1 and 2
+# rows, bf16 5.31 and 8.59; at B=512 two rows took fp32 54.2 ms against
+# 55.5 at one, bf16 21.7 against 25.7, as these costs choose); width 32 at T=50 from
 # the kernels' device time at B=128, where every variant is one wave (a
 # call's CUDA-event time there is the host's).  A step is bound by latency,
 # so a second row costs less than the first, but not nothing.  Width 16 at
@@ -228,6 +230,8 @@ FWD_STEP_COST = {
 BWD_STEP_COST = {
     (64, torch.float32): {1: 1.0, 2: 2.1},
     (64, torch.bfloat16): {1: 1.0, 2: 1.58},
+    (48, torch.float32): {1: 1.0, 2: 1.91},
+    (48, torch.bfloat16): {1: 1.0, 2: 1.62},
     (32, torch.float32): {1: 1.0, 2: 1.32},
     (32, torch.bfloat16): {1: 1.0, 2: 1.14},
     (16, torch.float32): {1: 1.0, 2: 1.38},
@@ -356,8 +360,7 @@ class LaunchPlan:
     """How one (batch, steps, dtype, width) call is cut over a card of
     sm_count SMs."""
 
-    capacity: int  # W of kernel C's register-held instantiation, 0 on the cluster and wide paths
-    fwd_capacity: int  # and of kernels A and B's (48 at max(D, H) in 33-48, where C's is 64)
+    capacity: int  # W of the register-held instantiations (A, B and C), 0 on the cluster and wide paths
     cluster: int  # CTAs of a cluster (ceil(H / 32)) on the cluster path, else 0
     fwd_rows: int  # batch rows per block (per cluster), kernels A and B
     fwd_blocks: int
@@ -544,7 +547,7 @@ def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width:
     n_chunks = max(1, min(DW_MAX_CHUNKS, part_budget // (4 * g * (width + hidden)),
                           max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
-        capacity=0, fwd_capacity=0, cluster=0, fwd_rows=fwd_rows, fwd_blocks=fwd_groups, fwd_short=False,
+        capacity=0, cluster=0, fwd_rows=fwd_rows, fwd_blocks=fwd_groups, fwd_short=False,
         bwd_rows=bwd_rows, bwd_blocks=bwd_groups, bwd_fused=False, n_chunks=n_chunks, dx_blocks=0,
         da_shape=(batch, bwd_window, g), da_dtype=mm,
         part_shape=(n_chunks, g, width + hidden), db_part_shape=(bwd_groups, g),
@@ -580,7 +583,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     if is_wide(width, hidden):
         return _wide_plan(batch, steps, dtype, sm_count, width, hidden, bwd_rows, wide_slots)
     mm = matmul_dtype(dtype)
-    cap, fwd_cap = capacity(width, hidden), capacity(width, hidden, fwd=True)
+    cap = capacity(width, hidden)
     square = width == hidden == cap
     if cap is None:
         k = -(-hidden // CLUSTER_UNITS)
@@ -593,12 +596,11 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         if bwd_rows is None:
             bwd_rows = rows_of(bwd_slots, CLUSTER_BWD_STEP_COST)
     else:
-        k, slots = 0, lambda w: sm_count * BLOCKS_PER_SM.get((w, mm), 1)
-        fwd_short = width == hidden == fwd_cap and fwd_cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
-        fwd_rows = _rows_per_block(batch, slots(fwd_cap),
-                                   (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[fwd_cap, mm])
+        k, slots = 0, sm_count * BLOCKS_PER_SM.get((cap, mm), 1)
+        fwd_short = square and cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+        fwd_rows = _rows_per_block(batch, slots, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[cap, mm])
         if bwd_rows is None:
-            bwd_rows = _rows_per_block(batch, slots(cap), BWD_STEP_COST[cap, mm])
+            bwd_rows = _rows_per_block(batch, slots, BWD_STEP_COST[cap, mm])
     allowed = CLUSTER_ROWS if cap is None else BWD_ROWS
     if bwd_rows not in allowed:
         raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
@@ -622,7 +624,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     n_chunks = max(1, min(DW_MAX_CHUNKS, CLUSTER_SCRATCH_BYTES // 4 // (4 * g * (width + hidden)),
                           max(-(-n_rows // DW_CHUNK_ROWS), min(sm_count, -(-n_rows // DW_MIN_CHUNK_ROWS)))))
     return LaunchPlan(
-        capacity=cap or 0, fwd_capacity=fwd_cap or 0, cluster=k,
+        capacity=cap or 0, cluster=k,
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
         bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
         bwd_fused=(square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS

@@ -175,8 +175,8 @@ width 16.  Phases:
    gradients), the most of cuDNN's workspace and copies live at once in the
    backward, and the bytes autograd saves, BatchNorm's share of them; then
    the same preset's bf16 step at B=512 (its peak memory and time);
-17. print the {"kernels": [...]} line (40 instantiations: widths 64, 32
-   and 16, 48 (A and B's capacity 48, C's masked 64), A and B masked on
+17. print the {"kernels": [...]} line (42 instantiations: widths 64, 48
+   (capacity 48's squares, A, B and C), 32 and 16, A, B and C masked on
    capacity 64 at 56, cluster 128, wide 512; the width-32
    forward ones with their path and every width-32 one with its fit; the
    width-16 ones at the dry run's shape, with their times at (128, 50)),
@@ -235,20 +235,20 @@ DRY_B, DRY_T = 4, 32
 OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", "lstm_bwd_bf16_w16")
 # The widths phase (4b, widths_phase): kernels A, B and C at the widths the
 # kernels take masked or on capacity 48 (48 x 48, the base family at
-# channels 48: A and B's capacity 48, C's capacity 64 at runtime widths;
-# 40 x 24: capacity 48 at runtime widths for A and B; 56 x 56: capacity 64
-# at runtime widths for all three) and on the cluster path (96 x 96,
+# channels 48: capacity 48's square; 40 x 24: capacity 48 at runtime
+# widths; 56 x 56: capacity 64 at runtime widths; C at the capacity-48
+# widths at rows 1 and 2) and on the cluster path (96 x 96,
 # 128 x 128, the base family at channels 128, and the ceiling 256 x 256)
 # against their plain versions at B=3, T=512; at the shapes the base
 # family's main path hands them (T=16000; A at the session's B=64, B and C
 # at the train step's B=32); timed, and held against their plain versions,
 # at T=16000 (A B=512, B and C B=128) at the base family's two new widths
-# (C at the ceiling by cluster_scale_check), and A and B at MASKED64;
+# (C at the ceiling by cluster_scale_check), and A, B and C at MASKED64;
 # then the base family at channels 48 and 128 through the
 # session (64 chunks) and the train step (B=32), from
 # checkpoint.seeded_flax_tree weights.  The masked
-# instantiations of capacities 48, 32 and 16, and A and B's of capacity 64
-# (49..63), run on no main path: OFF_PATH.
+# instantiations of every capacity, 64 (49..63), 48, 32 and 16, run on no
+# main path: OFF_PATH.
 # The wide path past 256 (lstm_wide.cu): A, B and C at WIDE_PATH_WIDTHS (one
 # unit past the cluster path, the base family at channels 320 and 512, 1024,
 # D != H both ways) against their plain versions at B=3, T=512; the unit
@@ -267,9 +267,9 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 WIDE_PATH_WIDTHS = ((257, 257), (320, 320), (512, 512), (1024, 1024), (300, 40), (40, 600))
 NEW_WIDTHS = ((48, 48), (40, 24), (56, 56), (96, 96), (128, 128), (256, 256)) + WIDE_PATH_WIDTHS
 NEW_B, NEW_T = 3, 512
-BASE_CHANNELS = (48, 128)  # the base family's new widths: capacity 48 (A, B) and masked 64 (C), cluster
-MASKED64 = 56  # a width of 49..63: A and B on capacity 64 at runtime widths (the kernel table's *_masked of A, B)
-PADDED_CHECKS = ((48, 48), (40, 24))  # capacity 48 against capacity 64's square on zero-padded operands
+BASE_CHANNELS = (48, 128)  # the base family's new widths: capacity 48, the cluster path
+MASKED64 = 56  # a width of 49..63: capacity 64 at runtime widths (the kernel table's *_masked of A, B and C)
+PADDED_CHECKS = ((48, 48), (40, 24))  # capacity 48 (A, B and C) against capacity 64's square on zero-padded operands
 WIDE_CHANNELS = 512  # the base family on the wide path
 TILED_CTAS = (7, 31)  # 512 x 512's 32 tiles on 7 CTAs (4 or 5 tiles each), on 31 (one CTA of two)
 # 272 tiles a row group, past the CTAs an H100 holds at once of every wide
@@ -298,8 +298,8 @@ WIDE_PATH_B = 8
 WIDE_HOLD_T, WIDE_HOLD_CHUNKS = 1600, 2  # the card-vs-CPU holds' clip length, session chunks
 OFF_PATH += tuple(f"{k}_{sfx}_w{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
                   for sfx in ("f32", "bf16") for w in (32, 16))
-OFF_PATH += tuple(f"{k}_{sfx}{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train") for sfx in ("f32", "bf16")
-                  for w in ("_w48", ""))
+OFF_PATH += tuple(f"{k}_{sfx}{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+                  for sfx in ("f32", "bf16") for w in ("_w48", ""))
 # The base family at channels 48 and 128 on the card against the port's own
 # CPU run of the same seeded weights.  Session (64 chunks on the card; its
 # first WIDE_HOLD_CHUNKS chunks through the CPU session): per-chunk summaries,
@@ -414,8 +414,8 @@ KERNELS: dict[str, Kernel] = {}  # by instantiation name, filled by kernel_table
 
 def kernel_table(K) -> dict[str, Kernel]:
     """Every compiled instantiation, named by lstm_kernel.instantiation, at
-    the first width of the list that runs it (C's capacity 64 at runtime
-    widths: 48)."""
+    the first width of the list that runs it (capacity 64 at runtime
+    widths: MASKED64)."""
     import torch
 
     table = {}
@@ -514,7 +514,8 @@ def latency_bound_ms(t: int, w: int, sm_clock_mhz: float) -> float:
 
 
 def rel_err(a, ref) -> float:
-    return float((a.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-12))
+    # in place: the one temporary of a's size is all the ceiling checks' 12 GiB dW_hh leave room for
+    return float((a.float() - ref.float()).abs_().max() / (ref.float().abs().max() + 1e-12))
 
 
 def cudnn_lstm(w_ih, w_hh, bias, dtype, device):
@@ -2217,13 +2218,27 @@ def padded_to_64(x, w_ih, w_hh, bias, h: int):
     return (F.pad(x, (0, 64 - d)), pad(w_ih, d), pad(w_hh, h), F.pad(bias.view(4, h), (0, 64 - h)).reshape(256))
 
 
+def unpadded_grads(grads, d: int, h: int) -> tuple[tuple, bool]:
+    """Kernel C's (dx, dW_ih, dW_hh, db) of a call on padded_to_64's
+    operands sliced back to LSTM(d, h), and whether every padded entry is
+    exactly 0."""
+    dx, dw_ih, dw_hh, db = grads
+    wi, wh, b = dw_ih.view(4, 64, 64), dw_hh.view(4, 64, 64), db.view(4, 64)
+    zero = (float(dx[..., d:].float().abs().max()) == 0.0 and float(wi[:, h:].abs().max()) == 0.0
+            and float(wi[:, :, d:].abs().max()) == 0.0 and float(wh[:, h:].abs().max()) == 0.0
+            and float(wh[:, :, h:].abs().max()) == 0.0 and float(b[:, h:].abs().max()) == 0.0)
+    return (dx[..., :d], wi[:, :h, :d].reshape(4 * h, d), wh[:, :h, :h].reshape(4 * h, h),
+            b[:, :h].reshape(4 * h)), zero
+
+
 def wide_checks(K, dev, max_err, max_rel) -> None:
     """The widths phase's kernel checks: A, B and C at NEW_WIDTHS against
     their plain versions at B=3, T=512, fp32 and bf16 (KERNEL_TOL); two
     backward calls (and on the cluster and wide paths two forward calls)
-    give the same bits; 48 x 48 and 40 x 24 (capacity 48) give the bits of
-    the width-64 instantiation on the zero-padded operands
-    (PADDED_CHECKS); one past the cluster path
+    give the same bits, C at capacity 48 at both rows variants; 48 x 48 and
+    40 x 24 (capacity 48) give the bits of the width-64 instantiation on
+    the zero-padded operands, A, B and C (PADDED_CHECKS); one past the
+    cluster path
     (257 x 257, 8 x 257) launches the *_wide instantiations through
     lstm_fused_forward and returns the plain result.  Then the wide path's
     unit tiles: at 512 x 512 with fewer CTAs a row group (TILED_CTAS: CTAs
@@ -2271,6 +2286,22 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
             max_err[bname] = max(max_err.get(bname, 0.0),
                                  max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref_g)))
             max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+            if K.capacity(d, h) == 48:  # C at both rows variants of capacity 48's block
+                by_rows = []
+                for rows in K.BWD_ROWS:
+                    with no_tf32():
+                        g1 = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
+                        g2 = K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=rows)
+                        torch.cuda.synchronize()
+                    rel = max(rel_err(g, r) for g, r in zip(g1, ref_g))
+                    by_rows.append((rows, rel, all(torch.equal(a, a2) for a, a2 in zip(g1, g2))))
+                    max_rel[bname] = max(max_rel[bname], rel)
+                    max_err[bname] = max(max_err[bname], *(max_abs(g, r) for g, r in zip(g1, ref_g)))
+                    del g1, g2
+                check(all(rel <= tol_c and same for _, rel, same in by_rows),
+                      f"{bname} (D={d} H={h}) at rows " + ", ".join(f"{r}: rel {e:.2e}, twice the same bits {same}"
+                                                                   for r, e, same in by_rows)
+                      + f" vs plain (tol {tol_c:.0e})")
             if (d, h) in PADDED_CHECKS:
                 padded = padded_to_64(x, w_ih, w_hh, bias, h)
                 y64 = K.forward_kernel(*padded)
@@ -2280,6 +2311,21 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
                 check(held, f"{name} / {fname} at {d} x {h}: the same bits as "
                             f"{K.instantiation('lstm_fwd', dtype, 64)} on the zero-padded operands, padded units "
                             f"exactly 0")
+                # C: dW and db sum each output over the rows as the padded call does, fp32 dx over the gate
+                # columns in order; bf16 dx's mma k-tiles hold 16 columns, which straddle two gates where 16
+                # does not divide H (40 x 24): there its fp32 sums group other terms than the padded call's
+                # and dx is held against plain above (the parent's capacity-64 call runs the same dx kernel)
+                g64 = K.backward_kernel(padded[0], yt64, c64, torch.nn.functional.pad(dy, (0, 64 - h)),
+                                        *padded[1:])
+                sliced, zero = unpadded_grads(g64, d, h)
+                exact = ("dx", "dW_ih", "dW_hh", "db") if dtype == torch.float32 or h % 16 == 0 else (
+                    "dW_ih", "dW_hh", "db")
+                same = {n: torch.equal(g, p) for n, g, p in zip(("dx", "dW_ih", "dW_hh", "db"), grads, sliced)}
+                check(zero and all(same[n] for n in exact),
+                      f"{bname} at {d} x {h}: {', '.join(exact)} the same bits as "
+                      f"{K.instantiation('lstm_bwd', dtype, 64)} on the zero-padded operands ({same}), padded "
+                      f"entries exactly 0: {zero}")
+                del g64, sliced
             del x, y0, y, cprev, grads, again, ref_y, ref_c, ref_g
             torch.cuda.empty_cache()
     ceiling = K.CLUSTER_MAX_WIDTH
@@ -2397,6 +2443,17 @@ def cluster_parts(plan) -> dict[str, tuple[str, int]]:
             "dw": ("lstm_bwd_dw_", wins), "sum": ("lstm_bwd_sum_", 1)}
 
 
+def capacity_parts(dtype) -> dict[str, tuple[str, int]]:
+    """Kernel C's launches on a register-held capacity at runtime widths (and
+    at capacity 48's square), by a kernel-name fragment and its launches a
+    call: the recurrence, bf16 W_ih rounded once, dx, dW, the ordered sum."""
+    import torch
+
+    wih = {"wih": ("lstm_bwd_wih_", 1)} if dtype == torch.bfloat16 else {}
+    return {"rec": ("lstm_bwd_rec_kernel", 1), **wih, "dx": ("lstm_bwd_dx_", 1), "dw": ("lstm_bwd_dw_", 1),
+            "sum": ("lstm_bwd_sum_", 1)}
+
+
 def rows_variants(K, x, w: int) -> tuple:
     """The rows variants rows_checks holds at width w: on the cluster path
     every one it builds (CLUSTER_ROWS); on the wide path in fp32 every rows
@@ -2418,10 +2475,8 @@ def rows_checks(K, dev, max_err, max_rel) -> None:
     and 256, K = 3, 4, 8; the wide path at 512), B in ROWS_CHECK_B, T in
     ROWS_CHECK_T, fp32 and bf16, at every rows variant of rows_variants,
     against the plain versions (KERNEL_TOL); two calls of A and of C give
-    the same bits, and A and B the same y.  Then the masked width 48's
-    kernel C in bf16 (its dx and dW on the tensor cores at runtime widths)
-    against plain at B=7, T=512.  The worst errors go to max_err /
-    max_rel."""
+    the same bits, and A and B the same y.  Then kernel C at 48 x 48
+    (capacity48_checks).  The worst errors go to max_err / max_rel."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
@@ -2468,20 +2523,44 @@ def rows_checks(K, dev, max_err, max_rel) -> None:
                         f"B {worst['B']:.3e} max abs (tol {tol_a:.0e}); C rel {worst['C']:.3e} (tol {tol_c:.0e}); "
                         f"A twice, C twice the same bits, A and B the same y")
             torch.cuda.empty_cache()
-    bname = K.instantiation("lstm_bwd", torch.bfloat16, 48)
-    x, w_ih, w_hh, bias, dy = lstm_inputs(7, torch.bfloat16, dev, seed=4807, t=512, w=48)
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        capacity48_checks(K, dev, max_rel, sfx, dtype)
+
+
+def capacity48_checks(K, dev, max_rel, sfx: str, dtype) -> None:
+    """rows_checks' kernel C at 48 x 48 (capacity 48's square), B=7,
+    T=512, at rows 1 and 2: against plain (KERNEL_TOL), two calls the same
+    bits, and in the profiler's list its recurrence on the 48-wide block
+    (lstm_bwd_rec_kernel<T, rows, 48, false>) and dx / dW at runtime widths
+    (bf16 on the tensor cores: lstm_bwd_{dx,dw}_any_mma)."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    bname, tol = K.instantiation("lstm_bwd", dtype, 48), K.KERNEL_TOL["lstm_bwd", sfx]
+    tname = "__nv_bfloat16" if dtype == torch.bfloat16 else "float"
+    x, w_ih, w_hh, bias, dy = lstm_inputs(7, dtype, dev, seed=4807, t=512, w=48)
     with no_tf32():
         ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
-        got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
-        mma = device_split(lambda: K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias),
-                           {"dx": "lstm_bwd_dx_any_mma_", "dw": "lstm_bwd_dw_any_mma_"}, reps=3)
-    rels = [rel_err(a, r) for a, r in zip(got, ref_g)]
-    max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
-    check(max(rels) <= K.KERNEL_TOL["lstm_bwd", "bf16"] and None not in mma.values(),
-          f"{bname} (48 x 48, B=7 T=512): dx / dW on the tensor cores at runtime widths (lstm_bwd_dx_any_mma "
-          f"{fmt_ms(mma['dx'])}, lstm_bwd_dw_any_mma {fmt_ms(mma['dw'])} in the profiler's list) vs plain: rel "
-          f"{', '.join(f'{r:.2e}' for r in rels)} (tol {K.KERNEL_TOL['lstm_bwd', 'bf16']:.0e})")
+    for rows in K.BWD_ROWS:
+        call = lambda: K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        with no_tf32():
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            prods = ("dx_any_mma_", "dw_any_mma_") if dtype == torch.bfloat16 else ("dx_narrow_", "dw_any_")
+            parts = device_split(call, {"rec": f"lstm_bwd_rec_kernel<{tname}, {rows}, 48, false>",
+                                        "dx": f"lstm_bwd_{prods[0]}", "dw": f"lstm_bwd_{prods[1]}"}, reps=3)
+        rels = [rel_err(a, r) for a, r in zip(got, ref_g)]
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        max_rel[bname] = max(max_rel.get(bname, 0.0), max(rels))
+        check(max(rels) <= tol and same and None not in parts.values(),
+              f"{bname} (48 x 48, B=7 T=512, rows {rows}): the recurrence on capacity 48's block "
+              f"(lstm_bwd_rec_kernel<{tname}, {rows}, 48, false> {fmt_ms(parts['rec'])}), dx / dW at runtime "
+              f"widths (lstm_bwd_{prods[0]} {fmt_ms(parts['dx'])}, lstm_bwd_{prods[1]} {fmt_ms(parts['dw'])}) in "
+              f"the profiler's list; vs plain: rel {', '.join(f'{r:.2e}' for r in rels)} (tol {tol:.0e}); two "
+              f"calls the same bits: {same}")
 
 
 def wide_main_checks(K, dev, max_err, max_rel) -> None:
@@ -2552,7 +2631,8 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
     torch.nn.LSTM (cuDNN, the yardstick only; a batch the card's memory
     refuses in slices, see yardstick); the bound.  On the cluster path C's
     device ms by launch; on the wide path every kernel's device ms by launch
-    (device_per_call, wide_parts), the plan's window, rows a group, row
+    (device_per_call, wide_parts), at capacity 48 C's (capacity_parts);
+    the plan's window, rows a group, row
     groups and CTAs a group, and the scratch the call allocates beside its
     inputs and outputs (the caching allocator's peak over the call) beside
     the plan's count.  Printed and kept in times under the instantiation's
@@ -2631,9 +2711,10 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
                                               wide_parts(K, plan_c, "lstm_bwd", dtype, w))
                     b_scratch = scratch_of(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
                                            B_TRAIN * T * w * elt + 4 * (4 * w * 2 * w + 4 * w))
-                elif K.capacity(w) is None:
+                else:
                     b_split = device_per_call(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias),
-                                              cluster_parts(plan_c))
+                                              cluster_parts(plan_c) if K.capacity(w) is None
+                                              else capacity_parts(dtype))
                 finite &= all(bool(torch.isfinite(g).all()) for g in (y, *grads))
                 errs, _, f_plain = held_in_slices(lambda i, j: lstm_forward_train(x[i:j], w_ih, w_hh, bias),
                                                   B_TRAIN, (y, cprev), f"plain B {w} {sfx}")
@@ -2697,14 +2778,15 @@ def wide_times(K, dev, times: dict, max_err, max_rel) -> None:
             torch.cuda.empty_cache()
 
 
-def masked64_times(K, dev, times: dict, max_err) -> None:
-    """Kernels A (B=512) and B (B=128) at MASKED64 x MASKED64, T=16000, on
-    capacity 64 at runtime widths, which no main path runs since capacity 48
-    took the widths 33..48: timed as wide_times times the base family's (the
-    kernel by CUDA events, 2 calls after one; the plain version held
-    against it, A's on its first A_PLAIN_B rows; torch.nn.LSTM, the
-    yardstick only; the bound), printed and kept in times under the
-    instantiation's name; the worst errors go to max_err."""
+def masked64_times(K, dev, times: dict, max_err, max_rel) -> None:
+    """Kernels A (B=512), B and C (B=128) at MASKED64 x MASKED64, T=16000,
+    on capacity 64 at runtime widths, which no main path runs since capacity
+    48 took the widths 33..48: timed as wide_times times the base family's
+    (the kernel by CUDA events, 2 calls after one; C's device ms by launch;
+    the plain version held against it, A's on its first A_PLAIN_B rows;
+    torch.nn.LSTM, the yardstick only; the bound), printed and kept in times
+    under the instantiation's name; the worst errors go to max_err /
+    max_rel."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_forward, lstm_forward_train
@@ -2712,6 +2794,7 @@ def masked64_times(K, dev, times: dict, max_err) -> None:
 
     w = MASKED64
     for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        masked64_backward_time(K, dev, times, max_err, max_rel, dtype)
         for kernel, b in (("lstm_fwd", B_SERVE), ("lstm_fwd_train", B_TRAIN)):
             name, train = K.instantiation(kernel, dtype, w), kernel == "lstm_fwd_train"
             held_b = B_TRAIN if train else A_PLAIN_B
@@ -2747,6 +2830,57 @@ def masked64_times(K, dev, times: dict, max_err) -> None:
                   f"rows), cuDNN nn.LSTM({w}) {lib} ms, bound {bms:.4f} ms ({by})", flush=True)
             del x, m
             torch.cuda.empty_cache()
+
+
+def masked64_backward_time(K, dev, times: dict, max_err, max_rel, dtype) -> None:
+    """masked64_times' kernel C at MASKED64 x MASKED64, B=128, T=16000: the
+    call by CUDA events (2 after one) and by launch, the plain backward held
+    against it (KERNEL_TOL), nn.LSTM's backward (the yardstick only), the
+    bound."""
+    import torch
+
+    from awm_tpu_torch.ops.lstm import lstm_backward
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    w, b = MASKED64, B_TRAIN
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = K.instantiation("lstm_bwd", dtype, w)
+    x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=w + b + 1, w=w)
+    with no_tf32():
+        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+        call = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)
+        grads = call()
+        ms = cuda_ms(call, reps=2)
+        split = device_per_call(call, capacity_parts(dtype))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        errs, refs, plain_ms = held_in_slices(
+            lambda i, j: lstm_backward(x[i:j], y[i:j], cprev[i:j], dy[i:j], w_ih, w_hh, bias), b, grads,
+            f"plain {name}")
+        del grads
+        torch.cuda.empty_cache()
+        m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
+        xg = x.clone().requires_grad_()
+
+        def lib_backward(r):
+            ylib = m(xg[:r])[0]
+            return cuda_ms(lambda: torch.autograd.grad(ylib, [xg, *m.parameters()], dy[:r], retain_graph=True),
+                           reps=2)
+        lib = yardstick(lib_backward, f"nn.LSTM({w}) {sfx} backward", b)
+    rels = [e / (r + 1e-12) for e, r in zip(errs, refs)]
+    tol = K.KERNEL_TOL["lstm_bwd", sfx]
+    check(finite and max(rels) <= tol and name.endswith("_masked"),
+          f"{name} (capacity 64 at {w} x {w}, B={b} T={T}) vs plain: rel {', '.join(f'{r:.2e}' for r in rels)} "
+          f"(tol {tol:.0e})")
+    max_err[name] = max(max_err.get(name, 0.0), max(errs))
+    max_rel[name] = max(max_rel.get(name, 0.0), max(rels))
+    bms, by = bound_ms(name, b, width=w)
+    times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                   "width": w, "batch": b, "steps": T, "split_ms": split}
+    print(f"{name} W={w} B={b} T={T}: kernel {ms:.3f} ms (device ms by launch: "
+          + ", ".join(f"{part} {fmt_ms(v, 3)}" for part, v in split.items())
+          + f"), plain {plain_ms:.1f} ms, cuDNN nn.LSTM({w}) backward {lib} ms, bound {bms:.4f} ms ({by})", flush=True)
+    del x, y, cprev, dy, m, xg
+    torch.cuda.empty_cache()
 
 
 def held_in_slices(fn, batch: int, got: tuple, what: str) -> tuple[list, list, float]:
@@ -2842,7 +2976,7 @@ def grad_groups(state) -> dict:
 
 
 def wide_family(K, launches, dev) -> dict:
-    """The base family at channels 48 (LSTM(48, 48): the masked kernels),
+    """The base family at channels 48 (LSTM(48, 48): capacity 48's squares),
     128 (LSTM(128, 128): the cluster path) and 512 (LSTM(512, 512): the
     wide path), seeded_flax_tree weights, with the counters zeroed just
     before: an embed+detect session of WIDE_CHUNKS chunks at bf16 and fp32,
@@ -3022,7 +3156,7 @@ def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
     laps.append(("timed shapes", time.time()))
     wide_times(K, dev, times, max_err, max_rel)
     laps.append(("masked 64 timed", time.time()))
-    masked64_times(K, dev, times, max_err)
+    masked64_times(K, dev, times, max_err, max_rel)
     laps.append(("family", time.time()))
     errs = wide_family(K, launches, dev)
     laps.append(("end", time.time()))
@@ -4132,8 +4266,7 @@ def main() -> int:
                  "launches": launches[name], "max_abs_err": max_err[name], "path": path, **times[name]}
         if not (plan.wide or plan.cluster):  # the register-held capacity the call ran and its rows a block
             bwd = k.kernel == "lstm_bwd"
-            entry.update(capacity=plan.capacity if bwd else plan.fwd_capacity,
-                         rows=plan.bwd_rows if bwd else plan.fwd_rows)
+            entry.update(capacity=plan.capacity, rows=plan.bwd_rows if bwd else plan.fwd_rows)
         if name in max_rel:
             entry["max_rel_err"] = max_rel[name]
         kernels.append(entry)

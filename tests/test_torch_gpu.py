@@ -1,5 +1,5 @@
 """Card-only tests of the port's CUDA kernels A, B and C (widths 64, 32 and 16, the masked widths
-below 64, A and B's capacity 48, the cluster path above it up to 256 and the wide path past it), of the attack ops,
+below 64, capacity 48 for A, B and C, the cluster path above it up to 256 and the wide path past it), of the attack ops,
 of checkpoints written on the card and of the fp32 server on the card
 (marker ``gpu``).
 
@@ -519,8 +519,8 @@ def test_wide_path_chunks_keep_the_bits(cuda, dtype):
                 assert all(torch.equal(a, r) for a, r in zip(got, ref)), (rows, chunk)
 
 
-# (D, H) of the new widths: masked within capacity 64 (48 x 48, the base
-# family at channels 48; 40 x 24) and 32 and 16, the cluster path (96 x 96,
+# (D, H) of the new widths: capacity 48 (48 x 48, the base family at
+# channels 48; 40 x 24 masked), masked within 32 and 16, the cluster path (96 x 96,
 # 128 x 128, the base family at channels 128; the ceiling; a wide input with
 # a narrow hidden width and the reverse).
 NEW_WIDTHS = [(48, 48), (40, 24), (17, 17), (9, 3), (96, 96), (128, 128), (256, 256), (200, 8), (8, 200)]
@@ -545,9 +545,8 @@ def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
         ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
     names = {k: lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS}
-    for k, n in names.items():  # 48 x 48: A and B's square of capacity 48, C masked on capacity 64
-        assert n.endswith("_cluster" if max(d, h) > 64 else "_w48" if d == h == 48 and k != "lstm_bwd"
-                          else "_masked"), n
+    for k, n in names.items():  # 48 x 48: capacity 48's square, A, B and C
+        assert n.endswith("_cluster" if max(d, h) > 64 else "_w48" if d == h == 48 else "_masked"), n
     before = {n: lstm_kernel.launches[n] for n in names.values()}
     fwd_rows = lstm_kernel.CLUSTER_ROWS if max(d, h) > 64 else lstm_kernel.FWD_ROWS
     bwd_rows = lstm_kernel.CLUSTER_ROWS if max(d, h) > 64 else lstm_kernel.BWD_ROWS
@@ -575,11 +574,17 @@ def test_new_widths_match_plain(cuda, d, h, dtype, tol_fwd, tol_bwd):
 @pytest.mark.parametrize("d,h", [(48, 48), (40, 24)], ids=["48x48", "40x24"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_masked_width_equals_padded_capacity(cuda, dtype, d, h):
-    """Kernels A and B at 48 x 48 (capacity 48's square instantiation) and
-    40 x 24 (capacity 48 at runtime widths) give the same bits as the square
-    width-64 instantiation on the operands zero-padded to 64 (the first H
-    columns): capacity 48 sums in capacity 64's order less a quad of zeros.
-    The padded units stay exactly 0."""
+    """Kernels A, B and C at 48 x 48 (capacity 48's square instantiation)
+    and 40 x 24 (capacity 48 at runtime widths) give the same bits as the
+    square width-64 instantiation on the operands zero-padded to 64 (the
+    first H columns): capacity 48 sums in capacity 64's order less terms
+    that are exactly zero (a quad of the gate products, C's four idle lanes
+    of the dh product), and C's dW and db sum over the rows as the square
+    call does, fp32 dx over the gate columns in order.  bf16 dx is held
+    where 16 divides H: its mma k-tiles of 16 gate columns straddle two
+    gates at H = 24, so its fp32 sums group other terms than the padded
+    call's (test_capacity_48_matches_plain holds it against plain).  The
+    padded units and gradient entries stay exactly 0."""
     x, w_ih, w_hh, bias = _inputs(4, 300, cuda, seed=d + h, w=d, h=h)
     x = x.to(dtype)
     xp = torch.nn.functional.pad(x, (0, 64 - d))
@@ -588,33 +593,46 @@ def test_masked_width_equals_padded_capacity(cuda, dtype, d, h):
     wi, wh = pad_w(w_ih, d), pad_w(w_hh, h)
     bp = torch.nn.functional.pad(bias.view(4, h), (0, 64 - h)).reshape(256)
     assert tuple(wi.shape) == (256, 64) and tuple(bp.shape) == (256,)
-    names = [lstm_kernel.instantiation(k, dtype, d, h) for k in ("lstm_fwd", "lstm_fwd_train")]
+    names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
     assert all("_w48" in n for n in names)
     before = [lstm_kernel.launches[n] for n in names]
     y48 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias)
     y64 = lstm_kernel.forward_kernel(xp, wi, wh, bp)
     yt48, c48 = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
     yt64, c64 = lstm_kernel.forward_train_kernel(xp, wi, wh, bp)
+    dy = torch.randn(4, 300, h, device=cuda, generator=torch.Generator(cuda).manual_seed(d * h)).to(dtype)
+    g48 = lstm_kernel.backward_kernel(x, yt48, c48, dy, w_ih, w_hh, bias)
+    g64 = lstm_kernel.backward_kernel(xp, yt64, c64, torch.nn.functional.pad(dy, (0, 64 - h)), wi, wh, bp)
     torch.cuda.synchronize()
-    assert [lstm_kernel.launches[n] - b for n, b in zip(names, before)] == [1, 1]
+    assert [lstm_kernel.launches[n] - b for n, b in zip(names, before)] == [1, 1, 1]
     assert torch.equal(y48, y64[..., :h]) and torch.equal(yt48, yt64[..., :h])
     assert torch.equal(c48, c64[..., :h])
     assert float(y64[..., h:].float().abs().max()) == 0.0 and float(c64[..., h:].abs().max()) == 0.0
+    dx64, dwi64, dwh64, db64 = g64[0], g64[1].view(4, 64, 64), g64[2].view(4, 64, 64), g64[3].view(4, 64)
+    assert torch.equal(g48[1], dwi64[:, :h, :d].reshape(4 * h, d))
+    assert torch.equal(g48[2], dwh64[:, :h, :h].reshape(4 * h, h))
+    assert torch.equal(g48[3], db64[:, :h].reshape(4 * h))
+    if dtype == torch.float32 or h % 16 == 0:
+        assert torch.equal(g48[0], dx64[..., :d])
+    assert float(dx64[..., d:].float().abs().max()) == 0.0
+    for pad in (dwi64[:, h:], dwi64[:, :, d:], dwh64[:, h:], dwh64[:, :, h:], db64[:, h:]):
+        assert float(pad.abs().max()) == 0.0
 
 
-# (D, H) about capacity 48: its widest and narrowest squares, D != H both
-# ways, a width of one beside 48; then 49..63, which stay on capacity 64.
+# (D, H) about capacity 48 (kernels A, B and C): its widest and narrowest
+# squares, D != H both ways, a width of one beside 48; then 49..63, which
+# stay on capacity 64.
 CAP48_WIDTHS = [(33, 33), (47, 47), (48, 48), (40, 24), (24, 40), (1, 48), (48, 1), (49, 49), (63, 40)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("d,h", CAP48_WIDTHS, ids=[f"{d}x{h}" for d, h in CAP48_WIDTHS])
 def test_capacity_48_matches_plain(cuda, d, h, dtype):
-    """Kernels A and B at max(D, H) in 33..48 run capacity 48 (its square at
-    48 x 48, else masked), at 49..63 capacity 64 masked, and kernel C
-    capacity 64 at all of them: each call counts on that counter and holds
-    against the plain versions at KERNEL_TOL at every rows variant, B = 5
-    (a ragged last block), T = 37 (past a ring chunk); A and B the same y."""
+    """Kernels A, B and C at max(D, H) in 33..48 run capacity 48 (its square
+    at 48 x 48, else masked), at 49..63 capacity 64 masked: each call counts
+    on that counter and holds against the plain versions at KERNEL_TOL at
+    every rows variant, B = 5 (a ragged last block), T = 37 (past a ring
+    chunk); A and B the same y, C twice the same bits."""
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
 
     sfx = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -627,9 +645,7 @@ def test_capacity_48_matches_plain(cuda, d, h, dtype):
         ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
     cap = "_w48" if max(d, h) <= 48 else ""
     names = {k: lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS}
-    assert names == {"lstm_fwd": f"lstm_fwd_{sfx}{cap}" + ("" if d == h == 48 else "_masked"),
-                     "lstm_fwd_train": f"lstm_fwd_train_{sfx}{cap}" + ("" if d == h == 48 else "_masked"),
-                     "lstm_bwd": f"lstm_bwd_{sfx}_masked"}
+    assert names == {k: f"{k}_{sfx}{cap}" + ("" if d == h == 48 else "_masked") for k in lstm_kernel.KERNELS}
     before = {n: lstm_kernel.launches[n] for n in names.values()}
     tol = {k: lstm_kernel.KERNEL_TOL[k, sfx] for k in lstm_kernel.KERNELS}
     for rows in lstm_kernel.FWD_ROWS:
@@ -639,13 +655,16 @@ def test_capacity_48_matches_plain(cuda, d, h, dtype):
         assert y0.shape == (b, t, h) and y0.dtype == dtype and torch.equal(y0, y), rows
         assert float((y0.float() - ref_y.float()).abs().max()) <= tol["lstm_fwd"], rows
         assert float((cprev - ref_c).abs().max()) <= tol["lstm_fwd_train"], rows
-    got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
-    torch.cuda.synchronize()
-    for name, a, r in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g):
-        rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
-        assert rel <= tol["lstm_bwd"], (name, rel)
+    for rows in lstm_kernel.BWD_ROWS:
+        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
+        torch.cuda.synchronize()
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol["lstm_bwd"], (name, rows, rel)
+            assert torch.equal(a, a2), (name, rows)
     n = len(lstm_kernel.FWD_ROWS)
-    assert [lstm_kernel.launches[v] - before[v] for v in names.values()] == [n, n, 1]
+    assert [lstm_kernel.launches[v] - before[v] for v in names.values()] == [n, n, 2 * len(lstm_kernel.BWD_ROWS)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

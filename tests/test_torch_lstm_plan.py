@@ -3,8 +3,8 @@ at sequences shorter than the kernels' rings.
 
 The plan (rows per block, block counts, the backward's scratch shapes) is a
 pure function of (batch, steps, dtype, SM count, D, H), so it is tested here
-on the CPU, at width 64, 32 and 16, at the masked widths below 64 (kernels A
-and B on capacity 48 at 33-48, C on 64), on the
+on the CPU, at width 64, 48, 32 and 16, at the masked widths below 64
+(capacity 48 at 33-48 for kernels A, B and C), on the
 cluster path above it and on the wide path past 256.  The short-T cases hold the plain training forward and backward against
 the JAX package's Pallas kernels in interpret mode: on the card the kernels
 are held against these plain versions at T = 1, 2, 3."""
@@ -422,9 +422,9 @@ def test_plan_at_every_new_width(d, h, dtype):
     T, 4H), dW partials (n, 4H, D + H), db (blocks, 4H); on the cluster
     path a window's da (B, tc, 4H) and the gate pass's records (B, tc, H,
     8); the blocks cover the batch once; the launch counters name the
-    path.  Kernels A and B take the smallest capacity of FWD_WIDTHS (48 x
-    48 its square, 40 x 24 its masked instantiation) with its own costs and
-    blocks an SM, C the smallest of WIDTHS (64 at both)."""
+    path.  Kernels A, B and C take the smallest capacity of WIDTHS (48 x 48
+    capacity 48's square, 40 x 24 its masked instantiation) with its own
+    costs and blocks an SM."""
     for batch in (1, 7, 64, 128, 512):
         for steps in (1, 50, 16000):
             plan = launch_plan(batch, steps, dtype, 132, d, None, h)
@@ -438,7 +438,7 @@ def test_plan_at_every_new_width(d, h, dtype):
                 assert blocks * rows >= batch > (blocks - 1) * rows
             names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
             if max(d, h) > 64:
-                assert (plan.capacity, plan.fwd_capacity, plan.cluster) == (0, 0, -(-h // 32)) and plan.cluster <= 8
+                assert (plan.capacity, plan.cluster) == (0, -(-h // 32)) and plan.cluster <= 8
                 assert all(n.endswith("_cluster") for n in names)
                 assert plan.rec_shape == (batch, window, h, lstm_kernel.CLUSTER_REC)
                 slots = (132 // plan.cluster,) * 2
@@ -446,14 +446,12 @@ def test_plan_at_every_new_width(d, h, dtype):
                               for c in (lstm_kernel.CLUSTER_FWD_STEP_COST, lstm_kernel.CLUSTER_BWD_STEP_COST))
             else:
                 cap = min(w for w in lstm_kernel.WIDTHS if max(d, h) <= w)
-                fwd_cap = min(w for w in lstm_kernel.FWD_WIDTHS if max(d, h) <= w)
-                assert (plan.capacity, plan.fwd_capacity, plan.cluster) == (cap, fwd_cap, 0)
-                assert fwd_cap == (48 if 32 < max(d, h) <= 48 else cap)
-                assert all(n.endswith("_masked") for n in names[:2]) == (not d == h == fwd_cap)
-                assert names[2].endswith("_masked")
+                assert (plan.capacity, plan.cluster) == (cap, 0)
+                assert cap == 48 if 32 < max(d, h) <= 48 else cap != 48
+                assert all(n.endswith("_masked") for n in names) == (not d == h == cap)
                 assert plan.rec_shape is None
-                slots = tuple(132 * lstm_kernel.BLOCKS_PER_SM.get((w, dtype), 1) for w in (fwd_cap, cap))
-                costs = (lstm_kernel.FWD_STEP_COST[fwd_cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
+                slots = (132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1),) * 2
+                costs = (lstm_kernel.FWD_STEP_COST[cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
             for rows, cost, at_once in zip((plan.fwd_rows, plan.bwd_rows), costs, slots):
                 waves = lambda r: -(-(-(-batch // r)) // at_once)
                 if cost is None:  # no cost measured at this K: the fewest rows that fit one wave
@@ -469,8 +467,8 @@ def test_plan_at_every_new_width(d, h, dtype):
 def test_square_widths_keep_their_instantiations():
     """D = H = 64, 32, 16 keep the names, entry points and plans they had;
     the masked names run the same entry point as their capacity's square.
-    D = H = 48 is kernels A and B's square of capacity 48 (47 x 48 its
-    masked one), and kernel C's masked capacity 64."""
+    D = H = 48 is capacity 48's square for kernels A, B and C (47 x 48 its
+    masked one)."""
     for w, sfx in ((64, ""), (32, "_w32"), (16, "_w16")):
         for kernel in lstm_kernel.KERNELS:
             assert lstm_kernel.instantiation(kernel, torch.float32, w) == f"{kernel}_f32{sfx}"
@@ -483,8 +481,8 @@ def test_square_widths_keep_their_instantiations():
         masked = lstm_kernel.instantiation(kernel, torch.bfloat16, 47, 48)
         assert masked == f"{kernel}_bf16_w48_masked"
         assert lstm_kernel.entry_point(masked) == f"awm_{kernel}_bf16_w48"
-    assert lstm_kernel.instantiation("lstm_bwd", torch.float32, 48) == "lstm_bwd_f32_masked"
-    assert lstm_kernel.entry_point("lstm_bwd_f32_masked") == "awm_lstm_bwd_f32"
+    assert lstm_kernel.instantiation("lstm_bwd", torch.float32, 48) == "lstm_bwd_f32_w48"
+    assert lstm_kernel.entry_point("lstm_bwd_f32_w48") == "awm_lstm_bwd_f32_w48"
     assert launch_plan(128, 16000, torch.float32, 132, 48) == launch_plan(128, 16000, torch.float32, 132, 48, None, 48)
 
 
@@ -506,33 +504,29 @@ def _entry_points(source: str) -> set[str]:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("d,h", BOUNDARY, ids=[f"{d}x{h}" for d, h in BOUNDARY])
 def test_capacities_at_the_boundaries(d, h, dtype):
-    """Kernels A and B take the smallest of 16, 32, 48, 64 that holds
-    max(D, H), kernel C the smallest of 16, 32, 64: their names (square
-    where D = H is the capacity, else masked) and launch counters, entry
-    points that the source defines, and the plan's two capacities.  At
-    capacity 48 the forward's rows follow FWD_STEP_COST and BLOCKS_PER_SM
-    at 48 while C's follow capacity 64's; at every other width both
-    kernels share one capacity, as before."""
+    """Kernels A, B and C take the smallest of 16, 32, 48, 64 that holds
+    max(D, H): their names (square where D = H is the capacity, else
+    masked) and launch counters, entry points that the source defines, and
+    the plan's capacity.  The rows follow FWD_STEP_COST / BWD_STEP_COST and
+    BLOCKS_PER_SM at that capacity."""
     need, sfx = max(d, h), "bf16" if dtype == torch.bfloat16 else "f32"
-    fwd_cap = min(w for w in (16, 32, 48, 64) if need <= w)
-    cap = min(w for w in (16, 32, 64) if need <= w)
-    suffix = lambda w: "" if w == 64 else f"_w{w}"
-    for kernel, w in (("lstm_fwd", fwd_cap), ("lstm_fwd_train", fwd_cap), ("lstm_bwd", cap)):
+    cap = min(w for w in (16, 32, 48, 64) if need <= w)
+    suffix = "" if cap == 64 else f"_w{cap}"
+    for kernel in lstm_kernel.KERNELS:
         name = lstm_kernel.instantiation(kernel, dtype, d, h)
-        assert name == f"{kernel}_{sfx}{suffix(w)}" + ("" if d == h == w else "_masked")
+        assert name == f"{kernel}_{sfx}{suffix}" + ("" if d == h == cap else "_masked")
         assert name in lstm_kernel.launches
-        assert lstm_kernel.entry_point(name) == f"awm_{kernel}_{sfx}{suffix(w)}"
+        assert lstm_kernel.entry_point(name) == f"awm_{kernel}_{sfx}{suffix}"
         assert lstm_kernel.entry_point(name) in _entry_points(lstm_kernel.source_of(name))
-    assert lstm_kernel.capacity(d, h) == cap and lstm_kernel.capacity(d, h, fwd=True) == fwd_cap
+    assert lstm_kernel.capacity(d, h) == cap
     for batch in (1, 7, 128, 512):
         plan = launch_plan(batch, 16000, dtype, 132, d, None, h)
-        assert (plan.fwd_capacity, plan.capacity) == (fwd_cap, cap)
-        for rows, cost, w in ((plan.fwd_rows, lstm_kernel.FWD_STEP_COST[fwd_cap, dtype], fwd_cap),
-                              (plan.bwd_rows, lstm_kernel.BWD_STEP_COST[cap, dtype], cap)):
-            at_once = 132 * lstm_kernel.BLOCKS_PER_SM.get((w, dtype), 1)
+        assert plan.capacity == cap
+        at_once = 132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1)
+        for rows, cost in ((plan.fwd_rows, lstm_kernel.FWD_STEP_COST[cap, dtype]),
+                           (plan.bwd_rows, lstm_kernel.BWD_STEP_COST[cap, dtype])):
             waves = lambda r: -(-(-(-batch // r)) // at_once)
             assert rows == min(cost, key=lambda r: (waves(r) * cost[r], r))
-    assert fwd_cap == cap or (fwd_cap, cap) == (48, 64)  # capacity 48 is the forward's alone
 
 
 def _fwd_source_constants() -> dict[str, int]:
@@ -570,6 +564,173 @@ def test_ring_shared_memory_at_capacity_48(dtype, rows):
     for cap, blocks in lstm_kernel.BLOCKS_PER_SM.items():
         if cap == (w, dtype):
             assert blocks * (smem + 1024) <= SM_SMEM
+
+
+# (D, H) of kernel C about capacity 48: its narrowest and widest squares,
+# D != H both ways, a width of one beside 48; 49 stays on capacity 64.
+C48_WIDTHS = [(33, 33), (40, 24), (24, 40), (1, 48), (48, 1), (48, 48), (49, 49)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", C48_WIDTHS, ids=[f"{d}x{h}" for d, h in C48_WIDTHS])
+def test_kernel_c_capacity_48(d, h, dtype):
+    """Kernel C at max(D, H) in 33..48 runs capacity 48 (lstm_bwd_*_w48 at
+    48 x 48, else lstm_bwd_*_w48_masked), through awm_lstm_bwd_*_w48, which
+    lstm_bwd.cu defines; at 49 capacity 64 at runtime widths.  The plan's
+    capacity, the four-launch path (no fused path at 48) and scratch at the
+    real widths."""
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    cap = 48 if max(d, h) <= 48 else 64
+    suffix = "_w48" if cap == 48 else ""
+    name = lstm_kernel.instantiation("lstm_bwd", dtype, d, h)
+    assert name == f"lstm_bwd_{sfx}{suffix}" + ("" if d == h == cap else "_masked")
+    assert lstm_kernel.entry_point(name) == f"awm_lstm_bwd_{sfx}{suffix}"
+    assert lstm_kernel.entry_point(name) in _entry_points("lstm_bwd")
+    assert name in lstm_kernel.launches and lstm_kernel.source_of(name) == "lstm_bwd"
+    for batch, steps in ((5, 37), (128, 16000)):
+        plan = launch_plan(batch, steps, dtype, 132, d, None, h)
+        assert plan.capacity == cap and not plan.bwd_fused and plan.cluster == 0
+        assert plan.da_shape == (batch, steps, 4 * h) and plan.db_part_shape == (plan.bwd_blocks, 4 * h)
+        assert plan.part_shape == (plan.n_chunks, 4 * h, d + h) and plan.dx_blocks >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_step_cost_at_capacity_48(dtype):
+    """BWD_STEP_COST has capacity 48's measured costs for every rows variant
+    of the recurrence (one row = 1), a second row costing more than nothing
+    and less than a second wave of one row."""
+    cost = lstm_kernel.BWD_STEP_COST[48, dtype]
+    assert sorted(cost) == sorted(lstm_kernel.BWD_ROWS) and cost[1] == 1.0
+    assert 1.0 < cost[2] < 2 * 2.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [32, 128])
+def test_plan_rows_at_capacity_48(batch, dtype):
+    """The channels-48 family's main shapes (the train step at B=32 and the
+    timed B=128): one wave of one-row blocks for A, B and C (a second row
+    costs more than nothing, and ties go to fewer rows); dW chunks that
+    cover the (B*T) axis; the launch counters of capacity 48's squares."""
+    plan = launch_plan(batch, 16000, dtype, 132, 48)
+    assert (plan.capacity, plan.fwd_rows, plan.bwd_rows) == (48, 1, 1)
+    assert (plan.fwd_blocks, plan.bwd_blocks) == (batch, batch) and not plan.fwd_short
+    assert plan.n_chunks * -(-batch * 16000 // plan.n_chunks) >= batch * 16000
+    assert all(lstm_kernel.instantiation(k, dtype, 48).endswith("_w48") for k in lstm_kernel.KERNELS)
+
+
+def _bwd_source_constants() -> dict[str, int]:
+    """The recurrence's constants as lstm_bwd.cu and lstm_common.cuh declare them."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read() for f in ("lstm_bwd.cu", "lstm_common.cuh"))
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1)) for k in ("SB", "NBUF")}
+
+
+@pytest.mark.parametrize("rows", lstm_kernel.BWD_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rec_shared_memory_at_capacity_48(dtype, rows):
+    """Kernel C's recurrent block at capacity 48, by lstm_bwd.cu's
+    rec_smem_bytes: fp32 [W_ih | W_hh] staged (4W x 2W), the ring of NBUF
+    chunks of SB steps (4W factors and 3W unit values a (step, row)),
+    c_{t-1}, da double-buffered at 4 (W + 8) a row, and x_t | h_{t-1} (bf16
+    rows padded by 8).  Within what one block may opt in to, every section
+    16-byte aligned (the bf16 producers' float4 ring stores, the consumers'
+    float4 da loads), and the bf16 rows' 8-row mma reads in distinct banks."""
+    src, w = _bwd_source_constants(), 48
+    bf16 = dtype == torch.bfloat16
+    elt, kp = (2, 2 * w + 8) if bf16 else (4, 2 * w)
+    sections = [0 if bf16 else 4 * 4 * w * 2 * w, 4 * src["NBUF"] * src["SB"] * rows * 7 * w,
+                4 * rows * src["SB"] * w, 4 * 2 * rows * 4 * (w + 8), elt * rows * src["SB"] * kp]
+    assert sum(sections) <= BLOCK_SMEM_OPTIN
+    assert all(sum(sections[:i]) % 16 == 0 for i in range(1, len(sections)))
+    assert (7 * w * 4) % 16 == 0 and ((w + 8) * 4) % 16 == 0  # a ring entry, a gate's da
+    if bf16:
+        assert sorted(g * (kp * elt // 4) % 32 for g in range(8)) == list(range(0, 32, 4))
+
+
+def _fma32(a, b, c):
+    """fmaf on float32 arrays: the product is exact in float64."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _xor(v, m):
+    """v of lane l ^ m, for every lane l (a shuffle by XOR)."""
+    return v[np.arange(32) ^ m]
+
+
+def _dh_model(da, w_hh, h, cap):
+    """dh_{t-1} = da . W_hh of units 0..h-1 as lstm_bwd.cu's consumer warps
+    form it at capacity cap (48 or 64), and the (unit, lane) -> [(gate,
+    column)] terms each lane sums.  Lane (og = lane / 16, jp = lane % 16) of
+    warp k takes units 8 k + 4 og .. + 3 and columns EP jp .. EP jp + EP - 1
+    of each gate q (EP = 4 at both capacities), one running fmaf sum in the
+    order (q, e); lanes with EP jp >= cap read nothing and give +0 (capacity
+    48's lanes 12-15); then transpose_reduce4<8, 4> and the butterflies over
+    lanes 2 and 1 apart.  da (4, cap): the gates' da, the columns past h
+    the padded units'; weights past h are +0, as load_wm gives them."""
+    ep = 4
+    lanes = np.arange(32)
+    og, jp = lanes >> 4, lanes & 15
+    hi, lo = (jp & 8) != 0, (jp & 4) != 0
+    dh = np.zeros(cap, np.float32)
+    terms = {}
+    for k in range(cap // 8):
+        unit0 = 8 * k + 4 * og
+        part = np.zeros((4, 32), np.float32)  # [o][lane]
+        for q in range(4):
+            for e in range(ep):
+                col = ep * jp + e
+                live = ep * jp < cap
+                ve = np.where(live, da[q, np.minimum(col, cap - 1)], np.float32(0.0)).astype(np.float32)
+                for o in range(4):
+                    u = unit0 + o
+                    w = np.where(live & (col < h) & (u < h), w_hh[q * h + np.minimum(col, h - 1), np.minimum(u, h - 1)],
+                                 np.float32(0.0)).astype(np.float32)
+                    part[o] = _fma32(ve, w, part[o])
+                    for lane in lanes[live]:
+                        terms.setdefault((int(u[lane]), int(lane)), []).append((q, int(col[lane])))
+        b0 = np.where(hi, part[2], part[0]) + _xor(np.where(hi, part[0], part[2]), 8)
+        b1 = np.where(hi, part[3], part[1]) + _xor(np.where(hi, part[1], part[3]), 8)
+        out = np.where(lo, b1, b0) + _xor(np.where(lo, b0, b1), 4)
+        out = out + _xor(out, 2)
+        out = out + _xor(out, 1)
+        dh[8 * k: 8 * k + 8] = out[::4]  # lane 4 u' holds unit u' of the warp, as do its three neighbours
+        assert all(np.array_equal(out[i::4].view(np.uint32), out[::4].view(np.uint32)) for i in range(4))
+    return dh[:h], terms
+
+
+@pytest.mark.parametrize("h", [33, 40, 47, 48])
+def test_dh_lane_split_keeps_capacity_64_bits(h):
+    """Kernel C's dh product at capacity 48 keeps capacity 64's lane split
+    (lstm_bwd.cu: EP = 4 at W = 48, lanes jp >= 12 idle): every lane of a
+    unit sums the same (gate, column) terms in the same order at both
+    capacities, less capacity 64's terms past column 47, whose weights are
+    exactly zero; the two fp32 sums in the tree's order give the same bits
+    for random da and W_hh (zeros past h), with signed zeros in the padded
+    units' da."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", "lstm_bwd.cu")) as f:
+        src = f.read()
+    assert re.search(r"constexpr int EP = W == 48 \? 4 : H / 16;", src)  # the split this model follows
+    rng = np.random.default_rng(h)
+    w_hh = rng.standard_normal((4 * h, h)).astype(np.float32)
+    for trial in range(20):
+        real = (rng.standard_normal((4, h)) * 10.0 ** rng.integers(-3, 3)).astype(np.float32)
+        da = {}
+        for cap in (48, 64):
+            pad = np.where(rng.random((4, cap - h)) < 0.5, np.float32(-0.0), np.float32(0.0)).astype(np.float32)
+            da[cap] = np.concatenate([real, pad], axis=1)
+        dh48, terms48 = _dh_model(da[48], w_hh, h, 48)
+        dh64, terms64 = _dh_model(da[64], w_hh, h, 64)
+        assert np.array_equal(dh48.view(np.uint32), dh64.view(np.uint32)), trial
+    for (unit, lane), t64 in terms64.items():
+        if unit < h:
+            assert terms48.get((unit, lane), []) == [(q, c) for q, c in t64 if c < 48]
+            assert all(c >= h for q, c in t64 if c >= 48)
 
 
 def _cluster_waves(batch: int, rows: int, slots: int) -> int:
