@@ -10,8 +10,8 @@ overrides T; --batch times all three at one other batch, e.g. the
 curriculum's B=8 or the dry run's B=4).
 
     python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
-                                            [--variants] [--check] [--only NAME] [--library] [--split]
-                                            [--hash [--against FILE]] [--gates]
+                                            [--variants] [--paths] [--check] [--only NAME] [--library]
+                                            [--split] [--hash [--against FILE]] [--gates]
 
 --tree DIR imports awm_tpu_torch from another checkout of this repository
 (DIR/awm_tpu_torch), so that two commits can be timed in turns in one call
@@ -22,14 +22,20 @@ takes --width 64 only.  --variants also times each rows-per-block variant
 the checkout's launch plan can choose (a checkout without a plan has none;
 on the cluster path every rows a cluster the checkout builds, for C too; on
 the wide path WIDE_ROWS, rows a row group).
+--paths (widths 32 and 16 at T <= 64, in a checkout whose wrappers take
+short= and fused=) also times each kernel on the path the plan does not
+take: A and B on the ring beside the short path, C in four launches beside
+the fused one; every line of such a checkout carries "path" (short, ring,
+fused, four, cluster or wide).
 --check first holds every kernel against its plain version at B in (1, 7,
 128) and T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800) with every rows
 variant (A and B on both paths where the checkout has the forward's short
-path and T is within its bound, with the same bits on both), prints each
+path at this width and T is within its bound, with the same bits on both;
+C on both of its paths likewise), prints each
 error beside its tolerance and ptxas's report, and exits 1 if
 any error is above it.  The backward's launches are also timed apart, from a
-torch.profiler trace of one call (one on the fused path at width 32, four
-otherwise, five on the cluster path: the gate pass first; there at every
+torch.profiler trace of one call (one on the fused path at widths 32 and
+16, four otherwise, five on the cluster path: the gate pass first; there at every
 rows variant with --variants), and on the cluster path each line also
 holds "waves": the waves of clusters the call takes at the card's reading
 of the clusters it holds (on the wide path "launches": the cooperative
@@ -73,6 +79,7 @@ Without a card it exits 1.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -329,6 +336,8 @@ def main() -> int:
                     help="T, or a comma-separated list of T to fit (default: the width's main path)")
     ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--paths", action="store_true",
+                    help="also time A and B on the ring and C in four launches where the plan takes the others")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="time only kernels whose name contains this")
@@ -364,7 +373,8 @@ def main() -> int:
     bwd_rows = (variants or getattr(K, "BWD_ROWS", (None,))) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)
-    has_short = hasattr(K, "FWD_SHORT_MAX_STEPS")
+    has_short = hasattr(K, "FWD_SHORT_MAX_STEPS") and width in getattr(K, "SHORT_WIDTHS", (32,))
+    has_fused = "fused" in inspect.signature(K.backward_kernel).parameters and width in K.FUSED_WIDTHS
     kw = lambda rows: {} if rows is None else {"rows": rows}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -384,7 +394,7 @@ def main() -> int:
                     dy = kernel_dy(K, x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     err_a = err_b = 0.0
                     same = True  # the short path gives the ring path's bits
-                    paths = (False, True) if has_short and width == 32 and t <= K.FWD_SHORT_MAX_STEPS else (None,)
+                    paths = (False, True) if has_short and t <= K.FWD_SHORT_MAX_STEPS else (None,)
                     for rows in fwd_rows:
                         got = {}
                         for short in paths:
@@ -397,10 +407,12 @@ def main() -> int:
                             same &= all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
                     ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     rel = 0.0
+                    bwd_paths = ({}, {"fused": False}) if has_fused and t <= K.FUSED_MAX_STEPS else ({},)
                     for rows in bwd_rows:
-                        got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, **kw(rows))
-                        rel = max(rel, *(err(g, r) / (float(r.float().abs().max()) + 1e-12)
-                                         for g, r in zip(got, ref_g)))
+                        for pk in bwd_paths:
+                            got = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, **kw(rows), **pk)
+                            rel = max(rel, *(err(g, r) / (float(r.float().abs().max()) + 1e-12)
+                                             for g, r in zip(got, ref_g)))
                     torch.cuda.synchronize()
                     bad = err_a > tol_a or err_b > tol_b or rel > tol_c or not same
                     failed += bad
@@ -446,9 +458,24 @@ def main() -> int:
         slots = dict(zip(K.WIDE_ROWS, K._wide_slots(torch.cuda.current_device(), dtype, width)[bwd]))
         return slots[rows] >= 1
 
-    def report(kernel, batch, rows, ms, fn=None, dtype=None):
+    def path_of(kernel, batch, rows, dtype, path):
+        """The path a call takes in a checkout with device_plan: the forced
+        one, else the plan's (None in an older checkout)."""
+        if path is not None or dtype is None or not hasattr(K, "device_plan"):
+            return path
+        bwd = kernel.startswith("lstm_bwd")
+        plan = K.device_plan(batch, steps, dtype, torch.cuda.current_device(), width, None, rows if bwd else None)
+        if plan.wide or plan.cluster:
+            return "wide" if plan.wide else "cluster"
+        if bwd:
+            return "fused" if plan.bwd_fused else "four"
+        return "short" if plan.fwd_short else "ring"
+
+    def report(kernel, batch, rows, ms, fn=None, dtype=None, path=None):
         line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
                 "batch": batch, "rows": rows, "ms": ms}
+        if hasattr(K, "device_plan") and dtype is not None:
+            line["path"] = path_of(kernel, batch, rows, dtype, path)
         if dtype is not None and cluster:
             line["waves"] = cluster_waves(kernel, batch, rows, dtype)
         if dtype is not None and wide:
@@ -504,11 +531,16 @@ def main() -> int:
         for sfx, dtype in dtypes.items():
             fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
             x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
+            other_fwd = args.paths and has_short and steps <= K.FWD_SHORT_MAX_STEPS
+            other_bwd = args.paths and has_fused and steps <= K.FUSED_MAX_STEPS
             for rows in fwd_rows if want(fwd) else ():
                 if not held(rows, dtype, False):
                     continue
                 fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+                if other_fwd:
+                    fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows), short=False)
+                    report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "ring")
             if args.library and want(fwd):
                 report(f"{fwd}:nn.LSTM", b_serve, None, library_ms(torch, "lstm_fwd", x, w_ih, w_hh, bias, None,
                                                                    args.reps))
@@ -521,6 +553,9 @@ def main() -> int:
                     continue
                 fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+                if other_fwd:
+                    fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows), short=False)
+                    report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "ring")
             for kernel, what in (("lstm_fwd_train", fwd_train), ("lstm_bwd", bwd)) if args.library else ():
                 if want(what):
                     report(f"{what}:nn.LSTM", b_train, None,
@@ -531,6 +566,9 @@ def main() -> int:
                         continue
                     fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows))
                     report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
+                    if other_bwd:
+                        fn = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, **kw(rows), fused=False)
+                        report(bwd, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "four")
                 # C's launches apart: at the plan's rows, and on the cluster and wide paths at every variant
                 for rows in [r for r in bwd_rows if held(r, dtype, True)] if cluster or wide else (None,):
                     split = kernel_split(torch, lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias,

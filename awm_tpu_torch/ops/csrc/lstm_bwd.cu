@@ -31,9 +31,10 @@
 // three; widths above 256 run lstm_wide.cu.  A call at the capacities takes one of two paths,
 // chosen by the caller from the shape (ops/lstm_kernel.py::launch_plan):
 //
-// Four launches on one stream (every call at W = 64, 48 and 16; at W = 32
-// where the fused kernel's grid would not be resident in one wave, or
-// T > 64, the plan's limit for the rows' da in shared memory):
+// Four launches on one stream (every call at W = 64 and 48 and at the
+// runtime widths; at W = 32 and 16 where the fused kernel's grid would not
+// be resident at once, or T > 64, the plan's limit for the rows' da in
+// shared memory):
 //   1. lstm_bwd_rec: one block per R batch rows (R = 1 or 2, chosen by the
 //      caller) runs all T steps in reverse.
 //      It writes da, rounded to the operand type, to a (B, T, G) scratch
@@ -44,8 +45,10 @@
 //      writes partial sums of its chunk.
 //   4. lstm_bwd_sum: sums the chunk partials and the db partials in a fixed
 //      order.  No atomics: two runs give the same bits.
-// One launch, lstm_bwd_fused (W = 32, T <= 64, every block of the grid
-// resident at once): a block owns R batch rows and runs the same
+// One launch, lstm_bwd_fused (W = 32 and 16 at D = H = W, T <= 64, every
+// block of the grid resident at once: at W = 32 one block an SM, at W = 16
+// the blocks an SM that the card's occupancy reading gives, read before the
+// launch; W = 16's own design below): a block owns R batch rows and runs the same
 // recurrence, keeping its rows' da (R T x G in the operand type, 12.8 KB a
 // row at T = 50 in bf16) in shared memory; then dx of its rows and its
 // (G x K) dW and db partials from that da and the x_t | h_{t-1} rows its
@@ -85,7 +88,8 @@
 // - dx and dW: in bf16 on the tensor cores (da, x and y are bf16 already,
 //   products exact, fp32 sums), staged through shared memory with 16-byte
 //   loads; in fp32 on the CUDA cores in full fp32, dW with 8 x 8 outputs a
-//   thread (8 x 4 at W = 32) so that four 16-byte reads feed 64 products.
+//   thread (8 x 4 at W = 32, 4 x 4 in W = 16's fused kernel) so that four
+//   16-byte reads feed 64 products.
 //
 // Plain C interface, loaded with ctypes by awm_tpu_torch/ops/lstm_kernel.py.
 
@@ -720,7 +724,39 @@ lstm_bwd_sum_kernel(const float* __restrict__ part, int n_chunks,
   }
 }
 
-// ---- W = 32: the fused path, one cooperative launch ----
+// ---- W = 32 and 16: the fused path, one cooperative launch ----
+//
+// W = 16 is its own design, not W = 32's at half the width.  Its block has
+// 128 threads, 4 warps: the recurrence's 2 consumer and 2 producer warps (8
+// lanes' dh split, "4 of 64", above), then all 4 for the products and the
+// sum.  At the dry run's B = 4, T = 32 (4 blocks of one row, 32 (row, step)
+// pairs a block) the products are 64 x 32 x 32 multiply-adds of dW and 32 x
+// 16 x 64 of dx a block: a few hundred cycles, nothing beside the latency of
+// 32 dependent steps of the recurrence and one grid barrier, which bound
+// the call.  What differs from W = 32, each for that latency or the block's
+// size:
+// - bf16 dx: a warp owns one column tile of 8 inputs (D / 8 = 2 tiles for 4
+//   warps) and every other row tile of 16 (pairs, padded to whole tiles as
+//   at 32: fused_rows); W_ih^T's B fragments for its tile sit in 8 registers
+//   a lane, loaded (rounded to bf16) straight from the fp32 weights after
+//   the recurrence, so no W_ih^T is staged in shared memory (W = 32 stages
+//   it, [D][DAP], from the producers once they are done);
+// - bf16 dW: the W = 32 mapping at its smallest, a warp 16 gate columns
+//   (G = 64 = 4 warps x 16) by all K = 32 terms over the block's rows;
+// - fp32 dx: thread (input d, row group rg), 8 row groups of 4 rows at a
+//   time (8 at W = 32: at T = 32 and one row a block 4 rows fill every row
+//   group), the G terms in lstm_bwd_dx_kernel's order;
+// - fp32 dW: 4 x 4 outputs a thread (8 x 4 at W = 32): (G / 4) (K / 4) =
+//   128 threads, one 16-byte read of da and one of x_t | h_{t-1} feed 16
+//   products a row;
+// - the sum: NOUT = G K + G = 2112 outputs over the blocks' partials.  A
+//   block's slice is whole quads of outputs (16-byte loads); its threads
+//   split into NG groups of a power of two, as many as the slice leaves
+//   threads for, each taking every NG-th block in order; then the groups'
+//   sums in group order.  At 4 blocks a thread takes one quad of 4 partials
+//   (W = 32's four groups of 64 threads would leave a few blocks' 8320
+//   outputs to 64 threads each); at 128 blocks 16 groups of 8 blocks.
+//   Fixed for a given grid: two runs give the same bits.
 
 // Row pitch of the block's da and of its x_t | h_{t-1} rows in shared
 // memory: bf16 rows are read by ldmatrix and as mma fragments, and the pad
@@ -730,22 +766,25 @@ template <typename T, int W> constexpr int FV_P = is_bf16<T> ? 2 * W + 8 : 2 * W
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 // The block's (row, step) pairs, padded to whole 16-row mma tiles.
 __host__ __device__ constexpr int fused_rows(int rows, int steps) { return (rows * steps + 15) / 16 * 16; }
+// bf16 W = 32 stages W_ih^T for dx; W = 16 holds its fragments in registers.
+template <typename T, int W> constexpr bool FUSED_WT = is_bf16<T> && W == 32;
 
 template <typename T, int R, int W>
 constexpr int fused_smem_bytes(int steps) {
   return align16(rec_smem_bytes<T, R, W>()) +
          (int)sizeof(T) * (fused_rows(R, steps) * (FDA_P<T, W> + FV_P<T, W>) +
-                           (is_bf16<T> ? W * FDA_P<T, W> : 0));
+                           (FUSED_WT<T, W> ? W * FDA_P<T, W> : 0));
 }
 
 // part: (gridDim.x, G K + G) fp32, block b's dW partial [j][m] (m < W: x,
 // else h_{t-1}) then its db.  The grid must be resident at once
-// (cudaLaunchCooperativeKernel refuses it otherwise).
+// (cudaLaunchCooperativeKernel refuses it otherwise; the plan reads the
+// blocks an SM holds, awm_lstm_bwd_fused_slots, before it sends a call here).
 template <typename T, int R, int W>
 __global__ void __launch_bounds__(8 * W, 1)
 lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict__ part,
                       float* __restrict__ dw_ih, float* __restrict__ dw_hh, float* __restrict__ db) {
-  static_assert(W == 32, "the fused backward is instantiated for W = 32");
+  static_assert(W == 32 || W == 16, "the fused backward is instantiated for W = 32 and 16");
   constexpr int D = W, H = W, G = 4 * W, K = 2 * W, THREADS = 8 * W, NOUT = G * K + G;
   constexpr int DAP = FDA_P<T, W>, VP = FV_P<T, W>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -753,42 +792,78 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
   const int nr = R * steps, nrp = fused_rows(R, steps);
   T* s_da = reinterpret_cast<T*>(smem + align16(rec_smem_bytes<T, R, W>()));  // [nrp][DAP]
   T* s_v = s_da + nrp * DAP;                                                   // [nrp][VP]
-  T* s_wt = s_v + nrp * VP;  // bf16: [D][DAP], W_ih transposed, for dx's B fragments
+  T* s_wt = s_v + nrp * VP;  // bf16 W = 32: [D][DAP], W_ih transposed, for dx's B fragments
   float* my_part = part + (size_t)blockIdx.x * NOUT;
 
   // 1. The recurrence.  Its producers, done with their last chunk while the
-  // consumers still run, zero the padding rows and stage W_ih^T.
+  // consumers still run, zero the padding rows (and at W = 32 stage W_ih^T).
   bwd_recurrence<T, R, W, true, false>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
     for (int i = tid - G; i < (nrp - nr) * DAP; i += G) store_f(s_da + nr * DAP + i, 0.0f);
     for (int i = tid - G; i < (nrp - nr) * VP; i += G) store_f(s_v + nr * VP + i, 0.0f);
-    if constexpr (is_bf16<T>)
+    if constexpr (FUSED_WT<T, W>)
       for (int idx = tid - G; idx < G * D; idx += G)
         s_wt[(idx % D) * DAP + idx / D] = __float2bfloat16(a.w_ih[idx]);
   });
-  __syncthreads();
-
   const long long n_base = (long long)row0 * steps, n_end = (long long)a.batch * steps;
   const int warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  // bf16 W = 16: this warp's column tile of dx and W_ih^T's B fragments for
+  // it, b[kt] = (W_ih[16 kt + 2 t4 (+1)][d], W_ih[16 kt + 8 + 2 t4 (+1)][d]),
+  // d = 8 nt + g8: loaded while the other warps reach the barrier.
+  [[maybe_unused]] uint32_t bw[W == 16 ? G / 16 : 1][2];
+  if constexpr (is_bf16<T> && W == 16) {
+    const int d = (warp & 1) * 8 + g8;
+#pragma unroll
+    for (int kt = 0; kt < G / 16; ++kt) {
+      const int j = kt * 16 + 2 * t4;
+      bw[kt][0] = pack_bf16(a.w_ih[(size_t)j * D + d], a.w_ih[(size_t)(j + 1) * D + d]);
+      bw[kt][1] = pack_bf16(a.w_ih[(size_t)(j + 8) * D + d], a.w_ih[(size_t)(j + 9) * D + d]);
+    }
+  }
+  __syncthreads();
+
   if constexpr (is_bf16<T>) {
-    // 2. dx = da . W_ih of the block's rows: tiles of 16 rows x 8 inputs, K =
-    // the G gate columns (lstm_bwd_dx_mma_kernel's products).
-    for (int job = warp; job < (nrp / 16) * (D / 8); job += THREADS / 32) {
-      const int mt = job / (D / 8), nt = job % (D / 8);
-      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const T* a_lo = s_da + (mt * 16 + g8) * DAP + 2 * t4;
-      const T* b_lo = s_wt + (nt * 8 + g8) * DAP + 2 * t4;
+    if constexpr (W == 16) {
+      // 2. dx = da . W_ih of the block's rows: warp w the 8 inputs of column
+      // tile w % 2 for row tiles w / 2, w / 2 + 2, ...; K = the G gate columns.
+      const int nt = warp & 1;
+      for (int mt = warp >> 1; mt < nrp / 16; mt += 2) {
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const T* a_lo = s_da + (mt * 16 + g8) * DAP + 2 * t4;
 #pragma unroll
-      for (int kt = 0; kt < G / 16; ++kt) {
-        const uint32_t af[4] = {ld32(a_lo + kt * 16), ld32(a_lo + 8 * DAP + kt * 16),
-                                ld32(a_lo + kt * 16 + 8), ld32(a_lo + 8 * DAP + kt * 16 + 8)};
-        mma_bf16(c, af, ld32(b_lo + kt * 16), ld32(b_lo + kt * 16 + 8));
+        for (int kt = 0; kt < G / 16; ++kt) {
+          const uint32_t af[4] = {ld32(a_lo + kt * 16), ld32(a_lo + 8 * DAP + kt * 16),
+                                  ld32(a_lo + kt * 16 + 8), ld32(a_lo + 8 * DAP + kt * 16 + 8)};
+          mma_bf16(c, af, bw[kt][0], bw[kt][1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = mt * 16 + g8 + 8 * h;
+          if (n < nr && n_base + n < n_end)
+            *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
+                __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+        }
       }
+    } else {
+      // 2. dx = da . W_ih of the block's rows: tiles of 16 rows x 8 inputs, K =
+      // the G gate columns (lstm_bwd_dx_mma_kernel's products).
+      for (int job = warp; job < (nrp / 16) * (D / 8); job += THREADS / 32) {
+        const int mt = job / (D / 8), nt = job % (D / 8);
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const T* a_lo = s_da + (mt * 16 + g8) * DAP + 2 * t4;
+        const T* b_lo = s_wt + (nt * 8 + g8) * DAP + 2 * t4;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = mt * 16 + g8 + 8 * h;
-        if (n < nr && n_base + n < n_end)
-          *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
-              __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+        for (int kt = 0; kt < G / 16; ++kt) {
+          const uint32_t af[4] = {ld32(a_lo + kt * 16), ld32(a_lo + 8 * DAP + kt * 16),
+                                  ld32(a_lo + kt * 16 + 8), ld32(a_lo + 8 * DAP + kt * 16 + 8)};
+          mma_bf16(c, af, ld32(b_lo + kt * 16), ld32(b_lo + kt * 16 + 8));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = mt * 16 + g8 + 8 * h;
+          if (n < nr && n_base + n < n_end)
+            *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
+                __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+        }
       }
     }
     // 3. The block's dW partial: M = the G gate columns (16 a warp), N = the K
@@ -821,14 +896,15 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
     }
   } else {
     // 2. dx, fp32: thread (input d, row group rg) over rows rg, rg + RG, ...,
-    // the G terms in order (lstm_bwd_dx_kernel's order), W_ih from L1.
-    constexpr int RG = THREADS / D;
+    // PR rows at a time, the G terms in order (lstm_bwd_dx_kernel's order),
+    // W_ih from L1.
+    constexpr int RG = THREADS / D, PR = W == 16 ? 4 : 8;
     const int d = tid % D, rg = tid / D;
-    for (int n0 = rg; n0 < nr; n0 += 8 * RG) {
-      float acc[8];
-      const T* rows[8];
+    for (int n0 = rg; n0 < nr; n0 += PR * RG) {
+      float acc[PR];
+      const T* rows[PR];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < PR; ++i) {
         acc[i] = 0.0f;
         rows[i] = s_da + min(n0 + RG * i, nr - 1) * DAP;  // a row past nr is read, never stored
       }
@@ -836,77 +912,133 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
       for (int j = 0; j < G; ++j) {
         const float wv = a.w_ih[(size_t)j * D + d];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = fmaf(rows[i][j], wv, acc[i]);
+        for (int i = 0; i < PR; ++i) acc[i] = fmaf(rows[i][j], wv, acc[i]);
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < PR; ++i) {
         const int n = n0 + RG * i;
         if (n < nr && n_base + n < n_end) dx[(n_base + n) * D + d] = acc[i];
       }
     }
-    // 3. The block's dW partial, fp32: 8 gate columns x 4 terms a thread,
-    // the rows in order.
-    static_assert((G / 8) * (K / 4) == THREADS, "one thread per 8 x 4 outputs");
-    const int j0 = (tid / (K / 4)) * 8, m0 = (tid % (K / 4)) * 4;
-    float acc[8][4];
+    // 3. The block's dW partial, fp32: JT gate columns x 4 terms a thread
+    // (8 at W = 32, 4 at W = 16), the rows in order.
+    constexpr int JT = W == 16 ? 4 : 8;
+    static_assert((G / JT) * (K / 4) == THREADS, "one thread per JT x 4 outputs");
+    const int j0 = (tid / (K / 4)) * JT, m0 = (tid % (K / 4)) * 4;
+    float acc[JT][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < JT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
     for (int n = 0; n < nr; ++n) {
-      const float4 a0 = *reinterpret_cast<const float4*>(s_da + n * DAP + j0);
-      const float4 a1 = *reinterpret_cast<const float4*>(s_da + n * DAP + j0 + 4);
+      float av[JT];
+#pragma unroll
+      for (int i4 = 0; i4 < JT / 4; ++i4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(s_da + n * DAP + j0 + 4 * i4);
+        av[4 * i4] = a4.x; av[4 * i4 + 1] = a4.y; av[4 * i4 + 2] = a4.z; av[4 * i4 + 3] = a4.w;
+      }
       const float4 v = *reinterpret_cast<const float4*>(s_v + n * VP + m0);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < JT; ++i)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], vv[q], acc[i][q]);
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < JT; ++i)
       *reinterpret_cast<float4*>(my_part + (size_t)(j0 + i) * K + m0) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 
   // 4. Every block's partial is written: each block sums a fixed slice of
-  // the outputs over the partials, four groups of 64 threads taking every
-  // fourth block in order, then the four sums in a fixed order.
+  // the outputs over the partials in a fixed order.
   cg::this_grid().sync();
-  static_assert(THREADS == 256, "four groups of 64 threads");
   float* s_red = reinterpret_cast<float*>(smem);  // the recurrence's region, free now
-  const int nblk = gridDim.x, per = (NOUT + nblk - 1) / nblk;
-  const int o0 = blockIdx.x * per, o1 = min(o0 + per, NOUT);
-  const int grp = tid / 64, ol = tid % 64;
-  for (int base = o0; base < o1; base += 64) {
-    const int o = base + ol;
-    float sum = 0.0f;
-    if (o < o1) {
-#pragma unroll 8
-      for (int b = grp; b < nblk; b += 4) sum += __ldcg(part + (size_t)b * NOUT + o);
+  const int nblk = gridDim.x;
+  // Output o of the sum: dW_ih, dW_hh or db.
+  auto put = [&](int o, float total) {
+    if (o < G * K) {
+      const int j = o / K, m = o % K;
+      if (m < D) dw_ih[j * D + m] = total;
+      else dw_hh[j * H + (m - D)] = total;
+    } else {
+      db[o - G * K] = total;
     }
-    s_red[tid] = sum;
-    __syncthreads();
-    if (grp == 0 && o < o1) {
-      const float total = (s_red[ol] + s_red[64 + ol]) + (s_red[128 + ol] + s_red[192 + ol]);
-      if (o < G * K) {
-        const int j = o / K, m = o % K;
-        if (m < D) dw_ih[j * D + m] = total;
-        else dw_hh[j * H + (m - D)] = total;
-      } else {
-        db[o - G * K] = total;
+  };
+  if constexpr (W == 16) {
+    // Whole quads of outputs a block, NG groups of SPAN threads (NG a power
+    // of two, NG x the slice's quads <= THREADS): group g sums blocks g, g +
+    // NG, ... in order, then group 0 adds the groups' sums in group order.
+    constexpr int NQ4 = NOUT / 4;
+    static_assert(NOUT % 4 == 0, "whole quads");
+    const int per = (NQ4 + nblk - 1) / nblk, q0 = blockIdx.x * per, q1 = min(q0 + per, NQ4);
+    int ng = 1;
+    while (ng < 32 && 2 * ng * per <= THREADS) ng *= 2;
+    const int span = THREADS / ng, grp = tid / span, ql = tid % span;
+    float4* s_red4 = reinterpret_cast<float4*>(s_red);
+    const float4* part4 = reinterpret_cast<const float4*>(part);
+    for (int base = q0; base < q1; base += span) {
+      const int q = base + ql;
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q < q1) {
+#pragma unroll 4
+        for (int b = grp; b < nblk; b += ng) {
+          const float4 v = __ldcg(part4 + (size_t)b * NQ4 + q);
+          sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+        }
+      }
+      if (ng > 1) {
+        s_red4[tid] = sum;
+        __syncthreads();
+        if (grp == 0)
+          for (int g = 1; g < ng; ++g) {
+            const float4 v = s_red4[g * span + ql];
+            sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+          }
+        __syncthreads();
+      }
+      if (grp == 0 && q < q1) {
+        put(4 * q, sum.x);
+        put(4 * q + 1, sum.y);
+        put(4 * q + 2, sum.z);
+        put(4 * q + 3, sum.w);
       }
     }
-    __syncthreads();
+  } else {
+    // Four groups of 64 threads taking every fourth block in order, then the
+    // four sums in a fixed order.
+    static_assert(THREADS == 256, "four groups of 64 threads");
+    const int per = (NOUT + nblk - 1) / nblk;
+    const int o0 = blockIdx.x * per, o1 = min(o0 + per, NOUT);
+    const int grp = tid / 64, ol = tid % 64;
+    for (int base = o0; base < o1; base += 64) {
+      const int o = base + ol;
+      float sum = 0.0f;
+      if (o < o1) {
+#pragma unroll 8
+        for (int b = grp; b < nblk; b += 4) sum += __ldcg(part + (size_t)b * NOUT + o);
+      }
+      s_red[tid] = sum;
+      __syncthreads();
+      if (grp == 0 && o < o1) put(o, (s_red[ol] + s_red[64 + ol]) + (s_red[128 + ol] + s_red[192 + ol]));
+      __syncthreads();
+    }
   }
+}
+
+// The fused instantiation's shared-memory opt-in, once per device: its need
+// grows with T, so the card's limit (a T past it fails at the launch, and
+// its occupancy reads 0 blocks).
+template <typename T, int R, int W>
+cudaError_t fused_smem_attr() {
+  static SmemOnce once;
+  return once.set(lstm_bwd_fused_kernel<T, R, W>, 0);
 }
 
 template <typename T, int R, int W>
 cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* dw_hh, float* db,
                          cudaStream_t stream) {
-  static SmemOnce once;  // its need grows with T: the card's limit, checked at the launch
-  cudaError_t err = once.set(lstm_bwd_fused_kernel<T, R, W>, 0);
+  cudaError_t err = fused_smem_attr<T, R, W>();
   if (err != cudaSuccess) return err;
   void* params[] = {&a, &dx, &part, &dw_ih, &dw_hh, &db};
   err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_fused_kernel<T, R, W>,
@@ -914,6 +1046,29 @@ cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* 
                                     fused_smem_bytes<T, R, W>(a.steps), stream);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
+}
+
+// Blocks of the fused instantiation an SM holds at once at T = steps
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's dynamic
+// shared memory), or -cudaError.
+template <typename T, int R, int W>
+int fused_slots_rows(int steps) {
+  cudaError_t err = fused_smem_attr<T, R, W>();
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lstm_bwd_fused_kernel<T, R, W>, 8 * W,
+                                                      (size_t)fused_smem_bytes<T, R, W>(steps));
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T, int W>
+int fused_slots(int rows, int steps) {
+  if (steps < 1) return -(int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return fused_slots_rows<T, 1, W>(steps);
+    case 2: return fused_slots_rows<T, 2, W>(steps);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int R, int W>
@@ -1420,7 +1575,7 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
   if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
   if (a.d < 1 || a.h < 1 || a.d > W || a.h > W) return (int)cudaErrorInvalidValue;
   if (fused) {
-    if constexpr (W == 32)
+    if constexpr (W == 32 || W == 16)
       if (square)
         return (int)(rows == 1 ? launch_fused<T, 1, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
                                : launch_fused<T, 2, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
@@ -1451,16 +1606,16 @@ extern "C" {
 // 8-byte aligned; cprev: (B, T, H) fp32; bias: (G,) fp32.  Outputs, every
 // element written: dx (B, T, D) in the instantiation's type, dw_ih (G, D),
 // dw_hh (G, H) and db (G,) fp32.  rows: batch rows per recurrent block,
-// 1 or 2.  fused = 0, the
-// four launches: scratch da (B, T, G) in
-// the instantiation's type, part (n_chunks, G, D + H) fp32, db_part
-// (ceil(B / rows), G) fp32; dx_blocks: the square dx kernel's grid (>= 1,
-// unused at capacity 48 and at runtime widths).  fused
-// = 1 (capacity 32 at D = H = 32 only; its rows' da must fit a block's
-// shared memory, which the plan's T <= 64 keeps): one cooperative launch of
-// ceil(B / rows) blocks, which must all be resident at once; scratch part
-// (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and dx_blocks
-// unused; rec unused.  All contiguous on the current device; B, T >= 1.
+// 1 or 2.  fused = 0, the four launches: scratch da (B, T, G) in the
+// instantiation's type, part (n_chunks, G, D + H) fp32, db_part (ceil(B /
+// rows), G) fp32; dx_blocks: the square dx kernel's grid (>= 1, unused at
+// capacity 48 and at runtime widths).  fused = 1 (capacities 32 and 16 at
+// D = H = W only; its rows' da must fit a block's shared memory, which the
+// plan's T <= 64 keeps): one cooperative launch of ceil(B / rows) blocks,
+// which must all be resident at once (awm_lstm_bwd_fused_slots); scratch
+// part (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and
+// dx_blocks unused; rec unused.  All contiguous on the current device; B, T
+// >= 1.
 // Returns the first cudaError_t of the launches (0 = all launched).
 #define AWM_LSTM_BWD_ENTRY(NAME, TYPE, W)                                                         \
   int NAME(const void* x, const void* y, const float* cprev, const void* dy, const float* w_ih,  \
@@ -1506,6 +1661,18 @@ AWM_LSTM_BWD_ENTRY(awm_lstm_bwd_bf16_w16, __nv_bfloat16, 16)
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_f32_cluster, float)
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_bf16_cluster, __nv_bfloat16)
 #undef AWM_LSTM_BWD_CLUSTER_ENTRY
+
+// Blocks of the fused backward (capacity `width`, 32 or 16, at D = H =
+// width; `rows` 1 or 2 a block) that one SM of the current device holds at
+// once at T = steps (the block's shared memory grows with T); 0 where the
+// card's opt-in limit refuses its shared memory; negative: -cudaError.
+int awm_lstm_bwd_fused_slots(int bf16, int width, int rows, int steps) {
+  switch (width) {
+    case 32: return bf16 ? fused_slots<__nv_bfloat16, 32>(rows, steps) : fused_slots<float, 32>(rows, steps);
+    case 16: return bf16 ? fused_slots<__nv_bfloat16, 16>(rows, steps) : fused_slots<float, 16>(rows, steps);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
 
 // Clusters of `rows` rows (1, 2, 4 or 8) of kernel C's recurrence that the
 // current device holds at once for widths (d, h); negative: -cudaError.

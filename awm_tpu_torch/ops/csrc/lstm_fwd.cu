@@ -17,7 +17,7 @@
 // 33-48: 384 threads, three quads a lane, three mma k-tiles, so that such a
 // call no longer runs the width-64 block and its step chain), 32 (the
 // strided family's two stacked LSTMs, T = 50 steps a chunk) and 16 (the dry
-// run's gradient check, T = 32; the ring path, untuned); a call passes its
+// run's gradient check, T = 32); a call passes its
 // D, H <= W at run time and takes the smallest capacity that holds them
 // (lstm_common.cuh has the thread mapping and the masking).  Kernel C
 // (lstm_bwd.cu) has the same capacities and recomputes the gates in the
@@ -29,7 +29,7 @@
 // time is the latency of one step times T, not bytes or FLOPs (the whole
 // call's bound is a few ms at most at T = 16000).  At T = 50 a launch's
 // fixed cost (the weights into registers, the producers' first chunk) is a
-// part of the time as well: there width 32 takes the short path below.  A step's
+// part of the time as well: there widths 32 and 16 take the short path below.  A step's
 // latency is its dependent chain: read h, the products, two shuffle
 // exchanges, the gate activations, the cell update and tanh c, write h, one
 // barrier; and a warp runs its instructions in order, so whatever else the
@@ -308,7 +308,7 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   }
 }
 
-// ---- The short path: W = 32, T <= SHORT_MAX_STEPS (the plan's FWD_SHORT_MAX_STEPS) ----
+// ---- The short path: W = 32 and 16, T <= SHORT_MAX_STEPS (the plan's FWD_SHORT_MAX_STEPS) ----
 //
 // At the strided family's T = 50 the ring path's launch takes about 4 us
 // before its first step and 0.26 us a step (bf16, B=512, H100; the T-sweep
@@ -319,14 +319,14 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 //   (cp.async.bulk, completion on an mbarrier), issued before any weight
 //   load, so the latencies overlap; a ragged last block copies its rows and
 //   zero-fills the rest;
-// - all 8 warps project every step, xp = x . W_ih + b, into shared memory
+// - all warps project every step, xp = x . W_ih + b, into shared memory
 //   before the first step (bf16 on the tensor cores as the ring's producers
 //   do, the R rows' tiles of 8 steps in flight together; fp32 on the CUDA
-//   cores in dot_parts' order), then the upper 4 warps exit.  Nothing runs
+//   cores in dot_parts' order), then the upper half exits.  Nothing runs
 //   beside the steps: a version whose producer warps projected 8 steps
 //   ahead of the recurrence, each 8 announced on an mbarrier, took longer
 //   (bf16, B=512 and 128), its steps slowed by the producers;
-// - the lower 4 run the recurrence as the ring's consumers do, one barrier
+// - the lower half runs the recurrence as the ring's consumers do, one barrier
 //   a step, reading each step's xp a step ahead (after the step's mma, so
 //   the load does not queue before h's), h's buffers swapped before the
 //   barrier (no address arithmetic after it), and y (and c_{t-1}) stored to
@@ -337,6 +337,17 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 // - 2 barriers (0 and BAR_CONS, as immediates: with a register operand
 //   ptxas reserves all 16 of the SM's) and at most 128 registers a thread,
 //   so two blocks share an SM where shared memory allows it.
+// W = 16 (the dry run's gradient check, T = 32; SHORT_MIN_BLOCKS): a block is
+// 4 warps, 128 threads.  A step's recurrence needs COLS = 64 threads (4 lanes
+// a unit, 16 units), so all 4 warps project (each half every other 8-step
+// tile, or SU steps in fp32) and the lower 2 run the steps: halving the
+// block instead (2 warps for both) would double the projection's time before
+// the first step, and the steps run on 2 warps either way.  A lane's part
+// of a product is one quad (NQ = 1) and the mma's k one tile.  The block
+// holds a fraction of an SM's registers, so its budget is 4 blocks an SM (at
+// most 128 registers a thread), as the plan's BLOCKS_PER_SM counts; at B = 4
+// and T = 32 its 4 blocks take 4 SMs, and the call is x's copy, the
+// weights' loads, 4 projection tiles and 32 dependent steps.
 // Shared memory for R rows and T steps (fwd_short_smem_bytes; its Python
 // copy is tests/test_torch_lstm_plan.py's, which holds it under the card's
 // limit at SHORT_MAX_STEPS):
@@ -389,12 +400,15 @@ __device__ __forceinline__ void bulk_copy_in(void* dst, const void* src, uint32_
                ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
 }
 
+// Blocks an SM the short kernel's registers are budgeted for.
+template <int W> constexpr int SHORT_MIN_BLOCKS = W == 16 ? 4 : 2;
+
 template <typename T, bool TRAIN, int R, int W>
-__global__ void __launch_bounds__(8 * W, 2)
+__global__ void __launch_bounds__(8 * W, (SHORT_MIN_BLOCKS<W>))
 lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                       const float* __restrict__ w_hh, const float* __restrict__ bias,
                       T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
-  static_assert(W == 32, "the short path is instantiated for W = 32");
+  static_assert(W == 32 || W == 16, "the short path is instantiated for W = 32 and 16");
   constexpr int D = W, H = W, COLS = 4 * W, XPS = COLS + XPAD;
   constexpr int XPW = XP<T, W>;
   constexpr bool PADDED = XPW != D;  // bf16: x lands contiguous, then moves to padded rows
@@ -447,7 +461,7 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     __syncthreads();  // x in place; xp's space free again
   }
 
-  // ---- xp = x . W_ih + b for every step, by all 8 warps, the halves
+  // ---- xp = x . W_ih + b for every step, by all warps, the halves
   //      taking turns over 8-step tiles ----
   if constexpr (is_bf16<T>) {
     // Tensor cores: a tile is 8 steps of a row (lstm_common.cuh); the R
@@ -590,7 +604,7 @@ template <typename T, bool TRAIN, int R, int W>
 int launch_rows(const void* x, const float* w_ih, const float* w_hh, const float* bias,
                 void* y, float* cprev, int batch, int steps, int d, int h, bool short_path, void* stream) {
   const int blocks = (batch + R - 1) / R;
-  if constexpr (W == 32) {
+  if constexpr (W == 32 || W == 16) {
     if (short_path) {
       if (steps > SHORT_MAX_STEPS || d != W || h != W) return (int)cudaErrorInvalidValue;
       // The attribute is the card's opt-in limit, which the buffers at
@@ -639,8 +653,8 @@ extern "C" {
 // x: (B, T, D) and y: (B, T, H) in the instantiation's type; w_ih: (4H, D),
 // w_hh: (4H, H) fp32, bias: (4H,) fp32; all contiguous on the current
 // device.  rows: batch rows per block, 1, 2 or 4.  short_path: 1 for the
-// short path (capacity 32 at D = H = 32 only, x 16-byte aligned, T small
-// enough for its buffers; the plan's), 0 for the ring.  Returns the cudaError_t of the
+// short path (capacities 32 and 16 at D = H = W only, x 16-byte aligned, T
+// small enough for its buffers; the plan's), 0 for the ring.  Returns the cudaError_t of the
 // launch (0 = launched).
 #define AWM_LSTM_FWD_ENTRY(NAME, TYPE, W)                                                        \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \

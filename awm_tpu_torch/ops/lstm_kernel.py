@@ -16,7 +16,8 @@ kernels are compiled for the capacities W of WIDTHS: 64 (the base family,
 no suffix), 48 (suffix _w48: the base family at channels 33-48 on a block
 of 384 threads, not the width-64 block's 512), 32 (the strided family,
 suffix _w32) and 16 (the gradient check of entry.dryrun_multichip, suffix
-_w16, the ring path and four-launch backward, untuned).  A call takes the
+_w16: at T <= 64 the short forward and the one-launch backward, as at 32,
+the backward's residency read from the card).  A call takes the
 smallest capacity with max(D, H) <= W, the same for A, B and C: at D = H =
 W it is the square instantiation, else the same one with D and H passed at
 run time (its weights load zeros past the real widths, a padded unit stays
@@ -49,8 +50,8 @@ kernel and nothing
 beside it: every kernel reads fp32 weights and the bf16 ones round them
 themselves (no cast kernel), dy comes in x's type as autograd hands it,
 no output is zero-filled (the kernels write every element), the plan is
-cached, and at W = 32 the backward is one cooperative launch where its
-grid is resident in one wave.  What the
+cached, and at W = 32 and 16 the backward is one cooperative launch where
+its grid is resident at once.  What the
 designs do about the latency (the sources' headers have the detail): a
 block owns a few batch rows and runs
 all T steps; every weight of the recurrence sits in a register for the whole
@@ -58,8 +59,8 @@ launch; the work of a step that does not depend on the carried state (the
 input projection in A and B, the whole gate recompute in C) is done by
 producer warps that run ahead and hand it over through a ring in shared
 memory (on the cluster path C's is a gate pass over the whole card before
-the recurrence); one barrier separates two steps.  At W = 32 and T up to
-FWD_SHORT_MAX_STEPS, A and B take the short path instead
+the recurrence); one barrier separates two steps.  At W = 32 and 16 and T
+up to FWD_SHORT_MAX_STEPS, A and B take the short path instead
 (lstm_fwd_short_kernel): the block's x in one TMA copy, every step's
 projection up front by all warps, then the steps with nothing beside them,
 in the ring path's arithmetic and so with its bits.  The bf16
@@ -76,9 +77,11 @@ finish the batch soonest, by the waves of blocks the card needs, at the
 blocks an SM runs at once (the clusters the card holds), and the measured
 cost of a step of that many rows at that width and path, so B=128 takes
 128 blocks of one row and B=512 128 blocks of four), the forward's path
-(fwd_short: the short path where D = H = 32 and T <= 64; else the ring or
-the cluster), the backward's path (bwd_fused: one
-launch where D = H = 32, T <= 64 and its blocks fit one wave; else four),
+(fwd_short: the short path where D = H = 32 or 16 and T <= 64; else the
+ring or the cluster), the backward's path (bwd_fused: one launch where D =
+H = 32 or 16, T <= 64 and its blocks are resident at once: at 32 one block
+an SM, at 16 the blocks an SM the card's occupancy reading gives,
+fused_slots; else four),
 its scratch shapes at the real G = 4H (on the cluster path a window's, with
 the gate pass's records) and its dx and dW grids.
 
@@ -185,8 +188,8 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # Launches of each instantiation since import (or since a caller zeroed
 # them); chip_smoke.py reads them to show that the main paths went through
 # the kernels.  A call counts once: a forward call is one launch; a
-# backward call is one launch on the fused path (W = 32 where the plan
-# takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
+# backward call is one launch on the fused path (W = 32 and 16 where the
+# plan takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
 # One counter per path: square, masked (a capacity at runtime widths),
 # cluster and wide (a call counts once there too, whatever its windows): a
 # capacity's square and masked counters at each of WIDTHS, the same
@@ -214,9 +217,12 @@ build_log = ""
 # call's CUDA-event time there is the host's).  A step is bound by latency,
 # so a second row costs less than the first, but not nothing.  Width 16 at
 # T=50, B=128, the same way (in bf16 the rows are columns of the mma tile,
-# as at width 32, so a row more costs nothing measurable).  At width 16 a
-# 128-thread block leaves room on its SM, so a batch past one wave of one
-# row (B=512, fp32) runs faster than these costs count: untuned.
+# as at width 32, so a row more costs nothing measurable); its forward on the
+# ring, its backward on the fused path that T <= 64 takes (bench_lstm.py
+# --width 16 --variants --steps 50 --batch 128: fp32 0.02182 and 0.0389 ms
+# at one and two rows, bf16 0.01605 and 0.02069; the four launches' 1.38 at
+# two rows is its recurrence's).  A 128-thread block leaves room on its
+# SM: the waves count BLOCKS_PER_SM blocks an SM at width 16.
 FWD_STEP_COST = {
     (64, torch.float32): {1: 1.0, 2: 1.32, 4: 2.4},
     (64, torch.bfloat16): {1: 1.0, 2: 1.08, 4: 1.3},
@@ -234,17 +240,21 @@ BWD_STEP_COST = {
     (48, torch.bfloat16): {1: 1.0, 2: 1.62},
     (32, torch.float32): {1: 1.0, 2: 1.32},
     (32, torch.bfloat16): {1: 1.0, 2: 1.14},
-    (16, torch.float32): {1: 1.0, 2: 1.38},
-    (16, torch.bfloat16): {1: 1.0, 2: 1.38},
+    (16, torch.float32): {1: 1.0, 2: 1.78},
+    (16, torch.bfloat16): {1: 1.0, 2: 1.29},
 }
-# The short path's (W = 32, T <= FWD_SHORT_MAX_STEPS), kernel A's device
-# time at T=50, B=128, where every variant is one wave of one block an SM.
-# In bf16 the rows are columns of the mma tile: A and B took 0.93-1.03x one
+# The short path's (W = 32 and 16, T <= FWD_SHORT_MAX_STEPS), kernel A's
+# device time at T=50, B=128, where every variant is one wave.  In bf16 the
+# rows are columns of the mma tile: at width 32 A and B took 0.93-1.03x one
 # row's time at two and four over two calls, so they are counted the same
-# and ties go to fewer rows.
+# and ties go to fewer rows; at width 16 four rows took 0.97x one row's time
+# over three calls (0.01107 against 0.01140 ms, H100; at B=4, T=32 0.00756
+# against 0.00779), so four rows a block at every batch.
 SHORT_STEP_COST = {
     (32, torch.float32): {1: 1.0, 2: 1.26, 4: 1.77},
     (32, torch.bfloat16): {1: 1.0, 2: 1.0, 4: 1.0},
+    (16, torch.float32): {1: 1.0, 2: 1.20, 4: 1.57},
+    (16, torch.bfloat16): {1: 1.0, 2: 1.01, 4: 0.97},
 }
 FWD_ROWS = (1, 2, 4)
 BWD_ROWS = (1, 2)
@@ -255,24 +265,35 @@ DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
 # The fused backward (lstm_bwd.cu, lstm_bwd_fused_kernel): the widths it is
 # instantiated for, the most T the plan sends to it (its rows' da and
 # x_t | h_{t-1} stay in shared memory: 172.5 KB of the H100's 227 KB a block
-# at T = 64, fp32, two rows; the kernel asks the card's limit, and a longer
-# T fails at its launch), and the blocks an SM the plan counts on for its
-# one wave: the plan's step costs are measured at one block an SM (two
-# would share its instruction slots between two latency-bound recurrences),
-# and a cooperative launch refuses a grid that is not resident at once.
-FUSED_WIDTHS = (32,)
+# at W = 32, T = 64, fp32, two rows; 78.5 KB at W = 16; the kernel asks the
+# card's limit, and a longer T fails at its launch), and the blocks an SM the
+# plan counts on at W = 32 for its one wave: the plan's step costs are
+# measured at one block an SM (two would share its instruction slots between
+# two latency-bound recurrences), and a cooperative launch refuses a grid
+# that is not resident at once.  At W = 16 (FUSED_READ_WIDTHS) a 128-thread
+# block leaves room on its SM, as the ring's BLOCKS_PER_SM counts, so the
+# plan takes the blocks the card holds at once: fused_slots, the reading of
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's shared memory
+# (_fused_slots, before any launch); where the grid is more, the four
+# launches.  W = 32 keeps one block an SM: a reading of two there would move
+# B = 300 at T = 50 (150 blocks of two rows) onto the fused path, which
+# test_plan_fuses_the_strided_backward_in_one_wave and the width-32 step
+# costs, measured at one block an SM, keep on the four launches.
+FUSED_WIDTHS = (32, 16)
+FUSED_READ_WIDTHS = (16,)
 FUSED_MAX_STEPS = 64
 FUSED_BLOCKS_PER_SM = 1
 # The forward's short path, kernels A and B (lstm_fwd.cu,
 # lstm_fwd_short_kernel: x in one TMA copy, every step's projection up
 # front, no ring): the widths it is instantiated for and the most T the
 # plan sends to it (the source's SHORT_MAX_STEPS; a longer T is refused at
-# the launch).  Its buffers grow with T: 166 KB at T = 64 and four fp32
-# rows, of the 227 KB one block may ask for on an H100.  Two of its blocks
-# may share an SM where their shared memory fits, but the plan counts one
-# an SM (SHORT_STEP_COST's): two blocks of two rows were slower than one of
-# four (bf16, B=512) or as fast (fp32).
-SHORT_WIDTHS = (32,)
+# the launch).  Its buffers grow with T: 166 KB at W = 32, T = 64 and four
+# fp32 rows (85 KB at W = 16), of the 227 KB one block may ask for on an
+# H100.  Two of its blocks may share an SM where their shared memory fits,
+# but the plan counts one an SM at W = 32 (SHORT_STEP_COST's): two blocks of
+# two rows were slower than one of four (bf16, B=512) or as fast (fp32); at
+# W = 16 BLOCKS_PER_SM's four, as on the ring.
+SHORT_WIDTHS = (32, 16)
 FWD_SHORT_MAX_STEPS = 64
 # Blocks of one instantiation an SM runs at once without slowing each other,
 # by (capacity, operand dtype); the plan's waves count sm_count x this.  One
@@ -367,7 +388,7 @@ class LaunchPlan:
     fwd_short: bool  # kernels A and B on the short path (lstm_fwd_short_kernel)
     bwd_rows: int  # batch rows per block, kernel C's recurrent kernel
     bwd_blocks: int
-    bwd_fused: bool  # kernel C in one launch (its scratch: bwd_blocks partials of 4W*2W + 4W)
+    bwd_fused: bool  # kernel C in one cooperative launch (its scratch: bwd_blocks partials of 4W*2W + 4W)
     n_chunks: int  # chunks of the (B*T) axis, kernel C's dW partials
     dx_blocks: int  # grid of kernel C's dx kernel (it strides over row tiles)
     da_shape: tuple[int, int, int]  # scratch: da in the operand type
@@ -561,7 +582,8 @@ def _wide_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int, width:
 @functools.lru_cache(maxsize=4096)
 def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
                 width: int, bwd_rows: int | None = None, hidden: int | None = None,
-                cluster_slots: tuple | None = None, wide_slots: tuple | None = None) -> LaunchPlan:
+                cluster_slots: tuple | None = None, wide_slots: tuple | None = None,
+                fused_slots: tuple | None = None) -> LaunchPlan:
     """The plan of one call of input width D = width and hidden width H =
     hidden (default: width): pure, so the CPU tests reach it, and cached, so
     a call looks its shape up.  bwd_rows overrides the backward's rows per
@@ -570,12 +592,17 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     rows the card runs at once) on the cluster path, _cluster_slots'
     reading; None counts sm_count // K for each.  wide_slots: ((A's, C's)
     CTAs of each of WIDE_ROWS rows the card holds at once) on the wide path,
-    _wide_slots' reading; None counts sm_count for each.  The
+    _wide_slots' reading; None counts sm_count for each.  fused_slots:
+    (blocks of the fused backward at each of BWD_ROWS rows a block that the
+    card holds at once at this T), _fused_slots' reading (at the widths of
+    FUSED_READ_WIDTHS); None counts sm_count x FUSED_BLOCKS_PER_SM for each.
+    The call takes the fused path where its blocks are at most that, and the
+    four launches where they are more: decided here, before any launch.  The
     forward's path follows from the widths and T alone.  The fused path
-    counts on the whole card: sm_count SMs, each free to hold one of its
-    blocks.  Where the process has less (an MPS client with a share of the
-    SMs, another kernel resident), the cooperative launch refuses the grid
-    and the call raises."""
+    counts on the whole card: sm_count SMs, each free to hold its blocks.
+    Where the process has less (an MPS client with a share of the SMs,
+    another kernel resident), the cooperative launch refuses the grid and
+    the call raises; it is never retried on another path."""
     if batch < 1 or steps < 1 or sm_count < 1:
         raise ValueError(f"launch_plan takes batch, steps, sm_count >= 1, got {batch}, {steps}, {sm_count}")
     hidden = hidden or width
@@ -605,6 +632,11 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     if bwd_rows not in allowed:
         raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
+    bwd_fused = False
+    if square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS:
+        at_once = (sm_count * FUSED_BLOCKS_PER_SM if fused_slots is None
+                   else dict(zip(BWD_ROWS, fused_slots))[bwd_rows])
+        bwd_fused = bwd_blocks <= at_once
     g = 4 * hidden
     window, cluster = steps, {}
     if cap is None:  # C's windows: what CLUSTER_SCRATCH_BYTES leaves after the fixed scratch, as the wide path's
@@ -626,10 +658,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
     return LaunchPlan(
         capacity=cap or 0, cluster=k,
         fwd_rows=fwd_rows, fwd_blocks=-(-batch // fwd_rows), fwd_short=fwd_short,
-        bwd_rows=bwd_rows, bwd_blocks=bwd_blocks,
-        bwd_fused=(square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS
-                   and bwd_blocks <= sm_count * FUSED_BLOCKS_PER_SM),
-        n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
+        bwd_rows=bwd_rows, bwd_blocks=bwd_blocks, bwd_fused=bwd_fused, n_chunks=n_chunks, dx_blocks=max(1, min(-(-n_rows // DX_TILE_ROWS), 2 * sm_count)),
         da_shape=(batch, window, g), da_dtype=mm,
         part_shape=(n_chunks, g, width + hidden), db_part_shape=(bwd_blocks, g),
         rec_shape=(batch, window, hidden, CLUSTER_REC) if cap is None else None, **cluster,
@@ -658,6 +687,22 @@ def _cluster_slots(device_index: int, dtype: torch.dtype, width: int, hidden: in
             raise RuntimeError(f"{fn}: {lib.awm_cuda_error_string(err).decode() if err > 0 else 'no cluster fits'}")
         out.append(got)
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_slots(device_index: int, dtype: torch.dtype, width: int, steps: int) -> tuple:
+    """(Blocks of the fused backward at each of BWD_ROWS rows a block) the
+    card holds at once at D = H = width and T = steps: the SMs times
+    awm_lstm_bwd_fused_slots (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at the call's dynamic shared memory, which grows with T), read once per
+    instantiation, rows and T; 0 where the card's opt-in limit refuses the
+    block's shared memory."""
+    lib, bf16 = libraries()["lstm_bwd"], int(matmul_dtype(dtype) == torch.bfloat16)
+    with torch.cuda.device(device_index):
+        got = tuple(lib.awm_lstm_bwd_fused_slots(bf16, width, rows, steps) for rows in BWD_ROWS)
+    if min(got) < 0:
+        raise RuntimeError(f"awm_lstm_bwd_fused_slots: {lib.awm_cuda_error_string(-min(got)).decode()}")
+    return tuple(n * _sm_count(device_index) for n in got)
 
 
 @functools.lru_cache(maxsize=None)
@@ -703,14 +748,27 @@ def _wide_slots(device_index: int, dtype: torch.dtype, hidden: int) -> tuple:
     return tuple(out)
 
 
+def device_plan(batch: int, steps: int, dtype: torch.dtype, device_index: int, width: int,
+                hidden: int | None = None, bwd_rows: int | None = None) -> LaunchPlan:
+    """The plan of a call on card device_index, with the card's readings
+    the path needs: the clusters it holds (the cluster path), the CTAs of a
+    row group (the wide path), the fused backward's blocks (FUSED_READ_WIDTHS
+    at D = H and T <= FUSED_MAX_STEPS)."""
+    hidden = hidden or width
+    sm_count = _sm_count(device_index)
+    if is_wide(width, hidden):
+        return launch_plan(batch, steps, dtype, sm_count, width, bwd_rows, hidden,
+                           wide_slots=_wide_slots(device_index, dtype, hidden))
+    cap = capacity(width, hidden)
+    slots = _cluster_slots(device_index, dtype, width, hidden) if cap is None else None
+    fused = (_fused_slots(device_index, dtype, cap, steps)
+             if width == hidden == cap and cap in FUSED_READ_WIDTHS and steps <= FUSED_MAX_STEPS else None)
+    return launch_plan(batch, steps, dtype, sm_count, width, bwd_rows, hidden, slots, fused_slots=fused)
+
+
 def _plan_for(x: torch.Tensor, hidden: int, bwd_rows: int | None = None) -> LaunchPlan:
     bsz, t, width = x.shape
-    dev = x.device.index
-    if is_wide(width, hidden):
-        return launch_plan(bsz, t, x.dtype, _sm_count(dev), width, bwd_rows, hidden,
-                           wide_slots=_wide_slots(dev, x.dtype, hidden))
-    slots = _cluster_slots(dev, x.dtype, width, hidden) if capacity(width, hidden) is None else None
-    return launch_plan(bsz, t, x.dtype, _sm_count(dev), width, bwd_rows, hidden, slots)
+    return device_plan(bsz, t, x.dtype, x.device.index, width, hidden, bwd_rows)
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
@@ -736,7 +794,8 @@ def libraries() -> dict[str, ctypes.CDLL]:
         wide = built["lstm_wide"][0]
         wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 5 + [ptr], ctypes.c_int
         wide.awm_lstm_wide_pack_elems.argtypes, wide.awm_lstm_wide_pack_elems.restype = [i] * 3, ctypes.c_longlong
-        for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots")):
+        for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots"),
+                        ("lstm_bwd", "awm_lstm_bwd_fused_slots")):
             lib = built[src][0]
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * 4, ctypes.c_int
         for lib, _ in built.values():
@@ -910,13 +969,13 @@ def forward_train_kernel(
 
 
 def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, ctas: int | None = None,
-                    chunk: int | None = None):
+                    chunk: int | None = None, fused: bool | None = None):
     """Kernel C: (dx in x's dtype, dW_ih, dW_hh, db fp32) on the card.
     y and cprev are forward_train_kernel's outputs, dy is (B, T, H) in x's
     dtype (as autograd hands it to LSTMFunction.backward).  The outputs are
     not zero-filled: the kernels write every element.  The plan picks the
-    path: fused (D = H = 32), one launch with scratch for one dW and db
-    partial per block; else four launches with da (B, T, 4H) in the operand
+    path: fused (D = H = 32 or 16), one cooperative launch with scratch for
+    one dW and db partial per block; else four launches with da (B, T, 4H) in the operand
     type, chunk partials of dW and db per recurrent block; on the cluster
     and wide paths window by window from the last (lstm_bwd.cu's
     launch_cluster, lstm_wide.cu), the gate pass first, its scratch the
@@ -926,7 +985,9 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     overrides the plan's rows per block of the recurrence (a row group on
     the wide path), ctas the wide path's CTAs a row group and chunk the
     terms of its staged chunks of da (whole k-tiles, at most the row; the
-    same bits at any chunk) (for tests and timing)."""
+    same bits at any chunk) and fused the path at D = H in FUSED_WIDTHS (True
+    the cooperative launch, which raises where the card does not hold its
+    grid at once; False the four launches) (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
     bsz, t, _ = x.shape
     shape = (bsz, t, hidden)
@@ -939,8 +1000,12 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     db = torch.empty(4 * hidden, **f32)
     if bsz == 0 or t == 0:
         return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
+    if fused and not (width == hidden and width in FUSED_WIDTHS):
+        raise ValueError(f"the fused backward is compiled for widths D = H in {FUSED_WIDTHS}, "
+                         f"got D = {width}, H = {hidden}")
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     plan = _plan_for(x, hidden, rows)
+    fused = plan.bwd_fused if fused is None else fused
     name = instantiation("lstm_bwd", x.dtype, width, hidden)
     if plan.wide or plan.cluster:  # windows of time: a window's scratch, the state carried between windows
         keep = [torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device), torch.empty(plan.rec_shape, **f32),
@@ -962,7 +1027,7 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
         _launch("lstm_wide", name, x, *args, count.data_ptr(), bsz, t, width, hidden, plan.bwd_rows, ctas,
                 _chunk(chunk), plan.bwd_window, plan.n_chunks)
         return dx, dw_ih, dw_hh, db
-    if plan.bwd_fused:
+    if fused:
         da = db_part = None
         part = torch.empty(plan.bwd_blocks, 4 * width * 2 * width + 4 * width, **f32)
     else:
@@ -975,7 +1040,7 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
             dx.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(),
             da.data_ptr() if da is not None else None, None, part.data_ptr(),
             db_part.data_ptr() if db_part is not None else None, bsz, t, width, hidden,
-            plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(plan.bwd_fused))
+            plan.bwd_rows, plan.n_chunks, plan.dx_blocks, int(fused))
     return dx, dw_ih, dw_hh, db
 
 

@@ -36,9 +36,14 @@ width 16.  Phases:
    one call each of A, B, fused C and four-launch C at T=50 from fp32
    weights, by the profiler's kernel list: its kernels and no cast, fill or
    memset; and two stacked LSTMFunction layers' gradients at width 32;
-   then every width-16 instantiation at every rows variant on the ring path
-   and C's four launches (B, T in W16_SHAPES; C twice for equal bits), and
-   LSTMFunction's gradients of the dry run's loss at width 16;
+   then every width-16 instantiation at every rows variant on both of its
+   paths (A and B short, with the ring path's bits, and ring; C in one
+   cooperative launch and in four; B, T in W16_SHAPES, T = 64 and 65, and
+   the batch just past the fused grid that the card's occupancy reading
+   gives, where the plan takes the four launches and a forced cooperative
+   launch raises; C twice for equal bits), one call each at the dry run's
+   shape by the profiler's kernel list, and LSTMFunction's gradients of the
+   dry run's loss at width 16;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -126,7 +131,9 @@ width 16.  Phases:
    entry.dryrun_multichip(4), four ranks over gloo on the one card, mesh
    (2, 2), the preset's bf16 step with the message table sharded and the
    sharded LSTM gradient at width 16 within 1e-4; every rank launched B and
-   C at width 64 and at width 16; then the same dry run at fp32 on the card
+   C at width 64 and at width 16 (one call each, which this card's plan
+   sends to the short path and the fused backward's one cooperative
+   launch); then the same dry run at fp32 on the card
    and on the CPU, rank 0's loss terms and gradients held together;
 14. the bench, counters zeroed just before (bench_phase): ``python -m
    awm_tpu_torch bench`` in process (no other process of the port alive
@@ -163,7 +170,8 @@ width 16.  Phases:
    its steps, and a step); the strided
    embed+detect clips/s at B=512 and train-step clips/s at B=128 per compute
    dtype, with peak memory and a profile of one bf16 step; the width-16
-   kernels at the dry run's (B, T) = (4, 32) and at (128, 50) beside their
+   kernels at the dry run's (B, T) = (4, 32) and at (128, 50) on both paths
+   (the plan's short and fused, and the ring and four launches) beside their
    plain versions, nn.LSTM(16) and the bounds;
 16a. where the train step's peak memory goes (memory_phase): one bf16 step
    of the bench's base preset at B=256 under torch.cuda.memory's history
@@ -222,11 +230,13 @@ W32_T = (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
 W32_SHAPES = tuple((b, t) for b in (1, 7, B_TRAIN) for t in W32_T) + ((B_SERVE, T32), (B_WAVES, T32))
 W32_FIT_T = (1, 2, 8, 16, 32, 50, 64)  # the T-sweep of the width-32 kernels' device ms
 # Width 16, the gradient check of entry.dryrun_multichip (B=4 over the data
-# axis, T=32) on the ring path and the four-launch backward: B in (1, 2, 4,
-# 7, 128) by T in (1, 17, 32, 50), every rows variant.  Its timed shapes:
-# the dry run's and the strided family's training shape.
+# axis, T=32): A and B on the short path and the ring, C in one cooperative
+# launch and in four: B in (1, 2, 4, 7, 128) by T in (1, 17, 32, 50), the
+# paths' bound T = 64 and one past it, every rows variant.  Its timed
+# shapes: the dry run's and the strided family's training shape.
 W16 = 16
 W16_SHAPES = ((1, 1), (7, 1), (2, 32), (4, 32), (7, 17), (7, 50), (B_TRAIN, 50))
+W16_EDGE = ((3, 64), (7, 64), (3, 65), (7, 65))  # the short and fused paths' bound of 64 steps and one past it
 DRY_B, DRY_T = 4, 32
 # The width-16 instantiations that no path of the port runs (the dry run's
 # gradient check is fp32, through LSTMFunction: kernels B and C): phase 3
@@ -1488,9 +1498,20 @@ def lstm_times(K, dtype, b: int, t: int, w: int, dev, clock_mhz: float) -> dict:
         plains = {name: lambda: lstm_forward(x, w_ih, w_hh, bias),
                   fname: lambda: lstm_forward_train(x, w_ih, w_hh, bias),
                   bname: lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)}
-        fused = K.launch_plan(b, t, dtype, torch.cuda.get_device_properties(dev).multi_processor_count, w).bwd_fused
+        plan = K.device_plan(b, t, dtype, dev.index or 0, w)
+        fused = plan.bwd_fused
         dev_ms = {name: lstm_device_ms(calls[name]), fname: lstm_device_ms(calls[fname]),
                   bname: split_total(backward_split(calls[bname], fused, reps=50))}
+        # width 16: the other path of each (the ring, the four launches) beside the plan's
+        other = {}
+        if w == W16 and plan.fwd_short and fused:
+            ring = {name: lambda: K.forward_kernel(x, w_ih, w_hh, bias, short=False),
+                    fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, short=False)}
+            four = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, fused=False)
+            for n, fn in ring.items():
+                other[n] = {"path": "ring", "ms": timed(fn), "device_ms": lstm_device_ms(fn)}
+            other[bname] = {"path": "four launches", "ms": timed(four),
+                            "device_ms": split_total(backward_split(four, False, reps=50))}
         m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
         xg = x.clone().requires_grad_()
         with torch.inference_mode():
@@ -1505,58 +1526,134 @@ def lstm_times(K, dtype, b: int, t: int, w: int, dev, clock_mhz: float) -> dict:
             rows[n] = {"ms": timed(calls[n]), "plain_ms": cuda_ms(plains[n], reps=5), "bound_ms": bms,
                        "bound_by": by, "library_ms": lib[n], "device_ms": dev_ms[n],
                        "latency_bound_ms": latency_bound_ms(t, w, clock_mhz)}
+            if n in other:
+                rows[n]["other_path"] = other[n]
             print(f"{n} B={b} T={t}: kernel {rows[n]['ms']:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the "
                   f"device), plain {rows[n]['plain_ms']:.2f} ms, cuDNN nn.LSTM({w}) {lib[n]} ms, bound {bms:.5f} "
-                  f"ms ({by}), {t} dependent steps >= {rows[n]['latency_bound_ms']:.5f} ms at {clock_mhz:.0f} MHz",
+                  f"ms ({by}), {t} dependent steps >= {rows[n]['latency_bound_ms']:.5f} ms at {clock_mhz:.0f} MHz"
+                  + (f"; on the {other[n]['path']} path {other[n]['ms']:.4f} ms a call "
+                     f"({fmt_ms(other[n]['device_ms'])} on the device)" if n in other else ""),
                   flush=True)
     return rows
 
 
+def fused_edge(K, dtype, t: int, dev) -> int:
+    """The least batch whose width-16 backward at T = t the plan sends to
+    the four launches on this card, the batch before it fused: just past the
+    grid the card's occupancy reading holds (lstm_kernel._fused_slots)."""
+    for b in range(2, 1 << 16):
+        if not K.device_plan(b, t, dtype, dev.index or 0, W16).bwd_fused:
+            if K.device_plan(b - 1, t, dtype, dev.index or 0, W16).bwd_fused:
+                return b
+    raise RuntimeError(f"no width-16 batch past the fused grid at T={t}")
+
+
 def width16_checks(K, dev, max_err, max_rel) -> None:
     """Phase 3, width 16: every _w16 instantiation of A, B and C at every
-    rows variant against its plain version on W16_SHAPES (the ring path and
-    the four-launch backward; C twice for equal bits); LSTMFunction's
-    gradients of the dry run's loss sum(sin(lstm(x))) at (DRY_B, DRY_T)
-    against autograd of the plain forward.  Fills max_err / max_rel."""
+    rows variant against its plain version on both of its paths (A and B
+    short where T <= FWD_SHORT_MAX_STEPS, with the ring path's bits, and the
+    ring; C fused where T <= FUSED_MAX_STEPS and its grid is resident, and
+    the four launches; C twice for equal bits on each) at W16_SHAPES, T = 64
+    and 65 (W16_EDGE), and the batch just past the fused grid that the
+    card's occupancy reading gives (fused_edge, T = T32): the plan takes the
+    four launches there, and a cooperative launch forced on a grid the card
+    does not hold raises; one call each of A, B and C at the dry run's shape
+    by the profiler's kernel list (short and fused: one kernel each, no
+    cast, fill or memset; C forced on the four launches: four);
+    LSTMFunction's gradients of the dry run's loss sum(sin(lstm(x))) at
+    (DRY_B, DRY_T) against autograd of the plain forward.  Fills max_err /
+    max_rel."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
     from awm_tpu_torch.utils.precision import no_tf32
 
+    idx = dev.index or 0
     for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         name, fname, bname = (K.instantiation(k, dtype, W16) for k in K.KERNELS)
         worst = {name: 0.0, fname: 0.0, bname: 0.0}
-        rel, same = 0.0, True
-        for b, t in W16_SHAPES:
+        rel, same, bits = 0.0, True, True
+        paths = {True: set(), False: set()}  # (B, T) of the checks of C by path: fused, four launches
+        fwd_paths = {True: set(), False: set()}  # (B, T) of the checks of A and B by path: short, ring
+        edge = fused_edge(K, dtype, T32, dev)
+        reading = dict(zip(K.BWD_ROWS, K._fused_slots(idx, dtype, W16, T32)))
+        edge_plan = K.device_plan(edge, T32, dtype, idx, W16)
+        refused = []  # rows at which a cooperative launch forced at the edge batch raised
+        for b, t in W16_SHAPES + W16_EDGE + ((edge, T32),):
             x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=5000 + 10 * b + t, t=t, w=W16)
             with no_tf32():
                 ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                 for rows in (None, *K.FWD_ROWS):
-                    y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
-                    y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
-                    worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
-                    worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
-                                       float((cprev - ref_c).abs().max()))
-                    same &= bool(torch.isfinite(y0).all()) and y0.shape == (b, t, W16) and torch.equal(y0, y)
+                    ring = None
+                    for short in (False, True) if t <= K.FWD_SHORT_MAX_STEPS else (False,):
+                        fwd_paths[short].add((b, t))
+                        y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+                        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+                        worst[name] = max(worst[name], float((y0.float() - ref_y.float()).abs().max()))
+                        worst[fname] = max(worst[fname], float((y.float() - ref_y.float()).abs().max()),
+                                           float((cprev - ref_c).abs().max()))
+                        same &= bool(torch.isfinite(y0).all()) and y0.shape == (b, t, W16) and torch.equal(y0, y)
+                        if ring is None:
+                            ring = (y0, y, cprev)
+                        else:  # the short path gives the ring path's bits
+                            bits &= all(torch.equal(a, r) for a, r in zip((y0, y, cprev), ring))
                 ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                 for rows in (None, *K.BWD_ROWS):
-                    grads = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
-                    again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
-                    same &= all(torch.equal(g, g2) for g, g2 in zip(grads, again))
-                    rel = max(rel, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
-                    worst[bname] = max(worst[bname], *(float((g.float() - r.float()).abs().max())
-                                                       for g, r in zip(grads, ref_g)))
+                    at = rows or K.device_plan(b, t, dtype, idx, W16).bwd_rows
+                    for fused in (False, True) if t <= K.FUSED_MAX_STEPS else (False,):
+                        if fused and -(-b // at) > reading[at]:  # not resident at once: the launch must raise
+                            try:
+                                K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=True)
+                                torch.cuda.synchronize()
+                            except RuntimeError:
+                                refused.append(at)
+                            continue
+                        paths[fused].add((b, t))
+                        grads = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=fused)
+                        again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=fused)
+                        same &= all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+                        rel = max(rel, *(rel_err(g, r) for g, r in zip(grads, ref_g)))
+                        worst[bname] = max(worst[bname], *(float((g.float() - r.float()).abs().max())
+                                                           for g, r in zip(grads, ref_g)))
         torch.cuda.synchronize()
+        shapes = f"(B, T) in {W16_SHAPES + W16_EDGE} and ({edge}, {T32})"
         for n in (name, fname):
             check(worst[n] <= KERNELS[n].tol and same,
-                  f"{n} vs plain, every rows variant, (B, T) in {W16_SHAPES}: max abs err {worst[n]:.3e} "
+                  f"{n} vs plain, every rows variant, both paths, {shapes}: max abs err {worst[n]:.3e} "
                   f"(tol {KERNELS[n].tol:.0e})")
             max_err[n] = worst[n]
+        check(bits and (DRY_B, DRY_T) in fwd_paths[True] and (7, K.FWD_SHORT_MAX_STEPS + 1) in fwd_paths[False]
+              and not any(t > K.FWD_SHORT_MAX_STEPS for _, t in fwd_paths[True]),
+              f"{name} and {fname} checked on both paths: short (lstm_fwd_short_kernel) at "
+              f"{len(fwd_paths[True])} (B, T) with T <= {K.FWD_SHORT_MAX_STEPS}, ring at {len(fwd_paths[False])}; "
+              f"the short path gives the ring path's bits at every one: {bits}")
         tol = KERNELS[bname].tol
-        check(rel <= tol and same, f"{bname} vs plain (four launches), every rows variant, (B, T) in "
-                                   f"{W16_SHAPES}: max rel err {rel:.3e} (tol {tol:.0e}), two runs the same "
-                                   f"bits: {same}")
+        check(rel <= tol and same, f"{bname} vs plain, both paths, every rows variant, {shapes}: max rel err "
+                                   f"{rel:.3e} (tol {tol:.0e}), two runs the same bits: {same}")
+        check((DRY_B, DRY_T) in paths[True] and (7, K.FUSED_MAX_STEPS + 1) in paths[False]
+              and (edge, T32) in paths[False] and not edge_plan.bwd_fused
+              and K.device_plan(edge - 1, T32, dtype, idx, W16).bwd_fused
+              and len(refused) == sum(-(-edge // at) > reading[at] for at in (edge_plan.bwd_rows, *K.BWD_ROWS)),
+              f"{bname} checked on both paths: fused (one cooperative launch) at {len(paths[True])} (B, T), four "
+              f"launches at {len(paths[False])}; the card holds {reading} fused blocks at 1 / 2 rows (T={T32}): B="
+              f"{edge - 1} fused, B={edge} four launches at {edge_plan.bwd_rows} row(s) a block, and a cooperative "
+              f"launch forced on a grid past the reading raised at rows {refused}")
         max_err[bname], max_rel[bname] = worst[bname], rel
+
+        # one call, its kernels alone: no cast, fill or memset beside them
+        x, w_ih, w_hh, bias, dy = lstm_inputs(DRY_B, dtype, dev, seed=4100, t=DRY_T, w=W16)
+        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+        plan = K.device_plan(DRY_B, DRY_T, dtype, idx, W16)
+        for label, call, want in (
+                ("A", lambda: K.forward_kernel(x, w_ih, w_hh, bias), (fwd_kernel_name(plan),)),
+                ("B", lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), (fwd_kernel_name(plan),)),
+                ("C", lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), ("lstm_bwd_fused_kernel",)),
+                ("C, four launches", lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, fused=False),
+                 ("lstm_bwd_rec_", "lstm_bwd_dx_", "lstm_bwd_dw_", "lstm_bwd_sum_"))):
+            held, seen = launched_alone(call, want)
+            check(held and plan.fwd_short and plan.bwd_fused,
+                  f"width 16 {sfx} {label} B={DRY_B} T={DRY_T}, fp32 weights: one call launches {len(want)} "
+                  f"kernel(s) and nothing else: {seen}")
 
         x, *w, _ = lstm_inputs(DRY_B, dtype, dev, seed=51, t=DRY_T, w=W16)
         a = [p.clone().requires_grad_() for p in (x, *w)]
@@ -3239,7 +3336,9 @@ def dryrun_phase(K, launches) -> dict:
     own counts): the preset's bf16 step with the table sharded, then the
     sharded LSTM gradient at width 16 within 1e-4.  Every rank must have
     launched kernels B and C at width 64 (bf16, the step) and at width 16
-    (fp32, the gradient check).  Then the same dry run at fp32 on the card
+    (fp32, the gradient check: one call each, and this card's plan for a
+    rank's shard takes the short path and the fused backward, one
+    cooperative launch a call).  Then the same dry run at fp32 on the card
     and on the CPU (entry.run_dry, rank 0's gradients kept), held together
     by DRY_CARD_TOL; its launches are a comparison's and are not counted.
     Returns the dry run's numbers."""
@@ -3254,10 +3353,20 @@ def dryrun_phase(K, launches) -> dict:
     wall = time.time() - t0
     want = [K.instantiation(k, dt, w) for k in ("lstm_fwd_train", "lstm_bwd")
             for dt, w in ((torch.bfloat16, 64), (torch.float32, W16))]
+    # each rank's gradient check: B then C once at width 16 on its data shard,
+    # on the short path and the fused one by this card's plan
+    w16 = [K.instantiation(k, torch.float32, W16) for k in ("lstm_fwd_train", "lstm_bwd")]
+    shard = 4 // res["mesh"]["data"]  # entry.lstm_check_inputs(4): x (4, T, 16) over the data axis
+    plan = K.device_plan(shard, DRY_T, torch.float32, torch.cuda.current_device(), W16)
     for r, counts in enumerate(res["launches"]):
-        check(all(counts[n] > 0 for n in want), f"dry run rank {r}: {', '.join(f'{n} {counts[n]}' for n in want)}")
+        check(all(counts[n] > 0 for n in want) and all(counts[n] == 1 for n in w16),
+              f"dry run rank {r}: {', '.join(f'{n} {counts[n]}' for n in want)} (width 16: one call each)")
         for name, n in counts.items():
             launches[name] += n
+    check(plan.fwd_short and plan.bwd_fused and plan.bwd_blocks == shard,
+          f"dry run: a rank's width-16 gradient check (B={shard}, T={DRY_T}, fp32) takes {fwd_kernel_name(plan)} "
+          f"and kernel C {'in one cooperative launch' if plan.bwd_fused else 'in four launches'} of "
+          f"{plan.bwd_blocks} block(s) on this card")
     check(res["mesh"] == {"data": 2, "model": 2} and np.isfinite(res["loss"]) and res["lstm_grad_err"] < 1e-4,
           f"dryrun_multichip(4) on the card in {wall:.1f} s: mesh {res['mesh']}, loss {res['loss']:.4f}, table "
           f"rows {res['table_rows']}, sharded LSTM grad err {res['lstm_grad_err']:.2e} (tol 1e-4)")
@@ -4255,9 +4364,7 @@ def main() -> int:
             plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width,
                                  wide_slots=K._wide_slots(dev.index or 0, dtypes[k.sfx], k.width))
         else:
-            slots = (K._cluster_slots(dev.index or 0, dtypes[k.sfx], k.width, k.width)
-                     if K.capacity(k.width) is None else None)
-            plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width, None, None, slots)
+            plan = K.device_plan(batch, steps, dtypes[k.sfx], dev.index or 0, k.width)
         path = ("wide" if plan.wide else ("fused" if plan.bwd_fused else "four launches") if k.kernel == "lstm_bwd"
                 else path_of(plan))
         print(f"{name}: W={k.width} B={batch} T={steps}, {plan.bwd_rows if k.kernel == 'lstm_bwd' else plan.fwd_rows}"

@@ -208,26 +208,27 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,fused", [(128, True), (300, False)], ids=["fused", "four"])
-def test_width32_call_launches_its_kernels_alone(cuda, b, fused, dtype):
-    """A width-32 call at T=50 from fp32 weights and a dy in x's type runs
-    its kernels and nothing beside them (no cast, no fill): A and B one
-    kernel each, on the short path the plan takes at T=50
+@pytest.mark.parametrize("w,b,fused", [(32, 128, True), (32, 300, False), (16, 4, True), (16, 128, True)],
+                         ids=["fused", "four", "w16-fused", "w16-fused-128"])
+def test_width32_call_launches_its_kernels_alone(cuda, w, b, fused, dtype):
+    """A width-32 (and width-16) call at T=50 from fp32 weights and a dy in
+    x's type runs its kernels and nothing beside them (no cast, no fill): A
+    and B one kernel each, on the short path the plan takes at T=50
     (lstm_fwd_short_kernel) and forced onto the ring (lstm_fwd_kernel), C
-    one where the plan fuses it (B=128, one wave) and four where it does
-    not (B=300), by torch.profiler's kernel list.  The profiler drops a
-    short window's kernels now and then: a trace that holds fewer than the
-    call launches is taken again, three times at most, as chip_smoke.py's
-    launched_alone does."""
+    one where the plan fuses it (width 32 at B=128, one wave; width 16 at
+    the dry run's B=4 and at B=128, where the card's reading holds the grid)
+    and four where it does not (width 32 at B=300), by torch.profiler's
+    kernel list.  The profiler drops a short window's kernels now and then:
+    a trace that holds fewer than the call launches is taken again, three
+    times at most, as chip_smoke.py's launched_alone does."""
     from torch.profiler import ProfilerActivity, profile
 
-    x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=11, w=32)
+    x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=11, w=w)
     x = x.to(dtype)
     y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
-    dy = torch.randn(b, 50, 32, device=cuda).to(dtype)
-    assert lstm_kernel.launch_plan(b, 50, dtype, torch.cuda.get_device_properties(cuda).multi_processor_count,
-                                   32).bwd_fused == fused
-    assert lstm_kernel.launch_plan(b, 50, dtype, 132, 32).fwd_short
+    dy = torch.randn(b, 50, w, device=cuda).to(dtype)
+    assert lstm_kernel.device_plan(b, 50, dtype, cuda.index or 0, w).bwd_fused == fused
+    assert lstm_kernel.launch_plan(b, 50, dtype, 132, w).fwd_short
     for call, n_kernels, fragment in (
             (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), 1, "lstm_fwd_short_kernel"),
             (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=False), 1, "lstm_fwd_kernel"),
@@ -290,13 +291,15 @@ def test_width32_stack_function_matches_autograd(cuda, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
                                                    (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,t", [(1, 1), (7, 1), (4, 32), (2, 32), (7, 50), (128, 50), (3, 17)])
+@pytest.mark.parametrize("b,t", [(1, 1), (7, 1), (4, 32), (2, 32), (7, 50), (128, 50), (3, 17), (7, 64), (7, 65)])
 def test_width16_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
     """The _w16 instantiations of A, B and C at every rows variant vs the
-    plain versions, the other widths' tolerances and reasons: A and B max
-    abs error of y and cprev (the ring path: the short one is built for
-    width 32 only), C relative to each gradient's max on its four launches,
-    the same bits in two runs.  Each call counts on its own instantiation."""
+    plain versions, the other widths' tolerances and reasons, on both paths
+    of each where T is within their bound of 64: A and B max abs error of y
+    and cprev on the short path and the ring, the short path with the ring
+    path's bits; C relative to each gradient's max in one cooperative launch
+    and in four, each the same bits in two runs.  Each call counts on its
+    own instantiation, once."""
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
 
     x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=21, w=16)
@@ -308,26 +311,66 @@ def test_width16_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
     names = {k: lstm_kernel.instantiation(k, dtype, 16) for k in lstm_kernel.KERNELS}
     assert names["lstm_bwd"].endswith("_w16")
     before = {n: lstm_kernel.launches[n] for n in names.values()}
-    plan = lstm_kernel.launch_plan(b, t, dtype, 132, 16)
-    assert not plan.fwd_short and not plan.bwd_fused
+    plan = lstm_kernel.device_plan(b, t, dtype, cuda.index or 0, 16)
+    within = t <= lstm_kernel.FWD_SHORT_MAX_STEPS
+    assert plan.fwd_short == within and plan.bwd_fused == within  # these grids fit an H100 at once
+    paths = (False, True) if within else (False,)
     for rows in lstm_kernel.FWD_ROWS:
-        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows)
-        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows)
-        torch.cuda.synchronize()
-        assert y0.shape == (b, t, 16) and y0.dtype == dtype and torch.equal(y0, y), rows
-        assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, rows
-        assert float((cprev - ref_c).abs().max()) <= tol_fwd, rows
+        got = []
+        for short in paths:
+            y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=short)
+            torch.cuda.synchronize()
+            assert y0.shape == (b, t, 16) and y0.dtype == dtype and torch.equal(y0, y), (rows, short)
+            assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, (rows, short)
+            assert float((cprev - ref_c).abs().max()) <= tol_fwd, (rows, short)
+            got.append((y0, cprev))
+        assert all(torch.equal(a, r) for a, r in zip(got[-1], got[0])), rows  # short == ring, bit for bit
     for rows in lstm_kernel.BWD_ROWS:
-        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
-        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows)
-        torch.cuda.synchronize()
-        assert tuple(got[1].shape) == (64, 16) and got[0].dtype == dtype
-        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
-            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
-            assert rel <= tol_bwd, (name, rows, rel)
-            assert torch.equal(a, a2), name
-    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS), 2 * len(lstm_kernel.BWD_ROWS)
+        for fused in paths:
+            got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=fused)
+            again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=fused)
+            torch.cuda.synchronize()
+            assert tuple(got[1].shape) == (64, 16) and got[0].dtype == dtype
+            for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+                rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+                assert rel <= tol_bwd, (name, rows, fused, rel)
+                assert torch.equal(a, a2), (name, rows, fused)
+    n_fwd, n_bwd = len(lstm_kernel.FWD_ROWS) * len(paths), 2 * len(lstm_kernel.BWD_ROWS) * len(paths)
     assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_width16_fused_backward_is_chosen_before_the_launch(cuda, dtype):
+    """The fused backward at width 16 runs where the card's occupancy
+    reading holds its grid, and the plan takes the four launches one block
+    past it; a cooperative launch forced on that grid raises (no retry on
+    another path) and counts nothing; the four launches there match the
+    plain version."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    reading = lstm_kernel._fused_slots(cuda.index or 0, dtype, 16, 50)
+    assert all(n >= torch.cuda.get_device_properties(cuda).multi_processor_count for n in reading), reading
+    b = reading[0] + 1  # one row past what the card holds at one row a block
+    x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=24, w=16)
+    x = x.to(dtype)
+    dy = torch.randn(b, 50, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(25)).to(dtype)
+    assert lstm_kernel.device_plan(b - 1, 50, dtype, cuda.index or 0, 16, bwd_rows=1).bwd_fused
+    assert not lstm_kernel.device_plan(b, 50, dtype, cuda.index or 0, 16, bwd_rows=1).bwd_fused
+    with no_tf32():
+        y, cprev = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    name = lstm_kernel.instantiation("lstm_bwd", dtype, 16)
+    before = lstm_kernel.launches[name]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1, fused=True)
+    assert lstm_kernel.launches[name] == before
+    got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, r in zip(got, ref):
+        assert float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12)) <= tol
+    assert lstm_kernel.launches[name] == before + 1
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)], ids=["f32", "bf16"])
@@ -909,11 +952,14 @@ def test_kernel_refuses_rows_it_is_not_built_for(cuda):
 
 
 def test_kernel_refuses_the_short_path_at_width64(cuda):
-    """The forward's short path is built for width 32 only: forcing it at
-    width 64 raises before any launch."""
+    """The forward's short path is built for widths 32 and 16 only: forcing
+    it at width 64 raises before any launch, as does the fused backward."""
     x, w_ih, w_hh, bias = _inputs(2, 8, cuda)
     with pytest.raises(ValueError, match="short path"):
         lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=True)
+    y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
+    with pytest.raises(ValueError, match="fused backward"):
+        lstm_kernel.backward_kernel(x, y, cprev, torch.zeros_like(y), w_ih, w_hh, bias, fused=True)
 
 
 # -- the attack ops on the card vs the CPU ---------------------------------------

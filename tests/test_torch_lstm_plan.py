@@ -108,33 +108,76 @@ def test_plan_width32(batch, dtype):
     assert want is None or (plan.fwd_rows, plan.fwd_blocks) == want
 
 
+# Card readings of the fused backward at width 16 (blocks the card holds at
+# once at one and two rows a block): none (the pure plan's one block an SM),
+# an H100's at four and three blocks an SM, a reading below one block an SM,
+# and one where the card holds no block (shared memory past its limit).
+W16_READINGS = (None, (528, 528), (396, 264), (64, 32), (0, 0))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("batch", BATCHES)
 def test_plan_width16(batch, dtype):
-    """Width 16 (entry.dryrun_multichip's gradient check, T=32): the ring
-    forward and the four-launch backward at every T (neither the short path
-    nor the fused backward is built for it), scratch sized by the width (da
-    (B, T, 64), dW partials (n, 64, 32), db (blocks, 64)), blocks that cover
-    the batch once, and rows from the width's own measured step costs: a
-    dry-run rank's two fp32 rows take a block each.  The waves count the
-    blocks an SM runs at once (BLOCKS_PER_SM): at B=512 fp32 one row a
-    block (one wave of 512 blocks), which the card measured faster than
-    four rows (0.0158 against 0.0195 ms)."""
+    """Width 16 (entry.dryrun_multichip's gradient check, T=32): A and B on
+    the short path at T <= FWD_SHORT_MAX_STEPS and on the ring past it; C in
+    one cooperative launch at T <= FUSED_MAX_STEPS where the card's
+    occupancy reading (fused_slots) holds the grid, else (and past that T)
+    the four launches; scratch sized by the width (da (B, T, 64), dW
+    partials (n, 64, 32), db (blocks, 64)), blocks that cover the batch
+    once, and rows from the width's own measured step costs (the short
+    path's where it takes it) at BLOCKS_PER_SM blocks an SM, whatever the
+    reading: at B=512 fp32 one row a block on the ring (one wave of 512
+    blocks), which the card measured faster than four rows (0.0158 against
+    0.0195 ms).  A dry-run rank's two fp32 rows take two blocks and the
+    fused backward."""
     slots = 132 * lstm_kernel.BLOCKS_PER_SM[16, dtype]
-    for steps in (1, 32, 50, 64, 800):
-        plan = launch_plan(batch, steps, dtype, 132, width=16)
-        assert not plan.fwd_short and not plan.bwd_fused
-        assert plan.da_shape == (batch, steps, 64) and plan.da_dtype == dtype
-        assert plan.part_shape == (plan.n_chunks, 64, 32)
-        assert plan.db_part_shape == (plan.bwd_blocks, 64)
-        for rows, blocks, cost in ((plan.fwd_rows, plan.fwd_blocks, lstm_kernel.FWD_STEP_COST[16, dtype]),
-                                   (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_STEP_COST[16, dtype])):
-            assert rows in cost and blocks * rows >= batch > (blocks - 1) * rows
-            waves = lambda r: -(-(-(-batch // r)) // slots)
-            assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
+    for steps in (1, 32, 50, 64, 65, 800):
+        for reading in W16_READINGS:
+            plan = launch_plan(batch, steps, dtype, 132, 16, fused_slots=reading)
+            assert plan.fwd_short == (steps <= lstm_kernel.FWD_SHORT_MAX_STEPS), (steps, reading)
+            at_once = 132 if reading is None else dict(zip(lstm_kernel.BWD_ROWS, reading))[plan.bwd_rows]
+            assert plan.bwd_fused == (steps <= lstm_kernel.FUSED_MAX_STEPS and plan.bwd_blocks <= at_once), (
+                steps, reading)
+            assert plan.da_shape == (batch, steps, 64) and plan.da_dtype == dtype
+            assert plan.part_shape == (plan.n_chunks, 64, 32)
+            assert plan.db_part_shape == (plan.bwd_blocks, 64)
+            fwd_cost = (lstm_kernel.SHORT_STEP_COST if plan.fwd_short else lstm_kernel.FWD_STEP_COST)[16, dtype]
+            for rows, blocks, cost in ((plan.fwd_rows, plan.fwd_blocks, fwd_cost),
+                                       (plan.bwd_rows, plan.bwd_blocks, lstm_kernel.BWD_STEP_COST[16, dtype])):
+                assert rows in cost and blocks * rows >= batch > (blocks - 1) * rows
+                waves = lambda r: -(-(-(-batch // r)) // slots)
+                assert all(waves(rows) * cost[rows] <= waves(r) * cost[r] for r in cost)
     if dtype == torch.float32:
-        assert launch_plan(2, 32, dtype, 132, width=16).fwd_blocks == 2
-        assert launch_plan(512, 50, dtype, 132, width=16).fwd_rows == 1
+        dry = launch_plan(2, 32, dtype, 132, width=16, fused_slots=(528, 528))
+        assert dry.fwd_short and dry.fwd_blocks == 2 and dry.bwd_fused and dry.bwd_blocks == 2
+        assert launch_plan(512, 800, dtype, 132, width=16).fwd_rows == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plan_width16_fused_follows_the_occupancy_reading(dtype):
+    """The fused backward at width 16 is chosen from the card's occupancy
+    reading before any launch: a smaller reading moves a call that fit to the
+    four launches (never the other way), a grid of more blocks than the
+    reading holds never stays fused, and the reading moves nothing else of
+    the plan (rows, blocks, scratch, the forward's path).  A rows override
+    is read at its own rows."""
+    for steps in (1, 32, 50, 64):
+        for batch in (1, 2, 4, 7, 32, 128, 129, 264, 265, 396, 397, 528, 529, 1000):
+            base = launch_plan(batch, steps, dtype, 132, 16, fused_slots=(528, 528))
+            was = True
+            for reading in ((528, 528), (396, 264), (132, 132), (64, 32), (4, 2), (1, 1), (0, 0)):
+                plan = launch_plan(batch, steps, dtype, 132, 16, fused_slots=reading)
+                assert dataclasses.replace(plan, bwd_fused=base.bwd_fused) == base, (batch, steps, reading)
+                at_once = dict(zip(lstm_kernel.BWD_ROWS, reading))[plan.bwd_rows]
+                assert plan.bwd_fused == (plan.bwd_blocks <= at_once), (batch, steps, reading)
+                assert was or not plan.bwd_fused, (batch, steps, reading)  # smaller readings: never fused again
+                was = plan.bwd_fused
+                for rows in lstm_kernel.BWD_ROWS:
+                    forced = launch_plan(batch, steps, dtype, 132, 16, rows, fused_slots=reading)
+                    assert forced.bwd_fused == (-(-batch // rows) <= reading[rows - 1]), (batch, steps, reading)
+    # past the fused kernel's steps no reading fuses; width 32 keeps its one block an SM by default
+    assert not launch_plan(2, lstm_kernel.FUSED_MAX_STEPS + 1, dtype, 132, 16, fused_slots=(528, 528)).bwd_fused
+    assert lstm_kernel.FUSED_READ_WIDTHS == (16,) and set(lstm_kernel.FUSED_READ_WIDTHS) <= set(lstm_kernel.FUSED_WIDTHS)
 
 
 def test_plan_keeps_width64_main_shapes_and_refuses_other_widths():
@@ -275,7 +318,8 @@ BLOCK_SMEM_OPTIN = 232448  # the most shared memory one block may ask for on an 
 
 @pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_short_path_shared_memory_fits_at_its_bound(dtype, rows):
+@pytest.mark.parametrize("width", lstm_kernel.SHORT_WIDTHS)
+def test_short_path_shared_memory_fits_at_its_bound(width, dtype, rows):
     """The short path's buffers, by the layout and constants of
     lstm_fwd.cu (its fwd_short_smem_bytes): x's mbarrier in SHORT_HEADER
     bytes, a multiple of 16 that holds its 8; xp, each row's T steps of 4W +
@@ -284,10 +328,11 @@ def test_short_path_shared_memory_fits_at_its_bound(dtype, rows):
     x, rows of W + 8 in bf16 and W in fp32, and the 8 rows the last
     projection tile reads past it; h.  At the plan's bound, which is the
     source's SHORT_MAX_STEPS, they stay under the 227 KB a block may opt in
-    to on an H100, at every rows variant; they grow with T and rows, so the
-    bound at four rows is the worst case the plan sends."""
+    to on an H100, at every rows variant and width of SHORT_WIDTHS (32 and
+    16); they grow with T and rows, so the bound at four rows is the worst
+    case the plan sends."""
     src = _source_constants()
-    width, bound = 32, lstm_kernel.FWD_SHORT_MAX_STEPS
+    bound = lstm_kernel.FWD_SHORT_MAX_STEPS
     assert bound == src["SHORT_MAX_STEPS"]
     header, step_floats = src["SHORT_HEADER"], 4 * width + src["XPAD"]
     assert header % 16 == 0 and header >= 8
@@ -305,6 +350,70 @@ def test_short_path_shared_memory_fits_at_its_bound(dtype, rows):
     assert got <= BLOCK_SMEM_OPTIN
     assert all(smem(rows, steps) < got for steps in (1, 17, 50))
     assert rows == 4 or got < smem(4, bound)
+
+
+def _fused_pads() -> dict[str, int]:
+    """The pads of the fused kernel's da and x_t | h_{t-1} rows as lstm_bwd.cu
+    declares them (FDA_P, FV_P: bf16, fp32)."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", "lstm_bwd.cu")) as f:
+        text = f.read()
+    out = {}
+    for name, n in (("FDA_P", 4), ("FV_P", 2)):
+        bf, f32 = re.search(rf"constexpr int {name} = is_bf16<T> \? {n} \* W \+ (\d+) : {n} \* W \+ (\d+);",
+                            text).groups()
+        out[f"{name}_bf16"], out[f"{name}_f32"] = int(bf), int(f32)
+    return out
+
+
+def fused_smem(width: int, rows: int, steps: int, bf16: bool) -> int:
+    """A Python copy of lstm_bwd.cu's fused_smem_bytes: the recurrence's
+    region (rec_smem_bytes: fp32 [W_ih | W_hh] for the producers, the ring
+    of NBUF chunks of SB steps of 7W floats a row, c_{t-1}, da
+    double-buffered, the staged x_t | h_{t-1}), 16-byte aligned, then the
+    block's da and x_t | h_{t-1} rows for its (row, step) pairs in whole
+    16-row tiles, and at W = 32 in bf16 W_ih^T for dx (W = 16 holds its
+    fragments in registers)."""
+    src, pads, elt = _bwd_source_constants(), _fused_pads(), 2 if bf16 else 4
+    sb, nbuf, w = src["SB"], src["NBUF"], width
+    rec = ((0 if bf16 else 4 * (4 * w) * (2 * w))
+           + 4 * (nbuf * sb * rows * 7 * w + rows * sb * w + 2 * rows * 4 * (w + 8))
+           + elt * rows * sb * (2 * w + 8 if bf16 else 2 * w))
+    dap = 4 * w + pads["FDA_P_bf16" if bf16 else "FDA_P_f32"]
+    vp = 2 * w + pads["FV_P_bf16" if bf16 else "FV_P_f32"]
+    nrp = -(-rows * steps // 16) * 16
+    return -(-rec // 16) * 16 + elt * (nrp * (dap + vp) + (w * dap if bf16 and w == 32 else 0))
+
+
+@pytest.mark.parametrize("rows", lstm_kernel.BWD_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", lstm_kernel.FUSED_WIDTHS)
+def test_fused_backward_shared_memory_fits_at_its_bound(width, dtype, rows):
+    """The fused backward's shared memory (lstm_bwd.cu's fused_smem_bytes,
+    copied above) at the plan's FUSED_MAX_STEPS stays under the 227 KB a
+    block may opt in to on an H100 at both rows variants and both widths; it
+    grows with T (in whole 16-row tiles) and rows; its row pitches keep 16-byte rows (ldmatrix,
+    float4) and, in bf16, 8 consecutive rows in distinct 16-byte bank groups.
+    At W = 16 it is the size the plan's notes give (80384 bytes, fp32, two
+    rows) and W = 32's (172544)."""
+    bf16 = dtype == torch.bfloat16
+    bound = lstm_kernel.FUSED_MAX_STEPS
+    got = fused_smem(width, rows, bound, bf16)
+    assert got <= BLOCK_SMEM_OPTIN
+    assert all(fused_smem(width, rows, t, bf16) <= got for t in (17, 32, 50))
+    assert fused_smem(width, rows, 1, bf16) < got
+    assert rows == 2 or got < fused_smem(width, 2, bound, bf16)
+    pads, elt = _fused_pads(), 2 if bf16 else 4
+    for pitch in (4 * width + pads["FDA_P_bf16" if bf16 else "FDA_P_f32"],
+                  2 * width + pads["FV_P_bf16" if bf16 else "FV_P_f32"]):
+        assert pitch * elt % 16 == 0
+        if bf16:
+            words = pitch * elt // 4
+            assert sorted(r * words % 32 for r in range(8)) == list(range(0, 32, 4))
+    if not bf16 and rows == 2:
+        assert got == {16: 80384, 32: 172544}[width]
 
 
 @pytest.mark.parametrize("missing", [(), (1, 4)], ids=["all", "some_missing"])
@@ -348,9 +457,10 @@ def _case(rng, b, t, w=64):
     return x, (w_ih, w_hh, bias), dy
 
 
-# T, width: the width-64 cases keep their ids; width 32 adds "-w32".
-SHORT = pytest.mark.parametrize("t,w", [(1, 64), (2, 64), (3, 64), (1, 32), (2, 32), (3, 32)],
-                                ids=["1", "2", "3", "1-w32", "2-w32", "3-w32"])
+# T, width: the width-64 cases keep their ids; width 32 adds "-w32", 16 "-w16".
+SHORT = pytest.mark.parametrize("t,w", [(1, 64), (2, 64), (3, 64), (1, 32), (2, 32), (3, 32),
+                                        (1, 16), (2, 16), (3, 16)],
+                                ids=["1", "2", "3", "1-w32", "2-w32", "3-w32", "1-w16", "2-w16", "3-w16"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
