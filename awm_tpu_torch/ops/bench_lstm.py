@@ -5,11 +5,12 @@ paths' shapes: A at B=512, B and C at B=128, fp32 and bf16, at one width
 stacked LSTMs, T=50; --width 16, the gradient check of
 entry.dryrun_multichip, T=32; any other width, T=16000: 48 takes
 capacity 48, 56 capacity 64 at runtime widths, 128 the cluster path, 512
-the wide path past 256; --steps
-overrides T; --batch times all three at one other batch, e.g. the
-curriculum's B=8 or the dry run's B=4).
+the wide path past 256; --width is D, and --hidden H names the hidden width
+apart (default D): 24 with --steps 50 the strided family at hidden_dim 24,
+capacity 32 masked; --steps overrides T; --batch times all three at one
+other batch, e.g. the curriculum's B=8 or the dry run's B=4).
 
-    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width W] [--steps T[,T...]] [--batch B]
+    python3 awm_tpu_torch/ops/bench_lstm.py [--tree DIR] [--width D] [--hidden H] [--steps T[,T...]] [--batch B]
                                             [--variants] [--paths] [--check] [--only NAME] [--library]
                                             [--split] [--hash [--against FILE]] [--gates]
 
@@ -22,11 +23,14 @@ takes --width 64 only.  --variants also times each rows-per-block variant
 the checkout's launch plan can choose (a checkout without a plan has none;
 on the cluster path every rows a cluster the checkout builds, for C too; on
 the wide path WIDE_ROWS, rows a row group).
---paths (widths 32 and 16 at T <= 64, in a checkout whose wrappers take
-short= and fused=) also times each kernel on the path the plan does not
-take: A and B on the ring beside the short path, C in four launches beside
-the fused one; every line of such a checkout carries "path" (short, ring,
-fused, four, cluster or wide).
+--paths (capacities 32 and 16 at T <= 64, any D, H within them, in a
+checkout whose wrappers take short= and fused=) also times each kernel on
+the path the plan does not take: A and B on the ring beside the short
+path (or on the short path beside the ring, where the plan keeps a masked
+fp32 forward there), C in four launches beside the fused one; every line
+of such a checkout carries "path" (short, ring, fused, four, cluster or
+wide).  An older checkout, whose short path and fused backward take D = H
+only, takes --paths at square widths only.
 --check first holds every kernel against its plain version at B in (1, 7,
 128) and T in (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800) with every rows
 variant (A and B on both paths where the checkout has the forward's short
@@ -93,11 +97,14 @@ SPLIT_MASKS = (0, 1, 2, 4, 8, 15)
 # bound (64 at width 32).
 CHECK_B, CHECK_T = (1, 7, 128), (1, 2, 3, 15, 16, 17, 37, 50, 64, 65, 800)
 # --hash's (D, H): the capacities' squares, masked (48, 40 x 24, 33 x 33:
-# capacity 48; 56 x 56: capacity 64), the cluster
+# capacity 48; 56 x 56: capacity 64; 24 x 24, 20 x 32, 32 x 20: capacity 32;
+# 12 x 12, 9 x 3: capacity 16), the cluster
 # path (96, 128, 256, 200 x 8), the wide path (257, 512, 40 x 600, 300 x 40);
-# (B, T): a ragged batch over several ring chunks, a batch of full row groups.
-HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (33, 33), (56, 56), (96, 96), (128, 128),
-               (256, 256), (200, 8), (257, 257), (512, 512), (40, 600), (300, 40))
+# (B, T): a ragged batch over several ring chunks (T past the short and
+# fused paths' 64), a batch of full row groups (T = 17, within them).
+HASH_SHAPES = ((16, 16), (32, 32), (64, 64), (48, 48), (40, 24), (33, 33), (56, 56), (24, 24), (20, 32), (32, 20),
+               (12, 12), (9, 3), (96, 96), (128, 128), (256, 256), (200, 8), (257, 257), (512, 512), (40, 600),
+               (300, 40))
 HASH_BT = ((7, 65), (32, 17))
 
 
@@ -331,7 +338,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tree", default=here)
-    ap.add_argument("--width", type=int, default=64, help="D = H >= 1")
+    ap.add_argument("--width", type=int, default=64, help="D >= 1 (and H unless --hidden)")
+    ap.add_argument("--hidden", type=int, default=None, help="H >= 1 (default: D)")
     ap.add_argument("--steps", type=lambda v: [int(t) for t in v.split(",")], default=None,
                     help="T, or a comma-separated list of T to fit (default: the width's main path)")
     ap.add_argument("--batch", type=int, default=None, help="B of every kernel (default: A 512, B and C 128)")
@@ -349,7 +357,8 @@ def main() -> int:
                     help="check that the wide fp32 gate pass reproduces kernel B's gates bit for bit")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
-    width, sweep = args.width, args.steps or [STEPS.get(args.width, 16000)]
+    width, hidden = args.width, args.hidden or args.width
+    sweep = args.steps or [STEPS.get(args.width, 16000) if hidden == width else 16000]
     b_serve, b_train = (args.batch, args.batch) if args.batch else (512, 128)
     sys.path[0] = tree  # in place of this script's own directory
 
@@ -366,21 +375,25 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     K.libraries()
-    wide = hasattr(K, "is_wide") and K.is_wide(width)
-    cluster = hasattr(K, "capacity") and K.capacity(width) is None and not wide
+    wide = hasattr(K, "is_wide") and K.is_wide(width, hidden)
+    cluster = hasattr(K, "capacity") and K.capacity(width, hidden) is None and not wide
+    cap = K.capacity(width, hidden) if hasattr(K, "capacity") else width
     variants = K.WIDE_ROWS if wide else K.CLUSTER_ROWS if cluster else None
     fwd_rows = (variants or getattr(K, "FWD_ROWS", (None,))) if args.variants else (None,)
     bwd_rows = (variants or getattr(K, "BWD_ROWS", (None,))) if args.variants else (None,)
     if None not in fwd_rows:
         fwd_rows, bwd_rows = (None, *fwd_rows), (None, *bwd_rows)
-    has_short = hasattr(K, "FWD_SHORT_MAX_STEPS") and width in getattr(K, "SHORT_WIDTHS", (32,))
-    has_fused = "fused" in inspect.signature(K.backward_kernel).parameters and width in K.FUSED_WIDTHS
+    has_short = hasattr(K, "FWD_SHORT_MAX_STEPS") and cap in getattr(K, "SHORT_WIDTHS", (32,))
+    has_fused = "fused" in inspect.signature(K.backward_kernel).parameters and cap in K.FUSED_WIDTHS
+    if (width, hidden) != (cap, cap) and not hasattr(K, "MASKED_SHORT_DTYPES"):
+        has_short = has_fused = False  # a checkout from before the masked short and fused paths
     kw = lambda rows: {} if rows is None else {"rows": rows}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
     # A checkout from before the width-32 kernels names its width-64 ones so.
     sfx_of = {dtype: sfx for sfx, dtype in dtypes.items()}
-    name = getattr(K, "instantiation", lambda kernel, dtype, w: f"{kernel}_{sfx_of[dtype]}")
+    named = getattr(K, "instantiation", lambda kernel, dtype, w, h=None: f"{kernel}_{sfx_of[dtype]}")
+    name = lambda kernel, dtype, w: named(kernel, dtype, w) if hidden == w else named(kernel, dtype, w, hidden)
     failed = 0
     if args.check:
         print(K.build_log, flush=True)
@@ -389,7 +402,7 @@ def main() -> int:
             tol_a, tol_b, tol_c = (K.KERNEL_TOL[k, sfx] for k in K.KERNELS)
             for b in CHECK_B:
                 for t in CHECK_T:
-                    x, w_ih, w_hh, bias, dy = inputs(torch, b, t, dtype, seed=b * 1000 + t, width=width)
+                    x, w_ih, w_hh, bias, dy = inputs(torch, b, t, dtype, seed=b * 1000 + t, width=width, hidden=hidden)
                     ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
                     dy = kernel_dy(K, x, ref_y, ref_c, dy, w_ih, w_hh, bias)
                     err_a = err_b = 0.0
@@ -416,7 +429,7 @@ def main() -> int:
                     torch.cuda.synchronize()
                     bad = err_a > tol_a or err_b > tol_b or rel > tol_c or not same
                     failed += bad
-                    print(f"check{' FAIL' if bad else ''} {sfx} W={width} B={b} T={t} rows {fwd_rows} / "
+                    print(f"check{' FAIL' if bad else ''} {sfx} D={width} H={hidden} B={b} T={t} rows {fwd_rows} / "
                           f"{bwd_rows}: A max abs {err_a:.3e} (tol {tol_a:.0e}), B {err_b:.3e} (tol "
                           f"{tol_b:.0e}); C max rel {rel:.3e} (tol {tol_c:.0e})"
                           + (f"; the short path gives the ring's bits: {same}"
@@ -430,9 +443,9 @@ def main() -> int:
         reading of the clusters it holds (rows None: the plan's), else None."""
         if not cluster or not hasattr(K, "_cluster_slots"):
             return None
-        slots = K._cluster_slots(torch.cuda.current_device(), dtype, width, width)
+        slots = K._cluster_slots(torch.cuda.current_device(), dtype, width, hidden)
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-        plan = K.launch_plan(batch, steps, dtype, sm_count, width, None, None, slots)
+        plan = K.launch_plan(batch, steps, dtype, sm_count, width, None, hidden, slots)
         bwd = kernel.startswith("lstm_bwd")
         r = rows or (plan.bwd_rows if bwd else plan.fwd_rows)
         return -(-(-(-batch // r)) // dict(zip(K.CLUSTER_ROWS, slots[bwd]))[r])
@@ -440,13 +453,13 @@ def main() -> int:
     def wide_launches(kernel, batch, rows, dtype):
         """Cooperative launches of row groups a window takes on the wide path
         at the card's reading of the CTAs it holds (rows None: the plan's)."""
-        slots = K._wide_slots(torch.cuda.current_device(), dtype, width)
+        slots = K._wide_slots(torch.cuda.current_device(), dtype, hidden)
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-        plan = K.launch_plan(batch, steps, dtype, sm_count, width, wide_slots=slots)
+        plan = K.launch_plan(batch, steps, dtype, sm_count, width, hidden=hidden, wide_slots=slots)
         bwd = kernel.startswith("lstm_bwd")
         r = rows or (plan.bwd_rows if bwd else plan.fwd_rows)
         at_once = dict(zip(K.WIDE_ROWS, slots[bwd])).get(r, 0)
-        ctas = K.wide_ctas(-(-width // K.WIDE_UNITS), at_once)
+        ctas = K.wide_ctas(-(-hidden // K.WIDE_UNITS), at_once)
         return -(-(-(-batch // r)) // (at_once // ctas)) if ctas else None
 
     def held(rows, dtype, bwd: bool) -> bool:
@@ -455,7 +468,7 @@ def main() -> int:
         elsewhere, and for the plan's own rows)."""
         if not wide or rows is None:
             return True
-        slots = dict(zip(K.WIDE_ROWS, K._wide_slots(torch.cuda.current_device(), dtype, width)[bwd]))
+        slots = dict(zip(K.WIDE_ROWS, K._wide_slots(torch.cuda.current_device(), dtype, hidden)[bwd]))
         return slots[rows] >= 1
 
     def path_of(kernel, batch, rows, dtype, path):
@@ -464,7 +477,7 @@ def main() -> int:
         if path is not None or dtype is None or not hasattr(K, "device_plan"):
             return path
         bwd = kernel.startswith("lstm_bwd")
-        plan = K.device_plan(batch, steps, dtype, torch.cuda.current_device(), width, None, rows if bwd else None)
+        plan = K.device_plan(batch, steps, dtype, torch.cuda.current_device(), width, hidden, rows if bwd else None)
         if plan.wide or plan.cluster:
             return "wide" if plan.wide else "cluster"
         if bwd:
@@ -474,6 +487,8 @@ def main() -> int:
     def report(kernel, batch, rows, ms, fn=None, dtype=None, path=None):
         line = {"tree": tree, "card": card, "kernel": kernel, "width": width, "steps": steps,
                 "batch": batch, "rows": rows, "ms": ms}
+        if hidden != width:
+            line["hidden"] = hidden
         if hasattr(K, "device_plan") and dtype is not None:
             line["path"] = path_of(kernel, batch, rows, dtype, path)
         if dtype is not None and cluster:
@@ -499,7 +514,7 @@ def main() -> int:
         try:
             for sfx, dtype in dtypes.items():
                 for batch in (1, 32):
-                    x, w_ih, w_hh, bias, dy = inputs(torch, batch, steps, dtype, seed=9, width=width)
+                    x, w_ih, w_hh, bias, dy = inputs(torch, batch, steps, dtype, seed=9, width=width, hidden=hidden)
                     y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
                     dy = dy.to(dtype)
                     calls = {name("lstm_fwd", dtype, width): ("lstm_wide_fwd", lambda: K.forward_kernel(
@@ -530,7 +545,7 @@ def main() -> int:
     for steps in sweep:
         for sfx, dtype in dtypes.items():
             fwd, fwd_train, bwd = (name(k, dtype, width) for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"))
-            x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width)
+            x, w_ih, w_hh, bias, _ = inputs(torch, b_serve, steps, dtype, seed=7, width=width, hidden=hidden)
             other_fwd = args.paths and has_short and steps <= K.FWD_SHORT_MAX_STEPS
             other_bwd = args.paths and has_fused and steps <= K.FUSED_MAX_STEPS
             for rows in fwd_rows if want(fwd) else ():
@@ -539,13 +554,14 @@ def main() -> int:
                 fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
                 if other_fwd:
-                    fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows), short=False)
-                    report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "ring")
+                    short = path_of(fwd, b_serve, rows, dtype, None) == "ring"
+                    fn = lambda: K.forward_kernel(x, w_ih, w_hh, bias, **kw(rows), short=short)
+                    report(fwd, b_serve, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "short" if short else "ring")
             if args.library and want(fwd):
                 report(f"{fwd}:nn.LSTM", b_serve, None, library_ms(torch, "lstm_fwd", x, w_ih, w_hh, bias, None,
                                                                    args.reps))
             del x
-            x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width)
+            x, w_ih, w_hh, bias, dy = inputs(torch, b_train, steps, dtype, seed=8, width=width, hidden=hidden)
             y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
             dy = kernel_dy(K, x, y, cprev, dy, w_ih, w_hh, bias)
             for rows in fwd_rows if want(fwd_train) else ():
@@ -554,8 +570,10 @@ def main() -> int:
                 fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows))
                 report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype)
                 if other_fwd:
-                    fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows), short=False)
-                    report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype, "ring")
+                    short = path_of(fwd_train, b_train, rows, dtype, None) == "ring"
+                    fn = lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, **kw(rows), short=short)
+                    report(fwd_train, b_train, rows, cuda_ms(torch, fn, args.reps), fn, dtype,
+                           "short" if short else "ring")
             for kernel, what in (("lstm_fwd_train", fwd_train), ("lstm_bwd", bwd)) if args.library else ():
                 if want(what):
                     report(f"{what}:nn.LSTM", b_train, None,
@@ -582,8 +600,8 @@ def main() -> int:
     if len(sweep) > 1:
         for (kernel, batch, rows), by_t in swept.items():
             fixed, step = fit_line(list(by_t), list(by_t.values()))
-            print(json.dumps({"tree": tree, "card": card, "kernel": kernel, "width": width, "batch": batch,
-                              "rows": rows, "steps": list(by_t), "device_ms": list(by_t.values()),
+            print(json.dumps({"tree": tree, "card": card, "kernel": kernel, "width": width, "hidden": hidden,
+                              "batch": batch, "rows": rows, "steps": list(by_t), "device_ms": list(by_t.values()),
                               "fixed_ms": fixed, "step_ms": step}), flush=True)
     if failed:
         print(f"bench_lstm: {failed} check(s) above tolerance", file=sys.stderr)

@@ -45,7 +45,7 @@
 //      writes partial sums of its chunk.
 //   4. lstm_bwd_sum: sums the chunk partials and the db partials in a fixed
 //      order.  No atomics: two runs give the same bits.
-// One launch, lstm_bwd_fused (W = 32 and 16 at D = H = W, T <= 64, every
+// One launch, lstm_bwd_fused (W = 32 and 16 at any D, H within them, T <= 64, every
 // block of the grid resident at once: at W = 32 one block an SM, at W = 16
 // the blocks an SM that the card's occupancy reading gives, read before the
 // launch; W = 16's own design below): a block owns R batch rows and runs the same
@@ -129,12 +129,15 @@ __host__ __device__ constexpr int rec_smem_bytes() {
 
 
 // The reverse-time recurrence of the R batch rows from row0, the body of
-// both paths' recurrent block.  It stores da, rounded to the operand type,
-// at da_dst + (r * steps + t) * da_stride + column (the device-memory
-// scratch, rows past the batch skipped; or the fused kernel's shared
-// memory, where those rows get zeros), and the block's db (its rows' fp32
-// da in a fixed order) at db_out[column]; column = gate h + unit of the
-// call's real width h, written for units < h only.  FUSED: the producers also leave
+// both paths' recurrence.  It stores da, rounded to the operand type, at
+// da_dst + (r * steps + t) * da_stride + column (the device-memory scratch,
+// rows past the batch skipped; or the fused kernel's shared memory, where
+// those rows get zeros), and the block's db (its rows' fp32 da in a fixed
+// order) at db_out[column].  Four launches: column = gate h + unit of the
+// call's real width h, written for units < h only.  FUSED: column = gate W
+// + unit, the capacity's layout, zeros at the padded units, so that the
+// fused kernel's products and sum are the square call's on zero-padded
+// operands.  FUSED: the producers also leave
 // x_t | h_{t-1} of every (r, t) at s_v + (r * steps + t) * v_stride, and
 // call producers_done() once they have handed over their last chunk.
 // MASKED = false: D = H = W, the widths folded in at compile time (the code
@@ -157,6 +160,7 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
 
   const int p = threadIdx.x % COLS;  // COLS = 192 at W = 48: not a power of two
   const int unit = p >> 2, gate = p & 3, col = gate * h + unit;  // col: da's column at the real width
+  const int fcol = gate * W + unit;                              // FUSED: at the capacity's
   const int n_chunks = (steps + SB - 1) / SB;
   // Chunk c holds steps t = t_hi - s, s = 0..SB-1, t_hi = steps - 1 - c * SB.
 
@@ -354,7 +358,10 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
         dc[r] = dc_total * e[G + H + unit];
         db_acc[r] += da;
         da_s[r * DR + gate * DG + unit] = operand(da, a.x);
-        if ((FUSED || row0 + r < batch) && unit < h) store_f(da_dst + (size_t)(r * steps + t) * da_stride + col, da);
+        if constexpr (FUSED)
+          store_f(da_dst + (size_t)(r * steps + t) * da_stride + fcol, unit < h ? da : 0.0f);
+        else if (row0 + r < batch && unit < h)
+          store_f(da_dst + (size_t)(r * steps + t) * da_stride + col, da);
       }
       bar_sync(BAR_CONS, COLS);
       // Each output's 4 EP terms in order (q, e), one running sum; then the 16 parts:
@@ -399,7 +406,10 @@ __device__ __forceinline__ void bwd_recurrence(const BwdArgs<T> a, unsigned char
   float total = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) total += db_acc[r];
-  if (unit < h) db_out[col] = total;
+  if constexpr (FUSED)
+    db_out[fcol] = unit < h ? total : 0.0f;
+  else if (unit < h)
+    db_out[col] = total;
 }
 
 template <typename T, int R, int W, bool MASKED>
@@ -776,11 +786,30 @@ constexpr int fused_smem_bytes(int steps) {
                            (FUSED_WT<T, W> ? W * FDA_P<T, W> : 0));
 }
 
+// Masked (MASKED: any 1 <= D, H <= W but D = H = W, at run time): the
+// recurrence at runtime widths (bwd_recurrence's MASKED), and everything
+// after it in the capacity's layout: the block's da at G = 4 W columns
+// (gate m at m W + j, zeros at the padded units j >= H), x_t | h_{t-1} with
+// x at columns < D and h_{t-1} at W + j < W + H, zeros up to W each, W_ih
+// read with zeros past the real widths (load_wm).  So dx, the dW and db
+// partials and the sum are the square call's arithmetic on zero-padded
+// operands, each padded term an exact +0, and at W = 32 a masked call gives
+// that call's bits (bf16 dx too: packed at 4 H columns, its k-tiles would
+// straddle two gates wherever 16 does not divide H).  At W = 16 the square
+// instantiation's recurrence rounds a few gates in the last bit unlike
+// every other instantiation of bwd_recurrence (its own four-launch one
+// included: measured, not designed), so there a masked call gives the
+// masked four launches' da, and their db bits where both sum the blocks in
+// order.  Only the stores map
+// back: dx at k < D (row stride D), dW_ih / dW_hh / db at the real rows m H
+// + j and columns.  Shared memory, and so the occupancy the plan reads
+// (awm_lstm_bwd_fused_slots' masked argument), are the capacity's.
+//
 // part: (gridDim.x, G K + G) fp32, block b's dW partial [j][m] (m < W: x,
-// else h_{t-1}) then its db.  The grid must be resident at once
-// (cudaLaunchCooperativeKernel refuses it otherwise; the plan reads the
+// else h_{t-1}) then its db, at the capacity.  The grid must be resident at
+// once (cudaLaunchCooperativeKernel refuses it otherwise; the plan reads the
 // blocks an SM holds, awm_lstm_bwd_fused_slots, before it sends a call here).
-template <typename T, int R, int W>
+template <typename T, int R, int W, bool MASKED>
 __global__ void __launch_bounds__(8 * W, 1)
 lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict__ part,
                       float* __restrict__ dw_ih, float* __restrict__ dw_hh, float* __restrict__ db) {
@@ -789,6 +818,23 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
   constexpr int DAP = FDA_P<T, W>, VP = FV_P<T, W>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, row0 = blockIdx.x * R, steps = a.steps;
+  const int d_real = MASKED ? a.d : D, h_real = MASKED ? a.h : H;  // the call's widths
+  // W_ih at capacity row j (gate j / W, unit j % W) and column k: zero past the real widths
+  auto w_ih_at = [&](int j, int k) -> float {
+    if constexpr (MASKED)
+      return load_wm(a.w_ih, j % W < h_real, (size_t)((j / W) * h_real + j % W), k, d_real);
+    else
+      return a.w_ih[(size_t)j * D + k];
+  };
+  // bf16 dx of flattened row n (of the call) at inputs k, k + 1 (k even), from fp32 sums
+  auto store_dx2 = [&](long long n, int k, float lo, float hi) {
+    if constexpr (MASKED) {
+      if (k < d_real) store_f(dx + n * d_real + k, lo);
+      if (k + 1 < d_real) store_f(dx + n * d_real + k + 1, hi);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(dx + n * D + k) = __floats2bfloat162_rn(lo, hi);
+    }
+  };
   const int nr = R * steps, nrp = fused_rows(R, steps);
   T* s_da = reinterpret_cast<T*>(smem + align16(rec_smem_bytes<T, R, W>()));  // [nrp][DAP]
   T* s_v = s_da + nrp * DAP;                                                   // [nrp][VP]
@@ -797,12 +843,12 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
 
   // 1. The recurrence.  Its producers, done with their last chunk while the
   // consumers still run, zero the padding rows (and at W = 32 stage W_ih^T).
-  bwd_recurrence<T, R, W, true, false>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
+  bwd_recurrence<T, R, W, true, MASKED>(a, smem, row0, s_da, DAP, my_part + G * K, s_v, VP, [&] {
     for (int i = tid - G; i < (nrp - nr) * DAP; i += G) store_f(s_da + nr * DAP + i, 0.0f);
     for (int i = tid - G; i < (nrp - nr) * VP; i += G) store_f(s_v + nr * VP + i, 0.0f);
     if constexpr (FUSED_WT<T, W>)
       for (int idx = tid - G; idx < G * D; idx += G)
-        s_wt[(idx % D) * DAP + idx / D] = __float2bfloat16(a.w_ih[idx]);
+        s_wt[(idx % D) * DAP + idx / D] = __float2bfloat16(w_ih_at(idx / D, idx % D));
   });
   const long long n_base = (long long)row0 * steps, n_end = (long long)a.batch * steps;
   const int warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -811,12 +857,12 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
   // d = 8 nt + g8: loaded while the other warps reach the barrier.
   [[maybe_unused]] uint32_t bw[W == 16 ? G / 16 : 1][2];
   if constexpr (is_bf16<T> && W == 16) {
-    const int d = (warp & 1) * 8 + g8;
+    const int k = (warp & 1) * 8 + g8;
 #pragma unroll
     for (int kt = 0; kt < G / 16; ++kt) {
       const int j = kt * 16 + 2 * t4;
-      bw[kt][0] = pack_bf16(a.w_ih[(size_t)j * D + d], a.w_ih[(size_t)(j + 1) * D + d]);
-      bw[kt][1] = pack_bf16(a.w_ih[(size_t)(j + 8) * D + d], a.w_ih[(size_t)(j + 9) * D + d]);
+      bw[kt][0] = pack_bf16(w_ih_at(j, k), w_ih_at(j + 1, k));
+      bw[kt][1] = pack_bf16(w_ih_at(j + 8, k), w_ih_at(j + 9, k));
     }
   }
   __syncthreads();
@@ -836,11 +882,9 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
           mma_bf16(c, af, bw[kt][0], bw[kt][1]);
         }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = mt * 16 + g8 + 8 * h;
-          if (n < nr && n_base + n < n_end)
-            *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
-                __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int n = mt * 16 + g8 + 8 * half;
+          if (n < nr && n_base + n < n_end) store_dx2(n_base + n, nt * 8 + 2 * t4, c[2 * half], c[2 * half + 1]);
         }
       }
     } else {
@@ -858,11 +902,9 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
           mma_bf16(c, af, ld32(b_lo + kt * 16), ld32(b_lo + kt * 16 + 8));
         }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = mt * 16 + g8 + 8 * h;
-          if (n < nr && n_base + n < n_end)
-            *reinterpret_cast<__nv_bfloat162*>(dx + (n_base + n) * D + nt * 8 + 2 * t4) =
-                __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int n = mt * 16 + g8 + 8 * half;
+          if (n < nr && n_base + n < n_end) store_dx2(n_base + n, nt * 8 + 2 * t4, c[2 * half], c[2 * half + 1]);
         }
       }
     }
@@ -899,7 +941,7 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
     // PR rows at a time, the G terms in order (lstm_bwd_dx_kernel's order),
     // W_ih from L1.
     constexpr int RG = THREADS / D, PR = W == 16 ? 4 : 8;
-    const int d = tid % D, rg = tid / D;
+    const int k = tid % D, rg = tid / D;
     for (int n0 = rg; n0 < nr; n0 += PR * RG) {
       float acc[PR];
       const T* rows[PR];
@@ -910,14 +952,14 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
       }
 #pragma unroll 4
       for (int j = 0; j < G; ++j) {
-        const float wv = a.w_ih[(size_t)j * D + d];
+        const float wv = w_ih_at(j, k);
 #pragma unroll
         for (int i = 0; i < PR; ++i) acc[i] = fmaf(rows[i][j], wv, acc[i]);
       }
 #pragma unroll
       for (int i = 0; i < PR; ++i) {
         const int n = n0 + RG * i;
-        if (n < nr && n_base + n < n_end) dx[(n_base + n) * D + d] = acc[i];
+        if (n < nr && n_base + n < n_end && k < d_real) dx[(n_base + n) * d_real + k] = acc[i];
       }
     }
     // 3. The block's dW partial, fp32: JT gate columns x 4 terms a thread
@@ -955,15 +997,16 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
   cg::this_grid().sync();
   float* s_red = reinterpret_cast<float*>(smem);  // the recurrence's region, free now
   const int nblk = gridDim.x;
-  // Output o of the sum: dW_ih, dW_hh or db.
+  // Output o of the sum (capacity row j = o / K, term m; db: row o - G K):
+  // dW_ih, dW_hh or db at the real row (j / W) h + j % W; a padded row or
+  // term is not stored.
   auto put = [&](int o, float total) {
-    if (o < G * K) {
-      const int j = o / K, m = o % K;
-      if (m < D) dw_ih[j * D + m] = total;
-      else dw_hh[j * H + (m - D)] = total;
-    } else {
-      db[o - G * K] = total;
-    }
+    const int j = o < G * K ? o / K : o - G * K, m = o < G * K ? o % K : -1;
+    const int u = j % W, row = MASKED ? (j / W) * h_real + u : j;
+    if (MASKED && u >= h_real) return;
+    if (m < 0) db[row] = total;
+    else if (m < D) { if (!MASKED || m < d_real) dw_ih[row * d_real + m] = total; }
+    else if (!MASKED || m - D < h_real) dw_hh[row * h_real + (m - D)] = total;
   };
   if constexpr (W == 16) {
     // Whole quads of outputs a block, NG groups of SPAN threads (NG a power
@@ -1029,19 +1072,19 @@ lstm_bwd_fused_kernel(const BwdArgs<T> a, T* __restrict__ dx, float* __restrict_
 // The fused instantiation's shared-memory opt-in, once per device: its need
 // grows with T, so the card's limit (a T past it fails at the launch, and
 // its occupancy reads 0 blocks).
-template <typename T, int R, int W>
+template <typename T, int R, int W, bool MASKED>
 cudaError_t fused_smem_attr() {
   static SmemOnce once;
-  return once.set(lstm_bwd_fused_kernel<T, R, W>, 0);
+  return once.set(lstm_bwd_fused_kernel<T, R, W, MASKED>, 0);
 }
 
-template <typename T, int R, int W>
+template <typename T, int R, int W, bool MASKED>
 cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* dw_hh, float* db,
                          cudaStream_t stream) {
-  cudaError_t err = fused_smem_attr<T, R, W>();
+  cudaError_t err = fused_smem_attr<T, R, W, MASKED>();
   if (err != cudaSuccess) return err;
   void* params[] = {&a, &dx, &part, &dw_ih, &dw_hh, &db};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_fused_kernel<T, R, W>,
+  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_fused_kernel<T, R, W, MASKED>,
                                     dim3((a.batch + R - 1) / R), dim3(8 * W), params,
                                     fused_smem_bytes<T, R, W>(a.steps), stream);
   const cudaError_t last = cudaGetLastError();
@@ -1051,22 +1094,22 @@ cudaError_t launch_fused(BwdArgs<T> a, T* dx, float* part, float* dw_ih, float* 
 // Blocks of the fused instantiation an SM holds at once at T = steps
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's dynamic
 // shared memory), or -cudaError.
-template <typename T, int R, int W>
+template <typename T, int R, int W, bool MASKED>
 int fused_slots_rows(int steps) {
-  cudaError_t err = fused_smem_attr<T, R, W>();
+  cudaError_t err = fused_smem_attr<T, R, W, MASKED>();
   if (err != cudaSuccess) return -(int)err;
   int n = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lstm_bwd_fused_kernel<T, R, W>, 8 * W,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, lstm_bwd_fused_kernel<T, R, W, MASKED>, 8 * W,
                                                       (size_t)fused_smem_bytes<T, R, W>(steps));
   return err == cudaSuccess ? n : -(int)err;
 }
 
-template <typename T, int W>
+template <typename T, int W, bool MASKED>
 int fused_slots(int rows, int steps) {
   if (steps < 1) return -(int)cudaErrorInvalidValue;
   switch (rows) {
-    case 1: return fused_slots_rows<T, 1, W>(steps);
-    case 2: return fused_slots_rows<T, 2, W>(steps);
+    case 1: return fused_slots_rows<T, 1, W, MASKED>(steps);
+    case 2: return fused_slots_rows<T, 2, W, MASKED>(steps);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -1575,10 +1618,13 @@ int launch(BwdArgs<T> a, void* dx, float* dw_ih, float* dw_hh, float* db, void* 
   if (rows != 1 && rows != 2) return (int)cudaErrorInvalidValue;
   if (a.d < 1 || a.h < 1 || a.d > W || a.h > W) return (int)cudaErrorInvalidValue;
   if (fused) {
-    if constexpr (W == 32 || W == 16)
+    if constexpr (W == 32 || W == 16) {
       if (square)
-        return (int)(rows == 1 ? launch_fused<T, 1, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
-                               : launch_fused<T, 2, W>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
+        return (int)(rows == 1 ? launch_fused<T, 1, W, false>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
+                               : launch_fused<T, 2, W, false>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
+      return (int)(rows == 1 ? launch_fused<T, 1, W, true>(a, (T*)dx, part, dw_ih, dw_hh, db, stream)
+                             : launch_fused<T, 2, W, true>(a, (T*)dx, part, dw_ih, dw_hh, db, stream));
+    }
     return (int)cudaErrorInvalidValue;
   }
   if (n_chunks < 1 || dx_blocks < 1) return (int)cudaErrorInvalidValue;
@@ -1609,11 +1655,11 @@ extern "C" {
 // 1 or 2.  fused = 0, the four launches: scratch da (B, T, G) in the
 // instantiation's type, part (n_chunks, G, D + H) fp32, db_part (ceil(B /
 // rows), G) fp32; dx_blocks: the square dx kernel's grid (>= 1, unused at
-// capacity 48 and at runtime widths).  fused = 1 (capacities 32 and 16 at
-// D = H = W only; its rows' da must fit a block's shared memory, which the
-// plan's T <= 64 keeps): one cooperative launch of ceil(B / rows) blocks,
-// which must all be resident at once (awm_lstm_bwd_fused_slots); scratch
-// part (ceil(B / rows), G 2 W + G) fp32; da, db_part, n_chunks and
+// capacity 48 and at runtime widths).  fused = 1 (capacities 32 and 16,
+// any D, H within them; its rows' da must fit a block's shared memory,
+// which the plan's T <= 64 keeps): one cooperative launch of ceil(B / rows)
+// blocks, which must all be resident at once (awm_lstm_bwd_fused_slots);
+// scratch part (ceil(B / rows), 4 W 2 W + 4 W) fp32 at the capacity W; da, db_part, n_chunks and
 // dx_blocks unused; rec unused.  All contiguous on the current device; B, T
 // >= 1.
 // Returns the first cudaError_t of the launches (0 = all launched).
@@ -1662,16 +1708,20 @@ AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_f32_cluster, float)
 AWM_LSTM_BWD_CLUSTER_ENTRY(awm_lstm_bwd_bf16_cluster, __nv_bfloat16)
 #undef AWM_LSTM_BWD_CLUSTER_ENTRY
 
-// Blocks of the fused backward (capacity `width`, 32 or 16, at D = H =
-// width; `rows` 1 or 2 a block) that one SM of the current device holds at
-// once at T = steps (the block's shared memory grows with T); 0 where the
-// card's opt-in limit refuses its shared memory; negative: -cudaError.
-int awm_lstm_bwd_fused_slots(int bf16, int width, int rows, int steps) {
+// Blocks of the fused backward (capacity `width`, 32 or 16; masked 0: the
+// square instantiation, D = H = width, 1: the masked one, any other D, H
+// within it; `rows` 1 or 2 a block) that one SM of the current device holds
+// at once at T = steps (the block's shared memory grows with T); 0 where
+// the card's opt-in limit refuses its shared memory; negative: -cudaError.
+int awm_lstm_bwd_fused_slots(int bf16, int width, int rows, int steps, int masked) {
+#define AWM_FUSED_SLOTS(TYPE, W) \
+  (masked ? fused_slots<TYPE, W, true>(rows, steps) : fused_slots<TYPE, W, false>(rows, steps))
   switch (width) {
-    case 32: return bf16 ? fused_slots<__nv_bfloat16, 32>(rows, steps) : fused_slots<float, 32>(rows, steps);
-    case 16: return bf16 ? fused_slots<__nv_bfloat16, 16>(rows, steps) : fused_slots<float, 16>(rows, steps);
+    case 32: return bf16 ? AWM_FUSED_SLOTS(__nv_bfloat16, 32) : AWM_FUSED_SLOTS(float, 32);
+    case 16: return bf16 ? AWM_FUSED_SLOTS(__nv_bfloat16, 16) : AWM_FUSED_SLOTS(float, 16);
     default: return -(int)cudaErrorInvalidValue;
   }
+#undef AWM_FUSED_SLOTS
 }
 
 // Clusters of `rows` rows (1, 2, 4 or 8) of kernel C's recurrence that the

@@ -361,6 +361,22 @@ lstm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 //     distinct banks: the TMA copy lands in xp's space first, contiguous,
 //     and all warps move it row by row;
 //   h [2][H_ROWS][XP] of T, as the ring path's.
+// Masked (MASKED, any 1 <= D, H <= W but D = H = W, at run time): the same
+// buffers, the capacity's layout, so a block's shared memory is its square
+// call's.  The weights load zeros past the real widths (lstm_common.cuh), y
+// and c_{t-1} are stored at units j < H, and x's rows of D land in rows of
+// XP with zeros at columns D .. W - 1 (the mma and dot_parts read W terms).
+// That relayout exists in fp32 too (a square fp32 call's x lands in place),
+// and x reaches it by one of two routes, chosen by short_x_tma from (D, T,
+// the operand's size) alone: the TMA copy into xp's space, then every
+// thread moves values to the padded rows, where a row's T D values are
+// whole 16-byte pieces (so every block's span starts and ends 16-byte
+// aligned, the TMA's rule); plain loads straight into the padded rows where
+// they are not (bf16 at D = 17, T = 50: 1700 bytes a row).  Both put the
+// same values in the same places, so the route never changes a bit; its
+// Python copy is lstm_kernel.short_x_tma, which a CPU test holds on a model
+// of both.  A masked call gives the masked ring's bits, and the square
+// short call's on operands zero-padded to W.
 constexpr int SHORT_MAX_STEPS = 64, XPAD = 4;
 constexpr int SHORT_HEADER = 16;  // x's mbarrier; xp 16-byte aligned after it
 
@@ -403,15 +419,23 @@ __device__ __forceinline__ void bulk_copy_in(void* dst, const void* src, uint32_
 // Blocks an SM the short kernel's registers are budgeted for.
 template <int W> constexpr int SHORT_MIN_BLOCKS = W == 16 ? 4 : 2;
 
-template <typename T, bool TRAIN, int R, int W>
+// Whether a masked short call brings x in by the TMA (else plain loads):
+// a row's T D values of elt bytes are whole 16-byte pieces.  The square
+// widths always are (T 32 or 16 values of 2 or 4 bytes).
+__host__ __device__ constexpr bool short_x_tma(int steps, int d, int elt) { return steps * d * elt % 16 == 0; }
+
+template <typename T, bool TRAIN, int R, int W, bool MASKED>
 __global__ void __launch_bounds__(8 * W, (SHORT_MIN_BLOCKS<W>))
 lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                       const float* __restrict__ w_hh, const float* __restrict__ bias,
-                      T* __restrict__ y, float* __restrict__ cprev, int batch, int steps) {
+                      T* __restrict__ y, float* __restrict__ cprev, int batch, int steps, int d_in, int h_in) {
   static_assert(W == 32 || W == 16, "the short path is instantiated for W = 32 and 16");
   constexpr int D = W, H = W, COLS = 4 * W, XPS = COLS + XPAD;
   constexpr int XPW = XP<T, W>;
-  constexpr bool PADDED = XPW != D;  // bf16: x lands contiguous, then moves to padded rows
+  const int d = MASKED ? d_in : D, h = MASKED ? h_in : H;
+  // bf16, and every masked call: x lands contiguous (rows of d), then moves to padded rows
+  constexpr bool PADDED = MASKED || XPW != D;
+  const bool tma = !MASKED || short_x_tma(steps, d, (int)sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   const int xrf = xp_row_floats(steps, XPS);
   uint64_t* x_bar = reinterpret_cast<uint64_t*>(smem);
@@ -427,11 +451,11 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   const int row0 = blockIdx.x * R;
   const int nrows = batch - row0 < R ? batch - row0 : R;
 
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && tma) {
     mbar_init(x_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    bulk_copy_in(x_in, x + (size_t)row0 * steps * D, (uint32_t)(nrows * steps * D * sizeof(T)), x_bar);
+    bulk_copy_in(x_in, x + (size_t)row0 * steps * d, (uint32_t)(nrows * steps * d * sizeof(T)), x_bar);
   }
   for (int i = nrows * steps * XPW + threadIdx.x; i < (R * steps + 8) * XPW; i += 2 * COLS) store_f(s_x + i, 0.0f);
   for (int i = threadIdx.x; i < 2 * H_ROWS<T, R> * XPW; i += 2 * COLS) store_f(s_h + i, 0.0f);  // h_{-1} = 0
@@ -441,18 +465,27 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   uint32_t a_ih[2][W / 16][4], a_hh[2][W / 16][4];
   float b4[4], w[W], wh[W], b = 0.0f;
   if constexpr (is_bf16<T>) {
-    load_a_fragments<W, false>(w_ih, unit & ~7, lane, a_ih, H, D);
-    if (half == 0) load_a_fragments<W, false>(w_hh, unit & ~7, lane, a_hh, H, H);
+    load_a_fragments<W, MASKED>(w_ih, unit & ~7, lane, a_ih, h, d);
+    if (half == 0) load_a_fragments<W, MASKED>(w_hh, unit & ~7, lane, a_hh, h, h);
 #pragma unroll
-    for (int m = 0; m < 4; ++m) b4[m] = bias[m * H + unit_t];
+    for (int m = 0; m < 4; ++m) b4[m] = !MASKED || unit_t < h ? bias[m * h + unit_t] : 0.0f;
   } else {
-    load_gate_weights<W, T>(w_ih, unit, gate, w, H, D);
-    if (half == 0) load_gate_weights<W, T>(w_hh, unit, gate, wh, H, H);
-    b = bias[col];
+    load_gate_weights<W, T>(w_ih, unit, gate, w, h, d);
+    if (half == 0) load_gate_weights<W, T>(w_hh, unit, gate, wh, h, h);
+    b = !MASKED ? bias[col] : unit < h ? bias[gate * h + unit] : 0.0f;
   }
   __syncthreads();  // the mbarrier's init, the zeros
-  mbar_wait(x_bar);
-  if constexpr (PADDED) {
+  if (tma) mbar_wait(x_bar);
+  if constexpr (MASKED) {
+    // Value a thread into rows of W, zeros at columns d .. W - 1: from the
+    // contiguous copy, or (no TMA) straight from device memory.
+    const T* src = tma ? x_in : x + (size_t)row0 * steps * d;
+    for (int i = threadIdx.x; i < nrows * steps * W; i += 2 * COLS) {
+      const int r = i / W, k = i % W;
+      store_f(s_x + r * XPW + k, k < d ? load_f(src + r * d + k) : 0.0f);
+    }
+    __syncthreads();  // x in place; xp's space free again
+  } else if constexpr (PADDED) {
     // 16 bytes a thread: row i's chunk j from the contiguous copy to its padded row
     constexpr int CH = 16 / sizeof(T), ROW_CH = D / CH;
     for (int i = threadIdx.x; i < nrows * steps * ROW_CH; i += 2 * COLS)
@@ -514,8 +547,8 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   if constexpr (is_bf16<T>) {
     static_assert(R <= 4, "row r is column 2 r of an 8-column tile");
     float c_state = 0.0f;
-    const bool live = t4 < R, store = live && row0 + t4 < batch;
-    size_t at = (size_t)(row0 + t4) * steps * H + unit_t;  // (row, t, unit_t) of y and cprev
+    const bool live = t4 < R, store = live && row0 + t4 < batch && (!MASKED || unit_t < h);
+    size_t at = (size_t)(row0 + t4) * steps * h + unit_t;  // (row, t, unit_t) of y and cprev
     const float* xp_at = s_xp + t4 * xrf + unit_t * 4;     // step s at xp_at + s XPS
     float4 xp = live ? *reinterpret_cast<const float4*>(xp_at) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     // This lane's B row of h_{t-1} and the place of its h, swapped between
@@ -533,10 +566,10 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         const float gg = tanh_sig(g[1][0]), og = sigmoid(g[1][2]);
         if (TRAIN && store) cprev[at] = c_state;
         c_state = fg * c_state + ig * gg;
-        const float h = og * tanh_sig(c_state);
-        store_f(wr, h);
-        if (store) store_f(y + at, h);
-        at += H;
+        const float hv = og * tanh_sig(c_state);
+        store_f(wr, hv);
+        if (store) store_f(y + at, hv);
+        at += h;
       }
       const T* r0 = rd;
       rd = rd2, rd2 = r0;
@@ -554,8 +587,8 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     for (int r = 0; r < R; ++r) {
       c_state[r] = 0.0f;
       xp[r] = s_xp[r * xrf + p];
-      store[r] = gate == 0 && row0 + r < batch;
-      at[r] = (size_t)(row0 + r) * steps * H + unit;
+      store[r] = gate == 0 && row0 + r < batch && (!MASKED || unit < h);
+      at[r] = (size_t)(row0 + r) * steps * h + unit;
     }
     const float *h_prev = s_h, *h_prev2 = s_h + R * H;  // swapped before each barrier, as in bf16
     float *h_next = s_h + R * H, *h_next2 = s_h;
@@ -568,7 +601,7 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         for (int m = 0; m < 4; ++m) ph[r][m] = 0.0f;
         dot_parts<W>(ph[r], wh, h_prev + r * H, gate);
       }
-      float pre[R], act[R], ig[R], fg[R], gg[R], og[R], h[R];
+      float pre[R], act[R], ig[R], fg[R], gg[R], og[R], hv[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) act[r] = xp[r];
       if (s + 1 < steps)
@@ -583,13 +616,13 @@ lstm_fwd_short_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       for (int r = 0; r < R; ++r) {
         if (TRAIN && store[r]) cprev[at[r]] = c_state[r];
         c_state[r] = fg[r] * c_state[r] + ig[r] * gg[r];
-        h[r] = og[r] * tanh_sig(c_state[r]);
+        hv[r] = og[r] * tanh_sig(c_state[r]);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (gate == 0) h_next[r * H + unit] = h[r];
-        if (store[r]) y[at[r]] = h[r];
-        at[r] += H;
+        if (gate == 0) h_next[r * H + unit] = hv[r];
+        if (store[r]) y[at[r]] = hv[r];
+        at[r] += h;
       }
       const float* p0 = h_prev;
       h_prev = h_prev2, h_prev2 = p0;
@@ -606,15 +639,17 @@ int launch_rows(const void* x, const float* w_ih, const float* w_hh, const float
   const int blocks = (batch + R - 1) / R;
   if constexpr (W == 32 || W == 16) {
     if (short_path) {
-      if (steps > SHORT_MAX_STEPS || d != W || h != W) return (int)cudaErrorInvalidValue;
+      if (steps > SHORT_MAX_STEPS || d < 1 || h < 1 || d > W || h > W) return (int)cudaErrorInvalidValue;
       // The attribute is the card's opt-in limit, which the buffers at
-      // SHORT_MAX_STEPS and four fp32 rows stay under.
-      static SmemOnce once;
-      cudaError_t err = once.set(lstm_fwd_short_kernel<T, TRAIN, R, W>, 0);
+      // SHORT_MAX_STEPS and four fp32 rows stay under; a masked call's
+      // buffers are its capacity's.
+      static SmemOnce once, once_masked;
+      const bool square = d == W && h == W;
+      auto kernel = square ? lstm_fwd_short_kernel<T, TRAIN, R, W, false> : lstm_fwd_short_kernel<T, TRAIN, R, W, true>;
+      cudaError_t err = (square ? once : once_masked).set(kernel, 0);
       if (err != cudaSuccess) return (int)err;
-      lstm_fwd_short_kernel<T, TRAIN, R, W>
-          <<<blocks, 8 * W, fwd_short_smem_bytes<T, R, W>(steps), (cudaStream_t)stream>>>(
-              (const T*)x, w_ih, w_hh, bias, (T*)y, cprev, batch, steps);
+      kernel<<<blocks, 8 * W, fwd_short_smem_bytes<T, R, W>(steps), (cudaStream_t)stream>>>(
+          (const T*)x, w_ih, w_hh, bias, (T*)y, cprev, batch, steps, d, h);
       return (int)cudaGetLastError();
     }
   } else if (short_path) {
@@ -653,8 +688,8 @@ extern "C" {
 // x: (B, T, D) and y: (B, T, H) in the instantiation's type; w_ih: (4H, D),
 // w_hh: (4H, H) fp32, bias: (4H,) fp32; all contiguous on the current
 // device.  rows: batch rows per block, 1, 2 or 4.  short_path: 1 for the
-// short path (capacities 32 and 16 at D = H = W only, x 16-byte aligned, T
-// small enough for its buffers; the plan's), 0 for the ring.  Returns the cudaError_t of the
+// short path (capacities 32 and 16 at any D, H within them, x 16-byte
+// aligned, T small enough for its buffers; the plan's), 0 for the ring.  Returns the cudaError_t of the
 // launch (0 = launched).
 #define AWM_LSTM_FWD_ENTRY(NAME, TYPE, W)                                                        \
   int NAME(const void* x, const float* w_ih, const float* w_hh, const float* bias, void* y,     \

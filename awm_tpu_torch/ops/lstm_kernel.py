@@ -22,8 +22,12 @@ smallest capacity with max(D, H) <= W, the same for A, B and C: at D = H =
 W it is the square instantiation, else the same one with D and H passed at
 run time (its weights load zeros past the real widths, a padded unit stays
 exactly zero; counted as *_masked, e.g. lstm_bwd_f32_w48_masked at 40 x
-24), and the backward's dx, dW and sum run at the runtime widths (bf16 on
-the tensor cores; at capacity 48 at 48 x 48 too).  Capacity 48 sums in
+24), and the four-launch backward's dx, dW and sum run at the runtime
+widths (bf16 on the tensor cores; at capacity 48 at 48 x 48 too).  At
+capacities 32 and 16 a masked call at T <= 64 takes its square call's
+fused backward, and in bf16 its short forward (fp32's masked short forward
+is built and held, but measured slower than the masked ring, so the plan
+keeps the ring there: MASKED_SHORT_DTYPES), in the capacity's layout.  Capacity 48 sums in
 capacity 64's order less terms that are exactly zero (a quad of the gate
 products, four lanes of C's dh product), so a call gives the same bits at
 either.  Above 64 a call runs on a
@@ -77,11 +81,12 @@ finish the batch soonest, by the waves of blocks the card needs, at the
 blocks an SM runs at once (the clusters the card holds), and the measured
 cost of a step of that many rows at that width and path, so B=128 takes
 128 blocks of one row and B=512 128 blocks of four), the forward's path
-(fwd_short: the short path where D = H = 32 or 16 and T <= 64; else the
-ring or the cluster), the backward's path (bwd_fused: one launch where D =
-H = 32 or 16, T <= 64 and its blocks are resident at once: at 32 one block
-an SM, at 16 the blocks an SM the card's occupancy reading gives,
-fused_slots; else four),
+(fwd_short: the short path at capacities 32 and 16 and T <= 64, square
+or, in bf16, masked; else the ring or the cluster), the backward's path
+(bwd_fused: one launch at capacities 32 and 16, T <= 64, where its blocks
+are resident at once: at 32 one block an SM, at 16 the blocks an SM the
+card's occupancy reading of the call's instantiation, square or masked,
+gives, fused_slots; else four),
 its scratch shapes at the real G = 4H (on the cluster path a window's, with
 the gate pass's records) and its dx and dW grids.
 
@@ -188,7 +193,7 @@ KERNEL_TOL = {("lstm_fwd", "f32"): 1e-4, ("lstm_fwd", "bf16"): 5e-2,
 # Launches of each instantiation since import (or since a caller zeroed
 # them); chip_smoke.py reads them to show that the main paths went through
 # the kernels.  A call counts once: a forward call is one launch; a
-# backward call is one launch on the fused path (W = 32 and 16 where the
+# backward call is one launch on the fused path (capacities 32 and 16 where the
 # plan takes it) and four otherwise (the recurrence, dx, dW, the ordered sum).
 # One counter per path: square, masked (a capacity at runtime widths),
 # cluster and wide (a call counts once there too, whatever its windows): a
@@ -262,8 +267,9 @@ DW_CHUNK_ROWS = 2048  # rows of the (B*T) axis per dW chunk where rows are many
 DW_MIN_CHUNK_ROWS = 64  # least rows per chunk where they are few (T = 50)
 DW_MAX_CHUNKS = 256
 DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
-# The fused backward (lstm_bwd.cu, lstm_bwd_fused_kernel): the widths it is
-# instantiated for, the most T the plan sends to it (its rows' da and
+# The fused backward (lstm_bwd.cu, lstm_bwd_fused_kernel): the capacities it
+# is instantiated for (square and masked: any D, H within them, the capacity's
+# shared memory and partials), the most T the plan sends to it (its rows' da and
 # x_t | h_{t-1} stay in shared memory: 172.5 KB of the H100's 227 KB a block
 # at W = 32, T = 64, fp32, two rows; 78.5 KB at W = 16; the kernel asks the
 # card's limit, and a longer T fails at its launch), and the blocks an SM the
@@ -274,7 +280,8 @@ DX_TILE_ROWS = 32  # lstm_bwd.cu's DX_ROWS
 # block leaves room on its SM, as the ring's BLOCKS_PER_SM counts, so the
 # plan takes the blocks the card holds at once: fused_slots, the reading of
 # cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's shared memory
-# (_fused_slots, before any launch); where the grid is more, the four
+# for the call's instantiation, square or masked (_fused_slots, before any
+# launch; the masked one's registers differ); where the grid is more, the four
 # launches.  W = 32 keeps one block an SM: a reading of two there would move
 # B = 300 at T = 50 (150 blocks of two rows) onto the fused path, which
 # test_plan_fuses_the_strided_backward_in_one_wave and the width-32 step
@@ -285,16 +292,38 @@ FUSED_MAX_STEPS = 64
 FUSED_BLOCKS_PER_SM = 1
 # The forward's short path, kernels A and B (lstm_fwd.cu,
 # lstm_fwd_short_kernel: x in one TMA copy, every step's projection up
-# front, no ring): the widths it is instantiated for and the most T the
-# plan sends to it (the source's SHORT_MAX_STEPS; a longer T is refused at
-# the launch).  Its buffers grow with T: 166 KB at W = 32, T = 64 and four
-# fp32 rows (85 KB at W = 16), of the 227 KB one block may ask for on an
+# front, no ring): the capacities it is instantiated for (square and masked)
+# and the most T the plan sends to it (the source's SHORT_MAX_STEPS; a
+# longer T is refused at the launch).  Its buffers grow with T: 166 KB at
+# W = 32, T = 64 and four fp32 rows (85 KB at W = 16), of the 227 KB one block may ask for on an
 # H100.  Two of its blocks may share an SM where their shared memory fits,
 # but the plan counts one an SM at W = 32 (SHORT_STEP_COST's): two blocks of
 # two rows were slower than one of four (bf16, B=512) or as fast (fp32); at
 # W = 16 BLOCKS_PER_SM's four, as on the ring.
 SHORT_WIDTHS = (32, 16)
 FWD_SHORT_MAX_STEPS = 64
+# The operand types whose masked calls (any other D, H within those
+# capacities) the plan sends to the short path: bf16 only.  On an H100
+# (ops/bench_lstm.py --paths, device ms; PERF.md section 6) the masked
+# bf16 short path took A at 24 x 24, B=512, T=50 0.0145 ms against the
+# masked ring's 0.0163, B at B=128 0.01355 against 0.0138, and at 12 x 12
+# as long or less; the fp32 one took longer
+# than the ring at every shape timed (A at 24 x 24, B=512 0.0291 against
+# 0.0270; B at B=128 0.0152 against 0.0147; at 12 x 12, B=4 and 128, 3-8%
+# longer): its 50 steps on the CUDA cores are the call either way, and the
+# relayout of x into the capacity's rows comes on top.
+MASKED_SHORT_DTYPES = (torch.bfloat16,)
+
+
+def short_x_tma(steps: int, width: int, bf16: bool) -> bool:
+    """lstm_fwd.cu's short_x_tma: whether a masked short call brings x in
+    by the TMA copy (a row's T D values are whole 16-byte pieces, so every
+    block's span is 16-byte aligned at both ends) or by plain loads; either
+    way x lands in the capacity's padded rows, the same values in the same
+    places.  A square call always takes the TMA."""
+    return steps * width * (2 if bf16 else 4) % 16 == 0
+
+
 # Blocks of one instantiation an SM runs at once without slowing each other,
 # by (capacity, operand dtype); the plan's waves count sm_count x this.  One
 # where it is not measured: a W = 64 block holds the register file alone, and
@@ -611,7 +640,6 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         return _wide_plan(batch, steps, dtype, sm_count, width, hidden, bwd_rows, wide_slots)
     mm = matmul_dtype(dtype)
     cap = capacity(width, hidden)
-    square = width == hidden == cap
     if cap is None:
         k = -(-hidden // CLUSTER_UNITS)
         fwd_slots, bwd_slots = (dict(zip(CLUSTER_ROWS, s)) for s in
@@ -624,7 +652,8 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
             bwd_rows = rows_of(bwd_slots, CLUSTER_BWD_STEP_COST)
     else:
         k, slots = 0, sm_count * BLOCKS_PER_SM.get((cap, mm), 1)
-        fwd_short = square and cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+        fwd_short = (cap in SHORT_WIDTHS and steps <= FWD_SHORT_MAX_STEPS
+                     and (width == hidden == cap or mm in MASKED_SHORT_DTYPES))
         fwd_rows = _rows_per_block(batch, slots, (SHORT_STEP_COST if fwd_short else FWD_STEP_COST)[cap, mm])
         if bwd_rows is None:
             bwd_rows = _rows_per_block(batch, slots, BWD_STEP_COST[cap, mm])
@@ -633,7 +662,7 @@ def launch_plan(batch: int, steps: int, dtype: torch.dtype, sm_count: int,
         raise ValueError(f"backward rows per block are {allowed}, got {bwd_rows}")
     bwd_blocks = -(-batch // bwd_rows)
     bwd_fused = False
-    if square and cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS:
+    if cap in FUSED_WIDTHS and steps <= FUSED_MAX_STEPS:
         at_once = (sm_count * FUSED_BLOCKS_PER_SM if fused_slots is None
                    else dict(zip(BWD_ROWS, fused_slots))[bwd_rows])
         bwd_fused = bwd_blocks <= at_once
@@ -690,16 +719,18 @@ def _cluster_slots(device_index: int, dtype: torch.dtype, width: int, hidden: in
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_slots(device_index: int, dtype: torch.dtype, width: int, steps: int) -> tuple:
+def _fused_slots(device_index: int, dtype: torch.dtype, width: int, steps: int, masked: bool = False) -> tuple:
     """(Blocks of the fused backward at each of BWD_ROWS rows a block) the
-    card holds at once at D = H = width and T = steps: the SMs times
-    awm_lstm_bwd_fused_slots (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    at the call's dynamic shared memory, which grows with T), read once per
-    instantiation, rows and T; 0 where the card's opt-in limit refuses the
-    block's shared memory."""
+    card holds at once at capacity `width` and T = steps, of the square
+    instantiation (D = H = width) or the masked one (masked: its registers
+    may differ): the SMs times awm_lstm_bwd_fused_slots
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's dynamic
+    shared memory, which grows with T), read once per instantiation, rows
+    and T; 0 where the card's opt-in limit refuses the block's shared
+    memory."""
     lib, bf16 = libraries()["lstm_bwd"], int(matmul_dtype(dtype) == torch.bfloat16)
     with torch.cuda.device(device_index):
-        got = tuple(lib.awm_lstm_bwd_fused_slots(bf16, width, rows, steps) for rows in BWD_ROWS)
+        got = tuple(lib.awm_lstm_bwd_fused_slots(bf16, width, rows, steps, int(masked)) for rows in BWD_ROWS)
     if min(got) < 0:
         raise RuntimeError(f"awm_lstm_bwd_fused_slots: {lib.awm_cuda_error_string(-min(got)).decode()}")
     return tuple(n * _sm_count(device_index) for n in got)
@@ -752,8 +783,9 @@ def device_plan(batch: int, steps: int, dtype: torch.dtype, device_index: int, w
                 hidden: int | None = None, bwd_rows: int | None = None) -> LaunchPlan:
     """The plan of a call on card device_index, with the card's readings
     the path needs: the clusters it holds (the cluster path), the CTAs of a
-    row group (the wide path), the fused backward's blocks (FUSED_READ_WIDTHS
-    at D = H and T <= FUSED_MAX_STEPS)."""
+    row group (the wide path), the fused backward's blocks (capacities of
+    FUSED_READ_WIDTHS at T <= FUSED_MAX_STEPS, of the call's instantiation:
+    square or masked)."""
     hidden = hidden or width
     sm_count = _sm_count(device_index)
     if is_wide(width, hidden):
@@ -761,8 +793,8 @@ def device_plan(batch: int, steps: int, dtype: torch.dtype, device_index: int, w
                            wide_slots=_wide_slots(device_index, dtype, hidden))
     cap = capacity(width, hidden)
     slots = _cluster_slots(device_index, dtype, width, hidden) if cap is None else None
-    fused = (_fused_slots(device_index, dtype, cap, steps)
-             if width == hidden == cap and cap in FUSED_READ_WIDTHS and steps <= FUSED_MAX_STEPS else None)
+    fused = (_fused_slots(device_index, dtype, cap, steps, not width == hidden == cap)
+             if cap in FUSED_READ_WIDTHS and steps <= FUSED_MAX_STEPS else None)
     return launch_plan(batch, steps, dtype, sm_count, width, bwd_rows, hidden, slots, fused_slots=fused)
 
 
@@ -794,10 +826,10 @@ def libraries() -> dict[str, ctypes.CDLL]:
         wide = built["lstm_wide"][0]
         wide.awm_lstm_wide_shape.argtypes, wide.awm_lstm_wide_shape.restype = [i] * 5 + [ptr], ctypes.c_int
         wide.awm_lstm_wide_pack_elems.argtypes, wide.awm_lstm_wide_pack_elems.restype = [i] * 3, ctypes.c_longlong
-        for src, fn in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots"), ("lstm_bwd", "awm_lstm_bwd_cluster_slots"),
-                        ("lstm_bwd", "awm_lstm_bwd_fused_slots")):
+        for src, fn, n in (("lstm_fwd_cluster", "awm_lstm_fwd_cluster_slots", 4),
+                           ("lstm_bwd", "awm_lstm_bwd_cluster_slots", 4), ("lstm_bwd", "awm_lstm_bwd_fused_slots", 5)):
             lib = built[src][0]
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * 4, ctypes.c_int
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = [i] * n, ctypes.c_int
         for lib, _ in built.values():
             lib.awm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.awm_cuda_error_string.restype = ctypes.c_char_p
@@ -870,12 +902,12 @@ def _launch(lib_name: str, name: str, x: torch.Tensor, *args) -> None:
 def _forward_path(x: torch.Tensor, width: int, hidden: int, rows: int | None, short: bool | None) -> tuple:
     """(x, rows, short) of one forward launch: the plan's rows and path
     unless overridden (for tests and timing).  The short path's TMA copy
-    reads x from a 16-byte aligned address: a view at another offset is
-    copied (the outputs are fresh allocations, aligned)."""
+    reads x from a 16-byte aligned address (short_x_tma's calls): a view at
+    another offset is copied (the outputs are fresh allocations, aligned)."""
     plan = _plan_for(x, hidden)
     short = plan.fwd_short if short is None else short
-    if short and not (width == hidden and width in SHORT_WIDTHS):
-        raise ValueError(f"the forward's short path is compiled for widths D = H in {SHORT_WIDTHS}, "
+    if short and capacity(width, hidden) not in SHORT_WIDTHS:
+        raise ValueError(f"the forward's short path is compiled for capacities {SHORT_WIDTHS} (max(D, H) <= 32), "
                          f"got D = {width}, H = {hidden}")
     rows = rows or plan.fwd_rows
     if plan.cluster and rows not in CLUSTER_ROWS:
@@ -923,7 +955,7 @@ def forward_kernel(x, w_ih, w_hh, b, rows: int | None = None, short: bool | None
                    ctas: int | None = None, chunk: int | None = None) -> torch.Tensor:
     """Kernel A: (B, T, D) -> y (B, T, H) in x's dtype, on the card, D, H
     >= 1.  rows overrides the plan's rows per block (a row group on the
-    wide path), short its path (the short path at D = H = 32 or the ring),
+    wide path), short its path (the short path at capacities 32 and 16, or the ring),
     ctas the wide path's CTAs a row group (fewer than ceil(H / 16): tiled)
     and chunk the terms of its staged chunks of h (whole k-tiles, at most
     the row; the same bits at any chunk) (for tests and timing)."""
@@ -974,8 +1006,8 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     y and cprev are forward_train_kernel's outputs, dy is (B, T, H) in x's
     dtype (as autograd hands it to LSTMFunction.backward).  The outputs are
     not zero-filled: the kernels write every element.  The plan picks the
-    path: fused (D = H = 32 or 16), one cooperative launch with scratch for
-    one dW and db partial per block; else four launches with da (B, T, 4H) in the operand
+    path: fused (capacities 32 and 16), one cooperative launch with scratch for
+    one dW and db partial per block at the capacity; else four launches with da (B, T, 4H) in the operand
     type, chunk partials of dW and db per recurrent block; on the cluster
     and wide paths window by window from the last (lstm_bwd.cu's
     launch_cluster, lstm_wide.cu), the gate pass first, its scratch the
@@ -985,7 +1017,7 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     overrides the plan's rows per block of the recurrence (a row group on
     the wide path), ctas the wide path's CTAs a row group and chunk the
     terms of its staged chunks of da (whole k-tiles, at most the row; the
-    same bits at any chunk) and fused the path at D = H in FUSED_WIDTHS (True
+    same bits at any chunk) and fused the path at capacities of FUSED_WIDTHS (True
     the cooperative launch, which raises where the card does not hold its
     grid at once; False the four launches) (for tests and timing)."""
     width, hidden = _check_x_weights(x, w_ih, w_hh, b)
@@ -1000,8 +1032,8 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
     db = torch.empty(4 * hidden, **f32)
     if bsz == 0 or t == 0:
         return dx, dw_ih.zero_(), dw_hh.zero_(), db.zero_()
-    if fused and not (width == hidden and width in FUSED_WIDTHS):
-        raise ValueError(f"the fused backward is compiled for widths D = H in {FUSED_WIDTHS}, "
+    if fused and capacity(width, hidden) not in FUSED_WIDTHS:
+        raise ValueError(f"the fused backward is compiled for capacities {FUSED_WIDTHS} (max(D, H) <= 32), "
                          f"got D = {width}, H = {hidden}")
     w_ih, w_hh, b = _operands(w_ih, w_hh, b)
     plan = _plan_for(x, hidden, rows)
@@ -1027,9 +1059,10 @@ def backward_kernel(x, y, cprev, dy, w_ih, w_hh, b, rows: int | None = None, cta
         _launch("lstm_wide", name, x, *args, count.data_ptr(), bsz, t, width, hidden, plan.bwd_rows, ctas,
                 _chunk(chunk), plan.bwd_window, plan.n_chunks)
         return dx, dw_ih, dw_hh, db
-    if fused:
+    if fused:  # the partials at the capacity W, whatever D and H: (blocks, 4W 2W + 4W)
         da = db_part = None
-        part = torch.empty(plan.bwd_blocks, 4 * width * 2 * width + 4 * width, **f32)
+        cap = plan.capacity
+        part = torch.empty(plan.bwd_blocks, 4 * cap * 2 * cap + 4 * cap, **f32)
     else:
         da = torch.empty(plan.da_shape, dtype=plan.da_dtype, device=x.device)
         part = torch.empty(plan.part_shape, **f32)

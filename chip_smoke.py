@@ -43,7 +43,12 @@ width 16.  Phases:
    gives, where the plan takes the four launches and a forced cooperative
    launch raises; C twice for equal bits), one call each at the dry run's
    shape by the profiler's kernel list, and LSTMFunction's gradients of the
-   dry run's loss at width 16;
+   dry run's loss at width 16; then the masked instantiations of capacities
+   32 and 16 (MASKED_SMALL: 24 x 24, 17 x 17, 20 x 32, 32 x 20, 12 x 12, 9 x
+   3, T = 1, 17, 50, 64) on the short forward and the fused backward against
+   their plain versions, the masked ring's bits and the zero-padded square
+   call's (masked_small_checks), the batch just past the fused grid and a
+   forced launch past the card's reading, one kernel a call;
 4. the serving path, launch counters zeroed just before: fp32 session vs
    the JAX package's golden outputs, the bf16 session's watermark_array ->
    detect_array -> verify_array on an 8-s waveform, and its embed_detect on
@@ -60,7 +65,9 @@ width 16.  Phases:
    at D = H = 256, B = 512, T = 16000 in windows, against plain in row
    slices (cluster_scale_check); the base family at channels 48, 128 and
    512 (sessions, train steps) against the CPU, counters zeroed just
-   before;
+   before; the strided family at hidden_dim 24 (two LSTM(24): capacity 32
+   masked, on the short forward and the fused backward) the same way,
+   counters zeroed just before (strided_hidden_family);
 5. the train path, counters zeroed just before: one fp32 train_step vs the
    JAX package's train golden (terms, gradient norms, BatchNorm
    statistics), then ``python -m awm_tpu_torch train`` in process (bf16,
@@ -172,7 +179,12 @@ width 16.  Phases:
    dtype, with peak memory and a profile of one bf16 step; the width-16
    kernels at the dry run's (B, T) = (4, 32) and at (128, 50) on both paths
    (the plan's short and fused, and the ring and four launches) beside their
-   plain versions, nn.LSTM(16) and the bounds;
+   plain versions, nn.LSTM(16) and the bounds; 12 x 12 (capacity 16 masked)
+   at the same shapes and 24 x 24 (capacity 32 masked) at the strided
+   family's (A at B=512, B and C at B=128, T=50), on both paths alike;
+   every T=50-scale row's device ms by the profiler and, beside it, by
+   queued_ms (the calls queued behind a spin kernel between two events: no
+   profiler, so a window the profiler returns empty is measured too);
 16a. where the train step's peak memory goes (memory_phase): one bf16 step
    of the bench's base preset at B=256 under torch.cuda.memory's history
    with C++ stacks, the blocks live at its peak by the port's innermost
@@ -183,11 +195,13 @@ width 16.  Phases:
    gradients), the most of cuDNN's workspace and copies live at once in the
    backward, and the bytes autograd saves, BatchNorm's share of them; then
    the same preset's bf16 step at B=512 (its peak memory and time);
-17. print the {"kernels": [...]} line (42 instantiations: widths 64, 48
+17. print the {"kernels": [...]} line (54 instantiations: widths 64, 48
    (capacity 48's squares, A, B and C), 32 and 16, A, B and C masked on
-   capacity 64 at 56, cluster 128, wide 512; the width-32
+   capacity 64 at 56, on 32 at 24 and on 16 at 12, cluster 128, wide 512;
+   the width-32
    forward ones with their path and every width-32 one with its fit; the
-   width-16 ones at the dry run's shape, with their times at (128, 50)),
+   width-16 and 12 x 12 ones at the dry run's shape, with their times at
+   (128, 50)),
    one line with the card, the wall and every phase's seconds, and last the
    {"ok": true, ...} line.
 
@@ -238,10 +252,31 @@ W16 = 16
 W16_SHAPES = ((1, 1), (7, 1), (2, 32), (4, 32), (7, 17), (7, 50), (B_TRAIN, 50))
 W16_EDGE = ((3, 64), (7, 64), (3, 65), (7, 65))  # the short and fused paths' bound of 64 steps and one past it
 DRY_B, DRY_T = 4, 32
+# Masked within capacities 32 and 16 (max(D, H) <= 32, not a capacity's
+# square), which at T <= 64 take the short forward and the fused backward as
+# the square calls do.  Phase 3 (masked_small_checks) holds every such
+# instantiation at MASKED_SMALL x MASKED_SMALL_T, B = MASKED_SMALL_B (a
+# ragged last block), rows 1, 2 and 4 (C: 1 and 2): against the plain
+# versions; A and B with the masked ring's bits and the square call's on
+# operands zero-padded to the capacity; C twice the same bits, at capacity
+# 32 the padded square call's bits, at 16 its recurrence's db the masked four
+# launches' (see masked_small_checks); the batch just past the fused grid
+# (four launches) and a cooperative launch forced past the card's reading
+# (raises); one call, one kernel.  Phase 16 times MASKED32 x MASKED32 at T32
+# (A B_SERVE, B and C B_TRAIN) and MASKED16 x MASKED16 at (DRY_B, DRY_T) and
+# (B_TRAIN, T32), each on both paths.  Phase 4b drives the strided family at
+# hidden_dim STRIDED_HIDDEN (two LSTM(24, 24) over 50 steps a chunk:
+# capacity 32 masked) through the session and the train step.
+MASKED_SMALL = ((24, 24), (17, 17), (20, 32), (32, 20), (12, 12), (9, 3))
+MASKED_SMALL_T = (1, 17, 50, 64)
+MASKED_SMALL_B = 7
+MASKED32, MASKED16 = 24, 12  # the kernel table's *_w32_masked and *_w16_masked rows
+STRIDED_HIDDEN = 24
 # The width-16 instantiations that no path of the port runs (the dry run's
 # gradient check is fp32, through LSTMFunction: kernels B and C): phase 3
 # holds them against their plain versions and phase 16 times them; the
-# check that every kernel launched on a main path leaves them out.
+# check that every kernel launched on a main path leaves them out (with the
+# masked counters of capacities 64, 48 and 16: below).
 OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", "lstm_bwd_bf16_w16")
 # The widths phase (4b, widths_phase): kernels A, B and C at the widths the
 # kernels take masked or on capacity 48 (48 x 48, the base family at
@@ -257,8 +292,9 @@ OFF_PATH = ("lstm_fwd_f32_w16", "lstm_fwd_bf16_w16", "lstm_fwd_train_bf16_w16", 
 # then the base family at channels 48 and 128 through the
 # session (64 chunks) and the train step (B=32), from
 # checkpoint.seeded_flax_tree weights.  The masked
-# instantiations of every capacity, 64 (49..63), 48, 32 and 16, run on no
-# main path: OFF_PATH.
+# instantiations of capacities 64 (49..63), 48 and 16 run on no main path
+# (OFF_PATH); capacity 32's run on the strided family at hidden_dim
+# STRIDED_HIDDEN (phase 4b).
 # The wide path past 256 (lstm_wide.cu): A, B and C at WIDE_PATH_WIDTHS (one
 # unit past the cluster path, the base family at channels 320 and 512, 1024,
 # D != H both ways) against their plain versions at B=3, T=512; the unit
@@ -306,8 +342,8 @@ WIDE_CHUNKS, WIDE_B = 64, 32  # the session's chunks, the train step's batch
 # times the conv widths make about 1.5 GiB a clip, twice that in fp32.
 WIDE_PATH_B = 8
 WIDE_HOLD_T, WIDE_HOLD_CHUNKS = 1600, 2  # the card-vs-CPU holds' clip length, session chunks
-OFF_PATH += tuple(f"{k}_{sfx}_w{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
-                  for sfx in ("f32", "bf16") for w in (32, 16))
+OFF_PATH += tuple(f"{k}_{sfx}_w16_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+                  for sfx in ("f32", "bf16"))
 OFF_PATH += tuple(f"{k}_{sfx}{w}_masked" for k in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
                   for sfx in ("f32", "bf16") for w in ("_w48", ""))
 # The base family at channels 48 and 128 on the card against the port's own
@@ -327,7 +363,7 @@ WIDE_SESSION_TOL = {"float32": {"wm_prob": 1e-4, "clean_prob": 1e-4, "msg_logit_
                     "bfloat16": {"wm_prob": 2e-2, "clean_prob": 2e-2, "msg_logit_mean": 5e-2,
                                  "msg_vote_frac": 5e-2, "delta_rms": 2e-2}}
 WIDE_TRAIN_TOL = {"float32": {"terms": 1e-4, "drift": 5e-3}, "bfloat16": {"terms": 5e-2, "drift": 2e-1}}
-WIDE_GROUPS = {"gen.lstm": r"^gen\.lstm\.", "gen, the rest": r"^gen\.(?!lstm\.)", "det": r"^det\."}
+WIDE_GROUPS = {"gen.lstm": r"^gen\.lstm\d*\.", "gen, the rest": r"^gen\.(?!lstm\d*\.)", "det": r"^det\."}
 # Kernels B and C at width 64 in the dry run's train step (entry.dryrun_multichip):
 # each rank's 4 of the 2n = 8 clips (n = 4 ranks, data axis 2) at
 # entry.AUDIO_LEN = 512 samples, held with the training shapes in phase 3.
@@ -424,12 +460,12 @@ KERNELS: dict[str, Kernel] = {}  # by instantiation name, filled by kernel_table
 
 def kernel_table(K) -> dict[str, Kernel]:
     """Every compiled instantiation, named by lstm_kernel.instantiation, at
-    the first width of the list that runs it (capacity 64 at runtime
-    widths: MASKED64)."""
+    the first width of the list that runs it (capacities 64, 32 and 16 at
+    runtime widths: MASKED64, MASKED32, MASKED16)."""
     import torch
 
     table = {}
-    for w in (*K.WIDTHS, *BASE_CHANNELS, WIDE_CHANNELS, MASKED64):
+    for w in (*K.WIDTHS, *BASE_CHANNELS, WIDE_CHANNELS, MASKED64, MASKED32, MASKED16):
         for kernel in K.KERNELS:
             for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
                 name = K.instantiation(kernel, dtype, w)
@@ -640,7 +676,53 @@ def device_split(call, parts: dict[str, str], reps: int) -> dict[str, float | No
                  for part, frag in parts.items()}
         if None not in split.values():
             break
+    else:
+        missing = [frag for part, frag in parts.items() if split[part] is None]
+        print(f"device_split: {missing} in none of 3 traces of {reps} calls; the last held "
+              f"{[(key[:60], round(ms, 5)) for key, ms in means.items()]}; {trace_events(call)}", flush=True)
     return split
+
+
+def trace_events(call) -> str:
+    """What one more trace of one call holds, by kind: its events, the CPU
+    side's kernel launches, the device's kernels (a trace the profiler
+    returns empty of device work shows which side is missing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum("Launch" in e.name for e in events)
+    device = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+    return f"one more trace: {len(events)} events, {launches} launch calls, {device} device kernels"
+
+
+def queued_ms(call, reps: int = 50) -> float:
+    """Device ms of one call with the host's time taken out, by CUDA events
+    alone: a spin kernel (torch.cuda._sleep) holds the stream while the host
+    queues reps calls between two events, so the card runs them back to back
+    (the launch gaps between its kernels included).  The spin is doubled
+    until the start event is still unreached once every call is queued.  No
+    profiler: a window the profiler returns empty is measured all the same."""
+    import torch
+
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin = 1 << 22
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued or spin > 1 << 32:
+            return start.elapsed_time(end) / reps
+        spin *= 2
 
 
 def lstm_device_ms(call, reps: int = 50) -> float | None:
@@ -1477,75 +1559,91 @@ def width32_checks(K, dev, max_err, max_rel) -> None:
               f"B={ODD_B} T={T32}: max rel err {max(rels):.2e} (x {rels[0]:.2e}; tol {FUNCTION_TOL[sfx]:.0e})")
 
 
-def lstm_times(K, dtype, b: int, t: int, w: int, dev, clock_mhz: float) -> dict:
-    """Phase 16 at one (B, T) and width: kernels A, B and C a call (CUDA
-    events over 200 calls) and on the device (torch.profiler), their plain
-    versions, torch.nn.LSTM (cuDNN, the yardstick only), the bound and the
-    least time of t dependent steps; each printed.  {name: row}."""
+def lstm_times(K, dtype, b: int, t: int, w: int, dev, clock_mhz: float, b_fwd: int | None = None) -> dict:
+    """Phase 16 at one (B, T) and width D = H = w (capacity 32 or 16, square
+    or masked): kernels A (at b_fwd rows where given), B and C a call (CUDA
+    events over 200 calls) and on the device (torch.profiler, and queued_ms
+    beside it), each also on
+    the path the plan does not take (the ring beside the short forward, or
+    the short beside the ring where the plan keeps a masked fp32 forward
+    there; the four launches beside the fused backward), their plain versions,
+    torch.nn.LSTM (cuDNN, the yardstick only), the bound and the least time
+    of t dependent steps of the capacity's chain; each printed.  {name:
+    row}."""
     import torch
 
     from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_train
     from awm_tpu_torch.utils.precision import no_tf32
 
     name, fname, bname = (K.instantiation(k, dtype, w) for k in K.KERNELS)
+    b_fwd = b_fwd or b
     x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=60 + b + t, t=t, w=w)
+    xa = lstm_inputs(b_fwd, dtype, dev, seed=61 + b_fwd + t, t=t, w=w)[0] if b_fwd != b else x
     timed = lambda fn: cuda_ms(fn, reps=200, warmup=20)
     with no_tf32():
         y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
-        calls = {name: lambda: K.forward_kernel(x, w_ih, w_hh, bias),
+        calls = {name: lambda: K.forward_kernel(xa, w_ih, w_hh, bias),
                  fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias),
                  bname: lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias)}
-        plains = {name: lambda: lstm_forward(x, w_ih, w_hh, bias),
+        plains = {name: lambda: lstm_forward(xa, w_ih, w_hh, bias),
                   fname: lambda: lstm_forward_train(x, w_ih, w_hh, bias),
                   bname: lambda: lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)}
         plan = K.device_plan(b, t, dtype, dev.index or 0, w)
         fused = plan.bwd_fused
         dev_ms = {name: lstm_device_ms(calls[name]), fname: lstm_device_ms(calls[fname]),
                   bname: split_total(backward_split(calls[bname], fused, reps=50))}
-        # width 16: the other path of each (the ring, the four launches) beside the plan's
+        # the other path of each (the ring or the short forward, the four launches) beside the plan's
         other = {}
-        if w == W16 and plan.fwd_short and fused:
-            ring = {name: lambda: K.forward_kernel(x, w_ih, w_hh, bias, short=False),
-                    fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, short=False)}
-            four = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, fused=False)
+        if t <= K.FWD_SHORT_MAX_STEPS:
+            flip = not plan.fwd_short
+            ring = {name: lambda: K.forward_kernel(xa, w_ih, w_hh, bias, short=flip),
+                    fname: lambda: K.forward_train_kernel(x, w_ih, w_hh, bias, short=flip)}
             for n, fn in ring.items():
-                other[n] = {"path": "ring", "ms": timed(fn), "device_ms": lstm_device_ms(fn)}
+                other[n] = {"path": "short" if flip else "ring", "ms": timed(fn), "device_ms": lstm_device_ms(fn),
+                            "queued_ms": queued_ms(fn)}
+        if fused:
+            four = lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, fused=False)
             other[bname] = {"path": "four launches", "ms": timed(four),
-                            "device_ms": split_total(backward_split(four, False, reps=50))}
+                            "device_ms": split_total(backward_split(four, False, reps=50)), "queued_ms": queued_ms(four)}
         m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
         xg = x.clone().requires_grad_()
         with torch.inference_mode():
-            lib = {name: yardstick(lambda: timed(lambda: m(x)), f"nn.LSTM({w}) {dtype}")}
+            lib = {name: yardstick(lambda: timed(lambda: m(xa)), f"nn.LSTM({w}) {dtype}")}
         lib[fname] = yardstick(lambda: timed(lambda: m(xg)), f"nn.LSTM({w}) {dtype} forward")
         ylib = m(xg)[0]
         lib[bname] = yardstick(lambda: timed(lambda: torch.autograd.grad(
             ylib, [xg, *m.parameters()], dy, retain_graph=True)), f"nn.LSTM({w}) {dtype} backward")
         rows = {}
         for n in (name, fname, bname):
-            bms, by = bound_ms(n, b, t)
+            bn = b_fwd if n == name else b
+            bms, by = bound_ms(n, bn, t)
             rows[n] = {"ms": timed(calls[n]), "plain_ms": cuda_ms(plains[n], reps=5), "bound_ms": bms,
-                       "bound_by": by, "library_ms": lib[n], "device_ms": dev_ms[n],
-                       "latency_bound_ms": latency_bound_ms(t, w, clock_mhz)}
+                       "bound_by": by, "library_ms": lib[n], "device_ms": dev_ms[n], "queued_ms": queued_ms(calls[n]),
+                       "latency_bound_ms": latency_bound_ms(t, K.capacity(w), clock_mhz)}
             if n in other:
                 rows[n]["other_path"] = other[n]
-            print(f"{n} B={b} T={t}: kernel {rows[n]['ms']:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the "
-                  f"device), plain {rows[n]['plain_ms']:.2f} ms, cuDNN nn.LSTM({w}) {lib[n]} ms, bound {bms:.5f} "
-                  f"ms ({by}), {t} dependent steps >= {rows[n]['latency_bound_ms']:.5f} ms at {clock_mhz:.0f} MHz"
+            print(f"{n} B={bn} T={t}: kernel {rows[n]['ms']:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the "
+                  f"device, {rows[n]['queued_ms']:.4f} ms queued), plain {rows[n]['plain_ms']:.2f} ms, cuDNN "
+                  f"nn.LSTM({w}) {lib[n]} ms, bound {bms:.5f} ms ({by}), {t} dependent steps >= "
+                  f"{rows[n]['latency_bound_ms']:.5f} ms at {clock_mhz:.0f} MHz"
                   + (f"; on the {other[n]['path']} path {other[n]['ms']:.4f} ms a call "
-                     f"({fmt_ms(other[n]['device_ms'])} on the device)" if n in other else ""),
+                     f"({fmt_ms(other[n]['device_ms'])} on the device, {other[n]['queued_ms']:.4f} ms queued)"
+                     if n in other else ""),
                   flush=True)
     return rows
 
 
-def fused_edge(K, dtype, t: int, dev) -> int:
-    """The least batch whose width-16 backward at T = t the plan sends to
-    the four launches on this card, the batch before it fused: just past the
-    grid the card's occupancy reading holds (lstm_kernel._fused_slots)."""
+def fused_edge(K, dtype, t: int, dev, w: int = W16, h: int | None = None) -> int:
+    """The least batch whose backward at widths (w, h) (default 16 x 16)
+    and T = t the plan sends to the four launches on this card, the batch
+    before it fused: just past the grid the plan counts on (at capacity 16
+    the card's occupancy reading of the call's instantiation,
+    lstm_kernel._fused_slots; at 32 one block an SM)."""
     for b in range(2, 1 << 16):
-        if not K.device_plan(b, t, dtype, dev.index or 0, W16).bwd_fused:
-            if K.device_plan(b - 1, t, dtype, dev.index or 0, W16).bwd_fused:
+        if not K.device_plan(b, t, dtype, dev.index or 0, w, h).bwd_fused:
+            if K.device_plan(b - 1, t, dtype, dev.index or 0, w, h).bwd_fused:
                 return b
-    raise RuntimeError(f"no width-16 batch past the fused grid at T={t}")
+    raise RuntimeError(f"no batch past the fused grid at {w} x {h or w}, T={t}")
 
 
 def width16_checks(K, dev, max_err, max_rel) -> None:
@@ -1668,6 +1766,133 @@ def width16_checks(K, dev, max_err, max_rel) -> None:
               f"LSTMFunction {sfx} width 16, the dry run's loss at B={DRY_B} T={DRY_T}, grads vs autograd of "
               f"the plain forward: max rel err {max(rels):.2e} (tol {FUNCTION_TOL[sfx]:.0e}), dx max abs "
               f"{dx_err:.2e}")
+
+
+def masked_small_checks(K, dev, max_err, max_rel) -> None:
+    """Phase 3, masked within capacities 32 and 16 (MASKED_SMALL): at every
+    T of MASKED_SMALL_T, B = MASKED_SMALL_B, A and B on the short path at
+    rows 1, 2 and 4 against plain, with the masked ring's bits and the bits
+    of the square short call on operands zero-padded to the capacity (its
+    padded outputs exactly 0); C on the fused path at rows 1 and 2 against
+    plain, twice the same bits, the padded square call's padded outputs
+    exactly 0; at capacity 32 the padded square fused call's bits in every
+    output, at capacity 16 db the masked four launches' bits (the fused
+    recurrence's da is theirs, and both sum the blocks in order).  At capacity
+    16 the square fused kernel's own recurrence rounds a few gates in the last
+    bit unlike its four-launch recurrence, so its padded call is no bit
+    reference there (PERF.md section 6).  Then the batch just past the
+    fused grid at T32 takes the four launches, against plain, and a
+    cooperative launch forced one block past the card's reading of the
+    masked instantiation raises; one call each of A, B and C at MASKED32 (B
+    = B_TRAIN) and MASKED16 (the dry run's shape) runs one kernel and
+    nothing beside it.  Fills max_err / max_rel."""
+    import torch
+    import torch.nn.functional as F
+
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    idx, b = dev.index or 0, MASKED_SMALL_B
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        worst, rel = {}, {}
+        held = dict.fromkeys(("paths", "ring", "padded", "zeros", "twice", "c_padded", "c_db"), True)
+        for d, h in MASKED_SMALL:
+            cap = K.capacity(d, h)
+            name, fname, bname = (K.instantiation(k, dtype, d, h) for k in K.KERNELS)
+            for t in MASKED_SMALL_T:
+                x, w_ih, w_hh, bias, dy = lstm_inputs(b, dtype, dev, seed=6000 + 100 * d + h + t, t=t, w=d, h=h)
+                xp, wi, wh, bp = padded_to(x, w_ih, w_hh, bias, h, cap)
+                plan = K.device_plan(b, t, dtype, idx, d, h)
+                held["paths"] &= plan.bwd_fused and plan.fwd_short == (dtype in K.MASKED_SHORT_DTYPES)
+                with no_tf32():
+                    ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                    ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                    for rows in K.FWD_ROWS:
+                        y0 = K.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+                        y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+                        ring = K.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=False)
+                        pad = K.forward_train_kernel(xp, wi, wh, bp, rows=rows, short=True)
+                        worst[name] = max(worst.get(name, 0.0), max_abs(y0, ref_y))
+                        worst[fname] = max(worst.get(fname, 0.0), max_abs(y, ref_y), max_abs(cprev, ref_c))
+                        held["ring"] &= torch.equal(y0, y) and torch.equal(y, ring[0]) and torch.equal(cprev, ring[1])
+                        held["padded"] &= torch.equal(y, pad[0][..., :h]) and torch.equal(cprev, pad[1][..., :h])
+                        held["zeros"] &= h == cap or (float(pad[0][..., h:].float().abs().max()) == 0.0
+                                                      and float(pad[1][..., h:].abs().max()) == 0.0)
+                    ypad, cpad, dypad = (F.pad(v, (0, cap - h)) for v in (ref_y, ref_c, dy))
+                    for rows in K.BWD_ROWS:
+                        g = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=True)
+                        again = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=True)
+                        padg, zero = unpadded_grads(
+                            K.backward_kernel(xp, ypad, cpad, dypad, wi, wh, bp, rows=rows, fused=True), d, h, cap)
+                        held["twice"] &= all(torch.equal(a, a2) for a, a2 in zip(g, again))
+                        held["zeros"] &= zero
+                        if cap == 32:
+                            held["c_padded"] &= all(torch.equal(a, p) for a, p in zip(g, padg))
+                        else:
+                            four = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=False)
+                            held["c_db"] &= torch.equal(g[3], four[3])
+                        rel[bname] = max(rel.get(bname, 0.0), *(rel_err(a, r) for a, r in zip(g, ref_g)))
+                        worst[bname] = max(worst.get(bname, 0.0), *(max_abs(a, r) for a, r in zip(g, ref_g)))
+        torch.cuda.synchronize()
+        shapes = f"(D, H) in {MASKED_SMALL}, T in {MASKED_SMALL_T}, B={b}"
+        for n in sorted(worst):
+            tol = KERNELS[n].tol
+            if n.startswith("lstm_bwd"):
+                check(rel[n] <= tol and held["twice"],
+                      f"{n} fused vs plain, rows 1 and 2, {shapes}: max rel err {rel[n]:.3e} (tol {tol:.0e}), "
+                      f"two runs the same bits: {held['twice']}")
+                max_err[n], max_rel[n] = worst[n], rel[n]
+            else:
+                check(worst[n] <= tol, f"{n} short vs plain, rows 1, 2, 4, {shapes}: max abs err {worst[n]:.3e} "
+                                       f"(tol {tol:.0e})")
+                max_err[n] = worst[n]
+        check(all(held.values()), f"masked {sfx} at capacities 32 and 16, {shapes}: the plan's fused backward "
+                                  f"and {'short' if dtype in K.MASKED_SHORT_DTYPES else 'ring'} forward "
+                                  f"{held['paths']}; A and B short with the masked ring's bits {held['ring']} "
+                                  f"and the zero-padded square call's {held['padded']}; every padded output 0 "
+                                  f"{held['zeros']}; C at 32 the padded square fused call's bits {held['c_padded']}, "
+                                  f"at 16 db the masked four launches' {held['c_db']}")
+
+        # the batch just past the fused grid, and a cooperative launch forced past the card's reading
+        for w in (MASKED32, MASKED16):
+            cap, bname = K.capacity(w), K.instantiation("lstm_bwd", dtype, w)
+            edge = fused_edge(K, dtype, T32, dev, w)
+            x, w_ih, w_hh, bias, dy = lstm_inputs(edge, dtype, dev, seed=6500 + w, t=T32, w=w)
+            with no_tf32():
+                ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+                ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+                g = K.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+            edge_rel = max(rel_err(a, r) for a, r in zip(g, ref_g))
+            reading = K._fused_slots(idx, dtype, cap, T32, True)
+            x, w_ih, w_hh, bias, dy = lstm_inputs(reading[0] + 1, dtype, dev, seed=6501 + w, t=T32, w=w)
+            refused = []
+            with no_tf32():
+                y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+                try:
+                    K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1, fused=True)
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    refused.append(reading[0] + 1)
+            plan = K.device_plan(edge, T32, dtype, idx, w)
+            check(not plan.bwd_fused and K.device_plan(edge - 1, T32, dtype, idx, w).bwd_fused
+                  and edge_rel <= KERNELS[bname].tol and refused == [reading[0] + 1],
+                  f"{bname} at {w} x {w}, T={T32}: B={edge - 1} fused, B={edge} four launches at {plan.bwd_rows} "
+                  f"row(s) a block (max rel err {edge_rel:.2e}); the card holds {reading} masked fused blocks at "
+                  f"1 / 2 rows, and a cooperative launch forced at B={reading[0] + 1}, one row a block, raised: "
+                  f"{refused}")
+
+        # one call, one kernel (the plan's: the ring for fp32's forward, MASKED_SHORT_DTYPES)
+        for w, bb, t in ((MASKED32, B_TRAIN, T32), (MASKED16, DRY_B, DRY_T)):
+            x, w_ih, w_hh, bias, dy = lstm_inputs(bb, dtype, dev, seed=6600 + w, t=t, w=w)
+            y, cprev = K.forward_train_kernel(x, w_ih, w_hh, bias)
+            fwd = (fwd_kernel_name(K.device_plan(bb, t, dtype, idx, w)),)
+            for label, call, want in (
+                    ("A", lambda: K.forward_kernel(x, w_ih, w_hh, bias), fwd),
+                    ("B", lambda: K.forward_train_kernel(x, w_ih, w_hh, bias), fwd),
+                    ("C", lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), ("lstm_bwd_fused_kernel",))):
+                ok, seen = launched_alone(call, want)
+                check(ok, f"masked {w} x {w} {sfx} {label} B={bb} T={t}, fp32 weights: one call launches "
+                          f"1 kernel ({want[0]}) and nothing else: {seen}")
 
 
 def seeded_nets(cfg, seed: int, dev=None):
@@ -2305,25 +2530,24 @@ def parallel_phase(K, launches, cli, dev, work: str, audio_len=None) -> dict:
     return numbers
 
 
-def padded_to_64(x, w_ih, w_hh, bias, h: int):
-    """x, W_ih, W_hh and b of LSTM(d, h) zero-padded to LSTM(64, 64): each
-    gate's h rows (and the columns) to 64."""
+def padded_to(x, w_ih, w_hh, bias, h: int, cap: int = 64):
+    """x, W_ih, W_hh and b of LSTM(d, h) zero-padded to LSTM(cap, cap): each
+    gate's h rows (and the columns) to cap."""
     import torch.nn.functional as F
 
     d = x.shape[2]
-    pad = lambda w, cols: F.pad(w.view(4, h, cols), (0, 64 - cols, 0, 64 - h)).reshape(256, 64)
-    return (F.pad(x, (0, 64 - d)), pad(w_ih, d), pad(w_hh, h), F.pad(bias.view(4, h), (0, 64 - h)).reshape(256))
+    pad = lambda w, cols: F.pad(w.view(4, h, cols), (0, cap - cols, 0, cap - h)).reshape(4 * cap, cap)
+    return (F.pad(x, (0, cap - d)), pad(w_ih, d), pad(w_hh, h),
+            F.pad(bias.view(4, h), (0, cap - h)).reshape(4 * cap))
 
 
-def unpadded_grads(grads, d: int, h: int) -> tuple[tuple, bool]:
-    """Kernel C's (dx, dW_ih, dW_hh, db) of a call on padded_to_64's
-    operands sliced back to LSTM(d, h), and whether every padded entry is
-    exactly 0."""
+def unpadded_grads(grads, d: int, h: int, cap: int = 64) -> tuple[tuple, bool]:
+    """Kernel C's (dx, dW_ih, dW_hh, db) of a call on padded_to's operands
+    sliced back to LSTM(d, h), and whether every padded entry is exactly 0."""
     dx, dw_ih, dw_hh, db = grads
-    wi, wh, b = dw_ih.view(4, 64, 64), dw_hh.view(4, 64, 64), db.view(4, 64)
-    zero = (float(dx[..., d:].float().abs().max()) == 0.0 and float(wi[:, h:].abs().max()) == 0.0
-            and float(wi[:, :, d:].abs().max()) == 0.0 and float(wh[:, h:].abs().max()) == 0.0
-            and float(wh[:, :, h:].abs().max()) == 0.0 and float(b[:, h:].abs().max()) == 0.0)
+    wi, wh, b = dw_ih.view(4, cap, cap), dw_hh.view(4, cap, cap), db.view(4, cap)
+    nothing = lambda v: v.numel() == 0 or float(v.float().abs().max()) == 0.0
+    zero = all(nothing(v) for v in (dx[..., d:], wi[:, h:], wi[:, :, d:], wh[:, h:], wh[:, :, h:], b[:, h:]))
     return (dx[..., :d], wi[:, :h, :d].reshape(4 * h, d), wh[:, :h, :h].reshape(4 * h, h),
             b[:, :h].reshape(4 * h)), zero
 
@@ -2400,7 +2624,7 @@ def wide_checks(K, dev, max_err, max_rel) -> None:
                                                                    for r, e, same in by_rows)
                       + f" vs plain (tol {tol_c:.0e})")
             if (d, h) in PADDED_CHECKS:
-                padded = padded_to_64(x, w_ih, w_hh, bias, h)
+                padded = padded_to(x, w_ih, w_hh, bias, h)
                 y64 = K.forward_kernel(*padded)
                 yt64, c64 = K.forward_train_kernel(*padded)
                 held = (torch.equal(y0, y64[..., :h]) and torch.equal(y, yt64[..., :h])
@@ -3072,6 +3296,148 @@ def grad_groups(state) -> dict:
     return out
 
 
+def family_holds(K, dev, label: str, nets, cfg_of, b: int, data: tuple, shaping=None) -> dict:
+    """One family's runs on the card from the weights `nets` (the
+    (generator, detector) pair): an embed+detect session of its chunks at
+    bf16 and fp32, the first WIDE_HOLD_CHUNKS held against the CPU session
+    (WIDE_SESSION_TOL); one train step at B = b, T = 16000 (finite terms),
+    and one at that B, T = WIDE_HOLD_T, held against the same step on the
+    CPU (WIDE_TRAIN_TOL).  cfg_of(compute dtype name) gives the config;
+    data = (chunks, messages, train clips, hold clips, train messages).
+    Returns the errors by run."""
+    import torch
+
+    from awm_tpu_torch import api
+    from awm_tpu_torch import train as tr
+    from awm_tpu_torch.utils.precision import no_tf32
+
+    chunks, msgs, clips, hold, tmsg = data
+    clips, hold, tmsg = clips[:b], hold[:b], tmsg[:b]
+    errs = {}
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        with no_tf32():
+            card = api.InferenceSession(*nets, compute_dtype=dt, shaping=shaping, device=dev).embed_detect(chunks, msgs)
+            cpu = api.InferenceSession(*nets, compute_dtype=dt, shaping=shaping, device="cpu").embed_detect(
+                chunks[:WIDE_HOLD_CHUNKS], msgs[:WIDE_HOLD_CHUNKS])
+        e = {k: float(np.abs(card[k][:WIDE_HOLD_CHUNKS] - cpu[k]).max()) for k in cpu}
+        e["delta_rms"] /= float(np.abs(cpu["delta_rms"]).max()) + 1e-12
+        errs[f"session {label} {dname}"] = e
+        tol = WIDE_SESSION_TOL[dname]
+        check(all(np.isfinite(v).all() for v in card.values()) and card["msg_logit_mean"].shape == (len(chunks), 16)
+              and all(e[k] <= tol[k] for k in tol),
+              f"{label} {dname} session, {len(chunks)} chunks on the card, the first "
+              f"{WIDE_HOLD_CHUNKS} vs the CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+              + f" (tol {tol}; delta_rms relative)")
+    for dname in ("bfloat16", "float32"):
+        cfg = cfg_of(dname)
+        states = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            states[where] = tr.init_state(cfg, device=device)
+            for name, net in zip(("gen", "det"), nets):
+                getattr(states[where], name).load_state_dict(net.state_dict())
+        with no_tf32():
+            main = tr.init_state(cfg, device=dev)
+            for name, net in zip(("gen", "det"), nets):
+                getattr(main, name).load_state_dict(net.state_dict())
+            t0 = time.perf_counter()
+            terms = tr.train_step(cfg, main, clips.to(dev), message=tmsg.to(dev))
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            check(all(bool(torch.isfinite(v)) for v in terms.values()),
+                  f"{label} {dname} train step, B={b} T={T} on the card: finite loss terms "
+                  f"({step_s:.2f} s with the kernels' first calls)")
+            got = {where: tr.train_step(cfg, states[where], hold.to(device), message=tmsg.to(device))
+                   for where, device in (("card", dev), ("cpu", torch.device("cpu")))}
+        terms_err = max(abs(float(got["card"][k]) - float(v)) / (abs(float(v)) + 1e-12)
+                        for k, v in got["cpu"].items())
+        ga, gb = grad_groups(states["card"]), grad_groups(states["cpu"])
+        drift = {g: float((ga[g] - gb[g]).norm() / (gb[g].norm() + 1e-12)) for g in ga}
+        errs[f"train {label} {dname}"] = {"terms": terms_err, **drift}
+        tol = WIDE_TRAIN_TOL[dname]
+        check(terms_err <= tol["terms"] and max(drift.values()) <= tol["drift"],
+              f"{label} {dname} train step, B={b} T={WIDE_HOLD_T}, card vs CPU: loss terms "
+              f"rel {terms_err:.2e} (tol {tol['terms']:.0e}); gradient drift "
+              + ", ".join(f"{g} {v:.2e}" for g, v in drift.items()) + f" (tol {tol['drift']:.0e})")
+        del states, main
+        torch.cuda.empty_cache()
+    return errs
+
+
+def family_data():
+    """The families' session chunks and messages, train and hold clips and
+    train messages (family_holds' data)."""
+    import torch
+
+    return (speechlike(WIDE_CHUNKS, seed=80), np.random.default_rng(81).integers(0, 2**16, size=WIDE_CHUNKS),
+            torch.from_numpy(speechlike(WIDE_B, seed=82)),
+            torch.from_numpy(speechlike(WIDE_B, seed=83, chunk=WIDE_HOLD_T)),
+            torch.from_numpy(np.random.default_rng(84).integers(0, 2**16, size=WIDE_B)))
+
+
+def plain_counted(K):
+    """Wrap the plain LSTM versions that lstm_kernel routes CPU tensors to so
+    that a call on a CUDA tensor is recorded: (the list of such calls, a
+    function that restores them)."""
+    on_card, wrapped = [], {}
+    for fn_name in ("lstm_forward", "lstm_forward_train", "lstm_backward"):
+        fn = wrapped[fn_name] = getattr(K, fn_name)
+
+        def counted(*args, _fn=fn, _name=fn_name):
+            if args[0].is_cuda:
+                on_card.append(_name)
+            return _fn(*args)
+        setattr(K, fn_name, counted)
+
+    def restore():
+        for fn_name, fn in wrapped.items():
+            setattr(K, fn_name, fn)
+    return on_card, restore
+
+
+def strided_hidden_family(K, launches, dev) -> dict:
+    """The strided family at hidden_dim STRIDED_HIDDEN (two LSTM(24, 24)
+    over 50 steps a chunk: capacity 32 masked, the short forward and the
+    fused backward), checkpoint.seeded_flax_tree weights, counters zeroed
+    just before: family_holds' session of WIDE_CHUNKS chunks and train step
+    at B = WIDE_B, against the CPU.  Every capacity-32 masked instantiation
+    must launch, the plan of the session's and the train step's shapes must
+    take the short and the fused paths, and no plain version may run on a
+    CUDA tensor.  Returns the errors."""
+    import torch
+
+    from awm_tpu_torch.config import get_config
+
+    scfg = get_config("strided")
+    cfg_of = lambda dname: dataclasses.replace(
+        scfg, model=dataclasses.replace(scfg.model, hidden_dim=STRIDED_HIDDEN),
+        train=dataclasses.replace(scfg.train, compute_dtype=dname))
+    zero_counts(K)
+    on_card, restore = plain_counted(K)
+    try:
+        nets = seeded_nets(cfg_of("float32"), seed=STRIDED_HIDDEN)
+        errs = family_holds(K, dev, f"strided family hidden_dim {STRIDED_HIDDEN}", nets, cfg_of, WIDE_B,
+                            family_data(), shaping=scfg.shaping)
+    finally:
+        restore()
+    steps = T // int(np.prod(scfg.model.strides))
+    idx = dev.index or 0
+    for dt in (torch.float32, torch.bfloat16):
+        session, train = (K.device_plan(b, steps, dt, idx, STRIDED_HIDDEN) for b in (WIDE_CHUNKS, WIDE_B))
+        short = dt in K.MASKED_SHORT_DTYPES
+        check(session.fwd_short == train.fwd_short == short and train.bwd_fused,
+              f"strided hidden_dim {STRIDED_HIDDEN} {dt}: the plan at T={steps} takes the "
+              f"{'short' if short else 'ring'} forward (B={WIDE_CHUNKS}, {WIDE_B}) and the fused backward "
+              f"(B={WIDE_B})")
+        for k in K.KERNELS:
+            name = K.instantiation(k, dt, STRIDED_HIDDEN)
+            check(name.endswith("_w32_masked") and K.launches[name] > 0,
+                  f"{name} launched {K.launches[name]} times by the strided family at hidden_dim {STRIDED_HIDDEN}")
+    check(not on_card, f"no plain LSTM version ran on a CUDA tensor in the strided hidden_dim {STRIDED_HIDDEN} "
+                       f"runs ({len(on_card)} calls: {sorted(set(on_card))})")
+    add_counts(K, launches, f"strided hidden_dim {STRIDED_HIDDEN}")
+    return errs
+
+
 def wide_family(K, launches, dev) -> dict:
     """The base family at channels 48 (LSTM(48, 48): capacity 48's squares),
     128 (LSTM(128, 128): the cluster path) and 512 (LSTM(512, 512): the
@@ -3084,82 +3450,17 @@ def wide_family(K, launches, dev) -> dict:
     the errors."""
     import torch
 
-    from awm_tpu_torch import api
-    from awm_tpu_torch import train as tr
-    from awm_tpu_torch.utils.precision import no_tf32
-
-    plain_on_card = []
-    wrapped = {}
-    for fn_name in ("lstm_forward", "lstm_forward_train", "lstm_backward"):
-        fn = getattr(K, fn_name)
-        wrapped[fn_name] = fn
-
-        def counted(*args, _fn=fn, _name=fn_name):
-            if args[0].is_cuda:
-                plain_on_card.append(_name)
-            return _fn(*args)
-        setattr(K, fn_name, counted)
     zero_counts(K)
+    plain_on_card, restore = plain_counted(K)
     errs = {}
-    chunks = speechlike(WIDE_CHUNKS, seed=80)
-    msgs = np.random.default_rng(81).integers(0, 2**16, size=WIDE_CHUNKS)
-    all_clips = torch.from_numpy(speechlike(WIDE_B, seed=82))
-    all_hold = torch.from_numpy(speechlike(WIDE_B, seed=83, chunk=WIDE_HOLD_T))
-    all_tmsg = torch.from_numpy(np.random.default_rng(84).integers(0, 2**16, size=WIDE_B))
+    data = family_data()
     try:
         for c in (*BASE_CHANNELS, WIDE_CHANNELS):
-            b = WIDE_PATH_B if c == WIDE_CHANNELS else WIDE_B
-            clips, hold, tmsg = all_clips[:b], all_hold[:b], all_tmsg[:b]
             nets = seeded_nets(wide_config(c, "float32"), seed=c)
-            for dt, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-                with no_tf32():
-                    card = api.InferenceSession(*nets, compute_dtype=dt, device=dev).embed_detect(chunks, msgs)
-                    cpu = api.InferenceSession(*nets, compute_dtype=dt, device="cpu").embed_detect(
-                        chunks[:WIDE_HOLD_CHUNKS], msgs[:WIDE_HOLD_CHUNKS])
-                e = {k: float(np.abs(card[k][:WIDE_HOLD_CHUNKS] - cpu[k]).max()) for k in cpu}
-                e["delta_rms"] /= float(np.abs(cpu["delta_rms"]).max()) + 1e-12
-                errs[f"session c{c} {label}"] = e
-                tol = WIDE_SESSION_TOL[label]
-                check(all(np.isfinite(v).all() for v in card.values()) and card["msg_logit_mean"].shape == (WIDE_CHUNKS, 16)
-                      and all(e[k] <= tol[k] for k in tol),
-                      f"base family C={c} {label} session, {WIDE_CHUNKS} chunks on the card, the first "
-                      f"{WIDE_HOLD_CHUNKS} vs the CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
-                      + f" (tol {tol}; delta_rms relative)")
-            for label in ("bfloat16", "float32"):
-                cfg = wide_config(c, label)
-                states = {}
-                for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
-                    states[where] = tr.init_state(cfg, device=device)
-                    for name, net in zip(("gen", "det"), nets):
-                        getattr(states[where], name).load_state_dict(net.state_dict())
-                with no_tf32():
-                    main = tr.init_state(cfg, device=dev)
-                    for name, net in zip(("gen", "det"), nets):
-                        getattr(main, name).load_state_dict(net.state_dict())
-                    t0 = time.perf_counter()
-                    terms = tr.train_step(cfg, main, clips.to(dev), message=tmsg.to(dev))
-                    torch.cuda.synchronize()
-                    step_s = time.perf_counter() - t0
-                    check(all(bool(torch.isfinite(v)) for v in terms.values()),
-                          f"base family C={c} {label} train step, B={b} T={T} on the card: finite loss terms "
-                          f"({step_s:.2f} s with the kernels' first calls)")
-                    got = {where: tr.train_step(cfg, states[where], hold.to(device), message=tmsg.to(device))
-                           for where, device in (("card", dev), ("cpu", torch.device("cpu")))}
-                terms_err = max(abs(float(got["card"][k]) - float(v)) / (abs(float(v)) + 1e-12)
-                                for k, v in got["cpu"].items())
-                ga, gb = grad_groups(states["card"]), grad_groups(states["cpu"])
-                drift = {g: float((ga[g] - gb[g]).norm() / (gb[g].norm() + 1e-12)) for g in ga}
-                errs[f"train c{c} {label}"] = {"terms": terms_err, **drift}
-                tol = WIDE_TRAIN_TOL[label]
-                check(terms_err <= tol["terms"] and max(drift.values()) <= tol["drift"],
-                      f"base family C={c} {label} train step, B={b} T={WIDE_HOLD_T}, card vs CPU: loss terms "
-                      f"rel {terms_err:.2e} (tol {tol['terms']:.0e}); gradient drift "
-                      + ", ".join(f"{g} {v:.2e}" for g, v in drift.items()) + f" (tol {tol['drift']:.0e})")
-                del states, main
-                torch.cuda.empty_cache()
+            errs.update(family_holds(K, dev, f"base family C={c}", nets, lambda dname, c=c: wide_config(c, dname),
+                                     WIDE_PATH_B if c == WIDE_CHANNELS else WIDE_B, data))
     finally:
-        for fn_name, fn in wrapped.items():
-            setattr(K, fn_name, fn)
+        restore()
     new = [K.instantiation(k, dt, c) for c in (*BASE_CHANNELS, WIDE_CHANNELS) for k in K.KERNELS
            for dt in (torch.float32, torch.bfloat16)]
     for name in new:
@@ -3237,9 +3538,10 @@ def gates_checks(K, dev) -> None:
 
 def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
     """Phase 4b: wide_checks, rows_checks, gates_checks, cluster_scale_check,
-    wide_main_checks, wide_times, masked64_times, then wide_family with the counters zeroed
-    just before (the functions take only K, launches and dev beside what
-    they fill, so a card-side rehearsal can call them alone)."""
+    wide_main_checks, wide_times, masked64_times, then wide_family and
+    strided_hidden_family, each with the counters zeroed just before (the
+    functions take only K, launches and dev beside what they fill, so a
+    card-side rehearsal can call them alone)."""
     laps = [("checks", time.time())]
     wide_checks(K, dev, max_err, max_rel)
     laps.append(("rows", time.time()))
@@ -3256,6 +3558,8 @@ def widths_phase(K, launches, dev, max_err, max_rel, times) -> dict:
     masked64_times(K, dev, times, max_err, max_rel)
     laps.append(("family", time.time()))
     errs = wide_family(K, launches, dev)
+    laps.append(("strided hidden_dim 24", time.time()))
+    errs.update(strided_hidden_family(K, launches, dev))
     laps.append(("end", time.time()))
     print("widths phase s: " + ", ".join(f"{label} {t1 - t0:.1f}" for (label, t0), (_, t1) in zip(laps, laps[1:])),
           flush=True)
@@ -3823,6 +4127,7 @@ def main() -> int:
 
     width32_checks(K, dev, max_err, max_rel)
     width16_checks(K, dev, max_err, max_rel)
+    masked_small_checks(K, dev, max_err, max_rel)
 
     lap("3 kernels vs plain")
 
@@ -4161,6 +4466,7 @@ def main() -> int:
         with no_tf32():
             ms = cuda_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias), reps=200, warmup=20)
             dev_ms = {name: lstm_device_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias))}
+            queued = {name: queued_ms(lambda: K.lstm_fused_forward(x, w_ih, w_hh, bias))}
             plain_ms = cuda_ms(lambda: lstm_forward(x, w_ih, w_hh, bias), reps=5)
             m = cudnn_lstm(w_ih, w_hh, bias, dtype, dev)
             with torch.inference_mode():
@@ -4184,13 +4490,16 @@ def main() -> int:
                 f"nn.LSTM {sfx} w32 backward")
             dev_ms[fname] = lstm_device_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias))
             dev_ms[bname] = split_total(split)
+            queued[fname] = queued_ms(lambda: K.forward_train_kernel(x, w_ih, w_hh, bias))
+            queued[bname] = queued_ms(lambda: K.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias))
         for n, b, k_ms, p_ms, lib in ((name, B_SERVE, ms, plain_ms, library_ms), (fname, B_TRAIN, f_ms, f_plain, f_lib),
                                       (bname, B_TRAIN, b_ms, b_plain, b_lib)):
             bms, by = bound_ms(n, b, T32)
             lat = latency_bound_ms(T32, W32, clock_mhz)
             times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                        "device_ms": dev_ms[n]}
-            print(f"{n} B={b} T={T32}: kernel {k_ms:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the device), plain "
+                        "device_ms": dev_ms[n], "queued_ms": queued[n]}
+            print(f"{n} B={b} T={T32}: kernel {k_ms:.4f} ms a call ({fmt_ms(dev_ms[n])} of it on the device, "
+                  f"{queued[n]:.4f} ms queued), plain "
                   f"{p_ms:.2f} ms, cuDNN nn.LSTM(32) {lib} ms, bound {bms:.5f} ms ({by}), {T32} dependent "
                   f"steps >= {lat:.5f} ms at {clock_mhz:.0f} MHz", flush=True)
         times[bname]["split_ms"] = split
@@ -4339,15 +4648,19 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # width 16 at the dry run's shape and at the strided training shape
+    # width 16 and 12 x 12 (capacity 16 masked) at the dry run's shape and at
+    # the strided training shape; 24 x 24 (capacity 32 masked, the strided
+    # family at hidden_dim 24) at its main path's (A B_SERVE, B and C B_TRAIN)
     for sfx, dtype in dtypes.items():
-        for b, t in ((DRY_B, DRY_T), (B_TRAIN, T32)):
-            got = lstm_times(K, dtype, b, t, W16, dev, clock_mhz)
-            for n, row in got.items():
-                if (b, t) == (DRY_B, DRY_T):
-                    times[n] = row
-                else:
-                    times[n][f"B{b}_T{t}"] = row
+        for w in (W16, MASKED16):
+            for b, t in ((DRY_B, DRY_T), (B_TRAIN, T32)):
+                got = lstm_times(K, dtype, b, t, w, dev, clock_mhz)
+                for n, row in got.items():
+                    if (b, t) == (DRY_B, DRY_T):
+                        times[n] = row
+                    else:
+                        times[n][f"B{b}_T{t}"] = row
+        times.update(lstm_times(K, dtype, B_TRAIN, T32, MASKED32, dev, clock_mhz, b_fwd=B_SERVE))
     lap("16 timing")
 
     # 16a. where the train step's peak memory goes
@@ -4358,8 +4671,8 @@ def main() -> int:
     kernels = []
     times.update(wide_rows)
     for name, k in KERNELS.items():
-        steps = {W32: T32, W16: DRY_T}.get(k.width, T)
-        batch = DRY_B if k.width == W16 else B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
+        steps = {W32: T32, W16: DRY_T, MASKED32: T32, MASKED16: DRY_T}.get(k.width, T)
+        batch = DRY_B if k.width in (W16, MASKED16) else B_SERVE if k.kernel == "lstm_fwd" else B_TRAIN
         if K.is_wide(k.width):
             plan = K.launch_plan(batch, steps, dtypes[k.sfx], sm_count, k.width,
                                  wide_slots=K._wide_slots(dev.index or 0, dtypes[k.sfx], k.width))

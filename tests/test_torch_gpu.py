@@ -208,17 +208,20 @@ def test_width32_kernels_match_plain(cuda, b, t, dtype, tol_fwd, tol_bwd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("w,b,fused", [(32, 128, True), (32, 300, False), (16, 4, True), (16, 128, True)],
-                         ids=["fused", "four", "w16-fused", "w16-fused-128"])
+@pytest.mark.parametrize("w,b,fused", [(32, 128, True), (32, 300, False), (16, 4, True), (16, 128, True),
+                                      (24, 128, True), (12, 4, True)],
+                         ids=["fused", "four", "w16-fused", "w16-fused-128", "masked32-fused", "masked16-fused"])
 def test_width32_call_launches_its_kernels_alone(cuda, w, b, fused, dtype):
-    """A width-32 (and width-16) call at T=50 from fp32 weights and a dy in
+    """A width-32 (and width-16, and masked 24 x 24 and 12 x 12 on those
+    capacities) call at T=50 from fp32 weights and a dy in
     x's type runs its kernels and nothing beside them (no cast, no fill): A
     and B one kernel each, on the short path the plan takes at T=50
     (lstm_fwd_short_kernel) and forced onto the ring (lstm_fwd_kernel), C
     one where the plan fuses it (width 32 at B=128, one wave; width 16 at
     the dry run's B=4 and at B=128, where the card's reading holds the grid)
     and four where it does not (width 32 at B=300), by torch.profiler's
-    kernel list.  The profiler drops a short window's kernels now and then:
+    kernel list (the short path forced where the plan keeps the masked fp32
+    forward on the ring).  The profiler drops a short window's kernels now and then:
     a trace that holds fewer than the call launches is taken again, three
     times at most, as chip_smoke.py's launched_alone does."""
     from torch.profiler import ProfilerActivity, profile
@@ -227,12 +230,13 @@ def test_width32_call_launches_its_kernels_alone(cuda, w, b, fused, dtype):
     x = x.to(dtype)
     y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias)
     dy = torch.randn(b, 50, w, device=cuda).to(dtype)
-    assert lstm_kernel.device_plan(b, 50, dtype, cuda.index or 0, w).bwd_fused == fused
-    assert lstm_kernel.launch_plan(b, 50, dtype, 132, w).fwd_short
+    plan = lstm_kernel.device_plan(b, 50, dtype, cuda.index or 0, w)
+    assert plan.bwd_fused == fused
+    assert plan.fwd_short == (w in (32, 16) or dtype == torch.bfloat16)  # masked fp32: the ring
     for call, n_kernels, fragment in (
-            (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias), 1, "lstm_fwd_short_kernel"),
+            (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=True), 1, "lstm_fwd_short_kernel"),
             (lambda: lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, short=False), 1, "lstm_fwd_kernel"),
-            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias), 1, "lstm_fwd_short_kernel"),
+            (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, short=True), 1, "lstm_fwd_short_kernel"),
             (lambda: lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, short=False), 1, "lstm_fwd_kernel"),
             (lambda: lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias), 1 if fused else 4, "lstm_bwd")):
         call()
@@ -366,6 +370,130 @@ def test_width16_fused_backward_is_chosen_before_the_launch(cuda, dtype):
         lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1, fused=True)
     assert lstm_kernel.launches[name] == before
     got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, r in zip(got, ref):
+        assert float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12)) <= tol
+    assert lstm_kernel.launches[name] == before + 1
+
+
+# -- masked within capacities 32 and 16: the short forward and the fused backward --
+
+# (D, H): the strided family at hidden_dim 24, the narrowest of capacity 32,
+# D != H both ways, capacity 16 square-ish and D != H.
+MASKED_SMALL = [(24, 24), (17, 17), (20, 32), (32, 20), (12, 12), (9, 3)]
+
+
+def _padded(x, w_ih, w_hh, bias, cap):
+    """The operands zero-padded to capacity cap: x's columns, each gate's
+    rows and the weights' columns (a square call at the capacity)."""
+    d, h = x.shape[2], w_hh.shape[1]
+    pad_w = lambda a, cols: torch.nn.functional.pad(a.view(4, h, cols), (0, cap - cols, 0, cap - h)).reshape(
+        4 * cap, cap)
+    return (torch.nn.functional.pad(x, (0, cap - d)), pad_w(w_ih, d), pad_w(w_hh, h),
+            torch.nn.functional.pad(bias.view(4, h), (0, cap - h)).reshape(4 * cap))
+
+
+@pytest.mark.parametrize("t", [1, 17, 50, 64])
+@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 5e-2, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", MASKED_SMALL, ids=[f"{d}x{h}" for d, h in MASKED_SMALL])
+def test_masked_short_and_fused_paths(cuda, d, h, dtype, tol_fwd, tol_bwd, t):
+    """A masked call of capacity 32 or 16 at T <= 64 on the short forward
+    (rows 1, 2, 4) and the fused backward (rows 1, 2), B = 7 (a ragged last
+    block): against the plain versions at KERNEL_TOL; A and B with the
+    masked ring's bits; A, B and C with the bits of the square call on
+    operands zero-padded to the capacity, whose padded outputs are exactly
+    0 (C's dx, dW and db are that call's sums: the capacity's layout, each
+    padded term +0); C twice the same bits.  At capacity 16 C's db is held
+    to the masked four launches' instead: the square fused kernel's own
+    recurrence rounds a few gates in the last bit unlike its four-launch
+    recurrence, which the masked ones share.  Each call counts once on the
+    masked counter (the four launches' too)."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    b, cap = 7, lstm_kernel.capacity(d, h)
+    x, w_ih, w_hh, bias = _inputs(b, t, cuda, seed=d * 100 + h + t, w=d, h=h)
+    x = x.to(dtype)
+    dy = torch.randn(b, t, h, device=cuda, generator=torch.Generator(cuda).manual_seed(t)).to(dtype)
+    xp, wi, wh, bp = _padded(x, w_ih, w_hh, bias, cap)
+    dyp = torch.nn.functional.pad(dy, (0, cap - h))
+    with no_tf32():
+        ref_y, ref_c = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref_g = lstm_backward(x, ref_y, ref_c, dy, w_ih, w_hh, bias)
+    names = {k: lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS}
+    assert all(n.endswith(f"_w{cap}_masked") for n in names.values())
+    plan = lstm_kernel.device_plan(b, t, dtype, cuda.index or 0, d, h)
+    assert plan.bwd_fused and plan.fwd_short == (dtype == torch.bfloat16)  # masked fp32 A and B: the ring
+    before = {n: lstm_kernel.launches[n] for n in names.values()}
+    for rows in lstm_kernel.FWD_ROWS:
+        y0 = lstm_kernel.forward_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+        y, cprev = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=True)
+        ring_y, ring_c = lstm_kernel.forward_train_kernel(x, w_ih, w_hh, bias, rows=rows, short=False)
+        pad_y, pad_c = lstm_kernel.forward_train_kernel(xp, wi, wh, bp, rows=rows, short=True)
+        torch.cuda.synchronize()
+        assert y0.shape == (b, t, h) and y0.dtype == dtype and torch.equal(y0, y), rows
+        assert float((y0.float() - ref_y.float()).abs().max()) <= tol_fwd, rows
+        assert float((cprev - ref_c).abs().max()) <= tol_fwd, rows
+        assert torch.equal(y, ring_y) and torch.equal(cprev, ring_c), rows
+        assert torch.equal(y, pad_y[..., :h]) and torch.equal(cprev, pad_c[..., :h]), rows
+        assert float(pad_y[..., h:].float().abs().max() if h < cap else 0) == 0.0
+    ypad, cpad = (torch.nn.functional.pad(v, (0, cap - h)) for v in (ref_y, ref_c))
+    for rows in lstm_kernel.BWD_ROWS:
+        got = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=True)
+        again = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=True)
+        pad = lstm_kernel.backward_kernel(xp, ypad, cpad, dyp, wi, wh, bp, rows=rows, fused=True)
+        torch.cuda.synchronize()
+        assert tuple(got[0].shape) == (b, t, d) and tuple(got[1].shape) == (4 * h, d)
+        for name, a, r, a2 in zip(("dx", "dw_ih", "dw_hh", "db"), got, ref_g, again):
+            rel = float((a.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-12))
+            assert rel <= tol_bwd, (name, rows, rel)
+            assert torch.equal(a, a2), (name, rows)
+        dwi, dwh, dbp = pad[1].view(4, cap, cap), pad[2].view(4, cap, cap), pad[3].view(4, cap)
+        if cap == 32:
+            assert torch.equal(got[0], pad[0][..., :d]), rows
+            assert torch.equal(got[1], dwi[:, :h, :d].reshape(4 * h, d)), rows
+            assert torch.equal(got[2], dwh[:, :h, :h].reshape(4 * h, h)), rows
+            assert torch.equal(got[3], dbp[:, :h].reshape(4 * h)), rows
+        else:  # the fused recurrence's da is the masked four launches' (db: the blocks summed in order)
+            four = lstm_kernel.backward_kernel(x, ref_y, ref_c, dy, w_ih, w_hh, bias, rows=rows, fused=False)
+            assert torch.equal(got[3], four[3]), rows
+        for zero in (pad[0][..., d:], dwi[:, h:], dwi[:, :, d:], dwh[:, h:], dwh[:, :, h:], dbp[:, h:]):
+            assert zero.numel() == 0 or float(zero.float().abs().max()) == 0.0, rows
+    n_fwd = len(lstm_kernel.FWD_ROWS)  # A once, B short and ring a rows; C twice (three times at 16)
+    n_bwd = (2 if cap == 32 else 3) * len(lstm_kernel.BWD_ROWS)
+    assert [lstm_kernel.launches[n] - before[n] for n in names.values()] == [n_fwd, 2 * n_fwd, n_bwd]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", [(24, 24), (12, 12)], ids=["24x24", "12x12"])
+def test_masked_fused_backward_is_chosen_before_the_launch(cuda, d, h, dtype):
+    """The batch just past the fused grid the plan counts on (capacity 32:
+    one block an SM; 16: the masked instantiation's occupancy reading)
+    takes the four launches, the batch before it the fused launch; a
+    cooperative launch forced one block past what the card holds of the
+    masked instantiation raises and counts nothing; the four launches there
+    match the plain version."""
+    from awm_tpu_torch.ops.lstm import lstm_backward, lstm_forward_train
+
+    idx, cap = cuda.index or 0, lstm_kernel.capacity(d, h)
+    plan = lambda b: lstm_kernel.device_plan(b, 50, dtype, idx, d, h)
+    edge = next(b for b in range(2, 1 << 14) if not plan(b).bwd_fused)
+    assert plan(edge - 1).bwd_fused and not plan(edge).bwd_fused
+    reading = lstm_kernel._fused_slots(idx, dtype, cap, 50, True)
+    b = reading[0] + 1  # one row past what the card holds at one row a block
+    x, w_ih, w_hh, bias = _inputs(b, 50, cuda, seed=31, w=d, h=h)
+    x = x.to(dtype)
+    dy = torch.randn(b, 50, h, device=cuda, generator=torch.Generator(cuda).manual_seed(32)).to(dtype)
+    with no_tf32():
+        y, cprev = lstm_forward_train(x, w_ih, w_hh, bias)
+        ref = lstm_backward(x, y, cprev, dy, w_ih, w_hh, bias)
+    name = lstm_kernel.instantiation("lstm_bwd", dtype, d, h)
+    before = lstm_kernel.launches[name]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1, fused=True)
+    assert lstm_kernel.launches[name] == before
+    got = lstm_kernel.backward_kernel(x, y, cprev, dy, w_ih, w_hh, bias, rows=1, fused=False)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     for a, r in zip(got, ref):

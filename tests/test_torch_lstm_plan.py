@@ -316,10 +316,22 @@ def _source_constants() -> dict[str, int]:
 BLOCK_SMEM_OPTIN = 232448  # the most shared memory one block may ask for on an H100: 227 KB
 
 
+def _launch_smem(source: str, kernel: str) -> list[str]:
+    """The dynamic shared memory argument of every <<<...>>> launch of
+    `kernel` (by the name it is launched under) in ops/csrc/<source>.cu."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", f"{source}.cu")) as f:
+        text = f.read()
+    return re.findall(rf"\b{kernel}\s*<<<[^,]+,[^,]+,\s*(.*?),\s*\(cudaStream_t\)stream>>>", text, re.S)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["square", "masked"])
 @pytest.mark.parametrize("rows", lstm_kernel.FWD_ROWS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("width", lstm_kernel.SHORT_WIDTHS)
-def test_short_path_shared_memory_fits_at_its_bound(width, dtype, rows):
+def test_short_path_shared_memory_fits_at_its_bound(width, dtype, rows, masked):
     """The short path's buffers, by the layout and constants of
     lstm_fwd.cu (its fwd_short_smem_bytes): x's mbarrier in SHORT_HEADER
     bytes, a multiple of 16 that holds its 8; xp, each row's T steps of 4W +
@@ -350,6 +362,14 @@ def test_short_path_shared_memory_fits_at_its_bound(width, dtype, rows):
     assert got <= BLOCK_SMEM_OPTIN
     assert all(smem(rows, steps) < got for steps in (1, 17, 50))
     assert rows == 4 or got < smem(4, bound)
+    # the square and the masked instantiation launch under one selector with
+    # the capacity's buffers (no D or H in the size), and a masked x landing
+    # contiguous in xp's space fits it: R T D values of the operand type
+    assert _launch_smem("lstm_fwd", "kernel") == ["fwd_short_smem_bytes<T, R, W>(steps)", "smem"]
+    if masked:
+        for steps in (1, 17, 50, bound):
+            xp_bytes = rows * (steps * step_floats + (8 - steps * step_floats) % 32) * 4
+            assert rows * steps * (width - 1) * elt <= xp_bytes
 
 
 def _fused_pads() -> dict[str, int]:
@@ -387,10 +407,58 @@ def fused_smem(width: int, rows: int, steps: int, bf16: bool) -> int:
     return -(-rec // 16) * 16 + elt * (nrp * (dap + vp) + (w * dap if bf16 and w == 32 else 0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [17, 24, 31])
+def test_short_x_copy_routes_give_the_same_rows(d, dtype):
+    """A masked short call's x copy at capacity 32, on a numpy model of the
+    kernel's two routes: lstm_kernel.short_x_tma is lstm_fwd.cu's rule (a
+    row's T D values whole 16-byte pieces); where it takes the TMA, every
+    block's span (R rows from row0) starts and ends 16-byte aligned, and
+    the span lands contiguous, then each value moves to its padded row;
+    where it refuses, some block's span would break that, and plain loads
+    fill the padded rows from device memory.  Both give the same bytes: x
+    at columns < D of rows of XP (W + 8 in bf16, W in fp32), zeros at D ..
+    W - 1, rows past the block's zero."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", "lstm_fwd.cu")) as f:
+        rule = r"constexpr bool short_x_tma\(int steps, int d, int elt\) \{ return steps \* d \* elt % 16 == 0; \}"
+        assert re.search(rule, f.read())
+    bf16, cap = dtype == torch.bfloat16, 32
+    elt, xpw = (2, cap + 8) if bf16 else (4, cap)
+    gen = torch.Generator().manual_seed(d)
+    routes = set()
+    for steps in (1, 17, 32, 50, 64):
+        tma = lstm_kernel.short_x_tma(steps, d, bf16)
+        assert tma == (steps * d * elt % 16 == 0) and lstm_kernel.short_x_tma(steps, cap, bf16)
+        routes.add(tma)
+        for rows, batch in ((1, 3), (2, 5), (4, 7)):
+            x = torch.randn(batch, steps, d, generator=gen).to(dtype)
+            flat = x.reshape(-1).view(torch.int16 if bf16 else torch.int32).numpy()  # x's bytes, a value an element
+            spans = []
+            for row0 in range(0, batch, rows):
+                nrows = min(rows, batch - row0)
+                start, n = row0 * steps * d, nrows * steps * d
+                spans.append(start * elt % 16 == 0 and n * elt % 16 == 0)
+                via_tma = np.zeros((rows * steps + 8, xpw), flat.dtype)
+                via_loads = np.zeros_like(via_tma)
+                landed = flat[start:start + n].copy()  # the TMA's contiguous copy in xp's space
+                via_tma[:nrows * steps, :d] = landed.reshape(-1, d)
+                via_loads[:nrows * steps, :d] = flat.reshape(-1, d)[start // d:start // d + nrows * steps]
+                assert via_tma.tobytes() == via_loads.tobytes()
+                want = x[row0:row0 + nrows].reshape(-1, d)
+                got = torch.from_numpy(via_tma[:nrows * steps, :d].copy()).view(dtype)
+                assert torch.equal(got, want) and not via_tma[:, d:cap].any() and not via_tma[nrows * steps:].any()
+            assert all(spans) if tma else not all(spans), (steps, rows, batch)
+    assert routes == ({True, False} if d != 24 else {True})
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["square", "masked"])
 @pytest.mark.parametrize("rows", lstm_kernel.BWD_ROWS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("width", lstm_kernel.FUSED_WIDTHS)
-def test_fused_backward_shared_memory_fits_at_its_bound(width, dtype, rows):
+def test_fused_backward_shared_memory_fits_at_its_bound(width, dtype, rows, masked):
     """The fused backward's shared memory (lstm_bwd.cu's fused_smem_bytes,
     copied above) at the plan's FUSED_MAX_STEPS stays under the 227 KB a
     block may opt in to on an H100 at both rows variants and both widths; it
@@ -414,6 +482,16 @@ def test_fused_backward_shared_memory_fits_at_its_bound(width, dtype, rows):
             assert sorted(r * words % 32 for r in range(8)) == list(range(0, 32, 4))
     if not bf16 and rows == 2:
         assert got == {16: 80384, 32: 172544}[width]
+    # the masked instantiation launches with the capacity's size (no D or H
+    # in it): one cooperative launch site for both, fused_smem_bytes<T, R, W>
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(lstm_kernel.__file__), "csrc", "lstm_bwd.cu")) as f:
+        text = f.read()
+    assert re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)lstm_bwd_fused_kernel<T, R, W, MASKED>,"
+                      r"[^;]*fused_smem_bytes<T, R, W>\(a\.steps\)", text, re.S)
+    assert f"launch_fused<T, {rows}, W, {'true' if masked else 'false'}>" in text
 
 
 @pytest.mark.parametrize("missing", [(), (1, 4)], ids=["all", "some_missing"])
@@ -523,9 +601,12 @@ CLUSTER = [(96, 96), (128, 128), (256, 256), (200, 8), (8, 200), (130, 70)]
 @pytest.mark.parametrize("d,h", MASKED + CLUSTER)
 def test_plan_at_every_new_width(d, h, dtype):
     """A width that is not a capacity's square takes the smallest capacity
-    with max(D, H) <= W, the ring forward and the four-launch backward (the
-    short path and the fused backward are built for D = H = 32 only), its
-    capacity's measured costs at the blocks an SM runs; above 64 the cluster
+    with max(D, H) <= W; within capacities 32 and 16 at T <= 64 the fused
+    backward where the grid fits and, in bf16 (MASKED_SHORT_DTYPES), the
+    short forward, as their square calls do (the short path's measured
+    costs for the forward's rows), else the ring forward and the four-launch
+    backward, its capacity's measured costs at the blocks an SM runs; above
+    64 the cluster
     path, ceil(H / 32) CTAs a cluster, sm_count // K clusters a wave, rows
     by the cluster path's measured costs at that K (where none is measured,
     the fewest rows that fit one wave).  Scratch at the real widths: da (B,
@@ -543,7 +624,9 @@ def test_plan_at_every_new_width(d, h, dtype):
             assert plan.da_shape == (batch, window, 4 * h) and plan.da_dtype == dtype
             assert plan.part_shape == (plan.n_chunks, 4 * h, d + h)
             assert plan.db_part_shape == (plan.bwd_blocks, 4 * h)
-            assert not plan.fwd_short and not plan.bwd_fused
+            small = max(d, h) <= 32 and steps <= 64
+            assert plan.fwd_short == (small and dtype == torch.bfloat16)
+            assert plan.bwd_fused == (small and plan.bwd_blocks <= 132)
             for rows, blocks in ((plan.fwd_rows, plan.fwd_blocks), (plan.bwd_rows, plan.bwd_blocks)):
                 assert blocks * rows >= batch > (blocks - 1) * rows
             names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
@@ -561,7 +644,8 @@ def test_plan_at_every_new_width(d, h, dtype):
                 assert all(n.endswith("_masked") for n in names) == (not d == h == cap)
                 assert plan.rec_shape is None
                 slots = (132 * lstm_kernel.BLOCKS_PER_SM.get((cap, dtype), 1),) * 2
-                costs = (lstm_kernel.FWD_STEP_COST[cap, dtype], lstm_kernel.BWD_STEP_COST[cap, dtype])
+                costs = ((lstm_kernel.SHORT_STEP_COST if plan.fwd_short else lstm_kernel.FWD_STEP_COST)[cap, dtype],
+                         lstm_kernel.BWD_STEP_COST[cap, dtype])
             for rows, cost, at_once in zip((plan.fwd_rows, plan.bwd_rows), costs, slots):
                 waves = lambda r: -(-(-(-batch // r)) // at_once)
                 if cost is None:  # no cost measured at this K: the fewest rows that fit one wave
@@ -572,6 +656,42 @@ def test_plan_at_every_new_width(d, h, dtype):
             for name in names:
                 assert name in lstm_kernel.launches
                 assert lstm_kernel.entry_point(name) == "awm_" + name.removesuffix("_masked")
+
+
+# (D, H) at the edges of capacities 32 and 16, masked: the widest masked
+# squares, one unit short of the capacity either way, a width of one.
+MASKED_EDGES = [(31, 31), (32, 31), (1, 32), (15, 16), (16, 15)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,h", MASKED_EDGES, ids=[f"{d}x{h}" for d, h in MASKED_EDGES])
+def test_masked_short_and_fused_at_the_boundaries(d, h, dtype):
+    """A masked call of capacity 32 or 16 takes the fused backward at T <=
+    64 where the grid fits (a fused-slots reading given: the reading's
+    blocks at the plan's rows; withheld: one block an SM), the four launches
+    past it and at 65; in bf16 the short forward at T = 1 and 64, the ring at
+    65, and in fp32 the ring at every T (MASKED_SHORT_DTYPES: the masked fp32
+    short path measured slower than the ring).  Its names are the capacity's
+    masked counters; its backward's rows and path and, in bf16, its
+    forward's are the square call's at the same capacity (the plan reads no
+    width but the capacity on these paths); scratch at the real widths."""
+    cap = 32 if max(d, h) > 16 else 16
+    names = [lstm_kernel.instantiation(k, dtype, d, h) for k in lstm_kernel.KERNELS]
+    assert names == [f"{k}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_w{cap}_masked" for k in lstm_kernel.KERNELS]
+    for steps in (1, 64, 65):
+        within = steps <= 64
+        for reading in (None, (264, 132), (7, 3), (0, 0)):
+            for batch in (1, 7, 132, 133, 265):
+                plan = launch_plan(batch, steps, dtype, 132, d, None, h, fused_slots=reading)
+                square = launch_plan(batch, steps, dtype, 132, cap, fused_slots=reading)
+                bf16 = dtype == torch.bfloat16
+                assert plan.capacity == cap and plan.fwd_short == (within and bf16)
+                at_once = 132 if reading is None else dict(zip(lstm_kernel.BWD_ROWS, reading))[plan.bwd_rows]
+                assert plan.bwd_fused == (within and plan.bwd_blocks <= at_once), (steps, reading, batch)
+                assert (plan.bwd_fused, plan.bwd_rows) == (square.bwd_fused, square.bwd_rows)
+                if bf16 or not within:
+                    assert (plan.fwd_short, plan.fwd_rows) == (square.fwd_short, square.fwd_rows)
+                assert plan.da_shape == (batch, steps, 4 * h) and plan.part_shape[1:] == (4 * h, d + h)
 
 
 def test_square_widths_keep_their_instantiations():

@@ -241,9 +241,12 @@ def _bf16_tol(dtype, w, name, tol):
 # the widths the kernels take masked (48 x 48, the base family at channels
 # 48; 40 x 24, D != H), on the cluster path (96 x 96, 128 x 128, the base
 # family at channels 128) and on the wide path past 256 (257 x 257, one unit
-# past a 16-unit CTA; 300 x 300, a ragged last CTA; 40 x 600, D != H), as
-# (D, H) at T=32.
-NEW_WIDTHS = [(48, 48), (40, 24), (96, 96), (128, 128), (257, 257), (300, 300), (40, 600)]
+# past a 16-unit CTA; 300 x 300, a ragged last CTA; 40 x 600, D != H), and
+# masked within capacities 32 and 16, which the short forward and the fused
+# backward take at T <= 64 (24 x 24, the strided family at hidden_dim 24;
+# 20 x 32; 12 x 12), as (D, H) at T=32.
+NEW_WIDTHS = [(48, 48), (40, 24), (96, 96), (128, 128), (257, 257), (300, 300), (40, 600), (24, 24), (20, 32),
+              (12, 12)]
 TRAIN_CASES = [pytest.param(torch.float32, 64, 128, id="f32"),
                pytest.param(torch.bfloat16, 64, 128, id="bf16"),
                pytest.param(torch.float32, *W32, id="f32-w32"),
